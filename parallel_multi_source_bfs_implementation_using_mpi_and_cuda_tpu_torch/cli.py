@@ -1,0 +1,279 @@
+"""CLI driver — the reference contract, on the CUDA device.
+
+``python -m parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch
+-g <graph.bin> -q <query.bin> -gn <numGPU>``, kept exactly as the JAX
+package's cli.py keeps it (reference main.cu:195-422): hand-rolled argv
+scan, unknown flags ignored, ``-gn`` defaulting to 1 and clamped to the
+cards present but reported as given; usage errors return -1; the 7-line
+report with the 1-based winner and 9-decimal times.
+
+Routes ported so far: the stencil route — road-class graphs with a banded
+adjacency (auto), or ``MSBFS_BACKEND=stencil`` — on one device, with the
+sub-batch split for wide batches and the supervisor's watchdog/retry.
+Every other route or mode of the JAX CLI exits 1 with a one-line message
+naming it as not yet ported; none of them silently runs something else.
+
+``main(argv, device=None)`` runs on ``cuda`` and raises when there is no
+card; ``device="cpu"`` runs the kernels' plain torch versions (tests).
+"""
+
+from __future__ import annotations
+
+import sys
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from .utils import knobs
+
+# Subcommands of the JAX CLI that dispatch before the reference grammar.
+_SUBCOMMANDS = ("serve", "query", "fleet", "health", "trace", "verify", "analyze")
+
+# Levels per dispatch for the auto bound of the gather engines (the JAX
+# package's value); the stencil route replaces it with its own.
+_AUTO_LEVEL_CHUNK = 128
+
+
+def parse_args(argv: List[str]):
+    """Linear argv scan, reference-exact (main.cu:216-224)."""
+    graph_file: Optional[str] = None
+    query_file: Optional[str] = None
+    num_gpu = 1
+    i = 1
+    while i < len(argv):
+        if argv[i] == "-g" and i + 1 < len(argv):
+            i += 1
+            graph_file = argv[i]
+        elif argv[i] == "-q" and i + 1 < len(argv):
+            i += 1
+            query_file = argv[i]
+        elif argv[i] == "-gn" and i + 1 < len(argv):
+            i += 1
+            try:
+                num_gpu = int(argv[i])
+            except ValueError:
+                num_gpu = 0  # atoi semantics: non-numeric -> 0
+        i += 1
+    return graph_file, query_file, num_gpu
+
+
+def _road_class(graph) -> bool:
+    """Deep-BFS degree profile (road networks/grids): low max and mean
+    degree.  Routes auto runs to the stencil probe."""
+    if graph.n == 0 or graph.num_directed_edges == 0:
+        return False
+    mean_deg = graph.num_directed_edges / graph.n
+    return int(graph.degrees.max()) <= 64 and mean_deg <= 8.0
+
+
+_UNSET = object()
+
+
+def _explicit_level_chunk() -> Optional[int]:
+    """Parsed MSBFS_LEVEL_CHUNK, or None when unset/empty or malformed
+    (a malformed value warns and keeps the auto bound)."""
+    raw = knobs.raw("MSBFS_LEVEL_CHUNK")
+    if raw is None or raw == "":
+        return None
+    try:
+        return int(raw)
+    except ValueError:
+        print(
+            f"MSBFS_LEVEL_CHUNK={raw!r} is not an integer; "
+            "using the auto bound",
+            file=sys.stderr,
+        )
+        return None
+
+
+def _level_chunk_policy(graph, explicit=_UNSET) -> Optional[int]:
+    """Levels between host syncs (None = one run to convergence): an
+    explicit positive MSBFS_LEVEL_CHUNK wins, 0 disables the bound, a
+    negative value warns and keeps the auto bound."""
+    if explicit is _UNSET:
+        explicit = _explicit_level_chunk()
+    if explicit is not None:
+        if explicit > 0:
+            return explicit
+        if explicit == 0:
+            return None
+        print(
+            f"MSBFS_LEVEL_CHUNK={explicit} is negative; "
+            "using the auto bound (0 disables)",
+            file=sys.stderr,
+        )
+    if graph.n == 0 or graph.num_directed_edges == 0:
+        return None
+    return _AUTO_LEVEL_CHUNK
+
+
+def _resolve_device(device) -> torch.device:
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: this CLI runs on the GPU (device='cpu' "
+                "runs the plain versions, for tests)"
+            )
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(device)
+
+
+def _unported_knob() -> Optional[str]:
+    """The first knob set to a route or mode the port does not have."""
+    backend = knobs.raw("MSBFS_BACKEND", "auto")
+    if backend not in ("auto", "stencil"):
+        return f"MSBFS_BACKEND={backend}"
+    if knobs.raw("MSBFS_STENCIL", "") == "0":
+        return "MSBFS_STENCIL=0 (the bitbell route)"
+    for name in ("MSBFS_FAULTS", "MSBFS_CHECKPOINT", "MSBFS_MESH"):
+        if knobs.raw(name, ""):
+            return name
+    if knobs.raw("MSBFS_STATS", "") in ("1", "2"):
+        return "MSBFS_STATS"
+    if knobs.raw("MSBFS_WEIGHTED", "") == "1":
+        return "MSBFS_WEIGHTED=1 (the weighted route)"
+    return None
+
+
+def main(argv: Optional[List[str]] = None, device=None) -> int:
+    from .runtime.supervisor import (
+        ChunkSupervisor,
+        InputError,
+        MsbfsError,
+        RetryPolicy,
+        classify,
+    )
+    from .utils.report import format_failure
+
+    argv = list(sys.argv if argv is None else argv)
+
+    def not_ported(what: str) -> int:
+        err = InputError(f"{what} is not yet ported to the PyTorch/CUDA package")
+        print(format_failure(err), end="", file=sys.stderr)
+        return err.exit_code
+
+    if len(argv) > 1 and argv[1] in _SUBCOMMANDS:
+        return not_ported(f"the {argv[1]!r} subcommand")
+    if len(argv) < 5:  # argc < 5, reference main.cu:204-212
+        print(
+            f"Usage: python {argv[0] if argv else 'main.py'} "
+            "-g <graph.bin> -q <query.bin> -gn <numChips>",
+            file=sys.stderr,
+        )
+        return -1
+    graph_file, query_file, num_gpu = parse_args(argv)
+    if graph_file is None or query_file is None:
+        print("Missing -g or -q argument", file=sys.stderr)
+        return -1
+    dev = _resolve_device(device)
+    unported = _unported_knob()
+    if unported:
+        return not_ported(unported)
+
+    from .ops.packed import SubBatchEngine
+    from .ops.stencil import AUTO_STENCIL_LEVEL_CHUNK, StencilEngine, StencilGraph
+    from .utils.io import load_graph_bin, load_query_bin, pad_queries
+    from .utils.report import format_report
+    from .utils.timing import Span, reset_dispatch_count
+
+    # ---- preprocessing span: load + layout + upload + kernel build/warm-up
+    # (main.cu:235-298; the reference compiles its kernels offline).
+    with Span() as pre:
+        try:
+            graph = load_graph_bin(graph_file)
+        except (IOError, OSError, ValueError, IndexError) as exc:
+            err = classify(exc)
+            print(f"Could not open graph file {graph_file}", file=sys.stderr)
+            print(format_failure(err), end="", file=sys.stderr)
+            return err.exit_code
+        try:
+            queries = load_query_bin(query_file)
+        except (IOError, OSError, ValueError, IndexError) as exc:
+            err = classify(exc)
+            print(f"Could not open query file {query_file}", file=sys.stderr)
+            print(format_failure(err), end="", file=sys.stderr)
+            return err.exit_code
+        padded = pad_queries(queries)
+        cards = torch.cuda.device_count() if dev.type == "cuda" else 1
+        n_chips = max(1, min(num_gpu, cards))
+        if n_chips > 1:
+            return not_ported(f"-gn {num_gpu} on {cards} cards (multi-device)")
+        explicit_chunk = _explicit_level_chunk()
+        level_chunk = _level_chunk_policy(graph, explicit_chunk)
+        megachunk = 1 if (explicit_chunk is not None and explicit_chunk > 0) else None
+        backend = knobs.raw("MSBFS_BACKEND", "auto")
+        if backend == "auto" and not _road_class(graph):
+            return not_ported("the bitbell route (graph is not road-class)")
+        try:
+            sg = StencilGraph.from_host(graph, dev)
+        except ValueError as exc:
+            if backend == "stencil":
+                print(str(exc), file=sys.stderr)
+                return 1
+            return not_ported(f"the bitbell route ({exc})")
+        # An explicit MSBFS_LEVEL_CHUNK wins; a negative one lands on the
+        # stencil auto bound, not the gather engines' 128.
+        stencil_chunk = (
+            level_chunk
+            if explicit_chunk is not None and explicit_chunk >= 0
+            else (AUTO_STENCIL_LEVEL_CHUNK if level_chunk else None)
+        )
+        print(
+            "banded adjacency detected: stencil engine "
+            f"({len(sg.offsets)} offsets, "
+            f"{int(sg.res_src.shape[0])} residual edges, "
+            f"{stencil_chunk or 'unbounded'} levels/dispatch; "
+            "MSBFS_STENCIL=0 disables)",
+            file=sys.stderr,
+        )
+        engine = StencilEngine(sg, level_chunk=stencil_chunk, megachunk=megachunk)
+        subbatch_k = knobs.get_int("MSBFS_SUBBATCH_K", 256)
+        if subbatch_k > 0 and padded.shape[0] > subbatch_k:
+            print(
+                f"wide batch: splitting {padded.shape[0]} queries into "
+                f"{subbatch_k}-wide sub-batches (MSBFS_SUBBATCH_K=0 "
+                "disables)",
+                file=sys.stderr,
+            )
+            engine = SubBatchEngine(engine, batch_k=subbatch_k)
+        engine = ChunkSupervisor(
+            engine,
+            policy=RetryPolicy(
+                max_retries=knobs.get_int("MSBFS_RETRIES", 2),
+                base_delay=knobs.get_float("MSBFS_BACKOFF", 0.1),
+                seed=knobs.get_int("MSBFS_FAULT_SEED", 0),
+            ),
+            watchdog=knobs.get_float("MSBFS_WATCHDOG", 0.0) or None,
+        )
+        try:
+            engine.compile(padded.shape)
+        except MsbfsError as err:
+            print(format_failure(err, engine.events), end="", file=sys.stderr)
+            return err.exit_code
+
+    # ---- computation span: all BFS + objective + argmin (main.cu:301-400).
+    reset_dispatch_count()
+    try:
+        with Span() as comp:
+            min_f, min_k = engine.best(np.asarray(padded))
+    except MsbfsError as err:
+        print(format_failure(err, engine.events), end="", file=sys.stderr)
+        return err.exit_code
+
+    sys.stdout.write(
+        format_report(
+            graph_path=graph_file,
+            query_path=query_file,
+            min_k=min_k,
+            min_f=min_f,
+            num_gpu=num_gpu,
+            preprocessing_time=pre.seconds,
+            computation_time=comp.seconds,
+        )
+    )
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,44 @@
+// Shared by the port's hand-written kernels (one shared library per .cu,
+// each with a plain C interface loaded through ctypes).
+//
+// Bit planes are int32 tensors on the PyTorch side and uint32 here: query
+// 32w+b is bit b of word w of a vertex's row, so shifts are logical and bit
+// 31 needs no masking.
+//
+// Level-loop control lives on the device, so the host can enqueue a whole
+// chunk of levels without waiting on any of them:
+//   ctrl[0] = updated  (the previous level discovered something)
+//   ctrl[1] = level    (levels applied so far)
+//   ctrl[2] = blocks of the running level_apply launch that have finished
+// A launch whose level must not run (converged, or level >= max_levels)
+// returns at once, which is what makes launches after convergence no-ops.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace msbfs {
+
+constexpr int kThreads = 256;
+// Grid-stride loops over at most this many blocks: enough resident warps
+// to stream device memory on 132 SMs, and cheap to launch when the level
+// is gated off.
+constexpr long long kMaxBlocks = 132 * 8;
+
+__device__ __forceinline__ bool level_go(const int* ctrl, int max_levels) {
+  // __ldcg: read through L2 — ctrl is rewritten by the previous launch.
+  return __ldcg(ctrl) != 0 && __ldcg(ctrl + 1) < max_levels;
+}
+
+inline int grid_for(long long items, int per_block) {
+  long long blocks = (items + per_block - 1) / per_block;
+  if (blocks < 1) blocks = 1;
+  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+  return static_cast<int>(blocks);
+}
+
+}  // namespace msbfs
+
+extern "C" const char* msbfs_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

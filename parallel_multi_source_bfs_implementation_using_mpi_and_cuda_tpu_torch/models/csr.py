@@ -1,0 +1,64 @@
+"""Host-side CSR of an undirected graph (NumPy).
+
+Reproduces the reference's adjacency exactly (main.cu:106-129): every
+undirected edge record (u, v) is inserted in both adjacency lists, in file
+order, duplicates and self-loops preserved.  ``row_offsets`` is int64 so
+2m > 2^31 cannot overflow (the reference uses int, main.cu:119-121).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+
+@dataclasses.dataclass
+class CSRGraph:
+    """``m`` undirected edge records; the CSR holds ``2m`` directed slots."""
+
+    n: int
+    m: int
+    row_offsets: np.ndarray  # (n+1,) int64
+    col_indices: np.ndarray  # (2m,) int32
+
+    @property
+    def num_directed_edges(self) -> int:
+        return int(self.row_offsets[-1])
+
+    @property
+    def degrees(self) -> np.ndarray:
+        return np.diff(self.row_offsets)
+
+    @staticmethod
+    def from_edges(n: int, edges: np.ndarray) -> "CSRGraph":
+        """Build CSR from an (m, 2) int array of undirected edge records:
+        for record i = (u, v), v is appended to adj[u] and u to adj[v], in
+        file order — a stable sort of the interleaved directed sequence
+        [(u0,v0),(v0,u0),(u1,v1),...] by source."""
+        edges = np.asarray(edges)
+        m = edges.shape[0]
+        if m and (edges.min() < 0 or edges.max() >= n):
+            # The reference indexes adj[u]/adj[v] unchecked (main.cu:114-115)
+            # — undefined behavior on a corrupt file; fail loudly instead.
+            raise ValueError(f"edge endpoint out of range [0, {n})")
+        if m == 0:
+            return CSRGraph(
+                n=n,
+                m=0,
+                row_offsets=np.zeros(n + 1, dtype=np.int64),
+                col_indices=np.zeros(0, dtype=np.int32),
+            )
+        src = np.empty(2 * m, dtype=np.int64)
+        dst = np.empty(2 * m, dtype=np.int32)
+        src[0::2] = edges[:, 0]
+        src[1::2] = edges[:, 1]
+        dst[0::2] = edges[:, 1]
+        dst[1::2] = edges[:, 0]
+        counts = np.bincount(src, minlength=n).astype(np.int64)
+        row_offsets = np.zeros(n + 1, dtype=np.int64)
+        np.cumsum(counts, out=row_offsets[1:])
+        order = np.argsort(src, kind="stable")
+        return CSRGraph(
+            n=n, m=m, row_offsets=row_offsets, col_indices=dst[order]
+        )

@@ -1,0 +1,77 @@
+"""Seeded graph and query generators (NumPy ``default_rng`` streams).
+
+The same seed gives the same graph as the JAX package's generators, so a
+fixture built here can be held against either package.
+"""
+
+from __future__ import annotations
+
+from typing import List, Tuple
+
+import numpy as np
+
+
+def grid_edges(rows: int, cols: int) -> Tuple[int, np.ndarray]:
+    """4-neighbor grid: n = rows*cols, high diameter, residual-free as a
+    stencil (offsets +-1, +-cols)."""
+    idx = np.arange(rows * cols, dtype=np.int32).reshape(rows, cols)
+    right = np.stack([idx[:, :-1].ravel(), idx[:, 1:].ravel()], axis=1)
+    down = np.stack([idx[:-1, :].ravel(), idx[1:, :].ravel()], axis=1)
+    edges = np.concatenate([right, down], axis=0).astype(np.int32)
+    return rows * cols, edges
+
+
+def road_edges(
+    rows: int,
+    cols: int,
+    seed: int = 0,
+    keep: float = 0.55,
+    diag: float = 0.06,
+    shortcut_frac: float = 0.0005,
+    shortcut_reach: int = 0,
+) -> Tuple[int, np.ndarray]:
+    """Synthetic road network calibrated to the DIMACS USA-road-d family:
+    a 4-neighbor grid with each edge kept with probability ``keep``,
+    diagonal links with probability ``diag``, and ``shortcut_frac * n``
+    medium-range links (highway segments) of at most ``shortcut_reach``
+    (default side/8) grid steps per axis.  The defaults give mean degree
+    ~2.44 (USA-road-d: 58.3M arcs / 23.9M nodes) and diameter
+    Theta(rows + cols).  Returns (n, edges) in the reference loader's
+    convention (one undirected record per row)."""
+    rng = np.random.default_rng(seed)
+    n = rows * cols
+    idx = np.arange(n, dtype=np.int32).reshape(rows, cols)
+    parts = []
+    right = np.stack([idx[:, :-1].ravel(), idx[:, 1:].ravel()], axis=1)
+    parts.append(right[rng.random(len(right)) < keep])
+    down = np.stack([idx[:-1, :].ravel(), idx[1:, :].ravel()], axis=1)
+    parts.append(down[rng.random(len(down)) < keep])
+    dr = np.stack([idx[:-1, :-1].ravel(), idx[1:, 1:].ravel()], axis=1)
+    parts.append(dr[rng.random(len(dr)) < diag])
+    dl = np.stack([idx[:-1, 1:].ravel(), idx[1:, :-1].ravel()], axis=1)
+    parts.append(dl[rng.random(len(dl)) < diag])
+    k = int(n * shortcut_frac)
+    if k:
+        reach = shortcut_reach or max(2, min(rows, cols) // 8)
+        r0 = rng.integers(0, rows, size=k)
+        c0 = rng.integers(0, cols, size=k)
+        r1 = np.clip(r0 + rng.integers(-reach, reach + 1, size=k), 0, rows - 1)
+        c1 = np.clip(c0 + rng.integers(-reach, reach + 1, size=k), 0, cols - 1)
+        parts.append(
+            np.stack([idx[r0, c0], idx[r1, c1]], axis=1).astype(np.int32)
+        )
+    edges = np.concatenate(parts, axis=0).astype(np.int32)
+    return n, edges
+
+
+def random_queries(
+    n: int, k: int, max_group: int = 128, seed: int = 0
+) -> List[np.ndarray]:
+    """K ragged source groups with sizes in [1, max_group] (query format
+    limits: K <= 255, group size <= 255)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(k):
+        size = int(rng.integers(1, max_group + 1))
+        out.append(rng.integers(0, n, size=size, dtype=np.int64).astype(np.int32))
+    return out

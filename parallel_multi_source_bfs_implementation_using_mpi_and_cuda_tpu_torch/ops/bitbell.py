@@ -1,0 +1,364 @@
+"""The shared bit-plane level loop: 32 queries per word, OR-fold frontiers.
+
+Query 32w+b lives in bit b of word w of a vertex's row (the JAX package's
+ops/bitbell.py layout); planes are (n, W) int32 tensors whose bits are
+read as uint32 (bit 31 makes a word negative: every shift here is masked).
+The objective F(U) = sum of distances (reference main.cu:75-89) is
+accumulated per level — a level that discovers c_q new vertices for query
+q at distance l adds l * c_q — so no per-vertex distance is ever stored.
+
+Loop state (:class:`BitCarry`): two (n, W) planes, the per-query
+counters (f int64, levels, reached int32), and a device-resident control
+vector (updated, level) that the level-apply kernel advances.  Keeping
+the control on the device lets the host enqueue a whole chunk of levels
+with no round trip: launches past convergence return at once, and the
+host reads the control once per chunk (:func:`bit_level_chunk`).
+
+Kernel: :func:`bit_level_apply` launches ``csrc/level_apply.cu`` on CUDA
+tensors and runs :func:`bit_level_apply_plain` — the same function in
+torch — on CPU tensors only.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..runtime import kernels
+from ..utils import knobs
+from .objective import select_best
+from .packed import PackedEngineBase
+
+WORD_BITS = 32
+INT32_MAX = 2**31 - 1
+
+# Level chunks fused per host sync when the chunk bound is automatic
+# (same factor as the JAX package): the loop stops on convergence either
+# way, so fusion only cuts the number of status reads.
+_AUTO_MEGACHUNK = 8
+
+# On CUDA the chunk loop looks at a non-blocking copy of the control every
+# this many levels and stops enqueueing no-op launches once it shows the
+# BFS converged.
+_PEEK_EVERY = 8
+
+
+def resolve_megachunk(megachunk, level_chunk) -> int:
+    """Chunks fused per host sync: ``None`` = ``MSBFS_MEGACHUNK`` when set,
+    else 8.  Callers whose ``level_chunk`` is a deliberate bound pass 1.
+    Unchunked engines have nothing to fuse: always 1."""
+    if not level_chunk:
+        return 1
+    if megachunk is None:
+        env = knobs.raw("MSBFS_MEGACHUNK", "")
+        if env:
+            try:
+                megachunk = int(env)
+            except ValueError:
+                megachunk = None
+    if megachunk is None:
+        megachunk = _AUTO_MEGACHUNK
+    megachunk = int(megachunk)
+    if megachunk <= 0:
+        raise ValueError(f"megachunk must be positive (got {megachunk})")
+    return megachunk
+
+
+def _low32(x: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) -> int32 with the same low 32 bits."""
+    return torch.where(x >= 2**31, x - 2**32, x).to(torch.int32)
+
+
+def _shifts(device) -> torch.Tensor:
+    return torch.arange(WORD_BITS, dtype=torch.int32, device=device)
+
+
+def pack_queries(
+    n: int, queries: np.ndarray, device
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(K, S) -1-padded host queries (K % 32 == 0) -> (n, K/32) int32
+    source planes and (K,) int32 per-query source counts.
+
+    Out-of-range sources (including -1 padding) are dropped — the
+    reference's bounds check (main.cu:46-51).  Duplicate (vertex, query)
+    pairs are removed first, so an int64 scatter-add of each pair's bit is
+    an OR; the low 32 bits then become the int32 word."""
+    q = np.asarray(queries, dtype=np.int64)
+    k = q.shape[0]
+    if k % WORD_BITS:
+        raise ValueError(f"K={k} is not a multiple of {WORD_BITS}")
+    w = k // WORD_BITS
+    qi, _ = np.nonzero((q >= 0) & (q < n))
+    v = q[(q >= 0) & (q < n)]
+    keys = torch.unique(torch.from_numpy(v * k + qi).to(device))
+    vert, query = keys // k, keys % k
+    flat = torch.zeros(n * w, dtype=torch.int64, device=device)
+    flat.scatter_add_(
+        0, vert * w + query // WORD_BITS, torch.ones_like(query) << (query % WORD_BITS)
+    )
+    counts0 = torch.bincount(query, minlength=k).to(torch.int32)
+    return _low32(flat).view(n, w), counts0
+
+
+def unpack_counts(words: torch.Tensor) -> torch.Tensor:
+    """(n, W) int32 bit planes -> (W*32,) int32 per-query set-bit counts."""
+    n, w = words.shape
+    counts = torch.empty((w, WORD_BITS), dtype=torch.int64, device=words.device)
+    for b in range(WORD_BITS):
+        counts[:, b] = ((words >> b) & 1).sum(dim=0)
+    return counts.reshape(w * WORD_BITS).to(torch.int32)
+
+
+def unpack_byte_planes(words: torch.Tensor) -> torch.Tensor:
+    """(m, W) int32 bit planes -> (m, W*32) uint8 0/1 byte planes."""
+    m, w = words.shape
+    bits = (words.unsqueeze(-1) >> _shifts(words.device)) & 1
+    return bits.to(torch.uint8).reshape(m, w * WORD_BITS)
+
+
+def pack_byte_planes(bytes_: torch.Tensor) -> torch.Tensor:
+    """(m, K) 0/1 byte planes -> (m, K/32) int32 bit planes (a sum of
+    disjoint shifted bits is their OR)."""
+    m, k = bytes_.shape
+    b = bytes_.reshape(m, k // WORD_BITS, WORD_BITS).to(torch.int64)
+    shifts = _shifts(bytes_.device).to(torch.int64)
+    return _low32((b << shifts).sum(dim=2))
+
+
+@dataclass
+class BitCarry:
+    """The level loop's state, updated in place by every level.
+
+    ``ctrl`` is a (4,) int32 device vector: [updated, level, blocks done
+    (the level-apply kernel's scratch), 0].  ``counts`` is (K,) int32
+    scratch the level-apply kernel accumulates into and clears."""
+
+    visited: torch.Tensor  # (n, W) int32
+    frontier: torch.Tensor  # (n, W) int32
+    f: torch.Tensor  # (K,) int64
+    levels: torch.Tensor  # (K,) int32
+    reached: torch.Tensor  # (K,) int32
+    counts: torch.Tensor  # (K,) int32
+    ctrl: torch.Tensor  # (4,) int32
+
+    def rows(self, lo: int, count: int) -> "BitCarry":
+        """A view of rows [lo, lo + count) of both planes sharing the
+        counters and control (the active-row window)."""
+        if lo == 0 and count == self.visited.shape[0]:
+            return self
+        return BitCarry(
+            self.visited[lo : lo + count],
+            self.frontier[lo : lo + count],
+            self.f, self.levels, self.reached, self.counts, self.ctrl,
+        )
+
+
+def bit_level_init(frontier0: torch.Tensor, counts0: torch.Tensor) -> BitCarry:
+    """The carry with sources counted at distance 0: visited = frontier =
+    sources, levels = 1 for queries with a source, reached = sources."""
+    dev = frontier0.device
+    return BitCarry(
+        visited=frontier0.clone(),
+        frontier=frontier0,
+        f=torch.zeros(counts0.shape, dtype=torch.int64, device=dev),
+        levels=(counts0 > 0).to(torch.int32),
+        reached=counts0.clone(),
+        counts=torch.zeros_like(counts0),
+        ctrl=torch.tensor(
+            [int((counts0 > 0).any()), 0, 0, 0], dtype=torch.int32, device=dev
+        ),
+    )
+
+
+def level_go(ctrl: torch.Tensor, max_levels: int) -> bool:
+    """Host read of the control: may the next level run?  A device
+    sync on CUDA tensors — the plain versions only."""
+    updated, level = ctrl[:2].tolist()
+    return bool(updated) and level < max_levels
+
+
+def _check_plane(name: str, t: torch.Tensor, shape=None) -> None:
+    if t.dtype != torch.int32:
+        raise TypeError(f"{name} must be int32, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+
+
+def _check_device(*tensors: torch.Tensor) -> torch.device:
+    dev = tensors[0].device
+    for t in tensors[1:]:
+        if t.device != dev:
+            raise ValueError(f"tensors on {dev} and {t.device}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def bit_level_apply_plain(
+    carry: BitCarry, hits: torch.Tensor, max_levels: int = INT32_MAX
+) -> None:
+    """The level-apply kernel's function in torch (same in-place effect)."""
+    if not level_go(carry.ctrl, max_levels):
+        return
+    level = int(carry.ctrl[1])
+    new = hits & ~carry.visited
+    carry.visited |= new
+    carry.frontier.copy_(new)
+    counts = unpack_counts(new)
+    found = counts > 0
+    carry.f += counts.to(torch.int64) * (level + 1)
+    carry.levels.copy_(torch.where(found, level + 2, carry.levels))
+    carry.reached += counts
+    carry.ctrl[0] = int(found.any())
+    carry.ctrl[1] = level + 1
+
+
+def bit_level_apply(
+    carry: BitCarry, hits: torch.Tensor, max_levels: int = INT32_MAX
+) -> None:
+    """Fold one level's hit planes into the carry (kernel C,
+    ``csrc/level_apply.cu``): new = hits & ~visited, visited |= new,
+    frontier = new, per-query counts into f/levels/reached, then advance
+    the device control.  Gated on the device: a no-op once converged or
+    at ``max_levels``."""
+    rows, w = carry.visited.shape
+    _check_plane("visited", carry.visited)
+    _check_plane("frontier", carry.frontier, (rows, w))
+    _check_plane("hits", hits, (rows, w))
+    for name, t, dtype in (
+        ("f", carry.f, torch.int64), ("levels", carry.levels, torch.int32),
+        ("reached", carry.reached, torch.int32),
+        ("counts", carry.counts, torch.int32),
+    ):
+        if t.dtype != dtype or tuple(t.shape) != (w * WORD_BITS,):
+            raise ValueError(f"{name} must be ({w * WORD_BITS},) {dtype}")
+    _check_plane("ctrl", carry.ctrl, (4,))
+    if w > 1024:
+        raise ValueError(f"W={w} words exceed the kernel's shared-memory counts")
+    dev = _check_device(
+        hits, carry.visited, carry.frontier, carry.f, carry.levels,
+        carry.reached, carry.counts, carry.ctrl,
+    )
+    if dev.type == "cpu":
+        bit_level_apply_plain(carry, hits, max_levels)
+        return
+    kernels.launch(
+        "level_apply", dev,
+        hits.data_ptr(), carry.visited.data_ptr(), carry.frontier.data_ptr(),
+        rows, w, carry.counts.data_ptr(), carry.f.data_ptr(),
+        carry.levels.data_ptr(), carry.reached.data_ptr(),
+        carry.ctrl.data_ptr(), int(max_levels),
+    )
+
+
+class _ConvergencePeek:
+    """Answers "has the loop stopped?" without blocking.  On the CPU it
+    reads the control directly.  On CUDA it keeps one non-blocking copy
+    of the control in pinned memory in flight and reads it once its event
+    has completed, so the host never waits on the device here."""
+
+    def __init__(self, ctrl: torch.Tensor, max_levels: int):
+        self.ctrl = ctrl
+        self.max_levels = max_levels
+        self.calls = 0
+        self.event = None
+        if ctrl.is_cuda:
+            self.buf = torch.empty(4, dtype=torch.int32, pin_memory=True)
+
+    def stopped(self) -> bool:
+        if not self.ctrl.is_cuda:
+            return not level_go(self.ctrl, self.max_levels)
+        self.calls += 1
+        if self.event is None:
+            if (self.calls - 1) % _PEEK_EVERY == 0:
+                self.buf.copy_(self.ctrl, non_blocking=True)
+                self.event = torch.cuda.Event()
+                self.event.record()
+            return False
+        if not self.event.query():
+            return False
+        self.event = None
+        return not level_go(self.buf, self.max_levels)
+
+
+def bit_level_chunk(
+    carry: BitCarry,
+    step: Callable[[BitCarry], None],
+    chunk: Optional[int],
+    max_levels: int = INT32_MAX,
+) -> None:
+    """Advance the carry by at most ``chunk`` levels (``None``: until
+    convergence or ``max_levels``).  ``step(carry)`` runs one gated level.
+
+    Exactly ``chunk`` gated steps are enqueued unless the peek shows the
+    loop stopped, so the level counter after the chunk is the JAX chunk's
+    ``min(start + chunk, convergence, max_levels)``; the caller's status
+    read is the one blocking sync of the chunk."""
+    peek = _ConvergencePeek(carry.ctrl, max_levels)
+    i = 0
+    while chunk is None or i < chunk:
+        if peek.stopped():
+            break
+        step(carry)
+        i += 1
+
+
+def fused_select(f: torch.Tensor, k: int):
+    """Selection over the first ``k`` lanes of a padded F vector: the
+    alignment-padding lanes hold F = 0 and must never win the tie."""
+    lanes = torch.arange(f.shape[0], device=f.device)
+    return select_best(f, lanes < k)
+
+
+def _pack_status(carry: BitCarry, k: int) -> torch.Tensor:
+    """(4,) int64 [level, updated, minF, minK] — one device buffer, so one
+    read serves a chunk's continue-check and the final answer."""
+    min_f, min_k = fused_select(carry.f, k)
+    ctrl = carry.ctrl.to(torch.int64)
+    return torch.stack([ctrl[1], ctrl[0], min_f, min_k])
+
+
+class FusedBestEngine(PackedEngineBase):
+    """Bit-plane engines whose ``best`` reads the winner from the same
+    per-chunk status buffer the level loop already reads.
+
+    Subclasses provide ``_drive(padded, k) -> (carry, status)`` (status is
+    the final :func:`_pack_status` as host ints) and ``_warm(padded)``."""
+
+    k_align = WORD_BITS
+
+    def _drive(self, queries, k):  # pragma: no cover - interface
+        raise NotImplementedError
+
+    def _warm(self, queries) -> None:  # pragma: no cover - interface
+        raise NotImplementedError
+
+    def best(self, queries) -> Tuple[int, int]:
+        padded, k = self._pad_queries(queries)
+        _, status = self._drive(padded, k)
+        return status[2], status[3]
+
+    def f_values(self, queries) -> torch.Tensor:
+        padded, k = self._pad_queries(queries)
+        carry, _ = self._drive(padded, k)
+        return carry.f[:k]
+
+    def query_stats(self, queries):
+        padded, k = self._pad_queries(queries)
+        carry, _ = self._drive(padded, k)
+        return (
+            carry.levels[:k].cpu().numpy(),
+            carry.reached[:k].cpu().numpy(),
+            carry.f[:k].cpu().numpy(),
+        )
+
+    def compile(self, queries_shape) -> None:
+        """Build and load the kernels and warm the level loop (``_warm``)
+        at this batch shape, so both land in the preprocessing span."""
+        padded, _ = self._pad_queries(np.full(queries_shape, -1, dtype=np.int32))
+        self._warm(padded)

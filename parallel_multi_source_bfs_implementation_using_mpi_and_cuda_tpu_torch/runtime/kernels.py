@@ -1,0 +1,162 @@
+"""Build, load and launch the hand-written CUDA kernels of ``csrc/``.
+
+Each ``csrc/<name>.cu`` compiles with nvcc, for ``sm_90a`` (Hopper), into
+its own shared library with a plain C interface, loaded with ctypes.  The
+sources build in parallel — one nvcc process each, all started together —
+at first use, into ``build/`` inside the package (listed in .gitignore);
+a library is named by a hash of its sources and flags, so an unchanged
+source is not rebuilt.  Nothing here runs at import time: the CPU test
+suite imports every module on a machine with no nvcc and no card.
+
+Every C entry point takes the device ordinal first and the CUDA stream
+last, launches on that stream without synchronising, and returns
+``cudaGetLastError()``; :func:`launch` raises on a nonzero code and counts
+the launch in :mod:`..utils.timing` only when it succeeded.  A failed build
+or launch raises — there is no fallback to the plain versions.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, NamedTuple
+
+import torch
+
+from ..utils.timing import record_launch
+
+_PKG_DIR = Path(__file__).resolve().parents[1]
+CSRC_DIR = _PKG_DIR / "csrc"
+BUILD_DIR = _PKG_DIR / "build"
+_HEADER = CSRC_DIR / "msbfs_common.cuh"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+
+# kernel name -> (C entry point, argtypes after the device ordinal and
+# before the stream).
+KERNELS = {
+    "stencil_sweep": (
+        "msbfs_stencil_sweep",
+        [_P, _P, _P, _L, _I, ctypes.POINTER(_I), _I, _P, _I],
+    ),
+    "residual_or": (
+        "msbfs_residual_or",
+        [_P, _P, _P, _P, _P, _L, _I, _P, _I],
+    ),
+    "level_apply": (
+        "msbfs_level_apply",
+        [_P, _P, _P, _L, _I, _P, _P, _P, _P, _P, _I],
+    ),
+}
+
+
+class KernelError(RuntimeError):
+    """A kernel failed to build, to load, or to launch."""
+
+
+class BuildResult(NamedTuple):
+    path: Path
+    seconds: float  # 0.0 when an earlier build of the same sources was reused
+    log: str  # nvcc's output (register and shared-memory use per kernel)
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    candidate = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(candidate):
+        return candidate
+    raise KernelError(
+        "nvcc not found (PATH, CUDA_HOME, /usr/local/cuda): the CUDA kernels "
+        "are built from csrc/ at first use"
+    )
+
+
+def _target(name: str) -> Path:
+    digest = hashlib.sha256()
+    digest.update((CSRC_DIR / f"{name}.cu").read_bytes())
+    digest.update(_HEADER.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build_all() -> Dict[str, BuildResult]:
+    """Compile every kernel source that has no up-to-date library, all
+    nvcc processes at once; returns each kernel's library and log."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    results: Dict[str, BuildResult] = {}
+    running = {}
+    for name in KERNELS:
+        target = _target(name)
+        if target.exists():
+            results[name] = BuildResult(target, 0.0, "")
+            continue
+        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [
+            _nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR),
+            "-o", str(tmp), str(CSRC_DIR / f"{name}.cu"),
+        ]
+        proc = subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )
+        running[name] = (proc, tmp, target, time.perf_counter())
+    failures = []
+    for name, (proc, tmp, target, t0) in running.items():
+        log, _ = proc.communicate()
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failures.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, target)  # atomic: concurrent builders never see half a file
+        results[name] = BuildResult(target, seconds, log)
+    if failures:
+        raise KernelError("kernel build failed:\n" + "\n".join(failures))
+    return results
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> Dict[str, tuple]:
+    """Build (if needed) and load every kernel; name -> (C entry point,
+    its library's error-string function).  Cached for the process: a
+    library is loaded once."""
+    fns = {}
+    for name, result in build_all().items():
+        lib = ctypes.CDLL(str(result.path))
+        symbol, argtypes = KERNELS[name]
+        fn = getattr(lib, symbol)
+        fn.argtypes = [_I, *argtypes, _P]
+        fn.restype = _I
+        err = lib.msbfs_error_string
+        err.argtypes = [_I]
+        err.restype = ctypes.c_char_p
+        fns[name] = (fn, err)
+    return fns
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Launch kernel ``name`` on ``device``'s current stream; raise on a
+    refused launch, count it otherwise."""
+    fn, err = library()[name]
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rc = fn(index, *args, stream)
+    if rc != 0:
+        raise KernelError(
+            f"{name} launch failed: {err(rc).decode()} (cudaError {rc})"
+        )
+    record_launch(name)

@@ -1,0 +1,80 @@
+"""``MSBFS_*`` environment knobs the port reads, declared once.
+
+Same names, defaults and parse convention as the JAX package's registry:
+a malformed value falls back to the call site's default, the empty string
+means unset, and reading an undeclared name raises.  The CLI reads the
+knobs of routes that are not yet ported only to refuse them loudly.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+from typing import Dict, Optional
+
+
+@dataclass(frozen=True)
+class Knob:
+    """One registered environment knob."""
+
+    name: str
+    default: Optional[str]  # documented default as the env string; None = unset
+    kind: str  # int / float / flag / str / path / spec
+    doc: str
+
+
+_ALL = (
+    Knob("MSBFS_BACKEND", "auto", "str", "engine selection; the port has auto and stencil"),
+    Knob("MSBFS_STENCIL", None, "flag", "0 disables the banded-adjacency auto route (not yet ported: fails)"),
+    Knob("MSBFS_LEVEL_CHUNK", None, "int", "BFS levels between host syncs; 0 disables the bound, unset = auto"),
+    Knob("MSBFS_MEGACHUNK", None, "int", "level chunks fused per host sync; unset = auto factor 8"),
+    Knob("MSBFS_STENCIL_WINDOW", None, "flag", "0 disables the stencil active-row window"),
+    Knob("MSBFS_SUBBATCH_K", "256", "int", "K above which a batch splits into ordered sub-batches; 0 disables"),
+    Knob("MSBFS_RETRIES", "2", "int", "supervisor transient-retry budget per call"),
+    Knob("MSBFS_BACKOFF", "0.1", "float", "supervisor base backoff delay in seconds"),
+    Knob("MSBFS_WATCHDOG", "0", "float", "wall-clock deadline per supervised call in seconds; 0/unset = off"),
+    Knob("MSBFS_FAULT_SEED", "0", "int", "backoff-jitter RNG stream"),
+    # Routes and modes of the JAX CLI that the port refuses by name.
+    Knob("MSBFS_FAULTS", None, "spec", "fault-injection plan (not yet ported: fails)"),
+    Knob("MSBFS_CHECKPOINT", None, "path", "resumable journal (not yet ported: fails)"),
+    Knob("MSBFS_STATS", None, "str", "per-query stats tables (not yet ported: fails)"),
+    Knob("MSBFS_WEIGHTED", None, "flag", "weighted delta-stepping route (not yet ported: fails)"),
+    Knob("MSBFS_MESH", None, "spec", "2D mesh partition (not yet ported: fails)"),
+)
+
+KNOBS: Dict[str, Knob] = {k.name: k for k in _ALL}
+
+
+def _check(name: str) -> None:
+    if name not in KNOBS:
+        raise KeyError(f"unregistered knob {name!r}: declare it in utils/knobs.py")
+
+
+def raw(name: str, default: Optional[str] = None) -> Optional[str]:
+    """The knob's raw env string, or ``default`` when unset."""
+    _check(name)
+    return os.environ.get(name, default)
+
+
+def get_int(name: str, default: int) -> int:
+    """Integer knob: unset, empty or malformed values give ``default``."""
+    _check(name)
+    val = os.environ.get(name)
+    if val is None or val == "":
+        return default
+    try:
+        return int(val)
+    except ValueError:
+        return default
+
+
+def get_float(name: str, default: float) -> float:
+    """Float knob, same malformed-falls-back convention."""
+    _check(name)
+    val = os.environ.get(name)
+    if val is None or val == "":
+        return default
+    try:
+        return float(val)
+    except ValueError:
+        return default

@@ -1,0 +1,99 @@
+"""Two-span wall-clock timing and the process-wide engine counters.
+
+The spans mirror the reference's report (main.cu:235-298 preprocessing,
+main.cu:301-400 computation); kernel builds and warm-up are charged to
+preprocessing, as the reference's kernels are compiled offline by nvcc.
+CUDA work is asynchronous, so a span must close after a host read of the
+result (the engines' status reads are such syncs).
+
+Counters (thread-safe; serving threads may drive engines concurrently):
+
+* dispatches — host syncs: every blocking device->host read the level
+  loop waits on (one per level chunk, plus result reads);
+* plane-pass bytes — the analytic full-plane-equivalent bytes each
+  stencil level chunk streams (ops.stencil.stencil_level_bytes);
+* kernel launches — one count per hand-written CUDA kernel launch, by
+  kernel name, recorded by the wrapper right after a launch succeeds.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from typing import Dict
+
+
+class Span:
+    """``with Span() as s: ...`` then ``s.seconds``."""
+
+    def __init__(self):
+        self.seconds = 0.0
+        self._t0 = None
+
+    def __enter__(self):
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.seconds = time.perf_counter() - self._t0
+        return False
+
+
+_lock = threading.Lock()
+_dispatches = 0
+_plane_pass_bytes = 0
+_launches: Dict[str, int] = {}
+
+
+def record_dispatch(n: int = 1) -> None:
+    """Count ``n`` host syncs (device->host reads the host waited on)."""
+    global _dispatches
+    with _lock:
+        _dispatches += int(n)
+
+
+def dispatch_count() -> int:
+    """Host syncs recorded since the last :func:`reset_dispatch_count`."""
+    with _lock:
+        return _dispatches
+
+
+def reset_dispatch_count() -> None:
+    global _dispatches
+    with _lock:
+        _dispatches = 0
+
+
+def record_plane_pass(nbytes: int) -> None:
+    """Account ``nbytes`` of analytic stencil stream traffic."""
+    global _plane_pass_bytes
+    with _lock:
+        _plane_pass_bytes += int(nbytes)
+
+
+def plane_pass_bytes() -> int:
+    with _lock:
+        return _plane_pass_bytes
+
+
+def reset_plane_pass() -> None:
+    global _plane_pass_bytes
+    with _lock:
+        _plane_pass_bytes = 0
+
+
+def record_launch(kernel: str) -> None:
+    """Count one launch of the named CUDA kernel."""
+    with _lock:
+        _launches[kernel] = _launches.get(kernel, 0) + 1
+
+
+def launch_counts() -> Dict[str, int]:
+    """Launches per kernel name since the last :func:`reset_launch_counts`."""
+    with _lock:
+        return dict(_launches)
+
+
+def reset_launch_counts() -> None:
+    with _lock:
+        _launches.clear()

@@ -1,0 +1,216 @@
+"""The port's CLI against the JAX package's ``cli.main`` on the same
+fixtures: report lines 1-5 and exit codes, the sub-batch split, the
+routes that are not ported yet, and the port's import isolation."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu import cli as jcli
+from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu.ops import (
+    packed as jpacked,
+)
+from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu.ops import (
+    stencil as js,
+)
+from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu import (
+    CSRGraph as JCSRGraph,
+)
+from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch import cli
+from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.models import (
+    generators,
+)
+from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.models.csr import (
+    CSRGraph,
+)
+from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
+    packed,
+    stencil,
+)
+from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.utils import (
+    io,
+)
+
+PORT = "parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch"
+JAX_PKG = "parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu"
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _fixture(tmp_path, k=12, rows=30, cols=30, seed=3, queries=None):
+    n, edges = generators.road_edges(rows, cols, seed=seed)
+    gpath, qpath = str(tmp_path / "g.bin"), str(tmp_path / "q.bin")
+    io.save_graph_bin(gpath, n, edges)
+    if queries is None:
+        queries = generators.random_queries(n, k, max_group=6, seed=seed)
+    io.save_query_bin(qpath, queries)
+    return ["prog", "-g", gpath, "-q", qpath, "-gn", "1"]
+
+
+def _run_both(argv, capsys):
+    rc_port = cli.main(argv, device="cpu")
+    port = capsys.readouterr()
+    rc_jax = jcli.main(argv)
+    jax_out = capsys.readouterr()
+    return (rc_port, port), (rc_jax, jax_out)
+
+
+@pytest.mark.parametrize(
+    "case",
+    [
+        "default", "ties_and_empty", "one_query", "no_queries", "chunk_env",
+        "subbatch_env",
+    ],
+)
+def test_report_matches_jax(tmp_path, capsys, monkeypatch, case):
+    kwargs = {}
+    if case == "ties_and_empty":
+        q = generators.random_queries(900, 6, max_group=4, seed=7)
+        q[1] = np.zeros(0, np.int32)  # F = 0 empty group wins the tie
+        q[4] = q[1]
+        kwargs["queries"] = q
+    elif case == "one_query":
+        kwargs["k"] = 1
+    elif case == "no_queries":
+        kwargs["queries"] = []  # K = 0: the reference reports 0 and -1
+    elif case == "chunk_env":
+        monkeypatch.setenv("MSBFS_LEVEL_CHUNK", "3")
+    elif case == "subbatch_env":
+        monkeypatch.setenv("MSBFS_SUBBATCH_K", "16")
+        kwargs["k"] = 40
+    argv = _fixture(tmp_path, **kwargs)
+    (rc_port, port), (rc_jax, jax_out) = _run_both(argv, capsys)
+    assert rc_port == rc_jax == 0
+    lines = port.out.splitlines()
+    assert len(lines) == 7
+    assert lines[:5] == jax_out.out.splitlines()[:5]
+    if case == "no_queries":
+        assert lines[2:4] == [
+            "Query number (k) with minimum F value: 0", "Minimum F value: -1",
+        ]
+    assert lines[5].startswith("Preprocessing time: ") and lines[5].endswith(" s")
+    assert "banded adjacency detected: stencil engine" in port.err
+    if case == "subbatch_env":
+        assert "splitting 40 queries into 16-wide sub-batches" in port.err
+
+
+def test_subbatch_k300_matches_jax():
+    n, edges = generators.road_edges(20, 20, seed=11)
+    queries = io.pad_queries(generators.random_queries(n, 300, max_group=3, seed=12))
+    teng = packed.SubBatchEngine(
+        stencil.StencilEngine(
+            stencil.StencilGraph.from_host(CSRGraph.from_edges(n, edges), "cpu"),
+            level_chunk=8,
+        )
+    )
+    jeng = jpacked.SubBatchEngine(
+        js.StencilEngine(js.StencilGraph.from_host(JCSRGraph.from_edges(n, edges)))
+    )
+    winner = int(np.argmin(jeng.query_stats(queries)[2]))
+    assert winner < 256
+    queries[280] = queries[winner]  # a tie across sub-batches: the first wins
+    want = jeng.query_stats(queries)
+    for x, y in zip(teng.query_stats(queries), want):
+        np.testing.assert_array_equal(x, y)
+    np.testing.assert_array_equal(teng.f_values(queries).numpy(), want[2])
+    assert teng.best(queries) == (int(want[2][winner]), winner)
+    teng.compile(queries.shape)
+
+
+@pytest.mark.parametrize(
+    "argv", [["prog"], ["prog", "-g", "x.bin"], ["prog", "-g", "a", "-gn", "1"]]
+)
+def test_usage_exit_matches_jax(argv, capsys):
+    assert cli.main(argv, device="cpu") == jcli.main(argv) == -1
+    capsys.readouterr()
+
+
+@pytest.mark.parametrize("missing", ["graph", "query"])
+def test_missing_file_matches_jax(tmp_path, capsys, missing):
+    argv = _fixture(tmp_path)
+    idx = 2 if missing == "graph" else 4
+    argv[idx] = str(tmp_path / "absent.bin")
+    (rc_port, port), (rc_jax, jax_out) = _run_both(argv, capsys)
+    assert rc_port == rc_jax == 1
+    line = f"Could not open {missing} file {argv[idx]}"
+    assert port.err.splitlines()[0] == jax_out.err.splitlines()[0] == line
+    assert port.out == jax_out.out == ""
+
+
+@pytest.mark.parametrize(
+    "env,subcommand",
+    [
+        ({"MSBFS_BACKEND": "bitbell"}, None),
+        ({"MSBFS_STENCIL": "0"}, None),
+        ({"MSBFS_STATS": "1"}, None),
+        ({"MSBFS_CHECKPOINT": "journal.bin"}, None),
+        ({"MSBFS_WEIGHTED": "1"}, None),
+        ({"MSBFS_FAULTS": "hang:dispatch:1"}, None),
+        ({"MSBFS_MESH": "2x2"}, None),
+        ({}, "serve"),
+        ({}, "verify"),
+    ],
+)
+def test_unported_routes_fail_loudly(tmp_path, capsys, monkeypatch, env, subcommand):
+    for key, value in env.items():
+        monkeypatch.setenv(key, value)
+    argv = _fixture(tmp_path)
+    if subcommand:
+        argv = ["prog", subcommand] + argv[1:]
+    assert cli.main(argv, device="cpu") == 1
+    out = capsys.readouterr()
+    assert out.out == ""
+    assert len(out.err.splitlines()) == 1
+    assert "not yet ported" in out.err
+
+
+def test_unbanded_graph_fails_loudly(tmp_path, capsys):
+    n = 400
+    edges = np.random.default_rng(1).integers(0, n, size=(3000, 2))
+    gpath, qpath = tmp_path / "g.bin", tmp_path / "q.bin"
+    io.save_graph_bin(gpath, n, edges)
+    io.save_query_bin(qpath, [[1, 2], [3]])
+    argv = ["prog", "-g", str(gpath), "-q", str(qpath), "-gn", "1"]
+    assert cli.main(argv, device="cpu") == 1
+    assert "bitbell route" in capsys.readouterr().err
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("MSBFS_BACKEND", "stencil")
+        assert cli.main(argv, device="cpu") == 1
+        assert "not banded" in capsys.readouterr().err
+
+
+def test_gn_is_reported_as_given(tmp_path, capsys):
+    argv = _fixture(tmp_path)
+    argv[-1] = "3"  # one device: clamped, reported as given
+    assert cli.main(argv, device="cpu") == 0
+    assert "GPU # : 3 GPU" in capsys.readouterr().out
+
+
+def test_no_card_raises(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(_fixture(tmp_path))
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        f"import {PORT} as pkg\n"
+        "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        f"bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        f" or m == '{JAX_PKG}' or m.startswith('{JAX_PKG}.')]\n"
+        "print(len([m for m in sys.modules if m.startswith(pkg.__name__)]), bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO_ROOT, capture_output=True,
+        text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    imported = int(proc.stdout.split()[0])
+    assert imported >= 15  # every module of the port was imported

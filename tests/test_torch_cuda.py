@@ -1,0 +1,194 @@
+"""The port's CUDA kernels against their plain torch versions, on the card.
+
+Marked ``cuda``: each test skips with a reason where there is no CUDA
+device (the CPU test run); on a GPU machine run
+``python -m pytest tests/test_torch_cuda.py -m cuda -q``.  Every
+comparison is exact — all values are bits and integers.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch import cli
+from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.models import (
+    generators,
+)
+from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.models.csr import (
+    CSRGraph,
+)
+from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
+    bitbell,
+    cuda_stencil,
+    stencil,
+)
+from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.runtime import (
+    kernels,
+)
+from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.utils import (
+    io,
+    timing,
+)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the port's kernels run only on the card")
+    return torch.device("cuda")
+
+
+def _planes(rng, n, w):
+    # Full 32-bit words: bit 31 set in about half of them.
+    return torch.from_numpy(
+        rng.integers(0, 2**32, size=(n, w), dtype=np.uint64)
+        .astype(np.uint32)
+        .view(np.int32)
+    )
+
+
+def _go():
+    return torch.tensor([1, 5, 0, 0], dtype=torch.int32)
+
+
+def test_kernels_build(cuda):
+    built = kernels.build_all()
+    assert set(built) == set(kernels.KERNELS)
+    for name, result in built.items():
+        print(name, result.path.name, f"{result.seconds:.2f}s\n{result.log}")
+    assert set(kernels.library()) == set(kernels.KERNELS)
+
+
+@pytest.mark.parametrize("w", [1, 3, 8])
+def test_sweep_matches_plain(cuda, w):
+    rng = np.random.default_rng(w)
+    n = 5000
+    frontier = _planes(rng, n, w)
+    frontier[rng.random(n) < 0.7] = 0
+    mask = torch.from_numpy(
+        rng.integers(0, 2**32, size=n, dtype=np.uint64).astype(np.uint32).view(np.int32)
+    )
+    offsets = [1, -1, 71, -71, 70, -72, 2, 4999, -5001, 33, -40, 12, 13, 14, -15, 16]
+    want = torch.zeros_like(frontier)
+    cuda_stencil.stencil_sweep_plain(frontier, mask, offsets, want, _go(), 100)
+    got = torch.zeros_like(frontier, device=cuda)
+    before = timing.launch_counts().get("stencil_sweep", 0)
+    cuda_stencil.stencil_sweep(
+        frontier.to(cuda), mask.to(cuda), offsets, got, _go().to(cuda), 100
+    )
+    torch.cuda.synchronize()
+    assert timing.launch_counts()["stencil_sweep"] == before + 1
+    assert torch.equal(got.cpu(), want)
+    # Gated off (level at max_levels): the hit plane is left untouched.
+    stale = torch.full_like(got, 7)
+    cuda_stencil.stencil_sweep(
+        frontier.to(cuda), mask.to(cuda), offsets, stale, _go().to(cuda), 5
+    )
+    assert bool((stale == 7).all())
+
+
+@pytest.mark.parametrize("w", [1, 2, 8])
+def test_residual_matches_plain(cuda, w):
+    rng = np.random.default_rng(10 + w)
+    n, r = 3000, 900
+    frontier = _planes(rng, n, w)
+    src = rng.integers(0, n, size=r).astype(np.int32)
+    dst = np.sort(rng.integers(0, n, size=r))
+    uniq, seg = np.unique(dst, return_inverse=True)
+    args = [torch.from_numpy(a.astype(np.int32)) for a in (src, seg, uniq)]
+    hits = _planes(rng, n, w)
+    want = hits.clone()
+    stencil.residual_or_plain(frontier, *args, want, _go(), 100)
+    got = hits.to(cuda)
+    stencil.residual_or(
+        frontier.to(cuda), *[a.to(cuda) for a in args], got, _go().to(cuda), 100
+    )
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("w", [1, 3, 8])
+def test_level_apply_matches_plain(cuda, w):
+    rng = np.random.default_rng(20 + w)
+    n, k = 7777, 32 * w
+    hits, visited, frontier = (_planes(rng, n, w) for _ in range(3))
+    hits[rng.random(n) < 0.5] = 0
+
+    def carry(dev):
+        return bitbell.BitCarry(
+            visited=visited.clone().to(dev),
+            frontier=frontier.clone().to(dev),
+            f=torch.from_numpy(rng.integers(0, 1000, size=k)).to(dev),
+            levels=torch.full((k,), 3, dtype=torch.int32, device=dev),
+            reached=torch.full((k,), 11, dtype=torch.int32, device=dev),
+            counts=torch.zeros(k, dtype=torch.int32, device=dev),
+            ctrl=_go().to(dev),
+        )
+
+    rng_state = rng.bit_generator.state
+    want = carry("cpu")
+    rng.bit_generator.state = rng_state
+    got = carry(cuda)
+    bitbell.bit_level_apply_plain(want, hits, 100)
+    bitbell.bit_level_apply(got, hits.to(cuda), 100)
+    for field in ("visited", "frontier", "f", "levels", "reached", "counts", "ctrl"):
+        assert torch.equal(getattr(got, field).cpu(), getattr(want, field)), field
+    # Gated off: converged carry is a fixed point.
+    got.ctrl[0] = 0
+    snap = got.visited.clone()
+    bitbell.bit_level_apply(got, hits.to(cuda), 100)
+    assert torch.equal(got.visited, snap) and int(got.ctrl[1]) == 6
+
+
+@pytest.mark.parametrize(
+    "k,level_chunk", [(1, None), (40, 4), (70, None), (300, 2)]
+)
+def test_engine_kernel_path_matches_plain(cuda, k, level_chunk):
+    n, edges = generators.road_edges(48, 48, seed=5, shortcut_frac=0.01)
+    g = CSRGraph.from_edges(n, edges)
+    queries = io.pad_queries(generators.random_queries(n, k, max_group=5, seed=k))
+    sg_cpu = stencil.StencilGraph.from_host(g, "cpu")
+    sg = stencil.StencilGraph.from_host(g, cuda)
+    assert sg.res_src.shape[0] > 0
+    want = stencil.StencilEngine(sg_cpu, level_chunk=level_chunk).query_stats(queries)
+    plain = stencil.StencilEngine(sg, level_chunk=level_chunk, plain=True)
+    fast = stencil.StencilEngine(sg, level_chunk=level_chunk)
+    for eng in (plain, fast):
+        got = eng.query_stats(queries)
+        for x, y in zip(want, got):
+            np.testing.assert_array_equal(x, y)
+    assert fast.best(queries) == stencil.StencilEngine(sg_cpu).best(queries)
+
+
+def test_window_on_card(cuda):
+    n, edges = generators.grid_edges(300, 16)
+    g = CSRGraph.from_edges(n, edges)
+    rng = np.random.default_rng(3)
+    queries = io.pad_queries(
+        [rng.integers(0, 64, size=3).astype(np.int32) for _ in range(5)]
+    )
+    sg = stencil.StencilGraph.from_host(g, cuda)
+    win = stencil.StencilEngine(sg, level_chunk=8, megachunk=1, window=True)
+    ref = stencil.StencilEngine(
+        stencil.StencilGraph.from_host(g, "cpu"), level_chunk=8, megachunk=1,
+        window=True,
+    )
+    got, want = win.query_stats(queries), ref.query_stats(queries)
+    for x, y in zip(want, got):
+        np.testing.assert_array_equal(x, y)
+    assert win.last_window_trace == ref.last_window_trace
+    assert any(rows < n for *_, rows in win.last_window_trace)
+
+
+def test_cli_on_card(cuda, tmp_path, capsys):
+    n, edges = generators.road_edges(40, 40, seed=9)
+    gpath, qpath = tmp_path / "g.bin", tmp_path / "q.bin"
+    io.save_graph_bin(gpath, n, edges)
+    io.save_query_bin(qpath, generators.random_queries(n, 9, max_group=6, seed=9))
+    argv = ["prog", "-g", str(gpath), "-q", str(qpath), "-gn", "1"]
+    assert cli.main(argv) == 0
+    card = capsys.readouterr().out.splitlines()
+    assert cli.main(argv, device="cpu") == 0
+    host = capsys.readouterr().out.splitlines()
+    assert card[:5] == host[:5]
