@@ -7,25 +7,38 @@ builds and runs on the GPU, and the source of its kernel timings.
 Needs one CUDA card (NVIDIA H100 class, sm_90a), nvcc, and scipy; imports
 nothing of JAX.  Phases (any failure exits non-zero; nothing is caught):
 
-1. print the card (nvidia-smi name, power limit); build the three CUDA
+1. print the card (nvidia-smi name, power limit); build the five CUDA
    kernels from csrc/ in parallel and time the build;
 2. hold each kernel against its plain torch version on the card, bit for
-   bit, at the main path's shapes (road-4096: n = 16.8M, W = 1) and at the
-   sub-batch shape (road-1024, n = 1M, W = 8); time both with CUDA events
-   beside the analytic bound;
-3. main path: road_edges(4096, 4096) with K = 16 random query groups as
-   .bin files, through the port's CLI (``cli.main``) on cuda, with the
-   kernel launch counters zeroed just before and read just after; the
-   kernel path's F vector equals the plain path's on the card, and the
-   winner's F equals scipy's multi-source BFS;
-4. road-1024 at K = 16 (BASELINE.md config 4): every F and the winner
+   bit, and time both with CUDA events beside the analytic bound: the
+   stencil route's three at its main path's shape (road-4096: n = 16.8M,
+   W = 1) and at the sub-batch shape (road-1024, n = 1M, W = 8); the mxu
+   route's two (tile_hits, push_or) at its main path's shape (RMAT-14,
+   T = 128, W = 2, every one of the 16,384 tiles nonzero) and at
+   road-512's (T = 128, W = 1), with the bf16 ``torch.bmm`` of the same
+   tile products timed as tile_hits' library yardstick;
+3. stencil main path: road_edges(4096, 4096) with K = 16 random query
+   groups as .bin files, through the port's CLI (``cli.main``) on cuda;
+   the kernel path's F vector equals the plain path's on the card, and
+   the winner's F equals scipy's multi-source BFS;
+4. mxu main path: ``MSBFS_BACKEND=mxu MSBFS_MXU_KERNEL=1`` through the
+   CLI on rmat_edges(14) with K = 64 random groups; every F equals
+   scipy's and the plain engine's, and the direction trace is printed;
+5. the mxu route on road_edges(512, 512) with K = 16: the auto switch
+   sends levels both ways within one BFS; same checks;
+6. road-1024 at K = 16 (BASELINE.md config 4): every F and the winner
    equal scipy's;
-5. road-1024 at K = 300 through the sub-batch split (W = 8 and W = 2):
+7. road-1024 at K = 300 through the sub-batch split (W = 8 and W = 2):
    kernel path equals plain path;
-6. grid_edges(2048, 2048) with corner sources: the active-row window
+8. grid_edges(2048, 2048) with corner sources: the active-row window
    engages (some chunk runs on fewer rows than n) and its results equal
    the plain path's without the window;
 then the ``{"kernels": [...]}`` line and the final ``{"ok": true, ...}``.
+
+Each CLI run of phases 3-5 is one path: the kernel launch counters are
+zeroed just before it and read just after; each path must have launched
+its route's kernels, and every registered kernel must have launched on
+some path.
 """
 
 from __future__ import annotations
@@ -46,6 +59,17 @@ import time
 # (128 fp32 lanes, a fused multiply-add counted as two).
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 16.7e12
+# Dense int8 tensor-core rate (the same data sheet).
+INT8_TENSOR_OPS_PER_S = 1979e12
+
+PKG = "parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch"
+JAX_PKG = "parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu"
+# Each path's own kernels (a CLI run per path).
+PATH_KERNELS = {
+    "stencil road-4096": ("stencil_sweep", "residual_or", "level_apply"),
+    "mxu rmat-14": ("tile_hits", "level_apply"),
+    "mxu road-512": ("tile_hits", "push_or", "level_apply"),
+}
 
 
 def _card_line() -> str:
@@ -55,20 +79,25 @@ def _card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def _bound_ms(nbytes: float, ops: float):
+def _bound_ms(nbytes: float, ops: float, ops_per_s: float = INT32_OPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / INT32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def _time_ms(torch, fn, restore, reps=10, warm=2):
     """Median device time of one call of ``fn`` (CUDA events around the
-    call alone; ``restore`` resets its in-place inputs between calls)."""
+    call alone; ``restore`` resets its in-place inputs between calls).
+    A ~1 ms device sleep is queued before the first event, so the host
+    has enqueued the call's launches before the device reaches them and
+    the events measure the device, not the wrapper's host time (a call
+    that reads the device back, as the plain versions do, still waits)."""
     times = []
     for i in range(warm + reps):
         restore()
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
         e0.record()
         fn()
         e1.record()
@@ -174,6 +203,158 @@ def _compare_kernels(torch, sg, w, seed, label):
     return out
 
 
+def _compare_mxu(torch, mg, w, seed, label):
+    """tile_hits and push_or against their plain versions on one graph's
+    tiles; the bf16 torch.bmm of the same tile products as tile_hits'
+    library yardstick."""
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
+        bitbell, cuda_mxu, engine,
+    )
+
+    dev = mg.device
+    n, k = mg.n_pad, 32 * w
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def words(density):
+        x = torch.randint(-(2**31), 2**31, (n, w), dtype=torch.int32,
+                          device=dev, generator=gen)
+        keep = torch.rand((n, 1), device=dev, generator=gen) < density
+        keep[mg.n:] = False
+        return torch.where(keep, x, 0)
+
+    out = {}
+    # K7: a dense frontier (a matmul level).
+    frontier = words(0.3)
+    mm = torch.tensor([1, 7, 0, bitbell.DIR_MATMUL], dtype=torch.int32, device=dev)
+    tiles = (mg.tiles, mg.tile_row, mg.tile_col, mg.row_ptr)
+    h_k, h_p = torch.empty_like(frontier), torch.empty_like(frontier)
+    cuda_mxu.tile_matmul_hits(*tiles, frontier, h_k, mm)
+    cuda_mxu.tile_matmul_hits_plain(*tiles, frontier, h_p, mm)
+    torch.cuda.synchronize()
+    err = _max_abs_err(torch, [(h_k, h_p)])
+    ms = _time_ms(torch, lambda: cuda_mxu.tile_matmul_hits(*tiles, frontier, h_k, mm),
+                  lambda: None)
+    plain_ms = _time_ms(torch, lambda: cuda_mxu.tile_matmul_hits_plain(
+        *tiles, frontier, h_p, mm), lambda: None, reps=3)
+    lhs = mg.tiles_bf16
+    fr = bitbell.unpack_byte_planes(frontier).view(mg.ntr, mg.tile, k)
+    rhs = fr[mg.tile_col.long()].to(torch.bfloat16)
+    library_ms = _time_ms(torch, lambda: torch.bmm(lhs, rhs), lambda: None, reps=5)
+    del rhs, fr
+    t2 = mg.tile * mg.tile
+    bound, by = _bound_ms(
+        mg.nt * t2 + 4 * mg.nt + 4 * (mg.ntr + 1) + 8 * n * w,
+        2 * mg.nt * t2 * k, INT8_TENSOR_OPS_PER_S,
+    )
+    out["tile_hits"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                            bound_by=by, library_ms=library_ms)
+
+    # K3: a thin frontier (n / 64 rows, the auto switch) over stale hits.
+    frontier = words(1 / 64)
+    push = torch.tensor([1, 7, 0, bitbell.DIR_PUSH], dtype=torch.int32, device=dev)
+    stale = words(0.5)
+    csr = (mg.start, mg.count, mg.vals)
+    p_k, p_p = stale.clone(), stale.clone()
+    bitbell.sparse_hits_or(frontier, *csr, p_k, push)
+    bitbell.sparse_hits_or_plain(frontier, *csr, p_p, push)
+    torch.cuda.synchronize()
+    err = _max_abs_err(torch, [(p_k, p_p)])
+    ms = _time_ms(torch, lambda: bitbell.sparse_hits_or(frontier, *csr, p_k, push),
+                  lambda: None)
+    plain_ms = _time_ms(torch, lambda: bitbell.sparse_hits_or_plain(
+        frontier, *csr, p_p, push), lambda: None, reps=3)
+    _, cnt, edges = engine.frontier_activity(frontier, mg.count)
+    cnt, edges = int(cnt), int(edges)
+    bound, by = _bound_ms(8 * n * w + 8 * cnt + 4 * edges, edges * w)
+    out["push_or"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                          bound_by=by, library_ms=None, active_rows=cnt,
+                          active_edges=edges)
+    for name, row in out.items():
+        print(f"compare {label} n_pad={n} T={mg.tile} nt={mg.nt} W={w} {name}: "
+              + json.dumps(row))
+        assert row["max_abs_err"] == 0, (label, name, row)
+    return out
+
+
+@contextlib.contextmanager
+def _env(**values):
+    """Set environment knobs for one CLI run, then restore them."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _run_path(cli, timing, argv, name, launches):
+    """One CLI run as one path: counters zeroed before, read after."""
+    timing.reset_launch_counts()
+    result = _run_cli(cli, argv)
+    counts = timing.launch_counts()
+    launches[name] = counts
+    print(f"{name} launches: {json.dumps(counts)}")
+    for kernel in PATH_KERNELS[name]:
+        assert counts.get(kernel, 0) > 0, f"{kernel} never launched on {name}"
+    return result
+
+
+def _runs(seq):
+    """Run-length form of a direction sequence: "push x3, matmul x5"."""
+    out = []
+    for d in seq:
+        if out and out[-1][0] == d:
+            out[-1][1] += 1
+        else:
+            out.append([d, 1])
+    return ", ".join(f"{d} x{c}" for d, c in out)
+
+
+def _mxu_path(ctx, name, n, edges, g, k, seed):
+    """The mxu route through the CLI on one graph, then every F against
+    scipy and the plain engine, and the direction trace."""
+    torch, np, sp, cg, cli, tio, timing, generators, mxu, dev, tmp, launches = ctx
+    gpath = os.path.join(tmp, f"{name.split()[1]}.bin")
+    qpath = os.path.join(tmp, f"{name.split()[1]}-q.bin")
+    queries = generators.random_queries(n, k, seed=seed)
+    tio.save_graph_bin(gpath, n, edges)
+    tio.save_query_bin(qpath, queries)
+    with _env(MSBFS_BACKEND="mxu", MSBFS_MXU_KERNEL="1"):
+        min_k, min_f, pre_s, comp_s = _run_path(
+            cli, timing, ["chip_smoke", "-g", gpath, "-q", qpath, "-gn", "1"],
+            name, launches,
+        )
+    mg = mxu.MxuGraph.from_host(g, dev)
+    padded = tio.pad_queries(queries)
+    fast = mxu.MxuEngine(mg, level_chunk=128, kernel=True)
+    plain = mxu.MxuEngine(mg, level_chunk=128, plain=True)
+    t0 = time.perf_counter()
+    levels, reached, f_fast = fast.query_stats(padded)
+    fast_s = time.perf_counter() - t0
+    f_plain = plain.f_values(padded).cpu().numpy()
+    assert np.array_equal(f_fast, f_plain), (f_fast, f_plain)
+    want = np.array([_scipy_f(sp, cg, np, g, q) for q in queries])
+    assert np.array_equal(f_fast, want), (f_fast, want)
+    assert (min_k, min_f) == (int(np.argmin(want)), int(want.min()))
+    trace = [s["direction"] for s in fast.level_direction_trace(padded)]
+    assert len(trace) == int(levels.max()), (len(trace), int(levels.max()))
+    depth = int(levels.max())
+    print(f"{name}: " + json.dumps(dict(
+        n=n, K=k, tiles=mg.nt, winner=min_k + 1, min_f=min_f, scipy_f=int(want.min()),
+        all_f_equal_scipy=True, preprocessing_s=pre_s, computation_s=comp_s,
+        levels=depth, engine_query_stats_s=fast_s,
+        ms_per_level=comp_s * 1e3 / max(depth, 1), switch=fast.switch,
+        push_budget=fast.push_budget, push_levels=trace.count("push"),
+        matmul_levels=trace.count("matmul"),
+    )))
+    print(f"{name} directions: {_runs(trace)}")
+    return trace
+
+
 def _scipy_f(sp, cg, np, graph, sources):
     """F of one query group from scipy's multi-source BFS (unweighted)."""
     n = graph.n
@@ -226,7 +407,7 @@ def main() -> int:
         CSRGraph,
     )
     from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
-        packed, stencil,
+        mxu, packed, stencil,
     )
     from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.runtime import (
         kernels,
@@ -251,7 +432,8 @@ def main() -> int:
         regs = [ln.strip() for ln in res.log.splitlines() if "Used" in ln]
         print(f"  {name}: {res.seconds:.3f} s; {'; '.join(regs)}")
 
-    # ---- data: road-4096 (main path) and road-1024
+    # ---- data: road-4096 (stencil main path), road-1024, RMAT-14 (mxu main
+    # path: bench.py config "6") and road-512
     seed = args.seed
     t0 = time.perf_counter()
     n4, e4 = generators.road_edges(4096, 4096, seed=seed)
@@ -260,14 +442,24 @@ def main() -> int:
     n1, e1 = generators.road_edges(1024, 1024, seed=seed + 1)
     g1 = CSRGraph.from_edges(n1, e1)
     sg1 = stencil.StencilGraph.from_host(g1, dev)
+    nr, er = generators.rmat_edges(14, edge_factor=16, seed=seed)
+    gr = CSRGraph.from_edges(nr, er)
+    mgr = mxu.MxuGraph.from_host(gr, dev)
+    n5, e5 = generators.road_edges(512, 512, seed=seed)
+    g5 = CSRGraph.from_edges(n5, e5)
+    mg5 = mxu.MxuGraph.from_host(g5, dev)
     print(f"data: road-4096 n={n4} directed={g4.num_directed_edges} "
           f"offsets={len(sg4.offsets)} residual={int(sg4.res_src.shape[0])}; "
           f"road-1024 n={n1} residual={int(sg1.res_src.shape[0])}; "
+          f"rmat-14 n={nr} dedup={int(mgr.vals.shape[0])} tiles={mgr.nt}; "
+          f"road-512 n={n5} dedup={int(mg5.vals.shape[0])} tiles={mg5.nt}; "
           f"{time.perf_counter() - t0:.1f} s host")
 
     # ---- 2. kernels against their plain versions
     main_shape = _compare_kernels(torch, sg4, 1, seed, "road-4096")
     _compare_kernels(torch, sg1, 8, seed + 1, "road-1024")
+    main_shape.update(_compare_mxu(torch, mgr, 2, seed + 6, "rmat-14"))
+    _compare_mxu(torch, mg5, 1, seed + 7, "road-512")
 
     # ---- 3. main path through the CLI
     # Removed when the script ends, whichever way it ends.
@@ -277,14 +469,11 @@ def main() -> int:
     q4 = generators.random_queries(n4, 16, seed=seed + 2)
     tio.save_graph_bin(gpath, n4, e4)
     tio.save_query_bin(qpath, q4)
-    timing.reset_launch_counts()
-    min_k, min_f, pre_s, comp_s = _run_cli(
-        cli, ["chip_smoke", "-g", gpath, "-q", qpath, "-gn", "1"]
+    launches = {}
+    min_k, min_f, pre_s, comp_s = _run_path(
+        cli, timing, ["chip_smoke", "-g", gpath, "-q", qpath, "-gn", "1"],
+        "stencil road-4096", launches,
     )
-    launches = timing.launch_counts()
-    print(f"main path launches: {json.dumps(launches)}")
-    for name in kernels.KERNELS:
-        assert launches.get(name, 0) > 0, f"{name} never launched on the main path"
 
     padded4 = tio.pad_queries(q4)
     fast = stencil.StencilEngine(sg4, level_chunk=stencil.AUTO_STENCIL_LEVEL_CHUNK)
@@ -310,7 +499,18 @@ def main() -> int:
         ms_per_level=comp_s * 1e3 / max(depth, 1),
     )))
 
-    # ---- 4. road-1024, K = 16: every F against scipy
+    # ---- 4-5. the mxu route: RMAT-14 with K = 64, road-512 with K = 16
+    ctx = (torch, np, sp, cg, cli, tio, timing, generators, mxu, dev, tmp, launches)
+    _mxu_path(ctx, "mxu rmat-14", nr, er, gr, 64, seed + 8)
+    trace5 = _mxu_path(ctx, "mxu road-512", n5, e5, g5, 16, seed + 9)
+    assert {"push", "matmul"} <= set(trace5), "road-512 ran one direction only"
+    del mgr, mg5
+    total = {name: sum(c.get(name, 0) for c in launches.values())
+             for name in kernels.KERNELS}
+    for name, count in total.items():
+        assert count > 0, f"{name} launched on no path"
+
+    # ---- 6. road-1024, K = 16: every F against scipy
     gpath1, qpath1 = os.path.join(tmp, "road1024.bin"), os.path.join(tmp, "q1.bin")
     q1 = generators.random_queries(n1, 16, seed=seed + 3)
     tio.save_graph_bin(gpath1, n1, e1)
@@ -329,7 +529,7 @@ def main() -> int:
     )))
     tmpdir.cleanup()
 
-    # ---- 5. road-1024, K = 300: the sub-batch split
+    # ---- 7. road-1024, K = 300: the sub-batch split
     q300 = tio.pad_queries(generators.random_queries(n1, 300, max_group=8, seed=seed + 4))
     sub_fast = packed.SubBatchEngine(
         stencil.StencilEngine(sg1, level_chunk=stencil.AUTO_STENCIL_LEVEL_CHUNK))
@@ -344,7 +544,7 @@ def main() -> int:
     print(f"road-1024 K=300: best={best300} kernel-path best {sub_s:.3f} s, "
           "F equals plain path")
 
-    # ---- 6. the active-row window on a residual-free grid
+    # ---- 8. the active-row window on a residual-free grid
     ng, eg = generators.grid_edges(2048, 2048)
     sgg = stencil.StencilGraph.from_host(CSRGraph.from_edges(ng, eg), dev)
     rng = np.random.default_rng(seed + 5)
@@ -369,23 +569,22 @@ def main() -> int:
           "equal to the plain full-plane path")
 
     # ---- the kernel line, the card, the verdict
-    sources = {
-        "stencil_sweep": ("csrc/stencil_sweep.cu",
-                          "parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu/ops/pallas_stencil.py:75"),
-        "residual_or": ("csrc/residual_or.cu",
-                        "parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu/ops/stencil.py:319"),
-        "level_apply": ("csrc/level_apply.cu",
-                        "parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu/ops/bitbell.py:333"),
+    replaces = {
+        "stencil_sweep": "ops/pallas_stencil.py:75",
+        "residual_or": "ops/stencil.py:319",
+        "level_apply": "ops/bitbell.py:333",
+        "tile_hits": "ops/pallas_mxu.py:48",
+        "push_or": "ops/bitbell.py:225",
     }
     rows = []
-    for name, (src, replaces) in sources.items():
+    for name in kernels.KERNELS:
         row = main_shape[name]
         rows.append(dict(
-            name=name, route="cuda",
-            source="parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch/" + src,
-            replaces=replaces, launches=launches[name],
+            name=name, route="cuda", source=f"{PKG}/csrc/{name}.cu",
+            replaces=f"{JAX_PKG}/{replaces[name]}", launches=total[name],
             max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
-            bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=None,
+            bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+            library_ms=row.get("library_ms"),
         ))
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))

@@ -15,9 +15,9 @@ wrappers), :mod:`.runtime` (kernel build, supervisor), :mod:`.cli`.
 Hand-written CUDA kernels live in ``csrc/`` and are compiled with nvcc
 at first use (:mod:`.runtime.kernels`).
 
-Routes ported so far: the stencil (banded adjacency) route of
-``-gn 1`` — see :mod:`.cli` for the routes that fail loudly as not yet
-ported.
+Routes ported so far, on ``-gn 1``: the stencil (banded adjacency) route
+and the tensor-core ``mxu`` route — see :mod:`.cli` for the routes that
+fail loudly as not yet ported.
 """
 
 __version__ = "0.1.0"

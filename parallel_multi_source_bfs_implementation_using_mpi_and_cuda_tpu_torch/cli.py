@@ -7,9 +7,11 @@ scan, unknown flags ignored, ``-gn`` defaulting to 1 and clamped to the
 cards present but reported as given; usage errors return -1; the 7-line
 report with the 1-based winner and 9-decimal times.
 
-Routes ported so far: the stencil route — road-class graphs with a banded
-adjacency (auto), or ``MSBFS_BACKEND=stencil`` — on one device, with the
-sub-batch split for wide batches and the supervisor's watchdog/retry.
+Routes ported so far, on one device: the stencil route — road-class
+graphs with a banded adjacency (auto), or ``MSBFS_BACKEND=stencil`` — and
+the tensor-core route ``MSBFS_BACKEND=mxu`` (``MSBFS_MXU_KERNEL=1`` for
+the CUDA tile kernel), each with the sub-batch split for wide batches and
+the supervisor's watchdog/retry.
 Every other route or mode of the JAX CLI exits 1 with a one-line message
 naming it as not yet ported; none of them silently runs something else.
 
@@ -122,9 +124,9 @@ def _resolve_device(device) -> torch.device:
 def _unported_knob() -> Optional[str]:
     """The first knob set to a route or mode the port does not have."""
     backend = knobs.raw("MSBFS_BACKEND", "auto")
-    if backend not in ("auto", "stencil"):
+    if backend not in ("auto", "stencil", "mxu"):
         return f"MSBFS_BACKEND={backend}"
-    if knobs.raw("MSBFS_STENCIL", "") == "0":
+    if backend == "auto" and knobs.raw("MSBFS_STENCIL", "") == "0":
         return "MSBFS_STENCIL=0 (the bitbell route)"
     for name in ("MSBFS_FAULTS", "MSBFS_CHECKPOINT", "MSBFS_MESH"):
         if knobs.raw(name, ""):
@@ -203,31 +205,54 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
         level_chunk = _level_chunk_policy(graph, explicit_chunk)
         megachunk = 1 if (explicit_chunk is not None and explicit_chunk > 0) else None
         backend = knobs.raw("MSBFS_BACKEND", "auto")
-        if backend == "auto" and not _road_class(graph):
-            return not_ported("the bitbell route (graph is not road-class)")
-        try:
-            sg = StencilGraph.from_host(graph, dev)
-        except ValueError as exc:
-            if backend == "stencil":
+        road_class = _road_class(graph)
+        if backend == "mxu":
+            # Tensor-core frontier expansion over densified adjacency
+            # tiles, with the per-level push/matmul switch (ops.mxu).
+            from .ops.mxu import MxuEngine, MxuGraph
+
+            try:
+                mg = MxuGraph.from_host(graph, dev)
+            except ValueError as exc:
+                # Tile cap exceeded: a user-facing engine-choice error.
                 print(str(exc), file=sys.stderr)
                 return 1
-            return not_ported(f"the bitbell route ({exc})")
-        # An explicit MSBFS_LEVEL_CHUNK wins; a negative one lands on the
-        # stencil auto bound, not the gather engines' 128.
-        stencil_chunk = (
-            level_chunk
-            if explicit_chunk is not None and explicit_chunk >= 0
-            else (AUTO_STENCIL_LEVEL_CHUNK if level_chunk else None)
-        )
-        print(
-            "banded adjacency detected: stencil engine "
-            f"({len(sg.offsets)} offsets, "
-            f"{int(sg.res_src.shape[0])} residual edges, "
-            f"{stencil_chunk or 'unbounded'} levels/dispatch; "
-            "MSBFS_STENCIL=0 disables)",
-            file=sys.stderr,
-        )
-        engine = StencilEngine(sg, level_chunk=stencil_chunk, megachunk=megachunk)
+            if level_chunk and road_class:
+                print(
+                    "road-class degree profile: bounding bit-plane "
+                    f"dispatches to {level_chunk} BFS levels "
+                    "(MSBFS_LEVEL_CHUNK overrides)",
+                    file=sys.stderr,
+                )
+            engine = MxuEngine(mg, level_chunk=level_chunk, megachunk=megachunk)
+        else:
+            if backend == "auto" and not road_class:
+                return not_ported("the bitbell route (graph is not road-class)")
+            try:
+                sg = StencilGraph.from_host(graph, dev)
+            except ValueError as exc:
+                if backend == "stencil":
+                    print(str(exc), file=sys.stderr)
+                    return 1
+                return not_ported(f"the bitbell route ({exc})")
+            # An explicit MSBFS_LEVEL_CHUNK wins; a negative one lands on
+            # the stencil auto bound, not the gather engines' 128.
+            stencil_chunk = (
+                level_chunk
+                if explicit_chunk is not None and explicit_chunk >= 0
+                else (AUTO_STENCIL_LEVEL_CHUNK if level_chunk else None)
+            )
+            print(
+                "banded adjacency detected: stencil engine "
+                f"({len(sg.offsets)} offsets, "
+                f"{int(sg.res_src.shape[0])} residual edges, "
+                f"{stencil_chunk or 'unbounded'} levels/dispatch; "
+                "MSBFS_STENCIL=0 disables)",
+                file=sys.stderr,
+            )
+            engine = StencilEngine(
+                sg, level_chunk=stencil_chunk, megachunk=megachunk
+            )
         subbatch_k = knobs.get_int("MSBFS_SUBBATCH_K", 256)
         if subbatch_k > 0 and padded.shape[0] > subbatch_k:
             print(

@@ -10,6 +10,10 @@
 //   ctrl[0] = updated  (the previous level discovered something)
 //   ctrl[1] = level    (levels applied so far)
 //   ctrl[2] = blocks of the running level_apply launch that have finished
+//   ctrl[3] = the level's expansion direction on the mxu route: kDirMatmul
+//             (tile_hits runs) or kDirPush (push_or runs), written on the
+//             device before the level's expansion kernels; level_apply and
+//             the stencil kernels never read or write it
 // A launch whose level must not run (converged, or level >= max_levels)
 // returns at once, which is what makes launches after convergence no-ops.
 #pragma once
@@ -28,6 +32,15 @@ constexpr long long kMaxBlocks = 132 * 8;
 __device__ __forceinline__ bool level_go(const int* ctrl, int max_levels) {
   // __ldcg: read through L2 — ctrl is rewritten by the previous launch.
   return __ldcg(ctrl) != 0 && __ldcg(ctrl + 1) < max_levels;
+}
+
+constexpr int kDirMatmul = 0;
+constexpr int kDirPush = 1;
+
+// level_go, and the level's direction (ctrl[3]) is ``dir``.
+__device__ __forceinline__ bool direction_go(const int* ctrl, int max_levels,
+                                             int dir) {
+  return level_go(ctrl, max_levels) && __ldcg(ctrl + 3) == dir;
 }
 
 inline int grid_for(long long items, int per_block) {

@@ -30,6 +30,19 @@ class CSRGraph:
     def degrees(self) -> np.ndarray:
         return np.diff(self.row_offsets)
 
+    def deduped_pairs(self):
+        """Directed slots with duplicate neighbours and self-loops removed:
+        (src, dst, per-vertex counts), sorted by (src, dst).  Set
+        semantics per row are safe for any "is some neighbour in the
+        frontier" step, and a self-loop never reaches a new vertex."""
+        n = self.n
+        src = np.repeat(np.arange(n, dtype=np.int64), self.degrees)
+        dst = np.asarray(self.col_indices, dtype=np.int64)
+        keep = src != dst
+        pairs = np.unique(src[keep] * n + dst[keep])
+        u, v = pairs // max(n, 1), pairs % max(n, 1)
+        return u, v, np.bincount(u, minlength=n)
+
     @staticmethod
     def from_edges(n: int, edges: np.ndarray) -> "CSRGraph":
         """Build CSR from an (m, 2) int array of undirected edge records:

@@ -21,6 +21,39 @@ def grid_edges(rows: int, cols: int) -> Tuple[int, np.ndarray]:
     return rows * cols, edges
 
 
+def rmat_edges(
+    scale: int,
+    edge_factor: int = 16,
+    a: float = 0.57,
+    b: float = 0.19,
+    c: float = 0.19,
+    seed: int = 0,
+) -> Tuple[int, np.ndarray]:
+    """Graph500-style R-MAT: n = 2^scale vertices, m = edge_factor * n
+    undirected records (duplicates and self-loops kept, as the reference
+    loader keeps them).  Level-by-level quadrant sampling, then a random
+    vertex permutation; the NumPy stream of the JAX package's generator,
+    so one seed gives one graph in both packages."""
+    n = 1 << scale
+    m = edge_factor * n
+    d = 1.0 - a - b - c
+    rng = np.random.default_rng(seed)
+    u = np.zeros(m, dtype=np.int64)
+    v = np.zeros(m, dtype=np.int64)
+    p_u1 = c + d
+    p_v1_given_u0 = b / (a + b)
+    p_v1_given_u1 = d / (c + d)
+    for _ in range(scale):
+        u_bit = rng.random(m) < p_u1
+        p_v1 = np.where(u_bit, p_v1_given_u1, p_v1_given_u0)
+        v_bit = rng.random(m) < p_v1
+        u = (u << 1) | u_bit
+        v = (v << 1) | v_bit
+    perm = rng.permutation(n).astype(np.int64)
+    edges = np.stack([perm[u], perm[v]], axis=1)
+    return n, edges.astype(np.int32)
+
+
 def road_edges(
     rows: int,
     cols: int,

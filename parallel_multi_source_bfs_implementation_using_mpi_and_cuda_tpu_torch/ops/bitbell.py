@@ -14,8 +14,9 @@ the control on the device lets the host enqueue a whole chunk of levels
 with no round trip: launches past convergence return at once, and the
 host reads the control once per chunk (:func:`bit_level_chunk`).
 
-Kernel: :func:`bit_level_apply` launches ``csrc/level_apply.cu`` on CUDA
-tensors and runs :func:`bit_level_apply_plain` — the same function in
+Kernels: :func:`bit_level_apply` launches ``csrc/level_apply.cu`` and
+:func:`sparse_hits_or` (the thin-frontier push) ``csrc/push_or.cu`` on
+CUDA tensors; each runs its ``*_plain`` version — the same function in
 torch — on CPU tensors only.
 """
 
@@ -133,8 +134,10 @@ class BitCarry:
     """The level loop's state, updated in place by every level.
 
     ``ctrl`` is a (4,) int32 device vector: [updated, level, blocks done
-    (the level-apply kernel's scratch), 0].  ``counts`` is (K,) int32
-    scratch the level-apply kernel accumulates into and clears."""
+    (the level-apply kernel's scratch), direction (:data:`DIR_MATMUL` or
+    :data:`DIR_PUSH`, written per level by a direction-switched route)].
+    ``counts`` is (K,) int32 scratch the level-apply kernel accumulates
+    into and clears."""
 
     visited: torch.Tensor  # (n, W) int32
     frontier: torch.Tensor  # (n, W) int32
@@ -253,6 +256,86 @@ def bit_level_apply(
         rows, w, carry.counts.data_ptr(), carry.f.data_ptr(),
         carry.levels.data_ptr(), carry.reached.data_ptr(),
         carry.ctrl.data_ptr(), int(max_levels),
+    )
+
+
+# ctrl[3]: which expansion runs the level on a direction-switched route
+# (csrc/msbfs_common.cuh kDirMatmul / kDirPush).
+DIR_MATMUL = 0
+DIR_PUSH = 1
+
+
+def direction_go(ctrl: torch.Tensor, max_levels: int, direction: int) -> bool:
+    """Host read of the control: may the level run, in ``direction``?
+    A device sync on CUDA tensors — the plain versions only."""
+    return level_go(ctrl, max_levels) and int(ctrl[3]) == direction
+
+
+def default_sparse_budget(e: int) -> int:
+    """Auto push edge budget: about E/64 edges, floored at 2^14 so small
+    graphs' thin levels qualify, capped at 2^23 (the JAX package's)."""
+    return int(min(max(e // 64, 1 << 14), 1 << 23))
+
+
+def sparse_hits_or_plain(
+    frontier, start, count, vals, hits, ctrl, max_levels=INT32_MAX
+) -> None:
+    """The push kernel's function in torch: every active row's dedup
+    neighbours gain its words (byte lanes, ``index_add_``, ``> 0``, pack),
+    written over ``hits`` when the control routes the level to push."""
+    if not direction_go(ctrl, max_levels, DIR_PUSH):
+        return
+    n = frontier.shape[0]
+    ids = torch.nonzero((frontier != 0).any(dim=1)).flatten()
+    deg = count[ids].long()
+    total = int(deg.sum())
+    acc = torch.zeros(
+        (n, frontier.shape[1] * WORD_BITS), dtype=torch.int32, device=hits.device
+    )
+    if total:
+        owner = torch.repeat_interleave(ids, deg)
+        # Edge slot j of owner i sits at start[i] + (j - first slot of i).
+        shift = start[ids].long() - (torch.cumsum(deg, 0) - deg)
+        eidx = torch.arange(total, device=hits.device) + torch.repeat_interleave(
+            shift, deg
+        )
+        acc.index_add_(
+            0, vals[eidx].long(), unpack_byte_planes(frontier[owner]).to(torch.int32)
+        )
+    hits.copy_(pack_byte_planes((acc > 0).to(torch.uint8)))
+
+
+def sparse_hits_or(
+    frontier: torch.Tensor,
+    start: torch.Tensor,
+    count: torch.Tensor,
+    vals: torch.Tensor,
+    hits: torch.Tensor,
+    ctrl: torch.Tensor,
+    max_levels: int = INT32_MAX,
+) -> None:
+    """Kernel K3 (``csrc/push_or.cu``), the push scatter-OR over the dedup
+    CSR (``start``/``count`` per row, neighbour ``vals``): hits = 0, then
+    hits[v] |= frontier[u] for every dedup edge u -> v of an active row u.
+    Gated on the device: runs when the level may run and ctrl[3] is
+    :data:`DIR_PUSH`, else leaves ``hits`` untouched.  Exact for any
+    frontier (no budget compaction)."""
+    rows, w = frontier.shape
+    _check_plane("frontier", frontier)
+    _check_plane("hits", hits, (rows, w))
+    _check_plane("start", start, (rows,))
+    _check_plane("count", count, (rows,))
+    _check_plane("vals", vals)
+    _check_plane("ctrl", ctrl, (4,))
+    dev = _check_device(frontier, start, count, vals, hits, ctrl)
+    if dev.type == "cpu":
+        sparse_hits_or_plain(frontier, start, count, vals, hits, ctrl, max_levels)
+        return
+    kernels.launch(
+        "push_or", dev,
+        frontier.data_ptr(), start.data_ptr(), count.data_ptr(),
+        vals.data_ptr(), hits.data_ptr(), rows, w, ctrl.data_ptr(),
+        int(max_levels),
     )
 
 

@@ -1,0 +1,125 @@
+"""The mxu tile matmul, with its consumer, as a hand-written CUDA kernel.
+
+Counterpart of the JAX package's ops/pallas_mxu.py (the Pallas tile
+chain entered through ``pallas_tile_products``) together with its
+consumer ops/mxu.py ``tile_matmul_hits``: ``csrc/tile_hits.cu`` computes
+one level's hit planes from the nonzero adjacency tiles,
+
+    hits[r*T + i] bit q = OR over tiles b of row tile r, over j, of
+                          tiles[b][i][j] & bit q of frontier[tile_col[b]*T + j]
+
+i.e. the per-tile products, the sorted segment-sum over ``tile_row``,
+``> 0`` and the pack back to (n_pad, W) words in one kernel.  The TPU
+chain's manual batching under a VMEM budget has no counterpart.
+
+:func:`tile_matmul_hits` launches the kernel on CUDA tensors and runs
+:func:`tile_matmul_hits_plain` on CPU tensors only.  :func:`bmm_tile_hits`
+is the same function in torch, ungated: in float32 it is the plain
+version's body; in bfloat16 it is the counterpart of the JAX package's
+XLA einsum route (``MSBFS_MXU_KERNEL`` unset), a library product.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..runtime import kernels
+from .bitbell import (
+    DIR_MATMUL,
+    INT32_MAX,
+    _check_device,
+    _check_plane,
+    direction_go,
+    pack_byte_planes,
+    unpack_byte_planes,
+)
+
+# Tile sides the kernel takes: whole k32 tensor-core steps, one 16-row
+# block per warp of its 8 warps.
+KERNEL_TILES = (32, 64, 96, 128)
+
+
+def bmm_tile_hits(
+    tiles: torch.Tensor,
+    tile_row: torch.Tensor,
+    tile_col: torch.Tensor,
+    ntr: int,
+    frontier: torch.Tensor,
+    dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """(ntr*T, W) frontier planes -> new (ntr*T, W) hit planes: unpack to
+    0/1 bytes, gather the source blocks by ``tile_col``, ``torch.bmm`` in
+    ``dtype`` (exact in float32, and in bfloat16 every positive count
+    stays positive), ``index_add_`` over ``tile_row``, ``> 0``, pack."""
+    nt, t = tiles.shape[0], tiles.shape[1]
+    if nt == 0:  # edgeless: nothing can be hit
+        return torch.zeros_like(frontier)
+    fr = unpack_byte_planes(frontier)
+    k = fr.shape[1]
+    rhs = fr.view(ntr, t, k)[tile_col.long()].to(dtype)
+    lhs = tiles if tiles.dtype == dtype else tiles.to(dtype)
+    products = torch.bmm(lhs, rhs)
+    acc = torch.zeros((ntr, t, k), dtype=torch.float32, device=frontier.device)
+    acc.index_add_(0, tile_row.long(), products.float())
+    return pack_byte_planes((acc > 0).to(torch.uint8).view(ntr * t, k))
+
+
+def tile_matmul_hits_plain(
+    tiles, tile_row, tile_col, row_ptr, frontier, hits, ctrl,
+    max_levels=INT32_MAX,
+) -> None:
+    """The tile kernel's function in torch: writes ``hits`` when the
+    control lets the level run in the matmul direction."""
+    if not direction_go(ctrl, max_levels, DIR_MATMUL):
+        return
+    ntr = row_ptr.shape[0] - 1
+    hits.copy_(bmm_tile_hits(tiles, tile_row, tile_col, ntr, frontier))
+
+
+def tile_matmul_hits(
+    tiles: torch.Tensor,
+    tile_row: torch.Tensor,
+    tile_col: torch.Tensor,
+    row_ptr: torch.Tensor,
+    frontier: torch.Tensor,
+    hits: torch.Tensor,
+    ctrl: torch.Tensor,
+    max_levels: int = INT32_MAX,
+) -> None:
+    """Kernel K7 (``csrc/tile_hits.cu``): (nt, T, T) int8 0/1 tiles sorted
+    by (row, col), their (nt,) ``tile_row``/``tile_col`` and the (ntr+1,)
+    row pointer over ``tile_row`` -> every word of ``hits``.  Gated on the
+    device: runs when the level may run and ctrl[3] is
+    :data:`DIR_MATMUL`, else leaves ``hits`` untouched."""
+    rows, w = frontier.shape
+    if tiles.dtype != torch.int8 or tiles.dim() != 3 or not tiles.is_contiguous():
+        raise ValueError("tiles must be a contiguous (nt, T, T) int8 tensor")
+    nt, t = tiles.shape[0], tiles.shape[1]
+    if tiles.shape[2] != t:
+        raise ValueError(f"tiles must be square, got {tuple(tiles.shape)}")
+    ntr = row_ptr.shape[0] - 1
+    _check_plane("frontier", frontier, (ntr * t, w))
+    _check_plane("hits", hits, (rows, w))
+    _check_plane("tile_row", tile_row, (nt,))
+    _check_plane("tile_col", tile_col, (nt,))
+    _check_plane("row_ptr", row_ptr, (ntr + 1,))
+    _check_plane("ctrl", ctrl, (4,))
+    dev = _check_device(tiles, tile_row, tile_col, row_ptr, frontier, hits, ctrl)
+    if dev.type == "cpu":
+        tile_matmul_hits_plain(
+            tiles, tile_row, tile_col, row_ptr, frontier, hits, ctrl, max_levels
+        )
+        return
+    if t not in KERNEL_TILES:
+        raise ValueError(
+            f"the CUDA tile kernel takes T in {KERNEL_TILES}, got T={t} "
+            "(MSBFS_MXU_TILE)"
+        )
+    if tiles.data_ptr() % 16:
+        raise ValueError("tiles must be 16-byte aligned (cp.async)")
+    kernels.launch(
+        "tile_hits", dev,
+        tiles.data_ptr(), row_ptr.data_ptr(), tile_col.data_ptr(),
+        frontier.data_ptr(), hits.data_ptr(), ntr, t, w, ctrl.data_ptr(),
+        int(max_levels),
+    )

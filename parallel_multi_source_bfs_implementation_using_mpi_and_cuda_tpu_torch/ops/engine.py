@@ -1,5 +1,6 @@
 """The engine surface every query engine shares (``f_values``, ``best``,
-``query_stats``, ``compile``) and the host-side source band."""
+``query_stats``, ``compile``), the host-side source band, and the
+frontier-density estimate the direction switches route on."""
 
 from __future__ import annotations
 
@@ -10,6 +11,18 @@ import torch
 
 from ..utils.timing import record_dispatch
 from .objective import select_best
+
+
+def frontier_activity(frontier: torch.Tensor, edge_counts: torch.Tensor):
+    """(active, cnt, edges) frontier-density estimate of an (n, lanes)
+    plane (a nonzero row is a frontier vertex) against the per-vertex
+    dedup out-degree: the (n,) bool active mask, the int32 active-row
+    count and the int32 outgoing-edge total of the active rows, all on
+    the frontier's device (no host read)."""
+    active = (frontier != 0).any(dim=1)
+    cnt = active.sum(dtype=torch.int32)
+    edges = torch.where(active, edge_counts, 0).sum(dtype=torch.int32)
+    return active, cnt, edges
 
 
 def source_band(queries, n: int):

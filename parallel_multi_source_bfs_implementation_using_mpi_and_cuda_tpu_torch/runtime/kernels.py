@@ -60,6 +60,14 @@ KERNELS = {
         "msbfs_level_apply",
         [_P, _P, _P, _L, _I, _P, _P, _P, _P, _P, _I],
     ),
+    "tile_hits": (
+        "msbfs_tile_hits",
+        [_P, _P, _P, _P, _P, _I, _I, _I, _P, _I],
+    ),
+    "push_or": (
+        "msbfs_push_or",
+        [_P, _P, _P, _P, _P, _L, _I, _P, _I],
+    ),
 }
 
 

@@ -24,7 +24,11 @@ class Knob:
 
 
 _ALL = (
-    Knob("MSBFS_BACKEND", "auto", "str", "engine selection; the port has auto and stencil"),
+    Knob("MSBFS_BACKEND", "auto", "str", "engine selection; the port has auto, stencil and mxu"),
+    Knob("MSBFS_MXU_TILE", "128", "int", "mxu adjacency tile side (multiple of 8; the CUDA tile kernel takes 32, 64, 96 or 128)"),
+    Knob("MSBFS_MXU_MAX_TILES", "32768", "int", "mxu densification ceiling in nonzero tiles"),
+    Knob("MSBFS_MXU_SWITCH", None, "int", "mxu per-level direction switch threshold in active rows; 0 never pushes, unset = auto n/64"),
+    Knob("MSBFS_MXU_KERNEL", None, "flag", "1 runs the mxu tile products in the CUDA tile kernel (no fallback); unset = batched bf16 torch.bmm"),
     Knob("MSBFS_STENCIL", None, "flag", "0 disables the banded-adjacency auto route (not yet ported: fails)"),
     Knob("MSBFS_LEVEL_CHUNK", None, "int", "BFS levels between host syncs; 0 disables the bound, unset = auto"),
     Knob("MSBFS_MEGACHUNK", None, "int", "level chunks fused per host sync; unset = auto factor 8"),

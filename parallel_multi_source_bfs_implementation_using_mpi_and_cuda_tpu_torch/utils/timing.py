@@ -12,6 +12,8 @@ Counters (thread-safe; serving threads may drive engines concurrently):
   loop waits on (one per level chunk, plus result reads);
 * plane-pass bytes — the analytic full-plane-equivalent bytes each
   stencil level chunk streams (ops.stencil.stencil_level_bytes);
+* mxu tiles — analytic tile FLOPs and zero-tile skip counts per chunk of
+  mxu levels (ops.mxu.MxuEngine._account);
 * kernel launches — one count per hand-written CUDA kernel launch, by
   kernel name, recorded by the wrapper right after a launch succeeds.
 """
@@ -80,6 +82,35 @@ def reset_plane_pass() -> None:
     global _plane_pass_bytes
     with _lock:
         _plane_pass_bytes = 0
+
+
+_mxu_flops = 0
+_mxu_tiles_skipped = 0
+_mxu_tiles_total = 0
+
+
+def record_mxu_tiles(flops: int, skipped: int, total: int) -> None:
+    """Account mxu level expansions: ``flops`` analytic tile FLOPs issued,
+    ``skipped`` all-zero tiles elided of ``total`` tiles in the full
+    (ntr x ntr) grid.  An issued-if-matmul model: push levels count at
+    the matmul rate (exact under MSBFS_MXU_SWITCH=0)."""
+    global _mxu_flops, _mxu_tiles_skipped, _mxu_tiles_total
+    with _lock:
+        _mxu_flops += int(flops)
+        _mxu_tiles_skipped += int(skipped)
+        _mxu_tiles_total += int(total)
+
+
+def mxu_tile_counts():
+    """(flops, tiles_skipped, tiles_total) since :func:`reset_mxu_tiles`."""
+    with _lock:
+        return _mxu_flops, _mxu_tiles_skipped, _mxu_tiles_total
+
+
+def reset_mxu_tiles() -> None:
+    global _mxu_flops, _mxu_tiles_skipped, _mxu_tiles_total
+    with _lock:
+        _mxu_flops = _mxu_tiles_skipped = _mxu_tiles_total = 0
 
 
 def record_launch(kernel: str) -> None:

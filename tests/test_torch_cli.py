@@ -167,6 +167,16 @@ def test_unported_routes_fail_loudly(tmp_path, capsys, monkeypatch, env, subcomm
     assert "not yet ported" in out.err
 
 
+def test_forced_stencil_ignores_stencil_knob(tmp_path, capsys, monkeypatch):
+    """MSBFS_STENCIL=0 only turns off the auto route: a forced
+    MSBFS_BACKEND=stencil runs, as in the JAX CLI."""
+    monkeypatch.setenv("MSBFS_BACKEND", "stencil")
+    monkeypatch.setenv("MSBFS_STENCIL", "0")
+    (rc_port, port), (rc_jax, jax_out) = _run_both(_fixture(tmp_path), capsys)
+    assert rc_port == rc_jax == 0
+    assert port.out.splitlines()[:5] == jax_out.out.splitlines()[:5]
+
+
 def test_unbanded_graph_fails_loudly(tmp_path, capsys):
     n = 400
     edges = np.random.default_rng(1).integers(0, n, size=(3000, 2))

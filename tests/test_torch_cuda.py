@@ -19,7 +19,9 @@ from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.model
 )
 from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
     bitbell,
+    cuda_mxu,
     cuda_stencil,
+    mxu,
     stencil,
 )
 from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.runtime import (
@@ -186,6 +188,111 @@ def test_cli_on_card(cuda, tmp_path, capsys):
     gpath, qpath = tmp_path / "g.bin", tmp_path / "q.bin"
     io.save_graph_bin(gpath, n, edges)
     io.save_query_bin(qpath, generators.random_queries(n, 9, max_group=6, seed=9))
+    argv = ["prog", "-g", str(gpath), "-q", str(qpath), "-gn", "1"]
+    assert cli.main(argv) == 0
+    card = capsys.readouterr().out.splitlines()
+    assert cli.main(argv, device="cpu") == 0
+    host = capsys.readouterr().out.splitlines()
+    assert card[:5] == host[:5]
+
+
+@pytest.mark.parametrize("t,w", [(32, 1), (64, 3), (128, 2)])
+def test_tile_hits_matches_plain(cuda, t, w):
+    n, edges = generators.rmat_edges(10, edge_factor=8, seed=t + w)
+    g = CSRGraph.from_edges(n, edges)
+    mg = mxu.MxuGraph.from_host(g, cuda, tile=t)
+    rng = np.random.default_rng(30 + w)
+    frontier = _planes(rng, mg.n_pad, w)
+    frontier[rng.random(mg.n_pad) < 0.6] = 0
+    args = (mg.tiles, mg.tile_row, mg.tile_col, mg.row_ptr)
+    go = torch.tensor([1, 5, 0, bitbell.DIR_MATMUL], dtype=torch.int32)
+    want = torch.zeros_like(frontier)
+    cuda_mxu.tile_matmul_hits_plain(
+        *(a.cpu() for a in args), frontier, want, go, 100
+    )
+    got = torch.full_like(frontier, 7, device=cuda)
+    cuda_mxu.tile_matmul_hits(*args, frontier.to(cuda), got, go.to(cuda), 100)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    # A push level leaves the hit plane untouched.
+    stale = torch.full_like(got, 7)
+    push = torch.tensor([1, 5, 0, bitbell.DIR_PUSH], dtype=torch.int32, device=cuda)
+    cuda_mxu.tile_matmul_hits(*args, frontier.to(cuda), stale, push, 100)
+    assert bool((stale == 7).all())
+
+
+def test_tile_hits_empty_row_tiles_and_no_tiles(cuda):
+    # A path over the first 64 vertices only: row tiles 2.. have no tile.
+    edges = np.array([[i, i + 1] for i in range(63)], dtype=np.int32)
+    for n, e in ((256, edges), (256, np.zeros((0, 2), np.int32))):
+        mg = mxu.MxuGraph.from_host(CSRGraph.from_edges(n, e), cuda, tile=32)
+        frontier = torch.full((mg.n_pad, 1), -1, dtype=torch.int32, device=cuda)
+        got = torch.full_like(frontier, 9)
+        go = torch.tensor([1, 0, 0, bitbell.DIR_MATMUL], dtype=torch.int32, device=cuda)
+        cuda_mxu.tile_matmul_hits(
+            mg.tiles, mg.tile_row, mg.tile_col, mg.row_ptr, frontier, got, go
+        )
+        want = cuda_mxu.bmm_tile_hits(
+            mg.tiles, mg.tile_row, mg.tile_col, mg.ntr, frontier
+        )
+        assert torch.equal(got, want)
+        assert not bool(got[64:].any())
+
+
+@pytest.mark.parametrize("w", [1, 2, 8])
+def test_push_or_matches_plain(cuda, w):
+    n, edges = generators.rmat_edges(11, edge_factor=8, seed=40 + w)
+    mg = mxu.MxuGraph.from_host(CSRGraph.from_edges(n, edges), cuda, tile=64)
+    rng = np.random.default_rng(40 + w)
+    frontier = _planes(rng, mg.n_pad, w)
+    frontier[rng.random(mg.n_pad) < 0.95] = 0
+    csr = (mg.start, mg.count, mg.vals)
+    go = torch.tensor([1, 5, 0, bitbell.DIR_PUSH], dtype=torch.int32)
+    want = _planes(rng, mg.n_pad, w)  # stale bits: the push zeroes first
+    got = want.clone().to(cuda)
+    bitbell.sparse_hits_or_plain(frontier, *(a.cpu() for a in csr), want, go, 100)
+    bitbell.sparse_hits_or(frontier.to(cuda), *csr, got, go.to(cuda), 100)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    stale = torch.full_like(got, 3)
+    matmul = torch.tensor([1, 5, 0, bitbell.DIR_MATMUL], dtype=torch.int32)
+    bitbell.sparse_hits_or(frontier.to(cuda), *csr, stale, matmul.to(cuda), 100)
+    assert bool((stale == 3).all())  # a matmul level: untouched
+
+
+@pytest.mark.parametrize(
+    "k,kwargs",
+    [(40, {}), (70, {"switch": 0, "level_chunk": 2}),
+     (33, {"switch": 10**9, "push_budget": 10**9}), (300, {"level_chunk": 3})],
+)
+def test_mxu_engine_kernel_path_matches_plain(cuda, k, kwargs):
+    n, edges = generators.rmat_edges(10, edge_factor=8, seed=k)
+    g = CSRGraph.from_edges(n, edges)
+    queries = io.pad_queries(generators.random_queries(n, k, max_group=5, seed=k))
+    want = mxu.MxuEngine(mxu.MxuGraph.from_host(g, "cpu", tile=64), **kwargs)
+    mg = mxu.MxuGraph.from_host(g, cuda, tile=64)
+    for eng in (
+        mxu.MxuEngine(mg, kernel=True, **kwargs),
+        mxu.MxuEngine(mg, kernel=False, **kwargs),
+        mxu.MxuEngine(mg, plain=True, **kwargs),
+    ):
+        before = timing.launch_counts()
+        for x, y in zip(want.query_stats(queries), eng.query_stats(queries)):
+            np.testing.assert_array_equal(x, y)
+        after = timing.launch_counts()
+        if eng.kernel and not eng.plain:
+            assert after.get("tile_hits", 0) > before.get("tile_hits", 0)
+        if eng.plain:
+            assert after == before
+
+
+def test_mxu_cli_on_card(cuda, tmp_path, capsys, monkeypatch):
+    n, edges = generators.rmat_edges(10, edge_factor=8, seed=9)
+    gpath, qpath = tmp_path / "g.bin", tmp_path / "q.bin"
+    io.save_graph_bin(gpath, n, edges)
+    io.save_query_bin(qpath, generators.random_queries(n, 9, max_group=6, seed=9))
+    monkeypatch.setenv("MSBFS_BACKEND", "mxu")
+    monkeypatch.setenv("MSBFS_MXU_KERNEL", "1")
     argv = ["prog", "-g", str(gpath), "-q", str(qpath), "-gn", "1"]
     assert cli.main(argv) == 0
     card = capsys.readouterr().out.splitlines()
