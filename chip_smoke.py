@@ -7,7 +7,7 @@ builds and runs on the GPU, and the source of its kernel timings.
 Needs one CUDA card (NVIDIA H100 class, sm_90a), nvcc, and scipy; imports
 nothing of JAX.  Phases (any failure exits non-zero; nothing is caught):
 
-1. print the card (nvidia-smi name, power limit); build the five CUDA
+1. print the card (nvidia-smi name, power limit); build the seven CUDA
    kernels from csrc/ in parallel and time the build;
 2. hold each kernel against its plain torch version on the card, bit for
    bit, and time both with CUDA events beside the analytic bound: the
@@ -26,6 +26,15 @@ nothing of JAX.  Phases (any failure exits non-zero; nothing is caught):
    scipy's and the plain engine's, and the direction trace is printed;
 5. the mxu route on road_edges(512, 512) with K = 16: the auto switch
    sends levels both ways within one BFS; same checks;
+5b. RMAT-20 (rmat_edges(20, 16), BASELINE.json config 2): forest_or and
+   ell_hits against their plain versions at K = 64 (W = 2) and K = 256
+   (W = 8), timed beside their bounds (ell_hits also beside the two-call
+   torch expression of its gather); then with K = 64 random groups the
+   default route (bitbell: forest_or, push_or, level_apply) and the ELL
+   route (``MSBFS_BACKEND=pallas``: ell_hits) through the CLI, each a path;
+   the 64 F values are equal across the kernel and plain engines of both
+   routes, both CLIs report the same winner and F, and the winner and the
+   first eight groups equal scipy's;
 6. road-1024 at K = 16 (BASELINE.md config 4): every F and the winner
    equal scipy's;
 7. road-1024 at K = 300 through the sub-batch split (W = 8 and W = 2):
@@ -35,7 +44,7 @@ nothing of JAX.  Phases (any failure exits non-zero; nothing is caught):
    the plain path's without the window;
 then the ``{"kernels": [...]}`` line and the final ``{"ok": true, ...}``.
 
-Each CLI run of phases 3-5 is one path: the kernel launch counters are
+Each CLI run of phases 3-5b is one path: the kernel launch counters are
 zeroed just before it and read just after; each path must have launched
 its route's kernels, and every registered kernel must have launched on
 some path.
@@ -69,7 +78,11 @@ PATH_KERNELS = {
     "stencil road-4096": ("stencil_sweep", "residual_or", "level_apply"),
     "mxu rmat-14": ("tile_hits", "level_apply"),
     "mxu road-512": ("tile_hits", "push_or", "level_apply"),
+    "bitbell rmat-20": ("forest_or", "push_or", "level_apply"),
+    "ell rmat-20": ("ell_hits",),
 }
+# Groups of the RMAT-20 paths checked against scipy (besides the winner).
+SCIPY_GROUPS = 8
 
 
 def _card_line() -> str:
@@ -276,6 +289,148 @@ def _compare_mxu(torch, mg, w, seed, label):
     return out
 
 
+def _compare_forest_ell(torch, bg, eg, k, seed, label):
+    """forest_or and ell_hits against their plain versions at K queries
+    (W = ceil(K / 32) words) on one graph's forest and ELL slab; the
+    two-call torch expression of the ELL gather as ell_hits' library
+    yardstick (torch has no OR reduction: forest_or has none)."""
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
+        bfs, bitbell, cuda_bell, cuda_bfs,
+    )
+
+    dev = bg.device
+    n, w = bg.n, -(-k // 32)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = {}
+
+    # K1: a dense pull level, with a third of the vertices in the frontier.
+    x = torch.randint(-(2**31), 2**31, (n, w), dtype=torch.int32, device=dev, generator=gen)
+    frontier = torch.where(torch.rand((n, 1), device=dev, generator=gen) < 0.3, x, 0)
+    pull = torch.tensor([1, 7, 0, bitbell.DIR_PULL], dtype=torch.int32, device=dev)
+    scratch = cuda_bell.forest_scratch(bg, w, dev)
+    h_k, h_p = torch.empty_like(frontier), torch.empty_like(frontier)
+    cuda_bell.forest_or(frontier, bg, h_k, pull, scratch=scratch)
+    cuda_bell.forest_or_plain(frontier, bg, h_p, pull)
+    torch.cuda.synchronize()
+    err = _max_abs_err(torch, [(h_k, h_p)])
+    ms = _time_ms(torch, lambda: cuda_bell.forest_or(frontier, bg, h_k, pull, scratch=scratch),
+                  lambda: None)
+    plain_ms = _time_ms(torch, lambda: cuda_bell.forest_or_plain(frontier, bg, h_p, pull),
+                        lambda: None, reps=3)
+    slots = sum(int(f.numel()) for f in bg.level_cols)
+    bound, by = _bound_ms(4 * slots + 4 * n + 8 * n * w, slots * w)
+    out["forest_or"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                            bound_by=by, library_ms=None, slots=slots,
+                            forest_levels=len(bg.level_sizes))
+    del scratch, h_k, h_p, frontier, x
+
+    # K8: one level of the distance loop, every query at level 2 with
+    # distances 0..3 spread over half the vertices.
+    dist = torch.randint(0, 4, (k, n), dtype=torch.int32, device=dev, generator=gen)
+    dist = torch.where(torch.rand((k, n), device=dev, generator=gen) < 0.5, dist, -1)
+    pristine = bfs.DistCarry(
+        dist=dist,
+        level=torch.full((k,), 2, dtype=torch.int32, device=dev),
+        updated=torch.ones(k, dtype=torch.int32, device=dev),
+        stop=torch.full((k,), 3, dtype=torch.int32, device=dev),
+        found=torch.zeros(k, dtype=torch.int32, device=dev),
+        ctrl=torch.tensor([1, 0, 0, 0], dtype=torch.int32, device=dev),
+    )
+    fields = ("dist", "level", "updated", "stop", "found", "ctrl")
+
+    def fresh():
+        return bfs.DistCarry(*(getattr(pristine, f).clone() for f in fields))
+
+    def restore(c):
+        for f in fields:
+            getattr(c, f).copy_(getattr(pristine, f))
+
+    c_k, c_p = fresh(), fresh()
+    cuda_bfs.ell_level(eg, c_k)
+    cuda_bfs.ell_level_plain(eg, c_p)
+    torch.cuda.synchronize()
+    err = _max_abs_err(torch, [(getattr(c_k, f), getattr(c_p, f)) for f in fields])
+    ms = _time_ms(torch, lambda: cuda_bfs.ell_level(eg, c_k), lambda: restore(c_k))
+    plain_ms = _time_ms(torch, lambda: cuda_bfs.ell_level_plain(eg, c_p),
+                        lambda: restore(c_p), reps=3)
+    del c_p
+    pad_to = max(128, -(-(n + 1) // 128) * 128)
+    flags = torch.zeros((k, pad_to), dtype=torch.int8, device=dev)
+    flags[:, :n] = (dist == 2).to(torch.int8)
+    cols = eg.cols.long()
+    library_ms = _time_ms(torch, lambda: torch.amax(flags[:, cols], dim=1), lambda: None, reps=3)
+    del flags, cols
+    slots = eg.width * eg.num_vrows
+    bound, by = _bound_ms(4 * slots + 4 * eg.num_vrows + 8 * k * n, slots * w + k * n)
+    out["ell_hits"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                           bound_by=by, library_ms=library_ms, vrows=eg.num_vrows,
+                           library="torch.amax(frontier[:, cols], dim=1), two calls")
+    for name, row in out.items():
+        print(f"compare {label} n={n} K={k} W={w} {name}: " + json.dumps(row))
+        assert row["max_abs_err"] == 0, (label, name, row)
+    return out
+
+
+def _rmat20_paths(ctx, n, edges, g, bg, eg, k, seed):
+    """The default (bitbell) and ELL (MSBFS_BACKEND=pallas) routes through
+    the CLI on RMAT-20 with K groups: the same winner and F on both, every
+    F equal across the kernel engines and the plain engines on the card,
+    and the winner and the first SCIPY_GROUPS groups equal to scipy's."""
+    torch, np, sp, cg, cli, tio, timing, generators, launches, tmp = ctx
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
+        bitbell, engine,
+    )
+
+    gpath, qpath = os.path.join(tmp, "rmat20.bin"), os.path.join(tmp, "rmat20-q.bin")
+    queries = generators.random_queries(n, k, seed=seed)
+    tio.save_graph_bin(gpath, n, edges)
+    tio.save_query_bin(qpath, queries)
+    argv = ["chip_smoke", "-g", gpath, "-q", qpath, "-gn", "1"]
+    runs = {"bitbell rmat-20": _run_path(cli, timing, argv, "bitbell rmat-20", launches)}
+    with _env(MSBFS_BACKEND="pallas"):
+        runs["ell rmat-20"] = _run_path(cli, timing, argv, "ell rmat-20", launches)
+    os.remove(gpath)
+    padded = tio.pad_queries(queries)
+    f = {}
+    seconds = {}
+    for name, eng in (
+        ("bitbell kernels", bitbell.BitBellEngine(bg, level_chunk=128)),
+        ("bitbell plain", bitbell.BitBellEngine(bg, level_chunk=128, plain=True)),
+        ("ell kernels", engine.Engine(eg, level_chunk=128)),
+        ("ell plain", engine.Engine(eg, level_chunk=128, plain=True)),
+    ):
+        t0 = time.perf_counter()
+        stats = eng.query_stats(padded)
+        seconds[name] = time.perf_counter() - t0
+        f[name] = stats[2]
+        if name == "bitbell kernels":
+            levels, reached = stats[0], stats[1]
+    for name, vals in f.items():
+        assert np.array_equal(vals, f["bitbell kernels"]), (name, vals)
+    fv = f["bitbell kernels"]
+    winner = int(np.argmin(fv))
+    for name, (min_k, min_f, _, _) in runs.items():
+        assert (min_k, min_f) == (winner, int(fv[winner])), (name, min_k, min_f)
+    a = _scipy_matrix(sp, np, g)
+    groups = sorted({winner, *range(SCIPY_GROUPS)})
+    want = {q: _scipy_f(cg, np, a, queries[q]) for q in groups}
+    for q, wf in want.items():
+        assert int(fv[q]) == wf, (q, int(fv[q]), wf)
+    # About 38% of RMAT-20's vertices are isolated, so a small group may
+    # win with F = 0: the check must also hold groups that reach far.
+    assert any(wf > 0 for wf in want.values()), want
+    depth = int(levels.max())
+    for name, (min_k, min_f, pre_s, comp_s) in runs.items():
+        print(f"{name}: " + json.dumps(dict(
+            n=n, directed_edges=g.num_directed_edges, K=k, winner=min_k + 1, min_f=min_f,
+            scipy_f=want[winner], scipy_groups_equal=len(want),
+            scipy_f_checked=[want[q] for q in groups], all_f_equal_across_engines=True,
+            preprocessing_s=pre_s, computation_s=comp_s, levels=depth,
+            reached=int(reached.sum()), ms_per_level=comp_s * 1e3 / max(depth, 1),
+        )))
+    print("rmat-20 engine query_stats s: " + json.dumps(seconds))
+
+
 @contextlib.contextmanager
 def _env(**values):
     """Set environment knobs for one CLI run, then restore them."""
@@ -337,7 +492,8 @@ def _mxu_path(ctx, name, n, edges, g, k, seed):
     fast_s = time.perf_counter() - t0
     f_plain = plain.f_values(padded).cpu().numpy()
     assert np.array_equal(f_fast, f_plain), (f_fast, f_plain)
-    want = np.array([_scipy_f(sp, cg, np, g, q) for q in queries])
+    a = _scipy_matrix(sp, np, g)
+    want = np.array([_scipy_f(cg, np, a, q) for q in queries])
     assert np.array_equal(f_fast, want), (f_fast, want)
     assert (min_k, min_f) == (int(np.argmin(want)), int(want.min()))
     trace = [s["direction"] for s in fast.level_direction_trace(padded)]
@@ -355,16 +511,21 @@ def _mxu_path(ctx, name, n, edges, g, k, seed):
     return trace
 
 
-def _scipy_f(sp, cg, np, graph, sources):
-    """F of one query group from scipy's multi-source BFS (unweighted)."""
-    n = graph.n
+def _scipy_matrix(sp, np, graph):
+    """The graph's CSR as a scipy matrix, built once per graph."""
+    return sp.csr_matrix(
+        (np.ones(graph.col_indices.size, np.float32), graph.col_indices,
+         graph.row_offsets), shape=(graph.n, graph.n),
+    )
+
+
+def _scipy_f(cg, np, a, sources):
+    """F of one query group from scipy's multi-source BFS (unweighted) over
+    the matrix ``a`` of :func:`_scipy_matrix`."""
+    n = a.shape[0]
     src = np.unique(sources[(sources >= 0) & (sources < n)])
     if src.size == 0:
         return 0
-    a = sp.csr_matrix(
-        (np.ones(graph.col_indices.size, np.float32), graph.col_indices,
-         graph.row_offsets), shape=(n, n),
-    )
     d = cg.dijkstra(a, directed=True, indices=src, unweighted=True, min_only=True)
     return int(d[np.isfinite(d)].sum())
 
@@ -403,8 +564,14 @@ def main() -> int:
     from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.models import (
         generators,
     )
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.models.bell import (
+        BellGraph,
+    )
     from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.models.csr import (
         CSRGraph,
+    )
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.models.ell import (
+        EllGraph,
     )
     from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
         mxu, packed, stencil,
@@ -488,7 +655,7 @@ def main() -> int:
     plain_s = time.perf_counter() - t0
     assert np.array_equal(f_fast, f_plain), (f_fast, f_plain)
     assert int(f_fast[min_k]) == min_f
-    want_f = _scipy_f(sp, cg, np, g4, q4[min_k])
+    want_f = _scipy_f(cg, np, _scipy_matrix(sp, np, g4), q4[min_k])
     assert want_f == min_f, (want_f, min_f)
     depth = int(levels4.max())
     print("main path: " + json.dumps(dict(
@@ -505,6 +672,33 @@ def main() -> int:
     trace5 = _mxu_path(ctx, "mxu road-512", n5, e5, g5, 16, seed + 9)
     assert {"push", "matmul"} <= set(trace5), "road-512 ran one direction only"
     del mgr, mg5
+
+    # ---- 4b. RMAT-20 (BASELINE.json config 2): the forest and ELL kernels
+    # against their plain versions at K = 64 and K = 256, then the default
+    # and ELL routes through the CLI with K = 64
+    t0 = time.perf_counter()
+    n20, e20 = generators.rmat_edges(20, edge_factor=16, seed=seed)
+    g20 = CSRGraph.from_edges(n20, e20)
+    t_csr = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bg20 = BellGraph.from_host(g20, dev)
+    t_bell = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eg20 = EllGraph.from_host(g20, dev)
+    t_ell = time.perf_counter() - t0
+    dedup = int(bg20.sparse[2].shape[0])
+    print(f"data: rmat-20 n={n20} directed={g20.num_directed_edges} dedup={dedup} "
+          f"max_dedup_degree={int(bg20.sparse[1].max())} "
+          f"isolated={int((g20.degrees == 0).sum())} forest_levels={list(bg20.level_sizes)} "
+          f"fill={bg20.fill:.3f} ell_vrows={eg20.num_vrows}; host s: generate+csr "
+          f"{t_csr:.1f}, bell {t_bell:.1f}, ell {t_ell:.1f}")
+    main_shape.update(_compare_forest_ell(torch, bg20, eg20, 64, seed + 10, "rmat-20"))
+    _compare_forest_ell(torch, bg20, eg20, 256, seed + 11, "rmat-20")
+    torch.cuda.empty_cache()
+    ctx20 = (torch, np, sp, cg, cli, tio, timing, generators, launches, tmp)
+    _rmat20_paths(ctx20, n20, e20, g20, bg20, eg20, 64, seed + 12)
+    del bg20, eg20, g20, e20
+    torch.cuda.empty_cache()
     total = {name: sum(c.get(name, 0) for c in launches.values())
              for name in kernels.KERNELS}
     for name, count in total.items():
@@ -520,7 +714,8 @@ def main() -> int:
     )
     eng1 = stencil.StencilEngine(sg1, level_chunk=stencil.AUTO_STENCIL_LEVEL_CHUNK)
     lv1, _, fv1 = eng1.query_stats(tio.pad_queries(q1))
-    want1 = np.array([_scipy_f(sp, cg, np, g1, q) for q in q1])
+    a1 = _scipy_matrix(sp, np, g1)
+    want1 = np.array([_scipy_f(cg, np, a1, q) for q in q1])
     assert np.array_equal(fv1, want1), (fv1, want1)
     assert (k1, f1) == (int(np.argmin(want1)), int(want1.min()))
     print("road-1024 K=16: " + json.dumps(dict(
@@ -575,6 +770,8 @@ def main() -> int:
         "level_apply": "ops/bitbell.py:333",
         "tile_hits": "ops/pallas_mxu.py:48",
         "push_or": "ops/bitbell.py:225",
+        "forest_or": "ops/bell.py:75",
+        "ell_hits": "ops/pallas_bfs.py:44",
     }
     rows = []
     for name in kernels.KERNELS:

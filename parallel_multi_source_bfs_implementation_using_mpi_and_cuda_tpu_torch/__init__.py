@@ -15,9 +15,11 @@ wrappers), :mod:`.runtime` (kernel build, supervisor), :mod:`.cli`.
 Hand-written CUDA kernels live in ``csrc/`` and are compiled with nvcc
 at first use (:mod:`.runtime.kernels`).
 
-Routes ported so far, on ``-gn 1``: the stencil (banded adjacency) route
-and the tensor-core ``mxu`` route — see :mod:`.cli` for the routes that
-fail loudly as not yet ported.
+Routes ported so far, on ``-gn 1``: the default bitbell route (the BELL
+reduction forest with the on-device push/pull switch), the stencil
+(banded adjacency) route, the tensor-core ``mxu`` route and the ELL route
+(``MSBFS_BACKEND=pallas``) — see :mod:`.cli` for the routes that fail
+loudly as not yet ported.
 """
 
 __version__ = "0.1.0"

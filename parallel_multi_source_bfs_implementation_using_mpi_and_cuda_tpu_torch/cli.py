@@ -7,13 +7,17 @@ scan, unknown flags ignored, ``-gn`` defaulting to 1 and clamped to the
 cards present but reported as given; usage errors return -1; the 7-line
 report with the 1-based winner and 9-decimal times.
 
-Routes ported so far, on one device: the stencil route — road-class
-graphs with a banded adjacency (auto), or ``MSBFS_BACKEND=stencil`` — and
-the tensor-core route ``MSBFS_BACKEND=mxu`` (``MSBFS_MXU_KERNEL=1`` for
-the CUDA tile kernel), each with the sub-batch split for wide batches and
-the supervisor's watchdog/retry.
-Every other route or mode of the JAX CLI exits 1 with a one-line message
-naming it as not yet ported; none of them silently runs something else.
+Routes ported so far, on one device, routed as the JAX CLI routes off a
+TPU: the stencil route — road-class graphs with a banded adjacency
+(auto), or ``MSBFS_BACKEND=stencil``; the tensor-core route
+``MSBFS_BACKEND=mxu`` (``MSBFS_MXU_KERNEL=1`` for the CUDA tile kernel);
+the ELL route ``MSBFS_BACKEND=pallas``; and the default bitbell route
+(every other graph and backend name), with its over-memory configuration
+when the hybrid layout would not fit the device.  Each has the sub-batch
+split for wide batches and the supervisor's watchdog/retry.
+Every other route or mode of the JAX CLI — the low-K auto route included —
+exits 1 with a one-line message naming it as not yet ported; none of them
+silently runs something else.
 
 ``main(argv, device=None)`` runs on ``cuda`` and raises when there is no
 card; ``device="cpu"`` runs the kernels' plain torch versions (tests).
@@ -121,13 +125,26 @@ def _resolve_device(device) -> torch.device:
     return torch.device(device)
 
 
+# Backends of the JAX CLI the port does not have yet; any other name takes
+# the route the JAX CLI gives it (an unknown name runs bitbell there too).
+_UNPORTED_BACKENDS = ("vmap", "bell", "push", "ppush", "streamed", "packed", "dense", "lowk")
+# Backends whose footprint the bitbell estimate does not model: they never
+# take the over-memory configuration (the JAX CLI's list).
+_NON_BITBELL_FOOTPRINT_BACKENDS = (
+    "dense", "pallas", "bell", "packed", "ppush", "stencil", "streamed",
+    "lowk", "mxu", "vmap", "push",
+)
+# Levels per dispatch of the over-memory bitbell configuration.
+_OVER_MEMORY_LEVEL_CHUNK = 8
+# Gather-segment budget of the over-memory configuration, in slots.
+_OVER_MEMORY_SLOT_BUDGET = 1 << 25
+
+
 def _unported_knob() -> Optional[str]:
     """The first knob set to a route or mode the port does not have."""
     backend = knobs.raw("MSBFS_BACKEND", "auto")
-    if backend not in ("auto", "stencil", "mxu"):
+    if backend in _UNPORTED_BACKENDS:
         return f"MSBFS_BACKEND={backend}"
-    if backend == "auto" and knobs.raw("MSBFS_STENCIL", "") == "0":
-        return "MSBFS_STENCIL=0 (the bitbell route)"
     for name in ("MSBFS_FAULTS", "MSBFS_CHECKPOINT", "MSBFS_MESH"):
         if knobs.raw(name, ""):
             return name
@@ -206,7 +223,68 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
         megachunk = 1 if (explicit_chunk is not None and explicit_chunk > 0) else None
         backend = knobs.raw("MSBFS_BACKEND", "auto")
         road_class = _road_class(graph)
-        if backend == "mxu":
+        from .models.bell import BellGraph
+        from .utils.platform import device_hbm_bytes
+
+        hbm_need = BellGraph.estimate_hbm_bytes(
+            graph.n, graph.num_directed_edges, max(32, padded.shape[0])
+        )
+        hbm_have = device_hbm_bytes(dev)
+        hbm_warn = hbm_need > hbm_have and backend not in _NON_BITBELL_FOOTPRINT_BACKENDS
+
+        def announce_chunk():
+            # Only when the engine applies the bound and the degree profile
+            # predicts a deep BFS (the JAX CLI's rule).
+            if level_chunk and road_class:
+                print(
+                    "road-class degree profile: bounding bit-plane "
+                    f"dispatches to {level_chunk} BFS levels "
+                    "(MSBFS_LEVEL_CHUNK overrides)",
+                    file=sys.stderr,
+                )
+
+        engine = None
+        if backend == "stencil" or (
+            backend == "auto" and road_class and knobs.raw("MSBFS_STENCIL", "") != "0"
+        ):
+            try:
+                sg = StencilGraph.from_host(graph, dev)
+            except ValueError as exc:
+                if backend == "stencil":
+                    print(str(exc), file=sys.stderr)
+                    return 1
+                sg = None  # auto probe failed: keep the gather engines
+            if sg is not None:
+                # An explicit MSBFS_LEVEL_CHUNK wins; a negative one lands
+                # on the stencil auto bound, not the gather engines' 128.
+                stencil_chunk = (
+                    level_chunk
+                    if explicit_chunk is not None and explicit_chunk >= 0
+                    else (AUTO_STENCIL_LEVEL_CHUNK if level_chunk else None)
+                )
+                print(
+                    "banded adjacency detected: stencil engine "
+                    f"({len(sg.offsets)} offsets, "
+                    f"{int(sg.res_src.shape[0])} residual edges, "
+                    f"{stencil_chunk or 'unbounded'} levels/dispatch; "
+                    "MSBFS_STENCIL=0 disables)",
+                    file=sys.stderr,
+                )
+                engine = StencilEngine(sg, level_chunk=stencil_chunk, megachunk=megachunk)
+        if (
+            engine is None
+            and backend == "auto"
+            and not hbm_warn
+            and 0 < padded.shape[0] <= knobs.get_int("MSBFS_LOWK_MAX_K", 4)
+            and knobs.raw("MSBFS_LOWK", "") != "0"
+        ):
+            return not_ported(
+                f"the low-K route ({padded.shape[0]} queries; MSBFS_LOWK=0 "
+                "takes the bitbell route)"
+            )
+        if engine is not None:
+            pass  # stencil route above
+        elif backend == "mxu":
             # Tensor-core frontier expansion over densified adjacency
             # tiles, with the per-level push/matmul switch (ops.mxu).
             from .ops.mxu import MxuEngine, MxuGraph
@@ -217,42 +295,65 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
                 # Tile cap exceeded: a user-facing engine-choice error.
                 print(str(exc), file=sys.stderr)
                 return 1
-            if level_chunk and road_class:
+            announce_chunk()
+            engine = MxuEngine(mg, level_chunk=level_chunk, megachunk=megachunk)
+        elif backend == "pallas":
+            # ELL-slab layout with the CUDA ELL kernel (ops.cuda_bfs).
+            from .models.ell import EllGraph
+            from .ops.engine import Engine
+
+            engine = Engine(EllGraph.from_host(graph, dev), level_chunk=level_chunk)
+        else:
+            # The default route: the bit-plane BELL forest (ops.bitbell).
+            from .ops.bitbell import BitBellEngine
+
+            if hbm_warn:
+                # The hybrid layout would not fit: drop the dedup CSR, run
+                # pure forest pulls in bounded gather segments, at most 8
+                # levels between host syncs (the JAX CLI's configuration).
+                streamed_chunk = (
+                    min(level_chunk or _OVER_MEMORY_LEVEL_CHUNK, _OVER_MEMORY_LEVEL_CHUNK)
+                    if explicit_chunk is None or explicit_chunk < 0
+                    else level_chunk
+                )
+                if explicit_chunk == 0:
+                    streamed_chunk = _OVER_MEMORY_LEVEL_CHUNK
+                    print(
+                        "MSBFS_LEVEL_CHUNK=0 would issue an unbounded "
+                        "wide-plane dispatch on an over-HBM graph "
+                        "(documented worker crash); clamping to 8 "
+                        "levels/dispatch",
+                        file=sys.stderr,
+                    )
                 print(
-                    "road-class degree profile: bounding bit-plane "
-                    f"dispatches to {level_chunk} BFS levels "
-                    "(MSBFS_LEVEL_CHUNK overrides)",
+                    f"graph needs ~{hbm_need >> 20} MiB (hybrid "
+                    f"layout) but one chip has {hbm_have >> 20} MiB: "
+                    "dropping the hybrid CSR and streaming per-level "
+                    "gathers within budget, "
+                    f"{streamed_chunk or 'unbounded'} levels/dispatch "
+                    "(slower, and a graph beyond even the streamed "
+                    "layout may still exhaust memory; run with "
+                    "-gn > 1 to auto-shard instead)",
                     file=sys.stderr,
                 )
-            engine = MxuEngine(mg, level_chunk=level_chunk, megachunk=megachunk)
-        else:
-            if backend == "auto" and not road_class:
-                return not_ported("the bitbell route (graph is not road-class)")
-            try:
-                sg = StencilGraph.from_host(graph, dev)
-            except ValueError as exc:
-                if backend == "stencil":
-                    print(str(exc), file=sys.stderr)
-                    return 1
-                return not_ported(f"the bitbell route ({exc})")
-            # An explicit MSBFS_LEVEL_CHUNK wins; a negative one lands on
-            # the stencil auto bound, not the gather engines' 128.
-            stencil_chunk = (
-                level_chunk
-                if explicit_chunk is not None and explicit_chunk >= 0
-                else (AUTO_STENCIL_LEVEL_CHUNK if level_chunk else None)
-            )
-            print(
-                "banded adjacency detected: stencil engine "
-                f"({len(sg.offsets)} offsets, "
-                f"{int(sg.res_src.shape[0])} residual edges, "
-                f"{stencil_chunk or 'unbounded'} levels/dispatch; "
-                "MSBFS_STENCIL=0 disables)",
-                file=sys.stderr,
-            )
-            engine = StencilEngine(
-                sg, level_chunk=stencil_chunk, megachunk=megachunk
-            )
+                engine = BitBellEngine(
+                    BellGraph.from_host(graph, dev, keep_sparse=False),
+                    sparse_budget=0,
+                    level_chunk=streamed_chunk,
+                    megachunk=1,
+                    slot_budget=(
+                        _OVER_MEMORY_SLOT_BUDGET
+                        if not knobs.raw("MSBFS_SLOT_BUDGET")
+                        else None
+                    ),
+                )
+            else:
+                announce_chunk()
+                engine = BitBellEngine(
+                    BellGraph.from_host(graph, dev),
+                    level_chunk=level_chunk,
+                    megachunk=megachunk,
+                )
         subbatch_k = knobs.get_int("MSBFS_SUBBATCH_K", 256)
         if subbatch_k > 0 and padded.shape[0] > subbatch_k:
             print(

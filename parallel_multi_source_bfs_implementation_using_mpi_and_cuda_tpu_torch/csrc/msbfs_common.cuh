@@ -10,10 +10,12 @@
 //   ctrl[0] = updated  (the previous level discovered something)
 //   ctrl[1] = level    (levels applied so far)
 //   ctrl[2] = blocks of the running level_apply launch that have finished
-//   ctrl[3] = the level's expansion direction on the mxu route: kDirMatmul
-//             (tile_hits runs) or kDirPush (push_or runs), written on the
-//             device before the level's expansion kernels; level_apply and
-//             the stencil kernels never read or write it
+//   ctrl[3] = the level's expansion direction on a direction-switched
+//             route: kDirMatmul / kDirPull (tile_hits or forest_or runs) or
+//             kDirPush (push_or runs), written on the device before the
+//             level's expansion kernels; level_apply and the stencil
+//             kernels never read or write it
+// The ELL route keeps its own per-query control (ell_hits.cu).
 // A launch whose level must not run (converged, or level >= max_levels)
 // returns at once, which is what makes launches after convergence no-ops.
 #pragma once
@@ -35,6 +37,7 @@ __device__ __forceinline__ bool level_go(const int* ctrl, int max_levels) {
 }
 
 constexpr int kDirMatmul = 0;
+constexpr int kDirPull = 0;  // the forest route's name for direction 0
 constexpr int kDirPush = 1;
 
 // level_go, and the level's direction (ctrl[3]) is ``dir``.

@@ -1,1 +1,2 @@
-"""Host graph containers and seeded generators."""
+"""Host graph containers and layouts (CSR, BELL forest, ELL slab), and
+seeded generators."""

@@ -13,6 +13,17 @@ import dataclasses
 import numpy as np
 
 
+def sorted_unique(keys: np.ndarray) -> np.ndarray:
+    """``np.unique(keys)`` of a 1-D array, by a sort and a neighbour
+    compare.  NumPy 2.3's ``np.unique`` hashes before it sorts, and on the
+    tens of millions of distinct (src * n + dst) keys of an RMAT-20 graph
+    that hash costs many times the sort (see PERF.md)."""
+    keys = np.sort(keys)
+    if keys.size > 1:
+        keys = keys[np.concatenate(([True], keys[1:] != keys[:-1]))]
+    return keys
+
+
 @dataclasses.dataclass
 class CSRGraph:
     """``m`` undirected edge records; the CSR holds ``2m`` directed slots."""
@@ -39,7 +50,7 @@ class CSRGraph:
         src = np.repeat(np.arange(n, dtype=np.int64), self.degrees)
         dst = np.asarray(self.col_indices, dtype=np.int64)
         keep = src != dst
-        pairs = np.unique(src[keep] * n + dst[keep])
+        pairs = sorted_unique(src[keep] * n + dst[keep])
         u, v = pairs // max(n, 1), pairs % max(n, 1)
         return u, v, np.bincount(u, minlength=n)
 

@@ -18,6 +18,10 @@ Kernels: :func:`bit_level_apply` launches ``csrc/level_apply.cu`` and
 :func:`sparse_hits_or` (the thin-frontier push) ``csrc/push_or.cu`` on
 CUDA tensors; each runs its ``*_plain`` version — the same function in
 torch — on CPU tensors only.
+
+:class:`BitBellEngine` is the default route: the BELL reduction forest
+(``csrc/forest_or.cu``, :mod:`.cuda_bell`) for dense levels and the push
+for thin ones, the direction decided per level on the device.
 """
 
 from __future__ import annotations
@@ -30,6 +34,10 @@ import torch
 
 from ..runtime import kernels
 from ..utils import knobs
+from ..utils.timing import record_dispatch
+from .bell import forest_hits
+from .bfs import validate_level_chunk
+from .engine import frontier_activity
 from .objective import select_best
 from .packed import PackedEngineBase
 
@@ -260,8 +268,10 @@ def bit_level_apply(
 
 
 # ctrl[3]: which expansion runs the level on a direction-switched route
-# (csrc/msbfs_common.cuh kDirMatmul / kDirPush).
+# (csrc/msbfs_common.cuh kDirMatmul / kDirPull / kDirPush): direction 0 is
+# the matmul on the mxu route and the forest pull on the bitbell route.
 DIR_MATMUL = 0
+DIR_PULL = 0
 DIR_PUSH = 1
 
 
@@ -445,3 +455,152 @@ class FusedBestEngine(PackedEngineBase):
         at this batch shape, so both land in the preprocessing span."""
         padded, _ = self._pad_queries(np.full(queries_shape, -1, dtype=np.int32))
         self._warm(padded)
+
+
+def bell_hits_or(frontier: torch.Tensor, graph, slot_budget=None) -> torch.Tensor:
+    """(n, W) frontier planes -> (n, W) per-vertex hit planes over a
+    BellGraph: the plain forest with the width axis OR-folded (ungated)."""
+    return forest_hits(frontier, graph, slot_budget)
+
+
+def bitbell_expand(graph, sparse_budget: int, slot_budget=None, plain: bool = False):
+    """The expansion of one bitbell level, as ``expand(carry, hits,
+    max_levels, scratch)`` filling ``hits`` from ``carry.frontier``.
+
+    Hybrid when a budget and a non-empty dedup CSR exist: the predicate
+    ``active rows <= budget and their edges <= budget`` goes into ctrl[3]
+    on the device, then the push and the forest each run only in their
+    direction.  Otherwise ctrl[3] stays :data:`DIR_PULL` and every level
+    is a forest pull.  ``plain`` runs the kernels' plain versions."""
+    from .cuda_bell import forest_or, forest_or_plain  # lazy: cuda_bell imports this module
+
+    forest = forest_or_plain if plain else forest_or
+    push = sparse_hits_or_plain if plain else sparse_hits_or
+    budget = int(sparse_budget)
+    hybrid = bool(budget) and graph.sparse is not None and graph.sparse[2].shape[0] > 0
+
+    def expand(carry: BitCarry, hits: torch.Tensor, max_levels: int, scratch) -> None:
+        if hybrid:
+            start, count, vals = graph.sparse
+            _, cnt, edges = frontier_activity(carry.frontier, count)
+            carry.ctrl[3:].copy_(((cnt <= budget) & (edges <= budget)).view(1))
+            push(carry.frontier, start, count, vals, hits, carry.ctrl, max_levels)
+        forest(carry.frontier, graph, hits, carry.ctrl, max_levels, slot_budget, scratch)
+
+    return expand
+
+
+class BitBellEngine(FusedBestEngine):
+    """The default route: bit-plane all-queries-at-once BFS over a
+    BellGraph (the JAX package's BitBellEngine).
+
+    ``sparse_budget``: push threshold in active rows and edges (None: auto
+    :func:`default_sparse_budget` when the graph kept its dedup CSR; 0:
+    pure forest pulls).  ``level_chunk`` / ``megachunk``: levels between
+    host syncs (:func:`resolve_megachunk`).  ``slot_budget``: the plain
+    forest's gather-segment budget (None: ``MSBFS_SLOT_BUDGET``, else auto
+    against the device memory; 0 never segments); the forest kernel
+    materialises no gather, so it only changes the plain version's
+    memory.  ``plain`` runs every kernel's plain torch version (the
+    reference, on any device)."""
+
+    def __init__(
+        self,
+        graph,
+        max_levels: Optional[int] = None,
+        sparse_budget: Optional[int] = None,
+        level_chunk: Optional[int] = None,
+        slot_budget: Optional[int] = None,
+        megachunk: Optional[int] = None,
+        plain: bool = False,
+    ):
+        self.graph = graph
+        self.device = graph.device
+        self.max_levels = max_levels
+        self._max_levels = INT32_MAX if max_levels is None else int(max_levels)
+        if sparse_budget is None:
+            e = int(graph.sparse[2].shape[0]) if graph.sparse is not None else 0
+            sparse_budget = default_sparse_budget(e) if e else 0
+        self.sparse_budget = int(sparse_budget)
+        self.level_chunk = validate_level_chunk(level_chunk)
+        self.megachunk = resolve_megachunk(megachunk, self.level_chunk)
+        if slot_budget is None:
+            env = knobs.raw("MSBFS_SLOT_BUDGET", "")
+            if env:
+                try:
+                    slot_budget = int(env)
+                except ValueError:
+                    slot_budget = None
+        self._slot_budget_arg = slot_budget
+        self._max_level_slots = max((int(f.shape[-1]) for f in graph.level_cols), default=0)
+        self.plain = bool(plain)
+        self._scratch = {}  # plane width -> the forest kernel's level outputs
+
+    def _slot_budget_for(self, w_words: int) -> Optional[int]:
+        """Gather-segment budget at W = ``w_words``: auto engages only when
+        the largest level's merged gather (slots x W x 4 B) would take more
+        than a third of the device memory (the JAX package's rule)."""
+        if self._slot_budget_arg is not None:
+            return self._slot_budget_arg or None  # 0 -> never segment
+        from ..utils.platform import device_hbm_bytes
+
+        hbm = device_hbm_bytes(self.device)
+        if self._max_level_slots * 4 * w_words <= hbm // 3:
+            return None
+        return max(1 << 22, (hbm // 4) // (4 * w_words))
+
+    def _init_carry(self, queries) -> BitCarry:
+        return bit_level_init(*pack_queries(self.graph.n, queries, self.device))
+
+    def _chunk(self, carry: BitCarry, bound) -> None:
+        w = carry.frontier.shape[1]
+        expand = bitbell_expand(
+            self.graph, self.sparse_budget, self._slot_budget_for(w), self.plain
+        )
+        scratch = None
+        if self.device.type == "cuda" and not self.plain:
+            if w not in self._scratch:
+                from .cuda_bell import forest_scratch
+
+                self._scratch[w] = forest_scratch(self.graph, w, self.device)
+            scratch = self._scratch[w]
+        hits = torch.empty_like(carry.frontier)
+        apply = bit_level_apply_plain if self.plain else bit_level_apply
+
+        def step(c: BitCarry) -> None:
+            expand(c, hits, self._max_levels, scratch)
+            apply(c, hits, self._max_levels)
+
+        bit_level_chunk(carry, step, bound, self._max_levels)
+
+    def _drive(self, queries, k):
+        carry = self._init_carry(queries)
+        if not self.level_chunk:
+            self._chunk(carry, None)
+            status = _pack_status(carry, k).tolist()
+            record_dispatch()
+            return carry, status
+        bound = self.level_chunk * self.megachunk
+        while True:
+            self._chunk(carry, bound)
+            # One blocking read per chunk serves the continue-check and,
+            # on the last chunk, the answer.
+            status = _pack_status(carry, k).tolist()
+            record_dispatch()
+            if not status[1] or status[0] >= self._max_levels:
+                break
+        return carry, status
+
+    def _warm(self, queries) -> None:
+        """Build and load the kernels, then run one real level from one
+        source, so module loads and first-call allocations (the forest
+        scratch and bucket tables included) land in the preprocessing
+        span."""
+        if self.device.type == "cuda" and not self.plain:
+            kernels.library()
+        if self.graph.n:
+            queries = queries.copy()
+            queries[0, 0] = 0
+        carry = self._init_carry(queries)
+        self._chunk(carry, 1)
+        _pack_status(carry, 0).tolist()

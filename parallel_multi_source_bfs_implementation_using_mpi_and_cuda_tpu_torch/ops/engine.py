@@ -1,16 +1,24 @@
 """The engine surface every query engine shares (``f_values``, ``best``,
-``query_stats``, ``compile``), the host-side source band, and the
-frontier-density estimate the direction switches route on."""
+``query_stats``, ``compile``), the generic distance-matrix engine, the
+host-side source band, and the frontier-density estimate the direction
+switches route on."""
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..utils.timing import record_dispatch
-from .objective import select_best
+from .bfs import (
+    distance_carry_init,
+    distance_chunk,
+    host_chunked_loop,
+    stats_from_distances,
+    validate_level_chunk,
+)
+from .objective import f_of_u, select_best
 
 
 def frontier_activity(frontier: torch.Tensor, edge_counts: torch.Tensor):
@@ -58,3 +66,96 @@ class QueryEngineBase:
     def query_stats(self, queries):
         """Per-query (levels, reached, F) numpy arrays, or None."""
         return None
+
+
+class Engine(QueryEngineBase):
+    """Runs query groups against a device-resident EllGraph with the
+    distance-matrix level loop (the JAX package's generic ``Engine`` on
+    the Pallas-ELL expansion).
+
+    ``query_chunk``: queries per batch of the loop (None: all K at once);
+    each batch holds a (chunk, n) int32 distance matrix.  ``level_chunk``
+    bounds the levels between host syncs (None: one run to convergence).
+    ``plain`` runs the kernel's plain torch version (the reference, on
+    any device)."""
+
+    def __init__(
+        self,
+        graph,
+        max_levels: Optional[int] = None,
+        query_chunk: Optional[int] = None,
+        level_chunk: Optional[int] = None,
+        plain: bool = False,
+    ):
+        from .cuda_bfs import ell_level, ell_level_plain  # lazy: import cycle
+
+        self.graph = graph
+        self.device = graph.device
+        self.max_levels = max_levels
+        self.query_chunk = query_chunk
+        self.level_chunk = validate_level_chunk(level_chunk)
+        self.plain = bool(plain)
+        level = ell_level_plain if self.plain else ell_level
+        self._step = lambda carry: level(graph, carry)
+
+    def _chunk_grid(self, queries) -> Tuple[np.ndarray, int]:
+        """Pad K to the chunk multiple with -1 rows and reshape to
+        (C, chunk, S), on the host."""
+        queries = np.asarray(queries, dtype=np.int32)
+        k, s = queries.shape
+        chunk = self.query_chunk or max(k, 1)
+        pad = (-k) % chunk
+        if pad:
+            queries = np.concatenate(
+                [queries, np.full((pad, s), -1, dtype=np.int32)], axis=0
+            )
+        return queries.reshape((k + pad) // chunk, chunk, s), k
+
+    def _dist_batch(self, queries_batch) -> torch.Tensor:
+        """Final (J, n) distances of one (J, S) query batch."""
+        carry = distance_carry_init(
+            self.graph.n, queries_batch, self.graph.n_pad, self.device
+        )
+        if self.level_chunk:
+            host_chunked_loop(
+                carry,
+                lambda c: distance_chunk(
+                    c, self._step, self.level_chunk, self.max_levels
+                ),
+                self.max_levels,
+            )
+        else:
+            distance_chunk(carry, self._step, None, self.max_levels)
+        return carry.dist
+
+    def f_values(self, queries) -> torch.Tensor:
+        """(K, S) int32 -1-padded queries -> (K,) int64 F values."""
+        grid, k = self._chunk_grid(queries)
+        if grid.shape[0] == 0:  # K = 0
+            return torch.zeros(0, dtype=torch.int64, device=self.device)
+        out = torch.cat([f_of_u(self._dist_batch(row)) for row in grid])
+        return out[:k]
+
+    def query_stats(self, queries):
+        """Per-query (levels, reached, F) numpy arrays."""
+        grid, k = self._chunk_grid(queries)
+        if grid.shape[0] == 0:  # K = 0
+            z = np.zeros(0, dtype=np.int64)
+            return z.astype(np.int32), z.astype(np.int32), z
+        rows = [stats_from_distances(self._dist_batch(r)) for r in grid]
+        return tuple(
+            torch.cat(col).cpu().numpy()[:k] for col in zip(*rows)
+        )
+
+    def compile(self, queries_shape) -> None:
+        """Build and load the kernel, then run one batch from one source,
+        so module loads and first-call allocations land in the
+        preprocessing span."""
+        if self.device.type == "cuda" and not self.plain:
+            from ..runtime import kernels
+
+            kernels.library()
+        dummy = np.full(queries_shape, -1, dtype=np.int32)
+        if self.graph.n and dummy.size:
+            dummy[0, 0] = 0
+        self.best(dummy)

@@ -33,6 +33,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..models.csr import sorted_unique
 from ..utils import knobs
 from ..utils.timing import record_dispatch, record_mxu_tiles
 from ..runtime import kernels
@@ -182,7 +183,7 @@ class MxuGraph:
         count[:n] = count_n
         start = np.zeros(n_pad, dtype=np.int32)
         np.cumsum(count[: n_pad - 1], out=start[1:])
-        nt = int(np.unique((u // tile) * ntr + (v // tile)).size)
+        nt = int(sorted_unique((u // tile) * ntr + (v // tile)).size)
         if nt > max_tiles:
             raise ValueError(
                 f"mxu densification needs {nt} nonzero {tile}x{tile} "

@@ -68,6 +68,14 @@ KERNELS = {
         "msbfs_push_or",
         [_P, _P, _P, _P, _P, _L, _I, _P, _I],
     ),
+    "ell_hits": (
+        "msbfs_ell_hits",
+        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _I, _I, _I, _P],
+    ),
+    "forest_or": (
+        "msbfs_forest_or",
+        [_P, _P, ctypes.POINTER(_L), _I, _P, _P, _P, _L, _I, _L, _P, _I],
+    ),
 }
 
 

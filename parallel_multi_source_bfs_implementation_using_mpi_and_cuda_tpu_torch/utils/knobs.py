@@ -24,12 +24,16 @@ class Knob:
 
 
 _ALL = (
-    Knob("MSBFS_BACKEND", "auto", "str", "engine selection; the port has auto, stencil and mxu"),
+    Knob("MSBFS_BACKEND", "auto", "str", "engine selection; the port has auto, stencil, mxu, pallas and bitbell (any other name but vmap/bell/push/ppush/streamed/packed/dense/lowk runs bitbell, as in JAX)"),
     Knob("MSBFS_MXU_TILE", "128", "int", "mxu adjacency tile side (multiple of 8; the CUDA tile kernel takes 32, 64, 96 or 128)"),
     Knob("MSBFS_MXU_MAX_TILES", "32768", "int", "mxu densification ceiling in nonzero tiles"),
     Knob("MSBFS_MXU_SWITCH", None, "int", "mxu per-level direction switch threshold in active rows; 0 never pushes, unset = auto n/64"),
     Knob("MSBFS_MXU_KERNEL", None, "flag", "1 runs the mxu tile products in the CUDA tile kernel (no fallback); unset = batched bf16 torch.bmm"),
-    Knob("MSBFS_STENCIL", None, "flag", "0 disables the banded-adjacency auto route (not yet ported: fails)"),
+    Knob("MSBFS_STENCIL", None, "flag", "0 disables the banded-adjacency auto route"),
+    Knob("MSBFS_SLOT_BUDGET", None, "int", "bitbell forest gather-segment budget in slots; 0 never segments, unset = auto"),
+    Knob("MSBFS_HBM_BYTES", None, "int", "device memory budget for routing; unset = the card's total memory (16 GiB off the card)"),
+    Knob("MSBFS_LOWK", None, "flag", "0 disables the low-K auto route (the route itself is not yet ported: fails)"),
+    Knob("MSBFS_LOWK_MAX_K", "4", "int", "largest K the low-K auto route takes"),
     Knob("MSBFS_LEVEL_CHUNK", None, "int", "BFS levels between host syncs; 0 disables the bound, unset = auto"),
     Knob("MSBFS_MEGACHUNK", None, "int", "level chunks fused per host sync; unset = auto factor 8"),
     Knob("MSBFS_STENCIL_WINDOW", None, "flag", "0 disables the stencil active-row window"),

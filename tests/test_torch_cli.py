@@ -1,6 +1,7 @@
 """The port's CLI against the JAX package's ``cli.main`` on the same
-fixtures: report lines 1-5 and exit codes, the sub-batch split, the
-routes that are not ported yet, and the port's import isolation."""
+fixtures: report lines 1-5 and exit codes, the routing of the default
+(bitbell), ELL and over-memory branches, the sub-batch split, the routes
+that are not ported yet, and the port's import isolation."""
 
 import os
 import subprocess
@@ -143,8 +144,8 @@ def test_missing_file_matches_jax(tmp_path, capsys, missing):
 @pytest.mark.parametrize(
     "env,subcommand",
     [
-        ({"MSBFS_BACKEND": "bitbell"}, None),
-        ({"MSBFS_STENCIL": "0"}, None),
+        ({"MSBFS_BACKEND": "vmap"}, None),
+        ({"MSBFS_BACKEND": "lowk"}, None),
         ({"MSBFS_STATS": "1"}, None),
         ({"MSBFS_CHECKPOINT": "journal.bin"}, None),
         ({"MSBFS_WEIGHTED": "1"}, None),
@@ -185,7 +186,7 @@ def test_unbanded_graph_fails_loudly(tmp_path, capsys):
     io.save_query_bin(qpath, [[1, 2], [3]])
     argv = ["prog", "-g", str(gpath), "-q", str(qpath), "-gn", "1"]
     assert cli.main(argv, device="cpu") == 1
-    assert "bitbell route" in capsys.readouterr().err
+    assert "the low-K route (2 queries" in capsys.readouterr().err
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("MSBFS_BACKEND", "stencil")
         assert cli.main(argv, device="cpu") == 1
@@ -224,3 +225,61 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     imported = int(proc.stdout.split()[0])
     assert imported >= 15  # every module of the port was imported
+
+
+def _rmat_fixture(tmp_path, k=40, scale=8, seed=21):
+    n, edges = generators.rmat_edges(scale, edge_factor=8, seed=seed)
+    gpath, qpath = str(tmp_path / "rmat.bin"), str(tmp_path / "rq.bin")
+    io.save_graph_bin(gpath, n, edges)
+    io.save_query_bin(qpath, generators.random_queries(n, k, max_group=5, seed=seed + 1))
+    return ["prog", "-g", gpath, "-q", qpath, "-gn", "1"]
+
+
+# (fixture, environment, a stderr line both CLIs must print)
+ROUTES = {
+    "default_rmat": ("rmat", {}, None),
+    "pallas": ("rmat", {"MSBFS_BACKEND": "pallas"}, None),
+    "bitbell": ("rmat", {"MSBFS_BACKEND": "bitbell"}, None),
+    "unknown_backend": ("rmat", {"MSBFS_BACKEND": "csr", "MSBFS_LEVEL_CHUNK": "2"}, None),
+    "stencil_off_road": ("road", {"MSBFS_STENCIL": "0"}, "road-class degree profile"),
+    "lowk_off": ("rmat2", {"MSBFS_LOWK": "0"}, None),
+    "over_memory": ("rmat", {"MSBFS_HBM_BYTES": "100000"}, "dropping the hybrid CSR"),
+    "over_memory_chunk0": (
+        "rmat", {"MSBFS_HBM_BYTES": "100000", "MSBFS_LEVEL_CHUNK": "0"},
+        "clamping to 8 levels/dispatch",
+    ),
+}
+
+
+@pytest.mark.parametrize("case", list(ROUTES))
+def test_routes_match_jax(tmp_path, capsys, monkeypatch, case):
+    """Report lines 1-5 and the exit code of the bitbell and ELL routes,
+    and the stderr line of the branch taken, equal the JAX CLI's."""
+    fixture, env, line = ROUTES[case]
+    if fixture == "road":
+        argv = _fixture(tmp_path)
+    else:
+        argv = _rmat_fixture(tmp_path, k=2 if fixture == "rmat2" else 40)
+    for key, value in env.items():
+        monkeypatch.setenv(key, value)
+    (rc_port, port), (rc_jax, jax_out) = _run_both(argv, capsys)
+    assert rc_port == rc_jax == 0
+    lines = port.out.splitlines()
+    assert len(lines) == 7 and lines[:5] == jax_out.out.splitlines()[:5]
+    assert "banded adjacency" not in port.err
+    if line:
+        mine = [ln for ln in port.err.splitlines() if line in ln]
+        theirs = [ln for ln in jax_out.err.splitlines() if line in ln]
+        assert mine and mine == theirs
+
+
+def test_lowk_route_refused_as_jax_routes_it(tmp_path, capsys, monkeypatch):
+    """K <= MSBFS_LOWK_MAX_K on auto is JAX's low-K route: refused, not run
+    as bitbell; over memory, or with the knob raised past K, it is not."""
+    argv = _rmat_fixture(tmp_path, k=3)
+    assert cli.main(argv, device="cpu") == 1
+    assert "low-K route" in capsys.readouterr().err
+    monkeypatch.setenv("MSBFS_LOWK_MAX_K", "2")
+    (rc_port, port), (rc_jax, jax_out) = _run_both(argv, capsys)
+    assert rc_port == rc_jax == 0
+    assert port.out.splitlines()[:5] == jax_out.out.splitlines()[:5]

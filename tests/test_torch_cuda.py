@@ -17,10 +17,21 @@ from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.model
 from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.models.csr import (
     CSRGraph,
 )
+from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.models.bell import (
+    DEFAULT_WIDTHS,
+    BellGraph,
+)
+from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.models.ell import (
+    EllGraph,
+)
 from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
+    bfs,
     bitbell,
+    cuda_bell,
+    cuda_bfs,
     cuda_mxu,
     cuda_stencil,
+    engine,
     mxu,
     stencil,
 )
@@ -295,6 +306,125 @@ def test_mxu_cli_on_card(cuda, tmp_path, capsys, monkeypatch):
     monkeypatch.setenv("MSBFS_MXU_KERNEL", "1")
     argv = ["prog", "-g", str(gpath), "-q", str(qpath), "-gn", "1"]
     assert cli.main(argv) == 0
+    card = capsys.readouterr().out.splitlines()
+    assert cli.main(argv, device="cpu") == 0
+    host = capsys.readouterr().out.splitlines()
+    assert card[:5] == host[:5]
+
+
+def _hub_graph(seed, n=3000):
+    """RMAT edges plus a 700-neighbour hub (two forest levels) and
+    isolated vertices past the RMAT range."""
+    m, edges = generators.rmat_edges(11, edge_factor=8, seed=seed)
+    hub = np.stack([np.full(700, 5, np.int32), np.arange(700, dtype=np.int32) + 1200], 1)
+    return CSRGraph.from_edges(n, np.concatenate([edges, hub]))
+
+
+@pytest.mark.parametrize("w", [1, 2, 8])
+@pytest.mark.parametrize("widths", [DEFAULT_WIDTHS, (1, 2, 4, 8)])
+def test_forest_or_matches_plain(cuda, w, widths):
+    g = _hub_graph(50 + w)
+    bg = BellGraph.from_host(g, cuda, widths=widths, min_bucket_rows=0)
+    bg_cpu = BellGraph.from_host(g, "cpu", widths=widths, min_bucket_rows=0)
+    assert len(bg.level_sizes) >= 2
+    assert int((bg_cpu.final_slot == bg.total_rows).sum()) > 0  # isolated vertices
+    if widths == DEFAULT_WIDTHS:
+        assert any(wb == 256 and rb for rb, wb in bg.level_shapes[0])
+    rng = np.random.default_rng(60 + w)
+    frontier = _planes(rng, g.n, w)
+    frontier[rng.random(g.n) < 0.7] = 0
+    pull = torch.tensor([1, 5, 0, bitbell.DIR_PULL], dtype=torch.int32)
+    want = _planes(rng, g.n, w)
+    got = want.clone().to(cuda)
+    cuda_bell.forest_or_plain(frontier, bg_cpu, want, pull, 100)
+    before = timing.launch_counts().get("forest_or", 0)
+    cuda_bell.forest_or(frontier.to(cuda), bg, got, pull.to(cuda), 100)
+    torch.cuda.synchronize()
+    assert timing.launch_counts()["forest_or"] == before + 1
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(want, bitbell.bell_hits_or(frontier, bg_cpu, slot_budget=7))
+    # A push level, or a converged carry, leaves the hit plane untouched.
+    for ctrl in ([1, 5, 0, bitbell.DIR_PUSH], [0, 5, 0, bitbell.DIR_PULL]):
+        stale = torch.full_like(got, 3)
+        cuda_bell.forest_or(
+            frontier.to(cuda), bg, stale, torch.tensor(ctrl, dtype=torch.int32, device=cuda), 100
+        )
+        assert bool((stale == 3).all())
+
+
+@pytest.mark.parametrize("k", [1, 64])
+def test_ell_level_matches_plain(cuda, k):
+    g = _hub_graph(70 + k)
+    eg = EllGraph.from_host(g, cuda, width=16, tile_rows=100)
+    eg_cpu = EllGraph.from_host(g, "cpu", width=16, tile_rows=100)
+    assert eg.num_vrows % 256 and int((eg_cpu.cols == g.n).sum()) > 0
+    rng = np.random.default_rng(k)
+    level = rng.integers(0, 4, size=k).astype(np.int32)
+    dist = rng.integers(-1, 5, size=(k, g.n)).astype(np.int32)
+    dist[rng.random((k, g.n)) < 0.5] = -1
+
+    def carry(dev):
+        c = bfs.DistCarry(
+            dist=torch.from_numpy(dist.copy()).to(dev),
+            level=torch.from_numpy(level.copy()).to(dev),
+            updated=torch.from_numpy((np.arange(k) % 5 != 3).astype(np.int32)).to(dev),
+            stop=torch.from_numpy(level + 2).to(dev),
+            found=torch.zeros(k, dtype=torch.int32, device=dev),
+            ctrl=torch.tensor([1, 0, 0, 0], dtype=torch.int32, device=dev),
+        )
+        return c
+
+    want, got = carry("cpu"), carry(cuda)
+    for _ in range(3):  # the third level is past every query's stop
+        cuda_bfs.ell_level_plain(eg_cpu, want)
+        cuda_bfs.ell_level(eg, got)
+    torch.cuda.synchronize()
+    for field in ("dist", "level", "updated", "stop", "found", "ctrl"):
+        assert torch.equal(getattr(got, field).cpu(), getattr(want, field)), field
+    assert int(got.ctrl[0]) == 0
+
+
+@pytest.mark.parametrize(
+    "k,kwargs", [(1, {}), (40, {"level_chunk": 3}), (70, {"sparse_budget": 0}), (300, {"level_chunk": 2})]
+)
+def test_bitbell_engine_kernel_path_matches_plain(cuda, k, kwargs):
+    g = _hub_graph(k)
+    queries = io.pad_queries(generators.random_queries(g.n, k, max_group=5, seed=k))
+    want = bitbell.BitBellEngine(BellGraph.from_host(g, "cpu"), **kwargs).query_stats(queries)
+    bg = BellGraph.from_host(g, cuda)
+    for plain in (True, False):
+        before = timing.launch_counts()
+        got = bitbell.BitBellEngine(bg, plain=plain, **kwargs).query_stats(queries)
+        for x, y in zip(want, got):
+            np.testing.assert_array_equal(x, y)
+        after = timing.launch_counts()
+        assert (after == before) if plain else after["forest_or"] > before.get("forest_or", 0)
+
+
+@pytest.mark.parametrize("k,level_chunk", [(1, None), (33, 2), (70, None)])
+def test_ell_engine_kernel_path_matches_plain(cuda, k, level_chunk):
+    g = _hub_graph(k + 1)
+    queries = io.pad_queries(generators.random_queries(g.n, k, max_group=5, seed=k))
+    want = engine.Engine(EllGraph.from_host(g, "cpu"), level_chunk=level_chunk).query_stats(queries)
+    eg = EllGraph.from_host(g, cuda)
+    for plain in (True, False):
+        got = engine.Engine(eg, level_chunk=level_chunk, plain=plain).query_stats(queries)
+        for x, y in zip(want, got):
+            np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("backend", ["auto", "pallas"])
+def test_bitbell_and_ell_cli_on_card(cuda, tmp_path, capsys, monkeypatch, backend):
+    n, edges = generators.rmat_edges(10, edge_factor=8, seed=9)
+    gpath, qpath = tmp_path / "g.bin", tmp_path / "q.bin"
+    io.save_graph_bin(gpath, n, edges)
+    io.save_query_bin(qpath, generators.random_queries(n, 40, max_group=6, seed=9))
+    monkeypatch.setenv("MSBFS_BACKEND", backend)
+    argv = ["prog", "-g", str(gpath), "-q", str(qpath), "-gn", "1"]
+    timing.reset_launch_counts()
+    assert cli.main(argv) == 0
+    kernel = "ell_hits" if backend == "pallas" else "forest_or"
+    assert timing.launch_counts().get(kernel, 0) > 0
     card = capsys.readouterr().out.splitlines()
     assert cli.main(argv, device="cpu") == 0
     host = capsys.readouterr().out.splitlines()
