@@ -16,11 +16,20 @@ nothing of JAX.  Phases (any failure exits non-zero; nothing is caught):
    route's two (tile_hits, push_or) at its main path's shape (RMAT-14,
    T = 128, W = 2, every one of the 16,384 tiles nonzero) and at
    road-512's (T = 128, W = 1), with the bf16 ``torch.bmm`` of the same
-   tile products timed as tile_hits' library yardstick;
+   tile products timed as tile_hits' library yardstick; level_apply also
+   at the mxu route's plane shapes (RMAT-14 W = 2, road-512 W = 1).  Each
+   sweep and apply row names the variant its plan took (ring or l2, the W
+   instance, 16- or 4-byte access), and its bound counts the bytes that
+   input needs (the mask only of rows with a nonzero frontier; visited
+   only where a hit word is nonzero);
 3. stencil main path: road_edges(4096, 4096) with K = 16 random query
    groups as .bin files, through the port's CLI (``cli.main``) on cuda;
    the kernel path's F vector equals the plain path's on the card, and
-   the winner's F equals scipy's multi-source BFS;
+   the winner's F equals scipy's multi-source BFS; then the sweep and the
+   apply held against their plain versions and timed on the planes of the
+   BFS's middle level, and 64 real levels from there split by kernel
+   (CUDA events around each launch: sweep, residual, apply, and the gaps),
+   beside the same 64 levels as the engine enqueues them;
 4. mxu main path: ``MSBFS_BACKEND=mxu MSBFS_MXU_KERNEL=1`` through the
    CLI on rmat_edges(14) with K = 64 random groups; every F equals
    scipy's and the plain engine's, and the direction trace is printed;
@@ -29,9 +38,10 @@ nothing of JAX.  Phases (any failure exits non-zero; nothing is caught):
 5b. RMAT-20 (rmat_edges(20, 16), BASELINE.json config 2): forest_or and
    ell_hits against their plain versions at K = 64 (W = 2) and K = 256
    (W = 8), timed beside their bounds (ell_hits also beside the two-call
-   torch expression of its gather); then with K = 64 random groups the
-   default route (bitbell: forest_or, push_or, level_apply) and the ELL
-   route (``MSBFS_BACKEND=pallas``: ell_hits) through the CLI, each a path;
+   torch expression of its gather), and level_apply at W = 2; then with
+   K = 64 random groups the default route (bitbell: forest_or, push_or,
+   level_apply) and the ELL route (``MSBFS_BACKEND=pallas``: ell_hits)
+   through the CLI, each a path;
    the 64 F values are equal across the kernel and plain engines of both
    routes, both CLIs report the same winner and F, and the winner and the
    first eight groups equal scipy's;
@@ -47,7 +57,8 @@ then the ``{"kernels": [...]}`` line and the final ``{"ok": true, ...}``.
 Each CLI run of phases 3-5b is one path: the kernel launch counters are
 zeroed just before it and read just after; each path must have launched
 its route's kernels, and every registered kernel must have launched on
-some path.
+some path.  Each path, and phases 7 and 8, also print the launches per
+kernel variant.
 """
 
 from __future__ import annotations
@@ -128,40 +139,136 @@ def _max_abs_err(torch, pairs) -> int:
     return err
 
 
-def _compare_kernels(torch, sg, w, seed, label):
-    """Each kernel against its plain version on one graph's shapes."""
+def _words(torch, n, w, density, gen, dev, rows=None):
+    """(n, w) random int32 words in a ``density`` share of the first
+    ``rows`` rows (all rows when None), zero elsewhere."""
+    x = torch.randint(-(2**31), 2**31, (n, w), dtype=torch.int32, device=dev,
+                      generator=gen)
+    keep = torch.rand((n, 1), device=dev, generator=gen) < density
+    if rows is not None:
+        keep[rows:] = False
+    return torch.where(keep, x, 0)
+
+
+def _sweep_bound(torch, frontier, n_offsets):
+    """Bytes any sweep must move for this frontier: read it and write the
+    hit plane (8W bytes a row), and read the mask word of each row whose
+    frontier is nonzero; a few operations per offset and word."""
+    n, w = frontier.shape
+    active_rows = int((frontier != 0).any(dim=1).sum())
+    return _bound_ms(8 * n * w + 4 * active_rows, n * w * n_offsets * 4)
+
+
+def _apply_bound(torch, hits, visited):
+    """Bytes any level apply must move for these planes: read hits and
+    write frontier (8W bytes a row), read visited where a hit word is
+    nonzero and write it where something is new, and the per-query
+    counters; two operations a word and 64 a new word (the popcount)."""
+    n, w = hits.shape
+    hit_words = int((hits != 0).sum())
+    new_words = int(((hits & ~visited) != 0).sum())
+    nbytes = 8 * n * w + 4 * hit_words + 4 * new_words + 32 * w * 40
+    return _bound_ms(nbytes, 2 * n * w + 64 * new_words), hit_words, new_words
+
+
+def _sweep_row(torch, frontier, mask_bits, offs, go):
+    """stencil_sweep against its plain version on one frontier: the error,
+    both times and the bound."""
     from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
-        bitbell, cuda_stencil, stencil,
+        bitbell, cuda_stencil,
+    )
+
+    h_k, h_p = torch.empty_like(frontier), torch.empty_like(frontier)
+    cuda_stencil.stencil_sweep(frontier, mask_bits, offs, h_k, go, 2**31 - 1)
+    cuda_stencil.stencil_sweep_plain(frontier, mask_bits, offs, h_p, go, 2**31 - 1)
+    torch.cuda.synchronize()
+    err = _max_abs_err(torch, [(h_k, h_p)])
+    ms = _time_ms(torch, lambda: cuda_stencil.stencil_sweep(
+        frontier, mask_bits, offs, h_k, go, 2**31 - 1), lambda: None)
+    plain_ms = _time_ms(torch, lambda: cuda_stencil.stencil_sweep_plain(
+        frontier, mask_bits, offs, h_p, go, 2**31 - 1), lambda: None, reps=3)
+    bound, by = _sweep_bound(torch, frontier, len(offs))
+    n, w = frontier.shape
+    vec16 = all(t.data_ptr() % 16 == 0 for t in (frontier, mask_bits, h_k))
+    plan = cuda_stencil.sweep_plan(n, w, offs, vec16)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                variant=bitbell.plan_label(plan), tile=plan.tile,
+                smem_bytes=plan.smem_bytes)
+
+
+def _apply_row(torch, pristine, hits):
+    """level_apply against its plain version on one carry and hit plane
+    (each call on a fresh copy of ``pristine``): the error, both times
+    and the bound."""
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
+        bitbell,
+    )
+
+    fields = ("visited", "frontier", "f", "levels", "reached", "counts", "ctrl")
+
+    def fresh():
+        return bitbell.BitCarry(*(getattr(pristine, f).clone() for f in fields))
+
+    def restore(c):
+        for f in fields:
+            getattr(c, f).copy_(getattr(pristine, f))
+
+    c_k, c_p = fresh(), fresh()
+    bitbell.bit_level_apply(c_k, hits)
+    bitbell.bit_level_apply_plain(c_p, hits)
+    torch.cuda.synchronize()
+    err = _max_abs_err(torch, [(getattr(c_k, f), getattr(c_p, f)) for f in fields])
+    ms = _time_ms(torch, lambda: bitbell.bit_level_apply(c_k, hits), lambda: restore(c_k))
+    plain_ms = _time_ms(torch, lambda: bitbell.bit_level_apply_plain(c_p, hits),
+                        lambda: restore(c_p), reps=3)
+    (bound, by), hit_words, new_words = _apply_bound(torch, hits, pristine.visited)
+    planes = (hits, c_k.visited, c_k.frontier)  # as the timed launches
+    vec16 = all(t.data_ptr() % 16 == 0 for t in planes)
+    plan = bitbell.apply_plan(hits.shape[1], vec16)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                variant=bitbell.plan_label(plan), hit_words=hit_words,
+                new_words=new_words)
+
+
+def _synthetic_carry(torch, n, w, gen, dev, rows=None):
+    """A carry at level 7 with random visited (half the rows) and frontier
+    (5%) planes and counters, and a hit plane with 30% nonzero rows."""
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
+        bitbell,
+    )
+
+    k = 32 * w
+    frontier = _words(torch, n, w, 0.05, gen, dev, rows)
+    visited = _words(torch, n, w, 0.5, gen, dev, rows)
+    hits = _words(torch, n, w, 0.3, gen, dev, rows)
+    carry = bitbell.BitCarry(
+        visited=visited, frontier=frontier,
+        f=torch.arange(k, dtype=torch.int64, device=dev) * 1000,
+        levels=torch.full((k,), 3, dtype=torch.int32, device=dev),
+        reached=torch.full((k,), 5, dtype=torch.int32, device=dev),
+        counts=torch.zeros(k, dtype=torch.int32, device=dev),
+        ctrl=torch.tensor([1, 7, 0, 0], dtype=torch.int32, device=dev),
+    )
+    return carry, hits
+
+
+def _compare_kernels(torch, sg, w, seed, label):
+    """Each kernel of the stencil route against its plain version on one
+    graph's shapes."""
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
+        stencil,
     )
 
     dev = sg.device
-    n, k = sg.n, 32 * w
+    n = sg.n
     gen = torch.Generator(device=dev).manual_seed(seed)
-
-    def words(density):
-        x = torch.randint(-(2**31), 2**31, (n, w), dtype=torch.int32,
-                          device=dev, generator=gen)
-        keep = torch.rand((n, 1), device=dev, generator=gen) < density
-        return torch.where(keep, x, 0)
-
-    frontier, visited, hits0 = words(0.05), words(0.5), words(0.3)
+    pristine, hits0 = _synthetic_carry(torch, n, w, gen, dev)
+    frontier = pristine.frontier
     go = torch.tensor([1, 7, 0, 0], dtype=torch.int32, device=dev)
     out = {}
 
     # A: the masked-shift sweep.
-    offs = sg.offsets
-    h_k, h_p = torch.empty_like(frontier), torch.empty_like(frontier)
-    cuda_stencil.stencil_sweep(frontier, sg.mask_bits, offs, h_k, go, 2**31 - 1)
-    cuda_stencil.stencil_sweep_plain(frontier, sg.mask_bits, offs, h_p, go, 2**31 - 1)
-    torch.cuda.synchronize()
-    err = _max_abs_err(torch, [(h_k, h_p)])
-    ms = _time_ms(torch, lambda: cuda_stencil.stencil_sweep(
-        frontier, sg.mask_bits, offs, h_k, go, 2**31 - 1), lambda: None)
-    plain_ms = _time_ms(torch, lambda: cuda_stencil.stencil_sweep_plain(
-        frontier, sg.mask_bits, offs, h_p, go, 2**31 - 1), lambda: None, reps=3)
-    bound, by = _bound_ms(n * 4 * (2 * w + 1), n * w * len(offs) * 4)
-    out["stencil_sweep"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                bound_ms=bound, bound_by=by)
+    out["stencil_sweep"] = _sweep_row(torch, frontier, sg.mask_bits, sg.offsets, go)
 
     # B: the residual segment-OR (into a fresh copy of one hit plane).
     r, u = int(sg.res_src.shape[0]), int(sg.res_dst_unique.shape[0])
@@ -181,39 +288,110 @@ def _compare_kernels(torch, sg, w, seed, label):
                                   bound_ms=bound, bound_by=by)
 
     # C: the level apply with per-query counts.
-    def fresh():
-        return bitbell.BitCarry(
-            visited=visited.clone(), frontier=frontier.clone(),
-            f=torch.arange(k, dtype=torch.int64, device=dev) * 1000,
-            levels=torch.full((k,), 3, dtype=torch.int32, device=dev),
-            reached=torch.full((k,), 5, dtype=torch.int32, device=dev),
-            counts=torch.zeros(k, dtype=torch.int32, device=dev),
-            ctrl=go.clone(),
-        )
-
-    c_k, c_p = fresh(), fresh()
-    bitbell.bit_level_apply(c_k, hits0)
-    bitbell.bit_level_apply_plain(c_p, hits0)
-    torch.cuda.synchronize()
-    fields = ("visited", "frontier", "f", "levels", "reached", "counts", "ctrl")
-    err = _max_abs_err(torch, [(getattr(c_k, f), getattr(c_p, f)) for f in fields])
-    pristine = fresh()
-
-    def restore(c):
-        for f in fields:
-            getattr(c, f).copy_(getattr(pristine, f))
-
-    ms = _time_ms(torch, lambda: bitbell.bit_level_apply(c_k, hits0),
-                  lambda: restore(c_k))
-    plain_ms = _time_ms(torch, lambda: bitbell.bit_level_apply_plain(c_p, hits0),
-                        lambda: restore(c_p), reps=3)
-    bound, by = _bound_ms(n * w * 16 + k * 40, n * w * 64)
-    out["level_apply"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                              bound_ms=bound, bound_by=by)
+    out["level_apply"] = _apply_row(torch, pristine, hits0)
     for name, row in out.items():
         print(f"compare {label} n={n} W={w} {name}: " + json.dumps(row))
         assert row["max_abs_err"] == 0, (label, name, row)
     return out
+
+
+def _compare_apply(torch, n, rows, w, dev, seed, label):
+    """level_apply against its plain version at one route's plane shape
+    (n rows, the first ``rows`` of them real vertices)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pristine, hits = _synthetic_carry(torch, n, w, gen, dev, rows)
+    row = _apply_row(torch, pristine, hits)
+    print(f"compare {label} n={n} W={w} level_apply: " + json.dumps(row))
+    assert row["max_abs_err"] == 0, (label, row)
+    return row
+
+
+def _real_level(torch, sg, padded, depth, label):
+    """The sweep and the apply on the planes of one real level: the
+    kernel-path StencilEngine runs the BFS to its middle level, then each
+    kernel is held against its plain version on that carry and timed
+    beside the bound of that input.  Returns the carry at that level."""
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
+        bitbell, stencil,
+    )
+
+    eng = stencil.StencilEngine(sg, level_chunk=stencil.AUTO_STENCIL_LEVEL_CHUNK)
+    carry = eng._init_carry(eng._pad_queries(padded)[0])
+    hits = torch.empty_like(carry.frontier)
+    mid = depth // 2
+    bitbell.bit_level_chunk(carry, lambda c: eng._step(c, 0, hits), mid)
+    assert int(carry.ctrl[1]) == mid, (int(carry.ctrl[1]), mid)
+    go = carry.ctrl.clone()
+    row = {"stencil_sweep": _sweep_row(torch, carry.frontier, sg.mask_bits,
+                                       sg.offsets, go)}
+    # The level's whole hit plane (sweep + residual), as the engine builds it.
+    stencil._expand_into(hits, carry.frontier, sg.mask_bits, sg, go, 2**31 - 1, False)
+    row["level_apply"] = _apply_row(torch, carry, hits)
+    n, w = carry.frontier.shape
+    active = int((carry.frontier != 0).any(dim=1).sum())
+    print(f"real level {label} level={mid} of {depth} n={n} W={w} "
+          f"frontier_rows={active}: " + json.dumps(row))
+    for name, r in row.items():
+        assert r["max_abs_err"] == 0, (label, name, r)
+    return carry
+
+
+def _level_split(torch, sg, carry, levels, label):
+    """One chunk of ``levels`` real levels from ``carry`` with CUDA events
+    around every launch: device time of the sweep, the residual and the
+    apply, and the gaps between launches; then the same chunk as the
+    engine enqueues it, with one event pair around it."""
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
+        bitbell, cuda_stencil, stencil,
+    )
+
+    fields = ("visited", "frontier", "f", "levels", "reached", "counts", "ctrl")
+
+    def fresh():
+        return bitbell.BitCarry(*(getattr(carry, f).clone() for f in fields))
+
+    top = 2**31 - 1
+    res = (sg.res_src, sg.res_seg, sg.res_dst_unique)
+    c = fresh()
+    hits = torch.empty_like(c.frontier)
+    ev = [[torch.cuda.Event(enable_timing=True) for _ in range(4)] for _ in range(levels)]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(2_000_000)
+    for e in ev:
+        e[0].record()
+        cuda_stencil.stencil_sweep(c.frontier, sg.mask_bits, sg.offsets, hits, c.ctrl, top)
+        e[1].record()
+        if res[0].shape[0]:
+            stencil.residual_or(c.frontier, *res, hits, c.ctrl, top)
+        e[2].record()
+        bitbell.bit_level_apply(c, hits, top)
+        e[3].record()
+    torch.cuda.synchronize()
+    split = {"sweep": 0.0, "residual": 0.0, "apply": 0.0, "gaps": 0.0}
+    for i, e in enumerate(ev):
+        split["sweep"] += e[0].elapsed_time(e[1])
+        split["residual"] += e[1].elapsed_time(e[2])
+        split["apply"] += e[2].elapsed_time(e[3])
+        if i + 1 < levels:
+            split["gaps"] += e[3].elapsed_time(ev[i + 1][0])
+    span = ev[0][0].elapsed_time(ev[-1][3])
+    eng = stencil.StencilEngine(sg, level_chunk=stencil.AUTO_STENCIL_LEVEL_CHUNK)
+    c2 = fresh()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(2_000_000)
+    e0.record()
+    for _ in range(levels):
+        eng._step(c2, 0, hits)
+    e1.record()
+    e1.synchronize()
+    assert torch.equal(c.f, c2.f) and torch.equal(c.ctrl, c2.ctrl)
+    print(f"level split {label} from level {int(carry.ctrl[1])}: " + json.dumps(dict(
+        levels=levels, ms_per_level={k: v / levels for k, v in split.items()},
+        evented_span_ms=span, evented_ms_per_level=span / levels,
+        engine_chunk_ms=e0.elapsed_time(e1),
+        engine_ms_per_level=e0.elapsed_time(e1) / levels,
+    )))
 
 
 def _compare_mxu(torch, mg, w, seed, label):
@@ -229,11 +407,7 @@ def _compare_mxu(torch, mg, w, seed, label):
     gen = torch.Generator(device=dev).manual_seed(seed)
 
     def words(density):
-        x = torch.randint(-(2**31), 2**31, (n, w), dtype=torch.int32,
-                          device=dev, generator=gen)
-        keep = torch.rand((n, 1), device=dev, generator=gen) < density
-        keep[mg.n:] = False
-        return torch.where(keep, x, 0)
+        return _words(torch, n, w, density, gen, dev, mg.n)
 
     out = {}
     # K7: a dense frontier (a matmul level).
@@ -453,6 +627,7 @@ def _run_path(cli, timing, argv, name, launches):
     counts = timing.launch_counts()
     launches[name] = counts
     print(f"{name} launches: {json.dumps(counts)}")
+    print(f"{name} variants: {json.dumps(timing.variant_counts())}")
     for kernel in PATH_KERNELS[name]:
         assert counts.get(kernel, 0) > 0, f"{kernel} never launched on {name}"
     return result
@@ -627,6 +802,9 @@ def main() -> int:
     _compare_kernels(torch, sg1, 8, seed + 1, "road-1024")
     main_shape.update(_compare_mxu(torch, mgr, 2, seed + 6, "rmat-14"))
     _compare_mxu(torch, mg5, 1, seed + 7, "road-512")
+    # The level apply at the mxu route's plane shapes.
+    _compare_apply(torch, mgr.n_pad, mgr.n, 2, dev, seed + 13, "rmat-14")
+    _compare_apply(torch, mg5.n_pad, mg5.n, 1, dev, seed + 14, "road-512")
 
     # ---- 3. main path through the CLI
     # Removed when the script ends, whichever way it ends.
@@ -665,6 +843,11 @@ def main() -> int:
         plain_path_f_values_s=plain_s,
         ms_per_level=comp_s * 1e3 / max(depth, 1),
     )))
+    # The sweep and the apply on the planes of a real level, and one chunk
+    # of real levels split by kernel.
+    mid_carry = _real_level(torch, sg4, padded4, depth, "road-4096")
+    _level_split(torch, sg4, mid_carry, 64, "road-4096")
+    del mid_carry, fast, plain
 
     # ---- 4-5. the mxu route: RMAT-14 with K = 64, road-512 with K = 16
     ctx = (torch, np, sp, cg, cli, tio, timing, generators, mxu, dev, tmp, launches)
@@ -693,6 +876,7 @@ def main() -> int:
           f"fill={bg20.fill:.3f} ell_vrows={eg20.num_vrows}; host s: generate+csr "
           f"{t_csr:.1f}, bell {t_bell:.1f}, ell {t_ell:.1f}")
     main_shape.update(_compare_forest_ell(torch, bg20, eg20, 64, seed + 10, "rmat-20"))
+    _compare_apply(torch, n20, n20, 2, dev, seed + 15, "rmat-20")
     _compare_forest_ell(torch, bg20, eg20, 256, seed + 11, "rmat-20")
     torch.cuda.empty_cache()
     ctx20 = (torch, np, sp, cg, cli, tio, timing, generators, launches, tmp)
@@ -730,9 +914,11 @@ def main() -> int:
         stencil.StencilEngine(sg1, level_chunk=stencil.AUTO_STENCIL_LEVEL_CHUNK))
     sub_plain = packed.SubBatchEngine(stencil.StencilEngine(
         sg1, level_chunk=stencil.AUTO_STENCIL_LEVEL_CHUNK, plain=True))
+    timing.reset_launch_counts()
     t0 = time.perf_counter()
     best300 = sub_fast.best(q300)
     sub_s = time.perf_counter() - t0
+    print(f"road-1024 K=300 variants: {json.dumps(timing.variant_counts())}")
     f300 = sub_fast.f_values(q300).cpu().numpy()
     assert np.array_equal(f300, sub_plain.f_values(q300).cpu().numpy())
     assert best300 == (int(f300.min()), int(np.argmin(f300)))
@@ -750,9 +936,11 @@ def main() -> int:
     ref = stencil.StencilEngine(sgg, level_chunk=64, megachunk=1, window=False,
                                 plain=True)
     timing.reset_plane_pass()
+    timing.reset_launch_counts()
     t0 = time.perf_counter()
     got = win.query_stats(qg)
     win_s = time.perf_counter() - t0
+    print(f"grid-2048 window variants: {json.dumps(timing.variant_counts())}")
     win_bytes = timing.plane_pass_bytes()
     want = ref.query_stats(qg)
     for x, y in zip(got, want):

@@ -15,64 +15,93 @@
 //
 // torch has no popcount; the JAX version unpacks every word into 32 lanes.
 //
-// Bound: bytes.  Per level it must read hits and visited and write visited
-// and frontier: rows * 16W bytes (the visited write is skipped where nothing
-// is new).  The per-query count is the operation-heavy part: 32 bit tests
-// per word.  Design: each warp owns 32 consecutive vertices of one word
-// column, so bit b of the warp's 32 words is one __ballot_sync and its count
-// one __popc — 32 ballots per 32 words, done only when some word of the
-// warp is nonzero.  Lane b keeps query b's count, blocks reduce in shared
-// memory and add once per query to a (K,) device vector; the block that
-// takes the last ticket folds those counts into the per-query counters and
-// advances the device-side level control, so a level costs one launch and
-// no host round trip.
+// Bound: bytes.  Per level it must read hits and write frontier (8W bytes
+// per vertex), and read visited only where a hit word is nonzero and write
+// it only where something is new: on a thin road frontier almost every hit
+// word is 0, so the bound is close to 8W bytes per vertex.
+//
+// Design, two variants picked on the host by ops/bitbell.py apply_plan (a
+// pure function of rows, W and whether every base pointer is 16-byte
+// aligned):
+//
+// * vector (W = 1, 2, 4, 8, a template parameter) — the plane is a flat
+//   run of rows * W words; a warp takes 32 * 16 consecutive words a step,
+//   a lane four units of 4 words (two of 8 at W = 8) strided so that each
+//   16-byte access of the warp is coalesced, and word c of a unit belongs
+//   to query word c % W for every lane and every step.  Loads and stores
+//   are 16 bytes (uint4) when the plan says every base is aligned, else 4
+//   bytes at the same addresses; a lane's four hit loads are all in flight
+//   before it uses one, and visited is read only for a 16-byte group whose
+//   hit words are not all 0.  Each lane adds its new words into W bit-sliced (vertical)
+//   counters of D bits — bit b of counter level i is bit i of the count of
+//   query bit b — a ripple add per nonzero word.  A warp unpacks its
+//   counters (a 32 x 32 bit transpose by shuffles and a popcount per level
+//   in use) only when they could overflow and once at the end of its walk,
+//   instead of 32 ballots for every 32 words.
+// * column (every other W) — a warp owns one word
+//   column w for its whole walk (the grid's warp count is a multiple of W)
+//   and 32 consecutive rows a step: 4-byte loads strided by W, one vertical
+//   counter.
+//
+// Indices are 32-bit (the wrapper refuses rows * W >= 2^31 words).  Block
+// counts meet in shared memory and are added once per query to a (K,)
+// device vector; the block that takes the last ticket folds those counts
+// into the per-query counters and advances the device-side level control,
+// so a level costs one launch and no host round trip.
 #include "msbfs_common.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(msbfs::kThreads)
-level_apply_kernel(const uint32_t* __restrict__ hits,
-                   uint32_t* __restrict__ visited,
-                   uint32_t* __restrict__ frontier, long long rows, int W,
-                   int* __restrict__ counts, long long* __restrict__ f,
-                   int* __restrict__ levels, int* __restrict__ reached,
-                   int* __restrict__ ctrl, int max_levels) {
-  extern __shared__ int s_counts[];  // K = 32 * W per-query partials
-  __shared__ int s_last;
-  if (!msbfs::level_go(ctrl, max_levels)) return;
-  const int level = __ldcg(ctrl + 1);
-  const int K = 32 * W;
-  for (int q = threadIdx.x; q < K; q += blockDim.x) s_counts[q] = 0;
-  __syncthreads();
+constexpr unsigned kFull = 0xffffffffu;
 
-  const int lane = threadIdx.x & 31;
-  const int warps = blockDim.x >> 5;
-  const long long groups = (rows + 31) / 32;
-  const long long total_warps = groups * W;
-  for (long long g = static_cast<long long>(blockIdx.x) * warps +
-                     (threadIdx.x >> 5);
-       g < total_warps; g += static_cast<long long>(gridDim.x) * warps) {
-    // g is uniform across the warp, so the ballots below see every lane.
-    const int w = static_cast<int>(g % W);
-    const long long v = (g / W) * 32 + lane;
-    uint32_t x = 0;
-    if (v < rows) {
-      const long long i = v * W + w;
-      const uint32_t vis = visited[i];
-      x = __ldg(hits + i) & ~vis;
-      if (x) visited[i] = vis | x;
-      frontier[i] = x;
-    }
-    if (__any_sync(0xffffffffu, x != 0)) {
-      int mine = 0;
+// Adds the 32 bits of x (one count per bit position) into a D-level
+// vertical counter.
+template <int D>
+__device__ __forceinline__ void vadd(uint32_t (&cnt)[D], uint32_t x) {
 #pragma unroll
-      for (int b = 0; b < 32; ++b) {
-        const unsigned bal = __ballot_sync(0xffffffffu, (x >> b) & 1u);
-        if (lane == b) mine = __popc(bal);
-      }
-      if (mine) atomicAdd(s_counts + w * 32 + lane, mine);
-    }
+  for (int i = 0; i < D; ++i) {
+    const uint32_t carry = cnt[i] & x;
+    cnt[i] ^= x;
+    x = carry;
   }
+}
+
+// The warp's 32 x 32 bit matrix (lane L holds row L) transposed: lane b
+// receives bit b of every lane, lane L's bit in position L.
+__device__ __forceinline__ uint32_t transpose32(uint32_t x, int lane) {
+  uint32_t m = 0x0000ffffu;
+#pragma unroll
+  for (int j = 16; j > 0; j >>= 1, m ^= m << j) {
+    const uint32_t y = __shfl_xor_sync(kFull, x, j);
+    x = (lane & j) ? (x & ~m) | ((y >> j) & m) : (x & m) | ((y & m) << j);
+  }
+  return x;
+}
+
+// Warp-wide: lane b receives the count of query bit b summed over the
+// warp's vertical counters (a transpose and a popcount per counter level
+// in use); the counters are cleared.
+template <int D>
+__device__ __forceinline__ int vflush(uint32_t (&cnt)[D], int lane) {
+  int mine = 0;
+#pragma unroll
+  for (int i = 0; i < D; ++i) {
+    if (!__any_sync(kFull, cnt[i] != 0)) continue;
+    mine += __popc(transpose32(cnt[i], lane)) << i;
+    cnt[i] = 0;
+  }
+  return mine;
+}
+
+// Block tail: this block's counts into the (K,) vector, then the last block
+// folds them into the per-query counters and advances the control.
+__device__ void finish_level(const int* s_counts, int K, int level,
+                             int* __restrict__ counts,
+                             long long* __restrict__ f,
+                             int* __restrict__ levels,
+                             int* __restrict__ reached,
+                             int* __restrict__ ctrl) {
+  __shared__ int s_last;
   __syncthreads();
   for (int q = threadIdx.x; q < K; q += blockDim.x) {
     const int c = s_counts[q];
@@ -107,24 +136,293 @@ level_apply_kernel(const uint32_t* __restrict__ hits,
   }
 }
 
+// The 4-word group of hits at word i.
+template <bool kVec16>
+__device__ __forceinline__ void load4(const uint32_t* __restrict__ hits,
+                                      unsigned i, uint32_t (&x)[4]) {
+  if constexpr (kVec16) {
+    const uint4 h = __ldg(reinterpret_cast<const uint4*>(hits + i));
+    x[0] = h.x; x[1] = h.y; x[2] = h.z; x[3] = h.w;
+  } else {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) x[c] = __ldg(hits + i + c);
+  }
+}
+
+// The 4-word group at word i, its hit words in x: visited read only where
+// a hit word is nonzero, frontier written; leaves the new words in x.
+template <bool kVec16>
+__device__ __forceinline__ void apply4(uint32_t* __restrict__ visited,
+                                       uint32_t* __restrict__ frontier,
+                                       unsigned i, uint32_t (&x)[4]) {
+  if constexpr (kVec16) {
+    if (x[0] | x[1] | x[2] | x[3]) {
+      uint4 v = *reinterpret_cast<const uint4*>(visited + i);
+      x[0] &= ~v.x; x[1] &= ~v.y; x[2] &= ~v.z; x[3] &= ~v.w;
+      if (x[0] | x[1] | x[2] | x[3]) {
+        v.x |= x[0]; v.y |= x[1]; v.z |= x[2]; v.w |= x[3];
+        *reinterpret_cast<uint4*>(visited + i) = v;
+      }
+    }
+    *reinterpret_cast<uint4*>(frontier + i) = make_uint4(x[0], x[1], x[2], x[3]);
+  } else {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      if (x[c]) {
+        const uint32_t v = visited[i + c];
+        x[c] &= ~v;
+        if (x[c]) visited[i + c] = v | x[c];
+      }
+      frontier[i + c] = x[c];
+    }
+  }
+}
+
+template <int W, bool kVec16>
+__global__ void __launch_bounds__(msbfs::kThreads)
+level_apply_vector_kernel(const uint32_t* __restrict__ hits,
+                          uint32_t* __restrict__ visited,
+                          uint32_t* __restrict__ frontier, int rows,
+                          int* __restrict__ counts, long long* __restrict__ f,
+                          int* __restrict__ levels, int* __restrict__ reached,
+                          int* __restrict__ ctrl, int max_levels) {
+  constexpr int V = 16;                // words per lane a step
+  constexpr int C = W == 8 ? 8 : 4;    // consecutive words of a lane's unit
+  constexpr int U = V / C;             // units per lane a step
+  constexpr int D = W == 8 ? 5 : 8;    // bits per vertical counter
+  constexpr int kFlushEvery = ((1 << D) - 1) / (V / W);  // steps per flush
+  constexpr int K = 32 * W;
+  __shared__ int s_counts[K];
+  if (!msbfs::level_go(ctrl, max_levels)) return;
+  const int level = __ldcg(ctrl + 1);
+  for (int q = threadIdx.x; q < K; q += blockDim.x) s_counts[q] = 0;
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31;
+  const unsigned total = static_cast<unsigned>(rows) * W;
+  const unsigned warps = gridDim.x * (blockDim.x >> 5);
+  uint32_t cnt[W][D] = {};
+  int pending = 0;
+  // base is warp-uniform, so every lane takes part in each flush's shuffles.
+  for (unsigned base = (blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5)) *
+                       (32u * V);
+       base < total; base += warps * (32u * V)) {
+    // Unit u of the lane: words [i_u, i_u + C), i_u = base + (32u + lane) C,
+    // so each 16-byte access of the warp covers 512 contiguous bytes (W <=
+    // 4) or 32-byte sectors in pairs (W = 8), and word c of a unit belongs
+    // to query word c % W.
+    if (base + 32u * V <= total) {
+      unsigned at[V / 4];    // the word index of each 4-word group
+      uint32_t x[V / 4][4];  // every hit load in flight before any use
+#pragma unroll
+      for (int g = 0; g < V / 4; ++g) {
+        at[g] = base + ((g / (C / 4)) * 32u + lane) * C + 4 * (g % (C / 4));
+        load4<kVec16>(hits, at[g], x[g]);
+      }
+#pragma unroll
+      for (int g = 0; g < V / 4; ++g) {
+        apply4<kVec16>(visited, frontier, at[g], x[g]);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          if (x[g][c]) vadd<D>(cnt[(4 * (g % (C / 4)) + c) % W], x[g][c]);
+        }
+      }
+    } else {  // the ragged end of the plane
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const unsigned i = base + (u * 32u + lane) * C;
+#pragma unroll
+        for (int c = 0; c < C; ++c) {  // unrolled: cnt stays in registers
+          if (i + c < total) {
+            uint32_t h = __ldg(hits + i + c);
+            if (h) {
+              const uint32_t v = visited[i + c];
+              h &= ~v;
+              if (h) visited[i + c] = v | h;
+            }
+            frontier[i + c] = h;
+            if (h) vadd<D>(cnt[c % W], h);
+          }
+        }
+      }
+    }
+    if (++pending == kFlushEvery) {
+#pragma unroll
+      for (int w = 0; w < W; ++w) {
+        const int c = vflush<D>(cnt[w], lane);
+        if (c) atomicAdd(s_counts + w * 32 + lane, c);
+      }
+      pending = 0;
+    }
+  }
+  if (pending) {
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+      const int c = vflush<D>(cnt[w], lane);
+      if (c) atomicAdd(s_counts + w * 32 + lane, c);
+    }
+  }
+  finish_level(s_counts, K, level, counts, f, levels, reached, ctrl);
+}
+
+__global__ void __launch_bounds__(msbfs::kThreads)
+level_apply_column_kernel(const uint32_t* __restrict__ hits,
+                          uint32_t* __restrict__ visited,
+                          uint32_t* __restrict__ frontier, int rows, int W,
+                          int* __restrict__ counts, long long* __restrict__ f,
+                          int* __restrict__ levels, int* __restrict__ reached,
+                          int* __restrict__ ctrl, int max_levels) {
+  constexpr int D = 8;
+  constexpr int kFlushEvery = (1 << D) - 1;
+  extern __shared__ int s_counts[];  // K = 32 * W per-query partials
+  if (!msbfs::level_go(ctrl, max_levels)) return;
+  const int level = __ldcg(ctrl + 1);
+  const int K = 32 * W;
+  for (int q = threadIdx.x; q < K; q += blockDim.x) s_counts[q] = 0;
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31;
+  // The grid's warp count is a multiple of W (host), so a warp keeps its
+  // word column for its whole walk.
+  const unsigned warp = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  const unsigned step = gridDim.x * (blockDim.x >> 5) / W;
+  const int w = static_cast<int>(warp % W);
+  uint32_t cnt[D] = {};
+  int pending = 0;
+  for (unsigned g = warp / W; g * 32u < static_cast<unsigned>(rows); g += step) {
+    const unsigned v = g * 32u + lane;
+    if (v < static_cast<unsigned>(rows)) {
+      const unsigned i = v * W + w;
+      uint32_t h = __ldg(hits + i);
+      if (h) {
+        const uint32_t vis = visited[i];
+        h &= ~vis;
+        if (h) visited[i] = vis | h;
+      }
+      frontier[i] = h;
+      if (h) vadd<D>(cnt, h);
+    }
+    if (++pending == kFlushEvery) {
+      const int c = vflush<D>(cnt, lane);
+      if (c) atomicAdd(s_counts + w * 32 + lane, c);
+      pending = 0;
+    }
+  }
+  if (pending) {
+    const int c = vflush<D>(cnt, lane);
+    if (c) atomicAdd(s_counts + w * 32 + lane, c);
+  }
+  finish_level(s_counts, K, level, counts, f, levels, reached, ctrl);
+}
+
+struct Args {
+  int device;
+  const uint32_t* hits;
+  uint32_t* visited;
+  uint32_t* frontier;
+  int rows;
+  int* counts;
+  long long* f;
+  int* levels;
+  int* reached;
+  int* ctrl;
+  int max_levels;
+  cudaStream_t stream;
+};
+
+template <int W, bool kVec16>
+cudaError_t launch_vector(const Args& a) {
+  constexpr int V = 16;
+  static int wave[msbfs::kMaxDevices] = {};  // blocks resident at once
+  auto kernel = level_apply_vector_kernel<W, kVec16>;
+  const bool cached = a.device >= 0 && a.device < msbfs::kMaxDevices;
+  int resident = cached ? wave[a.device] : 0;
+  if (!resident) {
+    int sms = 0, per_sm = 0;
+    cudaError_t err = msbfs::sm_count(a.device, &sms);
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                          msbfs::kThreads, 0);
+    }
+    if (err != cudaSuccess) return err;
+    resident = sms * (per_sm > 0 ? per_sm : 1);
+    if (cached) wave[a.device] = resident;
+  }
+  // One wave of blocks: a warp walks several steps, and no second, ragged
+  // wave of blocks repeats the per-block tail.
+  const long long steps =
+      (static_cast<long long>(a.rows) * W + 32 * V - 1) / (32 * V);
+  long long grid = msbfs::grid_for(steps, msbfs::kThreads / 32);
+  if (grid > resident) grid = resident;
+  kernel<<<static_cast<int>(grid), msbfs::kThreads, 0, a.stream>>>(
+      a.hits, a.visited, a.frontier, a.rows, a.counts, a.f, a.levels,
+      a.reached, a.ctrl, a.max_levels);
+  return cudaGetLastError();
+}
+
+template <bool kVec16>
+cudaError_t dispatch_vector(const Args& a, int W) {
+  switch (W) {
+    case 1: return launch_vector<1, kVec16>(a);
+    case 2: return launch_vector<2, kVec16>(a);
+    case 4: return launch_vector<4, kVec16>(a);
+    case 8: return launch_vector<8, kVec16>(a);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+cudaError_t launch_column(const Args& a, int W) {
+  constexpr int kWarps = msbfs::kThreads / 32;
+  // Blocks in multiples of W / gcd(W, 8), so the warp count divides by W.
+  int g = W, b = kWarps;
+  while (b) { const int t = g % b; g = b; b = t; }
+  const long long unit = W / g;
+  const long long warps = ((static_cast<long long>(a.rows) + 31) / 32) * W;
+  long long grid = msbfs::grid_for(warps, kWarps);
+  grid = (grid + unit - 1) / unit * unit;
+  if (grid > msbfs::kMaxBlocks) grid = msbfs::kMaxBlocks / unit * unit;
+  if (grid < unit) grid = unit;
+  const size_t shmem = static_cast<size_t>(32) * W * sizeof(int);
+  level_apply_column_kernel<<<static_cast<int>(grid), msbfs::kThreads, shmem,
+                              a.stream>>>(
+      a.hits, a.visited, a.frontier, a.rows, W, a.counts, a.f, a.levels,
+      a.reached, a.ctrl, a.max_levels);
+  return cudaGetLastError();
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
 }  // namespace
 
+// variant: 0 = vector (W in 1, 2, 4, 8), 1 = column (any W).  vec16: every
+// plane's base pointer is 16-byte aligned (vector variant only).
 extern "C" int msbfs_level_apply(int device, const void* hits, void* visited,
                                  void* frontier, long long rows, int W,
                                  void* counts, void* f, void* levels,
                                  void* reached, void* ctrl, int max_levels,
-                                 void* stream) {
+                                 int variant, int vec16, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (W < 1 || rows < 0) return static_cast<int>(cudaErrorInvalidValue);
-  const long long warps = ((rows + 31) / 32) * W;
-  const int grid = msbfs::grid_for(warps, msbfs::kThreads / 32);
-  const size_t shmem = static_cast<size_t>(32) * W * sizeof(int);
-  level_apply_kernel<<<grid, msbfs::kThreads, shmem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(hits), static_cast<uint32_t*>(visited),
-      static_cast<uint32_t*>(frontier), rows, W, static_cast<int*>(counts),
-      static_cast<long long*>(f), static_cast<int*>(levels),
-      static_cast<int*>(reached), static_cast<int*>(ctrl), max_levels);
-  return static_cast<int>(cudaGetLastError());
+  const int invalid = static_cast<int>(cudaErrorInvalidValue);
+  if (W < 1 || W > 1024 || rows < 0 || rows * W >= (1LL << 31)) return invalid;
+  if (vec16 && !(aligned16(hits) && aligned16(visited) && aligned16(frontier))) {
+    return invalid;
+  }
+  Args a{device, static_cast<const uint32_t*>(hits),
+         static_cast<uint32_t*>(visited), static_cast<uint32_t*>(frontier),
+         static_cast<int>(rows),
+         static_cast<int*>(counts), static_cast<long long*>(f),
+         static_cast<int*>(levels), static_cast<int*>(reached),
+         static_cast<int*>(ctrl), max_levels,
+         static_cast<cudaStream_t>(stream)};
+  if (variant == 0) {
+    err = vec16 ? dispatch_vector<true>(a, W) : dispatch_vector<false>(a, W);
+  } else if (variant == 1 && !vec16) {
+    err = launch_column(a, W);
+  } else {
+    return invalid;
+  }
+  return static_cast<int>(err);
 }

@@ -53,6 +53,63 @@ inline int grid_for(long long items, int per_block) {
   return static_cast<int>(blocks);
 }
 
+// Device ordinals whose per-device launch settings are cached.
+constexpr int kMaxDevices = 64;
+
+// Streaming multiprocessors of ``device`` (cached after the first query).
+inline cudaError_t sm_count(int device, int* out) {
+  static int cache[kMaxDevices] = {};
+  const bool cached = device >= 0 && device < kMaxDevices;
+  if (cached && cache[device]) {
+    *out = cache[device];
+    return cudaSuccess;
+  }
+  const cudaError_t err =
+      cudaDeviceGetAttribute(out, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess && cached) cache[device] = *out;
+  return err;
+}
+
+// Lets ``kernel`` take ``bytes`` of dynamic shared memory (above 48 KB only
+// after cudaFuncSetAttribute); ``allowed`` is the caller's per-device
+// record of what it already set for this kernel.
+template <typename Kernel>
+inline cudaError_t allow_smem(Kernel kernel, int bytes, int* allowed,
+                              int device) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  const bool cached = device >= 0 && device < kMaxDevices;
+  if (cached && allowed[device] >= bytes) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && cached) allowed[device] = bytes;
+  return err;
+}
+
+// Asynchronous global -> shared copies (sm_80+): 16 bytes (both addresses
+// 16-byte aligned, L2 only) or 4 bytes.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Waits until at most N of this thread's newest cp.async groups are
+// still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 }  // namespace msbfs
 
 extern "C" const char* msbfs_error_string(int code) {

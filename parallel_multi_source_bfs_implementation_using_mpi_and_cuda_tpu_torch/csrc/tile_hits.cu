@@ -36,27 +36,6 @@
 
 namespace {
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // D = A (16x32 s8, row-major) * B (32x8 s8, column-major) + D, s32.
 __device__ __forceinline__ void mma_s8(int* d, uint32_t a0, uint32_t a1,
                                        uint32_t a2, uint32_t a3, uint32_t b0,
@@ -107,12 +86,12 @@ tile_hits_kernel(const int8_t* __restrict__ tiles,
     for (int c = tid; c < T * chunks; c += blockDim.x) {
       const int row = c / chunks;
       const int col = (c - row * chunks) * 16;
-      cp_async16(s_a + (s * T + row) * ld + col,
-                 src + static_cast<long long>(row) * T + col);
+      msbfs::cp_async16(s_a + (s * T + row) * ld + col,
+                        src + static_cast<long long>(row) * T + col);
     }
     const long long base = static_cast<long long>(__ldg(tile_col + b)) * T;
     for (int j = tid; j < T; j += blockDim.x) {
-      cp_async4(s_raw + s * T + j, frontier + (base + j) * W + w);
+      msbfs::cp_async4(s_raw + s * T + j, frontier + (base + j) * W + w);
     }
   };
 
@@ -124,12 +103,12 @@ tile_hits_kernel(const int8_t* __restrict__ tiles,
   }
 
   if (b0 < b1) stage(b0, 0);
-  cp_async_commit();
+  msbfs::cp_async_commit();
   for (int b = b0; b < b1; ++b) {
     const int s = (b - b0) & 1;
     if (b + 1 < b1) stage(b + 1, s ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();  // every group but the newest: tile b has landed
+    msbfs::cp_async_commit();
+    msbfs::cp_async_wait<1>();  // every group but the newest: tile b has landed
     __syncthreads();
     // Unpack the source block transposed: s_b[q][j] = bit q of word j, so
     // a B fragment's four consecutive k are one 32-bit load.

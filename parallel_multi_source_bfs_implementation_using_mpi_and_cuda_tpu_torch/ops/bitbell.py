@@ -26,8 +26,9 @@ for thin ones, the direction decided per level on the device.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
-from typing import Callable, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -210,6 +211,48 @@ def _check_device(*tensors: torch.Tensor) -> torch.device:
     return dev
 
 
+# Plane widths the sweep and apply kernels instantiate as templates; other
+# widths run their generic code.
+KERNEL_WIDTHS = (1, 2, 4, 8)
+
+
+def check_index_range(rows: int, w: int) -> None:
+    """The sweep and apply kernels index words with 32-bit ints."""
+    if rows * w >= 2**31:
+        raise ValueError(
+            f"a ({rows}, {w}) plane has {rows * w} words: the kernels index "
+            "at most 2^31 - 1"
+        )
+
+
+class ApplyPlan(NamedTuple):
+    """How the level-apply kernel runs one launch (:func:`apply_plan`)."""
+
+    variant: str  # "vector" (W in KERNEL_WIDTHS) or "column" (any other W)
+    w_instance: int  # the template width, or 0 for the column variant
+    vec16: bool  # 16-byte loads and stores
+
+
+def apply_plan(w: int, vec16: bool = True) -> ApplyPlan:
+    """The apply's variant for planes of w words a row: a pure function of
+    the shapes (``vec16``: every plane's base pointer is 16-byte aligned).
+    The vector variant gives a lane units of 4 (or 8) consecutive words, so
+    word c of a unit belongs to query word c % w only for w in
+    KERNEL_WIDTHS; the column variant takes every other w with 4-byte
+    loads."""
+    if w in KERNEL_WIDTHS:
+        return ApplyPlan("vector", w, bool(vec16))
+    return ApplyPlan("column", 0, False)
+
+
+@functools.lru_cache(maxsize=256)
+def plan_label(plan) -> str:
+    """A sweep or apply plan as the variant tally names it:
+    "ring/W1/vec16", "column/Wn/vec4"."""
+    width = f"W{plan.w_instance}" if plan.w_instance else "Wn"
+    return f"{plan.variant}/{width}/{'vec16' if plan.vec16 else 'vec4'}"
+
+
 def bit_level_apply_plain(
     carry: BitCarry, hits: torch.Tensor, max_levels: int = INT32_MAX
 ) -> None:
@@ -236,7 +279,7 @@ def bit_level_apply(
     ``csrc/level_apply.cu``): new = hits & ~visited, visited |= new,
     frontier = new, per-query counts into f/levels/reached, then advance
     the device control.  Gated on the device: a no-op once converged or
-    at ``max_levels``."""
+    at ``max_levels``.  The kernel's variant is :func:`apply_plan`'s."""
     rows, w = carry.visited.shape
     _check_plane("visited", carry.visited)
     _check_plane("frontier", carry.frontier, (rows, w))
@@ -258,12 +301,16 @@ def bit_level_apply(
     if dev.type == "cpu":
         bit_level_apply_plain(carry, hits, max_levels)
         return
+    check_index_range(rows, w)
+    ptrs = (hits.data_ptr(), carry.visited.data_ptr(), carry.frontier.data_ptr())
+    plan = apply_plan(w, (ptrs[0] | ptrs[1] | ptrs[2]) % 16 == 0)
     kernels.launch(
-        "level_apply", dev,
-        hits.data_ptr(), carry.visited.data_ptr(), carry.frontier.data_ptr(),
+        "level_apply", dev, *ptrs,
         rows, w, carry.counts.data_ptr(), carry.f.data_ptr(),
         carry.levels.data_ptr(), carry.reached.data_ptr(),
         carry.ctrl.data_ptr(), int(max_levels),
+        0 if plan.variant == "vector" else 1, int(plan.vec16),
+        variant=plan_label(plan),
     )
 
 

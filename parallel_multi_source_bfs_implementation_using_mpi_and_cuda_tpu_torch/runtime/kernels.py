@@ -50,7 +50,7 @@ _L = ctypes.c_longlong
 KERNELS = {
     "stencil_sweep": (
         "msbfs_stencil_sweep",
-        [_P, _P, _P, _L, _I, ctypes.POINTER(_I), _I, _P, _I],
+        [_P, _P, _P, _L, _I, ctypes.POINTER(_I), _I, _P, _I, _I, _I, _I, _I, _I, _I],
     ),
     "residual_or": (
         "msbfs_residual_or",
@@ -58,7 +58,7 @@ KERNELS = {
     ),
     "level_apply": (
         "msbfs_level_apply",
-        [_P, _P, _P, _L, _I, _P, _P, _P, _P, _P, _I],
+        [_P, _P, _P, _L, _I, _P, _P, _P, _P, _P, _I, _I, _I],
     ),
     "tile_hits": (
         "msbfs_tile_hits",
@@ -164,9 +164,10 @@ def library() -> Dict[str, tuple]:
     return fns
 
 
-def launch(name: str, device: torch.device, *args) -> None:
+def launch(name: str, device: torch.device, *args, variant: str = "") -> None:
     """Launch kernel ``name`` on ``device``'s current stream; raise on a
-    refused launch, count it otherwise."""
+    refused launch, count it otherwise (under ``name``, and under
+    ``variant`` in the variant tally when the wrapper picked one)."""
     fn, err = library()[name]
     index = device.index if device.index is not None else torch.cuda.current_device()
     stream = torch.cuda.current_stream(device).cuda_stream
@@ -175,4 +176,4 @@ def launch(name: str, device: torch.device, *args) -> None:
         raise KernelError(
             f"{name} launch failed: {err(rc).decode()} (cudaError {rc})"
         )
-    record_launch(name)
+    record_launch(name, variant)

@@ -15,7 +15,9 @@ Counters (thread-safe; serving threads may drive engines concurrently):
 * mxu tiles — analytic tile FLOPs and zero-tile skip counts per chunk of
   mxu levels (ops.mxu.MxuEngine._account);
 * kernel launches — one count per hand-written CUDA kernel launch, by
-  kernel name, recorded by the wrapper right after a launch succeeds.
+  kernel name, recorded by the wrapper right after a launch succeeds; a
+  kernel with specialised variants also counts each launch under
+  "name:variant" in a separate tally (:func:`variant_counts`).
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ _lock = threading.Lock()
 _dispatches = 0
 _plane_pass_bytes = 0
 _launches: Dict[str, int] = {}
+_variants: Dict[str, int] = {}
 
 
 def record_dispatch(n: int = 1) -> None:
@@ -113,10 +116,13 @@ def reset_mxu_tiles() -> None:
         _mxu_flops = _mxu_tiles_skipped = _mxu_tiles_total = 0
 
 
-def record_launch(kernel: str) -> None:
-    """Count one launch of the named CUDA kernel."""
+def record_launch(kernel: str, variant: str = "") -> None:
+    """Count one launch of the named CUDA kernel (and of its variant)."""
     with _lock:
         _launches[kernel] = _launches.get(kernel, 0) + 1
+        if variant:
+            key = f"{kernel}:{variant}"
+            _variants[key] = _variants.get(key, 0) + 1
 
 
 def launch_counts() -> Dict[str, int]:
@@ -125,6 +131,13 @@ def launch_counts() -> Dict[str, int]:
         return dict(_launches)
 
 
+def variant_counts() -> Dict[str, int]:
+    """Launches per "kernel:variant" since :func:`reset_launch_counts`."""
+    with _lock:
+        return dict(_variants)
+
+
 def reset_launch_counts() -> None:
     with _lock:
         _launches.clear()
+        _variants.clear()

@@ -102,6 +102,174 @@ def test_sweep_matches_plain(cuda, w):
     assert bool((stale == 7).all())
 
 
+ROAD_SMALL = (1, -1, 97, -97, 98, -98, 99, -99)
+
+
+def _view(t, lo, rows):
+    """Rows [lo, lo + rows) of ``t``: at an odd ``lo`` its base is not
+    16-byte aligned."""
+    return t[lo : lo + rows]
+
+
+@pytest.mark.parametrize(
+    "rows,w,offsets,lo,small_tiles,variant",
+    [
+        (10007, 1, ROAD_SMALL, 0, False, "ring/W1/vec16"),
+        (10007, 2, ROAD_SMALL, 0, False, "ring/W2/vec16"),
+        (10007, 3, ROAD_SMALL, 0, False, "ring/Wn/vec16"),
+        (10007, 4, ROAD_SMALL, 0, False, "ring/W4/vec16"),
+        (10007, 8, ROAD_SMALL, 0, False, "ring/W8/vec16"),
+        # Blocks walk many 64-row tiles, wrapping their rings.
+        (200_003, 1, ROAD_SMALL, 0, True, "ring/W1/vec16"),
+        (100_001, 8, ROAD_SMALL, 0, True, "ring/W8/vec16"),
+        (50_001, 3, ROAD_SMALL, 0, True, "ring/Wn/vec16"),
+        # Rows fewer than max|d|: the far offsets never land in the plane.
+        (3000, 1, (1, -1, 5000, -5001, 2999, -2999), 0, False, "ring/W1/vec16"),
+        # Halos that outgrow the ring: the l2 variant.
+        (60_000, 1, (1, -1, 20_000, -20_000), 0, False, "l2/W1/vec16"),
+        (30_000, 8, (1, -1, 5000, -5000), 0, False, "l2/W8/vec16"),
+        (30_000, 2, (1, -1, 9000, -9000), 0, False, "l2/W2/vec16"),
+        (30_000, 3, (1, -1, 9000, -9000), 0, False, "l2/Wn/vec16"),
+        # Views from an odd row: the 4-byte path of either variant.
+        (10007, 1, ROAD_SMALL, 3, False, "ring/W1/vec4"),
+        (100_001, 2, ROAD_SMALL, 5, True, "ring/W2/vec4"),
+        (30_000, 4, (1, -1, 9000, -9000), 1, False, "l2/W4/vec4"),
+    ],
+)
+def test_sweep_variants_match_plain(cuda, monkeypatch, rows, w, offsets, lo, small_tiles, variant):
+    if small_tiles:
+        monkeypatch.setattr(cuda_stencil, "RING_MAX_TILE", 64)
+        monkeypatch.setattr(cuda_stencil, "RING_MIN_TILE", 32)
+    rng = np.random.default_rng(rows + w + lo)
+    frontier = _planes(rng, lo + rows, w)
+    frontier[rng.random(lo + rows) < 0.6] = 0
+    mask = _planes(rng, lo + rows, 1)[:, 0].contiguous()
+    f_v, m_v = _view(frontier, lo, rows), _view(mask, lo, rows)
+    want = torch.zeros((rows, w), dtype=torch.int32)
+    cuda_stencil.stencil_sweep_plain(f_v, m_v, list(offsets), want, _go(), 100)
+    f_c, m_c = frontier.to(cuda), mask.to(cuda)
+    hits = torch.full((lo + rows, w), 7, dtype=torch.int32, device=cuda)
+    timing.reset_launch_counts()
+    cuda_stencil.stencil_sweep(
+        _view(f_c, lo, rows), _view(m_c, lo, rows), list(offsets),
+        _view(hits, lo, rows), _go().to(cuda), 100,
+    )
+    torch.cuda.synchronize()
+    assert timing.variant_counts() == {f"stencil_sweep:{variant}": 1}
+    assert timing.launch_counts() == {"stencil_sweep": 1}
+    assert torch.equal(hits[lo:].cpu(), want)
+    assert bool((hits[:lo] == 7).all())  # nothing written outside the view
+
+
+@pytest.mark.parametrize("w", [1, 3, 8])
+def test_sweep_edge_frontiers(cuda, w):
+    """Empty, single-word and bit-31 frontiers, and the gated no-op."""
+    rows = 9001
+    rng = np.random.default_rng(w)
+    mask = torch.full((rows,), -1, dtype=torch.int32)  # every offset's edge
+    cases = [torch.zeros((rows, w), dtype=torch.int32)]
+    one = torch.zeros((rows, w), dtype=torch.int32)
+    one[4500, w - 1] = 1
+    cases.append(one)
+    top = torch.zeros((rows, w), dtype=torch.int32)
+    top[rng.integers(0, rows, 50), 0] = -(2**31)  # bit 31 alone
+    top[0, :] = top[rows - 1, :] = -1  # both ends, all bits
+    cases.append(top)
+    for frontier in cases:
+        want = torch.zeros_like(frontier)
+        cuda_stencil.stencil_sweep_plain(frontier, mask, list(ROAD_SMALL), want, _go(), 100)
+        got = torch.full_like(frontier, 5, device=cuda)
+        cuda_stencil.stencil_sweep(
+            frontier.to(cuda), mask.to(cuda), list(ROAD_SMALL), got, _go().to(cuda), 100
+        )
+        assert torch.equal(got.cpu(), want)
+    # Converged (ctrl[0] == 0): the launch returns before any copy or store.
+    stale = torch.full((rows, w), 5, dtype=torch.int32, device=cuda)
+    done = torch.tensor([0, 5, 0, 0], dtype=torch.int32, device=cuda)
+    cuda_stencil.stencil_sweep(top.to(cuda), mask.to(cuda), list(ROAD_SMALL), stale, done, 100)
+    assert bool((stale == 5).all())
+
+
+def _apply_carry(rng, rows, w, dev, lo=0):
+    """A carry over rows [lo, lo + rows) of larger planes (a view at an
+    odd ``lo``), with random counters."""
+    k = 32 * w
+    visited = _planes(rng, lo + rows, w)
+    frontier = _planes(rng, lo + rows, w)
+    carry = bitbell.BitCarry(
+        visited=visited.to(dev), frontier=frontier.to(dev),
+        f=torch.from_numpy(rng.integers(0, 1000, size=k)).to(dev),
+        levels=torch.full((k,), 3, dtype=torch.int32, device=dev),
+        reached=torch.full((k,), 11, dtype=torch.int32, device=dev),
+        counts=torch.zeros(k, dtype=torch.int32, device=dev),
+        ctrl=_go().to(dev),
+    )
+    return carry.rows(lo, rows) if lo else carry
+
+
+_APPLY_FIELDS = ("visited", "frontier", "f", "levels", "reached", "counts", "ctrl")
+
+
+@pytest.mark.parametrize(
+    "rows,w,lo,variant",
+    [
+        (7777, 1, 0, "vector/W1/vec16"),  # rows * W not a multiple of 4
+        (7778, 2, 0, "vector/W2/vec16"),
+        (7777, 3, 0, "column/Wn/vec4"),
+        (7777, 4, 0, "vector/W4/vec16"),
+        (7777, 8, 0, "vector/W8/vec16"),
+        (7777, 5, 0, "column/Wn/vec4"),
+        (5_000_003, 8, 0, "vector/W8/vec16"),  # warps flush mid-walk
+        (7777, 1, 3, "vector/W1/vec4"),  # views from an odd row
+        (7777, 2, 1, "vector/W2/vec4"),
+        (7777, 3, 5, "column/Wn/vec4"),
+    ],
+)
+def test_level_apply_variants_match_plain(cuda, rows, w, lo, variant):
+    rng = np.random.default_rng(rows + w + lo)
+    hits_full = _planes(rng, lo + rows, w)
+    hits_full[rng.random(lo + rows) < 0.5] = 0
+    state = rng.bit_generator.state
+    want = _apply_carry(rng, rows, w, cuda, lo)
+    rng.bit_generator.state = state
+    got = _apply_carry(rng, rows, w, cuda, lo)
+    hits = _view(hits_full.to(cuda), lo, rows)
+    bitbell.bit_level_apply_plain(want, hits, 100)
+    timing.reset_launch_counts()
+    bitbell.bit_level_apply(got, hits, 100)
+    torch.cuda.synchronize()
+    assert timing.variant_counts() == {f"level_apply:{variant}": 1}
+    for field in _APPLY_FIELDS:
+        assert torch.equal(getattr(got, field), getattr(want, field)), field
+
+
+@pytest.mark.parametrize("w", [1, 3, 8])
+def test_level_apply_edge_hits(cuda, w):
+    """Empty and single-word hit planes, bit 31, and the gated no-op."""
+    rows = 4099
+    rng = np.random.default_rng(90 + w)
+    empty = torch.zeros((rows, w), dtype=torch.int32)
+    single = empty.clone()
+    single[rows - 1, w - 1] = -(2**31)  # bit 31 of the last word only
+    for hits in (empty, single):
+        state = rng.bit_generator.state
+        want = _apply_carry(rng, rows, w, "cpu")
+        rng.bit_generator.state = state
+        got = _apply_carry(rng, rows, w, cuda)
+        want.visited.zero_()
+        got.visited.zero_()
+        bitbell.bit_level_apply_plain(want, hits, 100)
+        bitbell.bit_level_apply(got, hits.to(cuda), 100)
+        for field in _APPLY_FIELDS:
+            assert torch.equal(getattr(got, field).cpu(), getattr(want, field)), field
+    assert int(got.counts.sum()) == 0 and int(got.reached[32 * w - 1]) == 12
+    # At max_levels: nothing changes, the level does not advance.
+    snap = {f: getattr(got, f).clone() for f in _APPLY_FIELDS}
+    bitbell.bit_level_apply(got, single.to(cuda), int(got.ctrl[1]))
+    for field in _APPLY_FIELDS:
+        assert torch.equal(getattr(got, field), snap[field]), field
+
+
 @pytest.mark.parametrize("w", [1, 2, 8])
 def test_residual_matches_plain(cuda, w):
     rng = np.random.default_rng(10 + w)
