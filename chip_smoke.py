@@ -18,8 +18,9 @@ nothing of JAX.  Phases (any failure exits non-zero; nothing is caught):
    road-512's (T = 128, W = 1), with the bf16 ``torch.bmm`` of the same
    tile products timed as tile_hits' library yardstick; level_apply also
    at the mxu route's plane shapes (RMAT-14 W = 2, road-512 W = 1).  Each
-   sweep and apply row names the variant its plan took (ring or l2, the W
-   instance, 16- or 4-byte access), and its bound counts the bytes that
+   sweep, apply and tile_hits row names the variant its plan took (ring or
+   l2, the W instance, 16- or 4-byte access; pipe with its word group,
+   split and stages, or simple), and its bound counts the bytes that
    input needs (the mask only of rows with a nonzero frontier; visited
    only where a hit word is nonzero);
 3. stencil main path: road_edges(4096, 4096) with K = 16 random query
@@ -33,12 +34,19 @@ nothing of JAX.  Phases (any failure exits non-zero; nothing is caught):
 4. mxu main path: ``MSBFS_BACKEND=mxu MSBFS_MXU_KERNEL=1`` through the
    CLI on rmat_edges(14) with K = 64 random groups; every F equals
    scipy's and the plain engine's, and the direction trace is printed;
+   tile_hits is then held against its plain version and timed on the
+   frontier of the BFS's widest matmul level;
 5. the mxu route on road_edges(512, 512) with K = 16: the auto switch
    sends levels both ways within one BFS; same checks;
 5b. RMAT-20 (rmat_edges(20, 16), BASELINE.json config 2): forest_or and
    ell_hits against their plain versions at K = 64 (W = 2) and K = 256
    (W = 8), timed beside their bounds (ell_hits also beside the two-call
-   torch expression of its gather), and level_apply at W = 2; then with
+   torch expression of its gather, and both as a level on a stale carry —
+   planes rebuilt from dist — and as a steady level on carried planes,
+   the latter against its own plain version), and level_apply at W = 2;
+   the ELL level split (CUDA events around the pack, gather and apply
+   launches of each real level of the K = 64 BFS, with the virtual rows
+   the gather skipped and the new labels); then with
    K = 64 random groups the default route (bitbell: forest_or, push_or,
    level_apply) and the ELL route (``MSBFS_BACKEND=pallas``: ell_hits)
    through the CLI, each a path;
@@ -58,7 +66,8 @@ Each CLI run of phases 3-5b is one path: the kernel launch counters are
 zeroed just before it and read just after; each path must have launched
 its route's kernels, and every registered kernel must have launched on
 some path.  Each path, and phases 7 and 8, also print the launches per
-kernel variant.
+kernel variant; the mxu paths must have launched tile_hits' pipe variant
+and the ELL path more steady than stale levels.
 """
 
 from __future__ import annotations
@@ -94,6 +103,8 @@ PATH_KERNELS = {
 }
 # Groups of the RMAT-20 paths checked against scipy (besides the winner).
 SCIPY_GROUPS = 8
+# Each path's launches per kernel variant, as _run_path read them.
+VARIANTS = {}
 
 
 def _card_line() -> str:
@@ -433,8 +444,10 @@ def _compare_mxu(torch, mg, w, seed, label):
         mg.nt * t2 + 4 * mg.nt + 4 * (mg.ntr + 1) + 8 * n * w,
         2 * mg.nt * t2 * k, INT8_TENSOR_OPS_PER_S,
     )
+    plan = cuda_mxu.tile_plan(mg.ntr, mg.nt, mg.tile, w, frontier.data_ptr() % 16 == 0)
     out["tile_hits"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                            bound_by=by, library_ms=library_ms)
+                            bound_by=by, library_ms=library_ms, variant=plan.label,
+                            units=plan.units, smem_bytes=plan.smem_bytes)
 
     # K3: a thin frontier (n / 64 rows, the auto switch) over stale hits.
     frontier = words(1 / 64)
@@ -511,6 +524,7 @@ def _compare_forest_ell(torch, bg, eg, k, seed, label):
         ctrl=torch.tensor([1, 0, 0, 0], dtype=torch.int32, device=dev),
     )
     fields = ("dist", "level", "updated", "stop", "found", "ctrl")
+    plane_fields = ("frontier", "visited", "hits", "aux")
 
     def fresh():
         return bfs.DistCarry(*(getattr(pristine, f).clone() for f in fields))
@@ -518,7 +532,9 @@ def _compare_forest_ell(torch, bg, eg, k, seed, label):
     def restore(c):
         for f in fields:
             getattr(c, f).copy_(getattr(pristine, f))
+        c.touch()  # dist was rewritten: the next level is a stale one
 
+    # Stale: the planes are rebuilt from dist, then the level runs.
     c_k, c_p = fresh(), fresh()
     cuda_bfs.ell_level(eg, c_k)
     cuda_bfs.ell_level_plain(eg, c_p)
@@ -527,7 +543,6 @@ def _compare_forest_ell(torch, bg, eg, k, seed, label):
     ms = _time_ms(torch, lambda: cuda_bfs.ell_level(eg, c_k), lambda: restore(c_k))
     plain_ms = _time_ms(torch, lambda: cuda_bfs.ell_level_plain(eg, c_p),
                         lambda: restore(c_p), reps=3)
-    del c_p
     pad_to = max(128, -(-(n + 1) // 128) * 128)
     flags = torch.zeros((k, pad_to), dtype=torch.int8, device=dev)
     flags[:, :n] = (dist == 2).to(torch.int8)
@@ -539,10 +554,109 @@ def _compare_forest_ell(torch, bg, eg, k, seed, label):
     out["ell_hits"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                            bound_by=by, library_ms=library_ms, vrows=eg.num_vrows,
                            library="torch.amax(frontier[:, cols], dim=1), two calls")
+
+    # Steady: the same level on carried planes (packed once, by the plain
+    # pack), against the steady function's own plain version; dist is
+    # written where a label is new and never read.
+    planes0 = cuda_bfs.ell_planes(eg, c_p)
+    restore(c_p)
+    cuda_bfs.ell_pack_plain(c_p, planes0)
+    snap = {f: getattr(planes0, f).clone() for f in plane_fields}
+
+    def restore_steady(c):
+        restore(c)
+        planes = cuda_bfs.ell_planes(eg, c)
+        for f in plane_fields:
+            getattr(planes, f).copy_(snap[f])
+        planes.valid = True
+
+    restore_steady(c_k)
+    restore_steady(c_p)
+    cuda_bfs.ell_level(eg, c_k)
+    cuda_bfs.ell_steady_plain(eg, c_p, c_p.planes)
+    torch.cuda.synchronize()
+    pairs = [(getattr(c_k, f), getattr(c_p, f)) for f in fields]
+    pairs += [(getattr(c_k.planes, f), getattr(c_p.planes, f)) for f in plane_fields]
+    err = _max_abs_err(torch, pairs)
+    ms = _time_ms(torch, lambda: cuda_bfs.ell_level(eg, c_k), lambda: restore_steady(c_k))
+    plain_ms = _time_ms(torch, lambda: cuda_bfs.ell_steady_plain(eg, c_p, c_p.planes),
+                        lambda: restore_steady(c_p), reps=3)
+    stats = _ell_gather_stats(torch, eg, snap["visited"], snap["aux"][:w])
+    new_labels = int((c_p.dist != pristine.dist).sum())
+    bound, by = _bound_ms(
+        4 * eg.width * stats["live_rows"] + 4 * eg.num_vrows + 16 * n * w + 4 * new_labels,
+        stats["live_slots"] * w + n * w,
+    )
+    out["ell_hits steady"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+        library_ms=None, new_labels=new_labels,
+        gather_l2_floor_bytes=32 * stats["live_slots"], **stats)
+    del c_p, c_k, snap, planes0
     for name, row in out.items():
         print(f"compare {label} n={n} K={k} W={w} {name}: " + json.dumps(row))
         assert row["max_abs_err"] == 0, (label, name, row)
     return out
+
+
+def _ell_gather_stats(torch, eg, visited, mask):
+    """What the ELL gather must touch for these planes: the virtual rows
+    whose owner some running query has not reached (the others it skips)
+    and their non-sentinel slots."""
+    n = eg.n
+    live = ((~visited & mask) != 0).any(dim=1)
+    live = torch.cat([live, live.new_zeros(1)])  # the sentinel owner n
+    rows = live[eg.vrow_vertex.long()]
+    owned = int((eg.vrow_vertex < n).sum())
+    live_rows = int(rows.sum())
+    live_slots = int((eg.cols[:, rows] < n).sum())
+    return dict(owned_rows=owned, live_rows=live_rows, skipped_rows=owned - live_rows,
+                live_slots=live_slots)
+
+
+def _ell_level_split(torch, eg, padded, label):
+    """The ELL route's real levels for one batch, with CUDA events around
+    each launch of each level (pack on the first, stale, level; gather;
+    apply), the rows the gather skipped and the labels the apply wrote."""
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
+        bfs, bitbell, cuda_bfs, engine,
+    )
+
+    dev = eg.device
+    carry = bfs.distance_carry_init(eg.n, padded, eg.n_pad, dev)
+    bfs.arm_chunk(carry, None, None)
+    w = -(-carry.dist.shape[0] // 32)
+    phases = (("pack", cuda_bfs.PHASE_PACK), ("gather", cuda_bfs.PHASE_GATHER),
+              ("apply", cuda_bfs.PHASE_APPLY))
+    levels = []
+    while int(carry.ctrl[0]):
+        row = {}
+        for name, bit in phases:
+            if name == "pack" and levels:
+                continue  # the planes are carried from here on
+            if name == "gather":
+                planes = carry.planes
+                row.update(_ell_gather_stats(torch, eg, planes.visited, planes.aux[:w]))
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            torch.cuda._sleep(2_000_000)
+            e0.record()
+            cuda_bfs.ell_level(eg, carry, phases=bit)
+            e1.record()
+            e1.synchronize()
+            row[f"{name}_ms"] = e0.elapsed_time(e1)
+        row["new_labels"] = int(bitbell.unpack_counts(carry.planes.frontier).sum())
+        levels.append(row)
+        assert len(levels) <= eg.n, "the level loop did not stop"
+    want = engine.Engine(eg, level_chunk=128).f_values(padded)
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops.objective import (
+        f_of_u,
+    )
+    assert torch.equal(f_of_u(carry.dist), want)
+    print(f"ell level split {label}: " + json.dumps(dict(
+        levels=len(levels), per_level=levels,
+        total_ms={k: sum(r.get(k, 0.0) for r in levels)
+                  for k in ("pack_ms", "gather_ms", "apply_ms")},
+    )))
 
 
 def _rmat20_paths(ctx, n, edges, g, bg, eg, k, seed):
@@ -564,7 +678,12 @@ def _rmat20_paths(ctx, n, edges, g, bg, eg, k, seed):
     with _env(MSBFS_BACKEND="pallas"):
         runs["ell rmat-20"] = _run_path(cli, timing, argv, "ell rmat-20", launches)
     os.remove(gpath)
+    ell = {k_: v for k_, v in VARIANTS["ell rmat-20"].items() if k_.startswith("ell_hits:")}
+    steady = sum(v for k_, v in ell.items() if ":steady" in k_)
+    stale = sum(v for k_, v in ell.items() if ":stale" in k_)
+    assert steady > stale > 0, ell
     padded = tio.pad_queries(queries)
+    _ell_level_split(torch, eg, padded, "rmat-20 K=64")
     f = {}
     seconds = {}
     for name, eng in (
@@ -627,7 +746,8 @@ def _run_path(cli, timing, argv, name, launches):
     counts = timing.launch_counts()
     launches[name] = counts
     print(f"{name} launches: {json.dumps(counts)}")
-    print(f"{name} variants: {json.dumps(timing.variant_counts())}")
+    VARIANTS[name] = timing.variant_counts()
+    print(f"{name} variants: {json.dumps(VARIANTS[name])}")
     for kernel in PATH_KERNELS[name]:
         assert counts.get(kernel, 0) > 0, f"{kernel} never launched on {name}"
     return result
@@ -658,6 +778,7 @@ def _mxu_path(ctx, name, n, edges, g, k, seed):
             cli, timing, ["chip_smoke", "-g", gpath, "-q", qpath, "-gn", "1"],
             name, launches,
         )
+    assert any(v.startswith("tile_hits:pipe") for v in VARIANTS[name]), VARIANTS[name]
     mg = mxu.MxuGraph.from_host(g, dev)
     padded = tio.pad_queries(queries)
     fast = mxu.MxuEngine(mg, level_chunk=128, kernel=True)
@@ -683,7 +804,41 @@ def _mxu_path(ctx, name, n, edges, g, k, seed):
         matmul_levels=trace.count("matmul"),
     )))
     print(f"{name} directions: {_runs(trace)}")
+    _real_mxu_level(torch, mg, fast, padded, name)
     return trace
+
+
+def _real_mxu_level(torch, mg, eng, padded, label):
+    """tile_hits against its plain version, timed, on the frontier of the
+    BFS's widest matmul level (``eng.last_direction_trace`` is the trace of
+    this batch)."""
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
+        bitbell, cuda_mxu,
+    )
+
+    matmul = [s for s in eng.last_direction_trace if s["direction"] == "matmul"]
+    if not matmul:
+        return
+    widest = max(matmul, key=lambda s: s["active_rows"])
+    carry = eng._init_carry(eng._pad_queries(padded)[0])
+    hits = torch.empty_like(carry.frontier)
+    for _ in range(widest["level"] - 1):
+        eng._chunk(carry, 1, hits)
+    frontier = carry.frontier
+    assert int((frontier != 0).any(dim=1).sum()) == widest["active_rows"]
+    mm = torch.tensor([1, 0, 0, bitbell.DIR_MATMUL], dtype=torch.int32, device=frontier.device)
+    tiles = (mg.tiles, mg.tile_row, mg.tile_col, mg.row_ptr)
+    h_k, h_p = torch.empty_like(frontier), torch.empty_like(frontier)
+    cuda_mxu.tile_matmul_hits(*tiles, frontier, h_k, mm)
+    cuda_mxu.tile_matmul_hits_plain(*tiles, frontier, h_p, mm)
+    torch.cuda.synchronize()
+    err = _max_abs_err(torch, [(h_k, h_p)])
+    ms = _time_ms(torch, lambda: cuda_mxu.tile_matmul_hits(*tiles, frontier, h_k, mm),
+                  lambda: None)
+    print(f"real level {label} level={widest['level']} "
+          f"frontier_rows={widest['active_rows']} tile_hits: "
+          + json.dumps(dict(max_abs_err=err, ms=ms)))
+    assert err == 0, (label, err)
 
 
 def _scipy_matrix(sp, np, graph):

@@ -63,8 +63,16 @@ class DistCarry:
     """The distance loop's state, updated in place by every level.
 
     ``dist`` (K, size) int32; ``level``, ``updated``, ``stop`` and the
-    kernel's scratch ``found`` (K,) int32; ``ctrl`` (4,) int32 with
-    ctrl[0] = some query may run the next level (the others unused)."""
+    scratch ``found`` (K,) int32, zero between levels; ``ctrl`` (4,) int32
+    with ctrl[0] = some query may run the next level and ctrl[2] the ELL
+    kernel's last-block ticket, zero between levels (the others unused).
+
+    ``planes`` is the ELL level's own state beside ``dist``
+    (:class:`.cuda_bfs.EllPlanes`, made at its first level): bit planes
+    that stay true only while that level is the one writing the carry.
+    Whoever else writes a field — a chunk being armed, the plain step, a
+    test restoring ``dist`` — calls :meth:`touch`, and the next ELL level
+    rebuilds its planes from ``dist``."""
 
     dist: torch.Tensor
     level: torch.Tensor
@@ -72,6 +80,13 @@ class DistCarry:
     stop: torch.Tensor
     found: torch.Tensor
     ctrl: torch.Tensor
+    planes: Optional[object] = None
+
+    def touch(self) -> None:
+        """The carry was written outside the ELL level: its planes are
+        stale."""
+        if self.planes is not None:
+            self.planes.valid = False
 
 
 def distance_carry_init(n: int, sources, state_size=None, device="cpu") -> DistCarry:
@@ -106,6 +121,7 @@ def arm_chunk(carry: DistCarry, chunk: Optional[int], max_levels: Optional[int])
     else:
         carry.stop.copy_(torch.clamp(carry.level.to(torch.int64) + int(chunk), max=cap))
     carry.ctrl[:1].copy_(level_active(carry).any().view(1))
+    carry.touch()
 
 
 def apply_new(carry: DistCarry, new: torch.Tensor) -> None:
@@ -118,6 +134,7 @@ def apply_new(carry: DistCarry, new: torch.Tensor) -> None:
     carry.updated.copy_(torch.where(active, new.any(dim=1).to(torch.int32), carry.updated))
     carry.level.add_(active.to(torch.int32))
     carry.ctrl[:1].copy_(level_active(carry).any().view(1))
+    carry.touch()
 
 
 def expand_step(expand: Callable) -> Callable[[DistCarry], None]:

@@ -62,7 +62,7 @@ KERNELS = {
     ),
     "tile_hits": (
         "msbfs_tile_hits",
-        [_P, _P, _P, _P, _P, _I, _I, _I, _P, _I],
+        [_P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I],
     ),
     "push_or": (
         "msbfs_push_or",
@@ -70,7 +70,7 @@ KERNELS = {
     ),
     "ell_hits": (
         "msbfs_ell_hits",
-        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _I, _I, _I, _P],
+        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _I, _I, _I, _I, _P],
     ),
     "forest_or": (
         "msbfs_forest_or",

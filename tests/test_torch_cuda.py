@@ -375,29 +375,54 @@ def test_cli_on_card(cuda, tmp_path, capsys):
     assert card[:5] == host[:5]
 
 
-@pytest.mark.parametrize("t,w", [(32, 1), (64, 3), (128, 2)])
+def _skewed_tile_graph(seed, scale=12, extra=700):
+    """RMAT edges (row tiles of very different tile counts) below a run of
+    isolated vertices (row tiles without any tile)."""
+    n, edges = generators.rmat_edges(scale, edge_factor=8, seed=seed)
+    return CSRGraph.from_edges(n + extra, edges)
+
+
+@pytest.mark.parametrize("t", [32, 64, 96, 128])
+@pytest.mark.parametrize("w", [1, 2, 3, 4, 5, 8])
 def test_tile_hits_matches_plain(cuda, t, w):
-    n, edges = generators.rmat_edges(10, edge_factor=8, seed=t + w)
-    g = CSRGraph.from_edges(n, edges)
+    """Both variants the plan can take for the shape — pipe on an aligned
+    frontier plane (with a cut of the tile lists where the plan makes one),
+    simple on a plane off the 16-byte grid — against the plain version;
+    a push level leaves the hit plane untouched in both."""
+    g = _skewed_tile_graph(t + w)
     mg = mxu.MxuGraph.from_host(g, cuda, tile=t)
+    counts = (mg.row_ptr[1:] - mg.row_ptr[:-1]).cpu()
+    assert int(counts.min()) == 0 and int(counts.max()) > float(counts.float().mean())
     rng = np.random.default_rng(30 + w)
     frontier = _planes(rng, mg.n_pad, w)
     frontier[rng.random(mg.n_pad) < 0.6] = 0
     args = (mg.tiles, mg.tile_row, mg.tile_col, mg.row_ptr)
     go = torch.tensor([1, 5, 0, bitbell.DIR_MATMUL], dtype=torch.int32)
+    push = torch.tensor([1, 5, 0, bitbell.DIR_PUSH], dtype=torch.int32, device=cuda)
     want = torch.zeros_like(frontier)
     cuda_mxu.tile_matmul_hits_plain(
         *(a.cpu() for a in args), frontier, want, go, 100
     )
-    got = torch.full_like(frontier, 7, device=cuda)
-    cuda_mxu.tile_matmul_hits(*args, frontier.to(cuda), got, go.to(cuda), 100)
-    torch.cuda.synchronize()
-    assert torch.equal(got.cpu(), want)
-    # A push level leaves the hit plane untouched.
-    stale = torch.full_like(got, 7)
-    push = torch.tensor([1, 5, 0, bitbell.DIR_PUSH], dtype=torch.int32, device=cuda)
-    cuda_mxu.tile_matmul_hits(*args, frontier.to(cuda), stale, push, 100)
-    assert bool((stale == 7).all())
+    plan = cuda_mxu.tile_plan(mg.ntr, mg.nt, t, w)
+    assert plan.variant == "pipe"
+    if t >= 64 and w <= 2:
+        assert plan.split > 1  # few row tiles with long lists: the lists are cut
+    aligned = frontier.to(cuda)
+    shifted = torch.zeros(mg.n_pad * w + 1, dtype=torch.int32, device=cuda)
+    off_grid = shifted[1:].view(mg.n_pad, w)
+    off_grid.copy_(aligned)
+    assert aligned.data_ptr() % 16 == 0 and off_grid.data_ptr() % 16 == 4
+    timing.reset_launch_counts()
+    for plane, label in ((aligned, plan.label), (off_grid, "simple")):
+        got = torch.full_like(aligned, 7)
+        cuda_mxu.tile_matmul_hits(*args, plane, got, go.to(cuda), 100)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want), label
+        assert timing.variant_counts()[f"tile_hits:{label}"] == 1
+        # A push level leaves the hit plane untouched (the zeroing too).
+        stale = torch.full_like(got, 7)
+        cuda_mxu.tile_matmul_hits(*args, plane, stale, push, 100)
+        assert bool((stale == 7).all()), label
 
 
 def test_tile_hits_empty_row_tiles_and_no_tiles(cuda):
@@ -520,16 +545,23 @@ def test_forest_or_matches_plain(cuda, w, widths):
         assert bool((stale == 3).all())
 
 
-@pytest.mark.parametrize("k", [1, 64])
+@pytest.mark.parametrize("k", [1, 33, 64, 256])
 def test_ell_level_matches_plain(cuda, k):
+    """A stale level, then steady ones, against both plain versions: the
+    level that reads dist whole, and the steady function on carried planes
+    (whose planes the kernel's must equal).  One query in five has
+    converged; vertex 5 owns 44 virtual rows."""
     g = _hub_graph(70 + k)
     eg = EllGraph.from_host(g, cuda, width=16, tile_rows=100)
     eg_cpu = EllGraph.from_host(g, "cpu", width=16, tile_rows=100)
     assert eg.num_vrows % 256 and int((eg_cpu.cols == g.n).sum()) > 0
+    assert int((eg_cpu.vrow_vertex == 5).sum()) > 32
     rng = np.random.default_rng(k)
     level = rng.integers(0, 4, size=k).astype(np.int32)
     dist = rng.integers(-1, 5, size=(k, g.n)).astype(np.int32)
     dist[rng.random((k, g.n)) < 0.5] = -1
+    # A state a BFS can reach: no label above the query's level yet.
+    dist[dist > level[:, None]] = -1
 
     def carry(dev):
         c = bfs.DistCarry(
@@ -542,14 +574,40 @@ def test_ell_level_matches_plain(cuda, k):
         )
         return c
 
-    want, got = carry("cpu"), carry(cuda)
+    want, planes_want, got = carry("cpu"), carry("cpu"), carry(cuda)
+    timing.reset_launch_counts()
     for _ in range(3):  # the third level is past every query's stop
         cuda_bfs.ell_level_plain(eg_cpu, want)
+        cuda_bfs.ell_level_planes_plain(eg_cpu, planes_want)
         cuda_bfs.ell_level(eg, got)
+        torch.cuda.synchronize()
+        for field in ("dist", "level", "updated", "stop", "found", "ctrl"):
+            assert torch.equal(getattr(got, field).cpu(), getattr(want, field)), field
+            assert torch.equal(getattr(planes_want, field), getattr(want, field)), field
+        if planes_want.planes.valid:
+            for field in ("frontier", "visited", "hits", "aux"):
+                assert torch.equal(
+                    getattr(got.planes, field).cpu(), getattr(planes_want.planes, field)
+                ), field
+    assert int(got.ctrl[0]) == 0
+    w = -(-k // 32)
+    label = f"W{w}" if w in (1, 2, 4, 8) else "Wn"
+    assert timing.variant_counts() == {
+        f"ell_hits:stale/{label}": 1, f"ell_hits:steady/{label}": 2,
+    }
+    # Someone else rewrites dist: the next level is a stale one again.
+    for c in (want, got):
+        c.dist.copy_(torch.from_numpy(dist))
+        c.level.copy_(torch.from_numpy(level))
+        c.stop.copy_(torch.from_numpy(level + 1))
+        c.ctrl[0] = 1
+    got.touch()
+    cuda_bfs.ell_level_plain(eg_cpu, want)
+    cuda_bfs.ell_level(eg, got)
     torch.cuda.synchronize()
     for field in ("dist", "level", "updated", "stop", "found", "ctrl"):
         assert torch.equal(getattr(got, field).cpu(), getattr(want, field)), field
-    assert int(got.ctrl[0]) == 0
+    assert timing.variant_counts()[f"ell_hits:stale/{label}"] == 2
 
 
 @pytest.mark.parametrize(

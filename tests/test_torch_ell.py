@@ -2,7 +2,9 @@
 the ELL-slab layout, the slab gather (JAX's ``ell_hits`` runs its
 ``pallas_call`` in interpret mode off a TPU), the per-level expansion, the
 distance loop and its statistics, and the generic ``Engine`` in its drive
-modes.  Everything is integers, so every comparison is exact."""
+modes; and the level on carried bit planes (the steady function's plain
+version) against the level that reads ``dist`` whole.  Everything is
+integers, so every comparison is exact."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -212,3 +214,152 @@ def test_ell_level_wrapper_checks(graphs):
     before = carry.dist.clone()
     cuda_bfs.ell_level(eg, carry)  # ctrl[0] is 0 until a chunk arms it
     assert torch.equal(carry.dist, before)
+
+
+def _plane_edges(kind):
+    """(n, edges) for the carried-planes tests: a path, a star whose centre
+    has 70 neighbours (five virtual rows of 16), a graph that is mostly
+    isolated vertices, and a small RMAT."""
+    if kind == "path":
+        return 40, np.array([[i, i + 1] for i in range(39)], dtype=np.int32)
+    if kind == "star":
+        return 90, np.array([[0, i] for i in range(1, 71)], dtype=np.int32)
+    if kind == "isolated":
+        return 60, np.array([[2, 3], [3, 4], [50, 51]], dtype=np.int32)
+    n, e = generators.rmat_edges(7, edge_factor=4, seed=3)
+    return n, e
+
+
+PLANE_GRAPHS = ("path", "star", "isolated", "rmat")
+CARRY_FIELDS = ("dist", "level", "updated", "stop", "found", "ctrl")
+
+
+def _assert_same_carry(a, b):
+    for field in CARRY_FIELDS:
+        assert torch.equal(getattr(a, field), getattr(b, field)), field
+
+
+def _plane_case(kind, k):
+    n, e = _plane_edges(kind)
+    g, jg = CSRGraph.from_edges(n, e), JCSRGraph.from_edges(n, e)
+    queries = generators.random_queries(n, k, max_group=4, seed=k + len(kind))
+    if k > 3:
+        queries[1] = np.zeros(0, dtype=np.int32)  # an empty group
+    if kind == "star":
+        queries[0] = np.array([5], dtype=np.int32)  # a leaf: the centre is level 1
+    return n, g, jg, io.pad_queries(queries)
+
+
+@pytest.mark.parametrize("kind", PLANE_GRAPHS)
+@pytest.mark.parametrize("k", [1, 33, 64])
+def test_planes_level_matches_plain_level_and_jax(kind, k):
+    """Level by level: ``ell_level`` on a CPU carry (the steady function's
+    plain version on carried planes) leaves the carry ``ell_level_plain``
+    leaves, packs only on the first level, and ends at JAX's distances."""
+    n, g, jg, padded = _plane_case(kind, k)
+    eg = EllGraph.from_host(g, "cpu")
+    if kind == "star":
+        assert int((eg.vrow_vertex == 0).sum()) == 5
+    planes_carry = bfs.distance_carry_init(n, padded)
+    plain_carry = bfs.distance_carry_init(n, padded)
+    for c in (planes_carry, plain_carry):
+        bfs.arm_chunk(c, None, None)
+    levels = 0
+    while int(plain_carry.ctrl[0]):
+        packed = planes_carry.planes is None or not planes_carry.planes.valid
+        assert packed == (levels == 0)
+        cuda_bfs.ell_level(eg, planes_carry)
+        cuda_bfs.ell_level_plain(eg, plain_carry)
+        _assert_same_carry(planes_carry, plain_carry)
+        planes = planes_carry.planes
+        w = -(-k // 32)
+        assert not bool(planes.hits.any()) and not bool(planes.aux[w:].any())
+        # The planes say what dist says.
+        want = bfs.distance_carry_init(n, padded)
+        for field in CARRY_FIELDS:
+            getattr(want, field).copy_(getattr(plain_carry, field))
+        fresh = cuda_bfs.ell_planes(eg, want)
+        cuda_bfs.ell_pack_plain(want, fresh)
+        assert torch.equal(planes.visited, fresh.visited)
+        assert torch.equal(planes.aux[:w], fresh.aux[:w])
+        running = bfs.level_active(plain_carry)
+        lanes = cuda_bfs._pack_flags(running[:, None], w)[0]
+        assert torch.equal(planes.frontier & lanes, fresh.frontier)
+        levels += 1
+        assert levels <= n + 1
+    jeng = jengine.Engine(JEllGraph.from_host(jg), expand=jpallas.ell_expand)
+    want = jeng.query_stats(padded)
+    for x, y in zip(bfs.stats_from_distances(planes_carry.dist), want):
+        np.testing.assert_array_equal(x.numpy(), y)
+
+
+@pytest.mark.parametrize("k", [1, 33, 64])
+def test_planes_go_stale_when_dist_is_rewritten(k):
+    """Someone else writes ``dist`` between two levels and says so
+    (``touch``): the next level rebuilds its planes and still agrees with
+    the level that reads ``dist`` whole.  Without the rewrite being
+    announced the carried planes would answer for the old ``dist``."""
+    n, g, _, padded = _plane_case("rmat", k)
+    eg = EllGraph.from_host(g, "cpu")
+    carries = [bfs.distance_carry_init(n, padded) for _ in range(3)]
+    told, plain, untold = carries
+    for c in carries:
+        bfs.arm_chunk(c, None, None)
+    for c in (told, untold):
+        cuda_bfs.ell_level(eg, c)
+    cuda_bfs.ell_level_plain(eg, plain)
+    # Un-label every vertex of the newest level of query 0 but one: the
+    # frontier shrinks and the vertices become reachable again.
+    newest = torch.nonzero(plain.dist[0] == plain.level[0]).flatten()
+    assert newest.numel() > 1
+    for c in carries:
+        c.dist[0, newest[1:]] = bfs.NOT_REACHED
+    told.touch()
+    assert told.planes.valid is False and untold.planes.valid is True
+    for _ in range(3):
+        cuda_bfs.ell_level(eg, told)
+        cuda_bfs.ell_level(eg, untold)
+        cuda_bfs.ell_level_plain(eg, plain)
+        _assert_same_carry(told, plain)
+    assert told.planes.valid is True
+    assert not torch.equal(untold.dist, plain.dist)
+
+
+@pytest.mark.parametrize("kind", ["star", "rmat"])
+@pytest.mark.parametrize("level_chunk", [1, 2, None])
+def test_planes_engine_chunk_boundaries_match_jax(kind, level_chunk):
+    """Every chunk re-arms the carry, so its first level is a stale one:
+    the engine's answers do not depend on where the chunks end."""
+    n, g, jg, padded = _plane_case(kind, 33)
+    jeng = jengine.Engine(
+        JEllGraph.from_host(jg), expand=jpallas.ell_expand, level_chunk=level_chunk
+    )
+    eg = EllGraph.from_host(g, "cpu")
+    eng = engine.Engine(eg, level_chunk=level_chunk)
+    plain = engine.Engine(eg, level_chunk=level_chunk, plain=True)
+    want = jeng.query_stats(padded)
+    for got in (eng.query_stats(padded), plain.query_stats(padded)):
+        for x, y in zip(got, want):
+            np.testing.assert_array_equal(x, y)
+    assert eng.best(padded) == jeng.best(padded)
+
+
+def test_steady_plain_never_reads_dist():
+    """The steady function writes the new labels into ``dist`` and takes
+    nothing from it: scribbling over ``dist`` after the pack changes only
+    the entries the level does not label."""
+    n, g, _, padded = _plane_case("rmat", 33)
+    eg = EllGraph.from_host(g, "cpu")
+    clean, scribbled = (bfs.distance_carry_init(n, padded) for _ in range(2))
+    for c in (clean, scribbled):
+        bfs.arm_chunk(c, None, None)
+        cuda_bfs.ell_pack_plain(c, cuda_bfs.ell_planes(eg, c))
+    scribbled.dist.fill_(77)
+    for c in (clean, scribbled):
+        cuda_bfs.ell_steady_plain(eg, c, c.planes)
+    labelled = clean.dist == 1
+    assert bool(labelled.any())
+    assert torch.equal(scribbled.dist[labelled], clean.dist[labelled])
+    assert bool((scribbled.dist[~labelled] == 77).all())
+    for field in CARRY_FIELDS[1:]:
+        assert torch.equal(getattr(clean, field), getattr(scribbled, field)), field

@@ -1,11 +1,14 @@
-"""The host functions that pick the sweep's and the apply's kernel variant
-(``ops/cuda_stencil.py`` ``sweep_plan``, ``ops/bitbell.py`` ``apply_plan``).
+"""The host functions that pick the sweep's, the apply's and the tile
+matmul's kernel variant (``ops/cuda_stencil.py`` ``sweep_plan``,
+``ops/bitbell.py`` ``apply_plan``, ``ops/cuda_mxu.py`` ``tile_plan``).
 
 They are pure functions of the shapes, so they run here on the CPU.  The
 ring's schedule (tile walk, prefetch, slot arithmetic of
 ``csrc/stencil_sweep.cu``) is emulated in NumPy from a plan and held
 against the plain sweep, so a plan whose ring would overwrite a row still
-in use, or miss one, fails here before it reaches the card.
+in use, or miss one, fails here before it reaches the card.  The tile
+kernel's unit decoding, its cut of a row tile's list and its swizzled
+shared-memory rows are emulated the same way.
 """
 
 import numpy as np
@@ -14,6 +17,7 @@ import torch
 
 from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
     bitbell,
+    cuda_mxu,
     cuda_stencil,
 )
 
@@ -192,3 +196,175 @@ def test_plan_labels_and_index_range():
     bitbell.check_index_range(2**28, 7)
     with pytest.raises(ValueError, match="2\\^31"):
         bitbell.check_index_range(2**28, 8)
+
+
+TILE_SIDES = cuda_mxu.KERNEL_TILES
+TILE_WORDS = (1, 2, 3, 4, 5, 8)
+
+
+def _row_ptr(ntr, nt, seed):
+    """A skewed cut of nt tiles over ntr row tiles, some of them empty."""
+    rng = np.random.default_rng(seed)
+    if nt == 0:
+        return np.zeros(ntr + 1, dtype=np.int64)
+    cuts = np.sort(rng.integers(0, nt + 1, size=ntr - 1))
+    cuts[: ntr // 3] = cuts[0]  # a run of empty row tiles
+    return np.concatenate([[0], np.sort(cuts), [nt]]).astype(np.int64)
+
+
+@pytest.mark.parametrize("t", TILE_SIDES)
+@pytest.mark.parametrize("w", TILE_WORDS)
+def test_tile_plan_units_cover_every_word_and_tile_once(t, w):
+    for ntr, nt in ((7, 0), (7, 40), (128, 128 * 128), (300, 900), (3, 2000)):
+        plan = cuda_mxu.tile_plan(ntr, nt, t, w)
+        assert plan.variant == "pipe" and 2 <= plan.stages <= 8
+        assert plan.smem_bytes <= cuda_mxu.PIPE_SM_SMEM_BYTES == 232448
+        assert 1 <= plan.wg <= cuda_mxu.PIPE_MAX_WORDS and plan.groups * plan.wg >= w
+        # Two blocks of a narrow unit share an SM, with the system's 1 KB each.
+        per_sm = 2 if plan.wg <= 2 else 1
+        assert per_sm * (plan.smem_bytes + 1024) <= 232448
+        assert plan.zero == (plan.split > 1)
+        assert plan.units == ntr * plan.groups * plan.split
+        row_ptr = _row_ptr(ntr, nt, ntr + t + w)
+        words = np.zeros((ntr, w), dtype=np.int64)  # units that own (r, word)
+        tiles = np.zeros((nt, w), dtype=np.int64)  # units that multiply (tile, word)
+        for block in range(plan.units):
+            r, w0, nw, part = plan.unit(block, w)
+            assert 0 <= r < ntr and 1 <= nw <= plan.wg and w0 + nw <= w
+            b0, b1 = cuda_mxu.part_range(row_ptr[r], row_ptr[r + 1], part, plan.split)
+            assert row_ptr[r] <= b0 <= b1 <= row_ptr[r + 1]
+            tiles[b0:b1, w0 : w0 + nw] += 1
+            if part == 0:
+                words[r, w0 : w0 + nw] += 1
+        assert (words == 1).all() and (tiles == 1).all()
+
+
+def test_tile_plan_is_pure_cached_and_from_shapes_only():
+    args = (128, 128 * 128, 128, 2)
+    a = cuda_mxu.tile_plan(*args)
+    before = cuda_mxu._tile_plan.cache_info().hits
+    assert cuda_mxu.tile_plan(*args) is a
+    assert cuda_mxu._tile_plan.cache_info().hits == before + 1
+    # RMAT-14 at K = 64: too few row tiles for the card, so the lists are cut
+    # and the gated zeroing comes with the cut.
+    assert (a.variant, a.wg, a.groups, a.stages) == ("pipe", 2, 1, 4)
+    assert a.split == 2 and a.zero and a.units == 256 <= 2 * cuda_mxu.PIPE_SMS
+    assert a.label == "pipe/wg2/split2/stages4"
+    # Twice the units must still run as one wave of the card.
+    assert cuda_mxu.tile_plan(70, 70 * 128, 128, 2).split == 2
+    assert cuda_mxu.tile_plan(140, 140 * 128, 128, 2).split == 1
+    # road-512 at K = 16: thousands of short lists, no cut, plain stores.
+    road = cuda_mxu.tile_plan(2048, 8418, 128, 1)
+    assert (road.variant, road.split, road.zero, road.units) == ("pipe", 1, False, 2048)
+    # Short lists are never cut below PIPE_MIN_TILES tiles a part.
+    assert cuda_mxu.tile_plan(16, 16 * 12, 128, 1).split == 1
+    assert cuda_mxu.tile_plan(16, 16 * 16, 128, 1).split == 2
+    # Wide word groups run one block per SM with a deeper ring.
+    wide = cuda_mxu.tile_plan(128, 128 * 128, 128, 8)
+    assert (wide.wg, wide.groups, wide.stages) == (4, 2, 8)
+
+
+@pytest.mark.parametrize("t", TILE_SIDES)
+def test_tile_plan_simple_where_the_ring_cannot_hold_the_shape(t):
+    # A frontier plane off the 16-byte grid cannot feed 16-byte copies.
+    off = cuda_mxu.tile_plan(64, 900, t, 2, aligned=False)
+    assert off.variant == "simple" and off.label == "simple"
+    assert (off.units, off.split, off.zero) == (64 * 2, 1, False)
+    assert [off.unit(b, 2)[:2] for b in range(4)] == [(0, 0), (0, 1), (1, 0), (1, 1)]
+    # So many words that two stages of (tile + T x W words) outgrow a block.
+    w = 232448 // (2 * 4 * t)
+    assert cuda_mxu.tile_plan(64, 900, t, w).variant == "simple"
+    assert cuda_mxu.tile_plan(64, 900, t, 16).variant == "pipe"
+
+
+@pytest.mark.parametrize("t", TILE_SIDES)
+def test_pipe_swizzle_is_a_conflict_free_bijection(t):
+    """The shared-memory row layout of csrc/tile_hits.cu: chunk c of row i
+    sits at chunk c ^ (i & 7) of a 128-byte row.  Every (row, chunk) keeps
+    its own place, and the 32 lanes of an mma fragment load — rows g of one
+    8-row group, bytes 4t of one chunk — fall on 32 distinct banks."""
+    chunks = t // 16
+    place = {}
+    for row in range(t):
+        for c in range(chunks):
+            at = row * 128 + ((c ^ (row & 7)) << 4)
+            assert at not in place and at + 16 <= (row + 1) * 128
+            place[at] = (row, c)
+    assert len(place) == t * chunks
+    for row0 in range(0, t, 8):
+        for c in range(chunks):
+            banks = {
+                ((row0 + g) * 128 + ((c ^ g) << 4) + 4 * q) // 4 % 32
+                for g in range(8) for q in range(4)
+            }
+            assert len(banks) == 32
+
+
+def _byte_perm(x, y, sel):
+    """CUDA's __byte_perm: byte i of the result is byte (nibble i of sel)
+    of the eight bytes x.b0..b3, y.b0..b3."""
+    src = [(x >> (8 * i)) & 255 for i in range(4)] + [(y >> (8 * i)) & 255 for i in range(4)]
+    return sum(src[(sel >> (4 * i)) & 7] << (8 * i) for i in range(4))
+
+
+@pytest.mark.parametrize("t,w", [(32, 1), (64, 3), (96, 2), (128, 5)])
+def test_pipe_unpack_matches_byte_planes(t, w):
+    """The consumers' unpack of csrc/tile_hits.cu in NumPy: warp item
+    (word wl of the unit, chunk c), lane (g, q4) reads the word of rows
+    j = 16c + 4 q4 .. + 3, keeps bit 8h + g of each in byte h, transposes
+    the 4 x 4 bytes and writes bytes j .. j + 3 of operand rows
+    32 wl + 8h + g at the swizzled place; read back unswizzled the operand
+    is the transposed byte plane."""
+    rng = np.random.default_rng(t + w)
+    raw = rng.integers(0, 2**32, size=(t, w), dtype=np.uint64).astype(np.uint32)
+    plan = cuda_mxu.tile_plan(4, 64, t, w)
+    for grp in range(plan.groups):
+        _, w0, nw, _ = plan.unit(grp * plan.split, w)
+        operand = np.full(32 * plan.wg * 128, 255, dtype=np.uint8)
+        for item in range(nw * (t // 16)):
+            wl, c = divmod(item, t // 16)
+            for lane in range(32):
+                g, q4 = lane >> 2, lane & 3
+                m = [
+                    (int(raw[c * 16 + q4 * 4 + i, w0 + wl]) >> g) & 0x01010101
+                    for i in range(4)
+                ]
+                t0, t1 = _byte_perm(m[0], m[1], 0x5140), _byte_perm(m[2], m[3], 0x5140)
+                t2, t3 = _byte_perm(m[0], m[1], 0x7362), _byte_perm(m[2], m[3], 0x7362)
+                outs = (_byte_perm(t0, t1, 0x5410), _byte_perm(t0, t1, 0x7632),
+                        _byte_perm(t2, t3, 0x5410), _byte_perm(t2, t3, 0x7632))
+                for h, word in enumerate(outs):
+                    at = (wl * 32 + 8 * h + g) * 128 + ((c ^ g) << 4) + q4 * 4
+                    assert (operand[at : at + 4] == 255).all()
+                    operand[at : at + 4] = [(word >> (8 * i)) & 255 for i in range(4)]
+        planes = bitbell.unpack_byte_planes(torch.from_numpy(raw.view(np.int32))).numpy()
+        for n in range(32 * nw):
+            row = [operand[n * 128 + (((j >> 4) ^ (n & 7)) << 4) + (j & 15)] for j in range(t)]
+            np.testing.assert_array_equal(row, planes[:, (w0 + (n >> 5)) * 32 + (n & 31)])
+
+
+@pytest.mark.parametrize("t", TILE_SIDES)
+def test_pipe_ldmatrix_lanes_address_the_fragments(t):
+    """The ldmatrix lane addresses of csrc/tile_hits.cu: lane l names row
+    l & 7 of matrix l >> 3; A's matrices must be rows +0 / +8 of chunks
+    k / k + 1 (a0..a3 of mma m16n8k32), B's chunks k / k + 1 of n-blocks
+    nb / nb + 1, each at its swizzled place, eight rows of a matrix on
+    eight distinct 16-byte bank groups."""
+    for warp in range(t // 16):
+        for k in range(0, t, 32):
+            want_a = [(warp * 16 + dr, (k >> 4) + dc) for dc in (0, 1) for dr in (0, 8)]
+            want_b = [(nb * 8, (k >> 4) + dc) for nb in (0, 1) for dc in (0, 1)]
+            for mat in range(4):
+                groups_a, groups_b = set(), set()
+                for lrow in range(8):
+                    a_row = warp * 16 + lrow + (mat & 1) * 8
+                    a_at = a_row * 128 + ((((k >> 4) + (mat >> 1)) ^ lrow) << 4)
+                    row0, chunk = want_a[mat]
+                    assert a_at == (row0 + lrow) * 128 + ((chunk ^ ((row0 + lrow) & 7)) << 4)
+                    b_row = (mat >> 1) * 8 + lrow
+                    b_at = b_row * 128 + ((((k >> 4) + (mat & 1)) ^ lrow) << 4)
+                    row0, chunk = want_b[mat]
+                    assert b_at == (row0 + lrow) * 128 + ((chunk ^ ((row0 + lrow) & 7)) << 4)
+                    groups_a.add(a_at // 16 % 8)
+                    groups_b.add(b_at // 16 % 8)
+                assert len(groups_a) == len(groups_b) == 8
