@@ -7,12 +7,14 @@ builds and runs on the GPU, and the source of its kernel timings.
 Needs one CUDA card (NVIDIA H100 class, sm_90a), nvcc, and scipy; imports
 nothing of JAX.  Phases (any failure exits non-zero; nothing is caught):
 
-1. print the card (nvidia-smi name, power limit); build the seven CUDA
+1. print the card (nvidia-smi name, power limit); build the six CUDA
    kernels from csrc/ in parallel and time the build;
 2. hold each kernel against its plain torch version on the card, bit for
    bit, and time both with CUDA events beside the analytic bound: the
-   stencil route's three at its main path's shape (road-4096: n = 16.8M,
-   W = 1) and at the sub-batch shape (road-1024, n = 1M, W = 8); the mxu
+   stencil route's two (the sweep with the residual edges in its launch,
+   against the plain sweep then the plain residual OR; the apply) at its
+   main path's shape (road-4096: n = 16.8M, W = 1) and at the sub-batch
+   shape (road-1024, n = 1M, W = 8); the mxu
    route's two (tile_hits, push_or) at its main path's shape (RMAT-14,
    T = 128, W = 2, every one of the 16,384 tiles nonzero) and at
    road-512's (T = 128, W = 1), with the bf16 ``torch.bmm`` of the same
@@ -29,8 +31,9 @@ nothing of JAX.  Phases (any failure exits non-zero; nothing is caught):
    the winner's F equals scipy's multi-source BFS; then the sweep and the
    apply held against their plain versions and timed on the planes of the
    BFS's middle level, and 64 real levels from there split by kernel
-   (CUDA events around each launch: sweep, residual, apply, and the gaps),
-   beside the same 64 levels as the engine enqueues them;
+   (CUDA events around each launch: the sweep with its residual, the
+   apply, and the gaps), beside the same 64 levels as the engine enqueues
+   them;
 4. mxu main path: ``MSBFS_BACKEND=mxu MSBFS_MXU_KERNEL=1`` through the
    CLI on rmat_edges(14) with K = 64 random groups; every F equals
    scipy's and the plain engine's, and the direction trace is printed;
@@ -40,13 +43,16 @@ nothing of JAX.  Phases (any failure exits non-zero; nothing is caught):
    sends levels both ways within one BFS; same checks;
 5b. RMAT-20 (rmat_edges(20, 16), BASELINE.json config 2): forest_or and
    ell_hits against their plain versions at K = 64 (W = 2) and K = 256
-   (W = 8), timed beside their bounds (ell_hits also beside the two-call
+   (W = 8), timed beside their bounds (forest_or also beside its L2
+   floor; ell_hits also beside the two-call
    torch expression of its gather, and both as a level on a stale carry —
    planes rebuilt from dist — and as a steady level on carried planes,
    the latter against its own plain version), and level_apply at W = 2;
    the ELL level split (CUDA events around the pack, gather and apply
    launches of each real level of the K = 64 BFS, with the virtual rows
-   the gather skipped and the new labels); then with
+   the gather skipped and the new labels); forest_or on the frontier of
+   each pull level of the K = 64 bitbell BFS, against its plain version,
+   beside its bound and L2 floor; then with
    K = 64 random groups the default route (bitbell: forest_or, push_or,
    level_apply) and the ELL route (``MSBFS_BACKEND=pallas``: ell_hits)
    through the CLI, each a path;
@@ -90,12 +96,15 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 16.7e12
 # Dense int8 tensor-core rate (the same data sheet).
 INT8_TENSOR_OPS_PER_S = 1979e12
+# Random 32-byte L2 sector reads: the rate ell_hits' gather reached on an
+# H100 at 700 W (PERF.md), the yardstick of the forest's frontier reads.
+L2_SECTOR_BYTES_PER_S = 4.0e12
 
 PKG = "parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch"
 JAX_PKG = "parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu"
 # Each path's own kernels (a CLI run per path).
 PATH_KERNELS = {
-    "stencil road-4096": ("stencil_sweep", "residual_or", "level_apply"),
+    "stencil road-4096": ("stencil_sweep", "level_apply"),
     "mxu rmat-14": ("tile_hits", "level_apply"),
     "mxu road-512": ("tile_hits", "push_or", "level_apply"),
     "bitbell rmat-20": ("forest_or", "push_or", "level_apply"),
@@ -161,13 +170,15 @@ def _words(torch, n, w, density, gen, dev, rows=None):
     return torch.where(keep, x, 0)
 
 
-def _sweep_bound(torch, frontier, n_offsets):
+def _sweep_bound(torch, frontier, n_offsets, residual_edges):
     """Bytes any sweep must move for this frontier: read it and write the
-    hit plane (8W bytes a row), and read the mask word of each row whose
-    frontier is nonzero; a few operations per offset and word."""
+    hit plane (8W bytes a row), read the mask word of each row whose
+    frontier is nonzero and the residual's two index arrays (8 bytes an
+    edge); a few operations per offset and word, one per edge and word."""
     n, w = frontier.shape
     active_rows = int((frontier != 0).any(dim=1).sum())
-    return _bound_ms(8 * n * w + 4 * active_rows, n * w * n_offsets * 4)
+    return _bound_ms(8 * n * w + 4 * active_rows + 8 * residual_edges,
+                     n * w * n_offsets * 4 + residual_edges * w)
 
 
 def _apply_bound(torch, hits, visited):
@@ -182,29 +193,36 @@ def _apply_bound(torch, hits, visited):
     return _bound_ms(nbytes, 2 * n * w + 64 * new_words), hit_words, new_words
 
 
-def _sweep_row(torch, frontier, mask_bits, offs, go):
-    """stencil_sweep against its plain version on one frontier: the error,
-    both times and the bound."""
+def _sweep_row(torch, frontier, mask_bits, offs, go, residual):
+    """stencil_sweep with the residual edges against its plain version
+    (the plain sweep, then the plain residual OR) on one frontier: the
+    error, both times and the bound."""
     from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
         bitbell, cuda_stencil,
     )
 
+    top = 2**31 - 1
     h_k, h_p = torch.empty_like(frontier), torch.empty_like(frontier)
-    cuda_stencil.stencil_sweep(frontier, mask_bits, offs, h_k, go, 2**31 - 1)
-    cuda_stencil.stencil_sweep_plain(frontier, mask_bits, offs, h_p, go, 2**31 - 1)
+    cuda_stencil.stencil_sweep(frontier, mask_bits, offs, h_k, go, top, residual)
+    cuda_stencil.stencil_sweep_plain(frontier, mask_bits, offs, h_p, go, top, residual)
     torch.cuda.synchronize()
     err = _max_abs_err(torch, [(h_k, h_p)])
     ms = _time_ms(torch, lambda: cuda_stencil.stencil_sweep(
-        frontier, mask_bits, offs, h_k, go, 2**31 - 1), lambda: None)
+        frontier, mask_bits, offs, h_k, go, top, residual), lambda: None)
     plain_ms = _time_ms(torch, lambda: cuda_stencil.stencil_sweep_plain(
-        frontier, mask_bits, offs, h_p, go, 2**31 - 1), lambda: None, reps=3)
-    bound, by = _sweep_bound(torch, frontier, len(offs))
+        frontier, mask_bits, offs, h_p, go, top, residual), lambda: None, reps=3)
+    # The same launch without the residual edges: what they add.
+    no_residual_ms = _time_ms(torch, lambda: cuda_stencil.stencil_sweep(
+        frontier, mask_bits, offs, h_k, go, top), lambda: None)
+    edges = residual.count if residual is not None else 0
+    bound, by = _sweep_bound(torch, frontier, len(offs), edges)
     n, w = frontier.shape
     vec16 = all(t.data_ptr() % 16 == 0 for t in (frontier, mask_bits, h_k))
     plan = cuda_stencil.sweep_plan(n, w, offs, vec16)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                variant=bitbell.plan_label(plan), tile=plan.tile,
-                smem_bytes=plan.smem_bytes)
+                no_residual_ms=no_residual_ms,
+                variant=bitbell.plan_label(plan) + ("/res" if edges else ""),
+                tile=plan.tile, smem_bytes=plan.smem_bytes, residual_edges=edges)
 
 
 def _apply_row(torch, pristine, hits):
@@ -266,10 +284,6 @@ def _synthetic_carry(torch, n, w, gen, dev, rows=None):
 def _compare_kernels(torch, sg, w, seed, label):
     """Each kernel of the stencil route against its plain version on one
     graph's shapes."""
-    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
-        stencil,
-    )
-
     dev = sg.device
     n = sg.n
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -278,25 +292,9 @@ def _compare_kernels(torch, sg, w, seed, label):
     go = torch.tensor([1, 7, 0, 0], dtype=torch.int32, device=dev)
     out = {}
 
-    # A: the masked-shift sweep.
-    out["stencil_sweep"] = _sweep_row(torch, frontier, sg.mask_bits, sg.offsets, go)
-
-    # B: the residual segment-OR (into a fresh copy of one hit plane).
-    r, u = int(sg.res_src.shape[0]), int(sg.res_dst_unique.shape[0])
-    if r:
-        res = (sg.res_src, sg.res_seg, sg.res_dst_unique)
-        b_k, b_p = hits0.clone(), hits0.clone()
-        stencil.residual_or(frontier, *res, b_k, go, 2**31 - 1)
-        stencil.residual_or_plain(frontier, *res, b_p, go, 2**31 - 1)
-        torch.cuda.synchronize()
-        err = _max_abs_err(torch, [(b_k, b_p)])
-        ms = _time_ms(torch, lambda: stencil.residual_or(
-            frontier, *res, b_k, go, 2**31 - 1), lambda: b_k.copy_(hits0))
-        plain_ms = _time_ms(torch, lambda: stencil.residual_or_plain(
-            frontier, *res, b_p, go, 2**31 - 1), lambda: b_p.copy_(hits0), reps=3)
-        bound, by = _bound_ms(r * 8 + u * 4 + r * w * 4 + u * w * 8, r * w * 2)
-        out["residual_or"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                  bound_ms=bound, bound_by=by)
+    # A: the masked-shift sweep with the residual edges in its launch.
+    out["stencil_sweep"] = _sweep_row(torch, frontier, sg.mask_bits, sg.offsets, go,
+                                      sg.residual)
 
     # C: the level apply with per-query counts.
     out["level_apply"] = _apply_row(torch, pristine, hits0)
@@ -334,7 +332,7 @@ def _real_level(torch, sg, padded, depth, label):
     assert int(carry.ctrl[1]) == mid, (int(carry.ctrl[1]), mid)
     go = carry.ctrl.clone()
     row = {"stencil_sweep": _sweep_row(torch, carry.frontier, sg.mask_bits,
-                                       sg.offsets, go)}
+                                       sg.offsets, go, sg.residual)}
     # The level's whole hit plane (sweep + residual), as the engine builds it.
     stencil._expand_into(hits, carry.frontier, sg.mask_bits, sg, go, 2**31 - 1, False)
     row["level_apply"] = _apply_row(torch, carry, hits)
@@ -349,9 +347,9 @@ def _real_level(torch, sg, padded, depth, label):
 
 def _level_split(torch, sg, carry, levels, label):
     """One chunk of ``levels`` real levels from ``carry`` with CUDA events
-    around every launch: device time of the sweep, the residual and the
-    apply, and the gaps between launches; then the same chunk as the
-    engine enqueues it, with one event pair around it."""
+    around every launch: device time of the sweep (its residual edges
+    included) and the apply, and the gaps between launches; then the same
+    chunk as the engine enqueues it, with one event pair around it."""
     from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
         bitbell, cuda_stencil, stencil,
     )
@@ -362,30 +360,26 @@ def _level_split(torch, sg, carry, levels, label):
         return bitbell.BitCarry(*(getattr(carry, f).clone() for f in fields))
 
     top = 2**31 - 1
-    res = (sg.res_src, sg.res_seg, sg.res_dst_unique)
     c = fresh()
     hits = torch.empty_like(c.frontier)
-    ev = [[torch.cuda.Event(enable_timing=True) for _ in range(4)] for _ in range(levels)]
+    ev = [[torch.cuda.Event(enable_timing=True) for _ in range(3)] for _ in range(levels)]
     torch.cuda.synchronize()
     torch.cuda._sleep(2_000_000)
     for e in ev:
         e[0].record()
-        cuda_stencil.stencil_sweep(c.frontier, sg.mask_bits, sg.offsets, hits, c.ctrl, top)
+        cuda_stencil.stencil_sweep(c.frontier, sg.mask_bits, sg.offsets, hits, c.ctrl, top,
+                                   sg.residual)
         e[1].record()
-        if res[0].shape[0]:
-            stencil.residual_or(c.frontier, *res, hits, c.ctrl, top)
-        e[2].record()
         bitbell.bit_level_apply(c, hits, top)
-        e[3].record()
+        e[2].record()
     torch.cuda.synchronize()
-    split = {"sweep": 0.0, "residual": 0.0, "apply": 0.0, "gaps": 0.0}
+    split = {"sweep": 0.0, "apply": 0.0, "gaps": 0.0}
     for i, e in enumerate(ev):
         split["sweep"] += e[0].elapsed_time(e[1])
-        split["residual"] += e[1].elapsed_time(e[2])
-        split["apply"] += e[2].elapsed_time(e[3])
+        split["apply"] += e[1].elapsed_time(e[2])
         if i + 1 < levels:
-            split["gaps"] += e[3].elapsed_time(ev[i + 1][0])
-    span = ev[0][0].elapsed_time(ev[-1][3])
+            split["gaps"] += e[2].elapsed_time(ev[i + 1][0])
+    span = ev[0][0].elapsed_time(ev[-1][2])
     eng = stencil.StencilEngine(sg, level_chunk=stencil.AUTO_STENCIL_LEVEL_CHUNK)
     c2 = fresh()
     e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -482,7 +476,7 @@ def _compare_forest_ell(torch, bg, eg, k, seed, label):
     two-call torch expression of the ELL gather as ell_hits' library
     yardstick (torch has no OR reduction: forest_or has none)."""
     from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
-        bfs, bitbell, cuda_bell, cuda_bfs,
+        bfs, cuda_bfs,
     )
 
     dev = bg.device
@@ -493,23 +487,8 @@ def _compare_forest_ell(torch, bg, eg, k, seed, label):
     # K1: a dense pull level, with a third of the vertices in the frontier.
     x = torch.randint(-(2**31), 2**31, (n, w), dtype=torch.int32, device=dev, generator=gen)
     frontier = torch.where(torch.rand((n, 1), device=dev, generator=gen) < 0.3, x, 0)
-    pull = torch.tensor([1, 7, 0, bitbell.DIR_PULL], dtype=torch.int32, device=dev)
-    scratch = cuda_bell.forest_scratch(bg, w, dev)
-    h_k, h_p = torch.empty_like(frontier), torch.empty_like(frontier)
-    cuda_bell.forest_or(frontier, bg, h_k, pull, scratch=scratch)
-    cuda_bell.forest_or_plain(frontier, bg, h_p, pull)
-    torch.cuda.synchronize()
-    err = _max_abs_err(torch, [(h_k, h_p)])
-    ms = _time_ms(torch, lambda: cuda_bell.forest_or(frontier, bg, h_k, pull, scratch=scratch),
-                  lambda: None)
-    plain_ms = _time_ms(torch, lambda: cuda_bell.forest_or_plain(frontier, bg, h_p, pull),
-                        lambda: None, reps=3)
-    slots = sum(int(f.numel()) for f in bg.level_cols)
-    bound, by = _bound_ms(4 * slots + 4 * n + 8 * n * w, slots * w)
-    out["forest_or"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                            bound_by=by, library_ms=None, slots=slots,
-                            forest_levels=len(bg.level_sizes))
-    del scratch, h_k, h_p, frontier, x
+    out["forest_or"] = _forest_row(torch, bg, frontier)
+    del frontier, x
 
     # K8: one level of the distance loop, every query at level 2 with
     # distances 0..3 spread over half the vertices.
@@ -598,6 +577,72 @@ def _compare_forest_ell(torch, bg, eg, k, seed, label):
     return out
 
 
+def _forest_row(torch, bg, frontier):
+    """forest_or against its plain version on one pull frontier: the
+    error, both times, the byte bound and the L2 floor (one 32-byte sector
+    per non-sentinel slot; the live slots, those whose source row is
+    nonzero, are all that a design reading only nonzero rows would
+    fetch)."""
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
+        bitbell, cuda_bell,
+    )
+
+    dev, (n, w) = frontier.device, frontier.shape
+    pull = torch.tensor([1, 7, 0, bitbell.DIR_PULL], dtype=torch.int32, device=dev)
+    scratch = cuda_bell.forest_scratch(bg, w, dev)
+    h_k, h_p = torch.full_like(frontier, 7), torch.empty_like(frontier)
+    cuda_bell.forest_or(frontier, bg, h_k, pull, scratch=scratch)
+    cuda_bell.forest_or_plain(frontier, bg, h_p, pull)
+    torch.cuda.synchronize()
+    err = _max_abs_err(torch, [(h_k, h_p)])
+    ms = _time_ms(torch, lambda: cuda_bell.forest_or(
+        frontier, bg, h_k, pull, scratch=scratch), lambda: None)
+    plain_ms = _time_ms(torch, lambda: cuda_bell.forest_or_plain(
+        frontier, bg, h_p, pull), lambda: None, reps=3)
+    slots = sum(int(f.numel()) for f in bg.level_cols)
+    bound, by = _bound_ms(4 * slots + 4 * n + 8 * n * w, slots * w)
+    live = torch.cat([(frontier != 0).any(dim=1), frontier.new_zeros(1, dtype=torch.bool)])
+    cols0 = bg.level_cols[0].long()
+    real0 = int((cols0 < n).sum())
+    real = real0 + sum(
+        int((f < size).sum()) for f, size in zip(bg.level_cols[1:], bg.level_sizes))
+    live_slots = int(live[cols0].sum()) + real - real0
+    del cols0
+    vec16 = all(t.data_ptr() % 16 == 0 for t in (frontier, scratch, h_k))
+    return dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+        library_ms=None, l2_floor_ms=32 * real / L2_SECTOR_BYTES_PER_S * 1e3,
+        variant=cuda_bell.forest_plan(w, vec16).label, slots=slots, real_slots=real,
+        live_slots=live_slots, frontier_rows=int(live.sum()),
+        forest_levels=len(bg.level_sizes),
+    )
+
+
+def _forest_real_levels(torch, bg, padded, label):
+    """forest_or on the frontier of each pull level of one bitbell BFS
+    (the kernel engine run a level at a time; ctrl[3] after a level says
+    which direction it took), held against its plain version and timed."""
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
+        bitbell,
+    )
+
+    eng = bitbell.BitBellEngine(bg, level_chunk=128)
+    carry = eng._init_carry(eng._pad_queries(padded)[0])
+    rows = []
+    while bitbell.level_go(carry.ctrl, 2**31 - 1):
+        level = int(carry.ctrl[1]) + 1
+        frontier = carry.frontier.clone()
+        eng._chunk(carry, 1)
+        if int(carry.ctrl[3]) == bitbell.DIR_PULL:
+            row = _forest_row(torch, bg, frontier)
+            rows.append(dict(level=level, **row))
+            print(f"forest real level {label} level={level}: " + json.dumps(rows[-1]))
+            assert row["max_abs_err"] == 0, (label, level, row)
+        assert level <= bg.n, "the level loop did not stop"
+    assert rows, "no pull level"
+    return rows
+
+
 def _ell_gather_stats(torch, eg, visited, mask):
     """What the ELL gather must touch for these planes: the virtual rows
     whose owner some running query has not reached (the others it skips)
@@ -684,6 +729,7 @@ def _rmat20_paths(ctx, n, edges, g, bg, eg, k, seed):
     assert steady > stale > 0, ell
     padded = tio.pad_queries(queries)
     _ell_level_split(torch, eg, padded, "rmat-20 K=64")
+    _forest_real_levels(torch, bg, padded, "rmat-20 K=64")
     f = {}
     seconds = {}
     for name, eng in (
@@ -974,6 +1020,8 @@ def main() -> int:
         cli, timing, ["chip_smoke", "-g", gpath, "-q", qpath, "-gn", "1"],
         "stencil road-4096", launches,
     )
+    sweeps = [k for k in VARIANTS["stencil road-4096"] if k.startswith("stencil_sweep:")]
+    assert sweeps and all(k.endswith("/res") for k in sweeps), sweeps
 
     padded4 = tio.pad_queries(q4)
     fast = stencil.StencilEngine(sg4, level_chunk=stencil.AUTO_STENCIL_LEVEL_CHUNK)
@@ -1109,7 +1157,6 @@ def main() -> int:
     # ---- the kernel line, the card, the verdict
     replaces = {
         "stencil_sweep": "ops/pallas_stencil.py:75",
-        "residual_or": "ops/stencil.py:319",
         "level_apply": "ops/bitbell.py:333",
         "tile_hits": "ops/pallas_mxu.py:48",
         "push_or": "ops/bitbell.py:225",

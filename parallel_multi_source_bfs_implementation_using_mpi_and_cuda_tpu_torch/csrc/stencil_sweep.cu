@@ -1,24 +1,30 @@
-// Kernel A — the stencil masked-shift sweep.
+// Kernel A — the stencil masked-shift sweep, with the residual edges.
 //
 // Replaces the TPU kernel ops/pallas_stencil.py:75 make_kernel (the gridless
 // pallas_call chain entered through pallas_hits, :126) and its XLA twin
-// ops/stencil.py:285 _xla_shift_hits, both in the JAX package.  For every
-// vertex v and word w of a (rows, W) plane:
+// ops/stencil.py:285 _xla_shift_hits, together with the XLA residual chain
+// of ops/stencil.py:319-340 (the gather, segment_max, re-pack and row merge
+// inside stencil_hits, :304), all in the JAX package.  For every vertex v
+// and word w of a (rows, W) plane:
 //
 //   hits[v, w] = OR over offsets i of  frontier[v - d_i, w]
 //                where 0 <= v - d_i < rows and bit i of mask[v - d_i] is set
+//              | OR over residual edges e with dst[e] == v of frontier[src[e], w]
 //
 // i.e. the frontier of every source u whose edge (u, u + d_i) exists is
 // shifted onto u + d_i, with zero fill past either end of the plane (a
 // window of rows is zero-filled at its own ends, exactly as the JAX window
-// slices it).
+// slices it), and the few edges off the offsets (the residual, sorted by
+// destination) are ORed in.  The residual needs the whole plane: the
+// engines window only residual-free graphs.
 //
 // Bound: bytes.  Per level it must read the frontier plane (4W bytes per
 // vertex) and write the hit plane (4W), and read the mask word of every row
-// whose frontier is nonzero; at most 32 offsets cost a few integer
-// operations each.  A thread per (vertex, word) that loads its sources from
-// L1/L2 would move about 16 four-byte loads through L1/L2 per output word,
-// most of them from rows max|d| away that another block owns.
+// whose frontier is nonzero, and the residual's two index arrays (8 bytes an
+// edge); at most 32 offsets cost a few integer operations each.  A thread
+// per (vertex, word) that loads its sources from L1/L2 would move about 16
+// four-byte loads through L1/L2 per output word, most of them from rows
+// max|d| away that another block owns.
 //
 // Design, two variants picked on the host by ops/cuda_stencil.py
 // sweep_plan (a pure function of rows, W, the offsets and whether every base
@@ -51,6 +57,20 @@
 //   indices, whole rows per thread, vector frontier loads, and four rows
 //   per thread in flight.
 //
+// The residual rides the same launch: on its own it would pay a launch
+// and a launch gap a level for almost no bytes.  The host cuts the sorted
+// edges by the tile that owns their destination (a (tiles + 1) range
+// table per plan: ring tiles, or the l2 variant's 256-row block steps), so
+// the rows an edge writes belong to the block that swept them.  Once the
+// rows are stored (a block barrier later), the edges OR their source rows
+// in with one atomicOr per nonzero word.  A ring block does it after its
+// walk, with the whole block: its producer warps stage the walk's edge
+// ends in shared memory with cp.async while the ring fills, so only the
+// source row is waited on at the end, and the tile loop carries nothing
+// for the residual (work or registers inside it slowed every tile of the
+// walk by more than the separate launch cost).  l2 does it after each
+// step.  Without residual edges none of this runs.
+//
 // W is a template parameter for 1, 2, 4 and 8, with a generic instance
 // (W = 0, runtime width) for the others.  Offsets with |d| >= rows never
 // land inside the plane and are dropped on the host side of this file, with
@@ -66,6 +86,10 @@ constexpr int kRingStages = 4;  // tiles the ring holds beside the halos
 constexpr int kProducerThreads = 64;  // two warps fill the ring
 constexpr int kL2Rows = 4;  // rows per thread per step of the l2 variant
 constexpr int kMaxSmem = 232448;  // bytes of shared memory a block may use
+// Residual edges a ring block stages in shared memory (source and
+// destination, 4 KB); a block's edges past these take the longer path.
+constexpr int kResStage = 512;
+constexpr int kRingMaxDynSmem = kMaxSmem - 2 * kResStage * 4 - 16;
 
 constexpr int kMaxOffsets = 32;
 constexpr int kGroup = 8;  // the host pads the offsets to a multiple of this
@@ -75,6 +99,16 @@ struct Offsets {
   int d[kMaxOffsets];
   int d4[kMaxOffsets];            // 4 * d: the shift in ring bytes
   uint32_t bit[kMaxOffsets];      // the mask bit of each kept offset, as 1 << i
+};
+
+// The residual edges, sorted by destination and cut by table tile: the
+// edges of tile t (rows [t * tile, (t + 1) * tile)) are [ptr[t], ptr[t + 1]).
+// count == 0: no residual (the pointers are never read).
+struct Residual {
+  const int* src;
+  const int* dst;
+  const int* ptr;
+  int count;
 };
 
 // The W words at p (p is W-word aligned within a 16-byte aligned plane
@@ -129,6 +163,75 @@ __device__ __forceinline__ void store_row(uint32_t* p,
   } else {
 #pragma unroll
     for (int i = 0; i < W; ++i) p[i] = in[i];
+  }
+}
+
+// hits[d] |= frontier[s] (one residual edge; s < 0: none), one atomicOr per
+// nonzero word.
+template <int W, bool kVec16>
+__device__ __forceinline__ void residual_edge(const uint32_t* __restrict__ frontier,
+                                              uint32_t* __restrict__ hits,
+                                              int Wd, int s, int d) {
+  if (s < 0) return;
+  if constexpr (W != 0) {
+    uint32_t x[W];
+    ldg_row<W, kVec16>(x, frontier + s * W);
+#pragma unroll
+    for (int i = 0; i < W; ++i) {
+      if (x[i]) atomicOr(hits + d * W + i, x[i]);
+    }
+  } else {
+    for (int w = 0; w < Wd; ++w) {
+      const uint32_t x = __ldg(frontier + s * Wd + w);
+      if (x) atomicOr(hits + d * Wd + w, x);
+    }
+  }
+}
+
+// hits[dst[e]] |= frontier[src[e]] for the residual edges [e0, e1), by
+// threads tid of nthreads, a few edges a thread with their loads in flight
+// together; one atomicOr per nonzero word (an edge's destination row was
+// stored by this block before a barrier, and no other block writes it).
+template <int W, bool kVec16>
+__device__ __forceinline__ void residual_or(const uint32_t* __restrict__ frontier,
+                                            uint32_t* __restrict__ hits,
+                                            const Residual& res, int Wd,
+                                            int e0, int e1, int tid,
+                                            int nthreads) {
+  constexpr int kBatch = W == 0 ? 1 : (W <= 2 ? 4 : 8 / W);
+  for (int e = e0 + tid; e < e1; e += kBatch * nthreads) {
+    int s[kBatch], d[kBatch];
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      const int i = e + b * nthreads;
+      s[b] = i < e1 ? __ldg(res.src + i) : -1;
+      d[b] = i < e1 ? __ldg(res.dst + i) : 0;
+    }
+    if constexpr (W != 0) {
+      uint32_t x[kBatch][W];
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b) {
+        if (s[b] >= 0) {
+          ldg_row<W, kVec16>(x[b], frontier + s[b] * W);
+        } else {
+#pragma unroll
+          for (int i = 0; i < W; ++i) x[b][i] = 0u;
+        }
+      }
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b) {
+#pragma unroll
+        for (int i = 0; i < W; ++i) {
+          if (x[b][i]) atomicOr(hits + d[b] * W + i, x[b][i]);
+        }
+      }
+    } else {
+      if (s[0] < 0) continue;
+      for (int w = 0; w < Wd; ++w) {
+        const uint32_t x = __ldg(frontier + s[0] * Wd + w);
+        if (x) atomicOr(hits + d[0] * Wd + w, x);
+      }
+    }
   }
 }
 
@@ -191,7 +294,7 @@ sweep_ring_kernel(const uint32_t* __restrict__ frontier,
                   const uint32_t* __restrict__ mask,
                   uint32_t* __restrict__ hits, int rows, int w_rt,
                   Offsets off, int tile, int R, int halo_lo, int halo_hi,
-                  const int* __restrict__ ctrl, int max_levels) {
+                  Residual res, const int* __restrict__ ctrl, int max_levels) {
   if (!msbfs::level_go(ctrl, max_levels)) return;
   extern __shared__ __align__(16) uint32_t smem[];
   const int Wd = W ? W : w_rt;
@@ -222,11 +325,29 @@ sweep_ring_kernel(const uint32_t* __restrict__ frontier,
     }
     msbfs::cp_async_commit();  // one group per tile, empty past the walk
   };
-  // Prologue: tile 0's span, then the new rows of tiles 1 .. S - 2.
+  // The residual edges of the walk's tiles: [s_span[0], s_span[1]), the
+  // first kResStage of them staged in shared memory while the ring fills.
+  __shared__ int s_res[2 * kResStage];
+  __shared__ int s_span[2];
+  // Prologue: tile 0's span, then the new rows of tiles 1 .. S - 2; then
+  // the staged edge ends, a group of their own (one more group only makes
+  // the waits below stronger).
   if (producer) {
 #pragma unroll 1
     for (int i = 0; i < kRingStages - 1; ++i) {
       fill_to(span_end(r0 + static_cast<long long>(i) * tile));
+    }
+    if (res.count) {
+      const int e0 = __ldg(res.ptr + tb), e1 = __ldg(res.ptr + te);
+      if (threadIdx.x == 0) {
+        s_span[0] = e0;
+        s_span[1] = e1;
+      }
+      for (int i = threadIdx.x; i < min(e1 - e0, kResStage); i += kProducerThreads) {
+        msbfs::cp_async4(s_res + i, res.src + e0 + i);
+        msbfs::cp_async4(s_res + kResStage + i, res.dst + e0 + i);
+      }
+      msbfs::cp_async_commit();
     }
     msbfs::cp_async_wait<kRingStages - 2>();  // tile 0 has landed
   }
@@ -309,6 +430,20 @@ sweep_ring_kernel(const uint32_t* __restrict__ frontier,
     tslot -= tslot >= R ? R : 0;
   }
   if (producer) msbfs::cp_async_wait<0>();  // no copy outlives the block
+  if (res.count) {
+    // Every row of the walk was stored before the last barrier; this one
+    // makes the staged edge ends visible.  One dependent load (the source
+    // row) per staged edge, then the rest of the walk's edges.
+    __syncthreads();
+    const int e0 = s_span[0], e1 = s_span[1];
+    for (int i = threadIdx.x; i < min(e1 - e0, kResStage); i += kRingThreads) {
+      residual_edge<W, kVec16>(frontier, hits, Wd, s_res[i], s_res[kResStage + i]);
+    }
+    if (e1 - e0 > kResStage) {
+      residual_or<W, kVec16>(frontier, hits, res, Wd, e0 + kResStage, e1,
+                             threadIdx.x, kRingThreads);
+    }
+  }
 }
 
 template <int W, bool kVec16>
@@ -316,12 +451,16 @@ __global__ void __launch_bounds__(msbfs::kThreads)
 sweep_l2_kernel(const uint32_t* __restrict__ frontier,
                 const uint32_t* __restrict__ mask,
                 uint32_t* __restrict__ hits, int rows, int w_rt, Offsets off,
-                const int* __restrict__ ctrl, int max_levels) {
+                Residual res, const int* __restrict__ ctrl, int max_levels) {
   if (!msbfs::level_go(ctrl, max_levels)) return;
   const int Wd = W ? W : w_rt;
   const unsigned stride = gridDim.x * blockDim.x;
-  for (unsigned v0 = blockIdx.x * blockDim.x + threadIdx.x;
-       v0 < static_cast<unsigned>(rows); v0 += kL2Rows * stride) {
+  // Block-uniform steps (the residual's barrier needs every thread): a
+  // step sweeps rows base + c * stride + threadIdx.x, c < kL2Rows, i.e.
+  // the residual table's tiles base / blockDim.x + c * gridDim.x.
+  for (unsigned base = blockIdx.x * blockDim.x;
+       base < static_cast<unsigned>(rows); base += kL2Rows * stride) {
+    const unsigned v0 = base + threadIdx.x;
     if constexpr (W != 0) {
       uint32_t acc[kL2Rows][W] = {};
       for (int k = 0; k < off.count; ++k) {
@@ -364,6 +503,17 @@ sweep_l2_kernel(const uint32_t* __restrict__ frontier,
         }
       }
     }
+    if (res.count) {
+      __syncthreads();  // the step's rows are stored
+      const int tiles = static_cast<int>((static_cast<unsigned>(rows) + blockDim.x - 1) / blockDim.x);
+#pragma unroll 1
+      for (int c = 0; c < kL2Rows; ++c) {
+        const int t = static_cast<int>(base / blockDim.x) + c * static_cast<int>(gridDim.x);
+        if (t >= tiles) break;
+        residual_or<W, kVec16>(frontier, hits, res, Wd, __ldg(res.ptr + t),
+                               __ldg(res.ptr + t + 1), threadIdx.x, blockDim.x);
+      }
+    }
   }
 }
 
@@ -374,6 +524,7 @@ struct Launch {
   int rows, W;
   Offsets off;
   int tile, R, halo_lo, halo_hi;
+  Residual res;
   const int* ctrl;
   int max_levels;
   int device;
@@ -396,7 +547,7 @@ cudaError_t launch_ring(const Launch& a) {
   if (grid < 1) grid = 1;
   kernel<<<static_cast<int>(grid), kRingThreads, smem, a.stream>>>(
       a.frontier, a.mask, a.hits, a.rows, a.W, a.off, a.tile, a.R, a.halo_lo,
-      a.halo_hi, a.ctrl, a.max_levels);
+      a.halo_hi, a.res, a.ctrl, a.max_levels);
   return cudaGetLastError();
 }
 
@@ -405,7 +556,8 @@ cudaError_t launch_l2(const Launch& a) {
   const long long steps = (static_cast<long long>(a.rows) + kL2Rows - 1) / kL2Rows;
   const int grid = msbfs::grid_for(steps, msbfs::kThreads);
   sweep_l2_kernel<W, kVec16><<<grid, msbfs::kThreads, 0, a.stream>>>(
-      a.frontier, a.mask, a.hits, a.rows, a.W, a.off, a.ctrl, a.max_levels);
+      a.frontier, a.mask, a.hits, a.rows, a.W, a.off, a.res, a.ctrl,
+      a.max_levels);
   return cudaGetLastError();
 }
 
@@ -428,15 +580,20 @@ bool aligned16(const void* p) {
 
 // variant: 0 = ring (tile, ring_rows, halo_lo, halo_hi from the host's
 // plan), 1 = l2 (those four ignored).  vec16: every base pointer is 16-byte
-// aligned, so copies, loads and stores may be 16 bytes wide.
+// aligned, so copies, loads and stores may be 16 bytes wide.  The residual:
+// res_count edges (res_src, res_dst sorted by destination, both (count,))
+// and res_ptr, the (tiles + 1,) range table over tiles of res_tile rows —
+// the ring's tile, or kThreads rows for l2; res_count == 0: none.
 extern "C" int msbfs_stencil_sweep(int device, const void* frontier,
                                    const void* mask, void* hits,
                                    long long rows, int W,
                                    const int* offsets, int num_offsets,
                                    const void* ctrl, int max_levels,
                                    int variant, int tile, int ring_rows,
-                                   int halo_lo, int halo_hi, int vec16,
-                                   void* stream) {
+                                   int halo_lo, int halo_hi,
+                                   const void* res_src, const void* res_dst,
+                                   const void* res_ptr, long long res_count,
+                                   int res_tile, int vec16, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int invalid = static_cast<int>(cudaErrorInvalidValue);
@@ -445,6 +602,11 @@ extern "C" int msbfs_stencil_sweep(int device, const void* frontier,
     return invalid;
   }
   if (vec16 && !(aligned16(frontier) && aligned16(mask) && aligned16(hits))) {
+    return invalid;
+  }
+  if (res_count < 0 || res_count >= (1LL << 31) ||
+      (res_count && (!res_src || !res_dst || !res_ptr ||
+                     res_tile != (variant == 0 ? tile : msbfs::kThreads)))) {
     return invalid;
   }
   Launch a;
@@ -469,7 +631,7 @@ extern "C" int msbfs_stencil_sweep(int device, const void* frontier,
     if (tile < 32 || tile % 32 || halo_lo < lo || halo_hi < hi ||
         halo_lo % 4 || halo_hi % 4 ||
         ring_rows < static_cast<long long>(kRingStages) * tile + halo_lo + halo_hi || ring_rows % 4 ||
-        smem > kMaxSmem) {
+        smem > kRingMaxDynSmem) {
       return invalid;
     }
   }
@@ -482,6 +644,10 @@ extern "C" int msbfs_stencil_sweep(int device, const void* frontier,
   a.R = ring_rows;
   a.halo_lo = halo_lo;
   a.halo_hi = halo_hi;
+  a.res.src = static_cast<const int*>(res_src);
+  a.res.dst = static_cast<const int*>(res_dst);
+  a.res.ptr = static_cast<const int*>(res_ptr);
+  a.res.count = static_cast<int>(res_count);
   a.ctrl = static_cast<const int*>(ctrl);
   a.max_levels = max_levels;
   a.device = device;

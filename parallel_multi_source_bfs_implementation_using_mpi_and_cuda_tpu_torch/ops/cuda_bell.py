@@ -8,33 +8,74 @@ in ``csrc/forest_or.cu`` (one launch per forest level, then the gather).
 :func:`forest_or` launches the kernel on CUDA tensors and runs
 :func:`forest_or_plain` (the plain torch forest of :mod:`.bell`) on CPU
 tensors only.  Both are gated on the level control: they write ``hits``
-only when the level may run and ctrl[3] is the pull direction.
+only when the level may run and ctrl[3] is the pull direction.  The
+kernel's warps walk row-aligned runs of slots described by
+:func:`forest_tables`, a pure function of the forest's shapes.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from ..runtime import kernels
 from .bell import forest_hits
-from .bitbell import DIR_PULL, INT32_MAX, _check_device, _check_plane, direction_go
+from .bitbell import (
+    DIR_PULL,
+    INT32_MAX,
+    KERNEL_WIDTHS,
+    _check_device,
+    _check_plane,
+    direction_go,
+)
 
 # Buckets one forest level may have: the kernel's shared-memory table.
 MAX_KERNEL_BUCKETS = 64
-# Bucket widths above this take a warp per row (csrc/forest_or.cu).
-_NARROW_WIDTH = 32
+# Bucket widths up to this take rows packed into 32-lane chunks; wider
+# ones a warp per row (csrc/forest_or.cu).
+NARROW_WIDTH = 32
+# Words a pass of the kernel's generic width (csrc/forest_or.cu kPass).
+PASS_WORDS = 8
+
+
+class ForestPlan(NamedTuple):
+    """How the forest kernel runs one call (:func:`forest_plan`)."""
+
+    w_instance: int  # 1, 2, 4 or 8, or 0 for the generic width
+    vec16: bool  # vector row loads and stores
+    chunks: int  # 32-slot chunks of a narrow run a warp has in flight
+
+    @property
+    def label(self) -> str:
+        """The variant tally's name: "W2/vec16", "Wn/vec4"."""
+        width = f"W{self.w_instance}" if self.w_instance else "Wn"
+        return f"{width}/{'vec16' if self.vec16 else 'vec4'}"
+
+
+def forest_plan(w: int, vec16: bool = True) -> ForestPlan:
+    """The forest kernel's plan for planes of ``w`` words a row: a pure
+    function of the shapes (``vec16``: frontier, scratch and hits are
+    16-byte aligned; it matters from two words a row).  A row read 8
+    words at a time (W = 8, and the generic width's passes) keeps two
+    chunks in flight, narrower rows four."""
+    w_instance = w if w in KERNEL_WIDTHS else 0
+    words = w_instance or PASS_WORDS
+    return ForestPlan(w_instance, bool(vec16) and w_instance > 1, 2 if words >= 8 else 4)
 
 
 def forest_tables(graph, w: int, device):
-    """The kernel's bucket table ((buckets, 5) int64 on ``device``: slot
-    offset, rows, width, level-local first row, first thread) and per-level
-    host metadata (a ctypes int64 array of (cols pointer, previous rows,
-    output row offset, first bucket, buckets, threads) per level), built
-    once per graph, plane width and device."""
-    key = (str(device), int(w))
+    """The kernel's bucket table ((buckets, 6) int64 on ``device``: slot
+    offset, rows, width, level-local first row, first run, rows per
+    32-slot chunk — 0 for a wide bucket, whose runs are single rows) and
+    per-level host metadata (a ctypes int64 array of (cols pointer,
+    previous rows, output row offset, first bucket, buckets, runs) per
+    level).  A narrow bucket of width W_b packs 32 // W_b rows into a
+    chunk and ``forest_plan(w).chunks`` chunks into a run, so runs hold
+    whole rows.  Built once per graph, device and chunk count."""
+    chunks = forest_plan(w).chunks
+    key = (str(device), chunks)
     if key in graph._kernel_tables:
         return graph._kernel_tables[key]
     entries, meta = [], []
@@ -44,9 +85,9 @@ def forest_tables(graph, w: int, device):
         off = row_base = first = 0
         for r_b, w_b in shapes:
             if r_b:
-                threads = r_b * (32 if w_b > _NARROW_WIDTH else w)
-                entries.append((off, r_b, w_b, row_base, first))
-                first += -(-threads // 32) * 32  # warp-aligned ranges
+                rpc = NARROW_WIDTH // w_b if w_b <= NARROW_WIDTH else 0
+                entries.append((off, r_b, w_b, row_base, first, rpc))
+                first += -(-r_b // (chunks * rpc)) if rpc else r_b
             off += r_b * w_b
             row_base += r_b
         if len(entries) - begin > MAX_KERNEL_BUCKETS:
@@ -56,7 +97,7 @@ def forest_tables(graph, w: int, device):
             )
         meta += [flat.data_ptr(), prev_rows, out_offset, begin, len(entries) - begin, first]
         prev_rows, out_offset = size, out_offset + size
-    table = torch.tensor(entries or [(0,) * 5], dtype=torch.int64, device=device)
+    table = torch.tensor(entries or [(0,) * 6], dtype=torch.int64, device=device)
     host = (ctypes.c_longlong * max(len(meta), 1))(*meta)
     graph._kernel_tables[key] = (table, host)
     return table, host
@@ -106,9 +147,12 @@ def forest_or(
         scratch = forest_scratch(graph, w, dev)
     _check_plane("scratch", scratch, (graph.total_rows + 1, w))
     _check_device(frontier, scratch, table)
+    ptrs = (frontier.data_ptr(), scratch.data_ptr(), hits.data_ptr())
+    plan = forest_plan(w, (ptrs[0] | ptrs[1] | ptrs[2]) % 16 == 0)
     kernels.launch(
         "forest_or", dev,
-        frontier.data_ptr(), table.data_ptr(), meta, len(graph.level_cols),
-        scratch.data_ptr(), graph.final_slot.data_ptr(), hits.data_ptr(), n, w,
-        graph.total_rows, ctrl.data_ptr(), int(max_levels),
+        ptrs[0], table.data_ptr(), meta, len(graph.level_cols),
+        ptrs[1], graph.final_slot.data_ptr(), ptrs[2], n, w,
+        graph.total_rows, plan.chunks, int(plan.vec16),
+        ctrl.data_ptr(), int(max_levels), variant=plan.label,
     )

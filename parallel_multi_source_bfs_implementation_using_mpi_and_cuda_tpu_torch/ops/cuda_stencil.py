@@ -1,27 +1,33 @@
-"""The stencil masked-shift sweep as a hand-written CUDA kernel.
+"""The stencil masked-shift sweep, with the residual edges, as a
+hand-written CUDA kernel.
 
 Counterpart of the JAX package's ops/pallas_stencil.py (the Pallas kernel
-chain entered through ``pallas_hits``): ``csrc/stencil_sweep.cu`` computes,
-for each vertex v and word w of a (rows, W) plane,
+chain entered through ``pallas_hits``) and of the residual half of its
+ops/stencil.py ``stencil_hits`` (an XLA gather, segment_max and row
+merge): ``csrc/stencil_sweep.cu`` computes, for each vertex v and word w
+of a (rows, W) plane,
 
     hits[v, w] = OR_i  frontier[v - d_i, w]  if bit i of mask_bits[v - d_i]
+               | OR over residual edges (u, v) of frontier[u, w]
 
 with zero fill past either end.  The TPU version's row-chunk halo chain
 (a VMEM-size workaround) and its flat-plane layout for W == 1 have no
 counterpart: the kernel works on (rows, W) planes for every W.
 
 :func:`stencil_sweep` launches the kernel on CUDA tensors and runs
-:func:`stencil_sweep_plain` on CPU tensors only.  The kernel has two
+:func:`stencil_sweep_plain` (the masked shifts, then
+:func:`residual_or_plain`) on CPU tensors only.  The kernel has two
 variants, chosen by :func:`sweep_plan` from the shapes alone: a
 shared-memory ring walked by persistent blocks, or direct reads through
-L2 where the ring does not fit.
+L2 where the ring does not fit.  The residual edges ride the same launch,
+cut by the tile that owns their destination (:func:`residual_ranges`).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -32,7 +38,9 @@ from .bitbell import (
     _check_plane,
     check_index_range,
     level_go,
+    pack_byte_planes,
     plan_label,
+    unpack_byte_planes,
 )
 
 MAX_KERNEL_OFFSETS = 32  # one mask bit per offset
@@ -47,6 +55,9 @@ RING_SMEM_BYTES = 220 * 1024
 RING_STAGES = 4  # csrc/stencil_sweep.cu kRingStages
 RING_MAX_TILE = 8192
 RING_MIN_TILE = 256
+# Rows per residual range-table entry under the l2 variant: one block's
+# rows of one step (csrc/msbfs_common.cuh kThreads).
+L2_TILE_ROWS = 256
 
 
 class SweepPlan(NamedTuple):
@@ -101,6 +112,63 @@ def _sweep_plan(
                      ring_rows * row_bytes)
 
 
+class SweepResidual:
+    """The residual edges of a plane of ``rows`` rows that the sweep ORs
+    in: ``src`` (R,) int32 source rows, ``seg`` (R,) sorted segment ids
+    into ``dst_unique`` (U,) int32 (the JAX package's compact form, which
+    the plain version reads), and ``dst`` = dst_unique[seg] (R,) int32,
+    sorted, which the kernel reads.  Range tables are cached per tile
+    size (:func:`residual_ranges`)."""
+
+    def __init__(self, rows: int, src, seg, dst_unique):
+        self.rows = int(rows)
+        self.src, self.seg, self.dst_unique = src, seg, dst_unique
+        self.dst = dst_unique[seg.long()].to(torch.int32).contiguous()
+        self._ranges = {}
+
+    @property
+    def count(self) -> int:
+        return int(self.src.shape[0])
+
+
+def residual_tile(plan: SweepPlan) -> int:
+    """Rows per residual range-table entry for a plan: the ring's tile
+    (a block walks whole tiles), or one l2 block step of L2_TILE_ROWS."""
+    return plan.tile if plan.variant == "ring" else L2_TILE_ROWS
+
+
+def residual_ranges(residual: SweepResidual, tile: int) -> torch.Tensor:
+    """(tiles + 1,) int32 on the residual's device: the edges whose
+    destination lies in rows [t * tile, (t + 1) * tile) are
+    [ranges[t], ranges[t + 1]) (``dst`` is sorted).  Built once per tile
+    size and cached."""
+    tile = int(tile)
+    if tile not in residual._ranges:
+        tiles = -(-residual.rows // tile)
+        starts = torch.arange(tiles + 1, dtype=torch.int64, device=residual.dst.device) * tile
+        residual._ranges[tile] = torch.searchsorted(
+            residual.dst.long(), starts
+        ).to(torch.int32)
+    return residual._ranges[tile]
+
+
+def residual_or_plain(
+    frontier, res_src, res_seg, res_dst_unique, hits, ctrl, max_levels
+) -> None:
+    """The residual half of the sweep in torch: gather, byte unpack,
+    segment OR (a sum of 0/1 bytes is > 0 exactly when their OR is 1),
+    pack, one row merge."""
+    if not level_go(ctrl, max_levels):
+        return
+    src_bytes = unpack_byte_planes(frontier[res_src.long()])  # (R, K) 0/1
+    u = res_dst_unique.long()
+    seg = torch.zeros(
+        (u.shape[0], src_bytes.shape[1]), dtype=torch.int32, device=hits.device
+    )
+    seg.index_add_(0, res_seg.long(), src_bytes.to(torch.int32))
+    hits[u] = hits[u] | pack_byte_planes((seg > 0).to(torch.uint8))
+
+
 def stencil_sweep_plain(
     frontier: torch.Tensor,
     mask_bits: torch.Tensor,
@@ -108,9 +176,11 @@ def stencil_sweep_plain(
     hits: torch.Tensor,
     ctrl: torch.Tensor,
     max_levels: int,
+    residual: Optional[SweepResidual] = None,
 ) -> None:
     """The sweep kernel's function in torch: writes ``hits`` when the
-    control lets the level run."""
+    control lets the level run — the masked shifts, then
+    :func:`residual_or_plain` over ``residual``'s edges."""
     if not level_go(ctrl, max_levels):
         return
     rows = frontier.shape[0]
@@ -124,6 +194,11 @@ def stencil_sweep_plain(
             hits[d:] |= masked[: rows - d]
         else:
             hits[: rows + d] |= masked[-d:]
+    if residual is not None and residual.count:
+        residual_or_plain(
+            frontier, residual.src, residual.seg, residual.dst_unique, hits,
+            ctrl, max_levels,
+        )
 
 
 def stencil_sweep(
@@ -133,8 +208,11 @@ def stencil_sweep(
     hits: torch.Tensor,
     ctrl: torch.Tensor,
     max_levels: int,
+    residual: Optional[SweepResidual] = None,
 ) -> None:
-    """Kernel A: (rows, W) frontier -> (rows, W) hits by masked shifts."""
+    """Kernel A: (rows, W) frontier -> (rows, W) hits by masked shifts,
+    with ``residual``'s edges ORed in by the same launch (the residual
+    addresses the whole plane: a window of rows takes none)."""
     rows, w = frontier.shape
     _check_plane("frontier", frontier)
     _check_plane("mask_bits", mask_bits, (rows,))
@@ -146,18 +224,38 @@ def stencil_sweep(
             f"offsets must be at most {MAX_KERNEL_OFFSETS} nonzero ints, "
             f"got {offsets}"
         )
+    if residual is not None and residual.count == 0:
+        residual = None
+    if residual is not None:
+        if residual.rows != rows:
+            raise ValueError(
+                f"the residual addresses {residual.rows} rows, the plane has {rows}"
+            )
+        for name in ("src", "seg", "dst_unique", "dst"):
+            _check_plane(f"residual.{name}", getattr(residual, name))
     dev = _check_device(frontier, mask_bits, hits, ctrl)
     if dev.type == "cpu":
-        stencil_sweep_plain(frontier, mask_bits, offsets, hits, ctrl, max_levels)
+        stencil_sweep_plain(
+            frontier, mask_bits, offsets, hits, ctrl, max_levels, residual
+        )
         return
     check_index_range(rows, w)
     ptrs = (frontier.data_ptr(), mask_bits.data_ptr(), hits.data_ptr())
     plan = sweep_plan(rows, w, offsets, (ptrs[0] | ptrs[1] | ptrs[2]) % 16 == 0)
     offs = (ctypes.c_int * MAX_KERNEL_OFFSETS)(*offsets)
+    label = plan_label(plan)
+    res = (None, None, None, 0, 0)
+    if residual is not None:
+        tile = residual_tile(plan)
+        ranges = residual_ranges(residual, tile)
+        _check_device(frontier, residual.src, residual.dst, ranges)
+        res = (residual.src.data_ptr(), residual.dst.data_ptr(),
+               ranges.data_ptr(), residual.count, tile)
+        label += "/res"
     kernels.launch(
         "stencil_sweep", dev, *ptrs,
         rows, w, offs, len(offsets), ctrl.data_ptr(), int(max_levels),
         0 if plan.variant == "ring" else 1, plan.tile, plan.ring_rows,
-        plan.halo_lo, plan.halo_hi, int(plan.vec16),
-        variant=plan_label(plan),
+        plan.halo_lo, plan.halo_hi, *res, int(plan.vec16),
+        variant=label,
     )

@@ -10,12 +10,12 @@ OR-ed into the hits per level.  Semantics are the reference's exactly
 nothing, -1/out-of-range sources dropped, unreached vertices excluded
 from F.
 
-One level on the device is three kernels on one stream:
-``csrc/stencil_sweep.cu`` (the masked shifts), ``csrc/residual_or.cu``
-(the residual, when the graph has one) and ``csrc/level_apply.cu`` (the
-bit-plane apply with per-query counts).  The engine's ``plain`` mode runs
-their plain torch versions instead, on any device: the reference the
-kernels are held against on the card.
+One level on the device is two kernels on one stream:
+``csrc/stencil_sweep.cu`` (the masked shifts, with the residual edges ORed
+in by the same launch) and ``csrc/level_apply.cu`` (the bit-plane apply
+with per-query counts).  The engine's ``plain`` mode runs their plain
+torch versions instead, on any device: the reference the kernels are held
+against on the card.
 
 The active-row window (``StencilEngine``) slices each chunk of levels to
 the frontier band plus its growth margin on residual-free graphs, exactly
@@ -38,20 +38,19 @@ from .bitbell import (
     WORD_BITS,
     BitCarry,
     FusedBestEngine,
-    _check_device,
-    _check_plane,
     _pack_status,
     bit_level_apply,
     bit_level_apply_plain,
     bit_level_chunk,
     bit_level_init,
-    level_go,
-    pack_byte_planes,
     pack_queries,
     resolve_megachunk,
-    unpack_byte_planes,
 )
-from .cuda_stencil import stencil_sweep, stencil_sweep_plain
+from .cuda_stencil import (
+    SweepResidual,
+    stencil_sweep,
+    stencil_sweep_plain,
+)
 from .engine import source_band
 
 # Routing defaults: at most this many distinct diffs, covering all but
@@ -72,7 +71,8 @@ class StencilGraph:
     exists.  The residual is compacted by destination: ``res_src`` (R,)
     int32 source rows, ``res_seg`` (R,) int32 sorted segment ids into
     ``res_dst_unique`` (U,) int32.  Self-loops never change reachability
-    and are dropped."""
+    and are dropped.  ``residual`` holds the same edges as the sweep
+    takes them (None without any)."""
 
     def __init__(
         self, n, num_directed_edges, offsets, mask_bits, res_src, res_seg,
@@ -85,6 +85,10 @@ class StencilGraph:
         self.res_src = res_src
         self.res_seg = res_seg
         self.res_dst_unique = res_dst_unique
+        self.residual = (
+            SweepResidual(n, res_src, res_seg, res_dst_unique)
+            if int(res_src.shape[0]) else None
+        )
 
     @property
     def device(self) -> torch.device:
@@ -230,62 +234,12 @@ def detect_stencil(
     return offsets, masks, src[res].astype(np.int32), dst[res].astype(np.int32)
 
 
-def residual_or_plain(
-    frontier, res_src, res_seg, res_dst_unique, hits, ctrl, max_levels
-) -> None:
-    """The residual kernel's function in torch: gather, byte unpack,
-    segment OR (a sum of 0/1 bytes is > 0 exactly when their OR is 1),
-    pack, one row merge."""
-    if not level_go(ctrl, max_levels):
-        return
-    src_bytes = unpack_byte_planes(frontier[res_src.long()])  # (R, K) 0/1
-    u = res_dst_unique.long()
-    seg = torch.zeros(
-        (u.shape[0], src_bytes.shape[1]), dtype=torch.int32, device=hits.device
-    )
-    seg.index_add_(0, res_seg.long(), src_bytes.to(torch.int32))
-    hits[u] = hits[u] | pack_byte_planes((seg > 0).to(torch.uint8))
-
-
-def residual_or(
-    frontier, res_src, res_seg, res_dst_unique, hits, ctrl, max_levels
-) -> None:
-    """Kernel B (``csrc/residual_or.cu``): hits[dst(r)] |= frontier[src(r)]
-    for every residual edge r."""
-    n, w = frontier.shape
-    _check_plane("frontier", frontier)
-    _check_plane("hits", hits, (n, w))
-    r = res_src.shape[0]
-    _check_plane("res_src", res_src, (r,))
-    _check_plane("res_seg", res_seg, (r,))
-    _check_plane("res_dst_unique", res_dst_unique)
-    _check_plane("ctrl", ctrl, (4,))
-    dev = _check_device(frontier, res_src, res_seg, res_dst_unique, hits, ctrl)
-    if dev.type == "cpu":
-        residual_or_plain(
-            frontier, res_src, res_seg, res_dst_unique, hits, ctrl, max_levels
-        )
-        return
-    kernels.launch(
-        "residual_or", dev,
-        frontier.data_ptr(), res_src.data_ptr(), res_seg.data_ptr(),
-        res_dst_unique.data_ptr(), hits.data_ptr(), r, w, ctrl.data_ptr(),
-        int(max_levels),
-    )
-
-
 def _expand_into(
     hits, frontier, mask_bits, graph, ctrl, max_levels, plain
 ) -> None:
-    """One level's hit planes: the masked-shift sweep, then the residual."""
+    """One level's hit planes: the masked-shift sweep with the residual."""
     sweep = stencil_sweep_plain if plain else stencil_sweep
-    sweep(frontier, mask_bits, graph.offsets, hits, ctrl, max_levels)
-    if graph.res_src.shape[0]:
-        res = residual_or_plain if plain else residual_or
-        res(
-            frontier, graph.res_src, graph.res_seg, graph.res_dst_unique,
-            hits, ctrl, max_levels,
-        )
+    sweep(frontier, mask_bits, graph.offsets, hits, ctrl, max_levels, graph.residual)
 
 
 def _go_ctrl(device) -> torch.Tensor:

@@ -50,11 +50,8 @@ _L = ctypes.c_longlong
 KERNELS = {
     "stencil_sweep": (
         "msbfs_stencil_sweep",
-        [_P, _P, _P, _L, _I, ctypes.POINTER(_I), _I, _P, _I, _I, _I, _I, _I, _I, _I],
-    ),
-    "residual_or": (
-        "msbfs_residual_or",
-        [_P, _P, _P, _P, _P, _L, _I, _P, _I],
+        [_P, _P, _P, _L, _I, ctypes.POINTER(_I), _I, _P, _I, _I, _I, _I, _I, _I,
+         _P, _P, _P, _L, _I, _I],
     ),
     "level_apply": (
         "msbfs_level_apply",
@@ -74,7 +71,7 @@ KERNELS = {
     ),
     "forest_or": (
         "msbfs_forest_or",
-        [_P, _P, ctypes.POINTER(_L), _I, _P, _P, _P, _L, _I, _L, _P, _I],
+        [_P, _P, ctypes.POINTER(_L), _I, _P, _P, _P, _L, _I, _L, _I, _I, _P, _I],
     ),
 }
 

@@ -170,21 +170,62 @@ def test_forest_or_plain_is_gated(graphs):
 
 
 def test_forest_tables_cover_every_row(graphs):
-    """The kernel's bucket table: warp-aligned thread ranges, one entry per
-    nonempty bucket, rows adding up to each level's size."""
+    """The kernel's bucket table: one entry per nonempty bucket, rows
+    adding up to each level's size, and each bucket's runs (whole rows:
+    32 // W_b rows a chunk, the plan's chunks a run; one wide row a run)
+    numbered after the previous bucket's."""
     n, g, _ = graphs["hub"]
     bg = BellGraph.from_host(g, "cpu")
-    for w in (1, 2):
+    for w in (1, 2, 8):
+        chunks = cuda_bell.forest_plan(w).chunks
         table, meta = cuda_bell.forest_tables(bg, w, "cpu")
         meta = list(meta)
         for li, size in enumerate(bg.level_sizes):
-            _, prev_rows, out_off, begin, count, threads = meta[6 * li : 6 * li + 6]
-            rows = table[begin : begin + count]
-            assert int(rows[:, 1].sum()) == size
-            assert bool((rows[:, 4] % 32 == 0).all()) and threads % 32 == 0
+            _, prev_rows, out_off, begin, count, runs = meta[6 * li : 6 * li + 6]
+            rows = table[begin : begin + count].tolist()
+            assert sum(r[1] for r in rows) == size
+            first = 0
+            for off, r_b, w_b, row_base, first_run, rpc in rows:
+                assert first_run == first and r_b > 0
+                assert rpc == (32 // w_b if w_b <= 32 else 0)
+                first += -(-r_b // (chunks * rpc)) if rpc else r_b
+            assert runs == first
             assert prev_rows == (n if li == 0 else bg.level_sizes[li - 1])
             assert out_off == sum(bg.level_sizes[:li])
         assert cuda_bell.forest_tables(bg, w, "cpu")[0] is table  # cached
+
+
+def _hub_heavy(seed):
+    """RMAT edges with hubs of 33, 257, 700 and 880 dedup neighbours (wide
+    buckets, chunk rows at the 256 rung, a three-level forest under the
+    narrow ladder) besides a self-loop and isolated vertices."""
+    n, (_, e) = 900, generators.rmat_edges(8, edge_factor=6, seed=seed)
+    hubs = [np.stack([np.full(d, h, np.int32), (np.arange(d, dtype=np.int32) * 7 + h) % n], 1)
+            for h, d in ((4, 33), (6, 257), (9, 700), (12, 880))]
+    return n, np.concatenate([e] + hubs + [[[800, 800]]]).astype(np.int32)
+
+
+@pytest.mark.parametrize(
+    "widths",
+    [DEFAULT_WIDTHS, NARROW, (1, 2, 3, 21, 27), (5, 34, 256), (1, 32, 33, 64)],
+)
+@pytest.mark.parametrize("w", [1, 2, 8])
+def test_forest_or_hub_heavy_matches_jax(widths, w):
+    """The forest wrapper on CPU tensors (its plain version) against JAX's
+    bell_hits_or on hub-heavy forests under every ladder, the layout
+    first; bit 31 and whole-word frontiers included."""
+    n, e = _hub_heavy(w + len(widths))
+    bg = BellGraph.from_host(CSRGraph.from_edges(n, e), "cpu", widths=widths, min_bucket_rows=0)
+    jb = JBellGraph.from_host(JCSRGraph.from_edges(n, e), widths=widths, min_bucket_rows=0)
+    assert bg.level_shapes == jb.level_shapes and len(bg.level_sizes) >= 2
+    assert any(wb > 32 and rb for rb, wb in bg.level_shapes[0]) == (max(widths) > 32)
+    frontier = _words(np.random.default_rng(w), (n, w), 0.4)
+    frontier[::7, 0] = np.uint32(1 << 31)
+    want = np.asarray(jbb.bell_hits_or(jnp.asarray(frontier), jb))
+    hits = torch.full((n, w), 5, dtype=torch.int32)
+    ctrl = torch.tensor([1, 0, 0, bitbell.DIR_PULL], dtype=torch.int32)
+    cuda_bell.forest_or(_t(frontier), bg, hits, ctrl)
+    np.testing.assert_array_equal(hits.numpy().view(np.uint32), want)
 
 
 def _queries(n, k, seed):

@@ -270,23 +270,101 @@ def test_level_apply_edge_hits(cuda, w):
         assert torch.equal(getattr(got, field), snap[field]), field
 
 
-@pytest.mark.parametrize("w", [1, 2, 8])
-def test_residual_matches_plain(cuda, w):
-    rng = np.random.default_rng(10 + w)
-    n, r = 3000, 900
-    frontier = _planes(rng, n, w)
-    src = rng.integers(0, n, size=r).astype(np.int32)
-    dst = np.sort(rng.integers(0, n, size=r))
-    uniq, seg = np.unique(dst, return_inverse=True)
-    args = [torch.from_numpy(a.astype(np.int32)) for a in (src, seg, uniq)]
-    hits = _planes(rng, n, w)
-    want = hits.clone()
-    stencil.residual_or_plain(frontier, *args, want, _go(), 100)
-    got = hits.to(cuda)
-    stencil.residual_or(
-        frontier.to(cuda), *[a.to(cuda) for a in args], got, _go().to(cuda), 100
+def _residual(rng, rows, r, straddle=0):
+    """R random residual edges of a ``rows``-row plane, compacted as the
+    engine keeps them; ``straddle`` > 0 puts the destinations within two
+    rows of its multiples (both sides of tile boundaries), several edges
+    sharing each."""
+    src = rng.integers(0, rows, size=r)
+    if straddle:
+        dst = rng.integers(1, max(2, rows // straddle), size=r) * straddle + rng.integers(-2, 2, size=r)
+        dst = np.clip(dst, 0, rows - 1)
+    else:
+        dst = rng.integers(0, rows, size=r)
+    order = np.argsort(dst, kind="stable")
+    uniq, seg = np.unique(dst[order], return_inverse=True)
+    t = [torch.from_numpy(a.astype(np.int32)) for a in (src[order], seg, uniq)]
+    return t
+
+
+@pytest.mark.parametrize(
+    "rows,w,offsets,r,straddle,lo,small_tiles,variant",
+    [
+        (3000, 1, ROAD_SMALL, 900, 0, 0, False, "ring/W1/vec16/res"),
+        (3000, 2, ROAD_SMALL, 900, 0, 0, False, "ring/W2/vec16/res"),
+        (3000, 8, ROAD_SMALL, 900, 0, 0, False, "ring/W8/vec16/res"),
+        (10007, 4, ROAD_SMALL, 3000, 0, 0, False, "ring/W4/vec16/res"),
+        # Many 64-row tiles per block, edges on both sides of their bounds.
+        (200_003, 1, ROAD_SMALL, 20_000, 64, 0, True, "ring/W1/vec16/res"),
+        (100_001, 8, ROAD_SMALL, 8000, 64, 0, True, "ring/W8/vec16/res"),
+        (50_001, 3, ROAD_SMALL, 5000, 64, 0, True, "ring/Wn/vec16/res"),
+        # The l2 variant: 256-row steps, edges on both sides of them.
+        (60_000, 1, (1, -1, 20_000, -20_000), 4000, 256, 0, False, "l2/W1/vec16/res"),
+        (30_000, 8, (1, -1, 5000, -5000), 3000, 256, 0, False, "l2/W8/vec16/res"),
+        (30_000, 3, (1, -1, 9000, -9000), 3000, 256, 0, False, "l2/Wn/vec16/res"),
+        # Views from an odd row: the 4-byte path of either variant.
+        (10007, 2, ROAD_SMALL, 3000, 64, 3, False, "ring/W2/vec4/res"),
+        (30_000, 4, (1, -1, 9000, -9000), 3000, 256, 1, False, "l2/W4/vec4/res"),
+        # Five edges per row: every tile's destinations, many shared.
+        (4000, 1, ROAD_SMALL, 20_000, 0, 0, False, "ring/W1/vec16/res"),
+    ],
+)
+def test_fused_sweep_matches_plain(cuda, monkeypatch, rows, w, offsets, r, straddle, lo,
+                                   small_tiles, variant):
+    """The sweep with residual edges in its launch against the plain pair
+    (stencil_sweep_plain, then residual_or_plain): one launch, the
+    residual variant, bit for bit; a gated launch writes nothing."""
+    if small_tiles:
+        monkeypatch.setattr(cuda_stencil, "RING_MAX_TILE", 64)
+        monkeypatch.setattr(cuda_stencil, "RING_MIN_TILE", 32)
+    rng = np.random.default_rng(rows + w + r)
+    frontier = _planes(rng, lo + rows, w)
+    frontier[rng.random(lo + rows) < 0.6] = 0
+    mask = _planes(rng, lo + rows, 1)[:, 0].contiguous()
+    res = _residual(rng, rows, r, straddle)
+    f_v, m_v = _view(frontier, lo, rows), _view(mask, lo, rows)
+    want = torch.zeros((rows, w), dtype=torch.int32)
+    cuda_stencil.stencil_sweep_plain(
+        f_v, m_v, list(offsets), want, _go(), 100, cuda_stencil.SweepResidual(rows, *res)
     )
-    assert torch.equal(got.cpu(), want)
+    sweep_only = torch.zeros_like(want)
+    cuda_stencil.stencil_sweep_plain(f_v, m_v, list(offsets), sweep_only, _go(), 100)
+    assert not torch.equal(want, sweep_only)  # the residual adds bits
+    f_c, m_c = frontier.to(cuda), mask.to(cuda)
+    residual = cuda_stencil.SweepResidual(rows, *(t.to(cuda) for t in res))
+    hits = torch.full((lo + rows, w), 7, dtype=torch.int32, device=cuda)
+    timing.reset_launch_counts()
+    cuda_stencil.stencil_sweep(
+        _view(f_c, lo, rows), _view(m_c, lo, rows), list(offsets),
+        _view(hits, lo, rows), _go().to(cuda), 100, residual,
+    )
+    torch.cuda.synchronize()
+    assert timing.variant_counts() == {f"stencil_sweep:{variant}": 1}
+    assert timing.launch_counts() == {"stencil_sweep": 1}
+    assert torch.equal(hits[lo:].cpu(), want)
+    assert bool((hits[:lo] == 7).all())  # nothing written outside the view
+    stale = torch.full((rows, w), 5, dtype=torch.int32, device=cuda)
+    done = torch.tensor([0, 5, 0, 0], dtype=torch.int32, device=cuda)
+    cuda_stencil.stencil_sweep(
+        _view(f_c, lo, rows), _view(m_c, lo, rows), list(offsets), stale, done, 100, residual
+    )
+    assert bool((stale == 5).all())
+
+
+def test_stencil_route_launches_one_kernel_a_level(cuda):
+    """A residual graph's level is one sweep launch (the residual inside
+    it) and one apply, nothing else."""
+    n, edges = generators.road_edges(48, 48, seed=5, shortcut_frac=0.01)
+    sg = stencil.StencilGraph.from_host(CSRGraph.from_edges(n, edges), cuda)
+    assert sg.residual is not None
+    eng = stencil.StencilEngine(sg, level_chunk=8)
+    queries = io.pad_queries(generators.random_queries(n, 20, max_group=5, seed=3))
+    timing.reset_launch_counts()
+    eng.query_stats(queries)
+    counts = timing.launch_counts()
+    assert set(counts) == {"stencil_sweep", "level_apply"}
+    assert counts["stencil_sweep"] == counts["level_apply"]
+    assert all(k.endswith("/res") for k in timing.variant_counts() if k.startswith("stencil_sweep"))
 
 
 @pytest.mark.parametrize("w", [1, 3, 8])
@@ -513,8 +591,8 @@ def _hub_graph(seed, n=3000):
     return CSRGraph.from_edges(n, np.concatenate([edges, hub]))
 
 
-@pytest.mark.parametrize("w", [1, 2, 8])
-@pytest.mark.parametrize("widths", [DEFAULT_WIDTHS, (1, 2, 4, 8)])
+@pytest.mark.parametrize("w", [1, 2, 3, 8])
+@pytest.mark.parametrize("widths", [DEFAULT_WIDTHS, (1, 2, 4, 8), (3, 21, 27, 34, 256)])
 def test_forest_or_matches_plain(cuda, w, widths):
     g = _hub_graph(50 + w)
     bg = BellGraph.from_host(g, cuda, widths=widths, min_bucket_rows=0)
@@ -530,11 +608,23 @@ def test_forest_or_matches_plain(cuda, w, widths):
     want = _planes(rng, g.n, w)
     got = want.clone().to(cuda)
     cuda_bell.forest_or_plain(frontier, bg_cpu, want, pull, 100)
-    before = timing.launch_counts().get("forest_or", 0)
+    timing.reset_launch_counts()
     cuda_bell.forest_or(frontier.to(cuda), bg, got, pull.to(cuda), 100)
     torch.cuda.synchronize()
-    assert timing.launch_counts()["forest_or"] == before + 1
+    assert timing.launch_counts() == {"forest_or": 1}
+    label = cuda_bell.forest_plan(w).label
+    assert timing.variant_counts() == {f"forest_or:{label}": 1}
     assert torch.equal(got.cpu(), want)
+    # A frontier and hit plane off the 16-byte grid: the 4-byte path.
+    shifted = torch.zeros(2 * g.n * w + 1, dtype=torch.int32, device=cuda)
+    f_off = shifted[1 : g.n * w + 1].view(g.n, w)
+    h_off = shifted[g.n * w + 1 :].view(g.n, w)
+    f_off.copy_(frontier.to(cuda))
+    cuda_bell.forest_or(f_off, bg, h_off, pull.to(cuda), 100)
+    assert torch.equal(h_off.cpu(), want)
+    if w in (2, 4, 8):
+        label = cuda_bell.forest_plan(w, vec16=False).label
+        assert timing.variant_counts()[f"forest_or:{label}"] == 1
     assert torch.equal(want, bitbell.bell_hits_or(frontier, bg_cpu, slot_budget=7))
     # A push level, or a converged carry, leaves the hit plane untouched.
     for ctrl in ([1, 5, 0, bitbell.DIR_PUSH], [0, 5, 0, bitbell.DIR_PULL]):

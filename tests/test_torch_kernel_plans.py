@@ -1,24 +1,41 @@
-"""The host functions that pick the sweep's, the apply's and the tile
-matmul's kernel variant (``ops/cuda_stencil.py`` ``sweep_plan``,
-``ops/bitbell.py`` ``apply_plan``, ``ops/cuda_mxu.py`` ``tile_plan``).
+"""The host functions that pick the sweep's, the apply's, the tile
+matmul's and the forest's kernel variant (``ops/cuda_stencil.py``
+``sweep_plan``, ``ops/bitbell.py`` ``apply_plan``, ``ops/cuda_mxu.py``
+``tile_plan``, ``ops/cuda_bell.py`` ``forest_plan``) and the tables they
+walk (the sweep's residual ranges, the forest's warp runs).
 
 They are pure functions of the shapes, so they run here on the CPU.  The
 ring's schedule (tile walk, prefetch, slot arithmetic of
 ``csrc/stencil_sweep.cu``) is emulated in NumPy from a plan and held
 against the plain sweep, so a plan whose ring would overwrite a row still
-in use, or miss one, fails here before it reaches the card.  The tile
-kernel's unit decoding, its cut of a row tile's list and its swizzled
-shared-memory rows are emulated the same way.
+in use, or miss one, fails here before it reaches the card; so is the
+order in which each block ORs in its residual edges.  The tile kernel's
+unit decoding, its cut of a row tile's list and its swizzled
+shared-memory rows, and the forest kernel's run decoding and segmented
+shuffles are emulated the same way.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.models import (
+    generators,
+)
+from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.models.bell import (
+    DEFAULT_WIDTHS,
+    BellGraph,
+)
+from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.models.csr import (
+    CSRGraph,
+)
 from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
+    bell,
     bitbell,
+    cuda_bell,
     cuda_mxu,
     cuda_stencil,
+    stencil,
 )
 
 ROAD = (1, -1, 4095, -4095, 4096, -4096, 4097, -4097)
@@ -368,3 +385,244 @@ def test_pipe_ldmatrix_lanes_address_the_fragments(t):
                     groups_a.add(a_at // 16 % 8)
                     groups_b.add(b_at // 16 % 8)
                 assert len(groups_a) == len(groups_b) == 8
+
+
+# -- the sweep's residual edges -------------------------------------------
+
+SMS = 132  # the ring's grid on an H100: one block per SM
+L2_MAX_BLOCKS = 132 * 8  # csrc/msbfs_common.cuh kMaxBlocks
+
+
+def _residual(rows, r, seed, straddle=0):
+    """R random edges of a ``rows``-row plane, compacted as the engine
+    keeps them; ``straddle`` > 0 puts every destination within two rows
+    of a multiple of it (edges on both sides of tile boundaries)."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, rows, size=r)
+    if straddle:
+        dst = rng.integers(1, max(2, rows // straddle), size=r) * straddle + rng.integers(-2, 2, size=r)
+        dst = np.clip(dst, 0, rows - 1)
+    else:
+        dst = rng.integers(0, rows, size=r)
+    order = np.argsort(dst, kind="stable")
+    src, dst = src[order], dst[order]
+    uniq, seg = np.unique(dst, return_inverse=True)
+    t = [torch.from_numpy(a.astype(np.int32)) for a in (src, seg, uniq)]
+    return cuda_stencil.SweepResidual(rows, *t)
+
+
+def _edge_schedule(rows, plan, ranges):
+    """The edges each block of the sweep ORs in, as csrc/stencil_sweep.cu
+    walks them: in the ring, block b after its walk takes the edges of its
+    tiles [tb, te) — the first kResStage staged in shared memory, the rest
+    read directly; in l2, block b after step k takes the table tiles of
+    that step's kL2Rows row groups.  Returns {edge: (block, first row the
+    block swept before, last row + 1)} and fails on an edge taken twice."""
+    seen = {}
+
+    def take(block, e0, e1, lo, hi):
+        for e in range(int(e0), int(e1)):
+            assert e not in seen, (e, block)
+            seen[e] = (block, lo, hi)
+
+    if plan.variant == "ring":
+        tile, stage = plan.tile, 512  # csrc/stencil_sweep.cu kResStage
+        tiles = -(-rows // tile)
+        grid = max(1, min(SMS, tiles))
+        for b in range(grid):
+            tb, te = b * tiles // grid, (b + 1) * tiles // grid
+            if te > tb:
+                e0, e1 = ranges[tb], ranges[te]
+                hi = min(te * tile, rows)
+                take(b, e0, min(e1, e0 + stage), tb * tile, hi)  # staged
+                take(b, e0 + stage, e1, tb * tile, hi)  # the rest
+    else:
+        step_rows, kl2 = cuda_stencil.L2_TILE_ROWS, 4
+        grid = max(1, min(L2_MAX_BLOCKS, -(-(-(-rows // kl2)) // step_rows)))
+        stride = grid * step_rows
+        tiles = -(-rows // step_rows)
+        for b in range(grid):
+            for base in range(b * step_rows, rows, kl2 * stride):
+                for c in range(kl2):
+                    t = base // step_rows + c * grid
+                    if t >= tiles:
+                        break
+                    lo = base + c * stride
+                    take(b, ranges[t], ranges[t + 1], lo, min(lo + step_rows, rows))
+    return seen
+
+
+@pytest.mark.parametrize(
+    "rows,w,offsets,r,straddle",
+    [
+        (4096 * 64, 1, ROAD, 700, 0),  # ring
+        (4096 * 64, 1, ROAD, 700, 4096),  # destinations at tile boundaries
+        (4096 * 64, 8, ROAD, 900, 256),  # l2 (K = 256), 256-row tables
+        (100_000, 2, (1, -1, 300, -300), 5000, 0),  # many edges per tile
+        (50_001, 3, (1, -1, 9000, -9000), 300, 1024),  # l2, generic width
+        (20_000, 1, (1, -1), 30_000, 0),  # past the 512 a block stages
+        (5000, 1, (1, -1), 1, 0),  # one edge
+        (5000, 1, (1, -1), 0, 0),  # R = 0: an empty table
+    ],
+)
+def test_residual_ranges_cover_every_edge_once(rows, w, offsets, r, straddle):
+    res = _residual(rows, r, rows + r + w, straddle)
+    dst = res.dst.numpy()
+    assert (np.diff(dst) >= 0).all()
+    for plan in (cuda_stencil.sweep_plan(rows, w, offsets),
+                 cuda_stencil.sweep_plan(rows, w, offsets, vec16=False)):
+        tile = cuda_stencil.residual_tile(plan)
+        assert tile == (plan.tile if plan.variant == "ring" else 256)
+        ranges = cuda_stencil.residual_ranges(res, tile).numpy()
+        tiles = -(-rows // tile)
+        assert ranges.shape == (tiles + 1,) and ranges.dtype == np.int32
+        assert ranges[0] == 0 and ranges[-1] == r and (np.diff(ranges) >= 0).all()
+        for t in range(tiles):
+            own = dst[ranges[t] : ranges[t + 1]]
+            assert ((own >= t * tile) & (own < (t + 1) * tile)).all()
+        seen = _edge_schedule(rows, plan, ranges)
+        assert sorted(seen) == list(range(r))
+        for e, (_, lo, hi) in seen.items():
+            # The block has swept (and stored) the edge's destination row.
+            assert lo <= dst[e] < hi, (e, dst[e], lo, hi)
+        assert cuda_stencil.residual_ranges(res, tile) is cuda_stencil.residual_ranges(res, tile)
+
+
+def test_residual_ranges_small_tiles_and_windows(monkeypatch):
+    """Ring plans with many small tiles, and the window: the engines take
+    a window of rows only on residual-free graphs, and the wrapper refuses
+    a residual for a plane of other rows."""
+    monkeypatch.setattr(cuda_stencil, "RING_MAX_TILE", 64)
+    monkeypatch.setattr(cuda_stencil, "RING_MIN_TILE", 32)
+    rows = 20_000
+    res = _residual(rows, 3000, 5, straddle=64)
+    plan = cuda_stencil.sweep_plan(rows, 1, (1, -1, 150, -150))
+    assert plan.variant == "ring" and plan.tile == 64
+    ranges = cuda_stencil.residual_ranges(res, cuda_stencil.residual_tile(plan))
+    assert sorted(_edge_schedule(rows, plan, ranges.numpy())) == list(range(3000))
+    n, edges = generators.road_edges(24, 24, seed=932, shortcut_frac=0.02)
+    sg = stencil.StencilGraph.from_host(CSRGraph.from_edges(n, edges), "cpu")
+    assert sg.residual is not None and sg.residual.count == sg.res_src.shape[0]
+    assert not stencil.StencilEngine(sg, level_chunk=4, window=True).window_active
+    grid = stencil.StencilGraph.from_host(CSRGraph.from_edges(*generators.grid_edges(40, 8)), "cpu")
+    assert grid.residual is None
+    assert stencil.StencilEngine(grid, level_chunk=4, window=True).window_active
+    frontier = torch.zeros((n // 2, 1), dtype=torch.int32)
+    with pytest.raises(ValueError, match="residual addresses"):
+        cuda_stencil.stencil_sweep(
+            frontier, sg.mask_bits[: n // 2], sg.offsets, frontier.clone(),
+            torch.tensor([1, 0, 0, 0], dtype=torch.int32), 10, sg.residual,
+        )
+
+
+# -- the forest's warp runs -------------------------------------------------
+
+
+def _hub_forest(widths, seed=3):
+    """RMAT edges with hubs of 40, 300, 700 and 2100 neighbours (wide
+    rows, two and three forest levels) and isolated vertices."""
+    m, e = generators.rmat_edges(9, edge_factor=6, seed=seed)
+    n = 3000
+    hubs = [np.stack([np.full(d, h, np.int32), (np.arange(d, dtype=np.int32) * 7 + h) % n], 1)
+            for h, d in ((7, 40), (11, 300), (13, 700), (17, 2100))]
+    g = CSRGraph.from_edges(n, np.concatenate([e] + hubs))
+    return BellGraph.from_host(g, "cpu", widths=widths, min_bucket_rows=0)
+
+
+def _forest_emulation(bg, frontier, plan):
+    """csrc/forest_or.cu in NumPy: each level's runs decoded from the
+    table as the kernel decodes them (bucket search, chunks of 32 lanes,
+    segmented shuffles toward each row's first lane, a warp per wide row
+    with an xor-shuffle), then the final gather.  Every slot must be read
+    by exactly one lane and every row written by one lane."""
+    n, w = frontier.shape
+    table, meta = cuda_bell.forest_tables(bg, w, "cpu")
+    table, meta = table.numpy(), list(meta)
+    v_cat = np.zeros((bg.total_rows + 1, w), dtype=np.uint32)
+    prev = frontier
+    for li, flat in enumerate(bg.level_cols):
+        cols = flat.numpy()
+        _, prev_rows, out_off, begin, count, runs = meta[6 * li : 6 * li + 6]
+        tab = table[begin : begin + count]
+        read = np.zeros(cols.shape[0], dtype=np.int64)
+        wrote = np.zeros(bg.level_sizes[li], dtype=np.int64)
+
+        def row_of(c):
+            return prev[c] if c < prev_rows else np.zeros(w, dtype=np.uint32)
+
+        for run in range(runs):
+            b = int(np.searchsorted(tab[:, 4], run, side="right")) - 1
+            off, rows, width, row_base, first, rpc = (int(x) for x in tab[b])
+            local = run - first
+            if rpc:
+                lrow = [lane // width for lane in range(32)]
+                lpos = [lane - lrow[lane] * width for lane in range(32)]
+                row0 = local * plan.chunks * rpc
+                for s in range(plan.chunks):
+                    x = np.zeros((32, w), dtype=np.uint32)
+                    for lane in range(32):
+                        if lrow[lane] < rpc and row0 + s * rpc + lrow[lane] < rows:
+                            slot = off + (row0 + s * rpc) * width + lane
+                            assert slot == off + (row0 + s * rpc + lrow[lane]) * width + lpos[lane]
+                            read[slot] += 1
+                            x[lane] = row_of(int(cols[slot]))
+                    d = 1
+                    while d < width:  # __shfl_down_sync: past lane 31, its own value
+                        y = np.array([x[min(lane + d, 31)] if lane + d < 32 else x[lane] for lane in range(32)])
+                        for lane in range(32):
+                            if lpos[lane] + d < width:
+                                x[lane] |= y[lane]
+                        d <<= 1
+                    for lane in range(32):
+                        row = row0 + s * rpc + lrow[lane]
+                        if lpos[lane] == 0 and lrow[lane] < rpc and row < rows:
+                            wrote[row_base + row] += 1
+                            v_cat[out_off + row_base + row] = x[lane]
+            else:
+                assert local < rows
+                acc = np.zeros(w, dtype=np.uint32)
+                for j in range(width):
+                    read[off + local * width + j] += 1
+                    acc |= row_of(int(cols[off + local * width + j]))
+                wrote[row_base + local] += 1
+                v_cat[out_off + row_base + local] = acc
+        assert (read == 1).all() and (wrote == 1).all(), li
+        prev = v_cat[out_off : out_off + bg.level_sizes[li]]
+    return v_cat[bg.final_slot.numpy()]
+
+
+@pytest.mark.parametrize(
+    "widths", [DEFAULT_WIDTHS, (1, 2, 4, 8), (3, 21, 27, 34, 256), (1, 32, 33, 256)]
+)
+@pytest.mark.parametrize("w", [1, 2, 3, 8])
+def test_forest_runs_cover_every_slot_once(widths, w):
+    bg = _hub_forest(widths)
+    assert len(bg.level_sizes) >= 2
+    rng = np.random.default_rng(w)
+    frontier = rng.integers(0, 2**32, size=(bg.n, w), dtype=np.uint64).astype(np.uint32)
+    frontier[rng.random(bg.n) < 0.6] = 0
+    want = bell.forest_hits(torch.from_numpy(frontier.view(np.int32)), bg).numpy().view(np.uint32)
+    plan = cuda_bell.forest_plan(w)
+    np.testing.assert_array_equal(_forest_emulation(bg, frontier, plan), want)
+
+
+def test_forest_tables_are_cached_per_chunk_count():
+    bg = _hub_forest(DEFAULT_WIDTHS)
+    t1, _ = cuda_bell.forest_tables(bg, 1, "cpu")
+    assert cuda_bell.forest_tables(bg, 2, "cpu")[0] is t1  # both four chunks a run
+    t8, m8 = cuda_bell.forest_tables(bg, 8, "cpu")
+    assert t8 is not t1 and cuda_bell.forest_tables(bg, 3, "cpu")[0] is t8
+    runs4 = sum(list(cuda_bell.forest_tables(bg, 1, "cpu")[1])[5::6])
+    assert sum(list(m8)[5::6]) > runs4  # two chunks a run: more runs
+
+
+@pytest.mark.parametrize("w,vec16", [(1, True), (2, True), (2, False), (3, True), (4, True), (8, True), (16, False)])
+def test_forest_plan(w, vec16):
+    plan = cuda_bell.forest_plan(w, vec16)
+    assert plan.w_instance == (w if w in (1, 2, 4, 8) else 0)
+    assert plan.vec16 == (vec16 and w in (2, 4, 8))
+    assert plan.chunks == (2 if w == 8 or plan.w_instance == 0 else 4)
+    assert plan == cuda_bell.forest_plan(w, vec16)
+    assert cuda_bell.forest_plan(2).label == "W2/vec16"
+    assert cuda_bell.forest_plan(5).label == "Wn/vec4"
+    assert cuda_bell.forest_plan(8, False).label == "W8/vec4"

@@ -48,6 +48,19 @@ def _sparse_demotion():
     return n, np.concatenate([grid, sparse], axis=0)
 
 
+def _straddling_residual():
+    """A road lattice plus off-lattice edges whose destinations sit on
+    both sides of every 64th row (the boundaries of the sweep kernel's
+    tiles at that tile size), several sharing a destination."""
+    n, road = generators.road_edges(32, 32, seed=934)
+    rng = np.random.default_rng(934)
+    bounds = np.arange(64, n, 64)
+    dst = np.concatenate([bounds - 1, bounds, bounds])
+    src = rng.integers(0, n, size=dst.size)
+    extra = np.stack([src, dst], 1).astype(np.int32)
+    return n, np.concatenate([road, extra], axis=0)
+
+
 GRAPHS = {
     "road": (generators.road_edges(24, 24, seed=921), {}),
     "road_rect": (generators.road_edges(13, 37, seed=922), {}),
@@ -56,6 +69,7 @@ GRAPHS = {
         generators.road_edges(24, 24, seed=932, shortcut_frac=0.02), {}
     ),
     "demotion": (_sparse_demotion(), dict(max_offsets=8, max_residual_frac=0.1)),
+    "straddle": (_straddling_residual(), dict(max_residual_frac=0.1)),
 }
 
 
@@ -98,6 +112,9 @@ def test_detection_and_layout_match_jax(name):
         assert tsg.res_src.shape[0] > 0
     if name == "demotion":
         assert 23 in tdec[0] and 23 not in tsg.offsets
+    if name == "straddle":
+        dst = tsg.residual.dst.numpy()
+        assert (dst % 64 == 63).any() and (dst % 64 == 0).any()
 
 
 def test_from_host_matches_jax_and_rejects_unbanded():
@@ -120,7 +137,7 @@ def _random_frontier(n, w, seed):
     return words
 
 
-@pytest.mark.parametrize("name", ["road", "residual_road", "demotion"])
+@pytest.mark.parametrize("name", ["road", "residual_road", "demotion", "straddle"])
 def test_sweep_and_residual_match_jax(name, monkeypatch):
     """Kernels A and B (plain, on the CPU) against the JAX Pallas chain —
     forced to several halo-stitched chunks, on one lattice — and against
@@ -179,7 +196,7 @@ def _queries(n, k, seed):
 
 @pytest.mark.parametrize(
     "name,k",
-    [("residual_road", k) for k in (1, 31, 32, 40, 70)] + [("road", 32)],
+    [("residual_road", k) for k in (1, 31, 32, 40, 70)] + [("road", 32), ("straddle", 33)],
 )
 def test_engine_matches_jax(name, k):
     *_, tsg, jsg = _both(name)
