@@ -2,7 +2,7 @@
 """On-card smoke of the PyTorch/CUDA port — the quickest proof that it
 builds and runs on the GPU, and the source of its kernel timings.
 
-    python3 chip_smoke.py [--seed 0]
+    python3 chip_smoke.py [--seed 0] [--detail-dir build/chip_smoke]
 
 Needs one CUDA card (NVIDIA H100 class, sm_90a), nvcc, and scipy; imports
 nothing of JAX.  Phases (any failure exits non-zero; nothing is caught):
@@ -18,7 +18,9 @@ nothing of JAX.  Phases (any failure exits non-zero; nothing is caught):
    route's two (tile_hits, push_or) at its main path's shape (RMAT-14,
    T = 128, W = 2, every one of the 16,384 tiles nonzero) and at
    road-512's (T = 128, W = 1), with the bf16 ``torch.bmm`` of the same
-   tile products timed as tile_hits' library yardstick; level_apply also
+   tile products timed as tile_hits' library yardstick (push_or on a
+   frontier of about n / 64 rows, listed by the plain switch epilogue,
+   beside its launch floor: the same launch gated off); level_apply also
    at the mxu route's plane shapes (RMAT-14 W = 2, road-512 W = 1).  Each
    sweep, apply and tile_hits row names the variant its plan took (ring or
    l2, the W instance, 16- or 4-byte access; pipe with its word group,
@@ -40,7 +42,14 @@ nothing of JAX.  Phases (any failure exits non-zero; nothing is caught):
    tile_hits is then held against its plain version and timed on the
    frontier of the BFS's widest matmul level;
 5. the mxu route on road_edges(512, 512) with K = 16: the auto switch
-   sends levels both ways within one BFS; same checks;
+   sends levels both ways within one BFS; same checks; then the BFS a
+   level at a time: the direction the device's apply wrote before each
+   level equals ``level_direction_trace``, push_or and the switched apply
+   are held against their plain versions on every level and timed on
+   every eighth (the apply beside the same launch without the switch),
+   the whole BFS split by launch with CUDA events (push_or, tile_hits,
+   level_apply, gaps), and one engine chunk traced with torch.profiler
+   for the device's busy share and the kernels it ran;
 5b. RMAT-20 (rmat_edges(20, 16), BASELINE.json config 2): forest_or and
    ell_hits against their plain versions at K = 64 (W = 2) and K = 256
    (W = 8), timed beside their bounds (forest_or also beside its L2
@@ -50,9 +59,11 @@ nothing of JAX.  Phases (any failure exits non-zero; nothing is caught):
    the latter against its own plain version), and level_apply at W = 2;
    the ELL level split (CUDA events around the pack, gather and apply
    launches of each real level of the K = 64 BFS, with the virtual rows
-   the gather skipped and the new labels); forest_or on the frontier of
-   each pull level of the K = 64 bitbell BFS, against its plain version,
-   beside its bound and L2 floor; then with
+   the gather skipped and the new labels); the K = 64 bitbell BFS a level
+   at a time, as road-512's above (forest_or on each pull level beside its
+   bound and L2 floor, push_or on each push level); the switched apply
+   on RMAT-20's synthetic W = 2 plane as a pulled and as a pushed level;
+   then with
    K = 64 random groups the default route (bitbell: forest_or, push_or,
    level_apply) and the ELL route (``MSBFS_BACKEND=pallas``: ell_hits)
    through the CLI, each a path;
@@ -155,7 +166,9 @@ def _time_ms(torch, fn, restore, reps=10, warm=2):
 def _max_abs_err(torch, pairs) -> int:
     err = 0
     for a, b in pairs:
-        err = max(err, int((a.to(torch.int64) - b.to(torch.int64)).abs().max()))
+        assert a.shape == b.shape, (a.shape, b.shape)
+        if a.numel():
+            err = max(err, int((a.to(torch.int64) - b.to(torch.int64)).abs().max()))
     return err
 
 
@@ -225,38 +238,78 @@ def _sweep_row(torch, frontier, mask_bits, offs, go, residual):
                 tile=plan.tile, smem_bytes=plan.smem_bytes, residual_edges=edges)
 
 
-def _apply_row(torch, pristine, hits):
+def _apply_row(torch, pristine, hits, switch=None, timed=True):
     """level_apply against its plain version on one carry and hit plane
     (each call on a fresh copy of ``pristine``): the error, both times
-    and the bound."""
+    and the bound.  ``switch`` = (count, row_limit, edge_limit): the
+    switched apply, which lists the new frontier and decides the next
+    direction; on a level ``pristine.ctrl[3]`` sent to the push it reads
+    ``hits`` from the switch's plane and clears it (restored before each
+    call).  Its control, state, worklist (as a set) and push plane are
+    held against the plain epilogue's too."""
     from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
         bitbell,
     )
 
     fields = ("visited", "frontier", "f", "levels", "reached", "counts", "ctrl")
 
-    def fresh():
-        return bitbell.BitCarry(*(getattr(pristine, f).clone() for f in fields))
+    pushed = switch is not None and int(pristine.ctrl[3]) == bitbell.DIR_PUSH
 
-    def restore(c):
+    def fresh():
+        c = bitbell.BitCarry(*(getattr(pristine, f).clone() for f in fields))
+        if switch is not None:
+            c.switch = bitbell.PushSwitch.new(*switch, hits.shape[1])
+            if pushed:
+                c.switch.hits.copy_(hits)
+        return c
+
+    def restore(c, h):
         for f in fields:
             getattr(c, f).copy_(getattr(pristine, f))
+        if switch is not None:
+            c.switch.state.zero_()
+            if pushed:
+                c.switch.hits.copy_(hits)
 
     c_k, c_p = fresh(), fresh()
-    bitbell.bit_level_apply(c_k, hits)
-    bitbell.bit_level_apply_plain(c_p, hits)
+    # A pushed level's pull plane is never read: an unwritten one.
+    h_k, h_p = (torch.empty_like(hits), torch.empty_like(hits)) if pushed else (hits, hits)
+    bitbell.bit_level_apply(c_k, h_k)
+    bitbell.bit_level_apply_plain(c_p, h_p)
     torch.cuda.synchronize()
-    err = _max_abs_err(torch, [(getattr(c_k, f), getattr(c_p, f)) for f in fields])
-    ms = _time_ms(torch, lambda: bitbell.bit_level_apply(c_k, hits), lambda: restore(c_k))
-    plain_ms = _time_ms(torch, lambda: bitbell.bit_level_apply_plain(c_p, hits),
-                        lambda: restore(c_p), reps=3)
+    pairs = [(getattr(c_k, f), getattr(c_p, f)) for f in fields]
+    extra = {}
+    if switch is not None:
+        pairs.append((c_k.switch.hits, c_p.switch.hits))
+        sk, sp = c_k.switch, c_p.switch
+        length = int(sp.state[bitbell.SW_LISTED])
+        whole = int(sp.state[bitbell.SW_ACTIVE_ROWS]) <= sp.capacity
+        keep = [bitbell.SW_LISTED, bitbell.SW_ACTIVE_ROWS, bitbell.SW_ACTIVE_EDGES]
+        pairs.append((sk.state[keep], sp.state[keep]))
+        if whole:
+            rows = sk.worklist[0, :length].long()
+            deg = sk.count[rows].long()
+            pairs += [(torch.sort(rows).values, sp.worklist[0, :length]),
+                      (sk.worklist[1, :length], torch.cumsum(deg, 0) - deg),
+                      (sk.state, sp.state)]
+        extra = dict(pushed_level=pushed, direction=int(c_k.ctrl[3]), listed_rows=length,
+                     active_rows=int(sp.state[bitbell.SW_ACTIVE_ROWS]),
+                     active_edges=int(sp.state[bitbell.SW_ACTIVE_EDGES]),
+                     list_whole=whole)
+    err = _max_abs_err(torch, pairs)
+    ms = plain_ms = None
+    if timed:
+        ms = _time_ms(torch, lambda: bitbell.bit_level_apply(c_k, h_k),
+                      lambda: restore(c_k, h_k))
+        plain_ms = _time_ms(torch, lambda: bitbell.bit_level_apply_plain(c_p, h_p),
+                            lambda: restore(c_p, h_p), reps=3)
     (bound, by), hit_words, new_words = _apply_bound(torch, hits, pristine.visited)
     planes = (hits, c_k.visited, c_k.frontier)  # as the timed launches
     vec16 = all(t.data_ptr() % 16 == 0 for t in planes)
-    plan = bitbell.apply_plan(hits.shape[1], vec16)
+    plan = bitbell.apply_plan(hits.shape[1], vec16, switch is not None)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                 variant=bitbell.plan_label(plan), hit_words=hit_words,
-                new_words=new_words)
+                new_words=new_words, **extra)
 
 
 def _synthetic_carry(torch, n, w, gen, dev, rows=None):
@@ -304,14 +357,28 @@ def _compare_kernels(torch, sg, w, seed, label):
     return out
 
 
-def _compare_apply(torch, n, rows, w, dev, seed, label):
+def _compare_apply(torch, n, rows, w, dev, seed, label, switch=None):
     """level_apply against its plain version at one route's plane shape
-    (n rows, the first ``rows`` of them real vertices)."""
+    (n rows, the first ``rows`` of them real vertices); with ``switch`` =
+    (count, row_limit, edge_limit) also the switched apply on the same
+    planes, as a pulled level and as a pushed one (what the switch
+    epilogue adds, and what clearing the consumed hit words adds)."""
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
+        bitbell,
+    )
+
     gen = torch.Generator(device=dev).manual_seed(seed)
     pristine, hits = _synthetic_carry(torch, n, w, gen, dev, rows)
     row = _apply_row(torch, pristine, hits)
     print(f"compare {label} n={n} W={w} level_apply: " + json.dumps(row))
     assert row["max_abs_err"] == 0, (label, row)
+    if switch is not None:
+        for direction in (bitbell.DIR_PULL, bitbell.DIR_PUSH):
+            pristine.ctrl[3] = direction
+            sw = _apply_row(torch, pristine, hits, switch)
+            print(f"compare {label} n={n} W={w} level_apply switched: " + json.dumps(sw))
+            assert sw["max_abs_err"] == 0, (label, sw)
+        pristine.ctrl[3] = 0
     return row
 
 
@@ -404,7 +471,7 @@ def _compare_mxu(torch, mg, w, seed, label):
     tiles; the bf16 torch.bmm of the same tile products as tile_hits'
     library yardstick."""
     from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
-        bitbell, cuda_mxu, engine,
+        bitbell, cuda_mxu, mxu,
     )
 
     dev = mg.device
@@ -443,31 +510,59 @@ def _compare_mxu(torch, mg, w, seed, label):
                             bound_by=by, library_ms=library_ms, variant=plan.label,
                             units=plan.units, smem_bytes=plan.smem_bytes)
 
-    # K3: a thin frontier (n / 64 rows, the auto switch) over stale hits.
+    # K3: a thin frontier (about n / 64 rows, the auto switch), listed by
+    # the plain switch epilogue under the mxu engine's push edge budget
+    # (which sizes the push's grid as on the route).
     frontier = words(1 / 64)
-    push = torch.tensor([1, 7, 0, bitbell.DIR_PUSH], dtype=torch.int32, device=dev)
-    stale = words(0.5)
-    csr = (mg.start, mg.count, mg.vals)
-    p_k, p_p = stale.clone(), stale.clone()
-    bitbell.sparse_hits_or(frontier, *csr, p_k, push)
-    bitbell.sparse_hits_or_plain(frontier, *csr, p_p, push)
-    torch.cuda.synchronize()
-    err = _max_abs_err(torch, [(p_k, p_p)])
-    ms = _time_ms(torch, lambda: bitbell.sparse_hits_or(frontier, *csr, p_k, push),
-                  lambda: None)
-    plain_ms = _time_ms(torch, lambda: bitbell.sparse_hits_or_plain(
-        frontier, *csr, p_p, push), lambda: None, reps=3)
-    _, cnt, edges = engine.frontier_activity(frontier, mg.count)
-    cnt, edges = int(cnt), int(edges)
-    bound, by = _bound_ms(8 * n * w + 8 * cnt + 4 * edges, edges * w)
-    out["push_or"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                          bound_by=by, library_ms=None, active_rows=cnt,
-                          active_edges=edges)
+    switch = bitbell.PushSwitch.new(mg.count, n, mxu.MxuEngine(mg).push_budget, w)
+    push = torch.tensor([1, 7, 0, 0], dtype=torch.int32, device=dev)
+    bitbell.switch_record(switch, frontier, push)
+    out["push_or"] = _push_row(torch, frontier, mg.start, mg.vals, switch, push)
     for name, row in out.items():
         print(f"compare {label} n_pad={n} T={mg.tile} nt={mg.nt} W={w} {name}: "
               + json.dumps(row))
         assert row["max_abs_err"] == 0, (label, name, row)
     return out
+
+
+def _push_row(torch, frontier, start, vals, switch, ctrl, timed=True):
+    """push_or against its plain version on one listed frontier (both into
+    a zeroed hit plane): the error, both times, the bound, and the launch
+    floor (the same launch gated off by ctrl[3] = pull); ``timed`` False:
+    the error and the counts only."""
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
+        bitbell,
+    )
+
+    assert int(ctrl[3]) == bitbell.DIR_PUSH
+    p_k, p_p = torch.zeros_like(frontier), torch.zeros_like(frontier)
+    bitbell.sparse_hits_or(frontier, start, vals, p_k, ctrl, switch)
+    bitbell.sparse_hits_or_plain(frontier, start, vals, p_p, ctrl, switch)
+    torch.cuda.synchronize()
+    err = _max_abs_err(torch, [(p_k, p_p)])
+    ms = plain_ms = floor_ms = None
+    if timed:
+        ms = _time_ms(torch, lambda: bitbell.sparse_hits_or(
+            frontier, start, vals, p_k, ctrl, switch), p_k.zero_)
+        plain_ms = _time_ms(torch, lambda: bitbell.sparse_hits_or_plain(
+            frontier, start, vals, p_p, ctrl, switch), p_p.zero_, reps=3)
+        pull = ctrl.clone()
+        pull[3] = bitbell.DIR_PULL
+        floor_ms = _time_ms(torch, lambda: bitbell.sparse_hits_or(
+            frontier, start, vals, p_k, pull, switch), lambda: None)
+    w = frontier.shape[1]
+    listed = int(switch.state[bitbell.SW_LISTED])
+    edges = int(switch.state[bitbell.SW_LISTED_EDGES])
+    reached = int((p_p != 0).any(dim=1).sum())
+    degrees = switch.count[switch.worklist[0, :listed].long()]
+    # The worklist (8 bytes an entry), each listed row's words and CSR
+    # start, its neighbours, and the hit words reached; an OR a word an edge.
+    bound, by = _bound_ms(8 * listed + (4 * w + 4) * listed + 4 * edges + 4 * w * reached,
+                          edges * w)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=None, floor_ms=floor_ms, listed_rows=listed, edges=edges,
+                reached_rows=reached,
+                max_degree=int(degrees.max()) if listed else 0)
 
 
 def _compare_forest_ell(torch, bg, eg, k, seed, label):
@@ -618,29 +713,276 @@ def _forest_row(torch, bg, frontier):
     )
 
 
-def _forest_real_levels(torch, bg, padded, label):
-    """forest_or on the frontier of each pull level of one bitbell BFS
-    (the kernel engine run a level at a time; ctrl[3] after a level says
-    which direction it took), held against its plain version and timed."""
+def _bitbell_hybrid(torch, bg, padded, label):
+    """The bitbell route's BFS a level at a time (:func:`_hybrid_levels`,
+    forest_or held against its plain version and timed on each pull
+    level, push_or on each push level), then its launch split."""
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
+        bitbell, cuda_bell,
+    )
+
+    top = 2**31 - 1
+    eng = bitbell.BitBellEngine(bg, level_chunk=128)
+    queries = eng._pad_queries(padded)[0]
+    carry = eng._init_carry(queries)
+    w = carry.frontier.shape[1]
+    scratch = cuda_bell.forest_scratch(bg, w, carry.frontier.device)
+    slot_budget = eng._slot_budget_for(w)
+    expand = bitbell.bitbell_expand(bg, slot_budget)
+    start, _, vals = bg.sparse
+    directions, rows = _hybrid_levels(
+        torch, carry, lambda c, h: expand(c, h, top, scratch), start, vals,
+        lambda fr: _forest_row(torch, bg, fr), label,
+    )
+    for row in rows:
+        print(f"hybrid level {label}: " + json.dumps(row))
+    assert {bitbell.DIR_PUSH, bitbell.DIR_PULL} <= set(directions), directions
+
+    def push(c, h):
+        bitbell.sparse_hits_or(c.frontier, start, vals, c.switch.hits, c.ctrl, c.switch, top)
+
+    def pull(c, h):
+        cuda_bell.forest_or(c.frontier, bg, h, c.ctrl, top, slot_budget, scratch)
+
+    _hybrid_split(torch, lambda: eng._init_carry(queries), push, pull,
+                  lambda c: eng._chunk(c, len(directions)), len(directions), label)
+    return rows
+
+
+def _mxu_hybrid(torch, mg, eng, padded, label):
+    """The mxu route's BFS a level at a time (:func:`_hybrid_levels`:
+    push_or and the switched apply held on every level, timed on every
+    eighth and at each change of direction), the device's direction
+    sequence held against ``level_direction_trace``, then its launch
+    split."""
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
+        bitbell, cuda_mxu,
+    )
+
+    top = 2**31 - 1
+    queries = eng._pad_queries(padded)[0]
+    directions, rows = _hybrid_levels(
+        torch, eng._init_carry(queries), lambda c, h: eng._expand(c, h, top),
+        mg.start, mg.vals, None, label, every=8,
+    )
+    device = ["push" if d == bitbell.DIR_PUSH else "matmul" for d in directions]
+    trace = [s["direction"] for s in eng.level_direction_trace(padded)]
+    assert device == trace, (_runs(device), _runs(trace))
+    path = _write_detail(label.replace(" ", "_"), rows)
+    timed = [r for r in rows if r["timed"]]
+    pushes = [r["push_or"] for r in rows if "push_or" in r]
+
+    def median(xs):
+        xs = sorted(xs)
+        return xs[len(xs) // 2] if xs else None
+
+    print(f"hybrid levels {label}: " + json.dumps(dict(
+        levels=len(rows), device_directions_equal_trace=True,
+        push_levels=device.count("push"), apply_timed_levels=len(timed),
+        push_or_ms_median=median([p["ms"] for p in pushes]),
+        push_or_ms_max=max((p["ms"] for p in pushes), default=None),
+        push_or_floor_ms_median=median([p["floor_ms"] for p in pushes]),
+        push_or_plain_ms_median=median([p["plain_ms"] for p in pushes]),
+        push_or_bound_ms_median=median([p["bound_ms"] for p in pushes]),
+        push_listed_rows_max=max((p["listed_rows"] for p in pushes), default=0),
+        apply_switched_ms_median=median([r["level_apply"]["ms"] for r in timed]),
+        apply_unswitched_ms_median=median([r["unswitched_apply_ms"] for r in timed]),
+        detail=path,
+    )))
+    tiles = (mg.tiles, mg.tile_row, mg.tile_col, mg.row_ptr)
+
+    def push(c, h):
+        bitbell.sparse_hits_or(c.frontier, mg.start, mg.vals, c.switch.hits, c.ctrl,
+                               c.switch, top)
+
+    def pull(c, h):
+        cuda_mxu.tile_matmul_hits(*tiles, c.frontier, h, c.ctrl, top)
+
+    _hybrid_split(torch, lambda: eng._init_carry(queries), push, pull,
+                  lambda c: eng._chunk(c, len(rows), torch.empty_like(c.frontier)),
+                  len(rows), label)
+    return rows
+
+
+def _switch_snapshot(torch, switch):
+    """A copy of a switch state (its worklist and state words)."""
     from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
         bitbell,
     )
 
-    eng = bitbell.BitBellEngine(bg, level_chunk=128)
-    carry = eng._init_carry(eng._pad_queries(padded)[0])
-    rows = []
+    return bitbell.PushSwitch(switch.count, switch.row_limit, switch.edge_limit,
+                              switch.worklist.clone(), switch.state.clone(),
+                              switch.hits)
+
+
+def _hybrid_levels(torch, carry, expand, start, vals, pull_row, label, every=1):
+    """One BFS of a direction-switched route driven a level at a time from
+    ``carry`` (``expand(carry, hits)`` then the apply, as a chunk enqueues
+    them).  Before each level, ctrl[3] is the direction the level takes;
+    on a push level push_or is held against its plain version on that
+    level's list and timed, on a pull level ``pull_row(frontier)`` runs
+    (None: not held here), and on every level the switched apply is held
+    against its plain version and timed beside the same launch without
+    the switch (on the same hits; the push's plane is zero after every
+    level).  The apply is timed on every ``every``-th level and each level
+    whose direction differs from the one before, held only on the others.
+    Returns the directions and one row per level."""
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
+        bitbell,
+    )
+
+    sw = carry.switch
+    limits = (sw.count, sw.row_limit, sw.edge_limit)
+    hits = torch.zeros_like(carry.frontier)
+    directions, rows = [], []
     while bitbell.level_go(carry.ctrl, 2**31 - 1):
         level = int(carry.ctrl[1]) + 1
-        frontier = carry.frontier.clone()
-        eng._chunk(carry, 1)
-        if int(carry.ctrl[3]) == bitbell.DIR_PULL:
-            row = _forest_row(torch, bg, frontier)
-            rows.append(dict(level=level, **row))
-            print(f"forest real level {label} level={level}: " + json.dumps(rows[-1]))
-            assert row["max_abs_err"] == 0, (label, level, row)
-        assert level <= bg.n, "the level loop did not stop"
-    assert rows, "no pull level"
-    return rows
+        d = int(carry.ctrl[3])
+        timed = (level - 1) % every == 0 or (directions and directions[-1] != d)
+        directions.append(d)
+        row = dict(level=level, direction="push" if d == bitbell.DIR_PUSH else "pull",
+                   timed=bool(timed))
+        if d == bitbell.DIR_PUSH:
+            row["push_or"] = _push_row(torch, carry.frontier, start, vals,
+                                       _switch_snapshot(torch, sw), carry.ctrl.clone())
+            assert row["push_or"]["max_abs_err"] == 0, (label, level, row)
+        elif pull_row is not None:
+            row["pull"] = pull_row(carry.frontier)
+            assert row["pull"]["max_abs_err"] == 0, (label, level, row)
+        expand(carry, hits)
+        level_hits = sw.hits.clone() if d == bitbell.DIR_PUSH else hits
+        pristine = bitbell.BitCarry(carry.visited, carry.frontier, carry.f, carry.levels,
+                                    carry.reached, carry.counts, carry.ctrl)
+        row["level_apply"] = _apply_row(torch, pristine, level_hits, limits, timed)
+        if timed:
+            row["unswitched_apply_ms"] = _apply_row(torch, pristine, level_hits)["ms"]
+        assert row["level_apply"]["max_abs_err"] == 0, (label, level, row)
+        bitbell.bit_level_apply(carry, hits)
+        assert not bool(sw.hits.any()), (label, level, "push plane not cleared")
+        rows.append(row)
+        assert level <= carry.frontier.shape[0], "the level loop did not stop"
+    return directions, rows
+
+
+def _hybrid_split(torch, make_carry, push, pull, chunk, levels, label):
+    """A whole BFS of a direction-switched route (``levels`` levels) with
+    CUDA events around each launch of each level — ``push(carry, hits)``
+    (into the switch's plane), ``pull(carry, hits)``, the apply — and the
+    gaps between them, all
+    enqueued before one synchronise, as a chunk enqueues them; then the
+    engine's own ``chunk(carry)`` timed with one event pair, and traced
+    with torch.profiler for the device's busy share: the kernels' summed
+    device time over that chunk's time (the device is idle when the
+    chunk starts, so the pair spans the host's enqueue of it)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
+        bitbell,
+    )
+
+    top = 2**31 - 1
+    c = make_carry()
+    hits = torch.zeros_like(c.frontier)
+    names = ("push_or", "pull", "level_apply")
+    ev = [[torch.cuda.Event(enable_timing=True) for _ in range(4)] for _ in range(levels)]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(2_000_000)
+    for e in ev:
+        e[0].record()
+        push(c, hits)
+        e[1].record()
+        pull(c, hits)
+        e[2].record()
+        bitbell.bit_level_apply(c, hits, top)
+        e[3].record()
+    torch.cuda.synchronize()
+    assert not bitbell.level_go(c.ctrl, top), "the split did not reach convergence"
+    per_level = []
+    for i, e in enumerate(ev):
+        t = {name: e[j].elapsed_time(e[j + 1]) for j, name in enumerate(names)}
+        t["gap_after"] = e[3].elapsed_time(ev[i + 1][0]) if i + 1 < levels else 0.0
+        per_level.append(t)
+    totals = {k: sum(t[k] for t in per_level) for k in (*names, "gap_after")}
+    span = ev[0][0].elapsed_time(ev[-1][3])
+    # The engine's own chunk: one event pair, then under the profiler.
+    c2 = make_carry()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    e0.record()
+    chunk(c2)
+    e1.record()
+    e1.synchronize()
+    assert torch.equal(c.f, c2.f) and torch.equal(c.ctrl[:2], c2.ctrl[:2])
+    chunk_ms = e0.elapsed_time(e1)
+    # Two traced chunks, the one with more device events kept: a trace can
+    # miss a chunk's first launches.
+    best = None
+    for _ in range(2):
+        c3 = make_carry()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            chunk(c3)
+            torch.cuda.synchronize()
+        seen, busy_us, first, last = {}, 0.0, None, None
+        for evt in prof.events():
+            if evt.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            rng_ = evt.time_range
+            busy_us += rng_.elapsed_us()
+            first = rng_.start if first is None else min(first, rng_.start)
+            last = rng_.end if last is None else max(last, rng_.end)
+            name = evt.name.replace("(anonymous namespace)::", "").replace("void ", "")
+            name = name.split("(")[0].split("<")[0].split("::")[-1] or evt.name[:40]
+            seen[name] = seen.get(name, 0) + 1
+        if best is None or sum(seen.values()) > sum(best[0].values()):
+            best = (seen, busy_us, first, last)
+    seen, busy_us, first, last = best
+    if seen:
+        busy = dict(source="torch.profiler", busy_ms=busy_us / 1e3, chunk_ms=chunk_ms,
+                    busy_share=busy_us / 1e3 / chunk_ms,
+                    device_span_ms=(last - first) / 1e3, kernels=seen)
+    else:  # no device activity in either trace: the events of the split
+        busy = dict(source="cuda events", busy_ms=sum(totals[k] for k in names),
+                    chunk_ms=span, busy_share=sum(totals[k] for k in names) / span)
+    per_level = [{k: round(v, 5) for k, v in t.items()} for t in per_level]
+    print(f"hybrid split {label}: " + json.dumps(dict(
+        levels=levels, ms_total=totals,
+        ms_per_level={k: v / levels for k, v in totals.items()},
+        evented_span_ms=span, engine_chunk_ms=chunk_ms,
+        engine_ms_per_level=chunk_ms / levels, busy=busy,
+        per_level=per_level if levels <= 16 else _write_detail(
+            "split_" + label.replace(" ", "_"), per_level),
+    )))
+    return busy
+
+
+def _host_dispatch_us(torch, dev):
+    """Host time to enqueue one small torch op on the card (a compare on a
+    1,024-element tensor), the unit the old switch chain paid nine of a
+    level."""
+    x = torch.zeros(1024, dtype=torch.int32, device=dev)
+    for _ in range(200):
+        x.ne(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(2000):
+        x.ne(0)
+    us = (time.perf_counter() - t0) / 2000 * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+# Where per-level rows too long for the output go (--detail-dir).
+DETAIL_DIR = "build/chip_smoke"
+
+
+def _write_detail(name, rows):
+    """Per-level rows too long for the output, as JSON under DETAIL_DIR."""
+    os.makedirs(DETAIL_DIR, exist_ok=True)
+    path = os.path.join(DETAIL_DIR, f"chip_smoke_{name}.json")
+    with open(path, "w") as fh:
+        json.dump(rows, fh)
+    return path
 
 
 def _ell_gather_stats(torch, eg, visited, mask):
@@ -729,7 +1071,7 @@ def _rmat20_paths(ctx, n, edges, g, bg, eg, k, seed):
     assert steady > stale > 0, ell
     padded = tio.pad_queries(queries)
     _ell_level_split(torch, eg, padded, "rmat-20 K=64")
-    _forest_real_levels(torch, bg, padded, "rmat-20 K=64")
+    _bitbell_hybrid(torch, bg, padded, "bitbell rmat-20 K=64")
     f = {}
     seconds = {}
     for name, eng in (
@@ -851,6 +1193,8 @@ def _mxu_path(ctx, name, n, edges, g, k, seed):
     )))
     print(f"{name} directions: {_runs(trace)}")
     _real_mxu_level(torch, mg, fast, padded, name)
+    if set(trace) == {"push", "matmul"}:
+        _mxu_hybrid(torch, mg, fast, padded, name)
     return trace
 
 
@@ -867,7 +1211,7 @@ def _real_mxu_level(torch, mg, eng, padded, label):
         return
     widest = max(matmul, key=lambda s: s["active_rows"])
     carry = eng._init_carry(eng._pad_queries(padded)[0])
-    hits = torch.empty_like(carry.frontier)
+    hits = torch.zeros_like(carry.frontier)
     for _ in range(widest["level"] - 1):
         eng._chunk(carry, 1, hits)
     frontier = carry.frontier
@@ -922,9 +1266,13 @@ def _run_cli(cli, argv):
 
 
 def main() -> int:
+    global DETAIL_DIR
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--detail-dir", default=DETAIL_DIR,
+                    help="directory for the per-level rows of the hybrid paths")
     args = ap.parse_args()
+    DETAIL_DIR = args.detail_dir
     t_start = time.perf_counter()
 
     import torch
@@ -950,7 +1298,7 @@ def main() -> int:
         EllGraph,
     )
     from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
-        mxu, packed, stencil,
+        bitbell, mxu, packed, stencil,
     )
     from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.runtime import (
         kernels,
@@ -974,6 +1322,12 @@ def main() -> int:
     for name, res in built.items():
         regs = [ln.strip() for ln in res.log.splitlines() if "Used" in ln]
         print(f"  {name}: {res.seconds:.3f} s; {'; '.join(regs)}")
+
+    print("host dispatch: " + json.dumps(dict(
+        us_per_small_torch_op=_host_dispatch_us(torch, dev),
+        event_pair_ms=_time_ms(torch, lambda: None, lambda: None),
+        note="host time to enqueue one small torch op on the card; the device "
+             "time between two CUDA events with nothing between them")))
 
     # ---- data: road-4096 (stencil main path), road-1024, RMAT-14 (mxu main
     # path: bench.py config "6") and road-512
@@ -1079,7 +1433,9 @@ def main() -> int:
           f"fill={bg20.fill:.3f} ell_vrows={eg20.num_vrows}; host s: generate+csr "
           f"{t_csr:.1f}, bell {t_bell:.1f}, ell {t_ell:.1f}")
     main_shape.update(_compare_forest_ell(torch, bg20, eg20, 64, seed + 10, "rmat-20"))
-    _compare_apply(torch, n20, n20, 2, dev, seed + 15, "rmat-20")
+    budget = bitbell.default_sparse_budget(dedup)
+    _compare_apply(torch, n20, n20, 2, dev, seed + 15, "rmat-20",
+                   (bg20.sparse[1], budget, budget))
     _compare_forest_ell(torch, bg20, eg20, 256, seed + 11, "rmat-20")
     torch.cuda.empty_cache()
     ctx20 = (torch, np, sp, cg, cli, tio, timing, generators, launches, tmp)

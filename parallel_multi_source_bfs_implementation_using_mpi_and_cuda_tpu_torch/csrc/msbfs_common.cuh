@@ -10,11 +10,26 @@
 //   ctrl[0] = updated  (the previous level discovered something)
 //   ctrl[1] = level    (levels applied so far)
 //   ctrl[2] = blocks of the running level_apply launch that have finished
-//   ctrl[3] = the level's expansion direction on a direction-switched
+//   ctrl[3] = the next level's expansion direction on a direction-switched
 //             route: kDirMatmul / kDirPull (tile_hits or forest_or runs) or
-//             kDirPush (push_or runs), written on the device before the
-//             level's expansion kernels; level_apply and the stencil
-//             kernels never read or write it
+//             kDirPush (push_or runs), written by the level apply that
+//             made the frontier (and once per batch on the host for the
+//             sources); the stencil kernels never read it
+// The switch state of a direction-switched route (level_apply.cu writes
+// it, push_or.cu reads it) is a (kSwitchWords,) int64 vector, a
+// (2, capacity) int32 worklist — row 0 the active frontier rows that have
+// out-edges, row 1 each one's exclusive prefix of out-degrees in list
+// order (its first edge in the push's edge space) — and the push's own
+// hit plane, all zero between levels.
+//   state[kListed]      = worklist length, min(appended rows, capacity)
+//   state[kListedEdges] = out-edges of the appended rows
+//   state[kActiveRows], state[kActiveEdges] = the frontier's active rows
+//                         and their out-edges: the predicate's inputs
+//   state[kAppend]      = (rows << 32) | edges appended so far (scratch)
+//   state[kOtherRows], state[kOtherEdges] = active rows (and their edges)
+//                         counted without an append (scratch)
+// The apply's last block moves the scratch into the first four and
+// clears it, so every level starts from zero.
 // The ELL route keeps its own per-query control (ell_hits.cu).
 // A launch whose level must not run (converged, or level >= max_levels)
 // returns at once, which is what makes launches after convergence no-ops.
@@ -45,6 +60,15 @@ __device__ __forceinline__ bool direction_go(const int* ctrl, int max_levels,
                                              int dir) {
   return level_go(ctrl, max_levels) && __ldcg(ctrl + 3) == dir;
 }
+
+constexpr int kListed = 0;
+constexpr int kListedEdges = 1;
+constexpr int kActiveRows = 2;
+constexpr int kActiveEdges = 3;
+constexpr int kAppend = 4;
+constexpr int kOtherRows = 5;
+constexpr int kOtherEdges = 6;
+constexpr int kSwitchWords = 8;
 
 inline int grid_for(long long items, int per_block) {
   long long blocks = (items + per_block - 1) / per_block;

@@ -2,107 +2,204 @@
 //
 // Replaces the XLA chain of the JAX package's ops/bitbell.py:225
 // sparse_hits_or (budget compaction of the active rows, dedup-CSR edge
-// expansion, byte-lane scatter-max, re-pack).  For a (rows, W) frontier
-// plane and the dedup CSR (start, count, vals):
+// expansion, byte-lane scatter-max, re-pack) and, with the level apply's
+// switch epilogue (level_apply.cu), the frontier-density estimate and the
+// predicate that route a level to it.  For a (rows, W) frontier plane and
+// the dedup CSR (start, vals):
 //
-//   hits = 0
-//   for every vertex u and word w with frontier[u, w] != 0:
-//     for every dedup neighbour v of u:  hits[v, w] |= frontier[u, w]
+//   for every row u of the worklist and every dedup neighbour v of u:
+//     hits[v] |= frontier[u]
 //
-// atomicOr on 32-bit words is the OR the JAX chain builds from byte lanes
-// and scatter-max, so no compaction buffer is needed: the result is exact
-// for any frontier, and in particular on every level the direction switch
-// routes here.  The residual kernel (residual_or.cu) ORs along an edge
-// list; here each active vertex expands its own CSR row, so the two share
-// only the gate.
+// into a hit plane that is all zero on entry (the apply clears every hit
+// word it consumes).  The worklist (msbfs_common.cuh) is what the previous
+// level's apply left: the active rows that have out-edges, each with its
+// exclusive prefix of out-degrees, so the level's edges form one edge
+// space [0, T).  atomicOr on 32-bit words is the OR the JAX chain builds
+// from byte lanes and scatter-max, so no compaction buffer is needed: the
+// result is exact for any frontier the predicate routes here.
 //
-// Bound: bytes.  A level must read the frontier plane (4W bytes per row),
-// the CSR row bounds and neighbour lists of the active rows, and write the
-// hit plane: rows * 8W + active * 8 + edges * 4 bytes.  Design: two
-// launches on one stream, both gated on the device control (level_go and
-// ctrl[3] == kDirPush), so a level the switch sends to the matmul costs two
-// empty launches: a grid-stride zeroing of the hit plane, then the scatter,
-// in which each warp scans 32 consecutive rows (one per lane), ballots the
-// active ones, and expands each active row with all 32 lanes striding over
-// its neighbours — a thin frontier costs little more than the scan.
+// Bound: bytes.  A level must read the worklist (8 bytes an entry), each
+// listed row's W words and CSR start, its neighbour list (4 bytes an
+// edge), and write the hit words it reaches (4W bytes a reached row).
+// Design: one launch, gated on the device control (level_go and ctrl[3] ==
+// kDirPush), so a pull level costs one empty launch.  The edge space is
+// cut into equal shares of whole 32-edge steps, one per warp, so a hub
+// row's edges spread over as many warps as its degree needs and a run of
+// thin rows shares a warp.  A warp finds the entry holding its first edge
+// by a 32-way search of the prefix column (one ballot a step), then each
+// step loads the 32 entries from there — row, prefix, CSR start and the
+// row's words in one 4-, 8- or 16-byte load per lane — and each lane finds
+// its edge's entry among them by a 5-step shuffle search (every entry
+// holds an edge, so 32 entries cover 32 edges), reads the neighbour and
+// ORs the row's nonzero words into it.
 #include "msbfs_common.cuh"
+
+#include <climits>
 
 namespace {
 
-__global__ void __launch_bounds__(msbfs::kThreads)
-push_zero_kernel(uint32_t* __restrict__ hits, long long total,
-                 const int* __restrict__ ctrl, int max_levels) {
-  if (!msbfs::direction_go(ctrl, max_levels, msbfs::kDirPush)) return;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
-                     threadIdx.x;
-       i < total; i += stride) {
-    hits[i] = 0u;
+constexpr unsigned kFull = 0xffffffffu;
+// Block size, and most blocks a launch has per SM: enough warps for a
+// push level at the edge budget, and few blocks, since a launch costs more
+// the more blocks it has (an empty one 6.0 us at 264 blocks of 256
+// threads, 8.8 us at 1,056, on an H100; wider blocks were no faster).
+constexpr int kPushThreads = 256;
+constexpr int kPushBlocksPerSm = 2;
+
+// Warp-wide: the largest i in [0, len) with offs[i] <= e (offs is
+// nondecreasing and offs[0] = 0 <= e).
+__device__ __forceinline__ int find_entry(const int* __restrict__ offs,
+                                          int len, int e, int lane) {
+  int lo = 0, hi = len;  // offs[lo] <= e, the answer is below hi
+  while (hi - lo > 32) {
+    const long long span = hi - lo;
+    const int p = lo + static_cast<int>(span * lane / 32);
+    const unsigned m = __ballot_sync(kFull, __ldg(offs + p) <= e);
+    const int k = 31 - __clz(m);
+    hi = k == 31 ? hi : lo + static_cast<int>(span * (k + 1) / 32);
+    lo += static_cast<int>(span * k / 32);
   }
+  const int i = lo + lane;
+  const unsigned m = __ballot_sync(kFull, i < hi && __ldg(offs + i) <= e);
+  return lo + 31 - __clz(m);
 }
 
-__global__ void __launch_bounds__(msbfs::kThreads)
-push_or_kernel(const uint32_t* __restrict__ frontier,
-               const int* __restrict__ start, const int* __restrict__ count,
-               const int* __restrict__ vals, uint32_t* __restrict__ hits,
-               long long rows, int W, const int* __restrict__ ctrl,
-               int max_levels) {
-  if (!msbfs::direction_go(ctrl, max_levels, msbfs::kDirPush)) return;
-  const int lane = threadIdx.x & 31;
-  const int warps = blockDim.x >> 5;
-  const long long groups = (rows + 31) / 32;
-  for (long long g = static_cast<long long>(blockIdx.x) * warps +
-                     (threadIdx.x >> 5);
-       g < groups; g += static_cast<long long>(gridDim.x) * warps) {
-    // g is uniform across the warp, so every lane reaches the ballot.
-    const long long base = g * 32;
-    const long long mine = base + lane;
-    bool active = false;
-    if (mine < rows) {
-      for (int w = 0; w < W && !active; ++w) {
-        active = __ldg(frontier + mine * W + w) != 0u;
+// A row's W words (W in 1, 2, 4, 8; the base 16-byte aligned for W > 1).
+template <int W>
+struct RowWords {
+  uint32_t x[W];
+
+  __device__ __forceinline__ void load(const uint32_t* __restrict__ frontier,
+                                       int r) {
+    const uint32_t* p = frontier + static_cast<size_t>(r) * W;
+    if constexpr (W == 1) {
+      x[0] = __ldg(p);
+    } else if constexpr (W == 2) {
+      const uint2 a = __ldg(reinterpret_cast<const uint2*>(p));
+      x[0] = a.x; x[1] = a.y;
+    } else {
+#pragma unroll
+      for (int k = 0; k < W / 4; ++k) {
+        const uint4 a = __ldg(reinterpret_cast<const uint4*>(p) + k);
+        x[4 * k] = a.x; x[4 * k + 1] = a.y; x[4 * k + 2] = a.z; x[4 * k + 3] = a.w;
       }
     }
-    unsigned todo = __ballot_sync(0xffffffffu, active);
-    while (todo) {
-      const long long u = base + (__ffs(todo) - 1);
-      todo &= todo - 1;
-      const int s = __ldg(start + u);
-      const int c = __ldg(count + u);
-      for (int w = 0; w < W; ++w) {
-        const uint32_t x = __ldg(frontier + u * W + w);
-        if (!x) continue;
-        for (int e = lane; e < c; e += 32) {
-          const long long v = __ldg(vals + s + e);
-          atomicOr(hits + v * W + w, x);
+  }
+};
+
+// W in 1, 2, 4, 8: each lane loads its entry's words, and a lane takes the
+// words of its edge's entry by shuffles.  W = 0: any width w_any, the
+// words read per edge (lanes of one row read the same addresses).
+template <int W>
+__global__ void __launch_bounds__(kPushThreads)
+push_or_kernel(const uint32_t* __restrict__ frontier,
+               const int* __restrict__ start, const int* __restrict__ vals,
+               uint32_t* __restrict__ hits, int w_any,
+               const int* __restrict__ wl_rows,
+               const int* __restrict__ wl_offs,
+               const long long* __restrict__ state,
+               const int* __restrict__ ctrl, int max_levels) {
+  if (!msbfs::direction_go(ctrl, max_levels, msbfs::kDirPush)) return;
+  const int len = static_cast<int>(__ldcg(state + msbfs::kListed));
+  const long long total = __ldcg(state + msbfs::kListedEdges);
+  const int lane = threadIdx.x & 31;
+  const long long warps = static_cast<long long>(gridDim.x) * (blockDim.x >> 5);
+  const long long warp = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  const long long share = ((total + warps - 1) / warps + 31) / 32 * 32;
+  const long long a = warp * share;
+  if (len == 0 || a >= total) return;  // warp-uniform
+  const int b = static_cast<int>(a + share < total ? a + share : total);
+  int i0 = find_entry(wl_offs, len, static_cast<int>(a), lane);
+  for (int e0 = static_cast<int>(a); e0 < b; e0 += 32) {
+    const int i = i0 + lane;
+    const bool listed = i < len;
+    const int o = listed ? __ldg(wl_offs + i) : INT_MAX;
+    const int r = listed ? __ldg(wl_rows + i) : 0;
+    const int s = listed ? __ldg(start + r) : 0;
+    RowWords<W == 0 ? 1 : W> words{};
+    if constexpr (W != 0) {
+      if (listed) words.load(frontier, r);
+    }
+    // The entry of edge e: the last of the 32 whose prefix is <= e.
+    const int e = e0 + lane;
+    int j = 0;
+#pragma unroll
+    for (int step = 16; step > 0; step >>= 1) {
+      if (__shfl_sync(kFull, o, j + step) <= e) j += step;
+    }
+    const int first = __shfl_sync(kFull, s, j) - __shfl_sync(kFull, o, j);
+    if constexpr (W != 0) {
+      uint32_t x[W];
+#pragma unroll
+      for (int w = 0; w < W; ++w) x[w] = __shfl_sync(kFull, words.x[w], j);
+      if (e < b) {
+        const size_t v = static_cast<size_t>(__ldg(vals + first + e)) * W;
+#pragma unroll
+        for (int w = 0; w < W; ++w) {
+          if (x[w]) atomicOr(hits + v + w, x[w]);
+        }
+      }
+    } else {
+      const int u = __shfl_sync(kFull, r, j);
+      if (e < b) {
+        const size_t v = static_cast<size_t>(__ldg(vals + first + e)) * w_any;
+        const uint32_t* p = frontier + static_cast<size_t>(u) * w_any;
+        for (int w = 0; w < w_any; ++w) {
+          const uint32_t x = __ldg(p + w);
+          if (x) atomicOr(hits + v + w, x);
         }
       }
     }
+    // Edge e0 + 32 lies in lane 31's entry or a later one.
+    i0 += __shfl_sync(kFull, j, 31);
   }
 }
 
 }  // namespace
 
+// worklist: the (2, cap) int32 buffer and state the (kSwitchWords,) int64
+// vector of msbfs_common.cuh; edge_cap: the most edges a push level can
+// have (the predicate's edge limit, at most the CSR's length), which sizes
+// the grid.  vec: the frontier's base is 16-byte aligned, so W in 2, 4, 8
+// take vector loads.
 extern "C" int msbfs_push_or(int device, const void* frontier,
-                             const void* start, const void* count,
-                             const void* vals, void* hits, long long rows,
-                             int W, const void* ctrl, int max_levels,
-                             void* stream) {
+                             const void* start, const void* vals, void* hits,
+                             long long rows, int W, const void* worklist,
+                             long long cap, const void* state,
+                             long long edge_cap, int vec, const void* ctrl,
+                             int max_levels, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (W < 1 || rows < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (W < 1 || rows < 0 || rows * W >= (1LL << 31) || cap < 0 || edge_cap < 0 ||
+      state == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* c = static_cast<const int*>(ctrl);
-  push_zero_kernel<<<msbfs::grid_for(rows * W, msbfs::kThreads),
-                     msbfs::kThreads, 0, s>>>(static_cast<uint32_t*>(hits),
-                                              rows * W, c, max_levels);
-  err = cudaGetLastError();
+  const int* wl = static_cast<const int*>(worklist);
+  const int* offs = wl ? wl + cap : nullptr;
+  int sms = 0;
+  err = msbfs::sm_count(device, &sms);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long groups = (rows + 31) / 32;
-  push_or_kernel<<<msbfs::grid_for(groups, msbfs::kThreads / 32),
-                   msbfs::kThreads, 0, s>>>(
-      static_cast<const uint32_t*>(frontier), static_cast<const int*>(start),
-      static_cast<const int*>(count), static_cast<const int*>(vals),
-      static_cast<uint32_t*>(hits), rows, W, c, max_levels);
+  long long grid = (edge_cap + kPushThreads - 1) / kPushThreads;
+  const long long most = static_cast<long long>(kPushBlocksPerSm) * sms;
+  grid = grid < 1 ? 1 : grid > most ? most : grid;
+  auto args = [&](auto kernel) {
+    kernel<<<static_cast<int>(grid), kPushThreads, 0, s>>>(
+        static_cast<const uint32_t*>(frontier), static_cast<const int*>(start),
+        static_cast<const int*>(vals), static_cast<uint32_t*>(hits), W, wl,
+        offs, static_cast<const long long*>(state),
+        static_cast<const int*>(ctrl), max_levels);
+  };
+  if (W == 1) {
+    args(push_or_kernel<1>);
+  } else if (vec && W == 2) {
+    args(push_or_kernel<2>);
+  } else if (vec && W == 4) {
+    args(push_or_kernel<4>);
+  } else if (vec && W == 8) {
+    args(push_or_kernel<8>);
+  } else {
+    args(push_or_kernel<0>);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -19,6 +19,15 @@ Kernels: :func:`bit_level_apply` launches ``csrc/level_apply.cu`` and
 CUDA tensors; each runs its ``*_plain`` version — the same function in
 torch — on CPU tensors only.
 
+A direction-switched route carries a :class:`PushSwitch` in its carry:
+the level apply counts the new frontier's active rows and their edges,
+lists the rows the push will expand and writes the next level's
+direction into ctrl[3], so a level enqueues only its kernels (the push
+and the pull, each gated on ctrl[3], then the apply).  The push ORs into
+a hit plane of its own, which the apply clears as it consumes it; the
+pull rewrites its plane whole.  The sources' direction and list are made
+once per batch (:func:`bit_level_init`).
+
 :class:`BitBellEngine` is the default route: the BELL reduction forest
 (``csrc/forest_or.cu``, :mod:`.cuda_bell`) for dense levels and the push
 for thin ones, the direction decided per level on the device.
@@ -138,13 +147,92 @@ def pack_byte_planes(bytes_: torch.Tensor) -> torch.Tensor:
     return _low32((b << shifts).sum(dim=2))
 
 
+# ctrl[3]: which expansion runs the level on a direction-switched route
+# (csrc/msbfs_common.cuh kDirMatmul / kDirPull / kDirPush): direction 0 is
+# the matmul on the mxu route and the forest pull on the bitbell route.
+DIR_MATMUL = 0
+DIR_PULL = 0
+DIR_PUSH = 1
+
+# The switch state's int64 words (csrc/msbfs_common.cuh): the worklist's
+# length and the edges of its rows, then the predicate's inputs; the rest
+# is the apply's scratch.
+SW_LISTED, SW_LISTED_EDGES, SW_ACTIVE_ROWS, SW_ACTIVE_EDGES = range(4)
+SWITCH_WORDS = 8
+
+
+@dataclass
+class PushSwitch:
+    """The direction switch of one batch on a hybrid route.
+
+    A level pushes when its frontier has at most ``row_limit`` active rows
+    and those have at most ``edge_limit`` dedup out-edges (``count``, the
+    (rows,) int32 out-degrees).  ``worklist`` (2, capacity) int32: the
+    active rows that have out-edges, then each one's exclusive prefix of
+    out-degrees in list order; capacity = min(row_limit, rows), so a
+    level the predicate sends to the push is always listed whole.
+    ``state`` (:data:`SWITCH_WORDS`,) int64, see ``SW_*``; the edges of
+    the listed rows are exact when the list is whole.  ``hits`` (rows, W)
+    int32: the push's hit plane, all zero between levels."""
+
+    count: torch.Tensor
+    row_limit: int
+    edge_limit: int
+    worklist: torch.Tensor
+    state: torch.Tensor
+    hits: torch.Tensor
+
+    @classmethod
+    def new(
+        cls, count: torch.Tensor, row_limit: int, edge_limit: int, width: int
+    ) -> "PushSwitch":
+        rows = int(count.shape[0])
+        capacity = max(0, min(int(row_limit), rows))
+        dev = count.device
+        return cls(
+            count, int(row_limit), int(edge_limit),
+            torch.zeros((2, capacity), dtype=torch.int32, device=dev),
+            torch.zeros(SWITCH_WORDS, dtype=torch.int64, device=dev),
+            torch.zeros((rows, int(width)), dtype=torch.int32, device=dev),
+        )
+
+    @property
+    def capacity(self) -> int:
+        return int(self.worklist.shape[1])
+
+    def listed(self) -> torch.Tensor:
+        """The listed rows (a host read of the length)."""
+        return self.worklist[0, : int(self.state[SW_LISTED])]
+
+
+def switch_record(switch: PushSwitch, frontier: torch.Tensor, ctrl: torch.Tensor) -> None:
+    """The apply's switch epilogue in torch, on a frontier: the worklist
+    (in row order), the state and the direction in ctrl[3].  Host reads:
+    the plain versions and once per batch for the sources."""
+    active, cnt, _ = frontier_activity(frontier, switch.count)
+    edges = torch.where(active, switch.count, 0).sum(dtype=torch.int64)
+    rows = torch.nonzero(active & (switch.count > 0)).flatten()
+    deg = switch.count[rows].to(torch.int64)
+    length = min(int(rows.shape[0]), switch.capacity)
+    switch.worklist[0, :length] = rows[:length].to(torch.int32)
+    switch.worklist[1, :length] = (torch.cumsum(deg, 0) - deg)[:length].to(torch.int32)
+    switch.state.zero_()
+    switch.state[SW_LISTED] = length
+    switch.state[SW_LISTED_EDGES] = deg.sum()
+    switch.state[SW_ACTIVE_ROWS] = cnt.to(torch.int64)
+    switch.state[SW_ACTIVE_EDGES] = edges
+    push = int(cnt) <= switch.row_limit and int(edges) <= switch.edge_limit
+    ctrl[3] = DIR_PUSH if push else DIR_PULL
+
+
 @dataclass
 class BitCarry:
     """The level loop's state, updated in place by every level.
 
     ``ctrl`` is a (4,) int32 device vector: [updated, level, blocks done
-    (the level-apply kernel's scratch), direction (:data:`DIR_MATMUL` or
-    :data:`DIR_PUSH`, written per level by a direction-switched route)].
+    (the level-apply kernel's scratch), direction of the next level
+    (:data:`DIR_MATMUL` or :data:`DIR_PUSH`, written by the apply of a
+    direction-switched route, whose :class:`PushSwitch` is ``switch``)].
     ``counts`` is (K,) int32 scratch the level-apply kernel accumulates
     into and clears."""
 
@@ -155,6 +243,7 @@ class BitCarry:
     reached: torch.Tensor  # (K,) int32
     counts: torch.Tensor  # (K,) int32
     ctrl: torch.Tensor  # (4,) int32
+    switch: Optional[PushSwitch] = None
 
     def rows(self, lo: int, count: int) -> "BitCarry":
         """A view of rows [lo, lo + count) of both planes sharing the
@@ -168,11 +257,16 @@ class BitCarry:
         )
 
 
-def bit_level_init(frontier0: torch.Tensor, counts0: torch.Tensor) -> BitCarry:
+def bit_level_init(
+    frontier0: torch.Tensor, counts0: torch.Tensor,
+    switch: Optional[PushSwitch] = None,
+) -> BitCarry:
     """The carry with sources counted at distance 0: visited = frontier =
-    sources, levels = 1 for queries with a source, reached = sources."""
+    sources, levels = 1 for queries with a source, reached = sources;
+    with a ``switch``, the first level's direction and worklist from the
+    sources (:func:`switch_record`)."""
     dev = frontier0.device
-    return BitCarry(
+    carry = BitCarry(
         visited=frontier0.clone(),
         frontier=frontier0,
         f=torch.zeros(counts0.shape, dtype=torch.int64, device=dev),
@@ -182,7 +276,11 @@ def bit_level_init(frontier0: torch.Tensor, counts0: torch.Tensor) -> BitCarry:
         ctrl=torch.tensor(
             [int((counts0 > 0).any()), 0, 0, 0], dtype=torch.int32, device=dev
         ),
+        switch=switch,
     )
+    if switch is not None:
+        switch_record(switch, frontier0, carry.ctrl)
+    return carry
 
 
 def level_go(ctrl: torch.Tensor, max_levels: int) -> bool:
@@ -228,29 +326,39 @@ def check_index_range(rows: int, w: int) -> None:
 class ApplyPlan(NamedTuple):
     """How the level-apply kernel runs one launch (:func:`apply_plan`)."""
 
-    variant: str  # "vector" (W in KERNEL_WIDTHS) or "column" (any other W)
-    w_instance: int  # the template width, or 0 for the column variant
+    variant: str  # "vector" (W in KERNEL_WIDTHS), "column" or "rows" (other W)
+    w_instance: int  # the template width, or 0 for the column and rows variants
     vec16: bool  # 16-byte loads and stores
+    switch: bool = False  # with the direction switch's epilogue
 
 
-def apply_plan(w: int, vec16: bool = True) -> ApplyPlan:
+# The C entry point's variant codes.
+_APPLY_VARIANTS = {"vector": 0, "column": 1, "rows": 2}
+
+
+def apply_plan(w: int, vec16: bool = True, switch: bool = False) -> ApplyPlan:
     """The apply's variant for planes of w words a row: a pure function of
-    the shapes (``vec16``: every plane's base pointer is 16-byte aligned).
-    The vector variant gives a lane units of 4 (or 8) consecutive words, so
-    word c of a unit belongs to query word c % w only for w in
-    KERNEL_WIDTHS; the column variant takes every other w with 4-byte
-    loads."""
+    the shapes (``vec16``: every plane's base pointer is 16-byte aligned;
+    ``switch``: the direction switch's epilogue runs).  The vector variant
+    gives a lane units of 4 (or 8) consecutive words, so word c of a unit
+    belongs to query word c % w only for w in KERNEL_WIDTHS; the column
+    variant takes every other w with 4-byte loads, a warp a word column,
+    and the rows variant, a lane a whole row, takes them with a switch
+    (which must see whole rows)."""
     if w in KERNEL_WIDTHS:
-        return ApplyPlan("vector", w, bool(vec16))
+        return ApplyPlan("vector", w, bool(vec16), bool(switch))
+    if switch:
+        return ApplyPlan("rows", 0, False, True)
     return ApplyPlan("column", 0, False)
 
 
 @functools.lru_cache(maxsize=256)
 def plan_label(plan) -> str:
     """A sweep or apply plan as the variant tally names it:
-    "ring/W1/vec16", "column/Wn/vec4"."""
+    "ring/W1/vec16", "column/Wn/vec4", "vector/W2/vec16/switch"."""
     width = f"W{plan.w_instance}" if plan.w_instance else "Wn"
-    return f"{plan.variant}/{width}/{'vec16' if plan.vec16 else 'vec4'}"
+    label = f"{plan.variant}/{width}/{'vec16' if plan.vec16 else 'vec4'}"
+    return label + ("/switch" if getattr(plan, "switch", False) else "")
 
 
 def bit_level_apply_plain(
@@ -260,6 +368,9 @@ def bit_level_apply_plain(
     if not level_go(carry.ctrl, max_levels):
         return
     level = int(carry.ctrl[1])
+    pushed = carry.switch is not None and int(carry.ctrl[3]) == DIR_PUSH
+    if pushed:
+        hits = carry.switch.hits
     new = hits & ~carry.visited
     carry.visited |= new
     carry.frontier.copy_(new)
@@ -270,6 +381,10 @@ def bit_level_apply_plain(
     carry.reached += counts
     carry.ctrl[0] = int(found.any())
     carry.ctrl[1] = level + 1
+    if carry.switch is not None:
+        switch_record(carry.switch, carry.frontier, carry.ctrl)
+    if pushed:
+        hits.zero_()
 
 
 def bit_level_apply(
@@ -278,8 +393,12 @@ def bit_level_apply(
     """Fold one level's hit planes into the carry (kernel C,
     ``csrc/level_apply.cu``): new = hits & ~visited, visited |= new,
     frontier = new, per-query counts into f/levels/reached, then advance
-    the device control.  Gated on the device: a no-op once converged or
-    at ``max_levels``.  The kernel's variant is :func:`apply_plan`'s."""
+    the device control.  With ``carry.switch`` the hits of a level that
+    ctrl[3] sent to the push are the switch's plane, which the apply
+    leaves all zero, and ``hits`` otherwise; the apply then lists the new
+    frontier's rows and writes the next level's direction into ctrl[3]
+    (:func:`switch_record`).  Gated on the device: a no-op once converged
+    or at ``max_levels``.  The kernel's variant is :func:`apply_plan`'s."""
     rows, w = carry.visited.shape
     _check_plane("visited", carry.visited)
     _check_plane("frontier", carry.frontier, (rows, w))
@@ -294,32 +413,45 @@ def bit_level_apply(
     _check_plane("ctrl", carry.ctrl, (4,))
     if w > 1024:
         raise ValueError(f"W={w} words exceed the kernel's shared-memory counts")
+    sw = carry.switch
+    extra = () if sw is None else (sw.count, sw.worklist, sw.state, sw.hits)
+    if sw is not None:
+        _check_switch(sw, rows, w)
     dev = _check_device(
         hits, carry.visited, carry.frontier, carry.f, carry.levels,
-        carry.reached, carry.counts, carry.ctrl,
+        carry.reached, carry.counts, carry.ctrl, *extra,
     )
     if dev.type == "cpu":
         bit_level_apply_plain(carry, hits, max_levels)
         return
     check_index_range(rows, w)
     ptrs = (hits.data_ptr(), carry.visited.data_ptr(), carry.frontier.data_ptr())
-    plan = apply_plan(w, (ptrs[0] | ptrs[1] | ptrs[2]) % 16 == 0)
+    push_ptr = 0 if sw is None else sw.hits.data_ptr()
+    plan = apply_plan(
+        w, (ptrs[0] | ptrs[1] | ptrs[2] | push_ptr) % 16 == 0, sw is not None
+    )
+    switch_args = (None, None, 0, None, None, 0, 0) if sw is None else (
+        sw.count.data_ptr(), sw.worklist.data_ptr(), sw.capacity,
+        sw.state.data_ptr(), push_ptr, sw.row_limit, sw.edge_limit,
+    )
     kernels.launch(
         "level_apply", dev, *ptrs,
         rows, w, carry.counts.data_ptr(), carry.f.data_ptr(),
         carry.levels.data_ptr(), carry.reached.data_ptr(),
         carry.ctrl.data_ptr(), int(max_levels),
-        0 if plan.variant == "vector" else 1, int(plan.vec16),
+        _APPLY_VARIANTS[plan.variant], int(plan.vec16), *switch_args,
         variant=plan_label(plan),
     )
 
 
-# ctrl[3]: which expansion runs the level on a direction-switched route
-# (csrc/msbfs_common.cuh kDirMatmul / kDirPull / kDirPush): direction 0 is
-# the matmul on the mxu route and the forest pull on the bitbell route.
-DIR_MATMUL = 0
-DIR_PULL = 0
-DIR_PUSH = 1
+def _check_switch(sw: PushSwitch, rows: int, w: int) -> None:
+    _check_plane("switch count", sw.count, (rows,))
+    _check_plane("push hits", sw.hits, (rows, w))
+    _check_plane("worklist", sw.worklist)
+    if sw.worklist.dim() != 2 or sw.worklist.shape[0] != 2 or sw.capacity > rows:
+        raise ValueError(f"worklist must be (2, <= {rows}) int32")
+    if sw.state.dtype != torch.int64 or tuple(sw.state.shape) != (SWITCH_WORDS,):
+        raise ValueError(f"switch state must be ({SWITCH_WORDS},) int64")
 
 
 def direction_go(ctrl: torch.Tensor, max_levels: int, direction: int) -> bool:
@@ -335,64 +467,69 @@ def default_sparse_budget(e: int) -> int:
 
 
 def sparse_hits_or_plain(
-    frontier, start, count, vals, hits, ctrl, max_levels=INT32_MAX
+    frontier, start, vals, hits, ctrl, switch, max_levels=INT32_MAX
 ) -> None:
-    """The push kernel's function in torch: every active row's dedup
-    neighbours gain its words (byte lanes, ``index_add_``, ``> 0``, pack),
-    written over ``hits`` when the control routes the level to push."""
+    """The push kernel's function in torch: the dedup neighbours of every
+    listed row gain its words (byte lanes, ``index_add_``, ``> 0``, pack),
+    ORed into ``hits`` when the control routes the level to push."""
     if not direction_go(ctrl, max_levels, DIR_PUSH):
         return
     n = frontier.shape[0]
-    ids = torch.nonzero((frontier != 0).any(dim=1)).flatten()
-    deg = count[ids].long()
+    ids = switch.listed().long()
+    deg = switch.count[ids].long()
     total = int(deg.sum())
+    if not total:
+        return
     acc = torch.zeros(
         (n, frontier.shape[1] * WORD_BITS), dtype=torch.int32, device=hits.device
     )
-    if total:
-        owner = torch.repeat_interleave(ids, deg)
-        # Edge slot j of owner i sits at start[i] + (j - first slot of i).
-        shift = start[ids].long() - (torch.cumsum(deg, 0) - deg)
-        eidx = torch.arange(total, device=hits.device) + torch.repeat_interleave(
-            shift, deg
-        )
-        acc.index_add_(
-            0, vals[eidx].long(), unpack_byte_planes(frontier[owner]).to(torch.int32)
-        )
-    hits.copy_(pack_byte_planes((acc > 0).to(torch.uint8)))
+    owner = torch.repeat_interleave(ids, deg)
+    # Edge slot j of owner i sits at start[i] + (j - first slot of i).
+    shift = start[ids].long() - (torch.cumsum(deg, 0) - deg)
+    eidx = torch.arange(total, device=hits.device) + torch.repeat_interleave(shift, deg)
+    acc.index_add_(
+        0, vals[eidx].long(), unpack_byte_planes(frontier[owner]).to(torch.int32)
+    )
+    hits |= pack_byte_planes((acc > 0).to(torch.uint8))
 
 
 def sparse_hits_or(
     frontier: torch.Tensor,
     start: torch.Tensor,
-    count: torch.Tensor,
     vals: torch.Tensor,
     hits: torch.Tensor,
     ctrl: torch.Tensor,
+    switch: PushSwitch,
     max_levels: int = INT32_MAX,
 ) -> None:
     """Kernel K3 (``csrc/push_or.cu``), the push scatter-OR over the dedup
-    CSR (``start``/``count`` per row, neighbour ``vals``): hits = 0, then
-    hits[v] |= frontier[u] for every dedup edge u -> v of an active row u.
+    CSR (``start`` per row, neighbour ``vals``): hits[v] |= frontier[u]
+    for every dedup edge u -> v of a row u on ``switch``'s worklist, into
+    a hit plane that is all zero (on the routes, ``switch.hits``, which
+    the switched apply leaves so).
     Gated on the device: runs when the level may run and ctrl[3] is
     :data:`DIR_PUSH`, else leaves ``hits`` untouched.  Exact for any
-    frontier (no budget compaction)."""
+    frontier the predicate routes here (no budget compaction)."""
     rows, w = frontier.shape
     _check_plane("frontier", frontier)
     _check_plane("hits", hits, (rows, w))
     _check_plane("start", start, (rows,))
-    _check_plane("count", count, (rows,))
     _check_plane("vals", vals)
     _check_plane("ctrl", ctrl, (4,))
-    dev = _check_device(frontier, start, count, vals, hits, ctrl)
+    _check_switch(switch, rows, w)
+    dev = _check_device(
+        frontier, start, vals, hits, ctrl, switch.count, switch.worklist, switch.state
+    )
     if dev.type == "cpu":
-        sparse_hits_or_plain(frontier, start, count, vals, hits, ctrl, max_levels)
+        sparse_hits_or_plain(frontier, start, vals, hits, ctrl, switch, max_levels)
         return
+    check_index_range(rows, w)
     kernels.launch(
         "push_or", dev,
-        frontier.data_ptr(), start.data_ptr(), count.data_ptr(),
-        vals.data_ptr(), hits.data_ptr(), rows, w, ctrl.data_ptr(),
-        int(max_levels),
+        frontier.data_ptr(), start.data_ptr(), vals.data_ptr(), hits.data_ptr(),
+        rows, w, switch.worklist.data_ptr(), switch.capacity,
+        switch.state.data_ptr(), min(switch.edge_limit, int(vals.shape[0])),
+        int(frontier.data_ptr() % 16 == 0), ctrl.data_ptr(), int(max_levels),
     )
 
 
@@ -510,28 +647,36 @@ def bell_hits_or(frontier: torch.Tensor, graph, slot_budget=None) -> torch.Tenso
     return forest_hits(frontier, graph, slot_budget)
 
 
-def bitbell_expand(graph, sparse_budget: int, slot_budget=None, plain: bool = False):
+def bitbell_switch(graph, sparse_budget: int, width: int) -> Optional[PushSwitch]:
+    """A batch's direction switch on the bitbell route at ``width`` words
+    a row, or None when every level pulls (no budget, or no non-empty
+    dedup CSR): the JAX predicate ``active rows <= budget and their edges
+    <= budget``."""
+    budget = int(sparse_budget)
+    if not budget or graph.sparse is None or graph.sparse[2].shape[0] == 0:
+        return None
+    return PushSwitch.new(graph.sparse[1], budget, budget, width)
+
+
+def bitbell_expand(graph, slot_budget=None, plain: bool = False):
     """The expansion of one bitbell level, as ``expand(carry, hits,
     max_levels, scratch)`` filling ``hits`` from ``carry.frontier``.
 
-    Hybrid when a budget and a non-empty dedup CSR exist: the predicate
-    ``active rows <= budget and their edges <= budget`` goes into ctrl[3]
-    on the device, then the push and the forest each run only in their
-    direction.  Otherwise ctrl[3] stays :data:`DIR_PULL` and every level
-    is a forest pull.  ``plain`` runs the kernels' plain versions."""
+    Hybrid when the carry has a switch (:func:`bitbell_switch`): the push
+    (into the switch's plane) and the forest each run only in the
+    direction the previous level's apply wrote into ctrl[3].  Otherwise
+    ctrl[3] stays :data:`DIR_PULL` and every level is a forest pull.
+    ``plain`` runs the kernels' plain versions."""
     from .cuda_bell import forest_or, forest_or_plain  # lazy: cuda_bell imports this module
 
     forest = forest_or_plain if plain else forest_or
     push = sparse_hits_or_plain if plain else sparse_hits_or
-    budget = int(sparse_budget)
-    hybrid = bool(budget) and graph.sparse is not None and graph.sparse[2].shape[0] > 0
 
     def expand(carry: BitCarry, hits: torch.Tensor, max_levels: int, scratch) -> None:
-        if hybrid:
-            start, count, vals = graph.sparse
-            _, cnt, edges = frontier_activity(carry.frontier, count)
-            carry.ctrl[3:].copy_(((cnt <= budget) & (edges <= budget)).view(1))
-            push(carry.frontier, start, count, vals, hits, carry.ctrl, max_levels)
+        sw = carry.switch
+        if sw is not None:
+            start, _, vals = graph.sparse
+            push(carry.frontier, start, vals, sw.hits, carry.ctrl, sw, max_levels)
         forest(carry.frontier, graph, hits, carry.ctrl, max_levels, slot_budget, scratch)
 
     return expand
@@ -597,13 +742,13 @@ class BitBellEngine(FusedBestEngine):
         return max(1 << 22, (hbm // 4) // (4 * w_words))
 
     def _init_carry(self, queries) -> BitCarry:
-        return bit_level_init(*pack_queries(self.graph.n, queries, self.device))
+        frontier0, counts0 = pack_queries(self.graph.n, queries, self.device)
+        switch = bitbell_switch(self.graph, self.sparse_budget, frontier0.shape[1])
+        return bit_level_init(frontier0, counts0, switch)
 
     def _chunk(self, carry: BitCarry, bound) -> None:
         w = carry.frontier.shape[1]
-        expand = bitbell_expand(
-            self.graph, self.sparse_budget, self._slot_budget_for(w), self.plain
-        )
+        expand = bitbell_expand(self.graph, self._slot_budget_for(w), self.plain)
         scratch = None
         if self.device.type == "cuda" and not self.plain:
             if w not in self._scratch:

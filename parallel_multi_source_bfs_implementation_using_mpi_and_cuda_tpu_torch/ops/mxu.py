@@ -10,16 +10,19 @@ frontier[tile_col[b]] (:mod:`.cuda_mxu`).  Thin frontiers — at most
 instead (:func:`.bitbell.sparse_hits_or`): Beamer's direction switch,
 with the dense direction on the tensor cores.  Same hit planes either way.
 
-The switch costs no host sync.  The predicate is computed with torch ops
-on the device and written into the control word ctrl[3]; both expansion
-kernels are launched every level and each returns at once unless ctrl[3]
-names its direction, so the host enqueues whole chunks of levels and
-reads one status per chunk, as on the stencil route.  A level is the push
+The switch costs no host sync and no host op.  The level apply
+(``csrc/level_apply.cu``) counts the new frontier's active rows and
+edges, lists its rows for the push and writes the next level's
+direction into the control word ctrl[3] (:class:`.bitbell.PushSwitch`;
+the sources' direction is made once per batch); both expansion kernels
+are launched every level and each returns at once unless ctrl[3] names
+its direction, so the host enqueues whole chunks of levels and reads one
+status per chunk, as on the stencil route.  A level is the push
 (``csrc/push_or.cu``), the tile kernel (``csrc/tile_hits.cu``,
 ``MSBFS_MXU_KERNEL=1``) or the batched bf16 ``torch.bmm`` route (the
 counterpart of the JAX package's XLA einsum; knob unset), then the level
-apply (``csrc/level_apply.cu``).  A requested kernel that fails to build
-or launch raises: there is no fallback.
+apply.  A requested kernel that fails to build or launch raises: there
+is no fallback.
 
 Feasibility bound: densification costs nt * T^2 bytes, so ``from_host``
 refuses graphs whose nonzero tile count exceeds MSBFS_MXU_MAX_TILES
@@ -44,6 +47,7 @@ from .bitbell import (
     WORD_BITS,
     BitCarry,
     FusedBestEngine,
+    PushSwitch,
     _pack_status,
     bit_level_apply,
     bit_level_apply_plain,
@@ -225,25 +229,21 @@ def mxu_matmul_hits(
     return hits
 
 
-def mxu_expand(
-    graph: MxuGraph, switch: int, budget: int, kernel: bool = False,
-    plain: bool = False,
-):
+def mxu_expand(graph: MxuGraph, kernel: bool = False, plain: bool = False):
     """The direction-switched expansion of one level, as a function
-    ``expand(carry, hits, max_levels)`` that fills ``hits`` from
-    ``carry.frontier``: the predicate into ctrl[3] on the device, then the
-    push and the matmul, each gated on its direction.  ``plain`` runs the
-    kernels' plain versions; else ``kernel`` picks the tile kernel over
-    the bf16 bmm route."""
-    switch = min(int(switch), INT32_MAX)
+    ``expand(carry, hits, max_levels)`` from ``carry.frontier``: the push
+    into the switch's plane and the matmul into ``hits``, each gated on
+    the direction the previous level's apply wrote into ctrl[3] (the
+    carry's :class:`.bitbell.PushSwitch`).  ``plain`` runs the kernels'
+    plain versions; else ``kernel`` picks the tile kernel over the bf16
+    bmm route."""
     push = sparse_hits_or_plain if plain else sparse_hits_or
 
     def expand(carry: BitCarry, hits: torch.Tensor, max_levels: int) -> None:
-        _, cnt, edges = frontier_activity(carry.frontier, graph.count)
-        carry.ctrl[3:].copy_(((cnt <= switch) & (edges <= budget)).view(1))
+        sw = carry.switch
         push(
-            carry.frontier, graph.start, graph.count, graph.vals, hits,
-            carry.ctrl, max_levels,
+            carry.frontier, graph.start, graph.vals, sw.hits, carry.ctrl, sw,
+            max_levels,
         )
         if plain or kernel:
             matmul = tile_matmul_hits_plain if plain else tile_matmul_hits
@@ -253,9 +253,8 @@ def mxu_expand(
             )
             return
         # The library route cannot be gated on the device: it runs every
-        # level, and its planes are kept where the level is a matmul one.
-        mm = mxu_matmul_hits(graph, carry.frontier)
-        hits.copy_(torch.where(carry.ctrl[3] == DIR_MATMUL, mm, hits))
+        # level, and the apply reads its plane only on a matmul level.
+        hits.copy_(mxu_matmul_hits(graph, carry.frontier))
 
     return expand
 
@@ -321,9 +320,7 @@ class MxuEngine(FusedBestEngine):
             kernel = knobs.raw("MSBFS_MXU_KERNEL", "") == "1"
         self.kernel = bool(kernel)
         self.plain = bool(plain)
-        self._expand = mxu_expand(
-            graph, self.switch, self.push_budget, self.kernel, self.plain
-        )
+        self._expand = mxu_expand(graph, self.kernel, self.plain)
         self.last_direction_trace = []
 
     def _account(self, advanced: int, k: int) -> None:
@@ -341,7 +338,14 @@ class MxuEngine(FusedBestEngine):
     # -- the level loop --------------------------------------------------
 
     def _init_carry(self, queries) -> BitCarry:
-        return bit_level_init(*_mxu_frontier0(self.graph, queries))
+        """The carry, with the switch's push predicate ``active rows <=
+        switch and their edges <= push_budget`` decided for the sources."""
+        frontier0, counts0 = _mxu_frontier0(self.graph, queries)
+        switch = PushSwitch.new(
+            self.graph.count, min(self.switch, INT32_MAX), self.push_budget,
+            frontier0.shape[1],
+        )
+        return bit_level_init(frontier0, counts0, switch)
 
     def _step(self, carry: BitCarry, hits: torch.Tensor) -> None:
         """One gated level: expansion in the switched direction, apply."""

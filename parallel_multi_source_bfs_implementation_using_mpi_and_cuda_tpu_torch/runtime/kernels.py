@@ -55,7 +55,7 @@ KERNELS = {
     ),
     "level_apply": (
         "msbfs_level_apply",
-        [_P, _P, _P, _L, _I, _P, _P, _P, _P, _P, _I, _I, _I],
+        [_P, _P, _P, _L, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _L, _P, _P, _L, _L],
     ),
     "tile_hits": (
         "msbfs_tile_hits",
@@ -63,7 +63,7 @@ KERNELS = {
     ),
     "push_or": (
         "msbfs_push_or",
-        [_P, _P, _P, _P, _P, _L, _I, _P, _I],
+        [_P, _P, _P, _P, _L, _I, _P, _L, _P, _L, _I, _P, _I],
     ),
     "ell_hits": (
         "msbfs_ell_hits",

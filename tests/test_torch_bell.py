@@ -20,6 +20,9 @@ from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu.ops import 
     bitbell as jbb,
 )
 from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu.ops import (
+    engine as jengine,
+)
+from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu.ops import (
     packed as jpacked,
 )
 from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.models import (
@@ -268,12 +271,14 @@ def test_engine_matches_jax(graphs, kind, k, kwargs):
 
 
 def _directions(eng, queries):
-    """ctrl[3] after each single-level chunk: the direction each level took."""
+    """ctrl[3] before each single-level chunk: the direction each level
+    takes (the sources' made at the carry's start, every later one by the
+    apply of the level before)."""
     carry = eng._init_carry(eng._pad_queries(queries)[0])
     seen = []
     while bitbell.level_go(carry.ctrl, 10**6):
-        eng._chunk(carry, 1)
         seen.append(int(carry.ctrl[3]))
+        eng._chunk(carry, 1)
     return seen
 
 
@@ -294,6 +299,38 @@ def test_push_and_pull_in_one_bfs(graphs):
         assert set(_directions(pure, padded)) == {bitbell.DIR_PULL}
         for x, y in zip(pure.query_stats(padded), want):
             np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("k,budget", [(33, 600), (70, 600), (8, 300), (33, 10**6)])
+def test_device_directions_match_jax_predicate(graphs, k, budget):
+    """Level by level, the direction the apply wrote (the sources' at the
+    carry's start) equals JAX's hybrid predicate on the same frontier, the
+    push's hit plane is zero after every applied level, and the run's results
+    equal the JAX engine's (W = 3 at K = 70: the rows variant's width)."""
+    n, g, jg = graphs["hub"]
+    padded = _queries(n, k, k + budget)
+    bg = BellGraph.from_host(g, "cpu")
+    eng = bitbell.BitBellEngine(bg, sparse_budget=budget)
+    count = jnp.asarray(bg.sparse[1].numpy())
+    carry = eng._init_carry(eng._pad_queries(padded)[0])
+    hits = torch.zeros_like(carry.frontier)
+    expand = bitbell.bitbell_expand(bg)
+    seen = []
+    while bitbell.level_go(carry.ctrl, 10**6):
+        _, cnt, edges = jengine.frontier_activity(
+            jnp.asarray(carry.frontier.numpy().view(np.uint32)), count
+        )
+        push = bool((cnt <= budget) & (edges <= budget))
+        assert int(carry.ctrl[3]) == (bitbell.DIR_PUSH if push else bitbell.DIR_PULL)
+        seen.append(push)
+        expand(carry, hits, 10**6, None)
+        bitbell.bit_level_apply(carry, hits)
+        assert not bool(carry.switch.hits.any())
+    assert len(seen) >= 3
+    want = jbb.BitBellEngine(JBellGraph.from_host(jg), sparse_budget=budget).query_stats(padded)
+    np.testing.assert_array_equal(carry.f[:k].numpy(), want[2])
+    np.testing.assert_array_equal(carry.levels[:k].numpy(), want[0])
+    np.testing.assert_array_equal(carry.reached[:k].numpy(), want[1])
 
 
 def test_slot_budget_knob_and_auto(graphs, monkeypatch):

@@ -521,25 +521,231 @@ def test_tile_hits_empty_row_tiles_and_no_tiles(cuda):
         assert not bool(got[64:].any())
 
 
-@pytest.mark.parametrize("w", [1, 2, 8])
+def _switch_for(frontier, count, row_limit=None, edge_limit=10**9):
+    """A switch state listing ``frontier``'s rows (its plain epilogue) and
+    the control it leaves, on the frontier's device."""
+    rows = count.shape[0]
+    switch = bitbell.PushSwitch.new(count, rows if row_limit is None else row_limit,
+                                    edge_limit, frontier.shape[1])
+    ctrl = torch.tensor([1, 5, 0, 0], dtype=torch.int32, device=count.device)
+    bitbell.switch_record(switch, frontier, ctrl)
+    return switch, ctrl
+
+
+@pytest.mark.parametrize("w", [1, 2, 3, 4, 8])
 def test_push_or_matches_plain(cuda, w):
     n, edges = generators.rmat_edges(11, edge_factor=8, seed=40 + w)
     mg = mxu.MxuGraph.from_host(CSRGraph.from_edges(n, edges), cuda, tile=64)
     rng = np.random.default_rng(40 + w)
     frontier = _planes(rng, mg.n_pad, w)
     frontier[rng.random(mg.n_pad) < 0.95] = 0
-    csr = (mg.start, mg.count, mg.vals)
-    go = torch.tensor([1, 5, 0, bitbell.DIR_PUSH], dtype=torch.int32)
-    want = _planes(rng, mg.n_pad, w)  # stale bits: the push zeroes first
-    got = want.clone().to(cuda)
-    bitbell.sparse_hits_or_plain(frontier, *(a.cpu() for a in csr), want, go, 100)
-    bitbell.sparse_hits_or(frontier.to(cuda), *csr, got, go.to(cuda), 100)
+    frontier = frontier.to(cuda)
+    switch, go = _switch_for(frontier, mg.count)
+    assert int(go[3]) == bitbell.DIR_PUSH
+    want = torch.zeros_like(frontier)
+    got = torch.zeros_like(frontier)
+    bitbell.sparse_hits_or_plain(frontier, mg.start, mg.vals, want, go, switch, 100)
+    timing.reset_launch_counts()
+    bitbell.sparse_hits_or(frontier, mg.start, mg.vals, got, go, switch, 100)
     torch.cuda.synchronize()
-    assert torch.equal(got.cpu(), want)
+    assert timing.launch_counts() == {"push_or": 1}
+    assert torch.equal(got, want) and bool(want.any())
     stale = torch.full_like(got, 3)
-    matmul = torch.tensor([1, 5, 0, bitbell.DIR_MATMUL], dtype=torch.int32)
-    bitbell.sparse_hits_or(frontier.to(cuda), *csr, stale, matmul.to(cuda), 100)
+    matmul = go.clone()
+    matmul[3] = bitbell.DIR_MATMUL
+    bitbell.sparse_hits_or(frontier, mg.start, mg.vals, stale, matmul, switch, 100)
     assert bool((stale == 3).all())  # a matmul level: untouched
+
+
+def test_push_or_hub_row_spans_many_warps(cuda):
+    """A hub row of 70,000 neighbours among thin rows: its edges spread
+    over many warps' shares, and the result equals the plain version's."""
+    n = 80_000
+    rng = np.random.default_rng(5)
+    hub = np.stack([np.full(70_000, 7, np.int32), np.arange(70_000, dtype=np.int32) + 9000], 1)
+    thin = rng.integers(0, n, size=(40_000, 2)).astype(np.int32)
+    g = CSRGraph.from_edges(n, np.concatenate([hub, thin]))
+    bg = BellGraph.from_host(g, cuda)
+    start, count, vals = bg.sparse
+    assert int(count[7]) == 70_000
+    for w in (1, 2, 8):
+        frontier = _planes(rng, n, w)
+        frontier[rng.random(n) < 0.99] = 0
+        frontier[7] = torch.from_numpy(np.arange(1, w + 1, dtype=np.int32))
+        frontier = frontier.to(cuda)
+        switch, go = _switch_for(frontier, count)
+        want, got = torch.zeros_like(frontier), torch.zeros_like(frontier)
+        bitbell.sparse_hits_or_plain(frontier, start, vals, want, go, switch)
+        bitbell.sparse_hits_or(frontier, start, vals, got, go, switch)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), w
+        assert int((want[9000:79000] != 0).any(dim=1).sum()) == 70_000
+
+
+_SWITCH_FIELDS = _APPLY_FIELDS
+
+
+def _switched_pair(rng, rows, w, dev, row_limit, edge_limit, sentinel=0):
+    """Two equal switched carries (plain on the card, kernel on the card)
+    over random planes and out-degrees; the kernel's worklist is a view of
+    a buffer ``sentinel`` words longer, filled with -7."""
+    count = torch.from_numpy(rng.integers(0, 9, size=rows).astype(np.int32)).to(dev)
+    state = rng.bit_generator.state
+    pair = []
+    for i in range(2):
+        rng.bit_generator.state = state
+        carry = _apply_carry(rng, rows, w, dev)
+        switch = bitbell.PushSwitch.new(count, row_limit, edge_limit, w)
+        if i == 1 and sentinel:
+            cap = switch.capacity
+            buf = torch.full((2 * cap + sentinel,), -7, dtype=torch.int32, device=dev)
+            switch.worklist = buf[: 2 * cap].view(2, cap)
+            switch.buffer = buf
+        carry.switch = switch
+        pair.append(carry)
+    return pair
+
+
+def _assert_switch_equal(got, want):
+    """Carry, control and state; for a whole list (every active row with
+    out-edges listed) the worklist as a set, with offsets that are the
+    exclusive prefix of the out-degrees in the kernel's list order, and
+    the listed edges (exact only then)."""
+    for field in _SWITCH_FIELDS:
+        assert torch.equal(getattr(got, field), getattr(want, field)), field
+    gs, ws = got.switch, want.switch
+    keep = [bitbell.SW_LISTED, bitbell.SW_ACTIVE_ROWS, bitbell.SW_ACTIVE_EDGES, 4, 5, 6, 7]
+    assert torch.equal(gs.state[keep], ws.state[keep]), (gs.state, ws.state)
+    if int(ws.state[bitbell.SW_ACTIVE_ROWS]) > gs.capacity:
+        return
+    assert torch.equal(gs.state, ws.state), (gs.state, ws.state)
+    length = int(ws.state[bitbell.SW_LISTED])
+    rows = gs.worklist[0, :length].long()
+    assert torch.equal(torch.sort(rows).values, ws.worklist[0, :length].long())
+    deg = gs.count[rows].long()
+    assert torch.equal(gs.worklist[1, :length].long(), torch.cumsum(deg, 0) - deg)
+
+
+@pytest.mark.parametrize(
+    "rows,w,variant",
+    [
+        (7777, 1, "vector/W1/vec16/switch"),
+        (7778, 2, "vector/W2/vec16/switch"),
+        (7777, 4, "vector/W4/vec16/switch"),
+        (7777, 8, "vector/W8/vec16/switch"),
+        (7777, 3, "rows/Wn/vec4/switch"),
+        (4099, 5, "rows/Wn/vec4/switch"),
+        (1_000_003, 2, "vector/W2/vec16/switch"),
+    ],
+)
+def test_switched_apply_matches_plain_over_levels(cuda, rows, w, variant):
+    """Four consecutive levels (the accumulators reset between them) on
+    thin and dense hit planes, pulled then pushed then pulled then pushed
+    (the row limit at a tenth of the rows: a thin frontier pushes next, a
+    dense one overflows the list and pulls): carry, ctrl[3], state and
+    worklist equal the plain epilogue's; a pushed level's plane (the
+    switch's) is zero after it, a pulled level's is left as it was."""
+    rng = np.random.default_rng(rows + w)
+    want, got = _switched_pair(rng, rows, w, cuda, rows // 10, 10**9)
+    for density, direction in ((0.001, 0), (0.3, 1), (0.02, 0), (0.0005, 1)):
+        assert int(got.ctrl[3]) == int(want.ctrl[3]) == direction
+        hits = _planes(rng, rows, w)
+        hits[rng.random(rows) >= density] = 0
+        junk = _planes(rng, rows, w).to(cuda)
+        planes = []
+        for carry in (want, got):
+            if direction == bitbell.DIR_PUSH:
+                carry.switch.hits.copy_(hits)
+                planes.append(junk.clone())  # the pull's plane: never read
+            else:
+                planes.append(hits.clone().to(cuda))
+        before = planes[1].clone()
+        bitbell.bit_level_apply_plain(want, planes[0], 100)
+        timing.reset_launch_counts()
+        bitbell.bit_level_apply(got, planes[1], 100)
+        torch.cuda.synchronize()
+        assert timing.variant_counts() == {f"level_apply:{variant}": 1}
+        _assert_switch_equal(got, want)
+        assert torch.equal(planes[1], before)
+        assert not bool(got.switch.hits.any()) and not bool(want.switch.hits.any())
+
+
+@pytest.mark.parametrize("w", [1, 3, 8])
+def test_switched_apply_limits_and_overflow(cuda, w):
+    """The predicate at its limits and one over, and a list that
+    overflows: more active rows than capacity decides pull, lists exactly
+    capacity rows and writes nothing past the buffer."""
+    rows = 5000
+    rng = np.random.default_rng(70 + w)
+    hits = _planes(rng, rows, w)
+    hits[rng.random(rows) >= 0.05] = 0
+
+    def pair(row_limit, edge_limit, sentinel=0):  # the same carries each time
+        return _switched_pair(np.random.default_rng(700 + w), rows, w, cuda,
+                              row_limit, edge_limit, sentinel)
+
+    # Probe run: the frontier's active rows and edges.
+    probe, _ = pair(rows, 10**9)
+    bitbell.bit_level_apply_plain(probe, hits.clone().to(cuda), 100)
+    active = int(probe.switch.state[bitbell.SW_ACTIVE_ROWS])
+    edges = int(probe.switch.state[bitbell.SW_ACTIVE_EDGES])
+    assert active > 32
+    for row_limit, edge_limit, direction in (
+        (active, edges, bitbell.DIR_PUSH),
+        (active - 1, edges, bitbell.DIR_PULL),
+        (active, edges - 1, bitbell.DIR_PULL),
+        (active // 3, 10**9, bitbell.DIR_PULL),  # overflow
+        (0, 10**9, bitbell.DIR_PULL),  # budget 0: an empty list
+    ):
+        want, got = pair(row_limit, edge_limit, sentinel=64)
+        bitbell.bit_level_apply_plain(want, hits.clone().to(cuda), 100)
+        bitbell.bit_level_apply(got, hits.clone().to(cuda), 100)
+        torch.cuda.synchronize()
+        assert int(got.ctrl[3]) == direction
+        assert bool((got.switch.buffer[-64:] == -7).all())
+        for field in _SWITCH_FIELDS:
+            assert torch.equal(getattr(got, field), getattr(want, field)), field
+        # The listed edges are exact only for a whole list (what a push
+        # reads); the counts and the scratch words are exact always.
+        keep = [bitbell.SW_LISTED, bitbell.SW_ACTIVE_ROWS, bitbell.SW_ACTIVE_EDGES, 4, 5, 6, 7]
+        assert torch.equal(got.switch.state[keep], want.switch.state[keep])
+        length = int(got.switch.state[bitbell.SW_LISTED])
+        assert length == min(got.switch.capacity, int(want.switch.state[bitbell.SW_LISTED]))
+        listed = got.switch.worklist[0, :length].long()
+        assert int(torch.unique(listed).numel()) == length
+        assert bool(((got.frontier[listed] != 0).any(dim=1) & (got.switch.count[listed] > 0)).all())
+        if direction == bitbell.DIR_PUSH:
+            _assert_switch_equal(got, want)
+
+
+def test_switched_apply_empty_frontier_and_gate(cuda):
+    """An all-zero hit plane lists nothing and decides push (0 rows, 0
+    edges); a converged carry leaves carry, state and list untouched."""
+    rng = np.random.default_rng(3)
+    want, got = _switched_pair(rng, 3000, 2, cuda, 100, 100)
+    empty = torch.zeros((3000, 2), dtype=torch.int32, device=cuda)
+    bitbell.bit_level_apply_plain(want, empty, 100)
+    bitbell.bit_level_apply(got, empty.clone(), 100)
+    _assert_switch_equal(got, want)
+    assert int(got.ctrl[3]) == bitbell.DIR_PUSH and int(got.ctrl[0]) == 0
+    snap = got.switch.state.clone()
+    hits = _planes(rng, 3000, 2).to(cuda)
+    bitbell.bit_level_apply(got, hits, 100)  # converged: a no-op
+    assert torch.equal(got.switch.state, snap) and bool(hits.any())
+
+
+def test_unswitched_apply_leaves_hits(cuda):
+    """The stencil route's apply (no switch) neither clears the hit plane
+    nor writes ctrl[3]."""
+    rng = np.random.default_rng(4)
+    carry = _apply_carry(rng, 7777, 1, cuda)
+    carry.ctrl[3] = 9
+    hits = _planes(rng, 7777, 1).to(cuda)
+    before = hits.clone()
+    timing.reset_launch_counts()
+    bitbell.bit_level_apply(carry, hits, 100)
+    assert timing.variant_counts() == {"level_apply:vector/W1/vec16": 1}
+    assert torch.equal(hits, before) and int(carry.ctrl[3]) == 9
 
 
 @pytest.mark.parametrize(

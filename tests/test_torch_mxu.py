@@ -207,14 +207,17 @@ def test_level_hits_match_jax(rmat, w):
     for kernel in (False, True):
         got = mxu.mxu_matmul_hits(mg, _t(frontier), kernel=kernel)
         np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
-    pushed = torch.full((mg.n_pad, w), -1, dtype=torch.int32)
+    # The push ORs into a zeroed plane from the frontier's worklist.
+    switch = bitbell.PushSwitch.new(mg.count, mg.n_pad, 10**9, w)
+    bitbell.switch_record(switch, _t(frontier), _go(bitbell.DIR_PUSH))
+    pushed = torch.zeros((mg.n_pad, w), dtype=torch.int32)
     bitbell.sparse_hits_or(
-        _t(frontier), mg.start, mg.count, mg.vals, pushed, _go(bitbell.DIR_PUSH)
+        _t(frontier), mg.start, mg.vals, pushed, _go(bitbell.DIR_PUSH), switch
     )
     np.testing.assert_array_equal(pushed.numpy().view(np.uint32), want)
     stale = torch.full_like(pushed, 5)
     bitbell.sparse_hits_or_plain(
-        _t(frontier), mg.start, mg.count, mg.vals, stale, _go(bitbell.DIR_MATMUL)
+        _t(frontier), mg.start, mg.vals, stale, _go(bitbell.DIR_MATMUL), switch
     )
     assert bool((stale == 5).all())  # a matmul level: the push leaves hits
 
@@ -276,6 +279,32 @@ def test_direction_trace_pins_perf_smoke():
     assert trace is eng.last_direction_trace
     jeng = jm.MxuEngine(jm.MxuGraph.from_host(JCSRGraph.from_edges(n, edges), tile=16), switch=40)
     assert trace == jeng.level_direction_trace(q)
+
+
+@pytest.mark.parametrize("switch,kernel", [(40, False), (40, True), (None, True), (0, True)])
+def test_device_directions_equal_jax_trace(switch, kernel):
+    """The direction each level takes on the device — ctrl[3] before each
+    single-level chunk, written by the apply of the level before (the
+    sources' at the carry's start) — equals the JAX engine's
+    level_direction_trace, and the push's hit plane is zero between
+    levels."""
+    n, edges = generators.rmat_edges(8, edge_factor=8, seed=801)
+    q = io.pad_queries(generators.random_queries(n, 16, max_group=4, seed=45), pad_to=4)
+    eng = mxu.MxuEngine(mxu.MxuGraph.from_host(CSRGraph.from_edges(n, edges), "cpu", tile=16),
+                        switch=switch, kernel=kernel)
+    carry = eng._init_carry(eng._pad_queries(q)[0])
+    hits = torch.zeros_like(carry.frontier)
+    seen = []
+    while bitbell.level_go(carry.ctrl, 10**6):
+        seen.append("push" if int(carry.ctrl[3]) == bitbell.DIR_PUSH else "matmul")
+        eng._chunk(carry, 1, hits)
+        assert not bool(carry.switch.hits.any())
+    jeng = jm.MxuEngine(jm.MxuGraph.from_host(JCSRGraph.from_edges(n, edges), tile=16),
+                        switch=switch)
+    want = [s["direction"] for s in jeng.level_direction_trace(q)]
+    assert seen == want
+    if switch == 40:
+        assert seen == EXPECTED_DIRECTIONS
 
 
 def test_tile_flop_counters_match_jax(rmat):
@@ -366,8 +395,9 @@ def test_wrappers_reject_bad_inputs(rmat):
         cuda_mxu.tile_matmul_hits(mg.tiles.float(), *args[1:], fr, fr.clone(), _go(0))
     with pytest.raises(ValueError, match="shape"):
         cuda_mxu.tile_matmul_hits(*args, fr[:-1], fr.clone(), _go(0))
+    switch = bitbell.PushSwitch.new(mg.count, 8, 8, 1)
     with pytest.raises(TypeError, match="int32"):
-        bitbell.sparse_hits_or(fr, mg.start.long(), mg.count, mg.vals, fr.clone(), _go(1))
+        bitbell.sparse_hits_or(fr, mg.start.long(), mg.vals, fr.clone(), _go(1), switch)
 
 
 def test_new_modules_import_no_jax():
