@@ -7,7 +7,7 @@ builds and runs on the GPU, and the source of its kernel timings.
 Needs one CUDA card (NVIDIA H100 class, sm_90a), nvcc, and scipy; imports
 nothing of JAX.  Phases (any failure exits non-zero; nothing is caught):
 
-1. print the card (nvidia-smi name, power limit); build the six CUDA
+1. print the card (nvidia-smi name, power limit); build the seven CUDA
    kernels from csrc/ in parallel and time the build;
 2. hold each kernel against its plain torch version on the card, bit for
    bit, and time both with CUDA events beside the analytic bound: the
@@ -41,6 +41,10 @@ nothing of JAX.  Phases (any failure exits non-zero; nothing is caught):
    scipy's and the plain engine's, and the direction trace is printed;
    tile_hits is then held against its plain version and timed on the
    frontier of the BFS's widest matmul level;
+   after each CLI path below, pack_sources is held against its plain
+   version on that route's batch as its engine pads it (stride 1 for bit
+   planes, 8 for byte planes) and timed beside its bound, with the host
+   time of a batch start's whole pack against the plain pack;
 5. the mxu route on road_edges(512, 512) with K = 16: the auto switch
    sends levels both ways within one BFS; same checks; then the BFS a
    level at a time: the direction the device's apply wrote before each
@@ -50,6 +54,14 @@ nothing of JAX.  Phases (any failure exits non-zero; nothing is caught):
    the whole BFS split by launch with CUDA events (push_or, tile_hits,
    level_apply, gaps), and one engine chunk traced with torch.profiler
    for the device's busy share and the kernels it ran;
+5a. the low-K route on RMAT-16 (rmat_edges(16, 16), BASELINE.json config
+   1) with one group of one source through the CLI's auto route: F equals
+   scipy's and the plain engine's; then the BFS a level at a time, the
+   kernel engine equal to the plain engine before every level, K5's push
+   and pull (push_or and forest_or on the byte plane's word view) held
+   against their byte plain versions and timed beside their bounds and
+   the ``index_reduce_`` amax library call, the switched apply held and
+   timed; and its launch split;
 5b. RMAT-20 (rmat_edges(20, 16), BASELINE.json config 2): forest_or and
    ell_hits against their plain versions at K = 64 (W = 2) and K = 256
    (W = 8), timed beside their bounds (forest_or also beside its L2
@@ -65,11 +77,16 @@ nothing of JAX.  Phases (any failure exits non-zero; nothing is caught):
    on RMAT-20's synthetic W = 2 plane as a pulled and as a pushed level;
    then with
    K = 64 random groups the default route (bitbell: forest_or, push_or,
-   level_apply) and the ELL route (``MSBFS_BACKEND=pallas``: ell_hits)
-   through the CLI, each a path;
-   the 64 F values are equal across the kernel and plain engines of both
-   routes, both CLIs report the same winner and F, and the winner and the
-   first eight groups equal scipy's;
+   level_apply), the ELL route (``MSBFS_BACKEND=pallas``: ell_hits) and
+   the byte-plane BELL route (``MSBFS_BACKEND=bell``, W = 16) through the
+   CLI, and the low-K route on the first four groups, each a path;
+   the 64 F values are equal across the kernel and plain engines of the
+   three routes, the CLIs report the same winner and F, the winner and
+   the first eight groups (the low-K route's four among them) equal
+   scipy's; then the low-K BFS a level at a time as on RMAT-16, at K = 4
+   and at K = 1 (the apply's time on its widest K = 1 level beside its
+   bound at 4 and at 1 byte a vertex), both byte routes split by launch,
+   and K5's pull at W = 16;
 6. road-1024 at K = 16 (BASELINE.md config 4): every F and the winner
    equal scipy's;
 7. road-1024 at K = 300 through the sub-batch split (W = 8 and W = 2):
@@ -81,8 +98,10 @@ then the ``{"kernels": [...]}`` line and the final ``{"ok": true, ...}``.
 
 Each CLI run of phases 3-5b is one path: the kernel launch counters are
 zeroed just before it and read just after; each path must have launched
-its route's kernels, and every registered kernel must have launched on
-some path.  Each path, and phases 7 and 8, also print the launches per
+its route's kernels (pack_sources at its route's stride), and every
+registered kernel must have launched on some path.  The kernel line has
+a row for each kernel and for the byte uses of forest_or and push_or
+(K5), counted over the byte paths.  Each path, and phases 7 and 8, also print the launches per
 kernel variant; the mxu paths must have launched tile_hits' pipe variant
 and the ELL path more steady than stale levels.
 """
@@ -115,14 +134,22 @@ PKG = "parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch"
 JAX_PKG = "parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu"
 # Each path's own kernels (a CLI run per path).
 PATH_KERNELS = {
-    "stencil road-4096": ("stencil_sweep", "level_apply"),
-    "mxu rmat-14": ("tile_hits", "level_apply"),
-    "mxu road-512": ("tile_hits", "push_or", "level_apply"),
-    "bitbell rmat-20": ("forest_or", "push_or", "level_apply"),
+    "stencil road-4096": ("pack_sources", "stencil_sweep", "level_apply"),
+    "mxu rmat-14": ("pack_sources", "tile_hits", "level_apply"),
+    "mxu road-512": ("pack_sources", "tile_hits", "push_or", "level_apply"),
+    "lowk rmat-16": ("pack_sources", "forest_or", "push_or", "level_apply"),
+    "bitbell rmat-20": ("pack_sources", "forest_or", "push_or", "level_apply"),
     "ell rmat-20": ("ell_hits",),
+    "bell rmat-20": ("pack_sources", "forest_or", "level_apply"),
+    "lowk rmat-20": ("pack_sources", "forest_or", "push_or", "level_apply"),
 }
+# The paths whose planes are bytes: their pack runs at a stride of 8 lanes,
+# the others' at 1 (the ELL route packs no planes).
+BYTE_PATHS = ("lowk rmat-16", "bell rmat-20", "lowk rmat-20")
 # Groups of the RMAT-20 paths checked against scipy (besides the winner).
 SCIPY_GROUPS = 8
+# Groups of RMAT-20's 64 that its low-K path runs (all checked against scipy).
+LOWK_GROUPS = 4
 # Each path's launches per kernel variant, as _run_path read them.
 VARIANTS = {}
 
@@ -1046,30 +1073,376 @@ def _ell_level_split(torch, eg, padded, label):
     )))
 
 
+def _host_ms(torch, fn, reps=5):
+    """Median host-clock time of ``fn`` up to a synchronise after it."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    times.sort()
+    return times[len(times) // 2]
+
+
+# Each route's pack_sources row (_pack_check), by path.
+PACK_ROWS = {}
+
+
+def _pack_check(torch, eng, n, padded, label):
+    """pack_sources against its plain version on one route's batch as its
+    engine pads it (stride 1 for bit planes, 8 for byte planes): the
+    error, both times, the bound, and the host time of a batch start's
+    whole pack (upload, zeroing, launch) against the plain pack."""
+    import numpy as np
+
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
+        bitbell,
+    )
+
+    queries = eng._pad_queries(padded)[0]
+    stride = eng.lane_stride
+    dev = eng.device
+    q = torch.from_numpy(np.ascontiguousarray(queries, dtype=np.int32)).to(dev)
+    k, s = q.shape
+    w = max(1, -(-k * stride // 32))
+
+    def buffers():
+        return (torch.zeros((n, w), dtype=torch.int32, device=dev),
+                torch.zeros(32 * w, dtype=torch.int32, device=dev))
+
+    (p_k, c_k), (p_p, c_p) = buffers(), buffers()
+    bitbell.pack_sources(q, n, p_k, c_k, stride)
+    bitbell.pack_sources_plain(q, n, p_p, c_p, stride)
+    torch.cuda.synchronize()
+    err = _max_abs_err(torch, [(p_k, p_p), (c_k, c_p)])
+    ms = _time_ms(torch, lambda: bitbell.pack_sources(q, n, p_k, c_k, stride),
+                  lambda: (p_k.zero_(), c_k.zero_()))
+    plain_ms = _time_ms(torch, lambda: bitbell.pack_sources_plain(q, n, p_p, c_p, stride),
+                        lambda: (p_p.zero_(), c_p.zero_()), reps=3)
+    valid = int(((q >= 0) & (q < n)).sum())
+    touched = int((p_p != 0).sum())
+    # The queries read once, the words the sources reach and the counts
+    # written once; an atomic OR a source.
+    bound, by = _bound_ms(4 * k * s + 4 * touched + 4 * 32 * w, valid)
+    row = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+        library_ms=None, K=k, S=s, lane_stride=stride, W=w, valid_sources=valid,
+        distinct_sources=int(c_p.sum()), words_set=touched,
+        batch_start_pack_host_ms=_host_ms(
+            torch, lambda: bitbell.pack_queries(n, queries, dev, stride)),
+        batch_start_plain_pack_host_ms=_host_ms(
+            torch, lambda: bitbell.pack_queries_plain(n, queries, dev, stride)),
+    )
+    print(f"compare {label} n={n} pack_sources: " + json.dumps(row))
+    assert err == 0, (label, row)
+    PACK_ROWS[label] = row
+    return row
+
+
+def _byte_forest_row(torch, bg, frontier, scratch, library):
+    """forest_or over a byte plane's word view (bell_hits_packed) against
+    the byte pull's plain version (amax over bytes) on one pull frontier:
+    the error, both times, the bound, and the library call
+    ``hits.index_reduce_(0, owner, frontier[neighbour], "amax")`` over the
+    dedup CSR (``library`` = (owner, neighbour) int64 tensors, or None)."""
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
+        bell, bitbell,
+    )
+
+    dev, (n, kp) = frontier.device, frontier.shape
+    w = kp // 4
+    pull = torch.tensor([1, 7, 0, bitbell.DIR_PULL], dtype=torch.int32, device=dev)
+    h_k, h_p = torch.full_like(frontier, 7), torch.empty_like(frontier)
+    bell.bell_hits_packed(frontier, bg, h_k, pull, scratch=scratch)
+    bell.bell_hits_packed_plain(frontier, bg, h_p, pull)
+    torch.cuda.synchronize()
+    err = _max_abs_err(torch, [(h_k, h_p)])
+    ms = _time_ms(torch, lambda: bell.bell_hits_packed(frontier, bg, h_k, pull, scratch=scratch),
+                  lambda: None)
+    plain_ms = _time_ms(torch, lambda: bell.bell_hits_packed_plain(frontier, bg, h_p, pull),
+                        lambda: None, reps=3)
+    library_ms = None
+    if library is not None:
+        owner, nbr = library
+        lib = torch.zeros_like(frontier)
+        library_ms = _time_ms(torch, lambda: lib.index_reduce_(0, owner, frontier[nbr], "amax"),
+                              lib.zero_, reps=3)
+        assert torch.equal(lib, h_p), "the library yardstick computes another function"
+        del lib
+    slots = sum(int(f.numel()) for f in bg.level_cols)
+    # cols (4 bytes a slot), final_slot, the frontier read and the hits
+    # written once (Kp bytes a row each); an OR a word a slot.
+    bound, by = _bound_ms(4 * slots + 4 * n + 2 * n * kp, slots * w)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=library_ms, Kp=kp, W=w,
+                frontier_rows=int((frontier != 0).any(dim=1).sum()))
+
+
+def _csr_pairs(torch, bg):
+    """(owner, neighbour) int64 of every dedup CSR edge: the library
+    yardstick's indices."""
+    _, count, vals = bg.sparse
+    owner = torch.repeat_interleave(
+        torch.arange(bg.n, device=count.device), count.long())
+    return owner, vals.long()
+
+
+def _byte_push_row(torch, bg, frontier, switch, ctrl, timed=True):
+    """push_or over a byte plane's word view (sparse_hits_flags) against
+    the byte push's plain version on one listed frontier (both into a
+    zeroed plane): the error, both times, the bound, the launch floor (the
+    launch gated off) and the library call ``hits.index_reduce_(0,
+    neighbour, frontier[owner], "amax")`` over the listed rows' edges."""
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
+        bitbell, lowk,
+    )
+
+    assert int(ctrl[3]) == bitbell.DIR_PUSH
+    n, kp = frontier.shape
+    p_k, p_p = torch.zeros_like(frontier), torch.zeros_like(frontier)
+    lowk.sparse_hits_flags(frontier, bg, p_k, ctrl, switch)
+    lowk.sparse_hits_flags_plain(frontier, bg, p_p, ctrl, switch)
+    torch.cuda.synchronize()
+    err = _max_abs_err(torch, [(p_k, p_p)])
+    listed = int(switch.state[bitbell.SW_LISTED])
+    edges = int(switch.state[bitbell.SW_LISTED_EDGES])
+    ms = plain_ms = floor_ms = library_ms = None
+    if timed:
+        ms = _time_ms(torch, lambda: lowk.sparse_hits_flags(frontier, bg, p_k, ctrl, switch),
+                      p_k.zero_)
+        plain_ms = _time_ms(torch, lambda: lowk.sparse_hits_flags_plain(
+            frontier, bg, p_p, ctrl, switch), p_p.zero_, reps=3)
+        gated = ctrl.clone()
+        gated[3] = bitbell.DIR_PULL
+        floor_ms = _time_ms(torch, lambda: lowk.sparse_hits_flags(
+            frontier, bg, p_k, gated, switch), lambda: None)
+        owner, nbr = bitbell.listed_edges(switch, bg.sparse[0], bg.sparse[2])
+        lib = torch.zeros_like(frontier)
+        library_ms = _time_ms(torch, lambda: lib.index_reduce_(0, nbr, frontier[owner], "amax"),
+                              lib.zero_, reps=5)
+        assert torch.equal(lib, p_p), "the library yardstick computes another function"
+    reached = int((p_p != 0).any(dim=1).sum())
+    # The worklist (8 bytes an entry), each listed row's Kp bytes and CSR
+    # start, its neighbours (4 bytes an edge), the rows reached (Kp bytes);
+    # an OR a word an edge.
+    bound, by = _bound_ms(8 * listed + (kp + 4) * listed + 4 * edges + kp * reached,
+                          edges * (kp // 4))
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=library_ms, floor_ms=floor_ms, listed_rows=listed, edges=edges,
+                reached_rows=reached, Kp=kp)
+
+
+def _lowk_levels(torch, bg, padded, label, library):
+    """The low-K route's BFS a level at a time: the kernel engine's carry
+    and the plain engine's advanced in lockstep and equal before every
+    level and at the end; on each level the byte push or pull held
+    against its plain version and timed (:func:`_byte_push_row`,
+    :func:`_byte_forest_row`), and the switched apply held and timed
+    beside the same launch without the switch.  Returns one row a level."""
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
+        bitbell, cuda_bell, lowk,
+    )
+
+    top = 2**31 - 1
+    fast = lowk.LowKEngine(bg, level_chunk=128)
+    slow = lowk.LowKEngine(bg, level_chunk=128, plain=True)
+    queries = fast._pad_queries(padded)[0]
+    a, b = fast._init_carry(queries), slow._init_carry(queries)
+    w = a.frontier.shape[1]
+    scratch = cuda_bell.forest_scratch(bg, w, a.frontier.device)
+    expand = lowk.lowk_expand(bg)
+    hits = torch.zeros_like(a.frontier)
+    sw = a.switch
+    limits = (sw.count, sw.row_limit, sw.edge_limit)
+    fields = ("visited", "frontier", "f", "levels", "reached", "ctrl")
+
+    def same():
+        pairs = [(getattr(a, f), getattr(b, f)) for f in fields]
+        pairs += [(a.switch.state[:4], b.switch.state[:4]), (a.switch.hits, b.switch.hits)]
+        return _max_abs_err(torch, pairs)
+
+    rows = []
+    while bitbell.level_go(b.ctrl, top):
+        assert same() == 0, (label, len(rows), "kernel and plain engines differ")
+        level, d = int(a.ctrl[1]) + 1, int(a.ctrl[3])
+        row = dict(level=level, direction="push" if d == bitbell.DIR_PUSH else "pull")
+        fr = a.frontier.view(torch.uint8)
+        if d == bitbell.DIR_PUSH:
+            row["push_or:bytes"] = _byte_push_row(torch, bg, fr, _switch_snapshot(torch, sw),
+                                                  a.ctrl.clone())
+            assert row["push_or:bytes"]["max_abs_err"] == 0, (label, row)
+        else:
+            row["forest_or:bytes"] = _byte_forest_row(torch, bg, fr, scratch, library)
+            assert row["forest_or:bytes"]["max_abs_err"] == 0, (label, row)
+        expand(a, hits, top, scratch)
+        level_hits = sw.hits.clone() if d == bitbell.DIR_PUSH else hits
+        pristine = bitbell.BitCarry(a.visited, a.frontier, a.f, a.levels, a.reached,
+                                    a.counts, a.ctrl)
+        row["level_apply"] = _apply_row(torch, pristine, level_hits, limits)
+        row["unswitched_apply_ms"] = _apply_row(torch, pristine, level_hits)["ms"]
+        assert row["level_apply"]["max_abs_err"] == 0, (label, row)
+        bitbell.bit_level_apply(a, hits)
+        slow._chunk(b, 1)
+        rows.append(row)
+        assert level <= bg.n, "the level loop did not stop"
+    assert same() == 0, (label, "kernel and plain engines differ at the end")
+    return rows
+
+
+def _lowk_split(torch, eng, bg, padded, levels, label):
+    """A byte-plane route's whole BFS split by launch (:func:`_hybrid_split`):
+    the byte push (a no-op on a pull-only carry), the byte pull and the
+    apply, then the engine's chunk timed and traced."""
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
+        bell, cuda_bell, lowk,
+    )
+
+    top = 2**31 - 1
+    queries = eng._pad_queries(padded)[0]
+    c0 = eng._init_carry(queries)
+    scratch = cuda_bell.forest_scratch(bg, c0.frontier.shape[1], c0.frontier.device)
+    u8 = torch.uint8
+
+    def push(c, h):
+        if c.switch is not None:
+            lowk.sparse_hits_flags(c.frontier.view(u8), bg, c.switch.hits.view(u8), c.ctrl,
+                                   c.switch, top)
+
+    def pull(c, h):
+        bell.bell_hits_packed(c.frontier.view(u8), bg, h.view(u8), c.ctrl, top, scratch)
+
+    return _hybrid_split(torch, lambda: eng._init_carry(queries), push, pull,
+                         lambda c: eng._chunk(c, levels), levels, label)
+
+
+def _summarise_levels(rows, label):
+    """One line of a level-by-level drive: directions, and the medians of
+    the byte kernels' rows; the rows themselves go to a detail file."""
+    path = _write_detail(label.replace(" ", "_"), rows)
+
+    def pick(key, field):
+        return [r[key][field] for r in rows if key in r]
+
+    print(f"lowk levels {label}: " + json.dumps(dict(
+        levels=len(rows), directions=_runs([r["direction"] for r in rows]),
+        every_level_equal_to_plain_engine=True,
+        forest_or_bytes_ms=pick("forest_or:bytes", "ms"),
+        forest_or_bytes_bound_ms=pick("forest_or:bytes", "bound_ms"),
+        forest_or_bytes_library_ms=pick("forest_or:bytes", "library_ms"),
+        push_or_bytes_ms=pick("push_or:bytes", "ms"),
+        push_or_bytes_floor_ms=pick("push_or:bytes", "floor_ms"),
+        push_or_bytes_library_ms=pick("push_or:bytes", "library_ms"),
+        apply_switched_ms=[r["level_apply"]["ms"] for r in rows],
+        apply_unswitched_ms=[r["unswitched_apply_ms"] for r in rows],
+        detail=path,
+    )))
+
+
+def _apply_at_k1(torch, rows, n, label):
+    """The apply of a K = 1 low-K BFS on its level with the most new
+    vertices, against its bound at the port's 4-byte stride (one word a
+    vertex) and at JAX's 1-byte stride (one byte a vertex): the four plane
+    streams, the visited reads under nonzero hits and the writes of what
+    is new, at 4 or 1 bytes each."""
+    row = max(rows, key=lambda r: r["level_apply"]["new_words"])
+    ap = row["level_apply"]
+    hit, new = ap["hit_words"], ap["new_words"]
+    out = dict(
+        level=row["level"], direction=row["direction"], ms=ap["ms"],
+        unswitched_ms=row["unswitched_apply_ms"], hit_rows=hit, new_rows=new,
+        bound_ms_4_byte_stride=_bound_ms(8 * n + 4 * hit + 4 * new + 32 * 40, 2 * n)[0],
+        bound_ms_1_byte_stride=_bound_ms(2 * n + hit + new + 32 * 40, 2 * n)[0],
+    )
+    print(f"apply at K=1 {label}: " + json.dumps(out))
+    return out
+
+
+def _lowk16_path(ctx, seed):
+    """BASELINE.json config 1, single-source BFS on RMAT-16: rmat_edges(16,
+    16) with one group of one source (drawn from the non-isolated
+    vertices) through the CLI's auto low-K route; F equals scipy's and the
+    plain engine's; then the pack held, the BFS a level at a time and
+    split by launch."""
+    torch, np, sp, cg, cli, tio, timing, generators, launches, tmp, dev = ctx
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.models.bell import (
+        BellGraph,
+    )
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.models.csr import (
+        CSRGraph,
+    )
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
+        lowk,
+    )
+
+    t0 = time.perf_counter()
+    n, edges = generators.rmat_edges(16, edge_factor=16, seed=seed)
+    g = CSRGraph.from_edges(n, edges)
+    source = int(np.random.default_rng(seed).choice(np.nonzero(g.degrees > 0)[0]))
+    queries = [np.array([source], dtype=np.int32)]
+    gpath, qpath = os.path.join(tmp, "rmat16.bin"), os.path.join(tmp, "rmat16-q.bin")
+    tio.save_graph_bin(gpath, n, edges)
+    tio.save_query_bin(qpath, queries)
+    host_s = time.perf_counter() - t0
+    min_k, min_f, pre_s, comp_s = _run_path(
+        cli, timing, ["chip_smoke", "-g", gpath, "-q", qpath, "-gn", "1"], "lowk rmat-16",
+        launches,
+    )
+    want = _scipy_f(cg, np, _scipy_matrix(sp, np, g), queries[0])
+    assert (min_k, min_f) == (0, want) and want > 0, (min_k, min_f, want)
+    bg = BellGraph.from_host(g, dev)
+    padded = tio.pad_queries(queries)
+    fast = lowk.LowKEngine(bg, level_chunk=128)
+    levels, reached, f = fast.query_stats(padded)
+    f_plain = lowk.LowKEngine(bg, level_chunk=128, plain=True).f_values(padded).cpu().numpy()
+    assert int(f[0]) == int(f_plain[0]) == want, (f, f_plain, want)
+    print("lowk rmat-16: " + json.dumps(dict(
+        n=n, directed_edges=g.num_directed_edges, source=source, min_f=min_f, scipy_f=want,
+        levels=int(levels[0]), reached=int(reached[0]), preprocessing_s=pre_s,
+        computation_s=comp_s, host_generate_s=host_s,
+    )))
+    _pack_check(torch, fast, n, padded, "lowk rmat-16")
+    rows = _lowk_levels(torch, bg, padded, "lowk rmat-16 K=1", _csr_pairs(torch, bg))
+    _summarise_levels(rows, "lowk rmat-16 K=1")
+    _lowk_split(torch, fast, bg, padded, len(rows), "lowk rmat-16 K=1")
+
+
 def _rmat20_paths(ctx, n, edges, g, bg, eg, k, seed):
-    """The default (bitbell) and ELL (MSBFS_BACKEND=pallas) routes through
-    the CLI on RMAT-20 with K groups: the same winner and F on both, every
-    F equal across the kernel engines and the plain engines on the card,
-    and the winner and the first SCIPY_GROUPS groups equal to scipy's."""
+    """The default (bitbell), ELL (MSBFS_BACKEND=pallas) and byte-plane
+    BELL (MSBFS_BACKEND=bell) routes through the CLI on RMAT-20 with K
+    groups, and the low-K route on its first LOWK_GROUPS groups: the same
+    winner and F on the three K-group routes, every F equal across the
+    kernel engines and the plain engines on the card, the winner and the
+    first SCIPY_GROUPS groups equal to scipy's (the low-K groups among
+    them); then the low-K BFS a level at a time (also at K = 1, for the
+    apply's two strides) and both byte routes split by launch."""
     torch, np, sp, cg, cli, tio, timing, generators, launches, tmp = ctx
     from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
-        bitbell, engine,
+        bell, bitbell, engine, lowk,
     )
 
     gpath, qpath = os.path.join(tmp, "rmat20.bin"), os.path.join(tmp, "rmat20-q.bin")
+    qpath4 = os.path.join(tmp, "rmat20-q4.bin")
     queries = generators.random_queries(n, k, seed=seed)
     tio.save_graph_bin(gpath, n, edges)
     tio.save_query_bin(qpath, queries)
+    tio.save_query_bin(qpath4, queries[:LOWK_GROUPS])
     argv = ["chip_smoke", "-g", gpath, "-q", qpath, "-gn", "1"]
     runs = {"bitbell rmat-20": _run_path(cli, timing, argv, "bitbell rmat-20", launches)}
     with _env(MSBFS_BACKEND="pallas"):
         runs["ell rmat-20"] = _run_path(cli, timing, argv, "ell rmat-20", launches)
+    with _env(MSBFS_BACKEND="bell"):
+        runs["bell rmat-20"] = _run_path(cli, timing, argv, "bell rmat-20", launches)
+    lowk_run = _run_path(cli, timing, ["chip_smoke", "-g", gpath, "-q", qpath4, "-gn", "1"],
+                         "lowk rmat-20", launches)
     os.remove(gpath)
     ell = {k_: v for k_, v in VARIANTS["ell rmat-20"].items() if k_.startswith("ell_hits:")}
     steady = sum(v for k_, v in ell.items() if ":steady" in k_)
     stale = sum(v for k_, v in ell.items() if ":stale" in k_)
     assert steady > stale > 0, ell
     padded = tio.pad_queries(queries)
+    padded4 = tio.pad_queries(queries[:LOWK_GROUPS])
     _ell_level_split(torch, eg, padded, "rmat-20 K=64")
     _bitbell_hybrid(torch, bg, padded, "bitbell rmat-20 K=64")
     f = {}
@@ -1079,6 +1452,8 @@ def _rmat20_paths(ctx, n, edges, g, bg, eg, k, seed):
         ("bitbell plain", bitbell.BitBellEngine(bg, level_chunk=128, plain=True)),
         ("ell kernels", engine.Engine(eg, level_chunk=128)),
         ("ell plain", engine.Engine(eg, level_chunk=128, plain=True)),
+        ("bell kernels", bell.BellEngine(bg, level_chunk=128)),
+        ("bell plain", bell.BellEngine(bg, level_chunk=128, plain=True)),
     ):
         t0 = time.perf_counter()
         stats = eng.query_stats(padded)
@@ -1089,9 +1464,17 @@ def _rmat20_paths(ctx, n, edges, g, bg, eg, k, seed):
     for name, vals in f.items():
         assert np.array_equal(vals, f["bitbell kernels"]), (name, vals)
     fv = f["bitbell kernels"]
+    for name, eng in (("lowk kernels", lowk.LowKEngine(bg, level_chunk=128)),
+                      ("lowk plain", lowk.LowKEngine(bg, level_chunk=128, plain=True))):
+        t0 = time.perf_counter()
+        f[name] = eng.query_stats(padded4)[2]
+        seconds[name] = time.perf_counter() - t0
+        assert np.array_equal(f[name], fv[:LOWK_GROUPS]), (name, f[name])
     winner = int(np.argmin(fv))
+    winner4 = int(np.argmin(fv[:LOWK_GROUPS]))
     for name, (min_k, min_f, _, _) in runs.items():
         assert (min_k, min_f) == (winner, int(fv[winner])), (name, min_k, min_f)
+    assert lowk_run[:2] == (winner4, int(fv[winner4])), lowk_run
     a = _scipy_matrix(sp, np, g)
     groups = sorted({winner, *range(SCIPY_GROUPS)})
     want = {q: _scipy_f(cg, np, a, queries[q]) for q in groups}
@@ -1109,7 +1492,51 @@ def _rmat20_paths(ctx, n, edges, g, bg, eg, k, seed):
             preprocessing_s=pre_s, computation_s=comp_s, levels=depth,
             reached=int(reached.sum()), ms_per_level=comp_s * 1e3 / max(depth, 1),
         )))
+    min_k, min_f, pre_s, comp_s = lowk_run
+    print("lowk rmat-20: " + json.dumps(dict(
+        n=n, K=LOWK_GROUPS, winner=min_k + 1, min_f=min_f,
+        all_f_equal_scipy=[int(x) for x in fv[:LOWK_GROUPS]] == [
+            want[q] for q in range(LOWK_GROUPS)],
+        f=[int(x) for x in fv[:LOWK_GROUPS]], preprocessing_s=pre_s, computation_s=comp_s,
+    )))
     print("rmat-20 engine query_stats s: " + json.dumps(seconds))
+    # The pack at the three RMAT-20 batch shapes (bitbell: stride 1, W = 2;
+    # bell: stride 8, W = 16; low-K: stride 8, W = 1).
+    _pack_check(torch, bitbell.BitBellEngine(bg), n, padded, "bitbell rmat-20")
+    _pack_check(torch, bell.BellEngine(bg), n, padded, "bell rmat-20")
+    _pack_check(torch, lowk.LowKEngine(bg), n, padded4, "lowk rmat-20")
+    # The byte routes a level at a time and split by launch.
+    library = _csr_pairs(torch, bg)
+    rows4 = _lowk_levels(torch, bg, padded4, "lowk rmat-20 K=4", library)
+    _summarise_levels(rows4, "lowk rmat-20 K=4")
+    rows1 = _lowk_levels(torch, bg, padded4[:1], "lowk rmat-20 K=1", library)
+    _summarise_levels(rows1, "lowk rmat-20 K=1")
+    _apply_at_k1(torch, rows1, n, "lowk rmat-20")
+    _lowk_split(torch, lowk.LowKEngine(bg, level_chunk=128), bg, padded4, len(rows4),
+                "lowk rmat-20 K=4")
+    bell_eng = bell.BellEngine(bg, level_chunk=128)
+    _lowk_split(torch, bell_eng, bg, padded, depth, "bell rmat-20 K=64")
+    # K5's pull at the bell route's width (W = 16) on a third of the rows.
+    gen = torch.Generator(device=bg.device).manual_seed(seed)
+    wide = (torch.rand((n, k), device=bg.device, generator=gen) < 0.3).to(torch.uint8)
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
+        cuda_bell,
+    )
+
+    row = _byte_forest_row(torch, bg, wide, cuda_bell.forest_scratch(bg, k // 4, bg.device),
+                           library)
+    print(f"compare rmat-20 n={n} K={k} forest_or:bytes: " + json.dumps(row))
+    assert row["max_abs_err"] == 0, row
+    del library, wide
+    pulls = [r["forest_or:bytes"] for r in rows4 if "forest_or:bytes" in r]
+    pushes = [r["push_or:bytes"] for r in rows4 if "push_or:bytes" in r]
+    assert pulls and pushes, "the low-K BFS ran one direction only"
+    # The kernel line's rows: the densest pull and the widest push of the
+    # low-K BFS (K = 4, W = 1).
+    return {
+        "forest_or:bytes": max(pulls, key=lambda r: r["frontier_rows"]),
+        "push_or:bytes": max(pushes, key=lambda r: r["edges"]),
+    }
 
 
 @contextlib.contextmanager
@@ -1138,6 +1565,10 @@ def _run_path(cli, timing, argv, name, launches):
     print(f"{name} variants: {json.dumps(VARIANTS[name])}")
     for kernel in PATH_KERNELS[name]:
         assert counts.get(kernel, 0) > 0, f"{kernel} never launched on {name}"
+    if "pack_sources" in PATH_KERNELS[name]:
+        stride = 8 if name in BYTE_PATHS else 1
+        packs = {k: v for k, v in VARIANTS[name].items() if k.startswith("pack_sources:")}
+        assert list(packs) == [f"pack_sources:stride{stride}"], (name, packs)
     return result
 
 
@@ -1170,6 +1601,7 @@ def _mxu_path(ctx, name, n, edges, g, k, seed):
     mg = mxu.MxuGraph.from_host(g, dev)
     padded = tio.pad_queries(queries)
     fast = mxu.MxuEngine(mg, level_chunk=128, kernel=True)
+    _pack_check(torch, fast, mg.n, padded, name)
     plain = mxu.MxuEngine(mg, level_chunk=128, plain=True)
     t0 = time.perf_counter()
     levels, reached, f_fast = fast.query_stats(padded)
@@ -1393,6 +1825,7 @@ def main() -> int:
     want_f = _scipy_f(cg, np, _scipy_matrix(sp, np, g4), q4[min_k])
     assert want_f == min_f, (want_f, min_f)
     depth = int(levels4.max())
+    _pack_check(torch, fast, n4, padded4, "stencil road-4096")
     print("main path: " + json.dumps(dict(
         graph="road-4096", K=16, winner=min_k + 1, min_f=min_f, scipy_f=want_f,
         preprocessing_s=pre_s, computation_s=comp_s, levels=depth,
@@ -1412,6 +1845,10 @@ def main() -> int:
     trace5 = _mxu_path(ctx, "mxu road-512", n5, e5, g5, 16, seed + 9)
     assert {"push", "matmul"} <= set(trace5), "road-512 ran one direction only"
     del mgr, mg5
+
+    # ---- 5a. the low-K route on RMAT-16 with one source (BASELINE.json
+    # config 1)
+    _lowk16_path((torch, np, sp, cg, cli, tio, timing, generators, launches, tmp, dev), seed)
 
     # ---- 4b. RMAT-20 (BASELINE.json config 2): the forest and ELL kernels
     # against their plain versions at K = 64 and K = 256, then the default
@@ -1439,7 +1876,8 @@ def main() -> int:
     _compare_forest_ell(torch, bg20, eg20, 256, seed + 11, "rmat-20")
     torch.cuda.empty_cache()
     ctx20 = (torch, np, sp, cg, cli, tio, timing, generators, launches, tmp)
-    _rmat20_paths(ctx20, n20, e20, g20, bg20, eg20, 64, seed + 12)
+    main_shape.update(_rmat20_paths(ctx20, n20, e20, g20, bg20, eg20, 64, seed + 12))
+    main_shape["pack_sources"] = PACK_ROWS["bitbell rmat-20"]
     del bg20, eg20, g20, e20
     torch.cuda.empty_cache()
     total = {name: sum(c.get(name, 0) for c in launches.values())
@@ -1518,13 +1956,20 @@ def main() -> int:
         "push_or": "ops/bitbell.py:225",
         "forest_or": "ops/bell.py:75",
         "ell_hits": "ops/pallas_bfs.py:44",
+        "pack_sources": "ops/bitbell.py:93, {JAX_PKG}/ops/lowk.py:66",
+        "forest_or:bytes": "ops/bell.py:144",
+        "push_or:bytes": "ops/lowk.py:87",
     }
+    # The byte uses of K1 and K3 (K5): their launches on the byte paths.
+    for name in ("forest_or", "push_or"):
+        total[f"{name}:bytes"] = sum(launches[p].get(name, 0) for p in BYTE_PATHS)
     rows = []
-    for name in kernels.KERNELS:
+    for name in (*kernels.KERNELS, "forest_or:bytes", "push_or:bytes"):
         row = main_shape[name]
         rows.append(dict(
-            name=name, route="cuda", source=f"{PKG}/csrc/{name}.cu",
-            replaces=f"{JAX_PKG}/{replaces[name]}", launches=total[name],
+            name=name, route="cuda", source=f"{PKG}/csrc/{name.split(':')[0]}.cu",
+            replaces=f"{JAX_PKG}/{replaces[name].format(JAX_PKG=JAX_PKG)}",
+            launches=total[name],
             max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"],
             library_ms=row.get("library_ms"),

@@ -9,15 +9,17 @@ report with the 1-based winner and 9-decimal times.
 
 Routes ported so far, on one device, routed as the JAX CLI routes off a
 TPU: the stencil route — road-class graphs with a banded adjacency
-(auto), or ``MSBFS_BACKEND=stencil``; the tensor-core route
-``MSBFS_BACKEND=mxu`` (``MSBFS_MXU_KERNEL=1`` for the CUDA tile kernel);
-the ELL route ``MSBFS_BACKEND=pallas``; and the default bitbell route
+(auto), or ``MSBFS_BACKEND=stencil``; the low-K route — 1 to
+``MSBFS_LOWK_MAX_K`` (4) queries on auto when no earlier route took the
+graph (``MSBFS_LOWK=0`` disables), or ``MSBFS_BACKEND=lowk``; the
+tensor-core route ``MSBFS_BACKEND=mxu`` (``MSBFS_MXU_KERNEL=1`` for the
+CUDA tile kernel); the ELL route ``MSBFS_BACKEND=pallas``; the pull-only
+byte-plane route ``MSBFS_BACKEND=bell``; and the default bitbell route
 (every other graph and backend name), with its over-memory configuration
 when the hybrid layout would not fit the device.  Each has the sub-batch
 split for wide batches and the supervisor's watchdog/retry.
-Every other route or mode of the JAX CLI — the low-K auto route included —
-exits 1 with a one-line message naming it as not yet ported; none of them
-silently runs something else.
+Every other route or mode of the JAX CLI exits 1 with a one-line message
+naming it as not yet ported; none of them silently runs something else.
 
 ``main(argv, device=None)`` runs on ``cuda`` and raises when there is no
 card; ``device="cpu"`` runs the kernels' plain torch versions (tests).
@@ -127,7 +129,7 @@ def _resolve_device(device) -> torch.device:
 
 # Backends of the JAX CLI the port does not have yet; any other name takes
 # the route the JAX CLI gives it (an unknown name runs bitbell there too).
-_UNPORTED_BACKENDS = ("vmap", "bell", "push", "ppush", "streamed", "packed", "dense", "lowk")
+_UNPORTED_BACKENDS = ("vmap", "push", "ppush", "streamed", "packed", "dense")
 # Backends whose footprint the bitbell estimate does not model: they never
 # take the over-memory configuration (the JAX CLI's list).
 _NON_BITBELL_FOOTPRINT_BACKENDS = (
@@ -271,19 +273,33 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
                     file=sys.stderr,
                 )
                 engine = StencilEngine(sg, level_chunk=stencil_chunk, megachunk=megachunk)
-        if (
-            engine is None
-            and backend == "auto"
-            and not hbm_warn
-            and 0 < padded.shape[0] <= knobs.get_int("MSBFS_LOWK_MAX_K", 4)
-            and knobs.raw("MSBFS_LOWK", "") != "0"
+        # The low-K route: a handful of queries as byte planes (ops.lowk),
+        # on auto when no earlier route took the graph; MSBFS_LOWK=0
+        # disables, MSBFS_BACKEND=lowk forces.
+        if engine is None and (
+            backend == "lowk"
+            or (
+                backend == "auto"
+                and not hbm_warn
+                and 0 < padded.shape[0] <= knobs.get_int("MSBFS_LOWK_MAX_K", 4)
+                and knobs.raw("MSBFS_LOWK", "") != "0"
+            )
         ):
-            return not_ported(
-                f"the low-K route ({padded.shape[0]} queries; MSBFS_LOWK=0 "
-                "takes the bitbell route)"
+            from .ops.lowk import LowKEngine
+
+            print(
+                f"low-K fast path: byte-flag engine for "
+                f"{padded.shape[0]} queries (MSBFS_LOWK=0 disables)",
+                file=sys.stderr,
+            )
+            announce_chunk()
+            engine = LowKEngine(
+                BellGraph.from_host(graph, dev),
+                level_chunk=level_chunk,
+                megachunk=megachunk,
             )
         if engine is not None:
-            pass  # stencil route above
+            pass  # stencil or low-K route above
         elif backend == "mxu":
             # Tensor-core frontier expansion over densified adjacency
             # tiles, with the per-level push/matmul switch (ops.mxu).
@@ -303,6 +319,14 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
             from .ops.engine import Engine
 
             engine = Engine(EllGraph.from_host(graph, dev), level_chunk=level_chunk)
+        elif backend == "bell":
+            # Pull-only byte planes over the forest (ops.bell): no dedup CSR.
+            from .ops.bell import BellEngine
+
+            engine = BellEngine(
+                BellGraph.from_host(graph, dev, keep_sparse=False),
+                level_chunk=level_chunk,
+            )
         else:
             # The default route: the bit-plane BELL forest (ops.bitbell).
             from .ops.bitbell import BitBellEngine

@@ -27,11 +27,11 @@
 // row's edges spread over as many warps as its degree needs and a run of
 // thin rows shares a warp.  A warp finds the entry holding its first edge
 // by a 32-way search of the prefix column (one ballot a step), then each
-// step loads the 32 entries from there — row, prefix, CSR start and the
-// row's words in one 4-, 8- or 16-byte load per lane — and each lane finds
-// its edge's entry among them by a 5-step shuffle search (every entry
-// holds an edge, so 32 entries cover 32 edges), reads the neighbour and
-// ORs the row's nonzero words into it.
+// step loads the 32 entries from the entry of its first edge — row,
+// prefix, CSR start and the row's words in one 4-, 8- or 16-byte load per
+// lane — and each lane finds its edge's entry among them by a 5-step
+// shuffle search (every entry holds an edge, so 32 entries cover 32
+// edges), reads the neighbour and ORs the row's nonzero words into it.
 #include "msbfs_common.cuh"
 
 #include <climits>
@@ -150,8 +150,15 @@ push_or_kernel(const uint32_t* __restrict__ frontier,
         }
       }
     }
-    // Edge e0 + 32 lies in lane 31's entry or a later one.
-    i0 += __shfl_sync(kFull, j, 31);
+    // The next step's 32 entries start at the entry of edge e0 + 32: the
+    // last of these 32 whose prefix is <= e0 + 32, or the one after them
+    // when they end exactly there.  (Starting at lane 31's entry instead
+    // leaves the step one entry short when that entry ends at e0 + 31 and
+    // the next 32 hold one edge each.)
+    const long long next = static_cast<long long>(e0) + 32;
+    int k = 31 - __clz(__ballot_sync(kFull, o <= next));
+    if (k == 31 && i0 + 32 < len && __ldg(wl_offs + i0 + 32) <= next) k = 32;
+    i0 += k;
   }
 }
 

@@ -55,6 +55,7 @@ from .bitbell import (
     bit_level_init,
     default_sparse_budget,
     pack_queries,
+    pack_queries_plain,
     resolve_megachunk,
     sparse_hits_or,
     sparse_hits_or_plain,
@@ -259,11 +260,12 @@ def mxu_expand(graph: MxuGraph, kernel: bool = False, plain: bool = False):
     return expand
 
 
-def _mxu_frontier0(graph: MxuGraph, queries):
+def _mxu_frontier0(graph: MxuGraph, queries, plain: bool = False):
     """(K, S) host queries -> (n_pad, W) source planes and (K,) source
     counts: packed over the real vertex range (sources at or past n are
     dropped), then zero rows up to the tile boundary."""
-    fr, counts0 = pack_queries(graph.n, queries, graph.device)
+    pack = pack_queries_plain if plain else pack_queries
+    fr, counts0 = pack(graph.n, queries, graph.device)
     pad = graph.n_pad - graph.n
     if pad:
         fr = torch.cat([fr, fr.new_zeros((pad, fr.shape[1]))])
@@ -340,7 +342,7 @@ class MxuEngine(FusedBestEngine):
     def _init_carry(self, queries) -> BitCarry:
         """The carry, with the switch's push predicate ``active rows <=
         switch and their edges <= push_budget`` decided for the sources."""
-        frontier0, counts0 = _mxu_frontier0(self.graph, queries)
+        frontier0, counts0 = _mxu_frontier0(self.graph, queries, self.plain)
         switch = PushSwitch.new(
             self.graph.count, min(self.switch, INT32_MAX), self.push_budget,
             frontier0.shape[1],

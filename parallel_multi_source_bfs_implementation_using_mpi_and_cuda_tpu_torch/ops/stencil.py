@@ -44,6 +44,7 @@ from .bitbell import (
     bit_level_chunk,
     bit_level_init,
     pack_queries,
+    pack_queries_plain,
     resolve_megachunk,
 )
 from .cuda_stencil import (
@@ -366,7 +367,8 @@ class StencilEngine(FusedBestEngine):
     # -- the level loop --------------------------------------------------
 
     def _init_carry(self, queries) -> BitCarry:
-        frontier0, counts0 = pack_queries(self.graph.n, queries, self.device)
+        pack = pack_queries_plain if self.plain else pack_queries
+        frontier0, counts0 = pack(self.graph.n, queries, self.device)
         return bit_level_init(frontier0, counts0)
 
     def _step(self, carry: BitCarry, wlo: int, hits: torch.Tensor) -> None:
@@ -419,7 +421,7 @@ class StencilEngine(FusedBestEngine):
     def _warm(self, queries) -> None:
         """Build and load the kernels, then run one real level from one
         source: CUDA loads each kernel module (torch's sort and scatter
-        behind ``pack_queries`` included) at its first launch, and the
+        behind the plain ``pack_queries`` included) at its first launch, and the
         chunk loop allocates its pinned peek buffer, so none of that
         lands in the first timed run."""
         if self.device.type == "cuda" and not self.plain:

@@ -1,7 +1,8 @@
 """The port's CLI against the JAX package's ``cli.main`` on the same
 fixtures: report lines 1-5 and exit codes, the routing of the default
-(bitbell), ELL and over-memory branches, the sub-batch split, the routes
-that are not ported yet, and the port's import isolation."""
+(bitbell), low-K, byte-plane BELL, ELL and over-memory branches, the
+sub-batch split, the routes that are not ported yet, and the port's
+import isolation."""
 
 import os
 import subprocess
@@ -151,7 +152,7 @@ def test_missing_file_matches_jax(tmp_path, capsys, missing):
     "env,subcommand",
     [
         ({"MSBFS_BACKEND": "vmap"}, None),
-        ({"MSBFS_BACKEND": "lowk"}, None),
+        ({"MSBFS_BACKEND": "push"}, None),
         ({"MSBFS_STATS": "1"}, None),
         ({"MSBFS_CHECKPOINT": "journal.bin"}, None),
         ({"MSBFS_WEIGHTED": "1"}, None),
@@ -185,14 +186,19 @@ def test_forced_stencil_ignores_stencil_knob(tmp_path, capsys, monkeypatch):
 
 
 def test_unbanded_graph_fails_loudly(tmp_path, capsys):
+    """An unbanded graph with two queries takes the low-K route on auto,
+    as in the JAX CLI; forcing the stencil route on it fails loudly."""
     n = 400
     edges = np.random.default_rng(1).integers(0, n, size=(3000, 2))
     gpath, qpath = tmp_path / "g.bin", tmp_path / "q.bin"
     io.save_graph_bin(gpath, n, edges)
     io.save_query_bin(qpath, [[1, 2], [3]])
     argv = ["prog", "-g", str(gpath), "-q", str(qpath), "-gn", "1"]
-    assert cli.main(argv, device="cpu") == 1
-    assert "the low-K route (2 queries" in capsys.readouterr().err
+    (rc_port, port), (rc_jax, jax_out) = _run_both(argv, capsys)
+    assert rc_port == rc_jax == 0
+    assert port.out.splitlines()[:5] == jax_out.out.splitlines()[:5]
+    notice = "low-K fast path: byte-flag engine for 2 queries (MSBFS_LOWK=0 disables)"
+    assert notice in port.err.splitlines() and notice in jax_out.err.splitlines()
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("MSBFS_BACKEND", "stencil")
         assert cli.main(argv, device="cpu") == 1
@@ -241,7 +247,10 @@ def _rmat_fixture(tmp_path, k=40, scale=8, seed=21):
     return ["prog", "-g", gpath, "-q", qpath, "-gn", "1"]
 
 
-# (fixture, environment, a stderr line both CLIs must print)
+LOWK = "low-K fast path: byte-flag engine for"
+
+# (fixture, environment, a stderr line both CLIs must print); an "rmat<K>"
+# fixture has K query groups, "rmat" 40.
 ROUTES = {
     "default_rmat": ("rmat", {}, None),
     "pallas": ("rmat", {"MSBFS_BACKEND": "pallas"}, None),
@@ -249,6 +258,19 @@ ROUTES = {
     "unknown_backend": ("rmat", {"MSBFS_BACKEND": "csr", "MSBFS_LEVEL_CHUNK": "2"}, None),
     "stencil_off_road": ("road", {"MSBFS_STENCIL": "0"}, "road-class degree profile"),
     "lowk_off": ("rmat2", {"MSBFS_LOWK": "0"}, None),
+    "lowk_auto_k1": ("rmat1", {}, LOWK),
+    "lowk_auto_k2": ("rmat2", {}, LOWK),
+    "lowk_auto_k3": ("rmat3", {"MSBFS_LEVEL_CHUNK": "1"}, LOWK),
+    "lowk_auto_k4": ("rmat4", {}, LOWK),
+    "lowk_forced_k2": ("rmat2", {"MSBFS_BACKEND": "lowk"}, LOWK),
+    "lowk_forced_k40": ("rmat", {"MSBFS_BACKEND": "lowk"}, LOWK),
+    "lowk_forced_subbatch": (
+        "rmat", {"MSBFS_BACKEND": "lowk", "MSBFS_SUBBATCH_K": "16"}, "16-wide sub-batches",
+    ),
+    "lowk_max_k_raised": ("rmat6", {"MSBFS_LOWK_MAX_K": "8"}, LOWK),
+    "lowk_road_stencil_off": ("road", {"MSBFS_STENCIL": "0", "MSBFS_LOWK_MAX_K": "12"}, LOWK),
+    "bell": ("rmat", {"MSBFS_BACKEND": "bell"}, None),
+    "bell_chunked": ("rmat3", {"MSBFS_BACKEND": "bell", "MSBFS_LEVEL_CHUNK": "2"}, None),
     "over_memory": ("rmat", {"MSBFS_HBM_BYTES": "100000"}, "dropping the hybrid CSR"),
     "over_memory_chunk0": (
         "rmat", {"MSBFS_HBM_BYTES": "100000", "MSBFS_LEVEL_CHUNK": "0"},
@@ -265,7 +287,7 @@ def test_routes_match_jax(tmp_path, capsys, monkeypatch, case):
     if fixture == "road":
         argv = _fixture(tmp_path)
     else:
-        argv = _rmat_fixture(tmp_path, k=2 if fixture == "rmat2" else 40)
+        argv = _rmat_fixture(tmp_path, k=int(fixture[4:] or 40))
     for key, value in env.items():
         monkeypatch.setenv(key, value)
     (rc_port, port), (rc_jax, jax_out) = _run_both(argv, capsys)
@@ -277,15 +299,24 @@ def test_routes_match_jax(tmp_path, capsys, monkeypatch, case):
         mine = [ln for ln in port.err.splitlines() if line in ln]
         theirs = [ln for ln in jax_out.err.splitlines() if line in ln]
         assert mine and mine == theirs
+    lowk_route = case.startswith("lowk_") and case != "lowk_off"
+    assert (LOWK in port.err) == (LOWK in jax_out.err) == lowk_route
 
 
 def test_lowk_route_refused_as_jax_routes_it(tmp_path, capsys, monkeypatch):
-    """K <= MSBFS_LOWK_MAX_K on auto is JAX's low-K route: refused, not run
-    as bitbell; over memory, or with the knob raised past K, it is not."""
+    """K <= MSBFS_LOWK_MAX_K on auto takes JAX's low-K route, with its
+    notice, and not the bitbell route; over memory, or with the knob
+    lowered below K, it does not, in both CLIs."""
     argv = _rmat_fixture(tmp_path, k=3)
-    assert cli.main(argv, device="cpu") == 1
-    assert "low-K route" in capsys.readouterr().err
-    monkeypatch.setenv("MSBFS_LOWK_MAX_K", "2")
     (rc_port, port), (rc_jax, jax_out) = _run_both(argv, capsys)
     assert rc_port == rc_jax == 0
     assert port.out.splitlines()[:5] == jax_out.out.splitlines()[:5]
+    notice = f"{LOWK} 3 queries (MSBFS_LOWK=0 disables)"
+    assert notice in port.err.splitlines() and notice in jax_out.err.splitlines()
+    for knob, value in (("MSBFS_LOWK_MAX_K", "2"), ("MSBFS_HBM_BYTES", "100000")):
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setenv(knob, value)
+            (rc_port, port), (rc_jax, jax_out) = _run_both(argv, capsys)
+        assert rc_port == rc_jax == 0
+        assert port.out.splitlines()[:5] == jax_out.out.splitlines()[:5]
+        assert LOWK not in port.err and LOWK not in jax_out.err

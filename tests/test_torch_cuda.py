@@ -25,6 +25,7 @@ from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.model
     EllGraph,
 )
 from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
+    bell,
     bfs,
     bitbell,
     cuda_bell,
@@ -32,6 +33,7 @@ from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops i
     cuda_mxu,
     cuda_stencil,
     engine,
+    lowk,
     mxu,
     stencil,
 )
@@ -353,7 +355,7 @@ def test_fused_sweep_matches_plain(cuda, monkeypatch, rows, w, offsets, r, strad
 
 def test_stencil_route_launches_one_kernel_a_level(cuda):
     """A residual graph's level is one sweep launch (the residual inside
-    it) and one apply, nothing else."""
+    it) and one apply, nothing else; the batch's sources are one pack."""
     n, edges = generators.road_edges(48, 48, seed=5, shortcut_frac=0.01)
     sg = stencil.StencilGraph.from_host(CSRGraph.from_edges(n, edges), cuda)
     assert sg.residual is not None
@@ -362,8 +364,8 @@ def test_stencil_route_launches_one_kernel_a_level(cuda):
     timing.reset_launch_counts()
     eng.query_stats(queries)
     counts = timing.launch_counts()
-    assert set(counts) == {"stencil_sweep", "level_apply"}
-    assert counts["stencil_sweep"] == counts["level_apply"]
+    assert set(counts) == {"pack_sources", "stencil_sweep", "level_apply"}
+    assert counts["stencil_sweep"] == counts["level_apply"] and counts["pack_sources"] == 1
     assert all(k.endswith("/res") for k in timing.variant_counts() if k.startswith("stencil_sweep"))
 
 
@@ -555,6 +557,39 @@ def test_push_or_matches_plain(cuda, w):
     matmul[3] = bitbell.DIR_MATMUL
     bitbell.sparse_hits_or(frontier, mg.start, mg.vals, stale, matmul, switch, 100)
     assert bool((stale == 3).all())  # a matmul level: untouched
+
+
+@pytest.mark.parametrize("w", [1, 2, 3])
+@pytest.mark.parametrize("edge_limit", [256, 10**6])
+def test_push_or_list_order_with_a_step_ending_a_row(cuda, w, edge_limit):
+    """push_or on a worklist whose order has a row ending exactly at a
+    step's last edge, then 32 and more rows of one edge: the next step
+    must start at the entry of its own first edge (a walk that starts it
+    at the previous step's last entry reads one edge from the wrong row)."""
+    rng = np.random.default_rng(w)
+    rows = 3000
+    deg = rng.integers(1, 4, size=rows).astype(np.int32)
+    deg[0], deg[1:41] = 32, 1
+    start = np.concatenate([[0], np.cumsum(deg)[:-1]]).astype(np.int32)
+    vals = rng.integers(0, rows, size=int(deg.sum())).astype(np.int32)
+    frontier = _planes(rng, rows, w)
+    listed = np.arange(rows, dtype=np.int32)
+    listed[41:] = rng.permutation(listed[41:])
+    offs = (np.cumsum(deg[listed]) - deg[listed]).astype(np.int32)
+    count = torch.from_numpy(deg).to(cuda)
+    switch = bitbell.PushSwitch.new(count, rows, edge_limit, w)
+    switch.worklist[0] = torch.from_numpy(listed).to(cuda)
+    switch.worklist[1] = torch.from_numpy(offs).to(cuda)
+    switch.state[bitbell.SW_LISTED] = rows
+    switch.state[bitbell.SW_LISTED_EDGES] = int(deg.sum())
+    go = torch.tensor([1, 5, 0, bitbell.DIR_PUSH], dtype=torch.int32, device=cuda)
+    args = (frontier.to(cuda), torch.from_numpy(start).to(cuda), torch.from_numpy(vals).to(cuda))
+    want = torch.zeros((rows, w), dtype=torch.int32, device=cuda)
+    got = torch.zeros_like(want)
+    bitbell.sparse_hits_or_plain(*args, want, go, switch, 100)
+    bitbell.sparse_hits_or(*args, got, go, switch, 100)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and bool(want.any())
 
 
 def test_push_or_hub_row_spans_many_warps(cuda):
@@ -947,6 +982,127 @@ def test_bitbell_and_ell_cli_on_card(cuda, tmp_path, capsys, monkeypatch, backen
     assert cli.main(argv) == 0
     kernel = "ell_hits" if backend == "pallas" else "forest_or"
     assert timing.launch_counts().get(kernel, 0) > 0
+    card = capsys.readouterr().out.splitlines()
+    assert cli.main(argv, device="cpu") == 0
+    host = capsys.readouterr().out.splitlines()
+    assert card[:5] == host[:5]
+
+
+def _pack_case(case, n, k, s, rng):
+    """Queries for the pack tests: duplicates within a group and across
+    groups, -1 padding and sources at and past n."""
+    q = rng.integers(-3, n + 4, size=(k, s)).astype(np.int32)
+    if case == "duplicates" and k and s:
+        q[:, -1] = q[:, 0]
+        q[k // 2] = q[0]
+    elif case == "out_of_range" and k and s:
+        q[:, ::2] = -1
+        q[0, 0] = n
+        q[-1, -1] = n - 1
+    return q
+
+
+@pytest.mark.parametrize("stride", [1, 8])
+@pytest.mark.parametrize(
+    "case,k,s",
+    [("random", 1, 1), ("random", 3, 40), ("duplicates", 4, 9), ("out_of_range", 64, 128),
+     ("duplicates", 256, 7), ("random", 3, 0), ("random", 0, 5), ("random", 16, 300)],
+)
+def test_pack_sources_matches_plain(cuda, stride, case, k, s):
+    """The pack kernel against its plain version, bit for bit, plane and
+    per-lane counts; an empty batch launches nothing."""
+    n = 5000
+    q = _pack_case(case, n, k, s, np.random.default_rng(k * 7 + s + stride))
+    want = bitbell.pack_queries_plain(n, q, "cpu", stride)
+    timing.reset_launch_counts()
+    got = bitbell.pack_queries(n, q, cuda, stride)
+    torch.cuda.synchronize()
+    assert timing.launch_counts() == ({"pack_sources": 1} if k * s else {})
+    assert timing.variant_counts() == ({f"pack_sources:stride{stride}": 1} if k * s else {})
+    for x, y in zip(got, want):
+        assert torch.equal(x.cpu(), y)
+    assert torch.equal(bitbell.pack_queries_plain(n, q, cuda, stride)[0].cpu(), want[0])
+
+
+@pytest.mark.parametrize("k", [1, 3, 4, 8, 64])
+def test_byte_forest_and_push_match_plain(cuda, k):
+    """The forest and push kernels over byte planes' word views against
+    the byte pull's and push's plain versions (amax over bytes)."""
+    g = _hub_graph(90 + k)
+    bg = BellGraph.from_host(g, cuda)
+    rng = np.random.default_rng(k)
+    kp = max(4, -(-k // 4) * 4)
+    flags = np.zeros((g.n, kp), dtype=np.uint8)
+    flags[:, :k] = rng.random((g.n, k)) < 0.2
+    frontier = torch.from_numpy(flags).to(cuda)
+    pull = torch.tensor([1, 5, 0, bitbell.DIR_PULL], dtype=torch.int32, device=cuda)
+    want = torch.full_like(frontier, 9)
+    got = torch.full_like(frontier, 9)
+    bell.bell_hits_packed_plain(frontier, bg, want, pull, 100)
+    timing.reset_launch_counts()
+    bell.bell_hits_packed(frontier, bg, got, pull, 100)
+    torch.cuda.synchronize()
+    assert timing.launch_counts() == {"forest_or": 1}
+    assert torch.equal(got, want) and not bool(got[:, k:].any())
+    thin = frontier.clone()
+    thin[torch.from_numpy(rng.random(g.n) < 0.97).to(cuda)] = 0
+    thin[5, 0] = 1  # the 700-neighbour hub
+    switch, go = _switch_for(bell.byte_words(thin), bg.sparse[1])
+    assert int(go[3]) == bitbell.DIR_PUSH
+    want = torch.zeros_like(thin)
+    got = torch.zeros_like(thin)
+    lowk.sparse_hits_flags_plain(thin, bg, want, go, switch, 100)
+    timing.reset_launch_counts()
+    lowk.sparse_hits_flags(thin, bg, got, go, switch, 100)
+    torch.cuda.synchronize()
+    assert timing.launch_counts() == {"push_or": 1}
+    assert torch.equal(got, want) and bool(want.any()) and not bool(got[:, k:].any())
+
+
+@pytest.mark.parametrize(
+    "k,kwargs",
+    [(1, {}), (3, {"level_chunk": 1}), (4, {"sparse_budget": 300}), (2, {"sparse_budget": 0}),
+     (40, {"level_chunk": 3})],
+)
+def test_lowk_engine_on_card_matches_plain(cuda, k, kwargs):
+    """LowKEngine's kernel path against its plain path on the card, level
+    by level (planes, counters, control and the push's plane), then its
+    results against the CPU engine's."""
+    g = _hub_graph(70 + k)
+    queries = io.pad_queries(generators.random_queries(g.n, k, max_group=5, seed=k))
+    bg = BellGraph.from_host(g, cuda)
+    fast = lowk.LowKEngine(bg, **kwargs)
+    slow = lowk.LowKEngine(bg, plain=True, **kwargs)
+    a = fast._init_carry(fast._pad_queries(queries)[0])
+    b = slow._init_carry(slow._pad_queries(queries)[0])
+    levels = 0
+    while bitbell.level_go(b.ctrl, 10**6):
+        for field in ("visited", "frontier", "f", "levels", "reached", "ctrl"):
+            assert torch.equal(getattr(a, field), getattr(b, field)), (levels, field)
+        if a.switch is not None:
+            assert torch.equal(a.switch.hits, b.switch.hits)
+        fast._chunk(a, 1)
+        slow._chunk(b, 1)
+        levels += 1
+    torch.cuda.synchronize()
+    assert levels >= 2 and torch.equal(a.f, b.f) and torch.equal(a.ctrl[:2], b.ctrl[:2])
+    want = lowk.LowKEngine(BellGraph.from_host(g, "cpu"), **kwargs).query_stats(queries)
+    for x, y in zip(fast.query_stats(queries), want):
+        np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("backend,k", [("auto", 1), ("auto", 4), ("lowk", 40), ("bell", 40)])
+def test_lowk_and_bell_cli_on_card(cuda, tmp_path, capsys, monkeypatch, backend, k):
+    n, edges = generators.rmat_edges(10, edge_factor=8, seed=9)
+    gpath, qpath = tmp_path / "g.bin", tmp_path / "q.bin"
+    io.save_graph_bin(gpath, n, edges)
+    io.save_query_bin(qpath, generators.random_queries(n, k, max_group=6, seed=9))
+    monkeypatch.setenv("MSBFS_BACKEND", backend)
+    argv = ["prog", "-g", str(gpath), "-q", str(qpath), "-gn", "1"]
+    timing.reset_launch_counts()
+    assert cli.main(argv) == 0
+    counts = timing.launch_counts()
+    assert counts.get("pack_sources", 0) > 0 and counts.get("forest_or", 0) > 0
     card = capsys.readouterr().out.splitlines()
     assert cli.main(argv, device="cpu") == 0
     host = capsys.readouterr().out.splitlines()

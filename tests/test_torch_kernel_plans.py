@@ -11,8 +11,9 @@ against the plain sweep, so a plan whose ring would overwrite a row still
 in use, or miss one, fails here before it reaches the card; so is the
 order in which each block ORs in its residual edges.  The tile kernel's
 unit decoding, its cut of a row tile's list and its swizzled
-shared-memory rows, and the forest kernel's run decoding and segmented
-shuffles are emulated the same way.
+shared-memory rows, the forest kernel's run decoding and segmented
+shuffles, and the push kernel's walk of its worklist's edge space are
+emulated the same way.
 """
 
 import numpy as np
@@ -626,3 +627,100 @@ def test_forest_plan(w, vec16):
     assert cuda_bell.forest_plan(2).label == "W2/vec16"
     assert cuda_bell.forest_plan(5).label == "Wn/vec4"
     assert cuda_bell.forest_plan(8, False).label == "W8/vec4"
+
+
+# The push kernel's block size and blocks per SM (csrc/push_or.cu), and the
+# H100's SMs.
+PUSH_THREADS, PUSH_BLOCKS_PER_SM, SMS = 256, 2, 132
+
+
+def _push_walk(offs, total, edge_cap, window_rule="next_edge"):
+    """csrc/push_or.cu's walk of the edge space [0, total) of a worklist
+    with exclusive prefixes ``offs`` (each entry holds an edge): each warp
+    takes an equal share of whole 32-edge steps, finds its first edge's
+    entry by the 32-way ballot search, and each step's lanes search the 32
+    entries from the step's window start.  Returns the entry each edge
+    was read from.  ``window_rule`` "lane31" is a faulty rule kept to
+    show that the test catches it: the next window starts at lane 31's
+    entry."""
+    offs = np.asarray(offs, dtype=np.int64)
+    length = offs.shape[0]
+    big = np.iinfo(np.int64).max
+    grid = min(max(1, -(-edge_cap // PUSH_THREADS)), PUSH_BLOCKS_PER_SM * SMS)
+    warps = grid * PUSH_THREADS // 32
+    share = (-(-total // warps) + 31) // 32 * 32
+    got = np.full(total, -1, dtype=np.int64)
+
+    def at(i):
+        return offs[i] if i < length else big
+
+    def find_entry(e):
+        lo, hi = 0, length
+        while hi - lo > 32:
+            span = hi - lo
+            m = [at(lo + span * lane // 32) <= e for lane in range(32)]
+            k = max(lane for lane in range(32) if m[lane])
+            hi = hi if k == 31 else lo + span * (k + 1) // 32
+            lo += span * k // 32
+        return lo + max(lane for lane in range(32) if lo + lane < hi and at(lo + lane) <= e)
+
+    for warp in range(warps):
+        a = warp * share
+        if length == 0 or a >= total:
+            continue
+        b = min(a + share, total)
+        i0 = find_entry(a)
+        for e0 in range(a, b, 32):
+            o = [at(i0 + lane) for lane in range(32)]
+            js = []
+            for lane in range(32):
+                e, j = e0 + lane, 0
+                for step in (16, 8, 4, 2, 1):
+                    if o[j + step] <= e:
+                        j += step
+                js.append(j)
+                if e < b:
+                    got[e] = i0 + j
+            if window_rule == "lane31":
+                i0 += js[31]
+            else:
+                k = max(lane for lane in range(32) if o[lane] <= e0 + 32)
+                if k == 31 and at(i0 + 32) <= e0 + 32:
+                    k = 32
+                i0 += k
+    return got
+
+
+def _degrees_to_offs(deg):
+    deg = np.asarray(deg, dtype=np.int64)
+    return np.cumsum(deg) - deg, int(deg.sum())
+
+
+@pytest.mark.parametrize(
+    "case", ["step_ends_then_singles", "random_small", "hub_then_singles", "singles", "one_hub"]
+)
+def test_push_walk_reads_every_edge_from_its_entry(case):
+    """Every edge of the worklist's edge space is read from the entry that
+    holds it, whatever the order of the rows' degrees: among them a row
+    that ends exactly at a step's last edge followed by 32 rows of one
+    edge, the order in which a walk that starts each step at the previous
+    step's last entry reads one edge from the entry before its own (on
+    RMAT-20's fifth bitbell level, listed in such an order, that walk set
+    two words too many)."""
+    rng = np.random.default_rng(len(case))
+    if case == "step_ends_then_singles":
+        deg = [32] + [1] * 40 + list(rng.integers(1, 4, size=2000))
+    elif case == "random_small":
+        deg = rng.choice([1, 1, 1, 2, 3, 14], size=20000)
+    elif case == "hub_then_singles":
+        deg = [5000] + [1] * 3000 + [31] + [1] * 100
+    elif case == "singles":
+        deg = [1] * 9000
+    else:
+        deg = [70000]
+    offs, total = _degrees_to_offs(deg)
+    want = np.searchsorted(offs, np.arange(total), side="right") - 1
+    for edge_cap in (total, 256, 490663):
+        np.testing.assert_array_equal(_push_walk(offs, total, edge_cap), want)
+    if case == "step_ends_then_singles":
+        assert (_push_walk(offs, total, 256, window_rule="lane31") != want).any()
