@@ -7,7 +7,7 @@ builds and runs on the GPU, and the source of its kernel timings.
 Needs one CUDA card (NVIDIA H100 class, sm_90a), nvcc, and scipy; imports
 nothing of JAX.  Phases (any failure exits non-zero; nothing is caught):
 
-1. print the card (nvidia-smi name, power limit); build the seven CUDA
+1. print the card (nvidia-smi name, power limit); build the eight CUDA
    kernels from csrc/ in parallel and time the build;
 2. hold each kernel against its plain torch version on the card, bit for
    bit, and time both with CUDA events beside the analytic bound: the
@@ -58,10 +58,14 @@ nothing of JAX.  Phases (any failure exits non-zero; nothing is caught):
    1) with one group of one source through the CLI's auto route: F equals
    scipy's and the plain engine's; then the BFS a level at a time, the
    kernel engine equal to the plain engine before every level, K5's push
-   and pull (push_or and forest_or on the byte plane's word view) held
-   against their byte plain versions and timed beside their bounds and
-   the ``index_reduce_`` amax library call, the switched apply held and
-   timed; and its launch split;
+   (push_or on the byte plane's word view) and pull (flag_pull, with the
+   carry's visited plane and counters) held against their byte plain
+   versions and timed beside their bounds (the pull's whole function's
+   and its level's, over the live rows only) and the ``index_reduce_``
+   amax library call (the pull's then masked by ``~visited``), the pull
+   also beside bell_hits_packed (forest_or on the word view) on the
+   same frontier, the switched apply held and timed; and its launch
+   split;
 5b. RMAT-20 (rmat_edges(20, 16), BASELINE.json config 2): forest_or and
    ell_hits against their plain versions at K = 64 (W = 2) and K = 256
    (W = 8), timed beside their bounds (forest_or also beside its L2
@@ -85,8 +89,9 @@ nothing of JAX.  Phases (any failure exits non-zero; nothing is caught):
    the first eight groups (the low-K route's four among them) equal
    scipy's; then the low-K BFS a level at a time as on RMAT-16, at K = 4
    and at K = 1 (the apply's time on its widest K = 1 level beside its
-   bound at 4 and at 1 byte a vertex), both byte routes split by launch,
-   and K5's pull at W = 16;
+   bound at 4 and at 1 byte a vertex), the bell BFS (K = 64) the same way,
+   both byte routes split by launch, and K5's pull at W = 16 on a
+   synthetic plane with nothing visited, beside bell_hits_packed;
 6. road-1024 at K = 16 (BASELINE.md config 4): every F and the winner
    equal scipy's;
 7. road-1024 at K = 300 through the sub-batch split (W = 8 and W = 2):
@@ -99,11 +104,14 @@ then the ``{"kernels": [...]}`` line and the final ``{"ok": true, ...}``.
 Each CLI run of phases 3-5b is one path: the kernel launch counters are
 zeroed just before it and read just after; each path must have launched
 its route's kernels (pack_sources at its route's stride), and every
-registered kernel must have launched on some path.  The kernel line has
-a row for each kernel and for the byte uses of forest_or and push_or
-(K5), counted over the byte paths.  Each path, and phases 7 and 8, also print the launches per
-kernel variant; the mxu paths must have launched tile_hits' pipe variant
-and the ELL path more steady than stale levels.
+registered kernel must have launched on some path, and no byte path may
+launch forest_or.  The kernel line has a row for each kernel (flag_pull's
+from the densest pull of RMAT-20's low-K BFS, its bound the level's) and
+for the byte use of push_or (K5's push), counted over the byte paths.
+Each path, and phases 7 and 8, also print the launches per kernel
+variant; the mxu paths must have launched tile_hits' pipe variant, the
+ELL path more steady than stale levels, and the byte paths flag_pull's
+instance of their width (the bits instance at K = 1).
 """
 
 from __future__ import annotations
@@ -137,14 +145,15 @@ PATH_KERNELS = {
     "stencil road-4096": ("pack_sources", "stencil_sweep", "level_apply"),
     "mxu rmat-14": ("pack_sources", "tile_hits", "level_apply"),
     "mxu road-512": ("pack_sources", "tile_hits", "push_or", "level_apply"),
-    "lowk rmat-16": ("pack_sources", "forest_or", "push_or", "level_apply"),
+    "lowk rmat-16": ("pack_sources", "flag_pull", "push_or", "level_apply"),
     "bitbell rmat-20": ("pack_sources", "forest_or", "push_or", "level_apply"),
     "ell rmat-20": ("ell_hits",),
-    "bell rmat-20": ("pack_sources", "forest_or", "level_apply"),
-    "lowk rmat-20": ("pack_sources", "forest_or", "push_or", "level_apply"),
+    "bell rmat-20": ("pack_sources", "flag_pull", "level_apply"),
+    "lowk rmat-20": ("pack_sources", "flag_pull", "push_or", "level_apply"),
 }
 # The paths whose planes are bytes: their pack runs at a stride of 8 lanes,
-# the others' at 1 (the ELL route packs no planes).
+# the others' at 1 (the ELL route packs no planes), and they pull with
+# flag_pull, never with forest_or.
 BYTE_PATHS = ("lowk rmat-16", "bell rmat-20", "lowk rmat-20")
 # Groups of the RMAT-20 paths checked against scipy (besides the winner).
 SCIPY_GROUPS = 8
@@ -688,9 +697,12 @@ def _compare_forest_ell(torch, bg, eg, k, seed, label):
         4 * eg.width * stats["live_rows"] + 4 * eg.num_vrows + 16 * n * w + 4 * new_labels,
         stats["live_slots"] * w + n * w,
     )
+    # The steady level gathers the same dist == 2 frontier: its library
+    # yardstick is the stale row's call.
     out["ell_hits steady"] = dict(
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-        library_ms=None, new_labels=new_labels,
+        library_ms=library_ms, library="torch.amax(frontier[:, cols], dim=1), two calls",
+        new_labels=new_labels,
         gather_l2_floor_bytes=32 * stats["live_slots"], **stats)
     del c_p, c_k, snap, planes0
     for name, row in out.items():
@@ -950,7 +962,7 @@ def _hybrid_split(torch, make_carry, push, pull, chunk, levels, label):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             chunk(c3)
             torch.cuda.synchronize()
-        seen, busy_us, first, last = {}, 0.0, None, None
+        seen, kernel_us, busy_us, first, last = {}, {}, 0.0, None, None
         for evt in prof.events():
             if evt.device_type != torch.autograd.DeviceType.CUDA:
                 continue
@@ -961,13 +973,15 @@ def _hybrid_split(torch, make_carry, push, pull, chunk, levels, label):
             name = evt.name.replace("(anonymous namespace)::", "").replace("void ", "")
             name = name.split("(")[0].split("<")[0].split("::")[-1] or evt.name[:40]
             seen[name] = seen.get(name, 0) + 1
+            kernel_us[name] = kernel_us.get(name, 0.0) + rng_.elapsed_us()
         if best is None or sum(seen.values()) > sum(best[0].values()):
-            best = (seen, busy_us, first, last)
-    seen, busy_us, first, last = best
+            best = (seen, kernel_us, busy_us, first, last)
+    seen, kernel_us, busy_us, first, last = best
     if seen:
         busy = dict(source="torch.profiler", busy_ms=busy_us / 1e3, chunk_ms=chunk_ms,
                     busy_share=busy_us / 1e3 / chunk_ms,
-                    device_span_ms=(last - first) / 1e3, kernels=seen)
+                    device_span_ms=(last - first) / 1e3, kernels=seen,
+                    kernel_ms={k: v / 1e3 for k, v in kernel_us.items()})
     else:  # no device activity in either trace: the events of the split
         busy = dict(source="cuda events", busy_ms=sum(totals[k] for k in names),
                     chunk_ms=span, busy_share=sum(totals[k] for k in names) / span)
@@ -981,6 +995,21 @@ def _hybrid_split(torch, make_carry, push, pull, chunk, levels, label):
             "split_" + label.replace(" ", "_"), per_level),
     )))
     return busy
+
+
+def _wrapper_host_us(torch, fn, reps=500):
+    """Host time of one call of a kernel wrapper ``fn`` whose launches are
+    gated off on the device (so the device never holds the host back):
+    its checks, plan, ctypes call and the launches themselves."""
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def _host_dispatch_us(torch, dev):
@@ -1234,33 +1263,116 @@ def _byte_push_row(torch, bg, frontier, switch, ctrl, timed=True):
                 reached_rows=reached, Kp=kp)
 
 
-def _lowk_levels(torch, bg, padded, label, library):
-    """The low-K route's BFS a level at a time: the kernel engine's carry
-    and the plain engine's advanced in lockstep and equal before every
-    level and at the end; on each level the byte push or pull held
-    against its plain version and timed (:func:`_byte_push_row`,
-    :func:`_byte_forest_row`), and the switched apply held and timed
-    beside the same launch without the switch.  Returns one row a level."""
+def _active_lanes(torch, kp, k, levels, ctrl):
+    """flag_pull's active lanes as a (Kp,) bool: real lanes (q < k) whose
+    counter says the query's frontier is not empty (every real lane when
+    ``levels`` is None)."""
+    lanes = torch.arange(kp, device=ctrl.device) < k
+    if levels is not None:
+        lanes &= levels[::8][:kp] == ctrl[1] + 1
+    return lanes
+
+
+def _flag_pull_row(torch, bg, frontier, visited, k, levels, ctrl, scratch, library):
+    """flag_pull (K5's pull, csrc/flag_pull.cu) against its plain version
+    on one pull level: the error, both times, the library call
+    ``hits.index_reduce_(0, owner, frontier[neighbour], "amax") &=
+    ~visited`` over the dedup CSR (``library`` = (owner, neighbour)
+    int64 tensors, or None), and two bounds: the whole function's (every
+    slot's cols, final_slot, the frontier and visited read and the hits
+    written once) and the level's (only the cols of the live rows, whose
+    owner has an active lane it has not visited, and the three planes),
+    with the L2 sector floor of the frontier rows the kernel must gather
+    (level-0 slots of live rows whose source is in the frontier)."""
     from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
-        bitbell, cuda_bell, lowk,
+        cuda_flag_pull as cfp,
+    )
+
+    n, kp = frontier.shape
+    w = kp // 4
+
+    def kernel():
+        cfp.flag_pull(frontier, visited, bg, h_k, ctrl, k, scratch=scratch, levels=levels)
+
+    h_k, h_p = torch.full_like(frontier, 7), torch.full_like(frontier, 7)
+    kernel()
+    cfp.flag_pull_plain(frontier, visited, bg, h_p, ctrl, k)
+    torch.cuda.synchronize()
+    err = _max_abs_err(torch, [(h_k, h_p)])
+    ms = _time_ms(torch, kernel, lambda: None)
+    plain_ms = _time_ms(torch, lambda: cfp.flag_pull_plain(frontier, visited, bg, h_p, ctrl, k),
+                        lambda: None, reps=3)
+    library_ms = None
+    if library is not None:
+        owner, nbr = library
+        lib, unvisited = torch.zeros_like(frontier), ~visited
+        library_ms = _time_ms(
+            torch, lambda: lib.index_reduce_(0, owner, frontier[nbr], "amax").bitwise_and_(unvisited),
+            lib.zero_, reps=3)
+        assert torch.equal(lib, h_p), "the library yardstick computes another function"
+        del lib, unvisited
+    # Live rows: their owner has an active lane it has not visited.
+    lanes = _active_lanes(torch, kp, k, levels, ctrl)
+    vlive = ((visited == 0) & lanes[None, :]).any(dim=1)
+    live = vlive[bg.row_owner(frontier.device).long()]
+    widths = torch.cat([torch.full((r_b,), w_b, dtype=torch.int64, device=frontier.device)
+                        for shapes in bg.level_shapes for r_b, w_b in shapes if r_b])
+    slots = int(widths.sum())
+    live_slots = int(widths[live].sum())
+    size0 = bg.level_sizes[0]
+    in_frontier = torch.cat([(frontier != 0).any(dim=1), live.new_zeros(1)])
+    gathered = torch.repeat_interleave(live[:size0], widths[:size0]) & in_frontier[
+        bg.level_cols[0].long()]
+    sectors = int(gathered.sum()) * -(-kp // 32)
+    del vlive, in_frontier, gathered
+    function_bound, function_by = _bound_ms(4 * slots + 4 * n + 3 * n * kp, slots * w)
+    level_bound, level_by = _bound_ms(4 * live_slots + 3 * n * kp, live_slots * w)
+    plan = cfp.flag_pull_plan(w, n, k, all(t.data_ptr() % 16 == 0 for t in (
+        frontier, visited, h_k, scratch.v_cat)))
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=level_bound,
+                bound_by=level_by, function_bound_ms=function_bound,
+                function_bound_by=function_by, l2_floor_ms=sectors * 32 / L2_SECTOR_BYTES_PER_S * 1e3,
+                library_ms=library_ms, variant=plan.label, Kp=kp, W=w, k=k,
+                active_lanes=int(lanes.sum()), frontier_rows=int((frontier != 0).any(dim=1).sum()),
+                live_rows=int(live.sum()), rows=int(live.numel()), live_slots=live_slots,
+                slots=slots, gathered_sectors=sectors)
+
+
+def _byte_levels(torch, bg, padded, label, library, bell_route=False):
+    """A byte route's BFS a level at a time (LowKEngine, or BellEngine
+    with ``bell_route``): the kernel engine's carry and the plain engine's
+    advanced in lockstep and equal before every level and at the end; on
+    each pull level flag_pull held against its plain version with the
+    carry's visited plane and counters and timed (:func:`_flag_pull_row`)
+    beside bell_hits_packed (forest_or on the word view) on the same
+    frontier (:func:`_byte_forest_row`); on each push level the
+    byte push (:func:`_byte_push_row`); the apply held and timed (the
+    switched one beside the same launch without the switch on the low-K
+    route).  Returns one row a level."""
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
+        bell, bitbell, cuda_bell, cuda_flag_pull, lowk,
     )
 
     top = 2**31 - 1
-    fast = lowk.LowKEngine(bg, level_chunk=128)
-    slow = lowk.LowKEngine(bg, level_chunk=128, plain=True)
+    cls = bell.BellEngine if bell_route else lowk.LowKEngine
+    fast = cls(bg, level_chunk=128)
+    slow = cls(bg, level_chunk=128, plain=True)
     queries = fast._pad_queries(padded)[0]
     a, b = fast._init_carry(queries), slow._init_carry(queries)
     w = a.frontier.shape[1]
-    scratch = cuda_bell.forest_scratch(bg, w, a.frontier.device)
-    expand = lowk.lowk_expand(bg)
+    scratch = cuda_flag_pull.flag_pull_scratch(bg, w, a.frontier.device)
+    forest = cuda_bell.forest_scratch(bg, w, a.frontier.device)
+    expand = fast._expand(w)
     hits = torch.zeros_like(a.frontier)
     sw = a.switch
-    limits = (sw.count, sw.row_limit, sw.edge_limit)
+    limits = None if sw is None else (sw.count, sw.row_limit, sw.edge_limit)
     fields = ("visited", "frontier", "f", "levels", "reached", "ctrl")
+    u8 = torch.uint8
 
     def same():
         pairs = [(getattr(a, f), getattr(b, f)) for f in fields]
-        pairs += [(a.switch.state[:4], b.switch.state[:4]), (a.switch.hits, b.switch.hits)]
+        if sw is not None:
+            pairs += [(a.switch.state[:4], b.switch.state[:4]), (a.switch.hits, b.switch.hits)]
         return _max_abs_err(torch, pairs)
 
     rows = []
@@ -1268,20 +1380,24 @@ def _lowk_levels(torch, bg, padded, label, library):
         assert same() == 0, (label, len(rows), "kernel and plain engines differ")
         level, d = int(a.ctrl[1]) + 1, int(a.ctrl[3])
         row = dict(level=level, direction="push" if d == bitbell.DIR_PUSH else "pull")
-        fr = a.frontier.view(torch.uint8)
+        fr = a.frontier.view(u8)
         if d == bitbell.DIR_PUSH:
             row["push_or:bytes"] = _byte_push_row(torch, bg, fr, _switch_snapshot(torch, sw),
                                                   a.ctrl.clone())
             assert row["push_or:bytes"]["max_abs_err"] == 0, (label, row)
         else:
-            row["forest_or:bytes"] = _byte_forest_row(torch, bg, fr, scratch, library)
+            row["flag_pull"] = _flag_pull_row(torch, bg, fr, a.visited.view(u8), a.k, a.levels,
+                                              a.ctrl.clone(), scratch, library)
+            assert row["flag_pull"]["max_abs_err"] == 0, (label, row)
+            row["forest_or:bytes"] = _byte_forest_row(torch, bg, fr, forest, None)
             assert row["forest_or:bytes"]["max_abs_err"] == 0, (label, row)
         expand(a, hits, top, scratch)
         level_hits = sw.hits.clone() if d == bitbell.DIR_PUSH else hits
         pristine = bitbell.BitCarry(a.visited, a.frontier, a.f, a.levels, a.reached,
                                     a.counts, a.ctrl)
         row["level_apply"] = _apply_row(torch, pristine, level_hits, limits)
-        row["unswitched_apply_ms"] = _apply_row(torch, pristine, level_hits)["ms"]
+        if limits is not None:
+            row["unswitched_apply_ms"] = _apply_row(torch, pristine, level_hits)["ms"]
         assert row["level_apply"]["max_abs_err"] == 0, (label, row)
         bitbell.bit_level_apply(a, hits)
         slow._chunk(b, 1)
@@ -1293,16 +1409,17 @@ def _lowk_levels(torch, bg, padded, label, library):
 
 def _lowk_split(torch, eng, bg, padded, levels, label):
     """A byte-plane route's whole BFS split by launch (:func:`_hybrid_split`):
-    the byte push (a no-op on a pull-only carry), the byte pull and the
-    apply, then the engine's chunk timed and traced."""
+    the byte push (a no-op on a pull-only carry), the byte pull
+    (flag_pull) and the apply, then the engine's chunk timed and traced."""
     from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
-        bell, cuda_bell, lowk,
+        cuda_flag_pull, lowk,
     )
 
     top = 2**31 - 1
     queries = eng._pad_queries(padded)[0]
     c0 = eng._init_carry(queries)
-    scratch = cuda_bell.forest_scratch(bg, c0.frontier.shape[1], c0.frontier.device)
+    scratch = cuda_flag_pull.flag_pull_scratch(bg, c0.frontier.shape[1], c0.frontier.device)
+    pull_level = lowk.flag_pull_expand(bg)
     u8 = torch.uint8
 
     def push(c, h):
@@ -1311,31 +1428,39 @@ def _lowk_split(torch, eng, bg, padded, levels, label):
                                    c.switch, top)
 
     def pull(c, h):
-        bell.bell_hits_packed(c.frontier.view(u8), bg, h.view(u8), c.ctrl, top, scratch)
+        pull_level(c, h, top, scratch)
 
     return _hybrid_split(torch, lambda: eng._init_carry(queries), push, pull,
                          lambda c: eng._chunk(c, levels), levels, label)
 
 
 def _summarise_levels(rows, label):
-    """One line of a level-by-level drive: directions, and the medians of
-    the byte kernels' rows; the rows themselves go to a detail file."""
+    """One line of a level-by-level drive: directions, and the byte
+    kernels' numbers level by level; the rows themselves go to a detail
+    file."""
     path = _write_detail(label.replace(" ", "_"), rows)
 
     def pick(key, field):
         return [r[key][field] for r in rows if key in r]
 
-    print(f"lowk levels {label}: " + json.dumps(dict(
+    print(f"byte levels {label}: " + json.dumps(dict(
         levels=len(rows), directions=_runs([r["direction"] for r in rows]),
         every_level_equal_to_plain_engine=True,
-        forest_or_bytes_ms=pick("forest_or:bytes", "ms"),
-        forest_or_bytes_bound_ms=pick("forest_or:bytes", "bound_ms"),
-        forest_or_bytes_library_ms=pick("forest_or:bytes", "library_ms"),
+        flag_pull_ms=pick("flag_pull", "ms"),
+        flag_pull_level_bound_ms=pick("flag_pull", "bound_ms"),
+        flag_pull_function_bound_ms=pick("flag_pull", "function_bound_ms"),
+        flag_pull_l2_floor_ms=pick("flag_pull", "l2_floor_ms"),
+        flag_pull_library_ms=pick("flag_pull", "library_ms"),
+        flag_pull_plain_ms=pick("flag_pull", "plain_ms"),
+        flag_pull_live_rows=pick("flag_pull", "live_rows"),
+        flag_pull_frontier_rows=pick("flag_pull", "frontier_rows"),
+        flag_pull_variant=pick("flag_pull", "variant"),
+        word_view_pull_ms=pick("forest_or:bytes", "ms"),
         push_or_bytes_ms=pick("push_or:bytes", "ms"),
         push_or_bytes_floor_ms=pick("push_or:bytes", "floor_ms"),
         push_or_bytes_library_ms=pick("push_or:bytes", "library_ms"),
-        apply_switched_ms=[r["level_apply"]["ms"] for r in rows],
-        apply_unswitched_ms=[r["unswitched_apply_ms"] for r in rows],
+        apply_ms=[r["level_apply"]["ms"] for r in rows],
+        apply_unswitched_ms=[r.get("unswitched_apply_ms") for r in rows],
         detail=path,
     )))
 
@@ -1391,6 +1516,7 @@ def _lowk16_path(ctx, seed):
     )
     want = _scipy_f(cg, np, _scipy_matrix(sp, np, g), queries[0])
     assert (min_k, min_f) == (0, want) and want > 0, (min_k, min_f, want)
+    assert "flag_pull:W1/map/bits" in VARIANTS["lowk rmat-16"], VARIANTS["lowk rmat-16"]
     bg = BellGraph.from_host(g, dev)
     padded = tio.pad_queries(queries)
     fast = lowk.LowKEngine(bg, level_chunk=128)
@@ -1403,7 +1529,7 @@ def _lowk16_path(ctx, seed):
         computation_s=comp_s, host_generate_s=host_s,
     )))
     _pack_check(torch, fast, n, padded, "lowk rmat-16")
-    rows = _lowk_levels(torch, bg, padded, "lowk rmat-16 K=1", _csr_pairs(torch, bg))
+    rows = _byte_levels(torch, bg, padded, "lowk rmat-16 K=1", _csr_pairs(torch, bg))
     _summarise_levels(rows, "lowk rmat-16 K=1")
     _lowk_split(torch, fast, bg, padded, len(rows), "lowk rmat-16 K=1")
 
@@ -1441,6 +1567,8 @@ def _rmat20_paths(ctx, n, edges, g, bg, eg, k, seed):
     steady = sum(v for k_, v in ell.items() if ":steady" in k_)
     stale = sum(v for k_, v in ell.items() if ":stale" in k_)
     assert steady > stale > 0, ell
+    assert "flag_pull:W16/vec16/map" in VARIANTS["bell rmat-20"], VARIANTS["bell rmat-20"]
+    assert "flag_pull:W1/map" in VARIANTS["lowk rmat-20"], VARIANTS["lowk rmat-20"]
     padded = tio.pad_queries(queries)
     padded4 = tio.pad_queries(queries[:LOWK_GROUPS])
     _ell_level_split(torch, eg, padded, "rmat-20 K=64")
@@ -1507,34 +1635,54 @@ def _rmat20_paths(ctx, n, edges, g, bg, eg, k, seed):
     _pack_check(torch, lowk.LowKEngine(bg), n, padded4, "lowk rmat-20")
     # The byte routes a level at a time and split by launch.
     library = _csr_pairs(torch, bg)
-    rows4 = _lowk_levels(torch, bg, padded4, "lowk rmat-20 K=4", library)
+    rows4 = _byte_levels(torch, bg, padded4, "lowk rmat-20 K=4", library)
     _summarise_levels(rows4, "lowk rmat-20 K=4")
-    rows1 = _lowk_levels(torch, bg, padded4[:1], "lowk rmat-20 K=1", library)
+    rows1 = _byte_levels(torch, bg, padded4[:1], "lowk rmat-20 K=1", library)
     _summarise_levels(rows1, "lowk rmat-20 K=1")
     _apply_at_k1(torch, rows1, n, "lowk rmat-20")
+    rows64 = _byte_levels(torch, bg, padded, "bell rmat-20 K=64", library, bell_route=True)
+    _summarise_levels(rows64, "bell rmat-20 K=64")
     _lowk_split(torch, lowk.LowKEngine(bg, level_chunk=128), bg, padded4, len(rows4),
                 "lowk rmat-20 K=4")
     bell_eng = bell.BellEngine(bg, level_chunk=128)
     _lowk_split(torch, bell_eng, bg, padded, depth, "bell rmat-20 K=64")
-    # K5's pull at the bell route's width (W = 16) on a third of the rows.
-    gen = torch.Generator(device=bg.device).manual_seed(seed)
-    wide = (torch.rand((n, k), device=bg.device, generator=gen) < 0.3).to(torch.uint8)
+    # K5's pull at the bell route's width (W = 16) on a synthetic plane: a
+    # third of the flags set, nothing visited (no row to skip), beside
+    # bell_hits_packed (forest_or on the word view) on the same frontier.
     from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
-        cuda_bell,
+        cuda_bell, cuda_flag_pull,
     )
 
-    row = _byte_forest_row(torch, bg, wide, cuda_bell.forest_scratch(bg, k // 4, bg.device),
-                           library)
-    print(f"compare rmat-20 n={n} K={k} forest_or:bytes: " + json.dumps(row))
-    assert row["max_abs_err"] == 0, row
+    gen = torch.Generator(device=bg.device).manual_seed(seed)
+    wide = (torch.rand((n, k), device=bg.device, generator=gen) < 0.3).to(torch.uint8)
+    pull = torch.tensor([1, 7, 0, bitbell.DIR_PULL], dtype=torch.int32, device=bg.device)
+    row = _flag_pull_row(torch, bg, wide, torch.zeros_like(wide), k, None, pull,
+                         cuda_flag_pull.flag_pull_scratch(bg, k // 4, bg.device), library)
+    row["word_view_pull"] = _byte_forest_row(
+        torch, bg, wide, cuda_bell.forest_scratch(bg, k // 4, bg.device), library)
+    # Each pull wrapper's host time a level, its launches gated off.
+    off = torch.tensor([0, 7, 0, bitbell.DIR_PULL], dtype=torch.int32, device=bg.device)
+    scratch = cuda_flag_pull.flag_pull_scratch(bg, k // 4, bg.device)
+    forest = cuda_bell.forest_scratch(bg, k // 4, bg.device)
+    hits, seen = torch.empty_like(wide), torch.zeros_like(wide)
+    levels = torch.zeros(8 * k, dtype=torch.int32, device=bg.device)
+    row["wrapper_host_us"] = dict(
+        flag_pull=_wrapper_host_us(torch, lambda: cuda_flag_pull.flag_pull(
+            wide, seen, bg, hits, off, k, scratch=scratch, levels=levels)),
+        word_view_pull=_wrapper_host_us(torch, lambda: bell.bell_hits_packed(
+            wide, bg, hits, off, scratch=forest)),
+        note="host time of one call, its kernels gated off on the device")
+    del scratch, forest, hits, seen
+    print(f"compare rmat-20 n={n} K={k} flag_pull synthetic: " + json.dumps(row))
+    assert row["max_abs_err"] == 0 and row["word_view_pull"]["max_abs_err"] == 0, row
     del library, wide
-    pulls = [r["forest_or:bytes"] for r in rows4 if "forest_or:bytes" in r]
+    pulls = [r["flag_pull"] for r in rows4 if "flag_pull" in r]
     pushes = [r["push_or:bytes"] for r in rows4 if "push_or:bytes" in r]
     assert pulls and pushes, "the low-K BFS ran one direction only"
     # The kernel line's rows: the densest pull and the widest push of the
     # low-K BFS (K = 4, W = 1).
     return {
-        "forest_or:bytes": max(pulls, key=lambda r: r["frontier_rows"]),
+        "flag_pull": max(pulls, key=lambda r: r["frontier_rows"]),
         "push_or:bytes": max(pushes, key=lambda r: r["edges"]),
     }
 
@@ -1565,6 +1713,8 @@ def _run_path(cli, timing, argv, name, launches):
     print(f"{name} variants: {json.dumps(VARIANTS[name])}")
     for kernel in PATH_KERNELS[name]:
         assert counts.get(kernel, 0) > 0, f"{kernel} never launched on {name}"
+    if name in BYTE_PATHS:
+        assert "forest_or" not in counts, (name, counts)
     if "pack_sources" in PATH_KERNELS[name]:
         stride = 8 if name in BYTE_PATHS else 1
         packs = {k: v for k, v in VARIANTS[name].items() if k.startswith("pack_sources:")}
@@ -1957,14 +2107,13 @@ def main() -> int:
         "forest_or": "ops/bell.py:75",
         "ell_hits": "ops/pallas_bfs.py:44",
         "pack_sources": "ops/bitbell.py:93, {JAX_PKG}/ops/lowk.py:66",
-        "forest_or:bytes": "ops/bell.py:144",
+        "flag_pull": "ops/bell.py:144, {JAX_PKG}/ops/lowk.py:126",
         "push_or:bytes": "ops/lowk.py:87",
     }
-    # The byte uses of K1 and K3 (K5): their launches on the byte paths.
-    for name in ("forest_or", "push_or"):
-        total[f"{name}:bytes"] = sum(launches[p].get(name, 0) for p in BYTE_PATHS)
+    # The byte use of K3 (K5's push): its launches on the byte paths.
+    total["push_or:bytes"] = sum(launches[p].get("push_or", 0) for p in BYTE_PATHS)
     rows = []
-    for name in (*kernels.KERNELS, "forest_or:bytes", "push_or:bytes"):
+    for name in (*kernels.KERNELS, "push_or:bytes"):
         row = main_shape[name]
         rows.append(dict(
             name=name, route="cuda", source=f"{PKG}/csrc/{name.split(':')[0]}.cu",

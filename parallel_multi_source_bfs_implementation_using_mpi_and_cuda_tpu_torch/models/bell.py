@@ -88,7 +88,7 @@ class BellGraph:
 
     def __init__(
         self, level_cols, level_shapes, final_slot, n, n_pad, level_sizes,
-        fill, sparse=None,
+        fill, sparse=None, walk=None,
     ):
         self.level_cols = list(level_cols)
         self.level_shapes = tuple(tuple(tuple(x) for x in s) for s in level_shapes)
@@ -99,6 +99,9 @@ class BellGraph:
         self.fill = float(fill)
         self.sparse = sparse
         self._kernel_tables = {}  # device -> forest_or bucket tables
+        # (rows per owner, first row) of every forest level, as built.
+        self._walk = walk
+        self._row_owner = {}  # device -> row_owner()
 
     @property
     def device(self) -> torch.device:
@@ -107,6 +110,29 @@ class BellGraph:
     @property
     def total_rows(self) -> int:
         return sum(self.level_sizes)
+
+    def row_owner(self, device) -> torch.Tensor:
+        """(total_rows,) int32: the vertex that owns each forest row, in
+        the order of the level outputs' concatenation (a hub's chunk rows
+        and the rows reducing them are all the hub's).  A pure function of
+        the layout, built once per device from the walk ``from_host``
+        kept."""
+        key = str(device)
+        if key not in self._row_owner:
+            parts = [np.zeros(0, dtype=np.int64)]
+            for rows_per_owner, first_row in self._walk or ():
+                owners = np.flatnonzero(rows_per_owner)
+                count = rows_per_owner[owners]
+                # Each owner's rows are consecutive from its first row.
+                out = np.empty(int(count.sum()), dtype=np.int64)
+                within = np.arange(out.shape[0]) - np.repeat(np.cumsum(count) - count, count)
+                out[np.repeat(first_row[owners], count) + within] = np.repeat(owners, count)
+                parts.append(out)
+            owner = np.concatenate(parts).astype(np.int32)
+            if owner.shape[0] != self.total_rows:
+                raise ValueError("the layout's walk does not cover its forest rows")
+            self._row_owner[key] = torch.from_numpy(owner).to(device)
+        return self._row_owner[key]
 
     @staticmethod
     def pack_level(cols_per_bucket):
@@ -125,16 +151,28 @@ class BellGraph:
         CLIs route alike: forest cols (~e/fill slots x 4 B), the per-level
         gather intermediate (slots x ceil(k/32) words x 4 B), the dedup
         CSR ((e + 2n) x 4 B) and the bit planes with byte-lane scratch
-        (n x (16W + k_pad) B)."""
+        (n x (16W + k_pad) B); plus the byte pull's per-row arrays
+        (:meth:`flag_pull_bytes`), which the JAX package does not have."""
         k_pad = max(32, -(-k // 32) * 32)
         w = k_pad // 32
         fill_floor = 0.7 if e >= (1 << 25) else 0.33
         slots = int(e / fill_floor) + 1
-        per_shard_edges = (4 * slots + 4 * w * slots) // max(1, vertex_shards)
+        shards = max(1, vertex_shards)
+        per_shard_edges = (4 * slots + 4 * w * slots) // shards
+        flag_pull = BellGraph.flag_pull_bytes(n, e) // shards
         if vertex_shards > 1:
             push_csr = (4 * e + 12 * min(n, e)) // vertex_shards
-            return per_shard_edges + push_csr + 16 * w * n
-        return per_shard_edges + 4 * (e + 2 * n) + n * (16 * w + k_pad)
+            return per_shard_edges + push_csr + 16 * w * n + flag_pull
+        return per_shard_edges + 4 * (e + 2 * n) + n * (16 * w + k_pad) + flag_pull
+
+    @staticmethod
+    def flag_pull_bytes(n: int, e: int) -> int:
+        """The byte pull's arrays (ops/cuda_flag_pull.py): the owner of
+        every forest row (4 B) and the pre-pass's bits, one a row and one
+        a vertex.  Rows are at most n plus one hub chunk row per 128 edges
+        (the widest rung holds 256)."""
+        rows = n + e // 128
+        return 4 * rows + (rows + n) // 8
 
     @staticmethod
     def default_min_bucket_rows(n: int, e: int) -> int:
@@ -259,6 +297,7 @@ class BellGraph:
             level_sizes=level_sizes,
             fill=int(np.sum(item_count_0)) / max(padded_slots, 1),
             sparse=sparse,
+            walk=walk,
         )
 
     def __repr__(self):

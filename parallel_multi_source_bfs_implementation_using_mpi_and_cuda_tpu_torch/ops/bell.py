@@ -19,8 +19,11 @@ an (n, Kp/4) int32 word plane (:func:`byte_words`), query q's flag is bit
 8q, since host and card are little-endian, and over 0/1 bytes max is OR:
 so the bit-plane kernels — the forest OR-fold, the push, the level apply —
 run the byte planes unchanged at W = Kp/4, their per-lane counters giving
-query q's at lane 8q.  :func:`bell_hits_packed` is that pull;
+query q's at lane 8q.  :func:`bell_hits_packed` is that pull (the port of
+the JAX function of that name, kept as the yardstick of the byte pull);
 :func:`bell_hits_packed_plain` the same function over bytes with ``amax``.
+The byte engines pull with their own kernel, which also masks the visited
+lanes (:mod:`.cuda_flag_pull`).
 """
 
 from __future__ import annotations
@@ -226,8 +229,9 @@ def bell_f_values(graph, queries, max_levels: Optional[int] = None) -> torch.Ten
 class BellEngine(BitBellEngine):
     """The pull-only byte-plane engine (the JAX package's BellEngine,
     ``MSBFS_BACKEND=bell``): K queries padded to ``k_align`` (8) as (n,
-    Kp) 0/1 byte planes, every level a forest pull (:func:`bell_hits_packed`)
-    then the level apply over the word view.  JAX keeps (n, K) int32
+    Kp) 0/1 byte planes, every level the byte pull
+    (:func:`.lowk.flag_pull_expand`, ``csrc/flag_pull.cu``) then the level
+    apply over the word view.  JAX keeps (n, K) int32
     distances and derives F, levels and reached from them; here they are
     the apply's per-lane counters at lanes 8q, and no distance plane
     exists.  ``plain`` runs every kernel's plain torch version."""
@@ -249,11 +253,11 @@ class BellEngine(BitBellEngine):
         self.k_align = int(k_align)
 
     def _expand(self, w: int):
-        pull = bell_hits_packed_plain if self.plain else bell_hits_packed
-        graph = self.graph
+        from .lowk import flag_pull_expand  # lazy: lowk imports this module
 
-        def expand(carry, hits, max_levels, scratch) -> None:
-            pull(carry.frontier.view(torch.uint8), graph, hits.view(torch.uint8),
-                 carry.ctrl, max_levels, scratch)
+        return flag_pull_expand(self.graph, self.plain)
 
-        return expand
+    def _new_scratch(self, w: int):
+        from .cuda_flag_pull import flag_pull_scratch  # lazy: it imports this module
+
+        return flag_pull_scratch(self.graph, w, self.device)

@@ -310,6 +310,7 @@ class BitCarry:
     counts: torch.Tensor  # (K,) int32
     ctrl: torch.Tensor  # (4,) int32
     switch: Optional[PushSwitch] = None
+    k: int = 0  # queries of the batch (with its padding): a byte plane's real lanes
 
     def rows(self, lo: int, count: int) -> "BitCarry":
         """A view of rows [lo, lo + count) of both planes sharing the
@@ -803,7 +804,7 @@ class BitBellEngine(FusedBestEngine):
         self._slot_budget_arg = slot_budget
         self._max_level_slots = max((int(f.shape[-1]) for f in graph.level_cols), default=0)
         self.plain = bool(plain)
-        self._scratch = {}  # plane width -> the forest kernel's level outputs
+        self._scratch = {}  # plane width -> the pull kernel's scratch
 
     def _slot_budget_for(self, w_words: int) -> Optional[int]:
         """Gather-segment budget at W = ``w_words``: auto engages only when
@@ -822,11 +823,19 @@ class BitBellEngine(FusedBestEngine):
         pack = pack_queries_plain if self.plain else pack_queries
         frontier0, counts0 = pack(self.graph.n, queries, self.device, self.lane_stride)
         switch = bitbell_switch(self.graph, self.sparse_budget, frontier0.shape[1])
-        return bit_level_init(frontier0, counts0, switch)
+        carry = bit_level_init(frontier0, counts0, switch)
+        carry.k = int(queries.shape[0])
+        return carry
 
     def _expand(self, w: int):
         """The level's expansion over planes of ``w`` words a row."""
         return bitbell_expand(self.graph, self._slot_budget_for(w), self.plain)
+
+    def _new_scratch(self, w: int):
+        """The pull kernel's scratch for planes of ``w`` words a row."""
+        from .cuda_bell import forest_scratch
+
+        return forest_scratch(self.graph, w, self.device)
 
     def _chunk(self, carry: BitCarry, bound) -> None:
         w = carry.frontier.shape[1]
@@ -834,9 +843,7 @@ class BitBellEngine(FusedBestEngine):
         scratch = None
         if self.device.type == "cuda" and not self.plain:
             if w not in self._scratch:
-                from .cuda_bell import forest_scratch
-
-                self._scratch[w] = forest_scratch(self.graph, w, self.device)
+                self._scratch[w] = self._new_scratch(w)
             scratch = self._scratch[w]
         hits = torch.empty_like(carry.frontier)
         apply = bit_level_apply_plain if self.plain else bit_level_apply

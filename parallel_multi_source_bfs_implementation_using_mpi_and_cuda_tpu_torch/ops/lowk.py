@@ -5,15 +5,15 @@ JAX runs K <= 4 queries on an (n, K) uint8 0/1 flag matrix instead of a
 bit plane padded to 32 queries.  The port keeps K unpadded too
 (``k_align = 1``) as an (n, Kp) byte plane, Kp = 4 ceil(K/4), which is an
 (n, Kp/4) word plane without a copy (:func:`.bell.byte_words`: query q's
-flag is bit 8q).  So one level is the bitbell route's three launches at W
-= Kp/4 — the push (``csrc/push_or.cu``, :func:`sparse_hits_flags`) and the
-forest pull (``csrc/forest_or.cu``, :func:`.bell.bell_hits_packed`), each
-gated on the direction in ctrl[3], then the level apply
+flag is bit 8q).  One level is the push (``csrc/push_or.cu`` on the word
+view, :func:`sparse_hits_flags`) and the byte pull
+(``csrc/flag_pull.cu``, :func:`.cuda_flag_pull.flag_pull`: JAX's pull
+with its ``where(visited, 0, hits)``, skipping the rows of vertices every
+live query has reached and, through a bitmap of the frontier, the sources
+not in it), each gated on the direction in ctrl[3], then the level apply
 (``csrc/level_apply.cu``), whose switch epilogue decides the next
 direction by JAX's predicate (active rows <= budget and their edges <=
-budget) and whose per-lane counters hold query q's at lane 8q.  A byte
-gathered or scattered at random costs the card the same 32-byte L2 sector
-as a word, so a kernel of bytes of its own would gain nothing; what the
+budget) and whose per-lane counters hold query q's at lane 8q.  What the
 word view gives up is JAX's 1 byte a vertex at K = 1 (4 here).
 
 The sources are packed at a stride of 8 lanes (``csrc/pack_sources.cu``).
@@ -26,7 +26,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from .bell import BYTE_LANES, bell_hits_packed, bell_hits_packed_plain, byte_words
+from .bell import BYTE_LANES, byte_words
 from .bitbell import (
     DIR_PUSH,
     INT32_MAX,
@@ -37,6 +37,7 @@ from .bitbell import (
     pack_queries,
     sparse_hits_or,
 )
+from .cuda_flag_pull import flag_pull, flag_pull_plain, flag_pull_scratch
 
 # Routing cap of the CLI's auto route: at most this many queries take the
 # byte planes (the JAX package's).
@@ -88,21 +89,39 @@ def sparse_hits_flags(
     )
 
 
+def flag_pull_expand(graph, plain: bool = False):
+    """The byte pull of one level, as ``expand(carry, hits, max_levels,
+    scratch)``: the byte view of ``hits`` from the carry's frontier and
+    visited planes (:func:`.cuda_flag_pull.flag_pull`, its scratch
+    ``scratch``), gated on ctrl[3]; the carry's level counters tell it
+    which queries still have a frontier.  ``plain`` runs the plain
+    version."""
+    pull = flag_pull_plain if plain else flag_pull
+    u8 = torch.uint8
+
+    def expand(carry, hits: torch.Tensor, max_levels: int, scratch) -> None:
+        pull(carry.frontier.view(u8), carry.visited.view(u8), graph, hits.view(u8),
+             carry.ctrl, carry.k, max_levels, scratch, carry.levels)
+
+    return expand
+
+
 def lowk_expand(graph, plain: bool = False):
     """The expansion of one low-K level, as ``expand(carry, hits,
     max_levels, scratch)`` filling the byte view of ``hits`` (or of the
     switch's plane on a push level) from the carry's frontier: the push
-    when the carry has a switch, then the pull, each running only in the
-    direction ctrl[3] names.  ``plain`` runs the plain versions."""
+    when the carry has a switch, then the pull
+    (:func:`flag_pull_expand`), each running only in the direction ctrl[3]
+    names.  ``plain`` runs the plain versions."""
     push = sparse_hits_flags_plain if plain else sparse_hits_flags
-    pull = bell_hits_packed_plain if plain else bell_hits_packed
+    pull = flag_pull_expand(graph, plain)
 
     def expand(carry, hits: torch.Tensor, max_levels: int, scratch) -> None:
-        frontier = carry.frontier.view(torch.uint8)
         sw = carry.switch
         if sw is not None:
-            push(frontier, graph, sw.hits.view(torch.uint8), carry.ctrl, sw, max_levels)
-        pull(frontier, graph, hits.view(torch.uint8), carry.ctrl, max_levels, scratch)
+            push(carry.frontier.view(torch.uint8), graph, sw.hits.view(torch.uint8),
+                 carry.ctrl, sw, max_levels)
+        pull(carry, hits, max_levels, scratch)
 
     return expand
 
@@ -142,6 +161,9 @@ class LowKEngine(BitBellEngine):
 
     def _expand(self, w: int):
         return lowk_expand(self.graph, self.plain)
+
+    def _new_scratch(self, w: int):
+        return flag_pull_scratch(self.graph, w, self.device)
 
 
 def lowk_run(

@@ -73,6 +73,11 @@ KERNELS = {
         "msbfs_forest_or",
         [_P, _P, ctypes.POINTER(_L), _I, _P, _P, _P, _L, _I, _L, _I, _I, _P, _I],
     ),
+    "flag_pull": (
+        "msbfs_flag_pull",
+        [_P, _P, _P, _I, _P, ctypes.POINTER(_L), _I, _P, _P, _I, _P, _P, _P, _P, _P,
+         _L, _I, _L, _I, _I, _I, _I, _P, _I],
+    ),
     "pack_sources": (
         "msbfs_pack_sources",
         [_P, _L, _L, _L, _P, _I, _I, _P],

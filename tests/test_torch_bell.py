@@ -133,6 +133,7 @@ def test_ladder_policy_and_estimate_match_jax(graphs):
         for shards in (1, 4):
             assert BellGraph.estimate_hbm_bytes(n, e, k, shards) == (
                 JBellGraph.estimate_hbm_bytes(n, e, k, shards)
+                + BellGraph.flag_pull_bytes(n, e) // shards
             )
     shapes = ((10, 3), (0, 4), (7, 256), (300, 1))
     for budget in (1, 30, 256, 10**6):

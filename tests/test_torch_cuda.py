@@ -30,6 +30,7 @@ from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops i
     bitbell,
     cuda_bell,
     cuda_bfs,
+    cuda_flag_pull,
     cuda_mxu,
     cuda_stencil,
     engine,
@@ -1102,8 +1103,90 @@ def test_lowk_and_bell_cli_on_card(cuda, tmp_path, capsys, monkeypatch, backend,
     timing.reset_launch_counts()
     assert cli.main(argv) == 0
     counts = timing.launch_counts()
-    assert counts.get("pack_sources", 0) > 0 and counts.get("forest_or", 0) > 0
+    assert counts.get("pack_sources", 0) > 0 and counts.get("flag_pull", 0) > 0
+    assert "forest_or" not in counts  # the byte routes pull with their own kernel
     card = capsys.readouterr().out.splitlines()
     assert cli.main(argv, device="cpu") == 0
     host = capsys.readouterr().out.splitlines()
     assert card[:5] == host[:5]
+
+
+def _byte_planes(rng, n, kp, k, density, visited, active):
+    """A byte frontier with ``density`` of its (vertex, real lane) flags
+    set in the ``active`` lanes only, and visited flags: "none", "some"
+    (the frontier and a share of the rest) or "all" real lanes."""
+    frontier = np.zeros((n, kp), dtype=np.uint8)
+    frontier[:, :k] = rng.random((n, k)) < density
+    frontier[:, ~active] = 0
+    seen = np.zeros_like(frontier)
+    if visited == "all":
+        seen[:, :k] = 1
+    elif visited == "some":
+        seen[:, :k] = frontier[:, :k] | (rng.random((n, k)) < 0.5)
+    return torch.from_numpy(frontier), torch.from_numpy(seen)
+
+
+@pytest.mark.parametrize("kp,k", [(4, 1), (4, 3), (64, 64), (64, 61), (24, 22)])
+@pytest.mark.parametrize("widths", [DEFAULT_WIDTHS, (1, 2, 4, 8)])
+@pytest.mark.parametrize("bitmap", [True, False])
+def test_flag_pull_matches_plain(cuda, monkeypatch, kp, k, widths, bitmap):
+    """The byte pull against its plain version, bit for bit, at W = 1
+    (with and without the bits instance), W = 16 and the generic width,
+    over forests with hub rows (wide, or three levels deep) and isolated
+    vertices; dense and empty frontiers; no, some and all real lanes
+    visited; every lane active or half of them (the carry's counters);
+    one scratch through every case, so rows that are not live keep older
+    values; with the bitmap in shared memory and without."""
+    if not bitmap:
+        monkeypatch.setattr(cuda_flag_pull, "BLOCK_SMEM_BYTES", 0)
+    g = _hub_graph(40 + kp + k)
+    bg = BellGraph.from_host(g, cuda, widths=widths, min_bucket_rows=0)
+    bg_cpu = BellGraph.from_host(g, "cpu", widths=widths, min_bucket_rows=0)
+    assert len(bg.level_sizes) >= 2
+    assert int((bg.final_slot == bg.total_rows).sum()) > 0  # isolated vertices
+    rng = np.random.default_rng(kp + k)
+    scratch = cuda_flag_pull.flag_pull_scratch(bg, kp // 4, cuda)
+    ctrl = torch.tensor([1, 5, 0, bitbell.DIR_PULL], dtype=torch.int32, device=cuda)
+    plan = cuda_flag_pull.flag_pull_plan(kp // 4, g.n, k)
+    assert plan.bitmap == bitmap and plan.bits == (bitmap and kp == 4 and k == 1)
+    for lanes in ("all", "half"):
+        active = np.arange(kp) < k
+        if lanes == "half":
+            active &= np.arange(kp) % 2 == 0
+        levels = torch.zeros(8 * kp, dtype=torch.int32)
+        levels[::8] = torch.from_numpy(np.where(active, 6, 3).astype(np.int32))
+        for density in (0.3, 0.0):
+            for visited in ("none", "some", "all"):
+                f, v = _byte_planes(rng, g.n, kp, k, density, visited, active)
+                want = torch.full_like(f, 9)
+                cuda_flag_pull.flag_pull_plain(f, v, bg_cpu, want, ctrl.cpu(), k)
+                got = torch.full_like(f, 9).to(cuda)
+                timing.reset_launch_counts()
+                cuda_flag_pull.flag_pull(f.to(cuda), v.to(cuda), bg, got, ctrl, k, 100, scratch,
+                                         levels.to(cuda) if lanes == "half" else None)
+                torch.cuda.synchronize()
+                assert timing.launch_counts() == {"flag_pull": 1}
+                assert timing.variant_counts() == {f"flag_pull:{plan.label}": 1}
+                assert torch.equal(got.cpu(), want), (lanes, density, visited)
+    # A push level, or a converged carry, leaves the hit plane untouched.
+    for c in ([1, 5, 0, bitbell.DIR_PUSH], [0, 5, 0, bitbell.DIR_PULL], [1, 100, 0, 0]):
+        stale = torch.full((g.n, kp), 3, dtype=torch.uint8, device=cuda)
+        cuda_flag_pull.flag_pull(f.to(cuda), v.to(cuda), bg, stale,
+                                 torch.tensor(c, dtype=torch.int32, device=cuda), k, 100, scratch)
+        assert bool((stale == 3).all())
+    # Planes off the 16-byte grid: the W = 16 instance's 4-byte loads.
+    if kp == 64:
+        f, v = _byte_planes(rng, g.n, kp, k, 0.3, "some", np.arange(kp) < k)
+        want = torch.empty_like(f)
+        cuda_flag_pull.flag_pull_plain(f, v, bg_cpu, want, ctrl.cpu(), k)
+        shifted = torch.zeros(3 * g.n * kp + 4, dtype=torch.uint8, device=cuda)
+        views = [shifted[4 + i * g.n * kp : 4 + (i + 1) * g.n * kp].view(g.n, kp)
+                 for i in range(3)]
+        views[0].copy_(f)
+        views[1].copy_(v)
+        timing.reset_launch_counts()
+        cuda_flag_pull.flag_pull(views[0], views[1], bg, views[2], ctrl, k, 100, scratch)
+        assert torch.equal(views[2].cpu(), want)
+        label = cuda_flag_pull.flag_pull_plan(16, g.n, k, vec16=False).label
+        assert timing.variant_counts() == {f"flag_pull:{label}": 1} and "vec4" in label
+
