@@ -4,11 +4,14 @@ builds and runs on the GPU, and the source of its kernel timings.
 
     python3 chip_smoke.py [--seed 0] [--detail-dir build/chip_smoke]
 
-Needs one CUDA card (NVIDIA H100 class, sm_90a), nvcc, and scipy; imports
-nothing of JAX.  Phases (any failure exits non-zero; nothing is caught):
+Needs one CUDA card (NVIDIA H100 class, sm_90a), nvcc, a host C++
+compiler, and scipy; imports nothing of JAX.  Phases (any failure exits
+non-zero; nothing is caught):
 
 1. print the card (nvidia-smi name, power limit); build the eight CUDA
-   kernels from csrc/ in parallel and time the build;
+   kernels from csrc/ in parallel and the native host runtime
+   (runtime/loader.cpp), and time both builds; print the host's CPUs and
+   the native runtime's thread count;
 2. hold each kernel against its plain torch version on the card, bit for
    bit, and time both with CUDA events beside the analytic bound: the
    stencil route's two (the sweep with the residual edges in its launch,
@@ -35,7 +38,9 @@ nothing of JAX.  Phases (any failure exits non-zero; nothing is caught):
    BFS's middle level, and 64 real levels from there split by kernel
    (CUDA events around each launch: the sweep with its residual, the
    apply, and the gaps), beside the same 64 levels as the engine enqueues
-   them;
+   them; the CLI's preprocessing span split into load, layout (with its
+   upload) and compile, beside the same CLI run with ``native=False``
+   (the NumPy host steps), to the same winner and F;
 4. mxu main path: ``MSBFS_BACKEND=mxu MSBFS_MXU_KERNEL=1`` through the
    CLI on rmat_edges(14) with K = 64 random groups; every F equals
    scipy's and the plain engine's, and the direction trace is printed;
@@ -66,7 +71,9 @@ nothing of JAX.  Phases (any failure exits non-zero; nothing is caught):
    also beside bell_hits_packed (forest_or on the word view) on the
    same frontier, the switched apply held and timed; and its launch
    split;
-5b. RMAT-20 (rmat_edges(20, 16), BASELINE.json config 2): forest_or and
+5b. RMAT-20 (rmat_edges(20, 16), BASELINE.json config 2): its CSR,
+   per-row dedup and BELL layout built natively and with NumPy, byte-equal,
+   each step timed both ways; forest_or and
    ell_hits against their plain versions at K = 64 (W = 2) and K = 256
    (W = 8), timed beside their bounds (forest_or also beside its L2
    floor; ell_hits also beside the two-call
@@ -83,7 +90,8 @@ nothing of JAX.  Phases (any failure exits non-zero; nothing is caught):
    K = 64 random groups the default route (bitbell: forest_or, push_or,
    level_apply), the ELL route (``MSBFS_BACKEND=pallas``: ell_hits) and
    the byte-plane BELL route (``MSBFS_BACKEND=bell``, W = 16) through the
-   CLI, and the low-K route on the first four groups, each a path;
+   CLI, and the low-K route on the first four groups, each a path, each
+   with its preprocessing split beside its ``native=False`` run;
    the 64 F values are equal across the kernel and plain engines of the
    three routes, the CLIs report the same winner and F, the winner and
    the first eight groups (the low-K route's four among them) equal
@@ -161,6 +169,13 @@ SCIPY_GROUPS = 8
 LOWK_GROUPS = 4
 # Each path's launches per kernel variant, as _run_path read them.
 VARIANTS = {}
+# The CLI's preprocessing phases, native and NumPy, of the paths run with
+# both (road-4096 and the four RMAT-20 paths).
+PREPROCESSING = {}
+# The card (nvidia-smi name, power limit) and the host (CPUs, the native
+# runtime's threads on a large pass), printed beside every host time.
+CARD = None
+HOST = None
 
 
 def _card_line() -> str:
@@ -1555,13 +1570,16 @@ def _rmat20_paths(ctx, n, edges, g, bg, eg, k, seed):
     tio.save_query_bin(qpath, queries)
     tio.save_query_bin(qpath4, queries[:LOWK_GROUPS])
     argv = ["chip_smoke", "-g", gpath, "-q", qpath, "-gn", "1"]
-    runs = {"bitbell rmat-20": _run_path(cli, timing, argv, "bitbell rmat-20", launches)}
+    runs = {"bitbell rmat-20": _run_path(cli, timing, argv, "bitbell rmat-20", launches,
+                                         numpy_too=True)}
     with _env(MSBFS_BACKEND="pallas"):
-        runs["ell rmat-20"] = _run_path(cli, timing, argv, "ell rmat-20", launches)
+        runs["ell rmat-20"] = _run_path(cli, timing, argv, "ell rmat-20", launches,
+                                        numpy_too=True)
     with _env(MSBFS_BACKEND="bell"):
-        runs["bell rmat-20"] = _run_path(cli, timing, argv, "bell rmat-20", launches)
+        runs["bell rmat-20"] = _run_path(cli, timing, argv, "bell rmat-20", launches,
+                                         numpy_too=True)
     lowk_run = _run_path(cli, timing, ["chip_smoke", "-g", gpath, "-q", qpath4, "-gn", "1"],
-                         "lowk rmat-20", launches)
+                         "lowk rmat-20", launches, numpy_too=True)
     os.remove(gpath)
     ell = {k_: v for k_, v in VARIANTS["ell rmat-20"].items() if k_.startswith("ell_hits:")}
     steady = sum(v for k_, v in ell.items() if ":steady" in k_)
@@ -1702,12 +1720,16 @@ def _env(**values):
                 os.environ[k] = v
 
 
-def _run_path(cli, timing, argv, name, launches):
-    """One CLI run as one path: counters zeroed before, read after."""
+def _run_path(cli, timing, argv, name, launches, numpy_too=False):
+    """One CLI run as one path: counters zeroed before, read after.  With
+    ``numpy_too`` the CLI then runs again with ``native=False`` (outside
+    the counted run), to the same winner and F, and the preprocessing
+    span of both runs is printed split into its phases."""
     timing.reset_launch_counts()
     result = _run_cli(cli, argv)
     counts = timing.launch_counts()
     launches[name] = counts
+    phases = timing.phase_seconds()
     print(f"{name} launches: {json.dumps(counts)}")
     VARIANTS[name] = timing.variant_counts()
     print(f"{name} variants: {json.dumps(VARIANTS[name])}")
@@ -1719,6 +1741,16 @@ def _run_path(cli, timing, argv, name, launches):
         stride = 8 if name in BYTE_PATHS else 1
         packs = {k: v for k, v in VARIANTS[name].items() if k.startswith("pack_sources:")}
         assert list(packs) == [f"pack_sources:stride{stride}"], (name, packs)
+    if numpy_too:
+        numpy_run = _run_cli(cli, argv, native=False)
+        assert numpy_run[:2] == result[:2], (name, numpy_run, result)
+        PREPROCESSING[name] = dict(
+            native=dict(span=result[2], **phases),
+            numpy=dict(span=numpy_run[2], **timing.phase_seconds()),
+            computation_s=dict(native=result[3], numpy=numpy_run[3]),
+        )
+        print(f"preprocessing {name}: " + json.dumps(dict(
+            **PREPROCESSING[name], card=CARD, host=HOST)))
     return result
 
 
@@ -1832,10 +1864,57 @@ def _scipy_f(cg, np, a, sources):
     return int(d[np.isfinite(d)].sum())
 
 
-def _run_cli(cli, argv):
+def _host_layouts(torch, n, edges, g, bg, dev, t_csr, t_bell):
+    """RMAT-20's host layouts, native against NumPy on this host: the CSR,
+    the per-row dedup and the BELL forest must be byte-equal; each step's
+    seconds both ways."""
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.models.bell import (
+        BellGraph,
+    )
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.models.csr import (
+        CSRGraph,
+    )
+
+    def same(a, b):
+        return a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
+
+    t0 = time.perf_counter()
+    g_np = CSRGraph.from_edges(n, edges, native=False)
+    t_csr_np = time.perf_counter() - t0
+    assert same(g.row_offsets, g_np.row_offsets) and same(g.col_indices, g_np.col_indices)
+    del g_np
+    seconds = {}
+    dedup = {}
+    for native in (True, False):
+        t0 = time.perf_counter()
+        dedup[native] = g.dedup_rows(native)
+        seconds[native] = time.perf_counter() - t0
+    assert all(same(a, b) for a, b in zip(dedup[True], dedup[False]))
+    del dedup
+    t0 = time.perf_counter()
+    bg_np = BellGraph.from_host(g, dev, native=False)
+    t_bell_np = time.perf_counter() - t0
+    assert bg.level_shapes == bg_np.level_shapes and bg.fill == bg_np.fill
+    for a, b in zip([*bg.level_cols, bg.final_slot, *bg.sparse],
+                    [*bg_np.level_cols, bg_np.final_slot, *bg_np.sparse]):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    for (r1, f1), (r2, f2) in zip(bg._walk, bg_np._walk, strict=True):
+        assert same(r1, r2) and same(f1, f2)
+    del bg_np
+    torch.cuda.empty_cache()
+    print("rmat-20 host layouts: " + json.dumps(dict(
+        byte_equal=dict(csr=True, dedup=True, bell=True),
+        csr_s=dict(native=t_csr, numpy=t_csr_np),
+        dedup_s=dict(native=seconds[True], numpy=seconds[False]),
+        bell_with_dedup_and_upload_s=dict(native=t_bell, numpy=t_bell_np),
+        card=CARD, host=HOST,
+    )))
+
+
+def _run_cli(cli, argv, native=True):
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        rc = cli.main(argv)
+        rc = cli.main(argv, native=native)
     report = buf.getvalue()
     print(report, end="")
     assert rc == 0, rc
@@ -1848,7 +1927,7 @@ def _run_cli(cli, argv):
 
 
 def main() -> int:
-    global DETAIL_DIR
+    global DETAIL_DIR, CARD, HOST
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--detail-dir", default=DETAIL_DIR,
@@ -1883,27 +1962,38 @@ def main() -> int:
         bitbell, mxu, packed, stencil,
     )
     from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.runtime import (
-        kernels,
+        kernels, native_loader,
     )
     from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.utils import (
         io as tio, timing,
     )
 
-    card = _card_line()
+    card = CARD = _card_line()
     print(f"card: {card}")
     dev = torch.device("cuda", 0)
     print(f"device: {torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
           f"cuda {torch.version.cuda}")
 
-    # ---- 1. build
+    # ---- 1. build: the kernels (nvcc, in parallel) and the native host
+    # runtime (the host C++ compiler)
     t0 = time.perf_counter()
     built = kernels.build_all()
     kernels.library()
     build_s = time.perf_counter() - t0
-    print(f"build: {build_s:.3f} s wall for {len(built)} kernels in parallel")
+    t0 = time.perf_counter()
+    loader = native_loader.build()
+    native_loader.library()
+    loader_s = time.perf_counter() - t0
+    print(f"build: {build_s:.3f} s wall for {len(built)} kernels in parallel, "
+          f"{loader_s:.3f} s for the native runtime")
     for name, res in built.items():
         regs = [ln.strip() for ln in res.log.splitlines() if "Used" in ln]
         print(f"  {name}: {res.seconds:.3f} s; {'; '.join(regs)}")
+    print(f"  runtime/loader.cpp: {loader.seconds:.3f} s "
+          f"({native_loader.CXX_FLAGS}) -> {loader.path.name}")
+    HOST = dict(cpus=os.cpu_count(), native_threads=native_loader.threads(1 << 40),
+                MSBFS_NATIVE_THREADS=os.environ.get("MSBFS_NATIVE_THREADS"))
+    print("host: " + json.dumps(HOST))
 
     print("host dispatch: " + json.dumps(dict(
         us_per_small_torch_op=_host_dispatch_us(torch, dev),
@@ -1954,7 +2044,7 @@ def main() -> int:
     launches = {}
     min_k, min_f, pre_s, comp_s = _run_path(
         cli, timing, ["chip_smoke", "-g", gpath, "-q", qpath, "-gn", "1"],
-        "stencil road-4096", launches,
+        "stencil road-4096", launches, numpy_too=True,
     )
     sweeps = [k for k in VARIANTS["stencil road-4096"] if k.startswith("stencil_sweep:")]
     assert sweeps and all(k.endswith("/res") for k in sweeps), sweeps
@@ -2005,11 +2095,14 @@ def main() -> int:
     # and ELL routes through the CLI with K = 64
     t0 = time.perf_counter()
     n20, e20 = generators.rmat_edges(20, edge_factor=16, seed=seed)
+    t_gen = time.perf_counter() - t0
+    t0 = time.perf_counter()
     g20 = CSRGraph.from_edges(n20, e20)
     t_csr = time.perf_counter() - t0
     t0 = time.perf_counter()
     bg20 = BellGraph.from_host(g20, dev)
     t_bell = time.perf_counter() - t0
+    _host_layouts(torch, n20, e20, g20, bg20, dev, t_csr, t_bell)
     t0 = time.perf_counter()
     eg20 = EllGraph.from_host(g20, dev)
     t_ell = time.perf_counter() - t0
@@ -2017,8 +2110,8 @@ def main() -> int:
     print(f"data: rmat-20 n={n20} directed={g20.num_directed_edges} dedup={dedup} "
           f"max_dedup_degree={int(bg20.sparse[1].max())} "
           f"isolated={int((g20.degrees == 0).sum())} forest_levels={list(bg20.level_sizes)} "
-          f"fill={bg20.fill:.3f} ell_vrows={eg20.num_vrows}; host s: generate+csr "
-          f"{t_csr:.1f}, bell {t_bell:.1f}, ell {t_ell:.1f}")
+          f"fill={bg20.fill:.3f} ell_vrows={eg20.num_vrows}; host s: generate "
+          f"{t_gen:.1f}, csr {t_csr:.1f}, bell {t_bell:.1f}, ell {t_ell:.1f}")
     main_shape.update(_compare_forest_ell(torch, bg20, eg20, 64, seed + 10, "rmat-20"))
     budget = bitbell.default_sparse_budget(dedup)
     _compare_apply(torch, n20, n20, 2, dev, seed + 15, "rmat-20",

@@ -11,9 +11,11 @@ This package imports torch and numpy only — never jax, and nothing of the
 JAX package, which stays the reference the port is held against.  Layout
 mirrors the JAX package: :mod:`.utils` (I/O, knobs, timing, report),
 :mod:`.models` (host CSR, generators), :mod:`.ops` (engines and kernel
-wrappers), :mod:`.runtime` (kernel build, supervisor), :mod:`.cli`.
-Hand-written CUDA kernels live in ``csrc/`` and are compiled with nvcc
-at first use (:mod:`.runtime.kernels`).
+wrappers), :mod:`.runtime` (kernel build, native host runtime,
+supervisor), :mod:`.cli`.  Hand-written CUDA kernels live in ``csrc/``
+and are compiled with nvcc at first use (:mod:`.runtime.kernels`); the
+host preprocessing runs in ``runtime/loader.cpp``, compiled with the host
+C++ compiler at first use (:mod:`.runtime.native_loader`).
 
 Routes ported so far, on ``-gn 1``: the default bitbell route (the BELL
 reduction forest with the on-device push/pull switch), the stencil

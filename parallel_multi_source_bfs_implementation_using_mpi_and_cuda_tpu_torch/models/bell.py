@@ -10,9 +10,11 @@ until every vertex owns one row.  ``final_slot[v]`` indexes that row in
 the concatenation of all level outputs (the total row count means a zero
 row: an isolated vertex).
 
-Built on the host with NumPy exactly as the JAX package's models/bell.py
-builds it (its native loader, its host-only ``device=False`` layout and
-its weight column are not ported), then moved to one device.
+Built on the host exactly as the JAX package's models/bell.py builds it,
+each level by the native runtime (runtime/native_loader.py ``bell_level``)
+or, with ``native=False``, by the NumPy build kept here (the same bytes);
+then moved to one device.  The JAX package's host-only ``device=False``
+layout and its weight column are not ported.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..runtime import native_loader
 from .csr import CSRGraph
 
 # Width ladder: dense 1..16, then ~1.3x geometric steps to the 256-wide hub
@@ -226,15 +229,17 @@ class BellGraph:
         dedup: bool = True,
         min_bucket_rows: Optional[int] = None,
         keep_sparse: bool = True,
+        native: bool = True,
     ) -> "BellGraph":
         """Build the layout on ``device``.  ``dedup`` drops duplicate
         neighbours and self-loops (the hit is a set predicate, so BFS
         distances cannot change); ``keep_sparse`` also keeps the dedup CSR
-        for the push direction (skipped when E >= 2^31)."""
+        for the push direction (skipped when E >= 2^31); ``native=False``
+        dedups and builds the levels with NumPy."""
         n = g.n
         e = int(g.num_directed_edges)
         if dedup and e:
-            _, item_vals, item_count = g.deduped_pairs()
+            item_vals, item_count = g.dedup_rows(native)
             item_start = np.zeros(n, dtype=np.int64)
             np.cumsum(item_count[:-1], out=item_start[1:])
         else:
@@ -259,11 +264,20 @@ class BellGraph:
             # index n of the frontier for level 0, the previous level's row
             # count for deeper levels.
             prev_rows = n if not level_sizes else level_sizes[-1]
-            cols_b, rows_per_owner, first_row = _bucket_rows(
-                item_start, item_count, widths, item_vals.shape[0]
-            )
-            vals_ext = np.concatenate([item_vals, np.asarray([prev_rows], dtype=np.int64)])
-            flat, shapes = BellGraph.pack_level([vals_ext[cb].astype(np.int32) for cb in cols_b])
+            if native:
+                # Row assignment, padded fill, value map and sentinel in two
+                # passes that write the level's int32 slots directly.
+                flat, shapes, rows_per_owner, first_row = native_loader.bell_level(
+                    item_start, item_count, item_vals, widths, prev_rows
+                )
+            else:
+                cols_b, rows_per_owner, first_row = _bucket_rows(
+                    item_start, item_count, widths, item_vals.shape[0]
+                )
+                vals_ext = np.concatenate([item_vals, np.asarray([prev_rows], dtype=np.int64)])
+                flat, shapes = BellGraph.pack_level(
+                    [vals_ext[cb].astype(np.int32) for cb in cols_b]
+                )
             walk.append((rows_per_owner, first_row))
             level_rows = sum(r for r, _ in shapes)
             level_cols.append(put(flat))

@@ -1,9 +1,13 @@
-"""Host-side CSR of an undirected graph (NumPy).
+"""Host-side CSR of an undirected graph.
 
 Reproduces the reference's adjacency exactly (main.cu:106-129): every
 undirected edge record (u, v) is inserted in both adjacency lists, in file
 order, duplicates and self-loops preserved.  ``row_offsets`` is int64 so
 2m > 2^31 cannot overflow (the reference uses int, main.cu:119-121).
+
+The build and the per-row dedup run in the native runtime
+(runtime/native_loader.py) unless the caller passes ``native=False``,
+which takes the NumPy versions kept here: the same bytes, slower.
 """
 
 from __future__ import annotations
@@ -41,25 +45,38 @@ class CSRGraph:
     def degrees(self) -> np.ndarray:
         return np.diff(self.row_offsets)
 
-    def deduped_pairs(self):
-        """Directed slots with duplicate neighbours and self-loops removed:
-        (src, dst, per-vertex counts), sorted by (src, dst).  Set
-        semantics per row are safe for any "is some neighbour in the
+    def dedup_rows(self, native: bool = True):
+        """(dst int32, per-vertex counts int64): each row's neighbours
+        sorted, duplicates and self-loops removed, rows concatenated.
+        Set semantics per row are safe for any "is some neighbour in the
         frontier" step, and a self-loop never reaches a new vertex."""
+        if native:
+            from ..runtime import native_loader  # lazy: avoid an import cycle
+
+            return native_loader.dedup_rows(self.row_offsets, self.col_indices)
         n = self.n
         src = np.repeat(np.arange(n, dtype=np.int64), self.degrees)
         dst = np.asarray(self.col_indices, dtype=np.int64)
         keep = src != dst
         pairs = sorted_unique(src[keep] * n + dst[keep])
-        u, v = pairs // max(n, 1), pairs % max(n, 1)
-        return u, v, np.bincount(u, minlength=n)
+        return (pairs % max(n, 1)).astype(np.int32), np.bincount(
+            pairs // max(n, 1), minlength=n
+        )
+
+    def deduped_pairs(self, native: bool = True):
+        """The dedup slots of :meth:`dedup_rows` as (src, dst, per-vertex
+        counts), int64, sorted by (src, dst)."""
+        dst, deg = self.dedup_rows(native)
+        src = np.repeat(np.arange(self.n, dtype=np.int64), deg)
+        return src, dst.astype(np.int64), deg
 
     @staticmethod
-    def from_edges(n: int, edges: np.ndarray) -> "CSRGraph":
+    def from_edges(n: int, edges: np.ndarray, native: bool = True) -> "CSRGraph":
         """Build CSR from an (m, 2) int array of undirected edge records:
         for record i = (u, v), v is appended to adj[u] and u to adj[v], in
-        file order — a stable sort of the interleaved directed sequence
-        [(u0,v0),(v0,u0),(u1,v1),...] by source."""
+        file order.  Natively a counting pass and a placement pass; with
+        ``native=False`` a stable sort of the interleaved directed
+        sequence [(u0,v0),(v0,u0),(u1,v1),...] by source."""
         edges = np.asarray(edges)
         m = edges.shape[0]
         if m and (edges.min() < 0 or edges.max() >= n):
@@ -73,6 +90,11 @@ class CSRGraph:
                 row_offsets=np.zeros(n + 1, dtype=np.int64),
                 col_indices=np.zeros(0, dtype=np.int32),
             )
+        if native:
+            from ..runtime import native_loader  # lazy: avoid an import cycle
+
+            row_offsets, col_indices = native_loader.csr_from_edges(n, edges)
+            return CSRGraph(n=n, m=m, row_offsets=row_offsets, col_indices=col_indices)
         src = np.empty(2 * m, dtype=np.int64)
         dst = np.empty(2 * m, dtype=np.int32)
         src[0::2] = edges[:, 0]

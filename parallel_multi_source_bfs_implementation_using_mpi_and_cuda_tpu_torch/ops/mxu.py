@@ -172,16 +172,18 @@ class MxuGraph:
         device,
         tile: Optional[int] = None,
         max_tiles: Optional[int] = None,
+        native: bool = True,
     ) -> "MxuGraph":
         """Densify a host CSRGraph's dedup adjacency onto ``device``.
         Raises ValueError when the nonzero tile count exceeds
-        ``max_tiles`` (MSBFS_MXU_MAX_TILES)."""
+        ``max_tiles`` (MSBFS_MXU_MAX_TILES).  ``native=False`` dedups
+        with NumPy instead of the native runtime."""
         tile = resolve_tile(tile)
         if max_tiles is None:
             max_tiles = knobs.get_int("MSBFS_MXU_MAX_TILES", 0)
             max_tiles = max_tiles or DEFAULT_MAX_TILES
         n = g.n
-        u, v, count_n = g.deduped_pairs()
+        u, v, count_n = g.deduped_pairs(native=native)
         ntr = max(1, -(-n // tile))
         n_pad = ntr * tile
         count = np.zeros(n_pad, dtype=np.int32)

@@ -1,1 +1,2 @@
-"""Kernel build/loading and the resilient-execution supervisor."""
+"""Kernel build/loading, the native host runtime (loader.cpp) and the
+resilient-execution supervisor."""

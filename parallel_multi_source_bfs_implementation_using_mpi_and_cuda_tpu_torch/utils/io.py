@@ -11,8 +11,14 @@ Query format (reference LoadQueryBin, main.cu:134-164):
     uint8  K                      -- number of query groups
     per group: uint8 set_size, then set_size x int32 vertex ids
 
-Errors are the same types as the JAX package's loader: ``IOError`` for a
-truncated or corrupt file, ``ValueError`` for an out-of-range endpoint.
+The edge records decode in the native runtime (runtime/native_loader.py)
+unless the caller passes ``native=False``.  Each decoder raises what the
+same decoder of the JAX package raises: ``IOError`` for a truncated or
+corrupt file from both; for an out-of-range endpoint the native decoder's
+``IOError`` ("native loader: failed to decode ... (rc=4)") and the NumPy
+decoder's ``ValueError``.  The JAX package decodes a weighted file with
+NumPy only, so there the native decoder raises the NumPy decoder's
+``ValueError``.
 """
 
 from __future__ import annotations
@@ -64,11 +70,32 @@ def _graph_bin_layout(path: str | os.PathLike):
         return n, m, True
 
 
-def load_graph_bin(path: str | os.PathLike) -> CSRGraph:
-    """Load a reference-format binary graph into a host CSR (one read,
-    decoded with NumPy).  A weight section is validated (costs >= 1) and
-    dropped: the hop-distance objective does not read it."""
+def _check_weights(f, path, m: int) -> None:
+    """Read the weight section at ``f``'s position (after the magic) and
+    refuse it unless it holds m costs >= 1."""
+    weights = np.fromfile(f, dtype=np.int32, count=m)
+    if weights.size != m:
+        raise IOError(f"truncated weight section in {path}")
+    if m and weights.min() < 1:
+        raise IOError(f"corrupt weight section in {path}: costs must be >= 1")
+
+
+def load_graph_bin(path: str | os.PathLike, native: bool = True) -> CSRGraph:
+    """Load a reference-format binary graph into a host CSR: validated
+    before anything is allocated, then decoded by the native runtime or,
+    with ``native=False``, by one NumPy read.
+    A weight section is validated (costs >= 1) and dropped: the
+    hop-distance objective does not read it."""
     n, m, weighted = _graph_bin_layout(path)
+    if native:
+        if weighted:
+            with open(path, "rb") as f:
+                f.seek(GRAPH_HEADER.size + 8 * m + len(WEIGHT_MAGIC))
+                _check_weights(f, path, m)
+        from ..runtime import native_loader
+
+        # The JAX package decodes a weighted file with NumPy: its errors.
+        return native_loader.load_graph_csr(os.fspath(path), numpy_errors=weighted)
     with open(path, "rb") as f:
         f.seek(GRAPH_HEADER.size)
         edges = np.fromfile(f, dtype=np.int32, count=2 * m)
@@ -79,14 +106,8 @@ def load_graph_bin(path: str | os.PathLike) -> CSRGraph:
             )
         if weighted:
             f.seek(len(WEIGHT_MAGIC), os.SEEK_CUR)
-            weights = np.fromfile(f, dtype=np.int32, count=m)
-            if weights.size != m:
-                raise IOError(f"truncated weight section in {path}")
-            if m and weights.min() < 1:
-                raise IOError(
-                    f"corrupt weight section in {path}: costs must be >= 1"
-                )
-    return CSRGraph.from_edges(n, edges.reshape(m, 2))
+            _check_weights(f, path, m)
+    return CSRGraph.from_edges(n, edges.reshape(m, 2), native=False)
 
 
 def save_graph_bin(

@@ -24,7 +24,7 @@ class Knob:
 
 
 _ALL = (
-    Knob("MSBFS_BACKEND", "auto", "str", "engine selection; the port has auto, stencil, mxu, pallas and bitbell (any other name but vmap/bell/push/ppush/streamed/packed/dense/lowk runs bitbell, as in JAX)"),
+    Knob("MSBFS_BACKEND", "auto", "str", "engine selection; the port has auto, stencil, mxu, pallas, bell, lowk and bitbell (any other name but vmap/push/ppush/streamed/packed/dense runs bitbell, as in JAX)"),
     Knob("MSBFS_MXU_TILE", "128", "int", "mxu adjacency tile side (multiple of 8; the CUDA tile kernel takes 32, 64, 96 or 128)"),
     Knob("MSBFS_MXU_MAX_TILES", "32768", "int", "mxu densification ceiling in nonzero tiles"),
     Knob("MSBFS_MXU_SWITCH", None, "int", "mxu per-level direction switch threshold in active rows; 0 never pushes, unset = auto n/64"),
@@ -32,7 +32,7 @@ _ALL = (
     Knob("MSBFS_STENCIL", None, "flag", "0 disables the banded-adjacency auto route"),
     Knob("MSBFS_SLOT_BUDGET", None, "int", "bitbell forest gather-segment budget in slots; 0 never segments, unset = auto"),
     Knob("MSBFS_HBM_BYTES", None, "int", "device memory budget for routing; unset = the card's total memory (16 GiB off the card)"),
-    Knob("MSBFS_LOWK", None, "flag", "0 disables the low-K auto route (the route itself is not yet ported: fails)"),
+    Knob("MSBFS_LOWK", None, "flag", "0 disables the low-K auto route"),
     Knob("MSBFS_LOWK_MAX_K", "4", "int", "largest K the low-K auto route takes"),
     Knob("MSBFS_LEVEL_CHUNK", None, "int", "BFS levels between host syncs; 0 disables the bound, unset = auto"),
     Knob("MSBFS_MEGACHUNK", None, "int", "level chunks fused per host sync; unset = auto factor 8"),
@@ -42,6 +42,7 @@ _ALL = (
     Knob("MSBFS_BACKOFF", "0.1", "float", "supervisor base backoff delay in seconds"),
     Knob("MSBFS_WATCHDOG", "0", "float", "wall-clock deadline per supervised call in seconds; 0/unset = off"),
     Knob("MSBFS_FAULT_SEED", "0", "int", "backoff-jitter RNG stream"),
+    Knob("MSBFS_NATIVE_THREADS", None, "int", "exact thread count of every native loader pass (runtime/loader.cpp); unset = the hardware's, fewer on small inputs"),
     # Routes and modes of the JAX CLI that the port refuses by name.
     Knob("MSBFS_FAULTS", None, "spec", "fault-injection plan (not yet ported: fails)"),
     Knob("MSBFS_CHECKPOINT", None, "path", "resumable journal (not yet ported: fails)"),

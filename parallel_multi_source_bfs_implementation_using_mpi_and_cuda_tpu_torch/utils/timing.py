@@ -4,7 +4,12 @@ The spans mirror the reference's report (main.cu:235-298 preprocessing,
 main.cu:301-400 computation); kernel builds and warm-up are charged to
 preprocessing, as the reference's kernels are compiled offline by nvcc.
 CUDA work is asynchronous, so a span must close after a host read of the
-result (the engines' status reads are such syncs).
+result (the engines' status reads are such syncs).  The CLI splits its
+preprocessing span into named phases (:func:`phase`): ``load`` (graph and
+query files), ``compile`` (``engine.compile``: kernel build and warm-up)
+and ``layout``, the rest (dedup, the stencil probe, the BELL/ELL/tile
+builds and their host->device copies, the engine's set-up);
+:func:`phase_seconds` reads them.
 
 Counters (thread-safe; serving threads may drive engines concurrently):
 
@@ -22,6 +27,7 @@ Counters (thread-safe; serving threads may drive engines concurrently):
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 from typing import Dict
@@ -44,10 +50,37 @@ class Span:
 
 
 _lock = threading.Lock()
+_phases: Dict[str, float] = {}
 _dispatches = 0
 _plane_pass_bytes = 0
 _launches: Dict[str, int] = {}
 _variants: Dict[str, int] = {}
+
+
+@contextlib.contextmanager
+def phase(name: str):
+    """Add the wall time of the block to the named preprocessing phase."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        record_phase(name, time.perf_counter() - t0)
+
+
+def record_phase(name: str, seconds: float) -> None:
+    with _lock:
+        _phases[name] = _phases.get(name, 0.0) + seconds
+
+
+def phase_seconds() -> Dict[str, float]:
+    """Seconds per phase since the last :func:`reset_phases`."""
+    with _lock:
+        return dict(_phases)
+
+
+def reset_phases() -> None:
+    with _lock:
+        _phases.clear()
 
 
 def record_dispatch(n: int = 1) -> None:

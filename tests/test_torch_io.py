@@ -5,6 +5,9 @@ import struct
 import numpy as np
 import pytest
 
+from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu.runtime import (
+    native_loader as jax_native,
+)
 from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu.utils import (
     io as jio,
 )
@@ -84,20 +87,53 @@ BAD_GRAPHS = {
         _graph_bytes(4, 1, np.array([0, 9], np.int32).tobytes()),
         ValueError,
     ),
+    "weighted_endpoint_out_of_range": (
+        _graph_bytes(
+            4, 1, np.array([0, 9], np.int32).tobytes(),
+            b"MSBW" + np.array([1], np.int32).tobytes(),
+        ),
+        ValueError,
+    ),
 }
 
 
-@pytest.mark.parametrize("case", sorted(BAD_GRAPHS))
-def test_graph_load_errors_match_jax(tmp_path, case):
+# Where the native decoder's error differs from the NumPy decoder's: what
+# the JAX package's native decoder raises (its runtime/native_loader.py).
+# A weighted file decodes with NumPy in the JAX package, so its errors are
+# the NumPy decoder's for both.
+NATIVE_ERRORS = {
+    "endpoint_out_of_range": (IOError, "native loader: failed to decode {path} (rc=4)"),
+}
+# Each case once per decoder: the NumPy decoder (native=False, held to the
+# JAX package's native=False) under the case's name, the native decoder
+# (the default, held to the JAX package's default, which is its native
+# decoder where its library is built) as "native-<case>".
+DECODER_CASES = [pytest.param(False, case, id=case) for case in sorted(BAD_GRAPHS)] + [
+    pytest.param(True, case, id=f"native-{case}") for case in sorted(BAD_GRAPHS)
+]
+
+
+@pytest.mark.parametrize("native, case", DECODER_CASES)
+def test_graph_load_errors_match_jax(tmp_path, native, case):
+    """Each decoder of the port raises what the same decoder of the JAX
+    package raises.  The JAX package's native decoder is compared where its
+    library is built (this test never builds it); elsewhere its error is
+    the one its source states (NATIVE_ERRORS)."""
     data, exc = BAD_GRAPHS[case]
+    if native and case in NATIVE_ERRORS:
+        exc = NATIVE_ERRORS[case][0]
     path = tmp_path / "bad.bin"
     path.write_bytes(data)
     with pytest.raises(exc) as port_err:
-        tio.load_graph_bin(path)
-    with pytest.raises(exc) as jax_err:
-        jio.load_graph_bin(path, native=False)
-    assert type(port_err.value) is type(jax_err.value)
-    assert str(port_err.value) == str(jax_err.value)
+        tio.load_graph_bin(path, native=native)
+    if native and case in NATIVE_ERRORS and not jax_native.available():
+        want = NATIVE_ERRORS[case][1].format(path=path)
+    else:
+        with pytest.raises(exc) as jax_err:
+            jio.load_graph_bin(path, native=None if native else False)
+        assert type(port_err.value) is type(jax_err.value)
+        want = str(jax_err.value)
+    assert str(port_err.value) == want
 
 
 BAD_QUERIES = {
