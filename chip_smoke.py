@@ -8,8 +8,9 @@ Needs one CUDA card (NVIDIA H100 class, sm_90a), nvcc, a host C++
 compiler, and scipy; imports nothing of JAX.  Phases (any failure exits
 non-zero; nothing is caught):
 
-1. print the card (nvidia-smi name, power limit); build the eight CUDA
-   kernels from csrc/ in parallel and the native host runtime
+1. print the card (nvidia-smi name, power limit); build the CUDA kernels
+   from csrc/ (eight sources, ten entry points) in parallel and the
+   native host runtime
    (runtime/loader.cpp), and time both builds; print the host's CPUs and
    the native runtime's thread count;
 2. hold each kernel against its plain torch version on the card, bit for
@@ -107,9 +108,36 @@ non-zero; nothing is caught):
 8. grid_edges(2048, 2048) with corner sources: the active-row window
    engages (some chunk runs on fewer rows than n) and its results equal
    the plain path's without the window;
+9. resilience, on phase 5b's RMAT-20 files (run right after it, K = 64):
+   a. ``MSBFS_BACKEND=streamed`` through the CLI (a path: pack_sources,
+      forest_segment, forest_gather, level_apply, and never forest_or or
+      push_or), then with prefetch 1, and with STREAMED_BUDGET-slot
+      segments at prefetch 1 and 2: the same winner and F as the bitbell
+      path (scipy's), and every F of the host-streamed engine at both
+      cuts and depths equal to the bitbell path's; the BFS a level at a
+      time, the kernel pass at both cuts equal to the plain pass (every
+      segment output and the hits) on every level; on the densest level
+      each segment launch and the final gather held against their plain
+      versions and timed beside their bounds and beside forest_or on the
+      same frontier; the pinned host-to-device rate, the bytes each level
+      uploads and their transfer bound, and the level pass at prefetch 1
+      and 2;
+   b. the ladder by injected faults (one, two and three oom:dispatch
+      specs, the third with MSBFS_LEVEL_CHUNK=0): each reaches its rung
+      with the winner and F of 9a, its recovery events printed;
+   c. a real CUDA out-of-memory error: a child process measures the
+      caching allocator's peaks of the default route and of the streamed
+      rung, caps itself between them (set_per_process_memory_fraction)
+      and runs ``cli.main``: the hybrid route must run out of memory in a
+      supervised call, step down and answer right (no window: fail);
+   d. checkpoint: ``python -m`` the port with MSBFS_CHECKPOINT in chunks
+      of CHECKPOINT_CHUNK and ``crash:dispatch:3`` exits 137 with one
+      chunk journaled; the rerun resumes to the uninterrupted answer;
+   e. ``MSBFS_STATS=2`` on the bitbell route: per-query levels and
+      reached equal scipy's on the winner and the first eight groups;
 then the ``{"kernels": [...]}`` line and the final ``{"ok": true, ...}``.
 
-Each CLI run of phases 3-5b is one path: the kernel launch counters are
+Each CLI run of phases 3-5b and 9a is one path: the kernel launch counters are
 zeroed just before it and read just after; each path must have launched
 its route's kernels (pack_sources at its route's stride), and every
 registered kernel must have launched on some path, and no byte path may
@@ -158,6 +186,7 @@ PATH_KERNELS = {
     "ell rmat-20": ("ell_hits",),
     "bell rmat-20": ("pack_sources", "flag_pull", "level_apply"),
     "lowk rmat-20": ("pack_sources", "flag_pull", "push_or", "level_apply"),
+    "streamed rmat-20": ("pack_sources", "forest_segment", "forest_gather", "level_apply"),
 }
 # The paths whose planes are bytes: their pack runs at a stride of 8 lanes,
 # the others' at 1 (the ELL route packs no planes), and they pull with
@@ -1580,7 +1609,6 @@ def _rmat20_paths(ctx, n, edges, g, bg, eg, k, seed):
                                          numpy_too=True)
     lowk_run = _run_path(cli, timing, ["chip_smoke", "-g", gpath, "-q", qpath4, "-gn", "1"],
                          "lowk rmat-20", launches, numpy_too=True)
-    os.remove(gpath)
     ell = {k_: v for k_, v in VARIANTS["ell rmat-20"].items() if k_.startswith("ell_hits:")}
     steady = sum(v for k_, v in ell.items() if ":steady" in k_)
     stale = sum(v for k_, v in ell.items() if ":stale" in k_)
@@ -1698,11 +1726,402 @@ def _rmat20_paths(ctx, n, edges, g, bg, eg, k, seed):
     pushes = [r["push_or:bytes"] for r in rows4 if "push_or:bytes" in r]
     assert pulls and pushes, "the low-K BFS ran one direction only"
     # The kernel line's rows: the densest pull and the widest push of the
-    # low-K BFS (K = 4, W = 1).
-    return {
+    # low-K BFS (K = 4, W = 1); and what phase 9 reuses.
+    rows = {
         "flag_pull": max(pulls, key=lambda r: r["frontier_rows"]),
         "push_or:bytes": max(pushes, key=lambda r: r["edges"]),
     }
+    info = dict(gpath=gpath, qpath=qpath, queries=queries, padded=padded, fv=fv,
+                winner=winner, want=want, scipy=a, groups=groups)
+    return rows, info
+
+
+# ---- phase 9: resilience on RMAT-20 (the host-streamed route, the
+# capacity ladder, a real out-of-memory error, checkpoint, MSBFS_STATS)
+
+# MSBFS_SLOT_BUDGET of the many-segment streamed runs (slots).
+STREAMED_BUDGET = 4194304
+# Queries per checkpointed chunk of the crash run (64 groups: 4 chunks).
+CHECKPOINT_CHUNK = 16
+
+
+@contextlib.contextmanager
+def _supervisors():
+    """Keep every ChunkSupervisor the CLI builds, for its recovery events
+    (the CLI reports them only on a failure)."""
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.runtime import (
+        supervisor,
+    )
+
+    made, init = [], supervisor.ChunkSupervisor.__init__
+
+    def keep(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        made.append(self)
+
+    supervisor.ChunkSupervisor.__init__ = keep
+    try:
+        yield made
+    finally:
+        supervisor.ChunkSupervisor.__init__ = init
+
+
+def _scipy_stats(cg, np, a, sources):
+    """(levels, reached, F) of one query group from scipy's BFS: levels is
+    the largest distance + 1, 0 for a group with no source in range."""
+    n = a.shape[0]
+    src = np.unique(sources[(sources >= 0) & (sources < n)])
+    if src.size == 0:
+        return 0, 0, 0
+    d = cg.dijkstra(a, directed=True, indices=src, unweighted=True, min_only=True)
+    d = d[np.isfinite(d)]
+    return int(d.max()) + 1, int(d.size), int(d.sum())
+
+
+def _h2d_bytes_per_s(torch, host, dev):
+    """Pinned host-to-device copy rate of ``host`` (CUDA events, median)."""
+    dst = torch.empty(host.shape, dtype=host.dtype, device=dev)
+    ms = _time_ms(torch, lambda: dst.copy_(host, non_blocking=True), lambda: None, reps=5)
+    return host.numel() * host.element_size() / (ms / 1e3)
+
+
+def _pass_ms(torch, eng, frontier, reps=5):
+    """One BFS level's forest pass of a host-streamed engine, uploads
+    included: host clock around the pass and a device sync, median."""
+    hits = torch.empty_like(frontier)
+    ctrl = torch.tensor([1, 7, 0, 0], dtype=torch.int32, device=frontier.device)
+    times = []
+    for i in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with eng._streams():
+            eng.forest_pass(frontier, hits, ctrl)
+        torch.cuda.synchronize()
+        if i:
+            times.append((time.perf_counter() - t0) * 1e3)
+    times.sort()
+    return times[len(times) // 2]
+
+
+def _segment_rows(torch, eng, frontier, plain):
+    """The segment kernel and the final gather against their plain
+    versions on one real frontier, each segment's cols on the device,
+    timed with CUDA events beside their byte bounds."""
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
+        cuda_bell,
+    )
+
+    dev, (n, w) = frontier.device, frontier.shape
+    ctrl = torch.tensor([1, 7, 0, 0], dtype=torch.int32, device=dev)
+    scratch = cuda_bell.forest_scratch(eng, w, dev)
+    ref = cuda_bell.forest_scratch(eng, w, dev)
+    segs = []
+    for i, seg in enumerate(eng._segments):
+        cols = eng._slices[i].to(dev)
+        if seg.level == 0:
+            prev, prev_ref, prev_rows = frontier, frontier, n
+        else:
+            lo = eng._row_offset[seg.level - 1]
+            prev_rows = eng.level_rows[seg.level - 1]
+            prev, prev_ref = scratch[lo : lo + prev_rows], ref[lo : lo + prev_rows]
+        lo = eng._row_offset[seg.level] + seg.row0
+        out, out_ref = scratch[lo : lo + seg.rows], ref[lo : lo + seg.rows]
+        cuda_bell.forest_segment(prev, prev_rows, cols, eng._tables, i, out, ctrl)
+        cuda_bell.forest_segment_plain(prev_ref, prev_rows, cols, eng._tables.pieces[i],
+                                       out_ref, ctrl)
+        torch.cuda.synchronize()
+        err = _max_abs_err(torch, [(out, out_ref)])
+        ms = _time_ms(torch, lambda: cuda_bell.forest_segment(
+            prev, prev_rows, cols, eng._tables, i, out, ctrl), lambda: None)
+        plain_ms = _time_ms(torch, lambda: cuda_bell.forest_segment_plain(
+            prev_ref, prev_rows, cols, eng._tables.pieces[i], out_ref, ctrl),
+            lambda: None, reps=3)
+        bound, by = _bound_ms(4 * seg.slots + 4 * w * prev_rows + 4 * w * seg.rows,
+                              seg.slots * w)
+        vec16 = all(t.data_ptr() % (16 if w % 4 == 0 else 8) == 0 for t in (prev, out))
+        segs.append(dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                         bound_by=by, library_ms=None, level=seg.level, slots=seg.slots,
+                         rows=seg.rows, variant=cuda_bell.forest_plan(w, vec16).label))
+        del cols
+    h_k, h_p = torch.full_like(frontier, 7), torch.empty_like(frontier)
+    cuda_bell.forest_final_gather(scratch, eng.final_slot, h_k, ctrl)
+    cuda_bell.forest_final_gather_plain(ref, eng.final_slot, h_p, ctrl)
+    torch.cuda.synchronize()
+    gather = dict(
+        max_abs_err=_max_abs_err(torch, [(h_k, h_p)]),
+        ms=_time_ms(torch, lambda: cuda_bell.forest_final_gather(
+            scratch, eng.final_slot, h_k, ctrl), lambda: None),
+        plain_ms=_time_ms(torch, lambda: cuda_bell.forest_final_gather_plain(
+            ref, eng.final_slot, h_p, ctrl), lambda: None, reps=3),
+        library_ms=_time_ms(torch, lambda: torch.index_select(
+            ref, 0, eng.final_slot, out=h_p), lambda: None),
+        library="torch.index_select(v_cat, 0, final_slot, out=hits)",
+    )
+    gather["bound_ms"], gather["bound_by"] = _bound_ms(4 * n + 8 * n * w, 0)
+    plain_pass = torch.empty_like(frontier)
+    plain.forest_pass(frontier, plain_pass, ctrl)
+    torch.cuda.synchronize()
+    assert torch.equal(plain_pass, h_p) and gather["max_abs_err"] == 0
+    return segs, gather
+
+
+def _streamed_phase(ctx, n, g, bg, info, seed):
+    """Phase 9 on phase 5b's RMAT-20 files (K = 64): the host-streamed
+    route through the CLI (whole levels and STREAMED_BUDGET segments, at
+    prefetch 1 and 2), its kernels against their plain versions on every
+    real level, the pipeline's numbers; the ladder walked by injected
+    faults; a real CUDA out-of-memory error in a process whose memory is
+    capped between what the streamed rung and the hybrid route need;
+    a checkpointed run that crashes and resumes; MSBFS_STATS=2."""
+    torch, np, sp, cg, cli, tio, timing, generators, launches, tmp = ctx
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.models.bell import (
+        BellGraph,
+    )
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
+        bitbell, streamed,
+    )
+
+    dev = bg.device
+    argv = ["chip_smoke", "-g", info["gpath"], "-q", info["qpath"], "-gn", "1"]
+    fv, winner, padded = info["fv"], info["winner"], info["padded"]
+    want = (winner, int(fv[winner]))
+
+    # -- 9a. the host-streamed route: the CLI path (counted), then the
+    # other cuts and depths; every F against the bitbell path's.
+    with _env(MSBFS_BACKEND="streamed"):
+        run = _run_path(cli, timing, argv, "streamed rmat-20", launches)
+    assert run[:2] == want, (run, want)
+    counts = launches["streamed rmat-20"]
+    assert "forest_or" not in counts and "push_or" not in counts, counts
+    spans = {"whole levels, prefetch 2": run[3]}
+    for budget, prefetch in ((None, 1), (STREAMED_BUDGET, 1), (STREAMED_BUDGET, 2)):
+        knobs = dict(MSBFS_BACKEND="streamed", MSBFS_STREAM_PREFETCH=str(prefetch))
+        if budget:
+            knobs["MSBFS_SLOT_BUDGET"] = str(budget)
+        with _env(**knobs):
+            r = _run_cli(cli, argv)
+        assert r[:2] == want, (budget, prefetch, r)
+        cut = "whole levels" if budget is None else f"{budget}-slot segments"
+        spans[f"{cut}, prefetch {prefetch}"] = r[3]
+    t0 = time.perf_counter()
+    host = BellGraph.from_host(g, False, keep_sparse=False)
+    host_s = time.perf_counter() - t0
+    engines = {}
+    for budget in (None, STREAMED_BUDGET):
+        for prefetch in (1, 2):
+            eng = streamed.StreamedBitBellEngine(host, dev, slot_budget=budget, prefetch=prefetch)
+            f = eng.f_values(padded).cpu().numpy()
+            assert np.array_equal(f, fv), (budget, prefetch)
+            engines[(budget, prefetch)] = eng
+    whole, cut = engines[(None, 2)], engines[(STREAMED_BUDGET, 2)]
+    plain = streamed.StreamedBitBellEngine(host, dev, plain=True)
+    # The BFS a level at a time: the kernel pass against the plain pass
+    # (the segment outputs and the hits) on every real level, at both cuts.
+    carry = whole._init_carry(whole._pad_queries(padded)[0])
+    w = carry.frontier.shape[1]
+    levels, densest = [], None
+    while carry.ctrl[:2].tolist()[0]:
+        frontier = carry.frontier.clone()
+        rows = int((frontier != 0).any(dim=1).sum())
+        ctrl = carry.ctrl.clone()
+        hits = {}
+        for name, eng in (("whole", whole), ("cut", cut), ("plain", plain)):
+            hits[name] = torch.empty_like(frontier)
+            with eng._streams():
+                eng.forest_pass(frontier, hits[name], ctrl)
+        torch.cuda.synchronize()
+        scratch = whole._scratch[w][: whole.total_rows]
+        err = _max_abs_err(torch, [(hits["whole"], hits["plain"]), (hits["cut"], hits["plain"]),
+                                   (scratch, plain._scratch[w][: plain.total_rows]),
+                                   (cut._scratch[w][: cut.total_rows], scratch)])
+        levels.append(dict(level=len(levels), frontier_rows=rows, max_abs_err=err))
+        assert err == 0, levels[-1]
+        if densest is None or rows > densest[1]:
+            densest = (frontier, rows)
+        bitbell.bit_level_apply(carry, hits["whole"])
+    assert len(levels) >= 3, levels
+    frontier = densest[0]
+    segs, gather = _segment_rows(torch, whole, frontier, plain)
+    cut_segs, _ = _segment_rows(torch, cut, frontier, plain)
+    k1 = _forest_row(torch, bg, frontier)
+    level0 = max(whole._slices[0].numel(), 1)
+    rate = _h2d_bytes_per_s(torch, whole._slices[0], dev)
+    upload = 4 * whole.slots_total
+    passes = {f"{'whole levels' if b is None else f'{b}-slot segments'}, prefetch {p}":
+              _pass_ms(torch, eng, frontier) for (b, p), eng in engines.items()}
+    kernel_ms = dict(whole=sum(r["ms"] for r in segs) + gather["ms"],
+                     cut=sum(r["ms"] for r in cut_segs) + gather["ms"])
+    print("streamed rmat-20 K=64: " + json.dumps(dict(
+        winner=run[0] + 1, min_f=run[1], all_f_equal_bitbell=True,
+        scipy_f=info["want"][winner], preprocessing_s=run[2], computation_s=spans,
+        host_layout_s=host_s, levels=levels, densest_frontier_rows=densest[1],
+        pinned_h2d_gb_per_s=rate / 1e9, h2d_bytes_timed=4 * level0,
+        upload_bytes_per_level=upload, transfer_bound_ms=upload / rate * 1e3,
+        segments=dict(whole=len(whole._segments), cut=len(cut._segments)),
+        level_pass_ms=passes, kernels_ms_per_pass=kernel_ms,
+        forest_or_ms_same_level=k1["ms"], forest_or_bound_ms=k1["bound_ms"],
+        card=CARD,
+    )))
+    for name, rows in (("whole levels", segs), (f"{STREAMED_BUDGET}-slot segments", cut_segs)):
+        for row in rows:
+            print(f"compare rmat-20 K=64 forest_segment ({name}): " + json.dumps(row))
+            assert row["max_abs_err"] == 0, row
+    print("compare rmat-20 K=64 forest_gather: " + json.dumps(gather))
+    del engines, whole, cut, plain, carry, frontier, densest, hits, host
+    torch.cuda.empty_cache()
+
+    # -- 9b. the ladder by injected faults: one, two and three rungs.
+    for plan, extra, rung in (
+        ("oom:dispatch:1", {}, "streamed"),
+        ("oom:dispatch:1,oom:dispatch:2", {}, "host-streamed"),
+        ("oom:dispatch:1,oom:dispatch:2,oom:dispatch:3", {"MSBFS_LEVEL_CHUNK": "0"},
+         "host-streamed"),
+    ):
+        with _env(MSBFS_FAULTS=plan, **extra), _supervisors() as made:
+            r = _run_cli(cli, argv)
+        events = made[-1].events
+        assert r[:2] == want, (plan, r)
+        assert [e["action"] for e in events] == ["degrade"] * plan.count("oom"), events
+        assert events[-1]["to"] == rung, events
+        print("ladder rmat-20: " + json.dumps(dict(
+            plan=plan, **extra, winner=r[0] + 1, min_f=r[1], computation_s=r[3],
+            engine=type(made[-1].engine).__name__,
+            events=[{k: e[k] for k in ("action", "method", "to", "error")} for e in events])))
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.utils import (
+        faults,
+    )
+
+    faults.activate(None)
+
+    # -- 9c. a real CUDA out-of-memory error (a capped child process).
+    child = subprocess.run(
+        [sys.executable, "-c", _OOM_CHILD, json.dumps(argv)],
+        capture_output=True, text=True, timeout=600, cwd=_ROOT,
+        env={**os.environ, "PYTHONPATH": _ROOT},
+    )
+    print(child.stderr[-4000:], end="", file=sys.stderr)
+    result = json.loads(child.stdout.strip().splitlines()[-1])
+    print("real oom rmat-20: " + json.dumps(dict(result, card=CARD)))
+    assert child.returncode == 0 and result.get("window"), result
+    assert (result["winner"] - 1, result["min_f"]) == want, (result, want)
+    assert [e["action"] for e in result["events"]] == ["degrade"], result
+    assert "CUDA out of memory" in result["events"][0]["error"], result
+
+    # -- 9d. checkpoint: a crash on the third dispatch, then the rerun.
+    journal = os.path.join(tmp, "rmat20.ckpt")
+    env = {**os.environ, "PYTHONPATH": _ROOT, "MSBFS_CHECKPOINT": journal,
+           "MSBFS_CHECKPOINT_CHUNK": str(CHECKPOINT_CHUNK)}
+    cmd = [sys.executable, "-m", PKG, *argv[1:]]
+    crash = subprocess.run(cmd, capture_output=True, text=True, timeout=600, cwd=_ROOT,
+                           env={**env, "MSBFS_FAULTS": "crash:dispatch:3"})
+    kept = open(journal).read().splitlines()
+    assert crash.returncode == 137 and crash.stdout == "", (crash.returncode, crash.stderr[-2000:])
+    assert len(kept) == 1 + CHECKPOINT_CHUNK, len(kept)
+    rerun = subprocess.run(cmd, capture_output=True, text=True, timeout=600, cwd=_ROOT, env=env)
+    assert rerun.returncode == 0, rerun.stderr[-2000:]
+    lines = rerun.stdout.splitlines()
+    resumed = (int(lines[2].rsplit(":", 1)[1]) - 1, int(lines[3].rsplit(":", 1)[1]))
+    assert resumed == want, (resumed, want)
+    print("checkpoint rmat-20: " + json.dumps(dict(
+        crash_rc=crash.returncode, journal_rows_at_crash=len(kept) - 1,
+        rerun_rc=rerun.returncode, winner=resumed[0] + 1, min_f=resumed[1],
+        rerun_report=lines)))
+
+    # -- 9e. MSBFS_STATS=2 on the bitbell route against scipy.
+    err = io.StringIO()
+    with _env(MSBFS_STATS="2"), contextlib.redirect_stderr(err):
+        r = _run_cli(cli, argv)
+    assert r[:2] == want, r
+    text = err.getvalue()
+    table = text[text.index("query  levels"):].splitlines()[1:]
+    stats = {int(ln.split()[0]) - 1: tuple(int(x) for x in ln.split()[1:]) for ln in table}
+    a = info["scipy"]
+    for q in info["groups"]:
+        assert stats[q] == _scipy_stats(cg, np, a, info["queries"][q]), (q, stats[q])
+    trace = text[text.index("level  discovered"):text.index("query  levels")]
+    print("stats=2 rmat-20:\n" + text[text.index("dispatch_count"):text.index("query  levels")]
+          + json.dumps(dict(groups_equal_scipy=len(info["groups"]),
+                            levels=trace.count("\n") - 1, computation_s=r[3])))
+    return {"forest_segment": segs[0], "forest_gather": gather}
+
+
+# The child of phase 9c: run the default route and the streamed rung once
+# each to measure their device memory (the caching allocator's peaks),
+# cap this process between the streamed rung's need and the hybrid
+# route's, and run the CLI under the cap: the hybrid route must run out
+# of memory inside a supervised call and step down.
+_OOM_CHILD = r"""
+import contextlib, gc, io, json, os, sys
+import torch
+from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch import cli
+from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.models.bell import BellGraph
+from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.runtime import supervisor
+from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.utils.io import load_graph_bin
+
+argv = json.loads(sys.argv[1])
+dev = torch.device("cuda", 0)
+made, init = [], supervisor.ChunkSupervisor.__init__
+
+def keep(self, *args, **kwargs):
+    init(self, *args, **kwargs)
+    made.append(self)
+
+supervisor.ChunkSupervisor.__init__ = keep
+
+def clean():
+    made.clear()  # a kept supervisor would keep its engine's memory
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+def run(env):
+    os.environ.update(env)
+    report = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(report):
+            rc = cli.main(argv)
+    finally:
+        for key in env:
+            os.environ.pop(key)
+    return rc, report.getvalue().splitlines()
+
+def peaks(env):
+    clean()
+    rc, _ = run(env)
+    assert rc == 0, rc
+    return torch.cuda.max_memory_allocated(dev), torch.cuda.max_memory_reserved(dev)
+
+clean()
+layout = BellGraph.from_host(load_graph_bin(argv[2]), dev)
+layout_reserved = torch.cuda.memory_reserved(dev)
+del layout
+hybrid_alloc, hybrid_reserved = peaks({})
+rung_alloc, rung_reserved = peaks({"MSBFS_HBM_BYTES": "1"})  # the streamed rung's engine
+lo, hi = max(layout_reserved, rung_reserved), hybrid_alloc
+out = dict(layout_reserved=layout_reserved, hybrid_peak_allocated=hybrid_alloc,
+           hybrid_peak_reserved=hybrid_reserved, streamed_rung_peak_allocated=rung_alloc,
+           streamed_rung_peak_reserved=rung_reserved, window=lo < hi)
+if lo >= hi:
+    print(json.dumps(out))
+    sys.exit(2)
+cap = (lo + hi) // 2
+total = torch.cuda.get_device_properties(dev).total_memory
+clean()
+torch.cuda.set_per_process_memory_fraction(cap / total, dev)
+rc, lines = run({})
+sup = made[-1]
+out.update(cap_bytes=cap, fraction=cap / total, rc=rc,
+           winner=int(lines[2].rsplit(":", 1)[1]) if rc == 0 else None,
+           min_f=int(lines[3].rsplit(":", 1)[1]) if rc == 0 else None,
+           engine=type(sup.engine).__name__,
+           events=[{k: str(e.get(k)) for k in ("action", "method", "to", "error")}
+                   for e in sup.events],
+           peak_allocated_under_cap=torch.cuda.max_memory_allocated(dev))
+print(json.dumps(out))
+sys.exit(rc)
+"""
+_ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
 @contextlib.contextmanager
@@ -2119,9 +2538,18 @@ def main() -> int:
     _compare_forest_ell(torch, bg20, eg20, 256, seed + 11, "rmat-20")
     torch.cuda.empty_cache()
     ctx20 = (torch, np, sp, cg, cli, tio, timing, generators, launches, tmp)
-    main_shape.update(_rmat20_paths(ctx20, n20, e20, g20, bg20, eg20, 64, seed + 12))
+    rows20, info20 = _rmat20_paths(ctx20, n20, e20, g20, bg20, eg20, 64, seed + 12)
+    main_shape.update(rows20)
     main_shape["pack_sources"] = PACK_ROWS["bitbell rmat-20"]
-    del bg20, eg20, g20, e20
+    del eg20
+    torch.cuda.empty_cache()
+
+    # ---- 9. resilience on the same RMAT-20 files: the host-streamed route
+    # (K1's segment form), the ladder, a real out-of-memory error,
+    # checkpoint, MSBFS_STATS=2
+    main_shape.update(_streamed_phase(ctx20, n20, g20, bg20, info20, seed))
+    os.remove(info20["gpath"])
+    del bg20, g20, e20, info20
     torch.cuda.empty_cache()
     total = {name: sum(c.get(name, 0) for c in launches.values())
              for name in kernels.KERNELS}
@@ -2202,6 +2630,8 @@ def main() -> int:
         "pack_sources": "ops/bitbell.py:93, {JAX_PKG}/ops/lowk.py:66",
         "flag_pull": "ops/bell.py:144, {JAX_PKG}/ops/lowk.py:126",
         "push_or:bytes": "ops/lowk.py:87",
+        "forest_segment": "ops/streamed.py:117, {JAX_PKG}/ops/streamed.py:139",
+        "forest_gather": "ops/streamed.py:146",
     }
     # The byte use of K3 (K5's push): its launches on the byte paths.
     total["push_or:bytes"] = sum(launches[p].get("push_or", 0) for p in BYTE_PATHS)
@@ -2209,7 +2639,8 @@ def main() -> int:
     for name in (*kernels.KERNELS, "push_or:bytes"):
         row = main_shape[name]
         rows.append(dict(
-            name=name, route="cuda", source=f"{PKG}/csrc/{name.split(':')[0]}.cu",
+            name=name, route="cuda",
+            source=f"{PKG}/csrc/{kernels.source(name.split(':')[0])}.cu",
             replaces=f"{JAX_PKG}/{replaces[name].format(JAX_PKG=JAX_PKG)}",
             launches=total[name],
             max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],

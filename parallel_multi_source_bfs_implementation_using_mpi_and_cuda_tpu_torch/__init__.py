@@ -9,7 +9,8 @@ index, 1-based in the report).
 
 This package imports torch and numpy only — never jax, and nothing of the
 JAX package, which stays the reference the port is held against.  Layout
-mirrors the JAX package: :mod:`.utils` (I/O, knobs, timing, report),
+mirrors the JAX package: :mod:`.utils` (I/O, knobs, timing, report, the fault
+plan, checkpoint journal, stats tables and flight recorder),
 :mod:`.models` (host CSR, generators), :mod:`.ops` (engines and kernel
 wrappers), :mod:`.runtime` (kernel build, native host runtime,
 supervisor), :mod:`.cli`.  Hand-written CUDA kernels live in ``csrc/``
@@ -18,10 +19,12 @@ host preprocessing runs in ``runtime/loader.cpp``, compiled with the host
 C++ compiler at first use (:mod:`.runtime.native_loader`).
 
 Routes ported so far, on ``-gn 1``: the default bitbell route (the BELL
-reduction forest with the on-device push/pull switch), the stencil
-(banded adjacency) route, the tensor-core ``mxu`` route and the ELL route
-(``MSBFS_BACKEND=pallas``) — see :mod:`.cli` for the routes that fail
-loudly as not yet ported.
+reduction forest with the on-device push/pull switch, and its capacity
+ladder down to the host-streamed forest), the stencil (banded adjacency)
+route, the low-K and byte-plane BELL routes, the tensor-core ``mxu``
+route, the ELL route (``MSBFS_BACKEND=pallas``) and the host-streamed
+route (``MSBFS_BACKEND=streamed``) — see :mod:`.cli` for the routes that
+fail loudly as not yet ported.
 """
 
 __version__ = "0.1.0"

@@ -11,13 +11,20 @@ Routes ported so far, on one device, routed as the JAX CLI routes off a
 TPU: the stencil route — road-class graphs with a banded adjacency
 (auto), or ``MSBFS_BACKEND=stencil``; the low-K route — 1 to
 ``MSBFS_LOWK_MAX_K`` (4) queries on auto when no earlier route took the
-graph (``MSBFS_LOWK=0`` disables), or ``MSBFS_BACKEND=lowk``; the
-tensor-core route ``MSBFS_BACKEND=mxu`` (``MSBFS_MXU_KERNEL=1`` for the
-CUDA tile kernel); the ELL route ``MSBFS_BACKEND=pallas``; the pull-only
-byte-plane route ``MSBFS_BACKEND=bell``; and the default bitbell route
-(every other graph and backend name), with its over-memory configuration
-when the hybrid layout would not fit the device.  Each has the sub-batch
-split for wide batches and the supervisor's watchdog/retry.
+graph (``MSBFS_LOWK=0`` disables; ``MSBFS_STATS=2`` keeps bitbell), or
+``MSBFS_BACKEND=lowk``; the tensor-core route ``MSBFS_BACKEND=mxu``
+(``MSBFS_MXU_KERNEL=1`` for the CUDA tile kernel); the ELL route
+``MSBFS_BACKEND=pallas``; the pull-only byte-plane route
+``MSBFS_BACKEND=bell``; the host-streamed forest ``MSBFS_BACKEND=streamed``;
+and the default bitbell route (every other graph and backend name), with
+its over-memory configuration when the hybrid layout would not fit the
+device, and otherwise its capacity ladder (level-chunked, streamed,
+host-streamed) for the supervisor to step down on an out-of-memory
+error.  Each has the sub-batch split for wide batches and the
+supervisor's watchdog, retry and fault seams (``MSBFS_FAULTS``, installed
+before any load); ``MSBFS_CHECKPOINT`` runs the batch in journaled
+chunks, ``MSBFS_STATS=1/2`` prints the per-query (and per-level) tables,
+and a typed failure dumps the flight ring to ``MSBFS_FLIGHT_RECORDER``.
 Every other route or mode of the JAX CLI exits 1 with a one-line message
 naming it as not yet ported; none of them silently runs something else.
 
@@ -133,7 +140,7 @@ def _resolve_device(device) -> torch.device:
 
 # Backends of the JAX CLI the port does not have yet; any other name takes
 # the route the JAX CLI gives it (an unknown name runs bitbell there too).
-_UNPORTED_BACKENDS = ("vmap", "push", "ppush", "streamed", "packed", "dense")
+_UNPORTED_BACKENDS = ("vmap", "push", "ppush", "packed", "dense")
 # Backends whose footprint the bitbell estimate does not model: they never
 # take the over-memory configuration (the JAX CLI's list).
 _NON_BITBELL_FOOTPRINT_BACKENDS = (
@@ -151,14 +158,63 @@ def _unported_knob() -> Optional[str]:
     backend = knobs.raw("MSBFS_BACKEND", "auto")
     if backend in _UNPORTED_BACKENDS:
         return f"MSBFS_BACKEND={backend}"
-    for name in ("MSBFS_FAULTS", "MSBFS_CHECKPOINT", "MSBFS_MESH"):
-        if knobs.raw(name, ""):
-            return name
-    if knobs.raw("MSBFS_STATS", "") in ("1", "2"):
-        return "MSBFS_STATS"
+    if knobs.raw("MSBFS_MESH", ""):
+        return "MSBFS_MESH"
     if knobs.raw("MSBFS_WEIGHTED", "") == "1":
         return "MSBFS_WEIGHTED=1 (the weighted route)"
+    if knobs.raw("MSBFS_COORDINATOR", ""):
+        return (
+            "MSBFS_COORDINATOR (the multi-process bring-up, with "
+            "MSBFS_NUM_PROCESSES and MSBFS_PROCESS_ID)"
+        )
+    if knobs.raw("MSBFS_PROFILE_DIR", ""):
+        return "MSBFS_PROFILE_DIR (the profiler trace of the computation span)"
     return None
+
+
+def _bitbell_ladder(graph, level_chunk, device, native: bool = True):
+    """The default route's capacity rungs (the JAX CLI's
+    ``_bitbell_ladder``): on an out-of-memory error the supervisor builds
+    the next rung and runs the call again — level-chunked (only when the
+    route runs unbounded), then the in-memory streamed configuration (no
+    dedup CSR, bounded gather segments, 8 levels a host sync), then the
+    host-streamed forest (ops.streamed), whose forest never enters device
+    memory.  Factories are lazy: a rung's layout is built when reached."""
+    from .models.bell import BellGraph
+    from .ops.bitbell import BitBellEngine
+    from .ops.streamed import StreamedBitBellEngine
+
+    def slot_budget():
+        return _OVER_MEMORY_SLOT_BUDGET if not knobs.raw("MSBFS_SLOT_BUDGET") else None
+
+    rungs = []
+    if not level_chunk:
+        rungs.append((
+            "level-chunked",
+            lambda: BitBellEngine(
+                BellGraph.from_host(graph, device, native=native),
+                level_chunk=_AUTO_LEVEL_CHUNK,
+            ),
+        ))
+    rungs.append((
+        "streamed",
+        lambda: BitBellEngine(
+            BellGraph.from_host(graph, device, keep_sparse=False, native=native),
+            sparse_budget=0,
+            level_chunk=min(level_chunk or _OVER_MEMORY_LEVEL_CHUNK, _OVER_MEMORY_LEVEL_CHUNK),
+            megachunk=1,
+            slot_budget=slot_budget(),
+        ),
+    ))
+    rungs.append((
+        "host-streamed",
+        lambda: StreamedBitBellEngine(
+            BellGraph.from_host(graph, False, keep_sparse=False, native=native),
+            device,
+            slot_budget=slot_budget(),
+        ),
+    ))
+    return rungs
 
 
 def main(argv: Optional[List[str]] = None, device=None, native: bool = True) -> int:
@@ -169,13 +225,22 @@ def main(argv: Optional[List[str]] = None, device=None, native: bool = True) -> 
         RetryPolicy,
         classify,
     )
+    from .utils import faults
     from .utils.report import format_failure
+    from .utils.telemetry import dump_flight
 
     argv = list(sys.argv if argv is None else argv)
 
     def not_ported(what: str) -> int:
         err = InputError(f"{what} is not yet ported to the PyTorch/CUDA package")
         print(format_failure(err), end="", file=sys.stderr)
+        return err.exit_code
+
+    def failed(err, events=()) -> int:
+        # A typed failure: the flight ring first (the post-mortem the
+        # one-line report cannot carry), then the report, then its code.
+        dump_flight(f"exit_{err.exit_code}")
+        print(format_failure(err, events), end="", file=sys.stderr)
         return err.exit_code
 
     if len(argv) > 1 and argv[1] in _SUBCOMMANDS:
@@ -192,6 +257,16 @@ def main(argv: Optional[List[str]] = None, device=None, native: bool = True) -> 
         print("Missing -g or -q argument", file=sys.stderr)
         return -1
     dev = _resolve_device(device)
+    # The fault plan goes in before any load, so the loader seams see it;
+    # a fresh plan per call keeps repeated in-process runs deterministic,
+    # and a malformed plan is an input error, not a plan that arms nothing.
+    try:
+        fault_plan = faults.FaultPlan.from_env()
+    except ValueError as exc:
+        err = InputError(str(exc))
+        print(format_failure(err), end="", file=sys.stderr)
+        return err.exit_code
+    faults.activate(fault_plan)
     unported = _unported_knob()
     if unported:
         return not_ported(unported)
@@ -202,7 +277,8 @@ def main(argv: Optional[List[str]] = None, device=None, native: bool = True) -> 
     from .utils.io import load_graph_bin, load_query_bin, pad_queries
     from .utils.report import format_report
     from .utils.timing import (
-        Span, phase, phase_seconds, record_phase, reset_dispatch_count, reset_phases,
+        Span, dispatch_count, phase, phase_seconds, record_dispatch, record_phase,
+        reset_dispatch_count, reset_phases,
     )
 
     # ---- preprocessing span: load + layout + upload + kernel build/warm-up
@@ -260,6 +336,9 @@ def main(argv: Optional[List[str]] = None, device=None, native: bool = True) -> 
                     file=sys.stderr,
                 )
 
+        # The capacity rungs for the supervisor: armed on the default
+        # route alone, as in the JAX CLI.
+        ladder_rungs = []
         engine = None
         if backend == "stencil" or (
             backend == "auto" and road_class and knobs.raw("MSBFS_STENCIL", "") != "0"
@@ -290,7 +369,8 @@ def main(argv: Optional[List[str]] = None, device=None, native: bool = True) -> 
                 engine = StencilEngine(sg, level_chunk=stencil_chunk, megachunk=megachunk)
         # The low-K route: a handful of queries as byte planes (ops.lowk),
         # on auto when no earlier route took the graph; MSBFS_LOWK=0
-        # disables, MSBFS_BACKEND=lowk forces.
+        # disables, MSBFS_BACKEND=lowk forces, and MSBFS_STATS=2 keeps the
+        # bitbell route, whose stepped loop carries the per-level trace.
         if engine is None and (
             backend == "lowk"
             or (
@@ -298,6 +378,7 @@ def main(argv: Optional[List[str]] = None, device=None, native: bool = True) -> 
                 and not hbm_warn
                 and 0 < padded.shape[0] <= knobs.get_int("MSBFS_LOWK_MAX_K", 4)
                 and knobs.raw("MSBFS_LOWK", "") != "0"
+                and knobs.raw("MSBFS_STATS", "") != "2"
             )
         ):
             from .ops.lowk import LowKEngine
@@ -341,6 +422,15 @@ def main(argv: Optional[List[str]] = None, device=None, native: bool = True) -> 
             engine = BellEngine(
                 BellGraph.from_host(graph, dev, keep_sparse=False, native=native),
                 level_chunk=level_chunk,
+            )
+        elif backend == "streamed":
+            # The forest stays in host memory and streams through the
+            # device every level (ops.streamed): the route for graphs
+            # beyond even the in-memory streamed layout.
+            from .ops.streamed import StreamedBitBellEngine
+
+            engine = StreamedBitBellEngine(
+                BellGraph.from_host(graph, False, keep_sparse=False, native=native), dev
             )
         else:
             # The default route: the bit-plane BELL forest (ops.bitbell).
@@ -393,6 +483,7 @@ def main(argv: Optional[List[str]] = None, device=None, native: bool = True) -> 
                     level_chunk=level_chunk,
                     megachunk=megachunk,
                 )
+                ladder_rungs = _bitbell_ladder(graph, level_chunk, dev, native)
         subbatch_k = knobs.get_int("MSBFS_SUBBATCH_K", 256)
         if subbatch_k > 0 and padded.shape[0] > subbatch_k:
             print(
@@ -402,6 +493,8 @@ def main(argv: Optional[List[str]] = None, device=None, native: bool = True) -> 
                 file=sys.stderr,
             )
             engine = SubBatchEngine(engine, batch_k=subbatch_k)
+        # Every engine call from here on is supervised: watchdog, typed
+        # errors, transient retry with backoff, the capacity ladder.
         engine = ChunkSupervisor(
             engine,
             policy=RetryPolicy(
@@ -410,23 +503,128 @@ def main(argv: Optional[List[str]] = None, device=None, native: bool = True) -> 
                 seed=knobs.get_int("MSBFS_FAULT_SEED", 0),
             ),
             watchdog=knobs.get_float("MSBFS_WATCHDOG", 0.0) or None,
+            ladder=ladder_rungs,
+            plan=fault_plan,
         )
+        stats_env = knobs.raw("MSBFS_STATS", "")
+        stats_mode = stats_env in ("1", "2")
+        # MSBFS_STATS=2: also trace each BFS level through the engine's
+        # stepped loop, where it has one.
+        stats_level = stats_env == "2" and callable(getattr(engine, "level_stats", None))
+        ckpt_path = knobs.raw("MSBFS_CHECKPOINT")
+        ckpt_chunk = knobs.get_int("MSBFS_CHECKPOINT_CHUNK", 64)
         try:
             with phase("compile"):
-                engine.compile(padded.shape)
+                if ckpt_path:
+                    # The checkpoint runner calls f_values/query_stats on
+                    # (chunk, S) slices, not best() on the whole batch: warm
+                    # exactly those shapes.
+                    k, s = padded.shape
+                    for shape_k in {min(max(1, ckpt_chunk), max(k, 1)), *(
+                        [k % ckpt_chunk] if k % ckpt_chunk else []
+                    )}:
+                        dummy = np.full((shape_k, s), -1, dtype=np.int32)
+                        if not (stats_mode and engine.query_stats(dummy) is not None):
+                            engine.f_values(dummy)
+                else:
+                    engine.compile(
+                        padded.shape,
+                        warm_stats=stats_mode and not stats_level,
+                        warm_levels=stats_level,
+                    )
         except MsbfsError as err:
-            print(format_failure(err, engine.events), end="", file=sys.stderr)
-            return err.exit_code
+            # The supervisor's recovery budget ran out during warm-up.
+            return failed(err, engine.events)
     record_phase("layout", pre.seconds - sum(phase_seconds().values()))
 
     # ---- computation span: all BFS + objective + argmin (main.cu:301-400).
+    stats = None
+    level_rows = None
     reset_dispatch_count()
     try:
         with Span() as comp:
-            min_f, min_k = engine.best(np.asarray(padded))
+            if ckpt_path:
+                from .ops.objective import select_best
+                from .utils.checkpoint import CheckpointedRunner
+
+                runner = CheckpointedRunner(
+                    engine, ckpt_path, chunk=ckpt_chunk, stats=stats_mode
+                )
+                try:
+                    f_arr, _ = runner.run(
+                        graph.n, graph.num_directed_edges, np.asarray(padded)
+                    )
+                except MsbfsError:
+                    raise
+                except ValueError as exc:
+                    # A stale or foreign journal: fail loud.
+                    print(f"Checkpoint error: {exc}", file=sys.stderr)
+                    return 1
+                if (
+                    stats_mode
+                    and padded.shape[0]
+                    and runner.last_stats is not None
+                    and (runner.last_stats[0] >= 0).any()
+                ):
+                    # -1 rows are F-only rows resumed from a stats-less
+                    # journal; the selection below derives from stats[2].
+                    stats = (*runner.last_stats, f_arr)
+                else:
+                    if stats_mode and padded.shape[0] and runner.last_stats is not None:
+                        sys.stderr.write(
+                            "MSBFS_STATS: the resumed journal predates "
+                            "stats journaling (F-only rows); delete it "
+                            "to recompute with stats\n"
+                        )
+                        stats_mode = False  # suppress the generic note
+                    arr = torch.from_numpy(f_arr)
+                    min_f, min_k = (int(x) for x in select_best(arr, arr >= 0))
+                    record_dispatch()
+            elif stats_mode and padded.shape[0]:
+                # One BFS pass serves the report and the stats table.
+                if stats_level:
+                    levels, reached, f, lvl_counts, lvl_secs = engine.level_stats(
+                        np.asarray(padded)
+                    )
+                    stats = (levels, reached, f)
+                    level_rows = (lvl_counts, lvl_secs)
+                else:
+                    stats = engine.query_stats(np.asarray(padded))
+            if stats is not None:
+                from .ops.objective import select_best
+
+                f = torch.as_tensor(np.asarray(stats[2], dtype=np.int64))
+                min_f, min_k = (int(x) for x in select_best(f, f >= 0))
+                record_dispatch()
+            elif not ckpt_path:
+                min_f, min_k = engine.best(np.asarray(padded))
     except MsbfsError as err:
-        print(format_failure(err, engine.events), end="", file=sys.stderr)
-        return err.exit_code
+        return failed(err, engine.events)
+
+    if stats_mode:
+        # Blocking device reads of the computation span.
+        sys.stderr.write(f"dispatch_count: {dispatch_count()}\n")
+    if stats is not None:
+        # Per-query diagnostics to stderr (stdout stays reference-exact).
+        from .utils.trace import format_level_stats, format_query_stats
+
+        if level_rows is not None:
+            sys.stderr.write(format_level_stats(*level_rows))
+        elif stats_env == "2":
+            sys.stderr.write(
+                "MSBFS_STATS=2: per-level trace not available "
+                + ("under checkpointing" if ckpt_path else "on this engine")
+                + "; per-query stats only\n"
+            )
+        sys.stderr.write(format_query_stats(*stats))
+    elif stats_mode:
+        if padded.shape[0] == 0:
+            sys.stderr.write("MSBFS_STATS: no queries\n")
+        else:
+            sys.stderr.write(
+                "MSBFS_STATS: per-query stats are not available on this "
+                "engine; ignored for this run\n"
+            )
 
     sys.stdout.write(
         format_report(

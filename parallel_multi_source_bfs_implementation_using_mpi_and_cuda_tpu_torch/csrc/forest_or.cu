@@ -52,6 +52,24 @@
 // cost more in divergent L1 lookups than the sectors it saved (PERF.md).
 // Every launch is gated on the device control: it returns at once unless
 // the level may run and ctrl[3] is the pull direction.
+//
+// K1's segment form (msbfs_forest_segment, msbfs_forest_gather) replaces
+// the XLA chain of the host-streamed engine, the JAX package's
+// ops/streamed.py:117 _segment_fold / :139 _segment_or / :146
+// _final_hits: there the forest never enters device memory, and each BFS
+// level streams its cols through a small ring of device buffers, one slot
+// segment (a run of whole bucket rows, at most the slot budget) at a time.
+// msbfs_forest_segment runs the same level kernel over one segment — the
+// cols pointer of the buffer just uploaded, a per-segment bucket table
+// (offsets relative to the segment, output rows relative to its first
+// row) and the segment's first output row in the scratch — and
+// msbfs_forest_gather is the final take by final_slot as its own launch.
+// Bound: the same bytes as the whole-forest form (cols, the previous
+// level's rows, the outputs), plus what the pipeline cannot hide: every
+// BFS level uploads the whole forest over PCIe, so the streamed level is
+// transfer-bound, not bound by this kernel.  A simple port: the level
+// body is K1's own; a shared-memory frontier or live-row bits (as in
+// flag_pull.cu) wait for a later pass.
 #include "msbfs_common.cuh"
 
 namespace {
@@ -321,6 +339,84 @@ cudaError_t dispatch(const Args& a) {
 }
 
 }  // namespace
+
+// One streamed segment: the level kernel over ``runs`` runs of the
+// segment's ``buckets`` bucket pieces (table: (buckets, kTab) int64 on the
+// device, slot offsets relative to ``cols``, first rows relative to
+// ``out``).  prev: the previous level's (prev_rows, W) value rows (the
+// frontier at forest level 0); a slot equal to prev_rows reads zero.
+extern "C" int msbfs_forest_segment(int device, const void* prev,
+                                    long long prev_rows, const void* cols,
+                                    const void* table, int buckets,
+                                    long long runs, void* out, int W,
+                                    int chunks, int vec16, const void* ctrl,
+                                    int max_levels, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int P = W == 1 || W == 2 || W == 4 || W == 8 ? W : kPass;
+  if (W < 1 || prev_rows < 0 || prev_rows >= (1LL << 31) || buckets < 1 ||
+      buckets > kMaxBuckets || runs < 1 || chunks != run_chunks(P)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto* p = static_cast<const uint32_t*>(prev);
+  const auto* c = static_cast<const int*>(cols);
+  const auto* t = static_cast<const long long*>(table);
+  auto* o = static_cast<uint32_t*>(out);
+  const auto* g = static_cast<const int*>(ctrl);
+  const int grid = msbfs::grid_for(runs * 32, msbfs::kThreads);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const int rows = static_cast<int>(prev_rows);
+#define MSBFS_SEGMENT(WW, VEC)                                                \
+  forest_level_kernel<WW, VEC><<<grid, msbfs::kThreads, 0, s>>>(              \
+      p, rows, c, t, buckets, o, W, runs, g, max_levels)
+  switch (vec16 ? W : -W) {
+    case 2: MSBFS_SEGMENT(2, true); break;
+    case 4: MSBFS_SEGMENT(4, true); break;
+    case 8: MSBFS_SEGMENT(8, true); break;
+    case 1: case -1: MSBFS_SEGMENT(1, false); break;
+    case -2: MSBFS_SEGMENT(2, false); break;
+    case -4: MSBFS_SEGMENT(4, false); break;
+    case -8: MSBFS_SEGMENT(8, false); break;
+    default: MSBFS_SEGMENT(0, false); break;
+  }
+#undef MSBFS_SEGMENT
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The final take of the segment form: hits[v] = v_cat[final_slot[v]] over
+// the (total_rows + 1, W) scratch of all forest levels, last row zero.
+extern "C" int msbfs_forest_gather(int device, const void* v_cat,
+                                   const void* final_slot, void* hits,
+                                   long long n, int W, int vec16,
+                                   const void* ctrl, int max_levels,
+                                   void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (W < 1 || n < 1 || n >= (1LL << 31)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto* v = static_cast<const uint32_t*>(v_cat);
+  const auto* f = static_cast<const int*>(final_slot);
+  auto* h = static_cast<uint32_t*>(hits);
+  const auto* g = static_cast<const int*>(ctrl);
+  const int grid = msbfs::grid_for(n, msbfs::kThreads);
+  const auto s = static_cast<cudaStream_t>(stream);
+#define MSBFS_GATHER(WW, VEC)                                                 \
+  forest_gather_kernel<WW, VEC><<<grid, msbfs::kThreads, 0, s>>>(             \
+      v, f, h, n, W, g, max_levels)
+  switch (vec16 ? W : -W) {
+    case 2: MSBFS_GATHER(2, true); break;
+    case 4: MSBFS_GATHER(4, true); break;
+    case 8: MSBFS_GATHER(8, true); break;
+    case 1: case -1: MSBFS_GATHER(1, false); break;
+    case -2: MSBFS_GATHER(2, false); break;
+    case -4: MSBFS_GATHER(4, false); break;
+    case -8: MSBFS_GATHER(8, false); break;
+    default: MSBFS_GATHER(0, false); break;
+  }
+#undef MSBFS_GATHER
+  return static_cast<int>(cudaGetLastError());
+}
 
 // table: (buckets, kTab) int64 over all levels; meta: kMeta int64 per
 // level (host memory).  chunks: the 32-slot chunks of a narrow run the

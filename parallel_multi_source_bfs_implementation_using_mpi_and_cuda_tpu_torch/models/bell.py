@@ -13,8 +13,9 @@ row: an isolated vertex).
 Built on the host exactly as the JAX package's models/bell.py builds it,
 each level by the native runtime (runtime/native_loader.py ``bell_level``)
 or, with ``native=False``, by the NumPy build kept here (the same bytes);
-then moved to one device.  The JAX package's host-only ``device=False``
-layout and its weight column are not ported.
+then moved to one device, or kept on the host (``device=False``: NumPy
+levels for the host-streamed engine, ops/streamed.py).  The JAX
+package's weight column is not ported.
 """
 
 from __future__ import annotations
@@ -107,8 +108,11 @@ class BellGraph:
         self._row_owner = {}  # device -> row_owner()
 
     @property
-    def device(self) -> torch.device:
-        return self.final_slot.device
+    def device(self) -> Optional[torch.device]:
+        """The layout's device, or None for a host layout (NumPy arrays)."""
+        if isinstance(self.final_slot, torch.Tensor):
+            return self.final_slot.device
+        return None
 
     @property
     def total_rows(self) -> int:
@@ -235,7 +239,10 @@ class BellGraph:
         neighbours and self-loops (the hit is a set predicate, so BFS
         distances cannot change); ``keep_sparse`` also keeps the dedup CSR
         for the push direction (skipped when E >= 2^31); ``native=False``
-        dedups and builds the levels with NumPy."""
+        dedups and builds the levels with NumPy.  ``device=False`` keeps
+        every array on the host (int32 NumPy, no dedup CSR): the layout of
+        the host-streamed engine, whose forest never enters device memory
+        (the JAX package's ``device=False``)."""
         n = g.n
         e = int(g.num_directed_edges)
         if dedup and e:
@@ -248,12 +255,15 @@ class BellGraph:
             item_count = np.asarray(g.degrees, dtype=np.int64)
         widths = BellGraph.resolve_widths(widths, item_count, n, e, min_bucket_rows)
 
+        host = device is False
+
         def put(a):
-            return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(device)
+            a = np.ascontiguousarray(a, dtype=np.int32)
+            return a if host else torch.from_numpy(a).to(device)
 
         item_count_0 = item_count
         sparse = None
-        if keep_sparse and n and item_vals.shape[0] < (1 << 31):
+        if not host and keep_sparse and n and item_vals.shape[0] < (1 << 31):
             sparse = (put(item_start), put(item_count), put(item_vals))
         level_cols, level_shapes, level_sizes = [], [], []
         padded_slots = 0

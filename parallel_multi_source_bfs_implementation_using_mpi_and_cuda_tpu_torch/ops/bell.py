@@ -98,6 +98,20 @@ def _max_rows(g: torch.Tensor, rows: int, width: int) -> torch.Tensor:
     return g.view(rows, width, -1).amax(dim=1)
 
 
+def segment_fold(v_prev: torch.Tensor, cols: torch.Tensor, pieces, reduce=_or_rows) -> torch.Tensor:
+    """One gather segment of a forest level: the rows of ``v_prev`` (the
+    previous level's values, its zero sentinel row appended) at the
+    segment's ``cols``, each piece's ``(rows, width)`` slots folded by
+    ``reduce`` -> (sum of rows, C).  The JAX package's ``_segment_fold``
+    (ops/streamed.py), and the plain version of the segment kernel."""
+    g = v_prev[cols.long()]
+    parts, off = [], 0
+    for rc, wb in pieces:
+        parts.append(reduce(g[off : off + rc * wb], rc, wb))
+        off += rc * wb
+    return torch.cat(parts)
+
+
 def forest_hits(
     frontier: torch.Tensor, graph, slot_budget: Optional[int] = None, reduce=_or_rows
 ) -> torch.Tensor:
@@ -117,24 +131,15 @@ def forest_hits(
         if flat.shape[-1] == 0:
             out = frontier.new_zeros((0, c))
         elif slot_budget is None or flat.shape[-1] <= slot_budget:
-            g = v_prev[flat.long()]
-            parts, off = [], 0
-            for r_b, w_b in shapes:
-                if r_b == 0:
-                    continue
-                parts.append(reduce(g[off : off + r_b * w_b], r_b, w_b))
-                off += r_b * w_b
-            out = torch.cat(parts)
+            out = segment_fold(v_prev, flat, [(r, w) for r, w in shapes if r], reduce)
         else:
             parts = []
             for pieces in _slot_segments(shapes, slot_budget):
                 a = pieces[0][0]
                 b = pieces[-1][0] + pieces[-1][1] * pieces[-1][2]
-                g = v_prev[flat[a:b].long()]
-                o = 0
-                for _, rc, w_b in pieces:
-                    parts.append(reduce(g[o : o + rc * w_b], rc, w_b))
-                    o += rc * w_b
+                parts.append(
+                    segment_fold(v_prev, flat[a:b], [(rc, wb) for _, rc, wb in pieces], reduce)
+                )
             out = torch.cat(parts)
         outs.append(out)
         v_prev = torch.cat([out, zero_row])
@@ -237,6 +242,8 @@ class BellEngine(BitBellEngine):
     exists.  ``plain`` runs every kernel's plain torch version."""
 
     lane_stride = BYTE_LANES
+    # The JAX package's BellEngine has no stepped per-level trace.
+    level_stats = None
 
     def __init__(
         self,

@@ -25,6 +25,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..utils import faults
 from ..utils.timing import record_dispatch
 from .objective import f_of_u
 
@@ -172,11 +173,24 @@ def host_chunked_loop(
 ) -> DistCarry:
     """Re-run ``advance`` (one bounded chunk) until every query has
     converged or reached ``max_levels``; one blocking read per chunk.
-    Always advances at least once.  The JAX package's fault, certify and
-    telemetry seams of this loop are not ported."""
+    Always advances at least once.
+
+    This loop is also the plane-commit seam of the fault plan
+    (utils/faults.py): after chunk ``i`` an armed ``bitflip:plane<i>``
+    flips one bit of ``dist`` — the bit the JAX package flips in its
+    ``carry[0]``, the same (K, n_pad) int32 distances — and the carry's
+    derived planes go stale.  The JAX package's certify plane trail and
+    trace spans of this loop come with ops/certify.py and serving."""
     cap = INT32_MAX if max_levels is None else int(max_levels)
+    chunk_ix = 0
     while True:
         advance(carry)
+        if faults.corruption_armed():
+            flipped = faults.corrupt(f"plane{chunk_ix}", carry.dist)
+            if flipped is not carry.dist:
+                carry.dist.copy_(torch.from_numpy(flipped))
+                carry.touch()
+        chunk_ix += 1
         active = bool(((carry.updated != 0) & (carry.level < cap)).any())
         record_dispatch()
         if not active:

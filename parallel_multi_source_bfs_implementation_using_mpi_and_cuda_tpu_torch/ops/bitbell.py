@@ -38,6 +38,7 @@ for thin ones, the direction decided per level on the device.
 from __future__ import annotations
 
 import functools
+import time
 from dataclasses import dataclass
 from typing import Callable, NamedTuple, Optional, Tuple
 
@@ -710,11 +711,56 @@ class FusedBestEngine(PackedEngineBase):
             carry.f[::stride][:k].cpu().numpy(),
         )
 
-    def compile(self, queries_shape) -> None:
+    def compile(self, queries_shape, warm_stats: bool = False, warm_levels: bool = False) -> None:
         """Build and load the kernels and warm the level loop (``_warm``)
-        at this batch shape, so both land in the preprocessing span."""
-        padded, _ = self._pad_queries(np.full(queries_shape, -1, dtype=np.int32))
-        self._warm(padded)
+        at this batch shape, so both land in the preprocessing span;
+        ``warm_stats`` / ``warm_levels`` also run the per-query stats and
+        the stepped per-level trace (where the engine has one) once on an
+        all-padding batch."""
+        dummy = np.full(queries_shape, -1, dtype=np.int32)
+        self._warm(self._pad_queries(dummy)[0])
+        self._warm_stats(dummy, warm_stats, warm_levels)
+
+
+def stepped_level_trace(engine, queries, k: int):
+    """The ``MSBFS_STATS=2`` per-level trace of a bit-plane engine (the
+    JAX package's ``stepped_level_trace``): one level at a time, each
+    followed by a host read (counted), so each level is timed alone.
+    ``queries`` are padded; ``k`` the real count.  Returns (levels,
+    reached, f, level_counts, level_seconds): ``level_counts`` (L, k), row
+    d the vertices discovered at distance d per query (row 0 the
+    sources), ``level_seconds`` (L,) the wall time of each level (row 0
+    the source packing).  The first three equal ``query_stats``'s.  Uses
+    ``engine._init_carry`` and ``engine._stepper(carry)`` (one gated
+    level); a level's discoveries are its growth of ``reached``."""
+    t0 = time.perf_counter()
+    carry = engine._init_carry(queries)
+    seen = carry.reached.cpu().numpy().astype(np.int64)
+    record_dispatch()
+    level_seconds = [time.perf_counter() - t0]
+    level_counts = [seen.copy()]
+    step = engine._stepper(carry)
+    while level_counts[-1].any():
+        if engine.max_levels is not None and len(level_counts) > engine.max_levels:
+            break
+        t0 = time.perf_counter()
+        step(carry)
+        reached = carry.reached.cpu().numpy().astype(np.int64)
+        record_dispatch()
+        level_seconds.append(time.perf_counter() - t0)
+        level_counts.append(reached - seen)
+        seen = reached
+    lc = np.stack(level_counts)  # (L, Kpad)
+    dists = np.arange(lc.shape[0], dtype=np.int64)
+    f = (lc * dists[:, None]).sum(axis=0)
+    reached = lc.sum(axis=0).astype(np.int32)
+    any_at = lc > 0
+    # levels = max distance + 1 (the reference's launch count); 0 if empty.
+    maxdist = np.where(
+        any_at.any(axis=0), any_at.shape[0] - 1 - any_at[::-1].argmax(axis=0), -1
+    )
+    levels = (maxdist + 1).astype(np.int32)
+    return levels[:k], reached[:k], f[:k], lc[:, :k].astype(np.int32), np.asarray(level_seconds)
 
 
 def bell_hits_or(frontier: torch.Tensor, graph, slot_budget=None) -> torch.Tensor:
@@ -837,7 +883,8 @@ class BitBellEngine(FusedBestEngine):
 
         return forest_scratch(self.graph, w, self.device)
 
-    def _chunk(self, carry: BitCarry, bound) -> None:
+    def _stepper(self, carry: BitCarry) -> Callable[[BitCarry], None]:
+        """One gated level (expansion, then apply) over ``carry``'s planes."""
         w = carry.frontier.shape[1]
         expand = self._expand(w)
         scratch = None
@@ -852,7 +899,10 @@ class BitBellEngine(FusedBestEngine):
             expand(c, hits, self._max_levels, scratch)
             apply(c, hits, self._max_levels)
 
-        bit_level_chunk(carry, step, bound, self._max_levels)
+        return step
+
+    def _chunk(self, carry: BitCarry, bound) -> None:
+        bit_level_chunk(carry, self._stepper(carry), bound, self._max_levels)
 
     def _drive(self, queries, k):
         carry = self._init_carry(queries)
@@ -871,6 +921,13 @@ class BitBellEngine(FusedBestEngine):
             if not status[1] or status[0] >= self._max_levels:
                 break
         return carry, status
+
+    def level_stats(self, queries):
+        """Per-level trace (``MSBFS_STATS=2``): :func:`stepped_level_trace`
+        over this engine's level (the hybrid's push or pull, then the
+        apply)."""
+        padded, k = self._pad_queries(queries)
+        return stepped_level_trace(self, padded, k)
 
     def _warm(self, queries) -> None:
         """Build and load the kernels, then run one real level from one

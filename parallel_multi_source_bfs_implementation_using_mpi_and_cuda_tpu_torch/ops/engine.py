@@ -58,10 +58,23 @@ class QueryEngineBase:
         record_dispatch()
         return min_f, min_k
 
-    def compile(self, queries_shape: Tuple[int, int]) -> None:
+    def compile(
+        self, queries_shape: Tuple[int, int], warm_stats: bool = False,
+        warm_levels: bool = False,
+    ) -> None:
         """Warm everything a (K, S) batch runs so the cost lands in the
-        preprocessing span: one run on an all-padding batch."""
-        self.best(np.full(queries_shape, -1, dtype=np.int32))
+        preprocessing span: one run on an all-padding batch, and with
+        ``warm_stats`` / ``warm_levels`` the per-query stats and the
+        stepped per-level trace (on engines that have one) too."""
+        dummy = np.full(queries_shape, -1, dtype=np.int32)
+        self.best(dummy)
+        self._warm_stats(dummy, warm_stats, warm_levels)
+
+    def _warm_stats(self, dummy, warm_stats: bool, warm_levels: bool) -> None:
+        if warm_stats and dummy.shape[0]:
+            self.query_stats(dummy)
+        if warm_levels and dummy.shape[0] and callable(getattr(self, "level_stats", None)):
+            self.level_stats(dummy)
 
     def query_stats(self, queries):
         """Per-query (levels, reached, F) numpy arrays, or None."""
@@ -147,10 +160,10 @@ class Engine(QueryEngineBase):
             torch.cat(col).cpu().numpy()[:k] for col in zip(*rows)
         )
 
-    def compile(self, queries_shape) -> None:
+    def compile(self, queries_shape, warm_stats: bool = False, warm_levels: bool = False) -> None:
         """Build and load the kernel, then run one batch from one source,
         so module loads and first-call allocations land in the
-        preprocessing span."""
+        preprocessing span (the stats path too with ``warm_stats``)."""
         if self.device.type == "cuda" and not self.plain:
             from ..runtime import kernels
 
@@ -159,3 +172,4 @@ class Engine(QueryEngineBase):
         if self.graph.n and dummy.size:
             dummy[0, 0] = 0
         self.best(dummy)
+        self._warm_stats(dummy, warm_stats, warm_levels)

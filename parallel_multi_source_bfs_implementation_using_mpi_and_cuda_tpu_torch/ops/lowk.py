@@ -139,6 +139,8 @@ class LowKEngine(BitBellEngine):
 
     k_align = 1
     lane_stride = BYTE_LANES
+    # The JAX package's low-K engine has no stepped per-level trace.
+    level_stats = None
 
     def __init__(
         self,

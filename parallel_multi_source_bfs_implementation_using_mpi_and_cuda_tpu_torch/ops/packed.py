@@ -85,7 +85,7 @@ class SubBatchEngine:
             np.concatenate([p[i] for p in parts]) for i in range(len(parts[0]))
         )
 
-    def compile(self, queries_shape) -> None:
+    def compile(self, queries_shape, **kwargs) -> None:
         """Warm the inner engine for every sub-batch shape the split
         produces (one full-width shape plus at most one tail shape)."""
         k, s = queries_shape
@@ -93,4 +93,4 @@ class SubBatchEngine:
         if k > self.batch_k and k % self.batch_k:
             shapes.add((k % self.batch_k, s))
         for shape in sorted(shapes):
-            self.inner.compile(shape)
+            self.inner.compile(shape, **kwargs)

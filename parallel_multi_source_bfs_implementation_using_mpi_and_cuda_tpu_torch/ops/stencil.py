@@ -46,6 +46,7 @@ from .bitbell import (
     pack_queries,
     pack_queries_plain,
     resolve_megachunk,
+    stepped_level_trace,
 )
 from .cuda_stencil import (
     SweepResidual,
@@ -381,6 +382,17 @@ class StencilEngine(FusedBestEngine):
         )
         apply = bit_level_apply_plain if self.plain else bit_level_apply
         apply(carry, hits, self._max_levels)
+
+    def _stepper(self, carry: BitCarry):
+        """One gated level over the whole plane (the stepped trace's)."""
+        hits = torch.empty_like(carry.frontier)
+        return lambda c: self._step(c, 0, hits)
+
+    def level_stats(self, queries):
+        """Per-level trace (``MSBFS_STATS=2``) via the shared
+        :func:`.bitbell.stepped_level_trace`, as BitBellEngine's."""
+        padded, k = self._pad_queries(queries)
+        return stepped_level_trace(self, padded, k)
 
     def _chunk(self, carry: BitCarry, wlo: int, rows: int, bound, hits) -> None:
         view = carry.rows(wlo, rows)

@@ -46,7 +46,8 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 
 # kernel name -> (C entry point, argtypes after the device ordinal and
-# before the stream).
+# before the stream[, source]): the source is csrc/<name>.cu unless named
+# (a library with two entry points).
 KERNELS = {
     "stencil_sweep": (
         "msbfs_stencil_sweep",
@@ -72,6 +73,16 @@ KERNELS = {
     "forest_or": (
         "msbfs_forest_or",
         [_P, _P, ctypes.POINTER(_L), _I, _P, _P, _P, _L, _I, _L, _I, _I, _P, _I],
+    ),
+    "forest_segment": (
+        "msbfs_forest_segment",
+        [_P, _L, _P, _P, _I, _L, _P, _I, _I, _I, _P, _I],
+        "forest_or",
+    ),
+    "forest_gather": (
+        "msbfs_forest_gather",
+        [_P, _P, _P, _L, _I, _I, _P, _I],
+        "forest_or",
     ),
     "flag_pull": (
         "msbfs_flag_pull",
@@ -109,46 +120,52 @@ def _nvcc() -> str:
     )
 
 
-def _target(name: str) -> Path:
+def source(name: str) -> str:
+    """The csrc/ file (without ``.cu``) that holds kernel ``name``."""
+    return KERNELS[name][2] if len(KERNELS[name]) > 2 else name
+
+
+def _target(src: str) -> Path:
     digest = hashlib.sha256()
-    digest.update((CSRC_DIR / f"{name}.cu").read_bytes())
+    digest.update((CSRC_DIR / f"{src}.cu").read_bytes())
     digest.update(_HEADER.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"{src}-{digest.hexdigest()[:16]}.so"
 
 
 def build_all() -> Dict[str, BuildResult]:
     """Compile every kernel source that has no up-to-date library, all
-    nvcc processes at once; returns each kernel's library and log."""
+    nvcc processes at once; returns each kernel's library and log (the
+    kernels of one source share both)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    results: Dict[str, BuildResult] = {}
+    built: Dict[str, BuildResult] = {}
     running = {}
-    for name in KERNELS:
-        target = _target(name)
+    for src in dict.fromkeys(source(name) for name in KERNELS):
+        target = _target(src)
         if target.exists():
-            results[name] = BuildResult(target, 0.0, "")
+            built[src] = BuildResult(target, 0.0, "")
             continue
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
         cmd = [
             _nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR),
-            "-o", str(tmp), str(CSRC_DIR / f"{name}.cu"),
+            "-o", str(tmp), str(CSRC_DIR / f"{src}.cu"),
         ]
         proc = subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         )
-        running[name] = (proc, tmp, target, time.perf_counter())
+        running[src] = (proc, tmp, target, time.perf_counter())
     failures = []
-    for name, (proc, tmp, target, t0) in running.items():
+    for src, (proc, tmp, target, t0) in running.items():
         log, _ = proc.communicate()
         seconds = time.perf_counter() - t0
         if proc.returncode != 0:
-            failures.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")
+            failures.append(f"{src}.cu (nvcc exit {proc.returncode}):\n{log}")
             continue
         os.replace(tmp, target)  # atomic: concurrent builders never see half a file
-        results[name] = BuildResult(target, seconds, log)
+        built[src] = BuildResult(target, seconds, log)
     if failures:
         raise KernelError("kernel build failed:\n" + "\n".join(failures))
-    return results
+    return {name: built[source(name)] for name in KERNELS}
 
 
 @functools.lru_cache(maxsize=None)
@@ -159,7 +176,7 @@ def library() -> Dict[str, tuple]:
     fns = {}
     for name, result in build_all().items():
         lib = ctypes.CDLL(str(result.path))
-        symbol, argtypes = KERNELS[name]
+        symbol, argtypes = KERNELS[name][:2]
         fn = getattr(lib, symbol)
         fn.argtypes = [_I, *argtypes, _P]
         fn.restype = _I

@@ -1,23 +1,38 @@
-"""Resilient execution: typed failure taxonomy, watchdog, bounded retry.
+"""Resilient execution: typed failure taxonomy, watchdog, bounded retry,
+capacity degradation.
 
-Port of the JAX package's runtime/supervisor.py, first part: the typed
-errors and their CLI exit codes (docs/RESILIENCE.md), :func:`classify`,
-:class:`RetryPolicy`, :func:`call_with_watchdog`, and a
-:class:`ChunkSupervisor` that retries transient failures with backoff.
-The capacity-degradation ladder, output certification and fault-plan
-seams are not ported yet (ROADMAP.md queue 5): a capacity or device
-error surfaces typed instead.
+The port of the JAX package's runtime/supervisor.py for one device: the
+typed errors and their CLI exit codes (docs/RESILIENCE.md),
+:func:`classify`, :class:`RetryPolicy`, :func:`call_with_watchdog`, and
+:class:`ChunkSupervisor`, which wraps an engine's calls with the watchdog,
+the ``dispatch`` fault seam (utils/faults.py), bounded retry of transient
+errors, the capacity ladder (on a ``CapacityError`` the next,
+smaller-footprint engine takes over and the call runs again), the
+``bitflip:dist`` result seam, and the output-audit escalation as a
+mechanism.  The survivor resharding of a multi-device mesh comes with
+the mesh (ROADMAP.md queue 1 item 7): a device error surfaces typed.
+
+One difference from the JAX supervisor, on purpose: before a rung's
+factory runs, the failed engine is released (and the CUDA caching
+allocator's free blocks returned), so that after a real out-of-memory
+error the next rung's layout has the memory the failed one held; and an
+error the factory raises leaves classified, as a typed exit.
 """
 
 from __future__ import annotations
 
+import gc
 import random
 import threading
 import time
 from dataclasses import dataclass
-from typing import Callable, List, Optional
+from typing import Callable, List, Optional, Sequence, Tuple
+
+import torch
 
 from ..ops.engine import QueryEngineBase
+from ..utils import faults
+from ..utils.telemetry import instant, record_flight, span
 
 
 class MsbfsError(Exception):
@@ -188,20 +203,57 @@ def call_with_watchdog(fn: Callable[[], object], timeout: Optional[float]):
 
 class ChunkSupervisor(QueryEngineBase):
     """Wraps an engine's ``f_values`` / ``query_stats`` / ``best`` /
-    ``compile`` with the watchdog and bounded retry of transient errors;
-    any other failure is raised classified.  Unknown attributes delegate
-    to the engine.  ``events`` records every retry."""
+    ``compile`` with the recovery policy.  Unknown attributes delegate to
+    the engine, so the CLI, the checkpoint runner and the stats paths
+    work on a supervised engine unchanged.
+
+    ``ladder``: ``(label, factory)`` pairs, tried in order on a
+    :class:`CapacityError`; each factory builds the next
+    smaller-footprint engine.  ``plan`` defaults to the process-wide
+    active fault plan; every supervised call trips the ``"dispatch"``
+    site once per attempt, inside the watchdog.  ``auditor(queries, f)
+    -> [failing invariants]`` certifies a sampled share
+    (``audit_sample``) of ``f_values`` results; a failed audit retries
+    the same engine once, then borrows the ladder's rungs, then raises
+    :class:`CorruptionError`.  ``events`` records every recovery action
+    (retry, degrade, audit_fail, audit_degrade) for the failure report.
+    """
 
     def __init__(
         self,
         engine,
         policy: Optional[RetryPolicy] = None,
         watchdog: Optional[float] = None,
+        ladder: Sequence[Tuple[str, Callable[[], object]]] = (),
+        plan: Optional[faults.FaultPlan] = None,
+        auditor: Optional[Callable[[object, object], List[str]]] = None,
+        audit_sample: float = 1.0,
     ):
         self.engine = engine
         self.policy = policy or RetryPolicy()
         self.watchdog = watchdog
+        self.ladder: List[Tuple[str, Callable[[], object]]] = list(ladder)
+        self.plan = plan
         self.events: List[dict] = []
+        self.auditor = auditor
+        self.audit_sample = float(audit_sample)
+        self.audited_total = 0
+        self.audit_failures_total = 0
+        self.last_audited = False
+        self._audit_acc = 0.0
+        # While set, backoff sleeps are capped and a drain starting
+        # mid-sleep wakes the retry (a serving daemon's drain); None (the
+        # batch CLI) keeps plain sleeps.
+        self.drain_signal: Optional[threading.Event] = None
+
+    def drain_events(self) -> List[dict]:
+        """Hand off and clear the recovery-event log."""
+        events, self.events = self.events, []
+        return events
+
+    def record_event(self, action: str, **fields) -> None:
+        """An external recovery action, logged with the supervisor's own."""
+        self.events.append({"action": action, **fields})
 
     def __getattr__(self, name):
         if name == "engine":
@@ -218,30 +270,169 @@ class ChunkSupervisor(QueryEngineBase):
         return self._supervised("best", queries)
 
     def compile(self, *args, **kwargs):
+        # Warm-ups are supervised too: out-of-memory strikes first there,
+        # and degrading there keeps the failure out of the timed span.
         return self._supervised("compile", *args, **kwargs)
 
+    # ---- internals --------------------------------------------------------
+    def _dispatch(self, method, args, kwargs):
+        plan = self.plan if self.plan is not None else faults.active_plan()
+        if plan is not None:
+            # The first positional argument is the payload (the query
+            # batch, or the shape for compile): poison keys on it.
+            plan.trip("dispatch", args[0] if args else None)
+        out = getattr(self.engine, method)(*args, **kwargs)
+        if method == "f_values" and plan is not None and plan.bitflip_armed():
+            # The result seam (bitflip:dist): the F vector corrupted after
+            # the engine produced it, on its way to the host.
+            flipped = plan.corrupt("dist", out)
+            if flipped is not out:
+                out = torch.from_numpy(flipped).to(out.device)
+        return out
+
+    def _backoff(self, delay: float) -> None:
+        sig = self.drain_signal
+        if sig is None:
+            time.sleep(delay)
+        elif sig.is_set():
+            time.sleep(min(delay, 0.05))
+        else:
+            sig.wait(delay)
+
+    def _audit_due(self) -> bool:
+        """Deterministic sampling: an accumulator crosses 1.0 every
+        ``1/audit_sample`` calls."""
+        if self.audit_sample >= 1.0:
+            return True
+        if self.audit_sample <= 0.0:
+            return False
+        self._audit_acc += self.audit_sample
+        if self._audit_acc >= 1.0:
+            self._audit_acc -= 1.0
+            return True
+        return False
+
+    @staticmethod
+    def _build(factory):
+        """A rung's engine; an error the factory raises leaves typed."""
+        try:
+            return factory()
+        except Exception as exc:
+            raise classify(exc) from exc
+
+    def _release_engine(self) -> None:
+        """Drop the failed engine and what still refers to it (the failed
+        call's frames sit in reference cycles through the watchdog's box),
+        and return the caching allocator's free blocks to the device."""
+        self.engine = None
+        gc.collect()
+        if torch.cuda.is_available() and torch.cuda.is_initialized():
+            torch.cuda.empty_cache()
+
     def _supervised(self, method, *args, **kwargs):
+        with span(f"supervise.{method}"):
+            return self._supervised_run(method, *args, **kwargs)
+
+    def _supervised_run(self, method, *args, **kwargs):
         delays = self.policy.delays()
         attempt = 0
-        while True:
-            try:
-                return call_with_watchdog(
-                    lambda: getattr(self.engine, method)(*args, **kwargs),
-                    self.watchdog,
-                )
-            except Exception as exc:
-                err = classify(exc)
-                if isinstance(err, TransientError):
-                    delay = next(delays, None)
-                    if delay is not None:
-                        attempt += 1
-                        self.events.append({
-                            "action": "retry",
-                            "method": method,
-                            "attempt": attempt,
-                            "delay": delay,
-                            "error": str(err),
-                        })
-                        time.sleep(delay)
+        audit_attempts = 0
+        # Audit step-downs borrow rungs by index and the original engine
+        # comes back once the call settles; a capacity degrade during the
+        # call is permanent and cancels the restore.
+        audit_rung = 0
+        restore_engine = None
+        must_audit = False
+        self.last_audited = False
+        try:
+            while True:
+                degrade = None  # the capacity error's text, handled below
+                try:
+                    result = call_with_watchdog(
+                        lambda: self._dispatch(method, args, kwargs),
+                        self.watchdog,
+                    )
+                    if method != "f_values" or self.auditor is None:
+                        return result
+                    if not must_audit and not self._audit_due():
+                        return result
+                    self.audited_total += 1
+                    self.last_audited = True
+                    failing = self.auditor(args[0], result)
+                    if not failing:
+                        return result
+                    must_audit = True
+                    self.audit_failures_total += 1
+                    audit_attempts += 1
+                    self.events.append({
+                        "action": "audit_fail",
+                        "method": method,
+                        "attempt": audit_attempts,
+                        "invariants": list(failing),
+                    })
+                    instant("supervise.audit_fail", method=method,
+                            attempt=audit_attempts, invariants=list(failing))
+                    record_flight("audit_fail", method=method,
+                                  attempt=audit_attempts,
+                                  invariants=list(failing))
+                    if audit_attempts <= 1:
                         continue
-                raise err from exc
+                    if audit_rung < len(self.ladder):
+                        label, factory = self.ladder[audit_rung]
+                        audit_rung += 1
+                        if restore_engine is None:
+                            restore_engine = self.engine
+                        self.engine = self._build(factory)
+                        self.events.append({
+                            "action": "audit_degrade",
+                            "method": method,
+                            "to": label,
+                        })
+                        instant("supervise.audit_degrade", method=method, to=label)
+                        continue
+                    raise CorruptionError(
+                        "output certification failed after "
+                        f"{audit_attempts} attempt(s); failing "
+                        f"invariants: {', '.join(failing)}",
+                        invariants=failing,
+                    )
+                except CorruptionError:
+                    raise  # the audit ladder's terminal verdict
+                except Exception as exc:
+                    err = classify(exc)
+                    if isinstance(err, TransientError):
+                        delay = next(delays, None)
+                        if delay is not None:
+                            attempt += 1
+                            self.events.append({
+                                "action": "retry",
+                                "method": method,
+                                "attempt": attempt,
+                                "delay": delay,
+                                "error": str(err),
+                            })
+                            instant("supervise.retry", method=method,
+                                    attempt=attempt, delay=delay)
+                            self._backoff(delay)
+                            continue
+                    elif isinstance(err, CapacityError) and self.ladder:
+                        # Stepped down after this block: its exception
+                        # still holds the failed call's frames.
+                        degrade = str(err)
+                    if degrade is None:
+                        raise err from exc
+                label, factory = self.ladder.pop(0)
+                restore_engine = None  # permanent degrade
+                self._release_engine()
+                self.engine = self._build(factory)
+                audit_rung = 0  # rung indices shifted with the pop
+                self.events.append({
+                    "action": "degrade",
+                    "method": method,
+                    "to": label,
+                    "error": degrade,
+                })
+                instant("supervise.degrade", method=method, to=label)
+        finally:
+            if restore_engine is not None:
+                self.engine = restore_engine

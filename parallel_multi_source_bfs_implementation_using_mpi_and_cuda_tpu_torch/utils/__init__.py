@@ -1,1 +1,2 @@
-"""Host utilities: binary I/O, env knobs, timing counters, the report."""
+"""Host utilities: binary I/O, env knobs, timing counters, the report,
+the fault plan, the checkpoint journal, the stats tables and telemetry."""

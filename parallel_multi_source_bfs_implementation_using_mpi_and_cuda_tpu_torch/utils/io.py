@@ -11,7 +11,9 @@ Query format (reference LoadQueryBin, main.cu:134-164):
     uint8  K                      -- number of query groups
     per group: uint8 set_size, then set_size x int32 vertex ids
 
-The edge records decode in the native runtime (runtime/native_loader.py)
+Each loader trips its fault seam (``load_graph``, ``load_query``;
+utils/faults.py) before it reads anything.  The edge records decode in
+the native runtime (runtime/native_loader.py)
 unless the caller passes ``native=False``.  Each decoder raises what the
 same decoder of the JAX package raises: ``IOError`` for a truncated or
 corrupt file from both; for an out-of-range endpoint the native decoder's
@@ -30,6 +32,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 
 from ..models.csr import CSRGraph
+from .faults import trip
 
 GRAPH_HEADER = struct.Struct("<iq")  # int32 n, int64 m
 WEIGHT_MAGIC = b"MSBW"
@@ -85,7 +88,9 @@ def load_graph_bin(path: str | os.PathLike, native: bool = True) -> CSRGraph:
     before anything is allocated, then decoded by the native runtime or,
     with ``native=False``, by one NumPy read.
     A weight section is validated (costs >= 1) and dropped: the
-    hop-distance objective does not read it."""
+    hop-distance objective does not read it.  The ``load_graph`` fault
+    seam (utils/faults.py) trips first, before any decode."""
+    trip("load_graph")
     n, m, weighted = _graph_bin_layout(path)
     if native:
         if weighted:
@@ -138,7 +143,9 @@ def save_graph_bin(
 
 
 def load_query_bin(path: str | os.PathLike) -> List[np.ndarray]:
-    """Load the reference query format -> list of K int32 arrays (ragged)."""
+    """Load the reference query format -> list of K int32 arrays (ragged),
+    after the ``load_query`` fault seam (utils/faults.py)."""
+    trip("load_query")
     with open(path, "rb") as f:
         data = f.read()
     if len(data) < 1:

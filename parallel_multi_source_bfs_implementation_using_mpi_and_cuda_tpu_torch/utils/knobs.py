@@ -24,7 +24,7 @@ class Knob:
 
 
 _ALL = (
-    Knob("MSBFS_BACKEND", "auto", "str", "engine selection; the port has auto, stencil, mxu, pallas, bell, lowk and bitbell (any other name but vmap/push/ppush/streamed/packed/dense runs bitbell, as in JAX)"),
+    Knob("MSBFS_BACKEND", "auto", "str", "engine selection; the port has auto, stencil, mxu, pallas, bell, lowk, streamed and bitbell (any other name but vmap/push/ppush/packed/dense runs bitbell, as in JAX)"),
     Knob("MSBFS_MXU_TILE", "128", "int", "mxu adjacency tile side (multiple of 8; the CUDA tile kernel takes 32, 64, 96 or 128)"),
     Knob("MSBFS_MXU_MAX_TILES", "32768", "int", "mxu densification ceiling in nonzero tiles"),
     Knob("MSBFS_MXU_SWITCH", None, "int", "mxu per-level direction switch threshold in active rows; 0 never pushes, unset = auto n/64"),
@@ -43,12 +43,20 @@ _ALL = (
     Knob("MSBFS_WATCHDOG", "0", "float", "wall-clock deadline per supervised call in seconds; 0/unset = off"),
     Knob("MSBFS_FAULT_SEED", "0", "int", "backoff-jitter RNG stream"),
     Knob("MSBFS_NATIVE_THREADS", None, "int", "exact thread count of every native loader pass (runtime/loader.cpp); unset = the hardware's, fewer on small inputs"),
+    Knob("MSBFS_STREAM_PREFETCH", "2", "int", "host-streamed engine: forest-segment upload lookahead (device buffers in the ring)"),
+    Knob("MSBFS_FAULTS", None, "spec", "deterministic fault-injection plan: kind:site:n[,...]"),
+    Knob("MSBFS_FAULT_HANG", "60", "float", "injected-hang stall seconds"),
+    Knob("MSBFS_CHECKPOINT", None, "path", "resumable journal path for chunk-wise execution"),
+    Knob("MSBFS_CHECKPOINT_CHUNK", "64", "int", "queries per checkpointed chunk"),
+    Knob("MSBFS_STATS", None, "str", "1 = per-query stats table, 2 = + per-level trace"),
+    Knob("MSBFS_FLIGHT_RECORDER", None, "path", "append the flight ring as JSONL here on typed exits"),
     # Routes and modes of the JAX CLI that the port refuses by name.
-    Knob("MSBFS_FAULTS", None, "spec", "fault-injection plan (not yet ported: fails)"),
-    Knob("MSBFS_CHECKPOINT", None, "path", "resumable journal (not yet ported: fails)"),
-    Knob("MSBFS_STATS", None, "str", "per-query stats tables (not yet ported: fails)"),
     Knob("MSBFS_WEIGHTED", None, "flag", "weighted delta-stepping route (not yet ported: fails)"),
     Knob("MSBFS_MESH", None, "spec", "2D mesh partition (not yet ported: fails)"),
+    Knob("MSBFS_COORDINATOR", None, "spec", "multi-host bring-up: coordinator addr:port (not yet ported: fails)"),
+    Knob("MSBFS_NUM_PROCESSES", "1", "int", "multi-host bring-up: world size (not yet ported: fails)"),
+    Knob("MSBFS_PROCESS_ID", "0", "int", "multi-host bring-up: this process's rank (not yet ported: fails)"),
+    Knob("MSBFS_PROFILE_DIR", None, "path", "profiler trace of the computation span (not yet ported: fails)"),
 )
 
 KNOBS: Dict[str, Knob] = {k.name: k for k in _ALL}

@@ -1,8 +1,9 @@
 """The port's CLI against the JAX package's ``cli.main`` on the same
 fixtures: report lines 1-5 and exit codes, the routing of the default
-(bitbell), low-K, byte-plane BELL, ELL and over-memory branches, the
-sub-batch split, the routes that are not ported yet, and the port's
-import isolation."""
+(bitbell), low-K, byte-plane BELL, ELL, host-streamed and over-memory
+branches, the sub-batch split, fault plans (the capacity ladder, retries,
+the watchdog, exhausted budgets, the loader seams, a malformed plan), the
+routes that are not ported yet, and the port's import isolation."""
 
 import os
 import subprocess
@@ -13,6 +14,9 @@ import pytest
 import torch
 
 from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu import cli as jcli
+from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu.utils import (
+    faults as jfaults,
+)
 from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu.ops import (
     packed as jpacked,
 )
@@ -34,12 +38,21 @@ from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops i
     stencil,
 )
 from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.utils import (
+    faults,
     io,
 )
 
 PORT = "parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch"
 JAX_PKG = "parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu"
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(autouse=True)
+def _no_fault_plan_left():
+    """Neither CLI leaves its fault plan installed for the next test."""
+    yield
+    faults.activate(None)
+    jfaults.activate(None)
 
 
 def _fixture(tmp_path, k=12, rows=30, cols=30, seed=3, queries=None):
@@ -153,10 +166,10 @@ def test_missing_file_matches_jax(tmp_path, capsys, missing):
     [
         ({"MSBFS_BACKEND": "vmap"}, None),
         ({"MSBFS_BACKEND": "push"}, None),
-        ({"MSBFS_STATS": "1"}, None),
-        ({"MSBFS_CHECKPOINT": "journal.bin"}, None),
+        ({"MSBFS_COORDINATOR": "localhost:12345", "MSBFS_NUM_PROCESSES": "2"}, None),
+        ({"MSBFS_PROFILE_DIR": "profile"}, None),
         ({"MSBFS_WEIGHTED": "1"}, None),
-        ({"MSBFS_FAULTS": "hang:dispatch:1"}, None),
+        ({"MSBFS_BACKEND": "dense"}, None),
         ({"MSBFS_MESH": "2x2"}, None),
         ({}, "serve"),
         ({}, "verify"),
@@ -320,3 +333,52 @@ def test_lowk_route_refused_as_jax_routes_it(tmp_path, capsys, monkeypatch):
         assert rc_port == rc_jax == 0
         assert port.out.splitlines()[:5] == jax_out.out.splitlines()[:5]
         assert LOWK not in port.err and LOWK not in jax_out.err
+
+
+# (environment, exit code): fault plans through both CLIs on the default
+# route (the capacity ladder, retries, the watchdog, exhausted budgets, the
+# loader seams, a malformed plan), the ELL route's plane seam, and the
+# host-streamed route.
+FAULT_CASES = {
+    "oom_one_rung": ({"MSBFS_FAULTS": "oom:dispatch:1"}, 0),
+    "oom_two_rungs": ({"MSBFS_FAULTS": "oom:dispatch:1,oom:dispatch:2"}, 0),
+    "oom_three_rungs": (
+        {"MSBFS_FAULTS": "oom:dispatch:1,oom:dispatch:2,oom:dispatch:3",
+         "MSBFS_LEVEL_CHUNK": "0"}, 0,
+    ),
+    "oom_exhausted": ({"MSBFS_FAULTS": "oom:dispatch:1,oom:dispatch:2,oom:dispatch:3"}, 3),
+    "oom_in_computation": ({"MSBFS_FAULTS": "oom:dispatch:2"}, 0),
+    "transient_retried": ({"MSBFS_FAULTS": "transient:dispatch:2"}, 0),
+    "transient_exhausted": (
+        {"MSBFS_FAULTS": "transient:dispatch:1,transient:dispatch:2,transient:dispatch:3"}, 5,
+    ),
+    "watchdog": (
+        {"MSBFS_FAULTS": "hang:dispatch:1", "MSBFS_FAULT_HANG": "0.5",
+         "MSBFS_WATCHDOG": "0.1", "MSBFS_RETRIES": "0"}, 5,
+    ),
+    "io_load_graph": ({"MSBFS_FAULTS": "io:load_graph:1"}, 1),
+    "corrupt_load_query": ({"MSBFS_FAULTS": "corrupt:load_query:1"}, 1),
+    "bogus_plan": ({"MSBFS_FAULTS": "bogus"}, 1),
+    "ell_plane_bitflip": ({"MSBFS_BACKEND": "pallas", "MSBFS_FAULTS": "bitflip:plane0:1"}, 0),
+    "streamed": ({"MSBFS_BACKEND": "streamed"}, 0),
+    "streamed_segments": ({"MSBFS_BACKEND": "streamed", "MSBFS_SLOT_BUDGET": "300"}, 0),
+}
+
+
+@pytest.mark.parametrize("case", list(FAULT_CASES))
+def test_fault_plans_match_jax(tmp_path, capsys, monkeypatch, case):
+    """The same exit code, report lines 1-5 (the times differ) and the
+    same one-line failure report on stderr as the JAX CLI."""
+    env, code = FAULT_CASES[case]
+    argv = _rmat_fixture(tmp_path)
+    monkeypatch.setenv("MSBFS_BACKOFF", "0.001")
+    for key, value in env.items():
+        monkeypatch.setenv(key, value)
+    (rc_port, port), (rc_jax, jax_out) = _run_both(argv, capsys)
+    assert rc_port == rc_jax == code
+    assert port.out.splitlines()[:5] == jax_out.out.splitlines()[:5]
+    assert len(port.out.splitlines()) == (7 if code == 0 else 0)
+    mine = [ln for ln in port.err.splitlines() if ln.startswith(("msbfs:", "Could not"))]
+    theirs = [ln for ln in jax_out.err.splitlines() if ln.startswith(("msbfs:", "Could not"))]
+    assert mine == theirs
+    assert bool(mine) == (code != 0)

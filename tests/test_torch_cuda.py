@@ -37,11 +37,14 @@ from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops i
     lowk,
     mxu,
     stencil,
+    streamed,
 )
 from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.runtime import (
     kernels,
+    supervisor,
 )
 from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.utils import (
+    faults,
     io,
     timing,
 )
@@ -875,6 +878,100 @@ def test_forest_or_matches_plain(cuda, w, widths):
             frontier.to(cuda), bg, stale, torch.tensor(ctrl, dtype=torch.int32, device=cuda), 100
         )
         assert bool((stale == 3).all())
+
+
+@pytest.mark.parametrize("w", [1, 2, 3, 8])
+@pytest.mark.parametrize("slot_budget", [None, 700])
+def test_forest_segment_matches_plain(cuda, w, slot_budget):
+    """K1's segment form: one host-streamed forest pass (every segment
+    through the ring, then the final gather) against the plain pass on
+    the CPU, with one launch a segment and one gather; gated off, nothing
+    is written; a frontier off the vector grid takes the scalar path."""
+    g = _hub_graph(80 + w)
+    host = BellGraph.from_host(g, False)
+    eng = streamed.StreamedBitBellEngine(host, cuda, slot_budget=slot_budget)
+    ref = streamed.StreamedBitBellEngine(host, "cpu", slot_budget=slot_budget)
+    assert len(eng._segments) >= (2 if slot_budget is None else 4)
+    rng = np.random.default_rng(90 + w)
+    frontier = _planes(rng, g.n, w)
+    frontier[rng.random(g.n) < 0.7] = 0
+    pull = torch.tensor([1, 5, 0, bitbell.DIR_PULL], dtype=torch.int32)
+    want = torch.empty_like(frontier)
+    ref.forest_pass(frontier, want, pull)
+    assert torch.equal(want, bitbell.bell_hits_or(frontier, BellGraph.from_host(g, "cpu")))
+    got = torch.full_like(frontier, 9, device=cuda)
+    timing.reset_launch_counts()
+    with eng._streams():
+        eng.forest_pass(frontier.to(cuda), got, pull.to(cuda))
+    torch.cuda.synchronize()
+    assert timing.launch_counts() == {
+        "forest_segment": len(eng._segments), "forest_gather": 1,
+    }
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(eng._scratch[w].cpu(), ref._scratch[w])
+    shifted = torch.zeros(g.n * w + 1, dtype=torch.int32, device=cuda)
+    f_off = shifted[1:].view(g.n, w)
+    f_off.copy_(frontier.to(cuda))
+    got.fill_(9)
+    eng.forest_pass(f_off, got, pull.to(cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    for ctrl in ([1, 5, 0, bitbell.DIR_PUSH], [0, 5, 0, bitbell.DIR_PULL]):
+        stale = torch.full_like(got, 3)
+        eng.forest_pass(frontier.to(cuda), stale, torch.tensor(ctrl, dtype=torch.int32, device=cuda))
+        assert bool((stale == 3).all())
+
+
+@pytest.mark.parametrize(
+    "k,slot_budget,prefetch", [(1, None, 2), (40, 700, 1), (70, 700, 3), (33, None, 1)]
+)
+def test_streamed_engine_kernel_path_matches_plain(cuda, k, slot_budget, prefetch):
+    """The host-streamed engine on the card (kernels, and the plain
+    versions on the card's planes) equals the in-memory engine on the
+    CPU; from a worker thread too (the watchdog's), whose current stream
+    and device are its own."""
+    g = _hub_graph(k + 3)
+    queries = io.pad_queries(generators.random_queries(g.n, k, max_group=5, seed=k))
+    want = bitbell.BitBellEngine(BellGraph.from_host(g, "cpu")).query_stats(queries)
+    host = BellGraph.from_host(g, False)
+    for plain in (False, True):
+        eng = streamed.StreamedBitBellEngine(
+            host, cuda, slot_budget=slot_budget, prefetch=prefetch, plain=plain)
+        eng.compile(queries.shape)
+        for x, y in zip(eng.query_stats(queries), want):
+            np.testing.assert_array_equal(x, y)
+        f = supervisor.call_with_watchdog(lambda: eng.f_values(queries).cpu(), 60)
+        np.testing.assert_array_equal(f.numpy(), want[2])
+        assert eng.best(queries) == (int(want[2].min()), int(np.argmin(want[2])))
+
+
+def test_streamed_and_ladder_cli_on_card(cuda, tmp_path, capsys, monkeypatch):
+    """MSBFS_BACKEND=streamed, and the default route stepping down all
+    three rungs on injected faults, on the card and on the CPU alike."""
+    n, edges = generators.rmat_edges(10, edge_factor=8, seed=19)
+    gpath, qpath = tmp_path / "g.bin", tmp_path / "q.bin"
+    io.save_graph_bin(gpath, n, edges)
+    io.save_query_bin(qpath, generators.random_queries(n, 40, max_group=6, seed=19))
+    argv = ["prog", "-g", str(gpath), "-q", str(qpath), "-gn", "1"]
+    for env in (
+        {"MSBFS_BACKEND": "streamed", "MSBFS_SLOT_BUDGET": "5000"},
+        {"MSBFS_FAULTS": "oom:dispatch:1,oom:dispatch:2,oom:dispatch:3",
+         "MSBFS_LEVEL_CHUNK": "0"},
+    ):
+        with monkeypatch.context() as mp:
+            for key, value in env.items():
+                mp.setenv(key, value)
+            timing.reset_launch_counts()
+            try:
+                assert cli.main(argv) == 0
+                counts = timing.launch_counts()
+                card = capsys.readouterr().out.splitlines()
+                assert cli.main(argv, device="cpu") == 0
+                host = capsys.readouterr().out.splitlines()
+            finally:
+                faults.activate(None)
+        assert card[:5] == host[:5]
+        assert counts.get("forest_segment", 0) > 0 and counts.get("forest_gather", 0) > 0
 
 
 @pytest.mark.parametrize("k", [1, 33, 64, 256])

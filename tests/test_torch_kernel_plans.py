@@ -12,7 +12,8 @@ in use, or miss one, fails here before it reaches the card; so is the
 order in which each block ORs in its residual edges.  The tile kernel's
 unit decoding, its cut of a row tile's list and its swizzled
 shared-memory rows, the forest kernel's run decoding and segmented
-shuffles, and the push kernel's walk of its worklist's edge space are
+shuffles (over whole levels, and over the host-streamed engine's
+segments with their own tables), and the push kernel's walk of its worklist's edge space are
 emulated the same way.
 """
 
@@ -37,6 +38,7 @@ from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops i
     cuda_mxu,
     cuda_stencil,
     stencil,
+    streamed,
 )
 
 ROAD = (1, -1, 4095, -4095, 4096, -4096, 4097, -4097)
@@ -519,77 +521,124 @@ def test_residual_ranges_small_tiles_and_windows(monkeypatch):
 # -- the forest's warp runs -------------------------------------------------
 
 
-def _hub_forest(widths, seed=3):
+def _hub_forest(widths, device="cpu"):
+    """The BELL layout of :func:`_hub_csr` (``device=False``: on the host)."""
+    return BellGraph.from_host(_hub_csr(), device, widths=widths, min_bucket_rows=0)
+
+
+def _hub_csr(seed=3):
     """RMAT edges with hubs of 40, 300, 700 and 2100 neighbours (wide
     rows, two and three forest levels) and isolated vertices."""
     m, e = generators.rmat_edges(9, edge_factor=6, seed=seed)
     n = 3000
     hubs = [np.stack([np.full(d, h, np.int32), (np.arange(d, dtype=np.int32) * 7 + h) % n], 1)
             for h, d in ((7, 40), (11, 300), (13, 700), (17, 2100))]
-    g = CSRGraph.from_edges(n, np.concatenate([e] + hubs))
-    return BellGraph.from_host(g, "cpu", widths=widths, min_bucket_rows=0)
+    return CSRGraph.from_edges(n, np.concatenate([e] + hubs))
+
+
+def _level_runs(cols, tab, runs, prev, prev_rows, n_out, chunks):
+    """One launch of forest_or.cu's level kernel in NumPy: ``runs`` runs
+    decoded from the bucket table ``tab`` as the kernel decodes them
+    (bucket search, chunks of 32 lanes, segmented shuffles toward each
+    row's first lane, a warp per wide row with an xor-shuffle).  Returns
+    the (n_out, W) rows and how often each slot was read and each row
+    written."""
+    w = prev.shape[1]
+    out = np.zeros((n_out, w), dtype=np.uint32)
+    read = np.zeros(cols.shape[0], dtype=np.int64)
+    wrote = np.zeros(n_out, dtype=np.int64)
+
+    def row_of(c):
+        return prev[c] if c < prev_rows else np.zeros(w, dtype=np.uint32)
+
+    for run in range(runs):
+        b = int(np.searchsorted(tab[:, 4], run, side="right")) - 1
+        off, rows, width, row_base, first, rpc = (int(x) for x in tab[b])
+        local = run - first
+        if rpc:
+            lrow = [lane // width for lane in range(32)]
+            lpos = [lane - lrow[lane] * width for lane in range(32)]
+            row0 = local * chunks * rpc
+            for s in range(chunks):
+                x = np.zeros((32, w), dtype=np.uint32)
+                for lane in range(32):
+                    if lrow[lane] < rpc and row0 + s * rpc + lrow[lane] < rows:
+                        slot = off + (row0 + s * rpc) * width + lane
+                        assert slot == off + (row0 + s * rpc + lrow[lane]) * width + lpos[lane]
+                        read[slot] += 1
+                        x[lane] = row_of(int(cols[slot]))
+                d = 1
+                while d < width:  # __shfl_down_sync: past lane 31, its own value
+                    y = np.array([x[min(lane + d, 31)] if lane + d < 32 else x[lane] for lane in range(32)])
+                    for lane in range(32):
+                        if lpos[lane] + d < width:
+                            x[lane] |= y[lane]
+                    d <<= 1
+                for lane in range(32):
+                    row = row0 + s * rpc + lrow[lane]
+                    if lpos[lane] == 0 and lrow[lane] < rpc and row < rows:
+                        wrote[row_base + row] += 1
+                        out[row_base + row] = x[lane]
+        else:
+            assert local < rows
+            acc = np.zeros(w, dtype=np.uint32)
+            for j in range(width):
+                read[off + local * width + j] += 1
+                acc |= row_of(int(cols[off + local * width + j]))
+            wrote[row_base + local] += 1
+            out[row_base + local] = acc
+    return out, read, wrote
 
 
 def _forest_emulation(bg, frontier, plan):
-    """csrc/forest_or.cu in NumPy: each level's runs decoded from the
-    table as the kernel decodes them (bucket search, chunks of 32 lanes,
-    segmented shuffles toward each row's first lane, a warp per wide row
-    with an xor-shuffle), then the final gather.  Every slot must be read
-    by exactly one lane and every row written by one lane."""
+    """csrc/forest_or.cu in NumPy: each level's launch (:func:`_level_runs`
+    over the level's table), then the final gather.  Every slot must be
+    read by exactly one lane and every row written by one lane."""
     n, w = frontier.shape
     table, meta = cuda_bell.forest_tables(bg, w, "cpu")
     table, meta = table.numpy(), list(meta)
     v_cat = np.zeros((bg.total_rows + 1, w), dtype=np.uint32)
     prev = frontier
     for li, flat in enumerate(bg.level_cols):
-        cols = flat.numpy()
         _, prev_rows, out_off, begin, count, runs = meta[6 * li : 6 * li + 6]
-        tab = table[begin : begin + count]
-        read = np.zeros(cols.shape[0], dtype=np.int64)
-        wrote = np.zeros(bg.level_sizes[li], dtype=np.int64)
-
-        def row_of(c):
-            return prev[c] if c < prev_rows else np.zeros(w, dtype=np.uint32)
-
-        for run in range(runs):
-            b = int(np.searchsorted(tab[:, 4], run, side="right")) - 1
-            off, rows, width, row_base, first, rpc = (int(x) for x in tab[b])
-            local = run - first
-            if rpc:
-                lrow = [lane // width for lane in range(32)]
-                lpos = [lane - lrow[lane] * width for lane in range(32)]
-                row0 = local * plan.chunks * rpc
-                for s in range(plan.chunks):
-                    x = np.zeros((32, w), dtype=np.uint32)
-                    for lane in range(32):
-                        if lrow[lane] < rpc and row0 + s * rpc + lrow[lane] < rows:
-                            slot = off + (row0 + s * rpc) * width + lane
-                            assert slot == off + (row0 + s * rpc + lrow[lane]) * width + lpos[lane]
-                            read[slot] += 1
-                            x[lane] = row_of(int(cols[slot]))
-                    d = 1
-                    while d < width:  # __shfl_down_sync: past lane 31, its own value
-                        y = np.array([x[min(lane + d, 31)] if lane + d < 32 else x[lane] for lane in range(32)])
-                        for lane in range(32):
-                            if lpos[lane] + d < width:
-                                x[lane] |= y[lane]
-                        d <<= 1
-                    for lane in range(32):
-                        row = row0 + s * rpc + lrow[lane]
-                        if lpos[lane] == 0 and lrow[lane] < rpc and row < rows:
-                            wrote[row_base + row] += 1
-                            v_cat[out_off + row_base + row] = x[lane]
-            else:
-                assert local < rows
-                acc = np.zeros(w, dtype=np.uint32)
-                for j in range(width):
-                    read[off + local * width + j] += 1
-                    acc |= row_of(int(cols[off + local * width + j]))
-                wrote[row_base + local] += 1
-                v_cat[out_off + row_base + local] = acc
+        out, read, wrote = _level_runs(
+            flat.numpy(), table[begin : begin + count], runs, prev, prev_rows,
+            bg.level_sizes[li], plan.chunks,
+        )
         assert (read == 1).all() and (wrote == 1).all(), li
+        v_cat[out_off : out_off + bg.level_sizes[li]] = out
         prev = v_cat[out_off : out_off + bg.level_sizes[li]]
     return v_cat[bg.final_slot.numpy()]
+
+
+def _segment_emulation(host, frontier, plan, slot_budget):
+    """K1's segment form in NumPy: the streamed engine's schedule, each
+    segment a launch of the same level kernel over its own table (from
+    :class:`cuda_bell.SegmentTables`) into its rows of the scratch, then
+    the final take.  Every slot of every segment read once, every row of
+    every level written once."""
+    eng = streamed.StreamedBitBellEngine(host, "cpu", slot_budget=slot_budget)
+    v_cat = np.zeros((host.total_rows + 1, frontier.shape[1]), dtype=np.uint32)
+    wrote = np.zeros(host.total_rows, dtype=np.int64)
+    for i, seg in enumerate(eng._segments):
+        entries, runs = cuda_bell.segment_table(eng._tables.pieces[i], plan.chunks)
+        level_off = eng._row_offset[seg.level]
+        if seg.level == 0:
+            prev, prev_rows = frontier, host.n
+        else:
+            lo = eng._row_offset[seg.level - 1]
+            prev_rows = eng.level_rows[seg.level - 1]
+            prev = v_cat[lo : lo + prev_rows]
+        out, read, w_seg = _level_runs(
+            eng._slices[i].numpy(), np.asarray(entries, dtype=np.int64), runs, prev,
+            prev_rows, seg.rows, plan.chunks,
+        )
+        assert (read == 1).all() and (w_seg == 1).all(), i
+        lo = level_off + seg.row0
+        v_cat[lo : lo + seg.rows] = out
+        wrote[lo : lo + seg.rows] += 1
+    assert (wrote == 1).all()
+    return v_cat[host.final_slot]
 
 
 @pytest.mark.parametrize(
@@ -605,6 +654,39 @@ def test_forest_runs_cover_every_slot_once(widths, w):
     want = bell.forest_hits(torch.from_numpy(frontier.view(np.int32)), bg).numpy().view(np.uint32)
     plan = cuda_bell.forest_plan(w)
     np.testing.assert_array_equal(_forest_emulation(bg, frontier, plan), want)
+
+
+@pytest.mark.parametrize("widths", [DEFAULT_WIDTHS, (1, 32, 33, 256)])
+@pytest.mark.parametrize("w", [2, 3, 8])
+@pytest.mark.parametrize("slot_budget", [None, 700, 4096])
+def test_segment_runs_cover_every_slot_once(widths, w, slot_budget):
+    """The segment form's tables drive the level kernel over each
+    uploaded segment to the plain forest's hits, whole levels or cut."""
+    bg = _hub_forest(widths)
+    rng = np.random.default_rng(w + 11)
+    frontier = rng.integers(0, 2**32, size=(bg.n, w), dtype=np.uint64).astype(np.uint32)
+    frontier[rng.random(bg.n) < 0.6] = 0
+    want = bell.forest_hits(torch.from_numpy(frontier.view(np.int32)), bg).numpy().view(np.uint32)
+    plan = cuda_bell.forest_plan(w)
+    host = _hub_forest(widths, False)
+    np.testing.assert_array_equal(_segment_emulation(host, frontier, plan, slot_budget), want)
+
+
+def test_segment_tables_match_forest_tables():
+    """Uncut, a segment's table is its level's rows of the forest table."""
+    bg = _hub_forest(DEFAULT_WIDTHS)
+    eng = streamed.StreamedBitBellEngine(_hub_forest(DEFAULT_WIDTHS, False), "cpu")
+    for w in (1, 8):
+        table, meta = cuda_bell.forest_tables(bg, w, "cpu")
+        chunks = cuda_bell.forest_plan(w).chunks
+        for i, seg in enumerate(eng._segments):
+            begin, count, runs = list(meta)[6 * seg.level + 3 : 6 * seg.level + 6]
+            entries, seg_runs = cuda_bell.segment_table(eng._tables.pieces[i], chunks)
+            assert seg_runs == runs
+            assert entries == [tuple(r) for r in table[begin : begin + count].tolist()]
+    tables = cuda_bell.SegmentTables(eng._tables.pieces, "cpu")
+    ptr, buckets, runs = tables.entry(len(eng._segments) - 1, 2)
+    assert buckets == len(eng._tables.pieces[-1]) and runs > 0 and ptr
 
 
 def test_forest_tables_are_cached_per_chunk_count():
