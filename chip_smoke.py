@@ -9,7 +9,7 @@ compiler, and scipy; imports nothing of JAX.  Phases (any failure exits
 non-zero; nothing is caught):
 
 1. print the card (nvidia-smi name, power limit); build the CUDA kernels
-   from csrc/ (eight sources, ten entry points) in parallel and the
+   from csrc/ (eight sources, eleven entry points) in parallel and the
    native host runtime
    (runtime/loader.cpp), and time both builds; print the host's CPUs and
    the native runtime's thread count;
@@ -110,18 +110,24 @@ non-zero; nothing is caught):
    the plain path's without the window;
 9. resilience, on phase 5b's RMAT-20 files (run right after it, K = 64):
    a. ``MSBFS_BACKEND=streamed`` through the CLI (a path: pack_sources,
-      forest_segment, forest_gather, level_apply, and never forest_or or
-      push_or), then with prefetch 1, and with STREAMED_BUDGET-slot
-      segments at prefetch 1 and 2: the same winner and F as the bitbell
-      path (scipy's), and every F of the host-streamed engine at both
-      cuts and depths equal to the bitbell path's; the BFS a level at a
+      forest_map, forest_segment with its map instance, forest_gather,
+      level_apply, and never forest_or or push_or), then with prefetch 1,
+      and with STREAMED_BUDGET-slot segments at prefetch 1 and 2: the
+      same winner and F as the bitbell path (scipy's), and every F of
+      the host-streamed engine at both cuts and depths equal to the
+      bitbell path's; the BFS a level at a
       time, the kernel pass at both cuts equal to the plain pass (every
-      segment output and the hits) on every level; on the densest level
-      each segment launch and the final gather held against their plain
-      versions and timed beside their bounds and beside forest_or on the
-      same frontier; the pinned host-to-device rate, the bytes each level
-      uploads and their transfer bound, and the level pass at prefetch 1
-      and 2;
+      segment output and the hits) on every level; on every level, at
+      both cuts, the map pre-pass, each segment launch (its plan's
+      instance, beside nomap; at whole levels also with the map always
+      and never read) and the final gather (beside index_select) held
+      against their plain versions and timed beside their bounds, one
+      "compare rmat-20 K=64 forest_segment (level i, ...)" line each and
+      their sums over the BFS; forest_or on the densest frontier; a
+      synthetic level-0 segment at n = 2^23, W = 2 (the gmap instance)
+      at 0.1, 10, 50 and 90 % of rows; the pinned host-to-device rate,
+      the bytes each level uploads and their transfer bound, and the
+      level pass at prefetch 1 and 2;
    b. the ladder by injected faults (one, two and three oom:dispatch
       specs, the third with MSBFS_LEVEL_CHUNK=0): each reaches its rung
       with the winner and F of 9a, its recovery events printed;
@@ -186,7 +192,8 @@ PATH_KERNELS = {
     "ell rmat-20": ("ell_hits",),
     "bell rmat-20": ("pack_sources", "flag_pull", "level_apply"),
     "lowk rmat-20": ("pack_sources", "flag_pull", "push_or", "level_apply"),
-    "streamed rmat-20": ("pack_sources", "forest_segment", "forest_gather", "level_apply"),
+    "streamed rmat-20": ("pack_sources", "forest_map", "forest_segment", "forest_gather",
+                         "level_apply"),
 }
 # The paths whose planes are bytes: their pack runs at a stride of 8 lanes,
 # the others' at 1 (the ELL route packs no planes), and they pull with
@@ -1504,8 +1511,10 @@ def _summarise_levels(rows, label):
         push_or_bytes_floor_ms=pick("push_or:bytes", "floor_ms"),
         push_or_bytes_library_ms=pick("push_or:bytes", "library_ms"),
         apply_ms=[r["level_apply"]["ms"] for r in rows],
+        apply_bound_ms=[r["level_apply"]["bound_ms"] for r in rows],
+        apply_variant=[r["level_apply"]["variant"] for r in rows],
         apply_unswitched_ms=[r.get("unswitched_apply_ms") for r in rows],
-        detail=path,
+        detail=path, card=CARD,
     )))
 
 
@@ -1803,10 +1812,102 @@ def _pass_ms(torch, eng, frontier, reps=5):
     return times[len(times) // 2]
 
 
-def _segment_rows(torch, eng, frontier, plain):
-    """The segment kernel and the final gather against their plain
-    versions on one real frontier, each segment's cols on the device,
-    timed with CUDA events beside their byte bounds."""
+@contextlib.contextmanager
+def _dense_share(cuda_bell, share):
+    """Run the map instances with MAP_DENSE_SHARE = ``share`` (1: the map
+    is always read; below 0: never, the dense walk)."""
+    saved = cuda_bell.MAP_DENSE_SHARE
+    cuda_bell.MAP_DENSE_SHARE = share
+    try:
+        yield
+    finally:
+        cuda_bell.MAP_DENSE_SHARE = saved
+
+
+def _needed(torch, prev, prev_rows, cols):
+    """What a segment's function must read of ``prev``: the rows its slots
+    name that are nonzero (each once), and the slots naming one (each a
+    32-byte L2 sector at the least)."""
+    nonzero = torch.cat([(prev[:prev_rows] != 0).any(dim=1),
+                         torch.zeros(1, dtype=torch.bool, device=prev.device)])
+    c = cols.long()
+    hit = nonzero[c]
+    need = torch.zeros(prev_rows + 1, dtype=torch.bool, device=prev.device)
+    need[c[hit]] = True
+    return int(need.sum()), int(hit.sum())
+
+
+def _map_row(torch, frontier, fmap, ctrl):
+    """The map pre-pass against its plain version on one frontier, timed
+    beside its bound (the frontier read, the weights of its nonzero rows
+    read, the map and its sums written)."""
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
+        cuda_bell,
+    )
+
+    n, w = frontier.shape
+    ref = cuda_bell.frontier_map_scratch(n, frontier.device, fmap.weights, fmap.shift)
+    cuda_bell.frontier_map(frontier, fmap, ctrl)
+    cuda_bell.frontier_map_plain(frontier, ref, ctrl)
+    torch.cuda.synchronize()
+    row = dict(max_abs_err=_max_abs_err(torch, [(fmap.bits, ref.bits),
+                                                (fmap.counts, ref.counts)]),
+               ms=_time_ms(torch, lambda: cuda_bell.frontier_map(frontier, fmap, ctrl),
+                           lambda: None),
+               plain_ms=_time_ms(torch, lambda: cuda_bell.frontier_map_plain(
+                   frontier, ref, ctrl), lambda: None, reps=3),
+               library_ms=None, frontier_rows=int(ref.counts[cuda_bell.ROWS]),
+               weight=int(ref.counts[cuda_bell.SLOTS]), weight_total=ref.total,
+               vertices_a_bit=1 << fmap.shift)
+    row["bound_ms"], row["bound_by"] = _bound_ms(
+        4 * n * w + 4 * row["frontier_rows"] + 4 * fmap.bits.numel() + 40, n * w)
+    return row
+
+
+def _segment_row(torch, seg_call, plain_call, out, out_ref, prev, prev_rows, cols, slots,
+                 rows, w, mapped, forced):
+    """One segment launch (the plan's instance) against its plain version,
+    timed beside ``nomap`` (every slot reads its row, no map) and,
+    with ``forced``, its instance with the map always read and never read;
+    the bound counts the cols, the nonzero rows the slots name, the map
+    (level 0) and the rows written."""
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
+        cuda_bell,
+    )
+
+    seg_call(None)
+    plain_call()
+    torch.cuda.synchronize()
+    row = dict(max_abs_err=_max_abs_err(torch, [(out, out_ref)]))
+    seg_call("nomap")
+    torch.cuda.synchronize()
+    row["max_abs_err"] = max(row["max_abs_err"], _max_abs_err(torch, [(out, out_ref)]))
+    row["ms"] = _time_ms(torch, lambda: seg_call(None), lambda: None)
+    row["nomap_ms"] = _time_ms(torch, lambda: seg_call("nomap"), lambda: None)
+    if forced:
+        for name, share in (("map_read_ms", 1.0), ("map_skipped_ms", -1.0)):
+            with _dense_share(cuda_bell, share):
+                seg_call(None)
+                torch.cuda.synchronize()
+                row["max_abs_err"] = max(row["max_abs_err"], _max_abs_err(torch, [(out, out_ref)]))
+                row[name] = _time_ms(torch, lambda: seg_call(None), lambda: None)
+    row["plain_ms"] = _time_ms(torch, plain_call, lambda: None, reps=3)
+    need, hit_slots = _needed(torch, prev, prev_rows, cols)
+    map_bytes = 4 * cuda_bell.map_words(prev_rows) if mapped else 0
+    row["bound_ms"], row["bound_by"] = _bound_ms(
+        4 * slots + 4 * w * need + map_bytes + 4 * w * rows, 0)
+    row["library_ms"] = None
+    row["l2_floor_ms"] = 32 * hit_slots / L2_SECTOR_BYTES_PER_S * 1e3
+    row.update(slots=slots, rows=rows, nonzero_source_slots=hit_slots)
+    return row
+
+
+def _segment_level(torch, eng, frontier, forced):
+    """One BFS level's forest pass of a host-streamed engine, launch by
+    launch, on its real frontier, each segment's cols on the device: the
+    map pre-pass, every segment (the plan's instance, :func:`_segment_row`)
+    and the final gather (beside ``torch.index_select``), each held
+    against its plain version."""
     from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
         cuda_bell,
     )
@@ -1815,38 +1916,44 @@ def _segment_rows(torch, eng, frontier, plain):
     ctrl = torch.tensor([1, 7, 0, 0], dtype=torch.int32, device=dev)
     scratch = cuda_bell.forest_scratch(eng, w, dev)
     ref = cuda_bell.forest_scratch(eng, w, dev)
+    fmap = eng._map
+    map_row = _map_row(torch, frontier, fmap, ctrl)
     segs = []
     for i, seg in enumerate(eng._segments):
         cols = eng._slices[i].to(dev)
         if seg.level == 0:
-            prev, prev_ref, prev_rows = frontier, frontier, n
+            prev, prev_ref, prev_rows, mapped = frontier, frontier, n, fmap
         else:
             lo = eng._row_offset[seg.level - 1]
             prev_rows = eng.level_rows[seg.level - 1]
             prev, prev_ref = scratch[lo : lo + prev_rows], ref[lo : lo + prev_rows]
+            mapped = None
         lo = eng._row_offset[seg.level] + seg.row0
         out, out_ref = scratch[lo : lo + seg.rows], ref[lo : lo + seg.rows]
-        cuda_bell.forest_segment(prev, prev_rows, cols, eng._tables, i, out, ctrl)
-        cuda_bell.forest_segment_plain(prev_ref, prev_rows, cols, eng._tables.pieces[i],
-                                       out_ref, ctrl)
-        torch.cuda.synchronize()
-        err = _max_abs_err(torch, [(out, out_ref)])
-        ms = _time_ms(torch, lambda: cuda_bell.forest_segment(
-            prev, prev_rows, cols, eng._tables, i, out, ctrl), lambda: None)
-        plain_ms = _time_ms(torch, lambda: cuda_bell.forest_segment_plain(
-            prev_ref, prev_rows, cols, eng._tables.pieces[i], out_ref, ctrl),
-            lambda: None, reps=3)
-        bound, by = _bound_ms(4 * seg.slots + 4 * w * prev_rows + 4 * w * seg.rows,
-                              seg.slots * w)
-        vec16 = all(t.data_ptr() % (16 if w % 4 == 0 else 8) == 0 for t in (prev, out))
-        segs.append(dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                         bound_by=by, library_ms=None, level=seg.level, slots=seg.slots,
-                         rows=seg.rows, variant=cuda_bell.forest_plan(w, vec16).label))
+        pieces = eng._tables.pieces[i]
+
+        def seg_call(instance, prev=prev, prev_rows=prev_rows, cols=cols, i=i, out=out,
+                     mapped=mapped):
+            cuda_bell.forest_segment(prev, prev_rows, cols, eng._tables, i, out, ctrl,
+                                     fmap=mapped, instance=instance)
+
+        def plain_call(prev_ref=prev_ref, prev_rows=prev_rows, cols=cols, pieces=pieces,
+                       out_ref=out_ref):
+            cuda_bell.forest_segment_plain(prev_ref, prev_rows, cols, pieces, out_ref, ctrl)
+
+        row = _segment_row(torch, seg_call, plain_call, out, out_ref, prev, prev_rows, cols,
+                           seg.slots, seg.rows, w, mapped is not None,
+                           forced and mapped is not None)
+        vec16 = cuda_bell._rows_vec16(w, prev, out)
+        plan = cuda_bell.segment_plan(w, vec16, seg.level, prev_rows)
+        row.update(level=seg.level, instance=plan.instance, variant=plan.label)
+        segs.append(row)
         del cols
     h_k, h_p = torch.full_like(frontier, 7), torch.empty_like(frontier)
     cuda_bell.forest_final_gather(scratch, eng.final_slot, h_k, ctrl)
     cuda_bell.forest_final_gather_plain(ref, eng.final_slot, h_p, ctrl)
     torch.cuda.synchronize()
+    zero = int((eng.final_slot == eng.total_rows).sum())
     gather = dict(
         max_abs_err=_max_abs_err(torch, [(h_k, h_p)]),
         ms=_time_ms(torch, lambda: cuda_bell.forest_final_gather(
@@ -1856,13 +1963,85 @@ def _segment_rows(torch, eng, frontier, plain):
         library_ms=_time_ms(torch, lambda: torch.index_select(
             ref, 0, eng.final_slot, out=h_p), lambda: None),
         library="torch.index_select(v_cat, 0, final_slot, out=hits)",
+        zero_row_vertices=zero,
+        variant=cuda_bell.forest_plan(w, cuda_bell._rows_vec16(w, scratch, h_k)).label,
     )
     gather["bound_ms"], gather["bound_by"] = _bound_ms(4 * n + 8 * n * w, 0)
-    plain_pass = torch.empty_like(frontier)
-    plain.forest_pass(frontier, plain_pass, ctrl)
-    torch.cuda.synchronize()
-    assert torch.equal(plain_pass, h_p) and gather["max_abs_err"] == 0
-    return segs, gather
+    assert torch.equal(h_k, h_p), "forest_gather differs from its plain version"
+    return map_row, segs, gather, h_p
+
+
+def _level_summary(map_row, segs, gather, frontier_rows):
+    """A BFS level's segment launches summed: the map pre-pass and the
+    plan's instances against nomap (no map) on every segment."""
+    level0 = [r for r in segs if r["level"] == 0]
+    return dict(
+        frontier_rows=frontier_rows, instance=level0[0]["instance"],
+        ms=map_row["ms"] + sum(r["ms"] for r in segs),
+        nomap_ms=sum(r["nomap_ms"] for r in segs),
+        bound_ms=map_row["bound_ms"] + sum(r["bound_ms"] for r in segs),
+        plain_ms=map_row["plain_ms"] + sum(r["plain_ms"] for r in segs),
+        max_abs_err=max([map_row["max_abs_err"], gather["max_abs_err"]]
+                        + [r["max_abs_err"] for r in segs]),
+        map_ms=map_row["ms"],
+        level0_ms=sum(r["ms"] for r in level0),
+        level0_nomap_ms=sum(r["nomap_ms"] for r in level0),
+        level0_map_read_ms=sum(r.get("map_read_ms", 0.0) for r in level0) or None,
+        level0_map_skipped_ms=sum(r.get("map_skipped_ms", 0.0) for r in level0) or None,
+        level0_l2_floor_ms=sum(r["l2_floor_ms"] for r in level0),
+        weight_share=map_row["weight"] / max(map_row["weight_total"], 1),
+        segments=len(segs), slowest_vs_nomap=max(r["ms"] / r["nomap_ms"] for r in segs),
+        gather_ms=gather["ms"], gather_library_ms=gather["library_ms"],
+        gather_bound_ms=gather["bound_ms"], card=CARD,
+    )
+
+
+def _synthetic_gmap(torch, dev, seed):
+    """A level-0 segment beyond the shared-memory map: n = 2^23, W = 2
+    (a 64 MB frontier plane, more than the 50 MB L2), 2n = 16,777,216
+    random slots in rows of width 4, at frontier densities of 0.1 %, 10 %,
+    50 % and 90 % of rows: the map pre-pass (weighted by each vertex's
+    slots, as the engine weighs them) and the segment (the plan's gmap)
+    held against their plain versions and timed beside nomap."""
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
+        cuda_bell,
+    )
+
+    n, w, width = 1 << 23, 2, 4
+    slots = 2 * n
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    cols = torch.randint(0, n, (slots,), dtype=torch.int32, device=dev, generator=gen)
+    pieces = ((slots // width, width),)
+    tables = cuda_bell.SegmentTables([pieces], dev)
+    ctrl = torch.tensor([1, 7, 0, 0], dtype=torch.int32, device=dev)
+    out = torch.empty((slots // width, w), dtype=torch.int32, device=dev)
+    out_ref = torch.empty_like(out)
+    weights = torch.bincount(cols.long(), minlength=n).to(torch.int32)
+    fmap = cuda_bell.frontier_map_scratch(n, dev, weights)
+    rows = []
+    for density in (0.001, 0.1, 0.5, 0.9):
+        frontier = _words(torch, n, w, density, gen, dev)
+        map_row = _map_row(torch, frontier, fmap, ctrl)
+        plan = cuda_bell.segment_plan(w, cuda_bell._rows_vec16(w, frontier, out), 0, n)
+        assert plan.instance == "gmap", plan
+
+        def seg_call(instance, frontier=frontier):
+            cuda_bell.forest_segment(frontier, n, cols, tables, 0, out, ctrl, fmap=fmap,
+                                     instance=instance)
+
+        def plain_call(frontier=frontier):
+            cuda_bell.forest_segment_plain(frontier, n, cols, pieces, out_ref, ctrl)
+
+        row = _segment_row(torch, seg_call, plain_call, out, out_ref, frontier, n, cols,
+                           slots, slots // width, w, True, True)
+        row.update(density=density, instance=plan.instance, variant=plan.label,
+                   frontier_rows=map_row["frontier_rows"], map=map_row, card=CARD)
+        print("compare synthetic n=2^23 W=2 forest_segment (level 0, density "
+              f"{density}): " + json.dumps(row))
+        assert row["max_abs_err"] == 0 and map_row["max_abs_err"] == 0, row
+        rows.append(row)
+    return rows
 
 
 def _streamed_phase(ctx, n, g, bg, info, seed):
@@ -1893,6 +2072,8 @@ def _streamed_phase(ctx, n, g, bg, info, seed):
     assert run[:2] == want, (run, want)
     counts = launches["streamed rmat-20"]
     assert "forest_or" not in counts and "push_or" not in counts, counts
+    assert any(k.startswith("forest_segment:") and k.endswith("/map")
+               for k in VARIANTS["streamed rmat-20"]), VARIANTS["streamed rmat-20"]
     spans = {"whole levels, prefetch 2": run[3]}
     for budget, prefetch in ((None, 1), (STREAMED_BUDGET, 1), (STREAMED_BUDGET, 2)):
         knobs = dict(MSBFS_BACKEND="streamed", MSBFS_STREAM_PREFETCH=str(prefetch))
@@ -1916,10 +2097,15 @@ def _streamed_phase(ctx, n, g, bg, info, seed):
     whole, cut = engines[(None, 2)], engines[(STREAMED_BUDGET, 2)]
     plain = streamed.StreamedBitBellEngine(host, dev, plain=True)
     # The BFS a level at a time: the kernel pass against the plain pass
-    # (the segment outputs and the hits) on every real level, at both cuts.
+    # (the segment outputs and the hits) on every real level, at both cuts;
+    # then each launch of the level's pass held and timed (the map
+    # pre-pass, every segment beside nomap, the gather beside
+    # index_select), one "compare ... forest_segment (level i, ...)" row
+    # a level and cut, the segments themselves in a detail file.
     carry = whole._init_carry(whole._pad_queries(padded)[0])
     w = carry.frontier.shape[1]
-    levels, densest = [], None
+    cuts = (("whole levels", whole), (f"{STREAMED_BUDGET}-slot segments", cut))
+    levels, densest, per_level, detail = [], None, {name: [] for name, _ in cuts}, []
     while carry.ctrl[:2].tolist()[0]:
         frontier = carry.frontier.clone()
         rows = int((frontier != 0).any(dim=1).sum())
@@ -1936,21 +2122,33 @@ def _streamed_phase(ctx, n, g, bg, info, seed):
                                    (cut._scratch[w][: cut.total_rows], scratch)])
         levels.append(dict(level=len(levels), frontier_rows=rows, max_abs_err=err))
         assert err == 0, levels[-1]
-        if densest is None or rows > densest[1]:
-            densest = (frontier, rows)
+        for name, eng in cuts:
+            map_row, segs, gather, h = _segment_level(torch, eng, frontier, eng is whole)
+            assert torch.equal(h, hits["plain"]), (len(levels), name)
+            summary = _level_summary(map_row, segs, gather, rows)
+            print(f"compare rmat-20 K=64 forest_segment (level {len(levels) - 1}, {name}): "
+                  + json.dumps(summary))
+            assert summary["max_abs_err"] == 0, summary
+            per_level[name].append(summary)
+            detail.append(dict(level=len(levels) - 1, cut=name, map=map_row, segments=segs,
+                               gather=gather))
+            if eng is whole and (densest is None or rows > densest[1]):
+                densest = (frontier, rows, map_row, segs, gather)
         bitbell.bit_level_apply(carry, hits["whole"])
     assert len(levels) >= 3, levels
     frontier = densest[0]
-    segs, gather = _segment_rows(torch, whole, frontier, plain)
-    cut_segs, _ = _segment_rows(torch, cut, frontier, plain)
     k1 = _forest_row(torch, bg, frontier)
     level0 = max(whole._slices[0].numel(), 1)
     rate = _h2d_bytes_per_s(torch, whole._slices[0], dev)
     upload = 4 * whole.slots_total
     passes = {f"{'whole levels' if b is None else f'{b}-slot segments'}, prefetch {p}":
               _pass_ms(torch, eng, frontier) for (b, p), eng in engines.items()}
-    kernel_ms = dict(whole=sum(r["ms"] for r in segs) + gather["ms"],
-                     cut=sum(r["ms"] for r in cut_segs) + gather["ms"])
+    over_bfs = {name: dict(
+        ms=sum(r["ms"] for r in rows_), nomap_ms=sum(r["nomap_ms"] for r in rows_),
+        gather_ms=sum(r["gather_ms"] for r in rows_),
+        gather_library_ms=sum(r["gather_library_ms"] for r in rows_),
+        slowest_level_vs_nomap=max(r["ms"] / r["nomap_ms"] for r in rows_),
+    ) for name, rows_ in per_level.items()}
     print("streamed rmat-20 K=64: " + json.dumps(dict(
         winner=run[0] + 1, min_f=run[1], all_f_equal_bitbell=True,
         scipy_f=info["want"][winner], preprocessing_s=run[2], computation_s=spans,
@@ -1958,16 +2156,12 @@ def _streamed_phase(ctx, n, g, bg, info, seed):
         pinned_h2d_gb_per_s=rate / 1e9, h2d_bytes_timed=4 * level0,
         upload_bytes_per_level=upload, transfer_bound_ms=upload / rate * 1e3,
         segments=dict(whole=len(whole._segments), cut=len(cut._segments)),
-        level_pass_ms=passes, kernels_ms_per_pass=kernel_ms,
+        level_pass_ms=passes, segment_kernels_over_the_bfs=over_bfs,
         forest_or_ms_same_level=k1["ms"], forest_or_bound_ms=k1["bound_ms"],
-        card=CARD,
+        detail=_write_detail("streamed_rmat20_segments", detail), card=CARD,
     )))
-    for name, rows in (("whole levels", segs), (f"{STREAMED_BUDGET}-slot segments", cut_segs)):
-        for row in rows:
-            print(f"compare rmat-20 K=64 forest_segment ({name}): " + json.dumps(row))
-            assert row["max_abs_err"] == 0, row
-    print("compare rmat-20 K=64 forest_gather: " + json.dumps(gather))
-    del engines, whole, cut, plain, carry, frontier, densest, hits, host
+    synthetic = _synthetic_gmap(torch, dev, seed + 21)
+    del engines, whole, cut, plain, carry, frontier, hits, host
     torch.cuda.empty_cache()
 
     # -- 9b. the ladder by injected faults: one, two and three rungs.
@@ -2042,7 +2236,9 @@ def _streamed_phase(ctx, n, g, bg, info, seed):
     print("stats=2 rmat-20:\n" + text[text.index("dispatch_count"):text.index("query  levels")]
           + json.dumps(dict(groups_equal_scipy=len(info["groups"]),
                             levels=trace.count("\n") - 1, computation_s=r[3])))
-    return {"forest_segment": segs[0], "forest_gather": gather}
+    _, _, map_row, segs, gather = densest
+    del synthetic
+    return {"forest_map": map_row, "forest_segment": segs[0], "forest_gather": gather}
 
 
 # The child of phase 9c: run the default route and the streamed rung once
@@ -2630,6 +2826,7 @@ def main() -> int:
         "pack_sources": "ops/bitbell.py:93, {JAX_PKG}/ops/lowk.py:66",
         "flag_pull": "ops/bell.py:144, {JAX_PKG}/ops/lowk.py:126",
         "push_or:bytes": "ops/lowk.py:87",
+        "forest_map": "ops/streamed.py:117",
         "forest_segment": "ops/streamed.py:117, {JAX_PKG}/ops/streamed.py:139",
         "forest_gather": "ops/streamed.py:146",
     }

@@ -53,23 +53,64 @@
 // Every launch is gated on the device control: it returns at once unless
 // the level may run and ctrl[3] is the pull direction.
 //
-// K1's segment form (msbfs_forest_segment, msbfs_forest_gather) replaces
-// the XLA chain of the host-streamed engine, the JAX package's
-// ops/streamed.py:117 _segment_fold / :139 _segment_or / :146
-// _final_hits: there the forest never enters device memory, and each BFS
-// level streams its cols through a small ring of device buffers, one slot
-// segment (a run of whole bucket rows, at most the slot budget) at a time.
-// msbfs_forest_segment runs the same level kernel over one segment — the
-// cols pointer of the buffer just uploaded, a per-segment bucket table
-// (offsets relative to the segment, output rows relative to its first
-// row) and the segment's first output row in the scratch — and
+// K1's segment form (msbfs_forest_map, msbfs_forest_segment,
+// msbfs_forest_gather) replaces the XLA chain of the host-streamed engine,
+// the JAX package's ops/streamed.py:117 _segment_fold / :139 _segment_or /
+// :146 _final_hits: there the forest never enters device memory, and each
+// BFS level streams its cols through a small ring of device buffers, one
+// slot segment (a run of whole bucket rows, at most the slot budget) at a
+// time.  msbfs_forest_segment runs the level kernel over one segment (the
+// cols of the buffer just uploaded, a per-segment bucket table with
+// offsets relative to the segment and output rows relative to its first
+// row, the segment's first output row in the scratch), and
 // msbfs_forest_gather is the final take by final_slot as its own launch.
-// Bound: the same bytes as the whole-forest form (cols, the previous
-// level's rows, the outputs), plus what the pipeline cannot hide: every
-// BFS level uploads the whole forest over PCIe, so the streamed level is
-// transfer-bound, not bound by this kernel.  A simple port: the level
-// body is K1's own; a shared-memory frontier or live-row bits (as in
-// flag_pull.cu) wait for a later pass.
+//
+// The streamed engine has no push: every BFS level is a forest pull, the
+// thinnest included (its first level's frontier is only the sources).  So
+// the segment form does not keep K1's rule that every slot reads its
+// source row.  Bound: bytes — the segment's cols (4 bytes a slot), the
+// 32-byte sectors of the slots whose source row is nonzero (each such row
+// read once at the least), the frontier map, and the output rows written;
+// on a thin level the cols alone.  The instances, picked on the host by
+// ops/cuda_bell.py segment_plan (a pure function of n, the forest level
+// and the alignment; never after a failure):
+//   - ``map`` (forest level 0, n up to 1,802,240): msbfs_forest_map, one
+//     launch a BFS level for all of level 0's segments, writes the union
+//     frontier as a bitmap (bit b: some word of a frontier row v with
+//     v >> shift == b is nonzero) and sums on the device the nonzero rows
+//     and their weight, the level-0 slots that name them (a per-vertex
+//     count the engine builds once).  Each block of a segment launch copies
+//     the map into shared memory; a slot whose bit is 0 costs a
+//     shared-memory lookup and no L2 sector, and a 32-slot chunk that
+//     reads no source row skips its shuffles and writes zero rows.  A set
+//     bit only means "read the row", so a bit may cover two vertices
+//     (shift 1) and stay exact.  The host takes the finest resolution at
+//     which two blocks fit an SM (228 KB): at n = 2^20 a bit per two
+//     vertices, 64 KB, so two 1024-thread blocks an SM hold the occupancy
+//     of ``nomap`` (one 128 KB block an SM, as flag_pull.cu's map takes,
+//     held 32 warps an SM: its dense walk ran 2-8 % behind ``nomap``).
+//     The grid is persistent (one block a resident slot, each walking
+//     many runs): the copy is paid once a block, not once a run.
+//   - ``gmap`` (forest level 0, n above that): the same walk with the map
+//     read from device memory through L2.  At n = 2^25 it is 4 MB and
+//     stays in L2, where the frontier plane (268 MB at W = 2) cannot.
+//   - ``nomap``: K1's body, every slot reads its row.  The instance for
+//     forest levels >= 1, whose previous rows are the level-0 output,
+//     already in L2.
+// Dense frontiers stay as fast as without the map: every map launch reads
+// the pre-pass's weight first and, above the host's ``dense_slots`` (a
+// share of all level-0 slots, measured: PERF.md), reads every slot's row
+// without the map and without copying it (a block-uniform branch; no host
+// read).  The weight, not the count of rows, decides: on RMAT-20 a level
+// with 59 % of its rows nonzero names them from 99.9 % of the slots, the
+// next level with 61 % from 60 %.
+// The gather: a warp takes four runs of 32 consecutive vertices, a lane
+// one vertex of each, so the slot loads and the row stores coalesce and
+// rows that neighbouring vertices share a sector with are read once a
+// load instruction; all four row loads are in flight before the first
+// store; a vertex whose slot is the zero row (an isolated vertex) is
+// written 0 without reading it.  Bound: final_slot read and hits written
+// once, plus the gathered rows; its random row sectors run at L2's rate.
 #include "msbfs_common.cuh"
 
 namespace {
@@ -78,13 +119,44 @@ constexpr int kMaxBuckets = 64;
 constexpr int kTab = 6;   // off, rows, width, row_base, first run, rows per chunk
 constexpr int kMeta = 6;  // cols ptr, prev rows, out row offset, bucket
                           // begin, bucket count, runs
-constexpr int kWarps = msbfs::kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kPass = 8;  // words a pass of the generic width
+
+// The frontier map a level launch reads: none, staged in shared memory,
+// or read from device memory (msbfs_forest_segment's ``map``).
+constexpr int kNoMap = 0;
+constexpr int kSharedMap = 1;
+constexpr int kGlobalMap = 2;
+// The map pre-pass's device counters (64-bit): its running sums and
+// finished blocks (zero between launches), and what it published: the
+// frontier's nonzero rows and their weight (the level-0 slots naming them).
+constexpr int kAccRows = 0;
+constexpr int kAccSlots = 1;
+constexpr int kDone = 2;
+constexpr int kRows = 3;
+constexpr int kSlots = 4;
+// Map words a warp of the pre-pass reads at once, and its blocks an SM.
+constexpr int kMapUnroll = 8;
+constexpr int kPrepassBlocksPerSm = 4;
+// Vertices a thread of the final gather takes (a warp: 32 consecutive
+// vertices each time).
+constexpr int kGatherVertices = 4;
 
 // Chunks of 32 slots a warp has in flight, for rows read ``words`` words
 // at a time: fewer at 8.
 __host__ __device__ constexpr int run_chunks(int words) { return words >= 8 ? 2 : 4; }
+
+// Threads a block of a level launch, and its blocks an SM: the
+// shared-map instance holds kMapBlocksPerSm blocks an SM (the host sizes
+// the map to fit them), so its blocks are large: at one or two words a row
+// two 1024-thread blocks, 32 registers a thread, the occupancy of kNoMap.
+constexpr int kMapBlocksPerSm = 2;
+__host__ __device__ constexpr int level_threads(int w, int map) {
+  return map != kSharedMap ? msbfs::kThreads : (w == 1 || w == 2 ? 1024 : 512);
+}
+__host__ __device__ constexpr int level_blocks(int map) {
+  return map == kSharedMap ? kMapBlocksPerSm : 1;
+}
 
 // P words at p through L2 only: one vector load where the row is 8 or 16
 // bytes wide and the plane 16-byte aligned.
@@ -153,20 +225,136 @@ __device__ __forceinline__ void store_row(uint32_t* __restrict__ out,
   }
 }
 
-// One forest level: runs of the buckets in table[0 .. nb), runs in all.
-template <int W, bool kVec>
+// The frontier map: bit b of word b / 32 is set iff some word of a
+// frontier row v with v >> kShift == b is nonzero (bits past n are 0), a
+// warp kMapUnroll map words at a time; and two sums, the nonzero rows and
+// their weights (weights[v]: the level-0 slots naming v).  The last block
+// to finish publishes both and clears the running sums for the next
+// launch.
+template <int W, bool kVec, int kShift>
 __global__ void __launch_bounds__(msbfs::kThreads)
+forest_map_kernel(const uint32_t* __restrict__ frontier, long long n, int w_rt,
+                  uint32_t* __restrict__ fmap, long long map_words,
+                  const int* __restrict__ weights,
+                  unsigned long long* __restrict__ counts,
+                  const int* __restrict__ ctrl, int max_levels) {
+  if (!msbfs::direction_go(ctrl, max_levels, msbfs::kDirPull)) return;
+  __shared__ unsigned long long s_sum[2];
+  if (threadIdx.x < 2) s_sum[threadIdx.x] = 0;
+  __syncthreads();
+  constexpr int P = W ? W : kPass;
+  constexpr int U = kMapUnroll;
+  constexpr int R = 1 << kShift;  // rows a bit
+  const int Wd = W ? W : w_rt;
+  const int lane = threadIdx.x & 31;
+  const long long warps = static_cast<long long>(gridDim.x) * (blockDim.x >> 5);
+  unsigned long long rows = 0, slots = 0;
+  for (long long u0 = (blockIdx.x * static_cast<long long>(blockDim.x >> 5) + (threadIdx.x >> 5)) * U;
+       u0 < map_words; u0 += warps * U) {
+    bool on[U][R];
+    int weight[U][R];
+#pragma unroll
+    for (int k = 0; k < U; ++k) {
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        const long long v = (((u0 + k) * 32 + lane) << kShift) + j;
+        on[k][j] = false;
+        weight[k][j] = 0;
+        if (v < n) {
+          weight[k][j] = __ldg(weights + v);
+          for (int w0 = 0; w0 < Wd && !on[k][j]; w0 += P) {
+            uint32_t x[P];
+            load_row<W, kVec, P>(x, frontier, static_cast<int>(v), Wd, w0, min(P, Wd - w0));
+#pragma unroll
+            for (int i = 0; i < P; ++i) on[k][j] |= x[i] != 0u;
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < U; ++k) {
+      bool any = false;
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        any |= on[k][j];
+        if (on[k][j]) {
+          rows += 1;
+          slots += weight[k][j];
+        }
+      }
+      const unsigned word = __ballot_sync(kFull, any);
+      if (lane == 0 && u0 + k < map_words) fmap[u0 + k] = word;
+    }
+  }
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) {
+    rows += __shfl_xor_sync(kFull, rows, d);
+    slots += __shfl_xor_sync(kFull, slots, d);
+  }
+  if (lane == 0 && (rows | slots)) {
+    atomicAdd(s_sum, rows);
+    atomicAdd(s_sum + 1, slots);
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    if (s_sum[0]) atomicAdd(counts + kAccRows, s_sum[0]);
+    if (s_sum[1]) atomicAdd(counts + kAccSlots, s_sum[1]);
+    __threadfence();
+    if (atomicAdd(counts + kDone, 1ull) == gridDim.x - 1ull) {
+      counts[kRows] = atomicExch(counts + kAccRows, 0ull);
+      counts[kSlots] = atomicExch(counts + kAccSlots, 0ull);
+      counts[kDone] = 0;
+    }
+  }
+}
+
+// One forest level: runs of the buckets in table[0 .. nb), runs in all.
+// kMap != kNoMap (forest level 0 of the segment form): while the map
+// launch's weight of nonzero rows (the slots naming them) is at most
+// dense_slots, a slot whose map bit is 0 reads no row, and a chunk that
+// read none skips its shuffles; above it the walk reads every slot's row
+// as kNoMap does (a block-uniform branch).  Bit b of the map covers the
+// sources c with c >> shift == b.
+template <int W, bool kVec, int kMap>
+__global__ void __launch_bounds__(level_threads(W, kMap), level_blocks(kMap))
 forest_level_kernel(const uint32_t* __restrict__ prev, int prev_rows,
                     const int* __restrict__ cols,
                     const long long* __restrict__ table, int nb,
                     uint32_t* __restrict__ out, int w_rt, long long runs,
+                    const uint32_t* __restrict__ fmap, int map_words, int shift,
+                    const unsigned long long* __restrict__ counts,
+                    long long dense_slots,
                     const int* __restrict__ ctrl, int max_levels) {
   if (!msbfs::direction_go(ctrl, max_levels, msbfs::kDirPull)) return;
   __shared__ long long s_tab[kMaxBuckets * kTab];
+  extern __shared__ uint4 s_map4[];
+  bool use_map = false;
+  if constexpr (kMap != kNoMap) {
+    use_map = static_cast<long long>(__ldcg(counts + kSlots)) <= dense_slots;
+  }
   for (int i = threadIdx.x; i < nb * kTab; i += blockDim.x) s_tab[i] = table[i];
+  if constexpr (kMap == kSharedMap) {
+    if (use_map) {
+      const uint4* src = reinterpret_cast<const uint4*>(fmap);
+      for (int i = threadIdx.x; i < map_words / 4; i += blockDim.x) s_map4[i] = __ldcg(src + i);
+    }
+  }
   __syncthreads();
+  const uint32_t* const s_map = reinterpret_cast<const uint32_t*>(s_map4);
+  // A slot's source, or prev_rows (the zero row) where the map says the
+  // source row is zero.
+  auto source = [&](int c) {
+    const int bit = c >> shift;
+    if constexpr (kMap == kSharedMap) {
+      if (c < prev_rows && !((s_map[bit >> 5] >> (bit & 31)) & 1u)) return prev_rows;
+    } else if constexpr (kMap == kGlobalMap) {
+      if (c < prev_rows && !((__ldg(fmap + (bit >> 5)) >> (bit & 31)) & 1u)) return prev_rows;
+    }
+    return c;
+  };
   constexpr int P = W ? W : kPass;
   constexpr int S = run_chunks(P);
+  constexpr int kWarps = level_threads(W, kMap) / 32;
   const int Wd = W ? W : w_rt;
   const int lane = threadIdx.x & 31;
   const long long warps = static_cast<long long>(gridDim.x) * kWarps;
@@ -199,6 +387,18 @@ forest_level_kernel(const uint32_t* __restrict__ prev, int prev_rows,
         c[s] = in_chunk && first + lrow < rows
                    ? __ldcg(rc + first * width + lane) : prev_rows;
       }
+      // Bit s: some lane of chunk s has a source row to read.
+      uint32_t gathered = (1u << S) - 1;
+      if constexpr (kMap != kNoMap) {
+        if (use_map) {
+          gathered = 0;
+#pragma unroll
+          for (int s = 0; s < S; ++s) {
+            c[s] = source(c[s]);
+            if (__any_sync(kFull, c[s] < prev_rows)) gathered |= 1u << s;
+          }
+        }
+      }
       for (int w0 = 0; w0 < Wd; w0 += P) {
         const int nw = min(P, Wd - w0);
         uint32_t x[S][P];
@@ -214,8 +414,9 @@ forest_level_kernel(const uint32_t* __restrict__ prev, int prev_rows,
 #pragma unroll
         for (int s = 0; s < S; ++s) {
           // Segmented OR toward each row's first lane: after the step of
-          // distance d a lane holds its row's slots [lpos, lpos + 2d).
-          for (int d = 1; d < width; d <<= 1) {
+          // distance d a lane holds its row's slots [lpos, lpos + 2d).  A
+          // chunk that read no source row is zero already.
+          for (int d = 1; (gathered >> s) & 1u && d < width; d <<= 1) {
 #pragma unroll
             for (int i = 0; i < P; ++i) {
               const uint32_t y = __shfl_down_sync(kFull, x[s][i], d);
@@ -242,6 +443,7 @@ forest_level_kernel(const uint32_t* __restrict__ prev, int prev_rows,
           for (int s = 0; s < S; ++s) {
             const int j = j0 + s * 32 + lane;
             c[s] = j < width ? __ldcg(rc + j) : prev_rows;
+            if (use_map) c[s] = source(c[s]);
           }
 #pragma unroll
           for (int s = 0; s < S; ++s) {
@@ -264,26 +466,161 @@ forest_level_kernel(const uint32_t* __restrict__ prev, int prev_rows,
   }
 }
 
-// hits[v] = v_cat[final_slot[v]], a vertex a thread, its row as vectors.
+// hits[v] = v_cat[final_slot[v]]; 0 without a read where the slot is the
+// zero row.  A warp takes kGatherVertices runs of 32 consecutive
+// vertices, a lane one vertex of each: its slot loads coalesce, the rows
+// of neighbouring vertices (often neighbouring rows: a bucket's rows are
+// in vertex order) share sectors within one load instruction, every row
+// load is in flight before the first store, and the stores coalesce.
 template <int W, bool kVec>
 __global__ void __launch_bounds__(msbfs::kThreads)
 forest_gather_kernel(const uint32_t* __restrict__ v_cat,
                      const int* __restrict__ final_slot,
-                     uint32_t* __restrict__ hits, long long n, int w_rt,
+                     uint32_t* __restrict__ hits, long long n,
+                     long long zero_row, int w_rt,
                      const int* __restrict__ ctrl, int max_levels) {
   if (!msbfs::direction_go(ctrl, max_levels, msbfs::kDirPull)) return;
+  constexpr int V = kGatherVertices;
+  constexpr int P = W ? W : 1;
   const int Wd = W ? W : w_rt;
-  for (long long v = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-       v < n; v += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const long long slot = __ldg(final_slot + v);
+  const int lane = threadIdx.x & 31;
+  const long long warps = static_cast<long long>(gridDim.x) * (blockDim.x >> 5);
+  for (long long base = (blockIdx.x * static_cast<long long>(blockDim.x >> 5) + (threadIdx.x >> 5)) * V * 32;
+       base < n; base += warps * V * 32) {
+    long long slot[V];
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      const long long v = base + i * 32 + lane;
+      slot[i] = v < n ? __ldcs(final_slot + v) : zero_row;
+    }
     if constexpr (W != 0) {
-      uint32_t x[W];
-      ldcg_words<W, kVec>(x, v_cat + slot * W);
-      store_words<W, kVec>(hits + v * W, x);
+      uint32_t x[V][P];
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        if (slot[i] != zero_row) {
+          ldcg_words<W, kVec>(x[i], v_cat + slot[i] * W);
+        } else {
+#pragma unroll
+          for (int j = 0; j < P; ++j) x[i][j] = 0u;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        const long long v = base + i * 32 + lane;
+        if (v < n) store_words<W, kVec>(hits + v * W, x[i]);
+      }
     } else {
-      for (int w = 0; w < Wd; ++w) hits[v * Wd + w] = __ldcg(v_cat + slot * Wd + w);
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        const long long v = base + i * 32 + lane;
+        if (v >= n) continue;
+        for (int w = 0; w < Wd; ++w) {
+          hits[v * Wd + w] = slot[i] == zero_row ? 0u : __ldcg(v_cat + slot[i] * Wd + w);
+        }
+      }
     }
   }
+}
+
+// One level launch: the level kernel over ``runs`` runs of table[0 .. nb).
+struct Level {
+  const uint32_t* prev;
+  int prev_rows;
+  const int* cols;
+  const long long* table;
+  int nb;
+  uint32_t* out;
+  int W;
+  long long runs;
+  int map;
+  const uint32_t* fmap;
+  int map_words;
+  int shift;
+  const unsigned long long* counts;
+  long long dense_slots;
+  const int* ctrl;
+  int max_levels;
+  int device;
+  cudaStream_t stream;
+};
+
+// Per-device launch settings of one shared-map instance.
+struct MapLaunch {
+  int allowed[msbfs::kMaxDevices] = {};
+  int blocks_per_sm[msbfs::kMaxDevices] = {};
+  int blocks_smem[msbfs::kMaxDevices] = {};
+};
+
+template <int W, bool kVec, int kMap>
+cudaError_t launch_level(const Level& a) {
+  constexpr int kT = level_threads(W, kMap);
+  int grid = msbfs::grid_for(a.runs * 32, kT);
+  int smem = 0;
+  if constexpr (kMap == kSharedMap) {
+    static MapLaunch cfg;
+    smem = a.map_words * 4;
+    cudaError_t err = msbfs::allow_smem(forest_level_kernel<W, kVec, kMap>, smem,
+                                        cfg.allowed, a.device);
+    if (err != cudaSuccess) return err;
+    int occ = 0, sms = 0;
+    const bool cached = a.device >= 0 && a.device < msbfs::kMaxDevices;
+    if (cached && cfg.blocks_smem[a.device] == smem && cfg.blocks_per_sm[a.device] > 0) {
+      occ = cfg.blocks_per_sm[a.device];
+    } else {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &occ, forest_level_kernel<W, kVec, kMap>, kT, smem);
+      if (err != cudaSuccess) return err;
+      if (occ < 1) return cudaErrorInvalidConfiguration;
+      if (cached) {
+        cfg.blocks_per_sm[a.device] = occ;
+        cfg.blocks_smem[a.device] = smem;
+      }
+    }
+    err = msbfs::sm_count(a.device, &sms);
+    if (err != cudaSuccess) return err;
+    // Persistent blocks: as many as are resident, at most a warp a run.
+    const long long resident = static_cast<long long>(sms) * occ;
+    const long long wanted = (a.runs + kT / 32 - 1) / (kT / 32);
+    grid = static_cast<int>(resident < wanted ? resident : wanted);
+    if (grid < 1) grid = 1;
+  }
+  forest_level_kernel<W, kVec, kMap><<<grid, kT, smem, a.stream>>>(
+      a.prev, a.prev_rows, a.cols, a.table, a.nb, a.out, a.W, a.runs, a.fmap,
+      a.map_words, a.shift, a.counts, a.dense_slots, a.ctrl, a.max_levels);
+  return cudaGetLastError();
+}
+
+template <int W, bool kVec>
+cudaError_t launch_segment(const Level& a) {
+  switch (a.map) {
+    case kSharedMap: return launch_level<W, kVec, kSharedMap>(a);
+    case kGlobalMap: return launch_level<W, kVec, kGlobalMap>(a);
+    default: return launch_level<W, kVec, kNoMap>(a);
+  }
+}
+
+// The gather at the plane width W; vec16: v_cat and hits are aligned to a
+// row's vector (8 bytes at two words, 16 at four or eight).
+inline cudaError_t gather(const uint32_t* v_cat, const int* final_slot, uint32_t* hits,
+                          long long n, long long zero_row, int W, bool vec16,
+                          const int* ctrl, int max_levels, cudaStream_t s) {
+  const int grid = msbfs::grid_for((n + kGatherVertices - 1) / kGatherVertices,
+                                   msbfs::kThreads);
+#define MSBFS_GATHER(WW, VEC)                                                 \
+  forest_gather_kernel<WW, VEC><<<grid, msbfs::kThreads, 0, s>>>(             \
+      v_cat, final_slot, hits, n, zero_row, W, ctrl, max_levels)
+  switch (vec16 ? W : -W) {
+    case 2: MSBFS_GATHER(2, true); break;
+    case 4: MSBFS_GATHER(4, true); break;
+    case 8: MSBFS_GATHER(8, true); break;
+    case 1: case -1: MSBFS_GATHER(1, false); break;
+    case -2: MSBFS_GATHER(2, false); break;
+    case -4: MSBFS_GATHER(4, false); break;
+    case -8: MSBFS_GATHER(8, false); break;
+    default: MSBFS_GATHER(0, false); break;
+  }
+#undef MSBFS_GATHER
+  return cudaGetLastError();
 }
 
 struct Args {
@@ -295,36 +632,39 @@ struct Args {
   const int* final_slot;
   uint32_t* hits;
   long long n;
+  long long total_rows;
   int W;
+  bool vec16;
   const int* ctrl;
   int max_levels;
+  int device;
   cudaStream_t stream;
 };
 
 template <int W, bool kVec>
-cudaError_t launch_level(const Args& a, int li) {
-  const long long* m = a.meta + li * kMeta;
-  const uint32_t* prev =
-      li == 0 ? a.frontier : a.v_cat + a.meta[(li - 1) * kMeta + 2] * a.W;
-  forest_level_kernel<W, kVec>
-      <<<msbfs::grid_for(m[5] * 32, msbfs::kThreads), msbfs::kThreads, 0, a.stream>>>(
-          prev, static_cast<int>(m[1]), reinterpret_cast<const int*>(m[0]),
-          a.table + m[3] * kTab, static_cast<int>(m[4]), a.v_cat + m[2] * a.W, a.W,
-          m[5], a.ctrl, a.max_levels);
-  return cudaGetLastError();
-}
-
-template <int W, bool kVec>
 cudaError_t run(const Args& a) {
   for (int li = 0; li < a.levels; ++li) {
-    if (a.meta[li * kMeta + 5] == 0) continue;  // a level without rows
-    const cudaError_t err = launch_level<W, kVec>(a, li);
+    const long long* m = a.meta + li * kMeta;
+    if (m[5] == 0) continue;  // a level without rows
+    Level l{};
+    l.prev = li == 0 ? a.frontier : a.v_cat + a.meta[(li - 1) * kMeta + 2] * a.W;
+    l.prev_rows = static_cast<int>(m[1]);
+    l.cols = reinterpret_cast<const int*>(m[0]);
+    l.table = a.table + m[3] * kTab;
+    l.nb = static_cast<int>(m[4]);
+    l.out = a.v_cat + m[2] * a.W;
+    l.W = a.W;
+    l.runs = m[5];
+    l.map = kNoMap;
+    l.ctrl = a.ctrl;
+    l.max_levels = a.max_levels;
+    l.device = a.device;
+    l.stream = a.stream;
+    const cudaError_t err = launch_level<W, kVec, kNoMap>(l);
     if (err != cudaSuccess) return err;
   }
-  forest_gather_kernel<W, kVec>
-      <<<msbfs::grid_for(a.n, msbfs::kThreads), msbfs::kThreads, 0, a.stream>>>(
-          a.v_cat, a.final_slot, a.hits, a.n, a.W, a.ctrl, a.max_levels);
-  return cudaGetLastError();
+  return gather(a.v_cat, a.final_slot, a.hits, a.n, a.total_rows, a.W, a.vec16,
+                a.ctrl, a.max_levels, a.stream);
 }
 
 template <bool kVec>
@@ -340,82 +680,132 @@ cudaError_t dispatch(const Args& a) {
 
 }  // namespace
 
+// The frontier map of forest level 0 (n, W) planes -> fmap (map_words
+// uint32, a multiple of 4 and at least ceil(n / 2^shift / 32); bit b: a
+// frontier row v with v >> shift == b is nonzero; shift 0 or 1) and counts
+// (5 uint64 on the device, zero when allocated; counts[3] the nonzero
+// rows, counts[4] their weights' sum).  weights: n int32 (the level-0
+// slots naming each vertex).  vec16: the frontier is 16-byte aligned.
+extern "C" int msbfs_forest_map(int device, const void* frontier, long long n,
+                                int W, int vec16, void* fmap, int map_words,
+                                int shift, const void* weights, void* counts,
+                                const void* ctrl, int max_levels, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (W < 1 || n < 0 || n >= (1LL << 31) || map_words % 4 || shift < 0 || shift > 1 ||
+      (static_cast<long long>(map_words) * 32 << shift) < n || weights == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int sms = 0;
+  err = msbfs::sm_count(device, &sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const auto* f = static_cast<const uint32_t*>(frontier);
+  auto* m = static_cast<uint32_t*>(fmap);
+  const auto* wt = static_cast<const int*>(weights);
+  auto* c = static_cast<unsigned long long*>(counts);
+  const auto* g = static_cast<const int*>(ctrl);
+  // Few blocks, each warp kMapUnroll words at a time: the last-block
+  // count takes one atomic a block.
+  int grid = msbfs::grid_for(static_cast<long long>(map_words) * 32 / kMapUnroll,
+                             msbfs::kThreads);
+  if (grid > sms * kPrepassBlocksPerSm) grid = sms * kPrepassBlocksPerSm;
+  const auto s = static_cast<cudaStream_t>(stream);
+#define MSBFS_MAP(WW, VEC)                                                    \
+  (shift ? forest_map_kernel<WW, VEC, 1><<<grid, msbfs::kThreads, 0, s>>>(    \
+               f, n, W, m, map_words, wt, c, g, max_levels)                   \
+         : forest_map_kernel<WW, VEC, 0><<<grid, msbfs::kThreads, 0, s>>>(    \
+               f, n, W, m, map_words, wt, c, g, max_levels))
+  switch (vec16 ? W : -W) {
+    case 2: MSBFS_MAP(2, true); break;
+    case 4: MSBFS_MAP(4, true); break;
+    case 8: MSBFS_MAP(8, true); break;
+    case 1: case -1: MSBFS_MAP(1, false); break;
+    case -2: MSBFS_MAP(2, false); break;
+    case -4: MSBFS_MAP(4, false); break;
+    case -8: MSBFS_MAP(8, false); break;
+    default: MSBFS_MAP(0, false); break;
+  }
+#undef MSBFS_MAP
+  return static_cast<int>(cudaGetLastError());
+}
+
 // One streamed segment: the level kernel over ``runs`` runs of the
 // segment's ``buckets`` bucket pieces (table: (buckets, kTab) int64 on the
 // device, slot offsets relative to ``cols``, first rows relative to
 // ``out``).  prev: the previous level's (prev_rows, W) value rows (the
 // frontier at forest level 0); a slot equal to prev_rows reads zero.
+// map: 0 none, 1 the map in shared memory, 2 read from device memory —
+// then fmap (map_words, its bits at ``shift``) and counts are
+// msbfs_forest_map's outputs for prev, and the map is read while
+// counts[4] <= dense_slots.
 extern "C" int msbfs_forest_segment(int device, const void* prev,
                                     long long prev_rows, const void* cols,
                                     const void* table, int buckets,
                                     long long runs, void* out, int W,
-                                    int chunks, int vec16, const void* ctrl,
-                                    int max_levels, void* stream) {
+                                    int chunks, int vec16, int map,
+                                    const void* fmap, int map_words, int shift,
+                                    const void* counts, long long dense_slots,
+                                    const void* ctrl, int max_levels, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int P = W == 1 || W == 2 || W == 4 || W == 8 ? W : kPass;
   if (W < 1 || prev_rows < 0 || prev_rows >= (1LL << 31) || buckets < 1 ||
-      buckets > kMaxBuckets || runs < 1 || chunks != run_chunks(P)) {
+      buckets > kMaxBuckets || runs < 1 || map < kNoMap || map > kGlobalMap ||
+      chunks != run_chunks(P) ||
+      (map != kNoMap && (fmap == nullptr || counts == nullptr || map_words % 4 ||
+                         shift < 0 || shift > 1 ||
+                         (static_cast<long long>(map_words) * 32 << shift) < prev_rows))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const auto* p = static_cast<const uint32_t*>(prev);
-  const auto* c = static_cast<const int*>(cols);
-  const auto* t = static_cast<const long long*>(table);
-  auto* o = static_cast<uint32_t*>(out);
-  const auto* g = static_cast<const int*>(ctrl);
-  const int grid = msbfs::grid_for(runs * 32, msbfs::kThreads);
-  const auto s = static_cast<cudaStream_t>(stream);
-  const int rows = static_cast<int>(prev_rows);
-#define MSBFS_SEGMENT(WW, VEC)                                                \
-  forest_level_kernel<WW, VEC><<<grid, msbfs::kThreads, 0, s>>>(              \
-      p, rows, c, t, buckets, o, W, runs, g, max_levels)
+  Level l{};
+  l.prev = static_cast<const uint32_t*>(prev);
+  l.prev_rows = static_cast<int>(prev_rows);
+  l.cols = static_cast<const int*>(cols);
+  l.table = static_cast<const long long*>(table);
+  l.nb = buckets;
+  l.out = static_cast<uint32_t*>(out);
+  l.W = W;
+  l.runs = runs;
+  l.map = map;
+  l.fmap = static_cast<const uint32_t*>(fmap);
+  l.map_words = map_words;
+  l.shift = shift;
+  l.counts = static_cast<const unsigned long long*>(counts);
+  l.dense_slots = dense_slots;
+  l.ctrl = static_cast<const int*>(ctrl);
+  l.max_levels = max_levels;
+  l.device = device;
+  l.stream = static_cast<cudaStream_t>(stream);
   switch (vec16 ? W : -W) {
-    case 2: MSBFS_SEGMENT(2, true); break;
-    case 4: MSBFS_SEGMENT(4, true); break;
-    case 8: MSBFS_SEGMENT(8, true); break;
-    case 1: case -1: MSBFS_SEGMENT(1, false); break;
-    case -2: MSBFS_SEGMENT(2, false); break;
-    case -4: MSBFS_SEGMENT(4, false); break;
-    case -8: MSBFS_SEGMENT(8, false); break;
-    default: MSBFS_SEGMENT(0, false); break;
+    case 2: err = launch_segment<2, true>(l); break;
+    case 4: err = launch_segment<4, true>(l); break;
+    case 8: err = launch_segment<8, true>(l); break;
+    case 1: case -1: err = launch_segment<1, false>(l); break;
+    case -2: err = launch_segment<2, false>(l); break;
+    case -4: err = launch_segment<4, false>(l); break;
+    case -8: err = launch_segment<8, false>(l); break;
+    default: err = launch_segment<0, false>(l); break;
   }
-#undef MSBFS_SEGMENT
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }
 
 // The final take of the segment form: hits[v] = v_cat[final_slot[v]] over
-// the (total_rows + 1, W) scratch of all forest levels, last row zero.
+// the (zero_row + 1, W) scratch of all forest levels, row zero_row zero
+// (never read).  vec16: v_cat and hits are aligned to a row's vector.
 extern "C" int msbfs_forest_gather(int device, const void* v_cat,
                                    const void* final_slot, void* hits,
-                                   long long n, int W, int vec16,
-                                   const void* ctrl, int max_levels,
+                                   long long n, long long zero_row, int W,
+                                   int vec16, const void* ctrl, int max_levels,
                                    void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (W < 1 || n < 1 || n >= (1LL << 31)) {
+  if (W < 1 || n < 1 || n >= (1LL << 31) || zero_row < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const auto* v = static_cast<const uint32_t*>(v_cat);
-  const auto* f = static_cast<const int*>(final_slot);
-  auto* h = static_cast<uint32_t*>(hits);
-  const auto* g = static_cast<const int*>(ctrl);
-  const int grid = msbfs::grid_for(n, msbfs::kThreads);
-  const auto s = static_cast<cudaStream_t>(stream);
-#define MSBFS_GATHER(WW, VEC)                                                 \
-  forest_gather_kernel<WW, VEC><<<grid, msbfs::kThreads, 0, s>>>(             \
-      v, f, h, n, W, g, max_levels)
-  switch (vec16 ? W : -W) {
-    case 2: MSBFS_GATHER(2, true); break;
-    case 4: MSBFS_GATHER(4, true); break;
-    case 8: MSBFS_GATHER(8, true); break;
-    case 1: case -1: MSBFS_GATHER(1, false); break;
-    case -2: MSBFS_GATHER(2, false); break;
-    case -4: MSBFS_GATHER(4, false); break;
-    case -8: MSBFS_GATHER(8, false); break;
-    default: MSBFS_GATHER(0, false); break;
-  }
-#undef MSBFS_GATHER
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(gather(
+      static_cast<const uint32_t*>(v_cat), static_cast<const int*>(final_slot),
+      static_cast<uint32_t*>(hits), n, zero_row, W, vec16 != 0,
+      static_cast<const int*>(ctrl), max_levels, static_cast<cudaStream_t>(stream)));
 }
 
 // table: (buckets, kTab) int64 over all levels; meta: kMeta int64 per
@@ -451,9 +841,12 @@ extern "C" int msbfs_forest_or(int device, const void* frontier,
   a.final_slot = static_cast<const int*>(final_slot);
   a.hits = static_cast<uint32_t*>(hits);
   a.n = n;
+  a.total_rows = total_rows;
   a.W = W;
+  a.vec16 = vec16 != 0;
   a.ctrl = static_cast<const int*>(ctrl);
   a.max_levels = max_levels;
+  a.device = device;
   a.stream = static_cast<cudaStream_t>(stream);
   err = vec16 ? dispatch<true>(a) : dispatch<false>(a);
   return static_cast<int>(err);

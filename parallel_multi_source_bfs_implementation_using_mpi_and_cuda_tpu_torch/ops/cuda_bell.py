@@ -6,11 +6,16 @@ forest level's gather and OR-fold, and the final ``final_slot`` gather,
 in ``csrc/forest_or.cu`` (one launch per forest level, then the gather).
 
 Its segment form, for the host-streamed engine (ops/streamed.py): the
-same level kernel over one uploaded slot segment
-(:func:`forest_segment`, with the per-segment bucket tables of
-:class:`SegmentTables`), and the final gather as a launch of its own
+level kernel over one uploaded slot segment (:func:`forest_segment`,
+with the per-segment bucket tables of :class:`SegmentTables`), at forest
+level 0 reading a frontier map built once a BFS level
+(:func:`frontier_map`: a bit a vertex, or per two, and the nonzero
+rows' weight, so that a slot whose source row is zero reads nothing
+while the frontier is thin; the instance by :func:`segment_plan`), and
+the final gather as a launch of its own
 (:func:`forest_final_gather`); their plain versions are
-:func:`.bell.segment_fold` and a take.
+:func:`.bell.segment_fold`, the packed ``(frontier != 0).any(1)`` and a
+take.
 
 :func:`forest_or` launches the kernel on CUDA tensors and runs
 :func:`forest_or_plain` (the plain torch forest of :mod:`.bell`) on CPU
@@ -45,6 +50,23 @@ MAX_KERNEL_BUCKETS = 64
 NARROW_WIDTH = 32
 # Words a pass of the kernel's generic width (csrc/forest_or.cu kPass).
 PASS_WORDS = 8
+# Shared memory one block may opt into on an H100 (227 KB), and what a
+# level kernel's bucket table takes of it (64 buckets of six int64).
+BLOCK_SMEM_BYTES = 232_448
+TABLE_BYTES = MAX_KERNEL_BUCKETS * 6 * 8
+# One SM's shared memory (228 KB), the runtime's share of each block, and
+# the blocks an SM the map instance holds (csrc/forest_or.cu
+# kMapBlocksPerSm): the map's resolution is chosen so that they fit.
+SM_SMEM_BYTES = 233_472
+BLOCK_RESERVED_BYTES = 1024
+MAP_BLOCKS_PER_SM = 2
+# A level-0 segment launch reads the frontier map while the nonzero rows'
+# weight (the level-0 slots naming them, summed by the map launch and
+# read on the device) is at most this share of all level-0 slots; above
+# it, it reads every slot's row (measured: PERF.md §6).
+MAP_DENSE_SHARE = 0.8
+# csrc/forest_or.cu's map modes, by segment_plan instance.
+MAP_MODES = {"nomap": 0, "map": 1, "gmap": 2}
 
 
 class ForestPlan(NamedTuple):
@@ -70,6 +92,53 @@ def forest_plan(w: int, vec16: bool = True) -> ForestPlan:
     w_instance = w if w in KERNEL_WIDTHS else 0
     words = w_instance or PASS_WORDS
     return ForestPlan(w_instance, bool(vec16) and w_instance > 1, 2 if words >= 8 else 4)
+
+
+def map_words(n: int) -> int:
+    """32-bit words of a frontier map: n bits in whole 16-byte units."""
+    return -(-n // 128) * 4
+
+
+def map_shift(n: int) -> Optional[int]:
+    """log2 of the vertices a bit of the shared-memory map covers: the
+    finest resolution (one or two vertices a bit) at which
+    MAP_BLOCKS_PER_SM blocks of the map instance fit an SM; None beyond
+    (n above 1,802,240: the ``gmap`` instance, one vertex a bit)."""
+    for shift in (0, 1):
+        block = TABLE_BYTES + 4 * map_words(-(-n >> shift)) + BLOCK_RESERVED_BYTES
+        if MAP_BLOCKS_PER_SM * block <= SM_SMEM_BYTES:
+            return shift
+    return None
+
+
+class SegmentPlan(NamedTuple):
+    """How a segment launch runs (:func:`segment_plan`)."""
+
+    forest: ForestPlan  # width instance, vector access, chunks (K1's)
+    instance: str  # "map", "gmap" or "nomap"
+
+    @property
+    def label(self) -> str:
+        """The variant tally's name: "W2/vec16/map", "Wn/vec4/nomap"."""
+        return f"{self.forest.label}/{self.instance}"
+
+
+def segment_plan(w: int, vec16: bool, level: int, n: int, instance=None) -> SegmentPlan:
+    """The segment kernel's plan for (n, w) previous rows at forest level
+    ``level``: a pure function of the shapes.  Level 0 reads the frontier
+    map, in shared memory while two blocks an SM can hold it
+    (:func:`map_shift`: ``map``), else from device memory (``gmap``);
+    later levels read every slot's row (``nomap``).  ``instance`` forces
+    one (tests, measurements).  Never chosen after a failure: a launch
+    that fails raises."""
+    if instance is None:
+        if level > 0:
+            instance = "nomap"
+        else:
+            instance = "gmap" if map_shift(n) is None else "map"
+    if instance not in MAP_MODES:
+        raise ValueError(f"unknown segment instance {instance!r}")
+    return SegmentPlan(forest_plan(w, vec16), instance)
 
 
 def forest_tables(graph, w: int, device):
@@ -226,6 +295,95 @@ def _rows_vec16(w: int, *tensors: torch.Tensor) -> bool:
     return all(t.data_ptr() % align == 0 for t in tensors)
 
 
+# FrontierMap.counts: the launch's running sums and finished blocks (zero
+# between launches), then the nonzero rows and their weights' sum.
+ROWS, SLOTS = 3, 4
+
+
+class FrontierMap(NamedTuple):
+    """The frontier map of one BFS level (:func:`frontier_map`)."""
+
+    bits: torch.Tensor  # int32: bit b set iff a frontier row v with v >> shift == b is nonzero
+    counts: torch.Tensor  # (5,) int64: [ROWS] nonzero rows, [SLOTS] their weights' sum
+    weights: torch.Tensor  # (n,) int32: the level-0 slots naming each vertex
+    total: int  # the weights' sum over all vertices
+    shift: int  # log2 of the vertices a bit covers (0 or 1)
+
+
+def frontier_map_scratch(n: int, device, weights: torch.Tensor, shift: int = 0) -> FrontierMap:
+    """A zeroed map for n vertices on ``device``, a bit per 2**shift of
+    them; ``weights`` (int32, on the device): each vertex's weight in the
+    dense test (:func:`slot_weights`)."""
+    _check_plane("weights", weights, (n,))
+    if shift not in (0, 1):
+        raise ValueError(f"a map bit covers one or two vertices, not 2**{shift}")
+    total = int(weights.sum())
+    return FrontierMap(
+        torch.zeros(map_words(-(-n >> shift)), dtype=torch.int32, device=device),
+        torch.zeros(5, dtype=torch.int64, device=device),
+        weights,
+        total,
+        shift,
+    )
+
+
+def slot_weights(level0_cols, n: int) -> torch.Tensor:
+    """Each vertex's count of forest level-0 slots (int32, CPU): the
+    weight :func:`frontier_map` sums over the nonzero rows.  ``level0_cols``:
+    the level's cols, whole or in pieces (NumPy or CPU tensors)."""
+    counts = torch.zeros(n + 1, dtype=torch.int64)
+    for cols in level0_cols:
+        c = torch.as_tensor(cols).long()
+        counts += torch.bincount(c[c < n], minlength=n + 1)[: n + 1]
+    return counts[:n].to(torch.int32)
+
+
+def frontier_map_plain(frontier, fmap: FrontierMap, ctrl, max_levels=INT32_MAX) -> None:
+    """The map launch's function in torch."""
+    if not direction_go(ctrl, max_levels, DIR_PULL):
+        return
+    on = (frontier != 0).any(dim=1)
+    span = 1 << fmap.shift
+    padded = on.new_zeros(32 * span * fmap.bits.shape[0])
+    padded[: on.shape[0]] = on
+    padded = padded.view(-1, span).any(dim=1)
+    place = torch.ones(32, dtype=torch.int64, device=on.device) << torch.arange(
+        32, device=on.device)
+    words = (padded.view(-1, 32).to(torch.int64) * place).sum(dim=1)
+    fmap.bits.copy_(torch.where(words >= 2**31, words - 2**32, words).to(torch.int32))
+    fmap.counts[ROWS] = int(on.sum())
+    fmap.counts[SLOTS] = int(fmap.weights[on].long().sum())
+
+
+def frontier_map(
+    frontier: torch.Tensor, fmap: FrontierMap, ctrl: torch.Tensor, max_levels: int = INT32_MAX
+) -> None:
+    """The segment form's pre-pass (``csrc/forest_or.cu``
+    ``msbfs_forest_map``), once a BFS level before forest level 0's
+    segments: the (n, W) frontier as a bitmap (a bit per 2**fmap.shift
+    vertices) into ``fmap.bits``, its nonzero rows into
+    ``fmap.counts[ROWS]`` and their weights' sum
+    into ``fmap.counts[SLOTS]``, on the device.  Gated like
+    :func:`forest_segment`."""
+    n, w = frontier.shape
+    _check_plane("frontier", frontier)
+    _check_plane("bits", fmap.bits, (map_words(-(-n >> fmap.shift)),))
+    _check_plane("ctrl", ctrl, (4,))
+    if fmap.counts.dtype != torch.int64 or tuple(fmap.counts.shape) != (5,):
+        raise ValueError("counts must be (5,) int64")
+    dev = _check_device(frontier, fmap.bits, fmap.counts, fmap.weights, ctrl)
+    if dev.type == "cpu":
+        frontier_map_plain(frontier, fmap, ctrl, max_levels)
+        return
+    plan = forest_plan(w, _rows_vec16(w, frontier))
+    kernels.launch(
+        "forest_map", dev,
+        frontier.data_ptr(), n, w, int(plan.vec16), fmap.bits.data_ptr(),
+        fmap.bits.shape[0], fmap.shift, fmap.weights.data_ptr(), fmap.counts.data_ptr(),
+        ctrl.data_ptr(), int(max_levels), variant=plan.label,
+    )
+
+
 def forest_segment_plain(
     prev, prev_rows, cols, pieces, out, ctrl, max_levels=INT32_MAX
 ) -> None:
@@ -246,13 +404,18 @@ def forest_segment(
     out: torch.Tensor,
     ctrl: torch.Tensor,
     max_levels: int = INT32_MAX,
+    fmap: Optional[FrontierMap] = None,
+    instance: Optional[str] = None,
 ) -> None:
     """Kernel K1s (``csrc/forest_or.cu`` ``msbfs_forest_segment``), one
     streamed segment ``i`` of a forest level: out[r] = OR over each
     piece's width of prev[cols[...]], a slot equal to ``prev_rows`` the
     zero row.  ``prev`` (prev_rows, W) the previous level's rows (the
     frontier at level 0), ``cols`` the uploaded segment (at least its
-    slots), ``out`` the segment's (rows, W) output rows.  Gated on the
+    slots), ``out`` the segment's (rows, W) output rows.  ``fmap``: at
+    forest level 0, the frontier's map (:func:`frontier_map`, already
+    launched on ``prev``); without one the launch reads every slot's row.
+    ``instance`` forces :func:`segment_plan`'s choice.  Gated on the
     device like :func:`forest_or`."""
     pieces = tables.pieces[i]
     w = prev.shape[1]
@@ -267,15 +430,29 @@ def forest_segment(
     if dev.type == "cpu":
         forest_segment_plain(prev, prev_rows, cols[:slots], pieces, out, ctrl, max_levels)
         return
-    plan = forest_plan(w, _rows_vec16(w, prev, out))
-    table, buckets, runs = tables.entry(i, plan.chunks)
+    level = 1 if fmap is None else 0
+    plan = segment_plan(w, _rows_vec16(w, prev, out), level, prev_rows, instance)
+    table, buckets, runs = tables.entry(i, plan.forest.chunks)
     if tables.device != dev:
         raise ValueError(f"segment tables on {tables.device}, planes on {dev}")
+    bits = counts = None
+    words = shift = dense = 0
+    if plan.instance != "nomap":
+        if fmap is None:
+            raise ValueError(f"the {plan.instance} instance needs the frontier map")
+        shift, words = fmap.shift, fmap.bits.shape[0]
+        _check_plane("bits", fmap.bits, (map_words(-(-prev_rows >> shift)),))
+        _check_device(prev, fmap.bits, fmap.counts)
+        if plan.instance == "map" and TABLE_BYTES + 4 * words > BLOCK_SMEM_BYTES:
+            raise ValueError(f"a {4 * words}-byte map does not fit a block's shared memory")
+        bits, counts = fmap.bits.data_ptr(), fmap.counts.data_ptr()
+        dense = int(MAP_DENSE_SHARE * fmap.total)
     kernels.launch(
         "forest_segment", dev,
         prev.data_ptr(), int(prev_rows), cols.data_ptr(), table, buckets, runs,
-        out.data_ptr(), w, plan.chunks, int(plan.vec16), ctrl.data_ptr(),
-        int(max_levels), variant=plan.label,
+        out.data_ptr(), w, plan.forest.chunks, int(plan.forest.vec16),
+        MAP_MODES[plan.instance], bits, words, shift, counts, dense,
+        ctrl.data_ptr(), int(max_levels), variant=plan.label,
     )
 
 
@@ -295,7 +472,8 @@ def forest_final_gather(
 ) -> None:
     """The segment form's final take (``msbfs_forest_gather``):
     hits[v] = v_cat[final_slot[v]] over the (total_rows + 1, W) scratch
-    of all forest levels, its last row zero.  Gated like the levels."""
+    of all forest levels, its last row zero (never read: a vertex whose
+    slot is that row is written 0).  Gated like the levels."""
     n, w = hits.shape
     _check_plane("v_cat", v_cat)
     _check_plane("final_slot", final_slot, (n,))
@@ -312,6 +490,6 @@ def forest_final_gather(
     plan = forest_plan(w, _rows_vec16(w, v_cat, hits))
     kernels.launch(
         "forest_gather", dev,
-        v_cat.data_ptr(), final_slot.data_ptr(), hits.data_ptr(), n, w,
+        v_cat.data_ptr(), final_slot.data_ptr(), hits.data_ptr(), n, v_cat.shape[0] - 1, w,
         int(plan.vec16), ctrl.data_ptr(), int(max_levels), variant=plan.label,
     )

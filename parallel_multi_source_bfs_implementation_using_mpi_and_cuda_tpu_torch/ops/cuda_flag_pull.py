@@ -32,12 +32,8 @@ import torch
 from ..runtime import kernels
 from .bell import _max_rows, byte_words, forest_hits
 from .bitbell import DIR_PULL, INT32_MAX, _check_device, _check_plane, direction_go
-from .cuda_bell import forest_scratch, forest_tables
+from .cuda_bell import BLOCK_SMEM_BYTES, TABLE_BYTES, forest_scratch, forest_tables, map_words
 
-# Shared memory one block may opt into on an H100 (227 KB), and what the
-# level kernel's bucket table takes of it (64 buckets of six int64).
-BLOCK_SMEM_BYTES = 232_448
-TABLE_BYTES = 64 * 6 * 8
 # Lanes between two queries' counters in the word view of a byte plane.
 LANE_STRIDE = 8
 
@@ -63,11 +59,6 @@ class FlagPullPlan(NamedTuple):
         if self.bits:
             parts.append("bits")
         return "/".join(parts)
-
-
-def map_words(n: int) -> int:
-    """32-bit words of the frontier bitmap: n bits in whole 16-byte units."""
-    return -(-n // 128) * 4
 
 
 def run_chunks(w: int) -> int:

@@ -14,7 +14,11 @@ slots (whole levels when there is none), cut by the in-memory engine's
 own partition (:func:`.bell._slot_segments`), and each segment is folded
 by the segment form of K1 (:func:`.cuda_bell.forest_segment`) into one
 (total_rows + 1, W) scratch; the final take by ``final_slot`` is its
-second entry point (:func:`.cuda_bell.forest_final_gather`).
+second entry point (:func:`.cuda_bell.forest_final_gather`).  Forest
+level 0's segments read the frontier's map (:func:`.cuda_bell.frontier_map`,
+one launch a BFS level, before the first upload is waited on), so a slot
+whose source row is zero costs no read of it while the frontier is thin;
+the map weighs each vertex by its level-0 slots, counted once here.
 
 The upload pipeline on the card (``prefetch`` deep, ``MSBFS_STREAM_PREFETCH``,
 default 2): the host cols are pinned once, at construction, so a
@@ -62,6 +66,10 @@ from .cuda_bell import (
     forest_scratch,
     forest_segment,
     forest_segment_plain,
+    frontier_map,
+    frontier_map_scratch,
+    map_shift,
+    slot_weights,
 )
 from .packed import PackedEngineBase
 
@@ -167,6 +175,14 @@ class StreamedBitBellEngine(PackedEngineBase):
             self._uploaded = [torch.cuda.Event() for _ in range(self.prefetch)]
             self._consumed = [torch.cuda.Event() for _ in range(self.prefetch)]
         self._scratch = {}  # plane width -> (total_rows + 1, W) level outputs
+        # Forest level 0's frontier map, weighted by each vertex's level-0
+        # slots (the map instances' dense test, csrc/forest_or.cu).
+        self._map = None
+        if not self.plain:
+            level0 = [c for c, seg in zip(slices, segments) if seg.level == 0]
+            weights = slot_weights(level0, self.n).to(self.device)
+            shift = map_shift(self.n) or 0  # gmap reads a bit a vertex
+            self._map = frontier_map_scratch(self.n, self.device, weights, shift)
 
     @contextlib.contextmanager
     def _streams(self):
@@ -207,10 +223,11 @@ class StreamedBitBellEngine(PackedEngineBase):
             return
         w = frontier.shape[1]
         scratch = self._scratch_for(w)
-        segment = forest_segment_plain if self.plain else forest_segment
         count = len(self._segments)
         for j in range(min(self.prefetch, count)):
             self._upload(j)
+        if self._map is not None:
+            frontier_map(frontier, self._map, ctrl, self._max_levels)
         for i, seg in enumerate(self._segments):
             slot = i % self.prefetch
             if seg.level == 0:
@@ -225,9 +242,11 @@ class StreamedBitBellEngine(PackedEngineBase):
             if self._compute is not None:
                 torch.cuda.current_stream(self.device).wait_event(self._uploaded[slot])
             if self.plain:
-                segment(prev, prev_rows, cols, self._tables.pieces[i], out, ctrl, self._max_levels)
+                forest_segment_plain(
+                    prev, prev_rows, cols, self._tables.pieces[i], out, ctrl, self._max_levels)
             else:
-                segment(prev, prev_rows, cols, self._tables, i, out, ctrl, self._max_levels)
+                forest_segment(prev, prev_rows, cols, self._tables, i, out, ctrl,
+                               self._max_levels, fmap=self._map if seg.level == 0 else None)
             if self._compute is not None:
                 self._consumed[slot].record(torch.cuda.current_stream(self.device))
             if i + self.prefetch < count:

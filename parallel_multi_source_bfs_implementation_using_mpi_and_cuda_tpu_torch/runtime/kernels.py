@@ -74,14 +74,19 @@ KERNELS = {
         "msbfs_forest_or",
         [_P, _P, ctypes.POINTER(_L), _I, _P, _P, _P, _L, _I, _L, _I, _I, _P, _I],
     ),
+    "forest_map": (
+        "msbfs_forest_map",
+        [_P, _L, _I, _I, _P, _I, _I, _P, _P, _P, _I],
+        "forest_or",
+    ),
     "forest_segment": (
         "msbfs_forest_segment",
-        [_P, _L, _P, _P, _I, _L, _P, _I, _I, _I, _P, _I],
+        [_P, _L, _P, _P, _I, _L, _P, _I, _I, _I, _I, _P, _I, _I, _P, _L, _P, _I],
         "forest_or",
     ),
     "forest_gather": (
         "msbfs_forest_gather",
-        [_P, _P, _P, _L, _I, _I, _P, _I],
+        [_P, _P, _P, _L, _L, _I, _I, _P, _I],
         "forest_or",
     ),
     "flag_pull": (

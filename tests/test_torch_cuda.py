@@ -6,6 +6,8 @@ device (the CPU test run); on a GPU machine run
 comparison is exact — all values are bits and integers.
 """
 
+from itertools import product
+
 import numpy as np
 import pytest
 import torch
@@ -905,8 +907,11 @@ def test_forest_segment_matches_plain(cuda, w, slot_budget):
         eng.forest_pass(frontier.to(cuda), got, pull.to(cuda))
     torch.cuda.synchronize()
     assert timing.launch_counts() == {
-        "forest_segment": len(eng._segments), "forest_gather": 1,
+        "forest_map": 1, "forest_segment": len(eng._segments), "forest_gather": 1,
     }
+    level0 = sum(1 for seg in eng._segments if seg.level == 0)
+    assert sum(c for name, c in timing.variant_counts().items()
+               if name.startswith("forest_segment:") and name.endswith("/map")) == level0
     assert torch.equal(got.cpu(), want)
     assert torch.equal(eng._scratch[w].cpu(), ref._scratch[w])
     shifted = torch.zeros(g.n * w + 1, dtype=torch.int32, device=cuda)
@@ -919,6 +924,145 @@ def test_forest_segment_matches_plain(cuda, w, slot_budget):
     for ctrl in ([1, 5, 0, bitbell.DIR_PUSH], [0, 5, 0, bitbell.DIR_PULL]):
         stale = torch.full_like(got, 3)
         eng.forest_pass(frontier.to(cuda), stale, torch.tensor(ctrl, dtype=torch.int32, device=cuda))
+        assert bool((stale == 3).all())
+
+
+def _thin_or_dense(rng, n, w, share):
+    frontier = _planes(rng, n, w)
+    frontier[rng.random(n) >= share] = 0
+    return frontier
+
+
+@pytest.mark.parametrize("w", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("instance", ["map", "gmap", "nomap"])
+@pytest.mark.parametrize("slot_budget", [None, 700])
+def test_segment_instances_match_plain(cuda, monkeypatch, w, instance, slot_budget):
+    """Every instance of the segment launch (map, gmap forced by the plan,
+    nomap) on every segment of a streamed pass, at whole levels and
+    700-slot cuts, equals the plain segment on empty, thin, dense and
+    full frontiers, with the map (a bit a vertex, and a bit per two) read
+    (a dense share of 1) and skipped by the device sums (a share below
+    0): every output row written."""
+    g = _hub_graph(110 + w)
+    host = BellGraph.from_host(g, False)
+    eng = streamed.StreamedBitBellEngine(host, cuda, slot_budget=slot_budget)
+    rng = np.random.default_rng(120 + w)
+    pull = torch.tensor([1, 5, 0, bitbell.DIR_PULL], dtype=torch.int32, device=cuda)
+    coarse = cuda_bell.frontier_map_scratch(g.n, cuda, eng._map.weights, 1)
+    for share, fmap in product((0.0, 0.01, 0.6, 1.0), (eng._map, coarse)):
+        frontier = _thin_or_dense(rng, g.n, w, share).to(cuda)
+        cuda_bell.frontier_map(frontier, fmap, pull)
+        for dense_share in (1.0, -1.0):
+            monkeypatch.setattr(cuda_bell, "MAP_DENSE_SHARE", dense_share)
+            scratch = torch.full((eng.total_rows + 1, w), 9, dtype=torch.int32, device=cuda)
+            ref = torch.zeros_like(scratch)
+            for i, seg in enumerate(eng._segments):
+                cols = eng._slices[i].to(cuda)
+                if seg.level == 0:
+                    prev = prev_ref = frontier
+                    prev_rows, mapped, forced = g.n, fmap, instance
+                else:
+                    lo = eng._row_offset[seg.level - 1]
+                    prev_rows = eng.level_rows[seg.level - 1]
+                    prev, prev_ref = scratch[lo : lo + prev_rows], ref[lo : lo + prev_rows]
+                    mapped, forced = None, None
+                lo = eng._row_offset[seg.level] + seg.row0
+                timing.reset_launch_counts()
+                cuda_bell.forest_segment(prev, prev_rows, cols, eng._tables, i,
+                                         scratch[lo : lo + seg.rows], pull,
+                                         fmap=mapped, instance=forced)
+                cuda_bell.forest_segment_plain(prev_ref, prev_rows, cols,
+                                               eng._tables.pieces[i],
+                                               ref[lo : lo + seg.rows], pull)
+                torch.cuda.synchronize()
+                label = instance if seg.level == 0 else "nomap"
+                assert [k.rsplit("/", 1)[1] for k in timing.variant_counts()] == [label]
+            rows = eng.total_rows
+            assert torch.equal(scratch[:rows], ref[:rows]), (share, dense_share)
+
+
+@pytest.mark.parametrize("w", [1, 2, 3, 8])
+def test_frontier_map_matches_plain_and_gates(cuda, w):
+    """The map pre-pass: its bits and sums (rows, and weights) equal the
+    plain version's on empty, thin and dense frontiers, again and again
+    (its running sums are cleared by each launch), on a frontier off the
+    vector grid too; gated off (a push level, a converged carry, the level
+    cap) it writes nothing."""
+    rng = np.random.default_rng(130 + w)
+    for n, shift in product((1, 33, 3000, 70_001), (0, 1)):
+        weights = torch.from_numpy(rng.integers(0, 300, n).astype(np.int32))
+        want = cuda_bell.frontier_map_scratch(n, "cpu", weights, shift)
+        got = cuda_bell.frontier_map_scratch(n, cuda, weights.to(cuda), shift)
+        for share in (0.0, 0.01, 0.6, 0.6):
+            frontier = _thin_or_dense(rng, n, w, share)
+            cuda_bell.frontier_map(frontier, want, _go())
+            pull = torch.tensor([1, 5, 0, bitbell.DIR_PULL], dtype=torch.int32, device=cuda)
+            timing.reset_launch_counts()
+            cuda_bell.frontier_map(frontier.to(cuda), got, pull)
+            torch.cuda.synchronize()
+            assert timing.launch_counts() == {"forest_map": 1}
+            assert torch.equal(got.bits.cpu(), want.bits)
+            assert got.counts.cpu().tolist() == want.counts.tolist()
+            shifted = torch.zeros(n * w + 1, dtype=torch.int32, device=cuda)
+            f_off = shifted[1:].view(n, w)
+            f_off.copy_(frontier.to(cuda))
+            cuda_bell.frontier_map(f_off, got, pull)
+            assert torch.equal(got.bits.cpu(), want.bits)
+            assert got.counts.cpu().tolist() == want.counts.tolist()
+        for ctrl in ([1, 5, 0, bitbell.DIR_PUSH], [0, 5, 0, bitbell.DIR_PULL],
+                     [1, 9, 0, bitbell.DIR_PULL]):
+            stale = cuda_bell.frontier_map_scratch(n, cuda, weights.to(cuda), shift)
+            stale.bits.fill_(7)
+            stale.counts[cuda_bell.ROWS] = 11
+            cuda_bell.frontier_map(_planes(rng, n, w).to(cuda), stale,
+                                   torch.tensor(ctrl, dtype=torch.int32, device=cuda), 9)
+            torch.cuda.synchronize()
+            assert bool((stale.bits == 7).all())
+            assert stale.counts.cpu().tolist() == [0, 0, 0, 11, 0]
+
+
+@pytest.mark.parametrize("w", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("n", [1, 5, 4096, 100_003])
+def test_forest_gather_matches_plain_and_index_select(cuda, w, n):
+    """The final gather (four vertices a thread at a template width)
+    equals its plain version and torch.index_select, with vertices on the
+    zero row (never read: it is filled with garbage here, so a read would
+    show), n not a multiple of four, planes off the 16-byte grid; gated
+    off it writes nothing."""
+    rng = np.random.default_rng(140 + w + n)
+    rows = max(n // 2, 1)
+    v_cat = _planes(rng, rows + 1, w)
+    final_slot = torch.from_numpy(rng.integers(0, rows + 1, n).astype(np.int32))
+    final_slot[torch.from_numpy(rng.random(n) < 0.4)] = rows
+    pull = torch.tensor([1, 5, 0, bitbell.DIR_PULL], dtype=torch.int32, device=cuda)
+    zeroed = v_cat.clone()
+    zeroed[rows] = 0
+    want = torch.index_select(zeroed, 0, final_slot.long())
+    dv, df = v_cat.to(cuda), final_slot.to(cuda)
+    for offset in (0, 1):
+        # Fresh tensors (16-byte aligned), then views one word off the grid.
+        sizes = ((rows + 1) * w, n * w, n)
+        buf = torch.zeros(sum(sizes) + offset, dtype=torch.int32, device=cuda)
+        v, h, f = buf[offset:].split(sizes)
+        if not offset:
+            v, h, f = (torch.empty_like(t) for t in (v, h, f))
+        v, h = v.view(rows + 1, w), h.view(n, w)
+        v.copy_(dv)
+        f.copy_(df)
+        timing.reset_launch_counts()
+        cuda_bell.forest_final_gather(v, f, h, pull)
+        torch.cuda.synchronize()
+        assert timing.launch_counts() == {"forest_gather": 1}
+        assert torch.equal(h.cpu(), want)
+        plain = torch.empty((n, w), dtype=torch.int32, device=cuda)
+        v[rows] = 0
+        cuda_bell.forest_final_gather_plain(v, f, plain, pull)
+        assert torch.equal(plain.cpu(), want)
+        assert torch.equal(torch.index_select(v, 0, f).cpu(), want)
+    for ctrl in ([1, 5, 0, bitbell.DIR_PUSH], [0, 5, 0, bitbell.DIR_PULL]):
+        stale = torch.full((n, w), 3, dtype=torch.int32, device=cuda)
+        cuda_bell.forest_final_gather(dv, df, stale,
+                                      torch.tensor(ctrl, dtype=torch.int32, device=cuda))
         assert bool((stale == 3).all())
 
 

@@ -61,21 +61,32 @@ def workload():
     return CSRGraph.from_edges(n, edges), JCSRGraph.from_edges(n, edges), queries
 
 
-def _pair(workload, level_chunk, plan_text, watchdog=None, policy=FAST):
+def _pair(workload, level_chunk, plan_text, watchdog=None, policy=FAST, hang_seconds=0.5,
+          warm=None):
     """Port and JAX supervisors over the default route's engine and
-    ladder, as each CLI builds them, under the same plan."""
+    ladder, as each CLI builds them, under the same plan.  ``warm``: a
+    query batch each engine answers once before it is supervised, so its
+    first call's setup (JAX's jit compile) is not timed by the watchdog
+    and the plan's dispatch counter is not consumed."""
     g, jg, _ = workload
-    mine = sup.ChunkSupervisor(
+    engines = (
         BitBellEngine(BellGraph.from_host(g, "cpu"), level_chunk=level_chunk),
+        JBitBellEngine(JBellGraph.from_host(jg), level_chunk=level_chunk),
+    )
+    if warm is not None:
+        for engine in engines:
+            engine.best(warm)
+    mine = sup.ChunkSupervisor(
+        engines[0],
         policy=sup.RetryPolicy(**policy), watchdog=watchdog,
         ladder=cli._bitbell_ladder(g, level_chunk, "cpu"),
-        plan=faults.FaultPlan.parse(plan_text, hang_seconds=0.5),
+        plan=faults.FaultPlan.parse(plan_text, hang_seconds=hang_seconds),
     )
     theirs = jsup.ChunkSupervisor(
-        JBitBellEngine(JBellGraph.from_host(jg), level_chunk=level_chunk),
+        engines[1],
         policy=jsup.RetryPolicy(**policy), watchdog=watchdog,
         ladder=jcli._bitbell_ladder(jg, level_chunk),
-        plan=jfaults.FaultPlan.parse(plan_text, hang_seconds=0.5),
+        plan=jfaults.FaultPlan.parse(plan_text, hang_seconds=hang_seconds),
     )
     return mine, theirs
 
@@ -122,20 +133,23 @@ def _raised(fn):
     [
         ("transient:dispatch:1", None, FAST, None),
         ("transient:dispatch:1,transient:dispatch:2,transient:dispatch:3", None, FAST, 5),
-        ("hang:dispatch:1", 0.1, dict(FAST, max_retries=0), 5),
-        ("hang:dispatch:1", 0.1, FAST, None),
+        ("hang:dispatch:1", 1.0, dict(FAST, max_retries=0), 5),
+        ("hang:dispatch:1", 1.0, FAST, None),
         ("oom:dispatch:1,oom:dispatch:2,oom:dispatch:3", None, FAST, 3),
         ("chip:rank0:1", None, FAST, 4),
         ("poison:vertex3:1", None, FAST, 6),
     ],
 )
 def test_retry_watchdog_and_budgets_match_jax(workload, plan, watchdog, policy, code):
-    """Transient retries, the watchdog (a hang of 0.5 s against 0.1 s) and
-    exhausted budgets: the same outcome, typed error and exit code, and
-    the same recovery events, in both packages."""
+    """Transient retries, the watchdog (a hang of 3 s against 1 s, the
+    retry's whole call well inside the next 1 s: both engines are warmed
+    outside their supervisors first) and exhausted budgets: the same
+    outcome, typed error and exit code, and the same recovery events, in
+    both packages."""
     queries = workload[2].copy()
     queries[0, 0] = 3  # the poisoned vertex is in the batch
-    mine, theirs = _pair(workload, 128, plan, watchdog=watchdog, policy=policy)
+    mine, theirs = _pair(workload, 128, plan, watchdog=watchdog, policy=policy,
+                         hang_seconds=3.0, warm=queries)
     got = _raised(lambda: mine.best(queries))
     want = _raised(lambda: theirs.best(queries))
     assert got == want
