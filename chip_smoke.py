@@ -47,10 +47,14 @@ non-zero; nothing is caught):
    scipy's and the plain engine's, and the direction trace is printed;
    tile_hits is then held against its plain version and timed on the
    frontier of the BFS's widest matmul level;
-   after each CLI path below, pack_sources is held against its plain
-   version on that route's batch as its engine pads it (stride 1 for bit
-   planes, 8 for byte planes) and timed beside its bound, with the host
-   time of a batch start's whole pack against the plain pack;
+   after each CLI path below, the batch start (K4, batch_start) is held
+   against its plain version (pack, bit_level_init, switch_record) on
+   that route's batch as its engine pads it (stride 1 for bit planes, 8
+   for byte planes): every carry field and the switch state bit for bit,
+   the worklist as a set; the kernel's, the memset's and the upload's
+   device ms (torch.profiler) beside the kernel's bound, the device
+   operations and the blocking reads (sync debug mode) of a batch start,
+   and its host ms, each against the plain batch start's;
 5. the mxu route on road_edges(512, 512) with K = 16: the auto switch
    sends levels both ways within one BFS; same checks; then the BFS a
    level at a time: the direction the device's apply wrote before each
@@ -63,15 +67,19 @@ non-zero; nothing is caught):
 5a. the low-K route on RMAT-16 (rmat_edges(16, 16), BASELINE.json config
    1) with one group of one source through the CLI's auto route: F equals
    scipy's and the plain engine's; then the BFS a level at a time, the
-   kernel engine equal to the plain engine before every level, K5's push
-   (push_or on the byte plane's word view) and pull (flag_pull, with the
-   carry's visited plane and counters) held against their byte plain
-   versions and timed beside their bounds (the pull's whole function's
-   and its level's, over the live rows only) and the ``index_reduce_``
-   amax library call (the pull's then masked by ``~visited``), the pull
-   also beside bell_hits_packed (forest_or on the word view) on the
-   same frontier, the switched apply held and timed; and its launch
-   split;
+   kernel engine equal to the plain engine before every level, the
+   level's one expansion call (flag_pull with the push folded into its
+   first launch) timed and its launches counted beside the parent's two
+   calls (push_or on the byte plane's word view, then the pull alone),
+   and its wrapper's host time beside theirs; K5's push (the merged
+   launch on a push level) and pull (flag_pull, with the carry's visited
+   plane and counters) held against their byte plain versions and timed
+   beside their bounds (the pull's whole function's and its level's,
+   over the live rows only) and the ``index_reduce_`` amax library call
+   (the pull's then masked by ``~visited``), the pull also beside
+   bell_hits_packed (forest_or on the word view) on the same frontier,
+   the switched apply held and timed; and its launch split, its chunk
+   enqueued under ``torch.cuda.set_sync_debug_mode("error")``;
 5b. RMAT-20 (rmat_edges(20, 16), BASELINE.json config 2): its CSR,
    per-row dedup and BELL layout built natively and with NumPy, byte-equal,
    each step timed both ways; forest_or and
@@ -109,7 +117,7 @@ non-zero; nothing is caught):
    engages (some chunk runs on fewer rows than n) and its results equal
    the plain path's without the window;
 9. resilience, on phase 5b's RMAT-20 files (run right after it, K = 64):
-   a. ``MSBFS_BACKEND=streamed`` through the CLI (a path: pack_sources,
+   a. ``MSBFS_BACKEND=streamed`` through the CLI (a path: batch_start,
       forest_map, forest_segment with its map instance, forest_gather,
       level_apply, and never forest_or or push_or), then with prefetch 1,
       and with STREAMED_BUDGET-slot segments at prefetch 1 and 2: the
@@ -145,11 +153,13 @@ then the ``{"kernels": [...]}`` line and the final ``{"ok": true, ...}``.
 
 Each CLI run of phases 3-5b and 9a is one path: the kernel launch counters are
 zeroed just before it and read just after; each path must have launched
-its route's kernels (pack_sources at its route's stride), and every
+its route's kernels (batch_start at its route's stride), and every
 registered kernel must have launched on some path, and no byte path may
-launch forest_or.  The kernel line has a row for each kernel (flag_pull's
-from the densest pull of RMAT-20's low-K BFS, its bound the level's) and
-for the byte use of push_or (K5's push), counted over the byte paths.
+launch forest_or or push_or.  The kernel line has a row for each kernel
+(flag_pull's from the densest pull of RMAT-20's low-K BFS, its bound the
+level's) and for K5's push (flag_pull:push: the merged launch on the
+widest push level of that BFS), its launches the flag_pull launches with
+the push folded in, counted over the byte paths.
 Each path, and phases 7 and 8, also print the launches per kernel
 variant; the mxu paths must have launched tile_hits' pipe variant, the
 ELL path more steady than stale levels, and the byte paths flag_pull's
@@ -184,21 +194,25 @@ PKG = "parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch"
 JAX_PKG = "parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu"
 # Each path's own kernels (a CLI run per path).
 PATH_KERNELS = {
-    "stencil road-4096": ("pack_sources", "stencil_sweep", "level_apply"),
-    "mxu rmat-14": ("pack_sources", "tile_hits", "level_apply"),
-    "mxu road-512": ("pack_sources", "tile_hits", "push_or", "level_apply"),
-    "lowk rmat-16": ("pack_sources", "flag_pull", "push_or", "level_apply"),
-    "bitbell rmat-20": ("pack_sources", "forest_or", "push_or", "level_apply"),
+    "stencil road-4096": ("batch_start", "stencil_sweep", "level_apply"),
+    "mxu rmat-14": ("batch_start", "tile_hits", "level_apply"),
+    "mxu road-512": ("batch_start", "tile_hits", "push_or", "level_apply"),
+    "lowk rmat-16": ("batch_start", "flag_pull", "level_apply"),
+    "bitbell rmat-20": ("batch_start", "forest_or", "push_or", "level_apply"),
     "ell rmat-20": ("ell_hits",),
-    "bell rmat-20": ("pack_sources", "flag_pull", "level_apply"),
-    "lowk rmat-20": ("pack_sources", "flag_pull", "push_or", "level_apply"),
-    "streamed rmat-20": ("pack_sources", "forest_map", "forest_segment", "forest_gather",
+    "bell rmat-20": ("batch_start", "flag_pull", "level_apply"),
+    "lowk rmat-20": ("batch_start", "flag_pull", "level_apply"),
+    "streamed rmat-20": ("batch_start", "forest_map", "forest_segment", "forest_gather",
                          "level_apply"),
 }
-# The paths whose planes are bytes: their pack runs at a stride of 8 lanes,
-# the others' at 1 (the ELL route packs no planes), and they pull with
-# flag_pull, never with forest_or.
+# The paths whose planes are bytes: their batch starts at a stride of 8
+# lanes, the others' at 1 (the ELL route packs no planes), and they pull
+# with flag_pull, never with forest_or, and push (the low-K paths) inside
+# flag_pull's first launch, never with push_or.
 BYTE_PATHS = ("lowk rmat-16", "bell rmat-20", "lowk rmat-20")
+# The paths whose batch start lists the sources for a direction switch.
+SWITCHED_PATHS = ("mxu rmat-14", "mxu road-512", "lowk rmat-16", "bitbell rmat-20",
+                  "lowk rmat-20")
 # Groups of the RMAT-20 paths checked against scipy (besides the winner).
 SCIPY_GROUPS = 8
 # Groups of RMAT-20's 64 that its low-K path runs (all checked against scipy).
@@ -957,8 +971,9 @@ def _hybrid_levels(torch, carry, expand, start, vals, pull_row, label, every=1):
 def _hybrid_split(torch, make_carry, push, pull, chunk, levels, label):
     """A whole BFS of a direction-switched route (``levels`` levels) with
     CUDA events around each launch of each level — ``push(carry, hits)``
-    (into the switch's plane), ``pull(carry, hits)``, the apply — and the
-    gaps between them, all
+    (into the switch's plane), ``pull(carry, hits)``, the apply; with
+    ``push`` None, ``pull`` is the level's one expansion call ("expand")
+    — and the gaps between them, all
     enqueued before one synchronise, as a chunk enqueues them; then the
     engine's own ``chunk(carry)`` timed with one event pair, and traced
     with torch.profiler for the device's busy share: the kernels' summed
@@ -973,27 +988,28 @@ def _hybrid_split(torch, make_carry, push, pull, chunk, levels, label):
     top = 2**31 - 1
     c = make_carry()
     hits = torch.zeros_like(c.frontier)
-    names = ("push_or", "pull", "level_apply")
-    ev = [[torch.cuda.Event(enable_timing=True) for _ in range(4)] for _ in range(levels)]
+    steps = [("push_or", push), ("pull", pull)] if push is not None else [("expand", pull)]
+    steps.append(("level_apply", lambda c_, h: bitbell.bit_level_apply(c_, h, top)))
+    names = tuple(name for name, _ in steps)
+    last = len(steps)
+    ev = [[torch.cuda.Event(enable_timing=True) for _ in range(last + 1)]
+          for _ in range(levels)]
     torch.cuda.synchronize()
     torch.cuda._sleep(2_000_000)
     for e in ev:
         e[0].record()
-        push(c, hits)
-        e[1].record()
-        pull(c, hits)
-        e[2].record()
-        bitbell.bit_level_apply(c, hits, top)
-        e[3].record()
+        for j, (_, fn) in enumerate(steps):
+            fn(c, hits)
+            e[j + 1].record()
     torch.cuda.synchronize()
     assert not bitbell.level_go(c.ctrl, top), "the split did not reach convergence"
     per_level = []
     for i, e in enumerate(ev):
         t = {name: e[j].elapsed_time(e[j + 1]) for j, name in enumerate(names)}
-        t["gap_after"] = e[3].elapsed_time(ev[i + 1][0]) if i + 1 < levels else 0.0
+        t["gap_after"] = e[last].elapsed_time(ev[i + 1][0]) if i + 1 < levels else 0.0
         per_level.append(t)
     totals = {k: sum(t[k] for t in per_level) for k in (*names, "gap_after")}
-    span = ev[0][0].elapsed_time(ev[-1][3])
+    span = ev[0][0].elapsed_time(ev[-1][last])
     # The engine's own chunk: one event pair, then under the profiler.
     c2 = make_carry()
     e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -1166,58 +1182,164 @@ def _host_ms(torch, fn, reps=5):
     return times[len(times) // 2]
 
 
-# Each route's pack_sources row (_pack_check), by path.
-PACK_ROWS = {}
+def _op_name(name: str) -> str:
+    """A profiler event's name without its template and argument lists."""
+    name = name.replace("(anonymous namespace)::", "").replace("void ", "")
+    return name.split("(")[0].split("<")[0].split("::")[-1].strip() or name[:40]
 
 
-def _pack_check(torch, eng, n, padded, label):
-    """pack_sources against its plain version on one route's batch as its
-    engine pads it (stride 1 for bit planes, 8 for byte planes): the
-    error, both times, the bound, and the host time of a batch start's
-    whole pack (upload, zeroing, launch) against the plain pack."""
-    import numpy as np
+def _device_ops(torch, fn, reps=10):
+    """``fn``'s device operations as torch.profiler traces ``reps`` calls
+    after a warm one: ({name: median ms}, operations a call), or ({},
+    None) when three traces saw no device activity.  A trace can miss its
+    first device events, so a device sleep opens it and only the events
+    after the sleep are counted (all of them when the trace missed the
+    sleep too)."""
+    from torch.profiler import ProfilerActivity, profile
 
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a trace that sees no device activity is taken again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(100_000)
+            torch.cuda.synchronize()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        if events:
+            break
+    opened = [e.time_range.end for e in events if _op_name(e.name) == "spin_kernel"]
+    times = {}
+    for evt in events:
+        name = _op_name(evt.name)
+        if name != "spin_kernel" and (not opened or evt.time_range.start >= opened[0]):
+            times.setdefault(name, []).append(evt.time_range.elapsed_us() / 1e3)
+    if not times:
+        return {}, None
+    ops = sum(len(v) for v in times.values()) / reps
+    return {k: sorted(v)[len(v) // 2] for k, v in times.items()}, ops
+
+
+def _blocking_reads(torch, fn) -> int:
+    """The synchronizing CUDA operations one call of ``fn`` makes, as
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports them."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return sum(1 for w in caught if "called a synchronizing" in str(w.message))
+
+
+@contextlib.contextmanager
+def _no_sync(torch):
+    """A block in which any synchronizing CUDA operation raises."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def _batch_start_err(torch, got, want) -> int:
+    """Every carry field and the switch state and hit plane of two batch
+    starts; the worklist as a set, with each entry's offset the exclusive
+    prefix of the out-degrees before it, when the list is whole (a
+    mismatch counts 1)."""
     from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
         bitbell,
     )
 
+    fields = ("visited", "frontier", "f", "levels", "reached", "counts", "ctrl")
+    pairs = [(getattr(got, f), getattr(want, f)) for f in fields]
+    if want.switch is None:
+        return _max_abs_err(torch, pairs) + int(got.switch is not None)
+    gs, ws = got.switch, want.switch
+    err = _max_abs_err(torch, pairs + [(gs.state, ws.state), (gs.hits, ws.hits)])
+    if int(ws.state[bitbell.SW_ACTIVE_ROWS]) <= gs.capacity:
+        length = int(ws.state[bitbell.SW_LISTED])
+        rows = gs.worklist[0, :length].long()
+        deg = gs.count[rows].long()
+        same = torch.equal(torch.sort(rows).values, ws.worklist[0, :length].long()) and \
+            torch.equal(gs.worklist[1, :length].long(), torch.cumsum(deg, 0) - deg)
+        err = max(err, int(not same))
+    return err
+
+
+# Each route's batch_start row (_batch_start_check), by path.
+BATCH_ROWS = {}
+# The low-K expansion wrappers' host times (_wrapper_row), by BFS.
+WRAPPER_ROWS = {}
+
+
+def _batch_start_check(torch, eng, n, padded, label):
+    """The batch-start kernel (K4, csrc/batch_start.cu) on one route's
+    batch as its engine pads it (stride 1 for bit planes, 8 for byte
+    planes), against the plain batch start on the card (the engine with
+    ``plain`` set: pack_sources_plain, bit_level_init, switch_record):
+    every carry field and the switch state bit for bit, the worklist as a
+    set when whole; the kernel's device ms (torch.profiler; CUDA events
+    around the whole batch start when the trace sees nothing) beside its
+    bound, the memset's and the upload's, the device operations and the
+    blocking reads of a whole batch start and its host ms, each beside
+    the plain batch start's.  A batch start must make no blocking read
+    and at most three device operations."""
+    import copy
+
     queries = eng._pad_queries(padded)[0]
-    stride = eng.lane_stride
-    dev = eng.device
-    q = torch.from_numpy(np.ascontiguousarray(queries, dtype=np.int32)).to(dev)
-    k, s = q.shape
-    w = max(1, -(-k * stride // 32))
-
-    def buffers():
-        return (torch.zeros((n, w), dtype=torch.int32, device=dev),
-                torch.zeros(32 * w, dtype=torch.int32, device=dev))
-
-    (p_k, c_k), (p_p, c_p) = buffers(), buffers()
-    bitbell.pack_sources(q, n, p_k, c_k, stride)
-    bitbell.pack_sources_plain(q, n, p_p, c_p, stride)
+    twin = copy.copy(eng)
+    twin.plain = True
+    got, want = eng._init_carry(queries), twin._init_carry(queries)
     torch.cuda.synchronize()
-    err = _max_abs_err(torch, [(p_k, p_p), (c_k, c_p)])
-    ms = _time_ms(torch, lambda: bitbell.pack_sources(q, n, p_k, c_k, stride),
-                  lambda: (p_k.zero_(), c_k.zero_()))
-    plain_ms = _time_ms(torch, lambda: bitbell.pack_sources_plain(q, n, p_p, c_p, stride),
-                        lambda: (p_p.zero_(), c_p.zero_()), reps=3)
-    valid = int(((q >= 0) & (q < n)).sum())
-    touched = int((p_p != 0).sum())
-    # The queries read once, the words the sources reach and the counts
-    # written once; an atomic OR a source.
-    bound, by = _bound_ms(4 * k * s + 4 * touched + 4 * 32 * w, valid)
+    err = _batch_start_err(torch, got, want)
+    k, s = queries.shape
+    rows, w = want.frontier.shape
+    ops, n_ops = _device_ops(torch, lambda: eng._init_carry(queries))
+    _, plain_ops = _device_ops(torch, lambda: twin._init_carry(queries), reps=3)
+    events_ms = _time_ms(torch, lambda: eng._init_carry(queries), lambda: None)
+    kernel_ms = ops.get("batch_start_kernel")
+    valid = int(((queries >= 0) & (queries < n)).sum())
+    touched = int((want.frontier != 0).sum())
+    listed = 0 if want.switch is None else int(want.switch.state[0])
+    # The queries read once; the words the sources set in both planes, the
+    # levels and reached lanes, ctrl and, with a switch, its state and the
+    # list entries written once; an atomic a valid source.
+    nbytes = 4 * k * s + 2 * 4 * touched + 2 * 4 * 32 * w + 16
+    if want.switch is not None:
+        nbytes += 64 + 8 * listed
+    bound, by = _bound_ms(nbytes, valid)
     row = dict(
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-        library_ms=None, K=k, S=s, lane_stride=stride, W=w, valid_sources=valid,
-        distinct_sources=int(c_p.sum()), words_set=touched,
-        batch_start_pack_host_ms=_host_ms(
-            torch, lambda: bitbell.pack_queries(n, queries, dev, stride)),
-        batch_start_plain_pack_host_ms=_host_ms(
-            torch, lambda: bitbell.pack_queries_plain(n, queries, dev, stride)),
+        max_abs_err=err, ms=kernel_ms if kernel_ms is not None else events_ms,
+        ms_source="torch.profiler" if kernel_ms is not None else "cuda events (whole start)",
+        plain_ms=_time_ms(torch, lambda: twin._init_carry(queries), lambda: None, reps=3),
+        bound_ms=bound, bound_by=by, library_ms=None,
+        memset_ms=sum(v for k_, v in ops.items() if k_.startswith("Memset")),
+        upload_ms=sum(v for k_, v in ops.items() if k_.startswith("Memcpy")),
+        events_ms=events_ms, device_ops=n_ops, plain_device_ops=plain_ops,
+        host_ms=_host_ms(torch, lambda: eng._init_carry(queries)),
+        plain_host_ms=_host_ms(torch, lambda: twin._init_carry(queries)),
+        blocking_reads=_blocking_reads(torch, lambda: eng._init_carry(queries)),
+        plain_blocking_reads=_blocking_reads(torch, lambda: twin._init_carry(queries)),
+        K=k, S=s, lane_stride=getattr(eng, "lane_stride", 1), rows=rows, W=w,
+        switch=want.switch is not None, valid_sources=valid,
+        distinct_sources=int(want.reached.sum()), words_set=touched, listed=listed,
+        card=CARD,
     )
-    print(f"compare {label} n={n} pack_sources: " + json.dumps(row))
+    print(f"compare {label} n={n} batch_start: " + json.dumps(row))
     assert err == 0, (label, row)
-    PACK_ROWS[label] = row
+    assert row["blocking_reads"] == 0, (label, row)
+    assert n_ops is None or n_ops <= 3, (label, ops)
+    BATCH_ROWS[label] = row
     return row
 
 
@@ -1269,49 +1391,153 @@ def _csr_pairs(torch, bg):
     return owner, vals.long()
 
 
-def _byte_push_row(torch, bg, frontier, switch, ctrl, timed=True):
-    """push_or over a byte plane's word view (sparse_hits_flags) against
-    the byte push's plain version on one listed frontier (both into a
-    zeroed plane): the error, both times, the bound, the launch floor (the
-    launch gated off) and the library call ``hits.index_reduce_(0,
-    neighbour, frontier[owner], "amax")`` over the listed rows' edges."""
+def _gated_carry(torch, carry, switch=None, go=True):
+    """A carry on ``carry``'s planes and counters with a copy of its
+    control (gated off unless ``go``) and ``switch`` (default its own)."""
     from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
-        bitbell, lowk,
+        bitbell,
     )
 
-    assert int(ctrl[3]) == bitbell.DIR_PUSH
+    ctrl = carry.ctrl.clone()
+    if not go:
+        ctrl[0] = 0
+    return bitbell.BitCarry(carry.visited, carry.frontier, carry.f, carry.levels, carry.reached,
+                            carry.counts, ctrl, carry.switch if switch is None else switch,
+                            carry.k)
+
+
+def _byte_push_row(torch, bg, carry, scratch):
+    """K5's push as the low-K level runs it — the byte expansion's call
+    (flag_pull) with the push folded into its first launch — on one push
+    level, into a zeroed plane, against the byte push's plain version:
+    the error; the first launch's device ms (torch.profiler; the push's
+    walk) and the whole call's (CUDA events), its device operations; the
+    parent's push launch (push_or over the word view, sparse_hits_flags);
+    the call gated off (its floor); the library call
+    ``hits.index_reduce_(0, neighbour, frontier[owner], "amax")`` over the
+    listed rows' edges; the bound."""
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
+        bitbell, cuda_flag_pull, lowk,
+    )
+
+    top = 2**31 - 1
+    u8 = torch.uint8
+    assert int(carry.ctrl[3]) == bitbell.DIR_PUSH
+    sw = _switch_snapshot(torch, carry.switch)
+    frontier = carry.frontier.view(u8)
     n, kp = frontier.shape
-    p_k, p_p = torch.zeros_like(frontier), torch.zeros_like(frontier)
-    lowk.sparse_hits_flags(frontier, bg, p_k, ctrl, switch)
-    lowk.sparse_hits_flags_plain(frontier, bg, p_p, ctrl, switch)
+    p_k, p_p, p_o = (torch.zeros_like(frontier) for _ in range(3))
+    sw_k = bitbell.PushSwitch(sw.count, sw.row_limit, sw.edge_limit, sw.worklist, sw.state,
+                              p_k.view(torch.int32))
+    pull_hits = torch.empty_like(frontier)
+
+    def call(go=True):
+        c = _gated_carry(torch, carry, sw_k, go)
+        return cuda_flag_pull.FlagPullCall(c.frontier.view(u8), c.visited.view(u8), bg, pull_hits,
+                                           c.ctrl, c.k, top, scratch, c.levels, sw_k)
+
+    merged = call()
+    merged()
+    lowk.sparse_hits_flags_plain(frontier, bg, p_p, carry.ctrl, sw)
     torch.cuda.synchronize()
     err = _max_abs_err(torch, [(p_k, p_p)])
-    listed = int(switch.state[bitbell.SW_LISTED])
-    edges = int(switch.state[bitbell.SW_LISTED_EDGES])
-    ms = plain_ms = floor_ms = library_ms = None
-    if timed:
-        ms = _time_ms(torch, lambda: lowk.sparse_hits_flags(frontier, bg, p_k, ctrl, switch),
-                      p_k.zero_)
-        plain_ms = _time_ms(torch, lambda: lowk.sparse_hits_flags_plain(
-            frontier, bg, p_p, ctrl, switch), p_p.zero_, reps=3)
-        gated = ctrl.clone()
-        gated[3] = bitbell.DIR_PULL
-        floor_ms = _time_ms(torch, lambda: lowk.sparse_hits_flags(
-            frontier, bg, p_k, gated, switch), lambda: None)
-        owner, nbr = bitbell.listed_edges(switch, bg.sparse[0], bg.sparse[2])
-        lib = torch.zeros_like(frontier)
-        library_ms = _time_ms(torch, lambda: lib.index_reduce_(0, nbr, frontier[owner], "amax"),
-                              lib.zero_, reps=5)
-        assert torch.equal(lib, p_p), "the library yardstick computes another function"
+    listed = int(sw.state[bitbell.SW_LISTED])
+    edges = int(sw.state[bitbell.SW_LISTED_EDGES])
+    ops, n_ops = _device_ops(torch, merged)
+    call_ms = _time_ms(torch, merged, p_k.zero_)
+    parent_ms = _time_ms(torch, lambda: lowk.sparse_hits_flags(
+        frontier, bg, p_o, carry.ctrl, sw), p_o.zero_)
+    plain_ms = _time_ms(torch, lambda: lowk.sparse_hits_flags_plain(
+        frontier, bg, p_p, carry.ctrl, sw), p_p.zero_, reps=3)
+    floor_ms = _time_ms(torch, call(go=False), lambda: None)
+    owner, nbr = bitbell.listed_edges(sw, bg.sparse[0], bg.sparse[2])
+    lib = torch.zeros_like(frontier)
+    library_ms = _time_ms(torch, lambda: lib.index_reduce_(0, nbr, frontier[owner], "amax"),
+                          lib.zero_, reps=5)
+    assert torch.equal(lib, p_p), "the library yardstick computes another function"
+    assert torch.equal(p_o, p_p), "the parent's push computes another function"
     reached = int((p_p != 0).any(dim=1).sum())
     # The worklist (8 bytes an entry), each listed row's Kp bytes and CSR
     # start, its neighbours (4 bytes an edge), the rows reached (Kp bytes);
     # an OR a word an edge.
     bound, by = _bound_ms(8 * listed + (kp + 4) * listed + 4 * edges + kp * reached,
                           edges * (kp // 4))
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+    first_ms = ops.get("flag_first_kernel")
+    return dict(max_abs_err=err, ms=first_ms if first_ms is not None else call_ms,
+                ms_source="torch.profiler" if first_ms is not None else "cuda events (call)",
+                call_ms=call_ms, call_device_ops=n_ops, call_kernel_ms=ops,
+                parent_push_or_ms=parent_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                 library_ms=library_ms, floor_ms=floor_ms, listed_rows=listed, edges=edges,
-                reached_rows=reached, Kp=kp)
+                reached_rows=reached, Kp=kp, variant=merged.variant)
+
+
+def _expand_row(torch, bg, carry, hits, scratch):
+    """One low-K level's expansion as the level runs it (one flag_pull
+    call, the push in its first launch) beside the parent's two calls
+    (push_or over the word view, then the pull alone), on the same carry:
+    each one's launches (the wrapper counts), device operations and
+    device ms per kernel (torch.profiler) and device ms (CUDA events)."""
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
+        cuda_flag_pull, lowk,
+    )
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.utils import (
+        timing,
+    )
+
+    top = 2**31 - 1
+    u8 = torch.uint8
+    sw = carry.switch
+
+    def new():
+        lowk.flag_expand(carry, bg, hits, top, scratch)
+
+    def parent():
+        lowk.sparse_hits_flags(carry.frontier.view(u8), bg, sw.hits.view(u8), carry.ctrl, sw,
+                               top)
+        cuda_flag_pull.flag_pull(carry.frontier.view(u8), carry.visited.view(u8), bg,
+                                 hits.view(u8), carry.ctrl, carry.k, top, scratch, carry.levels)
+
+    row = {}
+    for name, fn in (("expand", new), ("parent", parent)):
+        timing.reset_launch_counts()
+        fn()
+        torch.cuda.synchronize()
+        launches = timing.launch_counts()
+        ops, n_ops = _device_ops(torch, fn, reps=5)
+        row[name] = dict(launches=launches, device_ops=n_ops, kernel_ms=ops,
+                         ms=_time_ms(torch, fn, lambda: None))
+    return row
+
+
+def _wrapper_row(torch, bg, carry, scratch):
+    """The host time of one low-K level's expansion wrappers, their
+    launches gated off on the device: the stepper's call (checked once,
+    then launched), the same call checked on every call (flag_expand),
+    and the parent's two wrappers (sparse_hits_flags, then flag_pull)."""
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
+        cuda_flag_pull, lowk,
+    )
+
+    top = 2**31 - 1
+    u8 = torch.uint8
+    off = _gated_carry(torch, carry, go=False)
+    sw = off.switch
+    hits = torch.empty_like(off.frontier)
+    bound = cuda_flag_pull.FlagPullCall(off.frontier.view(u8), off.visited.view(u8), bg,
+                                        hits.view(u8), off.ctrl, off.k, top, scratch,
+                                        off.levels, sw)
+
+    def parent():
+        lowk.sparse_hits_flags(off.frontier.view(u8), bg, sw.hits.view(u8), off.ctrl, sw, top)
+        cuda_flag_pull.flag_pull(off.frontier.view(u8), off.visited.view(u8), bg, hits.view(u8),
+                                 off.ctrl, off.k, top, scratch, off.levels)
+
+    return dict(
+        stepper_call_us=_wrapper_host_us(torch, bound),
+        checked_call_us=_wrapper_host_us(
+            torch, lambda: lowk.flag_expand(off, bg, hits, top, scratch)),
+        parent_push_and_pull_us=_wrapper_host_us(torch, parent),
+        note="host time of one call, its kernels gated off on the device", card=CARD)
 
 
 def _active_lanes(torch, kp, k, levels, ctrl):
@@ -1393,13 +1619,16 @@ def _byte_levels(torch, bg, padded, label, library, bell_route=False):
     """A byte route's BFS a level at a time (LowKEngine, or BellEngine
     with ``bell_route``): the kernel engine's carry and the plain engine's
     advanced in lockstep and equal before every level and at the end; on
-    each pull level flag_pull held against its plain version with the
-    carry's visited plane and counters and timed (:func:`_flag_pull_row`)
-    beside bell_hits_packed (forest_or on the word view) on the same
-    frontier (:func:`_byte_forest_row`); on each push level the
-    byte push (:func:`_byte_push_row`); the apply held and timed (the
-    switched one beside the same launch without the switch on the low-K
-    route).  Returns one row a level."""
+    the low-K route each level's one expansion call beside the parent's
+    push and pull calls (:func:`_expand_row`; the wrappers' host time
+    once, :func:`_wrapper_row`), and the level's push, as the level runs
+    it, held against the plain push; on each pull level flag_pull held
+    against its plain version with the carry's visited plane and counters
+    and timed (:func:`_flag_pull_row`) beside bell_hits_packed (forest_or
+    on the word view) on the same frontier (:func:`_byte_forest_row`); on
+    each push level K5's push timed (:func:`_byte_push_row`); the apply
+    held and timed (the switched one beside the same launch without the
+    switch on the low-K route).  Returns one row a level."""
     from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
         bell, bitbell, cuda_bell, cuda_flag_pull, lowk,
     )
@@ -1432,10 +1661,16 @@ def _byte_levels(torch, bg, padded, label, library, bell_route=False):
         level, d = int(a.ctrl[1]) + 1, int(a.ctrl[3])
         row = dict(level=level, direction="push" if d == bitbell.DIR_PUSH else "pull")
         fr = a.frontier.view(u8)
+        if sw is not None:
+            if not rows:
+                WRAPPER_ROWS[label] = _wrapper_row(torch, bg, a, scratch)
+            row["expand"] = _expand_row(torch, bg, a, hits, scratch)
+            # One launch and one wrapper call fewer than the parent's level.
+            assert row["expand"]["expand"]["launches"] == {"flag_pull": 1}, (label, row)
+            assert row["expand"]["parent"]["launches"] == {"push_or": 1, "flag_pull": 1}
         if d == bitbell.DIR_PUSH:
-            row["push_or:bytes"] = _byte_push_row(torch, bg, fr, _switch_snapshot(torch, sw),
-                                                  a.ctrl.clone())
-            assert row["push_or:bytes"]["max_abs_err"] == 0, (label, row)
+            row["flag_pull:push"] = _byte_push_row(torch, bg, a, scratch)
+            assert row["flag_pull:push"]["max_abs_err"] == 0, (label, row)
         else:
             row["flag_pull"] = _flag_pull_row(torch, bg, fr, a.visited.view(u8), a.k, a.levels,
                                               a.ctrl.clone(), scratch, library)
@@ -1443,6 +1678,10 @@ def _byte_levels(torch, bg, padded, label, library, bell_route=False):
             row["forest_or:bytes"] = _byte_forest_row(torch, bg, fr, forest, None)
             assert row["forest_or:bytes"]["max_abs_err"] == 0, (label, row)
         expand(a, hits, top, scratch)
+        if d == bitbell.DIR_PUSH:  # the level's own push, against the plain push
+            want = torch.zeros_like(fr)
+            lowk.sparse_hits_flags_plain(fr, bg, want, a.ctrl, sw)
+            assert torch.equal(sw.hits.view(u8), want), (label, level, "the push differs")
         level_hits = sw.hits.clone() if d == bitbell.DIR_PUSH else hits
         pristine = bitbell.BitCarry(a.visited, a.frontier, a.f, a.levels, a.reached,
                                     a.counts, a.ctrl)
@@ -1460,29 +1699,27 @@ def _byte_levels(torch, bg, padded, label, library, bell_route=False):
 
 def _lowk_split(torch, eng, bg, padded, levels, label):
     """A byte-plane route's whole BFS split by launch (:func:`_hybrid_split`):
-    the byte push (a no-op on a pull-only carry), the byte pull
-    (flag_pull) and the apply, then the engine's chunk timed and traced."""
+    the level's one expansion call (flag_pull, the push in its first
+    launch on the low-K route) and the apply; then the engine's chunk
+    timed and traced, each chunk enqueued under
+    ``torch.cuda.set_sync_debug_mode("error")`` (a blocking read raises)."""
     from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
-        cuda_flag_pull, lowk,
+        cuda_flag_pull,
     )
 
     top = 2**31 - 1
     queries = eng._pad_queries(padded)[0]
     c0 = eng._init_carry(queries)
-    scratch = cuda_flag_pull.flag_pull_scratch(bg, c0.frontier.shape[1], c0.frontier.device)
-    pull_level = lowk.flag_pull_expand(bg)
-    u8 = torch.uint8
+    w = c0.frontier.shape[1]
+    scratch = cuda_flag_pull.flag_pull_scratch(bg, w, c0.frontier.device)
+    expand = eng._expand(w)
 
-    def push(c, h):
-        if c.switch is not None:
-            lowk.sparse_hits_flags(c.frontier.view(u8), bg, c.switch.hits.view(u8), c.ctrl,
-                                   c.switch, top)
+    def chunk(c):
+        with _no_sync(torch):
+            eng._chunk(c, levels)
 
-    def pull(c, h):
-        pull_level(c, h, top, scratch)
-
-    return _hybrid_split(torch, lambda: eng._init_carry(queries), push, pull,
-                         lambda c: eng._chunk(c, levels), levels, label)
+    return _hybrid_split(torch, lambda: eng._init_carry(queries), None,
+                         lambda c, h: expand(c, h, top, scratch), chunk, levels, label)
 
 
 def _summarise_levels(rows, label):
@@ -1507,9 +1744,24 @@ def _summarise_levels(rows, label):
         flag_pull_frontier_rows=pick("flag_pull", "frontier_rows"),
         flag_pull_variant=pick("flag_pull", "variant"),
         word_view_pull_ms=pick("forest_or:bytes", "ms"),
-        push_or_bytes_ms=pick("push_or:bytes", "ms"),
-        push_or_bytes_floor_ms=pick("push_or:bytes", "floor_ms"),
-        push_or_bytes_library_ms=pick("push_or:bytes", "library_ms"),
+        push_first_launch_ms=pick("flag_pull:push", "ms"),
+        push_call_ms=pick("flag_pull:push", "call_ms"),
+        push_parent_push_or_ms=pick("flag_pull:push", "parent_push_or_ms"),
+        push_floor_ms=pick("flag_pull:push", "floor_ms"),
+        push_library_ms=pick("flag_pull:push", "library_ms"),
+        push_bound_ms=pick("flag_pull:push", "bound_ms"),
+        expand_ms=[r["expand"]["expand"]["ms"] for r in rows if "expand" in r],
+        parent_push_and_pull_ms=[r["expand"]["parent"]["ms"] for r in rows if "expand" in r],
+        expand_launches=[r["expand"]["expand"]["launches"] for r in rows if "expand" in r],
+        parent_launches=[r["expand"]["parent"]["launches"] for r in rows if "expand" in r],
+        expand_device_ops=[r["expand"]["expand"]["device_ops"] for r in rows if "expand" in r],
+        parent_device_ops=[r["expand"]["parent"]["device_ops"] for r in rows if "expand" in r],
+        first_launch_ms=[r["expand"]["expand"]["kernel_ms"].get("flag_first_kernel")
+                         for r in rows if "expand" in r],
+        parent_push_or_and_prepass_ms=[
+            [r["expand"]["parent"]["kernel_ms"].get(n_) for n_ in
+             ("push_or_kernel", "flag_first_kernel")] for r in rows if "expand" in r],
+        wrapper_host_us=WRAPPER_ROWS.get(label),
         apply_ms=[r["level_apply"]["ms"] for r in rows],
         apply_bound_ms=[r["level_apply"]["bound_ms"] for r in rows],
         apply_variant=[r["level_apply"]["variant"] for r in rows],
@@ -1569,7 +1821,7 @@ def _lowk16_path(ctx, seed):
     )
     want = _scipy_f(cg, np, _scipy_matrix(sp, np, g), queries[0])
     assert (min_k, min_f) == (0, want) and want > 0, (min_k, min_f, want)
-    assert "flag_pull:W1/map/bits" in VARIANTS["lowk rmat-16"], VARIANTS["lowk rmat-16"]
+    assert "flag_pull:W1/map/bits/push" in VARIANTS["lowk rmat-16"], VARIANTS["lowk rmat-16"]
     bg = BellGraph.from_host(g, dev)
     padded = tio.pad_queries(queries)
     fast = lowk.LowKEngine(bg, level_chunk=128)
@@ -1581,7 +1833,7 @@ def _lowk16_path(ctx, seed):
         levels=int(levels[0]), reached=int(reached[0]), preprocessing_s=pre_s,
         computation_s=comp_s, host_generate_s=host_s,
     )))
-    _pack_check(torch, fast, n, padded, "lowk rmat-16")
+    _batch_start_check(torch, fast, n, padded, "lowk rmat-16")
     rows = _byte_levels(torch, bg, padded, "lowk rmat-16 K=1", _csr_pairs(torch, bg))
     _summarise_levels(rows, "lowk rmat-16 K=1")
     _lowk_split(torch, fast, bg, padded, len(rows), "lowk rmat-16 K=1")
@@ -1623,7 +1875,7 @@ def _rmat20_paths(ctx, n, edges, g, bg, eg, k, seed):
     stale = sum(v for k_, v in ell.items() if ":stale" in k_)
     assert steady > stale > 0, ell
     assert "flag_pull:W16/vec16/map" in VARIANTS["bell rmat-20"], VARIANTS["bell rmat-20"]
-    assert "flag_pull:W1/map" in VARIANTS["lowk rmat-20"], VARIANTS["lowk rmat-20"]
+    assert "flag_pull:W1/map/push" in VARIANTS["lowk rmat-20"], VARIANTS["lowk rmat-20"]
     padded = tio.pad_queries(queries)
     padded4 = tio.pad_queries(queries[:LOWK_GROUPS])
     _ell_level_split(torch, eg, padded, "rmat-20 K=64")
@@ -1683,11 +1935,12 @@ def _rmat20_paths(ctx, n, edges, g, bg, eg, k, seed):
         f=[int(x) for x in fv[:LOWK_GROUPS]], preprocessing_s=pre_s, computation_s=comp_s,
     )))
     print("rmat-20 engine query_stats s: " + json.dumps(seconds))
-    # The pack at the three RMAT-20 batch shapes (bitbell: stride 1, W = 2;
-    # bell: stride 8, W = 16; low-K: stride 8, W = 1).
-    _pack_check(torch, bitbell.BitBellEngine(bg), n, padded, "bitbell rmat-20")
-    _pack_check(torch, bell.BellEngine(bg), n, padded, "bell rmat-20")
-    _pack_check(torch, lowk.LowKEngine(bg), n, padded4, "lowk rmat-20")
+    # The batch start at the four RMAT-20 batch shapes (bitbell: stride 1,
+    # W = 2; bell: stride 8, W = 16; low-K: stride 8, W = 1, at K = 4 and 1).
+    _batch_start_check(torch, bitbell.BitBellEngine(bg), n, padded, "bitbell rmat-20")
+    _batch_start_check(torch, bell.BellEngine(bg), n, padded, "bell rmat-20")
+    _batch_start_check(torch, lowk.LowKEngine(bg), n, padded4, "lowk rmat-20")
+    _batch_start_check(torch, lowk.LowKEngine(bg), n, padded4[:1], "lowk rmat-20 K=1")
     # The byte routes a level at a time and split by launch.
     library = _csr_pairs(torch, bg)
     rows4 = _byte_levels(torch, bg, padded4, "lowk rmat-20 K=4", library)
@@ -1732,13 +1985,13 @@ def _rmat20_paths(ctx, n, edges, g, bg, eg, k, seed):
     assert row["max_abs_err"] == 0 and row["word_view_pull"]["max_abs_err"] == 0, row
     del library, wide
     pulls = [r["flag_pull"] for r in rows4 if "flag_pull" in r]
-    pushes = [r["push_or:bytes"] for r in rows4 if "push_or:bytes" in r]
+    pushes = [r["flag_pull:push"] for r in rows4 if "flag_pull:push" in r]
     assert pulls and pushes, "the low-K BFS ran one direction only"
     # The kernel line's rows: the densest pull and the widest push of the
     # low-K BFS (K = 4, W = 1); and what phase 9 reuses.
     rows = {
         "flag_pull": max(pulls, key=lambda r: r["frontier_rows"]),
-        "push_or:bytes": max(pushes, key=lambda r: r["edges"]),
+        "flag_pull:push": max(pushes, key=lambda r: r["edges"]),
     }
     info = dict(gpath=gpath, qpath=qpath, queries=queries, padded=padded, fv=fv,
                 winner=winner, want=want, scipy=a, groups=groups)
@@ -2096,6 +2349,7 @@ def _streamed_phase(ctx, n, g, bg, info, seed):
             engines[(budget, prefetch)] = eng
     whole, cut = engines[(None, 2)], engines[(STREAMED_BUDGET, 2)]
     plain = streamed.StreamedBitBellEngine(host, dev, plain=True)
+    _batch_start_check(torch, whole, n, padded, "streamed rmat-20")
     # The BFS a level at a time: the kernel pass against the plain pass
     # (the segment outputs and the hits) on every real level, at both cuts;
     # then each launch of the level's pass held and timed (the map
@@ -2351,11 +2605,12 @@ def _run_path(cli, timing, argv, name, launches, numpy_too=False):
     for kernel in PATH_KERNELS[name]:
         assert counts.get(kernel, 0) > 0, f"{kernel} never launched on {name}"
     if name in BYTE_PATHS:
-        assert "forest_or" not in counts, (name, counts)
-    if "pack_sources" in PATH_KERNELS[name]:
+        assert "forest_or" not in counts and "push_or" not in counts, (name, counts)
+    if "batch_start" in PATH_KERNELS[name]:
         stride = 8 if name in BYTE_PATHS else 1
-        packs = {k: v for k, v in VARIANTS[name].items() if k.startswith("pack_sources:")}
-        assert list(packs) == [f"pack_sources:stride{stride}"], (name, packs)
+        want = f"batch_start:stride{stride}" + ("/switch" if name in SWITCHED_PATHS else "")
+        starts = {k: v for k, v in VARIANTS[name].items() if k.startswith("batch_start:")}
+        assert list(starts) == [want], (name, starts)
     if numpy_too:
         numpy_run = _run_cli(cli, argv, native=False)
         assert numpy_run[:2] == result[:2], (name, numpy_run, result)
@@ -2398,7 +2653,7 @@ def _mxu_path(ctx, name, n, edges, g, k, seed):
     mg = mxu.MxuGraph.from_host(g, dev)
     padded = tio.pad_queries(queries)
     fast = mxu.MxuEngine(mg, level_chunk=128, kernel=True)
-    _pack_check(torch, fast, mg.n, padded, name)
+    _batch_start_check(torch, fast, mg.n, padded, name)
     plain = mxu.MxuEngine(mg, level_chunk=128, plain=True)
     t0 = time.perf_counter()
     levels, reached, f_fast = fast.query_stats(padded)
@@ -2680,7 +2935,7 @@ def main() -> int:
     want_f = _scipy_f(cg, np, _scipy_matrix(sp, np, g4), q4[min_k])
     assert want_f == min_f, (want_f, min_f)
     depth = int(levels4.max())
-    _pack_check(torch, fast, n4, padded4, "stencil road-4096")
+    _batch_start_check(torch, fast, n4, padded4, "stencil road-4096")
     print("main path: " + json.dumps(dict(
         graph="road-4096", K=16, winner=min_k + 1, min_f=min_f, scipy_f=want_f,
         preprocessing_s=pre_s, computation_s=comp_s, levels=depth,
@@ -2736,7 +2991,7 @@ def main() -> int:
     ctx20 = (torch, np, sp, cg, cli, tio, timing, generators, launches, tmp)
     rows20, info20 = _rmat20_paths(ctx20, n20, e20, g20, bg20, eg20, 64, seed + 12)
     main_shape.update(rows20)
-    main_shape["pack_sources"] = PACK_ROWS["bitbell rmat-20"]
+    main_shape["batch_start"] = BATCH_ROWS["bitbell rmat-20"]
     del eg20
     torch.cuda.empty_cache()
 
@@ -2823,17 +3078,21 @@ def main() -> int:
         "push_or": "ops/bitbell.py:225",
         "forest_or": "ops/bell.py:75",
         "ell_hits": "ops/pallas_bfs.py:44",
-        "pack_sources": "ops/bitbell.py:93, {JAX_PKG}/ops/lowk.py:66",
+        "batch_start": "ops/bitbell.py:93, {JAX_PKG}/ops/lowk.py:66, "
+                       "{JAX_PKG}/ops/bitbell.py:311",
         "flag_pull": "ops/bell.py:144, {JAX_PKG}/ops/lowk.py:126",
-        "push_or:bytes": "ops/lowk.py:87",
+        "flag_pull:push": "ops/lowk.py:87",
         "forest_map": "ops/streamed.py:117",
         "forest_segment": "ops/streamed.py:117, {JAX_PKG}/ops/streamed.py:139",
         "forest_gather": "ops/streamed.py:146",
     }
-    # The byte use of K3 (K5's push): its launches on the byte paths.
-    total["push_or:bytes"] = sum(launches[p].get("push_or", 0) for p in BYTE_PATHS)
+    # K5's push: the flag_pull launches with the push folded in, on the
+    # byte paths.
+    total["flag_pull:push"] = sum(v for p in BYTE_PATHS for k_, v in VARIANTS[p].items()
+                                  if k_.startswith("flag_pull:") and k_.endswith("/push"))
+    assert total["flag_pull:push"] > 0, "no path launched K5's push"
     rows = []
-    for name in (*kernels.KERNELS, "push_or:bytes"):
+    for name in (*kernels.KERNELS, "flag_pull:push"):
         row = main_shape[name]
         rows.append(dict(
             name=name, route="cuda",

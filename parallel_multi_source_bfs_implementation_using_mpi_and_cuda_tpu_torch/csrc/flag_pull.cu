@@ -1,4 +1,5 @@
-// Kernel K5's pull — the byte-flag BELL forest with the visited mask.
+// Kernel K5 — the byte-flag BELL forest with the visited mask (the pull),
+// and the push of the low-K route in the same launches.
 //
 // Replaces the JAX package's ops/bell.py:144 bell_hits_packed as its
 // byte-flag engines consume it: ops/lowk.py:126 lowk_expand's pull
@@ -61,7 +62,19 @@
 // other widths pass over 8 words at a time.
 // Every launch is gated on the device control as forest_or.cu's are: it
 // returns at once unless the level may run and ctrl[3] is the pull.
-#include "msbfs_common.cuh"
+//
+// K5's push (the JAX package's ops/lowk.py:87 sparse_hits_flags, routed by
+// the lax.cond of ops/lowk.py:126 lowk_expand) folds into the same entry
+// point on the low-K route: the first launch reads ctrl[3] in a
+// block-uniform branch and runs either the push's edge walk
+// (push_walk.cuh, into the direction switch's own hit plane, which the
+// apply reads and clears) or the pre-pass, so a level of either direction
+// costs one launch and one host call fewer than a push launch of its own
+// beside the pull.  The push wants few blocks and the pre-pass a warp per
+// 32-bit unit: the grid is the larger, and the blocks past what the
+// level's direction needs return at once.  The later launches stay gated
+// on the pull.
+#include "push_walk.cuh"
 
 namespace {
 
@@ -204,21 +217,52 @@ __device__ __forceinline__ void active_mask(uint32_t* s_mask, int Wd, int k,
   }
 }
 
-// The pre-pass: the active mask (block 0 stores it for the later
-// launches), then warp units of 32 bits — the frontier bitmap's words
-// (map_units of them: bit v = frontier row v is nonzero) and the live
-// bits of the forest's rows.
-template <int W, bool kVec>
+// The pushed level's walk: push_walk.cuh's at one word a row (the low-K
+// route), at any other width its generic walk.
+struct PushArgs {
+  uint32_t* hits;  // the switch's hit plane, zero between levels
+  const int* start;
+  const int* vals;
+  const int* wl_rows;
+  const int* wl_offs;
+  const long long* state;
+  int blocks;  // the walk's blocks (msbfs::push_blocks)
+};
+
+// The first launch of a level: gated on the level control, then a
+// block-uniform branch on ctrl[3].  A pushed level (kPush only) runs the
+// push's walk in its first ``push.blocks`` blocks.  A pulled level runs the
+// pre-pass in its first ``pre_blocks`` blocks: the active mask (block 0
+// stores it for the later launches), then warp units of 32 bits — the
+// frontier bitmap's words (map_units of them: bit v = frontier row v is
+// nonzero) and the live bits of the forest's rows.  The grid is the larger
+// of the two sizes; the blocks the level's direction does not need return
+// at once.
+template <int W, bool kVec, bool kPush>
 __global__ void __launch_bounds__(msbfs::kThreads)
-flag_prepass_kernel(const uint32_t* __restrict__ frontier,
-                    const uint32_t* __restrict__ visited,
-                    const int* __restrict__ lane_levels, int k,
-                    const int* __restrict__ row_owner, long long n,
-                    long long total_rows, int w_rt,
-                    uint32_t* __restrict__ fmap, long long map_units,
-                    uint32_t* __restrict__ live, uint32_t* __restrict__ mask,
-                    const int* __restrict__ ctrl, int max_levels) {
-  if (!msbfs::direction_go(ctrl, max_levels, msbfs::kDirPull)) return;
+flag_first_kernel(const uint32_t* __restrict__ frontier,
+                  const uint32_t* __restrict__ visited,
+                  const int* __restrict__ lane_levels, int k,
+                  const int* __restrict__ row_owner, long long n,
+                  long long total_rows, int w_rt,
+                  uint32_t* __restrict__ fmap, long long map_units,
+                  uint32_t* __restrict__ live, uint32_t* __restrict__ mask,
+                  int pre_blocks, PushArgs push,
+                  const int* __restrict__ ctrl, int max_levels) {
+  static_assert(msbfs::kPushThreads == msbfs::kThreads, "one block size for both walks");
+  if (!msbfs::level_go(ctrl, max_levels)) return;
+  const int dir = __ldcg(ctrl + 3);
+  if constexpr (kPush) {
+    if (dir == msbfs::kDirPush) {
+      if (static_cast<int>(blockIdx.x) < push.blocks) {
+        msbfs::push_walk<W == 1 ? 1 : 0>(frontier, push.start, push.vals, push.hits, w_rt,
+                                         push.wl_rows, push.wl_offs, push.state,
+                                         push.blocks, blockIdx.x);
+      }
+      return;
+    }
+  }
+  if (dir != msbfs::kDirPull || static_cast<int>(blockIdx.x) >= pre_blocks) return;
   extern __shared__ uint32_t s_mask[];
   const int Wd = W ? W : w_rt;
   active_mask(s_mask, Wd, k, lane_levels, ctrl);
@@ -229,7 +273,7 @@ flag_prepass_kernel(const uint32_t* __restrict__ frontier,
   constexpr int P = W ? W : kPass;
   const int lane = threadIdx.x & 31;
   const long long units = map_units + ((total_rows + 31) >> 5);
-  const long long warps = static_cast<long long>(gridDim.x) * (blockDim.x >> 5);
+  const long long warps = static_cast<long long>(pre_blocks) * (blockDim.x >> 5);
   for (long long u = blockIdx.x * static_cast<long long>(blockDim.x >> 5) + (threadIdx.x >> 5);
        u < units; u += warps) {
     bool on = false;
@@ -519,6 +563,8 @@ struct Args {
   int max_levels;
   int device;
   cudaStream_t stream;
+  bool pushes;  // the first launch also holds the push
+  PushArgs push;
 };
 
 // Per-device launch settings of one bitmap instance.
@@ -578,10 +624,18 @@ cudaError_t run(const Args& a) {
   const long long map_units = kMap ? (a.n + 31) >> 5 : 0;
   const long long units = map_units + ((a.total_rows + 31) >> 5);
   const int mask_smem = a.W * 4;
-  flag_prepass_kernel<W, kVec>
-      <<<msbfs::grid_for(units * 32, msbfs::kThreads), msbfs::kThreads, mask_smem, a.stream>>>(
-          a.frontier, a.visited, a.lane_levels, a.k, a.row_owner, a.n, a.total_rows, a.W,
-          a.fmap, map_units, a.live, a.mask, a.ctrl, a.max_levels);
+  const int pre_blocks = msbfs::grid_for(units * 32, msbfs::kThreads);
+  auto first = [&](auto kernel, int grid) {
+    kernel<<<grid, msbfs::kThreads, mask_smem, a.stream>>>(
+        a.frontier, a.visited, a.lane_levels, a.k, a.row_owner, a.n, a.total_rows, a.W,
+        a.fmap, map_units, a.live, a.mask, pre_blocks, a.push, a.ctrl, a.max_levels);
+  };
+  if (a.pushes) {
+    first(flag_first_kernel<W, kVec, true>,
+          pre_blocks > a.push.blocks ? pre_blocks : a.push.blocks);
+  } else {
+    first(flag_first_kernel<W, kVec, false>, pre_blocks);
+  }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   for (int li = 0; li < a.levels; ++li) {
@@ -617,7 +671,11 @@ cudaError_t with_map(const Args& a, bool map, bool bits) {
 // words, a multiple of 4, >= ceil(n / 32)), used when ``map``; live
 // (ceil(total_rows / 32)); mask (W).  vec16: frontier, visited, v_cat and
 // hits are 16-byte aligned (used at W = 16).  bits: k == 1 at W = 1 with
-// the map.
+// the map.  push_hits: the switch's (n, W) hit plane, or null for a route
+// that only pulls; with it the first launch runs the push on a level
+// ctrl[3] sends to the push, over the dedup CSR (start, vals) and the
+// switch's (2, cap) worklist and state; edge_cap: the most edges a push
+// level can have, which sizes the push's blocks.
 extern "C" int msbfs_flag_pull(int device, const void* frontier,
                                const void* visited, const void* lane_levels,
                                int k, const void* table, const long long* meta,
@@ -626,15 +684,20 @@ extern "C" int msbfs_flag_pull(int device, const void* frontier,
                                const void* row_owner, const void* final_slot,
                                void* hits, long long n, int W,
                                long long total_rows, int chunks, int vec16,
-                               int map, int bits, const void* ctrl,
-                               int max_levels, void* stream) {
+                               int map, int bits, void* push_hits,
+                               const void* start, const void* vals,
+                               const void* worklist, long long cap,
+                               const void* state, long long edge_cap,
+                               const void* ctrl, int max_levels, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int invalid = static_cast<int>(cudaErrorInvalidValue);
   if (W < 1 || k < 0 || k > 4 * W || n < 0 || n >= (1LL << 31) || levels < 0 ||
       total_rows < 0 || total_rows >= (1LL << 31) || chunks != run_chunks(W) ||
       (bits && !(map && W == 1 && k == 1)) ||
-      (map && (map_words % 4 || map_words < (n + 31) / 32))) {
+      (map && (map_words % 4 || map_words < (n + 31) / 32)) ||
+      (push_hits != nullptr && (start == nullptr || vals == nullptr || state == nullptr ||
+                                cap < 0 || edge_cap < 0 || (cap > 0 && worklist == nullptr)))) {
     return invalid;
   }
   for (int li = 0; li < levels; ++li) {
@@ -665,6 +728,16 @@ extern "C" int msbfs_flag_pull(int device, const void* frontier,
   a.max_levels = max_levels;
   a.device = device;
   a.stream = static_cast<cudaStream_t>(stream);
+  a.pushes = push_hits != nullptr;
+  a.push = PushArgs{};
+  if (a.pushes) {
+    const int* wl = static_cast<const int*>(worklist);
+    a.push = PushArgs{static_cast<uint32_t*>(push_hits), static_cast<const int*>(start),
+                      static_cast<const int*>(vals), wl, wl ? wl + cap : nullptr,
+                      static_cast<const long long*>(state), 0};
+    err = msbfs::push_blocks(device, edge_cap, &a.push.blocks);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   switch (W) {
     case 1: err = with_map<1, false>(a, map, bits); break;
     case 16: err = vec16 ? with_map<16, true>(a, map, bits) : with_map<16, false>(a, map, bits); break;

@@ -9,14 +9,16 @@
 // chunk of levels without waiting on any of them:
 //   ctrl[0] = updated  (the previous level discovered something)
 //   ctrl[1] = level    (levels applied so far)
-//   ctrl[2] = blocks of the running level_apply launch that have finished
+//   ctrl[2] = blocks of the running level_apply (or batch_start) launch that
+//             have finished
 //   ctrl[3] = the next level's expansion direction on a direction-switched
 //             route: kDirMatmul / kDirPull (tile_hits or forest_or runs) or
-//             kDirPush (push_or runs), written by the level apply that
-//             made the frontier (and once per batch on the host for the
-//             sources); the stencil kernels never read it
-// The switch state of a direction-switched route (level_apply.cu writes
-// it, push_or.cu reads it) is a (kSwitchWords,) int64 vector, a
+//             kDirPush (the push runs), written by the level apply that
+//             made the frontier (for the sources, by the batch start,
+//             batch_start.cu); the stencil kernels never read it
+// The switch state of a direction-switched route (level_apply.cu and
+// batch_start.cu write it, the push walk of push_walk.cuh reads it) is a
+// (kSwitchWords,) int64 vector, a
 // (2, capacity) int32 worklist — row 0 the active frontier rows that have
 // out-edges, row 1 each one's exclusive prefix of out-degrees in list
 // order (its first edge in the push's edge space) — and the push's own

@@ -264,6 +264,11 @@ class BellEngine(BitBellEngine):
 
         return flag_pull_expand(self.graph, self.plain)
 
+    def _level_expand(self, carry, hits, scratch):
+        from .lowk import byte_level_expand
+
+        return byte_level_expand(self, carry, hits, scratch)
+
     def _new_scratch(self, w: int):
         from .cuda_flag_pull import flag_pull_scratch  # lazy: it imports this module
 

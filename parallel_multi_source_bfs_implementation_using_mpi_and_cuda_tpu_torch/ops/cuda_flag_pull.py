@@ -31,7 +31,14 @@ import torch
 
 from ..runtime import kernels
 from .bell import _max_rows, byte_words, forest_hits
-from .bitbell import DIR_PULL, INT32_MAX, _check_device, _check_plane, direction_go
+from .bitbell import (
+    DIR_PULL,
+    INT32_MAX,
+    _check_device,
+    _check_plane,
+    _check_switch,
+    direction_go,
+)
 from .cuda_bell import BLOCK_SMEM_BYTES, TABLE_BYTES, forest_scratch, forest_tables, map_words
 
 # Lanes between two queries' counters in the word view of a byte plane.
@@ -140,6 +147,93 @@ def flag_pull_plain(
     hits &= ~visited
 
 
+def _check_args(frontier, visited, graph, hits, ctrl, k, levels, switch) -> torch.device:
+    """The checks of a byte-pull call (:func:`flag_pull`, :class:`FlagPullCall`):
+    the planes' shapes and types, the real lanes, the counters and the
+    switch; returns the device of every tensor."""
+    n = graph.n
+    kp = frontier.shape[1]
+    w = kp // 4
+    for name, t in (("frontier", frontier), ("visited", visited), ("hits", hits)):
+        _check_plane(name, byte_words(t), (n, w))
+    _check_plane("final_slot", graph.final_slot, (n,))
+    _check_plane("ctrl", ctrl, (4,))
+    for li, flat in enumerate(graph.level_cols):
+        _check_plane(f"level_cols[{li}]", flat)
+    if not 0 <= k <= kp:
+        raise ValueError(f"k = {k} real lanes in rows of {kp} bytes")
+    extra = () if levels is None else (levels,)
+    if levels is not None:
+        _check_plane("levels", levels, (LANE_STRIDE * kp,))
+    if switch is not None:
+        if graph.sparse is None:
+            raise ValueError("the push needs the BellGraph's dedup CSR")
+        start, _, vals = graph.sparse
+        _check_switch(switch, n, w)
+        _check_plane("start", start, (n,))
+        _check_plane("vals", vals)
+        extra += (switch.count, switch.worklist, switch.state, switch.hits, start, vals)
+    return _check_device(frontier, visited, hits, graph.final_slot, ctrl, *extra,
+                         *graph.level_cols)
+
+
+class FlagPullCall:
+    """One byte-pull call (``csrc/flag_pull.cu``) with its arguments
+    checked: built once (the byte engines' stepper builds it once per
+    batch and plane width), then each call launches with no further
+    checks.  Arguments as :func:`flag_pull`'s, on CUDA tensors.
+
+    ``switch``: the carry's :class:`.bitbell.PushSwitch` on the low-K
+    route, whose push over the dedup CSR (``graph.sparse``) then runs in
+    the first launch on the levels ctrl[3] sends to the push, into the
+    switch's hit plane (K5's push, with no launch of its own); None pulls
+    only.  The variant tally names it with "/push"."""
+
+    def __init__(
+        self, frontier, visited, graph, hits, ctrl, k, max_levels=INT32_MAX, scratch=None,
+        levels=None, switch=None,
+    ):
+        dev = _check_args(frontier, visited, graph, hits, ctrl, k, levels, switch)
+        if dev.type != "cuda":
+            raise ValueError(f"the byte pull's kernel runs on CUDA tensors, not {dev}")
+        n = graph.n
+        f_w, v_w, h_w = byte_words(frontier), byte_words(visited), byte_words(hits)
+        w = f_w.shape[1]
+        if scratch is None:
+            scratch = flag_pull_scratch(graph, w, dev)
+        _check_plane("scratch", scratch.v_cat, (graph.total_rows + 1, w))
+        _check_plane("fmap", scratch.fmap, (map_words(n),))
+        _check_plane("live", scratch.live, (-(-graph.total_rows // 32),))
+        _check_plane("mask", scratch.mask, (w,))
+        aligned = (f_w.data_ptr() | v_w.data_ptr() | h_w.data_ptr() | scratch.v_cat.data_ptr()) % 16 == 0
+        plan = flag_pull_plan(w, n, k, aligned)
+        table, meta = flag_tables(graph, plan.chunks, dev)
+        row_owner = graph.row_owner(dev)
+        _check_device(frontier, *scratch, table, row_owner)
+        push = (None, None, None, None, 0, None, 0)
+        if switch is not None:
+            start, _, vals = graph.sparse
+            push = (switch.hits.data_ptr(), start.data_ptr(), vals.data_ptr(),
+                    switch.worklist.data_ptr(), switch.capacity, switch.state.data_ptr(),
+                    min(switch.edge_limit, int(vals.shape[0])))
+        self.device = dev
+        self.variant = plan.label + ("" if switch is None else "/push")
+        self.args = (
+            f_w.data_ptr(), v_w.data_ptr(), None if levels is None else levels.data_ptr(),
+            int(k), table.data_ptr(), meta, len(graph.level_cols),
+            scratch.v_cat.data_ptr(), scratch.fmap.data_ptr(), map_words(n),
+            scratch.live.data_ptr(), scratch.mask.data_ptr(), row_owner.data_ptr(),
+            graph.final_slot.data_ptr(), h_w.data_ptr(), n, w, graph.total_rows,
+            plan.chunks, int(plan.vec16), int(plan.bitmap), int(plan.bits), *push,
+            ctrl.data_ptr(), int(max_levels),
+        )
+        # The tensors behind the pointers live as long as the call.
+        self._keep = (frontier, visited, hits, ctrl, levels, scratch, switch, table)
+
+    def __call__(self) -> None:
+        kernels.launch("flag_pull", self.device, *self.args, variant=self.variant)
+
+
 def flag_pull(
     frontier: torch.Tensor,
     visited: torch.Tensor,
@@ -160,45 +254,10 @@ def flag_pull(
     (8 Kp,) int32) or None; with them only the queries whose frontier is
     not empty (levels == ctrl[1] + 1) keep a row live, so a query's
     frontier bytes must be zero unless its counter says so.  ``scratch``
-    is :func:`flag_pull_scratch`'s (allocated when None)."""
-    n = graph.n
-    f_w, v_w, h_w = byte_words(frontier), byte_words(visited), byte_words(hits)
-    kp = frontier.shape[1]
-    w = kp // 4
-    for name, t in (("frontier", f_w), ("visited", v_w), ("hits", h_w)):
-        _check_plane(name, t, (n, w))
-    _check_plane("final_slot", graph.final_slot, (n,))
-    _check_plane("ctrl", ctrl, (4,))
-    for li, flat in enumerate(graph.level_cols):
-        _check_plane(f"level_cols[{li}]", flat)
-    if not 0 <= k <= kp:
-        raise ValueError(f"k = {k} real lanes in rows of {kp} bytes")
-    extra = () if levels is None else (levels,)
-    if levels is not None:
-        _check_plane("levels", levels, (LANE_STRIDE * kp,))
-    dev = _check_device(frontier, visited, hits, graph.final_slot, ctrl, *extra,
-                        *graph.level_cols)
-    if dev.type == "cpu":
+    is :func:`flag_pull_scratch`'s (allocated when None).  Checks its
+    arguments on every call (:class:`FlagPullCall` once for many)."""
+    if frontier.device.type == "cpu":
+        _check_args(frontier, visited, graph, hits, ctrl, k, levels, None)
         flag_pull_plain(frontier, visited, graph, hits, ctrl, k, max_levels)
         return
-    if scratch is None:
-        scratch = flag_pull_scratch(graph, w, dev)
-    _check_plane("scratch", scratch.v_cat, (graph.total_rows + 1, w))
-    _check_plane("fmap", scratch.fmap, (map_words(n),))
-    _check_plane("live", scratch.live, (-(-graph.total_rows // 32),))
-    _check_plane("mask", scratch.mask, (w,))
-    aligned = (f_w.data_ptr() | v_w.data_ptr() | h_w.data_ptr() | scratch.v_cat.data_ptr()) % 16 == 0
-    plan = flag_pull_plan(w, n, k, aligned)
-    table, meta = flag_tables(graph, plan.chunks, dev)
-    row_owner = graph.row_owner(dev)
-    _check_device(frontier, *scratch, table, row_owner)
-    kernels.launch(
-        "flag_pull", dev,
-        f_w.data_ptr(), v_w.data_ptr(), None if levels is None else levels.data_ptr(), int(k),
-        table.data_ptr(), meta, len(graph.level_cols),
-        scratch.v_cat.data_ptr(), scratch.fmap.data_ptr(), map_words(n),
-        scratch.live.data_ptr(), scratch.mask.data_ptr(), row_owner.data_ptr(),
-        graph.final_slot.data_ptr(), h_w.data_ptr(), n, w, graph.total_rows,
-        plan.chunks, int(plan.vec16), int(plan.bitmap), int(plan.bits),
-        ctrl.data_ptr(), int(max_levels), variant=plan.label,
-    )
+    FlagPullCall(frontier, visited, graph, hits, ctrl, k, max_levels, scratch, levels)()

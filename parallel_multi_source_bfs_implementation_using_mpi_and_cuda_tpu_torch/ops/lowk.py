@@ -5,18 +5,20 @@ JAX runs K <= 4 queries on an (n, K) uint8 0/1 flag matrix instead of a
 bit plane padded to 32 queries.  The port keeps K unpadded too
 (``k_align = 1``) as an (n, Kp) byte plane, Kp = 4 ceil(K/4), which is an
 (n, Kp/4) word plane without a copy (:func:`.bell.byte_words`: query q's
-flag is bit 8q).  One level is the push (``csrc/push_or.cu`` on the word
-view, :func:`sparse_hits_flags`) and the byte pull
-(``csrc/flag_pull.cu``, :func:`.cuda_flag_pull.flag_pull`: JAX's pull
-with its ``where(visited, 0, hits)``, skipping the rows of vertices every
-live query has reached and, through a bitmap of the frontier, the sources
-not in it), each gated on the direction in ctrl[3], then the level apply
-(``csrc/level_apply.cu``), whose switch epilogue decides the next
-direction by JAX's predicate (active rows <= budget and their edges <=
-budget) and whose per-lane counters hold query q's at lane 8q.  What the
-word view gives up is JAX's 1 byte a vertex at K = 1 (4 here).
+flag is bit 8q).  One level is one expansion call, :func:`flag_expand`
+(``csrc/flag_pull.cu``): its first launch reads the direction in ctrl[3]
+on the device and runs either the push (K5's push: the push's edge walk
+over the switch's worklist, into the switch's hit plane) or the pre-pass
+of the byte pull (JAX's pull with its ``where(visited, 0, hits)``,
+skipping the rows of vertices every live query has reached and, through
+a bitmap of the frontier, the sources not in it), whose later launches
+are gated on the pull; then the level apply (``csrc/level_apply.cu``),
+whose switch epilogue decides the next direction by JAX's predicate
+(active rows <= budget and their edges <= budget) and whose per-lane
+counters hold query q's at lane 8q.  What the word view gives up is JAX's
+1 byte a vertex at K = 1 (4 here).
 
-The sources are packed at a stride of 8 lanes (``csrc/pack_sources.cu``).
+The batch starts at a stride of 8 lanes (:func:`.bitbell.batch_start`).
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ from .bitbell import (
     pack_queries,
     sparse_hits_or,
 )
-from .cuda_flag_pull import flag_pull, flag_pull_plain, flag_pull_scratch
+from .cuda_flag_pull import FlagPullCall, flag_pull, flag_pull_plain, flag_pull_scratch
 
 # Routing cap of the CLI's auto route: at most this many queries take the
 # byte planes (the JAX package's).
@@ -77,12 +79,14 @@ def sparse_hits_flags(
     switch: PushSwitch,
     max_levels: int = INT32_MAX,
 ) -> None:
-    """Kernel K5's push (the JAX package's ``sparse_hits_flags``): the
-    flags of every row on ``switch``'s worklist ORed into its dedup
-    neighbours' rows of the all-zero (n, Kp) byte plane ``hits``.  Runs
-    the push scatter-OR (``csrc/push_or.cu``) on both planes' word views,
-    gated on the device as it is.  Exact for any frontier: JAX compacts at
-    most ``budget`` active rows, which its predicate makes all of them."""
+    """The byte push as a launch of its own (the JAX package's
+    ``sparse_hits_flags``): the flags of every row on ``switch``'s
+    worklist ORed into its dedup neighbours' rows of the all-zero (n, Kp)
+    byte plane ``hits``, by K3's push scatter-OR (``csrc/push_or.cu``) on
+    both planes' word views, gated on the device as it is.  Exact for any
+    frontier: JAX compacts at most ``budget`` active rows, which its
+    predicate makes all of them.  The low-K level runs the same walk
+    inside the byte pull's first launch instead (:func:`flag_expand`)."""
     start, _, vals = graph.sparse
     sparse_hits_or(
         byte_words(frontier), start, vals, byte_words(hits), ctrl, switch, max_levels
@@ -106,21 +110,67 @@ def flag_pull_expand(graph, plain: bool = False):
     return expand
 
 
+def flag_expand(carry, graph, hits: torch.Tensor, max_levels: int, scratch=None) -> None:
+    """One low-K level's expansion in one call: K5's push (into the
+    switch's plane) on a level ctrl[3] sends to the push, else the byte
+    pull into ``hits`` (:func:`flag_pull_expand`).  On CUDA one
+    :class:`.cuda_flag_pull.FlagPullCall` with the carry's switch, whose
+    first launch runs the one the device's direction names; on CPU
+    tensors the plain push then the plain pull.  A carry without a switch
+    only pulls."""
+    u8 = torch.uint8
+    sw = carry.switch
+    if carry.frontier.device.type == "cpu":
+        if sw is not None:
+            sparse_hits_flags(carry.frontier.view(u8), graph, sw.hits.view(u8), carry.ctrl,
+                              sw, max_levels)
+        flag_pull_expand(graph)(carry, hits, max_levels, scratch)
+        return
+    _bound_call(carry, graph, hits, max_levels, scratch)()
+
+
+def _bound_call(carry, graph, hits, max_levels, scratch) -> FlagPullCall:
+    u8 = torch.uint8
+    return FlagPullCall(carry.frontier.view(u8), carry.visited.view(u8), graph, hits.view(u8),
+                        carry.ctrl, carry.k, max_levels, scratch, carry.levels, carry.switch)
+
+
+def byte_level_expand(engine, carry, hits: torch.Tensor, scratch):
+    """A byte engine's level expansion for ``carry`` as ``expand(c)``
+    (``engine._level_expand``; ``c`` must be ``carry``): on the card the
+    expansion call is checked here, once, and each level launches it with
+    no further checks (the push folded in when the carry has a switch);
+    else ``engine._expand``'s function."""
+    if engine.plain or engine.device.type != "cuda":
+        expand = engine._expand(carry.frontier.shape[1])
+        return lambda c: expand(c, hits, engine._max_levels, scratch)
+    call = _bound_call(carry, engine.graph, hits, engine._max_levels, scratch)
+
+    def bound(c) -> None:
+        if c is not carry:
+            raise ValueError("a byte engine's level runs the carry it was made for")
+        call()
+
+    return bound
+
+
 def lowk_expand(graph, plain: bool = False):
     """The expansion of one low-K level, as ``expand(carry, hits,
     max_levels, scratch)`` filling the byte view of ``hits`` (or of the
-    switch's plane on a push level) from the carry's frontier: the push
-    when the carry has a switch, then the pull
-    (:func:`flag_pull_expand`), each running only in the direction ctrl[3]
-    names.  ``plain`` runs the plain versions."""
-    push = sparse_hits_flags_plain if plain else sparse_hits_flags
+    switch's plane on a push level) from the carry's frontier
+    (:func:`flag_expand`, one call).  ``plain`` runs the plain versions:
+    the push when the carry has a switch, then the pull, each running only
+    in the direction ctrl[3] names."""
+    if not plain:
+        return lambda carry, hits, max_levels, scratch: flag_expand(
+            carry, graph, hits, max_levels, scratch)
     pull = flag_pull_expand(graph, plain)
 
     def expand(carry, hits: torch.Tensor, max_levels: int, scratch) -> None:
         sw = carry.switch
         if sw is not None:
-            push(carry.frontier.view(torch.uint8), graph, sw.hits.view(torch.uint8),
-                 carry.ctrl, sw, max_levels)
+            sparse_hits_flags_plain(carry.frontier.view(torch.uint8), graph,
+                                    sw.hits.view(torch.uint8), carry.ctrl, sw, max_levels)
         pull(carry, hits, max_levels, scratch)
 
     return expand
@@ -163,6 +213,9 @@ class LowKEngine(BitBellEngine):
 
     def _expand(self, w: int):
         return lowk_expand(self.graph, self.plain)
+
+    def _level_expand(self, carry, hits, scratch):
+        return byte_level_expand(self, carry, hits, scratch)
 
     def _new_scratch(self, w: int):
         return flag_pull_scratch(self.graph, w, self.device)

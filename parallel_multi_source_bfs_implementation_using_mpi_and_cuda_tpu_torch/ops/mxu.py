@@ -47,15 +47,14 @@ from .bitbell import (
     WORD_BITS,
     BitCarry,
     FusedBestEngine,
-    PushSwitch,
+    SourceStaging,
+    SwitchLimits,
     _pack_status,
+    batch_start,
     bit_level_apply,
     bit_level_apply_plain,
     bit_level_chunk,
-    bit_level_init,
     default_sparse_budget,
-    pack_queries,
-    pack_queries_plain,
     resolve_megachunk,
     sparse_hits_or,
     sparse_hits_or_plain,
@@ -262,18 +261,6 @@ def mxu_expand(graph: MxuGraph, kernel: bool = False, plain: bool = False):
     return expand
 
 
-def _mxu_frontier0(graph: MxuGraph, queries, plain: bool = False):
-    """(K, S) host queries -> (n_pad, W) source planes and (K,) source
-    counts: packed over the real vertex range (sources at or past n are
-    dropped), then zero rows up to the tile boundary."""
-    pack = pack_queries_plain if plain else pack_queries
-    fr, counts0 = pack(graph.n, queries, graph.device)
-    pad = graph.n_pad - graph.n
-    if pad:
-        fr = torch.cat([fr, fr.new_zeros((pad, fr.shape[1]))])
-    return fr, counts0
-
-
 class MxuEngine(FusedBestEngine):
     """Tensor-core direction-switched engine over an :class:`MxuGraph`.
 
@@ -325,6 +312,7 @@ class MxuEngine(FusedBestEngine):
         self.kernel = bool(kernel)
         self.plain = bool(plain)
         self._expand = mxu_expand(graph, self.kernel, self.plain)
+        self._staging = SourceStaging()
         self.last_direction_trace = []
 
     def _account(self, advanced: int, k: int) -> None:
@@ -342,14 +330,13 @@ class MxuEngine(FusedBestEngine):
     # -- the level loop --------------------------------------------------
 
     def _init_carry(self, queries) -> BitCarry:
-        """The carry, with the switch's push predicate ``active rows <=
-        switch and their edges <= push_budget`` decided for the sources."""
-        frontier0, counts0 = _mxu_frontier0(self.graph, queries, self.plain)
-        switch = PushSwitch.new(
-            self.graph.count, min(self.switch, INT32_MAX), self.push_budget,
-            frontier0.shape[1],
-        )
-        return bit_level_init(frontier0, counts0, switch)
+        """The carry over (n_pad, W) planes (sources at or past n dropped,
+        the tile padding's rows zero), with the switch's push predicate
+        ``active rows <= switch and their edges <= push_budget`` decided for
+        the sources."""
+        limits = SwitchLimits(self.graph.count, min(self.switch, INT32_MAX), self.push_budget)
+        return batch_start(self.graph.n, queries, self.device, rows=self.graph.n_pad,
+                           switch=limits, plain=self.plain, staging=self._staging)
 
     def _step(self, carry: BitCarry, hits: torch.Tensor) -> None:
         """One gated level: expansion in the switched direction, apply."""

@@ -38,13 +38,12 @@ from .bitbell import (
     WORD_BITS,
     BitCarry,
     FusedBestEngine,
+    SourceStaging,
     _pack_status,
+    batch_start,
     bit_level_apply,
     bit_level_apply_plain,
     bit_level_chunk,
-    bit_level_init,
-    pack_queries,
-    pack_queries_plain,
     resolve_megachunk,
     stepped_level_trace,
 )
@@ -313,6 +312,7 @@ class StencilEngine(FusedBestEngine):
         self.level_chunk = validate_level_chunk(level_chunk)
         self.megachunk = resolve_megachunk(megachunk, self.level_chunk)
         self.plain = bool(plain)
+        self._staging = SourceStaging()
         if window is None:
             window = knobs.raw("MSBFS_STENCIL_WINDOW", "") != "0"
         self.window_requested = bool(window)
@@ -368,9 +368,8 @@ class StencilEngine(FusedBestEngine):
     # -- the level loop --------------------------------------------------
 
     def _init_carry(self, queries) -> BitCarry:
-        pack = pack_queries_plain if self.plain else pack_queries
-        frontier0, counts0 = pack(self.graph.n, queries, self.device)
-        return bit_level_init(frontier0, counts0)
+        return batch_start(self.graph.n, queries, self.device, plain=self.plain,
+                           staging=self._staging)
 
     def _step(self, carry: BitCarry, wlo: int, hits: torch.Tensor) -> None:
         """One gated level over the carry's rows (a window starting at
@@ -433,9 +432,9 @@ class StencilEngine(FusedBestEngine):
     def _warm(self, queries) -> None:
         """Build and load the kernels, then run one real level from one
         source: CUDA loads each kernel module (torch's sort and scatter
-        behind the plain ``pack_queries`` included) at its first launch, and the
-        chunk loop allocates its pinned peek buffer, so none of that
-        lands in the first timed run."""
+        behind the plain batch start included) at its first launch, and the
+        chunk loop and the batch start allocate their pinned buffers, so
+        none of that lands in the first timed run."""
         if self.device.type == "cuda" and not self.plain:
             kernels.library()
         if self.graph.n:

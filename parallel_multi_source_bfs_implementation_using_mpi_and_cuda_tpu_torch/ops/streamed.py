@@ -5,7 +5,7 @@ The port of the JAX package's ops/streamed.py ``StreamedBitBellEngine``,
 the last rung of the default route's capacity ladder and the route
 ``MSBFS_BACKEND=streamed``.  Its semantics are the bit-plane engine's
 exactly: every level is a forest pull (no push), the carry is
-:func:`.bitbell.bit_level_init` and :func:`.bitbell.bit_level_apply` of
+:func:`.bitbell.batch_start`'s and :func:`.bitbell.bit_level_apply` of
 ``hits & ~visited`` (kernels K4 and K2), and the host reads the level
 control once per BFS level (one :func:`..utils.timing.record_dispatch`).
 
@@ -52,12 +52,11 @@ from .bitbell import (
     INT32_MAX,
     WORD_BITS,
     BitCarry,
+    SourceStaging,
     _pack_status,
+    batch_start,
     bit_level_apply,
     bit_level_apply_plain,
-    bit_level_init,
-    pack_queries,
-    pack_queries_plain,
 )
 from .cuda_bell import (
     SegmentTables,
@@ -123,6 +122,7 @@ class StreamedBitBellEngine(PackedEngineBase):
             prefetch = knobs.get_int("MSBFS_STREAM_PREFETCH", 2)
         self.prefetch = max(1, int(prefetch))
         self.plain = bool(plain)
+        self._staging = SourceStaging()
         cuda = self.device.type == "cuda"
         self.final_slot = torch.as_tensor(
             np.ascontiguousarray(np.asarray(_host(graph.final_slot), dtype=np.int32))
@@ -255,11 +255,8 @@ class StreamedBitBellEngine(PackedEngineBase):
         gather(scratch, self.final_slot, hits, ctrl, self._max_levels)
 
     def _init_carry(self, queries) -> BitCarry:
-        pack = pack_queries_plain if self.plain else pack_queries
-        frontier0, counts0 = pack(self.n, queries, self.device)
-        carry = bit_level_init(frontier0, counts0)
-        carry.k = int(queries.shape[0])
-        return carry
+        return batch_start(self.n, queries, self.device, plain=self.plain,
+                           staging=self._staging)
 
     def _run(self, queries, max_levels: Optional[int] = None) -> BitCarry:
         """Padded (Kpad, S) queries -> the converged carry: one blocking

@@ -34,7 +34,6 @@ from ..utils.timing import record_launch
 _PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR / "build"
-_HEADER = CSRC_DIR / "msbfs_common.cuh"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -92,11 +91,11 @@ KERNELS = {
     "flag_pull": (
         "msbfs_flag_pull",
         [_P, _P, _P, _I, _P, ctypes.POINTER(_L), _I, _P, _P, _I, _P, _P, _P, _P, _P,
-         _L, _I, _L, _I, _I, _I, _I, _P, _I],
+         _L, _I, _L, _I, _I, _I, _I, _P, _P, _P, _P, _L, _P, _L, _P, _I],
     ),
-    "pack_sources": (
-        "msbfs_pack_sources",
-        [_P, _L, _L, _L, _P, _I, _I, _P],
+    "batch_start": (
+        "msbfs_batch_start",
+        [_P, _L, _L, _L, _I, _P, _L, _P, _P, _I, _P, _P, _P, _P, _P, _P, _L, _P, _L, _L],
     ),
 }
 
@@ -133,7 +132,8 @@ def source(name: str) -> str:
 def _target(src: str) -> Path:
     digest = hashlib.sha256()
     digest.update((CSRC_DIR / f"{src}.cu").read_bytes())
-    digest.update(_HEADER.read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{src}-{digest.hexdigest()[:16]}.so"
 

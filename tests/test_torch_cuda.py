@@ -361,7 +361,7 @@ def test_fused_sweep_matches_plain(cuda, monkeypatch, rows, w, offsets, r, strad
 
 def test_stencil_route_launches_one_kernel_a_level(cuda):
     """A residual graph's level is one sweep launch (the residual inside
-    it) and one apply, nothing else; the batch's sources are one pack."""
+    it) and one apply, nothing else; the batch's start is one launch."""
     n, edges = generators.road_edges(48, 48, seed=5, shortcut_frac=0.01)
     sg = stencil.StencilGraph.from_host(CSRGraph.from_edges(n, edges), cuda)
     assert sg.residual is not None
@@ -370,8 +370,8 @@ def test_stencil_route_launches_one_kernel_a_level(cuda):
     timing.reset_launch_counts()
     eng.query_stats(queries)
     counts = timing.launch_counts()
-    assert set(counts) == {"pack_sources", "stencil_sweep", "level_apply"}
-    assert counts["stencil_sweep"] == counts["level_apply"] and counts["pack_sources"] == 1
+    assert set(counts) == {"batch_start", "stencil_sweep", "level_apply"}
+    assert counts["stencil_sweep"] == counts["level_apply"] and counts["batch_start"] == 1
     assert all(k.endswith("/res") for k in timing.variant_counts() if k.startswith("stencil_sweep"))
 
 
@@ -1251,19 +1251,175 @@ def _pack_case(case, n, k, s, rng):
      ("duplicates", 256, 7), ("random", 3, 0), ("random", 0, 5), ("random", 16, 300)],
 )
 def test_pack_sources_matches_plain(cuda, stride, case, k, s):
-    """The pack kernel against its plain version, bit for bit, plane and
-    per-lane counts; an empty batch launches nothing."""
+    """The packing of the batch-start kernel against its plain version,
+    bit for bit, plane and per-lane counts; one launch, an empty batch's
+    too (it writes the control)."""
     n = 5000
     q = _pack_case(case, n, k, s, np.random.default_rng(k * 7 + s + stride))
     want = bitbell.pack_queries_plain(n, q, "cpu", stride)
     timing.reset_launch_counts()
     got = bitbell.pack_queries(n, q, cuda, stride)
     torch.cuda.synchronize()
-    assert timing.launch_counts() == ({"pack_sources": 1} if k * s else {})
-    assert timing.variant_counts() == ({f"pack_sources:stride{stride}": 1} if k * s else {})
+    assert timing.launch_counts() == {"batch_start": 1}
+    assert timing.variant_counts() == {f"batch_start:stride{stride}": 1}
     for x, y in zip(got, want):
         assert torch.equal(x.cpu(), y)
     assert torch.equal(bitbell.pack_queries_plain(n, q, cuda, stride)[0].cpu(), want[0])
+
+
+def _assert_batch_start_equal(got, want):
+    """Every carry field and the switch state bit for bit; the worklist
+    (in the kernel's append order) as a set, each entry's offset the
+    exclusive prefix of the out-degrees before it, when the list is whole;
+    the switch's hit plane zero."""
+    for field in ("visited", "frontier", "f", "levels", "reached", "counts", "ctrl"):
+        assert torch.equal(getattr(got, field).cpu(), getattr(want, field).cpu()), field
+    assert got.k == want.k
+    assert (got.switch is None) == (want.switch is None)
+    if want.switch is None:
+        return
+    gs, ws = got.switch, want.switch
+    assert torch.equal(gs.state.cpu(), ws.state.cpu()), (gs.state, ws.state)
+    assert not bool(gs.hits.any()) and gs.capacity == ws.capacity
+    length = int(ws.state[bitbell.SW_LISTED])
+    if int(ws.state[bitbell.SW_ACTIVE_ROWS]) > gs.capacity:
+        return  # a list cut at its capacity: which rows made it is the order's
+    rows = gs.worklist[0, :length].long()
+    assert torch.equal(torch.sort(rows).values.cpu(), ws.worklist[0, :length].long().cpu())
+    deg = gs.count[rows].long()
+    assert torch.equal(gs.worklist[1, :length].long(), torch.cumsum(deg, 0) - deg)
+
+
+@pytest.mark.parametrize("stride", [1, 8])
+@pytest.mark.parametrize(
+    "case,k,s,row_limit,extra_rows",
+    [("random", 1, 1, None, 0), ("duplicates", 4, 9, None, 0), ("out_of_range", 64, 128, None, 0),
+     ("duplicates", 96, 7, None, 0), ("random", 16, 300, 40, 0), ("random", 3, 0, None, 0),
+     ("random", 0, 5, None, 0), ("random", 33, 20, 10**9, 123), ("out_of_range", 4, 64, 0, 0)],
+)
+@pytest.mark.parametrize("switched", [False, True])
+def test_batch_start_matches_plain(cuda, stride, case, k, s, row_limit, extra_rows, switched):
+    """The batch-start kernel against its plain composition (pack,
+    bit_level_init, switch_record) on the card: both planes, the counters,
+    ctrl, the switch state and the worklist; at both strides, W > 1 (K =
+    33, 64, 96), plane rows past n (the mxu route's padding), a list cut
+    at its capacity, a zero row limit, empty batches; one launch."""
+    n = 5000
+    rng = np.random.default_rng(k * 7 + s + stride)
+    q = _pack_case(case, n, k, s, rng)
+    rows = n + extra_rows
+    limits = None
+    if switched:
+        count = torch.from_numpy(rng.integers(0, 4, size=rows).astype(np.int32)).to(cuda)
+        limit = rows if row_limit is None else row_limit
+        limits = bitbell.SwitchLimits(count, limit, 300)
+    want = bitbell.batch_start(n, q, cuda, stride, rows=rows, switch=limits, plain=True)
+    timing.reset_launch_counts()
+    got = bitbell.batch_start(n, q, cuda, stride, rows=rows, switch=limits)
+    torch.cuda.synchronize()
+    assert timing.launch_counts() == {"batch_start": 1}
+    label = f"batch_start:stride{stride}" + ("/switch" if switched else "")
+    assert timing.variant_counts() == {label: 1}
+    _assert_batch_start_equal(got, want)
+    if switched and row_limit == 40:
+        assert int(want.switch.state[bitbell.SW_ACTIVE_ROWS]) > got.switch.capacity == 40
+    # A second batch into fresh buffers from the same staging buffer.
+    staging = bitbell.SourceStaging()
+    for _ in range(2):
+        again = bitbell.batch_start(n, q, cuda, stride, rows=rows, switch=limits, staging=staging)
+        _assert_batch_start_equal(again, want)
+
+
+@pytest.mark.parametrize("k,budget", [(1, 10**6), (3, 300), (4, 700), (9, 300)])
+def test_flag_expand_matches_plain_on_push_and_pull_levels(cuda, k, budget):
+    """The low-K level's one expansion call (K5's push folded into the
+    byte pull's first launch) against the plain push and the plain pull
+    on every level of one BFS, both directions: one flag_pull launch a
+    level, no push_or; then the engine's stepper, whose call is checked
+    once, to the same counters."""
+    g = _hub_graph(50 + k)
+    bg = BellGraph.from_host(g, cuda)
+    queries = io.pad_queries(generators.random_queries(g.n, k, max_group=4, seed=k))
+    eng = lowk.LowKEngine(bg, sparse_budget=budget)
+    carry = eng._init_carry(eng._pad_queries(queries)[0])
+    w = carry.frontier.shape[1]
+    scratch = cuda_flag_pull.flag_pull_scratch(bg, w, cuda)
+    hits = torch.zeros_like(carry.frontier)
+    u8 = torch.uint8
+    seen = set()
+    while bitbell.level_go(carry.ctrl, 10**6):
+        d = int(carry.ctrl[3])
+        seen.add(d)
+        sw = carry.switch
+        want = torch.zeros_like(carry.frontier)
+        if d == bitbell.DIR_PUSH:
+            lowk.sparse_hits_flags_plain(carry.frontier.view(u8), bg, want.view(u8), carry.ctrl, sw)
+        else:
+            cuda_flag_pull.flag_pull_plain(carry.frontier.view(u8), carry.visited.view(u8), bg,
+                                           want.view(u8), carry.ctrl, carry.k)
+        timing.reset_launch_counts()
+        lowk.flag_expand(carry, bg, hits, 10**6, scratch)
+        torch.cuda.synchronize()
+        assert timing.launch_counts() == {"flag_pull": 1}
+        assert all(v.endswith("/push") for v in timing.variant_counts())
+        got = sw.hits if d == bitbell.DIR_PUSH else hits
+        assert torch.equal(got, want), (len(seen), d)
+        bitbell.bit_level_apply(carry, hits)
+        assert not bool(sw.hits.any())
+    assert seen == {bitbell.DIR_PUSH, bitbell.DIR_PULL} or budget == 10**6
+    fast = eng._init_carry(eng._pad_queries(queries)[0])
+    eng._chunk(fast, None)
+    torch.cuda.synchronize()
+    for field in ("f", "levels", "reached", "ctrl"):
+        assert torch.equal(getattr(fast, field), getattr(carry, field)), field
+
+
+def _route_engines(cuda):
+    """One engine of every route that starts batches, on small graphs."""
+    road_n, road_e = generators.road_edges(48, 48, seed=5, shortcut_frac=0.01)
+    road = CSRGraph.from_edges(road_n, road_e)
+    g = _hub_graph(61)
+    bg = BellGraph.from_host(g, cuda)
+    mg = mxu.MxuGraph.from_host(road, cuda, tile=64)
+    return {
+        "stencil": (stencil.StencilEngine(stencil.StencilGraph.from_host(road, cuda)), road_n),
+        "mxu": (mxu.MxuEngine(mg, kernel=True, switch=10**6), road_n),
+        "bitbell": (bitbell.BitBellEngine(bg), g.n),
+        "lowk": (lowk.LowKEngine(bg, sparse_budget=300), g.n),
+        "bell": (bell.BellEngine(bg), g.n),
+        "streamed": (streamed.StreamedBitBellEngine(BellGraph.from_host(g, False), cuda), g.n),
+    }
+
+
+def test_batch_start_and_lowk_chunk_make_no_blocking_read(cuda):
+    """Under torch.cuda.set_sync_debug_mode("error"): every route's batch
+    start (``_init_carry``, warmed once) and the enqueue of a low-K chunk
+    make no blocking device-to-host read; the hybrid routes' batch start
+    is three device operations (the upload, the memset, the kernel)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for name, (eng, n) in _route_engines(cuda).items():
+        k = 1 if name == "lowk" else 40
+        queries = eng._pad_queries(io.pad_queries(
+            generators.random_queries(n, k, max_group=5, seed=len(name))))[0]
+        carry = eng._init_carry(queries)
+        if name == "lowk":
+            eng._chunk(carry, 4)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            carry = eng._init_carry(queries)
+            if name == "lowk":
+                eng._chunk(carry, 4)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            eng._init_carry(queries)
+            torch.cuda.synchronize()
+        ops = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if ops:  # a trace that saw the device
+            assert len(ops) <= 3, (name, [e.name for e in ops])
 
 
 @pytest.mark.parametrize("k", [1, 3, 4, 8, 64])
@@ -1344,8 +1500,9 @@ def test_lowk_and_bell_cli_on_card(cuda, tmp_path, capsys, monkeypatch, backend,
     timing.reset_launch_counts()
     assert cli.main(argv) == 0
     counts = timing.launch_counts()
-    assert counts.get("pack_sources", 0) > 0 and counts.get("flag_pull", 0) > 0
+    assert counts.get("batch_start", 0) > 0 and counts.get("flag_pull", 0) > 0
     assert "forest_or" not in counts  # the byte routes pull with their own kernel
+    assert "push_or" not in counts  # the low-K push runs inside flag_pull's launches
     card = capsys.readouterr().out.splitlines()
     assert cli.main(argv, device="cpu") == 0
     host = capsys.readouterr().out.splitlines()

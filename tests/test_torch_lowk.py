@@ -148,14 +148,26 @@ def test_pack_matches_jax_at_both_strides(k, s):
 
 
 def test_pack_sources_checks_its_buffers():
+    """The batch start's packing (its plain version, and the batch start
+    on CPU tensors) and the checks of its inputs: the queries' rank, the
+    plane rows, the switch's out-degrees, the lane stride."""
     q = torch.zeros((3, 2), dtype=torch.int32)
     plane, counts = torch.zeros((10, 1), dtype=torch.int32), torch.zeros(32, dtype=torch.int32)
-    bitbell.pack_sources(q, 10, plane, counts, 8)
+    bitbell.pack_sources_plain(q, 10, plane, counts, 8)
     assert int(plane[0]) == 1 | 1 << 8 | 1 << 16 and counts[::8].tolist() == [1, 1, 1, 0]
+    carry = bitbell.batch_start(10, q.numpy(), "cpu", 8)
+    assert torch.equal(carry.frontier, plane) and torch.equal(carry.visited, plane)
+    assert torch.equal(carry.reached, counts) and carry.k == 3
     with pytest.raises(ValueError, match="shape"):
-        bitbell.pack_sources(torch.zeros((5, 2), dtype=torch.int32), 10, plane, counts, 8)
-    with pytest.raises(ValueError, match="int32"):
-        bitbell.pack_sources(q.to(torch.int64), 10, plane, counts, 8)
+        bitbell.batch_start(10, np.zeros(3, dtype=np.int32), "cpu", 8)
+    with pytest.raises(ValueError, match="rows"):
+        bitbell.batch_start(10, q.numpy(), "cpu", 8, rows=9)
+    limits = bitbell.SwitchLimits(torch.zeros(9, dtype=torch.int32), 4, 4)
+    with pytest.raises(ValueError, match="shape"):
+        bitbell.batch_start(10, q.numpy(), "cpu", 8, switch=limits)
+    limits = bitbell.SwitchLimits(torch.zeros(10, dtype=torch.int64), 4, 4)
+    with pytest.raises(TypeError, match="int32"):
+        bitbell.batch_start(10, q.numpy(), "cpu", 8, switch=limits)
     with pytest.raises(ValueError, match="positive"):
         bitbell.pack_queries(10, np.zeros((3, 2)), "cpu", 0)
 
@@ -322,6 +334,39 @@ def test_device_directions_match_jax_predicate(graphs, k, budget):
     for x, y in zip(got, want):
         np.testing.assert_array_equal(x.numpy(), y)
     assert not carry.f.view(-1, 8)[:, 1:].any()  # lanes 8q + 1..7 never count
+
+
+@pytest.mark.parametrize("k,budget", [(1, 5000), (3, 300), (4, 300), (2, 600)])
+def test_flag_expand_matches_jax_lowk_expand(graphs, k, budget):
+    """The low-K level's single expansion call (``flag_expand``: the push
+    on a level ctrl[3] sends to the push, into the switch's plane, else
+    the byte pull into ``hits``), masked by visited as the apply masks it,
+    against JAX's ``lowk_expand`` on every level of one BFS, push and pull
+    levels both; the engine's stepper reaches the same counters."""
+    n, _, _, bg, jb = graphs["hub"]
+    padded = _queries(n, k, 7 * k + budget)
+    eng = lowk.LowKEngine(bg, sparse_budget=budget)
+    carry = eng._init_carry(eng._pad_queries(padded)[0])
+    jexpand = jlowk.lowk_expand(jb, budget)
+    hits = torch.zeros_like(carry.frontier)
+    u8 = torch.uint8
+    seen = set()
+    while bitbell.level_go(carry.ctrl, 10**6):
+        flags = planes_to_flags(carry.frontier.view(u8), k)
+        seen_flags = planes_to_flags(carry.visited.view(u8), k)
+        want = np.asarray(jexpand(jnp.asarray(seen_flags), jnp.asarray(flags)))
+        pushed = int(carry.ctrl[3]) == bitbell.DIR_PUSH
+        seen.add(pushed)
+        lowk.flag_expand(carry, bg, hits, 10**6)
+        plane = (carry.switch.hits if pushed else hits).view(u8) & ~carry.visited.view(u8)
+        np.testing.assert_array_equal(planes_to_flags(plane, k), want)
+        bitbell.bit_level_apply(carry, hits)
+        assert not bool(carry.switch.hits.any())
+    assert len(seen) == 2 or budget == 5000
+    stepped = eng._init_carry(eng._pad_queries(padded)[0])
+    eng._chunk(stepped, None)
+    for field in ("f", "levels", "reached", "ctrl"):
+        assert torch.equal(getattr(stepped, field), getattr(carry, field)), field
 
 
 def test_lowk_directions_push_and_pull_in_one_bfs(graphs):
