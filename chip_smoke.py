@@ -9,7 +9,7 @@ compiler, and scipy; imports nothing of JAX.  Phases (any failure exits
 non-zero; nothing is caught):
 
 1. print the card (nvidia-smi name, power limit); build the CUDA kernels
-   from csrc/ (eight sources, eleven entry points) in parallel and the
+   from csrc/ (ten sources, fourteen entry points) in parallel and the
    native host runtime
    (runtime/loader.cpp), and time both builds; print the host's CPUs and
    the native runtime's thread count;
@@ -149,9 +149,26 @@ non-zero; nothing is caught):
       chunk journaled; the rerun resumes to the uninterrupted answer;
    e. ``MSBFS_STATS=2`` on the bitbell route: per-query levels and
       reached equal scipy's on the winner and the first eight groups;
+10. the single-device engines, each a CLI path whose engine's F vector
+   equals the plain engine's on the card and whose winner, F and first
+   eight groups' levels and reached equal scipy's: ``MSBFS_BACKEND=vmap``
+   and ``packed`` on phase 5b's RMAT-20 files (K = 64; packed again with
+   ``MSBFS_EDGE_CHUNKS=4``, to the same answer), each launching the CSR
+   pull (K9, csr_pull) in its layout, which is held against its plain
+   version on the BFS's widest level and timed beside its bound and the
+   torch composition of the JAX expansion; ``dense`` on phase 4's RMAT-14
+   (no kernel of its own; its matmul's ms a level); ``push`` and
+   ``ppush`` on phase 3's road-4096 (K = 16), launching queue_expand and
+   queue_compact (K10, K11), and push_or with queue_compact's row mode:
+   the push engine's auto-capacity growth on road-1024 (K = 16, phase 6's
+   groups) equals the plain engine's, an explicit capacity of
+   SMALL_CAPACITY raises FrontierOverflow, and the
+   kernels are held against their plain versions on the widest level and
+   timed beside their bounds and library yardsticks (index_fill_; cumsum
+   and scatter_);
 then the ``{"kernels": [...]}`` line and the final ``{"ok": true, ...}``.
 
-Each CLI run of phases 3-5b and 9a is one path: the kernel launch counters are
+Each CLI run of phases 3-5b, 9a and 10 is one path: the kernel launch counters are
 zeroed just before it and read just after; each path must have launched
 its route's kernels (batch_start at its route's stride), and every
 registered kernel must have launched on some path, and no byte path may
@@ -170,6 +187,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import io
 import json
 import os
@@ -204,6 +222,11 @@ PATH_KERNELS = {
     "lowk rmat-20": ("batch_start", "flag_pull", "level_apply"),
     "streamed rmat-20": ("batch_start", "forest_map", "forest_segment", "forest_gather",
                          "level_apply"),
+    "vmap rmat-20": ("csr_pull",),
+    "packed rmat-20": ("csr_pull",),
+    "dense rmat-14": (),
+    "push road-4096": ("queue_expand", "queue_compact"),
+    "ppush road-4096": ("batch_start", "push_or", "queue_compact"),
 }
 # The paths whose planes are bytes: their batch starts at a stride of 8
 # lanes, the others' at 1 (the ELL route packs no planes), and they pull
@@ -2484,8 +2507,10 @@ def _streamed_phase(ctx, n, g, bg, info, seed):
     table = text[text.index("query  levels"):].splitlines()[1:]
     stats = {int(ln.split()[0]) - 1: tuple(int(x) for x in ln.split()[1:]) for ln in table}
     a = info["scipy"]
+    scipy_stats = info.setdefault("scipy_stats", {})  # phase 10 reads them too
     for q in info["groups"]:
-        assert stats[q] == _scipy_stats(cg, np, a, info["queries"][q]), (q, stats[q])
+        scipy_stats[q] = _scipy_stats(cg, np, a, info["queries"][q])
+        assert stats[q] == scipy_stats[q], (q, stats[q])
     trace = text[text.index("level  discovered"):text.index("query  levels")]
     print("stats=2 rmat-20:\n" + text[text.index("dispatch_count"):text.index("query  levels")]
           + json.dumps(dict(groups_equal_scipy=len(info["groups"]),
@@ -2571,6 +2596,481 @@ out.update(cap_bytes=cap, fraction=cap / total, rc=rc,
 print(json.dumps(out))
 sys.exit(rc)
 """
+# ---- phase 10: the single-device engines over the flat CSR and the
+# padded table (vmap, packed, dense, push, ppush)
+
+# Groups of each phase-10 path checked against scipy (besides the winner).
+SINGLE_GROUPS = 8
+# An explicit capacity that road-4096's batch overflows.
+SMALL_CAPACITY = 64
+
+
+def _clone(torch, carry):
+    """A copy of a dataclass carry: every tensor, and its switch's, cloned
+    (a query-minor distance view stays query-minor)."""
+    import dataclasses
+
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
+        bitbell, cuda_csr,
+    )
+
+    out = {}
+    for f in dataclasses.fields(carry):
+        v = getattr(carry, f.name)
+        if isinstance(v, torch.Tensor):
+            v = v.T.clone().T if v.dim() == 2 and cuda_csr.query_minor(v) else v.clone()
+        elif isinstance(v, bitbell.PushSwitch):
+            v = bitbell.PushSwitch(*(x.clone() if isinstance(x, torch.Tensor) else x
+                                     for x in dataclasses.astuple(v)))
+        out[f.name] = v
+    return type(carry)(**out)
+
+
+def _restore(torch, dst, src):
+    """Copy ``src``'s tensors (and its switch's) into ``dst``'s, in place."""
+    import dataclasses
+
+    for f in dataclasses.fields(src):
+        a, b = getattr(dst, f.name), getattr(src, f.name)
+        if isinstance(b, torch.Tensor):
+            a.copy_(b)
+        elif dataclasses.is_dataclass(b):
+            _restore(torch, a, b)
+
+
+def _carry_err(torch, got, want, names):
+    return _max_abs_err(torch, [(getattr(got, n), getattr(want, n)) for n in names])
+
+
+def _engine_check(np, name, eng, plain, padded, scipy, run):
+    """A phase-10 path's engine on the card: its F vector equals the plain
+    engine's, its winner and F the CLI's and scipy's, and the first
+    SINGLE_GROUPS groups' (levels, reached, F) scipy's (``scipy(q)``:
+    group q's, cached by the caller).  A push engine's plain twin starts
+    at the capacity the kernel engine's run ended at, so it runs once."""
+    t0 = time.perf_counter()
+    levels, reached, f = eng.query_stats(padded)
+    fast_s = time.perf_counter() - t0
+    if hasattr(eng, "auto_capacity"):
+        plain.capacity = eng.capacity
+    t0 = time.perf_counter()
+    f_plain = plain.f_values(padded).cpu().numpy()
+    plain_s = time.perf_counter() - t0
+    assert np.array_equal(f, f_plain), (name, f, f_plain)
+    winner = int(np.argmin(f))
+    assert run[:2] == (winner, int(f[winner])), (name, run, winner)
+    t0 = time.perf_counter()
+    assert scipy(winner)[2] == run[1], name
+    groups = min(SINGLE_GROUPS, len(f))
+    for q in range(groups):
+        want = scipy(q)
+        assert (int(levels[q]), int(reached[q]), int(f[q])) == want, (name, q, want)
+    return dict(winner=winner + 1, min_f=int(f[winner]), levels=int(levels.max()),
+                groups_equal_scipy=groups,
+                preprocessing_s=run[2], computation_s=run[3],
+                engine_query_stats_s=fast_s, plain_engine_f_values_s=plain_s,
+                scipy_s=time.perf_counter() - t0)
+
+
+def _csr_pull_row(torch, np, dg, padded, layout, label):
+    """K9 on the real level of the BFS that labels most (query, vertex)
+    pairs: the kernel against its plain version (the whole carry), both
+    timed beside the level's bound and the torch composition of the JAX
+    expansion (the frontier flag gathered over ``cols``, then
+    ``index_reduce_`` amax over ``edge_src``, before the unreached mask);
+    and every level of the BFS's launch timed on its own (CUDA events)."""
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
+        bfs, cuda_csr, packed,
+    )
+
+    n = dg.n
+
+    def fresh():
+        carry = (bfs.distance_carry_init(n, padded, device=dg.device) if layout == "rows"
+                 else packed.packed_carry_init(dg, padded))
+        bfs.arm_chunk(carry, None, None)
+        return carry
+
+    carry, new, levels_ms = fresh(), [], []
+    while int(carry.ctrl[0]):
+        before = int((carry.dist == -1).sum())
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        cuda_csr.csr_pull(dg, carry)
+        e1.record()
+        e1.synchronize()
+        levels_ms.append(e0.elapsed_time(e1))
+        new.append(before - int((carry.dist == -1).sum()))
+    widest = int(np.argmax(new))
+    carry = fresh()
+    for _ in range(widest):
+        cuda_csr.csr_pull(dg, carry)
+    snap = _clone(torch, carry)
+    got, want = _clone(torch, snap), _clone(torch, snap)
+    cuda_csr.csr_pull(dg, got)
+    cuda_csr.csr_pull_plain(dg, want)
+    torch.cuda.synchronize()
+    names = ("dist", "level", "updated", "stop", "found", "ctrl")
+    err = _carry_err(torch, got, want, names)
+    work = _clone(torch, snap)
+    restore = functools.partial(_restore, torch, work, snap)
+    ms = _time_ms(torch, lambda: cuda_csr.csr_pull(dg, work), restore)
+    plain_ms = _time_ms(torch, lambda: cuda_csr.csr_pull_plain(dg, work), restore, reps=3)
+    dist, level = snap.dist, snap.level
+    cols, src = dg.col_indices.long(), dg.edge_src.long()
+    rows = layout == "rows"
+    out = torch.zeros((dist.shape[0], n) if rows else (n, dist.shape[0]),
+                      dtype=torch.uint8, device=dg.device)
+
+    def library():
+        if rows:
+            out.index_reduce_(1, src, (dist == level[:, None]).to(torch.uint8)[:, cols],
+                              "amax")
+        else:
+            out.index_reduce_(0, src, (dist.T == level[None, :]).to(torch.uint8)[cols],
+                              "amax")
+    library_ms = _time_ms(torch, library, lambda: out.zero_(), reps=5)
+    # Bytes any pull of this level must move: the offsets, every distance
+    # word once, the cols of each vertex some query has not reached, and
+    # the new labels written.
+    deg = (dg.row_offsets[1:] - dg.row_offsets[:-1]).long()
+    rows_read = (dist == -1).any(dim=0)
+    labels = int(new[widest])
+    nbytes = 4 * (n + 1) + 4 * dist.numel() + 4 * int(deg[rows_read].sum()) + 4 * labels
+    bound, by = _bound_ms(nbytes, 0)
+    row = dict(level=widest, new_labels=labels, bfs_levels_ms=levels_ms, bfs_new_labels=new,
+               max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               bound_ms=bound, bound_by=by, library_ms=library_ms,
+               library="frontier flags gathered over cols + index_reduce_ amax",
+               layout=layout, card=CARD)
+    print(f"compare {label} csr_pull ({layout}): " + json.dumps(row))
+    assert err == 0, row
+    return row
+
+
+def _widest_level(torch, np, make, step, size):
+    """The level of a BFS (``make()`` a fresh carry, ``step`` one level)
+    whose frontier ``size`` is the largest, by a first pass that reads the
+    size before each level; and each level's device ms in that pass (CUDA
+    events around its launches)."""
+    carry, sizes, ms = make(), [], []
+    while bool(carry.running(None)):
+        sizes.append(size(carry))
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        step(carry)
+        e1.record()
+        e1.synchronize()
+        ms.append(e0.elapsed_time(e1))
+    return int(np.argmax(sizes)), ms
+
+
+def _queue_rows(torch, np, adj, padded, capacity, label):
+    """K10 and K11 (queue mode) on the BFS's widest level at the engine's
+    capacity: each against its plain version (every carry field, the
+    queues' meaningful entries), timed beside its bound and its library
+    yardstick (``index_fill_`` of the gathered neighbours' flat ids; the
+    compaction's exclusive ``cumsum`` and ``scatter_`` into a (capacity +
+    1) buffer)."""
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
+        bfs, cuda_push, push,
+    )
+
+    n, rows = adj.n, adj.rows
+
+    def make():
+        carry = cuda_push.queue_carry_init(n, rows, padded, capacity)
+        bfs.arm_chunk(carry, None, None)
+        return carry
+
+    level, bfs_ms = _widest_level(torch, np, make, lambda c: push.push_level(adj, c),
+                                  lambda c: int(c.count.sum()))
+    carry = make()
+    for _ in range(level):
+        push.push_level(adj, carry)
+    snap = _clone(torch, carry)
+    k, pitch = snap.hit.shape
+    fields = ("visited", "hit", "count", "f", "levels", "reached", "level", "updated",
+              "stop", "max_count")
+
+    def queue_err(got, want):
+        err = _carry_err(torch, got, want, fields)
+        err = max(err, _max_abs_err(torch, [(got.ctrl[[0, 2]], want.ctrl[[0, 2]])]))
+        for q in range(k):
+            m = min(int(want.count[q]), capacity)
+            err = max(err, _max_abs_err(torch, [(got.queue[q, :m], want.queue[q, :m])]))
+        return err
+
+    # K10.
+    got, want = _clone(torch, snap), _clone(torch, snap)
+    cuda_push.queue_expand(rows, got)
+    cuda_push.queue_expand_plain(rows, want)
+    torch.cuda.synchronize()
+    expand_err = queue_err(got, want)
+    post = _clone(torch, got)
+    work = _clone(torch, snap)
+    entries = torch.clamp(snap.count, max=capacity)
+    listed = int(entries.sum())
+    nbrs = rows[snap.queue.long()]  # (K, capacity, w)
+    live = (torch.arange(capacity, device=rows.device) < entries[:, None])[:, :, None]
+    live = live & (nbrs != n)
+    qoff = (torch.arange(k, device=rows.device) * pitch)[:, None, None]
+    flat = (qoff + nbrs)[live]
+    hits_set = int((post.hit != 0).sum())
+    expand = dict(
+        entries=listed, hit_bytes=hits_set, max_abs_err=expand_err,
+        ms=_time_ms(torch, lambda: cuda_push.queue_expand(rows, work), work.hit.zero_),
+        plain_ms=_time_ms(torch, lambda: cuda_push.queue_expand_plain(rows, work),
+                          work.hit.zero_, reps=3),
+        library_ms=_time_ms(torch, lambda: work.hit.view(-1).index_fill_(0, flat, 1),
+                            work.hit.zero_),
+        library="index_fill_ of the gathered neighbours' flat ids (the gather outside)",
+    )
+    expand["bound_ms"], expand["bound_by"] = _bound_ms(
+        4 * listed * (1 + adj.width) + 4 * k + hits_set, 0)
+    print(f"compare {label} queue_expand (level {level}): "
+          + json.dumps(dict(**expand, card=CARD)))
+    print(f"{label} push levels: " + json.dumps(dict(
+        levels=len(bfs_ms), device_ms_sum=sum(bfs_ms), device_ms_max=max(bfs_ms),
+        note="queue_expand and queue_compact of every level, CUDA events", card=CARD)))
+    # K11 on the expanded level.
+    got, want = _clone(torch, post), _clone(torch, post)
+    cuda_push.queue_compact(got)
+    cuda_push.queue_compact_plain(want)
+    torch.cuda.synchronize()
+    compact_err = queue_err(got, want)
+    new_total = int(want.count.sum())
+    queued = int(torch.clamp(want.count, max=capacity).sum())
+    work = _clone(torch, post)
+    restore = functools.partial(_restore, torch, work, post)
+    on = (post.hit & ~post.visited).to(torch.int32)
+    buf = torch.empty((k, capacity + 1), dtype=torch.int32, device=rows.device)
+    ids = torch.arange(pitch, dtype=torch.int32, device=rows.device).expand(k, pitch)
+
+    def library():
+        pos = torch.cumsum(on, dim=1, dtype=torch.int32) - on
+        buf.scatter_(1, torch.where(on > 0, torch.clamp(pos, max=capacity), capacity).long(),
+                     ids)
+
+    compact = dict(
+        new=new_total, queued=queued, max_abs_err=compact_err,
+        ms=_time_ms(torch, lambda: cuda_push.queue_compact(work), restore),
+        plain_ms=_time_ms(torch, lambda: cuda_push.queue_compact_plain(work), restore,
+                          reps=3),
+        library_ms=_time_ms(torch, library, lambda: None, reps=5),
+        library="exclusive cumsum + scatter_ into a (capacity + 1) buffer",
+    )
+    # Read the hit plane once, visited where a hit is set; write the new
+    # visited bytes, clear the set hit bytes, write the queued ids and the
+    # per-query counters.
+    compact["bound_ms"], compact["bound_by"] = _bound_ms(
+        k * pitch + 2 * hits_set + new_total + 4 * queued + 40 * k, 0)
+    print(f"compare {label} queue_compact (level {level}, queue mode): "
+          + json.dumps(dict(**compact, card=CARD)))
+    assert expand_err == 0 and compact_err == 0, (expand, compact)
+    return expand, compact
+
+
+def _row_queue_row(torch, np, adj, padded, capacity, label):
+    """K3 and K11's row mode (the ppush level) on the BFS's widest level
+    at the engine's capacity: each against its plain version, K11 timed
+    beside its bound."""
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
+        bfs, cuda_push, push_packed,
+    )
+
+    qp = push_packed._pad_rows(padded, push_packed._k_pad(padded.shape[0]))
+
+    def step(c):
+        push_packed.packed_push_level(adj, c, bfs.INT32_MAX)
+
+    level, bfs_ms = _widest_level(
+        torch, np, lambda: push_packed._packed_init_batch(adj, qp, capacity), step,
+        lambda c: int(c.count[0]))
+    carry = push_packed._packed_init_batch(adj, qp, capacity)
+    for _ in range(level):
+        step(carry)
+    start, vals, _ = push_packed._table_csr(adj)
+    got, want = _clone(torch, carry), _clone(torch, carry)
+    push_packed.packed_push_level(adj, got, bfs.INT32_MAX)
+    push_packed.packed_push_level(adj, want, bfs.INT32_MAX, plain=True)
+    torch.cuda.synchronize()
+    names = ("visited", "frontier", "hits", "f", "levels", "reached", "counts", "count",
+             "peak", "ctrl")
+    err = _carry_err(torch, got, want, names)
+    m = int(want.switch.state[0])
+    err = max(err, _max_abs_err(torch, [(got.switch.state[:2], want.switch.state[:2]),
+                                         (got.switch.worklist[:, :m],
+                                          want.switch.worklist[:, :m])]))
+    # K11 alone on the scattered level.
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
+        bitbell,
+    )
+
+    post = _clone(torch, carry)
+    bitbell.sparse_hits_or(post.frontier, start, vals, post.hits, post.ctrl, post.switch)
+    work = _clone(torch, carry)
+    push_or_ms = _time_ms(
+        torch, lambda: bitbell.sparse_hits_or(work.frontier, start, vals, work.hits,
+                                              work.ctrl, work.switch),
+        work.hits.zero_)
+    work = _clone(torch, post)
+    restore = functools.partial(_restore, torch, work, post)
+    rows_n, w = post.hits.shape
+    hit_words = int((post.hits != 0).sum())
+    row = dict(
+        level=level, union_rows=int(carry.count[0]), listed=int(carry.switch.state[0]),
+        max_abs_err=err, push_or_ms=push_or_ms, bfs_levels=len(bfs_ms),
+        bfs_device_ms_sum=sum(bfs_ms), bfs_device_ms_max=max(bfs_ms),
+        ms=_time_ms(torch, lambda: cuda_push.row_compact(work), restore),
+        plain_ms=_time_ms(torch, lambda: cuda_push.row_compact_plain(work), restore, reps=3),
+    )
+    # Read the hit plane once, visited where a hit word is set; write the
+    # frontier plane, the changed visited words, the cleared hit words and
+    # the listed rows' ids and first edges (reading their out-degrees).
+    row["bound_ms"], row["bound_by"] = _bound_ms(
+        8 * rows_n * w + 8 * hit_words + 12 * m, 0)
+    print(f"compare {label} queue_compact (level {level}, row mode, with push_or): "
+          + json.dumps(dict(**row, card=CARD)))
+    assert err == 0, row
+    return row
+
+
+def _capacity_trail(eng, padded):
+    """The capacities one auto-capacity call ran at, then the one it
+    left."""
+    trail = []
+    dispatch = eng._dispatch
+
+    def recorded(queries):
+        trail.append(eng.capacity)
+        return dispatch(queries)
+
+    eng._dispatch = recorded
+    eng.f_values(padded)
+    eng._dispatch = dispatch
+    return trail + [eng.capacity]
+
+
+def _single_device_phase(ctx, files, seed):
+    """Phase 10: the five single-device routes through the CLI, each a
+    counted path, with their engines against the plain engines and scipy,
+    and their kernels held against their plain versions on real levels."""
+    (torch, np, sp, cg, cli, tio, timing, launches, dev, g20, g14, g4, g1) = ctx
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
+        dense, engine, packed, push, push_packed,
+    )
+
+    rows, cache = {}, {}
+
+    def scipy_of(label, queries, a):
+        def stats(q):
+            if (label, q) not in cache:
+                cache[label, q] = _scipy_stats(cg, np, a, queries[q])
+            return cache[label, q]
+
+        return stats
+
+    # -- RMAT-20, K = 64: vmap (K9, rows), packed (K9, query-minor).
+    argv = ["chip_smoke", "-g", files["rmat20"][0], "-q", files["rmat20"][1], "-gn", "1"]
+    queries = files["rmat20"][2]
+    scipy = scipy_of("rmat-20", queries, files["rmat20"][3])
+    cache.update({("rmat-20", q): v for q, v in files["rmat20"][4].items()})
+    padded = tio.pad_queries(queries)
+    dg = g20.to_device(dev)
+    with _env(MSBFS_BACKEND="vmap"):
+        run = _run_path(cli, timing, argv, "vmap rmat-20", launches)
+    assert list(VARIANTS["vmap rmat-20"]) == ["csr_pull:rows"], VARIANTS["vmap rmat-20"]
+    summary = _engine_check(np, "vmap rmat-20", engine.Engine(dg, level_chunk=128),
+                            engine.Engine(dg, level_chunk=128, plain=True), padded, scipy, run)
+    print("vmap rmat-20: " + json.dumps(dict(**summary, card=CARD)))
+    rows["csr_pull"] = _csr_pull_row(torch, np, dg, padded, "rows", "rmat-20 K=64")
+    with _env(MSBFS_BACKEND="packed"):
+        run = _run_path(cli, timing, argv, "packed rmat-20", launches)
+    assert list(VARIANTS["packed rmat-20"]) == ["csr_pull:minor"], VARIANTS["packed rmat-20"]
+    with _env(MSBFS_BACKEND="packed", MSBFS_EDGE_CHUNKS="4"):
+        chunked = _run_cli(cli, argv)
+    assert chunked[:2] == run[:2], (chunked, run)
+    summary = _engine_check(np, "packed rmat-20", packed.PackedEngine(dg, level_chunk=128),
+                            packed.PackedEngine(dg, level_chunk=128, edge_chunks=4, plain=True),
+                            padded, scipy, run)
+    print("packed rmat-20: " + json.dumps(dict(**summary, edge_chunks_4_same=True, card=CARD)))
+    _csr_pull_row(torch, np, dg, padded, "minor", "rmat-20 K=64")
+    del dg
+    torch.cuda.empty_cache()
+
+    # -- RMAT-14, K = 64: dense (a bf16 matmul a level, no kernel of its own).
+    argv = ["chip_smoke", "-g", files["rmat14"][0], "-q", files["rmat14"][1], "-gn", "1"]
+    queries = files["rmat14"][2]
+    padded = tio.pad_queries(queries)
+    with _env(MSBFS_BACKEND="dense"):
+        run = _run_path(cli, timing, argv, "dense rmat-14", launches)
+    dgr = dense.DenseGraph.from_host(g14, dev)
+    summary = _engine_check(np, "dense rmat-14", engine.Engine(dgr, level_chunk=128),
+                            engine.Engine(dgr, level_chunk=128, plain=True), padded,
+                            scipy_of("rmat-14", queries, _scipy_matrix(sp, np, g14)), run)
+    frontier = (torch.rand((padded.shape[0], dgr.n_pad), device=dev) < 0.01).to(torch.bfloat16)
+    matmul_ms = _time_ms(torch, lambda: torch.matmul(frontier, dgr.adjacency), lambda: None)
+    print("dense rmat-14: " + json.dumps(dict(
+        **summary, n_pad=dgr.n_pad, matmul_ms_a_level=matmul_ms,
+        matmul_bound_ms=_bound_ms(2 * dgr.n_pad ** 2 + 6 * padded.shape[0] * dgr.n_pad,
+                                  2 * padded.shape[0] * dgr.n_pad ** 2, 989e12)[0],
+        card=CARD)))
+    del dgr, frontier
+    torch.cuda.empty_cache()
+
+    # -- road-4096, K = 16: push (K10, K11), ppush (K3, K11's row mode);
+    # the push engine's growth trajectory against the plain engine's on
+    # road-1024, K = 16, where a plain run takes a second, not half a
+    # minute.
+    argv = ["chip_smoke", "-g", files["road4096"][0], "-q", files["road4096"][1], "-gn", "1"]
+    queries = files["road4096"][2]
+    scipy = scipy_of("road-4096", queries, files["road4096"][3])
+    cache.update({("road-4096", q): v for q, v in files["road4096"][4].items()})
+    padded = tio.pad_queries(queries)
+    adj = push.PaddedAdjacency.from_host(g4, dev)
+    adj1 = push.PaddedAdjacency.from_host(g1, dev)
+    padded1 = tio.pad_queries(files["road1024"])
+    for name, cls in (("push road-4096", push.PushEngine),
+                      ("ppush road-4096", push_packed.PackedPushEngine)):
+        t0 = time.perf_counter()
+        with _env(MSBFS_BACKEND=name.split()[0]):
+            run = _run_path(cli, timing, argv, name, launches)
+        t1 = time.perf_counter()
+        trail = plain_trail = None
+        if cls is push.PushEngine:  # one growing batch; ppush grows on road-4096 above
+            trail = _capacity_trail(cls(adj1), padded1)
+            plain_trail = _capacity_trail(cls(adj1, plain=True), padded1)
+            assert trail == plain_trail and trail[-1] > trail[0], (name, trail, plain_trail)
+        t2 = time.perf_counter()
+        fast, plain = cls(adj), cls(adj, plain=True)
+        summary = _engine_check(np, name, fast, plain, padded, scipy, run)
+        try:
+            cls(adj, capacity=SMALL_CAPACITY).f_values(padded)
+        except push.FrontierOverflow as exc:
+            overflow = str(exc)
+        else:
+            raise AssertionError(f"{name}: capacity {SMALL_CAPACITY} did not overflow")
+        t3 = time.perf_counter()
+        print(f"{name}: " + json.dumps(dict(
+            **summary, engine_capacity=fast.capacity,
+            road_1024_capacity_trajectory=trail,
+            road_1024_plain_capacity_trajectory=plain_trail,
+            explicit_capacity=SMALL_CAPACITY, frontier_overflow=overflow,
+            wall_s=dict(cli=t1 - t0, trajectories=t2 - t1, engines_and_scipy=t3 - t2),
+            card=CARD)))
+        if cls is push.PushEngine:
+            assert "queue_compact:queue" in VARIANTS[name], VARIANTS[name]
+            rows["queue_expand"], rows["queue_compact"] = _queue_rows(
+                torch, np, adj, padded, fast.capacity, "road-4096 K=16")
+        else:
+            assert "queue_compact:rows" in VARIANTS[name], VARIANTS[name]
+            _row_queue_row(torch, np, adj, padded, fast.capacity, "road-4096 K=16")
+    del adj, adj1
+    torch.cuda.empty_cache()
+    return rows
+
+
 _ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -2932,7 +3432,9 @@ def main() -> int:
     plain_s = time.perf_counter() - t0
     assert np.array_equal(f_fast, f_plain), (f_fast, f_plain)
     assert int(f_fast[min_k]) == min_f
-    want_f = _scipy_f(cg, np, _scipy_matrix(sp, np, g4), q4[min_k])
+    a4 = _scipy_matrix(sp, np, g4)
+    road_stats = {min_k: _scipy_stats(cg, np, a4, q4[min_k])}  # phase 10 reads it too
+    want_f = road_stats[min_k][2]
     assert want_f == min_f, (want_f, min_f)
     depth = int(levels4.max())
     _batch_start_check(torch, fast, n4, padded4, "stencil road-4096")
@@ -2999,6 +3501,23 @@ def main() -> int:
     # (K1's segment form), the ladder, a real out-of-memory error,
     # checkpoint, MSBFS_STATS=2
     main_shape.update(_streamed_phase(ctx20, n20, g20, bg20, info20, seed))
+
+    # ---- 10. the single-device engines: vmap and packed on the same
+    # RMAT-20 files (K9), dense on phase 4's RMAT-14, push and ppush on
+    # phase 3's road-4096 (K10, K11, K3)
+    files = {
+        "rmat20": (info20["gpath"], info20["qpath"], info20["queries"], info20["scipy"],
+                   info20["scipy_stats"]),
+        "rmat14": (os.path.join(tmp, "rmat-14.bin"), os.path.join(tmp, "rmat-14-q.bin"),
+                   generators.random_queries(nr, 64, seed=seed + 8)),
+        "road4096": (gpath, qpath, q4, a4, road_stats),
+        "road1024": generators.random_queries(n1, 16, seed=seed + 3),
+    }
+    t0 = time.perf_counter()
+    main_shape.update(_single_device_phase(
+        (torch, np, sp, cg, cli, tio, timing, launches, dev, g20, gr, g4, g1), files, seed))
+    print(f"phase 10: {time.perf_counter() - t0:.1f} s")
+    del files
     os.remove(info20["gpath"])
     del bg20, g20, e20, info20
     torch.cuda.empty_cache()
@@ -3085,6 +3604,10 @@ def main() -> int:
         "forest_map": "ops/streamed.py:117",
         "forest_segment": "ops/streamed.py:117, {JAX_PKG}/ops/streamed.py:139",
         "forest_gather": "ops/streamed.py:146",
+        "csr_pull": "ops/bfs.py:65, {JAX_PKG}/ops/packed.py:111",
+        "queue_expand": "ops/push.py:185",
+        "queue_compact": "ops/push.py:57, {JAX_PKG}/ops/push.py:83, "
+                         "{JAX_PKG}/ops/push_packed.py:110",
     }
     # K5's push: the flag_pull launches with the push folded in, on the
     # byte paths.

@@ -16,6 +16,11 @@ graph (``MSBFS_LOWK=0`` disables; ``MSBFS_STATS=2`` keeps bitbell), or
 (``MSBFS_MXU_KERNEL=1`` for the CUDA tile kernel); the ELL route
 ``MSBFS_BACKEND=pallas``; the pull-only byte-plane route
 ``MSBFS_BACKEND=bell``; the host-streamed forest ``MSBFS_BACKEND=streamed``;
+the single-device engines over the flat CSR — ``vmap`` (a row a query) and
+``packed`` (query-minor, ``MSBFS_EDGE_CHUNKS``) on the CSR pull kernel,
+``dense`` (one bf16 matmul a level, only when asked for by name, as off a
+TPU), and the queue pushes ``push`` and ``ppush`` over the width-padded
+table (a degree beyond its cap exits 1);
 and the default bitbell route (every other graph and backend name), with
 its over-memory configuration when the hybrid layout would not fit the
 device, and otherwise its capacity ladder (level-chunked, streamed,
@@ -138,9 +143,6 @@ def _resolve_device(device) -> torch.device:
     return torch.device(device)
 
 
-# Backends of the JAX CLI the port does not have yet; any other name takes
-# the route the JAX CLI gives it (an unknown name runs bitbell there too).
-_UNPORTED_BACKENDS = ("vmap", "push", "ppush", "packed", "dense")
 # Backends whose footprint the bitbell estimate does not model: they never
 # take the over-memory configuration (the JAX CLI's list).
 _NON_BITBELL_FOOTPRINT_BACKENDS = (
@@ -155,9 +157,6 @@ _OVER_MEMORY_SLOT_BUDGET = 1 << 25
 
 def _unported_knob() -> Optional[str]:
     """The first knob set to a route or mode the port does not have."""
-    backend = knobs.raw("MSBFS_BACKEND", "auto")
-    if backend in _UNPORTED_BACKENDS:
-        return f"MSBFS_BACKEND={backend}"
     if knobs.raw("MSBFS_MESH", ""):
         return "MSBFS_MESH"
     if knobs.raw("MSBFS_WEIGHTED", "") == "1":
@@ -394,8 +393,23 @@ def main(argv: Optional[List[str]] = None, device=None, native: bool = True) -> 
                 level_chunk=level_chunk,
                 megachunk=megachunk,
             )
+        # The dense route only when asked for by name: the JAX CLI's auto
+        # dense route fires on a TPU alone, and the port routes as it does
+        # off a TPU.
         if engine is not None:
             pass  # stencil or low-K route above
+        elif backend == "dense":
+            # One (K, n_pad) @ (n_pad, n_pad) bf16 matmul a level (ops.dense).
+            from .ops.dense import DenseGraph
+            from .ops.engine import Engine
+
+            engine = Engine(DenseGraph.from_host(graph, dev), level_chunk=level_chunk)
+        elif backend == "vmap":
+            # The distance loop over the flat CSR, a row a query (the CSR
+            # pull kernel, ops.cuda_csr).
+            from .ops.engine import Engine
+
+            engine = Engine(graph.to_device(dev), level_chunk=level_chunk)
         elif backend == "mxu":
             # Tensor-core frontier expansion over densified adjacency
             # tiles, with the per-level push/matmul switch (ops.mxu).
@@ -421,6 +435,31 @@ def main(argv: Optional[List[str]] = None, device=None, native: bool = True) -> 
 
             engine = BellEngine(
                 BellGraph.from_host(graph, dev, keep_sparse=False, native=native),
+                level_chunk=level_chunk,
+            )
+        elif backend in ("push", "ppush"):
+            # Frontier-compacted queue BFS for high-diameter, low-degree
+            # graphs (ops.push): a queue a query, or one union queue of
+            # bit-plane rows for the batch (ops.push_packed).
+            from .ops.push import PaddedAdjacency, PushEngine
+            from .ops.push_packed import PackedPushEngine
+
+            try:
+                adj = PaddedAdjacency.from_host(graph, dev, native=native)
+            except ValueError as exc:
+                # Degree beyond the width cap: an engine-choice error.
+                print(str(exc), file=sys.stderr)
+                return 1
+            engine = (PushEngine if backend == "push" else PackedPushEngine)(adj)
+        elif backend == "packed":
+            # The query-minor (n, K) distances over the flat CSR
+            # (ops.packed); MSBFS_EDGE_CHUNKS slices the plain pull's
+            # (E, K) gather, the kernel makes none.
+            from .ops.packed import PackedEngine
+
+            engine = PackedEngine(
+                graph.to_device(dev),
+                edge_chunks=knobs.get_int("MSBFS_EDGE_CHUNKS", 1),
                 level_chunk=level_chunk,
             )
         elif backend == "streamed":

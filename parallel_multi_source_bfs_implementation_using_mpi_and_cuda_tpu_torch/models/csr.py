@@ -15,6 +15,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 
 def sorted_unique(keys: np.ndarray) -> np.ndarray:
@@ -70,6 +71,9 @@ class CSRGraph:
         src = np.repeat(np.arange(self.n, dtype=np.int64), deg)
         return src, dst.astype(np.int64), deg
 
+    def to_device(self, device) -> "DeviceCSR":
+        return DeviceCSR.from_host(self, device)
+
     @staticmethod
     def from_edges(n: int, edges: np.ndarray, native: bool = True) -> "CSRGraph":
         """Build CSR from an (m, 2) int array of undirected edge records:
@@ -108,3 +112,64 @@ class CSRGraph:
         return CSRGraph(
             n=n, m=m, row_offsets=row_offsets, col_indices=dst[order]
         )
+
+
+class DeviceCSR:
+    """The CSR on one device, made once and reused by every query (the
+    reference's one-time copy, main.cu:282-295); the JAX package's
+    ``DeviceCSR`` with the same int32 fields:
+
+    * ``row_offsets`` (n+1,) — int64 on the host, int32 here while
+      2m < 2^31;
+    * ``col_indices`` (E,) — neighbour ids, E = 2m directed slots;
+    * ``edge_src`` (E,) — the row owning each slot, ascending (the plain
+      versions' segment ids; the CSR pull kernel walks the offsets)."""
+
+    def __init__(self, row_offsets, col_indices, edge_src, n: int, num_edges: int):
+        self.row_offsets = row_offsets
+        self.col_indices = col_indices
+        self.edge_src = edge_src
+        self.n = int(n)
+        self.num_edges = int(num_edges)
+
+    @staticmethod
+    def from_host(g: CSRGraph, device) -> "DeviceCSR":
+        e = g.num_directed_edges
+        if e >= 2**31:
+            raise ValueError(
+                "2m >= 2^31 directed slots: use the sharded-CSR path "
+                "(parallel.sharded_csr), which splits edge arrays per shard."
+            )
+        edge_src = np.repeat(np.arange(g.n, dtype=np.int32), g.degrees.astype(np.int64))
+        arrays = (g.row_offsets, g.col_indices, edge_src)
+        return DeviceCSR(
+            *(torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(device)
+              for a in arrays),
+            g.n, e,
+        )
+
+    @property
+    def n_pad(self) -> int:
+        """Distance-state length: the CSR engine's state is unpadded."""
+        return self.n
+
+    @property
+    def device(self) -> torch.device:
+        return self.col_indices.device
+
+    def expand_frontier(self, dist, level):
+        """One level of the CSR pull in torch (ops.cuda_csr)."""
+        from ..ops.bfs import frontier_expand  # lazy: models stays op-free
+
+        return frontier_expand(dist, level, self)
+
+    def level_step(self, plain: bool = False):
+        """One gated level of the distance loop over this CSR: kernel K9
+        (``csrc/csr_pull.cu``), or its plain version."""
+        from ..ops import cuda_csr  # lazy: models stays op-free
+
+        pull = cuda_csr.csr_pull_plain if plain else cuda_csr.csr_pull
+        return lambda carry: pull(self, carry)
+
+    def __repr__(self):
+        return f"DeviceCSR(n={self.n}, directed_edges={self.num_edges})"

@@ -84,5 +84,13 @@ class EllGraph:
 
         return ell_expand_plain(dist, level, self)
 
+    def level_step(self, plain: bool = False):
+        """One gated level of the distance loop over this layout: kernel
+        K8 (``csrc/ell_hits.cu``), or its plain version."""
+        from ..ops import cuda_bfs  # lazy: models stays op-free
+
+        level = cuda_bfs.ell_level_plain if plain else cuda_bfs.ell_level
+        return lambda carry: level(self, carry)
+
     def __repr__(self):
         return f"EllGraph(n={self.n}, vrows={self.num_vrows}, width={self.width})"

@@ -1,5 +1,6 @@
-"""The distance-matrix level loop shared by the generic engine, and the
-level-loop guards shared by the chunked engines.
+"""The distance-matrix level loop shared by the generic engine, the
+level-loop guards shared by the chunked engines, and the CSR pull's
+plain expansion (``frontier_expand``, kernel K9's reference).
 
 Reference semantics (main.cu:16-73): distances start at -1, in-range
 sources (``0 <= s < n``) at 0; each level labels the unvisited neighbours
@@ -19,6 +20,7 @@ the host enqueues a whole chunk and reads the state once per chunk
 
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass
 from typing import Callable, Optional
 
@@ -57,6 +59,41 @@ def init_distances(n: int, sources, state_size: Optional[int] = None, device="cp
     rows, cols = torch.nonzero((src >= 0) & (src < n), as_tuple=True)
     dist[rows, src[rows, cols]] = 0
     return dist if batch else dist[0]
+
+
+def segment_max_(out: torch.Tensor, dim: int, index: torch.Tensor, src: torch.Tensor) -> None:
+    """``out.index_reduce_(dim, index, src, "amax")``, without torch's
+    one-time notice that ``index_reduce_`` is in beta on the CLI's
+    stderr."""
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message="index_reduce", category=UserWarning)
+        out.index_reduce_(dim, index, src, "amax")
+
+
+def _as_rows(level, k: int, device) -> torch.Tensor:
+    """A scalar or (K,) level -> (K, 1), for comparing with (K, n)."""
+    return torch.as_tensor(level, device=device).reshape(-1, 1).expand(k, 1)
+
+
+def frontier_expand(dist: torch.Tensor, level, graph) -> torch.Tensor:
+    """The JAX package's ``frontier_expand`` for (n,) or (K, n) distances
+    at ``level`` (a scalar or (K,)): gather the frontier flag of every
+    slot's neighbour, reduce per owning row (sorted ``edge_src``) with a
+    byte max, keep the unreached rows.  Returns the newly-reached mask,
+    shaped like ``dist``."""
+    d = dist.reshape(-1, dist.shape[-1])
+    k, n = d.shape
+    frontier = (d == _as_rows(level, k, d.device)).to(torch.uint8)
+    slot_active = frontier[:, graph.col_indices.long()]
+    reached = torch.zeros((k, n), dtype=torch.uint8, device=d.device)
+    segment_max_(reached, 1, graph.edge_src.long(), slot_active)
+    return ((d == NOT_REACHED) & (reached > 0)).reshape(dist.shape)
+
+
+def graph_expand(dist: torch.Tensor, level, graph) -> torch.Tensor:
+    """The default expansion: the graph container's own
+    (``graph.expand_frontier``), as in the JAX package."""
+    return graph.expand_frontier(dist, level)
 
 
 @dataclass
@@ -202,7 +239,7 @@ def multi_source_bfs(graph, sources, max_levels: Optional[int] = None, expand=No
     distances, -1 where unreached (reference main.cu:40-73).
     ``expand(dist, level, graph)`` is the plain expansion (default: the
     graph's ``expand_frontier``)."""
-    expand = expand or (lambda d, lvl, g: g.expand_frontier(d, lvl))
+    expand = expand or graph_expand
     device = getattr(graph, "device", "cpu")
     carry = distance_carry_init(graph.n, sources, device=device)
     distance_chunk(

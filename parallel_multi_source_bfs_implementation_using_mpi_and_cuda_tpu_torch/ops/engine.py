@@ -82,15 +82,18 @@ class QueryEngineBase:
 
 
 class Engine(QueryEngineBase):
-    """Runs query groups against a device-resident EllGraph with the
-    distance-matrix level loop (the JAX package's generic ``Engine`` on
-    the Pallas-ELL expansion).
+    """Runs query groups against a device-resident graph with the
+    distance-matrix level loop (the JAX package's generic ``Engine``).
+    The graph container supplies its level step, as JAX's ``graph_expand``
+    dispatches to ``graph.expand_frontier``: ``level_step(plain)`` gives
+    a gated one-level step on a :class:`.bfs.DistCarry` — DeviceCSR the
+    CSR pull (K9), DenseGraph the matmul, EllGraph the ELL level (K8).
 
     ``query_chunk``: queries per batch of the loop (None: all K at once);
-    each batch holds a (chunk, n) int32 distance matrix.  ``level_chunk``
-    bounds the levels between host syncs (None: one run to convergence).
-    ``plain`` runs the kernel's plain torch version (the reference, on
-    any device)."""
+    each batch holds a (chunk, n_pad) int32 distance matrix.
+    ``level_chunk`` bounds the levels between host syncs (None: one run
+    to convergence).  ``plain`` runs the kernel's plain torch version
+    (the reference, on any device)."""
 
     def __init__(
         self,
@@ -100,16 +103,13 @@ class Engine(QueryEngineBase):
         level_chunk: Optional[int] = None,
         plain: bool = False,
     ):
-        from .cuda_bfs import ell_level, ell_level_plain  # lazy: import cycle
-
         self.graph = graph
         self.device = graph.device
         self.max_levels = max_levels
         self.query_chunk = query_chunk
         self.level_chunk = validate_level_chunk(level_chunk)
         self.plain = bool(plain)
-        level = ell_level_plain if self.plain else ell_level
-        self._step = lambda carry: level(graph, carry)
+        self._step = graph.level_step(self.plain)
 
     def _chunk_grid(self, queries) -> Tuple[np.ndarray, int]:
         """Pad K to the chunk multiple with -1 rows and reshape to

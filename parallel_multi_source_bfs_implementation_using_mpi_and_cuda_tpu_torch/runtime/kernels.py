@@ -97,6 +97,21 @@ KERNELS = {
         "msbfs_batch_start",
         [_P, _L, _L, _L, _I, _P, _L, _P, _P, _I, _P, _P, _P, _P, _P, _P, _L, _P, _L, _L],
     ),
+    "csr_pull": (
+        "msbfs_csr_pull",
+        [_P, _P, _P, _L, _I, _L, _L, _P, _P, _P, _P, _P],
+    ),
+    "queue_expand": (
+        "msbfs_queue_expand",
+        [_P, _I, _L, _I, _L, _P, _P, _L, _P, _P, _P, _P, _P],
+        "queue_push",
+    ),
+    "queue_compact": (
+        "msbfs_queue_compact",
+        [_I, _P, _P, _P, _L, _I, _L, _P, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+         _P, _P, _P, _I],
+        "queue_push",
+    ),
 }
 
 

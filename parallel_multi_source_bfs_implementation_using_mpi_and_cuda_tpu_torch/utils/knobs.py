@@ -24,7 +24,9 @@ class Knob:
 
 
 _ALL = (
-    Knob("MSBFS_BACKEND", "auto", "str", "engine selection; the port has auto, stencil, mxu, pallas, bell, lowk, streamed and bitbell (any other name but vmap/push/ppush/packed/dense runs bitbell, as in JAX)"),
+    Knob("MSBFS_BACKEND", "auto", "str", "engine selection: auto, stencil, mxu, pallas, bell, lowk, streamed, vmap, packed, dense, push, ppush and bitbell (any other name runs bitbell, as in JAX)"),
+    Knob("MSBFS_EDGE_CHUNKS", "1", "int", "packed route: edge-axis slices of the plain pull's (E, K) gather (the CSR pull kernel makes no such intermediate)"),
+    Knob("MSBFS_PUSH_CHUNK", "64", "int", "push and ppush routes: BFS levels between host reads"),
     Knob("MSBFS_MXU_TILE", "128", "int", "mxu adjacency tile side (multiple of 8; the CUDA tile kernel takes 32, 64, 96 or 128)"),
     Knob("MSBFS_MXU_MAX_TILES", "32768", "int", "mxu densification ceiling in nonzero tiles"),
     Knob("MSBFS_MXU_SWITCH", None, "int", "mxu per-level direction switch threshold in active rows; 0 never pushes, unset = auto n/64"),

@@ -101,6 +101,27 @@ def test_journal_bytes_equal_jax(files, tmp_path, capsys, monkeypatch, stats):
         assert table == jerr[jerr.index("query  levels"):]
 
 
+@pytest.mark.parametrize("backend", ["vmap", "packed", "dense", "push", "ppush"])
+def test_journal_bytes_equal_jax_on_single_device_routes(tmp_path, capsys, monkeypatch,
+                                                          backend):
+    """MSBFS_CHECKPOINT on the single-device routes: the same journal,
+    byte for byte, and the same report as the JAX CLI."""
+    n, edges = generators.road_edges(20, 20, seed=33)
+    gpath, qpath = str(tmp_path / "g.bin"), str(tmp_path / "q.bin")
+    tio.save_graph_bin(gpath, n, edges)
+    tio.save_query_bin(qpath, generators.random_queries(n, 9, max_group=4, seed=34))
+    argv = ["prog", "-g", gpath, "-q", qpath, "-gn", "1"]
+    monkeypatch.setenv("MSBFS_BACKEND", backend)
+    monkeypatch.setenv("MSBFS_CHECKPOINT_CHUNK", "4")
+    monkeypatch.setenv("MSBFS_STATS", "1")
+    monkeypatch.setenv("MSBFS_CHECKPOINT", str(tmp_path / "port.ckpt"))
+    rc, out, _ = _cli(cli.main, argv, capsys, device="cpu")
+    monkeypatch.setenv("MSBFS_CHECKPOINT", str(tmp_path / "jax.ckpt"))
+    jrc, jout, _ = _cli(jcli.main, argv, capsys)
+    assert rc == jrc == 0 and out == jout
+    assert (tmp_path / "port.ckpt").read_bytes() == (tmp_path / "jax.ckpt").read_bytes()
+
+
 def _partial(path, rows):
     """Keep the journal's header and its first ``rows`` rows."""
     lines = open(path).read().splitlines(keepends=True)

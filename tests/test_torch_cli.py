@@ -164,12 +164,9 @@ def test_missing_file_matches_jax(tmp_path, capsys, missing):
 @pytest.mark.parametrize(
     "env,subcommand",
     [
-        ({"MSBFS_BACKEND": "vmap"}, None),
-        ({"MSBFS_BACKEND": "push"}, None),
         ({"MSBFS_COORDINATOR": "localhost:12345", "MSBFS_NUM_PROCESSES": "2"}, None),
         ({"MSBFS_PROFILE_DIR": "profile"}, None),
         ({"MSBFS_WEIGHTED": "1"}, None),
-        ({"MSBFS_BACKEND": "dense"}, None),
         ({"MSBFS_MESH": "2x2"}, None),
         ({}, "serve"),
         ({}, "verify"),
@@ -186,6 +183,66 @@ def test_unported_routes_fail_loudly(tmp_path, capsys, monkeypatch, env, subcomm
     assert out.out == ""
     assert len(out.err.splitlines()) == 1
     assert "not yet ported" in out.err
+
+
+def _stderr(err: str):
+    """The stderr lines both CLIs must share (JAX's announces its compile
+    cache once per process)."""
+    return [ln for ln in err.splitlines() if not ln.startswith("persistent XLA cache")]
+
+
+# The single-device engines over the flat CSR and the padded table:
+# (fixture, environment, exit code); "road" is the 30x30 road grid, "rmat"
+# RMAT-8 (its hubs exceed the push routes' width cap), "oob" the road grid
+# with out-of-range and repeated sources, "none" no queries.
+SINGLE_DEVICE = {
+    "vmap": ("road", {"MSBFS_BACKEND": "vmap"}, 0),
+    "vmap_rmat_chunked": ("rmat", {"MSBFS_BACKEND": "vmap", "MSBFS_LEVEL_CHUNK": "2"}, 0),
+    "packed": ("road", {"MSBFS_BACKEND": "packed"}, 0),
+    "packed_rmat": ("rmat", {"MSBFS_BACKEND": "packed"}, 0),
+    "packed_edge_chunks": ("rmat", {"MSBFS_BACKEND": "packed", "MSBFS_EDGE_CHUNKS": "3"}, 0),
+    "packed_malformed_chunks": ("road", {"MSBFS_BACKEND": "packed", "MSBFS_EDGE_CHUNKS": "x"}, 0),
+    "dense": ("road", {"MSBFS_BACKEND": "dense"}, 0),
+    "dense_rmat": ("rmat", {"MSBFS_BACKEND": "dense"}, 0),
+    "push": ("road", {"MSBFS_BACKEND": "push"}, 0),
+    "push_oob": ("oob", {"MSBFS_BACKEND": "push"}, 0),
+    "push_malformed_chunk": ("road", {"MSBFS_BACKEND": "push", "MSBFS_PUSH_CHUNK": "abc"}, 0),
+    "push_chunk_3": ("road", {"MSBFS_BACKEND": "push", "MSBFS_PUSH_CHUNK": "3"}, 0),
+    "push_width_cap": ("rmat", {"MSBFS_BACKEND": "push"}, 1),
+    "push_no_queries": ("none", {"MSBFS_BACKEND": "push"}, 0),
+    "push_subbatch": ("road", {"MSBFS_BACKEND": "push", "MSBFS_SUBBATCH_K": "5"}, 0),
+    "ppush": ("road", {"MSBFS_BACKEND": "ppush"}, 0),
+    "ppush_oob": ("oob", {"MSBFS_BACKEND": "ppush"}, 0),
+    "ppush_width_cap": ("rmat", {"MSBFS_BACKEND": "ppush"}, 1),
+    "ppush_no_queries": ("none", {"MSBFS_BACKEND": "ppush"}, 0),
+    "ppush_subbatch": ("road", {"MSBFS_BACKEND": "ppush", "MSBFS_SUBBATCH_K": "5"}, 0),
+    "vmap_no_queries": ("none", {"MSBFS_BACKEND": "vmap"}, 0),
+    "packed_subbatch": ("road", {"MSBFS_BACKEND": "packed", "MSBFS_SUBBATCH_K": "4"}, 0),
+}
+
+
+@pytest.mark.parametrize("case", list(SINGLE_DEVICE))
+def test_single_device_routes_match_jax(tmp_path, capsys, monkeypatch, case):
+    """``MSBFS_BACKEND`` = vmap, packed, dense, push and ppush: the same
+    exit code, report lines 1-5 and stderr as the JAX CLI (the width cap's
+    message with exit 1, the sub-batch line, the capacity protocol's)."""
+    fixture, env, code = SINGLE_DEVICE[case]
+    if fixture == "rmat":
+        argv = _rmat_fixture(tmp_path, k=12)
+    elif fixture == "oob":
+        argv = _fixture(tmp_path, queries=[[3, 899, 900, 5000], [-4], [7, 7, 8], []])
+    else:
+        argv = _fixture(tmp_path, **({"queries": []} if fixture == "none" else {}))
+    for key, value in env.items():
+        monkeypatch.setenv(key, value)
+    (rc_port, port), (rc_jax, jax_out) = _run_both(argv, capsys)
+    assert rc_port == rc_jax == code
+    assert port.out.splitlines()[:5] == jax_out.out.splitlines()[:5]
+    assert len(port.out.splitlines()) == (7 if code == 0 else 0)
+    assert _stderr(port.err) == _stderr(jax_out.err)
+    if code:
+        assert "exceeds width cap 64" in port.err
+    assert "not yet ported" not in port.err
 
 
 def test_forced_stencil_ignores_stencil_knob(tmp_path, capsys, monkeypatch):

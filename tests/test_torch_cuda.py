@@ -32,12 +32,18 @@ from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops i
     bitbell,
     cuda_bell,
     cuda_bfs,
+    cuda_csr,
     cuda_flag_pull,
     cuda_mxu,
+    cuda_push,
     cuda_stencil,
+    dense,
     engine,
     lowk,
     mxu,
+    packed,
+    push,
+    push_packed,
     stencil,
     streamed,
 )
@@ -1588,3 +1594,211 @@ def test_flag_pull_matches_plain(cuda, monkeypatch, kp, k, widths, bitmap):
         label = cuda_flag_pull.flag_pull_plan(16, g.n, k, vec16=False).label
         assert timing.variant_counts() == {f"flag_pull:{label}": 1} and "vec4" in label
 
+
+
+# ---- K9 (csr_pull), K10 (queue_expand), K11 (queue_compact) ----------------
+
+
+def _clone_carry(carry, device):
+    """A dataclass carry with every tensor (and its switch's) copied to
+    ``device``; a query-minor ``dist`` view stays query-minor."""
+    import dataclasses
+
+    out = {}
+    for f in dataclasses.fields(carry):
+        v = getattr(carry, f.name)
+        if isinstance(v, torch.Tensor):
+            if v.dim() == 2 and cuda_csr.query_minor(v):
+                v = v.T.clone().to(device).T
+            else:
+                v = v.clone().to(device)
+        elif isinstance(v, bitbell.PushSwitch):
+            v = bitbell.PushSwitch(*(x.clone().to(device) if isinstance(x, torch.Tensor) else x
+                                     for x in dataclasses.astuple(v)))
+        out[f.name] = v
+    return type(carry)(**out)
+
+
+def _csr_case(seed):
+    n, e = generators.rmat_edges(10, edge_factor=8, seed=seed)
+    n += 40  # isolated vertices past the RMAT range
+    return n, CSRGraph.from_edges(n, e)
+
+
+@pytest.mark.parametrize("layout", ["rows", "minor"])
+@pytest.mark.parametrize("k", [1, 5, 40])
+def test_csr_pull_matches_plain(cuda, layout, k):
+    n, g = _csr_case(31 + k)
+    gc, gg = g.to_device("cpu"), g.to_device(cuda)
+    q = io.pad_queries(generators.random_queries(n, k, max_group=3, seed=k))
+    if k > 2:
+        q[1] = -1
+    if layout == "minor":
+        want = packed.packed_carry_init(gc, q)
+    else:
+        want = bfs.distance_carry_init(n, q)
+    for chunk in (2, None):  # a chunk's bound stops the queries, then none
+        got = _clone_carry(want, cuda)
+        bfs.arm_chunk(want, chunk, None)
+        bfs.arm_chunk(got, chunk, None)
+        for _ in range(6):
+            cuda_csr.csr_pull_plain(gc, want)
+            timing.reset_launch_counts()
+            cuda_csr.csr_pull(gg, got)
+            torch.cuda.synchronize()
+            assert timing.launch_counts() == {"csr_pull": 1}
+            assert timing.variant_counts() == {f"csr_pull:{layout if k > 1 else 'rows'}": 1}
+            for name in ("dist", "level", "updated", "stop", "found", "ctrl"):
+                assert torch.equal(getattr(got, name).cpu(), getattr(want, name)), name
+    # A gated-off level (ctrl[0] = 0) changes nothing.
+    before = got.dist.clone()
+    got.ctrl.zero_()
+    cuda_csr.csr_pull(gg, got)
+    assert torch.equal(got.dist, before)
+
+
+@pytest.mark.parametrize("edge_chunks", [1, 4])
+def test_vmap_and_packed_engines_on_card_match_plain(cuda, edge_chunks):
+    n, g = _csr_case(5)
+    dg = g.to_device(cuda)
+    q = io.pad_queries(generators.random_queries(n, 37, max_group=4, seed=6))
+    for level_chunk in (None, 3):
+        want = engine.Engine(dg, level_chunk=level_chunk, plain=True).query_stats(q)
+        timing.reset_launch_counts()
+        got = engine.Engine(dg, level_chunk=level_chunk).query_stats(q)
+        assert timing.launch_counts().get("csr_pull", 0) > 0
+        for x, y in zip(got, want):
+            np.testing.assert_array_equal(x, y)
+        pk = packed.PackedEngine(dg, edge_chunks=edge_chunks, level_chunk=level_chunk)
+        plain = packed.PackedEngine(dg, edge_chunks=edge_chunks, level_chunk=level_chunk,
+                                    plain=True)
+        timing.reset_launch_counts()
+        for x, y in zip(pk.query_stats(q), plain.query_stats(q)):
+            np.testing.assert_array_equal(x, y)
+        assert "csr_pull:minor" in timing.variant_counts()
+        for x, y in zip(pk.query_stats(q), want):
+            np.testing.assert_array_equal(x, y)
+    dense_eng = engine.Engine(dense.DenseGraph.from_host(g, cuda))
+    for x, y in zip(dense_eng.query_stats(q), want):
+        np.testing.assert_array_equal(x, y)
+
+
+def _queue_equal(got, want):
+    k = want.queue.shape[0]
+    for name in ("visited", "hit", "count", "f", "levels", "reached", "level",
+                 "updated", "stop", "max_count"):
+        assert torch.equal(getattr(got, name).cpu(), getattr(want, name)), name
+    assert torch.equal(got.ctrl.cpu()[[0, 2]], want.ctrl[[0, 2]])
+    for q in range(k):
+        m = min(int(want.count[q]), want.capacity)
+        assert torch.equal(got.queue[q, :m].cpu(), want.queue[q, :m]), q
+
+
+@pytest.mark.parametrize("capacity", [4096, 37])
+@pytest.mark.parametrize("k", [1, 6, 33])
+def test_queue_push_matches_plain(cuda, k, capacity):
+    """K10 and K11 (queue mode) a level at a time against their plain
+    versions, through chunk bounds, to convergence; at capacity 37 the
+    frontiers overflow and the queues keep their ascending first 37 ids."""
+    n, e = generators.road_edges(60, 70, seed=k)
+    adj = push.PaddedAdjacency.from_host(CSRGraph.from_edges(n, e), "cpu")
+    rows = adj.rows.to(cuda)
+    q = io.pad_queries(generators.random_queries(n, k, max_group=12, seed=k + 1))
+    want = cuda_push.queue_carry_init(n, adj.rows, q, capacity)
+    got = cuda_push.queue_carry_init(n, rows, q, capacity)
+    _queue_equal(got, want)
+    overflowed = False
+    for _ in range(40):
+        for c in (want, got):
+            bfs.arm_chunk(c, 7, None)
+        for _ in range(7):
+            cuda_push.queue_expand_plain(adj.rows, want)
+            cuda_push.queue_compact_plain(want)
+            timing.reset_launch_counts()
+            cuda_push.queue_expand(rows, got)
+            cuda_push.queue_compact(got)
+            torch.cuda.synchronize()
+            assert timing.launch_counts() == {"queue_expand": 1, "queue_compact": 1}
+            _queue_equal(got, want)
+            overflowed |= bool((want.count > capacity).any())
+        if not bool(want.running(None)):
+            break
+    assert not bool(want.running(None))
+    assert overflowed == (capacity == 37)
+
+
+@pytest.mark.parametrize("capacity", [5000, 23])
+@pytest.mark.parametrize("k", [5, 64])
+def test_row_queue_matches_plain(cuda, k, capacity):
+    """K3 and K11's row mode (the ppush level) against their plain
+    versions a level at a time, overflowing union queues included."""
+    n, e = generators.road_edges(50, 40, seed=k)
+    adj = push.PaddedAdjacency.from_host(CSRGraph.from_edges(n, e), "cpu")
+    adj_c = push.PaddedAdjacency(adj.rows.to(cuda), adj.n, adj.width, adj.num_edges)
+    q = io.pad_queries(generators.random_queries(n, k, max_group=9, seed=k + 2))
+    qp = push_packed._pad_rows(q, push_packed._k_pad(k))
+    want = push_packed._packed_init_batch(adj, qp, capacity)
+    got = push_packed._packed_init_batch(adj_c, qp, capacity)
+    for level in range(400):
+        push_packed.packed_push_level(adj, want, bfs.INT32_MAX, plain=True)
+        timing.reset_launch_counts()
+        push_packed.packed_push_level(adj_c, got, bfs.INT32_MAX)
+        torch.cuda.synchronize()
+        assert timing.launch_counts() == {"push_or": 1, "queue_compact": 1}
+        assert timing.variant_counts()["queue_compact:rows"] == 1
+        for name in ("visited", "frontier", "hits", "f", "levels", "reached", "counts",
+                     "count", "peak", "ctrl"):
+            assert torch.equal(getattr(got, name).cpu(), getattr(want, name)), (level, name)
+        assert torch.equal(got.switch.state[:2].cpu(), want.switch.state[:2])
+        m = int(want.switch.state[0])
+        assert torch.equal(got.switch.worklist[:, :m].cpu(), want.switch.worklist[:, :m])
+        if not int(want.ctrl[0]):
+            break
+    assert not int(want.ctrl[0])
+    assert (int(want.peak[0]) > capacity) == (capacity == 23)
+
+
+@pytest.mark.parametrize("cls", ["push", "ppush"])
+def test_push_engines_on_card_match_plain(cuda, cls, capsys):
+    """Both push engines through the capacity protocol on the card: thin,
+    fat and thin batches give the plain engine's results, stderr lines
+    and capacities; an explicit small capacity raises FrontierOverflow."""
+    n, e = generators.road_edges(120, 120, seed=3)
+    adj = push.PaddedAdjacency.from_host(CSRGraph.from_edges(n, e), cuda)
+    eng_cls = push.PushEngine if cls == "push" else push_packed.PackedPushEngine
+    thin = io.pad_queries(generators.random_queries(n, 4, max_group=2, seed=1))
+    fat = io.pad_queries(generators.random_queries(n, 6, max_group=1500, seed=2))
+    runs = []
+    for plain in (True, False):
+        eng = eng_cls(adj, plain=plain)
+        trail = []
+        for batch in (thin, fat, thin):
+            stats = eng.query_stats(batch)
+            trail.append((eng.capacity, *(x.tolist() for x in stats)))
+        runs.append((trail, capsys.readouterr().err))
+    assert runs[0] == runs[1]
+    assert "frontier overflowed" in runs[0][1]
+    with pytest.raises(push.FrontierOverflow):
+        eng_cls(adj, capacity=16).f_values(fat)
+    assert supervisor.classify(push.FrontierOverflow("x")).exit_code == 3
+
+
+@pytest.mark.parametrize("backend", ["vmap", "packed", "dense", "push", "ppush"])
+def test_single_device_routes_cli_on_card(cuda, tmp_path, capsys, monkeypatch, backend):
+    n, edges = generators.road_edges(40, 40, seed=3)
+    gpath, qpath = str(tmp_path / "g.bin"), str(tmp_path / "q.bin")
+    io.save_graph_bin(gpath, n, edges)
+    io.save_query_bin(qpath, generators.random_queries(n, 20, max_group=5, seed=4))
+    argv = ["prog", "-g", gpath, "-q", qpath, "-gn", "1"]
+    monkeypatch.setenv("MSBFS_BACKEND", backend)
+    assert cli.main(argv, device="cpu") == 0
+    want = capsys.readouterr().out.splitlines()[:5]
+    timing.reset_launch_counts()
+    assert cli.main(argv) == 0
+    assert capsys.readouterr().out.splitlines()[:5] == want
+    counts = timing.launch_counts()
+    own = {"vmap": ["csr_pull"], "packed": ["csr_pull"], "dense": [],
+           "push": ["queue_expand", "queue_compact"],
+           "ppush": ["push_or", "queue_compact"]}[backend]
+    for name in own:
+        assert counts.get(name, 0) > 0, (backend, counts)

@@ -1,7 +1,8 @@
 """``MSBFS_STATS`` and the flight recorder in the port's CLI against the
 JAX CLI: the stderr block (``dispatch_count:``, the per-level trace under
 ``=2`` and the per-query table) with the level times masked, on the
-bitbell and stencil routes and the notes of the other cases; and the
+bitbell, stencil, ELL, vmap, dense and push routes and the notes of the
+other cases; and the
 ``MSBFS_FLIGHT_RECORDER`` file a typed failure leaves, warm-up and
 computation span alike."""
 
@@ -83,6 +84,16 @@ CASES = {
     "no_queries": ("rmat", 0, {"MSBFS_STATS": "1"}, "MSBFS_STATS: no queries"),
     "checkpoint_2": ("rmat", 40, {"MSBFS_STATS": "2", "MSBFS_CHECKPOINT": "{tmp}/j.ckpt"},
                      "not available under checkpointing"),
+    "vmap_1": ("rmat", 40, {"MSBFS_STATS": "1", "MSBFS_BACKEND": "vmap"}, "query  levels"),
+    "packed_2": ("rmat", 40, {"MSBFS_STATS": "2", "MSBFS_BACKEND": "packed"},
+                 "per-level trace not available on this engine"),
+    "dense_1": ("road", 12, {"MSBFS_STATS": "1", "MSBFS_BACKEND": "dense"}, "query  levels"),
+    "push_1": ("road", 12, {"MSBFS_STATS": "1", "MSBFS_BACKEND": "push"}, "query  levels"),
+    "push_2": ("road", 12, {"MSBFS_STATS": "2", "MSBFS_BACKEND": "push"}, "level  discovered"),
+    "ppush_2": ("road", 12, {"MSBFS_STATS": "2", "MSBFS_BACKEND": "ppush"},
+                "level  discovered"),
+    "ppush_checkpoint_1": ("road", 12, {"MSBFS_STATS": "1", "MSBFS_BACKEND": "ppush",
+                                        "MSBFS_CHECKPOINT": "{tmp}/j.ckpt"}, "query  levels"),
 }
 
 
