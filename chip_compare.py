@@ -2,7 +2,7 @@
 """Two checkouts of the PyTorch/CUDA port side by side on one card: the
 batch start of every route, the low-K levels' expansion and the CLI paths.
 
-    python3 chip_compare.py TREE [TREE ...] [--out DIR] [--reps 3]
+    python3 chip_compare.py TREE [TREE ...] [--out DIR] [--reps 3] [--routes R,R]
 
 Each TREE is the root of a checkout (the repo root, or a parent commit
 unpacked with ``git archive`` under ``build/``); give them in turns
@@ -12,7 +12,8 @@ falls on both.  The graphs and query files are made once, from seed 0 as
 process of its own that imports the port from that TREE only (so each
 builds its own kernels).  Per TREE and route (stencil road-4096 K = 16,
 mxu RMAT-14 K = 64 and road-512 K = 16, bitbell, bell and streamed
-RMAT-20 K = 64, low-K RMAT-20 K = 4 and K = 1, low-K RMAT-16 K = 1):
+RMAT-20 K = 64, low-K RMAT-20 K = 4 and K = 1, low-K RMAT-16 K = 1, push
+and ppush road-4096 K = 16; ``--routes`` keeps the named ones only):
 
 - the batch start (``engine._init_carry``): its host ms (median of 20,
   up to a synchronise), its device operations (torch.profiler) and its
@@ -25,7 +26,14 @@ RMAT-20 K = 64, low-K RMAT-20 K = 4 and K = 1, low-K RMAT-16 K = 1):
 - the computation span of each CLI path (median of ``--reps`` runs) and,
   on the low-K, bitbell and mxu road-512 paths, the device's busy share
   of one chunk (the kernels' summed device time over the chunk's
-  CUDA-event span).
+  CUDA-event span);
+- on the push and ppush routes, the capacities of one auto-capacity call
+  and one BFS at the last of them a level at a time: each level's two
+  kernels' device ms (CUDA events around each launch, behind a queued
+  device sleep: queue_expand and queue_compact, or push_or and
+  queue_compact's row mode), summed, and
+  both on the widest level and on the thin one (the first whose
+  compaction lists fewer than 4,096).
 
 Needs one CUDA card, nvcc and scipy; imports nothing of JAX.  Prints one
 JSON line per TREE run and, last, the card and a summary by TREE; per
@@ -54,8 +62,9 @@ def _card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def _make_data(tmp: str) -> dict:
-    """The graph and query files of every route (``chip_smoke.py``'s seeds)."""
+def _make_data(tmp: str, needed) -> dict:
+    """The graph and query files of the routes' data in ``needed``
+    (``chip_smoke.py``'s seeds)."""
     import numpy as np
 
     from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.models import (
@@ -79,26 +88,31 @@ def _make_data(tmp: str) -> dict:
         return path
 
     files = {}
-    n, e = generators.road_edges(4096, 4096, seed=0)
-    files["road-4096"] = (graph("road4096", n, e),
-                          query("road4096", generators.random_queries(n, 16, seed=2)))
-    n, e = generators.rmat_edges(14, edge_factor=16, seed=0)
-    files["rmat-14"] = (graph("rmat14", n, e),
-                        query("rmat14", generators.random_queries(n, 64, seed=8)))
-    n, e = generators.road_edges(512, 512, seed=0)
-    files["road-512"] = (graph("road512", n, e),
-                         query("road512", generators.random_queries(n, 16, seed=9)))
-    n, e = generators.rmat_edges(16, edge_factor=16, seed=0)
-    g = CSRGraph.from_edges(n, e)
-    source = int(np.random.default_rng(0).choice(np.nonzero(g.degrees > 0)[0]))
-    files["rmat-16 K=1"] = (graph("rmat16", n, e),
-                            query("rmat16", [np.array([source], dtype=np.int32)]))
-    n, e = generators.rmat_edges(20, edge_factor=16, seed=0)
-    q = generators.random_queries(n, 64, seed=12)
-    g20 = graph("rmat20", n, e)
-    files["rmat-20 K=64"] = (g20, query("rmat20", q))
-    files["rmat-20 K=4"] = (g20, query("rmat20-k4", q[:4]))
-    files["rmat-20 K=1"] = (g20, query("rmat20-k1", q[:1]))
+    if "road-4096" in needed:
+        n, e = generators.road_edges(4096, 4096, seed=0)
+        files["road-4096"] = (graph("road4096", n, e),
+                              query("road4096", generators.random_queries(n, 16, seed=2)))
+    if "rmat-14" in needed:
+        n, e = generators.rmat_edges(14, edge_factor=16, seed=0)
+        files["rmat-14"] = (graph("rmat14", n, e),
+                            query("rmat14", generators.random_queries(n, 64, seed=8)))
+    if "road-512" in needed:
+        n, e = generators.road_edges(512, 512, seed=0)
+        files["road-512"] = (graph("road512", n, e),
+                             query("road512", generators.random_queries(n, 16, seed=9)))
+    if "rmat-16 K=1" in needed:
+        n, e = generators.rmat_edges(16, edge_factor=16, seed=0)
+        g = CSRGraph.from_edges(n, e)
+        source = int(np.random.default_rng(0).choice(np.nonzero(g.degrees > 0)[0]))
+        files["rmat-16 K=1"] = (graph("rmat16", n, e),
+                                query("rmat16", [np.array([source], dtype=np.int32)]))
+    if needed & {"rmat-20 K=64", "rmat-20 K=4", "rmat-20 K=1"}:
+        n, e = generators.rmat_edges(20, edge_factor=16, seed=0)
+        q = generators.random_queries(n, 64, seed=12)
+        g20 = graph("rmat20", n, e)
+        files["rmat-20 K=64"] = (g20, query("rmat20", q))
+        files["rmat-20 K=4"] = (g20, query("rmat20-k4", q[:4]))
+        files["rmat-20 K=1"] = (g20, query("rmat20-k1", q[:1]))
     return files
 
 
@@ -115,9 +129,13 @@ ROUTES = {
     "streamed rmat-20": ("rmat-20 K=64", {"MSBFS_BACKEND": "streamed"}),
     "lowk rmat-20 K=4": ("rmat-20 K=4", {}),
     "lowk rmat-20 K=1": ("rmat-20 K=1", {}),
+    "push road-4096": ("road-4096", {"MSBFS_BACKEND": "push"}),
+    "ppush road-4096": ("road-4096", {"MSBFS_BACKEND": "ppush"}),
 }
 LEVEL_ROUTES = ("lowk rmat-16 K=1", "lowk rmat-20 K=4")
 BUSY_ROUTES = ("lowk rmat-16 K=1", "lowk rmat-20 K=4", "bitbell rmat-20", "mxu road-512")
+# The routes measured a BFS level at a time (no batch start of their own).
+PUSH_ROUTES = ("push road-4096", "ppush road-4096")
 
 
 @contextlib.contextmanager
@@ -227,8 +245,9 @@ def _host_us(torch, fn, reps=300):
     return us
 
 
-def _engines(torch, dev, files):
-    """route -> (engine, padded queries) as the CLI pads them."""
+def _engines(torch, dev, files, routes):
+    """route -> (engine, padded queries) as the CLI pads them, for the
+    batch-start routes among ``routes``."""
     from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.models.bell import (
         BellGraph,
     )
@@ -247,24 +266,47 @@ def _engines(torch, dev, files):
             graphs[gpath] = tio.load_graph_bin(gpath)
         return graphs[gpath], tio.pad_queries(tio.load_query_bin(qpath))
 
-    g, q = load("road-4096")
-    out["stencil road-4096"] = (stencil.StencilEngine(
-        stencil.StencilGraph.from_host(g, dev), level_chunk=stencil.AUTO_STENCIL_LEVEL_CHUNK), q)
-    for route, data in (("mxu rmat-14", "rmat-14"), ("mxu road-512", "road-512")):
+    def bell_graph():
+        if "bg" not in graphs:
+            graphs["bg"] = BellGraph.from_host(load("rmat-20 K=64")[0], dev)
+        return graphs["bg"]
+
+    def stencil_road():
+        g, q = load("road-4096")
+        return stencil.StencilEngine(stencil.StencilGraph.from_host(g, dev),
+                                     level_chunk=stencil.AUTO_STENCIL_LEVEL_CHUNK), q
+
+    def mxu_route(data):
         g, q = load(data)
-        out[route] = (mxu.MxuEngine(mxu.MxuGraph.from_host(g, dev), level_chunk=128,
-                                    kernel=True), q)
-    g, q = load("rmat-16 K=1")
-    out["lowk rmat-16 K=1"] = (lowk.LowKEngine(BellGraph.from_host(g, dev), level_chunk=128), q)
-    g, q = load("rmat-20 K=64")
-    bg = BellGraph.from_host(g, dev)
-    out["bitbell rmat-20"] = (bitbell.BitBellEngine(bg, level_chunk=128), q)
-    out["bell rmat-20"] = (bell.BellEngine(bg, level_chunk=128), q)
-    out["streamed rmat-20"] = (streamed.StreamedBitBellEngine(
-        BellGraph.from_host(g, False, keep_sparse=False), dev), q)
-    for route, data in (("lowk rmat-20 K=4", "rmat-20 K=4"), ("lowk rmat-20 K=1", "rmat-20 K=1")):
-        _, q = load(data)
-        out[route] = (lowk.LowKEngine(bg, level_chunk=128), q)
+        return mxu.MxuEngine(mxu.MxuGraph.from_host(g, dev), level_chunk=128, kernel=True), q
+
+    def lowk_route(data):
+        g, q = load(data)
+        return lowk.LowKEngine(BellGraph.from_host(g, dev), level_chunk=128), q
+
+    def streamed_route():
+        g, q = load("rmat-20 K=64")
+        return streamed.StreamedBitBellEngine(
+            BellGraph.from_host(g, False, keep_sparse=False), dev), q
+
+    make = {
+        "stencil road-4096": stencil_road,
+        "mxu rmat-14": lambda: mxu_route("rmat-14"),
+        "mxu road-512": lambda: mxu_route("road-512"),
+        "lowk rmat-16 K=1": lambda: lowk_route("rmat-16 K=1"),
+        "bitbell rmat-20": lambda: (bitbell.BitBellEngine(bell_graph(), level_chunk=128),
+                                    load("rmat-20 K=64")[1]),
+        "bell rmat-20": lambda: (bell.BellEngine(bell_graph(), level_chunk=128),
+                                 load("rmat-20 K=64")[1]),
+        "streamed rmat-20": streamed_route,
+        "lowk rmat-20 K=4": lambda: (lowk.LowKEngine(bell_graph(), level_chunk=128),
+                                     load("rmat-20 K=4")[1]),
+        "lowk rmat-20 K=1": lambda: (lowk.LowKEngine(bell_graph(), level_chunk=128),
+                                     load("rmat-20 K=1")[1]),
+    }
+    for route in routes:
+        if route in make:
+            out[route] = make[route]()
     return out
 
 
@@ -365,7 +407,82 @@ def _cli_span(cli, argv, knobs, reps):
                 winner=int(lines[2].rsplit(":", 1)[1]), min_f=int(lines[3].rsplit(":", 1)[1]))
 
 
-def child(tree: str, files: dict, reps: int) -> dict:
+def _push_bfs(torch, dev, files, route):
+    """The push (or ppush) engine's capacities over one auto-capacity
+    call, then one BFS at the last of them a level at a time: each
+    level's two kernels timed on their own (CUDA events), summed."""
+    import inspect
+
+    import numpy as np
+
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
+        bfs, bitbell, cuda_push, push, push_packed,
+    )
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.utils import (
+        io as tio,
+    )
+
+    gpath, qpath = files[ROUTES[route][0]]
+    q = tio.pad_queries(tio.load_query_bin(qpath))
+    adj = push.PaddedAdjacency.from_host(tio.load_graph_bin(gpath), dev)
+    packed = route.startswith("ppush")
+    eng = (push_packed.PackedPushEngine if packed else push.PushEngine)(adj)
+    trail, dispatch = [], eng._dispatch
+
+    def recorded(queries):
+        trail.append(eng.capacity)
+        return dispatch(queries)
+
+    eng._dispatch = recorded
+    f = eng.f_values(q).cpu().numpy()
+    cap = trail[-1]
+    if packed:
+        qp = push_packed._pad_rows(q, push_packed._k_pad(q.shape[0]))
+        carry = push_packed._packed_init_batch(adj, qp, cap)
+        start, vals, _ = push_packed._table_csr(adj)
+        first = lambda c: bitbell.sparse_hits_or(  # noqa: E731
+            c.frontier, start, vals, c.hits, c.ctrl, c.switch, bfs.INT32_MAX)
+        second = lambda c: cuda_push.row_compact(c, bfs.INT32_MAX)  # noqa: E731
+        size = lambda c: int(c.count[0])  # noqa: E731
+    else:
+        carry = push._push_init_batch(adj, q, cap)
+        bfs.arm_chunk(carry, None, None)
+        # The parent tree's K10 reads the padded table alone.
+        extra = (push.table_csr(adj),) if len(
+            inspect.signature(cuda_push.queue_expand).parameters) > 2 else ()
+        first = lambda c: cuda_push.queue_expand(adj.rows, c, *extra)  # noqa: E731
+        second = cuda_push.queue_compact
+        size = lambda c: int(torch.clamp(c.count, max=cap).sum())  # noqa: E731
+    levels = []
+    while bool(carry.running(None)):
+        entries = size(carry)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        torch.cuda._sleep(2_000_000)  # the wrappers' host time falls in the sleep
+        ev[0].record()
+        first(carry)
+        ev[1].record()
+        torch.cuda._sleep(2_000_000)
+        ev[2].record()
+        second(carry)
+        ev[3].record()
+        ev[3].synchronize()
+        levels.append((entries, ev[0].elapsed_time(ev[1]), ev[2].elapsed_time(ev[3]),
+                       int(carry.count.sum()) if not packed else int(carry.count[0])))
+    ms = [a + b for _, a, b, _ in levels]
+    widest = max(range(len(levels)), key=lambda i: levels[i][0])
+    thin = next(i for i, lv in enumerate(levels) if lv[3] < 4096)
+    names = ("push_or_ms", "compact_ms") if packed else ("expand_ms", "compact_ms")
+    return dict(capacity_trail=trail, capacity=cap, levels=len(ms),
+                level_device_ms_sum=sum(ms), level_device_ms_max=max(ms), level_ms=ms,
+                **{f"{n}_sum": sum(lv[i + 1] for lv in levels) for i, n in enumerate(names)},
+                widest=dict(level=widest, entries=levels[widest][0],
+                            **{n: levels[widest][i + 1] for i, n in enumerate(names)}),
+                thin=dict(level=thin, entries=levels[thin][0], new=levels[thin][3],
+                          **{n: levels[thin][i + 1] for i, n in enumerate(names)}),
+                winner=int(np.argmin(f)) + 1, min_f=int(f.min()))
+
+
+def child(tree: str, files: dict, reps: int, routes) -> dict:
     import torch
 
     from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch import cli
@@ -376,19 +493,23 @@ def child(tree: str, files: dict, reps: int) -> dict:
     assert kernels.__file__.startswith(os.path.abspath(tree)), kernels.__file__
     dev = torch.device("cuda", 0)
     kernels.library()
-    out = dict(tree=tree, batch_start={}, levels={}, busy={}, cli={})
-    engines = _engines(torch, dev, files)
+    out = dict(tree=tree, batch_start={}, levels={}, busy={}, cli={}, push_bfs={})
+    engines = _engines(torch, dev, files, routes)
     for route, (eng, q) in engines.items():
         out["batch_start"][route] = _batch_start(torch, eng, q)
-    for route in LEVEL_ROUTES:
+    for route in (r for r in LEVEL_ROUTES if r in routes):
         out["levels"][route] = _levels(torch, *engines[route])
-    for route in BUSY_ROUTES:
+    for route in (r for r in BUSY_ROUTES if r in routes):
         eng, q = engines[route]
         depth = int(max(eng.query_stats(q)[0]))
         out["busy"][route] = _busy(torch, eng, q, depth)
     del engines
     torch.cuda.empty_cache()
-    for route, (data, knobs) in ROUTES.items():
+    for route in (r for r in PUSH_ROUTES if r in routes):
+        out["push_bfs"][route] = _push_bfs(torch, dev, files, route)
+        torch.cuda.empty_cache()
+    for route in routes:
+        data, knobs = ROUTES[route]
         gpath, qpath = files[data]
         out["cli"][route] = _cli_span(cli, ["chip_compare", "-g", gpath, "-q", qpath, "-gn", "1"],
                                       knobs, reps)
@@ -428,6 +549,17 @@ def _summary(runs):
                                    for route in rs[0]["cli"]}
         t["busy_share"] = {route: [x["busy"][route]["busy_share"] for x in rs]
                            for route in rs[0]["busy"]}
+        t["push_bfs"] = {route: dict(
+            level_device_ms_sum=[x["push_bfs"][route]["level_device_ms_sum"] for x in rs],
+            level_device_ms_max=[x["push_bfs"][route]["level_device_ms_max"] for x in rs],
+            levels=rs[0]["push_bfs"][route]["levels"],
+            widest=[x["push_bfs"][route]["widest"] for x in rs],
+            thin=[x["push_bfs"][route]["thin"] for x in rs],
+            kernel_sums={k: [x["push_bfs"][route][k] for x in rs]
+                         for k in rs[0]["push_bfs"][route] if k.endswith("_ms_sum")},
+            capacity_trail=rs[0]["push_bfs"][route]["capacity_trail"],
+            min_f=[x["push_bfs"][route]["min_f"] for x in rs])
+            for route in rs[0]["push_bfs"]}
         t["chunk_ms"] = {route: [x["busy"][route]["chunk_ms"] for x in rs]
                          for route in rs[0]["busy"]}
     return out
@@ -438,12 +570,15 @@ def main() -> int:
     ap.add_argument("trees", nargs="*")
     ap.add_argument("--out", default="build/chip_compare")
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--routes", default=",".join(ROUTES),
+                    help="comma-separated route names (default: every route)")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     ap.add_argument("--files", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:
         sys.path.insert(0, os.path.abspath(args.child))
-        result = child(args.child, json.loads(args.files), args.reps)
+        result = child(args.child, json.loads(args.files), args.reps,
+                       args.routes.split(","))
         print("RESULT " + json.dumps(result))
         return 0
     import torch
@@ -453,16 +588,20 @@ def main() -> int:
         return 1
     if not args.trees:
         ap.error("give at least one TREE")
+    routes = args.routes.split(",")
+    unknown = [r for r in routes if r not in ROUTES]
+    if unknown:
+        ap.error(f"unknown routes {unknown}; known: {list(ROUTES)}")
     card = _card_line()
     os.makedirs(args.out, exist_ok=True)
     tmpdir = tempfile.TemporaryDirectory(prefix="msbfs_compare_")
-    files = _make_data(tmpdir.name)
+    files = _make_data(tmpdir.name, {ROUTES[r][0] for r in routes})
     runs = []
     for i, tree in enumerate(args.trees):
         t0 = time.perf_counter()
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--child", tree, "--files",
-             json.dumps(files), "--reps", str(args.reps)],
+             json.dumps(files), "--reps", str(args.reps), "--routes", args.routes],
             capture_output=True, text=True, timeout=1800,
         )
         if proc.returncode != 0:

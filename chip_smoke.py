@@ -163,9 +163,16 @@ non-zero; nothing is caught):
    the push engine's auto-capacity growth on road-1024 (K = 16, phase 6's
    groups) equals the plain engine's, an explicit capacity of
    SMALL_CAPACITY raises FrontierOverflow, and the
-   kernels are held against their plain versions on the widest level and
-   timed beside their bounds and library yardsticks (index_fill_; cumsum
-   and scatter_);
+   kernels are held against their plain versions (every carry field, the
+   tile flags too) on the widest level and on the thin one (the first
+   whose compaction lists fewer than THIN_ENTRIES) and timed beside their
+   bounds (and those of a walk of the padded table and of a pass over
+   the whole hit plane) and library yardsticks (index_fill_; cumsum and
+   scatter_); every level of one push
+   and one ppush BFS has each kernel timed on its own, with the level's
+   entries and touched tiles ("push levels", "ppush levels" lines; per
+   level in chip_smoke_push_road4096_levels.json and
+   chip_smoke_ppush_road4096_levels.json under --detail-dir);
 then the ``{"kernels": [...]}`` line and the final ``{"ok": true, ...}``.
 
 Each CLI run of phases 3-5b, 9a and 10 is one path: the kernel launch counters are
@@ -2748,50 +2755,108 @@ def _csr_pull_row(torch, np, dg, padded, layout, label):
     return row
 
 
-def _widest_level(torch, np, make, step, size):
-    """The level of a BFS (``make()`` a fresh carry, ``step`` one level)
-    whose frontier ``size`` is the largest, by a first pass that reads the
-    size before each level; and each level's device ms in that pass (CUDA
-    events around its launches)."""
-    carry, sizes, ms = make(), [], []
+# The thin level of a push BFS: the first whose compaction lists fewer new
+# entries (push) or union rows (ppush).
+THIN_ENTRIES = 4096
+
+
+def _events(torch, n):
+    return [torch.cuda.Event(enable_timing=True) for _ in range(n)]
+
+
+# Device cycles slept before a launch timed on its own (about 1 ms), so that
+# its wrapper's host time falls inside the sleep and not in the events' span.
+HOST_SLACK = 2_000_000
+
+
+def _push_levels(torch, adj, make, capacity):
+    """Every level of one push BFS at ``capacity``: its queued entries,
+    the tiles K10 marks, the new entries K11 lists, and each kernel's
+    device ms (CUDA events around each launch, behind a queued device
+    sleep; the flags are read between the two)."""
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
+        cuda_push, push,
+    )
+
+    csr = push.table_csr(adj)
+    carry, rows = make(), []
     while bool(carry.running(None)):
-        sizes.append(size(carry))
-        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        e0.record()
-        step(carry)
-        e1.record()
-        e1.synchronize()
-        ms.append(e0.elapsed_time(e1))
-    return int(np.argmax(sizes)), ms
+        entries = int(torch.clamp(carry.count, max=capacity).sum())
+        ev = _events(torch, 4)
+        torch.cuda._sleep(HOST_SLACK)
+        ev[0].record()
+        cuda_push.queue_expand(adj.rows, carry, csr)
+        ev[1].record()
+        ev[1].synchronize()
+        touched = int(carry.touched.sum())
+        torch.cuda._sleep(HOST_SLACK)
+        ev[2].record()
+        cuda_push.queue_compact(carry)
+        ev[3].record()
+        ev[3].synchronize()
+        rows.append(dict(level=len(rows), entries=entries, touched_tiles=touched,
+                         new=int(carry.count.sum()), expand_ms=ev[0].elapsed_time(ev[1]),
+                         compact_ms=ev[2].elapsed_time(ev[3])))
+    return rows
 
 
-def _queue_rows(torch, np, adj, padded, capacity, label):
-    """K10 and K11 (queue mode) on the BFS's widest level at the engine's
-    capacity: each against its plain version (every carry field, the
-    queues' meaningful entries), timed beside its bound and its library
-    yardstick (``index_fill_`` of the gathered neighbours' flat ids; the
+def _ppush_levels(torch, adj, make, capacity):
+    """Every level of one ppush BFS: its union rows and listed rows, the
+    next frontier's rows, and K3's and K11's (row mode) device ms (CUDA
+    events around each launch, behind a queued device sleep)."""
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
+        bfs, bitbell, cuda_push, push,
+    )
+
+    start, vals, _ = push.table_csr(adj)
+    carry, rows = make(), []
+    while bool(carry.running(None)):
+        union, listed = int(carry.count[0]), int(carry.switch.state[0])
+        ev = _events(torch, 4)
+        torch.cuda._sleep(HOST_SLACK)
+        ev[0].record()
+        bitbell.sparse_hits_or(carry.frontier, start, vals, carry.hits, carry.ctrl,
+                               carry.switch, bfs.INT32_MAX)
+        ev[1].record()
+        torch.cuda._sleep(HOST_SLACK)
+        ev[2].record()
+        cuda_push.row_compact(carry, bfs.INT32_MAX)
+        ev[3].record()
+        ev[3].synchronize()
+        rows.append(dict(level=len(rows), union_rows=union, listed=listed,
+                         new_rows=int(carry.count[0]), push_or_ms=ev[0].elapsed_time(ev[1]),
+                         compact_ms=ev[2].elapsed_time(ev[3])))
+    return rows
+
+
+def _level_sums(rows, keys):
+    return {f"{k}_sum": sum(r[k] for r in rows) for k in keys} | {
+        f"{k}_max": max(r[k] for r in rows) for k in keys}
+
+
+def _thin_level(rows, key):
+    """The first level whose compaction lists fewer than THIN_ENTRIES."""
+    return next(r["level"] for r in rows if r[key] < THIN_ENTRIES)
+
+
+def _queue_pair(torch, adj, snap, capacity, label, level, kind):
+    """K10 and K11 (queue mode) on one level's carry ``snap``: each against
+    its plain version (every carry field, the tile flags too, and the
+    queues' meaningful entries), timed beside its bound (and the bound of
+    a design that reads the padded table and the whole hit plane) and its
+    library yardstick (``index_fill_`` of the gathered neighbours' flat ids; the
     compaction's exclusive ``cumsum`` and ``scatter_`` into a (capacity +
     1) buffer)."""
     from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
-        bfs, cuda_push, push,
+        cuda_push, push,
     )
 
     n, rows = adj.n, adj.rows
-
-    def make():
-        carry = cuda_push.queue_carry_init(n, rows, padded, capacity)
-        bfs.arm_chunk(carry, None, None)
-        return carry
-
-    level, bfs_ms = _widest_level(torch, np, make, lambda c: push.push_level(adj, c),
-                                  lambda c: int(c.count.sum()))
-    carry = make()
-    for _ in range(level):
-        push.push_level(adj, carry)
-    snap = _clone(torch, carry)
+    csr = push.table_csr(adj)
     k, pitch = snap.hit.shape
-    fields = ("visited", "hit", "count", "f", "levels", "reached", "level", "updated",
-              "stop", "max_count")
+    tiles = snap.touched.shape[1]
+    fields = ("visited", "hit", "touched", "count", "f", "levels", "reached", "level",
+              "updated", "stop", "max_count")
 
     def queue_err(got, want):
         err = _carry_err(torch, got, want, fields)
@@ -2803,12 +2868,17 @@ def _queue_rows(torch, np, adj, padded, capacity, label):
 
     # K10.
     got, want = _clone(torch, snap), _clone(torch, snap)
-    cuda_push.queue_expand(rows, got)
+    cuda_push.queue_expand(rows, got, csr)
     cuda_push.queue_expand_plain(rows, want)
     torch.cuda.synchronize()
     expand_err = queue_err(got, want)
     post = _clone(torch, got)
     work = _clone(torch, snap)
+
+    def clear():
+        work.hit.zero_()
+        work.touched.zero_()
+
     entries = torch.clamp(snap.count, max=capacity)
     listed = int(entries.sum())
     nbrs = rows[snap.queue.long()]  # (K, capacity, w)
@@ -2816,23 +2886,27 @@ def _queue_rows(torch, np, adj, padded, capacity, label):
     live = live & (nbrs != n)
     qoff = (torch.arange(k, device=rows.device) * pitch)[:, None, None]
     flat = (qoff + nbrs)[live]
+    walked = int(live.sum())
     hits_set = int((post.hit != 0).sum())
+    touched = int(post.touched.sum())
     expand = dict(
-        entries=listed, hit_bytes=hits_set, max_abs_err=expand_err,
-        ms=_time_ms(torch, lambda: cuda_push.queue_expand(rows, work), work.hit.zero_),
-        plain_ms=_time_ms(torch, lambda: cuda_push.queue_expand_plain(rows, work),
-                          work.hit.zero_, reps=3),
+        level=level, entries=listed, edges_walked=walked, hit_bytes=hits_set,
+        touched_tiles=touched, max_abs_err=expand_err,
+        ms=_time_ms(torch, lambda: cuda_push.queue_expand(rows, work, csr), clear),
+        plain_ms=_time_ms(torch, lambda: cuda_push.queue_expand_plain(rows, work), clear,
+                          reps=3),
         library_ms=_time_ms(torch, lambda: work.hit.view(-1).index_fill_(0, flat, 1),
                             work.hit.zero_),
         library="index_fill_ of the gathered neighbours' flat ids (the gather outside)",
     )
+    # The listed ids, their CSR rows' starts and ends, the edges walked, a
+    # hit byte an edge and a flag a touched tile, the counts.
     expand["bound_ms"], expand["bound_by"] = _bound_ms(
-        4 * listed * (1 + adj.width) + 4 * k + hits_set, 0)
-    print(f"compare {label} queue_expand (level {level}): "
+        12 * listed + 4 * walked + hits_set + touched + 4 * k, 0)
+    expand["table_walk_bound_ms"] = _bound_ms(
+        4 * listed * (1 + adj.width) + 4 * k + hits_set, 0)[0]
+    print(f"compare {label} queue_expand ({kind} level {level}): "
           + json.dumps(dict(**expand, card=CARD)))
-    print(f"{label} push levels: " + json.dumps(dict(
-        levels=len(bfs_ms), device_ms_sum=sum(bfs_ms), device_ms_max=max(bfs_ms),
-        note="queue_expand and queue_compact of every level, CUDA events", card=CARD)))
     # K11 on the expanded level.
     got, want = _clone(torch, post), _clone(torch, post)
     cuda_push.queue_compact(got)
@@ -2853,44 +2927,72 @@ def _queue_rows(torch, np, adj, padded, capacity, label):
                      ids)
 
     compact = dict(
-        new=new_total, queued=queued, max_abs_err=compact_err,
+        level=level, new=new_total, queued=queued, touched_tiles=touched,
+        max_abs_err=compact_err,
         ms=_time_ms(torch, lambda: cuda_push.queue_compact(work), restore),
         plain_ms=_time_ms(torch, lambda: cuda_push.queue_compact_plain(work), restore,
                           reps=3),
         library_ms=_time_ms(torch, library, lambda: None, reps=5),
         library="exclusive cumsum + scatter_ into a (capacity + 1) buffer",
     )
-    # Read the hit plane once, visited where a hit is set; write the new
-    # visited bytes, clear the set hit bytes, write the queued ids and the
-    # per-query counters.
+    # Read the flags and the touched tiles' hit bytes, visited where a hit
+    # is set; write the new visited bytes, clear the set hit bytes and the
+    # flags, write the queued ids and the per-query counters.
     compact["bound_ms"], compact["bound_by"] = _bound_ms(
-        k * pitch + 2 * hits_set + new_total + 4 * queued + 40 * k, 0)
-    print(f"compare {label} queue_compact (level {level}, queue mode): "
+        k * tiles + touched + min(touched * cuda_push.TILE_BYTES, k * pitch)
+        + 2 * hits_set + new_total + 4 * queued + 40 * k, 0)
+    compact["whole_plane_bound_ms"] = _bound_ms(
+        k * pitch + 2 * hits_set + new_total + 4 * queued + 40 * k, 0)[0]
+    print(f"compare {label} queue_compact ({kind} level {level}, queue mode): "
           + json.dumps(dict(**compact, card=CARD)))
     assert expand_err == 0 and compact_err == 0, (expand, compact)
     return expand, compact
 
 
-def _row_queue_row(torch, np, adj, padded, capacity, label):
-    """K3 and K11's row mode (the ppush level) on the BFS's widest level
-    at the engine's capacity: each against its plain version, K11 timed
-    beside its bound."""
+def _queue_rows(torch, np, adj, padded, capacity, label):
+    """K10 and K11 (queue mode) on the BFS's widest level (the most queued
+    entries) and its thin level at the engine's capacity (``_queue_pair``);
+    and every level's kernels timed on their own (detail JSON)."""
     from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
-        bfs, cuda_push, push_packed,
+        bfs, cuda_push, push,
     )
 
-    qp = push_packed._pad_rows(padded, push_packed._k_pad(padded.shape[0]))
+    n, rows = adj.n, adj.rows
 
-    def step(c):
-        push_packed.packed_push_level(adj, c, bfs.INT32_MAX)
+    def make():
+        carry = cuda_push.queue_carry_init(n, rows, padded, capacity)
+        bfs.arm_chunk(carry, None, None)
+        return carry
 
-    level, bfs_ms = _widest_level(
-        torch, np, lambda: push_packed._packed_init_batch(adj, qp, capacity), step,
-        lambda c: int(c.count[0]))
-    carry = push_packed._packed_init_batch(adj, qp, capacity)
-    for _ in range(level):
-        step(carry)
-    start, vals, _ = push_packed._table_csr(adj)
+    levels = _push_levels(torch, adj, make, capacity)
+    keys = ("expand_ms", "compact_ms")
+    print(f"{label} push levels: " + json.dumps(dict(
+        levels=len(levels), device_ms_sum=sum(r["expand_ms"] + r["compact_ms"] for r in levels),
+        device_ms_max=max(r["expand_ms"] + r["compact_ms"] for r in levels),
+        **_level_sums(levels, keys), capacity=capacity,
+        detail=_write_detail("push_road4096_levels", levels),
+        note="queue_expand and queue_compact of every level, CUDA events behind a "
+             "queued device sleep (device time only)", card=CARD)))
+    widest = max(levels, key=lambda r: r["entries"])["level"]
+    thin = _thin_level(levels, "new")
+    out = {}
+    for kind, level in (("thin", thin), ("widest", widest)):
+        carry = make()
+        for _ in range(level):
+            push.push_level(adj, carry)
+        out[kind] = _queue_pair(torch, adj, _clone(torch, carry), capacity, label, level, kind)
+    return out["widest"]
+
+
+def _row_pair(torch, adj, carry, label, level, kind):
+    """K3 and K11's row mode on one level's carry: the level against its
+    plain version (every field, the worklist's meaningful entries), and
+    each kernel timed alone, K11 beside its bound."""
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
+        bfs, bitbell, cuda_push, push, push_packed,
+    )
+
+    start, vals, _ = push.table_csr(adj)
     got, want = _clone(torch, carry), _clone(torch, carry)
     push_packed.packed_push_level(adj, got, bfs.INT32_MAX)
     push_packed.packed_push_level(adj, want, bfs.INT32_MAX, plain=True)
@@ -2902,11 +3004,6 @@ def _row_queue_row(torch, np, adj, padded, capacity, label):
     err = max(err, _max_abs_err(torch, [(got.switch.state[:2], want.switch.state[:2]),
                                          (got.switch.worklist[:, :m],
                                           want.switch.worklist[:, :m])]))
-    # K11 alone on the scattered level.
-    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
-        bitbell,
-    )
-
     post = _clone(torch, carry)
     bitbell.sparse_hits_or(post.frontier, start, vals, post.hits, post.ctrl, post.switch)
     work = _clone(torch, carry)
@@ -2918,22 +3015,62 @@ def _row_queue_row(torch, np, adj, padded, capacity, label):
     restore = functools.partial(_restore, torch, work, post)
     rows_n, w = post.hits.shape
     hit_words = int((post.hits != 0).sum())
+    listed_edges = int(carry.switch.state[1])
     row = dict(
         level=level, union_rows=int(carry.count[0]), listed=int(carry.switch.state[0]),
-        max_abs_err=err, push_or_ms=push_or_ms, bfs_levels=len(bfs_ms),
-        bfs_device_ms_sum=sum(bfs_ms), bfs_device_ms_max=max(bfs_ms),
+        listed_edges=listed_edges, new_rows=int(want.count[0]), max_abs_err=err,
+        push_or_ms=push_or_ms,
         ms=_time_ms(torch, lambda: cuda_push.row_compact(work), restore),
         plain_ms=_time_ms(torch, lambda: cuda_push.row_compact_plain(work), restore, reps=3),
+        library_ms=None,
     )
     # Read the hit plane once, visited where a hit word is set; write the
     # frontier plane, the changed visited words, the cleared hit words and
     # the listed rows' ids and first edges (reading their out-degrees).
-    row["bound_ms"], row["bound_by"] = _bound_ms(
-        8 * rows_n * w + 8 * hit_words + 12 * m, 0)
-    print(f"compare {label} queue_compact (level {level}, row mode, with push_or): "
+    row["bound_ms"], row["bound_by"] = _bound_ms(8 * rows_n * w + 8 * hit_words + 12 * m, 0)
+    # K3 on the union queue: the listed rows' ids, first edges and words,
+    # the edges walked and a hit word each.
+    row["push_or_bound_ms"] = _bound_ms(8 * row["listed"] + 4 * w * row["listed"]
+                                        + (4 + 4 * w) * listed_edges, 0)[0]
+    print(f"compare {label} queue_compact ({kind} level {level}, row mode, with push_or): "
           + json.dumps(dict(**row, card=CARD)))
     assert err == 0, row
     return row
+
+
+def _row_queue_row(torch, np, adj, padded, capacity, label):
+    """K3 and K11's row mode (the ppush level) on the BFS's widest level
+    (the most union rows) and its thin level at the engine's capacity
+    (``_row_pair``); and every level's kernels timed on their own (detail
+    JSON)."""
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
+        bfs, push_packed,
+    )
+
+    qp = push_packed._pad_rows(padded, push_packed._k_pad(padded.shape[0]))
+
+    def make():
+        return push_packed._packed_init_batch(adj, qp, capacity)
+
+    levels = _ppush_levels(torch, adj, make, capacity)
+    keys = ("push_or_ms", "compact_ms")
+    print(f"{label} ppush levels: " + json.dumps(dict(
+        levels=len(levels),
+        device_ms_sum=sum(r["push_or_ms"] + r["compact_ms"] for r in levels),
+        device_ms_max=max(r["push_or_ms"] + r["compact_ms"] for r in levels),
+        **_level_sums(levels, keys), capacity=capacity,
+        detail=_write_detail("ppush_road4096_levels", levels),
+        note="push_or and queue_compact (row mode) of every level, CUDA events behind "
+             "a queued device sleep (device time only)", card=CARD)))
+    widest = max(levels, key=lambda r: r["union_rows"])["level"]
+    thin = _thin_level(levels, "new_rows")
+    out = {}
+    for kind, level in (("thin", thin), ("widest", widest)):
+        carry = make()
+        for _ in range(level):
+            push_packed.packed_push_level(adj, carry, bfs.INT32_MAX)
+        out[kind] = _row_pair(torch, adj, carry, label, level, kind)
+    return out["widest"]
 
 
 def _capacity_trail(eng, padded):

@@ -16,6 +16,13 @@ for the whole batch, whose scatter is K3 (``ops/bitbell.py``
 kernel is its plain torch version; the wrappers take it for CPU tensors
 and launch the kernel for CUDA ones.
 
+K10 walks the table's dedup CSR (``ops/push.py`` ``table_csr``) and, beside
+each hit byte, marks the 4096-byte tile of the hit row that holds it
+(``QueueCarry.touched``, a port-only carry field, zero between levels as
+the hit plane is); K11's queue mode reads the flags and works on the
+marked tiles only.  The plain versions keep the flags exactly as the
+kernels do, so every carry field compares bit for bit.
+
 The compaction keeps JAX's order: a queue holds the ascending first
 ``capacity`` ids of the new frontier and its count in full.  After a
 truncated level the next levels' counts depend on which ids were kept,
@@ -41,18 +48,28 @@ from .bitbell import (
     unpack_counts,
 )
 
-# A plane tile of the queue mode: 256 threads of 16 bytes each; a row of
-# the byte planes is padded to a multiple of 16 bytes.
+# A plane tile of the queue mode: a 256-thread block's 16 bytes a thread;
+# K10 marks the tiles it writes.  A row of the byte planes is padded to a
+# multiple of 128 bytes, so every row and tile starts on a cache line and
+# two threads' words fill a 32-byte sector.
 TILE_BYTES = 4096
-ROW_PITCH = 16
-# A tile of the row mode: a thread a plane row.
+TILE_SHIFT = 12
+ROW_PITCH = 128
+# A tile of the row mode: a warp walks its 256 rows, a lane a row.
 TILE_ROWS = 256
+# 32-bit ballot words a tile: bit l of word j marks the tile's 16-byte word
+# (queue mode) or row (row mode) 32 j + l.
+TILE_WORDS = 8
+# Room for the row mode's per-block sums past its tiles: the blocks an
+# H100 holds at once (132 SMs, 8 blocks of 256 threads each); a card with
+# more runs the row mode on this many blocks.
+MAX_BLOCKS = 132 * 8
 MODE_QUEUE, MODE_ROWS = 0, 1
 
 
 def byte_pitch(n: int) -> int:
     """Bytes a query's visited and hit rows take: n + 1 (the sentinel's
-    byte) rounded up to 16, so every row starts 16-byte aligned."""
+    byte) rounded up to 128, so every row starts on a cache line."""
     return -(-(n + 1) // ROW_PITCH) * ROW_PITCH
 
 
@@ -74,7 +91,10 @@ class QueueCarry:
     ``updated``, ``stop`` and ``max_count`` (K,) int32.  A query runs a
     level while ``updated`` and ``level < stop`` (the chunk's bound);
     ``ctrl`` (4,) int32: ctrl[0] = some query may run, ctrl[2] the
-    compaction's last-block ticket; ``offsets`` (K, tiles + 1) int32
+    compaction's last-block ticket.  ``touched`` (K, tiles) uint8: byte t
+    of row q is 1 when the hit row's 4096-byte tile t may hold a hit byte
+    (K10 sets it, K11 clears it; zero between levels, as ``hit`` is);
+    ``offsets`` (K, tiles + 1) and ``nonzero`` (K, tiles, 8) int32
     scratch."""
 
     n: int
@@ -91,6 +111,8 @@ class QueueCarry:
     max_count: torch.Tensor
     offsets: torch.Tensor
     ctrl: torch.Tensor
+    touched: torch.Tensor
+    nonzero: torch.Tensor
 
     @property
     def capacity(self) -> int:
@@ -111,19 +133,24 @@ class QueueCarry:
 def queue_carry_init(n: int, rows: torch.Tensor, queries, capacity: int,
                      plain: bool = False) -> QueueCarry:
     """The carry from (K, S) -1-padded host queries: each query's
-    in-range sources set in its hit bytes, as the hits of a level -1 that
-    nothing has visited, then K11 (``queue_compact``; its plain version
-    with ``plain``) counts them at distance 0 — visited, the queue of
-    their ascending distinct ids, count = reached = max_count = their
-    number, levels = 1 and updated where there is one, F = 0 — as the JAX
-    init does."""
+    in-range sources set in its hit bytes and their tiles' flags, as the
+    hits of a level -1 that nothing has visited, then K11
+    (``queue_compact``; its plain version with ``plain``) counts them at
+    distance 0 — visited, the queue of their ascending distinct ids, count
+    = reached = max_count = their number, levels = 1 and updated where
+    there is one, F = 0 — as the JAX init does."""
     dev = rows.device
     q = torch.as_tensor(queries, dtype=torch.int64).to(dev)
     k = q.shape[0]
     pitch = byte_pitch(n)
+    tiles = tiles_of(pitch, TILE_BYTES)
+    valid = (q >= 0) & (q < n)
     hit = torch.zeros((k, pitch), dtype=torch.uint8, device=dev)
-    hit.scatter_(1, torch.where((q >= 0) & (q < n), q, n), 1)
+    hit.scatter_(1, torch.where(valid, q, n), 1)
     hit[:, n] = 0
+    # An out-of-range source lands on the spare column past the tiles.
+    flags = torch.zeros((k, tiles + 1), dtype=torch.uint8, device=dev)
+    flags.scatter_(1, torch.where(valid, q >> TILE_SHIFT, tiles), 1)
     zeros = [torch.zeros(k, dtype=torch.int32, device=dev) for _ in range(5)]
     carry = QueueCarry(
         n=n, visited=torch.zeros_like(hit), hit=hit,
@@ -133,9 +160,10 @@ def queue_carry_init(n: int, rows: torch.Tensor, queries, capacity: int,
         level=torch.full((k,), -1, dtype=torch.int32, device=dev),
         updated=torch.ones(k, dtype=torch.int32, device=dev), stop=zeros[3],
         max_count=zeros[4],
-        offsets=torch.zeros((k, tiles_of(pitch, TILE_BYTES) + 1), dtype=torch.int32,
-                            device=dev),
+        offsets=torch.zeros((k, tiles + 1), dtype=torch.int32, device=dev),
         ctrl=torch.tensor([1, 0, 0, 0], dtype=torch.int32).to(dev),
+        touched=flags[:, :tiles].contiguous(),
+        nonzero=torch.zeros((k, tiles, TILE_WORDS), dtype=torch.int32, device=dev),
     )
     (queue_compact_plain if plain else queue_compact)(carry)
     return carry
@@ -147,7 +175,8 @@ def _may_run(carry) -> torch.Tensor:
 
 def queue_expand_plain(rows: torch.Tensor, carry: QueueCarry) -> None:
     """K10's function in torch: the hit bytes of every running query's
-    queued rows' neighbours (sentinel ``n`` skipped)."""
+    queued rows' neighbours (sentinel ``n`` skipped), and their tiles'
+    flags."""
     if not int(carry.ctrl[0]):
         return
     n, k, cap = carry.n, carry.queue.shape[0], carry.capacity
@@ -156,12 +185,19 @@ def queue_expand_plain(rows: torch.Tensor, carry: QueueCarry) -> None:
     nbrs = rows[torch.clamp(carry.queue, 0, n).long()]  # (K, cap, w)
     ok = live[:, :, None] & (nbrs != n)
     qi = torch.arange(k, device=rows.device)[:, None, None].expand_as(nbrs)
-    carry.hit[qi[ok], nbrs[ok].long()] = 1
+    v = nbrs[ok].long()
+    carry.hit[qi[ok], v] = 1
+    carry.touched[qi[ok], v >> TILE_SHIFT] = 1
 
 
-def _check_queue_carry(carry: QueueCarry, rows=None) -> torch.device:
+_QUEUE_FIELDS = ("visited", "hit", "queue", "count", "f", "levels", "reached", "level",
+                 "updated", "stop", "max_count", "offsets", "ctrl", "touched", "nonzero")
+
+
+def _check_queue_carry(carry: QueueCarry, rows=None, csr=None) -> torch.device:
     n, k = carry.n, carry.queue.shape[0]
     pitch = byte_pitch(n)
+    tiles = tiles_of(pitch, TILE_BYTES)
     if rows is not None and (
         rows.dtype != torch.int32 or rows.dim() != 2 or rows.shape[0] != n + 1
         or not rows.is_contiguous()
@@ -170,8 +206,9 @@ def _check_queue_carry(carry: QueueCarry, rows=None) -> torch.device:
     for name, shape, dtype in (
         ("visited", (k, pitch), torch.uint8), ("hit", (k, pitch), torch.uint8),
         ("queue", (k, carry.capacity), torch.int32), ("f", (k,), torch.int64),
-        ("offsets", (k, tiles_of(pitch, TILE_BYTES) + 1), torch.int32),
-        ("ctrl", (4,), torch.int32),
+        ("offsets", (k, tiles + 1), torch.int32), ("ctrl", (4,), torch.int32),
+        ("touched", (k, tiles), torch.uint8),
+        ("nonzero", (k, tiles, TILE_WORDS), torch.int32),
         *((f, (k,), torch.int32) for f in (
             "count", "levels", "reached", "level", "updated", "stop", "max_count")),
     ):
@@ -181,27 +218,42 @@ def _check_queue_carry(carry: QueueCarry, rows=None) -> torch.device:
     if not 1 <= k <= 65535:
         raise ValueError(f"K={k}: the queue kernels take 1..65535 queries")
     extra = () if rows is None else (rows,)
-    return _check_device(*extra, *(getattr(carry, f) for f in (
-        "visited", "hit", "queue", "count", "f", "levels", "reached", "level",
-        "updated", "stop", "max_count", "offsets", "ctrl")))
+    if csr is not None:
+        start, vals, _ = csr
+        for name, t, size in (("start", start, n), ("vals", vals, None)):
+            if (t.dtype != torch.int32 or t.dim() != 1 or not t.is_contiguous()
+                    or (size is not None and t.shape[0] != size)):
+                raise ValueError(f"csr {name} must be a contiguous ({size or 'E'},) int32")
+        if start.untyped_storage().nbytes() < 4 * (start.storage_offset() + n + 1):
+            raise ValueError("csr start must be the head of the (n + 1,) offsets "
+                             "(ops/push.py table_csr): K10 reads each row's end")
+        if vals.shape[0] >= 2**31:
+            raise ValueError("the CSR's edges must fit int32 offsets")
+        extra += (start, vals)
+    return _check_device(*extra, *(getattr(carry, f) for f in _QUEUE_FIELDS))
 
 
-def queue_expand(rows: torch.Tensor, carry: QueueCarry) -> None:
+def queue_expand(rows: torch.Tensor, carry: QueueCarry, csr) -> None:
     """Kernel K10 (``csrc/queue_push.cu``): for every running query and
     each of its first ``min(count, capacity)`` queue entries u, a 1 into
     the query's hit byte of every neighbour v != n of u (row u of the
-    (n + 1, w) padded table).  Several writers store the same value, so
+    (n + 1, w) padded table), and into ``touched`` for v's 4096-byte tile.
+    The kernel walks ``csr`` (``ops/push.py`` ``table_csr``: the table's
+    rows without their sentinel slots), a thread an entry; the plain
+    version reads ``rows``.  Several writers store the same value, so
     plain stores make the OR.  Gated on the device."""
-    dev = _check_queue_carry(carry, rows)
+    dev = _check_queue_carry(carry, rows, csr)
     if dev.type == "cpu":
         queue_expand_plain(rows, carry)
         return
+    start, vals, _ = csr
     kernels.launch(
         "queue_expand", dev,
-        rows.data_ptr(), int(rows.shape[1]), carry.n, carry.queue.shape[0],
-        carry.hit.shape[1], carry.hit.data_ptr(), carry.queue.data_ptr(),
-        carry.capacity, carry.count.data_ptr(), carry.level.data_ptr(),
-        carry.updated.data_ptr(), carry.stop.data_ptr(), carry.ctrl.data_ptr(),
+        start.data_ptr(), vals.data_ptr(), carry.n, carry.queue.shape[0],
+        carry.hit.shape[1], carry.hit.data_ptr(), carry.touched.data_ptr(),
+        carry.touched.shape[1], carry.queue.data_ptr(), carry.capacity,
+        carry.count.data_ptr(), carry.level.data_ptr(), carry.updated.data_ptr(),
+        carry.stop.data_ptr(), carry.ctrl.data_ptr(),
     )
 
 
@@ -222,8 +274,8 @@ def compact_queue_plain(new: torch.Tensor, capacity: int, fill: int) -> torch.Te
 
 def queue_compact_plain(carry: QueueCarry) -> None:
     """K11's queue mode in torch: for every running query new = hit &
-    ~visited, visited |= new, hit cleared, the next queue and the
-    counters; then the go flag."""
+    ~visited, visited |= new, hit and the tile flags cleared, the next
+    queue and the counters; then the go flag."""
     if not int(carry.ctrl[0]):
         return
     n = carry.n
@@ -231,6 +283,7 @@ def queue_compact_plain(carry: QueueCarry) -> None:
     new = carry.hit[:, :n] & ~carry.visited[:, :n] & run[:, None].to(torch.uint8)
     carry.visited[:, :n] |= new
     carry.hit.zero_()
+    carry.touched.zero_()
     cnt = new.sum(dim=1, dtype=torch.int32)
     nxt = carry.level + 1
     carry.queue.copy_(torch.where(
@@ -248,12 +301,14 @@ def queue_compact_plain(carry: QueueCarry) -> None:
 
 def queue_compact(carry: QueueCarry) -> None:
     """Kernel K11's queue mode (``csrc/queue_push.cu``, three launches in
-    one call): new = hit & ~visited and visited |= new, a count per
-    4096-byte tile; a block a query scans its tiles' counts and advances
-    its counters (count, F += count * (level + 1), levels, reached,
-    max_count, level, updated); each tile then writes its new ids at its
-    offset while it is below the capacity, ascending, and clears the hit
-    bytes; the last block rewrites ctrl[0].  Gated on the device."""
+    one call, grids sized to the card): on the flagged 4096-byte tiles
+    only, new = hit & ~visited and visited |= new, a count per tile and a
+    bit per 16-byte word that holds a new entry; a block a query scans its
+    tiles' counts and advances its counters (count, F += count * (level +
+    1), levels, reached, max_count, level, updated); the flagged tiles'
+    new ids then go to their offsets while below the capacity, ascending,
+    and their flags and hit bytes are cleared; the last block rewrites
+    ctrl[0].  Gated on the device."""
     dev = _check_queue_carry(carry)
     if dev.type == "cpu":
         queue_compact_plain(carry)
@@ -266,7 +321,8 @@ def queue_compact(carry: QueueCarry) -> None:
         carry.f.data_ptr(), carry.levels.data_ptr(), carry.reached.data_ptr(),
         carry.level.data_ptr(), carry.updated.data_ptr(), carry.stop.data_ptr(),
         carry.max_count.data_ptr(), None, carry.offsets.data_ptr(),
-        carry.offsets.shape[1] - 1, None, None, carry.ctrl.data_ptr(), INT32_MAX,
+        carry.offsets.shape[1], carry.touched.shape[1], carry.touched.data_ptr(),
+        carry.nonzero.data_ptr(), None, None, carry.ctrl.data_ptr(), INT32_MAX,
         variant="queue",
     )
 
@@ -284,8 +340,10 @@ class RowQueueCarry:
     ``switch.count``, the rows' out-degrees in the CSR K3 walks), their
     number and edges in ``switch.state``; ``count`` (1,) the frontier's
     rows in full and ``peak`` (1,) the most rows of a frontier a level
-    ran on.  ``ctrl`` (4,) int32: [updated, level, scratch, DIR_PUSH];
-    ``offsets`` (2, tiles + 1) int32 scratch."""
+    ran on.  ``ctrl`` (4,) int32: [updated, level, ticket, DIR_PUSH];
+    ``offsets`` (2, tiles + MAX_BLOCKS) (the 256-row tiles' rows and
+    edges, then the blocks') and ``nonzero`` (tiles, 8) int32 scratch
+    (:func:`row_queue_scratch`)."""
 
     visited: torch.Tensor
     frontier: torch.Tensor
@@ -299,6 +357,7 @@ class RowQueueCarry:
     peak: torch.Tensor
     offsets: torch.Tensor
     ctrl: torch.Tensor
+    nonzero: torch.Tensor
 
     @property
     def n(self) -> int:
@@ -314,6 +373,13 @@ class RowQueueCarry:
 
     def outputs(self):
         return self.f, self.levels, self.reached, self.peak
+
+
+def row_queue_scratch(n: int, device):
+    """(offsets, nonzero) scratch of K11's row mode over n plane rows."""
+    tiles = tiles_of(n, TILE_ROWS)
+    return (torch.zeros((2, tiles + MAX_BLOCKS), dtype=torch.int32, device=device),
+            torch.zeros((tiles, TILE_WORDS), dtype=torch.int32, device=device))
 
 
 def row_queue_plain(frontier: torch.Tensor, switch: PushSwitch) -> torch.Tensor:
@@ -371,8 +437,12 @@ def _check_row_carry(carry: RowQueueCarry) -> torch.device:
         t = getattr(carry, name)
         if t.dtype != dtype or tuple(t.shape) != (w * WORD_BITS,):
             raise ValueError(f"{name} must be ({w * WORD_BITS},) {dtype}")
-    if tuple(carry.offsets.shape) != (2, tiles_of(rows, TILE_ROWS) + 1):
-        raise ValueError("offsets must be (2, tiles + 1)")
+    tiles = tiles_of(rows, TILE_ROWS)
+    for name, shape in (("offsets", (2, tiles + MAX_BLOCKS)),
+                        ("nonzero", (tiles, TILE_WORDS))):
+        t = getattr(carry, name)
+        if t.dtype != torch.int32 or tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"{name} must be {shape} contiguous int32")
     sw = carry.switch
     if sw.count.dtype != torch.int32 or tuple(sw.count.shape) != (rows,):
         raise ValueError(f"switch count must be ({rows},) int32 out-degrees")
@@ -381,19 +451,20 @@ def _check_row_carry(carry: RowQueueCarry) -> torch.device:
     return _check_device(
         carry.visited, carry.frontier, carry.hits, carry.f, carry.levels,
         carry.reached, carry.counts, carry.count, carry.peak, carry.offsets,
-        carry.ctrl, sw.count, sw.worklist, sw.state,
+        carry.nonzero, carry.ctrl, sw.count, sw.worklist, sw.state,
     )
 
 
 def row_compact(carry: RowQueueCarry, max_levels: int = INT32_MAX) -> None:
-    """Kernel K11's row mode (``csrc/queue_push.cu``, three launches in
-    one call): the level's apply over 256-row tiles (new = hits &
-    ~visited, visited |= new, frontier = new, hits cleared, per-lane
-    counts, the tile's nonzero rows and their out-degrees); one block
-    scans both and advances the counters, the control, ``count``,
-    ``peak`` and the worklist's state; each tile then lists its nonzero
-    rows with their first edges at its offsets while below the capacity,
-    ascending.  Gated on the device (``level_go``)."""
+    """Kernel K11's row mode (``csrc/queue_push.cu``, two launches in one
+    call, grids sized to the card): the level's apply, a warp a 256-row
+    tile (new = hits & ~visited, visited |= new, frontier = new, hits
+    cleared, per-lane counts by warp ballots, the tile's nonzero rows as
+    ballot words and their out-degrees), whose last block scans the
+    blocks' (rows, edges) and advances the counters, the control,
+    ``count``, ``peak`` and the worklist's state; then each block lists
+    its tiles' nonzero rows with their first edges from its offsets while
+    below the capacity, ascending.  Gated on the device (``level_go``)."""
     dev = _check_row_carry(carry)
     if dev.type == "cpu":
         row_compact_plain(carry, max_levels)
@@ -406,7 +477,8 @@ def row_compact(carry: RowQueueCarry, max_levels: int = INT32_MAX) -> None:
         rows, w, w, sw.worklist.data_ptr(), sw.capacity, carry.count.data_ptr(),
         carry.f.data_ptr(), carry.levels.data_ptr(), carry.reached.data_ptr(),
         None, None, None, carry.peak.data_ptr(), carry.counts.data_ptr(),
-        carry.offsets.data_ptr(), carry.offsets.shape[1] - 1, sw.state.data_ptr(),
-        sw.count.data_ptr(), carry.ctrl.data_ptr(), int(max_levels),
+        carry.offsets.data_ptr(), carry.offsets.shape[1], carry.nonzero.shape[0], None,
+        carry.nonzero.data_ptr(), sw.state.data_ptr(), sw.count.data_ptr(),
+        carry.ctrl.data_ptr(), int(max_levels),
         variant="rows",
     )

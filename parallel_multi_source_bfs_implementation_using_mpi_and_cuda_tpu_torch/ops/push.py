@@ -14,9 +14,11 @@ the run is rejected (the engine grows and reruns, or raises), never
 silently truncated.
 
 Here a level is two kernels (``ops/cuda_push.py``): K10 ``queue_expand``
-(the gather and the hit bytes) and K11 ``queue_compact`` (new = hit &
-~visited, the counters and the ascending capped queue), gated on the
-device; the host reads one flag a chunk of levels.
+(the queued rows' neighbours over the table's dedup CSR, ``table_csr``:
+their hit bytes and the flags of the tiles they land in) and K11
+``queue_compact`` (on the flagged tiles, new = hit & ~visited, the
+counters and the ascending capped queue), gated on the device; the host
+reads one flag a chunk of levels.
 """
 
 from __future__ import annotations
@@ -118,6 +120,24 @@ class PaddedAdjacency:
         return f"PaddedAdjacency(n={self.n}, width={self.width})"
 
 
+def table_csr(adj: PaddedAdjacency):
+    """The padded table's rows without their sentinel slots, as a CSR:
+    (start (n,), vals (E,), out-degrees (n,)) int32, the rows' neighbours
+    ascending as in the table; built once and cached on the table (K10
+    and K3 walk it: on a road grid about 70 % of the table's slots are
+    sentinels).  ``start`` is the head of the (n + 1,) offsets, whose last
+    entry E lies past it: K10 reads a row's end beside its start."""
+    csr = getattr(adj, "_csr", None)
+    if csr is None:
+        table = adj.rows[: adj.n]
+        real = table != adj.n
+        deg = real.sum(dim=1, dtype=torch.int32)
+        offsets = torch.zeros(adj.n + 1, dtype=torch.int32, device=table.device)
+        torch.cumsum(deg, 0, dtype=torch.int32, out=offsets[1:])
+        csr = adj._csr = (offsets[: adj.n], table[real].contiguous(), deg)
+    return csr
+
+
 def _push_init_batch(adj: PaddedAdjacency, queries, capacity: int, plain: bool = False):
     """The batch's carry (:class:`.cuda_push.QueueCarry`) from (K, S)
     -1-padded queries."""
@@ -130,7 +150,7 @@ def push_level(adj: PaddedAdjacency, carry, plain: bool = False) -> None:
         queue_expand_plain(adj.rows, carry)
         queue_compact_plain(carry)
     else:
-        queue_expand(adj.rows, carry)
+        queue_expand(adj.rows, carry, table_csr(adj))
         queue_compact(carry)
 
 

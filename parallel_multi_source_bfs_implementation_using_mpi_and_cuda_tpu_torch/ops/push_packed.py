@@ -42,27 +42,13 @@ from .bitbell import (
     sparse_hits_or_plain,
 )
 from .cuda_push import (
-    TILE_ROWS,
     RowQueueCarry,
     row_compact,
     row_compact_plain,
-    tiles_of,
+    row_queue_scratch,
 )
 from .push import PaddedAdjacency, PushEngine, push_run
-
-
-def _table_csr(adj: PaddedAdjacency):
-    """The padded table's rows without their sentinel slots, as K3's CSR:
-    (start (n,), vals (E,), out-degrees (n,)) int32, the rows' neighbours
-    ascending as in the table; cached on the table."""
-    csr = getattr(adj, "_csr", None)
-    if csr is None:
-        table = adj.rows[: adj.n]
-        real = table != adj.n
-        deg = real.sum(dim=1, dtype=torch.int32)
-        start = torch.cumsum(deg, 0, dtype=torch.int32) - deg
-        csr = adj._csr = (start, table[real].contiguous(), deg)
-    return csr
+from .push import table_csr as _table_csr
 
 
 def _packed_init_batch(adj: PaddedAdjacency, queries, capacity: int, plain: bool = False):
@@ -84,13 +70,13 @@ def _packed_init_batch(adj: PaddedAdjacency, queries, capacity: int, plain: bool
     start.ctrl[0] = 1
     start.ctrl[1] = -1
     start.ctrl[3] = DIR_PUSH
+    offsets, nonzero = row_queue_scratch(n, dev)
     carry = RowQueueCarry(
         visited=start.visited, frontier=start.frontier, hits=switch.hits,
         f=start.f, levels=start.levels, reached=start.reached, counts=start.counts,
         switch=switch, count=torch.zeros(1, dtype=torch.int32, device=dev),
         peak=torch.zeros(1, dtype=torch.int32, device=dev),
-        offsets=torch.zeros((2, tiles_of(n, TILE_ROWS) + 1), dtype=torch.int32, device=dev),
-        ctrl=start.ctrl,
+        offsets=offsets, ctrl=start.ctrl, nonzero=nonzero,
     )
     (row_compact_plain if plain else row_compact)(carry)
     return carry

@@ -1684,63 +1684,154 @@ def test_vmap_and_packed_engines_on_card_match_plain(cuda, edge_chunks):
 
 
 def _queue_equal(got, want):
-    k = want.queue.shape[0]
-    for name in ("visited", "hit", "count", "f", "levels", "reached", "level",
+    k, dev = want.queue.shape[0], want.queue.device
+    for name in ("visited", "hit", "touched", "count", "f", "levels", "reached", "level",
                  "updated", "stop", "max_count"):
-        assert torch.equal(getattr(got, name).cpu(), getattr(want, name)), name
-    assert torch.equal(got.ctrl.cpu()[[0, 2]], want.ctrl[[0, 2]])
+        assert torch.equal(getattr(got, name).to(dev), getattr(want, name)), name
+    assert torch.equal(got.ctrl.to(dev)[[0, 2]], want.ctrl[[0, 2]])
     for q in range(k):
         m = min(int(want.count[q]), want.capacity)
-        assert torch.equal(got.queue[q, :m].cpu(), want.queue[q, :m]), q
+        assert torch.equal(got.queue[q, :m].to(dev), want.queue[q, :m]), q
 
 
-@pytest.mark.parametrize("capacity", [4096, 37])
+def _tile_graph(rows=400, cols=420, isolated=5):
+    """A road grid of many 4096-byte tiles a query (42 at 400 x 420, the
+    last one partial), with ``isolated`` vertices past it."""
+    n, e = generators.road_edges(rows, cols, seed=5)
+    return n + isolated, e
+
+
+def _tile_queries(n, k, seed, isolated=5):
+    """k groups on the grid; group 0 also holds sources on both sides of
+    the first tile boundaries and in the last, partial tile."""
+    groups = generators.random_queries(n - isolated, k, max_group=12, seed=seed)
+    edge = np.array([4095, 4096, 8191, 8192, n - isolated - 1], dtype=np.int32)
+    groups[0] = np.concatenate([groups[0], edge]).astype(np.int32)
+    return io.pad_queries(groups)
+
+
+def _queue_case(graph, k):
+    if graph == "road":
+        n, e = generators.road_edges(60, 70, seed=k)
+        q = io.pad_queries(generators.random_queries(n, k, max_group=12, seed=k + 1))
+    else:
+        n, e = _tile_graph()
+        q = _tile_queries(n, k, k + 1)
+    return n, push.PaddedAdjacency.from_host(CSRGraph.from_edges(n, e), "cpu"), q
+
+
+@pytest.mark.parametrize("capacity", ["fits", 37])
 @pytest.mark.parametrize("k", [1, 6, 33])
-def test_queue_push_matches_plain(cuda, k, capacity):
+@pytest.mark.parametrize("graph", ["road", "tiles"])
+def test_queue_push_matches_plain(cuda, graph, k, capacity):
     """K10 and K11 (queue mode) a level at a time against their plain
-    versions, through chunk bounds, to convergence; at capacity 37 the
-    frontiers overflow and the queues keep their ascending first 37 ids."""
-    n, e = generators.road_edges(60, 70, seed=k)
-    adj = push.PaddedAdjacency.from_host(CSRGraph.from_edges(n, e), "cpu")
-    rows = adj.rows.to(cuda)
-    q = io.pad_queries(generators.random_queries(n, k, max_group=12, seed=k + 1))
+    versions, through chunk bounds, every carry field (the tile flags
+    too) bit for bit, to convergence (on the many-tile graph at capacity
+    37, whose cut frontiers crawl, for 30 chunks); at capacity 37 the
+    frontiers overflow and the queues keep their ascending first 37 ids.
+    On the many-tile graph query 0 is held by its chunk bound (stop =
+    level) for the first chunk while the others run."""
+    n, adj, q = _queue_case(graph, k)
+    capacity = n if capacity == "fits" else capacity
+    adj_c = push.PaddedAdjacency(adj.rows.to(cuda), adj.n, adj.width, adj.num_edges)
+    csr = push.table_csr(adj_c)
     want = cuda_push.queue_carry_init(n, adj.rows, q, capacity)
-    got = cuda_push.queue_carry_init(n, rows, q, capacity)
+    got = cuda_push.queue_carry_init(n, adj_c.rows, q, capacity)
     _queue_equal(got, want)
     overflowed = False
-    for _ in range(40):
+    crawl = graph == "tiles" and capacity == 37
+    for chunk in range(30 if crawl else 400):
         for c in (want, got):
             bfs.arm_chunk(c, 7, None)
+            if graph == "tiles" and chunk == 0 and k > 1:
+                c.stop[0] = c.level[0]
         for _ in range(7):
             cuda_push.queue_expand_plain(adj.rows, want)
-            cuda_push.queue_compact_plain(want)
             timing.reset_launch_counts()
-            cuda_push.queue_expand(rows, got)
+            cuda_push.queue_expand(adj_c.rows, got, csr)
+            torch.cuda.synchronize()
+            _queue_equal(got, want)
+            cuda_push.queue_compact_plain(want)
             cuda_push.queue_compact(got)
             torch.cuda.synchronize()
             assert timing.launch_counts() == {"queue_expand": 1, "queue_compact": 1}
             _queue_equal(got, want)
+            assert not bool(got.touched.any())
             overflowed |= bool((want.count > capacity).any())
         if not bool(want.running(None)):
             break
-    assert not bool(want.running(None))
+    assert crawl or not bool(want.running(None))
     assert overflowed == (capacity == 37)
 
 
-@pytest.mark.parametrize("capacity", [5000, 23])
-@pytest.mark.parametrize("k", [5, 64])
-def test_row_queue_matches_plain(cuda, k, capacity):
+def test_queue_push_level_with_no_touched_tile(cuda):
+    """A level whose queues hold only isolated vertices: K10 writes no hit
+    byte and marks no tile, K11 finds no flag and stops every query, as
+    the plain versions do."""
+    n, e = _tile_graph()
+    adj = push.PaddedAdjacency.from_host(CSRGraph.from_edges(n, e), "cpu")
+    adj_c = push.PaddedAdjacency(adj.rows.to(cuda), adj.n, adj.width, adj.num_edges)
+    q = io.pad_queries([np.array([n - 1, n - 3], np.int32), np.array([n - 2], np.int32),
+                        np.array([n + 7], np.int32)])
+    want = cuda_push.queue_carry_init(n, adj.rows, q, 64)
+    got = cuda_push.queue_carry_init(n, adj_c.rows, q, 64)
+    _queue_equal(got, want)
+    for c in (want, got):
+        bfs.arm_chunk(c, 4, None)
+    cuda_push.queue_expand_plain(adj.rows, want)
+    cuda_push.queue_expand(adj_c.rows, got, push.table_csr(adj_c))
+    torch.cuda.synchronize()
+    assert not bool(got.touched.any()) and not bool(got.hit.any())
+    cuda_push.queue_compact_plain(want)
+    cuda_push.queue_compact(got)
+    torch.cuda.synchronize()
+    _queue_equal(got, want)
+    assert int(got.ctrl[0]) == 0 and got.count.tolist() == [0, 0, 0]
+
+
+def test_queue_push_grid_strides(cuda):
+    """K = 300 queries of 901 tiles each: both kernels' grids stride (K10
+    three blocks a query, K11 more 32-tile warp tasks than the grid's
+    warps); the first levels against the plain versions, on the card."""
+    n, e = generators.road_edges(900, 4096, seed=6)
+    adj = push.PaddedAdjacency.from_host(CSRGraph.from_edges(n, e), cuda)
+    q = io.pad_queries(generators.random_queries(n, 300, max_group=40, seed=8))
+    want = cuda_push.queue_carry_init(n, adj.rows, q, 50000, plain=True)
+    got = cuda_push.queue_carry_init(n, adj.rows, q, 50000)
+    _queue_equal(got, want)
+    for c in (want, got):
+        bfs.arm_chunk(c, None, None)
+    for _ in range(4):
+        cuda_push.queue_expand_plain(adj.rows, want)
+        cuda_push.queue_compact_plain(want)
+        cuda_push.queue_expand(adj.rows, got, push.table_csr(adj))
+        cuda_push.queue_compact(got)
+        torch.cuda.synchronize()
+        _queue_equal(got, want)
+
+
+@pytest.mark.parametrize("capacity", ["fits", 23])
+@pytest.mark.parametrize("k", [5, 64, 128])
+@pytest.mark.parametrize("side", [(50, 40), (1300, 1700)])
+def test_row_queue_matches_plain(cuda, side, k, capacity):
     """K3 and K11's row mode (the ppush level) against their plain
-    versions a level at a time, overflowing union queues included."""
-    n, e = generators.road_edges(50, 40, seed=k)
+    versions a level at a time, overflowing union queues included; W = 1,
+    2 and 4 words a row (the prefetched, scalar and 16-byte paths); on
+    1300 x 1700 the apply's blocks take 9 tiles each, more than a warp
+    each."""
+    n, e = generators.road_edges(*side, seed=k)
+    capacity = n if capacity == "fits" else capacity
     adj = push.PaddedAdjacency.from_host(CSRGraph.from_edges(n, e), "cpu")
     adj_c = push.PaddedAdjacency(adj.rows.to(cuda), adj.n, adj.width, adj.num_edges)
     q = io.pad_queries(generators.random_queries(n, k, max_group=9, seed=k + 2))
     qp = push_packed._pad_rows(q, push_packed._k_pad(k))
-    want = push_packed._packed_init_batch(adj, qp, capacity)
+    # The large grid's plain versions run on the card.
+    ref = adj if side == (50, 40) else adj_c
+    want = push_packed._packed_init_batch(ref, qp, capacity, plain=True)
     got = push_packed._packed_init_batch(adj_c, qp, capacity)
-    for level in range(400):
-        push_packed.packed_push_level(adj, want, bfs.INT32_MAX, plain=True)
+    dev = want.visited.device
+    for level in range(4000):
+        push_packed.packed_push_level(ref, want, bfs.INT32_MAX, plain=True)
         timing.reset_launch_counts()
         push_packed.packed_push_level(adj_c, got, bfs.INT32_MAX)
         torch.cuda.synchronize()
@@ -1748,10 +1839,10 @@ def test_row_queue_matches_plain(cuda, k, capacity):
         assert timing.variant_counts()["queue_compact:rows"] == 1
         for name in ("visited", "frontier", "hits", "f", "levels", "reached", "counts",
                      "count", "peak", "ctrl"):
-            assert torch.equal(getattr(got, name).cpu(), getattr(want, name)), (level, name)
-        assert torch.equal(got.switch.state[:2].cpu(), want.switch.state[:2])
+            assert torch.equal(getattr(got, name).to(dev), getattr(want, name)), (level, name)
+        assert torch.equal(got.switch.state[:2].to(dev), want.switch.state[:2])
         m = int(want.switch.state[0])
-        assert torch.equal(got.switch.worklist[:, :m].cpu(), want.switch.worklist[:, :m])
+        assert torch.equal(got.switch.worklist[:, :m].to(dev), want.switch.worklist[:, :m])
         if not int(want.ctrl[0]):
             break
     assert not int(want.ctrl[0])

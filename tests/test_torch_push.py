@@ -4,9 +4,12 @@ width-cap error, the compactions, ``push_run``, both engines' results,
 their capacity protocol (the same stderr lines and capacity after every
 call on thin, fat and thin batches; an explicit capacity raises
 ``FrontierOverflow``, exit 3), their per-level trace, the chunk knob,
-K = 0 and out-of-range sources.  The plain versions of K10 and K11 (and
-of K3 on the union queue) run here; every value is an integer, so every
-comparison is exact."""
+K = 0 and out-of-range sources; the table's dedup CSR (``table_csr``),
+the queue's tile flags (``QueueCarry.touched``: after K10 the 4096-byte
+tiles that hold a hit byte, zero after K11) and both routes on a grid of
+many tiles a query.  The plain versions of K10 and K11 (and of K3 on the
+union queue) run here; every value is an integer, so every comparison is
+exact."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -29,6 +32,8 @@ from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.model
     CSRGraph,
 )
 from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
+    bfs,
+    cuda_push,
     push,
     push_packed,
 )
@@ -203,3 +208,100 @@ def test_packed_push_on_an_empty_graph_matches_jax():
     want = jpush_packed.PackedPushEngine(jadj).query_stats(q)
     for x, y in zip(got, want):
         np.testing.assert_array_equal(x, np.asarray(y))
+
+
+@pytest.mark.parametrize("kind", ["road", "isolated", "rmat"])
+def test_table_csr_is_the_table_without_sentinels(kind):
+    """K10's and K3's CSR: each row's real neighbours in the table's
+    order, built once per table; ppush's name for it is the same helper."""
+    n, adj, _ = _tables(kind)
+    start, vals, deg = push.table_csr(adj)
+    rows = adj.rows.numpy()
+    real = [r[r != n] for r in rows[:n]]
+    assert deg.tolist() == [len(r) for r in real]
+    assert start.tolist() == np.concatenate([[0], np.cumsum(deg.numpy())[:-1]]).tolist()
+    assert vals.tolist() == np.concatenate(real).tolist()
+    assert vals.shape == (adj.num_edges,) and vals.dtype == torch.int32
+    assert push.table_csr(adj)[1] is vals
+    assert push_packed._table_csr is push.table_csr
+    # K10 reads each row's end past ``start``: the offsets' last entry E.
+    end = torch.tensor([], dtype=torch.int32).set_(start.untyped_storage())
+    assert end.tolist() == start.tolist() + [adj.num_edges]
+    carry = cuda_push.queue_carry_init(n, adj.rows, _queries(n, 3, 1), 50)
+    with pytest.raises(ValueError, match="head of the"):
+        cuda_push.queue_expand(adj.rows, carry, (start.clone(), vals, deg))
+
+
+def _tile_grid():
+    """A 360 x 360 road grid, 32 hit-plane tiles a query (the last one
+    partial), with 5 isolated vertices past it."""
+    n, e = generators.road_edges(360, 360, seed=9)
+    return n + 5, e
+
+
+def _tile_groups(n, k, seed, max_group=40):
+    """k groups on the grid; group 0 also holds sources on both sides of
+    the first tile boundaries and in the last, partial tile, group 1 an
+    isolated vertex."""
+    groups = generators.random_queries(n - 5, k, max_group=max_group, seed=seed)
+    groups[0] = np.concatenate([groups[0], [4095, 4096, 8191, 8192, n - 6]]).astype(np.int32)
+    groups[1] = np.concatenate([groups[1], [n - 1]]).astype(np.int32)
+    return io.pad_queries(groups)
+
+
+def _hit_tiles(hit):
+    """(K, tiles) uint8: the 4096-byte tiles of each hit row that hold a
+    set byte."""
+    k, pitch = hit.shape
+    tiles = cuda_push.tiles_of(pitch, cuda_push.TILE_BYTES)
+    padded = torch.zeros((k, tiles * cuda_push.TILE_BYTES), dtype=torch.uint8)
+    padded[:, :pitch] = hit
+    return padded.view(k, tiles, -1).any(dim=2).to(torch.uint8)
+
+
+@pytest.mark.parametrize("graph", ["road", "isolated", "tiles"])
+def test_tile_flags_mark_the_hit_tiles(graph):
+    """The plain K10 marks exactly the tiles its hit bytes land in; K11
+    (and the batch's init, which runs it) leaves both planes zero."""
+    if graph == "tiles":
+        n, e = _tile_grid()
+        q = _tile_groups(n, 6, 3)
+    else:
+        n, e = _edges(graph)
+        q = _queries(n, 9, 11)
+    adj = push.PaddedAdjacency.from_host(CSRGraph.from_edges(n, e), "cpu")
+    carry = cuda_push.queue_carry_init(n, adj.rows, q, 300)
+    assert carry.touched.shape == (q.shape[0], cuda_push.tiles_of(
+        cuda_push.byte_pitch(n), cuda_push.TILE_BYTES))
+    assert not carry.touched.any() and not carry.hit.any()
+    bfs.arm_chunk(carry, None, None)
+    marked = 0
+    while bool(carry.running(None)):
+        cuda_push.queue_expand(adj.rows, carry, push.table_csr(adj))
+        assert torch.equal(carry.touched, _hit_tiles(carry.hit))
+        marked = max(marked, int(carry.touched.sum()))
+        cuda_push.queue_compact(carry)
+        assert not carry.touched.any() and not carry.hit.any()
+    assert marked > (20 if graph == "tiles" else 0)
+
+
+def test_many_tile_grid_matches_jax(capsys):
+    """The push route on a grid of 32 tiles a query, sources on tile
+    boundaries and in the last, partial tile, from a capacity that
+    truncates a level: results, stderr lines and the capacity after each
+    call equal JAX's."""
+    n, e = _tile_grid()
+    q = _tile_groups(n, 5, 4)
+    adj = push.PaddedAdjacency.from_host(CSRGraph.from_edges(n, e), "cpu")
+    jadj = jpush.PaddedAdjacency.from_host(JCSRGraph.from_edges(n, e))
+    trails = []
+    for eng in (push.PushEngine(adj), jpush.PushEngine(jadj)):
+        eng.capacity = 300
+        trail = []
+        for call in (eng.query_stats, eng.f_values):
+            out = call(q)
+            trail.append((eng.capacity, [np.asarray(x).tolist() for x in (
+                out if isinstance(out, tuple) else (out,))], capsys.readouterr().err))
+        trails.append(trail)
+    assert trails[0] == trails[1]
+    assert "re-running at" in trails[0][0][2]
