@@ -13,7 +13,8 @@ process of its own that imports the port from that TREE only (so each
 builds its own kernels).  Per TREE and route (stencil road-4096 K = 16,
 mxu RMAT-14 K = 64 and road-512 K = 16, bitbell, bell and streamed
 RMAT-20 K = 64, low-K RMAT-20 K = 4 and K = 1, low-K RMAT-16 K = 1, push
-and ppush road-4096 K = 16; ``--routes`` keeps the named ones only):
+and ppush road-4096 K = 16, vmap and packed RMAT-20 K = 64; ``--routes``
+keeps the named ones only):
 
 - the batch start (``engine._init_carry``): its host ms (median of 20,
   up to a synchronise), its device operations (torch.profiler) and its
@@ -23,7 +24,8 @@ and ppush road-4096 K = 16; ``--routes`` keeps the named ones only):
   device operations and device ms (CUDA events, behind a queued device
   sleep), and the host µs of one level's step (``engine._stepper``) and
   of the expansion alone, their launches gated off;
-- the computation span of each CLI path (median of ``--reps`` runs) and,
+- the computation span of each CLI path (median of ``--reps`` runs; each
+  run's preprocessing span and layout phase beside it) and,
   on the low-K, bitbell and mxu road-512 paths, the device's busy share
   of one chunk (the kernels' summed device time over the chunk's
   CUDA-event span);
@@ -33,7 +35,11 @@ and ppush road-4096 K = 16; ``--routes`` keeps the named ones only):
   device sleep: queue_expand and queue_compact, or push_or and
   queue_compact's row mode), summed, and
   both on the widest level and on the thin one (the first whose
-  compaction lists fewer than 4,096).
+  compaction lists fewer than 4,096);
+- on the vmap and packed routes, one BFS of the distance loop a level at
+  a time: each level's CSR pull (K9, its launches together) timed with
+  CUDA events behind a queued device sleep, summed, level 0 and the level
+  that labels most beside it.
 
 Needs one CUDA card, nvcc and scipy; imports nothing of JAX.  Prints one
 JSON line per TREE run and, last, the card and a summary by TREE; per
@@ -131,11 +137,16 @@ ROUTES = {
     "lowk rmat-20 K=1": ("rmat-20 K=1", {}),
     "push road-4096": ("road-4096", {"MSBFS_BACKEND": "push"}),
     "ppush road-4096": ("road-4096", {"MSBFS_BACKEND": "ppush"}),
+    "vmap rmat-20": ("rmat-20 K=64", {"MSBFS_BACKEND": "vmap"}),
+    "packed rmat-20": ("rmat-20 K=64", {"MSBFS_BACKEND": "packed"}),
 }
 LEVEL_ROUTES = ("lowk rmat-16 K=1", "lowk rmat-20 K=4")
 BUSY_ROUTES = ("lowk rmat-16 K=1", "lowk rmat-20 K=4", "bitbell rmat-20", "mxu road-512")
 # The routes measured a BFS level at a time (no batch start of their own).
 PUSH_ROUTES = ("push road-4096", "ppush road-4096")
+# The CSR pull's routes, measured a BFS level at a time (K9 in its rows and
+# query-minor layouts).
+CSR_ROUTES = ("vmap rmat-20", "packed rmat-20")
 
 
 @contextlib.contextmanager
@@ -396,14 +407,23 @@ def _busy(torch, eng, queries, levels):
 
 
 def _cli_span(cli, argv, knobs, reps):
-    spans = []
+    """The report's computation span (median of ``reps`` runs), and each
+    run's preprocessing span and its layout phase."""
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.utils import (
+        timing,
+    )
+
+    spans, pre, layout = [], [], []
     for _ in range(reps):
         buf = io.StringIO()
         with _env(**knobs), contextlib.redirect_stdout(buf):
             assert cli.main(argv) == 0
         lines = buf.getvalue().splitlines()
         spans.append(float(lines[6].split(":", 1)[1].split()[0]) * 1e3)
-    return dict(computation_ms=_median(spans), runs_ms=spans,
+        pre.append(float(lines[5].split(":", 1)[1].split()[0]) * 1e3)
+        layout.append(timing.phase_seconds().get("layout", 0.0) * 1e3)
+    return dict(computation_ms=_median(spans), runs_ms=spans, preprocessing_ms=pre,
+                layout_ms=layout,
                 winner=int(lines[2].rsplit(":", 1)[1]), min_f=int(lines[3].rsplit(":", 1)[1]))
 
 
@@ -482,6 +502,50 @@ def _push_bfs(torch, dev, files, route):
                 winner=int(np.argmin(f)) + 1, min_f=int(f.min()))
 
 
+def _csr_bfs(torch, dev, files, route):
+    """One BFS of the route's distance loop a level at a time, after an
+    untimed one: each level's K9 launches timed together (CUDA events
+    behind a queued device sleep, so the wrapper's host time falls in the
+    sleep), summed."""
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
+        bfs, cuda_csr, packed,
+    )
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.utils import (
+        io as tio,
+    )
+
+    gpath, qpath = files[ROUTES[route][0]]
+    q = tio.pad_queries(tio.load_query_bin(qpath))
+    dg = tio.load_graph_bin(gpath).to_device(dev)
+
+    def start():
+        if route.startswith("packed"):
+            carry = packed.packed_carry_init(dg, q)
+        else:
+            carry = bfs.distance_carry_init(dg.n, q, device=dev)
+        bfs.arm_chunk(carry, None, None)
+        return carry
+
+    carry = start()  # a first BFS untimed: the kernels' first launches load them
+    while int(carry.ctrl[0]):
+        cuda_csr.csr_pull(dg, carry)
+    carry = start()
+    ms, new = [], []
+    while int(carry.ctrl[0]):
+        before = int((carry.dist == -1).sum())
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
+        e0.record()
+        cuda_csr.csr_pull(dg, carry)
+        e1.record()
+        e1.synchronize()
+        ms.append(e0.elapsed_time(e1))
+        new.append(before - int((carry.dist == -1).sum()))
+    widest = max(range(len(new)), key=new.__getitem__)
+    return dict(levels=len(ms), level_ms=ms, level_device_ms_sum=sum(ms), new_labels=new,
+                level0_ms=ms[0], widest=dict(level=widest, new=new[widest], ms=ms[widest]))
+
+
 def child(tree: str, files: dict, reps: int, routes) -> dict:
     import torch
 
@@ -493,7 +557,7 @@ def child(tree: str, files: dict, reps: int, routes) -> dict:
     assert kernels.__file__.startswith(os.path.abspath(tree)), kernels.__file__
     dev = torch.device("cuda", 0)
     kernels.library()
-    out = dict(tree=tree, batch_start={}, levels={}, busy={}, cli={}, push_bfs={})
+    out = dict(tree=tree, batch_start={}, levels={}, busy={}, cli={}, push_bfs={}, csr_bfs={})
     engines = _engines(torch, dev, files, routes)
     for route, (eng, q) in engines.items():
         out["batch_start"][route] = _batch_start(torch, eng, q)
@@ -507,6 +571,9 @@ def child(tree: str, files: dict, reps: int, routes) -> dict:
     torch.cuda.empty_cache()
     for route in (r for r in PUSH_ROUTES if r in routes):
         out["push_bfs"][route] = _push_bfs(torch, dev, files, route)
+        torch.cuda.empty_cache()
+    for route in (r for r in CSR_ROUTES if r in routes):
+        out["csr_bfs"][route] = _csr_bfs(torch, dev, files, route)
         torch.cuda.empty_cache()
     for route in routes:
         data, knobs = ROUTES[route]
@@ -547,6 +614,10 @@ def _summary(runs):
             for route in rs[0]["levels"]}
         t["cli_computation_ms"] = {route: [x["cli"][route]["computation_ms"] for x in rs]
                                    for route in rs[0]["cli"]}
+        t["cli_layout_ms"] = {route: [x["cli"][route]["layout_ms"] for x in rs]
+                              for route in rs[0]["cli"]}
+        t["cli_preprocessing_ms"] = {route: [x["cli"][route]["preprocessing_ms"] for x in rs]
+                                     for route in rs[0]["cli"]}
         t["busy_share"] = {route: [x["busy"][route]["busy_share"] for x in rs]
                            for route in rs[0]["busy"]}
         t["push_bfs"] = {route: dict(
@@ -562,6 +633,12 @@ def _summary(runs):
             for route in rs[0]["push_bfs"]}
         t["chunk_ms"] = {route: [x["busy"][route]["chunk_ms"] for x in rs]
                          for route in rs[0]["busy"]}
+        t["csr_bfs"] = {route: dict(
+            level_device_ms_sum=[x["csr_bfs"][route]["level_device_ms_sum"] for x in rs],
+            level0_ms=[x["csr_bfs"][route]["level0_ms"] for x in rs],
+            widest=[x["csr_bfs"][route]["widest"] for x in rs],
+            level_ms=[x["csr_bfs"][route]["level_ms"] for x in rs])
+            for route in rs[0]["csr_bfs"]}
     return out
 
 

@@ -154,9 +154,12 @@ non-zero; nothing is caught):
    eight groups' levels and reached equal scipy's: ``MSBFS_BACKEND=vmap``
    and ``packed`` on phase 5b's RMAT-20 files (K = 64; packed again with
    ``MSBFS_EDGE_CHUNKS=4``, to the same answer), each launching the CSR
-   pull (K9, csr_pull) in its layout, which is held against its plain
-   version on the BFS's widest level and timed beside its bound and the
-   torch composition of the JAX expansion; ``dense`` on phase 4's RMAT-14
+   pull (K9, csr_pull) in its layout (pack on a stale level, walk and
+   apply on every level), every BFS level timed, and on level 0 and on
+   the BFS's widest level held against its planes plain version (every
+   plane bit) and the JAX-shaped plain version, each phase timed beside
+   both bounds and the torch composition of the JAX expansion;
+   ``dense`` on phase 4's RMAT-14
    (no kernel of its own; its matmul's ms a level); ``push`` and
    ``ppush`` on phase 3's road-4096 (K = 16), launching queue_expand and
    queue_compact (K10, K11), and push_or with queue_compact's row mode:
@@ -2613,12 +2616,12 @@ SMALL_CAPACITY = 64
 
 
 def _clone(torch, carry):
-    """A copy of a dataclass carry: every tensor, and its switch's, cloned
-    (a query-minor distance view stays query-minor)."""
+    """A copy of a dataclass carry: every tensor, and its switch's or
+    planes', cloned (a query-minor distance view stays query-minor)."""
     import dataclasses
 
     from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
-        bitbell, cuda_csr,
+        cuda_csr,
     )
 
     out = {}
@@ -2626,15 +2629,15 @@ def _clone(torch, carry):
         v = getattr(carry, f.name)
         if isinstance(v, torch.Tensor):
             v = v.T.clone().T if v.dim() == 2 and cuda_csr.query_minor(v) else v.clone()
-        elif isinstance(v, bitbell.PushSwitch):
-            v = bitbell.PushSwitch(*(x.clone() if isinstance(x, torch.Tensor) else x
-                                     for x in dataclasses.astuple(v)))
+        elif dataclasses.is_dataclass(v):
+            v = _clone(torch, v)
         out[f.name] = v
     return type(carry)(**out)
 
 
 def _restore(torch, dst, src):
-    """Copy ``src``'s tensors (and its switch's) into ``dst``'s, in place."""
+    """Copy ``src``'s tensors (and its switch's or planes', with their
+    valid flag) into ``dst``'s, in place."""
     import dataclasses
 
     for f in dataclasses.fields(src):
@@ -2643,6 +2646,8 @@ def _restore(torch, dst, src):
             a.copy_(b)
         elif dataclasses.is_dataclass(b):
             _restore(torch, a, b)
+        elif isinstance(b, bool):
+            setattr(dst, f.name, b)
 
 
 def _carry_err(torch, got, want, names):
@@ -2679,13 +2684,42 @@ def _engine_check(np, name, eng, plain, padded, scipy, run):
                 scipy_s=time.perf_counter() - t0)
 
 
+def _csr_level_bytes(torch, dg, carry, new_labels):
+    """Bytes a level of K9 must move, counted two ways on this level's
+    state: (a) from dist: the offsets, every distance word once, the cols
+    of each vertex some query has not reached, the new labels; (b) on
+    carried bits: the frontier and visited planes read
+    once, the virtual rows and cols of the rows that some running query
+    has not reached, the two planes and the union map written, the new
+    labels."""
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import bfs
+
+    n, k = dg.n, carry.dist.shape[0]
+    w = -(-k // 32)
+    deg = (dg.row_offsets[1:] - dg.row_offsets[:-1]).long()
+    unreached = carry.dist == -1
+    from_dist = (4 * (n + 1) + 4 * carry.dist.numel()
+                 + 4 * int(deg[unreached.any(dim=0)].sum()) + 4 * new_labels)
+    live = (unreached & bfs.level_active(carry)[:, None]).any(dim=0)
+    owner = dg.vrows[:, 2].long()
+    live_pieces = int(live[owner].sum())
+    live_slots = int((dg.vrows[:, 1] - dg.vrows[:, 0])[live[owner]].sum())
+    on_bits = (8 * n * w + 12 * live_pieces + 4 * live_slots + 8 * n * w + n // 8
+               + 4 * new_labels)
+    return from_dist, on_bits, live_pieces, live_slots
+
+
 def _csr_pull_row(torch, np, dg, padded, layout, label):
-    """K9 on the real level of the BFS that labels most (query, vertex)
-    pairs: the kernel against its plain version (the whole carry), both
-    timed beside the level's bound and the torch composition of the JAX
-    expansion (the frontier flag gathered over ``cols``, then
-    ``index_reduce_`` amax over ``edge_src``, before the unreached mask);
-    and every level of the BFS's launch timed on its own (CUDA events)."""
+    """K9 over one BFS: every level's launches timed together (CUDA
+    events behind a queued device sleep), then on level 0 (stale: pack,
+    walk, apply) and on the level that labels most (query, vertex) pairs
+    (steady: walk, apply) the kernel held against its planes plain version
+    (every carry field and plane, bit for bit) and against the JAX-shaped
+    plain version (the carry), the level timed whole and split by launch
+    (events between the phases, the median of five), beside both bounds
+    and the torch composition of the JAX expansion (the frontier flag
+    gathered over ``cols``, then ``index_reduce_`` amax over
+    ``edge_src``, before the unreached mask)."""
     from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
         bfs, cuda_csr, packed,
     )
@@ -2696,62 +2730,96 @@ def _csr_pull_row(torch, np, dg, padded, layout, label):
         carry = (bfs.distance_carry_init(n, padded, device=dg.device) if layout == "rows"
                  else packed.packed_carry_init(dg, padded))
         bfs.arm_chunk(carry, None, None)
+        cuda_csr.csr_planes(dg, carry)  # allocated, stale
         return carry
 
-    carry, new, levels_ms = fresh(), [], []
+    def level_ms(carry):
+        """The level's ms and each phase's: an event before and after each
+        launch, all enqueued behind a device sleep."""
+        phases = [p for p in cuda_csr.PHASE_NAMES
+                  if carry.planes.valid is False or p != cuda_csr.PHASE_PACK]
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(phases) + 1)]
+        torch.cuda._sleep(2_000_000)  # the level's wrapper calls fall in the sleep
+        ev[0].record()
+        for i, p in enumerate(phases):
+            cuda_csr.csr_pull(dg, carry, phases=p)
+            ev[i + 1].record()
+        ev[-1].synchronize()
+        split = {cuda_csr.PHASE_NAMES[p]: ev[i].elapsed_time(ev[i + 1])
+                 for i, p in enumerate(phases)}
+        return ev[0].elapsed_time(ev[-1]), split
+
+    carry, new, levels_ms, levels_split = fresh(), [], [], []
     while int(carry.ctrl[0]):
         before = int((carry.dist == -1).sum())
-        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        e0.record()
-        cuda_csr.csr_pull(dg, carry)
-        e1.record()
-        e1.synchronize()
-        levels_ms.append(e0.elapsed_time(e1))
+        ms, split = level_ms(carry)
+        levels_ms.append(ms)
+        levels_split.append(split)
         new.append(before - int((carry.dist == -1).sum()))
     widest = int(np.argmax(new))
-    carry = fresh()
-    for _ in range(widest):
-        cuda_csr.csr_pull(dg, carry)
-    snap = _clone(torch, carry)
-    got, want = _clone(torch, snap), _clone(torch, snap)
-    cuda_csr.csr_pull(dg, got)
-    cuda_csr.csr_pull_plain(dg, want)
-    torch.cuda.synchronize()
     names = ("dist", "level", "updated", "stop", "found", "ctrl")
-    err = _carry_err(torch, got, want, names)
-    work = _clone(torch, snap)
-    restore = functools.partial(_restore, torch, work, snap)
-    ms = _time_ms(torch, lambda: cuda_csr.csr_pull(dg, work), restore)
-    plain_ms = _time_ms(torch, lambda: cuda_csr.csr_pull_plain(dg, work), restore, reps=3)
-    dist, level = snap.dist, snap.level
+    planes = ("frontier", "visited", "hits", "aux", "union")
     cols, src = dg.col_indices.long(), dg.edge_src.long()
     rows = layout == "rows"
-    out = torch.zeros((dist.shape[0], n) if rows else (n, dist.shape[0]),
+    out = torch.zeros((padded.shape[0], n) if rows else (n, padded.shape[0]),
                       dtype=torch.uint8, device=dg.device)
 
-    def library():
-        if rows:
-            out.index_reduce_(1, src, (dist == level[:, None]).to(torch.uint8)[:, cols],
-                              "amax")
-        else:
-            out.index_reduce_(0, src, (dist.T == level[None, :]).to(torch.uint8)[cols],
-                              "amax")
-    library_ms = _time_ms(torch, library, lambda: out.zero_(), reps=5)
-    # Bytes any pull of this level must move: the offsets, every distance
-    # word once, the cols of each vertex some query has not reached, and
-    # the new labels written.
-    deg = (dg.row_offsets[1:] - dg.row_offsets[:-1]).long()
-    rows_read = (dist == -1).any(dim=0)
-    labels = int(new[widest])
-    nbytes = 4 * (n + 1) + 4 * dist.numel() + 4 * int(deg[rows_read].sum()) + 4 * labels
-    bound, by = _bound_ms(nbytes, 0)
-    row = dict(level=widest, new_labels=labels, bfs_levels_ms=levels_ms, bfs_new_labels=new,
-               max_abs_err=err, ms=ms, plain_ms=plain_ms,
-               bound_ms=bound, bound_by=by, library_ms=library_ms,
+    def at(level):
+        """The kernel against both plain versions on ``level`` of the BFS,
+        each timed: the level, its phases, the plain versions, the
+        library composition; with both bounds."""
+        carry = fresh()
+        for _ in range(level):
+            cuda_csr.csr_pull(dg, carry)
+        snap = _clone(torch, carry)
+        stale = not snap.planes.valid
+        got, want, jax_like = (_clone(torch, snap) for _ in range(3))
+        cuda_csr.csr_pull(dg, got)
+        cuda_csr.csr_level_planes_plain(dg, want)
+        cuda_csr.csr_pull_plain(dg, jax_like)
+        torch.cuda.synchronize()
+        err = _carry_err(torch, got, want, names)
+        err = max(err, _carry_err(torch, got.planes, want.planes, planes))
+        err = max(err, _carry_err(torch, got, jax_like, names[:4]))
+        work = _clone(torch, snap)
+        restore = functools.partial(_restore, torch, work, snap)
+        ms = _time_ms(torch, lambda: cuda_csr.csr_pull(dg, work), restore)
+        splits = []
+        for _ in range(5):
+            restore()
+            splits.append(level_ms(work)[1])
+        phase_ms = {k: sorted(x[k] for x in splits)[2] for k in splits[0]}
+        planes_plain_ms = _time_ms(
+            torch, lambda: cuda_csr.csr_level_planes_plain(dg, work), restore, reps=3)
+        plain_ms = _time_ms(torch, lambda: cuda_csr.csr_pull_plain(dg, work), restore, reps=3)
+        dist, lv = snap.dist, snap.level
+
+        def library():
+            if rows:
+                out.index_reduce_(1, src, (dist == lv[:, None]).to(torch.uint8)[:, cols],
+                                  "amax")
+            else:
+                out.index_reduce_(0, src, (dist.T == lv[None, :]).to(torch.uint8)[cols],
+                                  "amax")
+        library_ms = _time_ms(torch, library, lambda: out.zero_(), reps=5)
+        from_dist, on_bits, pieces, slots = _csr_level_bytes(torch, dg, snap, new[level])
+        bound_dist = _bound_ms(from_dist, 0)[0]
+        bound, by = _bound_ms(on_bits, 0)
+        return dict(level=level, stale=stale, new_labels=new[level], max_abs_err=err, ms=ms,
+                    phase_ms=phase_ms, plain_ms=plain_ms, planes_plain_ms=planes_plain_ms,
+                    bound_ms=bound, bound_by=by, bound_bytes=on_bits,
+                    bound_from_dist_ms=bound_dist, bound_from_dist_bytes=from_dist,
+                    live_pieces=pieces, live_slots=slots, library_ms=library_ms)
+
+    first = at(0)
+    top = at(widest)
+    row = dict(top, bfs_levels_ms=levels_ms, bfs_ms=sum(levels_ms), bfs_new_labels=new,
+               bfs_phase_ms=levels_split,
+               level0=first,
                library="frontier flags gathered over cols + index_reduce_ amax",
                layout=layout, card=CARD)
     print(f"compare {label} csr_pull ({layout}): " + json.dumps(row))
-    assert err == 0, row
+    assert first["max_abs_err"] == 0 and top["max_abs_err"] == 0, row
     return row
 
 
@@ -3089,6 +3157,20 @@ def _capacity_trail(eng, padded):
     return trail + [eng.capacity]
 
 
+def _assert_csr_variants(path, layout):
+    """A K9 path ran its layout only: a pack on each stale level (one a
+    chunk), walk and apply on every level, more steady levels than
+    stale ones."""
+    got = VARIANTS[path]
+    kinds = {f"csr_pull:{layout}/{state}/{phase}" for state, phase in (
+        ("stale", "pack"), ("stale", "walk"), ("stale", "apply"),
+        ("steady", "walk"), ("steady", "apply"))}
+    assert set(got) == kinds, (path, got)
+    stale = got[f"csr_pull:{layout}/stale/pack"]
+    assert got[f"csr_pull:{layout}/stale/walk"] == got[f"csr_pull:{layout}/stale/apply"] == stale
+    assert got[f"csr_pull:{layout}/steady/walk"] == got[f"csr_pull:{layout}/steady/apply"] > stale
+
+
 def _single_device_phase(ctx, files, seed):
     """Phase 10: the five single-device routes through the CLI, each a
     counted path, with their engines against the plain engines and scipy,
@@ -3117,14 +3199,14 @@ def _single_device_phase(ctx, files, seed):
     dg = g20.to_device(dev)
     with _env(MSBFS_BACKEND="vmap"):
         run = _run_path(cli, timing, argv, "vmap rmat-20", launches)
-    assert list(VARIANTS["vmap rmat-20"]) == ["csr_pull:rows"], VARIANTS["vmap rmat-20"]
+    _assert_csr_variants("vmap rmat-20", "rows")
     summary = _engine_check(np, "vmap rmat-20", engine.Engine(dg, level_chunk=128),
                             engine.Engine(dg, level_chunk=128, plain=True), padded, scipy, run)
     print("vmap rmat-20: " + json.dumps(dict(**summary, card=CARD)))
     rows["csr_pull"] = _csr_pull_row(torch, np, dg, padded, "rows", "rmat-20 K=64")
     with _env(MSBFS_BACKEND="packed"):
         run = _run_path(cli, timing, argv, "packed rmat-20", launches)
-    assert list(VARIANTS["packed rmat-20"]) == ["csr_pull:minor"], VARIANTS["packed rmat-20"]
+    _assert_csr_variants("packed rmat-20", "minor")
     with _env(MSBFS_BACKEND="packed", MSBFS_EDGE_CHUNKS="4"):
         chunked = _run_cli(cli, argv)
     assert chunked[:2] == run[:2], (chunked, run)

@@ -114,6 +114,38 @@ class CSRGraph:
         )
 
 
+# The CSR pull's work layout (kernel K9, csrc/csr_pull.cu): a row of at
+# most SHORT_ROW_SLOTS slots is walked by one thread, a longer one is cut
+# into virtual rows of at most VROW_SLOTS slots, each walked by a warp.
+SHORT_ROW_SLOTS = 32
+VROW_SLOTS = 256
+
+
+def virtual_rows(row_offsets: np.ndarray, short_slots: int = SHORT_ROW_SLOTS,
+                 vrow_slots: int = VROW_SLOTS):
+    """((R, 3) int32 (start, end, owner) slot ranges, number of short
+    ones): first every nonempty row of at most ``short_slots`` slots whole,
+    in vertex order, then every longer row cut into consecutive pieces of
+    ``vrow_slots`` slots (the last one shorter), in slot order.  Together
+    they cover every slot once; empty rows have none."""
+    offs = np.asarray(row_offsets, dtype=np.int64)
+    deg = np.diff(offs)
+    short = np.flatnonzero((deg > 0) & (deg <= short_slots))
+    long_rows = np.flatnonzero(deg > short_slots)
+    pieces = -(-deg[long_rows] // vrow_slots)
+    owner = np.repeat(long_rows, pieces)
+    first = np.cumsum(pieces) - pieces
+    start = offs[owner] + (np.arange(owner.size) - np.repeat(first, pieces)) * vrow_slots
+    out = np.empty((short.size + owner.size, 3), dtype=np.int32)
+    out[: short.size, 0] = offs[short]
+    out[: short.size, 1] = offs[short + 1]
+    out[: short.size, 2] = short
+    out[short.size :, 0] = start
+    out[short.size :, 1] = np.minimum(start + vrow_slots, offs[owner + 1])
+    out[short.size :, 2] = owner
+    return out, int(short.size)
+
+
 class DeviceCSR:
     """The CSR on one device, made once and reused by every query (the
     reference's one-time copy, main.cu:282-295); the JAX package's
@@ -123,14 +155,21 @@ class DeviceCSR:
       2m < 2^31;
     * ``col_indices`` (E,) — neighbour ids, E = 2m directed slots;
     * ``edge_src`` (E,) — the row owning each slot, ascending (the plain
-      versions' segment ids; the CSR pull kernel walks the offsets)."""
+      versions' segment ids);
 
-    def __init__(self, row_offsets, col_indices, edge_src, n: int, num_edges: int):
+    and the port's work layout of the CSR pull kernel, made with them:
+    ``vrows`` (R, 3) int32 virtual rows and ``num_short``, the count of
+    whole short rows in front (:func:`virtual_rows`)."""
+
+    def __init__(self, row_offsets, col_indices, edge_src, n: int, num_edges: int,
+                 vrows, num_short: int):
         self.row_offsets = row_offsets
         self.col_indices = col_indices
         self.edge_src = edge_src
         self.n = int(n)
         self.num_edges = int(num_edges)
+        self.vrows = vrows
+        self.num_short = int(num_short)
 
     @staticmethod
     def from_host(g: CSRGraph, device) -> "DeviceCSR":
@@ -141,12 +180,12 @@ class DeviceCSR:
                 "(parallel.sharded_csr), which splits edge arrays per shard."
             )
         edge_src = np.repeat(np.arange(g.n, dtype=np.int32), g.degrees.astype(np.int64))
-        arrays = (g.row_offsets, g.col_indices, edge_src)
-        return DeviceCSR(
-            *(torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(device)
-              for a in arrays),
-            g.n, e,
+        vrows, num_short = virtual_rows(g.row_offsets)
+        offs, cols, src, vrows = (
+            torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(device)
+            for a in (g.row_offsets, g.col_indices, edge_src, vrows)
         )
+        return DeviceCSR(offs, cols, src, g.n, e, vrows, num_short)
 
     @property
     def n_pad(self) -> int:

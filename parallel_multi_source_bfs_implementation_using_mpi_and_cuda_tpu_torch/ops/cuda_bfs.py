@@ -137,13 +137,11 @@ def ell_pack_plain(carry: DistCarry, planes: EllPlanes) -> None:
 
 def ell_steady_plain(graph, carry: DistCarry, planes: EllPlanes) -> None:
     """The steady level in torch, planes in, planes and ``dist`` out: the
-    slab gather of whole frontier words, the per-vertex OR, new = hits &
-    ~visited & running, the new labels written into ``dist`` (which is
-    never read), and the advance of the per-query control and the mask.
-    Ungated (:func:`ell_level_planes_plain` reads the go flag)."""
-    n, k = graph.n, carry.dist.shape[0]
+    slab gather of whole frontier words, the per-vertex OR, then
+    :func:`planes_apply_plain`.  Ungated (:func:`ell_level_planes_plain`
+    reads the go flag)."""
+    n = graph.n
     w = planes.frontier.shape[1]
-    mask = planes.aux[:w]
     # Row n is the sentinel of cols and vrow_vertex: reads 0, is dropped.
     ext = torch.cat([planes.frontier, planes.frontier.new_zeros((1, w))])
     rows = torch.zeros((graph.num_vrows, w), dtype=torch.int32, device=ext.device)
@@ -151,10 +149,22 @@ def ell_steady_plain(graph, carry: DistCarry, planes: EllPlanes) -> None:
         rows |= ext[graph.cols[j].long()]
     reached = torch.zeros((n + 1, w * WORD_BITS), dtype=torch.int32, device=ext.device)
     reached.index_add_(0, graph.vrow_vertex.long(), unpack_byte_planes(rows).to(torch.int32))
-    hits = pack_byte_planes((reached[:n] > 0).to(torch.uint8))
-    new = hits & ~planes.visited & mask
+    planes_apply_plain(carry, planes, pack_byte_planes((reached[:n] > 0).to(torch.uint8)))
+
+
+def planes_apply_plain(carry: DistCarry, planes, hits: torch.Tensor) -> None:
+    """A level's apply on carried planes, in torch: new = hits & ~visited
+    & running; visited |= new, frontier = new, the hit plane zeroed, the
+    new labels written into ``dist`` (never read), and the advance of the
+    per-query control and the running-query mask.  ``planes`` is any
+    carry state with ``frontier``, ``visited``, ``hits`` and ``aux`` as in
+    :class:`EllPlanes`."""
+    k, n = carry.dist.shape
+    w = planes.frontier.shape[1]
+    new = hits & ~planes.visited & planes.aux[:w]
     planes.visited |= new
     planes.frontier.copy_(new)
+    planes.hits.zero_()
     labelled = unpack_byte_planes(new)[:, :k].T.bool()  # (K, n)
     carry.dist[labelled] = (carry.level + 1)[:, None].expand(k, n)[labelled]
     active = level_active(carry)

@@ -32,7 +32,6 @@ from .bfs import (
     stats_from_distances,
     validate_level_chunk,
 )
-from .cuda_csr import csr_pull, csr_pull_plain
 from .engine import Engine, QueryEngineBase
 from .objective import f_of_u
 
@@ -90,6 +89,8 @@ def packed_carry_init(graph, queries) -> DistCarry:
 
 
 def _pull_step(graph, edge_chunks: int, plain: bool):
+    from .cuda_csr import csr_pull, csr_pull_plain  # lazy: cuda_csr -> bitbell -> packed
+
     pull = csr_pull_plain if plain else csr_pull
     return lambda carry: pull(graph, carry, edge_chunks)
 

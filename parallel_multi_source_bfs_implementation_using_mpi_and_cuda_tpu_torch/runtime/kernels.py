@@ -99,7 +99,7 @@ KERNELS = {
     ),
     "csr_pull": (
         "msbfs_csr_pull",
-        [_P, _P, _P, _L, _I, _L, _L, _P, _P, _P, _P, _P],
+        [_I, _P, _L, _L, _P, _P, _L, _I, _L, _L, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     ),
     "queue_expand": (
         "msbfs_queue_expand",

@@ -1600,8 +1600,8 @@ def test_flag_pull_matches_plain(cuda, monkeypatch, kp, k, widths, bitmap):
 
 
 def _clone_carry(carry, device):
-    """A dataclass carry with every tensor (and its switch's) copied to
-    ``device``; a query-minor ``dist`` view stays query-minor."""
+    """A dataclass carry with every tensor (and its switch's and planes')
+    copied to ``device``; a query-minor ``dist`` view stays query-minor."""
     import dataclasses
 
     out = {}
@@ -1612,9 +1612,10 @@ def _clone_carry(carry, device):
                 v = v.T.clone().to(device).T
             else:
                 v = v.clone().to(device)
-        elif isinstance(v, bitbell.PushSwitch):
-            v = bitbell.PushSwitch(*(x.clone().to(device) if isinstance(x, torch.Tensor) else x
-                                     for x in dataclasses.astuple(v)))
+        elif isinstance(v, (bitbell.PushSwitch, cuda_csr.CsrPlanes)):
+            v = dataclasses.replace(v, **{
+                x.name: getattr(v, x.name).clone().to(device)
+                for x in dataclasses.fields(v) if isinstance(getattr(v, x.name), torch.Tensor)})
         out[f.name] = v
     return type(carry)(**out)
 
@@ -1625,36 +1626,105 @@ def _csr_case(seed):
     return n, CSRGraph.from_edges(n, e)
 
 
+CSR_FIELDS = ("dist", "level", "updated", "stop", "found", "ctrl")
+PLANE_FIELDS = ("frontier", "visited", "hits", "aux", "union")
+
+
+def _csr_level_equal(gg, gc, got, want, layout):
+    """One level of K9 on ``got`` (CUDA) and of its planes plain version
+    on ``want`` (CPU): two launches when the planes are valid, three when
+    stale, then every carry field and every plane bit for bit."""
+    stale = not (got.planes is not None and got.planes.valid)
+    ran = bool(int(want.ctrl[0]))
+    cuda_csr.csr_level_planes_plain(gc, want)
+    timing.reset_launch_counts()
+    cuda_csr.csr_pull(gg, got)
+    torch.cuda.synchronize()
+    phases = ("pack", "walk", "apply") if stale else ("walk", "apply")
+    state = "stale" if stale else "steady"
+    assert timing.launch_counts() == {"csr_pull": len(phases)}
+    assert timing.variant_counts() == {f"csr_pull:{layout}/{state}/{p}": 1 for p in phases}
+    for name in CSR_FIELDS:
+        assert torch.equal(getattr(got, name).cpu(), getattr(want, name)), name
+    if ran:  # else both planes are as the last level that ran left them
+        for name in PLANE_FIELDS:
+            assert torch.equal(getattr(got.planes, name).cpu(),
+                               getattr(want.planes, name)), name
+        assert got.planes.valid and want.planes.valid
+
+
+def _csr_carries(gc, n, q, layout, device):
+    want = (packed.packed_carry_init(gc, q) if layout == "minor"
+            else bfs.distance_carry_init(n, q))
+    return want, _clone_carry(want, device)
+
+
 @pytest.mark.parametrize("layout", ["rows", "minor"])
-@pytest.mark.parametrize("k", [1, 5, 40])
+@pytest.mark.parametrize("k", [1, 5, 40, 64, 100])
 def test_csr_pull_matches_plain(cuda, layout, k):
     n, g = _csr_case(31 + k)
     gc, gg = g.to_device("cpu"), g.to_device(cuda)
     q = io.pad_queries(generators.random_queries(n, k, max_group=3, seed=k))
     if k > 2:
         q[1] = -1
-    if layout == "minor":
-        want = packed.packed_carry_init(gc, q)
-    else:
-        want = bfs.distance_carry_init(n, q)
-    for chunk in (2, None):  # a chunk's bound stops the queries, then none
-        got = _clone_carry(want, cuda)
+    want, got = _csr_carries(gc, n, q, layout, cuda)
+    shown = layout if k > 1 else "rows"
+    # Chunks of 2 and 3 levels (each arm makes the planes stale, and the
+    # bound stops queries mid-BFS), then the rest to convergence.
+    for chunk, levels in ((2, 2), (3, 3), (2, 2), (None, 8)):
         bfs.arm_chunk(want, chunk, None)
         bfs.arm_chunk(got, chunk, None)
-        for _ in range(6):
-            cuda_csr.csr_pull_plain(gc, want)
-            timing.reset_launch_counts()
-            cuda_csr.csr_pull(gg, got)
-            torch.cuda.synchronize()
-            assert timing.launch_counts() == {"csr_pull": 1}
-            assert timing.variant_counts() == {f"csr_pull:{layout if k > 1 else 'rows'}": 1}
-            for name in ("dist", "level", "updated", "stop", "found", "ctrl"):
-                assert torch.equal(getattr(got, name).cpu(), getattr(want, name)), name
-    # A gated-off level (ctrl[0] = 0) changes nothing.
-    before = got.dist.clone()
-    got.ctrl.zero_()
+        for _ in range(levels):
+            _csr_level_equal(gg, gc, got, want, shown)
+    assert not int(want.ctrl[0])
+    # A gated-off level (ctrl[0] = 0) changes nothing, planes included.
+    before = _clone_carry(got, cuda)
     cuda_csr.csr_pull(gg, got)
-    assert torch.equal(got.dist, before)
+    torch.cuda.synchronize()
+    for name in CSR_FIELDS:
+        assert torch.equal(getattr(got, name), getattr(before, name)), name
+    for name in PLANE_FIELDS:
+        assert torch.equal(getattr(got.planes, name), getattr(before.planes, name)), name
+
+
+def _degree_class_graph(leaves=70_000):
+    """A star hub (vertex 0, its slots in leaf order 1..leaves) cut into
+    274 virtual rows, rows of 32, 33, 255, 256, 257 and 600 slots over the
+    first leaves, and a path; with isolated vertices past them."""
+    edges = [[0, 1 + i] for i in range(leaves)]
+    fan = leaves + 1
+    for width in (32, 33, 255, 256, 257, 600):
+        edges += [[fan, 1 + (i * 7919) % leaves] for i in range(width)]
+        fan += 1
+    edges += [[fan + i, fan + i + 1] for i in range(20)] + [[fan, leaves]]
+    return fan + 30, np.asarray(edges, dtype=np.int32)
+
+
+@pytest.mark.parametrize("layout", ["rows", "minor"])
+def test_csr_pull_degree_classes(cuda, layout):
+    """Query 0's only frontier neighbour of the hub is its last slot,
+    query 1's its first; the others start anywhere.  Every level of the
+    BFS bit for bit against the planes plain version."""
+    n, e = _degree_class_graph()
+    g = CSRGraph.from_edges(n, e)
+    gc, gg = g.to_device("cpu"), g.to_device(cuda)
+    hub_pieces = -(-70_000 // 256)
+    assert int((gc.vrows[:, 2] == 0).sum()) == hub_pieces
+    q = io.pad_queries(generators.random_queries(n, 40, max_group=3, seed=9))
+    q[0] = -1
+    q[1] = -1
+    q[0, 0], q[1, 0] = 70_000, 1
+    want, got = _csr_carries(gc, n, q, layout, cuda)
+    bfs.arm_chunk(want, 3, None)
+    bfs.arm_chunk(got, 3, None)
+    _csr_level_equal(gg, gc, got, want, layout)
+    assert int(got.dist[0, 0]) == 1 and int(got.dist[1, 0]) == 1
+    for _ in range(2):
+        _csr_level_equal(gg, gc, got, want, layout)
+    bfs.arm_chunk(want, None, None)
+    bfs.arm_chunk(got, None, None)
+    while int(want.ctrl[0]):
+        _csr_level_equal(gg, gc, got, want, layout)
 
 
 @pytest.mark.parametrize("edge_chunks", [1, 4])
@@ -1675,7 +1745,7 @@ def test_vmap_and_packed_engines_on_card_match_plain(cuda, edge_chunks):
         timing.reset_launch_counts()
         for x, y in zip(pk.query_stats(q), plain.query_stats(q)):
             np.testing.assert_array_equal(x, y)
-        assert "csr_pull:minor" in timing.variant_counts()
+        assert any(v.startswith("csr_pull:minor/steady/") for v in timing.variant_counts())
         for x, y in zip(pk.query_stats(q), want):
             np.testing.assert_array_equal(x, y)
     dense_eng = engine.Engine(dense.DenseGraph.from_host(g, cuda))
