@@ -9,7 +9,7 @@ compiler, and scipy; imports nothing of JAX.  Phases (any failure exits
 non-zero; nothing is caught):
 
 1. print the card (nvidia-smi name, power limit); build the CUDA kernels
-   from csrc/ (ten sources, fourteen entry points) in parallel and the
+   from csrc/ (eleven sources, fifteen entry points) in parallel and the
    native host runtime
    (runtime/loader.cpp), and time both builds; print the host's CPUs and
    the native runtime's thread count;
@@ -176,9 +176,30 @@ non-zero; nothing is caught):
    entries and touched tiles ("push levels", "ppush levels" lines; per
    level in chip_smoke_push_road4096_levels.json and
    chip_smoke_ppush_road4096_levels.json under --detail-dir);
+11. the weighted route (``MSBFS_WEIGHTED=1``, K12 weighted_relax), each
+   CLI run a path that launches weighted_relax and no other kernel:
+   a. phase 5b's RMAT-20 files with uniform costs in [1, 16]
+      (``edge_costs(m, "uniform", 16, seed + 3)``), K = 64, the auto
+      (bitbell) flavor: the winner's distances and the first eight
+      groups' equal scipy's multi-source Dijkstra; the engine's F and
+      five counters equal a plain engine's (relax_plain) on the card; K12
+      held bit for bit against relax_plain on the widest light pass and
+      the widest heavy pass and timed beside its bound and
+      ``scatter_reduce_("amin")`` of the same candidates, built in
+      advance; the buckets, passes, host reads and K12's share of a run;
+   b. road_edges(512, 512) with the same costs, K = 8 groups of up to 8:
+      each flavor (bitbell, stencil, mesh2d) and ``MSBFS_DELTA=1``
+      through the CLI, to the same winner and F, all eight F equal to
+      scipy's; each flavor's F and counters equal its plain engine's;
+   c. road_edges(128, 128), K = 8: ``MSBFS_AUDIT=full`` (checkpointed, so
+      that every chunk's F is audited) exits 0 with the audit run; one
+      ``bitflip:wplane`` on the first real chunk is caught and retried to
+      the clean answer; a flip on every call exits 9; ``verify
+      --weighted`` and ``verify`` on the weightless file exit 0;
+      ``verify --expect-f`` with a wrong F exits 9;
 then the ``{"kernels": [...]}`` line and the final ``{"ok": true, ...}``.
 
-Each CLI run of phases 3-5b, 9a and 10 is one path: the kernel launch counters are
+Each CLI run of phases 3-5b, 9a, 10 and 11 is one path: the kernel launch counters are
 zeroed just before it and read just after; each path must have launched
 its route's kernels (batch_start at its route's stride), and every
 registered kernel must have launched on some path, and no byte path may
@@ -237,6 +258,11 @@ PATH_KERNELS = {
     "dense rmat-14": (),
     "push road-4096": ("queue_expand", "queue_compact"),
     "ppush road-4096": ("batch_start", "push_or", "queue_compact"),
+    "weighted rmat-20": ("weighted_relax",),
+    "weighted-bitbell road-512": ("weighted_relax",),
+    "weighted-stencil road-512": ("weighted_relax",),
+    "weighted-mesh2d road-512": ("weighted_relax",),
+    "weighted delta=1 road-512": ("weighted_relax",),
 }
 # The paths whose planes are bytes: their batch starts at a stride of 8
 # lanes, the others' at 1 (the ELL route packs no planes), and they pull
@@ -3500,6 +3526,413 @@ def _host_layouts(torch, n, edges, g, bg, dev, t_csr, t_bell):
     )))
 
 
+# ---- phase 11: the weighted route (K12, weighted_relax)
+
+# Groups of each weighted path checked against scipy's Dijkstra (besides the
+# winner).
+WEIGHTED_GROUPS = 8
+
+
+def _weighted_matrix(sp, np, n, edges, costs):
+    """The weighted graph as a scipy matrix, built from the edge records
+    and their costs alone (none of the port's loader or CSR): both
+    directions of each record, self-loops dropped, parallel edges at their
+    least cost (scipy would sum them)."""
+    e = np.asarray(edges, np.int64).reshape(-1, 2)
+    c = np.asarray(costs, np.int64)
+    src = np.concatenate([e[:, 0], e[:, 1]])
+    dst = np.concatenate([e[:, 1], e[:, 0]])
+    w = np.concatenate([c, c])
+    keep = src != dst
+    src, dst, w = src[keep], dst[keep], w[keep]
+    order = np.lexsort((dst, src))
+    src, dst, w = src[order], dst[order], w[order]
+    first = np.ones(src.size, bool)
+    first[1:] = (src[1:] != src[:-1]) | (dst[1:] != dst[:-1])
+    starts = np.flatnonzero(first)
+    least = np.minimum.reduceat(w, starts)
+    return sp.csr_matrix((least.astype(np.float64), (src[starts], dst[starts])),
+                         shape=(n, n))
+
+
+def _dijkstra(cg, np, a, sources):
+    """(n,) int64 weighted distance-to-set from scipy, -1 unreached."""
+    n = a.shape[0]
+    src = np.unique(sources[(sources >= 0) & (sources < n)])
+    if src.size == 0:
+        return np.full(n, -1, np.int64)
+    d = cg.dijkstra(a, directed=True, indices=src, min_only=True)
+    return np.where(np.isfinite(d), d, -1).astype(np.int64)
+
+
+def _weighted_counted(cli, timing, argv, name, launches, rc_want=0):
+    """A weighted CLI run as one path (counters zeroed before, read after):
+    its exit code, and weighted_relax the only kernel it launched."""
+    timing.reset_launch_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    counts = timing.launch_counts()
+    launches[name] = counts
+    print(buf.getvalue(), end="")
+    print(f"{name} launches: {json.dumps(counts)} (exit {rc})")
+    assert rc == rc_want, (name, rc)
+    assert set(counts) == {"weighted_relax"}, (name, counts)
+    return buf.getvalue()
+
+
+def _weighted_engine_check(np, name, fast, plain, padded):
+    """The kernel engine's F, counters and host reads against the plain
+    engine's (relax_plain) on the card."""
+    t0 = time.perf_counter()
+    f_fast = fast.f_values(padded).numpy()
+    fast_s = time.perf_counter() - t0
+    stats, reads = fast.weighted_stats(), fast.last_host_reads
+    t0 = time.perf_counter()
+    f_plain = plain.f_values(padded).numpy()
+    plain_s = time.perf_counter() - t0
+    assert np.array_equal(f_fast, f_plain), (name, f_fast, f_plain)
+    assert stats == plain.weighted_stats(), (name, stats, plain.weighted_stats())
+    assert reads == plain.last_host_reads, (name, reads, plain.last_host_reads)
+    return f_fast, stats, reads, fast_s, plain_s
+
+
+def _k12_passes(torch, np, deltastep, eng, padded):
+    """Two runs of ``eng``.  The first puts every K12 launch between CUDA
+    events and adds nothing else (no host read, no copy), so its wall time
+    is the engine's own.  The second counts each pass's active cells (a
+    host read a pass) and keeps the inputs of the widest light and the
+    widest heavy pass.  Returns (the first run's F, the kernel's total
+    ms, the run's wall s, per-pass rows with the first run's ms, and the
+    widest passes' inputs)."""
+    real = deltastep.relax
+    events, rows, widest = [], [], {}
+
+    def timed(tent, active, slots, lo, hi, delta, light, out=None):
+        if out is None:
+            out = tent.clone()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        real(tent, active, slots, lo, hi, delta, light, out)
+        e1.record()
+        events.append((e0, e1))
+        return out
+
+    def snapped(tent, active, slots, lo, hi, delta, light, out=None):
+        cells = int(active.sum())
+        rows.append(dict(light=bool(light), lo=lo, hi=hi, active_cells=cells))
+        key = "light" if light else "heavy"
+        if cells > widest.get(key, (-1,))[0]:
+            widest[key] = (cells, tent.clone(), active.clone(), lo, hi)
+        return real(tent, active, slots, lo, hi, delta, light, out)
+
+    try:
+        deltastep.relax = timed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        f = eng.f_values(padded).numpy()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        deltastep.relax = snapped
+        f_snapped = eng.f_values(padded).numpy()
+    finally:
+        deltastep.relax = real
+    assert np.array_equal(f, f_snapped) and len(rows) == len(events), (len(rows), len(events))
+    for r, (e0, e1) in zip(rows, events):
+        r["ms"] = e0.elapsed_time(e1)
+    return f, sum(r["ms"] for r in rows), wall, rows, widest
+
+
+def _profile_split(torch, fn, top=8):
+    """One call of ``fn`` under torch.profiler: its wall ms (profiled),
+    the device's busy ms and share (the summed device events of the one
+    stream), the device ms by kernel name and the host ops' self ms, each
+    the ``top`` largest."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = _op_name(e.name)
+            dev[name] = dev.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
+    host = sorted(((a.key, a.self_cpu_time_total / 1e3) for a in prof.key_averages()),
+                  key=lambda kv: -kv[1])[:top]
+    busy = sum(dev.values())
+    return dict(source="torch.profiler", wall_ms=wall_ms, device_busy_ms=busy,
+                busy_share=busy / wall_ms, device_ms=dict(sorted(
+                    dev.items(), key=lambda kv: -kv[1])[:top]), host_self_ms=dict(host))
+
+
+def _k12_compare(torch, np, cuda_weighted, eng, snap, light, label, library):
+    """K12 on one real pass against relax_plain, bit for bit, both timed,
+    beside the bound and (with ``library``) scatter_reduce_ "amin" of the
+    same candidates, built in advance."""
+    cells, tent, active, lo, hi = snap
+    slots, delta = eng._slots, eng.delta
+    k, ns = tent.shape
+    out = torch.empty_like(tent)
+    out_p = torch.empty_like(tent)
+    cuda_weighted.relax(tent, active, slots, lo, hi, delta, light, out=out.copy_(tent))
+    cuda_weighted.relax_plain(tent, active, *slots, delta, light, lo, hi, out=out_p.copy_(tent))
+    torch.cuda.synchronize()
+    err = _max_abs_err(torch, [(out, out_p)])
+    assert err == 0, (label, err)
+    ms = _time_ms(torch, lambda: cuda_weighted.relax(tent, active, slots, lo, hi, delta, light,
+                                                     out=out),
+                  lambda: out.copy_(tent))
+    plain_ms = _time_ms(torch, lambda: cuda_weighted.relax_plain(
+        tent, active, *slots, delta, light, lo, hi, out=out_p), lambda: out_p.copy_(tent),
+        reps=3, warm=1)
+    width = hi - lo
+    w = slots[2][lo:hi]
+    sel = (w <= delta) if light else (w > delta)
+    selected = int(sel.sum())
+    # What this pass's data needs: w over the range, u and v of the
+    # selected slots, the active plane at the rows they leave, tent where
+    # those rows are active, and the cells of out that improve (out's copy
+    # of tent is restored outside the timed call).
+    rows = torch.zeros(ns, dtype=torch.bool, device=tent.device)
+    rows[slots[0][lo:hi][sel].long()] = True
+    need_rows = int(rows.sum())
+    need_cells = int((active & rows).sum())
+    improved = int((out_p != tent).sum())
+    nbytes = 4 * width + 8 * selected + k * need_rows + 4 * need_cells + 4 * improved
+    bound_ms, bound_by = _bound_ms(nbytes, k * selected)
+    # The earlier count (12 bytes a slot of the range, both planes read
+    # and out written whole), for comparison.
+    range_bytes = 12 * width + k * ns * (1 + 4 + 4)
+    range_bound_ms, _ = _bound_ms(range_bytes, k * width)
+    library_ms = None
+    if library:
+        # The JAX-shaped candidates of the whole pass, built a slice at a
+        # time, and their int64 index: the library call's inputs.
+        cand = torch.empty((k, width), dtype=torch.int32, device=tent.device)
+        step = cuda_weighted.PLAIN_CHUNK_CELLS // k
+        for s0 in range(0, width, step):
+            uu = slots[0][lo + s0:lo + min(width, s0 + step)].long()
+            ws = w[s0:s0 + step]
+            sel = (ws <= delta) if light else (ws > delta)
+            cand[:, s0:s0 + step] = torch.where(active[:, uu] & sel, tent[:, uu] + ws,
+                                                cuda_weighted.INF)
+        idx = slots[1][lo:hi].long().expand(k, -1).contiguous()
+        lib = torch.empty_like(tent)
+        library_ms = _time_ms(torch, lambda: lib.scatter_reduce_(1, idx, cand, "amin"),
+                              lambda: lib.copy_(tent), reps=5, warm=1)
+        assert torch.equal(lib, out_p), label
+        del cand, idx, lib
+        torch.cuda.empty_cache()
+    row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+               bound_by=bound_by, library_ms=library_ms)
+    print(f"compare {label} weighted_relax ({'light' if light else 'heavy'} pass, "
+          f"{cells} active cells): " + json.dumps(dict(
+              **row, K=k, n_state=ns, slots=width, selected_slots=selected,
+              rows_read=need_rows, tent_cells_read=need_cells, cells_improved=improved,
+              bound_bytes=nbytes, range_bound_bytes=range_bytes,
+              range_bound_ms=range_bound_ms, card=CARD)))
+    return row
+
+
+def _weighted_phase(ctx, n20, e20, queries20, n5, e5, seed):
+    """Phase 11: the weighted route through the CLI on RMAT-20 (K = 64),
+    road-512 (every flavor, and delta = 1) and road-128 (the audit, the
+    plane seam and ``verify``); K12 held and timed on RMAT-20's real
+    passes."""
+    torch, np, sp, cg, cli, tio, timing, generators, launches, tmp, dev = ctx
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch import weighted
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.models.csr import (
+        CSRGraph,
+    )
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
+        certify, cuda_weighted,
+    )
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.utils import faults
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.weighted import (
+        deltastep,
+    )
+
+    t_phase = time.perf_counter()
+    # -- 11a. RMAT-20, K = 64, the auto (bitbell) flavor.
+    t0 = time.perf_counter()
+    costs20 = generators.edge_costs(len(e20), "uniform", max_cost=16, seed=seed + 3)
+    gpath = os.path.join(tmp, "rmat20-w.bin")
+    qpath = os.path.join(tmp, "rmat20-wq.bin")
+    tio.save_graph_bin(gpath, n20, e20, costs20)
+    tio.save_query_bin(qpath, queries20)
+    g = tio.load_graph_bin(gpath)
+    padded = tio.pad_queries(queries20)
+    host_s = time.perf_counter() - t0
+    argv = ["chip_smoke", "-g", gpath, "-q", qpath, "-gn", "1"]
+    with _env(MSBFS_WEIGHTED="1"):
+        min_k, min_f, pre_s, comp_s = _run_path(cli, timing, argv, "weighted rmat-20", launches)
+    assert set(launches["weighted rmat-20"]) == {"weighted_relax"}, launches["weighted rmat-20"]
+    fast = weighted.WeightedBitBellEngine(g, device=dev)
+    plain = weighted.WeightedBitBellEngine(g, device=dev, plain=True)
+    f_fast, stats, reads, fast_s, plain_s = _weighted_engine_check(
+        np, "weighted rmat-20", fast, plain, padded)
+    assert (min_k, min_f) == (int(np.argmin(f_fast)), int(f_fast.min())), (min_k, min_f)
+    dist = fast.distances(padded)
+    a = _weighted_matrix(sp, np, n20, e20, costs20)
+    t0 = time.perf_counter()
+    groups = sorted({min_k, *range(WEIGHTED_GROUPS)})
+    for q in groups:
+        want = _dijkstra(cg, np, a, padded[q])
+        assert np.array_equal(dist[q].astype(np.int64), want), q
+    scipy_s = time.perf_counter() - t0
+    del dist
+    f, k12_ms, wall_s, passes, widest = _k12_passes(torch, np, deltastep, fast, padded)
+    assert np.array_equal(f, f_fast)
+    light = [r for r in passes if r["light"]]
+    size = int(fast._u_host.size)
+    assert len(light) * padded.shape[0] * size == stats["light_relaxations"], (len(light), stats)
+    print("weighted rmat-20: " + json.dumps(dict(
+        n=n20, K=padded.shape[0], dedup_slots=size, max_cost=fast.max_cost,
+        winner=min_k + 1, min_f=min_f, groups_equal_scipy=len(groups),
+        preprocessing_s=pre_s, computation_s=comp_s, **stats,
+        light_passes=len(light), heavy_passes=len(passes) - len(light),
+        host_reads=reads, engine_f_values_s=fast_s, plain_engine_f_values_s=plain_s,
+        k12_ms_in_timed_run=k12_ms, timed_run_s=wall_s,
+        k12_share_of_timed_run=k12_ms / 1e3 / wall_s,
+        k12_share_of_cli_computation=k12_ms / 1e3 / comp_s,
+        host_files_s=host_s, scipy_s=scipy_s, card=CARD)))
+    print("weighted rmat-20 profile of one f_values: " + json.dumps(dict(
+        **_profile_split(torch, lambda: fast.f_values(padded)), card=CARD)))
+    _write_detail("weighted_rmat20_passes", passes)
+    del plain
+    torch.cuda.empty_cache()
+    row = _k12_compare(torch, np, cuda_weighted, fast, widest["light"], True,
+                       "rmat-20 K=64", library=True)
+    _k12_compare(torch, np, cuda_weighted, fast, widest["heavy"], False, "rmat-20 K=64",
+                 library=False)
+    del fast, widest, g, a
+    os.remove(gpath)
+    torch.cuda.empty_cache()
+
+    # -- 11b. road-512, K = 8 groups of up to 8: every flavor, and delta 1.
+    costs5 = generators.edge_costs(len(e5), "uniform", max_cost=16, seed=seed + 3)
+    g5 = CSRGraph.from_edges(n5, e5, weights=costs5)
+    gpath5 = os.path.join(tmp, "road512-w.bin")
+    qpath5 = os.path.join(tmp, "road512-wq.bin")
+    q5 = generators.random_queries(n5, 8, max_group=8, seed=seed + 16)
+    tio.save_graph_bin(gpath5, n5, e5, costs5)
+    tio.save_query_bin(qpath5, q5)
+    padded5 = tio.pad_queries(q5)
+    a5 = _weighted_matrix(sp, np, n5, e5, costs5)
+    want5 = np.array([int(np.where(d >= 0, d, 0).sum())
+                      for d in (_dijkstra(cg, np, a5, r) for r in padded5)])
+    argv5 = ["chip_smoke", "-g", gpath5, "-q", qpath5, "-gn", "1"]
+    results = {}
+    for flavor in ("bitbell", "stencil", "mesh2d"):
+        name = f"weighted-{flavor} road-512"
+        with _env(MSBFS_WEIGHTED="1", MSBFS_WEIGHTED_ENGINE=flavor):
+            results[name] = _run_path(cli, timing, argv5, name, launches)
+        assert set(launches[name]) == {"weighted_relax"}, launches[name]
+        _, fast5 = weighted.negotiate_weighted_engine(g5, flavor, device=dev)
+        _, plain5 = weighted.negotiate_weighted_engine(g5, flavor, device=dev, plain=True)
+        f5, stats5, reads5, fast_s, plain_s = _weighted_engine_check(
+            np, name, fast5, plain5, padded5)
+        assert np.array_equal(f5, want5), (name, f5, want5)
+        if flavor == "bitbell":
+            print(f"{name} profile of one f_values: " + json.dumps(dict(
+                **_profile_split(torch, lambda: fast5.f_values(padded5)), card=CARD)))
+        print(f"{name}: " + json.dumps(dict(
+            K=8, winner=results[name][0] + 1, min_f=results[name][1],
+            preprocessing_s=results[name][2], computation_s=results[name][3], **stats5,
+            host_reads=reads5, engine_f_values_s=fast_s, plain_engine_f_values_s=plain_s,
+            launches=launches[name]["weighted_relax"], card=CARD)))
+    name = "weighted delta=1 road-512"
+    with _env(MSBFS_WEIGHTED="1", MSBFS_DELTA="1"):
+        results[name] = _run_path(cli, timing, argv5, name, launches)
+    assert set(launches[name]) == {"weighted_relax"}, launches[name]
+    assert len({r[:2] for r in results.values()}) == 1, results
+    assert results[name][:2] == (int(np.argmin(want5)), int(want5.min()))
+    print("weighted road-512: " + json.dumps(dict(
+        runs={k: dict(winner=v[0] + 1, min_f=v[1], computation_s=v[3])
+              for k, v in results.items()},
+        all_f_equal_scipy=True, card=CARD)))
+    os.remove(gpath5)
+
+    # -- 11c. road-128, K = 8: the audit, the plane seam, verify.
+    n1, e1 = generators.road_edges(128, 128, seed=seed + 17)
+    costs1 = generators.edge_costs(len(e1), "uniform", max_cost=16, seed=seed + 3)
+    gw, gu, q1 = (os.path.join(tmp, f"road128-{x}.bin") for x in ("w", "u", "q"))
+    tio.save_graph_bin(gw, n1, e1, costs1)
+    tio.save_graph_bin(gu, n1, e1)
+    queries1 = generators.random_queries(n1, 8, max_group=8, seed=seed + 18)
+    # The plane seam flips bit zlib.crc32("wplane") % bits of the (8, n)
+    # plane: group 6's vertex 8754 at this size; a source there makes the
+    # flip change that group's F.
+    queries1[6] = np.concatenate([queries1[6], [8754]]).astype(np.int32)
+    tio.save_query_bin(q1, queries1)
+    argv1 = ["chip_smoke", "-g", gw, "-q", q1, "-gn", "1"]
+    audits = []
+    real_audit = certify.audit_weighted_f_values
+
+    def counted_audit(*args, **kwargs):
+        failing = real_audit(*args, **kwargs)
+        audits.append(failing)
+        return failing
+
+    certify.audit_weighted_f_values = counted_audit
+    ckpt = os.path.join(tmp, "road128.ckpt")
+    report = {}
+    try:
+        for name, faults_spec, rc_want in (
+            ("weighted audit road-128", "", 0),
+            ("weighted wplane:2 road-128", "bitflip:wplane:2", 0),
+            ("weighted wplane:all road-128",
+             ",".join(f"bitflip:wplane:{i}" for i in range(1, 13)), 9),
+        ):
+            audits.clear()
+            if os.path.exists(ckpt):
+                os.remove(ckpt)
+            with _env(MSBFS_WEIGHTED="1", MSBFS_AUDIT="full", MSBFS_CHECKPOINT=ckpt,
+                      MSBFS_RETRIES="0", MSBFS_FAULTS=faults_spec):
+                out = _weighted_counted(cli, timing, argv1, name, launches, rc_want)
+            report[name] = dict(exit=rc_want, audits=len(audits),
+                                failed_audits=sum(1 for x in audits if x),
+                                answer=out.splitlines()[2:4])
+            assert audits, name
+        clean = report["weighted audit road-128"]
+        assert clean["failed_audits"] == 0 and clean["answer"], clean
+        assert report["weighted wplane:2 road-128"]["answer"] == clean["answer"]
+        assert report["weighted wplane:2 road-128"]["failed_audits"] == 1
+        assert report["weighted wplane:all road-128"]["failed_audits"] >= 2
+    finally:
+        certify.audit_weighted_f_values = real_audit
+        faults.activate(None)  # the CLI leaves its plan installed
+        if os.path.exists(ckpt):
+            os.remove(ckpt)
+    verify = {}
+    for name, args, rc_want, kernel in (
+        ("verify --weighted", ["-g", gw, "-q", q1, "--weighted"], 0, True),
+        ("verify", ["-g", gu, "-q", q1], 0, False),
+        ("verify --expect-f wrong", ["-g", gw, "-q", q1, "--weighted", "--expect-f",
+                                     json.dumps([1] * 8)], 9, False),
+    ):
+        timing.reset_launch_counts()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["chip_smoke", "verify", *args])
+        counts = timing.launch_counts()
+        print(buf.getvalue(), end="")
+        assert rc == rc_want, (name, rc)
+        assert ("weighted_relax" in counts) == kernel, (name, counts)
+        if name == "verify --weighted":
+            launches["weighted verify road-128"] = counts
+            assert set(counts) == {"weighted_relax"}, counts
+        verify[name] = dict(exit=rc, launches=counts)
+    print("weighted road-128 certificate: " + json.dumps(dict(
+        runs=report, verify=verify, card=CARD)))
+    print(f"phase 11: {time.perf_counter() - t_phase:.1f} s")
+    return {"weighted_relax": row}
+
+
 def _run_cli(cli, argv, native=True):
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
@@ -3737,6 +4170,13 @@ def main() -> int:
         (torch, np, sp, cg, cli, tio, timing, launches, dev, g20, gr, g4, g1), files, seed))
     print(f"phase 10: {time.perf_counter() - t0:.1f} s")
     del files
+    torch.cuda.empty_cache()
+
+    # ---- 11. the weighted route: RMAT-20 (phase 5b's groups, K = 64),
+    # road-512 (every flavor), road-128 (the audit and verify)
+    main_shape.update(_weighted_phase(
+        (torch, np, sp, cg, cli, tio, timing, generators, launches, tmp, dev),
+        n20, e20, info20["queries"], n5, e5, seed))
     os.remove(info20["gpath"])
     del bg20, g20, e20, info20
     torch.cuda.empty_cache()
@@ -3827,6 +4267,7 @@ def main() -> int:
         "queue_expand": "ops/push.py:185",
         "queue_compact": "ops/push.py:57, {JAX_PKG}/ops/push.py:83, "
                          "{JAX_PKG}/ops/push_packed.py:110",
+        "weighted_relax": "weighted/deltastep.py:84",
     }
     # K5's push: the flag_pull launches with the push folded in, on the
     # byte paths.

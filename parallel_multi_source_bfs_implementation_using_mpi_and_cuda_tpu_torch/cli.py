@@ -30,8 +30,13 @@ supervisor's watchdog, retry and fault seams (``MSBFS_FAULTS``, installed
 before any load); ``MSBFS_CHECKPOINT`` runs the batch in journaled
 chunks, ``MSBFS_STATS=1/2`` prints the per-query (and per-level) tables,
 and a typed failure dumps the flight ring to ``MSBFS_FLIGHT_RECORDER``.
-Every other route or mode of the JAX CLI exits 1 with a one-line message
-naming it as not yet ported; none of them silently runs something else.
+Ahead of all of them, ``MSBFS_WEIGHTED=1`` takes the weighted route
+(weighted/: delta-stepping over the file's edge costs, its flavor from
+``MSBFS_WEIGHTED_ENGINE``, its bucket width from ``MSBFS_DELTA``, audited
+under ``MSBFS_AUDIT``), and the ``verify`` subcommand certifies answers
+(:func:`verify_main`).  Every other route or mode of the JAX CLI exits 1
+with a one-line message naming it as not yet ported; none of them
+silently runs something else.
 
 ``main(argv, device=None, native=True)`` runs on ``cuda`` and raises when
 there is no card; ``device="cpu"`` runs the kernels' plain torch versions
@@ -51,8 +56,9 @@ import torch
 
 from .utils import knobs
 
-# Subcommands of the JAX CLI that dispatch before the reference grammar.
-_SUBCOMMANDS = ("serve", "query", "fleet", "health", "trace", "verify", "analyze")
+# Subcommands of the JAX CLI that dispatch before the reference grammar
+# and are not ported yet (``verify`` is: :func:`verify_main`).
+_SUBCOMMANDS = ("serve", "query", "fleet", "health", "trace", "analyze")
 
 # Levels per dispatch for the auto bound of the gather engines (the JAX
 # package's value); the stencil route replaces it with its own.
@@ -132,7 +138,46 @@ def _level_chunk_policy(graph, explicit=_UNSET) -> Optional[int]:
     return _AUTO_LEVEL_CHUNK
 
 
-def _resolve_device(device) -> torch.device:
+def chunk_policy(graph):
+    """(explicit MSBFS_LEVEL_CHUNK, levels between host syncs, megachunk):
+    a deliberate positive bound is honored exactly (megachunk 1); the auto
+    bound may be fused per dispatch (megachunk None).  Shared by the batch
+    route and :mod:`.serve.registry`."""
+    explicit = _explicit_level_chunk()
+    level_chunk = _level_chunk_policy(graph, explicit)
+    megachunk = 1 if (explicit is not None and explicit > 0) else None
+    return explicit, level_chunk, megachunk
+
+
+def stencil_probe(graph, device, backend, level_chunk, explicit_chunk):
+    """The stencil route's probe: (StencilGraph, levels per dispatch) when
+    ``MSBFS_BACKEND=stencil`` or, on auto, a road-class graph with a banded
+    adjacency (``MSBFS_STENCIL=0`` disables); None when the route does not
+    take the graph.  A forced stencil backend that does not fit raises
+    ValueError.  Shared by the batch route and :mod:`.serve.registry`."""
+    if not (backend == "stencil" or (
+        backend == "auto" and _road_class(graph) and knobs.raw("MSBFS_STENCIL", "") != "0"
+    )):
+        return None
+    from .ops.stencil import AUTO_STENCIL_LEVEL_CHUNK, StencilGraph
+
+    try:
+        sg = StencilGraph.from_host(graph, device)
+    except ValueError:
+        if backend == "stencil":
+            raise
+        return None  # auto probe failed: keep the gather engines
+    # An explicit MSBFS_LEVEL_CHUNK wins; a negative one lands on the
+    # stencil auto bound, not the gather engines' 128.
+    stencil_chunk = (
+        level_chunk
+        if explicit_chunk is not None and explicit_chunk >= 0
+        else (AUTO_STENCIL_LEVEL_CHUNK if level_chunk else None)
+    )
+    return sg, stencil_chunk
+
+
+def resolve_device(device) -> torch.device:
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -159,8 +204,6 @@ def _unported_knob() -> Optional[str]:
     """The first knob set to a route or mode the port does not have."""
     if knobs.raw("MSBFS_MESH", ""):
         return "MSBFS_MESH"
-    if knobs.raw("MSBFS_WEIGHTED", "") == "1":
-        return "MSBFS_WEIGHTED=1 (the weighted route)"
     if knobs.raw("MSBFS_COORDINATOR", ""):
         return (
             "MSBFS_COORDINATOR (the multi-process bring-up, with "
@@ -171,7 +214,7 @@ def _unported_knob() -> Optional[str]:
     return None
 
 
-def _bitbell_ladder(graph, level_chunk, device, native: bool = True):
+def bitbell_ladder(graph, level_chunk, device, native: bool = True):
     """The default route's capacity rungs (the JAX CLI's
     ``_bitbell_ladder``): on an out-of-memory error the supervisor builds
     the next rung and runs the call again — level-chunked (only when the
@@ -216,6 +259,126 @@ def _bitbell_ladder(graph, level_chunk, device, native: bool = True):
     return rungs
 
 
+def verify_main(argv: List[str], device=None, native: bool = True) -> int:
+    """``verify``: offline certification of distance-to-set answers.
+
+    Recomputes the distance fields with the untrusted host sweep,
+    certifies the recompute against the BFS invariants (the weighted ones
+    with ``--weighted`` or ``MSBFS_WEIGHTED=1``), and checks a claimed F
+    vector against it.  The claim is ``--expect-f`` (a JSON list, or
+    ``@PATH`` to one) or, by default, a fresh run of the stock engine
+    (:mod:`.serve.registry`) under a full audit, on ``device`` (the card
+    unless the caller asks for the CPU).  Exit 0: certified; exit 9
+    (:class:`.runtime.supervisor.CorruptionError`): the failing invariants
+    are named on stderr."""
+    import argparse
+    import json
+
+    ap = argparse.ArgumentParser(
+        prog="msbfs-tpu verify",
+        description="Certify distance-to-set answers against the BFS "
+        "invariants (docs/RESILIENCE.md)",
+    )
+    ap.add_argument("-g", "--graph", required=True, metavar="GRAPH.bin",
+                    help="reference-format graph .bin")
+    ap.add_argument("-q", "--query", required=True, metavar="QUERY.bin",
+                    help="reference-format query .bin")
+    ap.add_argument(
+        "--expect-f", default=None, metavar="F",
+        help="claimed F values to certify: a JSON list, or @PATH to a "
+        "JSON file (e.g. a stored response's f_values).  Default: run "
+        "the stock engine under a full audit and certify its output.",
+    )
+    ap.add_argument(
+        "--weighted", action="store_true",
+        help="certify against the weighted (edge-cost) invariants; "
+        "also implied by MSBFS_WEIGHTED=1.  The graph must carry a "
+        "cost section.",
+    )
+    args = ap.parse_args(argv)
+
+    from .ops import certify
+    from .runtime.supervisor import CorruptionError, InputError, MsbfsError
+    from .utils.io import load_graph_bin, load_query_bin, pad_queries
+    from .utils.report import format_failure
+
+    weighted = args.weighted or knobs.raw("MSBFS_WEIGHTED", "") == "1"
+    try:
+        try:
+            graph = load_graph_bin(args.graph, native=native)
+            queries = pad_queries(load_query_bin(args.query))
+        except (OSError, ValueError) as exc:
+            raise InputError(str(exc)) from exc
+        if weighted and not graph.has_weights:
+            raise InputError(
+                f"--weighted verify of {args.graph}: the artifact "
+                "carries no edge-cost section (regenerate with "
+                "gen_cli --weights)"
+            )
+        if args.expect_f is not None:
+            raw = args.expect_f
+            if raw.startswith("@"):
+                try:
+                    with open(raw[1:], "r", encoding="utf-8") as fh:
+                        raw = fh.read()
+                except OSError as exc:
+                    raise InputError(str(exc)) from exc
+            try:
+                f_claimed = np.asarray(json.loads(raw), dtype=np.int64)
+            except (ValueError, TypeError) as exc:
+                raise InputError(
+                    f"--expect-f is not a JSON int list: {exc}"
+                ) from exc
+            source = "stored F values"
+        else:
+            from .serve import registry
+
+            if weighted:
+                supervisor = registry.build_supervised_weighted_engine(graph, device, native)
+                make = certify.make_weighted_auditor
+                source = "weighted engine output"
+            else:
+                supervisor = registry.build_supervised_engine(graph, device, native)
+                make = certify.make_auditor
+                source = "engine output"
+            # Full audit whatever MSBFS_AUDIT says: verification is the
+            # point of this subcommand.
+            if supervisor.auditor is None:
+                supervisor.auditor = make(graph)
+            supervisor.audit_sample = 1.0
+            f_claimed = np.asarray(
+                torch.as_tensor(supervisor.f_values(queries)).cpu(), dtype=np.int64
+            )
+        if weighted:
+            failing = certify.audit_weighted_f_values(
+                graph.row_offsets, graph.col_indices, graph.edge_weights,
+                queries, f_claimed,
+            )
+        else:
+            failing = certify.audit_f_values(
+                graph.row_offsets, graph.col_indices, queries, f_claimed
+            )
+        if failing:
+            raise CorruptionError(
+                f"verification of {source} FAILED for {args.graph} / "
+                f"{args.query}: invariants violated: "
+                f"{', '.join(failing)}",
+                invariants=failing,
+            )
+    except MsbfsError as err:
+        from .utils.telemetry import dump_flight
+
+        dump_flight(f"exit_{err.exit_code}")
+        print(format_failure(err), end="", file=sys.stderr)
+        return err.exit_code
+    print(
+        f"verify: CERTIFIED {source} — {queries.shape[0]} queries on "
+        f"{graph.n} vertices / {graph.m} edges; "
+        f"F = {[int(x) for x in np.atleast_1d(f_claimed)]}"
+    )
+    return 0
+
+
 def main(argv: Optional[List[str]] = None, device=None, native: bool = True) -> int:
     from .runtime.supervisor import (
         ChunkSupervisor,
@@ -242,6 +405,9 @@ def main(argv: Optional[List[str]] = None, device=None, native: bool = True) -> 
         print(format_failure(err, events), end="", file=sys.stderr)
         return err.exit_code
 
+    if len(argv) > 1 and argv[1] == "verify":
+        # Offline output certification: exit 0 certified, 9 corrupt.
+        return verify_main(argv[2:], device=device, native=native)
     if len(argv) > 1 and argv[1] in _SUBCOMMANDS:
         return not_ported(f"the {argv[1]!r} subcommand")
     if len(argv) < 5:  # argc < 5, reference main.cu:204-212
@@ -255,7 +421,7 @@ def main(argv: Optional[List[str]] = None, device=None, native: bool = True) -> 
     if graph_file is None or query_file is None:
         print("Missing -g or -q argument", file=sys.stderr)
         return -1
-    dev = _resolve_device(device)
+    dev = resolve_device(device)
     # The fault plan goes in before any load, so the loader seams see it;
     # a fresh plan per call keeps repeated in-process runs deterministic,
     # and a malformed plan is an input error, not a plan that arms nothing.
@@ -271,7 +437,7 @@ def main(argv: Optional[List[str]] = None, device=None, native: bool = True) -> 
         return not_ported(unported)
 
     from .ops.packed import SubBatchEngine
-    from .ops.stencil import AUTO_STENCIL_LEVEL_CHUNK, StencilEngine, StencilGraph
+    from .ops.stencil import StencilEngine
     from .runtime.native_loader import NativeBuildError
     from .utils.io import load_graph_bin, load_query_bin, pad_queries
     from .utils.report import format_report
@@ -308,11 +474,12 @@ def main(argv: Optional[List[str]] = None, device=None, native: bool = True) -> 
             padded = pad_queries(queries)
         cards = torch.cuda.device_count() if dev.type == "cuda" else 1
         n_chips = max(1, min(num_gpu, cards))
-        if n_chips > 1:
+        # The weighted route runs on one device whatever -gn says, and takes
+        # precedence over every other route, as in the JAX CLI.
+        weighted_route = knobs.raw("MSBFS_WEIGHTED", "") == "1"
+        if n_chips > 1 and not weighted_route:
             return not_ported(f"-gn {num_gpu} on {cards} cards (multi-device)")
-        explicit_chunk = _explicit_level_chunk()
-        level_chunk = _level_chunk_policy(graph, explicit_chunk)
-        megachunk = 1 if (explicit_chunk is not None and explicit_chunk > 0) else None
+        explicit_chunk, level_chunk, megachunk = chunk_policy(graph)
         backend = knobs.raw("MSBFS_BACKEND", "auto")
         road_class = _road_class(graph)
         from .models.bell import BellGraph
@@ -339,24 +506,37 @@ def main(argv: Optional[List[str]] = None, device=None, native: bool = True) -> 
         # route alone, as in the JAX CLI.
         ladder_rungs = []
         engine = None
-        if backend == "stencil" or (
-            backend == "auto" and road_class and knobs.raw("MSBFS_STENCIL", "") != "0"
-        ):
+        if weighted_route:
+            # MSBFS_WEIGHTED=1: integer-cost distance-to-set by bucketed
+            # delta-stepping (weighted/), F(U) a cost sum; the graph must
+            # carry a cost section.  The flavor (MSBFS_WEIGHTED_ENGINE)
+            # negotiates by capability tokens; an impossible ask fails
+            # naming the missing tokens.
+            from . import weighted as weighted_pkg
+
             try:
-                sg = StencilGraph.from_host(graph, dev)
-            except ValueError as exc:
-                if backend == "stencil":
-                    print(str(exc), file=sys.stderr)
-                    return 1
-                sg = None  # auto probe failed: keep the gather engines
-            if sg is not None:
-                # An explicit MSBFS_LEVEL_CHUNK wins; a negative one lands
-                # on the stencil auto bound, not the gather engines' 128.
-                stencil_chunk = (
-                    level_chunk
-                    if explicit_chunk is not None and explicit_chunk >= 0
-                    else (AUTO_STENCIL_LEVEL_CHUNK if level_chunk else None)
+                wlabel, engine = weighted_pkg.negotiate_weighted_engine(
+                    graph, device=dev, native=native
                 )
+            except InputError as err:
+                print(format_failure(err), end="", file=sys.stderr)
+                return err.exit_code
+            except (TypeError, ValueError) as exc:
+                print(str(exc), file=sys.stderr)
+                return 1
+            print(
+                f"weighted route: {wlabel}, delta={engine.delta} "
+                "(MSBFS_WEIGHTED_ENGINE / MSBFS_DELTA override)",
+                file=sys.stderr,
+            )
+        else:
+            try:
+                probed = stencil_probe(graph, dev, backend, level_chunk, explicit_chunk)
+            except ValueError as exc:
+                print(str(exc), file=sys.stderr)
+                return 1
+            if probed is not None:
+                sg, stencil_chunk = probed
                 print(
                     "banded adjacency detected: stencil engine "
                     f"({len(sg.offsets)} offsets, "
@@ -522,9 +702,9 @@ def main(argv: Optional[List[str]] = None, device=None, native: bool = True) -> 
                     level_chunk=level_chunk,
                     megachunk=megachunk,
                 )
-                ladder_rungs = _bitbell_ladder(graph, level_chunk, dev, native)
+                ladder_rungs = bitbell_ladder(graph, level_chunk, dev, native)
         subbatch_k = knobs.get_int("MSBFS_SUBBATCH_K", 256)
-        if subbatch_k > 0 and padded.shape[0] > subbatch_k:
+        if n_chips == 1 and subbatch_k > 0 and padded.shape[0] > subbatch_k:
             print(
                 f"wide batch: splitting {padded.shape[0]} queries into "
                 f"{subbatch_k}-wide sub-batches (MSBFS_SUBBATCH_K=0 "
@@ -545,6 +725,17 @@ def main(argv: Optional[List[str]] = None, device=None, native: bool = True) -> 
             ladder=ladder_rungs,
             plan=fault_plan,
         )
+        if weighted_route:
+            # MSBFS_AUDIT certifies every sampled F against the weighted
+            # certificate (ops.certify.WEIGHTED_INVARIANTS); a flunk
+            # escalates to CorruptionError, exit 9.
+            from .ops.certify import make_weighted_auditor
+            from .serve.registry import audit_sample_rate
+
+            audit_rate = audit_sample_rate()
+            if audit_rate > 0.0:
+                engine.auditor = make_weighted_auditor(graph)
+                engine.audit_sample = audit_rate
         stats_env = knobs.raw("MSBFS_STATS", "")
         stats_mode = stats_env in ("1", "2")
         # MSBFS_STATS=2: also trace each BFS level through the engine's

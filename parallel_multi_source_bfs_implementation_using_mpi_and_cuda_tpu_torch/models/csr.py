@@ -13,6 +13,7 @@ which takes the NumPy versions kept here: the same bytes, slower.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -37,6 +38,10 @@ class CSRGraph:
     m: int
     row_offsets: np.ndarray  # (n+1,) int64
     col_indices: np.ndarray  # (2m,) int32
+    # A cost per directed slot, aligned with ``col_indices`` (both slots of
+    # a record carry the record's cost); None on a weightless graph.  Only
+    # the weighted route (weighted/) reads it.
+    edge_weights: Optional[np.ndarray] = None
 
     @property
     def num_directed_edges(self) -> int:
@@ -45,6 +50,10 @@ class CSRGraph:
     @property
     def degrees(self) -> np.ndarray:
         return np.diff(self.row_offsets)
+
+    @property
+    def has_weights(self) -> bool:
+        return self.edge_weights is not None
 
     def dedup_rows(self, native: bool = True):
         """(dst int32, per-vertex counts int64): each row's neighbours
@@ -71,34 +80,93 @@ class CSRGraph:
         src = np.repeat(np.arange(self.n, dtype=np.int64), deg)
         return src, dst.astype(np.int64), deg
 
+    def deduped_weighted(self, native: bool = True):
+        """The weighted dedup: directed slots without self-loops, parallel
+        slots collapsed to their least cost — (src int64, dst int64, cost
+        int32, per-vertex counts int64), sorted by (src, dst).  A shortest
+        path never takes the costlier copy of a parallel edge, and a
+        positive-cost self-loop never lowers its own vertex, so the
+        collapsed slots have the same fixpoint as the raw ones.  Natively
+        each row sorts its (neighbour, cost) keys; ``native=False`` is the
+        JAX package's NumPy build (one sort of src * n + dst keys)."""
+        if not self.has_weights:
+            raise ValueError("deduped_weighted() needs edge_weights")
+        n = self.n
+        if native:
+            from ..runtime import native_loader  # lazy: avoid an import cycle
+
+            dst, w, deg = native_loader.dedup_rows_weighted(
+                self.row_offsets, self.col_indices, self.edge_weights
+            )
+            if dst.size == 0:
+                z = np.zeros(0, dtype=np.int64)
+                return z, z, z.astype(np.int32), np.zeros(n, dtype=np.int64)
+            src = np.repeat(np.arange(n, dtype=np.int64), deg)
+            return src, dst.astype(np.int64), w, deg.astype(np.int64)
+        src = np.repeat(np.arange(n, dtype=np.int64), self.degrees.astype(np.int64))
+        dst = np.asarray(self.col_indices, dtype=np.int64)
+        w = np.asarray(self.edge_weights, dtype=np.int32)
+        keep = src != dst
+        if n == 0 or not keep.any():
+            z = np.zeros(0, dtype=np.int64)
+            return z, z, z.astype(np.int32), np.zeros(n, dtype=np.int64)
+        keys = src[keep] * n + dst[keep]
+        order = np.argsort(keys, kind="stable")
+        ks, ws = keys[order], w[keep][order]
+        first = np.concatenate(([True], ks[1:] != ks[:-1]))
+        start = np.flatnonzero(first)
+        uniq = ks[start]
+        wmin = np.minimum.reduceat(ws, start)
+        u = uniq // n
+        return u, uniq % n, wmin.astype(np.int32), np.bincount(u, minlength=n)
+
     def to_device(self, device) -> "DeviceCSR":
         return DeviceCSR.from_host(self, device)
 
     @staticmethod
-    def from_edges(n: int, edges: np.ndarray, native: bool = True) -> "CSRGraph":
+    def from_edges(n: int, edges: np.ndarray, native: bool = True,
+                   weights: Optional[np.ndarray] = None) -> "CSRGraph":
         """Build CSR from an (m, 2) int array of undirected edge records:
         for record i = (u, v), v is appended to adj[u] and u to adj[v], in
         file order.  Natively a counting pass and a placement pass; with
         ``native=False`` a stable sort of the interleaved directed
-        sequence [(u0,v0),(v0,u0),(u1,v1),...] by source."""
+        sequence [(u0,v0),(v0,u0),(u1,v1),...] by source.
+
+        ``weights``, (m,) positive integer record costs, ride both directed
+        slots of their record through the same placement (or sort), so
+        ``edge_weights[i]`` is the cost of slot ``col_indices[i]``."""
         edges = np.asarray(edges)
         m = edges.shape[0]
         if m and (edges.min() < 0 or edges.max() >= n):
             # The reference indexes adj[u]/adj[v] unchecked (main.cu:114-115)
             # — undefined behavior on a corrupt file; fail loudly instead.
             raise ValueError(f"edge endpoint out of range [0, {n})")
+        if weights is not None:
+            weights = np.asarray(weights, dtype=np.int32)
+            if weights.shape != (m,):
+                raise ValueError(
+                    f"weights must be ({m},) to match the edge records, "
+                    f"got {weights.shape}"
+                )
+            if m and weights.min() < 1:
+                # Delta-stepping's bucket invariant needs strictly positive
+                # integer costs; refuse at build time.
+                raise ValueError("edge weights must be >= 1")
         if m == 0:
             return CSRGraph(
                 n=n,
                 m=0,
                 row_offsets=np.zeros(n + 1, dtype=np.int64),
                 col_indices=np.zeros(0, dtype=np.int32),
+                edge_weights=(
+                    np.zeros(0, dtype=np.int32) if weights is not None else None
+                ),
             )
         if native:
             from ..runtime import native_loader  # lazy: avoid an import cycle
 
-            row_offsets, col_indices = native_loader.csr_from_edges(n, edges)
-            return CSRGraph(n=n, m=m, row_offsets=row_offsets, col_indices=col_indices)
+            built = native_loader.csr_from_edges(n, edges, weights)
+            return CSRGraph(n, m, *built)
         src = np.empty(2 * m, dtype=np.int64)
         dst = np.empty(2 * m, dtype=np.int32)
         src[0::2] = edges[:, 0]
@@ -109,8 +177,15 @@ class CSRGraph:
         row_offsets = np.zeros(n + 1, dtype=np.int64)
         np.cumsum(counts, out=row_offsets[1:])
         order = np.argsort(src, kind="stable")
+        edge_weights = None
+        if weights is not None:
+            w2 = np.empty(2 * m, dtype=np.int32)
+            w2[0::2] = weights
+            w2[1::2] = weights
+            edge_weights = w2[order]
         return CSRGraph(
-            n=n, m=m, row_offsets=row_offsets, col_indices=dst[order]
+            n=n, m=m, row_offsets=row_offsets, col_indices=dst[order],
+            edge_weights=edge_weights,
         )
 
 

@@ -108,3 +108,28 @@ def random_queries(
         size = int(rng.integers(1, max_group + 1))
         out.append(rng.integers(0, n, size=size, dtype=np.int64).astype(np.int32))
     return out
+
+
+def edge_costs(
+    m: int,
+    dist: str = "uniform",
+    max_cost: int = 16,
+    seed: int = 0,
+    zipf_a: float = 1.6,
+) -> np.ndarray:
+    """(m,) int32 positive edge costs in [1, max_cost] for the weighted
+    route, the JAX package's streams: ``uniform`` draws each cost uniformly
+    (road-style travel costs), ``zipf`` a Zipf(``zipf_a``) clipped to
+    ``max_cost`` (most links cheap, a few dear).  Same seed, same costs."""
+    if m < 0:
+        raise ValueError(f"m must be >= 0, got {m}")
+    if max_cost < 1:
+        raise ValueError(f"max_cost must be >= 1, got {max_cost}")
+    rng = np.random.default_rng(seed)
+    if dist == "uniform":
+        w = rng.integers(1, max_cost + 1, size=m, dtype=np.int64)
+    elif dist == "zipf":
+        w = np.minimum(rng.zipf(zipf_a, size=m), max_cost)
+    else:
+        raise ValueError(f"unknown cost distribution {dist!r}")
+    return w.astype(np.int32)

@@ -241,6 +241,10 @@ class BellEngine(BitBellEngine):
     the apply's per-lane counters at lanes 8q, and no distance plane
     exists.  ``plain`` runs every kernel's plain torch version."""
 
+    # Lattice axes (ops.engine.resolve_axes): word distances over the
+    # forest, as the JAX package declares them.
+    CAPABILITIES = frozenset({"plane:word", "residency:hbm", "partition:single", "kernel:xla"})
+
     lane_stride = BYTE_LANES
     # The JAX package's BellEngine has no stepped per-level trace.
     level_stats = None

@@ -216,8 +216,12 @@ def host_chunked_loop(
     (utils/faults.py): after chunk ``i`` an armed ``bitflip:plane<i>``
     flips one bit of ``dist`` — the bit the JAX package flips in its
     ``carry[0]``, the same (K, n_pad) int32 distances — and the carry's
-    derived planes go stale.  The JAX package's certify plane trail and
-    trace spans of this loop come with ops/certify.py and serving."""
+    derived planes go stale.  While a certify plane trail is armed
+    (ops/certify.py), each chunk's ``dist`` digest is recorded, as JAX
+    records its ``carry[0]``'s.  The trace spans of this loop come with
+    serving."""
+    from . import certify
+
     cap = INT32_MAX if max_levels is None else int(max_levels)
     chunk_ix = 0
     while True:
@@ -227,6 +231,8 @@ def host_chunked_loop(
             if flipped is not carry.dist:
                 carry.dist.copy_(torch.from_numpy(flipped))
                 carry.touch()
+        if certify.trail_armed():
+            certify.record_plane_digest(carry.dist)
         chunk_ix += 1
         active = bool(((carry.updated != 0) & (carry.level < cap)).any())
         record_dispatch()

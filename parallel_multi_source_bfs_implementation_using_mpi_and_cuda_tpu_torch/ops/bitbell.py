@@ -961,6 +961,10 @@ class BitBellEngine(FusedBestEngine):
     memory.  ``plain`` runs every kernel's plain torch version (the
     reference, on any device)."""
 
+    # Lattice axes (ops.engine.resolve_axes): the default single-device
+    # bit-plane configuration.
+    CAPABILITIES = frozenset({"plane:bit", "residency:hbm", "partition:single", "kernel:xla"})
+
     def __init__(
         self,
         graph,

@@ -1,7 +1,8 @@
 """The engine surface every query engine shares (``f_values``, ``best``,
-``query_stats``, ``compile``), the generic distance-matrix engine, the
-host-side source band, and the frontier-density estimate the direction
-switches route on."""
+``query_stats``, ``compile``), the engine lattice that routes negotiate
+on (capability tokens), the generic distance-matrix engine, the host-side
+source band, and the frontier-density estimate the direction switches
+route on."""
 
 from __future__ import annotations
 
@@ -46,7 +47,14 @@ def source_band(queries, n: int):
 
 
 class QueryEngineBase:
-    """Selection/compile surface over any ``f_values`` implementation."""
+    """Selection/compile surface over any ``f_values`` implementation.
+
+    ``CAPABILITIES`` declares what an engine class can structurally do,
+    as capability tokens that :func:`negotiate_engine` keys on: the
+    lattice's ``axis:value`` tokens, and ``banded``, ``streamed``,
+    ``weighted``, ``windowed``, ``mesh2d`` (the JAX package's set)."""
+
+    CAPABILITIES: frozenset = frozenset()
 
     def f_values(self, queries) -> torch.Tensor:  # pragma: no cover - interface
         raise NotImplementedError
@@ -81,6 +89,179 @@ class QueryEngineBase:
         return None
 
 
+# The engine lattice (the JAX package's ops/engine.py, letter for letter
+# in its messages): an engine is a configuration on four axes, a route
+# resolves a backend name and its knobs to capability tokens
+# (:func:`resolve_axes`), and :func:`negotiate_engine` picks the first
+# candidate class that declares them, or fails naming what is missing.
+AXES = {
+    "plane": ("bit", "byte", "word"),
+    "residency": ("hbm", "streamed"),
+    "partition": ("single", "1d", "mesh2d"),
+    "kernel": ("xla", "pallas", "mxu"),
+}
+
+#: backend name -> the axis values that backend pins (unset axes keep
+#: the lattice defaults: bit planes, HBM residency, XLA kernel).
+BACKEND_AXES = {
+    "bitbell": {"plane": "bit"},
+    "bell": {"plane": "word"},
+    "lowk": {"plane": "byte"},
+    "mxu": {"plane": "bit", "kernel": "mxu"},
+    "streamed": {"plane": "bit", "residency": "streamed"},
+    "stencil": {"plane": "bit"},
+    "packed": {"plane": "word"},
+    "ppush": {"plane": "word"},
+    "push": {"plane": "word"},
+    "dense": {"plane": "word"},
+    "vmap": {"plane": "word"},
+    "pallas": {"plane": "word", "kernel": "pallas"},
+}
+
+#: extra (non-axis) tokens a backend demands beyond its axis values.
+BACKEND_EXTRAS = {
+    "stencil": frozenset({"banded"}),
+}
+
+
+class NegotiationError(ValueError):
+    """A knob combination that cannot negotiate (a ValueError, so every
+    ``except ValueError`` route keeps working)."""
+
+
+def axis_tokens(axes) -> frozenset:
+    """``axes`` dict -> the ``axis:value`` capability tokens it demands."""
+    return frozenset(f"{axis}:{value}" for axis, value in axes.items())
+
+
+# Axis-value pairs that no engine composes: checked up front so the
+# failure names the pair, not a missing token of whichever candidate came
+# first.
+_INCOMPATIBLE = (
+    ("plane:byte", "kernel:mxu"),
+    ("plane:byte", "async"),
+    ("kernel:mxu", "residency:streamed"),
+    ("kernel:mxu", "async"),
+)
+
+
+def resolve_axes(
+    backend: str,
+    partition: str = "single",
+    residency: Optional[str] = None,
+    plane: Optional[str] = None,
+    kernel: Optional[str] = None,
+    async_levels: int = 1,
+    weighted: bool = False,
+):
+    """Map a backend name and routing knobs to the lattice: ``(axes,
+    required)``, the resolved axes and the capability tokens a route
+    demands.  ``residency``/``plane``/``kernel`` override the backend's
+    value for their axis.  Raises :class:`NegotiationError` for an unknown
+    backend or axis value, or a pair no engine composes."""
+    if backend not in BACKEND_AXES:
+        raise NegotiationError(
+            f"unknown backend {backend!r}: not on the engine lattice "
+            f"(known: {', '.join(sorted(BACKEND_AXES))})"
+        )
+    if partition not in AXES["partition"]:
+        raise NegotiationError(
+            f"unknown partition {partition!r} (axis values: "
+            f"{', '.join(AXES['partition'])})"
+        )
+    for axis, value in (
+        ("residency", residency), ("plane", plane), ("kernel", kernel)
+    ):
+        if value is not None and value not in AXES[axis]:
+            raise NegotiationError(
+                f"unknown {axis} {value!r} (axis values: "
+                f"{', '.join(AXES[axis])})"
+            )
+    axes = {
+        "plane": "bit",
+        "residency": "hbm",
+        "partition": partition,
+        "kernel": "xla",
+    }
+    axes.update(BACKEND_AXES[backend])
+    if residency is not None:
+        axes["residency"] = residency
+    if plane is not None:
+        axes["plane"] = plane
+    if kernel is not None:
+        axes["kernel"] = kernel
+    required = set(axis_tokens(axes))
+    required |= BACKEND_EXTRAS.get(backend, frozenset())
+    if axes["partition"] == "mesh2d":
+        # Mesh routes demand survivability (the supervisor's
+        # degrade-to-survivors path).
+        required.add("reshard")
+    if async_levels > 1:
+        required.add("async")
+    if weighted:
+        required.add("weighted")
+    bad = [
+        (a, b)
+        for a, b in _INCOMPATIBLE
+        if a in required and b in required
+    ]
+    if bad:
+        raise NegotiationError(
+            "no engine composes "
+            + " or ".join(f"{a} with {b}" for a, b in bad)
+            + f" (backend={backend}, partition={axes['partition']})"
+        )
+    return axes, frozenset(required)
+
+
+def engine_label(axes, async_levels: int = 1, extras=()) -> str:
+    """The canonical engine label of resolved axes ("bitbell", "lowk",
+    "mesh2d+streamed", ...), derived from the tokens alone."""
+    if axes.get("partition") == "mesh2d":
+        label = "mesh2d"
+        if axes.get("plane") == "byte":
+            label += "+byte"
+        if axes.get("kernel") == "mxu":
+            label += "+mxu"
+        if axes.get("residency") == "streamed":
+            label += "+streamed"
+        if async_levels > 1:
+            label += f"+async{async_levels}"
+        return label
+    if axes.get("kernel") == "mxu":
+        return "mxu"
+    if axes.get("kernel") == "pallas":
+        return "pallas"
+    if "banded" in extras:
+        return "stencil"
+    if axes.get("residency") == "streamed":
+        return "streamed"
+    if axes.get("plane") == "byte":
+        return "lowk"
+    if axes.get("plane") == "word":
+        return "dense"
+    return "bitbell"
+
+
+def negotiate_engine(required, candidates):
+    """``(label, engine)`` of the first ``(label, engine_cls, factory)``
+    candidate whose class declares every ``required`` token; only the
+    winner's factory runs.  No winner raises :class:`NegotiationError`
+    naming each candidate's missing tokens."""
+    required = frozenset(required)
+    misses = []
+    for label, engine_cls, factory in candidates:
+        have = frozenset(getattr(engine_cls, "CAPABILITIES", ()))
+        missing = required - have
+        if not missing:
+            return label, factory()
+        misses.append(f"{label} lacks {{{', '.join(sorted(missing))}}}")
+    raise NegotiationError(
+        f"no engine provides {{{', '.join(sorted(required))}}}: "
+        + "; ".join(misses)
+    )
+
+
 class Engine(QueryEngineBase):
     """Runs query groups against a device-resident graph with the
     distance-matrix level loop (the JAX package's generic ``Engine``).
@@ -94,6 +275,18 @@ class Engine(QueryEngineBase):
     ``level_chunk`` bounds the levels between host syncs (None: one run
     to convergence).  ``plain`` runs the kernel's plain torch version
     (the reference, on any device)."""
+
+    # Lattice axes: the generic word-plane host; both kernel values, since
+    # the graph container picks the level step (CSR pull, matmul, ELL).
+    CAPABILITIES = frozenset(
+        {
+            "plane:word",
+            "residency:hbm",
+            "partition:single",
+            "kernel:xla",
+            "kernel:pallas",
+        }
+    )
 
     def __init__(
         self,

@@ -187,6 +187,9 @@ class LowKEngine(BitBellEngine):
     kernel's plain torch version (the reference, on any device).  F,
     levels and reached are the carry's lanes 0, 8, ..., 8(K-1)."""
 
+    # Lattice axes (ops.engine.resolve_axes): the low-K byte-plane point.
+    CAPABILITIES = frozenset({"plane:byte", "residency:hbm", "partition:single", "kernel:xla"})
+
     k_align = 1
     lane_stride = BYTE_LANES
     # The JAX package's low-K engine has no stepped per-level trace.

@@ -278,6 +278,10 @@ class MxuEngine(FusedBestEngine):
     ``level_direction_trace`` is the host-stepped diagnostic of the exact
     per-level decisions."""
 
+    # Lattice axes (ops.engine.resolve_axes): the tensor-core kernel on
+    # single-device bit planes.
+    CAPABILITIES = frozenset({"plane:bit", "residency:hbm", "partition:single", "kernel:mxu"})
+
     k_align = WORD_BITS
 
     def __init__(

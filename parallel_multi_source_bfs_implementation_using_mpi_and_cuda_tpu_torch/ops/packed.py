@@ -180,6 +180,9 @@ class PackedEngine(PackedEngineBase):
     bounds the levels between host reads (None: one run); ``plain`` runs
     the kernel's plain torch version."""
 
+    # Lattice axes (ops.engine.resolve_axes): query-minor word planes.
+    CAPABILITIES = frozenset({"plane:word", "residency:hbm", "partition:single", "kernel:xla"})
+
     def __init__(
         self,
         graph,

@@ -215,6 +215,10 @@ class PushEngine(QueryEngineBase):
     :class:`FrontierOverflow`.  ``plain`` runs the kernels' plain torch
     versions."""
 
+    # Lattice axes (ops.engine.resolve_axes): word distances, compacted
+    # queue expansion (PackedPushEngine inherits: the same point).
+    CAPABILITIES = frozenset({"plane:word", "residency:hbm", "partition:single", "kernel:xla"})
+
     def __init__(
         self,
         graph: PaddedAdjacency,

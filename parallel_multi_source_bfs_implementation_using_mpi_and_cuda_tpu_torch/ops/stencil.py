@@ -296,6 +296,19 @@ class StencilEngine(FusedBestEngine):
     window lo, rows) lands in ``last_window_trace``.  ``plain`` runs the
     kernels' plain torch versions (the reference, on any device)."""
 
+    # Lattice axes and the structural "banded" token: stencil layouts exist
+    # only for bandable graphs (ops.engine.BACKEND_EXTRAS demands it).
+    CAPABILITIES = frozenset(
+        {
+            "banded",
+            "plane:bit",
+            "residency:hbm",
+            "partition:single",
+            "kernel:xla",
+            "kernel:pallas",
+        }
+    )
+
     def __init__(
         self,
         graph: StencilGraph,

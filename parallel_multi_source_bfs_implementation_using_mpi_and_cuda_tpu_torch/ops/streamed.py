@@ -97,6 +97,17 @@ class StreamedBitBellEngine(PackedEngineBase):
     The per-level host read makes this strictly a large-graph engine:
     below the memory ceiling the in-memory engine's chunked loop wins."""
 
+    # Lattice axes: single-device bit planes with the forest host-resident.
+    CAPABILITIES = frozenset(
+        {
+            "streamed",
+            "plane:bit",
+            "residency:streamed",
+            "partition:single",
+            "kernel:xla",
+        }
+    )
+
     k_align = WORD_BITS
 
     def __init__(

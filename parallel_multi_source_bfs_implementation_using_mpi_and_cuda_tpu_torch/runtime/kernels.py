@@ -112,6 +112,10 @@ KERNELS = {
          _I, _P, _P, _P, _P, _P, _I],
         "queue_push",
     ),
+    "weighted_relax": (
+        "msbfs_weighted_relax",
+        [_P, _P, _P, _L, _I, _P, _P, _P, _L, _L, _I, _I],
+    ),
 }
 
 

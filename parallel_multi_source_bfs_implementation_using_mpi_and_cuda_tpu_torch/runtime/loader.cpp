@@ -9,7 +9,10 @@
 // once instead of one fread per int, builds the CSR by a counting pass and
 // a placement pass instead of a vector of vectors, and keeps int64
 // offsets, so 2m >= 2^31 slots cannot overflow.  Every pass is threaded
-// and gives the same bytes at any thread count.
+// and gives the same bytes at any thread count.  Beyond the JAX package's
+// runtime, the CSR build and the dedup also carry a cost column (the
+// weighted route), which the JAX package builds with NumPy alone: the same
+// slot order and the same least cost per parallel pair.
 //
 // C ABI with caller-allocated buffers, bound with ctypes
 // (runtime/native_loader.py), which builds this file at first use.
@@ -142,12 +145,17 @@ constexpr size_t kHeaderBytes = sizeof(int32_t) + sizeof(int64_t);
 // lands before record j > i in every row (a thread's cursor base is the
 // prefix over lower-numbered threads, which hold lower-numbered records),
 // so the adjacency is the reference's insertion order at any thread
-// count.  ``read_edge(i, &u, &v)`` reads record i.  Returns 0, or 4 on an
-// out-of-range endpoint.  The histograms take T * (n+1) * 8 B; T is
-// capped so that they stay within about 2 GiB.
+// count.  ``read_edge(i, &u, &v)`` reads record i.  With ``weights`` (m
+// record costs) and ``edge_weights`` (2m slots) both non-null, each
+// record's cost is placed beside both of its directed slots.  Returns 0, or
+// 4 on an out-of-range endpoint.  The histograms take T * (n+1) * 8 B; T
+// is capped so that they stay within about 2 GiB.
 template <typename ReadEdge>
 int build_csr_parallel(int64_t n, int64_t m, ReadEdge read_edge,
-                       int64_t* row_offsets, int32_t* col_indices) {
+                       int64_t* row_offsets, int32_t* col_indices,
+                       const int32_t* weights = nullptr,
+                       int32_t* edge_weights = nullptr) {
+  const bool weighted = weights != nullptr && edge_weights != nullptr;
   int T = num_threads_for(2 * m);
   if (n > 0) {
     const int64_t by_mem =
@@ -171,8 +179,11 @@ int build_csr_parallel(int64_t n, int64_t m, ReadEdge read_edge,
     for (int64_t i = 0; i < m; i++) {
       int64_t u, v;
       read_edge(i, &u, &v);
-      col_indices[cursor[u]++] = static_cast<int32_t>(v);
-      col_indices[cursor[v]++] = static_cast<int32_t>(u);
+      const int64_t pu = cursor[u]++;
+      const int64_t pv = cursor[v]++;
+      col_indices[pu] = static_cast<int32_t>(v);
+      col_indices[pv] = static_cast<int32_t>(u);
+      if (weighted) edge_weights[pu] = edge_weights[pv] = weights[i];
     }
     return 0;
   }
@@ -219,8 +230,11 @@ int build_csr_parallel(int64_t n, int64_t m, ReadEdge read_edge,
     for (int64_t i = lo; i < hi; i++) {
       int64_t u, v;
       read_edge(i, &u, &v);
-      col_indices[counts[t][u]++] = static_cast<int32_t>(v);
-      col_indices[counts[t][v]++] = static_cast<int32_t>(u);
+      const int64_t pu = counts[t][u]++;
+      const int64_t pv = counts[t][v]++;
+      col_indices[pu] = static_cast<int32_t>(v);
+      col_indices[pv] = static_cast<int32_t>(u);
+      if (weighted) edge_weights[pu] = edge_weights[pv] = weights[i];
     }
   });
   return 0;
@@ -275,6 +289,25 @@ int msbfs_load_graph_csr(const char* path, int64_t n, int64_t m,
       row_offsets, col_indices);
 }
 
+// msbfs_load_graph_csr with the records' costs (m int32, read from the
+// file's weight section by the caller) placed beside their slots in
+// edge_weights (2m int32).  Same return codes.
+int msbfs_load_graph_csr_weighted(const char* path, int64_t n, int64_t m,
+                                  const int32_t* weights, int64_t* row_offsets,
+                                  int32_t* col_indices, int32_t* edge_weights) {
+  MappedFile f;
+  if (!f.open(path)) return 1;
+  if (f.size < kHeaderBytes + static_cast<size_t>(m) * 8) return 3;
+  const unsigned char* edges = f.data + kHeaderBytes;
+  return build_csr_parallel(
+      n, m,
+      [edges](int64_t i, int64_t* u, int64_t* v) {
+        *u = read_i32(edges + i * 8);
+        *v = read_i32(edges + i * 8 + 4);
+      },
+      row_offsets, col_indices, weights, edge_weights);
+}
+
 // The same build from an in-memory (m, 2) int32 C-contiguous record
 // array: two O(m) passes in place of a stable argsort over 2m keys.
 // Returns 0, 1 on a negative count, 4 on an out-of-range endpoint.
@@ -288,6 +321,21 @@ int msbfs_csr_from_edges(int64_t n, int64_t m, const int32_t* edges,
         *v = edges[2 * i + 1];
       },
       row_offsets, col_indices);
+}
+
+// msbfs_csr_from_edges with the records' costs (m int32) placed beside
+// their slots in edge_weights (2m int32).
+int msbfs_csr_from_edges_weighted(int64_t n, int64_t m, const int32_t* edges,
+                                  const int32_t* weights, int64_t* row_offsets,
+                                  int32_t* col_indices, int32_t* edge_weights) {
+  if (n < 0 || m < 0) return 1;
+  return build_csr_parallel(
+      n, m,
+      [edges](int64_t i, int64_t* u, int64_t* v) {
+        *u = edges[2 * i];
+        *v = edges[2 * i + 1];
+      },
+      row_offsets, col_indices, weights, edge_weights);
 }
 
 // Per-row dedup of a CSR: each row sorted, duplicates and self-loops
@@ -345,6 +393,66 @@ int64_t msbfs_dedup_rows(int64_t n, int64_t num_slots,
     if (src != w && block_len[t]) {
       std::memmove(out_dst + w, out_dst + src,
                    block_len[t] * sizeof(int32_t));
+    }
+    w += block_len[t];
+  }
+  return w;
+}
+
+// msbfs_dedup_rows over a weighted CSR (edge_weights: a cost per slot):
+// parallel slots collapse to their least cost, written to out_w beside
+// out_dst.  Each row sorts (neighbour << 32 | cost) keys, so a neighbour's
+// first key holds its least cost.  Same returns.
+int64_t msbfs_dedup_rows_weighted(int64_t n, int64_t num_slots,
+                                  const int64_t* row_offsets,
+                                  const int32_t* col_indices,
+                                  const int32_t* edge_weights, int32_t* out_dst,
+                                  int32_t* out_w, int64_t* out_deg) {
+  if (n < 0 || num_slots < 0) return -1;
+  int64_t prev_end = 0;
+  for (int64_t u = 0; u < n; ++u) {
+    const int64_t s = row_offsets[u];
+    const int64_t e = row_offsets[u + 1];
+    if (s < prev_end || e < s || e > num_slots) return -1;
+    prev_end = e;
+  }
+  const int T = num_threads_for(num_slots, int64_t{1} << 19);
+  const std::vector<int64_t> bounds = split_rows_by_slots(T, n, row_offsets);
+  std::vector<int64_t> block_len(T, 0);
+  parallel_tasks(T, [&](int t) {
+    std::vector<uint64_t> scratch;
+    int64_t w = row_offsets[bounds[t]];
+    const int64_t w0 = w;
+    for (int64_t u = bounds[t]; u < bounds[t + 1]; ++u) {
+      const int64_t s = row_offsets[u];
+      const int64_t e = row_offsets[u + 1];
+      scratch.resize(e - s);
+      for (int64_t i = s; i < e; ++i) {
+        scratch[i - s] = (static_cast<uint64_t>(static_cast<uint32_t>(col_indices[i])) << 32) |
+                         static_cast<uint32_t>(edge_weights[i]);
+      }
+      std::sort(scratch.begin(), scratch.end());
+      int64_t cnt = 0;
+      int32_t prev = 0;
+      for (uint64_t key : scratch) {
+        const int32_t v = static_cast<int32_t>(key >> 32);
+        if (v == static_cast<int32_t>(u)) continue;  // self-loop
+        if (cnt && v == prev) continue;              // a costlier parallel slot
+        out_dst[w] = v;
+        out_w[w++] = static_cast<int32_t>(key & 0xffffffffu);
+        prev = v;
+        ++cnt;
+      }
+      out_deg[u] = cnt;
+    }
+    block_len[t] = w - w0;
+  });
+  int64_t w = 0;
+  for (int t = 0; t < T; ++t) {
+    const int64_t src = row_offsets[bounds[t]];
+    if (src != w && block_len[t]) {
+      std::memmove(out_dst + w, out_dst + src, block_len[t] * sizeof(int32_t));
+      std::memmove(out_w + w, out_w + src, block_len[t] * sizeof(int32_t));
     }
     w += block_len[t];
   }

@@ -132,8 +132,15 @@ _SIGNATURES = {
         ctypes.c_int, [ctypes.c_char_p, ctypes.POINTER(_L), ctypes.POINTER(_L)]
     ),
     "msbfs_load_graph_csr": (ctypes.c_int, [ctypes.c_char_p, _L, _L, _I64, _I32]),
+    "msbfs_load_graph_csr_weighted": (
+        ctypes.c_int, [ctypes.c_char_p, _L, _L, _I32, _I64, _I32, _I32]
+    ),
     "msbfs_csr_from_edges": (ctypes.c_int, [_L, _L, _EDGES, _I64, _I32]),
+    "msbfs_csr_from_edges_weighted": (
+        ctypes.c_int, [_L, _L, _EDGES, _I32, _I64, _I32, _I32]
+    ),
     "msbfs_dedup_rows": (_L, [_L, _L, _I64, _I32, _I32, _I64]),
+    "msbfs_dedup_rows_weighted": (_L, [_L, _L, _I64, _I32, _I32, _I32, _I32, _I64]),
     "msbfs_bell_assign": (_L, [_L, _I64, ctypes.c_int, _I32, _I64, _I64, _I64, _I64]),
     "msbfs_bell_fill": (
         ctypes.c_int,
@@ -164,12 +171,13 @@ def threads(work: int) -> int:
     return int(library().msbfs_native_threads(int(work)))
 
 
-def load_graph_csr(path: str, numpy_errors: bool = False):
+def load_graph_csr(path: str, numpy_errors: bool = False, weights=None):
     """Decode a reference-format graph file into its insertion-order CSR;
     ``IOError`` on an unreadable header or a failed decode (rc 4: an
     endpoint out of range), as the JAX package's native decoder.  With
     ``numpy_errors`` an endpoint out of range raises the NumPy decoder's
-    ``ValueError`` instead."""
+    ``ValueError`` instead.  ``weights``, the file's (m,) record costs,
+    become the graph's ``edge_weights``, a cost beside each slot."""
     from ..models.csr import CSRGraph
 
     lib = library()
@@ -180,19 +188,31 @@ def load_graph_csr(path: str, numpy_errors: bool = False):
         raise IOError(f"native loader: cannot read header of {path} (rc={rc})")
     row_offsets = np.zeros(n.value + 1, dtype=np.int64)
     col_indices = np.zeros(2 * m.value, dtype=np.int32)
-    rc = lib.msbfs_load_graph_csr(path.encode(), n.value, m.value, row_offsets, col_indices)
+    edge_weights = None
+    if weights is None:
+        rc = lib.msbfs_load_graph_csr(path.encode(), n.value, m.value, row_offsets,
+                                      col_indices)
+    else:
+        weights = np.ascontiguousarray(weights, dtype=np.int32)
+        if weights.shape != (m.value,):
+            raise ValueError(f"weights must be ({m.value},), got {weights.shape}")
+        edge_weights = np.zeros(2 * m.value, dtype=np.int32)
+        rc = lib.msbfs_load_graph_csr_weighted(path.encode(), n.value, m.value, weights,
+                                               row_offsets, col_indices, edge_weights)
     if rc != 0:
         if rc == 4 and numpy_errors:
             raise ValueError(f"edge endpoint out of range [0, {n.value})")
         raise IOError(f"native loader: failed to decode {path} (rc={rc})")
     return CSRGraph(
-        n=int(n.value), m=int(m.value), row_offsets=row_offsets, col_indices=col_indices
+        n=int(n.value), m=int(m.value), row_offsets=row_offsets, col_indices=col_indices,
+        edge_weights=edge_weights,
     )
 
 
-def csr_from_edges(n: int, edges: np.ndarray):
+def csr_from_edges(n: int, edges: np.ndarray, weights=None):
     """(row_offsets, col_indices) of an (m, 2) record array; ``ValueError``
-    on an endpoint outside [0, n) or beyond int32."""
+    on an endpoint outside [0, n) or beyond int32.  With ``weights`` ((m,)
+    int32 record costs) a third array, the cost of every slot."""
     edges = np.asarray(edges)
     if edges.size and edges.dtype != np.int32 and (
         edges.min() < -(2**31) or edges.max() >= 2**31
@@ -203,12 +223,21 @@ def csr_from_edges(n: int, edges: np.ndarray):
     m = edges.shape[0]
     row_offsets = np.zeros(n + 1, dtype=np.int64)
     col_indices = np.empty(2 * m, dtype=np.int32)
-    rc = library().msbfs_csr_from_edges(n, m, edges, row_offsets, col_indices)
+    if weights is None:
+        rc = library().msbfs_csr_from_edges(n, m, edges, row_offsets, col_indices)
+    else:
+        weights = np.ascontiguousarray(weights, dtype=np.int32)
+        edge_weights = np.empty(2 * m, dtype=np.int32)
+        rc = library().msbfs_csr_from_edges_weighted(
+            n, m, edges, weights, row_offsets, col_indices, edge_weights
+        )
     if rc == 4:
         raise ValueError(f"edge endpoint out of range [0, {n})")
     if rc != 0:
         raise ValueError(f"native csr_from_edges failed (rc={rc})")
-    return row_offsets, col_indices
+    if weights is None:
+        return row_offsets, col_indices
+    return row_offsets, col_indices, edge_weights
 
 
 def dedup_rows(row_offsets: np.ndarray, col_indices: np.ndarray):
@@ -225,6 +254,26 @@ def dedup_rows(row_offsets: np.ndarray, col_indices: np.ndarray):
     if w < 0:
         raise ValueError("native dedup_rows: corrupt CSR input")
     return out_dst[:w], out_deg[:n]
+
+
+def dedup_rows_weighted(row_offsets: np.ndarray, col_indices: np.ndarray,
+                        edge_weights: np.ndarray):
+    """(dst int32, w int32, deg int64): :func:`dedup_rows` with parallel
+    slots collapsed to their least cost ``w``."""
+    n = row_offsets.shape[0] - 1
+    row_offsets = np.ascontiguousarray(row_offsets, dtype=np.int64)
+    col_indices = np.ascontiguousarray(col_indices, dtype=np.int32)
+    edge_weights = np.ascontiguousarray(edge_weights, dtype=np.int32)
+    out_dst = np.empty(col_indices.shape[0], dtype=np.int32)
+    out_w = np.empty(col_indices.shape[0], dtype=np.int32)
+    out_deg = np.empty(max(n, 1), dtype=np.int64)
+    w = library().msbfs_dedup_rows_weighted(
+        n, col_indices.shape[0], row_offsets, col_indices, edge_weights, out_dst, out_w,
+        out_deg,
+    )
+    if w < 0:
+        raise ValueError("native dedup_rows_weighted: corrupt CSR input")
+    return out_dst[:w], out_w[:w], out_deg[:n]
 
 
 def bell_level(item_start, item_count, item_vals, widths, sentinel_value):

@@ -5,7 +5,8 @@ Graph format (reference LoadGraphBin, main.cu:92-130):
     int64  m                      -- undirected edge count
     m x (int32 u, int32 v)        -- edge records
 optionally followed by one weight section (:data:`WEIGHT_MAGIC` then m
-positive int32 costs) that the unweighted BFS validates and ignores.
+positive int32 costs): the graph's ``edge_weights``, which only the
+weighted route reads.
 
 Query format (reference LoadQueryBin, main.cu:134-164):
     uint8  K                      -- number of query groups
@@ -73,7 +74,7 @@ def _graph_bin_layout(path: str | os.PathLike):
         return n, m, True
 
 
-def _check_weights(f, path, m: int) -> None:
+def _read_weights(f, path, m: int) -> np.ndarray:
     """Read the weight section at ``f``'s position (after the magic) and
     refuse it unless it holds m costs >= 1."""
     weights = np.fromfile(f, dtype=np.int32, count=m)
@@ -81,26 +82,31 @@ def _check_weights(f, path, m: int) -> None:
         raise IOError(f"truncated weight section in {path}")
     if m and weights.min() < 1:
         raise IOError(f"corrupt weight section in {path}: costs must be >= 1")
+    return weights
 
 
 def load_graph_bin(path: str | os.PathLike, native: bool = True) -> CSRGraph:
     """Load a reference-format binary graph into a host CSR: validated
     before anything is allocated, then decoded by the native runtime or,
     with ``native=False``, by one NumPy read.
-    A weight section is validated (costs >= 1) and dropped: the
-    hop-distance objective does not read it.  The ``load_graph`` fault
-    seam (utils/faults.py) trips first, before any decode."""
+    A weight section is validated (costs >= 1) and kept as the graph's
+    ``edge_weights``, a cost beside each directed slot.  The
+    ``load_graph`` fault seam (utils/faults.py) trips first, before any
+    decode."""
     trip("load_graph")
     n, m, weighted = _graph_bin_layout(path)
+    weights = None
     if native:
         if weighted:
             with open(path, "rb") as f:
                 f.seek(GRAPH_HEADER.size + 8 * m + len(WEIGHT_MAGIC))
-                _check_weights(f, path, m)
+                weights = _read_weights(f, path, m)
         from ..runtime import native_loader
 
         # The JAX package decodes a weighted file with NumPy: its errors.
-        return native_loader.load_graph_csr(os.fspath(path), numpy_errors=weighted)
+        return native_loader.load_graph_csr(
+            os.fspath(path), numpy_errors=weighted, weights=weights
+        )
     with open(path, "rb") as f:
         f.seek(GRAPH_HEADER.size)
         edges = np.fromfile(f, dtype=np.int32, count=2 * m)
@@ -111,8 +117,8 @@ def load_graph_bin(path: str | os.PathLike, native: bool = True) -> CSRGraph:
             )
         if weighted:
             f.seek(len(WEIGHT_MAGIC), os.SEEK_CUR)
-            _check_weights(f, path, m)
-    return CSRGraph.from_edges(n, edges.reshape(m, 2), native=False)
+            weights = _read_weights(f, path, m)
+    return CSRGraph.from_edges(n, edges.reshape(m, 2), native=False, weights=weights)
 
 
 def save_graph_bin(

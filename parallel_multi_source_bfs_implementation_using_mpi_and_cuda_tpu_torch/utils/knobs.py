@@ -52,8 +52,11 @@ _ALL = (
     Knob("MSBFS_CHECKPOINT_CHUNK", "64", "int", "queries per checkpointed chunk"),
     Knob("MSBFS_STATS", None, "str", "1 = per-query stats table, 2 = + per-level trace"),
     Knob("MSBFS_FLIGHT_RECORDER", None, "path", "append the flight ring as JSONL here on typed exits"),
+    Knob("MSBFS_AUDIT", "off", "spec", "output certification: off / full / a sampled rate in (0, 1)"),
+    Knob("MSBFS_WEIGHTED", None, "flag", "1 routes the CLI batch run through the weighted delta-stepping engines (graph must carry a cost section)"),
+    Knob("MSBFS_WEIGHTED_ENGINE", "auto", "str", "weighted engine flavor: auto/bitbell/stencil/mesh2d (capability-token negotiated; impossible asks fail loud)"),
+    Knob("MSBFS_DELTA", "0", "int", "delta-stepping bucket width; 0/unset auto-derives from the mean edge cost"),
     # Routes and modes of the JAX CLI that the port refuses by name.
-    Knob("MSBFS_WEIGHTED", None, "flag", "weighted delta-stepping route (not yet ported: fails)"),
     Knob("MSBFS_MESH", None, "spec", "2D mesh partition (not yet ported: fails)"),
     Knob("MSBFS_COORDINATOR", None, "spec", "multi-host bring-up: coordinator addr:port (not yet ported: fails)"),
     Knob("MSBFS_NUM_PROCESSES", "1", "int", "multi-host bring-up: world size (not yet ported: fails)"),

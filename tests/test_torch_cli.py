@@ -3,7 +3,9 @@ fixtures: report lines 1-5 and exit codes, the routing of the default
 (bitbell), low-K, byte-plane BELL, ELL, host-streamed and over-memory
 branches, the sub-batch split, fault plans (the capacity ladder, retries,
 the watchdog, exhausted budgets, the loader seams, a malformed plan), the
-routes that are not ported yet, and the port's import isolation."""
+weighted route (its flavors, its audit and plane seam) and the ``verify``
+subcommand, the routes that are not ported yet, and the port's import
+isolation."""
 
 import os
 import subprocess
@@ -166,10 +168,13 @@ def test_missing_file_matches_jax(tmp_path, capsys, missing):
     [
         ({"MSBFS_COORDINATOR": "localhost:12345", "MSBFS_NUM_PROCESSES": "2"}, None),
         ({"MSBFS_PROFILE_DIR": "profile"}, None),
-        ({"MSBFS_WEIGHTED": "1"}, None),
         ({"MSBFS_MESH": "2x2"}, None),
         ({}, "serve"),
-        ({}, "verify"),
+        ({}, "query"),
+        ({}, "fleet"),
+        ({}, "health"),
+        ({}, "trace"),
+        ({}, "analyze"),
     ],
 )
 def test_unported_routes_fail_loudly(tmp_path, capsys, monkeypatch, env, subcommand):
@@ -439,3 +444,156 @@ def test_fault_plans_match_jax(tmp_path, capsys, monkeypatch, case):
     theirs = [ln for ln in jax_out.err.splitlines() if ln.startswith(("msbfs:", "Could not"))]
     assert mine == theirs
     assert bool(mine) == (code != 0)
+
+
+def _weighted_fixture(tmp_path, kind="road", costs="uniform"):
+    """A weighted 12x12 road (or RMAT-8) and its weightless twin, with 8
+    groups; group 4 holds vertex 130, the cell of the 144-vertex, K = 8
+    plane that the plane seam's bit flip lands on (zlib.crc32("wplane")),
+    so a flipped plane changes that group's F."""
+    if kind == "road":
+        n, edges = generators.road_edges(12, 12, seed=2)
+    else:
+        n, edges = generators.rmat_edges(8, edge_factor=8, seed=21)
+    w = generators.edge_costs(len(edges), costs, 16, seed=5)
+    paths = {name: str(tmp_path / f"{name}.bin") for name in ("w", "u", "q")}
+    io.save_graph_bin(paths["w"], n, edges, w)
+    io.save_graph_bin(paths["u"], n, edges)
+    queries = generators.random_queries(n, 8, max_group=5, seed=6)
+    queries[3] = np.array([130], np.int32)
+    io.save_query_bin(paths["q"], queries)
+    return paths
+
+
+_WPLANE_ALL = ",".join(f"bitflip:wplane:{i}" for i in range(1, 13))
+
+# (fixture, graph file, environment, exit code) of the weighted route.
+WEIGHTED = {
+    "auto": ("road", "w", {}, 0),
+    "bitbell": ("road", "w", {"MSBFS_WEIGHTED_ENGINE": "bitbell"}, 0),
+    "stencil": ("road", "w", {"MSBFS_WEIGHTED_ENGINE": "stencil"}, 0),
+    "mesh2d": ("road", "w", {"MSBFS_WEIGHTED_ENGINE": "mesh2d"}, 0),
+    "delta_1": ("road", "w", {"MSBFS_DELTA": "1"}, 0),
+    "rmat_zipf_stencil": ("rmat_zipf", "w", {"MSBFS_WEIGHTED_ENGINE": "stencil"}, 0),
+    "rmat_mesh2d_delta_99": (
+        "rmat", "w", {"MSBFS_WEIGHTED_ENGINE": "mesh2d", "MSBFS_DELTA": "99"}, 0,
+    ),
+    "stats": ("road", "w", {"MSBFS_STATS": "1"}, 0),
+    "subbatch": ("road", "w", {"MSBFS_SUBBATCH_K": "3"}, 0),
+    "over_other_routes": ("road", "w", {"MSBFS_BACKEND": "mxu", "MSBFS_STENCIL": "0"}, 0),
+    "weightless": ("road", "u", {}, 1),
+    "unknown_flavor": ("road", "w", {"MSBFS_WEIGHTED_ENGINE": "gpu"}, 1),
+    "audit_full": ("road", "w", {"MSBFS_AUDIT": "full"}, 0),
+    "audit_sampled": ("road", "w", {"MSBFS_AUDIT": "0.5", "MSBFS_CHECKPOINT_CHUNK": "2"}, 0),
+    # The checkpointed runner calls f_values, the audited method: a flip
+    # the audit catches once is retried to the right answer; a flip on
+    # every call exhausts the audit and exits 9.
+    "audit_wplane_transient": (
+        "road", "w", {"MSBFS_AUDIT": "full", "MSBFS_FAULTS": "bitflip:wplane:2"}, 0,
+    ),
+    "audit_wplane_persistent": (
+        "road", "w", {"MSBFS_AUDIT": "full", "MSBFS_RETRIES": "0",
+                      "MSBFS_FAULTS": _WPLANE_ALL}, 9,
+    ),
+    # Without the audit a flipped plane is served, as in the JAX CLI.
+    "wplane_unaudited": ("road", "w", {"MSBFS_FAULTS": "bitflip:wplane:2"}, 0),
+}
+_CHECKPOINTED = ("audit_sampled", "audit_wplane_transient", "audit_wplane_persistent",
+                 "wplane_unaudited")
+
+
+def _failure_lines(err):
+    return [ln for ln in err.splitlines() if ln.startswith(("msbfs:", "weighted route:"))]
+
+
+@pytest.mark.parametrize("case", list(WEIGHTED))
+def test_weighted_route_matches_jax(tmp_path, capsys, monkeypatch, case):
+    """MSBFS_WEIGHTED=1: the same exit code, report lines 1-5, route line
+    and failure line (and stats table) as the JAX CLI."""
+    fixture, graph, env, code = WEIGHTED[case]
+    kind, _, costs = fixture.partition("_")
+    paths = _weighted_fixture(tmp_path, kind, costs or "uniform")
+    argv = ["prog", "-g", paths[graph], "-q", paths["q"], "-gn", "1"]
+    monkeypatch.setenv("MSBFS_WEIGHTED", "1")
+    monkeypatch.setenv("MSBFS_BACKOFF", "0.001")
+    for key, value in env.items():
+        monkeypatch.setenv(key, value)
+    runs = []
+    for name, run in (("port", lambda: cli.main(argv, device="cpu")),
+                      ("jax", lambda: jcli.main(argv))):
+        if case in _CHECKPOINTED:
+            monkeypatch.setenv("MSBFS_CHECKPOINT", str(tmp_path / f"{name}.ckpt"))
+        rc = run()
+        runs.append((rc, capsys.readouterr()))
+    (rc_port, port), (rc_jax, jax_out) = runs
+    assert rc_port == rc_jax == code
+    assert port.out.splitlines()[:5] == jax_out.out.splitlines()[:5]
+    assert len(port.out.splitlines()) == (7 if code == 0 else 0)
+    assert _failure_lines(port.err) == _failure_lines(jax_out.err)
+    assert any(ln.startswith("weighted route:") for ln in port.err.splitlines()) == (code != 1)
+    if case == "stats":
+        assert _stderr(port.err) == _stderr(jax_out.err)
+
+
+# (arguments after the subcommand, environment, exit code) of ``verify``;
+# "F" in an argument is the true F vector, "F+1" one nudged, "@F" a file.
+VERIFY = {
+    "weighted": (["-g", "w", "--weighted"], {}, 0),
+    "weighted_by_knob": (["-g", "w"], {"MSBFS_WEIGHTED": "1"}, 0),
+    "hop_on_weightless": (["-g", "u"], {}, 0),
+    "hop_on_weighted_file": (["-g", "w"], {}, 0),
+    "hop_backend_vmap": (["-g", "u"], {"MSBFS_BACKEND": "vmap", "MSBFS_AUDIT": "full"}, 0),
+    "hop_backend_lowk": (["-g", "u"], {"MSBFS_BACKEND": "lowk"}, 0),
+    "weighted_stencil_audited": (
+        ["-g", "w", "--weighted"], {"MSBFS_WEIGHTED_ENGINE": "stencil", "MSBFS_AUDIT": "full"}, 0,
+    ),
+    "weighted_on_weightless": (["-g", "u", "--weighted"], {}, 1),
+    "expect_true": (["-g", "w", "--weighted", "--expect-f", "F"], {}, 0),
+    "expect_file": (["-g", "w", "--weighted", "--expect-f", "@F"], {}, 0),
+    "expect_wrong": (["-g", "w", "--weighted", "--expect-f", "F+1"], {}, 9),
+    "expect_wrong_hop": (["-g", "u", "--expect-f", "F+1"], {}, 9),
+    "expect_malformed": (["-g", "w", "--weighted", "--expect-f", "[1,"], {}, 1),
+    "expect_missing_file": (["-g", "w", "--weighted", "--expect-f", "@nope.json"], {}, 1),
+    "missing_graph": (["-g", "nope"], {}, 1),
+}
+
+
+@pytest.mark.parametrize("case", list(VERIFY))
+def test_verify_matches_jax(tmp_path, capsys, monkeypatch, case):
+    """``verify``: the same stdout, failure line and exit code as the JAX
+    CLI's (0 certified, 9 a wrong claim, 1 a bad input)."""
+    import json
+
+    args, env, code = VERIFY[case]
+    paths = _weighted_fixture(tmp_path)
+    for key, value in env.items():
+        monkeypatch.setenv(key, value)
+    weighted = "--weighted" in args or env.get("MSBFS_WEIGHTED") == "1"
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu.ops import (
+        certify as jcertify,
+    )
+
+    gpath = paths[args[1]] if args[1] in paths else str(tmp_path / args[1])
+    g = io.load_graph_bin(gpath) if os.path.exists(gpath) else None
+    rows = io.pad_queries(io.load_query_bin(paths["q"]))
+    if g is not None and (g.has_weights or not weighted):
+        dist = (jcertify.reference_weighted_distances(
+            g.row_offsets, g.col_indices, g.edge_weights, rows) if weighted
+            else jcertify.reference_distances(g.row_offsets, g.col_indices, rows))
+        truth = jcertify.f_from_distances(dist).tolist()
+        (tmp_path / "f.json").write_text(json.dumps(truth))
+    subs = {"F": lambda: json.dumps(truth),
+            "F+1": lambda: json.dumps([truth[0] + 1] + truth[1:]),
+            "@F": lambda: "@" + str(tmp_path / "f.json"),
+            "@nope.json": lambda: "@" + str(tmp_path / "nope.json")}
+    argv = ["prog", "verify", "-g", gpath, "-q", paths["q"]] + [
+        subs[a]() if a in subs else a for a in args[2:]
+    ]
+    rc_port = cli.main(argv, device="cpu")
+    port = capsys.readouterr()
+    rc_jax = jcli.main(argv)
+    jax_out = capsys.readouterr()
+    assert rc_port == rc_jax == code
+    assert port.out == jax_out.out
+    assert _failure_lines(port.err) == _failure_lines(jax_out.err)
+    assert port.out.startswith("verify: CERTIFIED") == (code == 0)

@@ -37,6 +37,7 @@ from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops i
     cuda_mxu,
     cuda_push,
     cuda_stencil,
+    cuda_weighted,
     dense,
     engine,
     lowk,
@@ -55,6 +56,9 @@ from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.utils
     faults,
     io,
     timing,
+)
+from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch import (
+    weighted,
 )
 
 pytestmark = pytest.mark.cuda
@@ -1963,3 +1967,84 @@ def test_single_device_routes_cli_on_card(cuda, tmp_path, capsys, monkeypatch, b
            "ppush": ["push_or", "queue_compact"]}[backend]
     for name in own:
         assert counts.get(name, 0) > 0, (backend, counts)
+
+
+def _weighted_case(seed, k, n_extra=0):
+    """Random tentative planes over a weighted RMAT-10's dedup slots: a
+    third of the cells reached, about a fifth of them active."""
+    n, edges = generators.rmat_edges(10, edge_factor=8, seed=seed)
+    costs = generators.edge_costs(len(edges), "uniform", 16, seed=seed + 1)
+    u, v, w, _ = CSRGraph.from_edges(n, edges, weights=costs).deduped_weighted()
+    rng = np.random.default_rng(seed + 2)
+    ns = n + n_extra
+    tent = np.where(rng.random((k, ns)) < 0.3, rng.integers(0, 200, (k, ns)),
+                    cuda_weighted.INF).astype(np.int32)
+    active = (rng.random((k, ns)) < 0.2) & (tent < cuda_weighted.INF)
+    slots = [torch.from_numpy(a.astype(np.int32)) for a in (u, v, w)]
+    return torch.from_numpy(tent), torch.from_numpy(active), slots
+
+
+@pytest.mark.parametrize("window", ["all", "window"])
+@pytest.mark.parametrize("light", [True, False])
+@pytest.mark.parametrize("k", [1, 8, 64])
+def test_weighted_relax_matches_plain(cuda, k, light, window):
+    tent, active, slots = _weighted_case(40 + k, k, n_extra=7)
+    size = slots[0].shape[0]
+    lo, hi = (0, size) if window == "all" else (size // 5, size // 2)
+    want = cuda_weighted.relax_plain(tent, active, *slots, 8, light, lo, hi)
+    tc, ac = tent.to(cuda), active.to(cuda)
+    sc = [t.to(cuda) for t in slots]
+    timing.reset_launch_counts()
+    got = cuda_weighted.relax(tc, ac, sc, lo, hi, 8, light)
+    torch.cuda.synchronize()
+    assert timing.launch_counts() == {"weighted_relax": 1}
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(tc.cpu(), tent)  # the kernel reads tent, writes out
+    # The plain version on the card, in small chunks, agrees too.
+    plain = cuda_weighted.relax_plain(tc, ac, *sc, 8, light, lo, hi, chunk_cells=4096)
+    assert torch.equal(plain.cpu(), want)
+
+
+@pytest.mark.parametrize("flavor", ["bitbell", "stencil", "mesh2d"])
+def test_weighted_engines_on_card_match_plain(cuda, flavor):
+    n, edges = generators.road_edges(30, 30, seed=5)
+    costs = generators.edge_costs(len(edges), "zipf", 16, seed=6)
+    g = CSRGraph.from_edges(n, edges, weights=costs)
+    rows = io.pad_queries(generators.random_queries(n, 9, max_group=4, seed=7))
+    _, fast = weighted.negotiate_weighted_engine(g, flavor, device=cuda)
+    _, plain = weighted.negotiate_weighted_engine(g, flavor, device="cpu")
+    timing.reset_launch_counts()
+    got = fast.distances(rows)
+    assert timing.launch_counts().get("weighted_relax", 0) > 0
+    np.testing.assert_array_equal(got, plain.distances(rows))
+    assert fast.weighted_stats() == plain.weighted_stats()
+    assert fast.last_host_reads == plain.last_host_reads
+
+
+def test_weighted_route_cli_on_card(cuda, tmp_path, capsys, monkeypatch):
+    n, edges = generators.road_edges(40, 40, seed=3)
+    gpath, qpath = str(tmp_path / "g.bin"), str(tmp_path / "q.bin")
+    io.save_graph_bin(gpath, n, edges, generators.edge_costs(len(edges), seed=4))
+    io.save_query_bin(qpath, generators.random_queries(n, 20, max_group=5, seed=4))
+    argv = ["prog", "-g", gpath, "-q", qpath, "-gn", "1"]
+    monkeypatch.setenv("MSBFS_WEIGHTED", "1")
+    assert cli.main(argv, device="cpu") == 0
+    want = capsys.readouterr().out.splitlines()[:5]
+    timing.reset_launch_counts()
+    assert cli.main(argv) == 0
+    assert capsys.readouterr().out.splitlines()[:5] == want
+    assert set(timing.launch_counts()) == {"weighted_relax"}
+
+
+def test_verify_on_card(cuda, tmp_path, capsys):
+    n, edges = generators.road_edges(30, 30, seed=8)
+    paths = [str(tmp_path / x) for x in ("w.bin", "u.bin", "q.bin")]
+    io.save_graph_bin(paths[0], n, edges, generators.edge_costs(len(edges), seed=9))
+    io.save_graph_bin(paths[1], n, edges)
+    io.save_query_bin(paths[2], generators.random_queries(n, 6, max_group=4, seed=10))
+    for graph, extra in ((paths[0], ["--weighted"]), (paths[1], [])):
+        argv = ["prog", "verify", "-g", graph, "-q", paths[2], *extra]
+        assert cli.main(argv, device="cpu") == 0
+        want = capsys.readouterr().out
+        assert cli.main(argv) == 0
+        assert capsys.readouterr().out == want

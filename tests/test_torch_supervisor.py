@@ -79,7 +79,7 @@ def _pair(workload, level_chunk, plan_text, watchdog=None, policy=FAST, hang_sec
     mine = sup.ChunkSupervisor(
         engines[0],
         policy=sup.RetryPolicy(**policy), watchdog=watchdog,
-        ladder=cli._bitbell_ladder(g, level_chunk, "cpu"),
+        ladder=cli.bitbell_ladder(g, level_chunk, "cpu"),
         plan=faults.FaultPlan.parse(plan_text, hang_seconds=hang_seconds),
     )
     theirs = jsup.ChunkSupervisor(
