@@ -13,8 +13,9 @@ process of its own that imports the port from that TREE only (so each
 builds its own kernels).  Per TREE and route (stencil road-4096 K = 16,
 mxu RMAT-14 K = 64 and road-512 K = 16, bitbell, bell and streamed
 RMAT-20 K = 64, low-K RMAT-20 K = 4 and K = 1, low-K RMAT-16 K = 1, push
-and ppush road-4096 K = 16, vmap and packed RMAT-20 K = 64; ``--routes``
-keeps the named ones only):
+and ppush road-4096 K = 16, vmap and packed RMAT-20 K = 64, weighted
+RMAT-20 K = 64 and road-512 K = 8 (three flavors); ``--routes`` keeps
+the named ones only):
 
 - the batch start (``engine._init_carry``): its host ms (median of 20,
   up to a synchronise), its device operations (torch.profiler) and its
@@ -39,7 +40,16 @@ keeps the named ones only):
 - on the vmap and packed routes, one BFS of the distance loop a level at
   a time: each level's CSR pull (K9, its launches together) timed with
   CUDA events behind a queued device sleep, summed, level 0 and the level
-  that labels most beside it.
+  that labels most beside it;
+- on the weighted routes (``MSBFS_WEIGHTED=1``: RMAT-20 K = 64 and
+  road-512 K = 8 groups of up to 8, costs ``edge_costs(m, "uniform", 16,
+  3)`` as ``chip_smoke.py`` phase 11 makes them; road-512 also with the
+  stencil and mesh2d flavors), one ``f_values`` run of the route's engine
+  under torch.profiler: K12's device ms summed over the events named
+  ``weighted_relax*``, its launches (the wrapper's count) and the run's
+  wall ms, beside a run without the profiler; on RMAT-20 also the
+  build-time split of the slots into light and heavy, native and with
+  NumPy masks.
 
 Needs one CUDA card, nvcc and scipy; imports nothing of JAX.  Prints one
 JSON line per TREE run and, last, the card and a summary by TREE; per
@@ -83,10 +93,13 @@ def _make_data(tmp: str, needed) -> dict:
         io as tio,
     )
 
-    def graph(name, n, edges):
+    def graph(name, n, edges, costs=None):
         path = os.path.join(tmp, f"{name}.bin")
-        tio.save_graph_bin(path, n, edges)
+        tio.save_graph_bin(path, n, edges, costs)
         return path
+
+    def costs(edges):
+        return generators.edge_costs(len(edges), "uniform", max_cost=16, seed=3)
 
     def query(name, queries):
         path = os.path.join(tmp, f"{name}-q.bin")
@@ -119,6 +132,15 @@ def _make_data(tmp: str, needed) -> dict:
         files["rmat-20 K=64"] = (g20, query("rmat20", q))
         files["rmat-20 K=4"] = (g20, query("rmat20-k4", q[:4]))
         files["rmat-20 K=1"] = (g20, query("rmat20-k1", q[:1]))
+    if "rmat-20 weighted" in needed:
+        n, e = generators.rmat_edges(20, edge_factor=16, seed=0)
+        files["rmat-20 weighted"] = (graph("rmat20w", n, e, costs(e)),
+                                     query("rmat20w", generators.random_queries(n, 64, seed=12)))
+    if "road-512 weighted" in needed:
+        n, e = generators.road_edges(512, 512, seed=0)
+        files["road-512 weighted"] = (
+            graph("road512w", n, e, costs(e)),
+            query("road512w", generators.random_queries(n, 8, max_group=8, seed=16)))
     return files
 
 
@@ -139,6 +161,12 @@ ROUTES = {
     "ppush road-4096": ("road-4096", {"MSBFS_BACKEND": "ppush"}),
     "vmap rmat-20": ("rmat-20 K=64", {"MSBFS_BACKEND": "vmap"}),
     "packed rmat-20": ("rmat-20 K=64", {"MSBFS_BACKEND": "packed"}),
+    "weighted rmat-20": ("rmat-20 weighted", {"MSBFS_WEIGHTED": "1"}),
+    "weighted road-512": ("road-512 weighted", {"MSBFS_WEIGHTED": "1"}),
+    "weighted-stencil road-512": ("road-512 weighted", {"MSBFS_WEIGHTED": "1",
+                                                        "MSBFS_WEIGHTED_ENGINE": "stencil"}),
+    "weighted-mesh2d road-512": ("road-512 weighted", {"MSBFS_WEIGHTED": "1",
+                                                       "MSBFS_WEIGHTED_ENGINE": "mesh2d"}),
 }
 LEVEL_ROUTES = ("lowk rmat-16 K=1", "lowk rmat-20 K=4")
 BUSY_ROUTES = ("lowk rmat-16 K=1", "lowk rmat-20 K=4", "bitbell rmat-20", "mxu road-512")
@@ -147,6 +175,9 @@ PUSH_ROUTES = ("push road-4096", "ppush road-4096")
 # The CSR pull's routes, measured a BFS level at a time (K9 in its rows and
 # query-minor layouts).
 CSR_ROUTES = ("vmap rmat-20", "packed rmat-20")
+# The weighted routes: K12 over one f_values run.
+WEIGHTED_ROUTES = ("weighted rmat-20", "weighted road-512", "weighted-stencil road-512",
+                   "weighted-mesh2d road-512")
 
 
 @contextlib.contextmanager
@@ -546,6 +577,97 @@ def _csr_bfs(torch, dev, files, route):
                 level0_ms=ms[0], widest=dict(level=widest, new=new[widest], ms=ms[widest]))
 
 
+def _split_ms(np, g, reps=3):
+    """The engine's build-time split of the weighted dedup slots into a
+    light and a heavy side, timed both ways on ``g`` (host ms of each of
+    ``reps`` runs): the native partition (``native_loader.split_slots``)
+    and the NumPy masks it replaced, on the same int32 arrays; None in a
+    tree without the native split."""
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.runtime import (
+        native_loader,
+    )
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.weighted import (
+        deltastep,
+    )
+
+    if not hasattr(native_loader, "split_slots"):
+        return None
+    u, v, w, _ = (np.ascontiguousarray(a, dtype=np.int32) for a in g.deduped_weighted())
+    delta = deltastep.resolve_delta(w)
+
+    def masks():
+        light = w <= delta
+        return tuple((u[keep], v[keep], w[keep]) for keep in (light, ~light))
+
+    out = dict(slots=int(w.size), delta=delta)
+    for name, fn in (("native_ms", lambda: native_loader.split_slots(u, v, w, delta)),
+                     ("numpy_masks_ms", masks)):
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[name] = times
+    return out
+
+
+def _weighted_run(torch, dev, files, route):
+    """One f_values run of the route's weighted engine after a warm one:
+    K12's device ms summed over the profiler's ``weighted_relax*`` events,
+    its launches, the profiled run's wall ms, its device ms by kernel name
+    and host ops' self ms (the eight largest), and the median wall ms of
+    three runs without the profiler; on RMAT-20 the slots' split timed
+    both ways (:func:`_split_ms`)."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch import weighted
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.utils import (
+        io as tio,
+        timing,
+    )
+
+    data, knobs = ROUTES[route]
+    gpath, qpath = files[data]
+    q = tio.pad_queries(tio.load_query_bin(qpath))
+    g = tio.load_graph_bin(gpath)
+    _, eng = weighted.negotiate_weighted_engine(
+        g, knobs.get("MSBFS_WEIGHTED_ENGINE", "auto"), device=dev)
+    split = _split_ms(np, g) if data == "rmat-20 weighted" else None
+    del g
+    f = eng.f_values(q).numpy()
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.f_values(q)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    timing.reset_launch_counts()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.f_values(q)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    launches = timing.launch_counts().get("weighted_relax", 0)
+    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    k12 = [e.time_range.elapsed_us() / 1e3 for e in device if "weighted_relax" in e.name]
+    by_name = {}
+    for e in device:
+        name = e.name.split("(")[0].split("<")[0].replace("void ", "")[:60]
+        by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
+    host = sorted(((a.key, a.self_cpu_time_total / 1e3) for a in prof.key_averages()),
+                  key=lambda kv: -kv[1])[:8]
+    return dict(k12_ms=sum(k12), k12_events=len(k12), launches=launches,
+                device_busy_ms=sum(by_name.values()),
+                device_ms=dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:8]),
+                host_self_ms=dict(host),
+                profiled_wall_ms=wall, wall_ms=_median(walls), walls_ms=walls,
+                k12_share_of_profiled_run=sum(k12) / wall, stats=eng.weighted_stats(),
+                winner=int(f.argmin()) + 1, min_f=int(f.min()), split=split)
+
+
 def child(tree: str, files: dict, reps: int, routes) -> dict:
     import torch
 
@@ -557,7 +679,8 @@ def child(tree: str, files: dict, reps: int, routes) -> dict:
     assert kernels.__file__.startswith(os.path.abspath(tree)), kernels.__file__
     dev = torch.device("cuda", 0)
     kernels.library()
-    out = dict(tree=tree, batch_start={}, levels={}, busy={}, cli={}, push_bfs={}, csr_bfs={})
+    out = dict(tree=tree, batch_start={}, levels={}, busy={}, cli={}, push_bfs={}, csr_bfs={},
+               weighted={})
     engines = _engines(torch, dev, files, routes)
     for route, (eng, q) in engines.items():
         out["batch_start"][route] = _batch_start(torch, eng, q)
@@ -574,6 +697,9 @@ def child(tree: str, files: dict, reps: int, routes) -> dict:
         torch.cuda.empty_cache()
     for route in (r for r in CSR_ROUTES if r in routes):
         out["csr_bfs"][route] = _csr_bfs(torch, dev, files, route)
+        torch.cuda.empty_cache()
+    for route in (r for r in WEIGHTED_ROUTES if r in routes):
+        out["weighted"][route] = _weighted_run(torch, dev, files, route)
         torch.cuda.empty_cache()
     for route in routes:
         data, knobs = ROUTES[route]
@@ -639,6 +765,15 @@ def _summary(runs):
             widest=[x["csr_bfs"][route]["widest"] for x in rs],
             level_ms=[x["csr_bfs"][route]["level_ms"] for x in rs])
             for route in rs[0]["csr_bfs"]}
+        t["weighted"] = {route: dict(
+            k12_ms=[x["weighted"][route]["k12_ms"] for x in rs],
+            launches=[x["weighted"][route]["launches"] for x in rs],
+            device_busy_ms=[x["weighted"][route]["device_busy_ms"] for x in rs],
+            wall_ms=[x["weighted"][route]["wall_ms"] for x in rs],
+            profiled_wall_ms=[x["weighted"][route]["profiled_wall_ms"] for x in rs],
+            min_f=[x["weighted"][route]["min_f"] for x in rs],
+            split=[x["weighted"][route]["split"] for x in rs])
+            for route in rs[0]["weighted"]}
     return out
 
 

@@ -184,13 +184,19 @@ non-zero; nothing is caught):
       groups' equal scipy's multi-source Dijkstra; the engine's F and
       five counters equal a plain engine's (relax_plain) on the card; K12
       held bit for bit against relax_plain on the widest light pass and
-      the widest heavy pass and timed beside its bound and
+      the widest heavy pass and timed beside its bound, its design's
+      floor (the out runs of the slots of active rows) and
       ``scatter_reduce_("amin")`` of the same candidates, built in
-      advance; the buckets, passes, host reads and K12's share of a run;
+      advance, along the vertex axis of the query-minor plane; the
+      buckets, passes, host reads and K12's share of a run;
    b. road_edges(512, 512) with the same costs, K = 8 groups of up to 8:
       each flavor (bitbell, stencil, mesh2d) and ``MSBFS_DELTA=1``
       through the CLI, to the same winner and F, all eight F equal to
       scipy's; each flavor's F and counters equal its plain engine's;
+      the bitbell flavor's K12 passes timed (per pass in
+      chip_smoke_weighted_road512_passes.json), and K12 held and timed on
+      its widest pass and its first thin one (under 1 % of the cells
+      active);
    c. road_edges(128, 128), K = 8: ``MSBFS_AUDIT=full`` (checkpointed, so
       that every chunk's F is audited) exits 0 with the audit run; one
       ``bitflip:wplane`` on the first real chunk is caught and retried to
@@ -3602,29 +3608,36 @@ def _k12_passes(torch, np, deltastep, eng, padded):
     events and adds nothing else (no host read, no copy), so its wall time
     is the engine's own.  The second counts each pass's active cells (a
     host read a pass) and keeps the inputs of the widest light and the
-    widest heavy pass.  Returns (the first run's F, the kernel's total
-    ms, the run's wall s, per-pass rows with the first run's ms, and the
-    widest passes' inputs)."""
+    widest heavy pass, and of the first pass with under 1 % of the cells
+    active ("thin").  Returns (the first run's F, the kernel's total ms,
+    the run's wall s, per-pass rows with the first run's ms, and the kept
+    passes' inputs)."""
     real = deltastep.relax
-    events, rows, widest = [], [], {}
+    events, rows, kept = [], [], {}
 
-    def timed(tent, active, slots, lo, hi, delta, light, out=None):
+    def timed(tent, active, side, p0, p1, delta, light, out=None):
         if out is None:
             out = tent.clone()
         e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         e0.record()
-        real(tent, active, slots, lo, hi, delta, light, out)
+        real(tent, active, side, p0, p1, delta, light, out)
         e1.record()
         events.append((e0, e1))
         return out
 
-    def snapped(tent, active, slots, lo, hi, delta, light, out=None):
+    def snapped(tent, active, side, p0, p1, delta, light, out=None):
         cells = int(active.sum())
-        rows.append(dict(light=bool(light), lo=lo, hi=hi, active_cells=cells))
+        rows.append(dict(light=bool(light), p0=p0, p1=p1, active_cells=cells))
         key = "light" if light else "heavy"
-        if cells > widest.get(key, (-1,))[0]:
-            widest[key] = (cells, tent.clone(), active.clone(), lo, hi)
-        return real(tent, active, slots, lo, hi, delta, light, out)
+        wide = cells > kept.get(key, (-1,))[0]
+        thin = "thin" not in kept and cells < 0.01 * active.numel()
+        if wide or thin:
+            snap = (cells, tent.clone(), active.clone(), p0, p1, bool(light))
+            if wide:
+                kept[key] = snap
+            if thin:
+                kept["thin"] = snap
+        return real(tent, active, side, p0, p1, delta, light, out)
 
     try:
         deltastep.relax = timed
@@ -3640,7 +3653,7 @@ def _k12_passes(torch, np, deltastep, eng, padded):
     assert np.array_equal(f, f_snapped) and len(rows) == len(events), (len(rows), len(events))
     for r, (e0, e1) in zip(rows, events):
         r["ms"] = e0.elapsed_time(e1)
-    return f, sum(r["ms"] for r in rows), wall, rows, widest
+    return f, sum(r["ms"] for r in rows), wall, rows, kept
 
 
 def _profile_split(torch, fn, top=8):
@@ -3669,60 +3682,76 @@ def _profile_split(torch, fn, top=8):
                     dev.items(), key=lambda kv: -kv[1])[:top]), host_self_ms=dict(host))
 
 
-def _k12_compare(torch, np, cuda_weighted, eng, snap, light, label, library):
-    """K12 on one real pass against relax_plain, bit for bit, both timed,
-    beside the bound and (with ``library``) scatter_reduce_ "amin" of the
-    same candidates, built in advance."""
-    cells, tent, active, lo, hi = snap
-    slots, delta = eng._slots, eng.delta
-    k, ns = tent.shape
+def _k12_compare(torch, np, cuda_weighted, eng, snap, label, library):
+    """K12 on one real pass (a bitbell engine's: every slot is in its
+    range) against relax_plain, bit for bit, both timed, beside the bound,
+    the design's floor and (with ``library``) scatter_reduce_ "amin" of
+    the same candidates, built in advance, along the vertex axis of the
+    query-minor plane."""
+    cells, tent, active, p0, p1, light = snap
+    side, delta = eng._sides[0 if light else 1], eng.delta
+    ns, k = tent.shape
     out = torch.empty_like(tent)
     out_p = torch.empty_like(tent)
-    cuda_weighted.relax(tent, active, slots, lo, hi, delta, light, out=out.copy_(tent))
-    cuda_weighted.relax_plain(tent, active, *slots, delta, light, lo, hi, out=out_p.copy_(tent))
+    s0, s1 = side.slot_range(p0, p1)
+    cuda_weighted.relax(tent, active, side, p0, p1, delta, light, out=out.copy_(tent))
+    cuda_weighted.relax_plain(tent, active, side.u, side.v, side.w, delta, light, s0, s1,
+                              out=out_p.copy_(tent))
     torch.cuda.synchronize()
     err = _max_abs_err(torch, [(out, out_p)])
     assert err == 0, (label, err)
-    ms = _time_ms(torch, lambda: cuda_weighted.relax(tent, active, slots, lo, hi, delta, light,
+    ms = _time_ms(torch, lambda: cuda_weighted.relax(tent, active, side, p0, p1, delta, light,
                                                      out=out),
                   lambda: out.copy_(tent))
     plain_ms = _time_ms(torch, lambda: cuda_weighted.relax_plain(
-        tent, active, *slots, delta, light, lo, hi, out=out_p), lambda: out_p.copy_(tent),
-        reps=3, warm=1)
-    width = hi - lo
-    w = slots[2][lo:hi]
-    sel = (w <= delta) if light else (w > delta)
-    selected = int(sel.sum())
-    # What this pass's data needs: w over the range, u and v of the
-    # selected slots, the active plane at the rows they leave, tent where
-    # those rows are active, and the cells of out that improve (out's copy
-    # of tent is restored outside the timed call).
+        tent, active, side.u, side.v, side.w, delta, light, s0, s1, out=out_p),
+        lambda: out_p.copy_(tent), reps=3, warm=1)
+    width = int(eng._u_host.size)
+    selected = s1 - s0
+    pieces = side.pieces[p0:p1].long()
+    owners = pieces[:, 2]
+    # What this pass's inputs need, each read once: v and w of the selected
+    # slots, the (start, end, owner) entry of each piece of the run, the
+    # active run of each row those pieces own, tent where those rows are
+    # active, and the cells of out that improve (out's copy of tent is
+    # restored outside the timed call).  Operations: one offer a slot and
+    # query active at its row.
     rows = torch.zeros(ns, dtype=torch.bool, device=tent.device)
-    rows[slots[0][lo:hi][sel].long()] = True
+    rows[owners] = True
     need_rows = int(rows.sum())
-    need_cells = int((active & rows).sum())
+    per_row = active.sum(dim=1)
+    need_cells = int(per_row[rows].sum())
+    offers = int(per_row[side.u[s0:s1].long()].sum())
     improved = int((out_p != tent).sum())
-    nbytes = 4 * width + 8 * selected + k * need_rows + 4 * need_cells + 4 * improved
-    bound_ms, bound_by = _bound_ms(nbytes, k * selected)
-    # The earlier count (12 bytes a slot of the range, both planes read
-    # and out written whole), for comparison.
-    range_bytes = 12 * width + k * ns * (1 + 4 + 4)
-    range_bound_ms, _ = _bound_ms(range_bytes, k * width)
+    nbytes = 8 * selected + 12 * (p1 - p0) + k * need_rows + 4 * need_cells + 4 * improved
+    bound_ms, bound_by = _bound_ms(nbytes, offers)
+    # The earlier count, which charged w over the flavor's whole range and
+    # u for every selected slot (the slot-a-thread design's inputs), for
+    # reading before and after on one yardstick.
+    prior_bytes = 4 * width + 8 * selected + k * need_rows + 4 * need_cells + 4 * improved
+    prior_bound_ms, _ = _bound_ms(prior_bytes, k * selected)
+    # The design's floor: each piece's entry and its owner's active run,
+    # tent's run where the owner is active, and for each slot of an active
+    # owner its v and w and its whole 4K-byte out run.
+    hot = active.any(dim=1)[owners]
+    hot_pieces = int(hot.sum())
+    hot_slots = int(((pieces[:, 1] - pieces[:, 0]) * hot).sum())
+    design_bytes = (12 + k) * (p1 - p0) + 4 * k * hot_pieces + (8 + 4 * k) * hot_slots
+    design_ms, _ = _bound_ms(design_bytes, 0)
     library_ms = None
     if library:
-        # The JAX-shaped candidates of the whole pass, built a slice at a
-        # time, and their int64 index: the library call's inputs.
-        cand = torch.empty((k, width), dtype=torch.int32, device=tent.device)
+        # The JAX-shaped candidates of the pass, built a slice at a time,
+        # and their int64 index: the library call's inputs.
+        cand = torch.empty((selected, k), dtype=torch.int32, device=tent.device)
         step = cuda_weighted.PLAIN_CHUNK_CELLS // k
-        for s0 in range(0, width, step):
-            uu = slots[0][lo + s0:lo + min(width, s0 + step)].long()
-            ws = w[s0:s0 + step]
-            sel = (ws <= delta) if light else (ws > delta)
-            cand[:, s0:s0 + step] = torch.where(active[:, uu] & sel, tent[:, uu] + ws,
-                                                cuda_weighted.INF)
-        idx = slots[1][lo:hi].long().expand(k, -1).contiguous()
+        for c0 in range(0, selected, step):
+            uu = side.u[s0 + c0:s0 + min(selected, c0 + step)].long()
+            ws = side.w[s0 + c0:s0 + c0 + uu.shape[0], None]
+            cand[c0:c0 + uu.shape[0]] = torch.where(active[uu], tent[uu] + ws,
+                                                    cuda_weighted.INF)
+        idx = side.v[s0:s1].long()[:, None].expand(-1, k).contiguous()
         lib = torch.empty_like(tent)
-        library_ms = _time_ms(torch, lambda: lib.scatter_reduce_(1, idx, cand, "amin"),
+        library_ms = _time_ms(torch, lambda: lib.scatter_reduce_(0, idx, cand, "amin"),
                               lambda: lib.copy_(tent), reps=5, warm=1)
         assert torch.equal(lib, out_p), label
         del cand, idx, lib
@@ -3732,9 +3761,13 @@ def _k12_compare(torch, np, cuda_weighted, eng, snap, light, label, library):
     print(f"compare {label} weighted_relax ({'light' if light else 'heavy'} pass, "
           f"{cells} active cells): " + json.dumps(dict(
               **row, K=k, n_state=ns, slots=width, selected_slots=selected,
-              rows_read=need_rows, tent_cells_read=need_cells, cells_improved=improved,
-              bound_bytes=nbytes, range_bound_bytes=range_bytes,
-              range_bound_ms=range_bound_ms, card=CARD)))
+              pieces=p1 - p0, pieces_of_active_rows=hot_pieces,
+              slots_of_active_rows=hot_slots, rows_read=need_rows,
+              tent_cells_read=need_cells, offers=offers, cells_improved=improved,
+              bound_bytes=nbytes, prior_bound_bytes=prior_bytes,
+              prior_bound_ms=prior_bound_ms, design_bytes=design_bytes,
+              design_floor_ms=design_ms,
+              plan=cuda_weighted.relax_plan(k, True), card=CARD)))
     return row
 
 
@@ -3805,9 +3838,9 @@ def _weighted_phase(ctx, n20, e20, queries20, n5, e5, seed):
     _write_detail("weighted_rmat20_passes", passes)
     del plain
     torch.cuda.empty_cache()
-    row = _k12_compare(torch, np, cuda_weighted, fast, widest["light"], True,
-                       "rmat-20 K=64", library=True)
-    _k12_compare(torch, np, cuda_weighted, fast, widest["heavy"], False, "rmat-20 K=64",
+    row = _k12_compare(torch, np, cuda_weighted, fast, widest["light"], "rmat-20 K=64",
+                       library=True)
+    _k12_compare(torch, np, cuda_weighted, fast, widest["heavy"], "rmat-20 K=64",
                  library=False)
     del fast, widest, g, a
     os.remove(gpath)
@@ -3840,6 +3873,23 @@ def _weighted_phase(ctx, n20, e20, queries20, n5, e5, seed):
         if flavor == "bitbell":
             print(f"{name} profile of one f_values: " + json.dumps(dict(
                 **_profile_split(torch, lambda: fast5.f_values(padded5)), card=CARD)))
+            # K12 on thin passes: the run's passes, the widest, and the
+            # first with under 1 % of the cells active.
+            _, ms5, wall5, passes5, kept5 = _k12_passes(torch, np, deltastep, fast5, padded5)
+            _write_detail("weighted_road512_passes", passes5)
+            pass_ms = sorted(r["ms"] for r in passes5)
+            print(f"{name} K12 passes: " + json.dumps(dict(
+                passes=len(passes5), k12_ms_in_timed_run=ms5, timed_run_s=wall5,
+                median_pass_ms=pass_ms[len(pass_ms) // 2], max_pass_ms=pass_ms[-1],
+                passes_under_1pct_active=sum(
+                    1 for r in passes5
+                    if r["active_cells"] < 0.01 * fast5.n_state * padded5.shape[0]),
+                card=CARD)))
+            wide5 = max((kept5["light"], kept5["heavy"]), key=lambda snap: snap[0])
+            _k12_compare(torch, np, cuda_weighted, fast5, wide5, "road-512 K=8 widest",
+                         library=False)
+            _k12_compare(torch, np, cuda_weighted, fast5, kept5["thin"], "road-512 K=8 thin",
+                         library=False)
         print(f"{name}: " + json.dumps(dict(
             K=8, winner=results[name][0] + 1, min_f=results[name][1],
             preprocessing_s=results[name][2], computation_s=results[name][3], **stats5,

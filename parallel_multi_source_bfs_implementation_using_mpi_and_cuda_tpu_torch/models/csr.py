@@ -82,8 +82,9 @@ class CSRGraph:
 
     def deduped_weighted(self, native: bool = True):
         """The weighted dedup: directed slots without self-loops, parallel
-        slots collapsed to their least cost — (src int64, dst int64, cost
-        int32, per-vertex counts int64), sorted by (src, dst).  A shortest
+        slots collapsed to their least cost — (src int32, dst int32, cost
+        int32, per-vertex counts int64), sorted by (src, dst); the JAX
+        package's values (it keeps the indices in int64).  A shortest
         path never takes the costlier copy of a parallel edge, and a
         positive-cost self-loop never lowers its own vertex, so the
         collapsed slots have the same fixpoint as the raw ones.  Natively
@@ -99,17 +100,17 @@ class CSRGraph:
                 self.row_offsets, self.col_indices, self.edge_weights
             )
             if dst.size == 0:
-                z = np.zeros(0, dtype=np.int64)
-                return z, z, z.astype(np.int32), np.zeros(n, dtype=np.int64)
-            src = np.repeat(np.arange(n, dtype=np.int64), deg)
-            return src, dst.astype(np.int64), w, deg.astype(np.int64)
+                z = np.zeros(0, dtype=np.int32)
+                return z, z, z, np.zeros(n, dtype=np.int64)
+            src = np.repeat(np.arange(n, dtype=np.int32), deg)
+            return src, dst.astype(np.int32, copy=False), w, deg.astype(np.int64)
         src = np.repeat(np.arange(n, dtype=np.int64), self.degrees.astype(np.int64))
         dst = np.asarray(self.col_indices, dtype=np.int64)
         w = np.asarray(self.edge_weights, dtype=np.int32)
         keep = src != dst
         if n == 0 or not keep.any():
-            z = np.zeros(0, dtype=np.int64)
-            return z, z, z.astype(np.int32), np.zeros(n, dtype=np.int64)
+            z = np.zeros(0, dtype=np.int32)
+            return z, z, z, np.zeros(n, dtype=np.int64)
         keys = src[keep] * n + dst[keep]
         order = np.argsort(keys, kind="stable")
         ks, ws = keys[order], w[keep][order]
@@ -118,7 +119,8 @@ class CSRGraph:
         uniq = ks[start]
         wmin = np.minimum.reduceat(ws, start)
         u = uniq // n
-        return u, uniq % n, wmin.astype(np.int32), np.bincount(u, minlength=n)
+        return (u.astype(np.int32), (uniq % n).astype(np.int32), wmin.astype(np.int32),
+                np.bincount(u, minlength=n))
 
     def to_device(self, device) -> "DeviceCSR":
         return DeviceCSR.from_host(self, device)
@@ -219,6 +221,40 @@ def virtual_rows(row_offsets: np.ndarray, short_slots: int = SHORT_ROW_SLOTS,
     out[short.size :, 1] = np.minimum(start + vrow_slots, offs[owner + 1])
     out[short.size :, 2] = owner
     return out, int(short.size)
+
+
+def row_pieces(rows: np.ndarray, piece_slots: int, cuts=None, native: bool = True) -> np.ndarray:
+    """(R, 3) int32 (start, end, owner) slot ranges over a slot array whose
+    source rows ``rows`` come in runs (sorted by row, or sorted within each
+    segment that starts at a position of ``cuts``): each run of one row,
+    broken at every cut, whole when it has at most ``piece_slots`` slots,
+    else in consecutive pieces of ``piece_slots`` (the last one shorter).
+    Unlike :func:`virtual_rows` the pieces keep slot order, so rows
+    [lo, hi) of a sorted array, or one segment, are one run of pieces.
+    Natively a threaded pass (runtime/loader.cpp); ``native=False`` the
+    NumPy version, the same bytes."""
+    if native:
+        from ..runtime import native_loader  # lazy: avoid an import cycle
+
+        return native_loader.row_pieces(rows, piece_slots, cuts)
+    rows = np.asarray(rows)
+    size = rows.size
+    first = np.ones(size, dtype=bool)
+    first[1:] = rows[1:] != rows[:-1]
+    if cuts is not None:
+        cuts = np.asarray(cuts, dtype=np.int64)
+        first[cuts[cuts < size]] = True
+    run_start = np.flatnonzero(first)
+    run_len = np.diff(np.append(run_start, size))
+    count = -(-run_len // piece_slots)
+    run = np.repeat(np.arange(run_start.size), count)
+    start = run_start[run] + (np.arange(run.size) - np.repeat(np.cumsum(count) - count, count)) \
+        * piece_slots
+    out = np.empty((run.size, 3), dtype=np.int32)
+    out[:, 0] = start
+    out[:, 1] = np.minimum(start + piece_slots, run_start[run] + run_len[run])
+    out[:, 2] = rows[start]
+    return out
 
 
 class DeviceCSR:

@@ -114,7 +114,7 @@ KERNELS = {
     ),
     "weighted_relax": (
         "msbfs_weighted_relax",
-        [_P, _P, _P, _L, _I, _P, _P, _P, _L, _L, _I, _I],
+        [_P, _P, _P, _I, _P, _P, _P, _L, _L, _I, _I],
     ),
 }
 

@@ -12,7 +12,9 @@
 // and gives the same bytes at any thread count.  Beyond the JAX package's
 // runtime, the CSR build and the dedup also carry a cost column (the
 // weighted route), which the JAX package builds with NumPy alone: the same
-// slot order and the same least cost per parallel pair.
+// slot order and the same least cost per parallel pair; and the weighted
+// engines' split of the slots into a light and a heavy side, and each
+// side's piece table.
 //
 // C ABI with caller-allocated buffers, bound with ctypes
 // (runtime/native_loader.py), which builds this file at first use.
@@ -457,6 +459,98 @@ int64_t msbfs_dedup_rows_weighted(int64_t n, int64_t num_slots,
     w += block_len[t];
   }
   return w;
+}
+
+// The weighted route's sides (weighted/deltastep.py): a stable partition
+// of slot arrays by cost, the light slots (w <= delta) first, then the
+// heavy ones, each side in slot order.  Each thread counts its chunk's
+// light slots; a prefix over the threads places every chunk's two runs.
+// Returns the light count, or -1 on bad input.
+int64_t msbfs_split_slots(int64_t total, const int32_t* u, const int32_t* v,
+                          const int32_t* w, int32_t delta, int32_t* out_u,
+                          int32_t* out_v, int32_t* out_w) {
+  if (total < 0) return -1;
+  const int T = num_threads_for(total);
+  const int64_t chunk = T > 0 ? (total + T - 1) / T : 0;
+  std::vector<int64_t> light(T + 1, 0);
+  parallel_tasks(T, [&](int t) {
+    const int64_t lo = std::min(total, t * chunk);
+    const int64_t hi = std::min(total, lo + chunk);
+    int64_t c = 0;
+    for (int64_t s = lo; s < hi; ++s) c += w[s] <= delta;
+    light[t + 1] = c;
+  });
+  for (int t = 0; t < T; ++t) light[t + 1] += light[t];
+  const int64_t num_light = light[T];
+  parallel_tasks(T, [&](int t) {
+    const int64_t lo = std::min(total, t * chunk);
+    const int64_t hi = std::min(total, lo + chunk);
+    int64_t a = light[t];
+    int64_t b = num_light + (lo - light[t]);
+    for (int64_t s = lo; s < hi; ++s) {
+      const int64_t at = w[s] <= delta ? a++ : b++;
+      out_u[at] = u[s];
+      out_v[at] = v[s];
+      out_w[at] = w[s];
+    }
+  });
+  return num_light;
+}
+
+// The piece table of a side (models/csr.py row_pieces): over slots whose
+// source rows come in runs (sorted, or sorted within each segment that
+// starts at a position of ``cuts``, ascending), a piece starts at every
+// run's first slot and every piece_slots slots into a run; piece i is
+// (start_i, start_{i+1} or total, rows[start_i]).  Each thread finds the
+// start of the run it enters by a scan back, counts (fill == 0) or writes
+// its pieces after the threads before it.  Returns the piece count, or -1
+// on bad input.
+int64_t msbfs_row_pieces(int64_t total, const int32_t* rows, int64_t num_cuts,
+                         const int64_t* cuts, int64_t piece_slots, int fill,
+                         int32_t* out) {
+  if (total < 0 || num_cuts < 0 || piece_slots < 1) return -1;
+  const int T = num_threads_for(total);
+  const int64_t chunk = T > 0 ? (total + T - 1) / T : 0;
+  const int64_t* cuts_end = cuts + num_cuts;
+  std::vector<int64_t> count(T + 1, 0);
+  auto walk = [&](int t, bool write) {
+    const int64_t lo = std::min(total, t * chunk);
+    const int64_t hi = std::min(total, lo + chunk);
+    if (lo >= hi) return;
+    int64_t run = lo;
+    while (run > 0 && rows[run - 1] == rows[lo] &&
+           !std::binary_search(cuts, cuts_end, run)) {
+      --run;
+    }
+    const int64_t* next_cut = std::lower_bound(cuts, cuts_end, lo);
+    int64_t at = write ? count[t] : 0;
+    int64_t into = (lo - run) % piece_slots;  // slots into the current piece
+    for (int64_t s = lo; s < hi; ++s) {
+      bool cut = false;
+      while (next_cut < cuts_end && *next_cut <= s) cut |= *next_cut++ == s;
+      if (s > lo && (cut || rows[s] != rows[s - 1])) into = 0;
+      if (into == 0) {
+        if (write) {
+          out[3 * at] = static_cast<int32_t>(s);
+          out[3 * at + 2] = rows[s];
+        }
+        ++at;
+      }
+      if (++into == piece_slots) into = 0;
+    }
+    if (!write) count[t + 1] = at;
+  };
+  parallel_tasks(T, [&](int t) { walk(t, false); });
+  for (int t = 0; t < T; ++t) count[t + 1] += count[t];
+  const int64_t pieces = count[T];
+  if (!fill) return pieces;
+  parallel_tasks(T, [&](int t) { walk(t, true); });
+  parallel_ranges(T, pieces, [&](int, int64_t lo, int64_t hi) {
+    for (int64_t i = lo; i < hi; ++i) {
+      out[3 * i + 1] = i + 1 < pieces ? out[3 * (i + 1)] : static_cast<int32_t>(total);
+    }
+  });
+  return pieces;
 }
 
 // BELL level build, pass 1: each owner's rows.  Buckets in ladder order,

@@ -141,6 +141,8 @@ _SIGNATURES = {
     ),
     "msbfs_dedup_rows": (_L, [_L, _L, _I64, _I32, _I32, _I64]),
     "msbfs_dedup_rows_weighted": (_L, [_L, _L, _I64, _I32, _I32, _I32, _I32, _I64]),
+    "msbfs_split_slots": (_L, [_L, _I32, _I32, _I32, ctypes.c_int32, _I32, _I32, _I32]),
+    "msbfs_row_pieces": (_L, [_L, _I32, _L, _I64, _L, ctypes.c_int, _I32]),
     "msbfs_bell_assign": (_L, [_L, _I64, ctypes.c_int, _I32, _I64, _I64, _I64, _I64]),
     "msbfs_bell_fill": (
         ctypes.c_int,
@@ -274,6 +276,36 @@ def dedup_rows_weighted(row_offsets: np.ndarray, col_indices: np.ndarray,
     if w < 0:
         raise ValueError("native dedup_rows_weighted: corrupt CSR input")
     return out_dst[:w], out_w[:w], out_deg[:n]
+
+
+def split_slots(u: np.ndarray, v: np.ndarray, w: np.ndarray, delta: int):
+    """((u, v, w) of the light slots, w <= delta, and of the heavy ones):
+    int32 views of one partitioned copy, each side in slot order, as
+    ``(u[keep], v[keep], w[keep])`` for ``keep`` each side's mask."""
+    u, v, w = (np.ascontiguousarray(a, dtype=np.int32) for a in (u, v, w))
+    if not u.ndim == v.ndim == w.ndim == 1 or not u.shape == v.shape == w.shape:
+        raise ValueError(f"split_slots: u, v, w must be one length, got "
+                         f"{u.shape}, {v.shape}, {w.shape}")
+    out = np.empty((3, w.shape[0]), dtype=np.int32)
+    num_light = library().msbfs_split_slots(w.shape[0], u, v, w, np.int32(delta), *out)
+    if num_light < 0:
+        raise ValueError("native split_slots: bad input")
+    return tuple(out[:, :num_light]), tuple(out[:, num_light:])
+
+
+def row_pieces(rows: np.ndarray, piece_slots: int, cuts=None) -> np.ndarray:
+    """(R, 3) int32 (start, end, owner): :func:`..models.csr.row_pieces`,
+    the same bytes, in a counting pass and a threaded fill."""
+    rows = np.ascontiguousarray(rows, dtype=np.int32).reshape(-1)
+    cuts = np.ascontiguousarray(np.sort(cuts) if cuts is not None else [], dtype=np.int64)
+    lib = library()
+    args = (rows.shape[0], rows, cuts.shape[0], cuts, int(piece_slots))
+    count = lib.msbfs_row_pieces(*args, 0, np.empty(0, dtype=np.int32))
+    if count < 0:
+        raise ValueError("native row_pieces: bad input")
+    out = np.empty((count, 3), dtype=np.int32)
+    lib.msbfs_row_pieces(*args, 1, out.reshape(-1))
+    return out
 
 
 def bell_level(item_start, item_count, item_vals, widths, sentinel_value):

@@ -1,21 +1,26 @@
 """Bucketed delta-stepping: distance-to-set over positive integer edge costs.
 
 The JAX package's weighted/deltastep.py on the CUDA device.  Tentative
-distances are a (K, n_state) int32 plane, a row a query group; the drive
-loop walks buckets ``b = tent // delta`` in ascending order.  Within a
+distances are an (n_state, K) int32 plane, query-minor (a column a query
+group, where JAX keeps (K, n) rows); the drive loop walks buckets
+``b = tent // delta`` in ascending order.  Within a
 bucket the light slots (cost <= delta) relax to a fixpoint, the bucket's
 frontier re-entering while improvements land in the bucket; the heavy
 slots (cost > delta) relax once at the bucket's close, from everything the
 bucket touched (a heavy offer lands at least delta + 1 past the bucket's
-floor, so it never reopens it).  Every pass is kernel K12
-(``csrc/weighted_relax.cu``, ops/cuda_weighted.py) over the slots the
-flavor hands it, reading the pre-pass plane (Jacobi, as JAX), so the
-improved sets, the passes and the five counters equal JAX's.
+floor, so it never reopens it).  ``delta`` is fixed when the engine is
+built, so the slots are split then into a light and a heavy side, each in
+pieces of a row (ops/cuda_weighted.py ``make_side``), and a pass reads its
+own side only.  Every pass is kernel K12 (``csrc/weighted_relax.cu``) over
+the run of pieces the flavor hands it, reading the pre-pass plane (Jacobi,
+as JAX), so the improved sets, the passes and the five counters equal
+JAX's.
 
 The loop keeps JAX's host reads: one ``int`` of the least pending distance
 a bucket (and one more to end), one ``bool`` of the frontier a light pass
 (and one more to end the bucket), the windowed flavor's row band a pass,
-and the final plane's read-back; ``last_host_reads`` counts them.
+and the final plane's read-back, transposed on the card to JAX's (K, n)
+host plane; ``last_host_reads`` counts them.
 
 ``MSBFS_DELTA`` overrides the bucket width; unset, it is the rounded mean
 slot cost.  Three flavors, negotiated by capability tokens
@@ -26,21 +31,23 @@ slot cost.  Three flavors, negotiated by capability tokens
   flavor's ``BellGraph`` sparse arrays; no forest is built);
 * :class:`WeightedStencilEngine` — ``windowed``: the slots of the active
   rows' band, [start[lo], start[hi]), unpadded (JAX pads the window to a
-  power of two only to bound its compiled programs);
+  power of two only to bound its compiled programs): on each side the
+  pieces whose owners lie in the band, one run;
 * :class:`WeightedMesh2DEngine` — ``mesh2d``: the slots ordered by the row
-  tile that owns their target, one launch a tile, tiles one after another
-  on one device, every tile reading the pre-pass plane.
+  tile that owns their target, one launch a tile (each tile's pieces one
+  run), tiles one after another on one device, every tile reading the
+  pre-pass plane.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional
 
 import numpy as np
 import torch
 
 from ..models.csr import CSRGraph
-from ..ops.cuda_weighted import INF, relax
+from ..ops.cuda_weighted import INF, make_side, relax, relax_plain
 from ..ops.engine import QueryEngineBase
 from ..runtime.supervisor import InputError
 from ..utils import faults, knobs
@@ -96,6 +103,7 @@ class DeltaStepEngineBase(QueryEngineBase):
         self.graph = graph
         self.device = _device(device)
         self.plain = bool(plain)
+        self.native = bool(native)
         self.n = int(graph.n)
         self.n_state = self.n  # the mesh flavor pads to whole tiles
         u, v, w, _ = graph.deduped_weighted(native)
@@ -110,43 +118,59 @@ class DeltaStepEngineBase(QueryEngineBase):
         if self.delta < 1:
             raise InputError(f"delta must be >= 1, got {self.delta}")
         self.max_cost = max_w
-        self._u_host = u.astype(np.int32)
-        self._v_host = v.astype(np.int32)
-        self._w_host = w.astype(np.int32)
+        self._u_host, self._v_host, self._w_host = u, v, w
         self._finalize_arrays()
         self.last_stats: dict = {}
         self.last_host_reads = 0
 
     # -- flavor hooks --------------------------------------------------
-    def _upload(self, *arrays) -> Tuple[torch.Tensor, ...]:
-        return tuple(
-            torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(self.device)
-            for a in arrays
-        )
+    def _split(self, u, v, w, cuts=None):
+        """The light and the heavy side of slot arrays in the flavor's
+        order (natively a threaded stable partition, ``native=False``
+        NumPy masks), each cut into pieces (at ``cuts`` too, positions of
+        the whole arrays), uploaded: ``self._sides`` = (light, heavy).
+        Returns each side's positions of ``cuts``."""
+        if self.native:
+            from ..runtime import native_loader
+
+            parts = native_loader.split_slots(u, v, w, self.delta)
+        else:
+            light = w <= self.delta
+            parts = tuple((u[keep], v[keep], w[keep]) for keep in (light, ~light))
+        at = [None, None]
+        if cuts is not None:
+            at[0] = np.array([np.count_nonzero(w[:c] <= self.delta) for c in cuts])
+            at[1] = np.asarray(cuts) - at[0]
+        self._sides = tuple(make_side(*part, self.device, cut, native=self.native)
+                            for part, cut in zip(parts, at))
+        return at
 
     def _finalize_arrays(self) -> None:
-        """Upload the slots the flavor's passes read."""
-        self._slots = self._upload(self._u_host, self._v_host, self._w_host)
+        """Split and upload the slots the flavor's passes read."""
+        self._split(self._u_host, self._v_host, self._w_host)
 
-    def _pass(self, tent, active, lo, hi, light, out=None):
-        """K12 (or its plain version) over slots [lo, hi) of the flavor's
-        slot arrays."""
+    def _pass(self, tent, active, light, p0, p1, out=None):
+        """K12 (or its plain version) over pieces [p0, p1) of the pass's
+        side."""
+        side = self._sides[0 if light else 1]
         if self.plain:
-            from ..ops.cuda_weighted import relax_plain
-
-            return relax_plain(tent, active, *self._slots, self.delta, light, lo, hi, out)
-        return relax(tent, active, self._slots, lo, hi, self.delta, light, out)
+            s0, s1 = side.slot_range(p0, p1)
+            return relax_plain(tent, active, side.u, side.v, side.w, self.delta, light,
+                               s0, s1, out)
+        return relax(tent, active, side, p0, p1, self.delta, light, out)
 
     def _relax(self, tent, active, light: bool):
-        """One relaxation pass; returns (new tent, slots examined)."""
-        size = int(self._u_host.size)
-        return self._pass(tent, active, 0, size, light), size
+        """One relaxation pass; returns (new tent, slots examined: the
+        flavor's range on both sides, as JAX counts it)."""
+        side = self._sides[0 if light else 1]
+        return self._pass(tent, active, light, 0, side.num_pieces), int(self._u_host.size)
 
     # -- drive loop ----------------------------------------------------
     def distances(self, rows) -> np.ndarray:
         """(K, S) -1-padded source rows -> (K, n) int32 weighted
-        distance-to-set fields on the host, -1 = unreached; the bucket
-        accounting lands in ``last_stats``."""
+        distance-to-set fields on the host, -1 = unreached (the device
+        plane is (n_state, K)); the bucket accounting lands in
+        ``last_stats``."""
         rows = np.asarray(rows, dtype=np.int32)
         if rows.ndim == 1:
             rows = rows[None, :]
@@ -164,11 +188,11 @@ class DeltaStepEngineBase(QueryEngineBase):
             self.last_stats = stats
             return np.zeros((0, n), dtype=np.int32)
         dev = self.device
-        tent = torch.full((K, ns), INF, dtype=torch.int32, device=dev)
+        tent = torch.full((ns, K), INF, dtype=torch.int32, device=dev)
         valid = (rows >= 0) & (rows < n)
         k_idx = np.repeat(np.arange(K), valid.sum(axis=1))
-        tent[torch.from_numpy(k_idx).to(dev), torch.from_numpy(rows[valid]).long().to(dev)] = 0
-        settled = torch.zeros((K, ns), dtype=torch.bool, device=dev)
+        tent[torch.from_numpy(rows[valid]).long().to(dev), torch.from_numpy(k_idx).to(dev)] = 0
+        settled = torch.zeros((ns, K), dtype=torch.bool, device=dev)
         delta = self.delta
         plane_bytes = K * ns * 4  # one int32 tentative plane pass
         while True:
@@ -201,12 +225,13 @@ class DeltaStepEngineBase(QueryEngineBase):
             stats["bucket_plane_bytes"] += plane_bytes
             settled = settled | bucket_members
             stats["buckets"] += 1
-        # Unreached cells become -1 on the device; the plane then comes back
-        # in one copy into page-locked memory (a pageable copy of RMAT-20's
-        # 256 MB plane ran at about 2 GB/s on an H100).
-        plane = tent[:, :n]
-        host = torch.empty(plane.shape, dtype=torch.int32, pin_memory=dev.type == "cuda")
-        host.copy_(torch.where(plane >= INF, -1, plane))
+        # Unreached cells become -1 on the device and the plane turns to
+        # JAX's (K, n) there; it then comes back in one copy into page-locked
+        # memory (a pageable copy of RMAT-20's 256 MB plane ran at about
+        # 2 GB/s on an H100).
+        plane = tent[:n]
+        host = torch.empty((K, n), dtype=torch.int32, pin_memory=dev.type == "cuda")
+        host.copy_(torch.where(plane >= INF, -1, plane).t().contiguous())
         dist = host.numpy()
         self.last_host_reads += 1
         if faults.corruption_armed():
@@ -256,9 +281,10 @@ class WeightedBitBellEngine(DeltaStepEngineBase):
 class WeightedStencilEngine(DeltaStepEngineBase):
     """``windowed``: a pass runs K12 over the active rows' slot window
     only (dedup slots are sorted by row, so rows [lo, hi) own slots
-    [start[lo], start[hi])).  The band comes back from the card as three
-    numbers a pass (any row active, the first, the last); the window is
-    not padded."""
+    [start[lo], start[hi]), and on each side the pieces whose owners lie
+    in [lo, hi), found by a host search).  The band comes back from the
+    card as three numbers a pass (any row active, the first, the last);
+    the window is not padded."""
 
     CAPABILITIES = frozenset({"weighted", "windowed"})
 
@@ -266,29 +292,38 @@ class WeightedStencilEngine(DeltaStepEngineBase):
         super()._finalize_arrays()
         self._slot_start = np.zeros(self.n + 1, dtype=np.int64)
         np.cumsum(np.bincount(self._u_host, minlength=self.n), out=self._slot_start[1:])
+        # int64, the dtype of the band's search keys: a search of int32
+        # owners for int64 keys casts (copies) the whole array each pass.
+        self._owners = tuple(s.host_pieces[:, 2].astype(np.int64) for s in self._sides)
 
     def _relax(self, tent, active, light: bool):
-        rows = active.any(dim=0).to(torch.uint8)
-        band = torch.stack([rows.max(), rows.argmax(), rows.flip(0).argmax()])
+        # The band from the plane's first and last active cells, reduced
+        # over its flat (n_state * K) view: a per-row any over the query
+        # axis is an inner reduction, which costs the card more.
+        k = active.shape[1]
+        flat = active.view(-1).view(torch.uint8)
+        band = torch.stack([flat.max(), flat.argmax(), flat.flip(0).argmax()])
         hot, first, last_from_end = (int(x) for x in band.tolist())
         self.last_host_reads += 1
         if not hot:
             return tent, 0
-        lo, hi = first, rows.shape[0] - last_from_end
+        lo, hi = first // k, active.shape[0] - last_from_end // k
         s0, s1 = int(self._slot_start[lo]), int(self._slot_start[hi])
         width = s1 - s0
         if width == 0:
             return tent, 0
-        return self._pass(tent, active, s0, s1, light), width
+        p0, p1 = np.searchsorted(self._owners[0 if light else 1], np.array((lo, hi)))
+        return self._pass(tent, active, light, int(p0), int(p1)), width
 
 
 class WeightedMesh2DEngine(DeltaStepEngineBase):
     """``mesh2d``: the vertex axis splits into ``tiles`` row blocks; the
-    slots are ordered by the block that owns their target, and a pass
-    runs K12 once a block, one after another, each reading the pre-pass
+    slots are ordered by the block that owns their target (still sorted by
+    source row within a block), and a pass runs K12 once a block with
+    slots on the pass's side, one after another, each reading the pre-pass
     plane and committing to its own rows (the per-device partial and
     min-combine of a mesh, on one device).  The plane is padded to
-    ``tiles * tile`` columns, which the byte counter counts."""
+    ``tiles * tile`` rows, which the byte counter counts."""
 
     CAPABILITIES = frozenset({"weighted", "mesh2d"})
 
@@ -305,16 +340,21 @@ class WeightedMesh2DEngine(DeltaStepEngineBase):
         owner = self._v_host // tile
         order = np.argsort(owner, kind="stable")
         counts = np.bincount(owner, minlength=T)
-        self._tile_start = np.zeros(T + 1, dtype=np.int64)
-        np.cumsum(counts, out=self._tile_start[1:])
-        self._slots = self._upload(
-            self._u_host[order], self._v_host[order], self._w_host[order]
+        tile_start = np.zeros(T + 1, dtype=np.int64)
+        np.cumsum(counts, out=tile_start[1:])
+        side_starts = self._split(self._u_host[order], self._v_host[order],
+                                  self._w_host[order], cuts=tile_start)
+        # Each side's pieces of tile t: [tile_pieces[t], tile_pieces[t + 1]).
+        self._tile_pieces = tuple(
+            np.searchsorted(side.host_pieces[:, 0], starts)
+            for side, starts in zip(self._sides, side_starts)
         )
 
     def _relax(self, tent, active, light: bool):
         out = tent.clone()
+        bounds = self._tile_pieces[0 if light else 1]
         for t in range(self.tiles):
-            lo, hi = int(self._tile_start[t]), int(self._tile_start[t + 1])
-            if hi > lo:
-                self._pass(tent, active, lo, hi, light, out)
+            p0, p1 = int(bounds[t]), int(bounds[t + 1])
+            if p1 > p0:
+                self._pass(tent, active, light, p0, p1, out)
         return out, int(self._u_host.size)

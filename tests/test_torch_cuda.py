@@ -1970,39 +1970,78 @@ def test_single_device_routes_cli_on_card(cuda, tmp_path, capsys, monkeypatch, b
 
 
 def _weighted_case(seed, k, n_extra=0):
-    """Random tentative planes over a weighted RMAT-10's dedup slots: a
-    third of the cells reached, about a fifth of them active."""
+    """Random query-minor tentative planes over a weighted RMAT-10 with a
+    hub (vertex 0 joined to 300 others: a row of several pieces), its
+    dedup slots: a third of the cells reached, about a fifth of them
+    active, the hub's row active."""
     n, edges = generators.rmat_edges(10, edge_factor=8, seed=seed)
+    hub = np.stack([np.zeros(300, np.int64), np.arange(1, 301)], axis=1)
+    edges = np.concatenate([edges, hub])
     costs = generators.edge_costs(len(edges), "uniform", 16, seed=seed + 1)
     u, v, w, _ = CSRGraph.from_edges(n, edges, weights=costs).deduped_weighted()
+    assert np.bincount(u).max() > 4 * cuda_weighted.PIECE_SLOTS
     rng = np.random.default_rng(seed + 2)
     ns = n + n_extra
-    tent = np.where(rng.random((k, ns)) < 0.3, rng.integers(0, 200, (k, ns)),
+    tent = np.where(rng.random((ns, k)) < 0.3, rng.integers(0, 200, (ns, k)),
                     cuda_weighted.INF).astype(np.int32)
-    active = (rng.random((k, ns)) < 0.2) & (tent < cuda_weighted.INF)
-    slots = [torch.from_numpy(a.astype(np.int32)) for a in (u, v, w)]
-    return torch.from_numpy(tent), torch.from_numpy(active), slots
+    tent[0] = rng.integers(0, 200, k)
+    active = (rng.random((ns, k)) < 0.2) & (tent < cuda_weighted.INF)
+    active[0] = True
+    return torch.from_numpy(tent), torch.from_numpy(active), (u, v, w)
 
 
-@pytest.mark.parametrize("window", ["all", "window"])
+@pytest.mark.parametrize("window", ["all", "band", "idle"])
 @pytest.mark.parametrize("light", [True, False])
-@pytest.mark.parametrize("k", [1, 8, 64])
+@pytest.mark.parametrize("k", [1, 5, 8, 64, 200])
 def test_weighted_relax_matches_plain(cuda, k, light, window):
-    tent, active, slots = _weighted_case(40 + k, k, n_extra=7)
-    size = slots[0].shape[0]
-    lo, hi = (0, size) if window == "all" else (size // 5, size // 2)
-    want = cuda_weighted.relax_plain(tent, active, *slots, 8, light, lo, hi)
+    tent, active, (u, v, w) = _weighted_case(40 + k, k, n_extra=7)
+    if window == "idle":
+        active = torch.zeros_like(active)
+    delta = 8
+    keep = (w <= delta) if light else (w > delta)
+    side = cuda_weighted.make_side(u[keep], v[keep], w[keep], cuda)
+    lo, hi = (0, tent.shape[0]) if window != "band" else (0, tent.shape[0] // 3)
+    p0, p1 = (int(p) for p in np.searchsorted(side.host_pieces[:, 2], (lo, hi)))
+    assert p1 - p0 > 4
+    s0, s1 = (int(s) for s in np.searchsorted(u, (lo, hi)))
+    slots = [torch.from_numpy(a.astype(np.int32)) for a in (u, v, w)]
+    want = cuda_weighted.relax_plain(tent, active, *slots, delta, light, s0, s1)
+    if window == "idle":
+        assert torch.equal(want, tent)
     tc, ac = tent.to(cuda), active.to(cuda)
-    sc = [t.to(cuda) for t in slots]
     timing.reset_launch_counts()
-    got = cuda_weighted.relax(tc, ac, sc, lo, hi, 8, light)
+    got = cuda_weighted.relax(tc, ac, side, p0, p1, delta, light)
     torch.cuda.synchronize()
     assert timing.launch_counts() == {"weighted_relax": 1}
     assert torch.equal(got.cpu(), want)
     assert torch.equal(tc.cpu(), tent)  # the kernel reads tent, writes out
-    # The plain version on the card, in small chunks, agrees too.
-    plain = cuda_weighted.relax_plain(tc, ac, *sc, 8, light, lo, hi, chunk_cells=4096)
+    # The plain version on the card, over the side, in small chunks, too.
+    s0, s1 = side.slot_range(p0, p1)
+    plain = cuda_weighted.relax_plain(tc, ac, side.u, side.v, side.w, delta, light, s0, s1,
+                                      chunk_cells=4096)
     assert torch.equal(plain.cpu(), want)
+
+
+@pytest.mark.parametrize("light", [True, False])
+def test_weighted_mesh2d_pass_launches_a_tile(cuda, light):
+    n, edges = generators.rmat_edges(10, edge_factor=8, seed=3)
+    hub = np.stack([np.zeros(300, np.int64), np.arange(1, 301)], axis=1)
+    edges = np.concatenate([edges, hub])
+    g = CSRGraph.from_edges(n, edges, weights=generators.edge_costs(len(edges), seed=4))
+    fast = weighted.WeightedMesh2DEngine(g, device=cuda)
+    plain = weighted.WeightedMesh2DEngine(g, device="cpu")
+    rng = np.random.default_rng(5)
+    tent = torch.from_numpy(np.where(rng.random((fast.n_state, 64)) < 0.5,
+                                     rng.integers(0, 99, (fast.n_state, 64)),
+                                     cuda_weighted.INF).astype(np.int32))
+    active = torch.from_numpy(rng.random(tent.shape) < 0.3) & (tent < cuda_weighted.INF)
+    want, width = plain._relax(tent, active, light)
+    timing.reset_launch_counts()
+    got, got_width = fast._relax(tent.to(cuda), active.to(cuda), light)
+    torch.cuda.synchronize()
+    bounds = fast._tile_pieces[0 if light else 1]
+    assert timing.launch_counts() == {"weighted_relax": int((np.diff(bounds) > 0).sum())}
+    assert torch.equal(got.cpu(), want) and got_width == width
 
 
 @pytest.mark.parametrize("flavor", ["bitbell", "stencil", "mesh2d"])

@@ -42,6 +42,9 @@ from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch impor
 from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.models import (
     generators,
 )
+from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.models import (
+    csr as csr_mod,
+)
 from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.models.csr import (
     CSRGraph,
 )
@@ -50,6 +53,7 @@ from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops i
     cuda_weighted,
 )
 from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.runtime import (
+    native_loader,
     supervisor,
 )
 from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.utils import (
@@ -70,6 +74,17 @@ def _same(a, b):
     assert a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
 
 
+def _same_dedup(got, want):
+    """The port's weighted dedup against JAX's: the same values, the
+    indices int32 where JAX keeps int64, cost and counts in JAX's dtypes."""
+    for i, (a, b) in enumerate(zip(got, want)):
+        if i < 2:
+            assert a.dtype == np.int32 and b.dtype == np.int64
+            np.testing.assert_array_equal(a, b)
+        else:
+            _same(a, b)
+
+
 def _edges(kind):
     """RMAT-8 with repeated records and self-loops, or a 12x12 road."""
     if kind == "rmat":
@@ -81,6 +96,9 @@ def _edges(kind):
 
 def _costs(m, dist="uniform", seed=3):
     return generators.edge_costs(m, dist, 16, seed=seed)
+
+
+FLAVORS = ["bitbell", "stencil", "mesh2d"]
 
 
 # ---------------------------------------------------------------------------
@@ -108,8 +126,7 @@ def test_weighted_csr_and_dedup_match_jax(kind, native):
     for a, b in ((g.row_offsets, jg.row_offsets), (g.col_indices, jg.col_indices),
                  (g.edge_weights, jg.edge_weights)):
         _same(a, b)
-    for a, b in zip(g.deduped_weighted(native), jg.deduped_weighted()):
-        _same(a, b)
+    _same_dedup(g.deduped_weighted(native), jg.deduped_weighted())
     # The JAX bitbell flavor's slots (its BellGraph's sparse arrays) are
     # these dedup arrays: the port builds no forest for them.
     bell = JBellGraph.from_host(jg)
@@ -128,8 +145,7 @@ def test_weighted_from_edges_edge_cases_match_jax(native):
         g = CSRGraph.from_edges(n, e, native=native, weights=w)
         jg = JCSRGraph.from_edges(n, e, weights=w)
         _same(g.edge_weights, jg.edge_weights)
-        for a, b in zip(g.deduped_weighted(native), jg.deduped_weighted()):
-            _same(a, b)
+        _same_dedup(g.deduped_weighted(native), jg.deduped_weighted())
     for bad, msg in (([1, 0], "must be >= 1"), ([1], "must be \\(2,\\)")):
         with pytest.raises(ValueError, match=msg):
             CSRGraph.from_edges(3, [[0, 1], [1, 2]], native=native, weights=bad)
@@ -182,6 +198,8 @@ def test_weighted_bin_truncations_fail_as_jax(tmp_path, native):
 @pytest.mark.parametrize("light", [True, False])
 @pytest.mark.parametrize("k", [1, 5])
 def test_relax_plain_matches_jax(k, light):
+    # JAX's pass on (K, n) planes; the port's on the same planes transposed
+    # to its query-minor (n, K) layout.
     n, e = _edges("rmat")
     g = CSRGraph.from_edges(n, e, weights=_costs(len(e)))
     u, v, w, _ = g.deduped_weighted()
@@ -194,29 +212,138 @@ def test_relax_plain_matches_jax(k, light):
     want = np.asarray(jds._relax_scatter_min(
         tent, active, u.astype(np.int32), v.astype(np.int32), w, sel))
     slots = [torch.from_numpy(a.astype(np.int32)) for a in (u, v, w)]
-    t, a = torch.from_numpy(tent), torch.from_numpy(active)
+    t, a = torch.from_numpy(tent.T.copy()), torch.from_numpy(active.T.copy())
+    keep = sel
+    side = cuda_weighted.make_side(u[keep], v[keep], w[keep], "cpu")
     for chunk in (cuda_weighted.PLAIN_CHUNK_CELLS, 7):
         got = cuda_weighted.relax_plain(t, a, *slots, delta, light, chunk_cells=chunk)
-        np.testing.assert_array_equal(got.numpy(), want)
-        # The wrapper on a CPU tensor runs the plain version.
-        got = cuda_weighted.relax(t, a, slots, 0, len(u), delta, light)
-        np.testing.assert_array_equal(got.numpy(), want)
-    # A sub-range: the slots outside it offer nothing.
-    lo, hi = len(u) // 4, len(u) // 2
-    part = np.zeros_like(sel)
-    part[lo:hi] = sel[lo:hi]
+        np.testing.assert_array_equal(got.numpy().T, want)
+    # The wrapper on a CPU tensor runs the plain version over the side.
+    got = cuda_weighted.relax(t, a, side, 0, side.num_pieces, delta, light)
+    np.testing.assert_array_equal(got.numpy().T, want)
+    # A row band: its slots alone offer, on the side and on the whole range.
+    lo, hi = n // 4, n // 2
+    part = sel & (u >= lo) & (u < hi)
     want = np.asarray(jds._relax_scatter_min(
         tent, active, u.astype(np.int32), v.astype(np.int32), w, part))
-    got = cuda_weighted.relax(t, a, slots, lo, hi, delta, light)
-    np.testing.assert_array_equal(got.numpy(), want)
+    p0, p1 = np.searchsorted(side.host_pieces[:, 2], (lo, hi))
+    got = cuda_weighted.relax(t, a, side, int(p0), int(p1), delta, light)
+    np.testing.assert_array_equal(got.numpy().T, want)
+    s0, s1 = np.searchsorted(u, (lo, hi))
+    got = cuda_weighted.relax_plain(t, a, *slots, delta, light, int(s0), int(s1))
+    np.testing.assert_array_equal(got.numpy().T, want)
+
+
+@pytest.mark.parametrize("k, aligned, want", [
+    (1, True, (1, 1)), (5, True, (1, 8)), (8, True, (4, 2)), (8, False, (1, 8)),
+    (64, True, (4, 16)), (200, True, (4, 32)), (1000, False, (1, 32)),
+])
+def test_relax_plan(k, aligned, want):
+    assert cuda_weighted.relax_plan(k, aligned) == want
+
+
+@pytest.mark.parametrize("threads", [None, "3"])
+@pytest.mark.parametrize("case", ["empty", "one_slot_pieces", "cuts", "hub"])
+def test_row_pieces_native_matches_numpy(monkeypatch, case, threads):
+    # Three threads cut the slots mid-run and mid-piece.
+    if threads:
+        monkeypatch.setenv("MSBFS_NATIVE_THREADS", threads)
+    rng = np.random.default_rng(3)
+    rows, slots, cuts = np.zeros(0, np.int32), 4, None
+    if case == "one_slot_pieces":
+        rows, slots = np.sort(rng.integers(0, 9, 50)).astype(np.int32), 1
+    elif case == "cuts":
+        # Four segments, each sorted by row on its own; two cuts coincide.
+        rows = np.concatenate([np.sort(rng.integers(0, 20, k)) for k in (30, 0, 41, 17)])
+        cuts = np.array([0, 30, 30, 71, 88])
+    elif case == "hub":
+        rows = np.repeat(np.arange(6), [3, 0, 200, 1, 65, 64]).astype(np.int32)
+    want = csr_mod.row_pieces(rows, slots, cuts, native=False)
+    _same(csr_mod.row_pieces(rows, slots, cuts), want)
+    if rows.size:
+        assert want[0, 0] == 0 and want[-1, 1] == rows.size
+        assert (want[:, 1] - want[:, 0] <= slots).all()
+    # The native split by cost keeps each side in slot order.
+    v = rng.integers(0, 99, rows.size).astype(np.int32)
+    w = rng.integers(1, 17, rows.size).astype(np.int32)
+    light = w <= 8
+    for got, keep in zip(native_loader.split_slots(rows, v, w, 8), (light, ~light)):
+        for a, b in zip(got, (rows[keep], v[keep], w[keep])):
+            _same(a, b.astype(np.int32))
+
+
+def _hub_graph():
+    """RMAT-8 plus a hub: vertex 0 joined to 200 others, a row of more
+    than three pieces."""
+    n, e = _edges("rmat")
+    hub = np.stack([np.zeros(200, np.int64), np.arange(1, 201)], axis=1)
+    e = np.concatenate([e, hub]).astype(np.int32)
+    return n, e, _costs(len(e), seed=6)
+
+
+@pytest.mark.parametrize("native", [True, False])
+@pytest.mark.parametrize("delta", [None, 1, 17])
+@pytest.mark.parametrize("flavor", FLAVORS)
+def test_sides_and_pieces(flavor, delta, native):
+    n, e, w = _hub_graph()
+    g = CSRGraph.from_edges(n, e, weights=w)
+    _, eng = tw.negotiate_weighted_engine(g, flavor, delta, device="cpu", native=native)
+    P = cuda_weighted.PIECE_SLOTS
+    u, v, w, _ = g.deduped_weighted()
+    assert np.bincount(u).max() > 3 * P  # the hub row
+    got = []
+    for light, side in zip((True, False), eng._sides):
+        su, sv, sw = (x.numpy() for x in (side.u, side.v, side.w))
+        assert ((sw <= eng.delta) == light).all()
+        pcs = side.host_pieces
+        np.testing.assert_array_equal(pcs, side.pieces.numpy())
+        # The pieces tile the side's slots, in order, none longer than P,
+        # each within one row.
+        if pcs.size:
+            assert pcs[0, 0] == 0 and pcs[-1, 1] == su.size
+            np.testing.assert_array_equal(pcs[1:, 0], pcs[:-1, 1])
+        assert ((pcs[:, 1] > pcs[:, 0]) & (pcs[:, 1] - pcs[:, 0] <= P)).all()
+        for s0, s1, owner in pcs:
+            assert (su[s0:s1] == owner).all()
+        got.append(np.stack([su, sv, sw], axis=1))
+        if flavor == "mesh2d":
+            # A tile's pieces are one run: its slots, in row order.
+            bounds = eng._tile_pieces[0 if light else 1]
+            for t in range(eng.tiles):
+                s0, s1 = side.slot_range(int(bounds[t]), int(bounds[t + 1]))
+                tile_v = sv // eng.tile == t
+                assert tile_v[s0:s1].all() and tile_v.sum() == s1 - s0
+                assert (np.diff(pcs[bounds[t]:bounds[t + 1], 2]) >= 0).all()
+        else:
+            assert (np.diff(pcs[:, 2]) >= 0).all()
+            # A row band's pieces are one run: its slots, nothing else.
+            for lo, hi in ((0, 1), (3, n // 2), (n // 3, n)):
+                p0, p1 = np.searchsorted(pcs[:, 2], (lo, hi))
+                s0, s1 = side.slot_range(int(p0), int(p1))
+                in_band = (su >= lo) & (su < hi)
+                assert in_band[s0:s1].all() and in_band.sum() == s1 - s0
+    # Each slot of the flavor appears on exactly one side, once; the two
+    # sides' widths sum to the flavor's range.
+    both = np.concatenate(got)
+    assert len(both) == eng._u_host.size
+    want = np.stack([u, v, w], axis=1)
+    _same(np.unique(both, axis=0), np.unique(want, axis=0).astype(np.int32))
+    if native:  # the native split gives the NumPy split's bytes
+        _, ref = tw.negotiate_weighted_engine(g, flavor, delta, device="cpu", native=False)
+        for a, b in zip(eng._sides, ref._sides):
+            for x, y in zip(a, b):
+                _same(np.asarray(x), np.asarray(y))
+    if flavor == "stencil":
+        lo, hi = 3, n // 2
+        width = sum(np.diff(s.slot_range(*(int(p) for p in np.searchsorted(
+            s.host_pieces[:, 2], (lo, hi))))) for s in eng._sides)
+        assert width == eng._slot_start[hi] - eng._slot_start[lo]
 
 
 # ---------------------------------------------------------------------------
 # The drive loop, every flavor, against JAX's engines
 # ---------------------------------------------------------------------------
 
-
-FLAVORS = ["bitbell", "stencil", "mesh2d"]
 
 
 def _engines(g, jg, flavor, delta=None):
