@@ -203,9 +203,37 @@ non-zero; nothing is caught):
       the clean answer; a flip on every call exits 9; ``verify
       --weighted`` and ``verify`` on the weightless file exit 0;
       ``verify --expect-f`` with a wrong F exits 9;
+12. the serving daemon (serve/, dynamic/), in this process on a unix
+   socket under the temporary directory, on the card:
+   a. a daemon with a journal and a 0.25 s coalescing window registers
+      phase 5b's RMAT-20 file; its 64 groups come from four concurrent
+      clients of 16 groups: one dispatch at k_exec = 64 (each response
+      ``batched_with`` 3), F equal to phase 5b's and, on the winner, to
+      scipy's; the counted path "serve rmat-20" (load and the four
+      queries) must launch the bitbell route's kernels; a repeat is a
+      result-cache hit, and a second bucket warms once;
+   b. 64 sequential one-source queries in one warm bucket: p50 and p99
+      from the ``stats`` verb (and the client's round trips), with the
+      card's name and power limit on the same line;
+   c. a weighted query on phase 11b's road-512 files equal to that
+      phase's F (the counted path "serve weighted road-512":
+      weighted_relax);
+   e. a reload of RMAT-20: two engines resident during the swap, and
+      ``torch.cuda.memory_allocated()`` back to one engine's size once the
+      old entry is dropped and collected;
+   f. the daemon stopped and restarted from its journal: ``health``
+      ready, the same answer; then drained;
+   d. on a second daemon with ``MSBFS_SERVE_PLANES=1``, road-512 without
+      costs, three ``delta_batches(..., batch_size=16, locality=0.9)``
+      mutations: each answer repaired on the host, equal to a freshly
+      built engine's and scipy's on the mutated graph (its CSR equal to
+      a replay of the deltas in NumPy alone, which both are built from);
+      repair against recompute
+      printed, with the repair's host ms;
 then the ``{"kernels": [...]}`` line and the final ``{"ok": true, ...}``.
 
-Each CLI run of phases 3-5b, 9a, 10 and 11 is one path: the kernel launch counters are
+Each CLI run of phases 3-5b, 9a, 10 and 11, and each of phase 12's two
+counted serving paths, is one path: the kernel launch counters are
 zeroed just before it and read just after; each path must have launched
 its route's kernels (batch_start at its route's stride), and every
 registered kernel must have launched on some path, and no byte path may
@@ -269,6 +297,8 @@ PATH_KERNELS = {
     "weighted-stencil road-512": ("weighted_relax",),
     "weighted-mesh2d road-512": ("weighted_relax",),
     "weighted delta=1 road-512": ("weighted_relax",),
+    "serve rmat-20": ("batch_start", "forest_or", "push_or", "level_apply"),
+    "serve weighted road-512": ("weighted_relax",),
 }
 # The paths whose planes are bytes: their batch starts at a stride of 8
 # lanes, the others' at 1 (the ELL route packs no planes), and they pull
@@ -3905,7 +3935,6 @@ def _weighted_phase(ctx, n20, e20, queries20, n5, e5, seed):
         runs={k: dict(winner=v[0] + 1, min_f=v[1], computation_s=v[3])
               for k, v in results.items()},
         all_f_equal_scipy=True, card=CARD)))
-    os.remove(gpath5)
 
     # -- 11c. road-128, K = 8: the audit, the plane seam, verify.
     n1, e1 = generators.road_edges(128, 128, seed=seed + 17)
@@ -3980,7 +4009,299 @@ def _weighted_phase(ctx, n20, e20, queries20, n5, e5, seed):
     print("weighted road-128 certificate: " + json.dumps(dict(
         runs=report, verify=verify, card=CARD)))
     print(f"phase 11: {time.perf_counter() - t_phase:.1f} s")
-    return {"weighted_relax": row}
+    # Phase 12 serves the road-512 files (the F vector: all eight equal
+    # scipy's, and the CLI's winner and F on every flavor).
+    return {"weighted_relax": row}, dict(gpath=gpath5, queries=q5, f=want5)
+
+
+# ---- phase 12: the serving daemon on the card (serve/, dynamic/)
+
+# The coalescing window of phase 12a's daemon: wide enough that four
+# clients started together land in one batch.
+SERVE_WINDOW_S = "0.25"
+# Phase 12b's sequential one-group queries.
+SERVE_SEQUENTIAL = 64
+
+
+def _wire(groups):
+    return [[int(v) for v in g] for g in groups]
+
+
+def _pow2(x):
+    return 1 << max(0, (max(1, int(x)) - 1).bit_length())
+
+
+def _serving_phase(ctx, info20, road5, seed):
+    """Phase 12: the port's daemon in this process on a unix socket, on
+    the card.  a. RMAT-20 (phase 5b's files and 64 groups) from four
+    concurrent clients of 16 groups: one dispatch at k_exec = 64 (the
+    counted path "serve rmat-20"), F equal to phase 5b's, a repeat from
+    the result cache, a second bucket warmed once; b. 64 sequential
+    one-source queries, their latency; c. a weighted query on phase 11b's
+    road-512 files (the counted path "serve weighted road-512"); d. three
+    mutations of road-512 on a daemon that retains planes, each answer
+    equal to a fresh engine's and scipy's on the mutated graph; e. a
+    reload releasing the old engine; f. a restart from the journal, ready,
+    to the same answer, then a drain."""
+    import gc
+    import threading
+
+    torch, np, sp, cg, cli, tio, timing, generators, launches, tmp, dev = ctx
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.models.csr import (
+        CSRGraph,
+    )
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.serve.client import (
+        MsbfsClient,
+    )
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.serve.registry import (
+        build_supervised_engine,
+    )
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.serve.server import (
+        MsbfsServer,
+    )
+
+    t_phase = time.perf_counter()
+    queries, fv = info20["queries"], info20["fv"]
+    winner = info20["winner"]
+    quarters = [_wire(queries[16 * i:16 * (i + 1)]) for i in range(4)]
+    widths = [_pow2(max(len(g) for g in qq)) for qq in quarters]
+    assert len(set(widths)) == 1, f"the four clients' groups pad to {widths}: no one bucket"
+    journal = os.path.join(tmp, "serve.journal")
+    addr = f"unix:{tmp}/serve.sock"
+    with _env(MSBFS_SERVE_WINDOW=SERVE_WINDOW_S):
+        srv = MsbfsServer(listen=addr, journal_path=journal)
+    srv.start()
+    report = {}
+    try:
+        # -- 12a. four concurrent clients, one dispatch.
+        gc.collect()
+        m0 = torch.cuda.memory_allocated()
+        timing.reset_launch_counts()
+        t0 = time.perf_counter()
+        with MsbfsClient(addr, timeout=600) as c:
+            c.load(info20["gpath"], graph="rmat20")
+        load_s = time.perf_counter() - t0
+        engine_bytes = torch.cuda.memory_allocated() - m0
+        out = [None] * 4
+        barrier = threading.Barrier(4)
+
+        def client(i):
+            with MsbfsClient(addr, timeout=600) as c:
+                barrier.wait()
+                out[i] = c.query(quarters[i], graph="rmat20")
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(4)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        coalesced_s = time.perf_counter() - t0
+        counts = timing.launch_counts()
+        launches["serve rmat-20"] = counts
+        VARIANTS["serve rmat-20"] = timing.variant_counts()
+        print(f"serve rmat-20 launches: {json.dumps(counts)}")
+        for kernel in PATH_KERNELS["serve rmat-20"]:
+            assert counts.get(kernel, 0) > 0, f"{kernel} never launched on serve rmat-20"
+        assert all(r is not None and r["ok"] for r in out), out
+        f = [x for r in out for x in r["f_values"]]
+        assert f == [int(x) for x in fv], "served F differs from phase 5b's"
+        assert int(np.argmin(f)) == winner and f[winner] == info20["want"][winner]
+        for r in out:
+            assert r["bucket"] == [64, widths[0]] and r["batched_with"] == 3, r["bucket"]
+        stats = srv.stats()
+        assert stats["queue"]["batches"] == 1 and stats["queue"]["coalesced"] == 3, \
+            stats["queue"]
+        assert stats["compiles_total"] == 1, stats["compiles"]
+        with MsbfsClient(addr, timeout=600) as c:
+            again = c.query(quarters[0], graph="rmat20")
+            assert again["cached"] and again["f_values"] == out[0]["f_values"]
+            wide = [i for i, g in enumerate(queries) if _pow2(len(g)) == widths[0]][:4]
+            b1 = c.query(_wire([queries[i] for i in wide[:2]]), graph="rmat20")
+            b2 = c.query(_wire([queries[i] for i in wide[2:]]), graph="rmat20")
+        assert b1["compiled"] and not b2["compiled"] and b1["bucket"] == [2, widths[0]]
+        assert b1["f_values"] + b2["f_values"] == [int(fv[i]) for i in wide]
+        assert srv.stats()["compiles_total"] == 2
+        report["a"] = dict(
+            n=int(srv.registry.get("rmat20").graph.n), groups=64, clients=4,
+            bucket=out[0]["bucket"], dispatches=1, batched_with=3,
+            winner=winner + 1, min_f=f[winner], scipy_f=info20["want"][winner],
+            load_s=load_s, four_clients_s=coalesced_s,
+            server_latency_ms=[r["latency_ms"] for r in out],
+            engine_device_bytes=engine_bytes, repeat_cached=True,
+            second_bucket_compiles=1, card=CARD)
+        print("serve rmat-20: " + json.dumps(report["a"]))
+
+        # -- 12b. sequential one-source queries in one warm bucket, at the
+        # default coalescing window (12a's wide one would be most of each
+        # request's latency).
+        from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.serve import (
+            batcher,
+        )
+
+        srv.batcher.window_s = batcher.DEFAULT_WINDOW_S
+        single = [[[int(g[0])]] for g in queries[:SERVE_SEQUENTIAL]]
+        with MsbfsClient(addr, timeout=600) as c:
+            c.query([[int(queries[-1][-1])]], graph="rmat20")  # warm the 1x1 bucket
+            rtt = []
+            for q in single:
+                t0 = time.perf_counter()
+                r = c.query(q, graph="rmat20")
+                rtt.append((time.perf_counter() - t0) * 1e3)
+                assert r["ok"] and not r["compiled"], r
+        label = [k for k in srv.stats()["buckets"] if k.endswith(":1x1")]
+        assert len(label) == 1, label
+        b = srv.stats()["buckets"][label[0]]
+        rtt.sort()
+        report["b"] = dict(
+            queries=SERVE_SEQUENTIAL, bucket=label[0], window_s=srv.batcher.window_s,
+            server_p50_ms=b["p50_ms"],
+            server_p99_ms=b["p99_ms"], server_samples=b["requests"],
+            client_p50_ms=rtt[len(rtt) // 2], client_p99_ms=rtt[int(0.99 * (len(rtt) - 1))],
+            card=CARD)
+        print(f"serve rmat-20 sequential latency: p50 {b['p50_ms']} ms, p99 "
+              f"{b['p99_ms']} ms (stats verb, {b['requests']} requests in bucket "
+              f"{label[0]}); card: {CARD}")
+        print("serve rmat-20 sequential: " + json.dumps(report["b"]))
+
+        # -- 12c. a weighted query on phase 11b's road-512 files.
+        w5 = _wire(road5["queries"])
+        timing.reset_launch_counts()
+        with MsbfsClient(addr, timeout=600) as c:
+            c.load(road5["gpath"], graph="road512w")
+            rw = c.query(w5, graph="road512w", weighted=True)
+        counts = timing.launch_counts()
+        launches["serve weighted road-512"] = counts
+        print(f"serve weighted road-512 launches: {json.dumps(counts)}")
+        for kernel in PATH_KERNELS["serve weighted road-512"]:
+            assert counts.get(kernel, 0) > 0, f"{kernel} never launched on serve weighted"
+        assert rw["weighted"] and rw["f_values"] == [int(x) for x in road5["f"]], rw
+        report["c"] = dict(K=len(w5), winner=rw["min_k"] + 1, min_f=rw["min_f"],
+                           f_equal_phase_11b=True, latency_ms=rw["latency_ms"],
+                           weighted_relax_launches=counts.get("weighted_relax", 0), card=CARD)
+        print("serve weighted road-512: " + json.dumps(report["c"]))
+
+        # -- 12e. reload: two engines resident during the swap, one after.
+        gc.collect()
+        m_before = torch.cuda.memory_allocated()
+        old = srv.registry.get("rmat20")
+        t0 = time.perf_counter()
+        with MsbfsClient(addr, timeout=600) as c:
+            info = c.reload(graph="rmat20")
+        reload_s = time.perf_counter() - t0
+        m_two = torch.cuda.memory_allocated()
+        del old
+        gc.collect()
+        m_one = torch.cuda.memory_allocated()
+        assert info["graph"]["version"] == 2 and info["invalidated_results"] >= 1, info
+        assert m_two - m_one >= 0.9 * engine_bytes, (m_two, m_one, engine_bytes)
+        assert m_one <= m_before + 0.05 * engine_bytes, (m_one, m_before, engine_bytes)
+        report["e"] = dict(reload_s=reload_s, engine_bytes=engine_bytes,
+                           allocated_before=m_before, allocated_two_engines=m_two,
+                           allocated_after_release=m_one,
+                           invalidated_results=info["invalidated_results"])
+        print("serve reload rmat-20: " + json.dumps(report["e"]))
+    finally:
+        srv.stop()
+
+    # -- 12f. restart from the journal, ready, the same answer; then drain.
+    t0 = time.perf_counter()
+    srv = MsbfsServer(listen=addr, journal_path=journal)
+    srv.start()
+    try:
+        with MsbfsClient(addr, timeout=600) as c:
+            while not c.health()["ready"]:
+                time.sleep(0.05)
+            ready_s = time.perf_counter() - t0
+            rewarmed = srv.stats()["compiles_total"]
+            health = c.health()
+            again = c.query(quarters[0], graph="rmat20")
+        assert health["ready"] and health["graphs"] == ["rmat20", "road512w"], health
+        assert again["f_values"] == out[0]["f_values"], again
+        stats = srv.stats()
+    finally:
+        drained = srv.drain()
+    assert drained
+    report["f"] = dict(ready_s=ready_s, journal=health["journal"],
+                       rewarmed_buckets=rewarmed, compiles_total=stats["compiles_total"],
+                       drained=drained,
+                       query_compiled=again["compiled"])
+    print("serve restart from journal: " + json.dumps(report["f"]))
+
+    # -- 12d. mutations of road-512 on a daemon that retains planes.
+    n5 = road5["n"]
+    e5 = road5["edges"]
+    gpath = os.path.join(tmp, "road512-u.bin")
+    tio.save_graph_bin(gpath, n5, e5)
+    q5 = road5["queries"]
+    padded5 = tio.pad_queries(q5)
+    batches = generators.delta_batches(n5, e5, batches=3, batch_size=16, locality=0.9,
+                                       seed=seed)
+    # The mutated edge set is replayed here with NumPy alone, not through
+    # the port's DeltaLog that the registry uses: canonical (min, max)
+    # pairs as keys lo * n + hi, self-loops dropped, deletes removed, then
+    # inserts added (a pair in both lists ends up present).
+    def _keys(pairs):
+        p = np.asarray(pairs, np.int64).reshape(-1, 2)
+        lo, hi = p.min(axis=1), p.max(axis=1)
+        return np.unique((lo * n5 + hi)[lo != hi])
+
+    edge_keys = _keys(e5)
+    with _env(MSBFS_SERVE_PLANES="1"):
+        srv = MsbfsServer(listen=addr)
+    srv.start()
+    rows = []
+    try:
+        with MsbfsClient(addr, timeout=600) as c:
+            c.load(gpath, graph="road512")
+            first = c.query(_wire(q5), graph="road512")
+            for i, (ins, dels) in enumerate(batches):
+                m = c.mutate(inserts=ins.tolist(), deletes=dels.tolist(), graph="road512")
+                edge_keys = np.union1d(np.setdiff1d(edge_keys, _keys(dels)), _keys(ins))
+                t0 = time.perf_counter()
+                r = c.query(_wire(q5), graph="road512")
+                rtt_ms = (time.perf_counter() - t0) * 1e3
+                assert r["repaired"], r
+                served = srv.registry.get("road512").graph
+                u, v = edge_keys // n5, edge_keys % n5
+                mine = CSRGraph.from_edges(n5, np.stack([u, v], axis=1).astype(np.int32))
+                assert np.array_equal(served.row_offsets, mine.row_offsets)
+                assert np.array_equal(served.col_indices, mine.col_indices)
+                t0 = time.perf_counter()
+                fresh = build_supervised_engine(mine, dev)
+                fresh.compile(padded5.shape)
+                build_s = time.perf_counter() - t0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                f_fresh = torch.as_tensor(fresh.f_values(padded5)).cpu().numpy()
+                recompute_ms = (time.perf_counter() - t0) * 1e3
+                a = sp.csr_matrix((np.ones(2 * u.size, np.float32),
+                                   (np.concatenate([u, v]), np.concatenate([v, u]))),
+                                  shape=(n5, n5))
+                want = [_scipy_f(cg, np, a, g) for g in q5]
+                assert r["f_values"] == [int(x) for x in f_fresh] == want, (i, r["f_values"])
+                rows.append(dict(
+                    version=m["version"], digest=m["digest"], inserts=m["applied"]["inserts"],
+                    deletes=m["applied"]["deletes"], repair_host_ms=r["latency_ms"],
+                    repair_round_trip_ms=rtt_ms, repair=r["dynamic"],
+                    fresh_engine=fresh.engine_label, fresh_build_and_warm_s=build_s,
+                    fresh_recompute_ms=recompute_ms, f_equal_fresh_engine_and_scipy=True))
+                del fresh
+        stats = srv.stats()["dynamic"]
+    finally:
+        srv.stop()
+    assert stats["requests_repaired"] == 3 and stats["planes_retained"] >= 1, stats
+    report["d"] = dict(K=len(q5), first_latency_ms=first["latency_ms"], mutations=rows,
+                       dynamic=stats, card=CARD)
+    for row in rows:
+        print(f"serve road-512 mutation v{row['version']}: repair {row['repair_host_ms']} ms "
+              f"host (fallback {row['repair']['fallback']}, cone {row['repair']['cone_size']}) "
+              f"against recompute {row['fresh_recompute_ms']:.3f} ms on a fresh "
+              f"{row['fresh_engine']} engine (+{row['fresh_build_and_warm_s']:.3f} s build "
+              f"and warm-up); card: {CARD}")
+    print("serve road-512 mutations: " + json.dumps(report["d"]))
+    os.remove(gpath)
+    print(f"phase 12: {time.perf_counter() - t_phase:.1f} s")
 
 
 def _run_cli(cli, argv, native=True):
@@ -4224,9 +4545,19 @@ def main() -> int:
 
     # ---- 11. the weighted route: RMAT-20 (phase 5b's groups, K = 64),
     # road-512 (every flavor), road-128 (the audit and verify)
-    main_shape.update(_weighted_phase(
+    rows11, road5 = _weighted_phase(
         (torch, np, sp, cg, cli, tio, timing, generators, launches, tmp, dev),
-        n20, e20, info20["queries"], n5, e5, seed))
+        n20, e20, info20["queries"], n5, e5, seed)
+    main_shape.update(rows11)
+    torch.cuda.empty_cache()
+
+    # ---- 12. the serving daemon: RMAT-20 from four concurrent clients,
+    # sequential latency, a weighted query, mutations and repair on
+    # road-512, a reload, a restart from the journal
+    road5.update(n=n5, edges=e5)
+    _serving_phase((torch, np, sp, cg, cli, tio, timing, generators, launches, tmp, dev),
+                   info20, road5, seed)
+    os.remove(road5["gpath"])
     os.remove(info20["gpath"])
     del bg20, g20, e20, info20
     torch.cuda.empty_cache()

@@ -34,7 +34,9 @@ Ahead of all of them, ``MSBFS_WEIGHTED=1`` takes the weighted route
 (weighted/: delta-stepping over the file's edge costs, its flavor from
 ``MSBFS_WEIGHTED_ENGINE``, its bucket width from ``MSBFS_DELTA``, audited
 under ``MSBFS_AUDIT``), and the ``verify`` subcommand certifies answers
-(:func:`verify_main`).  Every other route or mode of the JAX CLI exits 1
+(:func:`verify_main`); the serving subcommands ``serve``, ``query``,
+``health`` and ``trace`` run the single-replica daemon and its client
+(serve/).  Every other route or mode of the JAX CLI exits 1
 with a one-line message naming it as not yet ported; none of them
 silently runs something else.
 
@@ -57,8 +59,9 @@ import torch
 from .utils import knobs
 
 # Subcommands of the JAX CLI that dispatch before the reference grammar
-# and are not ported yet (``verify`` is: :func:`verify_main`).
-_SUBCOMMANDS = ("serve", "query", "fleet", "health", "trace", "analyze")
+# and are not ported yet (``verify``, ``serve``, ``query``, ``health`` and
+# ``trace`` are: :func:`verify_main`, serve/).
+_SUBCOMMANDS = ("fleet", "analyze")
 
 # Levels per dispatch for the auto bound of the gather engines (the JAX
 # package's value); the stencil route replaces it with its own.
@@ -211,7 +214,7 @@ def _unported_knob() -> Optional[str]:
         )
     if knobs.raw("MSBFS_PROFILE_DIR", ""):
         return "MSBFS_PROFILE_DIR (the profiler trace of the computation span)"
-    return None
+    return knobs.unported_cache_dir()
 
 
 def bitbell_ladder(graph, level_chunk, device, native: bool = True):
@@ -405,6 +408,23 @@ def main(argv: Optional[List[str]] = None, device=None, native: bool = True) -> 
         print(format_failure(err, events), end="", file=sys.stderr)
         return err.exit_code
 
+    # The serving subcommands dispatch before the reference grammar, as in
+    # the JAX CLI: ``serve`` runs the daemon (on the card unless ``device``
+    # says otherwise), ``query`` the thin client, ``health`` the readiness
+    # probe (``query --health``), ``trace`` the Chrome-trace export.
+    if len(argv) > 1 and argv[1] == "serve":
+        from .serve.server import serve_main
+
+        return serve_main(argv[2:], device=device, native=native)
+    if len(argv) > 1 and argv[1] in ("query", "health"):
+        from .serve.client import query_main
+
+        extra = ["--health"] if argv[1] == "health" else []
+        return query_main(argv[2:] + extra)
+    if len(argv) > 1 and argv[1] == "trace":
+        from .serve.client import trace_main
+
+        return trace_main(argv[2:])
     if len(argv) > 1 and argv[1] == "verify":
         # Offline output certification: exit 0 certified, 9 corrupt.
         return verify_main(argv[2:], device=device, native=native)

@@ -133,3 +133,65 @@ def edge_costs(
     else:
         raise ValueError(f"unknown cost distribution {dist!r}")
     return w.astype(np.int32)
+
+
+def gnm_edges(n: int, m: int, seed: int = 0) -> Tuple[int, np.ndarray]:
+    """Uniform G(n, m) multigraph (duplicates and self-loops possible);
+    the JAX package's generator, the same edges for the same seed."""
+    rng = np.random.default_rng(seed)
+    edges = rng.integers(0, n, size=(m, 2), dtype=np.int64).astype(np.int32)
+    return n, edges
+
+
+def delta_batches(
+    n: int,
+    edges: np.ndarray,
+    batches: int = 1,
+    batch_size: int = 16,
+    locality: float = 0.9,
+    insert_frac: float = 0.5,
+    seed: int = 0,
+) -> List[Tuple[np.ndarray, np.ndarray]]:
+    """Seeded edge-delta batches against (n, edges) for the dynamic graphs
+    (``dynamic.delta``): each batch is (inserts, deletes) pair arrays,
+    ``batch_size`` mutations split ``insert_frac``/rest.  The JAX
+    package's generator: the same batches for the same seed.
+
+    ``locality`` in [0, 1]: each batch draws every endpoint from one
+    contiguous vertex-id window of ``max(8, round(n * (1 - locality)))``
+    ids (1.0 is a street-closure-sized patch on a row-major grid, 0.0 is
+    whole-graph churn).  Deletes are drawn from the live canonical edge
+    set, inside the window; inserts are fresh window-local pairs."""
+    from ..dynamic.delta import canonical_edge_keys, keys_to_pairs
+
+    if not 0.0 <= locality <= 1.0:
+        raise ValueError(f"locality must be in [0, 1], got {locality}")
+    rng = np.random.default_rng(seed)
+    live = canonical_edge_keys(np.asarray(edges))
+    span = max(8, int(round(n * (1.0 - locality))))
+    span = min(span, n)
+    out: List[Tuple[np.ndarray, np.ndarray]] = []
+    for _ in range(batches):
+        lo = int(rng.integers(0, max(1, n - span + 1)))
+        hi = lo + span
+        n_ins = int(round(batch_size * insert_frac))
+        n_del = batch_size - n_ins
+        ins = rng.integers(lo, hi, size=(n_ins, 2), dtype=np.int64).astype(
+            np.int32
+        )
+        pairs = keys_to_pairs(live)
+        in_window = (pairs[:, 0] >= lo) & (pairs[:, 1] < hi)
+        candidates = live[in_window]
+        take = min(n_del, candidates.size)
+        dels_keys = (
+            rng.choice(candidates, size=take, replace=False)
+            if take
+            else np.zeros(0, dtype=np.int64)
+        )
+        dels = keys_to_pairs(np.sort(dels_keys))
+        out.append((ins, dels))
+        live = np.union1d(
+            np.setdiff1d(live, dels_keys, assume_unique=False),
+            canonical_edge_keys(ins),
+        )
+    return out

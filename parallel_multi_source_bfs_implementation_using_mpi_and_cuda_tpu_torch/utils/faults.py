@@ -32,12 +32,29 @@ result seam).  Kinds that fire here:
 ``bitflip``    site ``plane<i>``, ``dist`` or ``wplane``: flips one
                deterministic bit of a live buffer (:func:`corrupt`).
 
-Every other kind of the JAX grammar (``replica_kill``, ``replica_slow``,
-``net_drop``, ``wire_corrupt``, ``host_down``, ``net_partition``,
-``net_delay``, ``net_dup``, ``net_reorder``, ``half_open``,
-``disk_full``) parses with the same checks and messages, and fires
-nowhere: its sites belong to the serving runtime, which the port does
-not have yet — as in the JAX batch CLI, which never trips them either.
+The serving daemon (serve/) adds the seams of the JAX package's serving
+runtime:
+
+``disk_full``  site ``journal``: trips inside ``StateJournal.append``
+               (the ``journal_append`` site) and raises
+               :class:`SimulatedDiskFull`, an ``OSError`` with the ENOSPC
+               shape, which the journal turns into ``StorageError``;
+               ``journal_append`` / ``journal_replay`` are also the sites
+               where ``crash`` and the other raising kinds rehearse the
+               journal;
+``wire_corrupt``  site ``route<r>``: arms a thread-local taint that the
+               next ``protocol.send_frame`` consumes, flipping one body
+               bit after the crc32 was computed;
+``net_partition``, ``net_delay``, ``net_dup``, ``net_reorder``,
+``half_open``  arm thread-local frame filters that ``send_frame`` /
+               ``recv_frame`` consume (:func:`arm_frame_chaos`,
+               :func:`arm_read_blackhole`, :func:`heal`).
+
+The ``route<r>`` sites are tripped by the fleet router, which is not yet
+ported; tests trip them directly.  The kinds that only the fleet fires —
+``replica_kill``, ``replica_slow``, ``net_drop``, ``host_down`` and
+``disk_full:shard`` — parse with the JAX package's checks and messages,
+and tripping one raises ``NotImplementedError`` ("not yet ported").
 """
 
 from __future__ import annotations
@@ -85,6 +102,61 @@ class SimulatedChipLoss(RuntimeError):
         self.failed_ranks = frozenset(int(r) for r in failed_ranks)
 
 
+class SimulatedReplicaKill(RuntimeError):
+    """A whole serving replica dying on cue (the fleet supervisor's
+    heartbeat seam); carries the replica index."""
+
+    def __init__(self, msg: str, replica: int):
+        super().__init__(msg)
+        self.replica = int(replica)
+
+
+class SimulatedNetDrop(RuntimeError):
+    """The network path to one replica going away before the request is
+    sent; the message carries the UNAVAILABLE mark (transient)."""
+
+    def __init__(self, msg: str, replica: int):
+        super().__init__(msg)
+        self.replica = int(replica)
+
+
+class SimulatedHostDown(RuntimeError):
+    """A whole host going dark at once; carries the host label."""
+
+    def __init__(self, msg: str, host: str):
+        super().__init__(msg)
+        self.host = str(host)
+
+
+class SimulatedPartitionDrop(SimulatedNetDrop):
+    """A frame dropped at an armed ``net_partition`` cut; carries both
+    sides of the cut."""
+
+    def __init__(self, msg: str, replica: int, side: str, target_side: str):
+        super().__init__(msg, replica)
+        self.side = str(side)
+        self.target_side = str(target_side)
+
+
+class SimulatedHalfOpen(RuntimeError):
+    """A read against a half-open connection: the request went into a
+    black hole and the response never comes (TIMED OUT: transient)."""
+
+    def __init__(self, msg: str, replica: int):
+        super().__init__(msg)
+        self.replica = int(replica)
+
+
+class SimulatedDiskFull(OSError):
+    """A durable write that hit the end of the disk: ENOSPC, an
+    ``OSError`` the journal's own handler turns into ``StorageError``."""
+
+    def __init__(self, msg: str):
+        import errno
+
+        super().__init__(errno.ENOSPC, msg)
+
+
 class SimulatedPoison(RuntimeError):
     """A query whose content deterministically kills its dispatch.  It
     carries no taxonomy mark: it classifies as the base ``MsbfsError``."""
@@ -103,7 +175,7 @@ class FaultSpec:
     matches: int = 0  # poison/partition/delay: matching trips so far
     groups: Optional[tuple] = None  # net_partition: (frozenset, frozenset)
     delay_ms: int = 0  # net_delay: injected per-frame latency
-    healed: bool = False  # net_partition
+    healed: bool = False  # net_partition: True once heal() lifted the cut
 
     @property
     def trip_site(self) -> str:
@@ -262,7 +334,9 @@ class FaultPlan:
         raw = knobs.raw("MSBFS_FAULTS", "").strip()
         if not raw:
             return None
-        return cls.parse(raw, hang_seconds=knobs.get_float("MSBFS_FAULT_HANG", 60.0))
+        return cls.parse(
+            raw, hang_seconds=knobs.get_float("MSBFS_FAULT_HANG", 60.0)
+        )
 
     def reset(self) -> None:
         """Re-arm every spec and zero the counters (replay)."""
@@ -300,8 +374,8 @@ class FaultPlan:
             due = [
                 s
                 for s in self.specs
-                # bitflip is delivered by corrupt(); poison has its own
-                # match below; the latched network kinds never fire here.
+                # bitflip is delivered by corrupt(); poison and the
+                # repeating network kinds have their own matches below.
                 if s.kind not in ("poison", "bitflip", "net_partition",
                                   "net_delay")
                 and s.trip_site == site
@@ -310,6 +384,8 @@ class FaultPlan:
             ]
             for s in due:
                 s.fired = True
+            route = _ROUTE_RE.match(site)
+            route_idx = int(route.group(1)) if route else None
             for s in self.specs:
                 if (
                     s.kind == "poison"
@@ -319,8 +395,26 @@ class FaultPlan:
                     s.matches += 1
                     if s.matches >= s.at:
                         due.append(s)
+                elif s.kind == "net_delay" and s.trip_site == site:
+                    # A slow link delays every frame, never one-shot.
+                    s.matches += 1
+                    s.fired = True
+                    due.append(s)
+                elif (
+                    s.kind == "net_partition"
+                    and not s.healed
+                    and route_idx is not None
+                    and (route_idx in s.groups[0]
+                         or route_idx in s.groups[1])
+                ):
+                    # Latched: from the at-th trip of any member route on,
+                    # every crossing frame drops until heal().
+                    s.matches += 1
+                    if s.matches >= s.at and _crosses(s, route_idx):
+                        s.fired = True
+                        due.append(s)
         for s in due:  # outside the lock: hangs sleep, fires raise
-            self._fire(s)
+            self._fire(s, tripped_site=site)
 
     def pending(self) -> List[FaultSpec]:
         with self._lock:
@@ -352,7 +446,15 @@ class FaultPlan:
             return arr
         return _flip_bit(arr, site)
 
-    def _fire(self, s: FaultSpec) -> None:
+    def heal(self) -> None:
+        """Lift every armed ``net_partition``: crossing frames flow
+        again.  Counters and every other spec are untouched."""
+        with self._lock:
+            for s in self.specs:
+                if s.kind == "net_partition":
+                    s.healed = True
+
+    def _fire(self, s: FaultSpec, tripped_site: Optional[str] = None) -> None:
         where = f"at {s.site} (trip {s.at})"
         if s.kind == "io":
             raise IOError(f"injected io fault {where}")
@@ -384,8 +486,36 @@ class FaultPlan:
                 f"injected poison query: batch contains vertex "
                 f"{s.vertex} {where}"
             )
+        if s.kind == "disk_full" and s.site == "journal":
+            raise SimulatedDiskFull(
+                f"injected disk full: no space left on device {where}"
+            )
+        if s.kind == "wire_corrupt":
+            # Not a raise: the call proceeds so the corrupt frame crosses
+            # the wire and the receiver's crc32 check catches it.
+            arm_wire_corruption()
+            return
+        # The frame-level network kinds arm thread-local filters that the
+        # protocol seam (serve/protocol.py) consumes at the actual frame.
+        if s.kind == "net_partition":
+            m = _ROUTE_RE.match(tripped_site or "")
+            target = int(m.group(1)) if m else (s.replica or 0)
+            target_side = "A" if target in s.groups[0] else "B"
+            arm_frame_chaos("drop", replica=target, spec=s,
+                            side=net_side.current(), target_side=target_side)
+            return
+        if s.kind == "net_delay":
+            arm_frame_chaos("delay", replica=s.replica,
+                            delay_ms=s.delay_ms, spec=s)
+            return
+        mode = {"net_dup": "dup", "net_reorder": "reorder",
+                "half_open": "half_open"}.get(s.kind)
+        if mode is not None:
+            arm_frame_chaos(mode, replica=s.replica, spec=s)
+            return
+        # replica_kill, replica_slow, net_drop, host_down, disk_full:shard.
         raise NotImplementedError(
-            f"{s.kind} faults fire at the serving runtime's seams, which "
+            f"{s.kind} faults fire at the serving fleet's seams, which "
             "are not yet ported to the PyTorch/CUDA package"
         )
 
@@ -441,6 +571,135 @@ def _flip_bit(arr, token: str):
     bit = zlib.crc32(token.encode()) % (flat.size * 8)
     flat[bit // 8] ^= np.uint8(1 << (bit % 8))
     return out
+
+
+# ---- wire taint (wire_corrupt) --------------------------------------------
+_WIRE_TAINT = threading.local()
+
+
+def arm_wire_corruption() -> None:
+    """Arm the thread-local taint: the next frame this thread sends has
+    one body bit flipped after its crc32 is computed."""
+    _WIRE_TAINT.armed = True
+
+
+def consume_wire_taint() -> bool:
+    """Check-and-clear the taint (called by ``protocol.send_frame``)."""
+    armed = getattr(_WIRE_TAINT, "armed", False)
+    _WIRE_TAINT.armed = False
+    return armed
+
+
+# ---- frame chaos (net_partition/net_delay/net_dup/net_reorder/half_open) --
+# Armed at the trip, consumed at the protocol seam: a list of filters that
+# the next send_frame on the thread applies in arm order.
+_FRAME_CHAOS = threading.local()
+
+_NET_SIDES = ("A", "B")
+
+
+def _crosses(spec: FaultSpec, route_idx: int) -> bool:
+    """True when the calling thread's side and ``route_idx``'s group sit
+    on opposite shores of ``spec``'s partition."""
+    target_side = "A" if route_idx in spec.groups[0] else "B"
+    return net_side.current() != target_side
+
+
+class net_side:
+    """``with net_side("B"):`` — declare which shore of an armed
+    ``net_partition`` this thread's traffic comes from (default "A")."""
+
+    def __init__(self, side: str):
+        side = str(side).upper()
+        if side not in _NET_SIDES:
+            raise ValueError(f"net_side {side!r}: want one of {_NET_SIDES}")
+        self.side = side
+        self._prev: Optional[str] = None
+
+    @staticmethod
+    def current() -> str:
+        return getattr(_FRAME_CHAOS, "side", "A")
+
+    def __enter__(self) -> "net_side":
+        self._prev = getattr(_FRAME_CHAOS, "side", None)
+        _FRAME_CHAOS.side = self.side
+        return self
+
+    def __exit__(self, *exc) -> None:
+        _FRAME_CHAOS.side = "A" if self._prev is None else self._prev
+
+
+def arm_frame_chaos(mode: str, replica=None, delay_ms: int = 0,
+                    spec: Optional[FaultSpec] = None, side: str = "A",
+                    target_side: str = "A") -> None:
+    """Arm one thread-local frame filter; the next ``send_frame`` on this
+    thread consumes the whole list."""
+    pending = getattr(_FRAME_CHAOS, "pending", None)
+    if pending is None:
+        pending = _FRAME_CHAOS.pending = []
+    pending.append({
+        "mode": mode,
+        "replica": replica,
+        "delay_ms": int(delay_ms),
+        "spec": spec,
+        "side": side,
+        "target_side": target_side,
+    })
+
+
+def consume_frame_chaos() -> list:
+    """Check-and-clear the armed filter list (``send_frame``)."""
+    pending = getattr(_FRAME_CHAOS, "pending", None)
+    _FRAME_CHAOS.pending = []
+    return pending or []
+
+
+def peek_frame_chaos() -> list:
+    """Non-consuming view of the armed filters (tests check a
+    ``net_delay`` without paying its sleep)."""
+    return list(getattr(_FRAME_CHAOS, "pending", None) or [])
+
+
+def arm_read_blackhole(replica=None) -> None:
+    """Arm the half-open read black hole: the next ``recv_frame`` on this
+    thread raises :class:`SimulatedHalfOpen` instead of reading."""
+    _FRAME_CHAOS.blackhole = -1 if replica is None else int(replica)
+
+
+def consume_read_blackhole():
+    """Check-and-clear the black hole (``recv_frame``): None when unarmed,
+    else the armed replica index (-1 when unknown)."""
+    armed = getattr(_FRAME_CHAOS, "blackhole", None)
+    _FRAME_CHAOS.blackhole = None
+    return armed
+
+
+def raise_partition_drop(replica, side: str, target_side: str):
+    """Deliver a consumed ``drop`` filter (called by ``send_frame``), so
+    every ``Simulated*`` raise stays in this module."""
+    raise SimulatedPartitionDrop(
+        f"simulated network partition: frame to replica {replica} "
+        "crossed the cut and was dropped (UNAVAILABLE)",
+        replica if replica is not None else -1,
+        side, target_side,
+    )
+
+
+def raise_half_open(replica: int):
+    """Deliver a consumed read black hole (called by ``recv_frame``)."""
+    raise SimulatedHalfOpen(
+        "simulated half-open connection: the request to replica "
+        f"{replica} was swallowed by a dead peer's socket and the "
+        "read TIMED OUT",
+        replica,
+    )
+
+
+def heal() -> None:
+    """Lift every ``net_partition`` of the active plan (no-op without
+    one)."""
+    if _active is not None:
+        _active.heal()
 
 
 class injected:

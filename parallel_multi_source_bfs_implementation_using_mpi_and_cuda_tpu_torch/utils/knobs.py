@@ -56,7 +56,35 @@ _ALL = (
     Knob("MSBFS_WEIGHTED", None, "flag", "1 routes the CLI batch run through the weighted delta-stepping engines (graph must carry a cost section)"),
     Knob("MSBFS_WEIGHTED_ENGINE", "auto", "str", "weighted engine flavor: auto/bitbell/stencil/mesh2d (capability-token negotiated; impossible asks fail loud)"),
     Knob("MSBFS_DELTA", "0", "int", "delta-stepping bucket width; 0/unset auto-derives from the mean edge cost"),
+    # The serving daemon (serve/) and the dynamic graphs (dynamic/).
+    Knob("MSBFS_SERVE_LISTEN", "unix:/tmp/msbfs.sock", "spec", "serving daemon listen address"),
+    Knob("MSBFS_SERVE_QUEUE", "64", "int", "admission queue capacity (full -> typed exit-7 rejection)"),
+    Knob("MSBFS_SERVE_WINDOW", "0.002", "float", "micro-batching coalescing window in seconds"),
+    Knob("MSBFS_SERVE_MAX_ROWS", "1024", "int", "max query rows per dispatched batch"),
+    Knob("MSBFS_SERVE_RESULT_CACHE", "1024", "int", "result-cache LRU entries; 0 disables"),
+    Knob("MSBFS_SERVE_TIMEOUT", "300", "float", "per-request deadline in seconds"),
+    Knob("MSBFS_SERVE_MAX_FRAME", "67108864", "int", "wire-frame byte bound"),
+    Knob("MSBFS_SERVE_JOURNAL", None, "path", "crash-recovery state journal path"),
+    Knob("MSBFS_SERVE_DRAIN", "10", "float", "SIGTERM graceful-drain deadline in seconds"),
+    Knob("MSBFS_SERVE_CLIENT_RATE", "0", "float", "per-client admission tokens per second; 0 disables"),
+    Knob("MSBFS_SERVE_CLIENT_BURST", None, "float", "per-client token-bucket burst; unset = max(8, 2*rate)"),
+    Knob("MSBFS_SERVE_BATCH_ADMIT", "0.75", "float", "batch-class admission headroom fraction of queue capacity"),
+    Knob("MSBFS_SERVE_CODEL_TARGET_MS", "0", "float", "CoDel sojourn target in ms; 0 disables"),
+    Knob("MSBFS_SERVE_CODEL_INTERVAL_MS", "100", "float", "CoDel control interval in ms"),
+    Knob("MSBFS_SERVE_PLANES", "auto", "str", "retain distance planes as repair seeds: auto/1/0"),
+    Knob("MSBFS_SERVE_PLANE_CACHE_BYTES", "268435456", "int", "plane-cache byte cap"),
+    Knob("MSBFS_JOURNAL_MAX_BYTES", "1048576", "int", "journal auto-compaction threshold in bytes"),
+    Knob("MSBFS_MXU_CACHE_BYTES", "268435456", "int", "registry mxu tile-index cache byte cap (LRU); <= 0 disables"),
+    Knob("MSBFS_WIRE_CRC", "on", "str", "protocol frame crc32: on / legacy (send pre-crc frames)"),
+    Knob("MSBFS_NET_CONNECT_TIMEOUT_S", "5", "float", "socket connect deadline in seconds when the caller gave none; 0 = blocking"),
+    Knob("MSBFS_NET_READ_TIMEOUT_S", "0", "float", "per-read socket timeout after connect; 0 = inherit the request timeout"),
+    Knob("MSBFS_NET_KEEPALIVE", "1", "flag", "0 disables SO_KEEPALIVE on TCP legs"),
+    Knob("MSBFS_MUTATE_DEDUP_WINDOW", "1024", "int", "exactly-once mutate: applied idempotency tokens remembered per daemon"),
+    Knob("MSBFS_REPAIR_MAX_FRAC", "0.5", "float", "repair-cone fraction above which repair falls back to full recompute"),
+    Knob("MSBFS_TRACE", None, "flag", "1 mints a per-query distributed trace at the client edge"),
+    Knob("MSBFS_LOG_FORMAT", None, "str", "json switches daemon stderr to structured logs"),
     # Routes and modes of the JAX CLI that the port refuses by name.
+    Knob("MSBFS_CACHE_DIR", None, "path", "the JAX package's persistent XLA compile cache; the port builds its kernels into the package's build/ and refuses the knob (fails)"),
     Knob("MSBFS_MESH", None, "spec", "2D mesh partition (not yet ported: fails)"),
     Knob("MSBFS_COORDINATOR", None, "spec", "multi-host bring-up: coordinator addr:port (not yet ported: fails)"),
     Knob("MSBFS_NUM_PROCESSES", "1", "int", "multi-host bring-up: world size (not yet ported: fails)"),
@@ -100,3 +128,16 @@ def get_float(name: str, default: float) -> float:
         return float(val)
     except ValueError:
         return default
+
+
+def unported_cache_dir() -> Optional[str]:
+    """What to name in the refusal when ``MSBFS_CACHE_DIR`` is set, else
+    None.  The knob names the JAX package's persistent XLA compile cache;
+    the port builds its kernels into the package's ``build/`` whatever it
+    says, so the batch CLI and the daemon both refuse it."""
+    if raw("MSBFS_CACHE_DIR", ""):
+        return (
+            "MSBFS_CACHE_DIR (the persistent XLA compile cache; the port "
+            "builds its kernels into the package's build/)"
+        )
+    return None

@@ -103,7 +103,8 @@ def reset_dispatch_count() -> None:
 
 
 def record_plane_pass(nbytes: int) -> None:
-    """Account ``nbytes`` of analytic stencil stream traffic."""
+    """Account ``nbytes`` of analytic plane traffic: stencil level chunks
+    and the dynamic repair's cone or its full-sweep fallback."""
     global _plane_pass_bytes
     with _lock:
         _plane_pass_bytes += int(nbytes)
@@ -147,6 +148,20 @@ def reset_mxu_tiles() -> None:
     global _mxu_flops, _mxu_tiles_skipped, _mxu_tiles_total
     with _lock:
         _mxu_flops = _mxu_tiles_skipped = _mxu_tiles_total = 0
+
+
+def counter_totals() -> dict:
+    """The engine counters in one dict (the ``metrics`` verb's gauges):
+    dispatches, plane_pass_bytes, mxu_flops/mxu_tiles_skipped/
+    mxu_tiles_total."""
+    flops, skipped, total = mxu_tile_counts()
+    return {
+        "dispatches": dispatch_count(),
+        "plane_pass_bytes": plane_pass_bytes(),
+        "mxu_flops": flops,
+        "mxu_tiles_skipped": skipped,
+        "mxu_tiles_total": total,
+    }
 
 
 def record_launch(kernel: str, variant: str = "") -> None:

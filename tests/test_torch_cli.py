@@ -169,11 +169,8 @@ def test_missing_file_matches_jax(tmp_path, capsys, missing):
         ({"MSBFS_COORDINATOR": "localhost:12345", "MSBFS_NUM_PROCESSES": "2"}, None),
         ({"MSBFS_PROFILE_DIR": "profile"}, None),
         ({"MSBFS_MESH": "2x2"}, None),
-        ({}, "serve"),
-        ({}, "query"),
+        ({"MSBFS_CACHE_DIR": "xla-cache"}, None),
         ({}, "fleet"),
-        ({}, "health"),
-        ({}, "trace"),
         ({}, "analyze"),
     ],
 )
@@ -188,6 +185,66 @@ def test_unported_routes_fail_loudly(tmp_path, capsys, monkeypatch, env, subcomm
     assert out.out == ""
     assert len(out.err.splitlines()) == 1
     assert "not yet ported" in out.err
+
+
+# The serving subcommands' argv after the subcommand, for cases that need
+# no live daemon; "{dead}" is a unix socket path nothing listens on.
+SERVING = {
+    "query_dead_socket": ["query", "--connect", "unix:{dead}", "--ping"],
+    "query_dead_socket_queries": ["query", "--connect", "unix:{dead}", "-q", "{q}"],
+    "health_dead_socket": ["health", "--connect", "unix:{dead}"],
+    "trace_dead_socket": ["trace", "--connect", "unix:{dead}", "--list"],
+    "serve_bad_listen": ["serve", "--listen", "nohost"],
+}
+
+
+@pytest.mark.parametrize("case", sorted(SERVING))
+def test_serving_subcommands_match_jax(tmp_path, capsys, monkeypatch, case):
+    """``serve``, ``query``, ``health`` and ``trace`` dispatch as the JAX
+    CLI's do: the same exit code, stdout and stderr where no daemon
+    answers or the listen address is malformed."""
+    monkeypatch.delenv("MSBFS_FAULTS", raising=False)
+    argv = _fixture(tmp_path)
+    fill = {"dead": str(tmp_path / "nobody.sock"), "q": argv[4]}
+    sub = ["prog"] + [a.format(**fill) for a in SERVING[case]]
+    (rc_port, port), (rc_jax, jax_out) = _run_both(sub, capsys)
+    assert rc_port == rc_jax
+    assert rc_port == (1 if case.startswith("serve") else 5)
+    assert port.out == jax_out.out
+    assert _stderr(port.err) == _stderr(jax_out.err)
+    assert not os.path.exists(fill["dead"])
+
+
+@pytest.mark.parametrize("route", ["batch", "serve"])
+def test_cache_dir_is_refused(tmp_path, capsys, monkeypatch, route):
+    """``MSBFS_CACHE_DIR`` names the JAX package's persistent XLA compile
+    cache; the port builds its kernels into the package's build/ and
+    refuses the knob with exit 1, on the batch CLI and on ``serve`` (before
+    any graph loads), and an empty value is unset."""
+    argv = _fixture(tmp_path)
+    if route == "serve":
+        argv = ["prog", "serve", "--listen", f"unix:{tmp_path}/s.sock", "-g", argv[2]]
+    monkeypatch.setenv("MSBFS_CACHE_DIR", str(tmp_path / "cache"))
+    assert cli.main(argv, device="cpu") == 1
+    out = capsys.readouterr()
+    assert out.out == ""
+    assert "MSBFS_CACHE_DIR" in out.err and "not yet ported" in out.err
+    assert not os.path.exists(tmp_path / "cache")
+    assert not os.path.exists(tmp_path / "s.sock")
+    if route == "batch":
+        monkeypatch.setenv("MSBFS_CACHE_DIR", "")
+        assert cli.main(argv, device="cpu") == 0
+        assert capsys.readouterr().out.startswith("Graph: ")
+
+
+def test_serve_needs_a_card(tmp_path):
+    """Without ``device``, ``serve`` runs on the card, and raises where
+    there is none, before it binds anything."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: serve would start and wait")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["prog", "serve", "--listen", f"unix:{tmp_path}/s.sock"])
+    assert not os.path.exists(tmp_path / "s.sock")
 
 
 def _stderr(err: str):

@@ -246,10 +246,88 @@ def test_module_seams():
 
 
 def test_serving_kinds_fire_nowhere_here():
-    """A serving-only kind's site is never tripped by the batch CLI; if a
-    caller trips it, the port says those seams are not ported."""
-    plan = faults.FaultPlan.parse("net_drop:route1:1,disk_full:journal:1")
+    """The kinds only the serving fleet fires (replica_kill, replica_slow,
+    net_drop, host_down, disk_full:shard) are never tripped by the batch
+    CLI or the single daemon; if a caller trips one, the port says those
+    seams are not ported."""
+    plan = faults.FaultPlan.parse(
+        "replica_kill:replica0:1,replica_slow:route1:1,net_drop:route2:1,"
+        "host_down:hostA:1,disk_full:shard:1"
+    )
     plan.trip("dispatch")
     plan.trip("load_graph")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        plan.trip("route1")
+    plan.trip("journal_append")
+    for site in ("replica0", "route1", "route2", "hostA", "shard_write"):
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            plan.trip(site)
+
+
+# The serving seams the single daemon fires: (plan, trip site), each
+# tripped on both packages' plans; the outcome is the raise, or what the
+# trip armed on the thread (wire taint, frame filters).
+SERVING_FIRES = {
+    "disk_full_journal": ("disk_full:journal:2", "journal_append"),
+    "wire_corrupt": ("wire_corrupt:route1:1", "route1"),
+    "net_delay": ("net_delay:route1:250", "route1"),
+    "net_dup": ("net_dup:route0:1", "route0"),
+    "net_reorder": ("net_reorder:route1:1", "route1"),
+    "half_open": ("half_open:route0:1", "route0"),
+    "net_partition": ("net_partition:route0.route1|route2:1", "route2"),
+}
+
+
+def _serving_outcome(mod, text, site):
+    plan = mod.FaultPlan.parse(text)
+    raised = []
+    for _ in range(2):
+        try:
+            plan.trip(site)
+        except OSError as exc:
+            raised.append((type(exc).__name__, exc.errno, str(exc)))
+    armed = [
+        {k: v for k, v in f.items() if k != "spec"} for f in mod.consume_frame_chaos()
+    ]
+    return raised, mod.consume_wire_taint(), armed, [s.fired for s in plan.specs]
+
+
+@pytest.mark.parametrize("case", sorted(SERVING_FIRES))
+def test_serving_seams_fire_as_jax(case):
+    """disk_full:journal raises ENOSPC on its n-th journal append, the wire
+    and frame kinds arm the same thread-local taint and filters, as the
+    JAX package's plan does on the same trips."""
+    text, site = SERVING_FIRES[case]
+    mine = _serving_outcome(faults, text, site)
+    theirs = _serving_outcome(jfaults, text, site)
+    assert mine == theirs
+    if case == "disk_full_journal":
+        assert mine[0] == [("SimulatedDiskFull", 28,
+                            "[Errno 28] injected disk full: no space left on "
+                            "device at journal (trip 2)")]
+
+
+def test_partition_heal_and_read_blackhole_match_jax():
+    """A healed partition stops dropping; the read black hole and the
+    partition drop raise the JAX package's messages."""
+    for mod in (faults, jfaults):
+        plan = mod.FaultPlan.parse("net_partition:route0|route1:1")
+        mod.activate(plan)
+        try:
+            plan.trip("route1")
+            assert [f["mode"] for f in mod.consume_frame_chaos()] == ["drop"]
+            mod.heal()
+            plan.trip("route1")
+            assert mod.consume_frame_chaos() == []
+        finally:
+            mod.activate(None)
+    msgs = []
+    for mod in (faults, jfaults):
+        mod.arm_read_blackhole(3)
+        got = mod.consume_read_blackhole()
+        assert mod.consume_read_blackhole() is None
+        with pytest.raises(RuntimeError) as half:
+            mod.raise_half_open(got)
+        with pytest.raises(RuntimeError) as drop:
+            mod.raise_partition_drop(2, "A", "B")
+        msgs.append((type(half.value).__name__, str(half.value),
+                     type(drop.value).__name__, str(drop.value)))
+    assert msgs[0] == msgs[1]
