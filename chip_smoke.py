@@ -230,10 +230,42 @@ non-zero; nothing is caught):
       a replay of the deltas in NumPy alone, which both are built from);
       repair against recompute
       printed, with the repair's host ms;
+13. the replicated fleet (serve/fleet.py, serve/router.py,
+   serve/shards.py), after phase 8, on phase 5b's RMAT-20 files, phase
+   6's road-1024 and phase 5a's RMAT-16:
+   a. three of the port's daemons in this process on unix sockets behind
+      the port's ``FleetRouter`` at replication 2: phase 5b's 64 groups
+      (the counted path "fleet rmat-20": the bitbell route's kernels) and
+      phase 6's 16 road-1024 groups (the counted path "fleet road-1024":
+      stencil_sweep, level_apply, batch_start) to those phases' F; then
+      at replication 3 with every answer voted: a vote that agrees, a
+      ``bitflip:dist`` on the primary's supervisor outvoted and
+      quarantined (the answer still phase 5b's), a ``net_drop`` on the
+      primary's route failed over to the next owner;
+   b. ``python -m <port> fleet`` as a child process (three replicas,
+      replication 2, FLEET_SHARD_MAX_BYTES: RMAT-20's file is above it
+      and served as shards with two copies each, road-1024 and RMAT-16
+      whole): each replica process holds memory on the card (its own
+      ``metrics`` verb's card-memory gauges, read on its own socket beside
+      its ``health`` pid; the card's used memory up by at least their
+      sum), its time from spawn to ready; through the
+      front end with the port's client, road-1024 (K = 16) and RMAT-16
+      (one source) equal to scipy's F, and the first FLEET_SHARD_GROUPS
+      groups of RMAT-20 by the router's level-synchronous scatter equal
+      to phase 5b's F, with its levels and the largest fragment frame (its
+      vertex ids, and the bytes they bound) held against the frame bound; the
+      ``metrics`` and ``trace`` verbs; then a second fleet under
+      ``MSBFS_FAULTS=replica_kill:replica<i>:<n>`` on road-1024's primary
+      owner while FLEET_CLIENTS threads query road-1024: no acknowledged
+      query lost or failed, the longest request beside the deadline, the
+      victim restarted from its journal, every graph and shard back at
+      two live owners; each fleet drained and stopped: the fleet exits 0
+      and every replica process exits within FLEET_EXIT_S, checked before
+      anything left is killed;
 then the ``{"kernels": [...]}`` line and the final ``{"ok": true, ...}``.
 
-Each CLI run of phases 3-5b, 9a, 10 and 11, and each of phase 12's two
-counted serving paths, is one path: the kernel launch counters are
+Each CLI run of phases 3-5b, 9a, 10 and 11, and each of phase 12's and
+phase 13's two counted serving paths, is one path: the kernel launch counters are
 zeroed just before it and read just after; each path must have launched
 its route's kernels (batch_start at its route's stride), and every
 registered kernel must have launched on some path, and no byte path may
@@ -299,6 +331,8 @@ PATH_KERNELS = {
     "weighted delta=1 road-512": ("weighted_relax",),
     "serve rmat-20": ("batch_start", "forest_or", "push_or", "level_apply"),
     "serve weighted road-512": ("weighted_relax",),
+    "fleet rmat-20": ("batch_start", "forest_or", "push_or", "level_apply"),
+    "fleet road-1024": ("batch_start", "stencil_sweep", "level_apply"),
 }
 # The paths whose planes are bytes: their batch starts at a stride of 8
 # lanes, the others' at 1 (the ELL route packs no planes), and they pull
@@ -1932,6 +1966,7 @@ def _lowk16_path(ctx, seed):
     rows = _byte_levels(torch, bg, padded, "lowk rmat-16 K=1", _csr_pairs(torch, bg))
     _summarise_levels(rows, "lowk rmat-16 K=1")
     _lowk_split(torch, fast, bg, padded, len(rows), "lowk rmat-16 K=1")
+    return dict(gpath=gpath, source=source, want=want)
 
 
 def _rmat20_paths(ctx, n, edges, g, bg, eg, k, seed):
@@ -4304,6 +4339,497 @@ def _serving_phase(ctx, info20, road5, seed):
     print(f"phase 12: {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---- phase 13: the replicated fleet on the card (serve/fleet.py,
+# serve/router.py, serve/shards.py)
+
+# Phase 13b's shard bound: RMAT-20's file lies above it, road-1024's and
+# RMAT-16's below, so RMAT-20 alone is served as shards.
+FLEET_SHARD_MAX_BYTES = 64 << 20
+# Phase 5b's groups that the sharded RMAT-20 query takes: every
+# shard_step frame of four groups stays below the 64 MiB frame bound.
+FLEET_SHARD_GROUPS = 4
+# The fleet's heartbeat (the fleet subcommand's --heartbeat-ms), and the
+# request deadline of the chaos run's queries.
+FLEET_HEARTBEAT_MS = 250
+FLEET_DEADLINE_S = 30.0
+# The chaos run's replica_kill fires on the victim's n-th heartbeat, and
+# heartbeats count from the replicas' spawn: n is sized so that the kill
+# lands FLEET_CHAOS_LEAD_S after the front end is up in a fleet
+# FLEET_CHAOS_SLACK times as slow from its replicas' spawn to its front
+# end's ready as the first one (the first of two fleets on one H100 at
+# 700 W booted in 29.7 s, the second in 24.8; a heartbeat takes at least
+# its period, so the kill only comes later than planned).
+FLEET_CHAOS_LEAD_S = 3.0
+FLEET_CHAOS_SLACK = 1.15
+# Phase 13's target, against which its time is printed.
+FLEET_PHASE_TARGET_S = 90.0
+# How long the replicas of a stopped fleet may take to exit after the
+# fleet process has.
+FLEET_EXIT_S = 30.0
+# A fragment frame's bytes beside its vertex ids: at most one decimal id
+# and a comma per vertex, two brackets per group, and the envelope.
+FLEET_FRAME_ENVELOPE_BYTES = 4096
+# The chaos run's client threads.
+FLEET_CLIENTS = 4
+
+
+def _started_at(pid: int) -> float:
+    """A process's start, in seconds since the epoch, from /proc (its
+    starttime in clock ticks since boot, plus the boot time)."""
+    with open(f"/proc/{pid}/stat") as f:
+        fields = f.read().rsplit(")", 1)[1].split()
+    with open("/proc/stat") as f:
+        btime = next(int(ln.split()[1]) for ln in f if ln.startswith("btime "))
+    return btime + int(fields[19]) / os.sysconf("SC_CLK_TCK")
+
+
+def _compute_apps() -> list:
+    """nvidia-smi's rows of processes with a context on a card, as it
+    prints them (in a container it may list them under pids of another
+    namespace, or folded into one row, so they name no replica)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout
+    return [line.strip() for line in out.splitlines() if line.strip()]
+
+
+def _card_used_mib() -> int:
+    """The card's used memory, MiB, as nvidia-smi reads it."""
+    return int(subprocess.run(
+        ["nvidia-smi", "--query-gpu=memory.used", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.split()[0])
+
+
+def _replica_card_memory(address: str) -> dict:
+    """One replica's own reading, on its own socket: its ``health`` pid
+    and its ``metrics`` verb's card-memory gauges (what its caching
+    allocator holds on the card)."""
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.serve.client import (
+        MsbfsClient,
+    )
+
+    with MsbfsClient(address, timeout=60) as c:
+        pid = int(c.health()["pid"])
+        text = c.metrics()
+    got = {"pid": pid}
+    for line in text.splitlines():
+        name, _, value = line.partition(" ")
+        if name in ("msbfs_device_memory_allocated_bytes",
+                    "msbfs_device_memory_reserved_bytes"):
+            got[name[len("msbfs_device_memory_"):-len("_bytes")]] = int(float(value))
+    return got
+
+
+def _fleet_process(argv, base, listen, log_path, env):
+    """Start ``python -m <port> fleet`` (from the repo root) and wait for
+    its front end to answer ``health`` ready; meanwhile poll each
+    replica's own socket.  Returns (process, boot seconds, {replica:
+    (pid, seconds from its spawn to ready)}, seconds from the first
+    replica's spawn to the front end's ready)."""
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.runtime.supervisor import (
+        RetryPolicy,
+    )
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.serve.client import (
+        MsbfsClient, ServerError,
+    )
+
+    cmd = [sys.executable, "-m", PKG, "fleet", "--listen", listen, "--base-dir", base,
+           "--heartbeat-ms", str(FLEET_HEARTBEAT_MS)] + argv
+    log = open(log_path, "ab")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=_ROOT, env=env, stdout=log, stderr=log)
+    log.close()
+    once = RetryPolicy(max_retries=0)
+
+    def health(addr):
+        try:
+            with MsbfsClient(addr, timeout=5.0, retry=once) as c:
+                return c.health()
+        except (ServerError, OSError, ValueError):
+            return None
+
+    ready = {}
+    deadline = time.perf_counter() + 300.0
+    while True:
+        assert proc.poll() is None, (
+            f"the fleet exited {proc.returncode}: "
+            + open(log_path, errors="replace").read()[-3000:])
+        assert time.perf_counter() < deadline, "the fleet never came up in 300 s"
+        for i in range(3):
+            name = f"r{i}"
+            if name not in ready:
+                h = health(f"unix:{base}/{name}.sock")
+                if h and h.get("ready"):
+                    ready[name] = (int(h["pid"]), time.time() - _started_at(int(h["pid"])))
+        h = health(listen)
+        if h and h.get("ready") and len(ready) == 3:
+            first = min(_started_at(pid) for pid, _ in ready.values())
+            return proc, time.perf_counter() - t0, ready, time.time() - first
+        time.sleep(0.05)
+
+
+def _exited(pid: int) -> bool:
+    """True once the process has exited (a zombie holds nothing)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] == "Z"
+    except OSError:
+        return True
+
+
+def _stop_fleet(proc, pids):
+    """SIGTERM the fleet (its front end stops, its replicas drain) and
+    check that it exits 0 and that every replica process exits within
+    FLEET_EXIT_S after it.  The check is made before anything is killed:
+    what is still running then is killed, and the check fails."""
+    import signal
+
+    rc, left = None, list(pids)
+    try:
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGTERM)
+        with contextlib.suppress(subprocess.TimeoutExpired):
+            rc = proc.wait(timeout=120)
+        deadline = time.monotonic() + FLEET_EXIT_S
+        while True:
+            left = [pid for pid in pids if not _exited(pid)]
+            if not left or time.monotonic() > deadline:
+                break
+            time.sleep(0.1)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(30)
+        for pid in pids:
+            with contextlib.suppress(ProcessLookupError, PermissionError):
+                if not _exited(pid):
+                    os.kill(pid, signal.SIGKILL)
+    assert rc == 0 and not left, f"the fleet exited {rc}; replicas still running: {left}"
+
+
+def _fleet_phase(ctx, info20, road1024, rmat16, seed):
+    """Phase 13: the replicated fleet on the card.  a. three of the port's
+    daemons in this process behind the port's FleetRouter (replication 2):
+    phase 5b's 64 groups (the counted path "fleet rmat-20") and phase 6's
+    road-1024 groups (the counted path "fleet road-1024") to those phases'
+    F; then at replication 3 with every query voted: an agreeing vote, a
+    bitflip:dist on the primary outvoted and quarantined, a net_drop on
+    the primary's route failed over, each to phase 5b's F.  b. the
+    ``fleet`` subcommand as a child process (three replicas, replication
+    2, RMAT-20 sharded): each replica on the card (nvidia-smi), its boot
+    to ready; road-1024, RMAT-16 and the sharded RMAT-20 through the
+    front end to scipy's and phase 5b's F; the metrics and trace verbs;
+    then a second fleet with a replica_kill on road-1024's primary owner
+    while four clients query it: no acknowledged query lost, the
+    failover time, the victim restarted from its journal, every graph and
+    shard back at full replication; then drained and stopped."""
+    import threading
+
+    torch, np, sp, cg, cli, tio, timing, generators, launches, tmp, dev = ctx
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.serve.client import (
+        MsbfsClient,
+    )
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.serve.registry import (
+        content_hash,
+    )
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.serve.ring import (
+        PlacementRing,
+    )
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.serve.router import (
+        FleetRouter,
+    )
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.serve.server import (
+        MsbfsServer,
+    )
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.utils import (
+        faults, telemetry,
+    )
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    fv = [int(x) for x in info20["fv"]]
+    q64 = _wire(info20["queries"])
+    road_q = _wire(road1024["queries"])
+    road_f = [int(x) for x in road1024["f"]]
+    files = {"rmat20": info20["gpath"], "road1024": road1024["gpath"]}
+    digests = {g: content_hash(p) for g, p in files.items()}
+    report = {}
+
+    # -- 13a. three daemons in this process behind the port's router.
+    addresses = {f"r{i}": f"unix:{tmp}/fleet-r{i}.sock" for i in range(3)}
+    servers = {}
+    try:
+        t0 = time.perf_counter()
+        for name, addr in addresses.items():
+            servers[name] = MsbfsServer(listen=addr, graphs=files, window_s=0.0,
+                                        request_timeout_s=600.0)
+            servers[name].start()
+        start_s = time.perf_counter() - t0
+        router = FleetRouter(PlacementRing(list(addresses), replication=2), addresses,
+                             digests, timeout=600.0)
+        owners = {g: router.owners_for(g) for g in files}
+        for path, graph, q, want in (("fleet rmat-20", "rmat20", q64, fv),
+                                     ("fleet road-1024", "road1024", road_q, road_f)):
+            timing.reset_launch_counts()
+            t0 = time.perf_counter()
+            out = router.query(q, graph=graph)
+            wall_s = time.perf_counter() - t0
+            counts = timing.launch_counts()
+            launches[path] = counts
+            VARIANTS[path] = timing.variant_counts()
+            print(f"{path} launches: {json.dumps(counts)}")
+            print(f"{path} variants: {json.dumps(VARIANTS[path])}")
+            for kernel in PATH_KERNELS[path]:
+                assert counts.get(kernel, 0) > 0, f"{kernel} never launched on {path}"
+            assert out["f_values"] == want, f"{path}: F differs from the earlier phase's"
+            assert out["replica"] == owners[graph][0] and out["failovers"] == 0, out
+            report[path] = dict(K=len(q), owners=owners[graph], replica=out["replica"],
+                                server_latency_ms=out["latency_ms"], router_wall_s=wall_s,
+                                f_equal=True, card=CARD)
+            print(f"{path}: " + json.dumps(report[path]))
+
+        # Replication 3, every query voted; quarantine only recorded here.
+        quarantined = []
+        voter = FleetRouter(PlacementRing(list(addresses), replication=3), addresses, digests,
+                            timeout=600.0, vote_rate=1.0,
+                            quarantine_fn=lambda m: quarantined.append(m) or True)
+        own3 = voter.owners_for("rmat20")
+        assert own3[0] == owners["rmat20"][0], (own3, owners)
+        t0 = time.perf_counter()
+        agree = voter.query(q64[:16], graph="rmat20")
+        agree_s = time.perf_counter() - t0
+        assert agree["voted"] and "vote_mismatch" not in agree and agree["f_values"] == fv[:16]
+        assert quarantined == []
+        sup = servers[own3[0]].registry.get("rmat20").supervisor
+        sup.plan = faults.FaultPlan.parse("bitflip:dist:1")
+        try:
+            t0 = time.perf_counter()
+            flip = voter.query(q64[16:32], graph="rmat20")
+            flip_s = time.perf_counter() - t0
+        finally:
+            sup.plan = None
+        assert flip["f_values"] == fv[16:32], "a corrupt answer escaped the vote"
+        assert flip["vote_mismatch"] and flip["replica"] == own3[1], flip
+        assert quarantined == [own3[0]], quarantined
+        vstats = voter.stats()
+        assert (vstats["votes"], vstats["vote_mismatches"], vstats["quarantined"],
+                vstats["vote_unresolved"]) == (2, 1, 1, 0), vstats
+        idx = router._route_index(owners["rmat20"][0])
+        faults.activate(faults.FaultPlan.parse(f"net_drop:route{idx}:1"))
+        try:
+            t0 = time.perf_counter()
+            dropped = router.query(q64[48:64], graph="rmat20")
+            drop_s = time.perf_counter() - t0
+        finally:
+            faults.activate(None)
+        assert dropped["f_values"] == fv[48:64], "the failed-over answer differs"
+        assert dropped["failovers"] == 1 and dropped["replica"] == owners["rmat20"][1], dropped
+        assert router.stats()["net_drops"] == 1
+        report["a"] = dict(daemons=3, start_s=start_s, vote_agree_s=agree_s,
+                           vote_outvoted_s=flip_s, outvoted=own3[0],
+                           served_by=flip["replica"], vote_stats={
+                               k: vstats[k] for k in ("votes", "vote_mismatches",
+                                                      "vote_unresolved", "quarantined")},
+                           net_drop_failover_s=drop_s, failed_over_to=dropped["replica"],
+                           card=CARD)
+        print("fleet in-process vote and failover: " + json.dumps(report["a"]))
+    finally:
+        faults.activate(None)
+        for srv in servers.values():
+            srv.stop()
+    del servers, router, voter, sup
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 13b. the fleet subcommand as a child process.
+    graphs = dict(files, rmat16=rmat16["gpath"])
+    sizes = {g: os.path.getsize(p) for g, p in graphs.items()}
+    assert sizes["rmat20"] > FLEET_SHARD_MAX_BYTES, sizes
+    assert max(sizes["road1024"], sizes["rmat16"]) <= FLEET_SHARD_MAX_BYTES, sizes
+    argv = ["--size", "3", "--replication", "2", "--shard-max-bytes",
+            str(FLEET_SHARD_MAX_BYTES)] + [a for g, p in graphs.items() for a in ("-g", f"{g}={p}")]
+    env = dict(os.environ)
+    env.pop("MSBFS_FAULTS", None)
+    listen = f"unix:{tmp}/fleet.sock"
+    log_path = os.path.join(tmp, "fleet.log")
+    base = os.path.join(tmp, "fleet")
+    used_before = _card_used_mib()
+    proc, boot_s, ready, front_s = _fleet_process(argv, base, listen, log_path, env)
+    pids = [pid for pid, _ in ready.values()]
+    try:
+        # Each replica process holds memory on the card.  nvidia-smi names
+        # no replica here (it lists the container's processes under other
+        # pids, or folds them into one row), so each replica reports its
+        # own on its own socket, beside its health pid; and the card's
+        # used memory rises by at least what they report.
+        apps = _compute_apps()
+        used_fleet = _card_used_mib()
+        held = {name: _replica_card_memory(f"unix:{base}/{name}.sock")
+                for name in sorted(ready)}
+        print(f"fleet on the card: replicas' own card memory {json.dumps(held)}; "
+              f"card memory used {used_before} -> {used_fleet} MiB; nvidia-smi compute "
+              f"apps {json.dumps(apps)}; card: {CARD}")
+        for name, got in held.items():
+            assert got["pid"] == ready[name][0], (name, got, ready[name])
+            assert got["allocated"] > 0 and got["reserved"] > 0, (name, got)
+        assert (used_fleet - used_before) << 20 >= sum(g["reserved"] for g in held.values()), (
+            used_before, used_fleet, held)
+        with MsbfsClient(listen, timeout=600) as c:
+            stats = c.stats()
+            plan = stats["shards"]["rmat20"]
+            report["b"] = dict(
+                artifact_bytes=sizes, shard_max_bytes=FLEET_SHARD_MAX_BYTES,
+                rmat20_shards=len(plan["shards"]), shard_copies=plan["replicas"],
+                shard_rows=[s["rows"] for s in plan["shards"]],
+                whole={g: stats["fleet"]["graphs"][g]["owners"] for g in ("road1024", "rmat16")},
+                fleet_boot_s=boot_s,
+                replica_spawn_to_ready_s={n: s for n, (_, s) in sorted(ready.items())},
+                replicas_spawn_to_front_end_ready_s=front_s,
+                replica_card_memory_bytes=held,
+                card_memory_used_mib=dict(before=used_before, fleet=used_fleet),
+                card=CARD)
+            print("fleet boot: " + json.dumps(report["b"]))
+            assert len(plan["shards"]) >= 2 and plan["replicas"] == 2, plan
+            assert "road1024" in stats["fleet"]["graphs"] and "rmat16" in stats["fleet"]["graphs"]
+            assert not any(g.startswith(("road1024#", "rmat16#")) for g in stats["fleet"]["graphs"])
+            t0 = time.perf_counter()
+            r = c.query(road_q, graph="road1024")
+            road_s = time.perf_counter() - t0
+            assert r["f_values"] == road_f, "fleet road-1024 F differs from scipy's"
+            t0 = time.perf_counter()
+            r16 = c.query([[rmat16["source"]]], graph="rmat16")
+            rmat16_s = time.perf_counter() - t0
+            assert r16["f_values"] == [rmat16["want"]], (r16["f_values"], rmat16["want"])
+            t0 = time.perf_counter()
+            rs = c.query(q64[:FLEET_SHARD_GROUPS], graph="rmat20")
+            shard_s = time.perf_counter() - t0
+            assert rs["sharded"] and rs["f_values"] == fv[:FLEET_SHARD_GROUPS], rs["f_values"]
+            ids = rs["largest_fragment_ids"]
+            frame_at_most = {
+                way: n * (len(str(rs["n"] - 1)) + 1) + 2 * FLEET_SHARD_GROUPS
+                + FLEET_FRAME_ENVELOPE_BYTES for way, n in ids.items()}
+            report["queries"] = dict(
+                road1024_s=road_s, road1024_replica=r["replica"], rmat16_s=rmat16_s,
+                rmat20_sharded_s=shard_s, rmat20_groups=FLEET_SHARD_GROUPS,
+                levels=rs["rounds"], fragments=rs["fragments"], shards=rs["shards"],
+                largest_fragment_ids=ids, largest_fragment_frame_bytes_at_most=frame_at_most,
+                frame_bound_bytes=64 << 20, card=CARD)
+            print("fleet queries: " + json.dumps(report["queries"]))
+            assert max(frame_at_most.values()) < 64 << 20, frame_at_most
+            families = telemetry.parse_prometheus(c.metrics())
+            assert families.get("msbfs_fleet_routed_total") == "counter", sorted(families)
+            trace = telemetry.new_trace()
+            with telemetry.use_trace(trace):
+                c.query(road_q[:2], graph="road1024")
+            events = c.trace(trace.trace_id)["events"]
+            names = {e["name"] for e in events}
+            assert {"route.query", "serve.query"} <= names, sorted(names)
+            report["observe"] = dict(metric_families=len(families), trace_events=len(events),
+                                     trace_spans=sorted(names))
+            print("fleet metrics and trace: " + json.dumps(report["observe"]))
+    finally:
+        _stop_fleet(proc, pids)
+    print(f"fleet stopped: card memory used {_card_used_mib()} MiB; nvidia-smi compute apps "
+          f"{json.dumps(_compute_apps())}")
+
+    # -- 13b, chaos: a second fleet with a replica_kill on road-1024's
+    # primary owner while four clients query road-1024.
+    victim = PlacementRing([f"r{i}" for i in range(3)], replication=2).owners(
+        digests["road1024"])[0]
+    vi = int(victim[1:])
+    trips = int(np.ceil((FLEET_CHAOS_SLACK * front_s + FLEET_CHAOS_LEAD_S) * 1000
+                        / FLEET_HEARTBEAT_MS))
+    env["MSBFS_FAULTS"] = f"replica_kill:replica{vi}:{trips}"
+    base = os.path.join(tmp, "fleet-chaos")
+    proc, boot2_s, ready2, front2_s = _fleet_process(argv, base, listen, log_path, env)
+    pids = [pid for pid, _ in ready2.values()]
+    try:
+        def victim_row(c):
+            return next(x for x in c.health()["fleet"]["replicas"] if x["name"] == victim)
+
+        with MsbfsClient(listen, timeout=600) as c:
+            assert victim_row(c)["injected_kills"] == 0, "the kill fired before the clients ran"
+        stop = threading.Event()
+        lat, errors, answered = [], [], [0]
+
+        def client(i):
+            with MsbfsClient(listen, timeout=600) as c:
+                j = i
+                while not stop.is_set():
+                    g = j % len(road_q)
+                    t0 = time.perf_counter()
+                    try:
+                        r = c.query([road_q[g]], graph="road1024", deadline_s=FLEET_DEADLINE_S)
+                    except Exception as exc:  # noqa: BLE001 — every failure is a finding
+                        errors.append(repr(exc))
+                        continue
+                    lat.append((time.perf_counter() - t0, time.time()))
+                    if r["f_values"] != [road_f[g]]:
+                        errors.append(f"group {g}: {r['f_values']} != {road_f[g]}")
+                    answered[0] += 1
+                    j += FLEET_CLIENTS
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(FLEET_CLIENTS)]
+        t_chaos = time.perf_counter()
+        for t in threads:
+            t.start()
+        killed_at = None
+        row, st, full = {}, {}, False
+        try:
+            with MsbfsClient(listen, timeout=600) as c:
+                deadline = time.perf_counter() + 240.0
+                while time.perf_counter() < deadline and not errors:
+                    row = victim_row(c)
+                    if killed_at is None and row["injected_kills"] >= 1:
+                        killed_at = time.time()
+                    st = c.stats()
+                    full = all(len(g["live_owners"]) == 2
+                               for g in st["fleet"]["graphs"].values())
+                    if (killed_at is not None and row["restarts"] >= 1
+                            and row["state"] == "ready" and full
+                            and st["totals"].get("under_replicated_shards", 0) == 0):
+                        break
+                    time.sleep(0.1)
+        finally:
+            stop.set()
+            for t in threads:
+                t.join(600)
+        chaos_s = time.perf_counter() - t_chaos
+        assert not errors, errors[:5]
+        assert killed_at is not None, "replica_kill never fired"
+        assert row["restarts"] >= 1 and row["state"] == "ready", row
+        assert full, st["fleet"]["graphs"]
+        around = [s for s, at in lat if abs(at - killed_at) <= 5.0]
+        with MsbfsClient(f"unix:{base}/{victim}.sock", timeout=60) as c:
+            vh = c.health()
+        assert "road1024" in vh["graphs"], vh
+        report["chaos"] = dict(
+            victim=victim, kill_at_trip=trips, fleet_boot_s=boot2_s,
+            replicas_spawn_to_front_end_ready_s=front2_s, answered=answered[0],
+            failed=0, lost=0, longest_request_s=max(s for s, _ in lat),
+            longest_request_within_5s_of_kill_s=max(around) if around else None,
+            deadline_s=FLEET_DEADLINE_S, victim_restarts=row["restarts"],
+            victim_graphs_after_replay=vh["graphs"],
+            every_graph_and_shard_live_owners=2, chaos_s=chaos_s, card=CARD)
+        print(f"fleet chaos: longest request {report['chaos']['longest_request_s']:.3f} s "
+              f"against the {FLEET_DEADLINE_S:g} s deadline; card: {CARD}")
+        print("fleet chaos: " + json.dumps(report["chaos"]))
+        pids = sorted(set(pids) | {vh["pid"]})
+    finally:
+        _stop_fleet(proc, pids)
+    apps = _compute_apps()
+    used_after = _card_used_mib()
+    assert used_after < used_before + (used_fleet - used_before) / 6, (used_before, used_after)
+    print(f"fleet stopped: card memory used {used_after} MiB (before the fleets "
+          f"{used_before}); nvidia-smi compute apps {json.dumps(apps)}")
+    print(f"phase 13: {time.perf_counter() - t_phase:.1f} s against a target of "
+          f"{FLEET_PHASE_TARGET_S:g} s; card: {CARD}")
+
+
 def _run_cli(cli, argv, native=True):
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
@@ -4483,7 +5009,8 @@ def main() -> int:
 
     # ---- 5a. the low-K route on RMAT-16 with one source (BASELINE.json
     # config 1)
-    _lowk16_path((torch, np, sp, cg, cli, tio, timing, generators, launches, tmp, dev), seed)
+    rmat16 = _lowk16_path((torch, np, sp, cg, cli, tio, timing, generators, launches, tmp, dev),
+                          seed)
 
     # ---- 4b. RMAT-20 (BASELINE.json config 2): the forest and ELL kernels
     # against their plain versions at K = 64 and K = 256, then the default
@@ -4558,13 +5085,8 @@ def main() -> int:
     _serving_phase((torch, np, sp, cg, cli, tio, timing, generators, launches, tmp, dev),
                    info20, road5, seed)
     os.remove(road5["gpath"])
-    os.remove(info20["gpath"])
-    del bg20, g20, e20, info20
+    del bg20, g20, e20
     torch.cuda.empty_cache()
-    total = {name: sum(c.get(name, 0) for c in launches.values())
-             for name in kernels.KERNELS}
-    for name, count in total.items():
-        assert count > 0, f"{name} launched on no path"
 
     # ---- 6. road-1024, K = 16: every F against scipy
     gpath1, qpath1 = os.path.join(tmp, "road1024.bin"), os.path.join(tmp, "q1.bin")
@@ -4584,7 +5106,6 @@ def main() -> int:
         winner=k1 + 1, min_f=f1, all_f_equal_scipy=True, levels=int(lv1.max()),
         preprocessing_s=pre1, computation_s=comp1,
     )))
-    tmpdir.cleanup()
 
     # ---- 7. road-1024, K = 300: the sub-batch split
     q300 = tio.pad_queries(generators.random_queries(n1, 300, max_group=8, seed=seed + 4))
@@ -4628,6 +5149,21 @@ def main() -> int:
     print(f"grid-2048 window: {narrow} of {len(win.last_window_trace)} chunks "
           f"on fewer than n rows, {win_s:.3f} s, plane-pass bytes {win_bytes}, "
           "equal to the plain full-plane path")
+    del win, ref, sgg, sub_fast, sub_plain, eng1, sg1
+    torch.cuda.empty_cache()
+
+    # ---- 13. the replicated fleet: three daemons in this process behind
+    # the router (RMAT-20, road-1024, the vote and failover), then the
+    # fleet subcommand with RMAT-20 sharded, and a replica_kill
+    _fleet_phase((torch, np, sp, cg, cli, tio, timing, generators, launches, tmp, dev),
+                 info20, dict(gpath=gpath1, queries=q1, f=want1), rmat16, seed)
+    os.remove(info20["gpath"])
+    del info20
+    tmpdir.cleanup()
+    total = {name: sum(c.get(name, 0) for c in launches.values())
+             for name in kernels.KERNELS}
+    for name, count in total.items():
+        assert count > 0, f"{name} launched on no path"
 
     # ---- the kernel line, the card, the verdict
     replaces = {

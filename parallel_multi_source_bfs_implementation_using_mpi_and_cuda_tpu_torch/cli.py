@@ -35,8 +35,9 @@ Ahead of all of them, ``MSBFS_WEIGHTED=1`` takes the weighted route
 ``MSBFS_WEIGHTED_ENGINE``, its bucket width from ``MSBFS_DELTA``, audited
 under ``MSBFS_AUDIT``), and the ``verify`` subcommand certifies answers
 (:func:`verify_main`); the serving subcommands ``serve``, ``query``,
-``health`` and ``trace`` run the single-replica daemon and its client
-(serve/).  Every other route or mode of the JAX CLI exits 1
+``health`` and ``trace`` run the single-replica daemon and its client,
+and ``fleet`` a replicated fleet of those daemons behind a failover
+router (serve/).  Every other route or mode of the JAX CLI exits 1
 with a one-line message naming it as not yet ported; none of them
 silently runs something else.
 
@@ -59,9 +60,9 @@ import torch
 from .utils import knobs
 
 # Subcommands of the JAX CLI that dispatch before the reference grammar
-# and are not ported yet (``verify``, ``serve``, ``query``, ``health`` and
-# ``trace`` are: :func:`verify_main`, serve/).
-_SUBCOMMANDS = ("fleet", "analyze")
+# and are not ported yet (``verify``, ``serve``, ``query``, ``health``,
+# ``trace`` and ``fleet`` are: :func:`verify_main`, serve/).
+_SUBCOMMANDS = ("analyze",)
 
 # Levels per dispatch for the auto bound of the gather engines (the JAX
 # package's value); the stencil route replaces it with its own.
@@ -188,7 +189,12 @@ def resolve_device(device) -> torch.device:
                 "runs the plain versions, for tests)"
             )
         return torch.device("cuda", torch.cuda.current_device())
-    return torch.device(device)
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None and torch.cuda.is_available():
+        # A bare "cuda" (``--device cuda``) is the current card, by index:
+        # the daemon's threads bind it with torch.cuda.set_device.
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
 
 
 # Backends whose footprint the bitbell estimate does not model: they never
@@ -425,6 +431,12 @@ def main(argv: Optional[List[str]] = None, device=None, native: bool = True) -> 
         from .serve.client import trace_main
 
         return trace_main(argv[2:])
+    if len(argv) > 1 and argv[1] == "fleet":
+        # The replicated fleet: N replica daemons of this package (on
+        # ``device``, the card by default) behind the placement router.
+        from .serve.router import fleet_main
+
+        return fleet_main(argv[2:], device=device)
     if len(argv) > 1 and argv[1] == "verify":
         # Offline output certification: exit 0 certified, 9 corrupt.
         return verify_main(argv[2:], device=device, native=native)

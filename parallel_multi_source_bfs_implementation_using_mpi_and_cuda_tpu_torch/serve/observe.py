@@ -12,18 +12,23 @@ fleet front end's state into the two wire artifacts:
   audits, repairs, compiles, per-bucket latency histograms, and the
   process-global engine counters (dispatches, plane-pass bytes, mxu
   tiles; the port runs on one card, so the JAX package's collective-bytes
-  gauge has nothing to count and is not exported).
+  gauge has nothing to count and is not exported), and the port's own
+  card-memory gauges (the daemon's caching allocator, 0 off the card).
+* fleet front end: ``fleet_metrics_text`` (the router's leg accounting
+  and the replicas' roll-up) and ``merge_trace_events`` (one trace's
+  events from the front end and every replica, merged by time).
 
 Both verbs are read-only and answerable while draining, like ``stats``.
-The port's copy of the JAX package's serve/observe.py; the fleet
-front end's roll-up (``fleet_metrics_text``, ``merge_trace_events``)
-comes with the fleet.  The JAX package's docs/OBSERVABILITY.md is the
-operator manual.
+
+The port's copy of the JAX package's serve/observe.py.  The JAX
+package's docs/OBSERVABILITY.md is the operator manual.
 """
 
 from __future__ import annotations
 
 from typing import List
+
+import torch
 
 from ..utils import telemetry, timing
 from ..utils.telemetry import Histogram, MetricsRegistry
@@ -65,6 +70,19 @@ def engine_counter_metrics(reg: MetricsRegistry) -> None:
               "All-zero adjacency tiles elided by the mxu engine")
     reg.gauge("msbfs_engine_mxu_tiles_total", totals["mxu_tiles_total"],
               "Adjacency tiles considered by the mxu engine")
+
+
+def device_memory_metrics(reg: MetricsRegistry, device) -> None:
+    """What this process's caching allocator holds on the card (0 on the
+    CPU): the per-replica reading that shows each daemon of a fleet on
+    one card holds its own memory there."""
+    on_card = device.type == "cuda"
+    reg.gauge("msbfs_device_memory_allocated_bytes",
+              torch.cuda.memory_allocated(device) if on_card else 0,
+              "Card bytes held by live tensors of this process")
+    reg.gauge("msbfs_device_memory_reserved_bytes",
+              torch.cuda.memory_reserved(device) if on_card else 0,
+              "Card bytes the caching allocator of this process reserved")
 
 
 def _cache_metrics(reg: MetricsRegistry, name: str, snap: dict) -> None:
@@ -149,6 +167,7 @@ def server_metrics_text(server) -> str:
                 "Bucket compiles ever run by this process")
     reg.counter("msbfs_journal_bytes", stats["journal_bytes"],
                 "Append-only state journal size in bytes")
+    device_memory_metrics(reg, server.registry.device)
     _cache_metrics(reg, "result", stats["result_cache"])
     _cache_metrics(reg, "planes", dyn["planes"])
     try:
@@ -176,6 +195,61 @@ def server_metrics_text(server) -> str:
     return reg.render()
 
 
+def fleet_metrics_text(frontend) -> str:
+    """The fleet front end's counters as Prometheus text: router
+    leg accounting plus the cross-replica roll-up totals (including the
+    merged latency histogram the roll-up carries)."""
+    stats = frontend._op_stats()
+    reg = MetricsRegistry()
+    router = stats["router"]
+    for key in ("routed", "failovers", "net_drops", "hedged", "shed",
+                "votes", "votes_suppressed", "vote_mismatches",
+                "vote_unresolved", "quarantined"):
+        reg.counter(f"msbfs_fleet_{key}_total", router.get(key, 0),
+                    "Fleet router leg accounting")
+    for replica, n in sorted(router.get("per_replica", {}).items()):
+        reg.counter("msbfs_fleet_routed_by_replica_total", n,
+                    "Primary routes served, by replica", replica=replica)
+    fleet = stats["fleet"]
+    for key in ("size", "ready", "restarts", "quarantined"):
+        if key in fleet:
+            value = fleet[key]
+            if isinstance(value, (list, tuple, set)):
+                # FleetSupervisor.status() lists the ready replicas' names
+                # (the JAX package renders the list and fails): count them.
+                value = len(value)
+            reg.gauge(f"msbfs_fleet_replicas_{key}", value,
+                      "Fleet supervisor replica accounting")
+    totals = stats.get("totals", {})
+    for key, value in sorted(totals.items()):
+        if key == "latency_hist":
+            hist = Histogram.from_snapshot(value)
+            if hist is not None:
+                reg.histogram("msbfs_fleet_request_latency_ms", hist,
+                              "Cross-replica merged request latency "
+                              "(fixed log2 ms buckets)")
+            continue
+        if isinstance(value, (int, float)):
+            reg.counter(f"msbfs_fleet_totals_{key}", value,
+                        "Summed per-replica counters from the roll-up")
+    engine_counter_metrics(reg)
+    return reg.render()
+
+
+def merge_trace_events(
+    local: List[dict], remote_batches: List[List[dict]]
+) -> List[dict]:
+    """Concatenate + time-sort span events from several processes into
+    one Chrome-trace event list (every event is self-describing — the
+    pid/tid/epoch-µs fields make plain concatenation a correct merge)."""
+    merged = list(local)
+    for batch in remote_batches:
+        if isinstance(batch, list):
+            merged.extend(e for e in batch if isinstance(e, dict))
+    merged.sort(key=lambda e: e.get("ts", 0))
+    return merged
+
+
 def chrome_trace_json(events: List[dict]) -> dict:
     return telemetry.chrome_trace(events)
 
@@ -184,5 +258,7 @@ __all__ = [
     "op_trace",
     "server_metrics_text",
     "engine_counter_metrics",
+    "fleet_metrics_text",
     "chrome_trace_json",
+    "merge_trace_events",
 ]

@@ -1842,8 +1842,9 @@ class MsbfsServer:
 
 def serve_main(argv: Optional[List[str]] = None, device=None,
                native: bool = True) -> int:
-    """The ``serve`` subcommand's entry point: the daemon on ``cuda``
-    (``device="cpu"`` for tests; raises without a card)."""
+    """The ``serve`` subcommand's entry point: the daemon on ``--device``,
+    else ``device``, else the card (``cpu`` for tests).  Asked for the card
+    where there is none, it raises and serves nothing."""
     import argparse
 
     ap = argparse.ArgumentParser(
@@ -1896,7 +1897,32 @@ def serve_main(argv: Optional[List[str]] = None, device=None,
         "supervisor); frames carrying a different epoch are refused "
         "with FencedError (exit 10, docs/SERVING.md)",
     )
+    ap.add_argument(
+        "--device", default=None,
+        help="the engines' torch device (default cuda; cpu runs the "
+        "kernels' plain versions, for tests); without a card, cuda "
+        "exits 1",
+    )
     args = ap.parse_args(argv)
+    from ..cli import resolve_device
+
+    # No card where one is asked for: raise before anything binds (the
+    # process exits 1; a fleet shows the replica down, then failed).
+    want = args.device if args.device is not None else device
+    device = resolve_device(want)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"no CUDA device for --device {want}: the daemon runs on the "
+            "card (--device cpu runs the plain versions, for tests)"
+        )
+    claim = None
+    if device.type == "cuda":
+        # Take the card before serving: its context and one block of the
+        # caching allocator, held for the daemon's life, so that a card it
+        # cannot take fails the boot rather than the first load, and a
+        # replica that answers ready holds memory on the card.
+        torch.cuda.set_device(device)
+        claim = torch.zeros(1, device=device)
     graphs: Dict[str, str] = {}
     for spec in args.graph:
         name, sep, path = spec.partition("=")
@@ -1943,4 +1969,5 @@ def serve_main(argv: Optional[List[str]] = None, device=None,
     if reason == "drain" and not server.stopping:
         server.drain()
         log_line("msbfs serve: drained; exiting", event="serve_drained")
+    del claim
     return 0

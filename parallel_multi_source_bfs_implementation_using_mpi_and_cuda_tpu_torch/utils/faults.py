@@ -32,8 +32,8 @@ result seam).  Kinds that fire here:
 ``bitflip``    site ``plane<i>``, ``dist`` or ``wplane``: flips one
                deterministic bit of a live buffer (:func:`corrupt`).
 
-The serving daemon (serve/) adds the seams of the JAX package's serving
-runtime:
+The serving daemon and the fleet (serve/) add the seams of the JAX
+package's serving runtime:
 
 ``disk_full``  site ``journal``: trips inside ``StateJournal.append``
                (the ``journal_append`` site) and raises
@@ -50,11 +50,25 @@ runtime:
                ``recv_frame`` consume (:func:`arm_frame_chaos`,
                :func:`arm_read_blackhole`, :func:`heal`).
 
-The ``route<r>`` sites are tripped by the fleet router, which is not yet
-ported; tests trip them directly.  The kinds that only the fleet fires —
-``replica_kill``, ``replica_slow``, ``net_drop``, ``host_down`` and
-``disk_full:shard`` — parse with the JAX package's checks and messages,
-and tripping one raises ``NotImplementedError`` ("not yet ported").
+``replica_kill``  site ``replica<r>``: tripped by the fleet supervisor's
+               heartbeat of replica ``r``; raises
+               :class:`SimulatedReplicaKill`, and the supervisor SIGKILLs
+               the replica's process;
+``replica_slow``  site ``route<r>``: tripped by the router's forwarding
+               attempt to replica ``r``; stalls it ``MSBFS_FAULT_SLOW``
+               seconds (default 0.25) once, then the call proceeds;
+``net_drop``   site ``route<r>``: raises :class:`SimulatedNetDrop` before
+               the attempt sends a byte (UNAVAILABLE: the router fails
+               over);
+``host_down``  site a bare host label: tripped once a heartbeat per
+               distinct host label of the fleet; raises
+               :class:`SimulatedHostDown`, and the supervisor SIGKILLs
+               every replica advertising the label;
+``disk_full``  site ``shard``: trips inside the shard artifact writer
+               (``shard_write``, serve/shards.py); the planner turns the
+               ENOSPC into ``StorageError``.
+
+The batch CLI and a single daemon trip none of the fleet's sites.
 """
 
 from __future__ import annotations
@@ -193,14 +207,17 @@ class FaultPlan:
     Thread-safe: the dispatch seam runs inside the supervisor's watchdog
     thread, so counter updates take a lock (the fire happens outside)."""
 
-    def __init__(self, specs, hang_seconds: float = 60.0):
+    def __init__(self, specs, hang_seconds: float = 60.0,
+                 slow_seconds: float = 0.25):
         self.specs: List[FaultSpec] = list(specs)
         self.hang_seconds = float(hang_seconds)
+        self.slow_seconds = float(slow_seconds)
         self.counters: Dict[str, int] = {}
         self._lock = threading.Lock()
 
     @classmethod
-    def parse(cls, text: str, hang_seconds: float = 60.0) -> "FaultPlan":
+    def parse(cls, text: str, hang_seconds: float = 60.0,
+              slow_seconds: float = 0.25) -> "FaultPlan":
         """Parse the ``kind:site:n`` grammar; a malformed spec raises
         ``ValueError`` with the JAX package's message."""
         specs = []
@@ -323,19 +340,22 @@ class FaultPlan:
                                    vertex=vertex, replica=replica,
                                    host=host, groups=groups,
                                    delay_ms=delay_ms))
-        return cls(specs, hang_seconds=hang_seconds)
+        return cls(specs, hang_seconds=hang_seconds,
+                   slow_seconds=slow_seconds)
 
     @classmethod
     def from_env(cls) -> Optional["FaultPlan"]:
-        """Plan from ``MSBFS_FAULTS`` (with ``MSBFS_FAULT_HANG``), or None
-        when unset or empty."""
+        """Plan from ``MSBFS_FAULTS`` (with ``MSBFS_FAULT_HANG`` and
+        ``MSBFS_FAULT_SLOW``), or None when unset or empty."""
         from . import knobs
 
         raw = knobs.raw("MSBFS_FAULTS", "").strip()
         if not raw:
             return None
         return cls.parse(
-            raw, hang_seconds=knobs.get_float("MSBFS_FAULT_HANG", 60.0)
+            raw,
+            hang_seconds=knobs.get_float("MSBFS_FAULT_HANG", 60.0),
+            slow_seconds=knobs.get_float("MSBFS_FAULT_SLOW", 0.25),
         )
 
     def reset(self) -> None:
@@ -486,7 +506,27 @@ class FaultPlan:
                 f"injected poison query: batch contains vertex "
                 f"{s.vertex} {where}"
             )
-        if s.kind == "disk_full" and s.site == "journal":
+        if s.kind == "replica_kill":
+            raise SimulatedReplicaKill(
+                f"injected replica kill: replica {s.replica} {where}",
+                s.replica,
+            )
+        if s.kind == "replica_slow":
+            # A straggler, not a failure: the routed call proceeds after
+            # the stall, so only hedging (or the deadline) saves the tail.
+            time.sleep(self.slow_seconds)
+            return
+        if s.kind == "net_drop":
+            raise SimulatedNetDrop(
+                f"UNAVAILABLE: injected net drop to replica "
+                f"{s.replica} {where}",
+                s.replica,
+            )
+        if s.kind == "host_down":
+            raise SimulatedHostDown(
+                f"injected host down: host {s.host} {where}", s.host
+            )
+        if s.kind == "disk_full":
             raise SimulatedDiskFull(
                 f"injected disk full: no space left on device {where}"
             )
@@ -513,11 +553,7 @@ class FaultPlan:
         if mode is not None:
             arm_frame_chaos(mode, replica=s.replica, spec=s)
             return
-        # replica_kill, replica_slow, net_drop, host_down, disk_full:shard.
-        raise NotImplementedError(
-            f"{s.kind} faults fire at the serving fleet's seams, which "
-            "are not yet ported to the PyTorch/CUDA package"
-        )
+        raise AssertionError(f"unreachable kind {s.kind!r}")
 
 
 # ---- process-wide active plan (the seams' lookup point) -------------------

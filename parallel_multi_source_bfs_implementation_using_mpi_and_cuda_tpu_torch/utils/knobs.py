@@ -48,6 +48,7 @@ _ALL = (
     Knob("MSBFS_STREAM_PREFETCH", "2", "int", "host-streamed engine: forest-segment upload lookahead (device buffers in the ring)"),
     Knob("MSBFS_FAULTS", None, "spec", "deterministic fault-injection plan: kind:site:n[,...]"),
     Knob("MSBFS_FAULT_HANG", "60", "float", "injected-hang stall seconds"),
+    Knob("MSBFS_FAULT_SLOW", "0.25", "float", "replica_slow stall seconds"),
     Knob("MSBFS_CHECKPOINT", None, "path", "resumable journal path for chunk-wise execution"),
     Knob("MSBFS_CHECKPOINT_CHUNK", "64", "int", "queries per checkpointed chunk"),
     Knob("MSBFS_STATS", None, "str", "1 = per-query stats table, 2 = + per-level trace"),
@@ -83,6 +84,15 @@ _ALL = (
     Knob("MSBFS_REPAIR_MAX_FRAC", "0.5", "float", "repair-cone fraction above which repair falls back to full recompute"),
     Knob("MSBFS_TRACE", None, "flag", "1 mints a per-query distributed trace at the client edge"),
     Knob("MSBFS_LOG_FORMAT", None, "str", "json switches daemon stderr to structured logs"),
+    # The replicated fleet (serve/fleet.py, serve/router.py).
+    Knob("MSBFS_FLEET_LISTEN", None, "spec", "fleet front-end listen address (unset: unix:$TMPDIR/msbfs-fleet.sock)"),
+    Knob("MSBFS_FLEET_DIR", None, "path", "fleet replica sockets/journals/logs directory (unset: $TMPDIR/msbfs-fleet)"),
+    Knob("MSBFS_FLEET_BACKOFF", "0.2", "float", "replica restart base backoff in seconds"),
+    Knob("MSBFS_VOTE", "off", "spec", "cross-replica vote: off / on / sample rate in (0,1)"),
+    Knob("MSBFS_SHARD_MAX_BYTES", "0", "int", "shard graphs whose artifact exceeds this many bytes across the fleet; 0 serves every graph whole"),
+    Knob("MSBFS_SHARD_REPLICAS", "2", "int", "copies per shard on the shard placement ring"),
+    Knob("MSBFS_SHARD_FRAGMENT_TIMEOUT_S", "30", "float", "per-attempt wire deadline for one scatter fragment"),
+    Knob("MSBFS_SHARD_HEDGE_MS", "0", "float", "race a shard fragment's second copy after this many ms; 0 disables hedging"),
     # Routes and modes of the JAX CLI that the port refuses by name.
     Knob("MSBFS_CACHE_DIR", None, "path", "the JAX package's persistent XLA compile cache; the port builds its kernels into the package's build/ and refuses the knob (fails)"),
     Knob("MSBFS_MESH", None, "spec", "2D mesh partition (not yet ported: fails)"),

@@ -8,6 +8,7 @@ subcommand, the routes that are not ported yet, and the port's import
 isolation."""
 
 import os
+import re
 import subprocess
 import sys
 
@@ -175,6 +176,18 @@ def test_missing_file_matches_jax(tmp_path, capsys, missing):
     ],
 )
 def test_unported_routes_fail_loudly(tmp_path, capsys, monkeypatch, env, subcommand):
+    if subcommand == "fleet":
+        # Ported since: ``fleet --help`` exits 0 in both CLIs and lists the
+        # JAX package's options, and the port's ``--device`` besides.
+        helps = []
+        for run in (lambda a: cli.main(a, device="cpu"), jcli.main):
+            with pytest.raises(SystemExit) as exit_:
+                run(["prog", "fleet", "--help"])
+            assert exit_.value.code == 0
+            helps.append(capsys.readouterr().out)
+        mine, theirs = (set(re.findall(r"--[a-z][a-z-]*", h)) for h in helps)
+        assert mine == theirs | {"--device"} and "--shard-max-bytes" in theirs
+        return
     for key, value in env.items():
         monkeypatch.setenv(key, value)
     argv = _fixture(tmp_path)

@@ -7,6 +7,7 @@ plane seam corrupting the same distances."""
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -108,8 +109,10 @@ def test_from_env_matches_jax(monkeypatch):
     assert faults.FaultPlan.from_env() is None
     monkeypatch.setenv("MSBFS_FAULTS", "hang:dispatch:2")
     monkeypatch.setenv("MSBFS_FAULT_HANG", "0.25")
+    monkeypatch.setenv("MSBFS_FAULT_SLOW", "0.5")
     mine, theirs = faults.FaultPlan.from_env(), jfaults.FaultPlan.from_env()
     assert mine.hang_seconds == theirs.hang_seconds == 0.25
+    assert mine.slow_seconds == theirs.slow_seconds == 0.5
     assert [_spec_tuple(s) for s in mine.specs] == [_spec_tuple(s) for s in theirs.specs]
 
 
@@ -245,21 +248,48 @@ def test_module_seams():
         faults.activate(None)
 
 
+def _fleet_outcome(mod, site):
+    """Trip ``site`` twice on a fresh plan of the five fleet kinds: what
+    each trip raised (class, message, its replica, host or errno), whether
+    it stalled, and which specs fired."""
+    plan = mod.FaultPlan.parse(
+        "replica_kill:replica0:1,replica_slow:route1:1,net_drop:route2:1,"
+        "host_down:hostA:1,disk_full:shard:1",
+        slow_seconds=0.05,
+    )
+    out = []
+    for _ in range(2):
+        t0 = time.monotonic()
+        try:
+            plan.trip(site)
+            got = None
+        except Exception as exc:  # noqa: BLE001 — the outcome is the comparison
+            got = (type(exc).__name__, str(exc), getattr(exc, "replica", None),
+                   getattr(exc, "host", None), getattr(exc, "errno", None))
+        out.append((got, time.monotonic() - t0 >= 0.05))
+    return out, [s.fired for s in plan.specs]
+
+
 def test_serving_kinds_fire_nowhere_here():
     """The kinds only the serving fleet fires (replica_kill, replica_slow,
-    net_drop, host_down, disk_full:shard) are never tripped by the batch
-    CLI or the single daemon; if a caller trips one, the port says those
-    seams are not ported."""
+    net_drop, host_down, disk_full:shard) fire at their own seams once,
+    with the JAX package's outcome (the exception, its message and
+    payload, or replica_slow's one stall), and nowhere at the batch CLI's
+    and the single daemon's sites."""
+    for site in ("replica0", "route1", "route2", "hostA", "shard_write"):
+        mine, theirs = _fleet_outcome(faults, site), _fleet_outcome(jfaults, site)
+        assert mine == theirs, site
+        (first, stalled), (second, stalled_again) = mine[0]
+        assert (first is not None or stalled) and second is None and not stalled_again
+        assert sum(mine[1]) == 1, site
     plan = faults.FaultPlan.parse(
         "replica_kill:replica0:1,replica_slow:route1:1,net_drop:route2:1,"
         "host_down:hostA:1,disk_full:shard:1"
     )
-    plan.trip("dispatch")
-    plan.trip("load_graph")
-    plan.trip("journal_append")
-    for site in ("replica0", "route1", "route2", "hostA", "shard_write"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            plan.trip(site)
+    for other in ("dispatch", "load_graph", "load_query", "journal_append", "dist",
+                  "route0", "replica1"):
+        plan.trip(other)
+    assert plan.pending() == plan.specs
 
 
 # The serving seams the single daemon fires: (plan, trip site), each
