@@ -2,7 +2,11 @@
 """On-card smoke of the PyTorch/CUDA port — the quickest proof that it
 builds and runs on the GPU, and the source of its kernel timings.
 
-    python3 chip_smoke.py [--seed 0] [--detail-dir build/chip_smoke]
+    python3 chip_smoke.py [--seed 0] [--detail-dir build/chip_smoke] [--phases all|14]
+
+With no ``--phases`` (or ``all``) every phase runs, as the proof runs it;
+``--phases 14`` runs the build (phase 1) and the tooling phase alone, on
+data of its own, and prints no kernel line.
 
 Needs one CUDA card (NVIDIA H100 class, sm_90a), nvcc, a host C++
 compiler, and scipy; imports nothing of JAX.  Phases (any failure exits
@@ -40,8 +44,8 @@ non-zero; nothing is caught):
    (CUDA events around each launch: the sweep with its residual, the
    apply, and the gaps), beside the same 64 levels as the engine enqueues
    them; the CLI's preprocessing span split into load, layout (with its
-   upload) and compile, beside the same CLI run with ``native=False``
-   (the NumPy host steps), to the same winner and F;
+   upload) and compile (every path prints its split; the NumPy host
+   steps are timed beside the native ones once, on RMAT-20 in phase 5b);
 4. mxu main path: ``MSBFS_BACKEND=mxu MSBFS_MXU_KERNEL=1`` through the
    CLI on rmat_edges(14) with K = 64 random groups; every F equals
    scipy's and the plain engine's, and the direction trace is printed;
@@ -99,8 +103,7 @@ non-zero; nothing is caught):
    K = 64 random groups the default route (bitbell: forest_or, push_or,
    level_apply), the ELL route (``MSBFS_BACKEND=pallas``: ell_hits) and
    the byte-plane BELL route (``MSBFS_BACKEND=bell``, W = 16) through the
-   CLI, and the low-K route on the first four groups, each a path, each
-   with its preprocessing split beside its ``native=False`` run;
+   CLI, and the low-K route on the first four groups, each a path;
    the 64 F values are equal across the kernel and plain engines of the
    three routes, the CLIs report the same winner and F, the winner and
    the first eight groups (the low-K route's four among them) equal
@@ -161,7 +164,9 @@ non-zero; nothing is caught):
    both bounds and the torch composition of the JAX expansion;
    ``dense`` on phase 4's RMAT-14
    (no kernel of its own; its matmul's ms a level); ``push`` and
-   ``ppush`` on phase 3's road-4096 (K = 16), launching queue_expand and
+   ``ppush`` on phase 6's road-1024 (K = 16; not on phase 3's road-4096,
+   where the plain push engine and scipy's eight groups took 105 s, so
+   that the proof ends under 600 s), launching queue_expand and
    queue_compact (K10, K11), and push_or with queue_compact's row mode:
    the push engine's auto-capacity growth on road-1024 (K = 16, phase 6's
    groups) equals the plain engine's, an explicit capacity of
@@ -174,8 +179,8 @@ non-zero; nothing is caught):
    scatter_); every level of one push
    and one ppush BFS has each kernel timed on its own, with the level's
    entries and touched tiles ("push levels", "ppush levels" lines; per
-   level in chip_smoke_push_road4096_levels.json and
-   chip_smoke_ppush_road4096_levels.json under --detail-dir);
+   level in chip_smoke_push_road1024_levels.json and
+   chip_smoke_ppush_road1024_levels.json under --detail-dir);
 11. the weighted route (``MSBFS_WEIGHTED=1``, K12 weighted_relax), each
    CLI run a path that launches weighted_relax and no other kernel:
    a. phase 5b's RMAT-20 files with uniform costs in [1, 16]
@@ -262,6 +267,34 @@ non-zero; nothing is caught):
       two live owners; each fleet drained and stopped: the fleet exits 0
       and every replica process exits within FLEET_EXIT_S, checked before
       anything left is killed;
+14. the port's tooling, after phase 13 (every phase prints the seconds
+   since the script started as it begins, "elapsed: ..." lines):
+   a. ``python -m <port>.gen_cli`` as a child: RMAT-20 (edge factor 16,
+      64 groups of at most 128) with ``MSBFS_NATIVE_RMAT=1`` and with the
+      NumPy stream, each child's host time printed; the NumPy graph's
+      digest equal to phase 5b's file (rmat_edges(20, 16) through
+      save_graph_bin), the native graph a valid RMAT-20 file of another
+      stream (its bytes at 1 and 8 threads are held against the JAX
+      package's sampler in the CPU tests);
+   b. phase 6's road-1024 written by save_dimacs_gr and RMAT-16 written
+      as a SNAP edge list, each converted by ``gen_cli --convert`` in this
+      process (the native parser) and timed against the Python parser on
+      the same file (the same edges); the port's CLI on each converted
+      graph (the counted paths "tooling road-1024", stencil, profiled
+      below, and "tooling rmat-16", bitbell): the winner and F equal
+      scipy's (road-1024's 16 groups are phase 6's);
+   c. ``MSBFS_PROFILE_DIR`` on "tooling road-1024" and on gen_cli's
+      RMAT-20 K = 64 ("tooling rmat-20", bitbell), each ``python -m
+      <port>`` in a child process as a user takes a trace: the report's
+      7 lines keep their form (every CLI run of the script checks it),
+      the trace file exists, each kernel the span launched (the trace's
+      ``msbfs_launches``, the child's counters, which count as the
+      path's launches) is named by as many CUDA kernel events as it has
+      launches (forest_or: its gather; its level kernels a whole
+      multiple), no hand-written kernel's event is uncounted, and the
+      device's busy share of the span is printed;
+   d. ``python -m <port> analyze`` exits 0 on the committed tree (run
+      beside a-c as a child);
 then the ``{"kernels": [...]}`` line and the final ``{"ok": true, ...}``.
 
 Each CLI run of phases 3-5b, 9a, 10 and 11, and each of phase 12's and
@@ -285,6 +318,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import functools
+import hashlib
 import io
 import json
 import os
@@ -322,8 +356,8 @@ PATH_KERNELS = {
     "vmap rmat-20": ("csr_pull",),
     "packed rmat-20": ("csr_pull",),
     "dense rmat-14": (),
-    "push road-4096": ("queue_expand", "queue_compact"),
-    "ppush road-4096": ("batch_start", "push_or", "queue_compact"),
+    "push road-1024": ("queue_expand", "queue_compact"),
+    "ppush road-1024": ("batch_start", "push_or", "queue_compact"),
     "weighted rmat-20": ("weighted_relax",),
     "weighted-bitbell road-512": ("weighted_relax",),
     "weighted-stencil road-512": ("weighted_relax",),
@@ -333,6 +367,9 @@ PATH_KERNELS = {
     "serve weighted road-512": ("weighted_relax",),
     "fleet rmat-20": ("batch_start", "forest_or", "push_or", "level_apply"),
     "fleet road-1024": ("batch_start", "stencil_sweep", "level_apply"),
+    "tooling road-1024": ("batch_start", "stencil_sweep", "level_apply"),
+    "tooling rmat-16": ("batch_start", "forest_or", "level_apply"),
+    "tooling rmat-20": ("batch_start", "forest_or", "push_or", "level_apply"),
 }
 # The paths whose planes are bytes: their batch starts at a stride of 8
 # lanes, the others' at 1 (the ELL route packs no planes), and they pull
@@ -341,16 +378,13 @@ PATH_KERNELS = {
 BYTE_PATHS = ("lowk rmat-16", "bell rmat-20", "lowk rmat-20")
 # The paths whose batch start lists the sources for a direction switch.
 SWITCHED_PATHS = ("mxu rmat-14", "mxu road-512", "lowk rmat-16", "bitbell rmat-20",
-                  "lowk rmat-20")
+                  "lowk rmat-20", "tooling rmat-16", "tooling rmat-20")
 # Groups of the RMAT-20 paths checked against scipy (besides the winner).
 SCIPY_GROUPS = 8
 # Groups of RMAT-20's 64 that its low-K path runs (all checked against scipy).
 LOWK_GROUPS = 4
 # Each path's launches per kernel variant, as _run_path read them.
 VARIANTS = {}
-# The CLI's preprocessing phases, native and NumPy, of the paths run with
-# both (road-4096 and the four RMAT-20 paths).
-PREPROCESSING = {}
 # The card (nvidia-smi name, power limit) and the host (CPUs, the native
 # runtime's threads on a large pass), printed beside every host time.
 CARD = None
@@ -1990,16 +2024,13 @@ def _rmat20_paths(ctx, n, edges, g, bg, eg, k, seed):
     tio.save_query_bin(qpath, queries)
     tio.save_query_bin(qpath4, queries[:LOWK_GROUPS])
     argv = ["chip_smoke", "-g", gpath, "-q", qpath, "-gn", "1"]
-    runs = {"bitbell rmat-20": _run_path(cli, timing, argv, "bitbell rmat-20", launches,
-                                         numpy_too=True)}
+    runs = {"bitbell rmat-20": _run_path(cli, timing, argv, "bitbell rmat-20", launches)}
     with _env(MSBFS_BACKEND="pallas"):
-        runs["ell rmat-20"] = _run_path(cli, timing, argv, "ell rmat-20", launches,
-                                        numpy_too=True)
+        runs["ell rmat-20"] = _run_path(cli, timing, argv, "ell rmat-20", launches)
     with _env(MSBFS_BACKEND="bell"):
-        runs["bell rmat-20"] = _run_path(cli, timing, argv, "bell rmat-20", launches,
-                                         numpy_too=True)
+        runs["bell rmat-20"] = _run_path(cli, timing, argv, "bell rmat-20", launches)
     lowk_run = _run_path(cli, timing, ["chip_smoke", "-g", gpath, "-q", qpath4, "-gn", "1"],
-                         "lowk rmat-20", launches, numpy_too=True)
+                         "lowk rmat-20", launches)
     ell = {k_: v for k_, v in VARIANTS["ell rmat-20"].items() if k_.startswith("ell_hits:")}
     steady = sum(v for k_, v in ell.items() if ":steady" in k_)
     stale = sum(v for k_, v in ell.items() if ":stale" in k_)
@@ -2708,7 +2739,7 @@ sys.exit(rc)
 
 # Groups of each phase-10 path checked against scipy (besides the winner).
 SINGLE_GROUPS = 8
-# An explicit capacity that road-4096's batch overflows.
+# An explicit capacity that road-1024's batch overflows.
 SMALL_CAPACITY = 64
 
 
@@ -3135,7 +3166,7 @@ def _queue_rows(torch, np, adj, padded, capacity, label):
         levels=len(levels), device_ms_sum=sum(r["expand_ms"] + r["compact_ms"] for r in levels),
         device_ms_max=max(r["expand_ms"] + r["compact_ms"] for r in levels),
         **_level_sums(levels, keys), capacity=capacity,
-        detail=_write_detail("push_road4096_levels", levels),
+        detail=_write_detail("push_road1024_levels", levels),
         note="queue_expand and queue_compact of every level, CUDA events behind a "
              "queued device sleep (device time only)", card=CARD)))
     widest = max(levels, key=lambda r: r["entries"])["level"]
@@ -3224,7 +3255,7 @@ def _row_queue_row(torch, np, adj, padded, capacity, label):
         device_ms_sum=sum(r["push_or_ms"] + r["compact_ms"] for r in levels),
         device_ms_max=max(r["push_or_ms"] + r["compact_ms"] for r in levels),
         **_level_sums(levels, keys), capacity=capacity,
-        detail=_write_detail("ppush_road4096_levels", levels),
+        detail=_write_detail("ppush_road1024_levels", levels),
         note="push_or and queue_compact (row mode) of every level, CUDA events behind "
              "a queued device sleep (device time only)", card=CARD)))
     widest = max(levels, key=lambda r: r["union_rows"])["level"]
@@ -3272,7 +3303,7 @@ def _single_device_phase(ctx, files, seed):
     """Phase 10: the five single-device routes through the CLI, each a
     counted path, with their engines against the plain engines and scipy,
     and their kernels held against their plain versions on real levels."""
-    (torch, np, sp, cg, cli, tio, timing, launches, dev, g20, g14, g4, g1) = ctx
+    (torch, np, sp, cg, cli, tio, timing, launches, dev, g20, g14, g1) = ctx
     from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
         dense, engine, packed, push, push_packed,
     )
@@ -3335,28 +3366,23 @@ def _single_device_phase(ctx, files, seed):
     del dgr, frontier
     torch.cuda.empty_cache()
 
-    # -- road-4096, K = 16: push (K10, K11), ppush (K3, K11's row mode);
-    # the push engine's growth trajectory against the plain engine's on
-    # road-1024, K = 16, where a plain run takes a second, not half a
-    # minute.
-    argv = ["chip_smoke", "-g", files["road4096"][0], "-q", files["road4096"][1], "-gn", "1"]
-    queries = files["road4096"][2]
-    scipy = scipy_of("road-4096", queries, files["road4096"][3])
-    cache.update({("road-4096", q): v for q, v in files["road4096"][4].items()})
+    # -- road-1024, K = 16: push (K10, K11), ppush (K3, K11's row mode),
+    # and the push engine's growth trajectory against the plain engine's.
+    argv = ["chip_smoke", "-g", files["road1024"][0], "-q", files["road1024"][1], "-gn", "1"]
+    queries = files["road1024"][2]
+    scipy = scipy_of("road-1024", queries, _scipy_matrix(sp, np, g1))
     padded = tio.pad_queries(queries)
-    adj = push.PaddedAdjacency.from_host(g4, dev)
-    adj1 = push.PaddedAdjacency.from_host(g1, dev)
-    padded1 = tio.pad_queries(files["road1024"])
-    for name, cls in (("push road-4096", push.PushEngine),
-                      ("ppush road-4096", push_packed.PackedPushEngine)):
+    adj = push.PaddedAdjacency.from_host(g1, dev)
+    for name, cls in (("push road-1024", push.PushEngine),
+                      ("ppush road-1024", push_packed.PackedPushEngine)):
         t0 = time.perf_counter()
         with _env(MSBFS_BACKEND=name.split()[0]):
             run = _run_path(cli, timing, argv, name, launches)
         t1 = time.perf_counter()
         trail = plain_trail = None
-        if cls is push.PushEngine:  # one growing batch; ppush grows on road-4096 above
-            trail = _capacity_trail(cls(adj1), padded1)
-            plain_trail = _capacity_trail(cls(adj1, plain=True), padded1)
+        if cls is push.PushEngine:  # one growing batch; ppush grows in its run above
+            trail = _capacity_trail(cls(adj), padded)
+            plain_trail = _capacity_trail(cls(adj, plain=True), padded)
             assert trail == plain_trail and trail[-1] > trail[0], (name, trail, plain_trail)
         t2 = time.perf_counter()
         fast, plain = cls(adj), cls(adj, plain=True)
@@ -3378,11 +3404,11 @@ def _single_device_phase(ctx, files, seed):
         if cls is push.PushEngine:
             assert "queue_compact:queue" in VARIANTS[name], VARIANTS[name]
             rows["queue_expand"], rows["queue_compact"] = _queue_rows(
-                torch, np, adj, padded, fast.capacity, "road-4096 K=16")
+                torch, np, adj, padded, fast.capacity, "road-1024 K=16")
         else:
             assert "queue_compact:rows" in VARIANTS[name], VARIANTS[name]
-            _row_queue_row(torch, np, adj, padded, fast.capacity, "road-4096 K=16")
-    del adj, adj1
+            _row_queue_row(torch, np, adj, padded, fast.capacity, "road-1024 K=16")
+    del adj
     torch.cuda.empty_cache()
     return rows
 
@@ -3405,11 +3431,9 @@ def _env(**values):
                 os.environ[k] = v
 
 
-def _run_path(cli, timing, argv, name, launches, numpy_too=False):
-    """One CLI run as one path: counters zeroed before, read after.  With
-    ``numpy_too`` the CLI then runs again with ``native=False`` (outside
-    the counted run), to the same winner and F, and the preprocessing
-    span of both runs is printed split into its phases."""
+def _run_path(cli, timing, argv, name, launches):
+    """One CLI run as one path: counters zeroed before, read after, and the
+    preprocessing span printed split into its phases."""
     timing.reset_launch_counts()
     result = _run_cli(cli, argv)
     counts = timing.launch_counts()
@@ -3427,16 +3451,8 @@ def _run_path(cli, timing, argv, name, launches, numpy_too=False):
         want = f"batch_start:stride{stride}" + ("/switch" if name in SWITCHED_PATHS else "")
         starts = {k: v for k, v in VARIANTS[name].items() if k.startswith("batch_start:")}
         assert list(starts) == [want], (name, starts)
-    if numpy_too:
-        numpy_run = _run_cli(cli, argv, native=False)
-        assert numpy_run[:2] == result[:2], (name, numpy_run, result)
-        PREPROCESSING[name] = dict(
-            native=dict(span=result[2], **phases),
-            numpy=dict(span=numpy_run[2], **timing.phase_seconds()),
-            computation_s=dict(native=result[3], numpy=numpy_run[3]),
-        )
-        print(f"preprocessing {name}: " + json.dumps(dict(
-            **PREPROCESSING[name], card=CARD, host=HOST)))
+    print(f"preprocessing {name}: " + json.dumps(dict(
+        native=dict(span=result[2], **phases), computation_s=result[3], card=CARD, host=HOST)))
     return result
 
 
@@ -4830,6 +4846,305 @@ def _fleet_phase(ctx, info20, road1024, rmat16, seed):
           f"{FLEET_PHASE_TARGET_S:g} s; card: {CARD}")
 
 
+# ---- phase 14: the port's tooling (gen_cli, the text converters, the
+# profiler trace of the computation span, the analyzer)
+
+# Each counted kernel's device functions as torch.profiler names them:
+# (one event a launch, events a launch adds to those). A forest_or launch
+# is one forest_level_kernel a non-empty forest level, then the gather.
+TRACE_SYMBOLS = {
+    "batch_start": (("batch_start_kernel",), ()),
+    "stencil_sweep": (("sweep_ring_kernel", "sweep_l2_kernel"), ()),
+    "level_apply": (("level_apply_vector_kernel", "level_apply_column_kernel",
+                     "level_apply_rows_kernel"), ()),
+    "push_or": (("push_or_kernel",), ()),
+    "forest_or": (("forest_gather_kernel",), ("forest_level_kernel",)),
+}
+# Phase 14's sizes: gen_cli's R-MAT scale, the DIMACS road's side, the
+# SNAP R-MAT's scale (the names of its paths and lines say 20, 1024, 16).
+TOOLING_RMAT_SCALE = 20
+TOOLING_ROAD_SIDE = 1024
+TOOLING_SNAP_SCALE = 16
+# The 7 report lines' form (reference main.cu:409-418).
+REPORT_FORM = (
+    r"Graph: .+", r"Query: .+", r"Query number \(k\) with minimum F value: \d+",
+    r"Minimum F value: \d+", r"GPU # : \d+ GPU", r"Preprocessing time: \d+\.\d{9} s",
+    r"Computation time: \d+\.\d{9} s",
+)
+
+
+def _sha256(path) -> str:
+    digest = hashlib.sha256()
+    with open(path, "rb") as f:
+        for block in iter(lambda: f.read(1 << 24), b""):
+            digest.update(block)
+    return digest.hexdigest()
+
+
+def _gen_cli(argv, label, **env):
+    """``python -m <port>.gen_cli argv`` as a child process with ``env``
+    (a None value unsets a variable): (host seconds, its stderr lines)."""
+    child_env = dict(os.environ)
+    for key, value in env.items():
+        if value is None:
+            child_env.pop(key, None)
+        else:
+            child_env[key] = value
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", f"{PKG}.gen_cli", *argv], cwd=_ROOT,
+                          env=child_env, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    assert proc.returncode == 0, (label, proc.returncode, proc.stderr[-3000:])
+    return seconds, proc.stderr.splitlines()
+
+
+def _busy_ms(events):
+    """The union of the device events' intervals, in ms."""
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events)
+    busy, end = 0.0, None
+    for lo, hi in spans:
+        if end is None or lo > end:
+            busy += hi - lo
+            end = hi
+        elif hi > end:
+            busy += hi - end
+            end = hi
+    return busy / 1e3
+
+
+# Each profiled run's CLI call with its MSBFS_PROFILE_DIR, in a fresh
+# process (argv: a JSON list of [argv, trace directory] pairs).
+_PROFILE_CHILD = f"""
+import json, os, sys
+from {PKG} import cli
+for argv, trace_dir in json.loads(sys.argv[1]):
+    os.environ["MSBFS_PROFILE_DIR"] = trace_dir
+    rc = cli.main(argv)
+    if rc:
+        sys.exit(rc)
+"""
+
+
+def _profiled_paths(runs, launches):
+    """Counted CLI paths under MSBFS_PROFILE_DIR, as a user takes a trace:
+    ``cli.main`` with the knob set, each run of ``runs`` ((argv, name,
+    trace directory)) in turn in one fresh child process (in this
+    script's process, minutes old, the card's first events of a trace
+    went missing, PERF.md §7).  Returns each run's report numbers."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", _PROFILE_CHILD,
+         json.dumps([[argv, trace_dir] for argv, _, trace_dir in runs])],
+        cwd=_ROOT, capture_output=True, text=True, timeout=600)
+    child_s = time.perf_counter() - t0
+    print(proc.stdout, end="")
+    assert proc.returncode == 0, (proc.returncode, proc.stderr[-3000:])
+    lines = proc.stdout.splitlines()
+    assert len(lines) == len(REPORT_FORM) * len(runs), lines
+    results = []
+    for i, (_, name, trace_dir) in enumerate(runs):
+        report = "\n".join(lines[i * len(REPORT_FORM):(i + 1) * len(REPORT_FORM)])
+        results.append(_trace_check(_parse_report(report), name, launches, trace_dir, child_s))
+    return results
+
+
+def _trace_check(result, name, launches, trace_dir, child_s):
+    """A profiled path's trace: the file exists, every kernel the span
+    launched (the trace's ``msbfs_launches``: the child's launch counters
+    over the span, which count as the path's) is named by as many device
+    events as it has launches (forest_or's level kernels a whole multiple
+    of them), no device event of a hand-written kernel goes uncounted, and
+    the device's busy share of the span is read from the trace."""
+    (path,) = [os.path.join(trace_dir, f) for f in os.listdir(trace_dir)
+               if f.startswith("msbfs.") and f.endswith(".pt.trace.json")]
+    t0 = time.perf_counter()
+    with open(path) as f:
+        trace = json.load(f)
+    span = trace["msbfs_launches"]
+    launches[name] = span
+    print(f"{name} launches: {json.dumps(span)} (the span's, in the child)")
+    assert span, (name, "the span launched no counted kernel")
+    for kernel in PATH_KERNELS[name]:
+        assert kernel in span, (name, kernel, "not launched inside the span")
+    device = [e for e in trace["traceEvents"] if e.get("ph") == "X"
+              and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    kernels = {}
+    for e in device:
+        if e["cat"] == "kernel":
+            op = _op_name(e["name"])
+            kernels[op] = kernels.get(op, 0) + 1
+    ours = {s for markers, extra in TRACE_SYMBOLS.values() for s in (*markers, *extra)}
+    per_launch = {}
+    for kernel, count in span.items():
+        markers, extra = TRACE_SYMBOLS[kernel]
+        seen = sum(kernels.get(s, 0) for s in markers)
+        assert seen == count, (name, kernel, "trace events", seen, "launches", count, kernels)
+        for s in extra:
+            assert kernels.get(s, 0) % count == 0, (name, s, kernels.get(s, 0), count)
+            per_launch[s] = kernels.get(s, 0) // count
+    named = {s for k in span for s in (*TRACE_SYMBOLS[k][0], *TRACE_SYMBOLS[k][1])}
+    stray = {s: c for s, c in kernels.items() if s in ours and s not in named}
+    assert not stray, (name, "device events of kernels no counter saw", stray)
+    busy = _busy_ms(device)
+    span_ms = result[3] * 1e3
+    window = (max(e["ts"] + e["dur"] for e in device) - min(e["ts"] for e in device)) / 1e3
+    print(f"profile {name}: " + json.dumps(dict(
+        trace=os.path.basename(path), trace_bytes=os.path.getsize(path),
+        child_s_for_every_profiled_run=child_s,
+        trace_read_s=time.perf_counter() - t0, span_launches=span,
+        trace_kernel_events={k: v for k, v in kernels.items() if k in ours},
+        events_a_launch=per_launch,
+        other_device_events=sum(1 for e in device if e["cat"] != "kernel"
+                                or _op_name(e["name"]) not in ours),
+        busy_ms=busy, span_ms=span_ms, device_window_ms=window, busy_share=busy / span_ms,
+        card=CARD)))
+    return result
+
+
+def _ingest(ctx, fmt, text_path, write_s, label, seed, queries, max_group, scipy_f=None):
+    """One real-format file through ``gen_cli --convert`` (the native
+    parser; in this process, its host time without a child's start),
+    timed against the Python parser on the same file (the same edges);
+    returns what the port's CLI on the converted graph needs, and scipy's
+    F of its groups."""
+    (torch, np, sp, cg, cli, tio, timing, generators, launches, tmp, dev) = ctx
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch import gen_cli
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.models.csr import (
+        CSRGraph,
+    )
+
+    gpath = os.path.join(tmp, f"{label}-converted.bin")
+    qpath = os.path.join(tmp, f"{label}-converted-q.bin")
+    err = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        rc = gen_cli.main(["--convert", text_path, "--informat", fmt, "--graph", gpath,
+                           "--queries", str(queries), "--max-group", str(max_group),
+                           "--query-file", qpath, "--seed", str(seed)])
+    convert_s = time.perf_counter() - t0
+    assert rc == 0, (label, rc, err.getvalue())
+    read = tio.load_dimacs_gr if fmt == "dimacs" else tio.load_edgelist
+    t0 = time.perf_counter()
+    native = read(text_path, native=True)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    python = read(text_path, native=False)
+    python_s = time.perf_counter() - t0
+    assert native[0] == python[0] and np.array_equal(native[1], python[1]), label
+    g = tio.load_graph_bin(gpath)
+    assert g.n == native[0] and g.m == len(native[1]), (label, g.n, g.m)
+    argv = ["chip_smoke", "-g", gpath, "-q", qpath, "-gn", "1"]
+    name = f"tooling {label}"
+    if scipy_f is None:
+        a = _scipy_matrix(sp, np, CSRGraph.from_edges(g.n, native[1]))
+        scipy_f = np.array([_scipy_f(cg, np, a, q) for q in tio.load_query_bin(qpath)])
+    return dict(gpath=gpath, qpath=qpath, argv=argv, name=name, scipy_f=scipy_f, row=dict(
+        file_bytes=os.path.getsize(text_path), write_s=write_s, gen_cli_convert_s=convert_s,
+        native_parse_s=native_s, python_parse_s=python_s, python_over_native=python_s / native_s,
+        n=g.n, edges=g.m, stderr=err.getvalue().splitlines(), card=CARD, host=HOST))
+
+
+def _check_winner(np, ingest, run):
+    want = ingest["scipy_f"]
+    assert run[:2] == (int(np.argmin(want)), int(want.min())), (ingest["name"], run, want)
+
+
+def _tooling_phase(ctx, seed, road=None, rmat20_gpath=None):
+    """Phase 14 on the card: gen_cli as a child (RMAT-20 from the native
+    sampler and the NumPy stream, the latter's bytes held against the
+    in-process generator), road-1024 as DIMACS and RMAT-16 as SNAP
+    converted by gen_cli and by the Python parser, the port's CLI on each
+    against scipy, ``MSBFS_PROFILE_DIR`` on the converted road-1024
+    (stencil) and on gen_cli's RMAT-20 K = 64 (bitbell), and ``analyze``.
+    ``road``: (n, edges, want F of the 16 groups random_queries(n, 16,
+    seed=seed + 3) draws) when an earlier phase has them; ``rmat20_gpath``:
+    a file save_graph_bin wrote of rmat_edges(20, 16, seed)."""
+    (torch, np, sp, cg, cli, tio, timing, generators, launches, tmp, dev) = ctx
+
+    t_phase = time.perf_counter()
+    analyze = subprocess.Popen([sys.executable, "-m", PKG, "analyze"], cwd=_ROOT,
+                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        # -- a. gen_cli's RMAT-20, K = 64: the native sampler, the NumPy stream.
+        scale = TOOLING_RMAT_SCALE
+        common = ["--kind", "rmat", "--scale", str(scale), "--edge-factor", "16", "--queries", "64",
+                  "--max-group", "128", "--seed", str(seed)]
+        native_g = os.path.join(tmp, "gen-rmat20-native.bin")
+        numpy_g = os.path.join(tmp, "gen-rmat20-numpy.bin")
+        qn, qp = os.path.join(tmp, "gen-q-native.bin"), os.path.join(tmp, "gen-q.bin")
+        native_s, native_err = _gen_cli([*common, "--graph", native_g, "--query-file", qn],
+                                        "gen_cli native", MSBFS_NATIVE_RMAT="1")
+        numpy_s, numpy_err = _gen_cli([*common, "--graph", numpy_g, "--query-file", qp],
+                                      "gen_cli numpy", MSBFS_NATIVE_RMAT=None)
+        t0 = time.perf_counter()
+        if rmat20_gpath is None:
+            rmat20_gpath = os.path.join(tmp, "rmat20-inprocess.bin")
+            tio.save_graph_bin(rmat20_gpath, *generators.rmat_edges(scale, edge_factor=16,
+                                                                    seed=seed))
+        assert _sha256(numpy_g) == _sha256(rmat20_gpath), "gen_cli's NumPy stream differs"
+        assert _sha256(qn) == _sha256(qp)
+        native = tio.load_graph_bin(native_g)
+        assert (native.n, native.m) == (1 << scale, 16 << scale)
+        assert _sha256(native_g) != _sha256(numpy_g)
+        del native
+        print("gen_cli rmat-20: " + json.dumps(dict(
+            native_child_s=native_s, numpy_child_s=numpy_s, numpy_over_native=numpy_s / native_s,
+            digests_and_native_load_s=time.perf_counter() - t0, numpy_bytes_equal_generator=True,
+            native_stderr=native_err, numpy_stderr=numpy_err, card=CARD, host=HOST)))
+
+        # -- b. road-1024 as DIMACS, RMAT-16 as SNAP: converted natively,
+        # timed against the Python parser; the CLI on each against scipy.
+        if road is None:
+            n1, e1 = generators.road_edges(TOOLING_ROAD_SIDE, TOOLING_ROAD_SIDE, seed=seed + 1)
+            want1 = None
+        else:
+            n1, e1, want1 = road
+        gr_path = os.path.join(tmp, "road1024.gr")
+        t0 = time.perf_counter()
+        tio.save_dimacs_gr(gr_path, n1, e1, comment=f"road_edges, seed {seed + 1}")
+        gr_write = time.perf_counter() - t0
+        # gen_cli draws its queries with seed + 1: phase 6's 16 groups.
+        road_in = _ingest(ctx, "dimacs", gr_path, gr_write, "road-1024", seed + 2, 16, 128,
+                          want1)
+        os.remove(gr_path)
+        n16, e16 = generators.rmat_edges(TOOLING_SNAP_SCALE, edge_factor=16, seed=seed)
+        snap_path = os.path.join(tmp, "rmat16.txt")
+        t0 = time.perf_counter()
+        with open(snap_path, "w") as f:
+            f.write(f"# rmat_edges, seed {seed}: {n16} nodes, {len(e16)} records\n")
+            np.savetxt(f, e16, fmt="%d\t%d")
+        snap_write = time.perf_counter() - t0
+        rmat_in = _ingest(ctx, "snap", snap_path, snap_write, "rmat-16", seed, 8, 16)
+        os.remove(snap_path)
+
+        # -- c. MSBFS_PROFILE_DIR on the converted road-1024 (stencil) and
+        # gen_cli's RMAT-20 K = 64 (bitbell); the CLI on RMAT-16 plain.
+        road_run, _ = _profiled_paths([
+            (road_in["argv"], road_in["name"], os.path.join(tmp, "trace-road1024")),
+            (["chip_smoke", "-g", numpy_g, "-q", qp, "-gn", "1"], "tooling rmat-20",
+             os.path.join(tmp, "trace-rmat20")),
+        ], launches)
+        _check_winner(np, road_in, road_run)
+        rmat_run = _run_path(cli, timing, rmat_in["argv"], rmat_in["name"], launches)
+        _check_winner(np, rmat_in, rmat_run)
+        for ingest, run in ((road_in, road_run), (rmat_in, rmat_run)):
+            print(f"ingest {ingest['name']}: " + json.dumps(dict(
+                **ingest["row"], winner=run[0] + 1, min_f=run[1], scipy_f=int(ingest["scipy_f"].min()),
+                preprocessing_s=run[2], computation_s=run[3])))
+        for path in (native_g, numpy_g, road_in["gpath"], rmat_in["gpath"]):
+            os.remove(path)
+
+        # -- d. the analyzer on the committed tree.
+        out, err = analyze.communicate(timeout=300)
+        assert analyze.returncode == 0, (analyze.returncode, out[-3000:], err[-3000:])
+        print(f"analyze: rc 0; {out.splitlines()[0]}")
+    finally:
+        if analyze.poll() is None:
+            analyze.kill()
+            analyze.wait()
+    print(f"phase 14: {time.perf_counter() - t_phase:.1f} s; card: {CARD}")
+
+
 def _run_cli(cli, argv, native=True):
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
@@ -4837,7 +5152,18 @@ def _run_cli(cli, argv, native=True):
     report = buf.getvalue()
     print(report, end="")
     assert rc == 0, rc
+    return _parse_report(report)
+
+
+def _parse_report(report):
+    """(winner 0-based, F, preprocessing s, computation s) of the CLI's 7
+    report lines, after each line is held to its form."""
+    import re
+
     lines = report.splitlines()
+    assert len(lines) == len(REPORT_FORM), lines
+    for line, form in zip(lines, REPORT_FORM):
+        assert re.fullmatch(form, line), (line, form)
     min_k = int(lines[2].rsplit(":", 1)[1]) - 1
     min_f = int(lines[3].rsplit(":", 1)[1])
     comp_s = float(lines[6].split(":", 1)[1].split()[0])
@@ -4851,9 +5177,14 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--detail-dir", default=DETAIL_DIR,
                     help="directory for the per-level rows of the hybrid paths")
+    ap.add_argument("--phases", default="all", choices=("all", "14"),
+                    help="all (the proof) or 14 (the build, then the tooling phase alone)")
     args = ap.parse_args()
     DETAIL_DIR = args.detail_dir
     t_start = time.perf_counter()
+
+    def elapsed(phase):
+        print(f"elapsed: {time.perf_counter() - t_start:.1f} s at the start of {phase}")
 
     import torch
 
@@ -4919,7 +5250,20 @@ def main() -> int:
         event_pair_ms=_time_ms(torch, lambda: None, lambda: None),
         note="host time to enqueue one small torch op on the card; the device "
              "time between two CUDA events with nothing between them")))
+    if args.phases == "14":
+        with tempfile.TemporaryDirectory(prefix="msbfs_smoke_") as tmp:
+            elapsed("phase 14")
+            _tooling_phase((torch, np, sp, cg, cli, tio, timing, generators, {}, tmp, dev),
+                           args.seed)
+        print(f"total: {time.perf_counter() - t_start:.1f} s")
+        print(_card_line())
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        }}))
+        return 0
 
+    elapsed("phase 2")
     # ---- data: road-4096 (stencil main path), road-1024, RMAT-14 (mxu main
     # path: bench.py config "6") and road-512
     seed = args.seed
@@ -4952,6 +5296,7 @@ def main() -> int:
     _compare_apply(torch, mgr.n_pad, mgr.n, 2, dev, seed + 13, "rmat-14")
     _compare_apply(torch, mg5.n_pad, mg5.n, 1, dev, seed + 14, "road-512")
 
+    elapsed("phase 3")
     # ---- 3. main path through the CLI
     # Removed when the script ends, whichever way it ends.
     tmpdir = tempfile.TemporaryDirectory(prefix="msbfs_smoke_")
@@ -4963,7 +5308,7 @@ def main() -> int:
     launches = {}
     min_k, min_f, pre_s, comp_s = _run_path(
         cli, timing, ["chip_smoke", "-g", gpath, "-q", qpath, "-gn", "1"],
-        "stencil road-4096", launches, numpy_too=True,
+        "stencil road-4096", launches,
     )
     sweeps = [k for k in VARIANTS["stencil road-4096"] if k.startswith("stencil_sweep:")]
     assert sweeps and all(k.endswith("/res") for k in sweeps), sweeps
@@ -4981,9 +5326,7 @@ def main() -> int:
     plain_s = time.perf_counter() - t0
     assert np.array_equal(f_fast, f_plain), (f_fast, f_plain)
     assert int(f_fast[min_k]) == min_f
-    a4 = _scipy_matrix(sp, np, g4)
-    road_stats = {min_k: _scipy_stats(cg, np, a4, q4[min_k])}  # phase 10 reads it too
-    want_f = road_stats[min_k][2]
+    want_f = _scipy_stats(cg, np, _scipy_matrix(sp, np, g4), q4[min_k])[2]
     assert want_f == min_f, (want_f, min_f)
     depth = int(levels4.max())
     _batch_start_check(torch, fast, n4, padded4, "stencil road-4096")
@@ -5000,6 +5343,7 @@ def main() -> int:
     _level_split(torch, sg4, mid_carry, 64, "road-4096")
     del mid_carry, fast, plain
 
+    elapsed("phases 4-5")
     # ---- 4-5. the mxu route: RMAT-14 with K = 64, road-512 with K = 16
     ctx = (torch, np, sp, cg, cli, tio, timing, generators, mxu, dev, tmp, launches)
     _mxu_path(ctx, "mxu rmat-14", nr, er, gr, 64, seed + 8)
@@ -5007,11 +5351,13 @@ def main() -> int:
     assert {"push", "matmul"} <= set(trace5), "road-512 ran one direction only"
     del mgr, mg5
 
+    elapsed("phase 5a")
     # ---- 5a. the low-K route on RMAT-16 with one source (BASELINE.json
     # config 1)
     rmat16 = _lowk16_path((torch, np, sp, cg, cli, tio, timing, generators, launches, tmp, dev),
                           seed)
 
+    elapsed("phase 5b")
     # ---- 4b. RMAT-20 (BASELINE.json config 2): the forest and ELL kernels
     # against their plain versions at K = 64 and K = 256, then the default
     # and ELL routes through the CLI with K = 64
@@ -5047,29 +5393,35 @@ def main() -> int:
     del eg20
     torch.cuda.empty_cache()
 
+    elapsed("phase 9")
     # ---- 9. resilience on the same RMAT-20 files: the host-streamed route
     # (K1's segment form), the ladder, a real out-of-memory error,
     # checkpoint, MSBFS_STATS=2
     main_shape.update(_streamed_phase(ctx20, n20, g20, bg20, info20, seed))
 
+    elapsed("phase 10")
     # ---- 10. the single-device engines: vmap and packed on the same
     # RMAT-20 files (K9), dense on phase 4's RMAT-14, push and ppush on
-    # phase 3's road-4096 (K10, K11, K3)
+    # road-1024 (K10, K11, K3) with phase 6's groups
+    gpath1, qpath1 = os.path.join(tmp, "road1024.bin"), os.path.join(tmp, "q1.bin")
+    q1 = generators.random_queries(n1, 16, seed=seed + 3)
+    tio.save_graph_bin(gpath1, n1, e1)
+    tio.save_query_bin(qpath1, q1)
     files = {
         "rmat20": (info20["gpath"], info20["qpath"], info20["queries"], info20["scipy"],
                    info20["scipy_stats"]),
         "rmat14": (os.path.join(tmp, "rmat-14.bin"), os.path.join(tmp, "rmat-14-q.bin"),
                    generators.random_queries(nr, 64, seed=seed + 8)),
-        "road4096": (gpath, qpath, q4, a4, road_stats),
-        "road1024": generators.random_queries(n1, 16, seed=seed + 3),
+        "road1024": (gpath1, qpath1, q1),
     }
     t0 = time.perf_counter()
     main_shape.update(_single_device_phase(
-        (torch, np, sp, cg, cli, tio, timing, launches, dev, g20, gr, g4, g1), files, seed))
+        (torch, np, sp, cg, cli, tio, timing, launches, dev, g20, gr, g1), files, seed))
     print(f"phase 10: {time.perf_counter() - t0:.1f} s")
     del files
     torch.cuda.empty_cache()
 
+    elapsed("phase 11")
     # ---- 11. the weighted route: RMAT-20 (phase 5b's groups, K = 64),
     # road-512 (every flavor), road-128 (the audit and verify)
     rows11, road5 = _weighted_phase(
@@ -5078,6 +5430,7 @@ def main() -> int:
     main_shape.update(rows11)
     torch.cuda.empty_cache()
 
+    elapsed("phase 12")
     # ---- 12. the serving daemon: RMAT-20 from four concurrent clients,
     # sequential latency, a weighted query, mutations and repair on
     # road-512, a reload, a restart from the journal
@@ -5088,11 +5441,8 @@ def main() -> int:
     del bg20, g20, e20
     torch.cuda.empty_cache()
 
-    # ---- 6. road-1024, K = 16: every F against scipy
-    gpath1, qpath1 = os.path.join(tmp, "road1024.bin"), os.path.join(tmp, "q1.bin")
-    q1 = generators.random_queries(n1, 16, seed=seed + 3)
-    tio.save_graph_bin(gpath1, n1, e1)
-    tio.save_query_bin(qpath1, q1)
+    elapsed("phase 6")
+    # ---- 6. road-1024, K = 16 (phase 10's files): every F against scipy
     k1, f1, pre1, comp1 = _run_cli(
         cli, ["chip_smoke", "-g", gpath1, "-q", qpath1, "-gn", "1"]
     )
@@ -5107,6 +5457,7 @@ def main() -> int:
         preprocessing_s=pre1, computation_s=comp1,
     )))
 
+    elapsed("phase 7")
     # ---- 7. road-1024, K = 300: the sub-batch split
     q300 = tio.pad_queries(generators.random_queries(n1, 300, max_group=8, seed=seed + 4))
     sub_fast = packed.SubBatchEngine(
@@ -5124,6 +5475,7 @@ def main() -> int:
     print(f"road-1024 K=300: best={best300} kernel-path best {sub_s:.3f} s, "
           "F equals plain path")
 
+    elapsed("phase 8")
     # ---- 8. the active-row window on a residual-free grid
     ng, eg = generators.grid_edges(2048, 2048)
     sgg = stencil.StencilGraph.from_host(CSRGraph.from_edges(ng, eg), dev)
@@ -5152,11 +5504,18 @@ def main() -> int:
     del win, ref, sgg, sub_fast, sub_plain, eng1, sg1
     torch.cuda.empty_cache()
 
+    elapsed("phase 13")
     # ---- 13. the replicated fleet: three daemons in this process behind
     # the router (RMAT-20, road-1024, the vote and failover), then the
     # fleet subcommand with RMAT-20 sharded, and a replica_kill
     _fleet_phase((torch, np, sp, cg, cli, tio, timing, generators, launches, tmp, dev),
                  info20, dict(gpath=gpath1, queries=q1, f=want1), rmat16, seed)
+
+    # ---- 14. the port's tooling: gen_cli, the DIMACS/SNAP converters,
+    # MSBFS_PROFILE_DIR, analyze
+    elapsed("phase 14")
+    _tooling_phase((torch, np, sp, cg, cli, tio, timing, generators, launches, tmp, dev),
+                   seed, road=(n1, e1, want1), rmat20_gpath=info20["gpath"])
     os.remove(info20["gpath"])
     del info20
     tmpdir.cleanup()

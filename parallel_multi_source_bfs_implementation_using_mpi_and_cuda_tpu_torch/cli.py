@@ -36,10 +36,14 @@ Ahead of all of them, ``MSBFS_WEIGHTED=1`` takes the weighted route
 under ``MSBFS_AUDIT``), and the ``verify`` subcommand certifies answers
 (:func:`verify_main`); the serving subcommands ``serve``, ``query``,
 ``health`` and ``trace`` run the single-replica daemon and its client,
-and ``fleet`` a replicated fleet of those daemons behind a failover
-router (serve/).  Every other route or mode of the JAX CLI exits 1
-with a one-line message naming it as not yet ported; none of them
-silently runs something else.
+``fleet`` a replicated fleet of those daemons behind a failover
+router (serve/), and ``analyze`` the static passes over the port's
+files (analysis/).  ``MSBFS_PROFILE_DIR`` writes a ``torch.profiler``
+trace of the computation span (:func:`.utils.trace.profiler_trace`).
+Every other route or mode of the JAX CLI (``MSBFS_MESH``,
+``MSBFS_COORDINATOR``, ``MSBFS_CACHE_DIR``) exits 1 with a one-line
+message naming it as not yet ported; none of them silently runs
+something else.
 
 ``main(argv, device=None, native=True)`` runs on ``cuda`` and raises when
 there is no card; ``device="cpu"`` runs the kernels' plain torch versions
@@ -58,11 +62,6 @@ import numpy as np
 import torch
 
 from .utils import knobs
-
-# Subcommands of the JAX CLI that dispatch before the reference grammar
-# and are not ported yet (``verify``, ``serve``, ``query``, ``health``,
-# ``trace`` and ``fleet`` are: :func:`verify_main`, serve/).
-_SUBCOMMANDS = ("analyze",)
 
 # Levels per dispatch for the auto bound of the gather engines (the JAX
 # package's value); the stencil route replaces it with its own.
@@ -218,8 +217,6 @@ def _unported_knob() -> Optional[str]:
             "MSBFS_COORDINATOR (the multi-process bring-up, with "
             "MSBFS_NUM_PROCESSES and MSBFS_PROCESS_ID)"
         )
-    if knobs.raw("MSBFS_PROFILE_DIR", ""):
-        return "MSBFS_PROFILE_DIR (the profiler trace of the computation span)"
     return knobs.unported_cache_dir()
 
 
@@ -440,8 +437,12 @@ def main(argv: Optional[List[str]] = None, device=None, native: bool = True) -> 
     if len(argv) > 1 and argv[1] == "verify":
         # Offline output certification: exit 0 certified, 9 corrupt.
         return verify_main(argv[2:], device=device, native=native)
-    if len(argv) > 1 and argv[1] in _SUBCOMMANDS:
-        return not_ported(f"the {argv[1]!r} subcommand")
+    if len(argv) > 1 and argv[1] == "analyze":
+        # The static passes over the port's own files (analysis/); they
+        # import no torch.
+        from .analysis.cli import analyze_main
+
+        return analyze_main(argv[2:])
     if len(argv) < 5:  # argc < 5, reference main.cu:204-212
         print(
             f"Usage: python {argv[0] if argv else 'main.py'} "
@@ -800,11 +801,15 @@ def main(argv: Optional[List[str]] = None, device=None, native: bool = True) -> 
     record_phase("layout", pre.seconds - sum(phase_seconds().values()))
 
     # ---- computation span: all BFS + objective + argmin (main.cu:301-400).
+    # MSBFS_PROFILE_DIR traces exactly the span; the trace is written after
+    # it closes, outside the reported time.
+    from .utils.trace import profiler_trace
+
     stats = None
     level_rows = None
     reset_dispatch_count()
     try:
-        with Span() as comp:
+        with profiler_trace(device=dev), Span() as comp:
             if ckpt_path:
                 from .ops.objective import select_best
                 from .utils.checkpoint import CheckpointedRunner

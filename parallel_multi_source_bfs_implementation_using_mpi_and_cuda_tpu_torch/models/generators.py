@@ -6,7 +6,7 @@ fixture built here can be held against either package.
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -28,15 +28,32 @@ def rmat_edges(
     b: float = 0.19,
     c: float = 0.19,
     seed: int = 0,
+    native: Optional[bool] = None,
 ) -> Tuple[int, np.ndarray]:
     """Graph500-style R-MAT: n = 2^scale vertices, m = edge_factor * n
     undirected records (duplicates and self-loops kept, as the reference
     loader keeps them).  Level-by-level quadrant sampling, then a random
     vertex permutation; the NumPy stream of the JAX package's generator,
-    so one seed gives one graph in both packages."""
+    so one seed gives one graph in both packages.
+
+    ``native`` (default: ``MSBFS_NATIVE_RMAT=1``) samples in the native
+    runtime instead (runtime/loader.cpp ``msbfs_rmat_edges``): the same
+    construction from splitmix64 streams, so one seed gives another graph
+    than the NumPy stream, from the same distribution, and the same graph
+    as the JAX package's native sampler at any thread count.  A native
+    stream asked for is never replaced by the NumPy one: a runtime that
+    cannot be built raises."""
     n = 1 << scale
     m = edge_factor * n
     d = 1.0 - a - b - c
+    if native is None:
+        from ..utils import knobs
+
+        native = knobs.raw("MSBFS_NATIVE_RMAT") == "1"
+    if native:
+        from ..runtime import native_loader
+
+        return n, native_loader.rmat_edges(scale, m, a, b, c, seed)
     rng = np.random.default_rng(seed)
     u = np.zeros(m, dtype=np.int64)
     v = np.zeros(m, dtype=np.int64)
@@ -95,6 +112,24 @@ def road_edges(
         )
     edges = np.concatenate(parts, axis=0).astype(np.int32)
     return n, edges
+
+
+def hub_tail_edges(
+    tail: int = 2500, hub_fan: int = 100
+) -> Tuple[int, np.ndarray]:
+    """Adversarial degree profile: a ``tail``-vertex path (deep BFS) with
+    one ``hub_fan``-degree hub grafted onto vertex 0, a high maximum
+    degree on a high-diameter graph, which a route chosen by degree alone
+    would misjudge.  Layout: path 0..tail-1, hub ``tail``, leaves
+    ``tail+1..n-1``; int64 records, as the JAX package's."""
+    n = tail + 1 + hub_fan
+    path = np.stack([np.arange(tail - 1), np.arange(1, tail)], axis=1)
+    hub = tail
+    leaves = np.stack(
+        [np.full(hub_fan, hub), np.arange(tail + 1, n)], axis=1
+    )
+    bridge = np.array([[0, hub]])
+    return n, np.concatenate([path, bridge, leaves]).astype(np.int64)
 
 
 def random_queries(
@@ -194,4 +229,74 @@ def delta_batches(
             np.setdiff1d(live, dels_keys, assume_unique=False),
             canonical_edge_keys(ins),
         )
+    return out
+
+
+def component_labels(
+    n: int, edges: np.ndarray, sample_cap: int = 1 << 24, seed: int = 0
+) -> np.ndarray:
+    """Per-vertex connected-component label (the least vertex id of the
+    component): hooking and pointer jumping in NumPy.
+
+    Beyond ``sample_cap`` records a uniform sample of ``sample_cap``
+    records, drawn with replacement from ``default_rng(seed)``, is
+    labelled instead.  A sample can only split components, never join
+    two, so two vertices with one sampled label share a true component:
+    the safe direction for :func:`ensure_giant_sources`."""
+    label = np.arange(n, dtype=np.int64)
+    e = np.asarray(edges, dtype=np.int64)
+    e = e[(e[:, 0] >= 0) & (e[:, 0] < n) & (e[:, 1] >= 0) & (e[:, 1] < n)]
+    if len(e) > sample_cap:
+        # With replacement: a duplicate record does not change a label,
+        # and a draw without would build an O(len(e)) permutation.
+        rng = np.random.default_rng(seed)
+        e = e[rng.integers(0, len(e), size=sample_cap)]
+    u, v = e[:, 0], e[:, 1]
+    while True:
+        lu, lv = label[u], label[v]
+        # Hook both endpoints to the smaller label; minimum.at resolves
+        # colliding writes by their minimum.
+        m = np.minimum(lu, lv)
+        before = label.copy()
+        np.minimum.at(label, u, m)
+        np.minimum.at(label, v, m)
+        # Jump to the fixed point (label[i] == label[label[i]]) before
+        # the convergence test.
+        while True:
+            nxt = label[label]
+            if np.array_equal(nxt, label):
+                break
+            label = nxt
+        if np.array_equal(label, before):
+            return label
+
+
+def ensure_giant_sources(
+    queries: List[np.ndarray],
+    n: int,
+    edges: np.ndarray,
+    seed: int = 0,
+) -> List[np.ndarray]:
+    """Every query group with no source in the largest connected
+    component gets its source 0 replaced by a seeded draw from it, so
+    that no group reaches only dust and ``best()`` does not degenerate
+    into a race to the smallest reach (F == 0).  The other sources stay
+    as they were.  Returns modified copies; the input is not mutated."""
+    labels = component_labels(n, edges, seed=seed)
+    ids, counts = np.unique(labels, return_counts=True)
+    giant_label = ids[np.argmax(counts)]
+    giant = np.flatnonzero(labels == giant_label).astype(np.int32)
+    rng = np.random.default_rng(seed)
+    out = []
+    for g in queries:
+        g = np.asarray(g, dtype=np.int32)
+        valid = g[(g >= 0) & (g < n)]
+        if valid.size and np.any(labels[valid] == giant_label):
+            out.append(g)
+            continue
+        fixed = g.copy()
+        if fixed.size == 0:
+            fixed = np.empty(1, dtype=np.int32)
+        fixed[0] = giant[int(rng.integers(0, len(giant)))]
+        out.append(fixed)
     return out

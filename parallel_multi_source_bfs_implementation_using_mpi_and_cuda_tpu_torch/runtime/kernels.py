@@ -25,15 +25,14 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, NamedTuple
+from typing import Dict
 
 import torch
 
 from ..utils.timing import record_launch
+from .native_loader import BUILD_DIR, BuildResult
 
-_PKG_DIR = Path(__file__).resolve().parents[1]
-CSRC_DIR = _PKG_DIR / "csrc"
-BUILD_DIR = _PKG_DIR / "build"
+CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -121,12 +120,6 @@ KERNELS = {
 
 class KernelError(RuntimeError):
     """A kernel failed to build, to load, or to launch."""
-
-
-class BuildResult(NamedTuple):
-    path: Path
-    seconds: float  # 0.0 when an earlier build of the same sources was reused
-    log: str  # nvcc's output (register and shared-memory use per kernel)
 
 
 def _nvcc() -> str:

@@ -3,8 +3,8 @@
 // BELL forest's level build.
 //
 // The same algorithms, entry points and results as the JAX package's
-// runtime/loader.cpp, cut to what the port's main path runs (no DIMACS or
-// SNAP text parsers, no R-MAT sampler).  Against the reference's
+// runtime/loader.cpp, with its DIMACS and SNAP text parsers and its R-MAT
+// sampler (gen_cli's).  Against the reference's
 // LoadGraphBin (main.cu:92-130) the decoder mmaps the file and walks it
 // once instead of one fread per int, builds the CSR by a counting pass and
 // a placement pass instead of a vector of vectors, and keeps int64
@@ -21,6 +21,7 @@
 
 #include <algorithm>
 #include <atomic>
+#include <climits>
 #include <cstdint>
 #include <cstdlib>
 #include <cstring>
@@ -666,6 +667,310 @@ int msbfs_bell_fill(int64_t v_total, const int64_t* item_start,
         }
       }
     }
+  });
+  return err.load();
+}
+
+}  // extern "C"
+
+// ---- Text formats and the R-MAT sampler (gen_cli): DIMACS .gr arc lists
+// ("c" comments, one "p sp <n> <m>" header, "a <u> <v> <w>" arcs with
+// 1-based endpoints), SNAP edge lists ("#"/"%" comments, "u v" pairs with
+// 0-based ids), each parsed in two threaded passes over the mapped file
+// (count the lines, then parse into the caller's arrays in file order).
+// A thread owns the lines that start in its byte range.  The accepted
+// and refused inputs are utils/io.py's Python loops': a token that
+// Python's int() refuses is a malformed line (rc 3), never a skip.
+
+namespace {
+
+inline const unsigned char* gr_parse_uint(const unsigned char* p,
+                                          const unsigned char* end,
+                                          int64_t* out) {
+  while (p < end && (*p == ' ' || *p == '\t' || *p == '\r')) ++p;
+  if (p >= end || *p < '0' || *p > '9') return nullptr;
+  int64_t x = 0;
+  while (p < end && *p >= '0' && *p <= '9') {
+    x = x * 10 + (*p - '0');
+    if (x > (int64_t{1} << 40)) return nullptr;  // absurd id: malformed
+    ++p;
+  }
+  *out = x;
+  return p;
+}
+
+// After the last id read from a line the next byte must end the token
+// ("1.5" and "1,2" are malformed, as int() finds them); further tokens
+// are ignored, as ``u, v, *_ = line.split()`` ignores them.
+inline bool gr_at_token_boundary(const unsigned char* p,
+                                 const unsigned char* end) {
+  return p >= end || *p == ' ' || *p == '\t' || *p == '\r' || *p == '\n';
+}
+
+// startswith("a "): 'a' then a space, not a tab, as the Python loop.
+inline bool gr_is_arc_line(const unsigned char* d, int64_t p, int64_t size) {
+  return d[p] == 'a' && p + 1 < size && d[p + 1] == ' ';
+}
+
+// SNAP: every line but "#"/"%" comments and blank ones is an edge line.
+inline bool snap_is_edge_line(const unsigned char* d, int64_t p,
+                              int64_t size) {
+  if (d[p] == '#' || d[p] == '%') return false;
+  int64_t q = p;
+  while (q < size && (d[q] == ' ' || d[q] == '\t' || d[q] == '\r')) ++q;
+  return q < size && d[q] != '\n';
+}
+
+// fn(line_start) for every line whose first byte is in [lo, hi).
+template <typename F>
+void gr_for_each_line(const unsigned char* d, int64_t size, int64_t lo,
+                      int64_t hi, F&& fn) {
+  int64_t p = lo;
+  if (lo > 0) {  // align to the first line start inside the range
+    while (p < hi && d[p - 1] != '\n') ++p;
+  }
+  while (p < hi) {
+    fn(p);
+    const void* nl = std::memchr(d + p, '\n', static_cast<size_t>(size - p));
+    if (!nl) break;
+    p = static_cast<const unsigned char*>(nl) - d + 1;
+  }
+}
+
+// Per-thread counts of the lines matching ``pred``: pass 1 of each parser,
+// run again in pass 2 (same T, same byte partition) so that every thread
+// knows where its output starts.
+template <typename Pred>
+void count_lines(const unsigned char* d, int64_t size, int T,
+                 std::vector<int64_t>& counts, Pred&& pred) {
+  counts.assign(T, 0);
+  parallel_ranges(T, size, [&](int t, int64_t lo, int64_t hi) {
+    int64_t c = 0;
+    gr_for_each_line(d, size, lo, hi, [&](int64_t p) {
+      if (pred(p)) ++c;
+    });
+    counts[t] = c;
+  });
+}
+
+inline uint64_t splitmix64(uint64_t* s) {
+  uint64_t z = (*s += 0x9E3779B97F4A7C15ULL);
+  z = (z ^ (z >> 30)) * 0xBF58476D1CE4E5B9ULL;
+  z = (z ^ (z >> 27)) * 0x94D049BB133111EBULL;
+  return z ^ (z >> 31);
+}
+
+inline double u01(uint64_t* s) {
+  return static_cast<double>(splitmix64(s) >> 11) * 0x1.0p-53;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Fills out (m, 2) int32 with R-MAT edges over n = 2^scale vertices: one
+// quadrant draw per bit from splitmix64 streams, then a Fisher-Yates
+// relabelling of the ids.  Record chunks of 2^20 each draw from a stream
+// seeded by (seed, chunk), and the shuffle from one seeded by seed, so the
+// graph is a function of the seed alone, whatever the thread count.  It
+// is not NumPy's stream: one seed gives another graph than
+// models/generators.py's NumPy sampler, from the same distribution.
+// Returns 0, 1 on a bad scale or m, 2 on bad probabilities.
+int msbfs_rmat_edges(int32_t scale, int64_t m, double a, double b, double c,
+                     uint64_t seed, int32_t* out) {
+  if (scale <= 0 || scale > 30 || m < 0) return 1;
+  if (a < 0 || b < 0 || c < 0 || a + b + c > 1.0) return 2;
+  const double t_ab = a + b, t_abc = a + b + c;
+  const int64_t n = int64_t{1} << scale;
+  const int64_t kChunk = int64_t{1} << 20;
+  const int64_t n_chunks = m > 0 ? (m + kChunk - 1) / kChunk : 0;
+  const int T = num_threads_for(m, int64_t{1} << 18);
+  parallel_ranges(T, n_chunks, [&](int, int64_t clo, int64_t chi) {
+    for (int64_t ci = clo; ci < chi; ++ci) {
+      uint64_t s = (seed + 0x9E3779B97F4A7C15ULL) *
+                       (static_cast<uint64_t>(ci) + 0xD1B54A32D192ED03ULL) +
+                   0x8BB84B93962EACC9ULL;
+      const int64_t lo = ci * kChunk;
+      const int64_t hi = std::min(m, lo + kChunk);
+      for (int64_t i = lo; i < hi; ++i) {
+        int64_t u = 0, v = 0;
+        for (int32_t bit = 0; bit < scale; ++bit) {
+          const double r = u01(&s);
+          const int64_t u_bit = r >= t_ab ? 1 : 0;
+          const int64_t v_bit = (r >= a && r < t_ab) || r >= t_abc ? 1 : 0;
+          u = (u << 1) | u_bit;
+          v = (v << 1) | v_bit;
+        }
+        out[2 * i] = static_cast<int32_t>(u);
+        out[2 * i + 1] = static_cast<int32_t>(v);
+      }
+    }
+  });
+  // The shuffle is sequential (O(n)); applying it is parallel.
+  uint64_t sp = seed * 0x9E3779B97F4A7C15ULL + 0xD1B54A32D192ED03ULL;
+  std::vector<int32_t> perm(n);
+  for (int64_t i = 0; i < n; ++i) perm[i] = static_cast<int32_t>(i);
+  for (int64_t i = n - 1; i > 0; --i) {
+    const int64_t j = static_cast<int64_t>(splitmix64(&sp) % (i + 1));
+    std::swap(perm[i], perm[j]);
+  }
+  const int32_t* perm_p = perm.data();
+  parallel_ranges(T, 2 * m, [&](int, int64_t lo, int64_t hi) {
+    for (int64_t i = lo; i < hi; ++i) out[i] = perm_p[out[i]];
+  });
+  return 0;
+}
+
+// SNAP pass 1: the count of edge lines.  Returns 0, 1 on an unreadable
+// file.
+int msbfs_snap_scan(const char* path, int64_t* pairs_out) {
+  MappedFile f;
+  if (!f.open(path)) return 1;
+  const unsigned char* d = f.data;
+  const int64_t size = static_cast<int64_t>(f.size);
+  const int T = num_threads_for(size, int64_t{1} << 24);
+  std::vector<int64_t> counts;
+  count_lines(d, size, T, counts,
+              [&](int64_t p) { return snap_is_edge_line(d, p, size); });
+  int64_t pairs = 0;
+  for (int64_t c : counts) pairs += c;
+  *pairs_out = pairs;
+  return 0;
+}
+
+// SNAP pass 2: every edge line's ids into u_out/v_out (``pairs`` int32
+// each, from the scan; the caller takes n as the largest id + 1).
+// Returns 0, 1 on an unreadable file, 3 on a malformed line, 5 when the
+// count changed since the scan, 6 on an id beyond int32.
+int msbfs_snap_pairs(const char* path, int64_t pairs, int32_t* u_out,
+                     int32_t* v_out) {
+  MappedFile f;
+  if (!f.open(path)) return 1;
+  const unsigned char* d = f.data;
+  const int64_t size = static_cast<int64_t>(f.size);
+  const int T = num_threads_for(size, int64_t{1} << 24);
+  std::vector<int64_t> counts;
+  count_lines(d, size, T, counts,
+              [&](int64_t p) { return snap_is_edge_line(d, p, size); });
+  std::vector<int64_t> base(T + 1, 0);
+  for (int t = 0; t < T; ++t) base[t + 1] = base[t] + counts[t];
+  if (base[T] != pairs) return 5;
+  std::atomic<int> err{0};
+  parallel_ranges(T, size, [&](int t, int64_t lo, int64_t hi) {
+    int64_t w = base[t];
+    gr_for_each_line(d, size, lo, hi, [&](int64_t p) {
+      if (!snap_is_edge_line(d, p, size)) return;
+      const unsigned char* end = d + size;
+      int64_t u = -1, v = -1;
+      const unsigned char* r = gr_parse_uint(d + p, end, &u);
+      if (r) r = gr_parse_uint(r, end, &v);
+      if (!r || !gr_at_token_boundary(r, end)) {
+        err.store(3);
+        return;
+      }
+      if (u > INT32_MAX || v > INT32_MAX) {
+        err.store(6);
+        return;
+      }
+      u_out[w] = static_cast<int32_t>(u);
+      v_out[w] = static_cast<int32_t>(v);
+      ++w;
+    });
+  });
+  return err.load();
+}
+
+// DIMACS pass 1: the header's vertex count (the last "p " line in file
+// order, as the Python loop's) and the count of "a " arc lines.  The
+// header's n must be a whole token; its m is read by neither parser.
+// Returns 0, 1 on an unreadable file, 2 without a header, 6 when n
+// exceeds int32 (the reference format's n).
+int msbfs_gr_scan(const char* path, int64_t* n_out, int64_t* arcs_out) {
+  MappedFile f;
+  if (!f.open(path)) return 1;
+  const unsigned char* d = f.data;
+  const int64_t size = static_cast<int64_t>(f.size);
+  if (size == 0) return 2;
+  const int T = num_threads_for(size, int64_t{1} << 24);
+  std::vector<int64_t> counts(T, 0);
+  // Each thread keeps its last header (offset and value); the join takes
+  // the one latest in the file.
+  std::vector<int64_t> header_off(T, -1), header_val(T, -1);
+  parallel_ranges(T, size, [&](int t, int64_t lo, int64_t hi) {
+    int64_t c = 0;
+    gr_for_each_line(d, size, lo, hi, [&](int64_t p) {
+      if (gr_is_arc_line(d, p, size)) {
+        ++c;
+      } else if (d[p] == 'p' && p + 1 < size && d[p + 1] == ' ') {
+        const unsigned char* q = d + p + 1;
+        const unsigned char* end = d + size;
+        while (q < end && (*q == ' ' || *q == '\t')) ++q;
+        while (q < end && *q != ' ' && *q != '\t' && *q != '\n') ++q;  // tag
+        int64_t nv = -1;
+        const unsigned char* r = gr_parse_uint(q, end, &nv);
+        if (r && gr_at_token_boundary(r, end) && nv >= 0) {
+          header_off[t] = p;
+          header_val[t] = nv;
+        }
+      }
+    });
+    counts[t] = c;
+  });
+  int64_t n = -1, best_off = -1;
+  for (int t = 0; t < T; ++t) {
+    if (header_off[t] > best_off) {
+      best_off = header_off[t];
+      n = header_val[t];
+    }
+  }
+  if (n < 0) return 2;
+  if (n > INT32_MAX) return 6;
+  int64_t arcs = 0;
+  for (int64_t c : counts) arcs += c;
+  *n_out = n;
+  *arcs_out = arcs;
+  return 0;
+}
+
+// DIMACS pass 2: every arc line's endpoints, 0-based, into u_out/v_out
+// (``arcs`` int32 each, from the scan), in file order; costs and further
+// fields are not read.  Returns 0, 1 on an unreadable file, 3 on a
+// malformed arc line, 4 on an endpoint outside 1..n, 5 when the count
+// changed since the scan.
+int msbfs_gr_arcs(const char* path, int64_t n, int64_t arcs, int32_t* u_out,
+                  int32_t* v_out) {
+  MappedFile f;
+  if (!f.open(path)) return 1;
+  const unsigned char* d = f.data;
+  const int64_t size = static_cast<int64_t>(f.size);
+  const int T = num_threads_for(size, int64_t{1} << 24);
+  std::vector<int64_t> counts;
+  count_lines(d, size, T, counts,
+              [&](int64_t p) { return gr_is_arc_line(d, p, size); });
+  std::vector<int64_t> base(T + 1, 0);
+  for (int t = 0; t < T; ++t) base[t + 1] = base[t] + counts[t];
+  if (base[T] != arcs) return 5;
+  std::atomic<int> err{0};
+  parallel_ranges(T, size, [&](int t, int64_t lo, int64_t hi) {
+    int64_t w = base[t];
+    gr_for_each_line(d, size, lo, hi, [&](int64_t p) {
+      if (!gr_is_arc_line(d, p, size)) return;
+      const unsigned char* end = d + size;
+      int64_t u = -1, v = -1;
+      const unsigned char* r = gr_parse_uint(d + p + 1, end, &u);
+      if (r) r = gr_parse_uint(r, end, &v);
+      if (!r || !gr_at_token_boundary(r, end)) {
+        err.store(3);
+        return;
+      }
+      if (u < 1 || u > n || v < 1 || v > n) {
+        err.store(4);
+        return;
+      }
+      u_out[w] = static_cast<int32_t>(u - 1);
+      v_out[w] = static_cast<int32_t>(v - 1);
+      ++w;
+    });
   });
   return err.load();
 }

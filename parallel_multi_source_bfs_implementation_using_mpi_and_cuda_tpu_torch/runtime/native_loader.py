@@ -39,13 +39,23 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 
-from .kernels import BUILD_DIR, BuildResult
+# The package's build directory (listed in .gitignore): this library and
+# the CUDA kernels' (runtime/kernels.py).  This module imports no torch,
+# so that gen_cli needs none.
+BUILD_DIR = Path(__file__).resolve().parents[1] / "build"
 
 SOURCE = Path(__file__).resolve().with_name("loader.cpp")
 CXX_FLAGS = ("-O3", "-march=native", "-std=c++17", "-fPIC", "-pthread", "-shared")
+
+
+class BuildResult(NamedTuple):
+    path: Path
+    seconds: float  # 0.0 when an earlier build of the same sources was reused
+    log: str  # the compiler's output (nvcc's: register and shared-memory use per kernel)
 
 
 class NativeBuildError(RuntimeError):
@@ -149,6 +159,17 @@ _SIGNATURES = {
         [_L, _I64, _I64, ctypes.c_int, _I32, _I32, _L, _I64, _I64, _I64,
          ctypes.c_int32, _I32],
     ),
+    "msbfs_rmat_edges": (
+        ctypes.c_int,
+        [ctypes.c_int32, _L, ctypes.c_double, ctypes.c_double, ctypes.c_double,
+         ctypes.c_uint64, _EDGES],
+    ),
+    "msbfs_gr_scan": (
+        ctypes.c_int, [ctypes.c_char_p, ctypes.POINTER(_L), ctypes.POINTER(_L)]
+    ),
+    "msbfs_gr_arcs": (ctypes.c_int, [ctypes.c_char_p, _L, _L, _I32, _I32]),
+    "msbfs_snap_scan": (ctypes.c_int, [ctypes.c_char_p, ctypes.POINTER(_L)]),
+    "msbfs_snap_pairs": (ctypes.c_int, [ctypes.c_char_p, _L, _I32, _I32]),
 }
 
 
@@ -341,3 +362,67 @@ def bell_level(item_start, item_count, item_vals, widths, sentinel_value):
     shapes = tuple((int(bucket_rows[b]), int(widths_arr[b])) for b in range(nb))
     return flat, shapes, rows_per_owner[:v_total], first_row[:v_total]
 
+
+
+def rmat_edges(scale: int, m: int, a: float, b: float, c: float, seed: int) -> np.ndarray:
+    """(m, 2) int32 R-MAT records over 2^scale vertices from the native
+    sampler: models/generators.py's construction from splitmix64 streams
+    (not NumPy's), a function of the seed alone at any thread count;
+    ``ValueError`` on a bad scale, m or probabilities."""
+    out = np.empty((m, 2), dtype=np.int32)
+    rc = library().msbfs_rmat_edges(scale, m, a, b, c, seed & (2**64 - 1), out)
+    if rc != 0:
+        raise ValueError(f"native rmat_edges failed (rc={rc})")
+    return out
+
+
+_GR_ERRORS = {
+    1: "cannot open file",
+    2: "no 'p sp <n> <m>' header line",
+    3: "malformed arc line",
+    4: "arc endpoint outside 1..n",
+    5: "arc count changed between scan and parse",
+    6: "header vertex count exceeds int32 (reference format is int32 n)",
+}
+
+_SNAP_ERRORS = {
+    1: "cannot open file",
+    3: "malformed edge line (expected two integer ids)",
+    5: "edge count changed between scan and parse",
+    6: "vertex id exceeds int32",
+}
+
+
+def load_gr_arcs(path: str):
+    """(n, (R, 2) int32 0-based arcs in file order) of a plain-text DIMACS
+    ``.gr`` file, costs dropped; ``ValueError`` naming the fault (the
+    rc of either pass) on a file utils/io.py's Python loop would refuse."""
+    lib = library()
+    n = _L()
+    arcs = _L()
+    rc = lib.msbfs_gr_scan(path.encode(), ctypes.byref(n), ctypes.byref(arcs))
+    if rc != 0:
+        raise ValueError(f"{path}: {_GR_ERRORS.get(rc, f'native gr_scan rc={rc}')}")
+    u = np.empty(arcs.value, dtype=np.int32)
+    v = np.empty(arcs.value, dtype=np.int32)
+    rc = lib.msbfs_gr_arcs(path.encode(), n.value, arcs.value, u, v)
+    if rc != 0:
+        raise ValueError(f"{path}: {_GR_ERRORS.get(rc, f'native gr_arcs rc={rc}')}")
+    return int(n.value), np.stack([u, v], axis=1)
+
+
+def load_snap_pairs(path: str) -> np.ndarray:
+    """(R, 2) int32 0-based pairs of a plain-text SNAP edge list, in file
+    order ("#"/"%" comments and blank lines skipped); ``ValueError``
+    naming the fault on a file the Python loop would refuse."""
+    lib = library()
+    pairs = _L()
+    rc = lib.msbfs_snap_scan(path.encode(), ctypes.byref(pairs))
+    if rc != 0:
+        raise ValueError(f"{path}: {_SNAP_ERRORS.get(rc, f'native snap_scan rc={rc}')}")
+    u = np.empty(pairs.value, dtype=np.int32)
+    v = np.empty(pairs.value, dtype=np.int32)
+    rc = lib.msbfs_snap_pairs(path.encode(), pairs.value, u, v)
+    if rc != 0:
+        raise ValueError(f"{path}: {_SNAP_ERRORS.get(rc, f'native snap_pairs rc={rc}')}")
+    return np.stack([u, v], axis=1)

@@ -22,18 +22,27 @@ corrupt file from both; for an out-of-range endpoint the native decoder's
 decoder's ``ValueError``.  The JAX package decodes a weighted file with
 NumPy only, so there the native decoder raises the NumPy decoder's
 ``ValueError``.
+
+The public text formats that gen_cli converts: DIMACS ``.gr``
+(:func:`load_dimacs_gr`, :func:`save_dimacs_gr`) and SNAP edge lists
+(:func:`load_edgelist`), parsed in the native runtime when the file is
+plain text and by a Python line loop when it is ``.gz`` or the caller
+passes ``native=False``; both give the same edges and refuse the same
+files.
 """
 
 from __future__ import annotations
 
 import os
 import struct
-from typing import List, Optional, Sequence
+from typing import TYPE_CHECKING, List, Optional, Sequence
 
 import numpy as np
 
-from ..models.csr import CSRGraph
 from .faults import trip
+
+if TYPE_CHECKING:
+    from ..models.csr import CSRGraph
 
 GRAPH_HEADER = struct.Struct("<iq")  # int32 n, int64 m
 WEIGHT_MAGIC = b"MSBW"
@@ -118,6 +127,8 @@ def load_graph_bin(path: str | os.PathLike, native: bool = True) -> CSRGraph:
         if weighted:
             f.seek(len(WEIGHT_MAGIC), os.SEEK_CUR)
             weights = _read_weights(f, path, m)
+    from ..models.csr import CSRGraph
+
     return CSRGraph.from_edges(n, edges.reshape(m, 2), native=False, weights=weights)
 
 
@@ -184,6 +195,194 @@ def save_query_bin(path: str | os.PathLike, queries: Sequence[Sequence[int]]) ->
                 raise ValueError("group size must fit in uint8 (main.cu:150-152)")
             f.write(bytes([q.size]))
             q.tofile(f)
+
+
+def _open_text(path: str | os.PathLike):
+    """Open a text dataset, decompressing a ``.gz`` file."""
+    if os.fspath(path).endswith(".gz"):
+        import gzip
+
+        return gzip.open(path, "rt")
+    return open(path, "r")
+
+
+def _canonical_undirected(edges: np.ndarray) -> np.ndarray:
+    """Arc list -> sorted unique undirected edges (u <= v), int32.
+
+    Public datasets list both directions of a segment (DIMACS) or mix
+    conventions (SNAP); the reference format holds each undirected edge
+    once and doubles it at load (main.cu:106-116).  Dropping duplicate
+    arcs changes no distance and no F.  One packed int64 key per pair
+    (ids are int32, so lo << 32 | hi is exact) sorts natively."""
+    lo = np.minimum(edges[:, 0], edges[:, 1]).astype(np.int64)
+    hi = np.maximum(edges[:, 0], edges[:, 1]).astype(np.int64)
+    keys = np.unique((lo << 32) | hi)
+    return np.stack([keys >> 32, keys & 0xFFFFFFFF], axis=1).astype(np.int32)
+
+
+def _canonical_undirected_weighted(edges: np.ndarray, weights: np.ndarray):
+    """:func:`_canonical_undirected` with the least cost among each
+    pair's arcs, the one choice that keeps every shortest path."""
+    lo = np.minimum(edges[:, 0], edges[:, 1]).astype(np.int64)
+    hi = np.maximum(edges[:, 0], edges[:, 1]).astype(np.int64)
+    keys = (lo << 32) | hi
+    order = np.argsort(keys, kind="stable")
+    ks, ws = keys[order], np.asarray(weights, dtype=np.int64)[order]
+    uniq, start = np.unique(ks, return_index=True)
+    wmin = np.minimum.reduceat(ws, start) if uniq.size else ws[:0]
+    pairs = np.stack([uniq >> 32, uniq & 0xFFFFFFFF], axis=1).astype(np.int32)
+    return pairs, wmin.astype(np.int32)
+
+
+def _native_text_parse(path, native, parse, label):
+    """The text readers' one choice of parser: the native one on a plain
+    text file unless ``native=False``; the Python loop (``None`` returned)
+    on a ``.gz`` file, where ``native=True`` is an :class:`InputError`.
+    ``parse(native_loader)`` runs the native parse.  The native runtime is
+    built at first use; a runtime that cannot be built raises."""
+    gz = os.fspath(path).endswith(".gz")
+    if native is False or (native is None and gz):
+        return None
+    if gz:
+        from ..runtime.supervisor import InputError
+
+        raise InputError(f"native {label} parser cannot read .gz files")
+    from ..runtime import native_loader
+
+    return parse(native_loader)
+
+
+def load_dimacs_gr(
+    path: str | os.PathLike,
+    native: Optional[bool] = None,
+    keep_weights: bool = False,
+):
+    """Parse a DIMACS shortest-path ``.gr`` file (USA-road-d family) into
+    (n, edges) for :func:`save_graph_bin`.
+
+    Format: comment lines ``c ...``, one ``p sp <n> <m>`` header (the last
+    one wins), arc lines ``a <u> <v> <w>`` with 1-based endpoints.  Costs
+    are dropped (the objective counts hops, main.cu:30-32) unless
+    ``keep_weights``, which returns (n, edges, weights) for the weighted
+    route, the least cost per pair, every cost >= 1; it reads on the
+    Python path, so ``native=True`` with it is an :class:`InputError`.
+    Arcs become sorted unique undirected edges.  ``native`` as
+    :func:`_native_text_parse` decides; ``ValueError`` (``OverflowError``
+    for an id beyond int32 on the Python path) on a malformed file."""
+    if keep_weights and native:
+        from ..runtime.supervisor import InputError
+
+        raise InputError(
+            "native DIMACS .gr parser drops the cost column; "
+            "keep_weights needs native=False"
+        )
+    parsed = None if keep_weights else _native_text_parse(
+        path, native, lambda nl: nl.load_gr_arcs(os.fspath(path)), "DIMACS .gr"
+    )
+    if parsed is not None:
+        n, arcs = parsed
+        return n, _canonical_undirected(arcs)
+    n = None
+    us: List[np.ndarray] = []
+    vs: List[np.ndarray] = []
+    wsl: List[np.ndarray] = []
+    chunk_u: List[int] = []
+    chunk_v: List[int] = []
+    chunk_w: List[int] = []
+    with _open_text(path) as f:
+        for line in f:
+            if line.startswith("a "):
+                _, u, v, *rest = line.split()
+                chunk_u.append(int(u))
+                chunk_v.append(int(v))
+                if keep_weights:
+                    chunk_w.append(int(rest[0]) if rest else 1)
+                if len(chunk_u) >= 1 << 20:
+                    # int32 buffers halve the peak on the large public
+                    # files; an id beyond int32 raises OverflowError here.
+                    us.append(np.asarray(chunk_u, dtype=np.int32))
+                    vs.append(np.asarray(chunk_v, dtype=np.int32))
+                    wsl.append(np.asarray(chunk_w, dtype=np.int32))
+                    chunk_u, chunk_v, chunk_w = [], [], []
+            elif line.startswith("p "):
+                n = int(line.split()[2])
+    if n is None:
+        raise ValueError(f"{path}: no 'p sp <n> <m>' header line")
+    us.append(np.asarray(chunk_u, dtype=np.int32))
+    vs.append(np.asarray(chunk_v, dtype=np.int32))
+    wsl.append(np.asarray(chunk_w, dtype=np.int32))
+    arcs = np.stack([np.concatenate(us), np.concatenate(vs)], axis=1) - 1
+    if arcs.size and (arcs.min() < 0 or arcs.max() >= n):
+        raise ValueError(f"{path}: arc endpoint outside 1..{n}")
+    if not keep_weights:
+        return n, _canonical_undirected(arcs)
+    weights = np.concatenate(wsl)
+    if weights.size and weights.min() < 1:
+        raise ValueError(f"{path}: arc costs must be >= 1 for keep_weights")
+    pairs, wmin = _canonical_undirected_weighted(arcs, weights)
+    return n, pairs, wmin
+
+
+def save_dimacs_gr(
+    path: str | os.PathLike, n: int, edges: np.ndarray, comment: str = ""
+) -> int:
+    """Write a DIMACS ``.gr`` file from an (m, 2) undirected edge array
+    in the USA-road-d convention (both arc directions, cost 1), each
+    ``comment`` line as a ``c`` line; returns the arc lines written
+    (2m).  :func:`load_dimacs_gr` reads it back."""
+    edges = np.asarray(edges)
+    if edges.ndim != 2 or edges.shape[1] != 2:
+        raise ValueError("edges must be (m, 2)")
+    m = int(edges.shape[0])
+    with open(path, "w") as f:
+        if comment:
+            for line in comment.splitlines():
+                f.write(f"c {line}\n")
+        f.write(f"p sp {int(n)} {2 * m}\n")
+        chunk = 1 << 20
+        for lo in range(0, m, chunk):
+            part = edges[lo : lo + chunk].astype(np.int64) + 1  # 1-based
+            both = np.empty((2 * part.shape[0], 2), dtype=np.int64)
+            both[0::2] = part
+            both[1::2] = part[:, ::-1]
+            np.savetxt(f, both, fmt="a %d %d 1")
+    return 2 * m
+
+
+def load_edgelist(path: str | os.PathLike, native: Optional[bool] = None):
+    """Parse a SNAP whitespace edge list (``#``/``%`` comments, one
+    ``u v`` pair a line, 0-based ids) into (n, edges): n = largest id + 1,
+    pairs as sorted unique undirected edges.  ``native`` as
+    :func:`load_dimacs_gr`; ``ValueError`` on a file without edges, a
+    negative id or a malformed line (``OverflowError`` for an id beyond
+    int32 on the Python path)."""
+    pairs = _native_text_parse(
+        path, native, lambda nl: nl.load_snap_pairs(os.fspath(path)), "SNAP"
+    )
+    if pairs is not None:
+        if pairs.size == 0:
+            raise ValueError(f"{path}: no edges found")
+        return int(pairs.max()) + 1, _canonical_undirected(pairs)
+    us: List[np.ndarray] = []
+    chunk: List[int] = []
+    with _open_text(path) as f:
+        for line in f:
+            if line.startswith(("#", "%")) or not line.strip():
+                continue
+            u, v, *_ = line.split()
+            chunk.append(int(u))
+            chunk.append(int(v))
+            if len(chunk) >= 1 << 21:
+                us.append(np.asarray(chunk, dtype=np.int32))
+                chunk = []
+    us.append(np.asarray(chunk, dtype=np.int32))
+    flat = np.concatenate(us)
+    if flat.size == 0:
+        raise ValueError(f"{path}: no edges found")
+    pairs = flat.reshape(-1, 2)
+    if pairs.min() < 0:
+        raise ValueError(f"{path}: negative vertex id")
+    return int(pairs.max()) + 1, _canonical_undirected(pairs)
 
 
 def pad_queries(

@@ -4,6 +4,8 @@ Same names, defaults and parse convention as the JAX package's registry:
 a malformed value falls back to the call site's default, the empty string
 means unset, and reading an undeclared name raises.  The CLI reads the
 knobs of routes that are not yet ported only to refuse them loudly.
+The table in README.md's port section lists these knobs; the analyzer's
+knobs pass (analysis/knobs_pass.py) holds the two against each other.
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ _ALL = (
     Knob("MSBFS_WATCHDOG", "0", "float", "wall-clock deadline per supervised call in seconds; 0/unset = off"),
     Knob("MSBFS_FAULT_SEED", "0", "int", "backoff-jitter RNG stream"),
     Knob("MSBFS_NATIVE_THREADS", None, "int", "exact thread count of every native loader pass (runtime/loader.cpp); unset = the hardware's, fewer on small inputs"),
+    Knob("MSBFS_NATIVE_RMAT", None, "flag", "1 samples R-MAT edges in the native runtime (splitmix64 streams: another graph than the NumPy stream's for one seed, JAX's native one)"),
     Knob("MSBFS_STREAM_PREFETCH", "2", "int", "host-streamed engine: forest-segment upload lookahead (device buffers in the ring)"),
     Knob("MSBFS_FAULTS", None, "spec", "deterministic fault-injection plan: kind:site:n[,...]"),
     Knob("MSBFS_FAULT_HANG", "60", "float", "injected-hang stall seconds"),
@@ -84,6 +87,8 @@ _ALL = (
     Knob("MSBFS_REPAIR_MAX_FRAC", "0.5", "float", "repair-cone fraction above which repair falls back to full recompute"),
     Knob("MSBFS_TRACE", None, "flag", "1 mints a per-query distributed trace at the client edge"),
     Knob("MSBFS_LOG_FORMAT", None, "str", "json switches daemon stderr to structured logs"),
+    Knob("MSBFS_PROFILE_DIR", None, "path", "write a torch.profiler Chrome trace of the CLI's computation span into this directory (CPU activity, and the card's kernels on a CUDA device)"),
+    Knob("MSBFS_LOCK_WATCHDOG", None, "flag", "1 arms the lock-order watchdog (analysis/lockwatch.py) where a test installs it"),
     # The replicated fleet (serve/fleet.py, serve/router.py).
     Knob("MSBFS_FLEET_LISTEN", None, "spec", "fleet front-end listen address (unset: unix:$TMPDIR/msbfs-fleet.sock)"),
     Knob("MSBFS_FLEET_DIR", None, "path", "fleet replica sockets/journals/logs directory (unset: $TMPDIR/msbfs-fleet)"),
@@ -99,7 +104,6 @@ _ALL = (
     Knob("MSBFS_COORDINATOR", None, "spec", "multi-host bring-up: coordinator addr:port (not yet ported: fails)"),
     Knob("MSBFS_NUM_PROCESSES", "1", "int", "multi-host bring-up: world size (not yet ported: fails)"),
     Knob("MSBFS_PROCESS_ID", "0", "int", "multi-host bring-up: this process's rank (not yet ported: fails)"),
-    Knob("MSBFS_PROFILE_DIR", None, "path", "profiler trace of the computation span (not yet ported: fails)"),
 )
 
 KNOBS: Dict[str, Knob] = {k.name: k for k in _ALL}

@@ -176,6 +176,26 @@ def test_missing_file_matches_jax(tmp_path, capsys, missing):
     ],
 )
 def test_unported_routes_fail_loudly(tmp_path, capsys, monkeypatch, env, subcommand):
+    if "MSBFS_PROFILE_DIR" in env:
+        # Ported since: both CLIs trace the computation span into the
+        # directory (the port a torch.profiler Chrome trace) and report as
+        # without it.
+        trace_dir = tmp_path / env["MSBFS_PROFILE_DIR"]
+        monkeypatch.setenv("MSBFS_PROFILE_DIR", str(trace_dir))
+        (rc_port, port), (rc_jax, jax_out) = _run_both(_fixture(tmp_path), capsys)
+        assert rc_port == rc_jax == 0
+        assert port.out.splitlines()[:5] == jax_out.out.splitlines()[:5]
+        assert len(list(trace_dir.glob("msbfs.*.pt.trace.json"))) == 1
+        return
+    if subcommand == "analyze":
+        # Ported since: both CLIs dispatch ``analyze`` to their passes,
+        # which refuse an unknown argument alike.
+        argv = ["prog", "analyze", "--frobnicate"]
+        (rc_port, port), (rc_jax, jax_out) = _run_both(argv, capsys)
+        assert rc_port == rc_jax == -1
+        assert port.out == jax_out.out == ""
+        assert port.err == jax_out.err == "unknown argument '--frobnicate'\n"
+        return
     if subcommand == "fleet":
         # Ported since: ``fleet --help`` exits 0 in both CLIs and lists the
         # JAX package's options, and the port's ``--device`` besides.
@@ -372,7 +392,8 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m.name)\n"
         f"bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         f" or m == '{JAX_PKG}' or m.startswith('{JAX_PKG}.')]\n"
-        "print(len([m for m in sys.modules if m.startswith(pkg.__name__)]), bad)\n"
+        "mine = [m for m in sys.modules if m.startswith(pkg.__name__)]\n"
+        "print(len(mine), bad, *mine)\n"
         "sys.exit(1 if bad else 0)\n"
     )
     proc = subprocess.run(
@@ -382,6 +403,11 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     imported = int(proc.stdout.split()[0])
     assert imported >= 15  # every module of the port was imported
+    # The tooling's modules are among them: gen_cli and every analysis pass.
+    for name in ["gen_cli"] + [f"analysis.{m}" for m in (
+        "cli", "core", "errors_pass", "knobs_pass", "locks", "lockwatch", "trace_lint"
+    )]:
+        assert f"{PORT}.{name}" in proc.stdout.split(), name
 
 
 def _rmat_fixture(tmp_path, k=40, scale=8, seed=21):
@@ -667,3 +693,22 @@ def test_verify_matches_jax(tmp_path, capsys, monkeypatch, case):
     assert port.out == jax_out.out
     assert _failure_lines(port.err) == _failure_lines(jax_out.err)
     assert port.out.startswith("verify: CERTIFIED") == (code == 0)
+
+
+@pytest.mark.parametrize("script", ["chip_smoke.py", "chip_compare.py", "chip_probe_csr.py",
+                                    "chip_probe_queue.py"])
+def test_chip_scripts_import_no_jax(script):
+    """The card's scripts name no jax module and nothing of the JAX
+    package in any import, at any depth of the file."""
+    import ast
+
+    with open(os.path.join(REPO_ROOT, script)) as f:
+        tree = ast.parse(f.read())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.append(node.module)
+    assert names and any(n.startswith(PORT) for n in names)
+    assert not [n for n in names if n.split(".")[0] in ("jax", "jaxlib", JAX_PKG)]

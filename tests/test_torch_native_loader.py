@@ -322,3 +322,197 @@ def test_cli_phases_and_numpy_path(tmp_path, capsys):
         span = float(reports[-1][5].split(":", 1)[1].split()[0])
         assert sum(phases.values()) == pytest.approx(span, abs=2e-6)
     assert reports[0][:5] == reports[1][:5]
+
+
+# ---- gen_cli's native entry points against the JAX package's library.
+
+JAX_LOADER = os.path.join(
+    REPO_ROOT, "parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu",
+    "runtime", "loader.cpp",
+)
+
+
+@pytest.fixture(scope="module")
+def jax_library(tmp_path_factory):
+    """The JAX package's native library, built from its loader.cpp with
+    its Makefile's flags into a directory of this module's own (so that no
+    other test process sees a half-written file), and loaded in place of
+    any built one for the module; skips only without a C++ compiler."""
+    import shutil
+
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("no C++ compiler for the JAX package's native library")
+    out = tmp_path_factory.mktemp("jax_native") / "librt_loader.so"
+    subprocess.run(
+        [cxx, "-O3", "-march=native", "-std=c++17", "-fPIC", "-Wall", "-Wextra",
+         "-pthread", "-shared", "-o", str(out), JAX_LOADER],
+        check=True, capture_output=True,
+    )
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_native, "_lib_path", lambda: str(out))
+        mp.setattr(jax_native, "_lib", None)
+        mp.setattr(jax_native, "_load_failed", False)
+        assert jax_native.available()
+        yield jax_native
+
+
+def _text_files(tmp_path):
+    """A .gr file and a SNAP file long enough to split between 8 threads,
+    with comments, blank lines, CRLF endings, tabs and extra fields."""
+    rng = np.random.default_rng(13)
+    arcs = rng.integers(1, 5001, size=(6000, 2))
+    gr = ["c generated", "p sp 5000 12000"]
+    gr += [f"a {u} {v} {w}" + ("\r" if i % 7 == 0 else "")
+           for i, ((u, v), w) in enumerate(zip(arcs, rng.integers(1, 99, 6000)))]
+    gr.insert(3000, "c a comment among the arcs")
+    pairs = rng.integers(0, 40000, size=(5000, 2))
+    snap = ["# Nodes: 40000", "% percent comment", ""]
+    snap += [f"{u}\t{v}" if i % 3 else f"{u} {v} 1" for i, (u, v) in enumerate(pairs)]
+    snap.insert(2500, "   ")
+    (tmp_path / "a.gr").write_text("\n".join(gr) + "\n")
+    (tmp_path / "a.txt").write_text("\n".join(snap))  # no final newline
+    return str(tmp_path / "a.gr"), str(tmp_path / "a.txt")
+
+
+@pytest.mark.parametrize("threads", THREADS)
+def test_text_parsers_match_jax(jax_library, tmp_path, monkeypatch, threads):
+    """msbfs_gr_scan/msbfs_gr_arcs and msbfs_snap_scan/msbfs_snap_pairs:
+    the port's arcs and pairs, in file order, equal the JAX library's at
+    every thread count, and the Python loops' after canonicalisation."""
+    gr, snap = _text_files(tmp_path)
+    monkeypatch.setenv("MSBFS_NATIVE_THREADS", threads)
+    n, arcs = native_loader.load_gr_arcs(gr)
+    jn, jarcs = jax_library.load_gr_arcs(gr)
+    assert n == jn == 5000
+    _same(arcs, jarcs)
+    assert arcs.shape == (6000, 2) and arcs.min() == 0 and arcs.max() <= 4999
+    pairs = native_loader.load_snap_pairs(snap)
+    _same(pairs, jax_library.load_snap_pairs(snap))
+    assert pairs.shape == (5000, 2)
+    for native_out, python_out in (
+        (tio.load_dimacs_gr(gr), jio.load_dimacs_gr(gr, native=False)),
+        (tio.load_edgelist(snap), jio.load_edgelist(snap, native=False)),
+    ):
+        assert native_out[0] == python_out[0]
+        _same(native_out[1], python_out[1])
+
+
+# (text, gr or snap): each native parser's refusals, with the JAX
+# library's messages (rc 1 open, 2 header, 3 malformed, 4 range, 6 int32).
+NATIVE_TEXT_ERRORS = {
+    "gr_malformed": ("p sp 4 2\na 1 2\na 2 x 1\n", "gr"),
+    "gr_fraction": ("p sp 4 2\na 1 2.5 1\n", "gr"),
+    "gr_range": ("p sp 4 2\na 1 5 1\n", "gr"),
+    "gr_no_header": ("c x\na 1 2 1\n", "gr"),
+    "gr_header_token": ("p sp 12x3 9\na 1 2 1\n", "gr"),
+    "gr_header_int32": ("p sp 3000000000 2\na 1 2 1\n", "gr"),
+    "gr_empty": ("", "gr"),
+    "gr_missing": (None, "gr"),
+    "snap_malformed": ("1 2\n3 x\n", "snap"),
+    "snap_int32": ("1 2\n3000000000 1\n", "snap"),
+    "snap_missing": (None, "snap"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(NATIVE_TEXT_ERRORS))
+def test_text_parser_errors_match_jax(jax_library, tmp_path, case):
+    text, fmt = NATIVE_TEXT_ERRORS[case]
+    path = tmp_path / "bad.txt"
+    if text is not None:
+        path.write_text(text)
+    name = "load_gr_arcs" if fmt == "gr" else "load_snap_pairs"
+    with pytest.raises(ValueError) as port_err:
+        getattr(native_loader, name)(str(path))
+    with pytest.raises(ValueError) as jax_err:
+        getattr(jax_library, name)(str(path))
+    assert str(port_err.value) == str(jax_err.value)
+
+
+@pytest.mark.parametrize("threads", ["1", "8"])
+def test_native_rmat_matches_jax(jax_library, monkeypatch, threads):
+    """msbfs_rmat_edges over two 2^20-record chunks: the JAX library's
+    records at 1 and 8 threads, through both the wrapper and
+    generators.rmat_edges (native=True and MSBFS_NATIVE_RMAT=1)."""
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu.models import (
+        generators as jgen,
+    )
+
+    monkeypatch.setenv("MSBFS_NATIVE_THREADS", threads)
+    want = jax_library.rmat_edges(17, 16 << 17, 0.57, 0.19, 0.19, 3)
+    _same(native_loader.rmat_edges(17, 16 << 17, 0.57, 0.19, 0.19, 3), want)
+    n, edges = generators.rmat_edges(17, edge_factor=16, seed=3, native=True)
+    assert n == 1 << 17
+    _same(edges, want)
+    monkeypatch.setenv("MSBFS_NATIVE_RMAT", "1")
+    _same(generators.rmat_edges(17, edge_factor=16, seed=3)[1], want)
+    _same(generators.rmat_edges(9, edge_factor=4, seed=8)[1],
+          jgen.rmat_edges(9, edge_factor=4, seed=8)[1])
+    # native=False stays the NumPy stream, the JAX package's.
+    _same(generators.rmat_edges(9, edge_factor=4, seed=8, native=False)[1],
+          jgen.rmat_edges(9, edge_factor=4, seed=8, native=False)[1])
+    with pytest.raises(ValueError, match="rc=2"):
+        native_loader.rmat_edges(4, 8, 0.6, 0.3, 0.3, 0)
+
+
+def test_native_gen_cli_matches_jax(jax_library, tmp_path, monkeypatch, capsys):
+    """gen_cli --kind rmat under MSBFS_NATIVE_RMAT=1: the JAX gen_cli's
+    graph, byte for byte."""
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu import (
+        gen_cli as jgen_cli,
+    )
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch import (
+        gen_cli,
+    )
+
+    monkeypatch.setenv("MSBFS_NATIVE_RMAT", "1")
+    for main, name in ((gen_cli.main, "port.bin"), (jgen_cli.main, "jax.bin")):
+        assert main(["--kind", "rmat", "--scale", "11", "--graph", str(tmp_path / name)]) == 0
+    capsys.readouterr()
+    assert (tmp_path / "port.bin").read_bytes() == (tmp_path / "jax.bin").read_bytes()
+
+
+def test_native_rmat_without_compiler_raises(fresh_build, monkeypatch, tmp_path):
+    """MSBFS_NATIVE_RMAT=1 with no library to build raises; it never gives
+    the NumPy stream instead."""
+    monkeypatch.setenv("CXX", str(tmp_path / "no-such-compiler"))
+    monkeypatch.setenv("MSBFS_NATIVE_RMAT", "1")
+    with pytest.raises(native_loader.NativeBuildError, match="no-such-compiler"):
+        generators.rmat_edges(6, edge_factor=2, seed=1)
+    with pytest.raises(native_loader.NativeBuildError):
+        tio.load_edgelist(str(tmp_path / "absent.txt"))
+
+
+def test_hub_tail_and_components_match_jax():
+    """hub_tail_edges, component_labels (whole and sampled: a sample_cap
+    below the record count draws with replacement from default_rng(seed))
+    and ensure_giant_sources: the JAX package's arrays."""
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu.models import (
+        generators as jgen,
+    )
+
+    for args in ((), (40, 9), (1, 3)):
+        n, e = generators.hub_tail_edges(*args)
+        jn, je = jgen.hub_tail_edges(*args)
+        assert n == jn
+        _same(e, je)
+    n, edges = generators.gnm_edges(3000, 1700, seed=4)  # many components
+    edges = np.concatenate([edges, [[-1, 2], [5, 3000]]])  # dropped endpoints
+    for cap, seed in ((1 << 24, 0), (900, 0), (900, 7)):
+        labels = generators.component_labels(n, edges, sample_cap=cap, seed=seed)
+        _same(labels, jgen.component_labels(n, edges, sample_cap=cap, seed=seed))
+    full = generators.component_labels(n, edges)
+    sampled = generators.component_labels(n, edges, sample_cap=900)
+    # A sample only splits components: one sampled label, one true one.
+    for lab in np.unique(sampled):
+        assert len(np.unique(full[sampled == lab])) == 1
+    queries = generators.random_queries(n, 30, max_group=3, seed=2)
+    queries[4] = np.zeros(0, np.int32)
+    queries[5] = np.array([-1, 4000], np.int32)
+    for seed in (0, 9):
+        got = generators.ensure_giant_sources(queries, n, edges, seed=seed)
+        want = jgen.ensure_giant_sources(queries, n, edges, seed=seed)
+        assert len(got) == len(want) == 30
+        for a, b in zip(got, want):
+            _same(a, b)
+    assert queries[4].size == 0  # the input is not mutated
