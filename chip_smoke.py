@@ -2,18 +2,19 @@
 """On-card smoke of the PyTorch/CUDA port — the quickest proof that it
 builds and runs on the GPU, and the source of its kernel timings.
 
-    python3 chip_smoke.py [--seed 0] [--detail-dir build/chip_smoke] [--phases all|14]
+    python3 chip_smoke.py [--seed 0] [--detail-dir build/chip_smoke] [--phases all|14|15]
 
 With no ``--phases`` (or ``all``) every phase runs, as the proof runs it;
-``--phases 14`` runs the build (phase 1) and the tooling phase alone, on
-data of its own, and prints no kernel line.
+``--phases 14`` runs the build (phase 1) and the tooling phase alone, and
+``--phases 15`` the build and the mesh phase alone, each on data of its
+own, and prints no kernel line.
 
 Needs one CUDA card (NVIDIA H100 class, sm_90a), nvcc, a host C++
 compiler, and scipy; imports nothing of JAX.  Phases (any failure exits
 non-zero; nothing is caught):
 
 1. print the card (nvidia-smi name, power limit); build the CUDA kernels
-   from csrc/ (eleven sources, fifteen entry points) in parallel and the
+   from csrc/ (twelve sources, eighteen entry points) in parallel and the
    native host runtime
    (runtime/loader.cpp), and time both builds; print the host's CPUs and
    the native runtime's thread count;
@@ -151,7 +152,8 @@ non-zero; nothing is caught):
       of CHECKPOINT_CHUNK and ``crash:dispatch:3`` exits 137 with one
       chunk journaled; the rerun resumes to the uninterrupted answer;
    e. ``MSBFS_STATS=2`` on the bitbell route: per-query levels and
-      reached equal scipy's on the winner and the first eight groups;
+      reached equal scipy's on the winner and the first eight groups
+      (scipy's rows from phase 5b, one BFS a group in the whole proof);
 10. the single-device engines, each a CLI path whose engine's F vector
    equals the plain engine's on the card and whose winner, F and first
    eight groups' levels and reached equal scipy's: ``MSBFS_BACKEND=vmap``
@@ -295,9 +297,36 @@ non-zero; nothing is caught):
       device's busy share of the span is printed;
    d. ``python -m <port> analyze`` exits 0 on the committed tree (run
       beside a-c as a child);
+15. the -gn > 1 routes (parallel/), after phase 14, on phase 5b's RMAT-20
+   K = 64 files and phase 6's road-1024 K = 16 files, each a counted
+   path of ``cli.main(argv, mesh_devices=[cuda:0] * 4)`` (a logical mesh
+   of four entries on the card) with ``MSBFS_STATS`` set, whose F vector
+   (its stats table; the CSR pull's from its engine) equals the
+   single-device route's on the card and whose winner and checked groups
+   equal scipy's: "mesh rmat-20" (DistributedEngine, -gn 4), "mesh csr
+   rmat-20" (``MSBFS_BACKEND=csr``, K9), "vshard2 rmat-20" and "vshard4
+   rmat-20" (ShardedBellEngine at ``MSBFS_VSHARD=2`` with the JAX
+   package's TPU auto halo and push budgets, and at ``=4`` with the halo
+   budget and no push: both halo routes taken, the ``MSBFS_STATS=2``
+   halo table's route counts printed), "reshard rmat-20" (a
+   ``chip:rank1:1`` loss resharded onto three shards, the flight ring's
+   reshard record), "vshard4 road-1024" (ShardedPushEngine) and "mesh
+   push road-1024" (DistributedPushEngine); each path's CLI span beside
+   the single-device span on the card, its halo bytes a level and its
+   peak memory; then H1 ``halo_pair_or`` (the widest rebuild of the
+   "vshard4 rmat-20" engine), H2 ``halo_push_or`` (the widest push of
+   the "vshard2 rmat-20" engine) and H3 ``owner_push_expand`` (the
+   widest level of the owner-partitioned push on road-1024), each
+   recorded call by call in an engine run of its own after the counted
+   paths, held bit for bit against their plain versions on their
+   recorded inputs and timed beside their bounds; distinct cards only where the machine has more
+   than one (otherwise said so). ``--phases 15`` runs it alone on data
+   of its own (the same seeds);
 then the ``{"kernels": [...]}`` line and the final ``{"ok": true, ...}``.
+Phases 5b, 9, 11 and 13 print their steps' seconds ("... steps s:"
+lines).
 
-Each CLI run of phases 3-5b, 9a, 10 and 11, and each of phase 12's and
+Each CLI run of phases 3-5b, 9a, 10, 11 and 15, and each of phase 12's and
 phase 13's two counted serving paths, is one path: the kernel launch counters are
 zeroed just before it and read just after; each path must have launched
 its route's kernels (batch_start at its route's stride), and every
@@ -370,6 +399,13 @@ PATH_KERNELS = {
     "tooling road-1024": ("batch_start", "stencil_sweep", "level_apply"),
     "tooling rmat-16": ("batch_start", "forest_or", "level_apply"),
     "tooling rmat-20": ("batch_start", "forest_or", "push_or", "level_apply"),
+    "mesh rmat-20": ("batch_start", "forest_or", "push_or", "level_apply"),
+    "mesh csr rmat-20": ("csr_pull",),
+    "vshard2 rmat-20": ("batch_start", "forest_or", "queue_compact", "halo_push_or"),
+    "vshard4 rmat-20": ("batch_start", "forest_or", "queue_compact", "halo_pair_or"),
+    "reshard rmat-20": ("batch_start", "forest_or", "push_or", "level_apply"),
+    "vshard4 road-1024": ("batch_start", "queue_compact", "owner_push_expand", "halo_pair_or"),
+    "mesh push road-1024": ("queue_expand", "queue_compact"),
 }
 # The paths whose planes are bytes: their batch starts at a stride of 8
 # lanes, the others' at 1 (the ELL route packs no planes), and they pull
@@ -378,7 +414,8 @@ PATH_KERNELS = {
 BYTE_PATHS = ("lowk rmat-16", "bell rmat-20", "lowk rmat-20")
 # The paths whose batch start lists the sources for a direction switch.
 SWITCHED_PATHS = ("mxu rmat-14", "mxu road-512", "lowk rmat-16", "bitbell rmat-20",
-                  "lowk rmat-20", "tooling rmat-16", "tooling rmat-20")
+                  "lowk rmat-20", "tooling rmat-16", "tooling rmat-20", "mesh rmat-20",
+                  "reshard rmat-20")
 # Groups of the RMAT-20 paths checked against scipy (besides the winner).
 SCIPY_GROUPS = 8
 # Groups of RMAT-20's 64 that its low-K path runs (all checked against scipy).
@@ -389,6 +426,21 @@ VARIANTS = {}
 # runtime's threads on a large pass), printed beside every host time.
 CARD = None
 HOST = None
+
+
+class _Steps:
+    """The seconds of a phase's steps, printed as one line at its end."""
+
+    def __init__(self, phase):
+        self.phase, self.t, self.rows = phase, time.perf_counter(), {}
+
+    def __call__(self, name):
+        now = time.perf_counter()
+        self.rows[name] = round(now - self.t, 3)
+        self.t = now
+
+    def print(self):
+        print(f"{self.phase} steps s: " + json.dumps(self.rows))
 
 
 def _card_line() -> str:
@@ -2017,6 +2069,7 @@ def _rmat20_paths(ctx, n, edges, g, bg, eg, k, seed):
         bell, bitbell, engine, lowk,
     )
 
+    steps = _Steps("phase 5b paths")
     gpath, qpath = os.path.join(tmp, "rmat20.bin"), os.path.join(tmp, "rmat20-q.bin")
     qpath4 = os.path.join(tmp, "rmat20-q4.bin")
     queries = generators.random_queries(n, k, seed=seed)
@@ -2031,6 +2084,7 @@ def _rmat20_paths(ctx, n, edges, g, bg, eg, k, seed):
         runs["bell rmat-20"] = _run_path(cli, timing, argv, "bell rmat-20", launches)
     lowk_run = _run_path(cli, timing, ["chip_smoke", "-g", gpath, "-q", qpath4, "-gn", "1"],
                          "lowk rmat-20", launches)
+    steps("four CLI paths")
     ell = {k_: v for k_, v in VARIANTS["ell rmat-20"].items() if k_.startswith("ell_hits:")}
     steady = sum(v for k_, v in ell.items() if ":steady" in k_)
     stale = sum(v for k_, v in ell.items() if ":stale" in k_)
@@ -2040,7 +2094,9 @@ def _rmat20_paths(ctx, n, edges, g, bg, eg, k, seed):
     padded = tio.pad_queries(queries)
     padded4 = tio.pad_queries(queries[:LOWK_GROUPS])
     _ell_level_split(torch, eg, padded, "rmat-20 K=64")
+    steps("ell level split")
     _bitbell_hybrid(torch, bg, padded, "bitbell rmat-20 K=64")
+    steps("bitbell hybrid levels")
     f = {}
     seconds = {}
     for name, eng in (
@@ -2066,6 +2122,7 @@ def _rmat20_paths(ctx, n, edges, g, bg, eg, k, seed):
         f[name] = eng.query_stats(padded4)[2]
         seconds[name] = time.perf_counter() - t0
         assert np.array_equal(f[name], fv[:LOWK_GROUPS]), (name, f[name])
+    steps("eight engines' stats")
     winner = int(np.argmin(fv))
     winner4 = int(np.argmin(fv[:LOWK_GROUPS]))
     for name, (min_k, min_f, _, _) in runs.items():
@@ -2073,12 +2130,16 @@ def _rmat20_paths(ctx, n, edges, g, bg, eg, k, seed):
     assert lowk_run[:2] == (winner4, int(fv[winner4])), lowk_run
     a = _scipy_matrix(sp, np, g)
     groups = sorted({winner, *range(SCIPY_GROUPS)})
-    want = {q: _scipy_f(cg, np, a, queries[q]) for q in groups}
+    # (levels, reached, F) of each checked group, one BFS each: phases 9e
+    # and 10 hold their stats against the same rows.
+    scipy_stats = {q: _scipy_stats(cg, np, a, queries[q]) for q in groups}
+    want = {q: st[2] for q, st in scipy_stats.items()}
     for q, wf in want.items():
         assert int(fv[q]) == wf, (q, int(fv[q]), wf)
     # About 38% of RMAT-20's vertices are isolated, so a small group may
     # win with F = 0: the check must also hold groups that reach far.
     assert any(wf > 0 for wf in want.values()), want
+    steps("scipy")
     depth = int(levels.max())
     for name, (min_k, min_f, pre_s, comp_s) in runs.items():
         print(f"{name}: " + json.dumps(dict(
@@ -2102,19 +2163,24 @@ def _rmat20_paths(ctx, n, edges, g, bg, eg, k, seed):
     _batch_start_check(torch, bell.BellEngine(bg), n, padded, "bell rmat-20")
     _batch_start_check(torch, lowk.LowKEngine(bg), n, padded4, "lowk rmat-20")
     _batch_start_check(torch, lowk.LowKEngine(bg), n, padded4[:1], "lowk rmat-20 K=1")
+    steps("batch starts")
     # The byte routes a level at a time and split by launch.
     library = _csr_pairs(torch, bg)
     rows4 = _byte_levels(torch, bg, padded4, "lowk rmat-20 K=4", library)
     _summarise_levels(rows4, "lowk rmat-20 K=4")
+    steps("lowk K=4 levels")
     rows1 = _byte_levels(torch, bg, padded4[:1], "lowk rmat-20 K=1", library)
     _summarise_levels(rows1, "lowk rmat-20 K=1")
     _apply_at_k1(torch, rows1, n, "lowk rmat-20")
+    steps("lowk K=1 levels")
     rows64 = _byte_levels(torch, bg, padded, "bell rmat-20 K=64", library, bell_route=True)
     _summarise_levels(rows64, "bell rmat-20 K=64")
+    steps("bell K=64 levels")
     _lowk_split(torch, lowk.LowKEngine(bg, level_chunk=128), bg, padded4, len(rows4),
                 "lowk rmat-20 K=4")
     bell_eng = bell.BellEngine(bg, level_chunk=128)
     _lowk_split(torch, bell_eng, bg, padded, depth, "bell rmat-20 K=64")
+    steps("two byte splits")
     # K5's pull at the bell route's width (W = 16) on a synthetic plane: a
     # third of the flags set, nothing visited (no row to skip), beside
     # bell_hits_packed (forest_or on the word view) on the same frontier.
@@ -2145,6 +2211,8 @@ def _rmat20_paths(ctx, n, edges, g, bg, eg, k, seed):
     print(f"compare rmat-20 n={n} K={k} flag_pull synthetic: " + json.dumps(row))
     assert row["max_abs_err"] == 0 and row["word_view_pull"]["max_abs_err"] == 0, row
     del library, wide
+    steps("synthetic W=16 pull")
+    steps.print()
     pulls = [r["flag_pull"] for r in rows4 if "flag_pull" in r]
     pushes = [r["flag_pull:push"] for r in rows4 if "flag_pull:push" in r]
     assert pulls and pushes, "the low-K BFS ran one direction only"
@@ -2155,7 +2223,7 @@ def _rmat20_paths(ctx, n, edges, g, bg, eg, k, seed):
         "flag_pull:push": max(pushes, key=lambda r: r["edges"]),
     }
     info = dict(gpath=gpath, qpath=qpath, queries=queries, padded=padded, fv=fv,
-                winner=winner, want=want, scipy=a, groups=groups)
+                winner=winner, want=want, scipy=a, groups=groups, scipy_stats=scipy_stats)
     return rows, info
 
 
@@ -2479,6 +2547,7 @@ def _streamed_phase(ctx, n, g, bg, info, seed):
     fv, winner, padded = info["fv"], info["winner"], info["padded"]
     want = (winner, int(fv[winner]))
 
+    steps = _Steps("phase 9")
     # -- 9a. the host-streamed route: the CLI path (counted), then the
     # other cuts and depths; every F against the bitbell path's.
     with _env(MSBFS_BACKEND="streamed"):
@@ -2488,6 +2557,7 @@ def _streamed_phase(ctx, n, g, bg, info, seed):
     assert "forest_or" not in counts and "push_or" not in counts, counts
     assert any(k.startswith("forest_segment:") and k.endswith("/map")
                for k in VARIANTS["streamed rmat-20"]), VARIANTS["streamed rmat-20"]
+    steps("9a streamed path")
     spans = {"whole levels, prefetch 2": run[3]}
     for budget, prefetch in ((None, 1), (STREAMED_BUDGET, 1), (STREAMED_BUDGET, 2)):
         knobs = dict(MSBFS_BACKEND="streamed", MSBFS_STREAM_PREFETCH=str(prefetch))
@@ -2498,6 +2568,7 @@ def _streamed_phase(ctx, n, g, bg, info, seed):
         assert r[:2] == want, (budget, prefetch, r)
         cut = "whole levels" if budget is None else f"{budget}-slot segments"
         spans[f"{cut}, prefetch {prefetch}"] = r[3]
+    steps("9a other cuts through the CLI")
     t0 = time.perf_counter()
     host = BellGraph.from_host(g, False, keep_sparse=False)
     host_s = time.perf_counter() - t0
@@ -2508,6 +2579,7 @@ def _streamed_phase(ctx, n, g, bg, info, seed):
             f = eng.f_values(padded).cpu().numpy()
             assert np.array_equal(f, fv), (budget, prefetch)
             engines[(budget, prefetch)] = eng
+    steps("9a host layout and four engines")
     whole, cut = engines[(None, 2)], engines[(STREAMED_BUDGET, 2)]
     plain = streamed.StreamedBitBellEngine(host, dev, plain=True)
     _batch_start_check(torch, whole, n, padded, "streamed rmat-20")
@@ -2550,6 +2622,7 @@ def _streamed_phase(ctx, n, g, bg, info, seed):
             if eng is whole and (densest is None or rows > densest[1]):
                 densest = (frontier, rows, map_row, segs, gather)
         bitbell.bit_level_apply(carry, hits["whole"])
+    steps("9a every level at both cuts")
     assert len(levels) >= 3, levels
     frontier = densest[0]
     k1 = _forest_row(torch, bg, frontier)
@@ -2575,10 +2648,12 @@ def _streamed_phase(ctx, n, g, bg, info, seed):
         forest_or_ms_same_level=k1["ms"], forest_or_bound_ms=k1["bound_ms"],
         detail=_write_detail("streamed_rmat20_segments", detail), card=CARD,
     )))
+    steps("9a passes and prints")
     synthetic = _synthetic_gmap(torch, dev, seed + 21)
     del engines, whole, cut, plain, carry, frontier, hits, host
     torch.cuda.empty_cache()
 
+    steps("9a synthetic gmap")
     # -- 9b. the ladder by injected faults: one, two and three rungs.
     for plan, extra, rung in (
         ("oom:dispatch:1", {}, "streamed"),
@@ -2602,6 +2677,7 @@ def _streamed_phase(ctx, n, g, bg, info, seed):
 
     faults.activate(None)
 
+    steps("9b ladder")
     # -- 9c. a real CUDA out-of-memory error (a capped child process).
     child = subprocess.run(
         [sys.executable, "-c", _OOM_CHILD, json.dumps(argv)],
@@ -2616,6 +2692,7 @@ def _streamed_phase(ctx, n, g, bg, info, seed):
     assert [e["action"] for e in result["events"]] == ["degrade"], result
     assert "CUDA out of memory" in result["events"][0]["error"], result
 
+    steps("9c real oom child")
     # -- 9d. checkpoint: a crash on the third dispatch, then the rerun.
     journal = os.path.join(tmp, "rmat20.ckpt")
     env = {**os.environ, "PYTHONPATH": _ROOT, "MSBFS_CHECKPOINT": journal,
@@ -2636,6 +2713,7 @@ def _streamed_phase(ctx, n, g, bg, info, seed):
         rerun_rc=rerun.returncode, winner=resumed[0] + 1, min_f=resumed[1],
         rerun_report=lines)))
 
+    steps("9d checkpoint")
     # -- 9e. MSBFS_STATS=2 on the bitbell route against scipy.
     err = io.StringIO()
     with _env(MSBFS_STATS="2"), contextlib.redirect_stderr(err):
@@ -2644,15 +2722,14 @@ def _streamed_phase(ctx, n, g, bg, info, seed):
     text = err.getvalue()
     table = text[text.index("query  levels"):].splitlines()[1:]
     stats = {int(ln.split()[0]) - 1: tuple(int(x) for x in ln.split()[1:]) for ln in table}
-    a = info["scipy"]
-    scipy_stats = info.setdefault("scipy_stats", {})  # phase 10 reads them too
     for q in info["groups"]:
-        scipy_stats[q] = _scipy_stats(cg, np, a, info["queries"][q])
-        assert stats[q] == scipy_stats[q], (q, stats[q])
+        assert stats[q] == info["scipy_stats"][q], (q, stats[q])
     trace = text[text.index("level  discovered"):text.index("query  levels")]
     print("stats=2 rmat-20:\n" + text[text.index("dispatch_count"):text.index("query  levels")]
           + json.dumps(dict(groups_equal_scipy=len(info["groups"]),
                             levels=trace.count("\n") - 1, computation_s=r[3])))
+    steps("9e stats=2")
+    steps.print()
     _, _, map_row, segs, gather = densest
     del synthetic
     return {"forest_map": map_row, "forest_segment": segs[0], "forest_gather": gather}
@@ -3431,11 +3508,11 @@ def _env(**values):
                 os.environ[k] = v
 
 
-def _run_path(cli, timing, argv, name, launches):
+def _run_path(cli, timing, argv, name, launches, mesh_devices=None):
     """One CLI run as one path: counters zeroed before, read after, and the
     preprocessing span printed split into its phases."""
     timing.reset_launch_counts()
-    result = _run_cli(cli, argv)
+    result = _run_cli(cli, argv, mesh_devices=mesh_devices)
     counts = timing.launch_counts()
     launches[name] = counts
     phases = timing.phase_seconds()
@@ -3871,6 +3948,7 @@ def _weighted_phase(ctx, n20, e20, queries20, n5, e5, seed):
     )
 
     t_phase = time.perf_counter()
+    steps = _Steps("phase 11")
     # -- 11a. RMAT-20, K = 64, the auto (bitbell) flavor.
     t0 = time.perf_counter()
     costs20 = generators.edge_costs(len(e20), "uniform", max_cost=16, seed=seed + 3)
@@ -3927,6 +4005,7 @@ def _weighted_phase(ctx, n20, e20, queries20, n5, e5, seed):
     os.remove(gpath)
     torch.cuda.empty_cache()
 
+    steps("11a rmat-20")
     # -- 11b. road-512, K = 8 groups of up to 8: every flavor, and delta 1.
     costs5 = generators.edge_costs(len(e5), "uniform", max_cost=16, seed=seed + 3)
     g5 = CSRGraph.from_edges(n5, e5, weights=costs5)
@@ -3987,6 +4066,7 @@ def _weighted_phase(ctx, n20, e20, queries20, n5, e5, seed):
               for k, v in results.items()},
         all_f_equal_scipy=True, card=CARD)))
 
+    steps("11b road-512")
     # -- 11c. road-128, K = 8: the audit, the plane seam, verify.
     n1, e1 = generators.road_edges(128, 128, seed=seed + 17)
     costs1 = generators.edge_costs(len(e1), "uniform", max_cost=16, seed=seed + 3)
@@ -4059,6 +4139,8 @@ def _weighted_phase(ctx, n20, e20, queries20, n5, e5, seed):
         verify[name] = dict(exit=rc, launches=counts)
     print("weighted road-128 certificate: " + json.dumps(dict(
         runs=report, verify=verify, card=CARD)))
+    steps("11c road-128")
+    steps.print()
     print(f"phase 11: {time.perf_counter() - t_phase:.1f} s")
     # Phase 12 serves the road-512 files (the F vector: all eight equal
     # scipy's, and the CLI's winner and F on every flavor).
@@ -4573,6 +4655,7 @@ def _fleet_phase(ctx, info20, road1024, rmat16, seed):
     digests = {g: content_hash(p) for g, p in files.items()}
     report = {}
 
+    steps = _Steps("phase 13")
     # -- 13a. three daemons in this process behind the port's router.
     addresses = {f"r{i}": f"unix:{tmp}/fleet-r{i}.sock" for i in range(3)}
     servers = {}
@@ -4661,6 +4744,7 @@ def _fleet_phase(ctx, info20, road1024, rmat16, seed):
     gc.collect()
     torch.cuda.empty_cache()
 
+    steps("13a in-process fleet")
     # -- 13b. the fleet subcommand as a child process.
     graphs = dict(files, rmat16=rmat16["gpath"])
     sizes = {g: os.path.getsize(p) for g, p in graphs.items()}
@@ -4752,6 +4836,7 @@ def _fleet_phase(ctx, info20, road1024, rmat16, seed):
     print(f"fleet stopped: card memory used {_card_used_mib()} MiB; nvidia-smi compute apps "
           f"{json.dumps(_compute_apps())}")
 
+    steps("13b fleet subcommand")
     # -- 13b, chaos: a second fleet with a replica_kill on road-1024's
     # primary owner while four clients query road-1024.
     victim = PlacementRing([f"r{i}" for i in range(3)], replication=2).owners(
@@ -4842,6 +4927,8 @@ def _fleet_phase(ctx, info20, road1024, rmat16, seed):
     assert used_after < used_before + (used_fleet - used_before) / 6, (used_before, used_after)
     print(f"fleet stopped: card memory used {used_after} MiB (before the fleets "
           f"{used_before}); nvidia-smi compute apps {json.dumps(apps)}")
+    steps("13b chaos fleet")
+    steps.print()
     print(f"phase 13: {time.perf_counter() - t_phase:.1f} s against a target of "
           f"{FLEET_PHASE_TARGET_S:g} s; card: {CARD}")
 
@@ -5145,10 +5232,360 @@ def _tooling_phase(ctx, seed, road=None, rmat20_gpath=None):
     print(f"phase 14: {time.perf_counter() - t_phase:.1f} s; card: {CARD}")
 
 
-def _run_cli(cli, argv, native=True):
+# ---- phase 15: the mesh engines (-gn > 1) on a logical mesh over the card
+
+# Entries of the logical mesh: four shards, every one on cuda:0.
+MESH_SHARDS = 4
+# Groups checked against scipy on the road-1024 paths (besides the winner).
+MESH_SCIPY_GROUPS = 8
+
+
+def _stats_table(np, text):
+    """(levels, reached, F) int64 arrays of the MSBFS_STATS query table."""
+    lines = text.splitlines()
+    at = lines.index("query  levels  reached  F")
+    rows = []
+    for line in lines[at + 1:]:
+        parts = line.split()
+        if len(parts) != 4 or not all(p.isdigit() for p in parts):
+            break
+        rows.append([int(p) for p in parts[1:]])
+    table = np.asarray(rows, dtype=np.int64)
+    return table[:, 0], table[:, 1], table[:, 2]
+
+
+def _halo_table(text):
+    """Route counts, levels and total bytes of the MSBFS_STATS=2 halo table."""
+    lines = text.splitlines()
+    at = lines.index("level  own_rows  route   halo_bytes")
+    routes, levels = {}, 0
+    for line in lines[at + 1:]:
+        if line.startswith("total halo bytes:"):
+            return routes, levels, int(line.split(":")[1])
+        parts = line.split()
+        routes[parts[2]] = routes.get(parts[2], 0) + 1
+        levels += 1
+    raise AssertionError("halo table without a total")
+
+
+@contextlib.contextmanager
+def _record(module, name, pick):
+    """Every call of ``module.name`` still runs; ``pick(args, kwargs)``
+    returns (weight, snapshot) of its inputs before the call, and the
+    snapshot of the heaviest call is kept in the yielded dict."""
+    real = getattr(module, name)
+    best = {}
+
+    def wrapped(*args, **kwargs):
+        weight, snap = pick(args, kwargs)
+        if snap is not None and weight > best.get("weight", -1):
+            best.update(weight=weight, snap=snap)
+        return real(*args, **kwargs)
+
+    setattr(module, name, wrapped)
+    try:
+        yield best
+    finally:
+        setattr(module, name, real)
+
+
+def _hold(torch, kernel, plain, fresh, outputs, nbytes):
+    """A kernel held bit for bit against its plain version on fresh copies
+    of one recorded call's inputs, both timed (``fresh()`` -> the call's
+    arguments; ``outputs(args)`` -> the tensors it writes) beside the
+    bound of ``nbytes`` moved; no torch call computes the same function,
+    so there is no library time."""
+    args_k, args_p = fresh(), fresh()
+    kernel(*args_k)
+    plain(*args_p)
+    err = _max_abs_err(torch, zip(outputs(args_k), outputs(args_p)))
+    work = {}
+
+    def restore():
+        work["args"] = fresh()
+
+    ms = _time_ms(torch, lambda: kernel(*work["args"]), restore)
+    plain_ms = _time_ms(torch, lambda: plain(*work["args"]), restore, reps=3, warm=1)
+    bound_ms, bound_by = _bound_ms(nbytes, 0)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None, bound_bytes=int(nbytes))
+
+
+def _mesh_path(ctx, name, argv, env, single, checks, direct=None):
+    """One -gn 4 CLI run over the logical mesh as a counted path, its F
+    vector (the MSBFS_STATS table; ``direct()`` on an engine without one,
+    the engine the CLI builds, run again) equal to the single-device route's,
+    its winner and the checked groups equal to scipy's; prints its span
+    beside the single-device span, its halo and its peak memory."""
+    torch, np, cli, timing, launches, dev = ctx
+    err = io.StringIO()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    with _env(**{"MSBFS_STATS": "1", **env}), contextlib.redirect_stderr(err):
+        min_k, min_f, pre_s, comp_s = _run_path(
+            cli, timing, argv, name, launches, mesh_devices=[dev] * MESH_SHARDS)
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    text = err.getvalue()
+    if direct is None:
+        levels, reached, f = _stats_table(np, text)
+    else:
+        assert "per-query stats are not available" in text, text
+        levels, f = None, direct().cpu().numpy()
+    fv, want = checks
+    assert np.array_equal(f, fv), (name, f, fv)
+    assert (min_k, min_f) == (int(np.argmin(fv)), int(fv.min())), (name, min_k, min_f)
+    for q, wf in want.items():
+        assert int(f[q]) == wf, (name, q, int(f[q]), wf)
+    row = dict(winner=min_k + 1, min_f=min_f, f_equal_single_device=True,
+               scipy_groups_equal=len(want), cli_computation_s=comp_s,
+               single_device_computation_s=single, preprocessing_s=pre_s,
+               levels=None if levels is None else int(levels.max()),
+               peak_mib=peak / 2**20, halo_bytes_per_level=0, card=CARD)
+    if "halo_bytes" in text:
+        routes, halo_levels, total = _halo_table(text)
+        row.update(halo_routes=routes, halo_bytes_per_level=total / max(halo_levels, 1))
+    return row, text
+
+
+def _mesh_phase(ctx, rmat, road, seed):
+    """Phase 15: the -gn > 1 routes over a logical mesh of MESH_SHARDS
+    entries on the card (``cli.main(..., mesh_devices=[cuda:0] * 4)``):
+    the query-sharded bitbell and CSR pull and the vertex-sharded forest
+    (both halo routes) on RMAT-20 K = 64, the owner-partitioned and the
+    query-sharded push on road-1024 K = 16, a chip loss resharded; H1-H3
+    held against their plain versions on their widest recorded calls."""
+    torch, np, sp, cg, cli, tio, timing, generators, launches, tmp, dev = ctx
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
+        cuda_halo,
+    )
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.parallel import (
+        mesh, push_sharded, sharded_bell,
+    )
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.utils import (
+        telemetry,
+    )
+
+    pctx = (torch, np, cli, timing, launches, dev)
+    rows = {}
+    argv20 = ["chip_smoke", "-g", rmat["gpath"], "-q", rmat["qpath"], "-gn", str(MESH_SHARDS)]
+    argv1 = ["chip_smoke", "-g", road["gpath"], "-q", road["qpath"], "-gn", str(MESH_SHARDS)]
+    single20 = _run_cli(cli, argv20[:-1] + ["1"])[3]
+    single1 = _run_cli(cli, argv1[:-1] + ["1"])[3]
+    checks20 = (rmat["fv"], rmat["want"])
+    checks1 = (road["fv"], road["want"])
+    g20 = tio.load_graph_bin(rmat["gpath"])
+    n_pad2 = 2 * -(-g20.n // 2)
+    halo2 = dict(MSBFS_VSHARD="2", MSBFS_STATS="2",
+                 MSBFS_HALO_BUDGET=str(sharded_bell.default_halo_budget(n_pad2, 2)),
+                 MSBFS_PUSH_HALO=str(sharded_bell.default_push_halo_budget(
+                     g20.num_directed_edges, 2)))
+    n_pad4 = 4 * -(-g20.n // 4)
+    halo4 = dict(MSBFS_VSHARD="4", MSBFS_STATS="2", MSBFS_PUSH_HALO="0",
+                 MSBFS_HALO_BUDGET=str(sharded_bell.default_halo_budget(n_pad4, 4)))
+
+    rows["mesh rmat-20"], _ = _mesh_path(pctx, "mesh rmat-20", argv20, {}, single20, checks20)
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.parallel.distributed import (
+        DistributedEngine,
+    )
+
+    def csr_f():
+        mesh4 = mesh.make_mesh(MESH_SHARDS, devices=[dev] * MESH_SHARDS)
+        return DistributedEngine(mesh4, g20, backend="csr").f_values(
+            tio.pad_queries(rmat["queries"]))
+
+    rows["mesh csr rmat-20"], _ = _mesh_path(pctx, "mesh csr rmat-20", argv20,
+                                             dict(MSBFS_BACKEND="csr"), single20,
+                                             checks20, direct=csr_f)
+
+    rows["vshard2 rmat-20"], text2 = _mesh_path(pctx, "vshard2 rmat-20", argv20, halo2,
+                                                single20, checks20)
+    assert set(rows["vshard2 rmat-20"]["halo_routes"]) >= {"sparse", "dense"}, text2
+    rows["vshard4 rmat-20"], text4 = _mesh_path(pctx, "vshard4 rmat-20", argv20, halo4,
+                                                single20, checks20)
+    assert set(rows["vshard4 rmat-20"]["halo_routes"]) >= {"sparse", "dense"}, text4
+
+    telemetry.flight_recorder().clear()
+    rows["reshard rmat-20"], _ = _mesh_path(pctx, "reshard rmat-20", argv20,
+                                            dict(MSBFS_FAULTS="chip:rank1:1"), single20,
+                                            checks20)
+    ring = [e for e in telemetry.flight_recorder().snapshot() if e["kind"] == "reshard"]
+    assert ring and ring[-1]["failed_ranks"] == [1], ring
+    rows["reshard rmat-20"].update(failed_ranks=[1], survivor_shards=ring[-1]["survivor_shards"])
+
+    rows["vshard4 road-1024"], _ = _mesh_path(pctx, "vshard4 road-1024", argv1,
+                                              dict(MSBFS_VSHARD="4"), single1, checks1)
+    rows["mesh push road-1024"], _ = _mesh_path(pctx, "mesh push road-1024", argv1,
+                                                dict(MSBFS_BACKEND="push"), single1, checks1)
+    # H3 on the owner-partitioned push's widest level of road-1024: the
+    # engine as the CLI builds it, recorded call by call (a host read each).
+    g1 = tio.load_graph_bin(road["gpath"])
+    eng = push_sharded.ShardedPushEngine(mesh.make_mesh(1, MESH_SHARDS, devices=[dev] * 4), g1)
+
+    def pick_expand(args, kwargs):
+        table, queue, count, frontier, hits, lo, n_pad, ids, words, bcount, peak, ctrl = args[:12]
+        if not bool(ctrl[0]):
+            return 0, None
+        listed = min(int(count[0]), queue.shape[0])
+        return listed, (table, queue.clone(), count.clone(), frontier.clone(), hits.clone(),
+                        lo, n_pad, ids.clone(), words.clone(), bcount.clone(), peak.clone(),
+                        ctrl.clone())
+
+    with _record(push_sharded, "owner_push_expand", pick_expand) as h3:
+        eng.f_values(tio.pad_queries(road["queries"]))
+    w3 = (eng.capacity, eng.boundary)
+    block, width = eng.block, eng.width
+    w_words = -(-len(road["queries"]) // 32)
+    halo_push = MESH_SHARDS * eng.boundary * 4 * (1 + w_words)
+    rows["vshard4 road-1024"].update(capacity=w3[0], boundary=w3[1],
+                                     halo_bytes_per_level=halo_push)
+    del eng, g1
+
+    # H2 and H1 on the vertex-sharded forest's sparse levels of RMAT-20:
+    # the engines of "vshard2 rmat-20" and "vshard4 rmat-20" as the CLI
+    # builds them, run again outside the counted paths and recorded call
+    # by call (a host read each); their F must still be the route's.
+    def pick_push(args, kwargs):
+        ids, words, csr, hits = args
+        valid = int((ids < n_pad2).sum())
+        return valid, (ids.clone(), words.clone(), csr, hits.clone())
+
+    def pick_pair(args, kwargs):
+        ids, words, plane = args[:3]
+        lo = args[3] if len(args) > 3 else 0
+        valid = int(((ids >= lo) & (ids < lo + plane.shape[0])).sum())
+        return valid, (ids.clone(), words.clone(), plane.clone(), lo)
+
+    queries20 = tio.pad_queries(rmat["queries"])
+    for (q, v, halo), fn, pick in (((2, 2, halo2), "halo_push_or", pick_push),
+                                   ((1, 4, halo4), "halo_pair_or", pick_pair)):
+        eng = sharded_bell.ShardedBellEngine(
+            mesh.make_mesh(q, v, devices=[dev] * MESH_SHARDS), g20,
+            halo_budget=int(halo["MSBFS_HALO_BUDGET"]),
+            push_budget=int(halo["MSBFS_PUSH_HALO"]))
+        with _record(sharded_bell, fn, pick) as rec:
+            f = eng.f_values(queries20).cpu().numpy()
+        assert np.array_equal(f, rmat["fv"]), (fn, f, rmat["fv"])
+        assert "snap" in rec, fn
+        if fn == "halo_push_or":
+            h2 = rec
+        else:
+            h1 = rec
+        del eng
+    del g20
+    torch.cuda.empty_cache()
+    for name, row in rows.items():
+        print(f"{name}: " + json.dumps(row))
+
+    if torch.cuda.device_count() > 1:
+        cards = min(MESH_SHARDS, torch.cuda.device_count())
+        got = _run_cli(cli, argv20[:-1] + [str(cards)])
+        assert got[:2] == (int(np.argmin(rmat["fv"])), int(rmat["fv"].min())), got
+        print(f"distinct cards: -gn {cards} over cuda:0..{cards - 1} on rmat-20: winner "
+              f"{got[0] + 1}, F {got[1]}, computation {got[3]} s")
+    else:
+        print("distinct cards: not run (this machine has one card); the peer copies "
+              "between cards are unproven")
+
+    # ---- H1-H3 against their plain versions on their widest recorded calls
+    # The bounds count what each recorded call needs: every pair's id, but
+    # words and a row's read-modify-write only for the pairs that land
+    # (sentinel and unmatched pairs are never read past their id), each
+    # written row once however many pairs it gets.  No single torch call
+    # ORs rows (duplicates included), so none of H1-H3 has a library time.
+    shape = {}
+    ids, words, csr, hits = h2["snap"]
+    src_ids, src_start, src_cnt, vals = csr
+    pos = torch.clamp(torch.searchsorted(src_ids, ids), max=max(src_ids.shape[0] - 1, 0))
+    match = src_ids[pos] == ids
+    deg = torch.where(match, src_cnt[pos], 0).long()
+    first = torch.where(match, src_start[pos], 0).long()
+    owner = torch.repeat_interleave(torch.arange(ids.numel(), device=ids.device), deg)
+    within = torch.arange(owner.numel(), device=ids.device) - torch.repeat_interleave(
+        torch.cumsum(deg, 0) - deg, deg)
+    dst = vals[first[owner] + within]
+    edges, matched = int(dst.numel()), int(match.sum())
+    landed = int(torch.unique(dst).numel())
+    w = hits.shape[1]
+    shape["halo_push_or"] = _hold(
+        torch, cuda_halo.halo_push_or, cuda_halo.halo_push_or_plain,
+        lambda: (ids, words, csr, hits.clone()), lambda a: [a[3]],
+        ids.numel() * 4 + matched * (12 + 4 * w) + edges * 4 + landed * 8 * w)
+    shape["halo_push_or"].update(pairs=int(ids.numel()), valid=h2["weight"], matched=matched,
+                                 edges=edges, rows_written=landed, w=w)
+    ids, words, plane, lo = h1["snap"]
+    w = plane.shape[1]
+    valid = (ids >= lo) & (ids < lo + plane.shape[0])
+    landed = int(torch.unique(ids[valid]).numel())
+    shape["halo_pair_or"] = _hold(
+        torch, cuda_halo.halo_pair_or, cuda_halo.halo_pair_or_plain,
+        lambda: (ids, words, plane.clone(), lo), lambda a: [a[2]],
+        ids.numel() * 4 + h1["weight"] * 4 * w + landed * 8 * w)
+    shape["halo_pair_or"].update(pairs=int(ids.numel()), valid=h1["weight"],
+                                 rows_written=landed, w=w)
+    snap = h3["snap"]
+    table, queue, count, frontier, hits, lo, n_pad = snap[:7]
+    listed = h3["weight"]
+    w = frontier.shape[1]
+    bnd = snap[7].shape[0]
+    v = table[queue[:listed].long()].reshape(-1).long()
+    inside = (v < n_pad) & (v >= lo) & (v < lo + block)
+    landed = int(torch.unique(v[inside]).numel())
+    border = int(((v < n_pad) & ~inside).sum())
+
+    def fresh3():
+        return (table, queue, count, frontier, hits.clone(), snap[5], snap[6],
+                snap[7].clone(), snap[8].clone(), snap[9].clone(), snap[10].clone(), snap[11])
+
+    # The queue, table row and frontier words of each listed row; each
+    # in-block hit row once; the boundary buffers, written whole.
+    shape["owner_push_expand"] = _hold(
+        torch, cuda_halo.owner_push_expand, cuda_halo.owner_push_expand_plain, fresh3,
+        lambda a: [a[4], a[7], a[8], a[9], a[10]],
+        listed * (4 + 4 * width + 4 * w) + landed * 8 * w + bnd * 4 * (1 + w))
+    shape["owner_push_expand"].update(listed=listed, width=width, slots=int(v.numel()),
+                                      in_block=int(inside.sum()), rows_written=landed,
+                                      boundary_slots=border, boundary=bnd, w=w, block=block)
+    for name, row in shape.items():
+        print(f"compare mesh {name} (widest recorded call): " + json.dumps(row))
+        assert row["max_abs_err"] == 0, (name, row)
+    return shape
+
+
+
+def _mesh_data(ctx, seed):
+    """Phase 15's own data when it runs alone: phase 5b's RMAT-20 K = 64
+    and phase 6's road-1024 K = 16 files (the same seeds), each route's F
+    vector from the single-device CLI (MSBFS_STATS=1) and scipy's F of
+    the winner and the first groups."""
+    torch, np, sp, cg, cli, tio, timing, generators, launches, tmp, dev = ctx
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.models.csr import (
+        CSRGraph,
+    )
+
+    out = []
+    for name, (n, edges), k, qseed in (
+        ("rmat20", generators.rmat_edges(20, edge_factor=16, seed=seed), 64, seed + 12),
+        ("road1024", generators.road_edges(1024, 1024, seed=seed + 1), 16, seed + 3),
+    ):
+        gpath, qpath = os.path.join(tmp, f"{name}.bin"), os.path.join(tmp, f"{name}-q.bin")
+        queries = generators.random_queries(n, k, seed=qseed)
+        tio.save_graph_bin(gpath, n, edges)
+        tio.save_query_bin(qpath, queries)
+        err = io.StringIO()
+        with _env(MSBFS_STATS="1"), contextlib.redirect_stderr(err):
+            _run_cli(cli, ["chip_smoke", "-g", gpath, "-q", qpath, "-gn", "1"])
+        fv = _stats_table(np, err.getvalue())[2]
+        a = _scipy_matrix(sp, np, CSRGraph.from_edges(n, edges))
+        groups = sorted({int(np.argmin(fv)), *range(MESH_SCIPY_GROUPS)})
+        want = {q: _scipy_f(cg, np, a, queries[q]) for q in groups}
+        out.append(dict(gpath=gpath, qpath=qpath, queries=queries, fv=fv, want=want))
+    return out
+
+def _run_cli(cli, argv, native=True, mesh_devices=None):
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        rc = cli.main(argv, native=native)
+        rc = cli.main(argv, native=native, mesh_devices=mesh_devices)
     report = buf.getvalue()
     print(report, end="")
     assert rc == 0, rc
@@ -5177,8 +5614,9 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--detail-dir", default=DETAIL_DIR,
                     help="directory for the per-level rows of the hybrid paths")
-    ap.add_argument("--phases", default="all", choices=("all", "14"),
-                    help="all (the proof) or 14 (the build, then the tooling phase alone)")
+    ap.add_argument("--phases", default="all", choices=("all", "14", "15"),
+                    help="all (the proof), 14 (the build, then the tooling phase alone) "
+                         "or 15 (the build, then the mesh phase alone)")
     args = ap.parse_args()
     DETAIL_DIR = args.detail_dir
     t_start = time.perf_counter()
@@ -5250,11 +5688,16 @@ def main() -> int:
         event_pair_ms=_time_ms(torch, lambda: None, lambda: None),
         note="host time to enqueue one small torch op on the card; the device "
              "time between two CUDA events with nothing between them")))
-    if args.phases == "14":
+    if args.phases in ("14", "15"):
         with tempfile.TemporaryDirectory(prefix="msbfs_smoke_") as tmp:
-            elapsed("phase 14")
-            _tooling_phase((torch, np, sp, cg, cli, tio, timing, generators, {}, tmp, dev),
-                           args.seed)
+            ctx = (torch, np, sp, cg, cli, tio, timing, generators, {}, tmp, dev)
+            if args.phases == "14":
+                elapsed("phase 14")
+                _tooling_phase(ctx, args.seed)
+            else:
+                rmat15, road15 = _mesh_data(ctx, args.seed)
+                elapsed("phase 15")
+                _mesh_phase(ctx, rmat15, road15, args.seed)
         print(f"total: {time.perf_counter() - t_start:.1f} s")
         print(_card_line())
         print(json.dumps({"ok": True, "device": {
@@ -5516,6 +5959,16 @@ def main() -> int:
     elapsed("phase 14")
     _tooling_phase((torch, np, sp, cg, cli, tio, timing, generators, launches, tmp, dev),
                    seed, road=(n1, e1, want1), rmat20_gpath=info20["gpath"])
+
+    # ---- 15. the -gn > 1 routes over a logical mesh on the card: phase
+    # 5b's RMAT-20 files and phase 6's road-1024 files
+    elapsed("phase 15")
+    rmat15 = {key: info20[key] for key in ("gpath", "qpath", "queries", "fv", "want")}
+    road15 = dict(gpath=gpath1, qpath=qpath1, queries=q1, fv=fv1, want={
+        q: int(want1[q]) for q in sorted({int(np.argmin(want1)), *range(MESH_SCIPY_GROUPS)})})
+    main_shape.update(_mesh_phase(
+        (torch, np, sp, cg, cli, tio, timing, generators, launches, tmp, dev),
+        rmat15, road15, seed))
     os.remove(info20["gpath"])
     del info20
     tmpdir.cleanup()
@@ -5544,6 +5997,9 @@ def main() -> int:
         "queue_compact": "ops/push.py:57, {JAX_PKG}/ops/push.py:83, "
                          "{JAX_PKG}/ops/push_packed.py:110",
         "weighted_relax": "weighted/deltastep.py:84",
+        "halo_pair_or": "parallel/sharded_bell.py:444, {JAX_PKG}/parallel/push_sharded.py:176",
+        "halo_push_or": "parallel/sharded_bell.py:350",
+        "owner_push_expand": "parallel/push_sharded.py:131",
     }
     # K5's push: the flag_pull launches with the push folded in, on the
     # byte paths.

@@ -7,12 +7,11 @@ scan, unknown flags ignored, ``-gn`` defaulting to 1 and clamped to the
 cards present but reported as given; usage errors return -1; the 7-line
 report with the 1-based winner and 9-decimal times.
 
-Routes ported so far, on one device, routed as the JAX CLI routes off a
-TPU: the stencil route — road-class graphs with a banded adjacency
-(auto), or ``MSBFS_BACKEND=stencil``; the low-K route — 1 to
-``MSBFS_LOWK_MAX_K`` (4) queries on auto when no earlier route took the
-graph (``MSBFS_LOWK=0`` disables; ``MSBFS_STATS=2`` keeps bitbell), or
-``MSBFS_BACKEND=lowk``; the tensor-core route ``MSBFS_BACKEND=mxu``
+Routes, chosen as the JAX CLI chooses them off a TPU; on one device: the
+stencil route — road-class graphs with a banded adjacency (auto), or
+``MSBFS_BACKEND=stencil``; the low-K route — 1 to ``MSBFS_LOWK_MAX_K``
+(4) queries on auto when no earlier route took the graph (``MSBFS_LOWK=0``
+disables; ``MSBFS_STATS=2`` keeps bitbell), or ``MSBFS_BACKEND=lowk``; the tensor-core route ``MSBFS_BACKEND=mxu``
 (``MSBFS_MXU_KERNEL=1`` for the CUDA tile kernel); the ELL route
 ``MSBFS_BACKEND=pallas``; the pull-only byte-plane route
 ``MSBFS_BACKEND=bell``; the host-streamed forest ``MSBFS_BACKEND=streamed``;
@@ -40,14 +39,22 @@ under ``MSBFS_AUDIT``), and the ``verify`` subcommand certifies answers
 router (serve/), and ``analyze`` the static passes over the port's
 files (analysis/).  ``MSBFS_PROFILE_DIR`` writes a ``torch.profiler``
 trace of the computation span (:func:`.utils.trace.profiler_trace`).
+At ``-gn > 1`` the batch runs over a ('q', 'v') mesh of that many cards
+(:func:`mesh_route`, parallel/): the query-sharded bitbell, CSR-pull and
+push engines, or, with ``MSBFS_VSHARD`` (or a graph beyond one card's
+memory), the vertex-sharded forest and owner-partitioned push, whose
+halo ``MSBFS_HALO_BUDGET`` / ``MSBFS_PUSH_HALO`` tune; the supervisor
+reshards onto the surviving cards after a lost one.
 Every other route or mode of the JAX CLI (``MSBFS_MESH``,
 ``MSBFS_COORDINATOR``, ``MSBFS_CACHE_DIR``) exits 1 with a one-line
 message naming it as not yet ported; none of them silently runs
 something else.
 
-``main(argv, device=None, native=True)`` runs on ``cuda`` and raises when
-there is no card; ``device="cpu"`` runs the kernels' plain torch versions
-(tests).  The host preprocessing (load, CSR, dedup, BELL levels) runs in
+``main(argv, device=None, native=True, mesh_devices=None)`` runs on
+``cuda`` and raises when there is no card; ``device="cpu"`` runs the
+kernels' plain torch versions (tests).  ``mesh_devices`` replaces the
+card list that ``-gn`` is clamped to, for tests and the smoke: a logical
+mesh may name one device several times (``["cpu"] * 4``).  The host preprocessing (load, CSR, dedup, BELL levels) runs in
 the native runtime, built at first use; ``native=False`` runs its NumPy
 versions instead, to compare.  The preprocessing span's phases (load,
 layout, compile) are left in :func:`.utils.timing.phase_seconds`.
@@ -206,6 +213,138 @@ _NON_BITBELL_FOOTPRINT_BACKENDS = (
 _OVER_MEMORY_LEVEL_CHUNK = 8
 # Gather-segment budget of the over-memory configuration, in slots.
 _OVER_MEMORY_SLOT_BUDGET = 1 << 25
+
+
+# Backends with no 1D-distributed variant: at -gn > 1 they warn and fall
+# back to the distributed bitbell engine (the JAX CLI's list; ``csr`` /
+# ``vmap`` and ``push`` have multi-device routes).
+_SINGLE_CHIP_ONLY_BACKENDS = (
+    "dense", "pallas", "bell", "packed", "ppush", "stencil", "streamed", "lowk", "mxu",
+)
+
+
+def _opt_env_int(name: str) -> Optional[int]:
+    """None when unset, empty or malformed (the engine auto-sizes); else
+    the integer (0 disables)."""
+    raw = knobs.raw(name)
+    if raw is None or raw == "":
+        return None
+    try:
+        return int(raw)
+    except ValueError:
+        return None
+
+
+def mesh_route(graph, padded, devices, level_chunk, explicit_chunk, road_class,
+               hbm_need, hbm_have, announce_chunk, native: bool = True):
+    """The -gn > 1 route over ``devices`` (the JAX CLI's multi-chip branch
+    without ``MSBFS_MESH``): the engine, or an exit code.
+
+    ``MSBFS_VSHARD=v`` splits the graph over a 'v' mesh axis of v devices
+    (the rest shard queries); unset, the graph is replicated unless its
+    estimated footprint exceeds one device's budget, when the smallest
+    vertex-shard count that divides the devices and fits is taken.  On a
+    ('q', 'v') mesh the owner-partitioned push serves ``push`` and
+    road-class graphs on auto (the sharded forest when it cannot build),
+    the sharded forest everything else; on a query mesh ``push`` runs the
+    query-sharded push, ``csr``/``vmap`` the distributed CSR pull, and
+    every other backend the distributed bitbell engine."""
+    from .models.bell import BellGraph
+    from .parallel.distributed import DistributedEngine
+    from .parallel.mesh import make_mesh
+
+    n_chips = len(devices)
+    vshard = knobs.get_int("MSBFS_VSHARD", 0)
+    if vshard == 0:
+        vshard = 1
+        if hbm_need > hbm_have:
+            k_est = max(32, padded.shape[0])
+            for v in range(2, n_chips + 1):
+                # Only the edge-proportional terms shrink per shard.
+                if n_chips % v == 0 and BellGraph.estimate_hbm_bytes(
+                    graph.n, graph.num_directed_edges, k_est, v
+                ) <= hbm_have:
+                    vshard = v
+                    break
+            else:
+                vshard = n_chips
+            print(
+                f"graph needs ~{hbm_need >> 20} MiB"
+                f" > {hbm_have >> 20} MiB/chip: auto-sharding the"
+                f" CSR over {vshard} of {n_chips} chips"
+                " (MSBFS_VSHARD overrides)",
+                file=sys.stderr,
+            )
+    if vshard > 1 and n_chips % vshard != 0:
+        print(
+            f"MSBFS_VSHARD={vshard} does not divide {n_chips} chips;"
+            " falling back to replicated-graph query sharding",
+            file=sys.stderr,
+        )
+    backend = knobs.raw("MSBFS_BACKEND", "auto")
+    if backend in _SINGLE_CHIP_ONLY_BACKENDS:
+        print(
+            f"MSBFS_BACKEND={backend} is single-chip only; using "
+            "the distributed bitbell engine at -gn > 1",
+            file=sys.stderr,
+        )
+        backend = "auto"
+    if vshard > 1 and n_chips % vshard == 0:
+        mesh = make_mesh(num_query_shards=n_chips // vshard, num_vertex_shards=vshard,
+                         devices=devices)
+        engine = None
+        if backend == "push" or (backend == "auto" and road_class):
+            from .parallel.push_sharded import ShardedPushEngine
+
+            try:
+                engine = ShardedPushEngine(mesh, graph, level_chunk=level_chunk, native=native)
+                announce_chunk()
+            except ValueError as exc:
+                if backend == "push":
+                    print(str(exc), file=sys.stderr)
+                    return 1
+                print(f"auto: {exc}; using the sharded bitbell engine", file=sys.stderr)
+        elif backend in ("csr", "vmap"):
+            print(
+                f"MSBFS_BACKEND={backend} has no vertex-sharded "
+                "variant; using the sharded bitbell engine",
+                file=sys.stderr,
+            )
+        if engine is None:
+            from .parallel.sharded_bell import ShardedBellEngine
+
+            announce_chunk()
+            engine = ShardedBellEngine(
+                mesh, graph, level_chunk=level_chunk,
+                halo_budget=_opt_env_int("MSBFS_HALO_BUDGET"),
+                push_budget=_opt_env_int("MSBFS_PUSH_HALO"),
+                native=native,
+            )
+        return engine
+    if backend == "push":
+        from .parallel.push_dist import DistributedPushEngine
+
+        try:
+            return DistributedPushEngine(
+                make_mesh(num_query_shards=n_chips, devices=devices), graph, native=native)
+        except ValueError as exc:
+            # Degree beyond the width cap: the push route's error.
+            print(str(exc), file=sys.stderr)
+            return 1
+    mesh = make_mesh(num_query_shards=n_chips, devices=devices)
+    if backend in ("csr", "vmap"):
+        if road_class or (explicit_chunk or 0) > 0:
+            print(
+                f"warning: MSBFS_BACKEND={backend} has no "
+                "bounded-dispatch level loop at -gn > 1; a "
+                "high-diameter graph may exceed per-dispatch "
+                "limits (unset MSBFS_BACKEND for the chunked "
+                "bitbell engine)",
+                file=sys.stderr,
+            )
+        return DistributedEngine(mesh, graph, backend="csr", native=native)
+    announce_chunk()
+    return DistributedEngine(mesh, graph, level_chunk=level_chunk, native=native)
 
 
 def _unported_knob() -> Optional[str]:
@@ -385,7 +524,8 @@ def verify_main(argv: List[str], device=None, native: bool = True) -> int:
     return 0
 
 
-def main(argv: Optional[List[str]] = None, device=None, native: bool = True) -> int:
+def main(argv: Optional[List[str]] = None, device=None, native: bool = True,
+         mesh_devices=None) -> int:
     from .runtime.supervisor import (
         ChunkSupervisor,
         InputError,
@@ -505,13 +645,19 @@ def main(argv: Optional[List[str]] = None, device=None, native: bool = True) -> 
                 print(format_failure(err), end="", file=sys.stderr)
                 return err.exit_code
             padded = pad_queries(queries)
-        cards = torch.cuda.device_count() if dev.type == "cuda" else 1
-        n_chips = max(1, min(num_gpu, cards))
+        # -gn devices, clamped to the cards present (or to ``mesh_devices``,
+        # which replaces the card list: a logical mesh for tests and the
+        # smoke, as JAX's tests get theirs from XLA_FLAGS).
+        if mesh_devices is not None:
+            cards = list(mesh_devices)
+        elif dev.type == "cuda":
+            cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        else:
+            cards = [dev]
+        n_chips = max(1, min(num_gpu, len(cards)))
         # The weighted route runs on one device whatever -gn says, and takes
         # precedence over every other route, as in the JAX CLI.
         weighted_route = knobs.raw("MSBFS_WEIGHTED", "") == "1"
-        if n_chips > 1 and not weighted_route:
-            return not_ported(f"-gn {num_gpu} on {cards} cards (multi-device)")
         explicit_chunk, level_chunk, megachunk = chunk_policy(graph)
         backend = knobs.raw("MSBFS_BACKEND", "auto")
         road_class = _road_class(graph)
@@ -562,6 +708,13 @@ def main(argv: Optional[List[str]] = None, device=None, native: bool = True) -> 
                 "(MSBFS_WEIGHTED_ENGINE / MSBFS_DELTA override)",
                 file=sys.stderr,
             )
+        elif n_chips > 1:
+            engine = mesh_route(
+                graph, padded, cards[:n_chips], level_chunk, explicit_chunk, road_class,
+                hbm_need, hbm_have, announce_chunk, native,
+            )
+            if isinstance(engine, int):
+                return engine
         else:
             try:
                 probed = stencil_probe(graph, dev, backend, level_chunk, explicit_chunk)
@@ -877,6 +1030,11 @@ def main(argv: Optional[List[str]] = None, device=None, native: bool = True) -> 
 
         if level_rows is not None:
             sys.stderr.write(format_level_stats(*level_rows))
+            halo = getattr(engine, "last_halo_trace", None)
+            if halo:
+                from .utils.trace import format_halo_stats
+
+                sys.stderr.write(format_halo_stats(halo))
         elif stats_env == "2":
             sys.stderr.write(
                 "MSBFS_STATS=2: per-level trace not available "

@@ -1,0 +1,244 @@
+// The halo exchange of the vertex-sharded engines: H1, H2 and H3.
+//
+// Replaces three XLA chains of the JAX package's parallel/ modules, each
+// built there from byte lanes (unpack the words to 0/1 bytes, scatter-max,
+// re-pack) so that colliding writers make an OR.  atomicOr on 32-bit words
+// is that OR, so no byte-lane buffer is made here.
+//
+// H1 halo_pair_or — sharded_bell.py:444-448 ``rebuild_planes`` and the
+//   landing of the boundary pairs at their owner in push_sharded.py:176-183:
+//     for every gathered pair (id, words[W]) with 0 <= id - lo < rows:
+//       plane[id - lo] |= words
+//   Duplicate ids are allowed; an id outside the block (the sentinel) drops.
+//   Gated on the device control when ``ctrl`` is given.
+//
+// H2 halo_push_or — sharded_bell.py:350 ``_push_own_hits``: every gathered
+//   pair's in-block push-CSR row (sources sorted ascending, ``build_push_halo``)
+//   is walked and the pair's words ORed into the own block's hit rows.  A warp
+//   a pair: lane 0 finds the source by binary search, the lanes share its
+//   edges.
+//
+// H3 owner_push_expand — push_sharded.py:131-175 ``_push_level``: the own
+//   queue's rows of the (block + 1, width) own-row table (global ids,
+//   sentinel n_pad), in-block neighbours ORed into the own hit rows,
+//   out-of-block ones compacted in slot order (queue entry i, column d, slot
+//   i * width + d) into at most ``bnd`` (dst, words) boundary pairs, the rest
+//   of the pair buffers cleared to (n_pad, 0); the boundary slots' count in
+//   full, and its running maximum in ``peak``.  The order is JAX's: after a
+//   truncated level the kept pairs decide the next levels, whose peaks decide
+//   the capacity protocol's rerun.  One block of 1024 threads walks the
+//   slots a tile at a time, a block-wide scan placing each tile's pairs.
+//
+// Bound: bytes.  H1 reads each pair and writes its row's words; H2 reads
+// each pair, its source's CSR entry and edges, and writes a row's words an
+// edge; H3 reads the listed rows' table rows and words, writes the reached
+// hit words and the pairs.
+#include <climits>
+
+#include "msbfs_common.cuh"
+
+namespace {
+
+constexpr int kExpandThreads = 1024;
+
+__global__ void pair_or_kernel(const int* __restrict__ ids,
+                               const uint32_t* __restrict__ words,
+                               long long items, int W, uint32_t* __restrict__ plane,
+                               long long rows, long long lo,
+                               const int* __restrict__ ctrl, int max_levels) {
+  if (ctrl != nullptr && !msbfs::level_go(ctrl, max_levels)) return;
+  for (long long t = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
+       t < items; t += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const long long i = t / W;
+    const long long r = static_cast<long long>(__ldg(ids + i)) - lo;
+    if (r < 0 || r >= rows) continue;
+    const uint32_t x = __ldg(words + t);
+    if (x) atomicOr(plane + r * W + (t - i * W), x);
+  }
+}
+
+__global__ void push_or_pairs_kernel(const int* __restrict__ ids,
+                                     const uint32_t* __restrict__ words,
+                                     long long pairs, int W,
+                                     const int* __restrict__ src_ids,
+                                     const int* __restrict__ src_start,
+                                     const int* __restrict__ src_cnt, long long m,
+                                     const int* __restrict__ vals,
+                                     uint32_t* __restrict__ hits, long long block) {
+  const int lane = threadIdx.x & 31;
+  const long long warps = static_cast<long long>(gridDim.x) * (blockDim.x >> 5);
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x >> 5) + (threadIdx.x >> 5);
+       i < pairs; i += warps) {
+    const int id = __ldg(ids + i);
+    long long pos = 0;
+    if (lane == 0) {
+      long long a = 0, b = m;  // first entry >= id
+      while (a < b) {
+        const long long mid = (a + b) >> 1;
+        if (__ldg(src_ids + mid) < id) a = mid + 1; else b = mid;
+      }
+      pos = a;
+    }
+    pos = __shfl_sync(0xffffffffu, pos, 0);
+    if (pos >= m || __ldg(src_ids + pos) != id) continue;
+    const int st = __ldg(src_start + pos), deg = __ldg(src_cnt + pos);
+    const uint32_t* row = words + i * W;
+    for (int e = lane; e < deg; e += 32) {
+      const long long v = __ldg(vals + st + e);
+      if (v < 0 || v >= block) continue;
+      for (int c = 0; c < W; ++c) {
+        const uint32_t x = __ldg(row + c);
+        if (x) atomicOr(hits + v * W + c, x);
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kExpandThreads)
+owner_expand_kernel(const int* __restrict__ table, int width,
+                    const int* __restrict__ queue, long long cap,
+                    const int* __restrict__ count,
+                    const uint32_t* __restrict__ frontier, int W,
+                    uint32_t* __restrict__ hits, long long block, long long lo,
+                    long long n_pad, int* __restrict__ bnd_ids,
+                    uint32_t* __restrict__ bnd_words, long long bnd,
+                    int* __restrict__ bcount, int* __restrict__ peak,
+                    const int* __restrict__ ctrl, int max_levels) {
+  if (!msbfs::level_go(ctrl, max_levels)) return;
+  __shared__ int warp_sums[kExpandThreads / 32];
+  __shared__ long long base_s;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long listed = min(static_cast<long long>(__ldcg(count)), cap);
+  const long long slots = listed * width;
+  if (tid == 0) base_s = 0;
+  __syncthreads();
+  for (long long t0 = 0; t0 < slots; t0 += kExpandThreads) {
+    const long long s = t0 + tid;
+    int flag = 0;
+    int u = 0;
+    long long v = n_pad;
+    if (s < slots) {
+      u = __ldg(queue + s / width);
+      v = __ldg(table + static_cast<long long>(u) * width + s % width);
+      if (v < n_pad) {
+        const long long local = v - lo;
+        if (local >= 0 && local < block) {
+          for (int c = 0; c < W; ++c) {
+            const uint32_t x = __ldg(frontier + static_cast<long long>(u) * W + c);
+            if (x) atomicOr(hits + local * W + c, x);
+          }
+        } else {
+          flag = 1;
+        }
+      }
+    }
+    // Block-wide exclusive scan of the boundary flags, in slot order.
+    int incl = flag;
+    for (int d = 1; d < 32; d <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, incl, d);
+      if (lane >= d) incl += y;
+    }
+    if (lane == 31) warp_sums[warp] = incl;
+    __syncthreads();
+    if (warp == 0) {
+      int x = warp_sums[lane];
+      for (int d = 1; d < 32; d <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, x, d);
+        if (lane >= d) x += y;
+      }
+      warp_sums[lane] = x;  // inclusive over warps
+    }
+    __syncthreads();
+    const long long base = base_s;
+    const long long at = base + (warp ? warp_sums[warp - 1] : 0) + incl - flag;
+    if (flag && at < bnd) {
+      bnd_ids[at] = static_cast<int>(v);
+      for (int c = 0; c < W; ++c) {
+        bnd_words[at * W + c] = __ldg(frontier + static_cast<long long>(u) * W + c);
+      }
+    }
+    __syncthreads();
+    if (tid == 0) base_s = base + warp_sums[31];
+    __syncthreads();
+  }
+  const long long total = base_s;
+  for (long long at = min(total, bnd) + tid; at < bnd; at += kExpandThreads) {
+    bnd_ids[at] = static_cast<int>(n_pad);
+    for (int c = 0; c < W; ++c) bnd_words[at * W + c] = 0u;
+  }
+  if (tid == 0) {
+    const int b = static_cast<int>(min(total, static_cast<long long>(INT_MAX)));
+    *bcount = b;
+    atomicMax(peak, b);
+  }
+}
+
+}  // namespace
+
+// H1.  ids (pairs,) int32, words (pairs, W) uint32, plane (rows, W);
+// ctrl may be null (ungated).
+extern "C" int msbfs_halo_pair_or(int device, const void* ids, const void* words,
+                                  long long pairs, int W, void* plane, long long rows,
+                                  long long lo, const void* ctrl, int max_levels,
+                                  void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (W < 1 || pairs < 0 || rows < 0 || rows * W >= (1LL << 31)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (pairs == 0) return static_cast<int>(cudaSuccess);
+  const long long items = pairs * W;
+  pair_or_kernel<<<msbfs::grid_for(items, msbfs::kThreads), msbfs::kThreads, 0,
+                   static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(ids), static_cast<const uint32_t*>(words), items, W,
+      static_cast<uint32_t*>(plane), rows, lo, static_cast<const int*>(ctrl), max_levels);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// H2.  The in-block push CSR of one shard: src_ids (m,) ascending, src_start
+// and src_cnt (m,), vals (block-local rows); hits (block, W).
+extern "C" int msbfs_halo_push_or(int device, const void* ids, const void* words,
+                                  long long pairs, int W, const void* src_ids,
+                                  const void* src_start, const void* src_cnt,
+                                  long long m, const void* vals, void* hits,
+                                  long long block, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (W < 1 || pairs < 0 || m < 0 || block < 0 || block * W >= (1LL << 31)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (pairs == 0 || m == 0) return static_cast<int>(cudaSuccess);
+  const int warps_per_block = msbfs::kThreads / 32;
+  push_or_pairs_kernel<<<msbfs::grid_for(pairs, warps_per_block), msbfs::kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(ids), static_cast<const uint32_t*>(words), pairs, W,
+      static_cast<const int*>(src_ids), static_cast<const int*>(src_start),
+      static_cast<const int*>(src_cnt), m, static_cast<const int*>(vals),
+      static_cast<uint32_t*>(hits), block);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// H3.  table (block + 1, width) int32 global ids; queue (cap,) and count
+// (1,) from the own frontier's row queue; frontier and hits (block, W);
+// bnd_ids (bnd,) int32 and bnd_words (bnd, W); bcount and peak (1,) int32.
+extern "C" int msbfs_owner_push_expand(int device, const void* table, int width,
+                                       const void* queue, long long cap,
+                                       const void* count, const void* frontier, int W,
+                                       void* hits, long long block, long long lo,
+                                       long long n_pad, void* bnd_ids, void* bnd_words,
+                                       long long bnd, void* bcount, void* peak,
+                                       const void* ctrl, int max_levels, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (W < 1 || width < 1 || cap < 0 || bnd < 0 || block < 0 || n_pad < block ||
+      n_pad >= (1LL << 31) || (block + 1) * width >= (1LL << 31) || ctrl == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  owner_expand_kernel<<<1, kExpandThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(table), width, static_cast<const int*>(queue), cap,
+      static_cast<const int*>(count), static_cast<const uint32_t*>(frontier), W,
+      static_cast<uint32_t*>(hits), block, lo, n_pad, static_cast<int*>(bnd_ids),
+      static_cast<uint32_t*>(bnd_words), bnd, static_cast<int*>(bcount),
+      static_cast<int*>(peak), static_cast<const int*>(ctrl), max_levels);
+  return static_cast<int>(cudaGetLastError());
+}

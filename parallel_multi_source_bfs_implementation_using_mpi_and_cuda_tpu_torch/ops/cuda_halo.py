@@ -1,0 +1,207 @@
+"""The halo exchange of the vertex-sharded engines as hand-written CUDA
+kernels (``csrc/halo_exchange.cu``): H1 ``halo_pair_or``, H2
+``halo_push_or`` and H3 ``owner_push_expand``.
+
+Counterparts of three XLA chains of the JAX package, each an OR built
+from byte lanes and a scatter-max: parallel/sharded_bell.py
+``rebuild_planes`` and push_sharded.py's landing of the boundary pairs at
+their owner (H1), sharded_bell.py ``_push_own_hits`` (H2), and
+push_sharded.py ``_push_level`` (H3).  Beside each kernel is its plain
+torch version, the same function in those byte lanes; a wrapper takes
+the plain version for CPU tensors and launches the kernel for CUDA ones
+(a failed build or launch raises).
+
+Planes and words are int32 tensors read as uint32 (query 32w + b in bit b
+of word w), pair ids int32.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from ..runtime import kernels
+from .bfs import INT32_MAX
+from .bitbell import _check_device, level_go, pack_byte_planes, unpack_byte_planes
+
+
+def _or_rows(plane: torch.Tensor, rows: torch.Tensor, words: torch.Tensor) -> None:
+    """plane[rows[i]] |= words[i] for every i, duplicates allowed: the byte
+    lanes' sum, > 0, packed (the JAX chains' scatter-max on 0/1 bytes)."""
+    if not rows.numel():
+        return
+    acc = torch.zeros((plane.shape[0], plane.shape[1] * 32), dtype=torch.int32,
+                      device=plane.device)
+    acc.index_add_(0, rows, unpack_byte_planes(words).to(torch.int32))
+    plane |= pack_byte_planes((acc > 0).to(torch.uint8))
+
+
+def _check(name: str, t: torch.Tensor, dtype=torch.int32, dim=None) -> None:
+    if t.dtype != dtype or not t.is_contiguous() or (dim is not None and t.dim() != dim):
+        raise ValueError(f"{name} must be a contiguous {dtype} tensor"
+                         + ("" if dim is None else f" of rank {dim}"))
+
+
+def halo_pair_or_plain(ids, words, plane, lo: int = 0, ctrl=None, max_levels=INT32_MAX):
+    """H1's function in torch: plane[ids[i] - lo] |= words[i] for each pair
+    whose row falls in [0, rows) (the sentinel drops); gated on ``ctrl``
+    when given."""
+    if ctrl is not None and not level_go(ctrl, max_levels):
+        return
+    r = ids.to(torch.int64) - int(lo)
+    ok = (r >= 0) & (r < plane.shape[0])
+    _or_rows(plane, r[ok], words[ok])
+
+
+def halo_pair_or(ids: torch.Tensor, words: torch.Tensor, plane: torch.Tensor,
+                 lo: int = 0, ctrl=None, max_levels: int = INT32_MAX) -> None:
+    """Kernel H1 (``csrc/halo_exchange.cu``): land gathered (row, words)
+    pairs in ``plane`` (rows, W) by OR, rows offset by ``lo``; duplicate
+    rows are allowed and rows outside the plane drop.  Gated on the device
+    control ``ctrl`` when given (``level_go``)."""
+    rows, w = plane.shape
+    _check("ids", ids, dim=1)
+    _check("words", words, dim=2)
+    _check("plane", plane, dim=2)
+    if tuple(words.shape) != (ids.shape[0], w):
+        raise ValueError(f"words must be ({ids.shape[0]}, {w})")
+    extra = () if ctrl is None else (ctrl,)
+    dev = _check_device(ids, words, plane, *extra)
+    if dev.type == "cpu":
+        halo_pair_or_plain(ids, words, plane, lo, ctrl, max_levels)
+        return
+    kernels.launch(
+        "halo_pair_or", dev, ids.data_ptr(), words.data_ptr(), int(ids.shape[0]), w,
+        plane.data_ptr(), rows, int(lo), None if ctrl is None else ctrl.data_ptr(),
+        int(max_levels),
+    )
+
+
+def halo_push_or_plain(ids, words, csr, hits) -> None:
+    """H2's function in torch: each pair whose id is a source of the
+    in-block push CSR ``csr`` = (src_ids ascending, src_start, src_cnt,
+    vals) ORs its words into ``hits`` at every block-local neighbour."""
+    src_ids, src_start, src_cnt, vals = csr
+    m = src_ids.shape[0]
+    if m == 0 or ids.numel() == 0:
+        return
+    pos = torch.clamp(torch.searchsorted(src_ids, ids), max=m - 1)
+    match = src_ids[pos] == ids
+    deg = torch.where(match, src_cnt[pos], 0).to(torch.int64)
+    st = torch.where(match, src_start[pos], 0).to(torch.int64)
+    owner = torch.repeat_interleave(torch.arange(ids.shape[0], device=ids.device), deg)
+    within = torch.arange(owner.shape[0], device=ids.device) - torch.repeat_interleave(
+        torch.cumsum(deg, 0) - deg, deg)
+    nbr = vals[st[owner] + within].to(torch.int64)
+    ok = (nbr >= 0) & (nbr < hits.shape[0])
+    _or_rows(hits, nbr[ok], words[owner[ok]])
+
+
+def halo_push_or(ids: torch.Tensor, words: torch.Tensor, csr, hits: torch.Tensor) -> None:
+    """Kernel H2 (``csrc/halo_exchange.cu``): the in-block push of the
+    gathered (global id, words) pairs through one shard's push CSR
+    (``parallel/sharded_bell.py`` ``build_push_halo``) into its own
+    (block, W) hit rows, by OR; a pair whose id has no in-block edge adds
+    nothing."""
+    block, w = hits.shape
+    src_ids, src_start, src_cnt, vals = csr
+    _check("ids", ids, dim=1)
+    _check("words", words, dim=2)
+    _check("hits", hits, dim=2)
+    for name, t in (("src_ids", src_ids), ("src_start", src_start),
+                    ("src_cnt", src_cnt), ("vals", vals)):
+        _check(name, t, dim=1)
+    if tuple(words.shape) != (ids.shape[0], w):
+        raise ValueError(f"words must be ({ids.shape[0]}, {w})")
+    dev = _check_device(ids, words, hits, src_ids, src_start, src_cnt, vals)
+    if dev.type == "cpu":
+        halo_push_or_plain(ids, words, csr, hits)
+        return
+    kernels.launch(
+        "halo_push_or", dev, ids.data_ptr(), words.data_ptr(), int(ids.shape[0]), w,
+        src_ids.data_ptr(), src_start.data_ptr(), src_cnt.data_ptr(),
+        int(src_ids.shape[0]), vals.data_ptr(), hits.data_ptr(), block,
+    )
+
+
+def owner_push_expand_plain(table, queue, count, frontier, hits, lo: int, n_pad: int,
+                            bnd_ids, bnd_words, bcount, peak, ctrl,
+                            max_levels: int = INT32_MAX) -> None:
+    """H3's function in torch, in JAX's slot order: for the first
+    min(count, capacity) queued rows u and each column d of u's table row
+    (slot i * width + d), a neighbour inside the block ORs u's words into
+    its hit row, one outside it (and not the sentinel ``n_pad``) is a
+    boundary slot; the first ``bnd`` boundary slots become (dst, words)
+    pairs, the rest (n_pad, 0); ``bcount`` their number in full and
+    ``peak`` its running maximum.  Gated on ``ctrl``."""
+    if not level_go(ctrl, max_levels):
+        return
+    block, width = frontier.shape[0], table.shape[1]
+    listed = min(int(count[0]), queue.shape[0])
+    u = queue[:listed].to(torch.int64)
+    v = table[u].reshape(-1).to(torch.int64)
+    src = u.repeat_interleave(width)
+    local = v - int(lo)
+    inside = (v < n_pad) & (local >= 0) & (local < block)
+    _or_rows(hits, local[inside], frontier[src[inside]])
+    border = torch.nonzero((v < n_pad) & ~inside, as_tuple=True)[0]
+    total = int(border.shape[0])
+    kept = border[: bnd_ids.shape[0]]
+    bnd_ids.fill_(int(n_pad))
+    bnd_words.zero_()
+    bnd_ids[: kept.shape[0]] = v[kept].to(torch.int32)
+    bnd_words[: kept.shape[0]] = frontier[src[kept]]
+    bcount.fill_(total)
+    torch.maximum(peak, bcount, out=peak)
+
+
+def owner_push_expand(table: torch.Tensor, queue: torch.Tensor, count: torch.Tensor,
+                      frontier: torch.Tensor, hits: torch.Tensor, lo: int, n_pad: int,
+                      bnd_ids: torch.Tensor, bnd_words: torch.Tensor,
+                      bcount: torch.Tensor, peak: torch.Tensor, ctrl: torch.Tensor,
+                      max_levels: int = INT32_MAX) -> None:
+    """Kernel H3 (``csrc/halo_exchange.cu``): one owner-partitioned push
+    level of one shard — see :func:`owner_push_expand_plain` for the
+    function.  ``table`` (block + 1, width) int32 global ids (row block
+    all sentinel), ``queue`` (capacity,) and ``count`` (1,) the own
+    frontier's row queue (K11's row mode), ``frontier`` and ``hits``
+    (block, W), ``bnd_ids`` (bnd,), ``bnd_words`` (bnd, W), ``bcount``
+    and ``peak`` (1,) int32; gated on ``ctrl``."""
+    block, w = frontier.shape
+    for name, t, dim in (("table", table, 2), ("queue", queue, 1), ("count", count, 1),
+                         ("frontier", frontier, 2), ("hits", hits, 2),
+                         ("bnd_ids", bnd_ids, 1), ("bnd_words", bnd_words, 2),
+                         ("bcount", bcount, 1), ("peak", peak, 1), ("ctrl", ctrl, 1)):
+        _check(name, t, dim=dim)
+    if table.shape[0] != block + 1 or tuple(hits.shape) != (block, w):
+        raise ValueError(f"table must be ({block + 1}, width), hits ({block}, {w})")
+    if tuple(bnd_words.shape) != (bnd_ids.shape[0], w):
+        raise ValueError(f"bnd_words must be ({bnd_ids.shape[0]}, {w})")
+    dev = _check_device(table, queue, count, frontier, hits, bnd_ids, bnd_words,
+                        bcount, peak, ctrl)
+    if dev.type == "cpu":
+        owner_push_expand_plain(table, queue, count, frontier, hits, lo, n_pad, bnd_ids,
+                                bnd_words, bcount, peak, ctrl, max_levels)
+        return
+    kernels.launch(
+        "owner_push_expand", dev, table.data_ptr(), int(table.shape[1]), queue.data_ptr(),
+        int(queue.shape[0]), count.data_ptr(), frontier.data_ptr(), w, hits.data_ptr(),
+        block, int(lo), int(n_pad), bnd_ids.data_ptr(), bnd_words.data_ptr(),
+        int(bnd_ids.shape[0]), bcount.data_ptr(), peak.data_ptr(), ctrl.data_ptr(),
+        int(max_levels),
+    )
+
+
+def pair_words(frontier: torch.Tensor, ids: torch.Tensor, listed: torch.Tensor,
+               lo: int, sentinel: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The sparse halo's send buffers from a row queue: (global ids, words)
+    of the first ``listed`` queued rows (``ids`` block-local, ascending),
+    ``sentinel`` and zero words past them (JAX's ``compact_frontier_planes``
+    with the shard's offset applied).  Device ops only."""
+    slot = torch.arange(ids.shape[0], device=ids.device, dtype=torch.int32)
+    valid = slot < listed
+    safe = torch.where(valid, ids, 0).to(torch.int64)
+    gids = torch.where(valid, ids + int(lo), int(sentinel)).to(torch.int32)
+    words = torch.where(valid[:, None], frontier.index_select(0, safe), 0)
+    return gids.contiguous(), words.contiguous()

@@ -163,6 +163,57 @@ def _push_chunk_batch(adj, carry, capacity, chunk, max_levels, plain: bool = Fal
     return carry
 
 
+class GridCarry:
+    """The queue carries of a (W, J, S) query grid, row r on its own
+    table's device (the query-sharded push, ``parallel/push_dist.py``),
+    as one carry: ``running`` every row's flag stacked on row 0's device
+    (one read for the caller), ``outputs`` each field stacked to (W, J)
+    there."""
+
+    def __init__(self, carries):
+        self.carries = carries
+
+    def running(self, max_levels) -> torch.Tensor:
+        from ..parallel.collectives import to_device
+
+        dev = self.carries[0].f.device
+        return torch.stack([to_device(c.running(max_levels).view(1), dev)
+                            for c in self.carries]).any()
+
+    def outputs(self):
+        from ..parallel.collectives import to_device
+
+        dev = self.carries[0].f.device
+        return tuple(
+            torch.stack([to_device(x, dev) for x in fields])
+            for fields in zip(*(c.outputs() for c in self.carries))
+        )
+
+
+# The grid variants of the query-sharded push (the JAX package's
+# ``_push_init_grid`` / ``_push_chunk_grid``): ``adjs[r]`` is the table on
+# row r's device, and every row's lanes run the batch functions there,
+# with no collective inside the level loop.
+def _push_init_grid(adjs, grid, capacity, plain: bool = False) -> GridCarry:
+    from ..parallel.collectives import on_device
+
+    carries = []
+    for adj, rows in zip(adjs, grid):
+        with on_device(adj.device):
+            carries.append(_push_init_batch(adj, rows, capacity, plain))
+    return GridCarry(carries)
+
+
+def _push_chunk_grid(adjs, carry: GridCarry, capacity, chunk, max_levels,
+                     plain: bool = False) -> GridCarry:
+    from ..parallel.collectives import on_device
+
+    for adj, c in zip(adjs, carry.carries):
+        with on_device(adj.device):
+            _push_chunk_batch(adj, c, capacity, chunk, max_levels, plain)
+    return carry
+
+
 def default_push_chunk() -> int:
     """Levels a dispatch (``MSBFS_PUSH_CHUNK``, default 64; a malformed or
     non-positive value gives 64 or 1, as in the JAX package)."""

@@ -6,9 +6,10 @@ parallel/scheduler.py.  The reference assigns query k to rank
 ``k % world_size`` (main.cu:303-307); :func:`cyclic_grid` lays the (K, S)
 padded query array out as a (W, J, S) grid whose slot [r, j] holds global
 query ``r + j*W``, so row r holds exactly the reference's query set for
-rank r, in the reference's order.  JAX's ``merge_local_f`` (the all-reduce
-of per-shard F values) comes with multi-device runs; on one card
-:func:`shard_queries` only places the grid on the device.
+rank r, in the reference's order.  :func:`shard_queries` is the common
+prologue of the mesh engines (parallel/), and :func:`merge_local_f` their
+merge of per-shard results: the fixed-shape max all-reduce the JAX
+package uses in place of the reference's Gatherv of (q, F) pairs.
 """
 
 from __future__ import annotations
@@ -61,19 +62,46 @@ def cyclic_grid(
 
 
 def shard_queries(
-    queries: np.ndarray, w: int, query_chunk: Optional[int], device
-) -> Tuple[torch.Tensor, int, int, int]:
-    """Cyclic-grid a (K, S) query array and place it on ``device``.
+    mesh, queries: np.ndarray, query_chunk: Optional[int]
+) -> Tuple[np.ndarray, int, int, int]:
+    """Cyclic-grid a (K, S) query array over the mesh's 'q' axis.
 
-    Returns (the (W, J, S) grid on the device, k, k_pad, chunk); the
-    upload trips the ``device_put`` fault seam, as in the JAX package."""
+    Returns (the (W, J, S) host grid, k, k_pad, chunk): row r is q-shard
+    r's queries, which its engine uploads to its own device; the call
+    trips the ``device_put`` fault seam, as in the JAX package."""
     from ..utils.faults import trip
+    from .mesh import QUERY_AXIS
 
+    w = mesh.shape[QUERY_AXIS]
     k = queries.shape[0]
     chunk = query_chunk or max(1, -(-k // w))
     grid, _, k_pad = cyclic_grid(np.asarray(queries), w, min_j_multiple=chunk)
     trip("device_put")
-    return torch.as_tensor(grid, device=device), k, k_pad, chunk
+    return grid, k, k_pad, chunk
+
+
+def merge_local_f(parts: List[torch.Tensor], j: int, w: int, k: int, k_pad: int):
+    """Merge each q-shard's per-slot values into the (k_pad,) int64 result.
+
+    ``parts[r]`` holds q-shard r's values in its first ``j`` entries; slot
+    [r, jj] is global query ``r + jj*w``.  Each shard writes its slots and
+    -1 elsewhere — padding slots (gid >= k) stay -1, "never computed",
+    like the reference's -1-initialised all_F_values (main.cu:325) — and a
+    max over the shards (:func:`.collectives.pmax`) reconstructs the whole
+    vector (every real slot is >= 0 on exactly one shard).  Returns one
+    result per q-shard, on its device."""
+    from .collectives import pmax
+
+    full = []
+    for r, part in enumerate(parts):
+        dev = part.device
+        gids = r + torch.arange(j, device=dev, dtype=torch.int64) * w
+        vals = part[:j].to(torch.int64)
+        vals = torch.where(gids < k, vals, torch.full_like(vals, -1))
+        merged = torch.full((k_pad,), -1, dtype=torch.int64, device=dev)
+        merged[gids] = vals
+        full.append(merged)
+    return pmax(full)
 
 
 def pack_padded_requests(

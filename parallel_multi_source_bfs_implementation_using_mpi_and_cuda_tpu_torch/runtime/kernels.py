@@ -111,6 +111,21 @@ KERNELS = {
          _I, _P, _P, _P, _P, _P, _I],
         "queue_push",
     ),
+    "halo_pair_or": (
+        "msbfs_halo_pair_or",
+        [_P, _P, _L, _I, _P, _L, _L, _P, _I],
+        "halo_exchange",
+    ),
+    "halo_push_or": (
+        "msbfs_halo_push_or",
+        [_P, _P, _L, _I, _P, _P, _P, _L, _P, _P, _L],
+        "halo_exchange",
+    ),
+    "owner_push_expand": (
+        "msbfs_owner_push_expand",
+        [_P, _I, _P, _L, _P, _P, _I, _P, _L, _L, _L, _P, _P, _L, _P, _P, _P, _I],
+        "halo_exchange",
+    ),
     "weighted_relax": (
         "msbfs_weighted_relax",
         [_P, _P, _P, _I, _P, _P, _P, _L, _L, _I, _I],

@@ -1,16 +1,17 @@
 """Resilient execution: typed failure taxonomy, watchdog, bounded retry,
 capacity degradation.
 
-The port of the JAX package's runtime/supervisor.py for one device: the
-typed errors and their CLI exit codes (docs/RESILIENCE.md),
-:func:`classify`, :class:`RetryPolicy`, :func:`call_with_watchdog`, and
+The port of the JAX package's runtime/supervisor.py: the typed errors and
+their CLI exit codes (docs/RESILIENCE.md), :func:`classify`,
+:class:`RetryPolicy`, :func:`call_with_watchdog`, and
 :class:`ChunkSupervisor`, which wraps an engine's calls with the watchdog,
 the ``dispatch`` fault seam (utils/faults.py), bounded retry of transient
 errors, the capacity ladder (on a ``CapacityError`` the next,
-smaller-footprint engine takes over and the call runs again), the
+smaller-footprint engine takes over and the call runs again), survivor
+resharding (on a ``DeviceError`` naming failed ranks, a mesh engine is
+rebuilt on the surviving devices by its ``without_ranks``), the
 ``bitflip:dist`` result seam, and the output-audit escalation as a
-mechanism.  The survivor resharding of a multi-device mesh comes with
-the mesh (ROADMAP.md queue 1 item 7): a device error surfaces typed.
+mechanism.
 
 One difference from the JAX supervisor, on purpose: before a rung's
 factory runs, the failed engine is released (and the CUDA caching
@@ -215,8 +216,12 @@ class ChunkSupervisor(QueryEngineBase):
     -> [failing invariants]`` certifies a sampled share
     (``audit_sample``) of ``f_values`` results; a failed audit retries
     the same engine once, then borrows the ladder's rungs, then raises
-    :class:`CorruptionError`.  ``events`` records every recovery action
-    (retry, degrade, audit_fail, audit_degrade) for the failure report.
+    :class:`CorruptionError`.  A :class:`DeviceError` with
+    ``failed_ranks`` on an engine that has ``without_ranks`` rebuilds it
+    on the survivors and runs the call again, at most as many times as
+    the engine has query shards ``w``.  ``events`` records
+    every recovery action (retry, degrade, reshard, audit_fail,
+    audit_degrade) for the failure report.
     """
 
     def __init__(
@@ -230,6 +235,7 @@ class ChunkSupervisor(QueryEngineBase):
         audit_sample: float = 1.0,
     ):
         self.engine = engine
+        self._rebuilds = 0
         self.policy = policy or RetryPolicy()
         self.watchdog = watchdog
         self.ladder: List[Tuple[str, Callable[[], object]]] = list(ladder)
@@ -329,6 +335,28 @@ class ChunkSupervisor(QueryEngineBase):
         if torch.cuda.is_available() and torch.cuda.is_initialized():
             torch.cuda.empty_cache()
 
+    def _reshard(self, method, err) -> bool:
+        """Rebuild the engine on the surviving devices, within the rebuild
+        cap; False when the cap is spent."""
+        if self._rebuilds >= int(getattr(self.engine, "w", 1)):
+            return False
+        self._rebuilds += 1
+        survivors = self.engine.without_ranks(err.failed_ranks)
+        failed = sorted(err.failed_ranks)
+        shards = int(getattr(survivors, "w", 0))
+        self.events.append({
+            "action": "reshard",
+            "method": method,
+            "failed_ranks": failed,
+            "survivor_shards": shards,
+            "error": str(err),
+        })
+        instant("supervise.reshard", method=method, failed_ranks=failed)
+        record_flight("reshard", method=method, failed_ranks=failed,
+                      survivor_shards=shards)
+        self.engine = survivors
+        return True
+
     def _supervised(self, method, *args, **kwargs):
         with span(f"supervise.{method}"):
             return self._supervised_run(method, *args, **kwargs)
@@ -419,6 +447,14 @@ class ChunkSupervisor(QueryEngineBase):
                         # Stepped down after this block: its exception
                         # still holds the failed call's frames.
                         degrade = str(err)
+                    elif (
+                        isinstance(err, DeviceError)
+                        and err.failed_ranks
+                        and hasattr(self.engine, "without_ranks")
+                        and self._reshard(method, err)
+                    ):
+                        restore_engine = None  # the old mesh is gone
+                        continue
                     if degrade is None:
                         raise err from exc
                 label, factory = self.ladder.pop(0)

@@ -98,6 +98,10 @@ _ALL = (
     Knob("MSBFS_SHARD_REPLICAS", "2", "int", "copies per shard on the shard placement ring"),
     Knob("MSBFS_SHARD_FRAGMENT_TIMEOUT_S", "30", "float", "per-attempt wire deadline for one scatter fragment"),
     Knob("MSBFS_SHARD_HEDGE_MS", "0", "float", "race a shard fragment's second copy after this many ms; 0 disables hedging"),
+    # The -gn > 1 routes (parallel/).
+    Knob("MSBFS_VSHARD", None, "int", "with -gn > 1: vertex-shard the graph over a 'v' mesh axis of this size (the rest shard queries); unset = automatic when the graph's estimated footprint exceeds one device's memory"),
+    Knob("MSBFS_HALO_BUDGET", None, "int", "vertex-sharded forest: compacted-halo threshold in own-frontier rows per shard; unset or 0 exchanges whole planes every level"),
+    Knob("MSBFS_PUSH_HALO", None, "int", "vertex-sharded forest: in-block push edge budget inside the sparse halo (needs MSBFS_HALO_BUDGET; a lone value warns); unset or 0 disables"),
     # Routes and modes of the JAX CLI that the port refuses by name.
     Knob("MSBFS_CACHE_DIR", None, "path", "the JAX package's persistent XLA compile cache; the port builds its kernels into the package's build/ and refuses the knob (fails)"),
     Knob("MSBFS_MESH", None, "spec", "2D mesh partition (not yet ported: fails)"),

@@ -150,6 +150,33 @@ def reset_mxu_tiles() -> None:
         _mxu_flops = _mxu_tiles_skipped = _mxu_tiles_total = 0
 
 
+# Analytic inter-device collective payload (the JAX package's counter):
+# the bytes each dispatched level chunk moves over the mesh in the JAX
+# package's model of the wire, recorded by the engines where the JAX
+# engines record them (the vertex-sharded forest's dense halo).
+_collective_bytes = 0
+
+
+def record_collective_bytes(nbytes: int) -> None:
+    """Account ``nbytes`` of analytic collective payload (one call per
+    dispatched level chunk, whole-mesh totals)."""
+    global _collective_bytes
+    with _lock:
+        _collective_bytes += int(nbytes)
+
+
+def collective_bytes() -> int:
+    """Bytes recorded since the last :func:`reset_collective_bytes`."""
+    with _lock:
+        return _collective_bytes
+
+
+def reset_collective_bytes() -> None:
+    global _collective_bytes
+    with _lock:
+        _collective_bytes = 0
+
+
 def counter_totals() -> dict:
     """The engine counters in one dict (the ``metrics`` verb's gauges):
     dispatches, plane_pass_bytes, mxu_flops/mxu_tiles_skipped/

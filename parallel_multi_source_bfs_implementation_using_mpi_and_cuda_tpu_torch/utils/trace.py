@@ -6,8 +6,10 @@ reference-exact, everything here goes to stderr or to files.
   ``jax.profiler`` xplane directory there; the port writes torch's
   Chrome-trace JSON, for Perfetto or chrome://tracing);
 * :func:`format_query_stats` (``MSBFS_STATS=1``: levels run, vertices
-  reached and F per query) and :func:`format_level_stats` (``=2``: the
-  stepped per-level trace), the JAX package's formatters.
+  reached and F per query), :func:`format_level_stats` (``=2``: the
+  stepped per-level trace) and :func:`format_halo_stats` (``=2`` on the
+  vertex-sharded engines: each level's halo exchange), the JAX package's
+  formatters.
 """
 
 from __future__ import annotations
@@ -102,6 +104,24 @@ def format_level_stats(level_counts, level_seconds) -> str:
         total = int(sum(int(c) for c in counts))
         active = int(sum(1 for c in counts if int(c) > 0))
         lines.append(f"{d:5d}  {total:10d}  {active:14d}  {float(sec):.6f}")
+    return "\n".join(lines) + "\n"
+
+
+def format_halo_stats(per_level) -> str:
+    """Per-level halo-exchange table of the vertex-sharded engines
+    (``MSBFS_STATS=2``, ``engine.last_halo_trace``): the max-over-shards
+    own-frontier rows, the route the exchange took (``sparse`` =
+    compacted (id, words) pairs, ``dense`` = whole planes, ``mixed`` =
+    the q-shards differed) and the bytes it moved.  Level numbers start
+    at 1: the exchange serves the expansion that discovers that distance."""
+    lines = ["level  own_rows  route   halo_bytes"]
+    total = 0
+    for d, row in enumerate(per_level):
+        routes = set(row["routes"])
+        route = routes.pop() if len(routes) == 1 else "mixed"
+        total += int(row["bytes"])
+        lines.append(f"{d + 1:5d}  {row['own_rows']:8d}  {route:6s}  {row['bytes']}")
+    lines.append(f"total halo bytes: {total}")
     return "\n".join(lines) + "\n"
 
 

@@ -2087,3 +2087,124 @@ def test_verify_on_card(cuda, tmp_path, capsys):
         want = capsys.readouterr().out
         assert cli.main(argv) == 0
         assert capsys.readouterr().out == want
+
+
+# ---- the mesh engines' halo kernels (H1-H3, csrc/halo_exchange.cu)
+
+
+def _pairs(rng, pairs, w, rows, unique):
+    ids = (rng.permutation(rows + 7)[:pairs] if unique
+           else rng.integers(-3, rows + 7, pairs)).astype(np.int32)
+    words = _planes(rng, pairs, w)
+    words[torch.from_numpy(rng.random((pairs, w)) < 0.3)] = 0
+    return torch.from_numpy(ids), words
+
+
+@pytest.mark.parametrize("unique", [True, False])
+@pytest.mark.parametrize("w", [1, 3, 8])
+def test_halo_pair_or_matches_plain(cuda, w, unique):
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
+        cuda_halo,
+    )
+
+    rng = np.random.default_rng(w)
+    rows, lo = 3000, 500
+    ids, words = _pairs(rng, 2500, w, rows + lo, unique)
+    plane = _planes(rng, rows, w)
+    want = plane.clone()
+    cuda_halo.halo_pair_or_plain(ids, words, want, lo)
+    got = plane.to(cuda)
+    before = timing.launch_counts().get("halo_pair_or", 0)
+    cuda_halo.halo_pair_or(ids.to(cuda), words.to(cuda), got, lo)
+    assert timing.launch_counts()["halo_pair_or"] == before + 1
+    assert torch.equal(got.cpu(), want)
+    # Gated off on the device: nothing lands.
+    ctrl = torch.tensor([0, 5, 0, 0], dtype=torch.int32, device=cuda)
+    cuda_halo.halo_pair_or(ids.to(cuda), words.to(cuda), got, lo, ctrl)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("w", [1, 2, 5])
+def test_halo_push_or_matches_plain(cuda, w):
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.parallel import (
+        sharded_bell,
+    )
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
+        cuda_halo,
+    )
+
+    n, edges = generators.rmat_edges(12, edge_factor=16, seed=w)
+    g = CSRGraph.from_edges(n, edges)
+    p = 4
+    L = -(-n // p)
+    rng = np.random.default_rng(w)
+    ids = torch.from_numpy(np.where(rng.random(3000) < 0.8, rng.integers(0, n, 3000),
+                                    p * L).astype(np.int32))
+    words = _planes(rng, 3000, w)
+    for csr in sharded_bell.build_push_halo(g, p, L):
+        csr_t = tuple(torch.from_numpy(a) for a in csr)
+        want = torch.zeros((L, w), dtype=torch.int32)
+        cuda_halo.halo_push_or_plain(ids, words, csr_t, want)
+        got = torch.zeros((L, w), dtype=torch.int32, device=cuda)
+        cuda_halo.halo_push_or(ids.to(cuda), words.to(cuda),
+                               tuple(t.to(cuda) for t in csr_t), got)
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("cap,bnd", [(4096, 8192), (37, 5), (5000, 2000)])
+def test_owner_push_expand_matches_plain(cuda, cap, bnd):
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
+        cuda_halo,
+    )
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.parallel import (
+        push_sharded,
+    )
+
+    n, edges = generators.road_edges(90, 90, seed=2)
+    p, w = 3, 2
+    stacked, L, n_pad, width = push_sharded.build_sharded_adjacency(
+        CSRGraph.from_edges(n, edges), p)
+    rng = np.random.default_rng(cap)
+    for b in range(p):
+        frontier = _planes(rng, L, w)
+        frontier[torch.from_numpy(rng.random(L) < 0.6)] = 0
+        nz = torch.nonzero(frontier.ne(0).any(dim=1)).flatten().to(torch.int32)
+        queue = torch.full((min(cap, L),), L, dtype=torch.int32)
+        queue[: min(nz.numel(), queue.numel())] = nz[: queue.numel()]
+        count = torch.tensor([nz.numel()], dtype=torch.int32)
+        hits = _planes(rng, L, w) & 0x0F0F0F0F
+        outs = {}
+        for where in ("plain", "card"):
+            dev = torch.device("cpu") if where == "plain" else cuda
+            args = [torch.from_numpy(stacked[b]), queue, count, frontier, hits.clone(),
+                    b * L, n_pad, torch.zeros(bnd, dtype=torch.int32),
+                    torch.zeros((bnd, w), dtype=torch.int32),
+                    torch.zeros(1, dtype=torch.int32), torch.tensor([3], dtype=torch.int32),
+                    torch.tensor([1, 2, 0, 0], dtype=torch.int32)]
+            args = [a.to(dev) if isinstance(a, torch.Tensor) else a for a in args]
+            fn = (cuda_halo.owner_push_expand_plain if where == "plain"
+                  else cuda_halo.owner_push_expand)
+            fn(*args)
+            outs[where] = [args[i].cpu() for i in (4, 7, 8, 9, 10)]
+        for a, b_ in zip(outs["card"], outs["plain"]):
+            assert torch.equal(a, b_)
+
+
+@pytest.mark.parametrize("env", [{}, {"MSBFS_VSHARD": "2", "MSBFS_HALO_BUDGET": "64",
+                                      "MSBFS_PUSH_HALO": "4096"},
+                                 {"MSBFS_VSHARD": "4"}, {"MSBFS_BACKEND": "push"},
+                                 {"MSBFS_BACKEND": "csr"}])
+def test_mesh_cli_on_card(cuda, tmp_path, capsys, monkeypatch, env):
+    """-gn 4 over a logical mesh on the card reports what the same mesh
+    of CPU entries reports (the plain versions)."""
+    n, edges = generators.road_edges(60, 60, seed=5)
+    gpath, qpath = str(tmp_path / "g.bin"), str(tmp_path / "q.bin")
+    io.save_graph_bin(gpath, n, edges)
+    io.save_query_bin(qpath, generators.random_queries(n, 20, max_group=5, seed=6))
+    argv = ["prog", "-g", gpath, "-q", qpath, "-gn", "4"]
+    for key, value in env.items():
+        monkeypatch.setenv(key, value)
+    assert cli.main(argv, device="cpu", mesh_devices=["cpu"] * 4) == 0
+    want = capsys.readouterr().out.splitlines()[:5]
+    assert cli.main(argv, mesh_devices=[cuda] * 4) == 0
+    assert capsys.readouterr().out.splitlines()[:5] == want

@@ -179,6 +179,7 @@ def test_scheduler_helpers_match_jax(k, w, failed):
         scheduler as jsched,
     )
     from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.parallel import (
+        mesh,
         scheduler,
     )
 
@@ -187,8 +188,9 @@ def test_scheduler_helpers_match_jax(k, w, failed):
     q = np.arange(k * 3, dtype=np.int32).reshape(k, 3)
     for mine, theirs in zip(scheduler.cyclic_grid(q, w, 2), jsched.cyclic_grid(q, w, 2)):
         assert np.array_equal(mine, theirs)
-    grid, kk, k_pad, chunk = scheduler.shard_queries(q, w, None, torch.device("cpu"))
-    assert np.array_equal(grid.numpy(), jsched.cyclic_grid(q, w, chunk)[0])
+    cpu_mesh = mesh.make_mesh(w, devices=[torch.device("cpu")] * w)
+    grid, kk, k_pad, chunk = scheduler.shard_queries(cpu_mesh, q, None)
+    assert np.array_equal(grid, jsched.cyclic_grid(q, w, chunk)[0])
     assert (kk, k_pad) == (k, w * grid.shape[1])
     blocks = [q[: min(k, 2), :2], q[:1]]
     rows = sum(b.shape[0] for b in blocks)
