@@ -2,19 +2,20 @@
 """On-card smoke of the PyTorch/CUDA port — the quickest proof that it
 builds and runs on the GPU, and the source of its kernel timings.
 
-    python3 chip_smoke.py [--seed 0] [--detail-dir build/chip_smoke] [--phases all|14|15]
+    python3 chip_smoke.py [--seed 0] [--detail-dir build/chip_smoke] [--phases all|14|15|16]
 
 With no ``--phases`` (or ``all``) every phase runs, as the proof runs it;
 ``--phases 14`` runs the build (phase 1) and the tooling phase alone, and
-``--phases 15`` the build and the mesh phase alone, each on data of its
-own, and prints no kernel line.
+``--phases 15`` the build and the mesh phase alone, ``--phases 16`` the
+build and the 2D mesh phase alone, each on data of its own, and prints
+no kernel line.
 
 Needs one CUDA card (NVIDIA H100 class, sm_90a), nvcc, a host C++
 compiler, and scipy; imports nothing of JAX.  Phases (any failure exits
 non-zero; nothing is caught):
 
 1. print the card (nvidia-smi name, power limit); build the CUDA kernels
-   from csrc/ (twelve sources, eighteen entry points) in parallel and the
+   from csrc/ (fourteen sources, twenty-one entry points) in parallel and the
    native host runtime
    (runtime/loader.cpp), and time both builds; print the host's CPUs and
    the native runtime's thread count;
@@ -322,11 +323,28 @@ non-zero; nothing is caught):
    recorded inputs and timed beside their bounds; distinct cards only where the machine has more
    than one (otherwise said so). ``--phases 15`` runs it alone on data
    of its own (the same seeds);
+16. the 2D adjacency mesh (parallel/partition2d.py), after phase 15, each
+   a counted path of ``MSBFS_MESH=2x2`` at ``-gn 4`` over the same logical
+   mesh, F equal to the single-device route's on the card and winner and
+   checked groups equal to scipy's: "mesh2d rmat-20" (defaults: halving
+   tree, sparse wire), "mesh2d streamed rmat-20" (the tiles streamed
+   through K1s), "mesh2d reshard rmat-20" (pipelined, a ``chip:rank1:1``
+   loss rebuilt on the 1x2 survivor row), "mesh2d ring road-1024" (its
+   sparse levels in the wire trace of an engine run of its own),
+   "mesh2d async road-1024" (``MSBFS_ASYNC_LEVELS=4``: M4 and M1's
+   commit, fewer collective rounds than levels), "mesh2d byte rmat-16"
+   (phase 5a's K = 1 on byte planes through flag_pull, one-shot tree)
+   and "mesh2d mxu rmat-14" (phase 4's K = 64, tile_hits on the matmul
+   levels); M1 ``chunk_merge``, M2 ``wire_encode`` and M4
+   ``forest_max`` recorded call by call in the ring and async engine
+   runs, held bit for bit against their plain versions and timed beside
+   their bounds. ``--phases 16`` runs it alone on data of its own (the
+   same seeds);
 then the ``{"kernels": [...]}`` line and the final ``{"ok": true, ...}``.
 Phases 5b, 9, 11 and 13 print their steps' seconds ("... steps s:"
 lines).
 
-Each CLI run of phases 3-5b, 9a, 10, 11 and 15, and each of phase 12's and
+Each CLI run of phases 3-5b, 9a, 10, 11, 15 and 16, and each of phase 12's and
 phase 13's two counted serving paths, is one path: the kernel launch counters are
 zeroed just before it and read just after; each path must have launched
 its route's kernels (batch_start at its route's stride), and every
@@ -406,12 +424,24 @@ PATH_KERNELS = {
     "reshard rmat-20": ("batch_start", "forest_or", "push_or", "level_apply"),
     "vshard4 road-1024": ("batch_start", "queue_compact", "owner_push_expand", "halo_pair_or"),
     "mesh push road-1024": ("queue_expand", "queue_compact"),
+    "mesh2d rmat-20": ("batch_start", "forest_or", "wire_encode", "chunk_merge", "level_apply"),
+    "mesh2d ring road-1024": ("batch_start", "forest_or", "wire_encode", "halo_pair_or",
+                              "chunk_merge", "level_apply"),
+    "mesh2d async road-1024": ("batch_start", "forest_max", "forest_gather", "wire_encode",
+                               "chunk_merge"),
+    "mesh2d byte rmat-16": ("batch_start", "flag_pull", "wire_encode", "chunk_merge",
+                            "level_apply"),
+    "mesh2d mxu rmat-14": ("batch_start", "tile_hits", "chunk_merge", "level_apply"),
+    "mesh2d streamed rmat-20": ("batch_start", "forest_map", "forest_segment", "forest_gather",
+                                "chunk_merge", "level_apply"),
+    "mesh2d reshard rmat-20": ("batch_start", "forest_or", "wire_encode", "chunk_merge",
+                               "level_apply"),
 }
 # The paths whose planes are bytes: their batch starts at a stride of 8
 # lanes, the others' at 1 (the ELL route packs no planes), and they pull
 # with flag_pull, never with forest_or, and push (the low-K paths) inside
 # flag_pull's first launch, never with push_or.
-BYTE_PATHS = ("lowk rmat-16", "bell rmat-20", "lowk rmat-20")
+BYTE_PATHS = ("lowk rmat-16", "bell rmat-20", "lowk rmat-20", "mesh2d byte rmat-16")
 # The paths whose batch start lists the sources for a direction switch.
 SWITCHED_PATHS = ("mxu rmat-14", "mxu road-512", "lowk rmat-16", "bitbell rmat-20",
                   "lowk rmat-20", "tooling rmat-16", "tooling rmat-20", "mesh rmat-20",
@@ -422,6 +452,8 @@ SCIPY_GROUPS = 8
 LOWK_GROUPS = 4
 # Each path's launches per kernel variant, as _run_path read them.
 VARIANTS = {}
+# The mxu paths' files, F vectors (equal to scipy's) and spans, for phase 16.
+MXU_RUNS = {}
 # The card (nvidia-smi name, power limit) and the host (CPUs, the native
 # runtime's threads on a large pass), printed beside every host time.
 CARD = None
@@ -2052,7 +2084,7 @@ def _lowk16_path(ctx, seed):
     rows = _byte_levels(torch, bg, padded, "lowk rmat-16 K=1", _csr_pairs(torch, bg))
     _summarise_levels(rows, "lowk rmat-16 K=1")
     _lowk_split(torch, fast, bg, padded, len(rows), "lowk rmat-16 K=1")
-    return dict(gpath=gpath, source=source, want=want)
+    return dict(gpath=gpath, qpath=qpath, source=source, want=want, single_s=comp_s)
 
 
 def _rmat20_paths(ctx, n, edges, g, bg, eg, k, seed):
@@ -2132,7 +2164,7 @@ def _rmat20_paths(ctx, n, edges, g, bg, eg, k, seed):
     groups = sorted({winner, *range(SCIPY_GROUPS)})
     # (levels, reached, F) of each checked group, one BFS each: phases 9e
     # and 10 hold their stats against the same rows.
-    scipy_stats = {q: _scipy_stats(cg, np, a, queries[q]) for q in groups}
+    scipy_stats = dict(zip(groups, _scipy_map(_scipy_stats, a, [queries[q] for q in groups])))
     want = {q: st[2] for q, st in scipy_stats.items()}
     for q, wf in want.items():
         assert int(fv[q]) == wf, (q, int(fv[q]), wf)
@@ -2255,6 +2287,37 @@ def _supervisors():
         yield made
     finally:
         supervisor.ChunkSupervisor.__init__ = init
+
+
+# The matrix forked scipy workers read (:func:`_scipy_map`), set only while
+# a pool is open.
+_POOL_MATRIX = None
+
+
+def _pool_call(job):
+    import numpy as np
+    import scipy.sparse.csgraph as cg
+
+    fn, sources = job
+    return fn(cg, np, _POOL_MATRIX, sources)
+
+
+def _scipy_map(fn, a, groups):
+    """``fn(cg, np, a, sources)`` for each group's sources, one group a
+    forked worker process at a time on the host's CPUs (scipy's BFS and
+    Dijkstra hold one core each).  The workers run scipy only, never the
+    card, and the pool is closed before this returns."""
+    global _POOL_MATRIX
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor
+
+    _POOL_MATRIX = a
+    try:
+        with ProcessPoolExecutor(max(1, min(len(groups), os.cpu_count() or 1)),
+                                 mp_context=mp.get_context("fork")) as pool:
+            return list(pool.map(_pool_call, [(fn, g) for g in groups]))
+    finally:
+        _POOL_MATRIX = None
 
 
 def _scipy_stats(cg, np, a, sources):
@@ -2678,28 +2741,36 @@ def _streamed_phase(ctx, n, g, bg, info, seed):
     faults.activate(None)
 
     steps("9b ladder")
-    # -- 9c. a real CUDA out-of-memory error (a capped child process).
-    child = subprocess.run(
+    # -- 9c. a real CUDA out-of-memory error (a capped child process), its
+    # child beside 9d's crashing one (the cap is the child's own fraction
+    # of the card, its peaks its own: the other process changes neither).
+    child = subprocess.Popen(
         [sys.executable, "-c", _OOM_CHILD, json.dumps(argv)],
-        capture_output=True, text=True, timeout=600, cwd=_ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=_ROOT,
         env={**os.environ, "PYTHONPATH": _ROOT},
     )
-    print(child.stderr[-4000:], end="", file=sys.stderr)
-    result = json.loads(child.stdout.strip().splitlines()[-1])
+    try:
+        # -- 9d. checkpoint: a crash on the third dispatch, then the rerun.
+        journal = os.path.join(tmp, "rmat20.ckpt")
+        env = {**os.environ, "PYTHONPATH": _ROOT, "MSBFS_CHECKPOINT": journal,
+               "MSBFS_CHECKPOINT_CHUNK": str(CHECKPOINT_CHUNK)}
+        cmd = [sys.executable, "-m", PKG, *argv[1:]]
+        crash = subprocess.run(cmd, capture_output=True, text=True, timeout=600, cwd=_ROOT,
+                               env={**env, "MSBFS_FAULTS": "crash:dispatch:3"})
+        out, err = child.communicate(timeout=600)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    print(err[-4000:], end="", file=sys.stderr)
+    result = json.loads(out.strip().splitlines()[-1])
     print("real oom rmat-20: " + json.dumps(dict(result, card=CARD)))
     assert child.returncode == 0 and result.get("window"), result
     assert (result["winner"] - 1, result["min_f"]) == want, (result, want)
     assert [e["action"] for e in result["events"]] == ["degrade"], result
     assert "CUDA out of memory" in result["events"][0]["error"], result
 
-    steps("9c real oom child")
-    # -- 9d. checkpoint: a crash on the third dispatch, then the rerun.
-    journal = os.path.join(tmp, "rmat20.ckpt")
-    env = {**os.environ, "PYTHONPATH": _ROOT, "MSBFS_CHECKPOINT": journal,
-           "MSBFS_CHECKPOINT_CHUNK": str(CHECKPOINT_CHUNK)}
-    cmd = [sys.executable, "-m", PKG, *argv[1:]]
-    crash = subprocess.run(cmd, capture_output=True, text=True, timeout=600, cwd=_ROOT,
-                           env={**env, "MSBFS_FAULTS": "crash:dispatch:3"})
+    steps("9c real oom child beside 9d's crash")
     kept = open(journal).read().splitlines()
     assert crash.returncode == 137 and crash.stdout == "", (crash.returncode, crash.stderr[-2000:])
     assert len(kept) == 1 + CHECKPOINT_CHUNK, len(kept)
@@ -2713,7 +2784,7 @@ def _streamed_phase(ctx, n, g, bg, info, seed):
         rerun_rc=rerun.returncode, winner=resumed[0] + 1, min_f=resumed[1],
         rerun_report=lines)))
 
-    steps("9d checkpoint")
+    steps("9d checkpoint rerun")
     # -- 9e. MSBFS_STATS=2 on the bitbell route against scipy.
     err = io.StringIO()
     with _env(MSBFS_STATS="2"), contextlib.redirect_stderr(err):
@@ -3585,6 +3656,8 @@ def _mxu_path(ctx, name, n, edges, g, k, seed):
         matmul_levels=trace.count("matmul"),
     )))
     print(f"{name} directions: {_runs(trace)}")
+    MXU_RUNS[name] = dict(gpath=gpath, qpath=qpath, queries=queries, fv=f_fast,
+                          single_s=comp_s)
     _real_mxu_level(torch, mg, fast, padded, name)
     if set(trace) == {"push", "matmul"}:
         _mxu_hybrid(torch, mg, fast, padded, name)
@@ -3972,8 +4045,7 @@ def _weighted_phase(ctx, n20, e20, queries20, n5, e5, seed):
     a = _weighted_matrix(sp, np, n20, e20, costs20)
     t0 = time.perf_counter()
     groups = sorted({min_k, *range(WEIGHTED_GROUPS)})
-    for q in groups:
-        want = _dijkstra(cg, np, a, padded[q])
+    for q, want in zip(groups, _scipy_map(_dijkstra, a, [padded[q] for q in groups])):
         assert np.array_equal(dist[q].astype(np.int64), want), q
     scipy_s = time.perf_counter() - t0
     del dist
@@ -4017,7 +4089,7 @@ def _weighted_phase(ctx, n20, e20, queries20, n5, e5, seed):
     padded5 = tio.pad_queries(q5)
     a5 = _weighted_matrix(sp, np, n5, e5, costs5)
     want5 = np.array([int(np.where(d >= 0, d, 0).sum())
-                      for d in (_dijkstra(cg, np, a5, r) for r in padded5)])
+                      for d in _scipy_map(_dijkstra, a5, list(padded5))])
     argv5 = ["chip_smoke", "-g", gpath5, "-q", qpath5, "-gn", "1"]
     results = {}
     for flavor in ("bitbell", "stencil", "mesh2d"):
@@ -4456,9 +4528,10 @@ FLEET_DEADLINE_S = 30.0
 # FLEET_CHAOS_SLACK times as slow from its replicas' spawn to its front
 # end's ready as the first one (the first of two fleets on one H100 at
 # 700 W booted in 29.7 s, the second in 24.8; a heartbeat takes at least
-# its period, so the kill only comes later than planned).
-FLEET_CHAOS_LEAD_S = 3.0
-FLEET_CHAOS_SLACK = 1.15
+# its period, so the kill only comes later than planned).  At 1.15 and
+# 3 s a second fleet once lost its victim before its front end was up.
+FLEET_CHAOS_LEAD_S = 4.0
+FLEET_CHAOS_SLACK = 1.3
 # Phase 13's target, against which its time is printed.
 FLEET_PHASE_TARGET_S = 90.0
 # How long the replicas of a stopped fleet may take to exit after the
@@ -4548,7 +4621,7 @@ def _fleet_process(argv, base, listen, log_path, env):
         except (ServerError, OSError, ValueError):
             return None
 
-    ready = {}
+    ready, starts = {}, {}
     deadline = time.perf_counter() + 300.0
     while True:
         assert proc.poll() is None, (
@@ -4560,11 +4633,11 @@ def _fleet_process(argv, base, listen, log_path, env):
             if name not in ready:
                 h = health(f"unix:{base}/{name}.sock")
                 if h and h.get("ready"):
-                    ready[name] = (int(h["pid"]), time.time() - _started_at(int(h["pid"])))
+                    starts[name] = _started_at(int(h["pid"]))
+                    ready[name] = (int(h["pid"]), time.time() - starts[name])
         h = health(listen)
         if h and h.get("ready") and len(ready) == 3:
-            first = min(_started_at(pid) for pid, _ in ready.values())
-            return proc, time.perf_counter() - t0, ready, time.time() - first
+            return proc, time.perf_counter() - t0, ready, time.time() - min(starts.values())
         time.sleep(0.05)
 
 
@@ -5124,7 +5197,7 @@ def _ingest(ctx, fmt, text_path, write_s, label, seed, queries, max_group, scipy
     name = f"tooling {label}"
     if scipy_f is None:
         a = _scipy_matrix(sp, np, CSRGraph.from_edges(g.n, native[1]))
-        scipy_f = np.array([_scipy_f(cg, np, a, q) for q in tio.load_query_bin(qpath)])
+        scipy_f = np.array(_scipy_map(_scipy_f, a, tio.load_query_bin(qpath)))
     return dict(gpath=gpath, qpath=qpath, argv=argv, name=name, scipy_f=scipy_f, row=dict(
         file_bytes=os.path.getsize(text_path), write_s=write_s, gen_cli_convert_s=convert_s,
         native_parse_s=native_s, python_parse_s=python_s, python_over_native=python_s / native_s,
@@ -5271,15 +5344,16 @@ def _halo_table(text):
 @contextlib.contextmanager
 def _record(module, name, pick):
     """Every call of ``module.name`` still runs; ``pick(args, kwargs)``
-    returns (weight, snapshot) of its inputs before the call, and the
-    snapshot of the heaviest call is kept in the yielded dict."""
+    returns (weight, snapshot) of its inputs before the call (the snapshot
+    may be a function that makes it, called only for a call that is kept),
+    and the snapshot of the heaviest call is kept in the yielded dict."""
     real = getattr(module, name)
     best = {}
 
     def wrapped(*args, **kwargs):
         weight, snap = pick(args, kwargs)
         if snap is not None and weight > best.get("weight", -1):
-            best.update(weight=weight, snap=snap)
+            best.update(weight=weight, snap=snap() if callable(snap) else snap)
         return real(*args, **kwargs)
 
     setattr(module, name, wrapped)
@@ -5370,8 +5444,8 @@ def _mesh_phase(ctx, rmat, road, seed):
     rows = {}
     argv20 = ["chip_smoke", "-g", rmat["gpath"], "-q", rmat["qpath"], "-gn", str(MESH_SHARDS)]
     argv1 = ["chip_smoke", "-g", road["gpath"], "-q", road["qpath"], "-gn", str(MESH_SHARDS)]
-    single20 = _run_cli(cli, argv20[:-1] + ["1"])[3]
-    single1 = _run_cli(cli, argv1[:-1] + ["1"])[3]
+    single20 = rmat["single_s"] = _run_cli(cli, argv20[:-1] + ["1"])[3]
+    single1 = road["single_s"] = _run_cli(cli, argv1[:-1] + ["1"])[3]
     checks20 = (rmat["fv"], rmat["want"])
     checks1 = (road["fv"], road["want"])
     g20 = tio.load_graph_bin(rmat["gpath"])
@@ -5553,6 +5627,261 @@ def _mesh_phase(ctx, rmat, road, seed):
 
 
 
+# ---- phase 16: the 2D adjacency mesh (MSBFS_MESH=2x2, -gn 4) on a logical
+# mesh over the card
+
+
+def _small_data(ctx, name, n, edges, queries, groups=None):
+    """A graph's files, its F vector from the single-device CLI on the
+    card (MSBFS_STATS=1) and scipy's F of the winner and ``groups``."""
+    torch, np, sp, cg, cli, tio, timing, generators, launches, tmp, dev = ctx
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.models.csr import (
+        CSRGraph,
+    )
+
+    gpath, qpath = os.path.join(tmp, f"{name}-m2.bin"), os.path.join(tmp, f"{name}-m2-q.bin")
+    tio.save_graph_bin(gpath, n, edges)
+    tio.save_query_bin(qpath, queries)
+    err = io.StringIO()
+    with _env(MSBFS_STATS="1"), contextlib.redirect_stderr(err):
+        _run_cli(cli, ["chip_smoke", "-g", gpath, "-q", qpath, "-gn", "1"])
+    fv = _stats_table(np, err.getvalue())[2]
+    a = _scipy_matrix(sp, np, CSRGraph.from_edges(n, edges))
+    want = {q: _scipy_f(cg, np, a, np.asarray(queries[q]))
+            for q in sorted({int(np.argmin(fv)), *(groups or range(MESH_SCIPY_GROUPS))})
+            if q < len(queries)}
+    return dict(gpath=gpath, qpath=qpath, queries=queries, fv=fv, want=want)
+
+
+def _mesh2d_path(ctx, name, data, env, single):
+    """One MSBFS_MESH=2x2 -gn 4 CLI run as a counted path (:func:`_mesh_path`)
+    with its collective ledger and its mesh route line."""
+    torch, np, cli, timing, launches, dev = ctx
+    argv = ["chip_smoke", "-g", data["gpath"], "-q", data["qpath"], "-gn", str(MESH_SHARDS)]
+    timing.reset_collective_bytes()
+    timing.reset_collective_rounds()
+    row, text = _mesh_path(ctx, name, argv, {"MSBFS_MESH": "2x2", **env}, single,
+                           (data["fv"], data["want"]))
+    route = [ln for ln in text.splitlines() if ln.startswith("mesh route:")]
+    assert route, text
+    row.update(route=route[0], collective_bytes=timing.collective_bytes(),
+               collective_rounds=timing.collective_rounds(), env=env)
+    return row
+
+
+def _mesh2d_phase(ctx, rmat, road, rmat16, rmat14, seed):
+    """Phase 16: MSBFS_MESH=2x2 at -gn 4 over a logical mesh of MESH_SHARDS
+    entries on the card: RMAT-20 K = 64 (defaults; streamed; a chip loss
+    rebuilt on the 1x2 survivor row, pipelined), road-1024 K = 16 (ring
+    with the sparse wire; the async drive), RMAT-16 K = 1 on byte planes
+    (one-shot) and RMAT-14 K = 64 on the mxu kernel; then M1, M2 and M4
+    recorded call by call in engine runs of their own and held against
+    their plain versions."""
+    torch, np, sp, cg, cli, tio, timing, generators, launches, tmp, dev = ctx
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
+        cuda_mesh,
+    )
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.parallel import (
+        mesh, partition2d,
+    )
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.utils import (
+        telemetry,
+    )
+
+    pctx = (torch, np, cli, timing, launches, dev)
+    rows = {}
+    single = {}
+    for key, data in (("rmat20", rmat), ("road1024", road), ("rmat16", rmat16),
+                      ("rmat14", rmat14)):
+        # Phase 15's single-device spans of the same files, where it ran.
+        single[key] = data.get("single_s") or _run_cli(
+            cli, ["chip_smoke", "-g", data["gpath"], "-q", data["qpath"], "-gn", "1"])[3]
+    rows["mesh2d rmat-20"] = _mesh2d_path(pctx, "mesh2d rmat-20", rmat, {}, single["rmat20"])
+    rows["mesh2d streamed rmat-20"] = _mesh2d_path(
+        pctx, "mesh2d streamed rmat-20", rmat, dict(MSBFS_MESH_RESIDENCY="streamed"),
+        single["rmat20"])
+    telemetry.flight_recorder().clear()
+    rows["mesh2d reshard rmat-20"] = _mesh2d_path(
+        pctx, "mesh2d reshard rmat-20", rmat,
+        dict(MSBFS_FAULTS="chip:rank1:1", MSBFS_MERGE_TREE="pipelined"), single["rmat20"])
+    ring = [e for e in telemetry.flight_recorder().snapshot() if e["kind"] == "reshard"]
+    assert ring and ring[-1]["failed_ranks"] == [1] and ring[-1]["survivor_shards"] == 2, ring
+    rows["mesh2d reshard rmat-20"].update(failed_ranks=[1], survivor_shards=2,
+                                          survivor_mesh="1x2")
+    assert any(k.startswith("chunk_merge:or") for k in VARIANTS["mesh2d reshard rmat-20"])
+    rows["mesh2d ring road-1024"] = _mesh2d_path(
+        pctx, "mesh2d ring road-1024", road, dict(MSBFS_MERGE_TREE="ring"), single["road1024"])
+    rows["mesh2d async road-1024"] = _mesh2d_path(
+        pctx, "mesh2d async road-1024", road, dict(MSBFS_ASYNC_LEVELS="4"), single["road1024"])
+    assert "chunk_merge:max/commit" in VARIANTS["mesh2d async road-1024"]
+    rows["mesh2d byte rmat-16"] = _mesh2d_path(
+        pctx, "mesh2d byte rmat-16", rmat16,
+        dict(MSBFS_MESH_PLANE="byte", MSBFS_MERGE_TREE="oneshot"), single["rmat16"])
+    assert "wire_encode:bytes" in VARIANTS["mesh2d byte rmat-16"]
+    rows["mesh2d mxu rmat-14"] = _mesh2d_path(
+        pctx, "mesh2d mxu rmat-14", rmat14, dict(MSBFS_MESH_KERNEL="mxu"), single["rmat14"])
+    # Every merge tree runs once: halving is auto's choice on the 2x2 mesh.
+    for tree, path in (("halving", "mesh2d rmat-20"), ("ring", "mesh2d ring road-1024"),
+                       ("oneshot", "mesh2d byte rmat-16"),
+                       ("pipelined", "mesh2d reshard rmat-20")):
+        rows[path]["merge_tree"] = tree
+
+    # The ring path's engine again, a level a step: the wire trace's sparse
+    # levels (their decode is H1), and M1 and M2 recorded call by call.
+    g1 = tio.load_graph_bin(road["gpath"])
+    padded1 = tio.pad_queries(road["queries"])
+    mesh4 = mesh.make_mesh2d(2, 2, devices=[dev] * MESH_SHARDS)
+    eng = partition2d.Mesh2DEngine(mesh4, g1, merge_tree="ring", level_chunk=128)
+
+    def pick_merge(args, kwargs):
+        parts = args[0]
+        commit = kwargs.get("commit")
+        if commit is not None or len(parts) < 2:
+            return 0, None
+        out = kwargs.get("out", args[1] if len(args) > 1 else None)
+        return parts[0].numel() * len(parts), lambda: (
+            [p.clone() for p in parts], out.clone(), kwargs.get("op", "or"))
+
+    def pick_encode(args, kwargs):
+        plane, budget = args[0], args[1]
+        lanes = args[2] if len(args) > 2 else kwargs.get("lanes", 1)
+        return int((plane != 0).sum()), lambda: (plane.clone(), budget, lanes)
+
+    t0 = time.perf_counter()
+    with _record(cuda_mesh, "chunk_merge", pick_merge) as m1, \
+            _record(partition2d, "wire_encode", pick_encode) as m2:
+        trace = eng.wire_trace(padded1)
+    trace_s = time.perf_counter() - t0
+    assert trace["sparse_levels"] > 0, trace["sparse_levels"]
+    assert len(trace["levels"]) == rows["mesh2d ring road-1024"]["levels"], trace["levels"][-1]
+    encodings = {e["encoding"] for e in trace["levels"]}
+    rows["mesh2d ring road-1024"].update(
+        wire_trace_levels=len(trace["levels"]), sparse_levels=trace["sparse_levels"],
+        bytes_measured=trace["bytes_measured"], bytes_dense_model=trace["bytes_dense_model"],
+        encodings=sorted(encodings), wire_trace_s=trace_s)
+    del eng
+
+    # The async path's engine again: its rounds against the levels, and M4
+    # and M1's commit recorded call by call.
+    eng = partition2d.Mesh2DEngine(mesh4, g1, async_levels=4, level_chunk=128)
+
+    def pick_max(args, kwargs):
+        prev, prev_rows, cols, tables, i, out = args[:6]
+        floor = args[6] if len(args) > 6 else kwargs.get("floor")
+        slots = sum(r * c for r, c in tables.pieces[i])
+        return slots, lambda: (prev.clone(), prev_rows, cols, tables, i, out.clone(), floor)
+
+    def pick_commit(args, kwargs):
+        commit = kwargs.get("commit")
+        if commit is None:
+            return 0, None
+        parts = args[0]
+        return parts[0].numel() * len(parts), lambda: (
+            [p.clone() for p in parts],
+            cuda_mesh.Commit(*(None if t is None else t.clone() for t in commit)))
+
+    timing.reset_collective_rounds()
+    t0 = time.perf_counter()
+    with _record(cuda_mesh, "forest_max", pick_max) as m4, \
+            _record(cuda_mesh, "chunk_merge", pick_commit) as m1c:
+        f_async = eng.f_values(padded1).cpu().numpy()
+    async_s = time.perf_counter() - t0
+    rounds = timing.collective_rounds()
+    assert np.array_equal(f_async, road["fv"]), (f_async, road["fv"])
+    depth = rows["mesh2d async road-1024"]["levels"]
+    assert rounds < depth, (rounds, depth)
+    rows["mesh2d async road-1024"].update(rounds=rounds, levels=depth, engine_f_values_s=async_s)
+    del eng, g1
+    torch.cuda.empty_cache()
+    for name, row in rows.items():
+        print(f"{name}: " + json.dumps(row))
+    if torch.cuda.device_count() >= MESH_SHARDS:
+        with _env(MSBFS_MESH="2x2"):
+            got = _run_cli(cli, ["chip_smoke", "-g", rmat["gpath"], "-q", rmat["qpath"],
+                                 "-gn", str(MESH_SHARDS)])
+        assert got[:2] == (int(np.argmin(rmat["fv"])), int(rmat["fv"].min())), got
+        print(f"distinct cards: MSBFS_MESH=2x2 over cuda:0..3 on rmat-20: winner {got[0] + 1}, "
+              f"F {got[1]}, computation {got[3]} s")
+    else:
+        print("distinct cards: mesh2d not run over distinct cards (this machine has "
+              f"{torch.cuda.device_count()} card); the peer copies between cards are unproven")
+
+    # ---- M1, M2 and M4 against their plain versions on their widest
+    # recorded calls.  No single torch call encodes a sparse wire or folds a
+    # forest, so only M1 (two chunks: one bitwise_or or maximum) has a
+    # library time.
+    shape = {}
+    parts, out, op = m1["snap"]
+    words = out.numel()
+    shape["chunk_merge"] = _hold(
+        torch, cuda_mesh.chunk_merge, cuda_mesh.chunk_merge_plain,
+        lambda: (parts, out.clone(), op), lambda a: [a[1]], 4 * words * (len(parts) + 1))
+    if len(parts) == 2:
+        lib_out = torch.empty_like(out)
+        fn = torch.bitwise_or if op == "or" else torch.maximum
+        shape["chunk_merge"]["library_ms"] = _time_ms(
+            torch, lambda: fn(parts[0].view(-1), parts[1].view(-1), out=lib_out.view(-1)),
+            lambda: None)
+    shape["chunk_merge"].update(chunks=len(parts), words=words, op=op)
+    parts, c = m1c["snap"]
+    words = parts[0].numel()
+    commit_row = _hold(
+        torch, lambda p, cm: cuda_mesh.chunk_merge(p, op="max", commit=cm),
+        lambda p, cm: cuda_mesh.chunk_merge_plain(p, None, "max", cm),
+        lambda: (parts, cuda_mesh.Commit(*(None if t is None else t.clone() for t in c))),
+        lambda a: [t for t in a[1] if t is not None],
+        4 * words * len(parts) + 8 * words + words * (2 if c.acc is not None else 1))
+    commit_row.update(chunks=len(parts), words=words)
+    plane, budget, lanes = m2["snap"]
+    total = plane.numel()
+
+    def enc_kernel(p, b, ln, box):
+        box.append(cuda_mesh.wire_encode(p, b, ln))
+
+    def enc_plain(p, b, ln, box):
+        box.append(cuda_mesh.wire_encode_plain(p, b, ln))
+
+    shape["wire_encode"] = _hold(
+        torch, enc_kernel, enc_plain, lambda: (plane, budget, lanes, []),
+        lambda a: list(a[3][-1]), 4 * total + 8 * budget + 8)
+    shape["wire_encode"].update(words=total, budget=budget, count=m2["weight"], lanes=lanes)
+    prev, prev_rows, cols, tables, i, outm, floor = m4["snap"]
+    pieces = tables.pieces[i]
+    slots = sum(r * c_ for r, c_ in pieces)
+    w = prev.shape[1]
+    live = int((cols[:slots] < prev_rows).sum())
+    shape["forest_max"] = _hold(
+        torch, cuda_mesh.forest_max,
+        lambda pv, pr, cl, tb, ii, o, fl: cuda_mesh.forest_max_plain(
+            pv, pr, cl[: sum(r * c_ for r, c_ in tb.pieces[ii])], tb.pieces[ii], o, fl),
+        lambda: (prev, prev_rows, cols, tables, i, outm.clone(), floor), lambda a: [a[5]],
+        4 * slots + 4 * w * live + 4 * w * outm.shape[0])
+    shape["forest_max"].update(slots=slots, live_slots=live, rows=int(outm.shape[0]), w=w,
+                               cand=floor is not None)
+    for name, row in (*shape.items(), ("chunk_merge:max/commit", commit_row)):
+        print(f"compare mesh2d {name} (widest recorded call): " + json.dumps(row))
+        assert row["max_abs_err"] == 0, (name, row)
+    return shape
+
+
+def _mesh2d_data(ctx, seed):
+    """Phase 16's small graphs (the same seeds as phases 4 and 5a): RMAT-16
+    with phase 5a's one source, RMAT-14 with phase 4's K = 64 groups."""
+    torch, np, sp, cg, cli, tio, timing, generators, launches, tmp, dev = ctx
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.models.csr import (
+        CSRGraph,
+    )
+
+    n16, e16 = generators.rmat_edges(16, edge_factor=16, seed=seed)
+    deg = CSRGraph.from_edges(n16, e16).degrees
+    source = int(np.random.default_rng(seed).choice(np.nonzero(deg > 0)[0]))
+    rmat16 = _small_data(ctx, "rmat16", n16, e16, [np.array([source], dtype=np.int32)], [0])
+    n14, e14 = generators.rmat_edges(14, edge_factor=16, seed=seed)
+    rmat14 = _small_data(ctx, "rmat14", n14, e14,
+                         generators.random_queries(n14, 64, seed=seed + 8))
+    return rmat16, rmat14
+
+
 def _mesh_data(ctx, seed):
     """Phase 15's own data when it runs alone: phase 5b's RMAT-20 K = 64
     and phase 6's road-1024 K = 16 files (the same seeds), each route's F
@@ -5614,9 +5943,10 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--detail-dir", default=DETAIL_DIR,
                     help="directory for the per-level rows of the hybrid paths")
-    ap.add_argument("--phases", default="all", choices=("all", "14", "15"),
-                    help="all (the proof), 14 (the build, then the tooling phase alone) "
-                         "or 15 (the build, then the mesh phase alone)")
+    ap.add_argument("--phases", default="all", choices=("all", "14", "15", "16"),
+                    help="all (the proof), 14 (the build, then the tooling phase alone), "
+                         "15 (the build, then the mesh phase alone) or 16 (the build, "
+                         "then the 2D mesh phase alone)")
     args = ap.parse_args()
     DETAIL_DIR = args.detail_dir
     t_start = time.perf_counter()
@@ -5662,18 +5992,21 @@ def main() -> int:
     print(f"device: {torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
           f"cuda {torch.version.cuda}")
 
-    # ---- 1. build: the kernels (nvcc, in parallel) and the native host
-    # runtime (the host C++ compiler)
+    # ---- 1. build: the kernels (nvcc, in parallel) and, beside them, the
+    # native host runtime (the host C++ compiler)
+    from concurrent.futures import ThreadPoolExecutor
+
     t0 = time.perf_counter()
-    built = kernels.build_all()
-    kernels.library()
-    build_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    loader = native_loader.build()
+    with ThreadPoolExecutor(1) as pool:
+        loader_job = pool.submit(native_loader.build)
+        built = kernels.build_all()
+        kernels.library()
+        build_s = time.perf_counter() - t0
+        loader = loader_job.result()
     native_loader.library()
     loader_s = time.perf_counter() - t0
     print(f"build: {build_s:.3f} s wall for {len(built)} kernels in parallel, "
-          f"{loader_s:.3f} s for the native runtime")
+          f"{loader_s:.3f} s with the native runtime built beside them")
     for name, res in built.items():
         regs = [ln.strip() for ln in res.log.splitlines() if "Used" in ln]
         print(f"  {name}: {res.seconds:.3f} s; {'; '.join(regs)}")
@@ -5688,16 +6021,21 @@ def main() -> int:
         event_pair_ms=_time_ms(torch, lambda: None, lambda: None),
         note="host time to enqueue one small torch op on the card; the device "
              "time between two CUDA events with nothing between them")))
-    if args.phases in ("14", "15"):
+    if args.phases in ("14", "15", "16"):
         with tempfile.TemporaryDirectory(prefix="msbfs_smoke_") as tmp:
             ctx = (torch, np, sp, cg, cli, tio, timing, generators, {}, tmp, dev)
             if args.phases == "14":
                 elapsed("phase 14")
                 _tooling_phase(ctx, args.seed)
-            else:
+            elif args.phases == "15":
                 rmat15, road15 = _mesh_data(ctx, args.seed)
                 elapsed("phase 15")
                 _mesh_phase(ctx, rmat15, road15, args.seed)
+            else:
+                rmat15, road15 = _mesh_data(ctx, args.seed)
+                rmat16, rmat14 = _mesh2d_data(ctx, args.seed)
+                elapsed("phase 16")
+                _mesh2d_phase(ctx, rmat15, road15, rmat16, rmat14, args.seed)
         print(f"total: {time.perf_counter() - t_start:.1f} s")
         print(_card_line())
         print(json.dumps({"ok": True, "device": {
@@ -5892,7 +6230,7 @@ def main() -> int:
     eng1 = stencil.StencilEngine(sg1, level_chunk=stencil.AUTO_STENCIL_LEVEL_CHUNK)
     lv1, _, fv1 = eng1.query_stats(tio.pad_queries(q1))
     a1 = _scipy_matrix(sp, np, g1)
-    want1 = np.array([_scipy_f(cg, np, a1, q) for q in q1])
+    want1 = np.array(_scipy_map(_scipy_f, a1, list(q1)))
     assert np.array_equal(fv1, want1), (fv1, want1)
     assert (k1, f1) == (int(np.argmin(want1)), int(want1.min()))
     print("road-1024 K=16: " + json.dumps(dict(
@@ -5969,6 +6307,21 @@ def main() -> int:
     main_shape.update(_mesh_phase(
         (torch, np, sp, cg, cli, tio, timing, generators, launches, tmp, dev),
         rmat15, road15, seed))
+
+    # ---- 16. the 2D adjacency mesh (MSBFS_MESH=2x2) over the same logical
+    # mesh: phase 15's RMAT-20 and road-1024 files, phase 5a's RMAT-16 and
+    # phase 4's RMAT-14 files, their F vectors equal to scipy's there
+    elapsed("phase 16")
+    rmat16m = dict(gpath=rmat16["gpath"], qpath=rmat16["qpath"],
+                   queries=[np.array([rmat16["source"]], dtype=np.int32)],
+                   fv=np.array([rmat16["want"]]), want={0: rmat16["want"]},
+                   single_s=rmat16["single_s"])
+    rmat14m = dict(MXU_RUNS["mxu rmat-14"])
+    rmat14m["want"] = {q: int(rmat14m["fv"][q]) for q in sorted(
+        {int(np.argmin(rmat14m["fv"])), *range(MESH_SCIPY_GROUPS)})}
+    main_shape.update(_mesh2d_phase(
+        (torch, np, sp, cg, cli, tio, timing, generators, launches, tmp, dev),
+        rmat15, road15, rmat16m, rmat14m, seed))
     os.remove(info20["gpath"])
     del info20
     tmpdir.cleanup()
@@ -6000,6 +6353,9 @@ def main() -> int:
         "halo_pair_or": "parallel/sharded_bell.py:444, {JAX_PKG}/parallel/push_sharded.py:176",
         "halo_push_or": "parallel/sharded_bell.py:350",
         "owner_push_expand": "parallel/push_sharded.py:131",
+        "chunk_merge": "parallel/partition2d.py:571, {JAX_PKG}/parallel/partition2d.py:558",
+        "wire_encode": "parallel/partition2d.py:291, {JAX_PKG}/parallel/partition2d.py:305",
+        "forest_max": "parallel/partition2d.py:1116, {JAX_PKG}/ops/streamed.py:117",
     }
     # K5's push: the flag_pull launches with the push folded in, on the
     # byte paths.

@@ -43,10 +43,12 @@ At ``-gn > 1`` the batch runs over a ('q', 'v') mesh of that many cards
 (:func:`mesh_route`, parallel/): the query-sharded bitbell, CSR-pull and
 push engines, or, with ``MSBFS_VSHARD`` (or a graph beyond one card's
 memory), the vertex-sharded forest and owner-partitioned push, whose
-halo ``MSBFS_HALO_BUDGET`` / ``MSBFS_PUSH_HALO`` tune; the supervisor
+halo ``MSBFS_HALO_BUDGET`` / ``MSBFS_PUSH_HALO`` tune; with
+``MSBFS_MESH=RxC`` the CSR is tiled over an (R, C) mesh instead
+(:func:`mesh2d_route`, parallel/partition2d.py); the supervisor
 reshards onto the surviving cards after a lost one.
-Every other route or mode of the JAX CLI (``MSBFS_MESH``,
-``MSBFS_COORDINATOR``, ``MSBFS_CACHE_DIR``) exits 1 with a one-line
+Every other route or mode of the JAX CLI (``MSBFS_COORDINATOR``,
+``MSBFS_CACHE_DIR``) exits 1 with a one-line
 message naming it as not yet ported; none of them silently runs
 something else.
 
@@ -347,10 +349,66 @@ def mesh_route(graph, padded, devices, level_chunk, explicit_chunk, road_class,
     return DistributedEngine(mesh, graph, level_chunk=level_chunk, native=native)
 
 
+def mesh2d_route(graph, devices, level_chunk, announce_chunk, native: bool = True):
+    """The -gn > 1 route with ``MSBFS_MESH=RxC`` (the JAX CLI's 2D mesh
+    branch): the CSR tiled over an (R, C) mesh of ``devices``
+    (parallel/partition2d.py).  ``MSBFS_BACKEND`` pins the axis defaults
+    (lowk -> plane:byte, mxu -> kernel:mxu), ``MSBFS_MESH_PLANE`` /
+    ``MSBFS_MESH_KERNEL`` / ``MSBFS_MESH_RESIDENCY`` override per axis, and
+    ``resolve_axes`` + ``negotiate_engine`` fail loud on a composition no
+    engine has.  Returns the engine, or 1 after a one-line error (a
+    malformed spec, R*C other than the devices -gn selected, a bad merge
+    tree or an impossible composition)."""
+    from .ops.engine import engine_label, negotiate_engine, resolve_axes
+    from .parallel.mesh import make_mesh2d, parse_mesh_spec
+    from .parallel.partition2d import Mesh2DEngine
+
+    mesh_spec = knobs.raw("MSBFS_MESH", "").strip()
+    n_chips = len(devices)
+    try:
+        rows, cols = parse_mesh_spec(mesh_spec)
+        if rows * cols != n_chips:
+            raise ValueError(
+                f"MSBFS_MESH={mesh_spec} wants {rows * cols} chips "
+                f"but -gn selected {n_chips}"
+            )
+        backend = knobs.raw("MSBFS_BACKEND", "auto")
+        if backend in ("auto", "csr"):
+            backend = "bitbell"  # the mesh default plane layout
+        residency = (knobs.raw("MSBFS_MESH_RESIDENCY") or "hbm").strip().lower()
+        plane = (knobs.raw("MSBFS_MESH_PLANE") or "").strip().lower() or None
+        kernel = (knobs.raw("MSBFS_MESH_KERNEL") or "").strip().lower() or None
+        async_levels = max(1, knobs.get_int("MSBFS_ASYNC_LEVELS", 1))
+        axes, required = resolve_axes(
+            backend, partition="mesh2d", residency=residency, plane=plane,
+            kernel=kernel, async_levels=async_levels,
+        )
+        label = engine_label(axes, async_levels=async_levels)
+        _, engine = negotiate_engine(
+            required,
+            [(
+                label,
+                Mesh2DEngine,
+                lambda: Mesh2DEngine(
+                    make_mesh2d(rows, cols, devices=devices), graph,
+                    level_chunk=level_chunk,
+                    merge_tree=knobs.raw("MSBFS_MERGE_TREE") or None,
+                    residency=axes["residency"], async_levels=async_levels,
+                    plane=axes["plane"], kernel=axes["kernel"], native=native,
+                ),
+            )],
+        )
+    except (TypeError, ValueError) as exc:
+        print(str(exc), file=sys.stderr)
+        return 1
+    print(f"mesh route: {label} ({rows}x{cols}, {', '.join(sorted(required))})",
+          file=sys.stderr)
+    announce_chunk()
+    return engine
+
+
 def _unported_knob() -> Optional[str]:
     """The first knob set to a route or mode the port does not have."""
-    if knobs.raw("MSBFS_MESH", ""):
-        return "MSBFS_MESH"
     if knobs.raw("MSBFS_COORDINATOR", ""):
         return (
             "MSBFS_COORDINATOR (the multi-process bring-up, with "
@@ -708,6 +766,10 @@ def main(argv: Optional[List[str]] = None, device=None, native: bool = True,
                 "(MSBFS_WEIGHTED_ENGINE / MSBFS_DELTA override)",
                 file=sys.stderr,
             )
+        elif n_chips > 1 and knobs.raw("MSBFS_MESH", "").strip():
+            engine = mesh2d_route(graph, cards[:n_chips], level_chunk, announce_chunk, native)
+            if isinstance(engine, int):
+                return engine
         elif n_chips > 1:
             engine = mesh_route(
                 graph, padded, cards[:n_chips], level_chunk, explicit_chunk, road_class,

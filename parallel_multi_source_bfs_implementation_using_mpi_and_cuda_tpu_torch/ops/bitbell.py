@@ -185,6 +185,50 @@ def pack_byte_planes(bytes_: torch.Tensor) -> torch.Tensor:
     return _low32((b << shifts).sum(dim=2))
 
 
+# The async drive's planes (the JAX package's ops/bitbell.py): neg(v, q) =
+# NEG_BASE - dist(v, q) for a reached vertex and 0 for an unreached one, so
+# an elementwise max on neg planes is a scatter-min on distances, 0 is both
+# the max's identity and the forest's sentinel value, and any relaxation
+# order converges to the exact BFS distances.
+NEG_BASE = 1 << 30  # > any level count, and NEG_BASE + 1 fits int32
+
+
+def neg_from_planes(frontier0: torch.Tensor) -> torch.Tensor:
+    """(m, W) source bit planes -> (m, 32W) int32 neg planes: sources at
+    distance 0 (NEG_BASE), everything else 0."""
+    return unpack_byte_planes(frontier0).to(torch.int32) * NEG_BASE
+
+
+def neg_commit(neg: torch.Tensor, cand: torch.Tensor):
+    """(merged, delta): the max-merge of candidate neg planes and the
+    entries it improved."""
+    return torch.maximum(neg, cand), cand > neg
+
+
+def neg_relax_chunk(neg: torch.Tensor, delta: torch.Tensor, relax, steps: int):
+    """Up to ``steps`` collective-free relax waves with early exit:
+    ``relax(neg, delta)`` -> candidate planes from the delta-masked
+    sources, each wave committed by :func:`neg_commit`.  Returns the
+    relaxed planes and the OR of the waves' deltas."""
+    acc = torch.zeros_like(delta)
+    s = 0
+    while bool(delta.any()) and s < steps:
+        neg, delta = neg_commit(neg, relax(neg, delta))
+        acc |= delta
+        s += 1
+    return neg, acc
+
+
+def _async_cand(m: torch.Tensor, max_levels: Optional[int]) -> torch.Tensor:
+    """Candidate neg values from gathered in-neighbour maxima: one more hop
+    is one level further (neg down by one, unreached stays 0), and the
+    ``max_levels`` horizon zeroes a candidate beyond it."""
+    cand = torch.clamp(m - 1, min=0)
+    if max_levels is not None:
+        cand = torch.where(cand >= NEG_BASE - max_levels, cand, torch.zeros_like(cand))
+    return cand
+
+
 # ctrl[3]: which expansion runs the level on a direction-switched route
 # (csrc/msbfs_common.cuh kDirMatmul / kDirPull / kDirPush): direction 0 is
 # the matmul on the mxu route and the forest pull on the bitbell route.

@@ -1,0 +1,338 @@
+"""The 2D mesh engine's kernels (parallel/partition2d.py) as hand-written
+CUDA: M1 ``chunk_merge`` and M2 ``wire_encode`` (``csrc/mesh_wire.cu``),
+M4 ``forest_max`` (``csrc/forest_max.cu``); the sparse wire's decode is H1
+``halo_pair_or`` (:func:`wire_decode`).
+
+Counterparts of the JAX package's XLA chains: the col-axis
+reduce-scatter's combine under OR (bit planes) and MAX (the async drive's
+int32 neg-distance planes) with ``neg_commit`` fused behind it (M1),
+``active_word_count`` with ``encode_words_sparse`` (M2), and the async
+drive's forest max-fold with ``_async_cand`` fused into its first level's
+reads, whole (the forest's levels, then K1s's ``forest_gather``) or one
+streamed segment at a time (M4).  Beside each kernel is its plain torch
+version; a wrapper takes the plain version for CPU tensors and launches
+the kernel for CUDA ones (a failed build or launch raises).
+
+Planes are int32 tensors (bit planes read as uint32, neg planes as
+int32); delta and changed masks are ``torch.bool`` (one byte each).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple, Optional, Sequence
+
+import torch
+
+from ..runtime import kernels
+from .bell import _max_rows, forest_hits, segment_fold
+from .bitbell import INT32_MAX, NEG_BASE, _check_device, _check_plane
+from .cuda_bell import (
+    SegmentTables,
+    forest_final_gather,
+    forest_scratch,
+)
+from .cuda_halo import halo_pair_or
+
+# The most chunks one merge takes (csrc/mesh_wire.cu kMaxChunks): a col
+# axis of at most this many shards.
+MAX_CHUNKS = 16
+# Words a block of the encoder counts and scans at the least.
+ENCODE_BLOCK_WORDS = 1024
+# The most blocks a launch of the encoder takes (msbfs::kMaxBlocks).
+ENCODE_MAX_BLOCKS = 132 * 8
+# Lanes of a word the encoder counts: the word, or its four byte lanes.
+WORD_LANES, BYTE_LANES = 1, 4
+_OPS = {"or": 0, "max": 1}
+
+
+class Commit(NamedTuple):
+    """M1's commit epilogue (MAX only): ``neg`` updated in place to
+    max(neg, merged), ``delta`` written merged > neg, ``acc`` (or None)
+    ORed with delta, ``flag`` (a (1,) int32, or None) set to 1 when some
+    delta is set."""
+
+    neg: torch.Tensor
+    delta: torch.Tensor
+    acc: Optional[torch.Tensor] = None
+    flag: Optional[torch.Tensor] = None
+
+
+def _check_parts(parts: Sequence[torch.Tensor]) -> int:
+    if not 1 <= len(parts) <= MAX_CHUNKS:
+        raise ValueError(f"a merge takes 1 to {MAX_CHUNKS} chunks, got {len(parts)}")
+    words = parts[0].numel()
+    for p in parts:
+        _check_plane("chunk", p)
+        if p.numel() != words:
+            raise ValueError("chunks of a merge must have equal sizes")
+    return words
+
+
+def _check_mask(name: str, t: torch.Tensor, words: int) -> None:
+    if t.dtype != torch.bool or not t.is_contiguous() or t.numel() != words:
+        raise ValueError(f"{name} must be a contiguous bool tensor of {words} elements")
+
+
+def chunk_merge_plain(parts, out=None, op: str = "or", commit: Optional[Commit] = None) -> None:
+    """M1's function in torch: the chunks folded by ``op`` into ``out``,
+    or committed into ``commit.neg`` (JAX's ``neg_commit``)."""
+    v = parts[0].clone()
+    for p in parts[1:]:
+        if op == "or":
+            v |= p
+        else:
+            v = torch.maximum(v, p)
+    if commit is None:
+        out.copy_(v.view(out.shape))
+        return
+    neg = commit.neg
+    v = v.view(neg.shape)
+    d = v > neg
+    neg.copy_(torch.maximum(neg, v))
+    commit.delta.copy_(d.view(commit.delta.shape))
+    if commit.acc is not None:
+        commit.acc.logical_or_(d.view(commit.acc.shape))
+    if commit.flag is not None and bool(d.any()):
+        commit.flag.fill_(1)
+
+
+def chunk_merge(
+    parts: Sequence[torch.Tensor],
+    out: Optional[torch.Tensor] = None,
+    op: str = "or",
+    commit: Optional[Commit] = None,
+) -> None:
+    """Kernel M1 (``csrc/mesh_wire.cu``): the elementwise OR or MAX of
+    ``parts`` (contiguous int32 chunks of one size, at most
+    :data:`MAX_CHUNKS`) into ``out``, or with ``commit`` (MAX only) into
+    the neg plane it names (:class:`Commit`)."""
+    if op not in _OPS:
+        raise ValueError(f"unknown merge op {op!r}")
+    words = _check_parts(parts)
+    extra = []
+    if commit is None:
+        if out is None:
+            raise ValueError("a merge without a commit needs ``out``")
+        _check_plane("out", out)
+        if out.numel() != words:
+            raise ValueError(f"out has {out.numel()} elements, the chunks {words}")
+        extra.append(out)
+    else:
+        if op != "max":
+            raise ValueError("the commit epilogue merges by max")
+        _check_plane("neg", commit.neg)
+        if commit.neg.numel() != words:
+            raise ValueError(f"neg has {commit.neg.numel()} elements, the chunks {words}")
+        _check_mask("delta", commit.delta, words)
+        extra += [commit.neg, commit.delta]
+        if commit.acc is not None:
+            _check_mask("acc", commit.acc, words)
+            extra.append(commit.acc)
+        if commit.flag is not None:
+            _check_plane("flag", commit.flag, (1,))
+            extra.append(commit.flag)
+    dev = _check_device(*parts, *extra)
+    if dev.type == "cpu":
+        chunk_merge_plain(parts, out, op, commit)
+        return
+    ptrs = (ctypes.c_longlong * len(parts))(*(p.data_ptr() for p in parts))
+    if commit is None:
+        tail = (out.data_ptr(), None, None, None, None)
+    else:
+        tail = (None, commit.neg.data_ptr(), commit.delta.data_ptr(),
+                None if commit.acc is None else commit.acc.data_ptr(),
+                None if commit.flag is None else commit.flag.data_ptr())
+    kernels.launch("chunk_merge", dev, ptrs, len(parts), words, _OPS[op], *tail,
+                   variant=op + ("/commit" if commit is not None else ""))
+
+
+class Encoded(NamedTuple):
+    """M2's outputs: the plane's nonzero elements (a (1,) int64, whole
+    even when the list is cut), the first ``budget`` flat indices of its
+    nonzero words (ascending, sentinel = the plane's words) and those
+    words (0 at sentinels)."""
+
+    count: torch.Tensor
+    idx: torch.Tensor
+    words: torch.Tensor
+
+
+def encode_blocks(total: int) -> int:
+    """The encoder's blocks for a plane of ``total`` words."""
+    return max(1, min(ENCODE_MAX_BLOCKS, -(-total // ENCODE_BLOCK_WORDS)))
+
+
+def wire_encode_plain(plane, budget: int, lanes: int = WORD_LANES) -> Encoded:
+    """M2's function in torch."""
+    flat = plane.reshape(-1)
+    total = flat.numel()
+    nz = flat != 0
+    if lanes == BYTE_LANES:
+        count = (flat.view(torch.uint8) != 0).sum(dtype=torch.int64)
+    else:
+        count = nz.sum(dtype=torch.int64)
+    ids = torch.nonzero(nz).flatten()[:budget]
+    idx = torch.full((budget,), total, dtype=torch.int32, device=flat.device)
+    words = torch.zeros(budget, dtype=torch.int32, device=flat.device)
+    idx[: ids.numel()] = ids.to(torch.int32)
+    words[: ids.numel()] = flat[ids]
+    return Encoded(count.view(1), idx, words)
+
+
+def wire_encode(plane: torch.Tensor, budget: int, lanes: int = WORD_LANES,
+                scratch: Optional[torch.Tensor] = None) -> Encoded:
+    """Kernel M2 (``csrc/mesh_wire.cu``): the sparse wire's encoding of a
+    contiguous int32 plane (:class:`Encoded`); ``lanes`` =
+    :data:`BYTE_LANES` counts the nonzero bytes of a byte-lane plane
+    instead of its nonzero words.  The list is exact iff the count is at
+    most ``budget``.  ``scratch``: (2 * :func:`encode_blocks`,) int64."""
+    _check_plane("plane", plane)
+    total = plane.numel()
+    if total < 1 or total >= 2**31:
+        raise ValueError(f"a plane of {total} words: the encoder takes 1 to 2^31 - 1")
+    if budget < 1:
+        raise ValueError(f"the sparse wire's budget must be positive, got {budget}")
+    if lanes not in (WORD_LANES, BYTE_LANES):
+        raise ValueError(f"lanes must be {WORD_LANES} or {BYTE_LANES}")
+    dev = _check_device(plane)
+    if dev.type == "cpu":
+        return wire_encode_plain(plane, budget, lanes)
+    blocks = encode_blocks(total)
+    if scratch is None:
+        scratch = torch.empty(2 * blocks, dtype=torch.int64, device=dev)
+    if scratch.dtype != torch.int64 or scratch.numel() < 2 * blocks:
+        raise ValueError(f"scratch must hold {2 * blocks} int64")
+    out = Encoded(torch.empty(1, dtype=torch.int64, device=dev),
+                  torch.empty(budget, dtype=torch.int32, device=dev),
+                  torch.empty(budget, dtype=torch.int32, device=dev))
+    _check_device(plane, scratch)
+    kernels.launch("wire_encode", dev, plane.data_ptr(), total, lanes, int(budget),
+                   out.idx.data_ptr(), out.words.data_ptr(), out.count.data_ptr(),
+                   scratch.data_ptr(), blocks, variant="bytes" if lanes == BYTE_LANES else "words")
+    return out
+
+
+def wire_decode(idx: torch.Tensor, words: torch.Tensor, plane: torch.Tensor) -> None:
+    """The sparse wire's decode (the JAX package's ``decode_words_sparse``)
+    into the zeroed contiguous int32 ``plane``: H1 ``halo_pair_or`` over
+    its flat words as one-word rows (the sentinel falls outside them)."""
+    halo_pair_or(idx, words.view(-1, 1), plane.view(-1, 1))
+
+
+def cand_floor(max_levels: Optional[int]) -> int:
+    """The candidate step's horizon as the kernel takes it: a candidate
+    below it is zeroed (0 without a horizon)."""
+    return 0 if max_levels is None else max(0, NEG_BASE - int(max_levels))
+
+
+def forest_max_plain(prev, prev_rows, cols, pieces, out, floor: Optional[int] = None) -> None:
+    """M4's function in torch: :func:`.bell.segment_fold` by max over
+    ``prev`` (its zero sentinel row at ``prev_rows``), the candidate step
+    applied to every value read when ``floor`` is not None."""
+    v = prev[:prev_rows]
+    if floor is not None:
+        v = _cand(v, floor)
+    v_prev = torch.cat([v, v.new_zeros((1, prev.shape[1]))])
+    out.copy_(segment_fold(v_prev, cols, pieces, _max_rows))
+
+
+def _cand(v: torch.Tensor, floor: int) -> torch.Tensor:
+    c = torch.clamp(v - 1, min=0)
+    return torch.where(c >= floor, c, torch.zeros_like(c))
+
+
+def forest_max(
+    prev: torch.Tensor,
+    prev_rows: int,
+    cols: torch.Tensor,
+    tables: SegmentTables,
+    i: int,
+    out: torch.Tensor,
+    floor: Optional[int] = None,
+) -> None:
+    """Kernel M4 (``csrc/forest_max.cu``), one forest level or streamed
+    segment ``i`` of ``tables``: out[r] = max over each piece's width of
+    prev[cols[...]] (int32 lanes, a slot equal to ``prev_rows`` reading 0),
+    every value read first taken through the async drive's candidate step
+    when ``floor`` (:func:`cand_floor`) is given.  Ungated."""
+    pieces = tables.pieces[i]
+    w = prev.shape[1]
+    slots = sum(r * c for r, c in pieces)
+    rows = sum(r for r, _ in pieces)
+    _check_plane("prev", prev)
+    _check_plane("cols", cols)
+    _check_plane("out", out, (rows, w))
+    if prev.dim() != 2 or prev.shape[0] < prev_rows:
+        raise ValueError(f"prev must be (>= {prev_rows}, {w})")
+    if cols.dim() != 1 or cols.shape[0] < slots:
+        raise ValueError(f"cols must be 1-D with at least {slots} slots")
+    dev = _check_device(prev, cols, out)
+    if dev.type == "cpu":
+        forest_max_plain(prev, prev_rows, cols[:slots], pieces, out, floor)
+        return
+    if not rows:
+        return
+    if tables.device != dev:
+        raise ValueError(f"segment tables on {tables.device}, planes on {dev}")
+    table, buckets, _ = tables.entry(i, 2)
+    kernels.launch("forest_max", dev, prev.data_ptr(), int(prev_rows), cols.data_ptr(), table,
+                   buckets, rows, out.data_ptr(), w, int(floor is not None),
+                   0 if floor is None else int(floor),
+                   variant="cand" if floor is not None else "max")
+
+
+def level_tables(graph, device) -> SegmentTables:
+    """A device BellGraph's forest levels as M4's tables (one segment a
+    level, its non-empty buckets), built once per graph and device."""
+    key = ("forest_max", str(device))
+    if key not in graph._kernel_tables:
+        pieces = [tuple((r, w) for r, w in shapes if r) for shapes in graph.level_shapes]
+        graph._kernel_tables[key] = SegmentTables(
+            pieces, None if torch.device(device).type == "cpu" else device)
+    return graph._kernel_tables[key]
+
+
+def forest_max_hits_plain(frontier, graph, hits, floor: int) -> None:
+    """The whole-forest form's function in torch, as the JAX package
+    computes it: the forest max-fold, then the candidate step."""
+    hits.copy_(_cand(forest_hits(frontier, graph, reduce=_max_rows), floor))
+
+
+def forest_max_hits(
+    frontier: torch.Tensor,
+    graph,
+    hits: torch.Tensor,
+    floor: int,
+    go: torch.Tensor,
+    scratch: Optional[torch.Tensor] = None,
+) -> None:
+    """M4's whole-forest form: the candidate maxima of ``frontier`` (n, W)
+    int32 lanes over a device BellGraph into ``hits`` (n, W): a launch a
+    forest level (the candidate step in the first), then the final take by
+    ``final_slot`` (K1s ``forest_gather``, gated on ``go``, a control that
+    lets it run); each launch's plain version on CPU tensors, which
+    together are :func:`forest_max_hits_plain`.  ``scratch``:
+    :func:`.cuda_bell.forest_scratch`'s."""
+    n, w = frontier.shape
+    _check_plane("frontier", frontier, (graph.n, w))
+    _check_plane("hits", hits, (graph.n, w))
+    dev = _check_device(frontier, hits, go)
+    tables = level_tables(graph, dev)
+    if scratch is None:
+        scratch = forest_scratch(graph, w, dev)
+    _check_plane("scratch", scratch, (graph.total_rows + 1, w))
+    offset, prev, prev_rows = 0, frontier, graph.n
+    for li, (flat, size) in enumerate(zip(graph.level_cols, graph.level_sizes)):
+        out = scratch[offset : offset + size]
+        if size:
+            forest_max(prev, prev_rows, flat, tables, li, out, floor if li == 0 else None)
+        prev, prev_rows = out, size
+        offset += size
+    forest_final_gather(scratch, graph.final_slot, hits, go, INT32_MAX)
+
+
+def go_control(device) -> torch.Tensor:
+    """A level control that lets every gated launch run: updated, level 0,
+    the pull direction."""
+    return torch.tensor([1, 0, 0, 0], dtype=torch.int32, device=device)

@@ -70,6 +70,7 @@ from .cuda_bell import (
     map_shift,
     slot_weights,
 )
+from .cuda_mesh import forest_max, forest_max_plain
 from .packed import PackedEngineBase
 
 
@@ -225,11 +226,18 @@ class StreamedBitBellEngine(PackedEngineBase):
             self._scratch[w] = forest_scratch(self, w, self.device)
         return self._scratch[w]
 
-    def forest_pass(self, frontier: torch.Tensor, hits: torch.Tensor, ctrl: torch.Tensor) -> None:
+    def forest_pass(self, frontier: torch.Tensor, hits: torch.Tensor, ctrl: torch.Tensor,
+                    floor: Optional[int] = None) -> None:
         """One BFS level's hit planes: every forest level's segments folded
         as they arrive through the ring, then the final take, into
         ``hits``; gated on ``ctrl`` like the in-memory pull.  Runs on the
-        current stream (the engine's compute stream inside its calls)."""
+        current stream (the engine's compute stream inside its calls).
+
+        With ``floor`` the planes are int32 neg lanes and every segment is
+        max-folded by M4 (:func:`.cuda_mesh.forest_max`), the async drive's
+        candidate step (at ``floor``) applied to forest level 0's reads,
+        and only the final take is gated on ``ctrl`` (the 2D mesh's
+        streamed async drive)."""
         if self.n == 0:
             return
         w = frontier.shape[1]
@@ -237,7 +245,7 @@ class StreamedBitBellEngine(PackedEngineBase):
         count = len(self._segments)
         for j in range(min(self.prefetch, count)):
             self._upload(j)
-        if self._map is not None:
+        if self._map is not None and floor is None:
             frontier_map(frontier, self._map, ctrl, self._max_levels)
         for i, seg in enumerate(self._segments):
             slot = i % self.prefetch
@@ -252,7 +260,14 @@ class StreamedBitBellEngine(PackedEngineBase):
             cols = self._ring[slot][: seg.slots]
             if self._compute is not None:
                 torch.cuda.current_stream(self.device).wait_event(self._uploaded[slot])
-            if self.plain:
+            if floor is not None:
+                level_floor = floor if seg.level == 0 else None
+                if self.plain:
+                    forest_max_plain(prev, prev_rows, cols, self._tables.pieces[i], out,
+                                     level_floor)
+                else:
+                    forest_max(prev, prev_rows, cols, self._tables, i, out, level_floor)
+            elif self.plain:
                 forest_segment_plain(
                     prev, prev_rows, cols, self._tables.pieces[i], out, ctrl, self._max_levels)
             else:

@@ -130,6 +130,20 @@ KERNELS = {
         "msbfs_weighted_relax",
         [_P, _P, _P, _I, _P, _P, _P, _L, _L, _I, _I],
     ),
+    "chunk_merge": (
+        "msbfs_chunk_merge",
+        [ctypes.POINTER(_L), _I, _L, _I, _P, _P, _P, _P, _P],
+        "mesh_wire",
+    ),
+    "wire_encode": (
+        "msbfs_wire_encode",
+        [_P, _L, _I, _L, _P, _P, _P, _P, _I],
+        "mesh_wire",
+    ),
+    "forest_max": (
+        "msbfs_forest_max",
+        [_P, _L, _P, _P, _I, _L, _P, _I, _I, _I],
+    ),
 }
 
 

@@ -9,7 +9,8 @@ the ``dispatch`` fault seam (utils/faults.py), bounded retry of transient
 errors, the capacity ladder (on a ``CapacityError`` the next,
 smaller-footprint engine takes over and the call runs again), survivor
 resharding (on a ``DeviceError`` naming failed ranks, a mesh engine is
-rebuilt on the surviving devices by its ``without_ranks``), the
+rebuilt on the surviving devices by its ``without_ranks``: the 2D mesh's
+drops every mesh row holding a failed rank and re-cuts its tiles), the
 ``bitflip:dist`` result seam, and the output-audit escalation as a
 mechanism.
 
@@ -219,7 +220,7 @@ class ChunkSupervisor(QueryEngineBase):
     :class:`CorruptionError`.  A :class:`DeviceError` with
     ``failed_ranks`` on an engine that has ``without_ranks`` rebuilds it
     on the survivors and runs the call again, at most as many times as
-    the engine has query shards ``w``.  ``events`` records
+    the engine has shards ``w``.  ``events`` records
     every recovery action (retry, degrade, reshard, audit_fail,
     audit_degrade) for the failure report.
     """

@@ -11,8 +11,8 @@ ROW-RANGE shards — each an ordinary reference-format ``.bin`` artifact
 records of its own rows — placed on distinct fleet members through the
 existing :class:`~.ring.PlacementRing` with ``MSBFS_SHARD_REPLICAS``
 copies each.  The row split is edge-balanced
-(:func:`edge_balanced_row_splits`, the JAX package's 2D mesh seam in
-parallel/partition2d.py, copied here): a power-law graph split by
+(:func:`edge_balanced_row_splits`, the 2D mesh's seam in
+parallel/partition2d.py): a power-law graph split by
 row COUNT would land the whole hub block in one shard, and a shard's
 cost is its adjacency bytes, not its row count.
 
@@ -39,6 +39,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from ..parallel.partition2d import edge_balanced_row_splits
 from ..runtime.supervisor import InputError, StorageError
 from ..utils import faults
 from ..utils.io import GRAPH_HEADER, load_graph_bin, save_graph_bin
@@ -51,27 +52,6 @@ SHARD_SEP = "#shard"
 
 # One reference-format edge record: two int32s (utils/io.py).
 RECORD_BYTES = 8
-
-
-def edge_balanced_row_splits(row_offsets, num_parts: int) -> List[int]:
-    """Row boundaries splitting a CSR's vertex space into ``num_parts``
-    contiguous ranges of roughly equal DIRECTED-EDGE weight: boundary k
-    is the first row whose cumulative edge count reaches k/num_parts of
-    the total.  Returns ``num_parts + 1`` monotone boundaries with
-    ``[0] ... [n]`` at the ends — range i is ``[out[i], out[i+1])``.
-    Degenerate rows (n < num_parts) yield empty trailing ranges rather
-    than an error; callers drop empty ranges."""
-    ro = np.asarray(row_offsets, dtype=np.int64)
-    n = ro.shape[0] - 1
-    if num_parts < 1:
-        raise ValueError(f"num_parts must be >= 1, got {num_parts}")
-    total = int(ro[-1])
-    targets = (total * np.arange(1, num_parts, dtype=np.int64)) // num_parts
-    cuts = np.searchsorted(ro, targets, side="left")
-    out = [0] + [int(min(c, n)) for c in cuts] + [n]
-    for i in range(1, len(out)):  # monotone under ties/empty rows
-        out[i] = max(out[i], out[i - 1])
-    return out
 
 
 def shard_name(graph: str, index: int) -> str:

@@ -102,9 +102,17 @@ _ALL = (
     Knob("MSBFS_VSHARD", None, "int", "with -gn > 1: vertex-shard the graph over a 'v' mesh axis of this size (the rest shard queries); unset = automatic when the graph's estimated footprint exceeds one device's memory"),
     Knob("MSBFS_HALO_BUDGET", None, "int", "vertex-sharded forest: compacted-halo threshold in own-frontier rows per shard; unset or 0 exchanges whole planes every level"),
     Knob("MSBFS_PUSH_HALO", None, "int", "vertex-sharded forest: in-block push edge budget inside the sparse halo (needs MSBFS_HALO_BUDGET; a lone value warns); unset or 0 disables"),
+    # The 2D adjacency mesh (parallel/partition2d.py), at -gn > 1.
+    Knob("MSBFS_MESH", None, "spec", "RxC selects the 2D adjacency partition at -gn > 1 (R*C must equal the devices -gn selected)"),
+    Knob("MSBFS_MERGE_TREE", None, "str", "2D engine col-axis reduction tree: auto/ring/halving/oneshot/pipelined"),
+    Knob("MSBFS_WIRE_SPARSE", None, "spec", "2D engine sparse wire budget in (index, word) pairs: auto/unset = Lsub*W/8, 0/off = always dense, int = exact budget"),
+    Knob("MSBFS_WIRE_CHUNKS", "4", "int", "2D engine pipelined merge tree: word-plane stripes a level, run one after another"),
+    Knob("MSBFS_MESH_RESIDENCY", "hbm", "str", "2D engine tile-forest residency: hbm (on the device) / streamed (host memory, uploaded every level through the MSBFS_STREAM_PREFETCH ring)"),
+    Knob("MSBFS_MESH_PLANE", "bit", "str", "2D engine plane layout: bit (packed words) / byte (low-K byte lanes, K bytes a row on the wire)"),
+    Knob("MSBFS_MESH_KERNEL", "xla", "str", "2D engine expansion kernel: xla (the BELL forest pull) / mxu (the tile-matmul kernel with a mesh-uniform direction switch)"),
+    Knob("MSBFS_ASYNC_LEVELS", "1", "int", "2D engine bounded-staleness drive: local relax steps a collective round; 1 = level-synchronous"),
     # Routes and modes of the JAX CLI that the port refuses by name.
     Knob("MSBFS_CACHE_DIR", None, "path", "the JAX package's persistent XLA compile cache; the port builds its kernels into the package's build/ and refuses the knob (fails)"),
-    Knob("MSBFS_MESH", None, "spec", "2D mesh partition (not yet ported: fails)"),
     Knob("MSBFS_COORDINATOR", None, "spec", "multi-host bring-up: coordinator addr:port (not yet ported: fails)"),
     Knob("MSBFS_NUM_PROCESSES", "1", "int", "multi-host bring-up: world size (not yet ported: fails)"),
     Knob("MSBFS_PROCESS_ID", "0", "int", "multi-host bring-up: this process's rank (not yet ported: fails)"),

@@ -177,6 +177,31 @@ def reset_collective_bytes() -> None:
         _collective_bytes = 0
 
 
+# Collective merge rounds (the JAX package's counter): one per reconciling
+# row-gather + col-reduce-scatter round the 2D mesh ran — a level of the
+# synchronous drive, an exchange of the async one, whose diet it measures.
+_collective_rounds = 0
+
+
+def record_collective_rounds(n: int = 1) -> None:
+    """Account ``n`` collective merge commits."""
+    global _collective_rounds
+    with _lock:
+        _collective_rounds += int(n)
+
+
+def collective_rounds() -> int:
+    """Rounds recorded since the last :func:`reset_collective_rounds`."""
+    with _lock:
+        return _collective_rounds
+
+
+def reset_collective_rounds() -> None:
+    global _collective_rounds
+    with _lock:
+        _collective_rounds = 0
+
+
 def counter_totals() -> dict:
     """The engine counters in one dict (the ``metrics`` verb's gauges):
     dispatches, plane_pass_bytes, mxu_flops/mxu_tiles_skipped/

@@ -187,6 +187,23 @@ def test_unported_routes_fail_loudly(tmp_path, capsys, monkeypatch, env, subcomm
         assert port.out.splitlines()[:5] == jax_out.out.splitlines()[:5]
         assert len(list(trace_dir.glob("msbfs.*.pt.trace.json"))) == 1
         return
+    if "MSBFS_MESH" in env:
+        # Ported since: at -gn 4 both CLIs tile the graph over a 2x2 mesh
+        # (the port's over a logical mesh of four CPU entries), name the
+        # same route and report alike.
+        monkeypatch.setenv("MSBFS_MESH", env["MSBFS_MESH"])
+        argv = _fixture(tmp_path)
+        argv[-1] = "4"
+        rc_port = cli.main(argv, device="cpu", mesh_devices=["cpu"] * 4)
+        port = capsys.readouterr()
+        rc_jax = jcli.main(argv)
+        jax_out = capsys.readouterr()
+        assert rc_port == rc_jax == 0
+        assert port.out.splitlines()[:5] == jax_out.out.splitlines()[:5]
+        route = [ln for ln in port.err.splitlines() if ln.startswith("mesh route:")]
+        assert route == [ln for ln in jax_out.err.splitlines() if ln.startswith("mesh route:")]
+        assert route and route[0].startswith("mesh route: mesh2d (2x2, ")
+        return
     if subcommand == "analyze":
         # Ported since: both CLIs dispatch ``analyze`` to their passes,
         # which refuse an unknown argument alike.

@@ -34,6 +34,7 @@ from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops i
     cuda_bfs,
     cuda_csr,
     cuda_flag_pull,
+    cuda_mesh,
     cuda_mxu,
     cuda_push,
     cuda_stencil,
@@ -2208,3 +2209,136 @@ def test_mesh_cli_on_card(cuda, tmp_path, capsys, monkeypatch, env):
     want = capsys.readouterr().out.splitlines()[:5]
     assert cli.main(argv, mesh_devices=[cuda] * 4) == 0
     assert capsys.readouterr().out.splitlines()[:5] == want
+
+
+# ---- the 2D mesh's kernels: M1 chunk_merge, M2 wire_encode, the decode on
+# H1, M4 forest_max (ops/cuda_mesh.py)
+
+
+@pytest.mark.parametrize("op,chunks,words", [("or", 1, 1), ("or", 2, 4099), ("or", 4, 262144),
+                                             ("max", 3, 777), ("max", 16, 5000)])
+def test_chunk_merge_matches_plain(cuda, op, chunks, words):
+    rng = np.random.default_rng(chunks * 7 + words)
+    parts = [_planes(rng, words, 1).view(-1) for _ in range(chunks)]
+    if op == "max":
+        parts = [torch.where(p < 0, 0, p) for p in parts]
+    want = torch.empty(words, dtype=torch.int32)
+    cuda_mesh.chunk_merge_plain(parts, want, op)
+    got = torch.empty(words, dtype=torch.int32, device=cuda)
+    timing.reset_launch_counts()
+    cuda_mesh.chunk_merge([p.to(cuda) for p in parts], out=got, op=op)
+    assert timing.launch_counts() == {"chunk_merge": 1}
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("acc,flag", [(False, False), (True, True), (False, True)])
+def test_chunk_merge_commit_matches_plain(cuda, acc, flag):
+    rng = np.random.default_rng(11)
+    shape = (3000, 32)
+    base = bitbell.NEG_BASE
+
+    def neg_plane():
+        return torch.from_numpy(np.where(rng.random(shape) < 0.3,
+                                         base - rng.integers(0, 50, shape), 0).astype(np.int32))
+
+    neg, parts = neg_plane(), [neg_plane() for _ in range(3)]
+    outs = {}
+    for where, dev in (("plain", torch.device("cpu")), ("card", cuda)):
+        c = cuda_mesh.Commit(neg.clone().to(dev), torch.zeros(shape, dtype=torch.bool, device=dev),
+                             torch.zeros(shape, dtype=torch.bool, device=dev) if acc else None,
+                             torch.zeros(1, dtype=torch.int32, device=dev) if flag else None)
+        ps = [p.to(dev) for p in parts]
+        if where == "plain":
+            cuda_mesh.chunk_merge_plain(ps, None, "max", c)
+        else:
+            cuda_mesh.chunk_merge(ps, op="max", commit=c)
+        outs[where] = [t.cpu() for t in c if t is not None]
+    for a, b in zip(outs["card"], outs["plain"]):
+        assert torch.equal(a, b)
+    if flag:
+        assert int(outs["card"][-1]) == 1
+
+
+@pytest.mark.parametrize("lanes", [1, 4])
+@pytest.mark.parametrize("total,density", [(1, 1.0), (5000, 0.01), (524288, 0.001),
+                                           (524288, 0.3), (262144 * 2, 0.0)])
+def test_wire_encode_matches_plain(cuda, lanes, total, density):
+    """Counts at, under and over the budget (the count whole even when
+    the list is cut), ascending indices, sentinels past the nonzero
+    words; decoded by H1 into zeros it is the plane inside the budget."""
+    rng = np.random.default_rng(total + lanes)
+    plane = _planes(rng, total, 1).view(-1)
+    plane[torch.from_numpy(rng.random(total) >= density)] = 0
+    if lanes == 4:
+        plane &= 0x01000100
+    nz = int((plane != 0).sum())
+    for budget in sorted({1, max(1, nz - 1), max(1, nz), nz + 17}):
+        want = cuda_mesh.wire_encode_plain(plane, budget, lanes)
+        got = cuda_mesh.wire_encode(plane.to(cuda), budget, lanes)
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b), budget
+        if budget >= nz:
+            buf = torch.zeros(total, dtype=torch.int32, device=cuda)
+            timing.reset_launch_counts()
+            cuda_mesh.wire_decode(got.idx, got.words, buf)
+            assert timing.launch_counts() == {"halo_pair_or": 1}
+            assert torch.equal(buf.cpu(), plane)
+
+
+@pytest.mark.parametrize("max_levels,kpad", [(None, 32), (3, 32), (None, 64)])
+def test_forest_max_matches_plain(cuda, max_levels, kpad):
+    """M4 whole (a launch a forest level, then forest_gather) and in
+    segments of at most 4096 slots, against the plain forest max-fold
+    followed by the candidate step."""
+    n, edges = generators.rmat_edges(12, 8, seed=4)
+    g = CSRGraph.from_edges(n, edges)
+    rng = np.random.default_rng(kpad)
+    neg = torch.from_numpy(np.where(rng.random((n, kpad)) < 0.2,
+                                    bitbell.NEG_BASE - rng.integers(0, 6, (n, kpad)),
+                                    0).astype(np.int32))
+    floor = cuda_mesh.cand_floor(max_levels)
+    host = BellGraph.from_host(g, torch.device("cpu"), keep_sparse=False)
+    want = torch.zeros_like(neg)
+    cuda_mesh.forest_max_hits_plain(neg, host, want, floor)
+    bg = BellGraph.from_host(g, cuda, keep_sparse=False)
+    got = torch.zeros((n, kpad), dtype=torch.int32, device=cuda)
+    timing.reset_launch_counts()
+    cuda_mesh.forest_max_hits(neg.to(cuda), bg, got, floor, cuda_mesh.go_control(cuda))
+    levels = sum(1 for s in bg.level_sizes if s)
+    assert timing.launch_counts() == {"forest_max": levels, "forest_gather": 1}
+    assert torch.equal(got.cpu(), want)
+    # The streamed segment form, through the streamed engine's ring.
+    seng = streamed.StreamedBitBellEngine(BellGraph.from_host(g, False), cuda, slot_budget=4096)
+    got2 = torch.zeros_like(got)
+    seng.forest_pass(neg.to(cuda), got2, cuda_mesh.go_control(cuda), floor=floor)
+    assert torch.equal(got2.cpu(), want)
+
+
+@pytest.mark.parametrize("env", [{"MSBFS_MESH": "2x2"}, {"MSBFS_MESH": "2x2", "MSBFS_WIRE_SPARSE": "0",
+                                                         "MSBFS_MERGE_TREE": "oneshot"},
+                                 {"MSBFS_MESH": "2x2", "MSBFS_MESH_PLANE": "byte"},
+                                 {"MSBFS_MESH": "2x2", "MSBFS_MESH_KERNEL": "mxu",
+                                  "MSBFS_MXU_TILE": "32"},
+                                 {"MSBFS_MESH": "2x2", "MSBFS_MESH_RESIDENCY": "streamed"},
+                                 {"MSBFS_MESH": "1x4", "MSBFS_ASYNC_LEVELS": "3"},
+                                 {"MSBFS_MESH": "2x2", "MSBFS_ASYNC_LEVELS": "3",
+                                  "MSBFS_MESH_RESIDENCY": "streamed"},
+                                 {"MSBFS_MESH": "4x1", "MSBFS_MERGE_TREE": "pipelined",
+                                  "MSBFS_WIRE_CHUNKS": "2"}])
+def test_mesh2d_cli_on_card(cuda, tmp_path, capsys, monkeypatch, env):
+    """MSBFS_MESH at -gn 4 over a logical mesh on the card reports what
+    the same mesh of CPU entries reports (the plain versions)."""
+    n, edges = generators.road_edges(60, 60, seed=5)
+    gpath, qpath = str(tmp_path / "g.bin"), str(tmp_path / "q.bin")
+    io.save_graph_bin(gpath, n, edges)
+    io.save_query_bin(qpath, generators.random_queries(n, 20, max_group=5, seed=6))
+    argv = ["prog", "-g", gpath, "-q", qpath, "-gn", "4"]
+    for key, value in env.items():
+        monkeypatch.setenv(key, value)
+    assert cli.main(argv, device="cpu", mesh_devices=["cpu"] * 4) == 0
+    want = capsys.readouterr().out.splitlines()[:5]
+    timing.reset_launch_counts()
+    assert cli.main(argv, mesh_devices=[cuda] * 4) == 0
+    assert capsys.readouterr().out.splitlines()[:5] == want
+    counts = timing.launch_counts()
+    assert counts.get("chunk_merge", 0) > 0 or env["MSBFS_MESH"] == "4x1", counts
