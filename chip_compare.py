@@ -14,8 +14,9 @@ builds its own kernels).  Per TREE and route (stencil road-4096 K = 16,
 mxu RMAT-14 K = 64 and road-512 K = 16, bitbell, bell and streamed
 RMAT-20 K = 64, low-K RMAT-20 K = 4 and K = 1, low-K RMAT-16 K = 1, push
 and ppush road-4096 K = 16, vmap and packed RMAT-20 K = 64, weighted
-RMAT-20 K = 64 and road-512 K = 8 (three flavors); ``--routes`` keeps
-the named ones only):
+RMAT-20 K = 64 and road-512 K = 8 (three flavors), vshard4 and mesh2d
+ring road-1024 K = 16 at ``-gn 4``; ``--routes`` keeps the named ones
+only):
 
 - the batch start (``engine._init_carry``): its host ms (median of 20,
   up to a synchronise), its device operations (torch.profiler) and its
@@ -41,6 +42,19 @@ the named ones only):
   a time: each level's CSR pull (K9, its launches together) timed with
   CUDA events behind a queued device sleep, summed, level 0 and the level
   that labels most beside it;
+- on the mesh routes over a logical mesh of four entries on cuda:0, as
+  ``chip_smoke.py`` phases 15 and 16 build them (road-1024 K = 16 at
+  ``-gn 4``: ``MSBFS_VSHARD=4``, the owner-partitioned push, and
+  ``MSBFS_MESH=2x2`` with the ring merge tree and the sparse wire), one
+  ``f_values`` run of a fresh engine (capacity reruns included, as the CLI
+  runs it) with each H3 ``owner_push_expand`` or M2 ``wire_encode``
+  launch timed alone (CUDA events behind a queued device sleep): their
+  sum and spread, the widest launch and the thin one (the first with
+  fewer than 4,096 listed rows or nonzero words) kept and timed again
+  alone (median of 10), the kernels' own device time over a profiled run
+  and the device's busy share of it (every kernel's time over the run's
+  wall time), and the wall ms of an untimed run; the CLI span with
+  ``mesh_devices``;
 - on the weighted routes (``MSBFS_WEIGHTED=1``: RMAT-20 K = 64 and
   road-512 K = 8 groups of up to 8, costs ``edge_costs(m, "uniform", 16,
   3)`` as ``chip_smoke.py`` phase 11 makes them; road-512 also with the
@@ -60,6 +74,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import io
 import json
 import os
@@ -115,6 +130,10 @@ def _make_data(tmp: str, needed) -> dict:
         n, e = generators.rmat_edges(14, edge_factor=16, seed=0)
         files["rmat-14"] = (graph("rmat14", n, e),
                             query("rmat14", generators.random_queries(n, 64, seed=8)))
+    if "road-1024" in needed:
+        n, e = generators.road_edges(1024, 1024, seed=1)
+        files["road-1024"] = (graph("road1024", n, e),
+                              query("road1024", generators.random_queries(n, 16, seed=3)))
     if "road-512" in needed:
         n, e = generators.road_edges(512, 512, seed=0)
         files["road-512"] = (graph("road512", n, e),
@@ -167,6 +186,8 @@ ROUTES = {
                                                         "MSBFS_WEIGHTED_ENGINE": "stencil"}),
     "weighted-mesh2d road-512": ("road-512 weighted", {"MSBFS_WEIGHTED": "1",
                                                        "MSBFS_WEIGHTED_ENGINE": "mesh2d"}),
+    "vshard4 road-1024": ("road-1024", {"MSBFS_VSHARD": "4"}),
+    "mesh2d ring road-1024": ("road-1024", {"MSBFS_MESH": "2x2", "MSBFS_MERGE_TREE": "ring"}),
 }
 LEVEL_ROUTES = ("lowk rmat-16 K=1", "lowk rmat-20 K=4")
 BUSY_ROUTES = ("lowk rmat-16 K=1", "lowk rmat-20 K=4", "bitbell rmat-20", "mxu road-512")
@@ -178,6 +199,16 @@ CSR_ROUTES = ("vmap rmat-20", "packed rmat-20")
 # The weighted routes: K12 over one f_values run.
 WEIGHTED_ROUTES = ("weighted rmat-20", "weighted road-512", "weighted-stencil road-512",
                    "weighted-mesh2d road-512")
+# The mesh routes: -gn 4 over a logical mesh of four entries on cuda:0.
+MESH_SHARDS = 4
+MESH_ROUTES = ("vshard4 road-1024", "mesh2d ring road-1024")
+# Device cycles slept before each launch of a run timed alone (about 0.5
+# ms): the wrapper's host time falls in the sleep, not between the events.
+LAUNCH_SLACK = 1_000_000
+# Device cycles slept before a recorded call timed again alone (about 1 ms).
+HOST_SLACK = 2_000_000
+# The thin launch: the first with fewer listed rows (H3) or nonzero words (M2).
+THIN = 4096
 
 
 @contextlib.contextmanager
@@ -437,7 +468,153 @@ def _busy(torch, eng, queries, levels):
     return dict(chunk_ms=span, busy_ms=best, busy_share=best / span if best else None)
 
 
-def _cli_span(cli, argv, knobs, reps):
+def _mesh_run(torch, dev, files, route):
+    """The route's engine as the CLI builds it, fresh for each of four
+    ``f_values`` runs (so its capacity reruns count): one untimed (its
+    wall ms); one with each launch of the route's kernel (H3 or M2) timed
+    alone, CUDA events around the call behind a queued device sleep, its
+    size (listed rows, or the nonzero words the encoding counted) read
+    after the run; one that keeps the inputs of the widest launch and of
+    the thin one, each then timed again alone (median of 10); one under
+    torch.profiler (the kernels' own device time, summed)."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.parallel import (
+        mesh, partition2d, push_sharded,
+    )
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.utils import (
+        io as tio,
+    )
+
+    gpath, qpath = files[ROUTES[route][0]]
+    g = tio.load_graph_bin(gpath)
+    q = tio.pad_queries(tio.load_query_bin(qpath))
+    devices = [dev] * MESH_SHARDS
+    if route.startswith("vshard4"):
+        module, name, names = push_sharded, "owner_push_expand", ("owner_expand_kernel",)
+
+        def make():
+            return push_sharded.ShardedPushEngine(mesh.make_mesh(1, MESH_SHARDS,
+                                                                 devices=devices), g)
+
+        def size(args, kwargs, out):
+            ctrl = args[11]
+            return torch.stack([torch.clamp(args[2][0], max=args[1].shape[0]),
+                                ctrl[0].to(args[2].dtype)])
+
+        def keep(args, kwargs):
+            return tuple(x.clone() if isinstance(x, torch.Tensor) else x for x in args[:13])
+
+        def again(snap):
+            work = [t.clone() if isinstance(t, torch.Tensor) else t for t in snap]
+            return lambda: real(*work)
+    else:
+        module, name = partition2d, "wire_encode"
+        names = ("encode_kernel", "encode_count_kernel", "encode_write_kernel")
+
+        def make():
+            return partition2d.Mesh2DEngine(mesh.make_mesh2d(2, 2, devices=devices), g,
+                                            merge_tree="ring")
+
+        def size(args, kwargs, out):
+            return torch.stack([out.count[0], out.count[0].new_ones(())])
+
+        def keep(args, kwargs):
+            return (args[0].clone(), *args[1:3])
+
+        def again(snap):
+            return lambda: real(*snap)
+
+    real = getattr(module, name)
+
+    def run(wrapper=None):
+        eng = make()
+        torch.cuda.synchronize()
+        if wrapper is not None:
+            setattr(module, name, wrapper)
+        gc.collect()
+        gc.disable()  # a collection inside a timed call would land between its events
+        t0 = time.perf_counter()
+        try:
+            f = eng.f_values(q).cpu().numpy()
+        finally:
+            wall = (time.perf_counter() - t0) * 1e3
+            gc.enable()
+            setattr(module, name, real)
+        torch.cuda.synchronize()
+        return f, wall, eng
+
+    f, wall, eng = run()
+    bounds = (eng.capacity, eng.boundary) if hasattr(eng, "boundary") else None
+    del eng
+    calls = []
+
+    def timed(*args, **kwargs):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda._sleep(LAUNCH_SLACK)
+        ev[0].record()
+        out = real(*args, **kwargs)
+        ev[1].record()
+        calls.append((ev, size(args, kwargs, out)))
+        return out
+
+    assert np.array_equal(run(timed)[0], f), route
+    ms = [ev[0].elapsed_time(ev[1]) for ev, _ in calls]
+    sizes = [[int(x) for x in sz.tolist()] for _, sz in calls]
+    live = [i for i, (_, go) in enumerate(sizes) if go]
+    picks = {"widest": max(live, key=lambda i: sizes[i][0]),
+             "thin": next(i for i in live if 0 < sizes[i][0] < THIN)}
+    snaps, seen = {}, [0]
+
+    def keeping(*args, **kwargs):
+        for which, i in picks.items():
+            if i == seen[0]:
+                snaps[which] = keep(args, kwargs)
+        seen[0] += 1
+        return real(*args, **kwargs)
+
+    assert np.array_equal(run(keeping)[0], f), route
+    alone = {}
+    for which, snap in snaps.items():
+        times = []
+        for i in range(12):
+            call = again(snap)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            torch.cuda._sleep(HOST_SLACK)
+            ev[0].record()
+            call()
+            ev[1].record()
+            ev[1].synchronize()
+            if i >= 2:
+                times.append(ev[0].elapsed_time(ev[1]))
+        alone[which] = dict(call=picks[which], size=sizes[picks[which]][0],
+                            ms=_median(times), in_run_ms=ms[picks[which]])
+    eng = make()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.f_values(q)
+        torch.cuda.synchronize()
+        profiled_wall = (time.perf_counter() - t0) * 1e3
+    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kern = [e.time_range.elapsed_us() / 1e3 for e in device if any(n in e.name for n in names)]
+    busy = sum(e.time_range.elapsed_us() for e in device) / 1e3
+    del eng
+    order = sorted(ms)
+    return dict(kernel=name, launches=len(ms), live_launches=len(live), sum_ms=sum(ms),
+                p50_ms=order[len(order) // 2], p90_ms=order[int(len(order) * 0.9)],
+                max_ms=order[-1], max_call=dict(call=ms.index(order[-1]),
+                                                size=sizes[ms.index(order[-1])][0]),
+                profiler_sum_ms=sum(kern), profiler_events=len(kern),
+                profiled_run_ms=profiled_wall, device_busy_ms=busy,
+                busy_share=busy / profiled_wall,
+                widest=alone["widest"], thin=alone["thin"],
+                untimed_run_ms=wall, bounds=bounds,
+                winner=int(np.argmin(f)) + 1, min_f=int(f.min()))
+
+
+def _cli_span(cli, argv, knobs, reps, mesh_devices=None):
     """The report's computation span (median of ``reps`` runs), and each
     run's preprocessing span and its layout phase."""
     from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.utils import (
@@ -448,7 +625,8 @@ def _cli_span(cli, argv, knobs, reps):
     for _ in range(reps):
         buf = io.StringIO()
         with _env(**knobs), contextlib.redirect_stdout(buf):
-            assert cli.main(argv) == 0
+            assert (cli.main(argv) if mesh_devices is None
+                    else cli.main(argv, mesh_devices=mesh_devices)) == 0
         lines = buf.getvalue().splitlines()
         spans.append(float(lines[6].split(":", 1)[1].split()[0]) * 1e3)
         pre.append(float(lines[5].split(":", 1)[1].split()[0]) * 1e3)
@@ -680,7 +858,7 @@ def child(tree: str, files: dict, reps: int, routes) -> dict:
     dev = torch.device("cuda", 0)
     kernels.library()
     out = dict(tree=tree, batch_start={}, levels={}, busy={}, cli={}, push_bfs={}, csr_bfs={},
-               weighted={})
+               weighted={}, mesh={})
     engines = _engines(torch, dev, files, routes)
     for route, (eng, q) in engines.items():
         out["batch_start"][route] = _batch_start(torch, eng, q)
@@ -701,11 +879,16 @@ def child(tree: str, files: dict, reps: int, routes) -> dict:
     for route in (r for r in WEIGHTED_ROUTES if r in routes):
         out["weighted"][route] = _weighted_run(torch, dev, files, route)
         torch.cuda.empty_cache()
+    for route in (r for r in MESH_ROUTES if r in routes):
+        out["mesh"][route] = _mesh_run(torch, dev, files, route)
+        torch.cuda.empty_cache()
     for route in routes:
         data, knobs = ROUTES[route]
         gpath, qpath = files[data]
-        out["cli"][route] = _cli_span(cli, ["chip_compare", "-g", gpath, "-q", qpath, "-gn", "1"],
-                                      knobs, reps)
+        shards = MESH_SHARDS if route in MESH_ROUTES else 1
+        out["cli"][route] = _cli_span(
+            cli, ["chip_compare", "-g", gpath, "-q", qpath, "-gn", str(shards)], knobs, reps,
+            [dev] * shards if shards > 1 else None)
     return out
 
 
@@ -774,6 +957,11 @@ def _summary(runs):
             min_f=[x["weighted"][route]["min_f"] for x in rs],
             split=[x["weighted"][route]["split"] for x in rs])
             for route in rs[0]["weighted"]}
+        t["mesh"] = {route: {k: [x["mesh"][route][k] for x in rs]
+                             for k in ("launches", "sum_ms", "p50_ms", "p90_ms", "max_ms",
+                                       "profiler_sum_ms", "profiler_events", "busy_share",
+                                       "widest", "thin", "untimed_run_ms", "bounds", "min_f")}
+                     for route in rs[0]["mesh"]}
     return out
 
 

@@ -317,12 +317,14 @@ non-zero; nothing is caught):
    peak memory; then H1 ``halo_pair_or`` (the widest rebuild of the
    "vshard4 rmat-20" engine), H2 ``halo_push_or`` (the widest push of
    the "vshard2 rmat-20" engine) and H3 ``owner_push_expand`` (the
-   widest level of the owner-partitioned push on road-1024), each
-   recorded call by call in an engine run of its own after the counted
-   paths, held bit for bit against their plain versions on their
-   recorded inputs and timed beside their bounds; distinct cards only where the machine has more
-   than one (otherwise said so). ``--phases 15`` runs it alone on data
-   of its own (the same seeds);
+   widest level of the owner-partitioned push on road-1024, and its
+   first level with fewer than 4,096 listed rows), each recorded call by
+   call in an engine run of its own after the counted paths, held bit for
+   bit against their plain versions on their recorded inputs and timed
+   beside their bounds (H3's run also timing every launch alone: its sum
+   over the run); distinct cards only where the machine has more than one
+   (otherwise said so); the phase's seconds. ``--phases 15`` runs it
+   alone on data of its own (the same seeds);
 16. the 2D adjacency mesh (parallel/partition2d.py), after phase 15, each
    a counted path of ``MSBFS_MESH=2x2`` at ``-gn 4`` over the same logical
    mesh, F equal to the single-device route's on the card and winner and
@@ -338,8 +340,9 @@ non-zero; nothing is caught):
    levels); M1 ``chunk_merge``, M2 ``wire_encode`` and M4
    ``forest_max`` recorded call by call in the ring and async engine
    runs, held bit for bit against their plain versions and timed beside
-   their bounds. ``--phases 16`` runs it alone on data of its own (the
-   same seeds);
+   their bounds (M2's every launch of the ring run also timed alone: its
+   sum); the phase's seconds. ``--phases 16`` runs it alone on data of
+   its own (the same seeds);
 then the ``{"kernels": [...]}`` line and the final ``{"ok": true, ...}``.
 Phases 5b, 9, 11 and 13 print their steps' seconds ("... steps s:"
 lines).
@@ -365,6 +368,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import functools
+import gc
 import hashlib
 import io
 import json
@@ -5341,26 +5345,51 @@ def _halo_table(text):
     raise AssertionError("halo table without a total")
 
 
+# Device cycles slept before each launch of a timed recording (about 0.5
+# ms): the wrapper's host time falls in the sleep, not between the events.
+LAUNCH_SLACK = 1_000_000
+
+
 @contextlib.contextmanager
-def _record(module, name, pick):
+def _record(module, name, pick, timed=False):
     """Every call of ``module.name`` still runs; ``pick(args, kwargs)``
     returns (weight, snapshot) of its inputs before the call (the snapshot
     may be a function that makes it, called only for a call that is kept),
-    and the snapshot of the heaviest call is kept in the yielded dict."""
+    and the snapshot of the heaviest call is kept in the yielded dict.
+    ``timed``: each call also timed alone (CUDA events behind a queued
+    device sleep), their sum and count kept as ``sum_ms`` and ``calls``
+    once the block ends."""
+    import torch
+
     real = getattr(module, name)
-    best = {}
+    best, events = {}, []
 
     def wrapped(*args, **kwargs):
         weight, snap = pick(args, kwargs)
         if snap is not None and weight > best.get("weight", -1):
             best.update(weight=weight, snap=snap() if callable(snap) else snap)
-        return real(*args, **kwargs)
+        if not timed:
+            return real(*args, **kwargs)
+        ev = _events(torch, 2)
+        torch.cuda._sleep(LAUNCH_SLACK)
+        ev[0].record()
+        out = real(*args, **kwargs)
+        ev[1].record()
+        events.append(ev)
+        return out
 
     setattr(module, name, wrapped)
+    if timed:
+        gc.collect()
+        gc.disable()  # a collection inside a timed call would land between its events
     try:
         yield best
     finally:
+        gc.enable()
         setattr(module, name, real)
+    if timed:
+        torch.cuda.synchronize()
+        best.update(sum_ms=sum(e0.elapsed_time(e1) for e0, e1 in events), calls=len(events))
 
 
 def _hold(torch, kernel, plain, fresh, outputs, nbytes):
@@ -5430,6 +5459,7 @@ def _mesh_phase(ctx, rmat, road, seed):
     query-sharded push on road-1024 K = 16, a chip loss resharded; H1-H3
     held against their plain versions on their widest recorded calls."""
     torch, np, sp, cg, cli, tio, timing, generators, launches, tmp, dev = ctx
+    t_phase = time.perf_counter()
     from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
         cuda_halo,
     )
@@ -5491,22 +5521,27 @@ def _mesh_phase(ctx, rmat, road, seed):
                                               dict(MSBFS_VSHARD="4"), single1, checks1)
     rows["mesh push road-1024"], _ = _mesh_path(pctx, "mesh push road-1024", argv1,
                                                 dict(MSBFS_BACKEND="push"), single1, checks1)
-    # H3 on the owner-partitioned push's widest level of road-1024: the
-    # engine as the CLI builds it, recorded call by call (a host read each).
+    # H3 on the owner-partitioned push's widest level of road-1024 and on
+    # its first thin one: the engine as the CLI builds it, recorded call by
+    # call (a host read each), every launch timed alone.
     g1 = tio.load_graph_bin(road["gpath"])
     eng = push_sharded.ShardedPushEngine(mesh.make_mesh(1, MESH_SHARDS, devices=[dev] * 4), g1)
+    thin3 = {}
 
     def pick_expand(args, kwargs):
         table, queue, count, frontier, hits, lo, n_pad, ids, words, bcount, peak, ctrl = args[:12]
         if not bool(ctrl[0]):
             return 0, None
         listed = min(int(count[0]), queue.shape[0])
-        return listed, (table, queue.clone(), count.clone(), frontier.clone(), hits.clone(),
-                        lo, n_pad, ids.clone(), words.clone(), bcount.clone(), peak.clone(),
-                        ctrl.clone())
+        snap = (table, queue.clone(), count.clone(), frontier.clone(), hits.clone(),
+                lo, n_pad, ids.clone(), words.clone(), bcount.clone(), peak.clone(), ctrl.clone())
+        if 0 < listed < THIN_ENTRIES and not thin3:
+            thin3.update(weight=listed, snap=snap)
+        return listed, snap
 
-    with _record(push_sharded, "owner_push_expand", pick_expand) as h3:
-        eng.f_values(tio.pad_queries(road["queries"]))
+    with _record(push_sharded, "owner_push_expand", pick_expand, timed=True) as h3:
+        f3 = eng.f_values(tio.pad_queries(road["queries"])).cpu().numpy()
+    assert np.array_equal(f3, road["fv"]), (f3, road["fv"])
     w3 = (eng.capacity, eng.boundary)
     block, width = eng.block, eng.width
     w_words = -(-len(road["queries"]) // 32)
@@ -5597,32 +5632,42 @@ def _mesh_phase(ctx, rmat, road, seed):
         ids.numel() * 4 + h1["weight"] * 4 * w + landed * 8 * w)
     shape["halo_pair_or"].update(pairs=int(ids.numel()), valid=h1["weight"],
                                  rows_written=landed, w=w)
-    snap = h3["snap"]
-    table, queue, count, frontier, hits, lo, n_pad = snap[:7]
-    listed = h3["weight"]
-    w = frontier.shape[1]
-    bnd = snap[7].shape[0]
-    v = table[queue[:listed].long()].reshape(-1).long()
-    inside = (v < n_pad) & (v >= lo) & (v < lo + block)
-    landed = int(torch.unique(v[inside]).numel())
-    border = int(((v < n_pad) & ~inside).sum())
+    def hold3(rec):
+        snap = rec["snap"]
+        table, queue, count, frontier, hits, lo, n_pad = snap[:7]
+        listed = rec["weight"]
+        w = frontier.shape[1]
+        bnd = snap[7].shape[0]
+        v = table[queue[:listed].long()].reshape(-1).long()
+        inside = (v < n_pad) & (v >= lo) & (v < lo + block)
+        landed = int(torch.unique(v[inside]).numel())
+        border = int(((v < n_pad) & ~inside).sum())
 
-    def fresh3():
-        return (table, queue, count, frontier, hits.clone(), snap[5], snap[6],
-                snap[7].clone(), snap[8].clone(), snap[9].clone(), snap[10].clone(), snap[11])
+        def fresh3():
+            return (table, queue, count, frontier, hits.clone(), snap[5], snap[6],
+                    snap[7].clone(), snap[8].clone(), snap[9].clone(), snap[10].clone(), snap[11])
 
-    # The queue, table row and frontier words of each listed row; each
-    # in-block hit row once; the boundary buffers, written whole.
-    shape["owner_push_expand"] = _hold(
-        torch, cuda_halo.owner_push_expand, cuda_halo.owner_push_expand_plain, fresh3,
-        lambda a: [a[4], a[7], a[8], a[9], a[10]],
-        listed * (4 + 4 * width + 4 * w) + landed * 8 * w + bnd * 4 * (1 + w))
-    shape["owner_push_expand"].update(listed=listed, width=width, slots=int(v.numel()),
-                                      in_block=int(inside.sum()), rows_written=landed,
-                                      boundary_slots=border, boundary=bnd, w=w, block=block)
+        # The queue, table row and frontier words of each listed row; each
+        # in-block hit row once; the boundary buffers, written whole.
+        row = _hold(
+            torch, cuda_halo.owner_push_expand, cuda_halo.owner_push_expand_plain, fresh3,
+            lambda a: [a[4], a[7], a[8], a[9], a[10]],
+            listed * (4 + 4 * width + 4 * w) + landed * 8 * w + bnd * 4 * (1 + w))
+        row.update(listed=listed, width=width, slots=int(v.numel()), in_block=int(inside.sum()),
+                   rows_written=landed, boundary_slots=border, boundary=bnd, w=w, block=block)
+        return row
+
+    shape["owner_push_expand"] = hold3(h3)
+    shape["owner_push_expand"].update(run_sum_ms=h3["sum_ms"], run_launches=h3["calls"],
+                                      run="vshard4 road-1024 f_values, a fresh engine")
+    thin_row = hold3(thin3)
     for name, row in shape.items():
         print(f"compare mesh {name} (widest recorded call): " + json.dumps(row))
         assert row["max_abs_err"] == 0, (name, row)
+    print("compare mesh owner_push_expand (thin level: the first with fewer than "
+          f"{THIN_ENTRIES} listed rows): " + json.dumps(thin_row))
+    assert thin_row["max_abs_err"] == 0, thin_row
+    print(f"phase 15: {time.perf_counter() - t_phase:.1f} s; card: {CARD}")
     return shape
 
 
@@ -5678,6 +5723,7 @@ def _mesh2d_phase(ctx, rmat, road, rmat16, rmat14, seed):
     recorded call by call in engine runs of their own and held against
     their plain versions."""
     torch, np, sp, cg, cli, tio, timing, generators, launches, tmp, dev = ctx
+    t_phase = time.perf_counter()
     from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
         cuda_mesh,
     )
@@ -5749,7 +5795,7 @@ def _mesh2d_phase(ctx, rmat, road, rmat16, rmat14, seed):
 
     t0 = time.perf_counter()
     with _record(cuda_mesh, "chunk_merge", pick_merge) as m1, \
-            _record(partition2d, "wire_encode", pick_encode) as m2:
+            _record(partition2d, "wire_encode", pick_encode, timed=True) as m2:
         trace = eng.wire_trace(padded1)
     trace_s = time.perf_counter() - t0
     assert trace["sparse_levels"] > 0, trace["sparse_levels"]
@@ -5819,9 +5865,20 @@ def _mesh2d_phase(ctx, rmat, road, rmat16, rmat14, seed):
     if len(parts) == 2:
         lib_out = torch.empty_like(out)
         fn = torch.bitwise_or if op == "or" else torch.maximum
-        shape["chunk_merge"]["library_ms"] = _time_ms(
-            torch, lambda: fn(parts[0].view(-1), parts[1].view(-1), out=lib_out.view(-1)),
-            lambda: None)
+        library = lambda: fn(parts[0].view(-1), parts[1].view(-1), out=lib_out.view(-1))  # noqa: E731
+        shape["chunk_merge"]["library_ms"] = _time_ms(torch, library, lambda: None)
+        # M1 and the library call in turns (kernel first, then library first),
+        # each a median of 10 launches: their spreads, side by side.
+        m1_out = out.clone()
+        kernel = lambda: cuda_mesh.chunk_merge(parts, out=m1_out, op=op)  # noqa: E731
+        turns = []
+        for i in range(4):
+            pair = {}
+            for which in (("kernel", "library") if i % 2 == 0 else ("library", "kernel")):
+                pair[which] = _time_ms(torch, kernel if which == "kernel" else library,
+                                       lambda: None)
+            turns.append(pair)
+        shape["chunk_merge"]["interleaved_ms"] = turns
     shape["chunk_merge"].update(chunks=len(parts), words=words, op=op)
     parts, c = m1c["snap"]
     words = parts[0].numel()
@@ -5844,7 +5901,9 @@ def _mesh2d_phase(ctx, rmat, road, rmat16, rmat14, seed):
     shape["wire_encode"] = _hold(
         torch, enc_kernel, enc_plain, lambda: (plane, budget, lanes, []),
         lambda a: list(a[3][-1]), 4 * total + 8 * budget + 8)
-    shape["wire_encode"].update(words=total, budget=budget, count=m2["weight"], lanes=lanes)
+    shape["wire_encode"].update(words=total, budget=budget, count=m2["weight"], lanes=lanes,
+                                run_sum_ms=m2["sum_ms"], run_launches=m2["calls"],
+                                run="mesh2d ring road-1024 wire_trace, a level a step")
     prev, prev_rows, cols, tables, i, outm, floor = m4["snap"]
     pieces = tables.pieces[i]
     slots = sum(r * c_ for r, c_ in pieces)
@@ -5861,6 +5920,7 @@ def _mesh2d_phase(ctx, rmat, road, rmat16, rmat14, seed):
     for name, row in (*shape.items(), ("chunk_merge:max/commit", commit_row)):
         print(f"compare mesh2d {name} (widest recorded call): " + json.dumps(row))
         assert row["max_abs_err"] == 0, (name, row)
+    print(f"phase 16: {time.perf_counter() - t_phase:.1f} s; card: {CARD}")
     return shape
 
 

@@ -26,20 +26,36 @@
 //   of the pair buffers cleared to (n_pad, 0); the boundary slots' count in
 //   full, and its running maximum in ``peak``.  The order is JAX's: after a
 //   truncated level the kept pairs decide the next levels, whose peaks decide
-//   the capacity protocol's rerun.  One block of 1024 threads walks the
-//   slots a tile at a time, a block-wide scan placing each tile's pairs.
+//   the capacity protocol's rerun.  The slots spread over the card: a grid
+//   of kExpandBlocksPerSm blocks an SM (the listed count lives on the
+//   device, so the grid cannot follow it) takes tiles of kExpandTile slots
+//   by ticket, each thread kExpandItems consecutive slots; the boundary
+//   pairs are placed by the decoupled look-back of ordered_scan.cuh.  The tile that
+//   holds the last slot (the first ticket when there is none) writes the
+//   count, the peak and the sentinels (on a long run of them, a few blocks
+//   write them after their last tile).  One launch a call.
 //
 // Bound: bytes.  H1 reads each pair and writes its row's words; H2 reads
 // each pair, its source's CSR entry and edges, and writes a row's words an
 // edge; H3 reads the listed rows' table rows and words, writes the reached
-// hit words and the pairs.
+// hit words and the pairs.  H3's old single block of 1024 threads walked
+// the slots a tile at a time on one SM (0.286-0.499 ms on road-1024's
+// widest level against a 0.000634 ms bound, NVIDIA H100 80GB HBM3, 700 W,
+// chip_compare.py); spread over the card it takes 0.015-0.017 ms, and a
+// thin level's chain of dependent reads (count, ticket, queue, table,
+// frontier) twice the 0.0055 ms launch floor.
 #include <climits>
 
 #include "msbfs_common.cuh"
+#include "ordered_scan.cuh"
 
 namespace {
 
-constexpr int kExpandThreads = 1024;
+constexpr int kExpandThreads = 256;
+// Consecutive slots a thread takes a tile.
+constexpr int kExpandItems = 2;
+constexpr int kExpandTile = kExpandThreads * kExpandItems;
+constexpr int kExpandBlocksPerSm = 2;
 
 __global__ void pair_or_kernel(const int* __restrict__ ids,
                                const uint32_t* __restrict__ words,
@@ -94,6 +110,36 @@ __global__ void push_or_pairs_kernel(const int* __restrict__ ids,
   }
 }
 
+// (n_pad, 0) over boundary slots [first, bnd): thread ``me`` of ``stride``.
+__device__ __forceinline__ void fill_sentinels(long long first, long long bnd, int W,
+                                               long long n_pad, int* bnd_ids,
+                                               uint32_t* bnd_words, long long me,
+                                               long long stride) {
+  for (long long at = first + me; at < bnd; at += stride) bnd_ids[at] = static_cast<int>(n_pad);
+  for (long long e = first * W + me; e < bnd * W; e += stride) bnd_words[e] = 0u;
+}
+
+// H3's finalizer, every thread of its block: the count, its peak, and the
+// sentinels itself or the first sentinel slot published to the helpers.
+__device__ __forceinline__ void finish_expand(long long total, long long bnd, int W,
+                                              long long n_pad, int* bnd_ids,
+                                              uint32_t* bnd_words, int* bcount, int* peak,
+                                              unsigned long long* published, unsigned epoch,
+                                              long long helpers) {
+  const long long first = min(total, bnd);
+  if (threadIdx.x == 0) {
+    const int b = static_cast<int>(min(total, static_cast<long long>(INT_MAX)));
+    *bcount = b;
+    atomicMax(peak, b);
+    if (helpers) {
+      msbfs::scan::store_word(published, msbfs::scan::status_word(
+                                             epoch, msbfs::scan::kPrefix,
+                                             static_cast<uint32_t>(first)));
+    }
+  }
+  if (!helpers) fill_sentinels(first, bnd, W, n_pad, bnd_ids, bnd_words, threadIdx.x, blockDim.x);
+}
+
 __global__ void __launch_bounds__(kExpandThreads)
 owner_expand_kernel(const int* __restrict__ table, int width,
                     const int* __restrict__ queue, long long cap,
@@ -103,74 +149,81 @@ owner_expand_kernel(const int* __restrict__ table, int width,
                     long long n_pad, int* __restrict__ bnd_ids,
                     uint32_t* __restrict__ bnd_words, long long bnd,
                     int* __restrict__ bcount, int* __restrict__ peak,
-                    const int* __restrict__ ctrl, int max_levels) {
+                    const int* __restrict__ ctrl, int max_levels,
+                    unsigned long long* __restrict__ scratch, unsigned epoch) {
+  namespace scan = msbfs::scan;
   if (!msbfs::level_go(ctrl, max_levels)) return;
-  __shared__ int warp_sums[kExpandThreads / 32];
-  __shared__ long long base_s;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  __shared__ scan::TileShared sh;
+  unsigned long long* ticket = scratch;
+  unsigned long long* published = scratch + 1;
+  unsigned long long* status = scratch + scan::kHeader;
   const long long listed = min(static_cast<long long>(__ldcg(count)), cap);
   const long long slots = listed * width;
-  if (tid == 0) base_s = 0;
-  __syncthreads();
-  for (long long t0 = 0; t0 < slots; t0 += kExpandThreads) {
-    const long long s = t0 + tid;
-    int flag = 0;
-    int u = 0;
-    long long v = n_pad;
-    if (s < slots) {
-      u = __ldg(queue + s / width);
-      v = __ldg(table + static_cast<long long>(u) * width + s % width);
-      if (v < n_pad) {
-        const long long local = v - lo;
-        if (local >= 0 && local < block) {
-          for (int c = 0; c < W; ++c) {
-            const uint32_t x = __ldg(frontier + static_cast<long long>(u) * W + c);
-            if (x) atomicOr(hits + local * W + c, x);
-          }
-        } else {
-          flag = 1;
+  const long long tiles = (slots + kExpandTile - 1) / kExpandTile;
+  const long long helpers = scan::sentinel_helpers(bnd * (1 + W));
+  long long t;
+  while ((t = scan::next_tile(ticket, sh)) < tiles) {
+    const long long s0 = t * kExpandTile + static_cast<long long>(threadIdx.x) * kExpandItems;
+    // The thread's slots in three rounds of independent loads (queue
+    // entries, table entries, frontier words), so a slot's chain of three
+    // dependent reads is paid once a tile, not once a slot.
+    int u[kExpandItems];
+    int v[kExpandItems];
+#pragma unroll
+    for (int k = 0; k < kExpandItems; ++k) {
+      const long long s = s0 + k;
+      u[k] = s < slots ? __ldg(queue + s / width) : 0;
+    }
+#pragma unroll
+    for (int k = 0; k < kExpandItems; ++k) {
+      const long long s = s0 + k;
+      v[k] = s < slots ? __ldg(table + static_cast<long long>(u[k]) * width + s % width)
+                       : static_cast<int>(n_pad);
+    }
+    unsigned flags = 0;
+#pragma unroll
+    for (int k = 0; k < kExpandItems; ++k) {
+      if (v[k] >= n_pad) continue;
+      const long long local = v[k] - lo;
+      if (local >= 0 && local < block) {
+        for (int c = 0; c < W; ++c) {
+          const uint32_t x = __ldg(frontier + static_cast<long long>(u[k]) * W + c);
+          if (x) atomicOr(hits + local * W + c, x);
+        }
+      } else {
+        flags |= 1u << k;
+      }
+    }
+    const unsigned long long before =
+        scan::place_tile<kExpandThreads>(__popc(flags), t, epoch, status, sh);
+    long long at = static_cast<long long>(sh.excl) + static_cast<uint32_t>(before);
+#pragma unroll
+    for (int k = 0; k < kExpandItems; ++k) {
+      if (!((flags >> k) & 1u)) continue;
+      if (at < bnd) {
+        bnd_ids[at] = v[k];
+        for (int c = 0; c < W; ++c) {
+          bnd_words[at * W + c] = __ldg(frontier + static_cast<long long>(u[k]) * W + c);
         }
       }
+      ++at;
     }
-    // Block-wide exclusive scan of the boundary flags, in slot order.
-    int incl = flag;
-    for (int d = 1; d < 32; d <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, incl, d);
-      if (lane >= d) incl += y;
+    if (t == tiles - 1) {
+      finish_expand(static_cast<long long>(sh.excl) + static_cast<uint32_t>(sh.agg), bnd, W,
+                    n_pad, bnd_ids, bnd_words, bcount, peak, published, epoch, helpers);
     }
-    if (lane == 31) warp_sums[warp] = incl;
-    __syncthreads();
-    if (warp == 0) {
-      int x = warp_sums[lane];
-      for (int d = 1; d < 32; d <<= 1) {
-        const int y = __shfl_up_sync(0xffffffffu, x, d);
-        if (lane >= d) x += y;
-      }
-      warp_sums[lane] = x;  // inclusive over warps
-    }
-    __syncthreads();
-    const long long base = base_s;
-    const long long at = base + (warp ? warp_sums[warp - 1] : 0) + incl - flag;
-    if (flag && at < bnd) {
-      bnd_ids[at] = static_cast<int>(v);
-      for (int c = 0; c < W; ++c) {
-        bnd_words[at * W + c] = __ldg(frontier + static_cast<long long>(u) * W + c);
-      }
-    }
-    __syncthreads();
-    if (tid == 0) base_s = base + warp_sums[31];
-    __syncthreads();
   }
-  const long long total = base_s;
-  for (long long at = min(total, bnd) + tid; at < bnd; at += kExpandThreads) {
-    bnd_ids[at] = static_cast<int>(n_pad);
-    for (int c = 0; c < W; ++c) bnd_words[at * W + c] = 0u;
+  if (tiles == 0 && t == 0) {
+    finish_expand(0, bnd, W, n_pad, bnd_ids, bnd_words, bcount, peak, published, epoch,
+                  helpers);
   }
-  if (tid == 0) {
-    const int b = static_cast<int>(min(total, static_cast<long long>(INT_MAX)));
-    *bcount = b;
-    atomicMax(peak, b);
-  }
+  scan::release_ticket(ticket, t, tiles);
+  // Past kFinalizerSentinels, helpers write the sentinels (n_pad, 0) over
+  // [min(total, bnd), bnd).
+  const long long first = scan::sentinel_start(published, t - tiles, helpers, epoch, sh);
+  if (first < 0) return;
+  fill_sentinels(first, bnd, W, n_pad, bnd_ids, bnd_words,
+                 (t - tiles) * kExpandThreads + threadIdx.x, helpers * kExpandThreads);
 }
 
 }  // namespace
@@ -220,25 +273,34 @@ extern "C" int msbfs_halo_push_or(int device, const void* ids, const void* words
 
 // H3.  table (block + 1, width) int32 global ids; queue (cap,) and count
 // (1,) from the own frontier's row queue; frontier and hits (block, W);
-// bnd_ids (bnd,) int32 and bnd_words (bnd, W); bcount and peak (1,) int32.
+// bnd_ids (bnd,) int32 and bnd_words (bnd, W); bcount and peak (1,) int32;
+// scratch: 2 + ceil(cap * width / kExpandTile) int64 of ordered_scan.cuh,
+// ``epoch`` in [1, 2^30), new for every launch on that scratch.
 extern "C" int msbfs_owner_push_expand(int device, const void* table, int width,
                                        const void* queue, long long cap,
                                        const void* count, const void* frontier, int W,
                                        void* hits, long long block, long long lo,
                                        long long n_pad, void* bnd_ids, void* bnd_words,
                                        long long bnd, void* bcount, void* peak,
-                                       const void* ctrl, int max_levels, void* stream) {
+                                       const void* ctrl, int max_levels, void* scratch,
+                                       unsigned epoch, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (W < 1 || width < 1 || cap < 0 || bnd < 0 || block < 0 || n_pad < block ||
-      n_pad >= (1LL << 31) || (block + 1) * width >= (1LL << 31) || ctrl == nullptr) {
+      n_pad >= (1LL << 31) || (block + 1) * width >= (1LL << 31) || cap * width >= (1LL << 31) ||
+      ctrl == nullptr || scratch == nullptr || epoch == 0 || epoch >= msbfs::scan::kEpochs) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  owner_expand_kernel<<<1, kExpandThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  int sms = 0;
+  err = msbfs::sm_count(device, &sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  owner_expand_kernel<<<sms * kExpandBlocksPerSm, kExpandThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(table), width, static_cast<const int*>(queue), cap,
       static_cast<const int*>(count), static_cast<const uint32_t*>(frontier), W,
       static_cast<uint32_t*>(hits), block, lo, n_pad, static_cast<int*>(bnd_ids),
       static_cast<uint32_t*>(bnd_words), bnd, static_cast<int*>(bcount),
-      static_cast<int*>(peak), static_cast<const int*>(ctrl), max_levels);
+      static_cast<int*>(peak), static_cast<const int*>(ctrl), max_levels,
+      static_cast<unsigned long long*>(scratch), epoch);
   return static_cast<int>(cudaGetLastError());
 }

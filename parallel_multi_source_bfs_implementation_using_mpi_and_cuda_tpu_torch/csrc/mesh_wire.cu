@@ -22,13 +22,18 @@
 //   ascending order with their words; slots past the nonzero words hold
 //   the sentinel ``total`` and 0.  The count is whole even when the list is
 //   cut, so an overflow is detectable: the list is exact iff count <=
-//   budget (a nonzero word holds at least one nonzero byte).  Two
-//   launches: each block counts its contiguous range of words into the
-//   scratch; then each block sums the counts before its range (its first
-//   output slot), scans its range a tile at a time (ballots and a
-//   block-wide prefix of the warps' sums) and writes its entries that fall
-//   below the budget, and the grid writes the sentinels.  Deterministic:
-//   no atomics place an entry.
+//   budget (a nonzero word holds at least one nonzero byte).  One launch:
+//   blocks take tiles of kEncodeTile words by ticket (a grid of at most
+//   kEncodeBlocksPerSm blocks an SM), each thread kEncodeWords
+//   consecutive words in registers (two 16-byte loads where the plane is
+//   aligned), counted once; the tile's first output slot comes from the
+//   decoupled look-back of ordered_scan.cuh and its entries below the
+//   budget are written from the registers.  The tile of the last word
+//   writes the count (at lanes = 4 the sum of every tile's byte count,
+//   published beside its status) and the sentinels, or on a long run of
+//   them publishes the first sentinel slot to a few blocks that write them
+//   after their last tile.
+//   Deterministic: no atomic places an entry.
 //
 // The decode (partition2d.py:323 decode_words_sparse) is H1 halo_pair_or
 // (halo_exchange.cu) over the flat buffer viewed as (total, 1) rows: real
@@ -36,9 +41,13 @@
 // into zeros is JAX's scatter-max.
 //
 // Bound: bytes.  M1 reads C chunks and writes one (or reads and writes the
-// neg plane and writes delta); M2 reads the plane twice (count, then
-// write) and writes the pairs.
+// neg plane and writes delta); M2 reads the plane once and writes the
+// pairs.  M2's parent read the plane twice in two launches (0.0119 ms on a
+// 262,144-word plane against a 0.000391 ms bound, NVIDIA H100 80GB HBM3,
+// 700 W, chip_compare.py); in one launch it takes 0.0090 ms, the rest
+// above the launch floor the look-back across its 128 tiles.
 #include "msbfs_common.cuh"
+#include "ordered_scan.cuh"
 
 namespace {
 
@@ -182,107 +191,117 @@ __device__ __forceinline__ int lanes_of(uint32_t x, int lanes) {
          ((x >> 24) != 0u);
 }
 
-// Launch 1: block b's nonzero words and elements over words [b*span, ...).
-__global__ void __launch_bounds__(msbfs::kThreads)
-encode_count_kernel(const uint32_t* __restrict__ plane, long long total, long long span,
-                    int lanes, long long* __restrict__ scratch) {
-  __shared__ long long s_sum[2];
-  if (threadIdx.x < 2) s_sum[threadIdx.x] = 0;
-  __syncthreads();
-  const long long lo = blockIdx.x * span;
-  const long long hi = min(total, lo + span);
-  long long nz = 0, el = 0;
-  for (long long e = lo + threadIdx.x; e < hi; e += blockDim.x) {
-    const uint32_t x = __ldcg(plane + e);
-    nz += x != 0u;
-    el += lanes_of(x, lanes);
-  }
-#pragma unroll
-  for (int d = 16; d > 0; d >>= 1) {
-    nz += __shfl_xor_sync(kFull, nz, d);
-    el += __shfl_xor_sync(kFull, el, d);
-  }
-  if ((threadIdx.x & 31) == 0 && (nz | el)) {
-    atomicAdd(reinterpret_cast<unsigned long long*>(s_sum), static_cast<unsigned long long>(nz));
-    atomicAdd(reinterpret_cast<unsigned long long*>(s_sum + 1),
-              static_cast<unsigned long long>(el));
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    scratch[blockIdx.x] = s_sum[0];
-    scratch[gridDim.x + blockIdx.x] = s_sum[1];
-  }
-}
+constexpr int kEncodeThreads = 256;
+// Consecutive words a thread takes a tile (two 16-byte groups).
+constexpr int kEncodeWords = 8;
+constexpr long long kEncodeTile = kEncodeThreads * kEncodeWords;
+constexpr int kEncodeBlocksPerSm = 2;
 
-// Launch 2: block b writes its entries below the budget; every block
-// writes its share of the sentinels; block 0 publishes the count.
-__global__ void __launch_bounds__(msbfs::kThreads)
-encode_write_kernel(const uint32_t* __restrict__ plane, long long total, long long span,
-                    long long budget, const long long* __restrict__ scratch,
-                    int* __restrict__ idx, int* __restrict__ vals,
-                    long long* __restrict__ count) {
-  __shared__ long long s_red[3];
-  __shared__ int s_warp[msbfs::kThreads / 32];
-  if (threadIdx.x < 3) s_red[threadIdx.x] = 0;
-  __syncthreads();
-  // Words before this block's range, all words, all elements.
-  long long before = 0, words = 0, elements = 0;
-  for (int b = threadIdx.x; b < gridDim.x; b += blockDim.x) {
-    const long long c = scratch[b];
-    words += c;
-    elements += scratch[gridDim.x + b];
-    if (b < static_cast<int>(blockIdx.x)) before += c;
-  }
-#pragma unroll
-  for (int d = 16; d > 0; d >>= 1) {
-    before += __shfl_xor_sync(kFull, before, d);
-    words += __shfl_xor_sync(kFull, words, d);
-    elements += __shfl_xor_sync(kFull, elements, d);
-  }
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  if (lane == 0) {
-    atomicAdd(reinterpret_cast<unsigned long long*>(s_red), static_cast<unsigned long long>(before));
-    atomicAdd(reinterpret_cast<unsigned long long*>(s_red + 1),
-              static_cast<unsigned long long>(words));
-    atomicAdd(reinterpret_cast<unsigned long long*>(s_red + 2),
-              static_cast<unsigned long long>(elements));
-  }
-  __syncthreads();
-  before = s_red[0];
-  words = s_red[1];
-  if (blockIdx.x == 0 && threadIdx.x == 0) *count = s_red[2];
-  const long long lo = blockIdx.x * span;
-  const long long hi = min(total, lo + span);
-  long long pos = before;  // the slot of the tile's first entry
-  for (long long t0 = lo; t0 < hi && pos < budget; t0 += blockDim.x) {
-    const long long e = t0 + threadIdx.x;
-    const uint32_t x = e < hi ? __ldcg(plane + e) : 0u;
-    const unsigned ballot = __ballot_sync(kFull, x != 0u);
-    if (lane == 0) s_warp[warp] = __popc(ballot);
-    __syncthreads();
-    int off = 0, tile = 0;
-    for (int w = 0; w < static_cast<int>(blockDim.x >> 5); ++w) {
-      if (w < warp) off += s_warp[w];
-      tile += s_warp[w];
-    }
-    if (x != 0u) {
-      const long long at = pos + off + __popc(ballot & ((1u << lane) - 1u));
-      if (at < budget) {
-        idx[at] = static_cast<int>(e);
-        vals[at] = static_cast<int>(x);
-      }
-    }
-    pos += tile;
-    __syncthreads();  // s_warp is rewritten by the next tile
-  }
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long at = min(words, budget) + blockIdx.x * static_cast<long long>(blockDim.x) +
-                      threadIdx.x;
-       at < budget; at += stride) {
+// The sentinels (total, 0) over slots [first, budget): thread ``me`` of
+// ``stride``.
+__device__ __forceinline__ void fill_encoded(long long first, long long budget, long long total,
+                                             int* idx, int* vals, long long me,
+                                             long long stride) {
+  for (long long at = first + me; at < budget; at += stride) {
     idx[at] = static_cast<int>(total);
     vals[at] = 0;
   }
+}
+
+// M2.  kVec: the plane is 16-byte aligned (groups of four words wholly
+// inside it load as one uint4).
+template <bool kVec>
+__global__ void __launch_bounds__(kEncodeThreads)
+encode_kernel(const uint32_t* __restrict__ plane, long long total, int lanes, long long budget,
+              int* __restrict__ idx, int* __restrict__ vals, long long* __restrict__ count,
+              unsigned long long* __restrict__ scratch, long long tiles, unsigned epoch) {
+  namespace scan = msbfs::scan;
+  __shared__ scan::TileShared sh;
+  __shared__ unsigned long long s_sum[kEncodeThreads / 32];
+  unsigned long long* ticket = scratch;
+  unsigned long long* published = scratch + 1;
+  unsigned long long* status = scratch + scan::kHeader;
+  unsigned long long* bytes = status + tiles;
+  const long long helpers = scan::sentinel_helpers(2 * budget);
+  long long t;
+  while ((t = scan::next_tile(ticket, sh)) < tiles) {
+    const long long w0 = t * kEncodeTile + static_cast<long long>(threadIdx.x) * kEncodeWords;
+    uint32_t x[kEncodeWords];
+#pragma unroll
+    for (int g = 0; g < kEncodeWords; g += 4) {
+      const long long e = w0 + g;
+      if (kVec && e + 4 <= total) {
+        const uint4 v = __ldg(reinterpret_cast<const uint4*>(plane + e));
+        x[g] = v.x;
+        x[g + 1] = v.y;
+        x[g + 2] = v.z;
+        x[g + 3] = v.w;
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) x[g + j] = e + j < total ? __ldg(plane + e + j) : 0u;
+      }
+    }
+    unsigned nz = 0;
+    unsigned elements = 0;
+#pragma unroll
+    for (int j = 0; j < kEncodeWords; ++j) {
+      nz |= static_cast<unsigned>(x[j] != 0u) << j;
+      elements += lanes_of(x[j], lanes);
+    }
+    const unsigned long long before = scan::place_tile<kEncodeThreads>(
+        __popc(nz) | (static_cast<unsigned long long>(elements) << 32), t, epoch, status, sh);
+    const long long excl = sh.excl;
+    const unsigned long long agg = sh.agg;
+    if (lanes != 1 && threadIdx.x == 0) {
+      scan::store_word(bytes + t, scan::status_word(epoch, scan::kPrefix,
+                                                       static_cast<uint32_t>(agg >> 32)));
+    }
+    long long at = excl + static_cast<uint32_t>(before);
+#pragma unroll
+    for (int j = 0; j < kEncodeWords; ++j) {
+      if ((nz >> j) & 1u) {
+        if (at < budget) {
+          idx[at] = static_cast<int>(w0 + j);
+          vals[at] = static_cast<int>(x[j]);
+        }
+        ++at;
+      }
+    }
+    if (t == tiles - 1) {
+      // The finalizer: the whole count, then the first sentinel slot.
+      const long long words = excl + static_cast<uint32_t>(agg);
+      unsigned long long sum = 0;
+      if (lanes == 1) {
+        sum = threadIdx.x == 0 ? static_cast<unsigned long long>(words) : 0ull;
+      } else {
+        for (long long i = threadIdx.x; i < tiles; i += kEncodeThreads) {
+          sum += scan::wait_value(bytes + i, epoch);
+        }
+      }
+#pragma unroll
+      for (int d = 16; d > 0; d >>= 1) sum += __shfl_xor_sync(kFull, sum, d);
+      if ((threadIdx.x & 31) == 0) s_sum[threadIdx.x >> 5] = sum;
+      __syncthreads();
+      const long long first = min(words, budget);
+      if (threadIdx.x == 0) {
+        unsigned long long all = 0;
+        for (int w = 0; w < kEncodeThreads / 32; ++w) all += s_sum[w];
+        *count = static_cast<long long>(all);
+        if (helpers) {
+          scan::store_word(published, scan::status_word(epoch, scan::kPrefix,
+                                                        static_cast<uint32_t>(first)));
+        }
+      }
+      if (!helpers) fill_encoded(first, budget, total, idx, vals, threadIdx.x, kEncodeThreads);
+    }
+  }
+  scan::release_ticket(ticket, t, tiles);
+  // Past kFinalizerSentinels, helpers write the sentinels (total, 0) over
+  // [min(words, budget), budget).
+  const long long first = scan::sentinel_start(published, t - tiles, helpers, epoch, sh);
+  if (first < 0) return;
+  fill_encoded(first, budget, total, idx, vals, (t - tiles) * kEncodeThreads + threadIdx.x,
+               helpers * kEncodeThreads);
 }
 
 }  // namespace
@@ -321,25 +340,33 @@ extern "C" int msbfs_chunk_merge(int device, const long long* chunk_ptrs, int ch
 
 // M2.  plane: ``total`` int32 words; lanes 1 (count words) or 4 (count
 // nonzero bytes); idx and vals: ``budget`` int32 each; count: one int64;
-// scratch: 2 * blocks int64 (any contents).
+// scratch: 2 + 2 * ceil(total / kEncodeTile) int64 of ordered_scan.cuh,
+// ``epoch`` in [1, 2^30), new for every launch on that scratch.
 extern "C" int msbfs_wire_encode(int device, const void* plane, long long total, int lanes,
                                  long long budget, void* idx, void* vals, void* count,
-                                 void* scratch, int blocks, void* stream) {
+                                 void* scratch, unsigned epoch, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (total < 1 || total >= (1LL << 31) || budget < 0 || (lanes != 1 && lanes != 4) ||
-      blocks < 1 || blocks > msbfs::kMaxBlocks) {
+      scratch == nullptr || epoch == 0 || epoch >= msbfs::scan::kEpochs) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const long long span = (total + blocks - 1) / blocks;
-  const auto s = static_cast<cudaStream_t>(stream);
-  auto* sc = static_cast<long long*>(scratch);
-  const auto* p = static_cast<const uint32_t*>(plane);
-  encode_count_kernel<<<blocks, msbfs::kThreads, 0, s>>>(p, total, span, lanes, sc);
-  err = cudaGetLastError();
+  int sms = 0;
+  err = msbfs::sm_count(device, &sms);
   if (err != cudaSuccess) return static_cast<int>(err);
-  encode_write_kernel<<<blocks, msbfs::kThreads, 0, s>>>(
-      p, total, span, budget, sc, static_cast<int*>(idx), static_cast<int*>(vals),
-      static_cast<long long*>(count));
+  const long long tiles = (total + kEncodeTile - 1) / kEncodeTile;
+  const long long most = static_cast<long long>(sms) * kEncodeBlocksPerSm;
+  const int grid = static_cast<int>(tiles < most ? tiles : most);
+  const auto s = static_cast<cudaStream_t>(stream);
+  auto* sc = static_cast<unsigned long long*>(scratch);
+  if (reinterpret_cast<uintptr_t>(plane) % 16 == 0) {
+    encode_kernel<true><<<grid, kEncodeThreads, 0, s>>>(
+        static_cast<const uint32_t*>(plane), total, lanes, budget, static_cast<int*>(idx),
+        static_cast<int*>(vals), static_cast<long long*>(count), sc, tiles, epoch);
+  } else {
+    encode_kernel<false><<<grid, kEncodeThreads, 0, s>>>(
+        static_cast<const uint32_t*>(plane), total, lanes, budget, static_cast<int*>(idx),
+        static_cast<int*>(vals), static_cast<long long*>(count), sc, tiles, epoch);
+  }
   return static_cast<int>(cudaGetLastError());
 }

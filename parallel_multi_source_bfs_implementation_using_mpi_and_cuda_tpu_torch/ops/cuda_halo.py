@@ -1,6 +1,8 @@
 """The halo exchange of the vertex-sharded engines as hand-written CUDA
 kernels (``csrc/halo_exchange.cu``): H1 ``halo_pair_or``, H2
-``halo_push_or`` and H3 ``owner_push_expand``.
+``halo_push_or`` and H3 ``owner_push_expand``; and :class:`ScanScratch`,
+the status words of the ordered compaction that H3 and M2
+``wire_encode`` share (``csrc/ordered_scan.cuh``).
 
 Counterparts of three XLA chains of the JAX package, each an OR built
 from byte lanes and a scatter-max: parallel/sharded_bell.py
@@ -17,13 +19,75 @@ of word w), pair ids int32.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from ..runtime import kernels
 from .bfs import INT32_MAX
 from .bitbell import _check_device, level_go, pack_byte_planes, unpack_byte_planes
+
+
+# Words before the tiles' status words in a scan scratch, and the epochs a
+# scratch runs through before it is zeroed (csrc/ordered_scan.cuh kHeader,
+# kEpochs).
+SCAN_HEADER = 2
+SCAN_EPOCHS = 1 << 30
+# Slots a tile of H3 takes (csrc/halo_exchange.cu kExpandTile).
+EXPAND_TILE = 512
+
+
+class ScanScratch:
+    """The status words of the ordered compaction that H3 and M2 share
+    (``csrc/ordered_scan.cuh``): a ticket, the finalizer's published
+    slot, and two words a tile, int64, zeroed once when made.  Every
+    launch on it takes a new epoch (:meth:`next_epoch`), so words an
+    earlier launch left read as unpublished and no launch clears them; the
+    words are zeroed again only before the epoch wraps.  Launches on one
+    scratch must be ordered (one stream)."""
+
+    def __init__(self, tiles: int, device):
+        self.words = torch.zeros(SCAN_HEADER + 2 * max(int(tiles), 1), dtype=torch.int64,
+                                 device=device)
+        self.epoch = 0
+
+    @property
+    def tiles(self) -> int:
+        """The most tiles a launch on this scratch may have."""
+        return (self.words.numel() - SCAN_HEADER) // 2
+
+    def next_epoch(self) -> int:
+        self.epoch += 1
+        if self.epoch >= SCAN_EPOCHS:
+            self.words.zero_()
+            self.epoch = 1
+        return self.epoch
+
+
+# (device index, stream) -> the scratch of launches given none.
+_SCRATCH: Dict[Tuple[int, int], ScanScratch] = {}
+
+
+def scan_scratch(dev: torch.device, tiles: int, scratch: Optional[ScanScratch] = None
+                 ) -> ScanScratch:
+    """``scratch`` checked to hold ``tiles`` on ``dev``, or, when None, the
+    scratch kept for ``dev``'s current stream (grown as needed)."""
+    if scratch is not None:
+        if scratch.words.device != dev or scratch.tiles < tiles:
+            raise ValueError(f"a scan scratch of {scratch.tiles} tiles on "
+                             f"{scratch.words.device}; the launch needs {tiles} on {dev}")
+        return scratch
+    key = (dev.index if dev.index is not None else torch.cuda.current_device(),
+           torch.cuda.current_stream(dev).cuda_stream)
+    held = _SCRATCH.get(key)
+    if held is None or held.tiles < tiles:
+        held = _SCRATCH[key] = ScanScratch(max(tiles, 2 * (held.tiles if held else 0)), dev)
+    return held
+
+
+def expand_tiles(capacity: int, width: int) -> int:
+    """H3's most tiles for a queue of ``capacity`` rows of ``width`` slots."""
+    return -(-int(capacity) * int(width) // EXPAND_TILE)
 
 
 def _or_rows(plane: torch.Tensor, rows: torch.Tensor, words: torch.Tensor) -> None:
@@ -160,14 +224,17 @@ def owner_push_expand(table: torch.Tensor, queue: torch.Tensor, count: torch.Ten
                       frontier: torch.Tensor, hits: torch.Tensor, lo: int, n_pad: int,
                       bnd_ids: torch.Tensor, bnd_words: torch.Tensor,
                       bcount: torch.Tensor, peak: torch.Tensor, ctrl: torch.Tensor,
-                      max_levels: int = INT32_MAX) -> None:
+                      max_levels: int = INT32_MAX,
+                      scratch: Optional[ScanScratch] = None) -> None:
     """Kernel H3 (``csrc/halo_exchange.cu``): one owner-partitioned push
     level of one shard — see :func:`owner_push_expand_plain` for the
     function.  ``table`` (block + 1, width) int32 global ids (row block
     all sentinel), ``queue`` (capacity,) and ``count`` (1,) the own
     frontier's row queue (K11's row mode), ``frontier`` and ``hits``
     (block, W), ``bnd_ids`` (bnd,), ``bnd_words`` (bnd, W), ``bcount``
-    and ``peak`` (1,) int32; gated on ``ctrl``."""
+    and ``peak`` (1,) int32; gated on ``ctrl``.  ``scratch``: a
+    :class:`ScanScratch` of at least :func:`expand_tiles` (capacity,
+    width) tiles on the shard's device (None: one kept per stream)."""
     block, w = frontier.shape
     for name, t, dim in (("table", table, 2), ("queue", queue, 1), ("count", count, 1),
                          ("frontier", frontier, 2), ("hits", hits, 2),
@@ -184,12 +251,13 @@ def owner_push_expand(table: torch.Tensor, queue: torch.Tensor, count: torch.Ten
         owner_push_expand_plain(table, queue, count, frontier, hits, lo, n_pad, bnd_ids,
                                 bnd_words, bcount, peak, ctrl, max_levels)
         return
+    scratch = scan_scratch(dev, expand_tiles(queue.shape[0], table.shape[1]), scratch)
     kernels.launch(
         "owner_push_expand", dev, table.data_ptr(), int(table.shape[1]), queue.data_ptr(),
         int(queue.shape[0]), count.data_ptr(), frontier.data_ptr(), w, hits.data_ptr(),
         block, int(lo), int(n_pad), bnd_ids.data_ptr(), bnd_words.data_ptr(),
         int(bnd_ids.shape[0]), bcount.data_ptr(), peak.data_ptr(), ctrl.data_ptr(),
-        int(max_levels),
+        int(max_levels), scratch.words.data_ptr(), scratch.next_epoch(),
     )
 
 

@@ -32,15 +32,13 @@ from .cuda_bell import (
     forest_final_gather,
     forest_scratch,
 )
-from .cuda_halo import halo_pair_or
+from .cuda_halo import ScanScratch, halo_pair_or, scan_scratch
 
 # The most chunks one merge takes (csrc/mesh_wire.cu kMaxChunks): a col
 # axis of at most this many shards.
 MAX_CHUNKS = 16
-# Words a block of the encoder counts and scans at the least.
-ENCODE_BLOCK_WORDS = 1024
-# The most blocks a launch of the encoder takes (msbfs::kMaxBlocks).
-ENCODE_MAX_BLOCKS = 132 * 8
+# Words a tile of the encoder takes (csrc/mesh_wire.cu kEncodeTile).
+ENCODE_TILE = 2048
 # Lanes of a word the encoder counts: the word, or its four byte lanes.
 WORD_LANES, BYTE_LANES = 1, 4
 _OPS = {"or": 0, "max": 1}
@@ -158,9 +156,10 @@ class Encoded(NamedTuple):
     words: torch.Tensor
 
 
-def encode_blocks(total: int) -> int:
-    """The encoder's blocks for a plane of ``total`` words."""
-    return max(1, min(ENCODE_MAX_BLOCKS, -(-total // ENCODE_BLOCK_WORDS)))
+def encode_tiles(total: int) -> int:
+    """The encoder's tiles for a plane of ``total`` words: what its
+    :class:`~.cuda_halo.ScanScratch` must hold."""
+    return -(-int(total) // ENCODE_TILE)
 
 
 def wire_encode_plain(plane, budget: int, lanes: int = WORD_LANES) -> Encoded:
@@ -181,12 +180,14 @@ def wire_encode_plain(plane, budget: int, lanes: int = WORD_LANES) -> Encoded:
 
 
 def wire_encode(plane: torch.Tensor, budget: int, lanes: int = WORD_LANES,
-                scratch: Optional[torch.Tensor] = None) -> Encoded:
+                scratch: Optional[ScanScratch] = None) -> Encoded:
     """Kernel M2 (``csrc/mesh_wire.cu``): the sparse wire's encoding of a
     contiguous int32 plane (:class:`Encoded`); ``lanes`` =
     :data:`BYTE_LANES` counts the nonzero bytes of a byte-lane plane
     instead of its nonzero words.  The list is exact iff the count is at
-    most ``budget``.  ``scratch``: (2 * :func:`encode_blocks`,) int64."""
+    most ``budget``.  One launch.  ``scratch``: a
+    :class:`~.cuda_halo.ScanScratch` of at least :func:`encode_tiles`
+    tiles on the plane's device (None: one kept per stream)."""
     _check_plane("plane", plane)
     total = plane.numel()
     if total < 1 or total >= 2**31:
@@ -198,18 +199,14 @@ def wire_encode(plane: torch.Tensor, budget: int, lanes: int = WORD_LANES,
     dev = _check_device(plane)
     if dev.type == "cpu":
         return wire_encode_plain(plane, budget, lanes)
-    blocks = encode_blocks(total)
-    if scratch is None:
-        scratch = torch.empty(2 * blocks, dtype=torch.int64, device=dev)
-    if scratch.dtype != torch.int64 or scratch.numel() < 2 * blocks:
-        raise ValueError(f"scratch must hold {2 * blocks} int64")
+    scratch = scan_scratch(dev, encode_tiles(total), scratch)
     out = Encoded(torch.empty(1, dtype=torch.int64, device=dev),
                   torch.empty(budget, dtype=torch.int32, device=dev),
                   torch.empty(budget, dtype=torch.int32, device=dev))
-    _check_device(plane, scratch)
     kernels.launch("wire_encode", dev, plane.data_ptr(), total, lanes, int(budget),
                    out.idx.data_ptr(), out.words.data_ptr(), out.count.data_ptr(),
-                   scratch.data_ptr(), blocks, variant="bytes" if lanes == BYTE_LANES else "words")
+                   scratch.words.data_ptr(), scratch.next_epoch(),
+                   variant="bytes" if lanes == BYTE_LANES else "words")
     return out
 
 

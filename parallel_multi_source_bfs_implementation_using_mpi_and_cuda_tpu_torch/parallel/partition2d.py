@@ -80,11 +80,13 @@ from ..ops.cuda_mesh import (
     Commit,
     cand_floor,
     chunk_merge,
+    encode_tiles,
     forest_max_hits,
     go_control,
     wire_decode,
     wire_encode,
 )
+from ..ops.cuda_halo import ScanScratch
 from ..ops.cuda_mxu import tile_matmul_hits
 from ..ops.engine import QueryEngineBase, axis_tokens, engine_label
 from ..ops.mxu import AUTO_SWITCH_DIVISOR, densify_pairs, resolve_tile
@@ -655,6 +657,19 @@ class Mesh2DEngine(QueryEngineBase):
                 self._scratch[key] = forest_scratch(sh.tile, w, sh.dev)
         return self._scratch[key]
 
+    def _encoder(self, sh: _Shard, plane: torch.Tensor) -> Optional[ScanScratch]:
+        """Shard ``sh``'s scan scratch for M2 over ``plane``, kept across
+        levels and batches (grown to the largest plane it encodes); None
+        on a CPU shard."""
+        if sh.dev.type != "cuda":
+            return None
+        key = (sh.rank, "encode")
+        held = self._scratch.get(key)
+        tiles = encode_tiles(plane.numel())
+        if held is None or held.tiles < tiles:
+            held = self._scratch[key] = ScanScratch(tiles, sh.dev)
+        return held
+
     def _block(self, run: _Run, j: int, dev, w: int, tag="") -> torch.Tensor:
         """Col block j's (rows_in, w) buffer on ``dev`` (zero past Lc)."""
         key = (j, dev, w, tag)
@@ -816,8 +831,8 @@ class Mesh2DEngine(QueryEngineBase):
         for sh in self.shards:
             with on_device(sh.dev):
                 for c in range(self.cols):
-                    enc[sh.rank, c] = wire_encode(hits[sh.rank][c * lsub : (c + 1) * lsub],
-                                                  budget, lanes)
+                    chunk = hits[sh.rank][c * lsub : (c + 1) * lsub]
+                    enc[sh.rank, c] = wire_encode(chunk, budget, lanes, self._encoder(sh, chunk))
         counts = np.concatenate(list(stacked_read_ragged(
             [enc[sh.rank, c].count for sh in self.shards for c in range(self.cols)])))
         per = counts.reshape(self.rows, self.cols, self.cols)  # (i, j, chunk)
@@ -868,7 +883,8 @@ class Mesh2DEngine(QueryEngineBase):
         if sparse_on:
             for sh, c in zip(self.shards, run.carries):
                 with on_device(sh.dev):
-                    enc.append(wire_encode(c.frontier, budget, self._lanes()))
+                    enc.append(wire_encode(c.frontier, budget, self._lanes(),
+                                           self._encoder(sh, c.frontier)))
             extra += [e.count for e in enc]
         if self._mxu is not None:
             extra += self._active_rows(run)
@@ -1052,7 +1068,7 @@ class Mesh2DEngine(QueryEngineBase):
             enc = []
             for sh, s in zip(self.shards, sends):
                 with on_device(sh.dev):
-                    enc.append(wire_encode(s, budget))
+                    enc.append(wire_encode(s, budget, scratch=self._encoder(sh, s)))
             counts = np.concatenate(list(stacked_read_ragged([e.count for e in enc])))
             sparse_ok = int(counts.max()) <= budget
         if not sparse_ok:

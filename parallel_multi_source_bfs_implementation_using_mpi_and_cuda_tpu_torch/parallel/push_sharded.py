@@ -39,7 +39,7 @@ import torch
 from ..models.csr import CSRGraph
 from ..ops.bfs import INT32_MAX, validate_level_chunk
 from ..ops.bitbell import PushSwitch, _ConvergencePeek, batch_start
-from ..ops.cuda_halo import halo_pair_or, owner_push_expand
+from ..ops.cuda_halo import ScanScratch, expand_tiles, halo_pair_or, owner_push_expand
 from ..ops.cuda_push import RowQueueCarry, row_compact, row_queue_scratch
 from ..ops.engine import QueryEngineBase
 from ..ops.push import DEFAULT_MAX_WIDTH
@@ -91,14 +91,16 @@ def default_boundary(capacity: int, width: int) -> int:
 
 
 class _Shard:
-    """One (q, v) shard's carry and its boundary send buffers."""
+    """One (q, v) shard's carry, its boundary send buffers and H3's scan
+    scratch."""
 
-    def __init__(self, carry, bnd_ids, bnd_words, bcount, peak_b):
+    def __init__(self, carry, bnd_ids, bnd_words, bcount, peak_b, scan):
         self.carry = carry
         self.bnd_ids = bnd_ids
         self.bnd_words = bnd_words
         self.bcount = bcount
         self.peak_b = peak_b
+        self.scan = scan
 
 
 def sharded_push_run(engine: "ShardedPushEngine", grid: np.ndarray, k: int, k_pad: int):
@@ -245,7 +247,7 @@ class ShardedPushEngine(QueryEngineBase):
                         carry,
                         torch.full((self.boundary,), self.n_pad, dtype=torch.int32, device=dev),
                         torch.zeros((self.boundary, w_words), dtype=torch.int32, device=dev),
-                        zi, zi.clone(),
+                        zi, zi.clone(), ScanScratch(expand_tiles(self.capacity, self.width), dev),
                     ))
             self._combine(r, shards)
             rows.append(shards)
@@ -271,7 +273,8 @@ class ShardedPushEngine(QueryEngineBase):
             with on_device(dev):
                 owner_push_expand(self.tables[b, dev], c.switch.worklist[0], c.count,
                                   c.frontier, c.hits, b * L, self.n_pad, s.bnd_ids,
-                                  s.bnd_words, s.bcount, s.peak_b, c.ctrl, self._max_levels)
+                                  s.bnd_words, s.bcount, s.peak_b, c.ctrl, self._max_levels,
+                                  s.scan)
         if len(shards) > 1:
             ids = all_gather([s.bnd_ids for s in shards])
             words = all_gather([s.bnd_words for s in shards])

@@ -42,6 +42,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_U = ctypes.c_uint
 
 # kernel name -> (C entry point, argtypes after the device ordinal and
 # before the stream[, source]): the source is csrc/<name>.cu unless named
@@ -123,7 +124,7 @@ KERNELS = {
     ),
     "owner_push_expand": (
         "msbfs_owner_push_expand",
-        [_P, _I, _P, _L, _P, _P, _I, _P, _L, _L, _L, _P, _P, _L, _P, _P, _P, _I],
+        [_P, _I, _P, _L, _P, _P, _I, _P, _L, _L, _L, _P, _P, _L, _P, _P, _P, _I, _P, _U],
         "halo_exchange",
     ),
     "weighted_relax": (
@@ -137,7 +138,7 @@ KERNELS = {
     ),
     "wire_encode": (
         "msbfs_wire_encode",
-        [_P, _L, _I, _L, _P, _P, _P, _P, _I],
+        [_P, _L, _I, _L, _P, _P, _P, _P, _U],
         "mesh_wire",
     ),
     "forest_max": (

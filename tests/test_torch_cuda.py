@@ -34,6 +34,7 @@ from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops i
     cuda_bfs,
     cuda_csr,
     cuda_flag_pull,
+    cuda_halo,
     cuda_mesh,
     cuda_mxu,
     cuda_push,
@@ -2152,43 +2153,107 @@ def test_halo_push_or_matches_plain(cuda, w):
         assert torch.equal(got.cpu(), want)
 
 
-@pytest.mark.parametrize("cap,bnd", [(4096, 8192), (37, 5), (5000, 2000)])
-def test_owner_push_expand_matches_plain(cuda, cap, bnd):
-    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
-        cuda_halo,
-    )
+def _expand_inputs(rng, case, w, cap, bnd):
+    """One shard's H3 call: (table, queue, count, frontier, hits, lo, n_pad,
+    bnd, ctrl).  ``road``: a road graph's shard; ``wide``: 1.1M slots of a
+    synthetic table (about 1 % boundary), the budget cut inside a tile,
+    exactly at a tile's edge, or above the whole count."""
     from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.parallel import (
         push_sharded,
     )
 
+    ctrl = torch.tensor([0 if case == "gated" else 1, 2, 0, 0], dtype=torch.int32)
+    if case == "wide":
+        L, width, b = 300_000, 4, 1
+        n_pad, lo = 4 * L, L
+        r = rng.random((L + 1, width))
+        table = np.where(r < 0.5, lo + rng.integers(0, L, r.shape),
+                         np.where(r < 0.51, (lo + L + rng.integers(0, 2 * L, r.shape)) % n_pad,
+                                  n_pad)).astype(np.int32)
+        table[L] = n_pad
+        queue = torch.from_numpy(rng.permutation(L).astype(np.int32))
+        listed = 280_000
+        v = table[queue.numpy()[:listed]].reshape(-1).astype(np.int64)
+        pos = np.flatnonzero((v < n_pad) & ((v < lo) | (v >= lo + L)))
+        tile = cuda_halo.EXPAND_TILE
+        if bnd == "inside":
+            k = next(k for k in range(pos.size // 2, pos.size)
+                     if pos[k] // tile == pos[k - 1] // tile)
+        elif bnd == "edge":
+            k = int((pos < tile * (pos[pos.size // 2] // tile)).sum())
+            assert pos[k] // tile != pos[k - 1] // tile
+        else:
+            k = pos.size + 100
+        frontier = _planes(rng, L, w)
+        count = torch.tensor([listed], dtype=torch.int32)
+        return (torch.from_numpy(table), queue, count, frontier, _planes(rng, L, w), lo, n_pad,
+                k, ctrl)
     n, edges = generators.road_edges(90, 90, seed=2)
-    p, w = 3, 2
+    p = 3
     stacked, L, n_pad, width = push_sharded.build_sharded_adjacency(
         CSRGraph.from_edges(n, edges), p)
-    rng = np.random.default_rng(cap)
-    for b in range(p):
-        frontier = _planes(rng, L, w)
-        frontier[torch.from_numpy(rng.random(L) < 0.6)] = 0
-        nz = torch.nonzero(frontier.ne(0).any(dim=1)).flatten().to(torch.int32)
-        queue = torch.full((min(cap, L),), L, dtype=torch.int32)
-        queue[: min(nz.numel(), queue.numel())] = nz[: queue.numel()]
-        count = torch.tensor([nz.numel()], dtype=torch.int32)
-        hits = _planes(rng, L, w) & 0x0F0F0F0F
+    b = int(rng.integers(0, p))
+    frontier = _planes(rng, L, w)
+    frontier[torch.from_numpy(rng.random(L) < 0.6)] = 0
+    if case == "listed0":
+        frontier.zero_()
+    nz = torch.nonzero(frontier.ne(0).any(dim=1)).flatten().to(torch.int32)
+    queue = torch.full((min(cap, L),), L, dtype=torch.int32)
+    queue[: min(nz.numel(), queue.numel())] = nz[: queue.numel()]
+    count = torch.tensor([nz.numel()], dtype=torch.int32)
+    if case == "over":
+        assert nz.numel() > queue.numel()
+    hits = _planes(rng, L, w) & 0x0F0F0F0F
+    return (torch.from_numpy(stacked[b]), queue, count, frontier, hits, b * L, n_pad, bnd, ctrl)
+
+
+@pytest.mark.parametrize("case,w,cap,bnd", [
+    ("road", 2, 4096, 8192), ("road", 2, 37, 5), ("road", 2, 5000, 2000),
+    ("road", 1, 5000, 7), ("road", 3, 4096, 3000),
+    ("wide", 1, None, "inside"), ("wide", 2, None, "edge"), ("wide", 3, None, "whole"),
+    ("listed0", 1, 4096, 16), ("over", 2, 100, 60), ("gated", 1, 4096, 16)])
+def test_owner_push_expand_matches_plain(cuda, case, w, cap, bnd):
+    """H3 bit for bit against its plain version, one launch a call: a
+    road shard; 1.1M slots (about 1,100 tiles contending) with the budget
+    cut inside a tile, at a tile's edge, or above the count; an empty
+    queue; a count above the capacity; gated off (outputs untouched).
+    Three calls in a row on one scratch, each on other inputs, so a stale
+    status word of the call before would show."""
+    rng = np.random.default_rng(w * 1000 + (cap or 0))
+    calls = [_expand_inputs(rng, case, w, cap, bnd) for _ in range(3)]
+    tiles = max(cuda_halo.expand_tiles(c[1].shape[0], c[0].shape[1]) for c in calls)
+    scratch = cuda_halo.ScanScratch(tiles, cuda)
+    for table, queue, count, frontier, hits, lo, n_pad, nb, ctrl in calls:
         outs = {}
         for where in ("plain", "card"):
             dev = torch.device("cpu") if where == "plain" else cuda
-            args = [torch.from_numpy(stacked[b]), queue, count, frontier, hits.clone(),
-                    b * L, n_pad, torch.zeros(bnd, dtype=torch.int32),
-                    torch.zeros((bnd, w), dtype=torch.int32),
-                    torch.zeros(1, dtype=torch.int32), torch.tensor([3], dtype=torch.int32),
-                    torch.tensor([1, 2, 0, 0], dtype=torch.int32)]
+            args = [table, queue, count, frontier, hits.clone(), lo, n_pad,
+                    torch.full((nb,), 7, dtype=torch.int32),
+                    torch.full((nb, w), 9, dtype=torch.int32),
+                    torch.zeros(1, dtype=torch.int32), torch.tensor([3], dtype=torch.int32), ctrl]
             args = [a.to(dev) if isinstance(a, torch.Tensor) else a for a in args]
-            fn = (cuda_halo.owner_push_expand_plain if where == "plain"
-                  else cuda_halo.owner_push_expand)
-            fn(*args)
+            timing.reset_launch_counts()
+            if where == "plain":
+                cuda_halo.owner_push_expand_plain(*args)
+            else:
+                cuda_halo.owner_push_expand(*args, scratch=scratch)
+                assert timing.launch_counts() == {"owner_push_expand": 1}
             outs[where] = [args[i].cpu() for i in (4, 7, 8, 9, 10)]
         for a, b_ in zip(outs["card"], outs["plain"]):
             assert torch.equal(a, b_)
+        if case == "gated":
+            assert torch.equal(outs["card"][0], hits)
+            assert (outs["card"][1] == 7).all() and (outs["card"][2] == 9).all()
+        if case == "wide" and bnd != "whole":
+            assert int(outs["card"][3]) > nb
+    # The scratch kept for the stream (no scratch given) on the last call.
+    args = [a.to(cuda) if isinstance(a, torch.Tensor) else a for a in
+            (table, queue, count, frontier, hits.clone(), lo, n_pad,
+             torch.full((nb,), 7, dtype=torch.int32), torch.full((nb, w), 9, dtype=torch.int32),
+             torch.zeros(1, dtype=torch.int32), torch.tensor([3], dtype=torch.int32), ctrl)]
+    cuda_halo.owner_push_expand(*args)
+    for a, b_ in zip([args[i].cpu() for i in (4, 7, 8, 9, 10)], outs["plain"]):
+        assert torch.equal(a, b_)
 
 
 @pytest.mark.parametrize("env", [{}, {"MSBFS_VSHARD": "2", "MSBFS_HALO_BUDGET": "64",
@@ -2260,29 +2325,51 @@ def test_chunk_merge_commit_matches_plain(cuda, acc, flag):
 
 
 @pytest.mark.parametrize("lanes", [1, 4])
-@pytest.mark.parametrize("total,density", [(1, 1.0), (5000, 0.01), (524288, 0.001),
-                                           (524288, 0.3), (262144 * 2, 0.0)])
-def test_wire_encode_matches_plain(cuda, lanes, total, density):
+@pytest.mark.parametrize("total,density,offset", [
+    (1, 1.0, 0), (5000, 0.01, 0), (524288, 0.001, 0), (524288, 0.3, 0), (262144 * 2, 0.0, 0),
+    (2**20 + 3, 0.05, 0), (2**20 + 3, 0.05, 1), (6147, 0.5, 3)])
+def test_wire_encode_matches_plain(cuda, lanes, total, density, offset):
     """Counts at, under and over the budget (the count whole even when
-    the list is cut), ascending indices, sentinels past the nonzero
-    words; decoded by H1 into zeros it is the plane inside the budget."""
-    rng = np.random.default_rng(total + lanes)
-    plane = _planes(rng, total, 1).view(-1)
-    plane[torch.from_numpy(rng.random(total) >= density)] = 0
-    if lanes == 4:
-        plane &= 0x01000100
-    nz = int((plane != 0).sum())
-    for budget in sorted({1, max(1, nz - 1), max(1, nz), nz + 17}):
-        want = cuda_mesh.wire_encode_plain(plane, budget, lanes)
-        got = cuda_mesh.wire_encode(plane.to(cuda), budget, lanes)
-        for a, b in zip(got, want):
-            assert torch.equal(a.cpu(), b), budget
+    the list is cut), the cut inside a tile and exactly at a tile's edge,
+    ascending indices, sentinels past the nonzero words, one launch a call;
+    a plane ``offset`` words into its buffer (misaligned for 16-byte
+    loads); the calls alternate between the plane and another on one
+    scratch, so a stale status word would show.  Decoded by H1 into zeros
+    it is the plane inside the budget."""
+    rng = np.random.default_rng(total + lanes + offset)
+    planes = []
+    for _ in range(2):
+        base = _planes(rng, total + offset, 1).view(-1)
+        base[torch.from_numpy(rng.random(total + offset) >= density)] = 0
+        if lanes == 4:
+            base &= 0x01000100
+        planes.append(base)
+    pos = torch.nonzero(planes[0][offset:]).flatten().numpy()
+    nz = pos.size
+    tile = cuda_mesh.ENCODE_TILE
+    budgets = {1, max(1, nz - 1), max(1, nz), nz + 17}
+    if nz > 2:
+        budgets.add(next((k for k in range(nz // 2, nz) if pos[k] // tile == pos[k - 1] // tile),
+                         nz))
+        budgets.add(max(1, int((pos < tile * (pos[nz // 2] // tile)).sum())))
+    scratch = cuda_halo.ScanScratch(cuda_mesh.encode_tiles(total), cuda)
+    on_card = [p.to(cuda) for p in planes]
+    for budget in sorted(budgets):
+        for which in (0, 1):
+            plane = planes[which][offset:]
+            want = cuda_mesh.wire_encode_plain(plane, budget, lanes)
+            timing.reset_launch_counts()
+            got = cuda_mesh.wire_encode(on_card[which][offset:], budget, lanes, scratch)
+            assert timing.launch_counts() == {"wire_encode": 1}
+            for a, b in zip(got, want):
+                assert torch.equal(a.cpu(), b), (budget, which)
         if budget >= nz:
+            got = cuda_mesh.wire_encode(on_card[0][offset:], budget, lanes)
             buf = torch.zeros(total, dtype=torch.int32, device=cuda)
             timing.reset_launch_counts()
             cuda_mesh.wire_decode(got.idx, got.words, buf)
             assert timing.launch_counts() == {"halo_pair_or": 1}
-            assert torch.equal(buf.cpu(), plane)
+            assert torch.equal(buf.cpu(), planes[0][offset:])
 
 
 @pytest.mark.parametrize("max_levels,kpad", [(None, 32), (3, 32), (None, 64)])

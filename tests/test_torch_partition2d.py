@@ -257,12 +257,19 @@ def test_chunk_merge_commit_matches_neg_commit(with_acc):
         np.testing.assert_array_equal(acc.numpy(), np.asarray(delta))
 
 
-@pytest.mark.parametrize("lanes", [cuda_mesh.WORD_LANES, cuda_mesh.BYTE_LANES])
-def test_wire_encode_counts_at_under_and_over_budget(lanes):
+@pytest.mark.parametrize("lanes,shape,density", [
+    pytest.param(lanes, shape, density,
+                 id=str(lanes) + ("" if shape == (40, 2) else f"-{shape[0]}x{shape[1]}"))
+    for shape, density in [((40, 2), 0.3), ((1, 1), 1.0), ((3000, 2), 0.0), ((2049, 3), 0.6)]
+    for lanes in (cuda_mesh.WORD_LANES, cuda_mesh.BYTE_LANES)])
+def test_wire_encode_counts_at_under_and_over_budget(lanes, shape, density):
     """M2's count is whole whatever the budget (bytes on a byte plane, as
-    JAX counts its uint8 lanes), the list ascending with sentinels."""
-    rng = np.random.default_rng(lanes)
-    plane = np.where(rng.random((40, 2)) < 0.3, rng.integers(1, 255, (40, 2)), 0)
+    JAX counts its uint8 lanes), the list ascending with sentinels; a
+    one-word plane, an empty one, and one of several of the kernel's
+    tiles, against JAX's ``active_word_count`` and
+    ``encode_words_sparse``."""
+    rng = np.random.default_rng(lanes + shape[0])
+    plane = np.where(rng.random(shape) < density, rng.integers(1, 255, shape), 0)
     if lanes == cuda_mesh.BYTE_LANES:
         plane = plane & 0x00FF00FF
         want = int((plane.astype(np.int32).view(np.uint8) != 0).sum())
@@ -270,13 +277,18 @@ def test_wire_encode_counts_at_under_and_over_budget(lanes):
         want = int((plane != 0).sum())
     t = torch.from_numpy(plane.astype(np.int32))
     nz = int((plane != 0).sum())
-    for budget in (1, max(1, nz - 1), nz, nz + 5):
+    for budget in sorted({1, max(1, nz - 1), max(1, nz), nz + 5}):
         enc = cuda_mesh.wire_encode(t, budget, lanes)
         assert int(enc.count) == want
         ids = np.flatnonzero(plane.reshape(-1))[:budget]
         np.testing.assert_array_equal(enc.idx.numpy()[: ids.size], ids)
         assert (enc.idx.numpy()[ids.size:] == plane.size).all()
         assert (enc.words.numpy()[ids.size:] == 0).all()
+        if lanes == cuda_mesh.WORD_LANES:
+            jidx, jwords = jp.encode_words_sparse(jnp.asarray(plane.astype(np.int32)), budget)
+            np.testing.assert_array_equal(enc.idx.numpy(), np.asarray(jidx))
+            np.testing.assert_array_equal(enc.words.numpy(), np.asarray(jwords))
+            assert int(enc.count) == int(jp.active_word_count(jnp.asarray(plane.astype(np.int32))))
 
 
 def _tile_graphs(workload, rows=2, cols=2):

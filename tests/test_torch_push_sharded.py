@@ -176,11 +176,15 @@ def test_sharded_adjacency_and_defaults_match_jax(graphs):
         assert ps.default_boundary(cap, width) == jps.default_boundary(cap, width)
 
 
-@pytest.mark.parametrize("cap,bnd", [(64, 64), (5, 3)])
-def test_owner_push_expand_plain_matches_jax(graphs, cap, bnd):
+@pytest.mark.parametrize("cap,bnd,mode", [
+    pytest.param(64, 64, "live", id="64-64"), pytest.param(5, 3, "live", id="5-3"),
+    pytest.param(64, 1, "live", id="64-1"), pytest.param(64, 64, "empty", id="64-64-empty"),
+    pytest.param(64, 16, "gated", id="64-16-gated")])
+def test_owner_push_expand_plain_matches_jax(graphs, cap, bnd, mode):
     """H3 and H1, one owner-partitioned push level on every shard (with a
-    truncated queue and boundary in the second case), against JAX's
-    ``_push_level`` under shard_map over the same (1, p) shards."""
+    truncated queue and boundary, a budget of one pair, no listed row),
+    against JAX's ``_push_level`` under shard_map over the same (1, p)
+    shards; gated off, H3 leaves every output as it was."""
     n, edges, padded, jg, g = graphs["road40"]
     p = 4
     stacked, L, n_pad, width = ps.build_sharded_adjacency(g, p)
@@ -188,6 +192,23 @@ def test_owner_push_expand_plain_matches_jax(graphs, cap, bnd):
     w = 2
     frontier = rng.integers(0, 2**32, (p, L, w), dtype=np.uint64).astype(np.uint32)
     frontier[rng.random((p, L)) < 0.97] = 0
+    if mode == "empty":
+        frontier[:] = 0
+    if mode == "gated":
+        for b in range(p):
+            outs = [torch.full((L, w), 5, dtype=torch.int32), torch.full((bnd,), 7, dtype=torch.int32),
+                    torch.full((bnd, w), 9, dtype=torch.int32), torch.full((1,), 2, dtype=torch.int32),
+                    torch.full((1,), 3, dtype=torch.int32)]
+            before = [t.clone() for t in outs]
+            nz = np.flatnonzero(frontier[b].any(axis=1)).astype(np.int32)
+            cuda_halo.owner_push_expand(
+                torch.from_numpy(stacked[b]), torch.from_numpy(nz),
+                torch.tensor([len(nz)], dtype=torch.int32),
+                torch.from_numpy(frontier[b].view(np.int32)), outs[0], b * L, n_pad, *outs[1:],
+                torch.tensor([0, 0, 0, 0], dtype=torch.int32))
+            for a, b_ in zip(outs, before):
+                assert torch.equal(a, b_)
+        return
     visited = frontier | np.where(rng.random((p, L, w)) < 0.2, 0xFFFF, 0).astype(np.uint32)
     jm = jmesh.make_mesh(1, p, devices=jax.devices()[:p])
 
