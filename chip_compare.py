@@ -14,9 +14,9 @@ builds its own kernels).  Per TREE and route (stencil road-4096 K = 16,
 mxu RMAT-14 K = 64 and road-512 K = 16, bitbell, bell and streamed
 RMAT-20 K = 64, low-K RMAT-20 K = 4 and K = 1, low-K RMAT-16 K = 1, push
 and ppush road-4096 K = 16, vmap and packed RMAT-20 K = 64, weighted
-RMAT-20 K = 64 and road-512 K = 8 (three flavors), vshard4 and mesh2d
-ring road-1024 K = 16 at ``-gn 4``; ``--routes`` keeps the named ones
-only):
+RMAT-20 K = 64 and road-512 K = 8 (three flavors), vshard4, mesh2d
+ring and mesh2d async road-1024 K = 16 at ``-gn 4``; ``--routes`` keeps
+the named ones only):
 
 - the batch start (``engine._init_carry``): its host ms (median of 20,
   up to a synchronise), its device operations (torch.profiler) and its
@@ -55,6 +55,14 @@ only):
   and the device's busy share of it (every kernel's time over the run's
   wall time), and the wall ms of an untimed run; the CLI span with
   ``mesh_devices``;
+- on the 2D mesh's road-1024 routes (ring, and the async drive at
+  ``MSBFS_ASYNC_LEVELS=4``, as phase 16 builds them), one ``f_values`` run
+  with each launch of M4 ``forest_max``, K1s ``forest_gather``, H1
+  ``halo_pair_or`` and M1 ``chunk_merge`` timed alone: their launches and
+  sums, every kernel's launch and variant counts, the zero fills and the
+  busy share of a profiled run; on the async route also M4's whole-forest
+  call (the parent's M4 and forest_gather, or the take form) on its widest
+  and thinnest tiles, re-timed alone;
 - on the weighted routes (``MSBFS_WEIGHTED=1``: RMAT-20 K = 64 and
   road-512 K = 8 groups of up to 8, costs ``edge_costs(m, "uniform", 16,
   3)`` as ``chip_smoke.py`` phase 11 makes them; road-512 also with the
@@ -188,6 +196,7 @@ ROUTES = {
                                                        "MSBFS_WEIGHTED_ENGINE": "mesh2d"}),
     "vshard4 road-1024": ("road-1024", {"MSBFS_VSHARD": "4"}),
     "mesh2d ring road-1024": ("road-1024", {"MSBFS_MESH": "2x2", "MSBFS_MERGE_TREE": "ring"}),
+    "mesh2d async road-1024": ("road-1024", {"MSBFS_MESH": "2x2", "MSBFS_ASYNC_LEVELS": "4"}),
 }
 LEVEL_ROUTES = ("lowk rmat-16 K=1", "lowk rmat-20 K=4")
 BUSY_ROUTES = ("lowk rmat-16 K=1", "lowk rmat-20 K=4", "bitbell rmat-20", "mxu road-512")
@@ -201,7 +210,15 @@ WEIGHTED_ROUTES = ("weighted rmat-20", "weighted road-512", "weighted-stencil ro
                    "weighted-mesh2d road-512")
 # The mesh routes: -gn 4 over a logical mesh of four entries on cuda:0.
 MESH_SHARDS = 4
-MESH_ROUTES = ("vshard4 road-1024", "mesh2d ring road-1024")
+MESH_ROUTES = ("vshard4 road-1024", "mesh2d ring road-1024", "mesh2d async road-1024")
+# The 2D mesh's kernels whose launches are each timed alone over one run
+# (M4, K1s's final take, H1, M1), and the profiler's names of their
+# kernels (and of the zero fills beside them).
+MESH2D_KERNELS = {"forest_max": ("forest_max_kernel",),
+                  "forest_gather": ("forest_gather_kernel",),
+                  "halo_pair_or": ("pair_or_kernel",),
+                  "chunk_merge": ("chunk_merge_kernel", "chunk_commit_kernel")}
+FILL_NAMES = ("FillFunctor", "Memset")
 # Device cycles slept before each launch of a run timed alone (about 0.5
 # ms): the wrapper's host time falls in the sleep, not between the events.
 LAUNCH_SLACK = 1_000_000
@@ -515,7 +532,7 @@ def _mesh_run(torch, dev, files, route):
 
         def make():
             return partition2d.Mesh2DEngine(mesh.make_mesh2d(2, 2, devices=devices), g,
-                                            merge_tree="ring")
+                                            **_mesh2d_kwargs(route))
 
         def size(args, kwargs, out):
             return torch.stack([out.count[0], out.count[0].new_ones(())])
@@ -563,8 +580,10 @@ def _mesh_run(torch, dev, files, route):
     ms = [ev[0].elapsed_time(ev[1]) for ev, _ in calls]
     sizes = [[int(x) for x in sz.tolist()] for _, sz in calls]
     live = [i for i, (_, go) in enumerate(sizes) if go]
-    picks = {"widest": max(live, key=lambda i: sizes[i][0]),
-             "thin": next(i for i in live if 0 < sizes[i][0] < THIN)}
+    picks = {"widest": max(live, key=lambda i: sizes[i][0])}
+    thin = next((i for i in live if 0 < sizes[i][0] < THIN), None)
+    if thin is not None:
+        picks["thin"] = thin
     snaps, seen = {}, [0]
 
     def keeping(*args, **kwargs):
@@ -609,8 +628,128 @@ def _mesh_run(torch, dev, files, route):
                 profiler_sum_ms=sum(kern), profiler_events=len(kern),
                 profiled_run_ms=profiled_wall, device_busy_ms=busy,
                 busy_share=busy / profiled_wall,
-                widest=alone["widest"], thin=alone["thin"],
+                widest=alone["widest"], thin=alone.get("thin"),
                 untimed_run_ms=wall, bounds=bounds,
+                winner=int(np.argmin(f)) + 1, min_f=int(f.min()))
+
+
+def _mesh2d_kwargs(route):
+    return dict(async_levels=4) if "async" in route else dict(merge_tree="ring")
+
+
+def _mesh2d_kernels(torch, dev, files, route):
+    """One ``f_values`` run of a fresh 2D mesh engine with each launch of
+    M4, forest_gather, H1 and M1 timed alone (CUDA events behind a queued
+    device sleep): launches and summed ms a kernel, and every kernel's
+    launches and variants over the run; one run under torch.profiler: the
+    device's busy share, those kernels' own time and the zero fills (fill
+    kernels and memsets) beside them; on the async route, M4's whole-forest
+    call (``forest_max_hits``: the parent's M4 and forest_gather, or the
+    take form) on its widest and thinnest tiles, recorded and timed again
+    alone (median of 10)."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.parallel import (
+        mesh, partition2d,
+    )
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.runtime import (
+        kernels,
+    )
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.utils import (
+        io as tio,
+        timing,
+    )
+
+    gpath, qpath = files[ROUTES[route][0]]
+    g = tio.load_graph_bin(gpath)
+    q = tio.pad_queries(tio.load_query_bin(qpath))
+
+    def make():
+        return partition2d.Mesh2DEngine(mesh.make_mesh2d(2, 2, devices=[dev] * MESH_SHARDS), g,
+                                        **_mesh2d_kwargs(route))
+
+    real_launch, real_hits = kernels.launch, partition2d.forest_max_hits
+    events = {k: [] for k in MESH2D_KERNELS}
+
+    def timed(name, device, *args, **kwargs):
+        if name not in events:
+            return real_launch(name, device, *args, **kwargs)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda._sleep(LAUNCH_SLACK)
+        ev[0].record()
+        out = real_launch(name, device, *args, **kwargs)
+        ev[1].record()
+        events[name].append(ev)
+        return out
+
+    calls = {}
+
+    def keeping(frontier, graph, hits, floor, go, scratch=None):
+        slots = sum(int(c.shape[0]) for c in graph.level_cols)
+        for which, better in (("widest", lambda a, b: a > b), ("thin", lambda a, b: a < b)):
+            if which not in calls or better(slots, calls[which][0]):
+                calls[which] = (slots, (frontier.clone(), graph, hits.clone(), floor, go.clone(),
+                                        scratch))
+        return real_hits(frontier, graph, hits, floor, go, scratch)
+
+    eng = make()
+    torch.cuda.synchronize()
+    timing.reset_launch_counts()
+    kernels.launch = timed
+    if "async" in route:
+        partition2d.forest_max_hits = keeping
+    gc.collect()
+    gc.disable()  # a collection inside a timed launch would land between its events
+    t0 = time.perf_counter()
+    try:
+        f = eng.f_values(q).cpu().numpy()
+    finally:
+        wall = (time.perf_counter() - t0) * 1e3
+        gc.enable()
+        kernels.launch, partition2d.forest_max_hits = real_launch, real_hits
+    torch.cuda.synchronize()
+    launches, variants = timing.launch_counts(), timing.variant_counts()
+    ms = {k: [e0.elapsed_time(e1) for e0, e1 in evs] for k, evs in events.items()}
+    del eng
+    alone = {}
+    for which, (slots, snap) in calls.items():
+        times = []
+        for i in range(12):
+            frontier, graph, hits, floor, go, scratch = snap
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            torch.cuda._sleep(HOST_SLACK)
+            ev[0].record()
+            real_hits(frontier, graph, hits, floor, go, scratch)
+            ev[1].record()
+            ev[1].synchronize()
+            if i >= 2:
+                times.append(ev[0].elapsed_time(ev[1]))
+        alone[which] = dict(slots=slots, levels=len(snap[1].level_cols), ms=_median(times))
+    eng = make()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        f2 = eng.f_values(q).cpu().numpy()
+        torch.cuda.synchronize()
+        profiled_wall = (time.perf_counter() - t0) * 1e3
+    del eng
+    assert np.array_equal(f, f2), route
+    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in device) / 1e3
+    profiled = {k: sum(e.time_range.elapsed_us() for e in device
+                       if any(n in e.name for n in names)) / 1e3
+                for k, names in MESH2D_KERNELS.items()}
+    fills = [e for e in device if any(n in e.name for n in FILL_NAMES)]
+    return dict(launches=launches, variants=variants,
+                timed_launches={k: len(v) for k, v in ms.items()},
+                sum_ms={k: sum(v) for k, v in ms.items()},
+                total_ms=sum(sum(v) for v in ms.values()),
+                profiler_ms=profiled, profiler_total_ms=sum(profiled.values()),
+                zero_fills=len(fills), zero_fill_ms=sum(e.time_range.elapsed_us()
+                                                        for e in fills) / 1e3,
+                device_busy_ms=busy, profiled_run_ms=profiled_wall,
+                busy_share=busy / profiled_wall, timed_run_ms=wall, forest_max_hits=alone,
                 winner=int(np.argmin(f)) + 1, min_f=int(f.min()))
 
 
@@ -858,7 +997,7 @@ def child(tree: str, files: dict, reps: int, routes) -> dict:
     dev = torch.device("cuda", 0)
     kernels.library()
     out = dict(tree=tree, batch_start={}, levels={}, busy={}, cli={}, push_bfs={}, csr_bfs={},
-               weighted={}, mesh={})
+               weighted={}, mesh={}, mesh2d={})
     engines = _engines(torch, dev, files, routes)
     for route, (eng, q) in engines.items():
         out["batch_start"][route] = _batch_start(torch, eng, q)
@@ -882,6 +1021,9 @@ def child(tree: str, files: dict, reps: int, routes) -> dict:
     for route in (r for r in MESH_ROUTES if r in routes):
         out["mesh"][route] = _mesh_run(torch, dev, files, route)
         torch.cuda.empty_cache()
+        if route.startswith("mesh2d"):
+            out["mesh2d"][route] = _mesh2d_kernels(torch, dev, files, route)
+            torch.cuda.empty_cache()
     for route in routes:
         data, knobs = ROUTES[route]
         gpath, qpath = files[data]
@@ -962,6 +1104,11 @@ def _summary(runs):
                                        "profiler_sum_ms", "profiler_events", "busy_share",
                                        "widest", "thin", "untimed_run_ms", "bounds", "min_f")}
                      for route in rs[0]["mesh"]}
+        t["mesh2d"] = {route: {k: [x["mesh2d"][route][k] for x in rs]
+                               for k in ("launches", "sum_ms", "total_ms", "profiler_ms",
+                                         "profiler_total_ms", "zero_fills", "zero_fill_ms",
+                                         "busy_share", "forest_max_hits", "min_f")}
+                       for route in rs[0]["mesh2d"]}
     return out
 
 

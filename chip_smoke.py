@@ -333,16 +333,20 @@ non-zero; nothing is caught):
    through K1s), "mesh2d reshard rmat-20" (pipelined, a ``chip:rank1:1``
    loss rebuilt on the 1x2 survivor row), "mesh2d ring road-1024" (its
    sparse levels in the wire trace of an engine run of its own),
-   "mesh2d async road-1024" (``MSBFS_ASYNC_LEVELS=4``: M4 and M1's
-   commit, fewer collective rounds than levels), "mesh2d byte rmat-16"
+   "mesh2d async road-1024" (``MSBFS_ASYNC_LEVELS=4``: M4 with the
+   final take in its launch, no forest_gather, and M1's commit, fewer
+   collective rounds than levels), "mesh2d byte rmat-16"
    (phase 5a's K = 1 on byte planes through flag_pull, one-shot tree)
    and "mesh2d mxu rmat-14" (phase 4's K = 64, tile_hits on the matmul
-   levels); M1 ``chunk_merge``, M2 ``wire_encode`` and M4
-   ``forest_max`` recorded call by call in the ring and async engine
-   runs, held bit for bit against their plain versions and timed beside
-   their bounds (M2's every launch of the ring run also timed alone: its
-   sum); the phase's seconds. ``--phases 16`` runs it alone on data of
-   its own (the same seeds);
+   levels); the road-1024 paths' H1, M1, M4 and forest_gather launches
+   (every sparse gather one H1 launch of its segmented form); M1
+   ``chunk_merge``, M2 ``wire_encode``, M4 ``forest_max`` (its take form;
+   the same level without the take, and followed by forest_gather) and
+   H1's segmented form (beside one ``index_put_``) recorded call by call
+   in the ring and async engine runs, held bit for bit against their
+   plain versions and timed beside their bounds (M2's every launch of the
+   ring run also timed alone: its sum); the phase's seconds.
+   ``--phases 16`` runs it alone on data of its own (the same seeds);
 then the ``{"kernels": [...]}`` line and the final ``{"ok": true, ...}``.
 Phases 5b, 9, 11 and 13 print their steps' seconds ("... steps s:"
 lines).
@@ -431,7 +435,7 @@ PATH_KERNELS = {
     "mesh2d rmat-20": ("batch_start", "forest_or", "wire_encode", "chunk_merge", "level_apply"),
     "mesh2d ring road-1024": ("batch_start", "forest_or", "wire_encode", "halo_pair_or",
                               "chunk_merge", "level_apply"),
-    "mesh2d async road-1024": ("batch_start", "forest_max", "forest_gather", "wire_encode",
+    "mesh2d async road-1024": ("batch_start", "forest_max", "wire_encode", "halo_pair_or",
                                "chunk_merge"),
     "mesh2d byte rmat-16": ("batch_start", "flag_pull", "wire_encode", "chunk_merge",
                             "level_apply"),
@@ -5719,12 +5723,13 @@ def _mesh2d_phase(ctx, rmat, road, rmat16, rmat14, seed):
     entries on the card: RMAT-20 K = 64 (defaults; streamed; a chip loss
     rebuilt on the 1x2 survivor row, pipelined), road-1024 K = 16 (ring
     with the sparse wire; the async drive), RMAT-16 K = 1 on byte planes
-    (one-shot) and RMAT-14 K = 64 on the mxu kernel; then M1, M2 and M4
-    recorded call by call in engine runs of their own and held against
-    their plain versions."""
+    (one-shot) and RMAT-14 K = 64 on the mxu kernel; then M1, M2, M4's
+    take form and H1's segmented form recorded call by call in engine runs
+    of their own and held against their plain versions."""
     torch, np, sp, cg, cli, tio, timing, generators, launches, tmp, dev = ctx
     t_phase = time.perf_counter()
     from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
+        cuda_halo,
         cuda_mesh,
     )
     from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.parallel import (
@@ -5760,6 +5765,23 @@ def _mesh2d_phase(ctx, rmat, road, rmat16, rmat14, seed):
     rows["mesh2d async road-1024"] = _mesh2d_path(
         pctx, "mesh2d async road-1024", road, dict(MSBFS_ASYNC_LEVELS="4"), single["road1024"])
     assert "chunk_merge:max/commit" in VARIANTS["mesh2d async road-1024"]
+    # A one-level road forest is one M4 launch with the final take in it (no
+    # forest_gather), and every sparse gather one H1 launch: fewer launches
+    # than a launch a segment and an M1 merge a sparse OR col leg gave on
+    # this data (H1 4332 ring / 800 async, chunk_merge 1736 ring; M4 1748
+    # and as many forest_gather).
+    ring_n = launches["mesh2d ring road-1024"]
+    async_n = launches["mesh2d async road-1024"]
+    assert "forest_gather" not in async_n and async_n["forest_max"] <= 1748, async_n
+    assert VARIANTS["mesh2d async road-1024"].get("forest_max:cand/take") == async_n["forest_max"]
+    assert ring_n["halo_pair_or"] < 4332 and async_n["halo_pair_or"] < 800, (ring_n, async_n)
+    assert ring_n["chunk_merge"] < 1736, ring_n
+    for path in ("mesh2d ring road-1024", "mesh2d async road-1024"):
+        assert VARIANTS[path].get("halo_pair_or:seg") == launches[path]["halo_pair_or"], path
+    print("mesh2d road-1024 gathers and folds: " + json.dumps({
+        path: {k: launches[path].get(k, 0)
+               for k in ("halo_pair_or", "chunk_merge", "forest_max", "forest_gather")}
+        for path in ("mesh2d ring road-1024", "mesh2d async road-1024")}))
     rows["mesh2d byte rmat-16"] = _mesh2d_path(
         pctx, "mesh2d byte rmat-16", rmat16,
         dict(MSBFS_MESH_PLANE="byte", MSBFS_MERGE_TREE="oneshot"), single["rmat16"])
@@ -5793,8 +5815,26 @@ def _mesh2d_phase(ctx, rmat, road, rmat16, rmat14, seed):
         lanes = args[2] if len(args) > 2 else kwargs.get("lanes", 1)
         return int((plane != 0).sum()), lambda: (plane.clone(), budget, lanes)
 
+    def picks_gather(overlap):
+        # The gathers whose segments land on disjoint rows (row gathers, MAX
+        # col legs), or (``overlap``) on shared rows: an OR col leg's peers
+        # all land on the own plane and OR together across segments.
+        def pick(args, kwargs):
+            segs, plane = list(args[0]), args[1]
+            spans = sorted((x.base, x.base + x.rows) for x in segs)
+            if any(a[1] > b[0] for a, b in zip(spans, spans[1:])) != overlap:
+                return 0, None
+            valid = torch.stack([((x.ids - x.lo >= 0) & (x.ids - x.lo < x.rows)).sum()
+                                 for x in segs]).sum()
+            return int(valid), lambda: ([x._replace(ids=x.ids.clone(), words=x.words.clone())
+                                         for x in segs], plane.clone())
+
+        return pick
+
     t0 = time.perf_counter()
     with _record(cuda_mesh, "chunk_merge", pick_merge) as m1, \
+            _record(cuda_mesh, "halo_pair_or_segments", picks_gather(False)) as h1s, \
+            _record(cuda_mesh, "halo_pair_or_segments", picks_gather(True)) as h1o, \
             _record(partition2d, "wire_encode", pick_encode, timed=True) as m2:
         trace = eng.wire_trace(padded1)
     trace_s = time.perf_counter() - t0
@@ -5811,11 +5851,13 @@ def _mesh2d_phase(ctx, rmat, road, rmat16, rmat14, seed):
     # and M1's commit recorded call by call.
     eng = partition2d.Mesh2DEngine(mesh4, g1, async_levels=4, level_chunk=128)
 
-    def pick_max(args, kwargs):
-        prev, prev_rows, cols, tables, i, out = args[:6]
-        floor = args[6] if len(args) > 6 else kwargs.get("floor")
+    def pick_take(args, kwargs):
+        prev, prev_rows, cols, tables, i, scratch, last_off, final_slot, hits, go = args[:10]
+        floor = args[10] if len(args) > 10 else kwargs.get("floor")
         slots = sum(r * c for r, c in tables.pieces[i])
-        return slots, lambda: (prev.clone(), prev_rows, cols, tables, i, out.clone(), floor)
+        return slots, lambda: (prev.clone(), prev_rows, cols, tables, i,
+                               None if scratch is None else scratch.clone(), last_off,
+                               final_slot, hits.clone(), go.clone(), floor)
 
     def pick_commit(args, kwargs):
         commit = kwargs.get("commit")
@@ -5828,8 +5870,9 @@ def _mesh2d_phase(ctx, rmat, road, rmat16, rmat14, seed):
 
     timing.reset_collective_rounds()
     t0 = time.perf_counter()
-    with _record(cuda_mesh, "forest_max", pick_max) as m4, \
-            _record(cuda_mesh, "chunk_merge", pick_commit) as m1c:
+    with _record(cuda_mesh, "forest_max_take", pick_take) as m4, \
+            _record(cuda_mesh, "chunk_merge", pick_commit) as m1c, \
+            _record(cuda_mesh, "halo_pair_or_segments", picks_gather(False)) as h1c:
         f_async = eng.f_values(padded1).cpu().numpy()
     async_s = time.perf_counter() - t0
     rounds = timing.collective_rounds()
@@ -5852,10 +5895,11 @@ def _mesh2d_phase(ctx, rmat, road, rmat16, rmat14, seed):
         print("distinct cards: mesh2d not run over distinct cards (this machine has "
               f"{torch.cuda.device_count()} card); the peer copies between cards are unproven")
 
-    # ---- M1, M2 and M4 against their plain versions on their widest
-    # recorded calls.  No single torch call encodes a sparse wire or folds a
-    # forest, so only M1 (two chunks: one bitwise_or or maximum) has a
-    # library time.
+    # ---- M1, M2, M4 and H1's segmented form against their plain versions on
+    # their widest recorded calls.  M1 (two chunks: one bitwise_or or
+    # maximum), M4 (a take, an amax a bucket and the final take) and the
+    # gather (one index_put_ of the rebased pairs) have library times; no
+    # torch call encodes a sparse wire.
     shape = {}
     parts, out, op = m1["snap"]
     words = out.numel()
@@ -5904,24 +5948,135 @@ def _mesh2d_phase(ctx, rmat, road, rmat16, rmat14, seed):
     shape["wire_encode"].update(words=total, budget=budget, count=m2["weight"], lanes=lanes,
                                 run_sum_ms=m2["sum_ms"], run_launches=m2["calls"],
                                 run="mesh2d ring road-1024 wire_trace, a level a step")
-    prev, prev_rows, cols, tables, i, outm, floor = m4["snap"]
-    pieces = tables.pieces[i]
-    slots = sum(r * c_ for r, c_ in pieces)
-    w = prev.shape[1]
-    live = int((cols[:slots] < prev_rows).sum())
-    shape["forest_max"] = _hold(
-        torch, cuda_mesh.forest_max,
-        lambda pv, pr, cl, tb, ii, o, fl: cuda_mesh.forest_max_plain(
-            pv, pr, cl[: sum(r * c_ for r, c_ in tb.pieces[ii])], tb.pieces[ii], o, fl),
-        lambda: (prev, prev_rows, cols, tables, i, outm.clone(), floor), lambda a: [a[5]],
-        4 * slots + 4 * w * live + 4 * w * outm.shape[0])
-    shape["forest_max"].update(slots=slots, live_slots=live, rows=int(outm.shape[0]), w=w,
-                               cand=floor is not None)
-    for name, row in (*shape.items(), ("chunk_merge:max/commit", commit_row)):
+    extra = {"forest_max:level": _mesh2d_m4(torch, cuda_mesh, shape, m4["snap"]),
+             "halo_pair_or:seg": _mesh2d_gather(
+                 torch, cuda_halo, max((h1s, h1c), key=lambda r: r.get("weight", -1))["snap"]),
+             "halo_pair_or:seg overlapping": _mesh2d_gather(
+                 torch, cuda_halo, h1o["snap"], overlap=True)}
+    for name, row in (*shape.items(), ("chunk_merge:max/commit", commit_row), *extra.items()):
         print(f"compare mesh2d {name} (widest recorded call): " + json.dumps(row))
         assert row["max_abs_err"] == 0, (name, row)
     print(f"phase 16: {time.perf_counter() - t_phase:.1f} s; card: {CARD}")
     return shape
+
+
+def _mesh2d_m4(torch, cuda_mesh, shape, snap):
+    """M4 on its widest recorded call (the async path's take form): the
+    take held and timed as the kernel line's row, with its library chain
+    (the candidate step, a take, an amax a bucket, the final take); then
+    the same level without the take (into scratch rows), and that level
+    followed by K1s's forest_gather, the two launches the take replaced.
+    Returns the level form's row."""
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
+        cuda_bell,
+    )
+
+    prev, prev_rows, cols, tables, i, scratch, last_off, final_slot, hits, go, floor = snap
+    pieces = tables.pieces[i]
+    slots = sum(r * c for r, c in pieces)
+    rows = sum(r for r, _ in pieces)
+    n, w = hits.shape
+    live_cols = cols[:slots][cols[:slots] < prev_rows]
+    live = int(live_cols.numel())
+    # A source row is read once however many live slots name it.
+    distinct = int(torch.unique(live_cols).numel())
+    slot = final_slot.long()
+    copied = int((slot < last_off).sum())
+    shape["forest_max"] = _hold(
+        torch, cuda_mesh.forest_max_take,
+        lambda pv, pr, cl, tb, ii, sc, lo, fs, h, g, fl: cuda_mesh.forest_max_take_plain(
+            pv, pr, cl, tb.pieces[ii], sc, lo, fs, h, g, fl),
+        lambda: (prev, prev_rows, cols, tables, i, scratch, last_off, final_slot, hits.clone(),
+                 go, floor),
+        lambda a: [a[8]], 4 * slots + 4 * w * distinct + 4 * n + 4 * w * (n + copied))
+    got = hits.clone()
+    cuda_mesh.forest_max_take(prev, prev_rows, cols, tables, i, scratch, last_off, final_slot,
+                              got, go, floor)
+    # The library chain: every step a torch call on the same inputs.
+    index = cols[:slots].long()
+    vbuf = torch.zeros((last_off + rows + 1, w), dtype=torch.int32, device=hits.device)
+    if last_off:
+        vbuf[:last_off].copy_(scratch[:last_off])
+    lib_hits = torch.empty_like(hits)
+
+    def library(take=True):
+        v = prev[:prev_rows] if floor is None else cuda_mesh._cand(prev[:prev_rows], floor)
+        g = torch.index_select(torch.cat([v, v.new_zeros((1, w))]), 0, index)
+        at = row = 0
+        for r, c in pieces:
+            torch.amax(g[at : at + r * c].view(r, c, w), 1,
+                       out=vbuf[last_off + row : last_off + row + r])
+            at, row = at + r * c, row + r
+        if take:
+            torch.index_select(vbuf, 0, slot, out=lib_hits)
+
+    library()
+    assert torch.equal(lib_hits, got), "M4's library chain disagrees with the kernel"
+    shape["forest_max"].update(
+        library_ms=_time_ms(torch, library, lambda: None), slots=slots, live_slots=live,
+        source_rows=distinct, level_rows=rows, rows=n, copied_rows=copied, w=w, cand=floor is not None,
+        levels_before=int(last_off > 0), variant="take")
+    # The same level without the take: its rows into scratch (the level form).
+    level = _hold(
+        torch, cuda_mesh.forest_max,
+        lambda pv, pr, cl, tb, ii, o, fl: cuda_mesh.forest_max_plain(
+            pv, pr, cl[:slots], tb.pieces[ii], o, fl),
+        lambda: (prev, prev_rows, cols, tables, i,
+                 torch.empty((rows, w), dtype=torch.int32, device=hits.device), floor),
+        lambda a: [a[5]], 4 * slots + 4 * w * distinct + 4 * w * rows)
+    level["library_ms"] = _time_ms(torch, lambda: library(take=False), lambda: None)
+    v_cat = torch.zeros((last_off + rows + 1, w), dtype=torch.int32, device=hits.device)
+    if last_off:
+        v_cat[:last_off].copy_(scratch[:last_off])
+    split_hits = hits.clone()
+
+    def split():
+        cuda_mesh.forest_max(prev, prev_rows, cols, tables, i, v_cat[last_off : last_off + rows],
+                             floor)
+        cuda_bell.forest_final_gather(v_cat, final_slot, split_hits, go)
+
+    split()
+    assert torch.equal(split_hits, got), "the level and forest_gather disagree with the take"
+    level.update(level_and_forest_gather_ms=_time_ms(torch, split, lambda: None),
+                 take_ms=shape["forest_max"]["ms"], slots=slots, live_slots=live,
+                 source_rows=distinct, rows=rows, w=w)
+    return level
+
+
+def _mesh2d_gather(torch, cuda_halo, snap, overlap=False):
+    """H1's segmented form on its widest recorded gather of the 2D mesh
+    (row gathers and sparse col legs, both mesh2d road-1024 runs), held
+    against its plain version; its library time is one index_put_ of the
+    pairs rebased outside the timing (the sentinels re-clamped to a
+    scratch word past the plane, as JAX does), into zeros: the recorded
+    decodes land unique indices on zeroed planes.  ``overlap``: the
+    widest gather whose segments share rows (a sparse OR col leg, its
+    duplicates ORed across segments), held the same way; index_put_ does
+    not OR duplicates, so it has no library time."""
+    segs, plane = snap
+    w = plane.shape[1]
+    ids = [x.ids.long() - x.lo for x in segs]
+    ok = [(r >= 0) & (r < x.rows) for r, x in zip(ids, segs)]
+    valid = int(sum(int(m.sum()) for m in ok))
+    flat = torch.cat([torch.where(m, r + x.base, plane.shape[0]) for r, m, x in zip(ids, ok, segs)])
+    vals = torch.cat([x.words for x in segs])
+    landed = int(torch.unique(flat[flat < plane.shape[0]]).numel())
+    row = _hold(torch, cuda_halo.halo_pair_or_segments, cuda_halo.halo_pair_or_segments_plain,
+                lambda: (segs, plane.clone()), lambda a: [a[1]],
+                4 * flat.numel() + 4 * w * valid + 8 * w * landed)
+    row.update(segments=len(segs), pairs=int(flat.numel()), valid=valid, rows_written=landed,
+               w=w, plane_rows=int(plane.shape[0]))
+    if overlap:
+        return row
+    got = plane.clone()
+    cuda_halo.halo_pair_or_segments(segs, got)
+    buf = torch.zeros((plane.shape[0] + 1, w), dtype=plane.dtype, device=plane.device)
+    library = lambda: buf.index_put_((flat,), vals)  # noqa: E731
+    library()
+    assert bool((plane == 0).all()) and landed == valid, (landed, valid)
+    assert torch.equal(buf[:-1], got), "index_put_ disagrees with the segmented decode"
+    row["library_ms"] = _time_ms(torch, library, lambda: buf.zero_())
+    return row
 
 
 def _mesh2d_data(ctx, seed):

@@ -1,5 +1,6 @@
 // Kernel M4 — the BELL reduction forest max-fold over int32 neg-distance
-// lanes, with the async drive's candidate step fused into it.
+// lanes, with the async drive's candidate step fused into it and, in its
+// take form, the forest's final take by final_slot.
 //
 // Replaces the XLA chains of the JAX package's 2D mesh async drive:
 // parallel/partition2d.py:1116 forest_max (ops/bell.py forest_hits with a
@@ -17,91 +18,267 @@
 // block), else f(x) = x.  f is monotone and f(0) = 0, so applying it
 // before the max equals JAX's _async_cand after the forest (one more hop
 // is one level further; the horizon ``floor`` = NEG_BASE - max_levels
-// zeroes a candidate beyond it).  The final take by final_slot is K1s's
-// forest_gather (forest_or.cu), which copies rows of any int32 lanes.
+// zeroes a candidate beyond it).
 //
-// Design (a first, simple kernel): a thread a (row, lane), grid-stride;
-// each block keeps the level's bucket table (slot offset, rows, width,
-// first row; as the segment tables of ops/cuda_bell.py cut it) in shared
-// memory and finds its row's bucket by binary search.  The lanes of a row
-// are consecutive threads, so a slot's row read coalesces (W = 32 lanes:
-// one 128-byte line) and its cols entry is one broadcast load.
+// The take form (``final_slot`` given) computes the forest's last level
+// in the final row order and writes the (n, W) hits directly: output row v
+// reads s = final_slot[v]; a row of the last level (s - last_off in [0,
+// last level rows)) is folded as above, a row of an earlier level (s <
+// last_off) is copied from the scratch of level outputs, and the sentinel
+// (s >= total_rows) writes 0.  Gated on the device control as K1s's
+// forest_gather (the pull direction).  A one-level forest — every road
+// tile of the 2D mesh — is then one launch, and its level output never
+// makes the round trip through scratch (32.5 MB written and read back on
+// the widest road-1024 tile).
 //
-// Bound: bytes — the level's cols once (4 bytes a slot), each slot's
-// source row (4 W bytes), the output rows written.
+// Design.  A group of G lanes owns an output row (G a power of two, at
+// most 32: a warp holds 32 / G rows).  A lane takes one 16-byte vector of
+// the row's lanes when W is a multiple of 4 and the planes are aligned
+// (G = W / 4: 8 lanes a row at W = 32), else one int32 lane (G = W); rows
+// wider than 32 units loop over them.  The group finds its row's bucket
+// once, by binary search of the level's bucket table in shared memory,
+// loads G of the row's cols entries with one coalesced load and hands them
+// round with __shfl_sync; kUnroll source rows are in flight at once.  A
+// warp's loops run to the widest row it holds, so the shuffles stay
+// convergent.  Source rows are read through the read-only cache.  The grid
+// strides over the rows in at most msbfs::kMaxBlocks blocks.
+//
+// Bound: bytes — the level's cols once (4 bytes a slot), each distinct
+// source row its live slots name (4 W bytes; a road tile's source row
+// feeds several output rows), the output rows written; with the take also
+// final_slot (4 bytes a row) and, for copied rows, their scratch rows.
+// The one-thread-per-(row, lane) parent took 0.0752-0.0761 ms on the
+// widest road-1024 tile against a 0.0204 ms bound (NVIDIA H100 80GB HBM3,
+// 700 W, chip_smoke.py): 32 threads searched the bucket table for one row,
+// each with a 64-bit division, and a warp had one row read in flight.
+// This one (chip_probe_forest_max.py, same card) folds that level in about
+// 0.061 ms and takes it into the tile's 524,288 hit rows in 0.092 against
+// 0.0313: every row is a chain of dependent reads (final slot, cols,
+// source rows) and the registers that more rows in flight would need cost
+// resident warps; the int32 instance at W = 32 (a warp a row) takes 0.16.
+#include <type_traits>
+
 #include "msbfs_common.cuh"
 
 namespace {
 
 constexpr int kMaxBuckets = 64;
 constexpr int kTab = 6;  // off, rows, width, row_base, (first run, rows per chunk: unused)
+constexpr unsigned kFull = 0xffffffffu;
+// Source rows a group has in flight for one output row
+// (chip_probe_forest_max.py: 4 and 8 cost registers and so resident warps,
+// and ran slower).
+constexpr int kUnroll = 2;
+
+// One launch's arguments.
+struct Fold {
+  const void* prev;  // (prev_rows, W) int32; a slot equal to prev_rows reads 0
+  long long prev_rows;
+  const int* cols;
+  const long long* table;  // (nb, kTab): the level's (or segment's) buckets
+  int nb;
+  long long rows;  // output rows: the level's (or segment's), or n with the take
+  void* out;
+  int units;  // units a row: W int32 lanes, or W / 4 vectors
+  int group;  // lanes a row
+  int floor;
+  // The take: final_slot (n,) int32, the scratch of earlier levels' rows,
+  // the last level's first row in it, the forest's rows (the sentinel).
+  const int* final_slot;
+  const void* scratch;
+  long long last_off;
+  long long total_rows;
+  const int* ctrl;
+  int max_levels;
+};
 
 template <bool kCand>
-__global__ void __launch_bounds__(msbfs::kThreads)
-forest_max_kernel(const int* __restrict__ prev, long long prev_rows,
-                  const int* __restrict__ cols, const long long* __restrict__ table, int nb,
-                  long long rows, int* __restrict__ out, int W, int floor) {
-  __shared__ long long s_tab[kMaxBuckets * kTab];
-  for (int i = threadIdx.x; i < nb * kTab; i += blockDim.x) s_tab[i] = table[i];
-  __syncthreads();
-  const long long items = rows * W;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long t = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; t < items;
-       t += stride) {
-    const long long r = t / W;
-    const int w = static_cast<int>(t - r * W);
-    // The last bucket whose first row is <= r.
-    int lo = 0, hi = nb - 1;
-    while (lo < hi) {
-      const int mid = (lo + hi + 1) >> 1;
-      if (s_tab[mid * kTab + 3] <= r) lo = mid; else hi = mid - 1;
-    }
-    const long long* b = s_tab + lo * kTab;
-    const int width = static_cast<int>(b[2]);
-    const int* c = cols + b[0] + (r - b[3]) * width;
-    int acc = 0;
-    for (int j = 0; j < width; ++j) {
-      const long long src = __ldg(c + j);
-      int v = src < prev_rows ? __ldcg(prev + src * W + w) : 0;
-      if constexpr (kCand) {
-        v = v > 1 ? v - 1 : 0;
-        if (v < floor) v = 0;
-      }
-      acc = max(acc, v);
-    }
-    out[t] = acc;
+__device__ __forceinline__ int step(int v, int floor) {
+  if constexpr (kCand) {
+    v = v > 1 ? v - 1 : 0;
+    if (v < floor) v = 0;
+  }
+  return v;
+}
+
+template <bool kCand>
+__device__ __forceinline__ int4 step(int4 v, int floor) {
+  return make_int4(step<kCand>(v.x, floor), step<kCand>(v.y, floor), step<kCand>(v.z, floor),
+                   step<kCand>(v.w, floor));
+}
+
+__device__ __forceinline__ int vmax(int a, int b) { return max(a, b); }
+
+__device__ __forceinline__ int4 vmax(int4 a, int4 b) {
+  return make_int4(max(a.x, b.x), max(a.y, b.y), max(a.z, b.z), max(a.w, b.w));
+}
+
+// A source row's unit, through the read-only cache (L2-only reads ran the
+// same: chip_probe_forest_max.py's ``ldcg``).
+template <typename T>
+__device__ __forceinline__ T load_row(const T* p) {
+  return __ldg(p);
+}
+
+template <typename T>
+__device__ __forceinline__ T zero_unit() {
+  if constexpr (std::is_same<T, int4>::value) {
+    return make_int4(0, 0, 0, 0);
+  } else {
+    return 0;
   }
 }
+
+template <bool kVec, bool kCand, bool kTake>
+__global__ void __launch_bounds__(msbfs::kThreads) forest_max_kernel(const Fold a) {
+  using T = typename std::conditional<kVec, int4, int>::type;
+  if constexpr (kTake) {
+    if (!msbfs::direction_go(a.ctrl, a.max_levels, msbfs::kDirPull)) return;
+  }
+  __shared__ long long s_tab[kMaxBuckets * kTab];
+  for (int i = threadIdx.x; i < a.nb * kTab; i += blockDim.x) s_tab[i] = a.table[i];
+  __syncthreads();
+  const T* prev = static_cast<const T*>(a.prev);
+  T* out = static_cast<T*>(a.out);
+  const int U = a.units, G = a.group;
+  const int lane = threadIdx.x & 31;
+  const int q = lane & (G - 1);
+  const int per_warp = 32 / G;
+  const long long warps = static_cast<long long>(gridDim.x) * (blockDim.x >> 5);
+  const long long warp =
+      blockIdx.x * static_cast<long long>(blockDim.x >> 5) + (threadIdx.x >> 5);
+  // A warp takes per_warp consecutive rows at a time, a row a group.
+  for (long long first = warp * per_warp; first < a.rows; first += warps * per_warp) {
+    const long long v = first + lane / G;
+    long long r = -1, copy = -1;  // the level row to fold, the scratch row to copy
+    if (v < a.rows) {
+      if constexpr (kTake) {
+        const long long s = __ldg(a.final_slot + v);
+        if (s < a.last_off) {
+          copy = s;
+        } else if (s < a.total_rows) {
+          r = s - a.last_off;
+        }
+      } else {
+        r = v;
+      }
+    }
+    int width = 0;
+    long long c0 = 0;
+    if (r >= 0) {
+      // The last bucket whose first row is <= r.
+      int lo = 0, hi = a.nb - 1;
+      while (lo < hi) {
+        const int mid = (lo + hi + 1) >> 1;
+        if (s_tab[mid * kTab + 3] <= r) lo = mid; else hi = mid - 1;
+      }
+      const long long* b = s_tab + lo * kTab;
+      width = static_cast<int>(b[2]);
+      c0 = b[0] + (r - b[3]) * width;
+    }
+    const int span = __reduce_max_sync(kFull, width);
+    for (int u0 = 0; u0 < U; u0 += G) {
+      const int u = u0 + q;
+      const bool mine = u < U;
+      T acc = zero_unit<T>();
+      for (int j0 = 0; j0 < span; j0 += G) {
+        const int col =
+            j0 + q < width ? __ldg(a.cols + c0 + j0 + q) : static_cast<int>(a.prev_rows);
+        for (int jj = 0; jj < G && j0 + jj < span; jj += kUnroll) {
+          int src[kUnroll];
+          T x[kUnroll];
+#pragma unroll
+          for (int i = 0; i < kUnroll; ++i) src[i] = __shfl_sync(kFull, col, jj + i, G);
+#pragma unroll
+          for (int i = 0; i < kUnroll; ++i) {
+            const T* row = prev + src[i] * static_cast<long long>(U);
+            x[i] = mine && jj + i < G && src[i] < a.prev_rows
+                       ? step<kCand>(load_row(row + u), a.floor)
+                       : zero_unit<T>();
+          }
+#pragma unroll
+          for (int i = 0; i < kUnroll; ++i) acc = vmax(acc, x[i]);
+        }
+      }
+      if constexpr (kTake) {
+        if (copy >= 0 && mine) acc = __ldg(static_cast<const T*>(a.scratch) + copy * U + u);
+      }
+      if (v < a.rows && mine) out[v * U + u] = acc;
+    }
+  }
+}
+
+template <bool kVec, bool kCand, bool kTake>
+void launch_fold(const Fold& a, cudaStream_t s) {
+  const int rows_a_block = (msbfs::kThreads / 32) * (32 / a.group);
+  forest_max_kernel<kVec, kCand, kTake>
+      <<<msbfs::grid_for(a.rows, rows_a_block), msbfs::kThreads, 0, s>>>(a);
+}
+
+template <bool kVec, bool kCand>
+void launch_fold(const Fold& a, bool take, cudaStream_t s) {
+  if (take) {
+    launch_fold<kVec, kCand, true>(a, s);
+  } else {
+    launch_fold<kVec, kCand, false>(a, s);
+  }
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 }  // namespace
 
 // One forest level or segment: table (buckets, 6) int64 on the device
-// (slot offsets relative to ``cols``, first rows relative to ``out``),
-// ``rows`` output rows of W int32 lanes; prev: (prev_rows, W) int32.
-// cand: 1 applies the candidate step with ``floor`` to every value read.
+// (slot offsets relative to ``cols``, first rows relative to the level),
+// prev (prev_rows, W) int32.  cand: 1 applies the candidate step with
+// ``floor`` to every value read.  vec: 1 reads rows as 16-byte vectors (W
+// a multiple of 4, every plane 16-byte aligned).
+// Without ``final_slot``: ``rows`` output rows of the level into ``out``.
+// With it (the take form): ``rows`` = n output rows of ``out`` (the hits),
+// the table the last level's, ``scratch`` the earlier levels' rows (its
+// last level starting at row ``last_off``, the forest ``total_rows``
+// rows); gated on ``ctrl`` (direction_go at ``max_levels``, the pull).
 extern "C" int msbfs_forest_max(int device, const void* prev, long long prev_rows,
                                 const void* cols, const void* table, int buckets,
-                                long long rows, void* out, int W, int cand, int floor,
+                                long long rows, void* out, int W, int cand, int floor, int vec,
+                                const void* final_slot, const void* scratch, long long last_off,
+                                long long total_rows, const void* ctrl, int max_levels,
                                 void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (W < 1 || prev_rows < 0 || prev_rows >= (1LL << 31) || buckets < 1 ||
-      buckets > kMaxBuckets || rows < 0 || (cand != 0 && cand != 1)) {
+  const bool take = final_slot != nullptr;
+  if (W < 1 || prev_rows < 0 || prev_rows >= (1LL << 31) || buckets < (take ? 0 : 1) ||
+      buckets > kMaxBuckets || rows < 0 || (cand != 0 && cand != 1) || (vec != 0 && vec != 1) ||
+      (vec && (W % 4 != 0 || !aligned16(prev) || !aligned16(out) ||
+               (take && last_off > 0 && !aligned16(scratch)))) ||
+      (take && (ctrl == nullptr || last_off < 0 || total_rows < last_off ||
+                (last_off > 0 && scratch == nullptr)))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (rows == 0) return static_cast<int>(cudaSuccess);
-  const int grid = msbfs::grid_for(rows * W, msbfs::kThreads);
+  Fold a{};
+  a.prev = prev;
+  a.prev_rows = prev_rows;
+  a.cols = static_cast<const int*>(cols);
+  a.table = static_cast<const long long*>(table);
+  a.nb = buckets;
+  a.rows = rows;
+  a.out = out;
+  a.units = vec ? W / 4 : W;
+  a.group = 1;
+  while (a.group < a.units && a.group < 32) a.group <<= 1;
+  a.floor = floor;
+  a.final_slot = static_cast<const int*>(final_slot);
+  a.scratch = scratch;
+  a.last_off = last_off;
+  a.total_rows = total_rows;
+  a.ctrl = static_cast<const int*>(ctrl);
+  a.max_levels = max_levels;
   const auto s = static_cast<cudaStream_t>(stream);
-  const auto* p = static_cast<const int*>(prev);
-  const auto* c = static_cast<const int*>(cols);
-  const auto* t = static_cast<const long long*>(table);
-  auto* o = static_cast<int*>(out);
-  if (cand) {
-    forest_max_kernel<true><<<grid, msbfs::kThreads, 0, s>>>(p, prev_rows, c, t, buckets, rows,
-                                                             o, W, floor);
+  if (vec) {
+    cand ? launch_fold<true, true>(a, take, s) : launch_fold<true, false>(a, take, s);
   } else {
-    forest_max_kernel<false><<<grid, msbfs::kThreads, 0, s>>>(p, prev_rows, c, t, buckets, rows,
-                                                              o, W, floor);
+    cand ? launch_fold<false, true>(a, take, s) : launch_fold<false, false>(a, take, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -5,12 +5,21 @@
 // re-pack) so that colliding writers make an OR.  atomicOr on 32-bit words
 // is that OR, so no byte-lane buffer is made here.
 //
-// H1 halo_pair_or — sharded_bell.py:444-448 ``rebuild_planes`` and the
-//   landing of the boundary pairs at their owner in push_sharded.py:176-183:
-//     for every gathered pair (id, words[W]) with 0 <= id - lo < rows:
-//       plane[id - lo] |= words
-//   Duplicate ids are allowed; an id outside the block (the sentinel) drops.
-//   Gated on the device control when ``ctrl`` is given.
+// H1 halo_pair_or — sharded_bell.py:444-448 ``rebuild_planes``, the
+//   landing of the boundary pairs at their owner in push_sharded.py:176-183,
+//   and the 2D mesh's sparse wire decode, partition2d.py:323
+//   ``decode_words_sparse`` (its row gather :654 ``_sparse_row_gather``):
+//     for every segment s (at most kMaxSegments a launch) and every pair
+//     (id, words[W]) of it with 0 <= id - lo_s < rows_s:
+//       plane[base_s + id - lo_s] |= words
+//   Duplicate ids are allowed, within a segment and across segments; an id
+//   outside its segment's rows (the sentinel) drops, so a segment's
+//   sentinel never lands on the next segment's first row — the aliasing
+//   that JAX re-clamps after rebasing (partition2d.py:667-669).  The 2D
+//   mesh's gathers land all their segments in one launch: a col block's R
+//   row segments, or a col leg's C peers' chunks.  Gated on the device
+//   control when ``ctrl`` is given.  The segment table travels in the
+//   launch's parameters and each block copies it to shared memory.
 //
 // H2 halo_push_or — sharded_bell.py:350 ``_push_own_hits``: every gathered
 //   pair's in-block push-CSR row (sources sorted ascending, ``build_push_halo``)
@@ -35,7 +44,10 @@
 //   count, the peak and the sentinels (on a long run of them, a few blocks
 //   write them after their last tile).  One launch a call.
 //
-// Bound: bytes.  H1 reads each pair and writes its row's words; H2 reads
+// Bound: bytes.  H1 reads each pair and writes its row's words (its body
+// sits at the launch floor: 0.0055-0.0060 ms against a 0.00005 ms bound on
+// the widest rebuild, NVIDIA H100 80GB HBM3, 700 W, chip_smoke.py, so the
+// 2D mesh's gathers save launches, not bytes); H2 reads
 // each pair, its source's CSR entry and edges, and writes a row's words an
 // edge; H3 reads the listed rows' table rows and words, writes the reached
 // hit words and the pairs.  H3's old single block of 1024 threads walked
@@ -57,19 +69,37 @@ constexpr int kExpandItems = 2;
 constexpr int kExpandTile = kExpandThreads * kExpandItems;
 constexpr int kExpandBlocksPerSm = 2;
 
-__global__ void pair_or_kernel(const int* __restrict__ ids,
-                               const uint32_t* __restrict__ words,
-                               long long items, int W, uint32_t* __restrict__ plane,
-                               long long rows, long long lo,
-                               const int* __restrict__ ctrl, int max_levels) {
+constexpr int kMaxSegments = 16;
+
+// H1's segments: pair lists, their first items in the launch's item space
+// (pairs * W, prefix summed), id offsets, destination rows and row counts.
+struct Segments {
+  const int* ids[kMaxSegments];
+  const uint32_t* words[kMaxSegments];
+  long long first[kMaxSegments + 1];
+  long long lo[kMaxSegments];
+  long long base[kMaxSegments];
+  long long rows[kMaxSegments];
+};
+
+__global__ void __launch_bounds__(msbfs::kThreads)
+pair_or_kernel(const Segments segs, int nseg, int W, uint32_t* __restrict__ plane,
+               const int* __restrict__ ctrl, int max_levels) {
   if (ctrl != nullptr && !msbfs::level_go(ctrl, max_levels)) return;
+  __shared__ Segments s;
+  if (threadIdx.x == 0) s = segs;
+  __syncthreads();
+  const long long items = s.first[nseg];
+  int seg = 0;
   for (long long t = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
        t < items; t += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const long long i = t / W;
-    const long long r = static_cast<long long>(__ldg(ids + i)) - lo;
-    if (r < 0 || r >= rows) continue;
-    const uint32_t x = __ldg(words + t);
-    if (x) atomicOr(plane + r * W + (t - i * W), x);
+    while (t >= s.first[seg + 1]) ++seg;  // t only grows
+    const long long local = t - s.first[seg];
+    const long long i = W == 1 ? local : local / W;
+    const long long r = static_cast<long long>(__ldg(s.ids[seg] + i)) - s.lo[seg];
+    if (r < 0 || r >= s.rows[seg]) continue;
+    const uint32_t x = __ldg(s.words[seg] + local);
+    if (x) atomicOr(plane + (s.base[seg] + r) * W + (local - i * W), x);
   }
 }
 
@@ -230,21 +260,40 @@ owner_expand_kernel(const int* __restrict__ table, int width,
 
 // H1.  ids (pairs,) int32, words (pairs, W) uint32, plane (rows, W);
 // ctrl may be null (ungated).
-extern "C" int msbfs_halo_pair_or(int device, const void* ids, const void* words,
-                                  long long pairs, int W, void* plane, long long rows,
-                                  long long lo, const void* ctrl, int max_levels,
+// H1.  segs: ``nseg`` (1 to kMaxSegments) host rows of six int64 — ids,
+// words (device pointers), pairs, lo, base, rows — each landing its pairs
+// (ids int32, words (pairs, W) uint32) in plane rows [base, base + rows)
+// of ``plane`` (int32 rows of W words).
+extern "C" int msbfs_halo_pair_or(int device, const long long* segs, int nseg, int W,
+                                  void* plane, const void* ctrl, int max_levels,
                                   void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (W < 1 || pairs < 0 || rows < 0 || rows * W >= (1LL << 31)) {
+  if (W < 1 || nseg < 1 || nseg > kMaxSegments || plane == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (pairs == 0) return static_cast<int>(cudaSuccess);
-  const long long items = pairs * W;
+  Segments s{};
+  s.first[0] = 0;
+  for (int i = 0; i < nseg; ++i) {
+    const long long* row = segs + 6 * i;
+    const long long pairs = row[2], base = row[4], rows = row[5];
+    if (pairs < 0 || base < 0 || rows < 0 || (base + rows) * W >= (1LL << 31) ||
+        (pairs > 0 && (row[0] == 0 || row[1] == 0))) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    s.ids[i] = reinterpret_cast<const int*>(row[0]);
+    s.words[i] = reinterpret_cast<const uint32_t*>(row[1]);
+    s.first[i + 1] = s.first[i] + pairs * W;
+    s.lo[i] = row[3];
+    s.base[i] = base;
+    s.rows[i] = rows;
+  }
+  for (int i = nseg + 1; i <= kMaxSegments; ++i) s.first[i] = s.first[nseg];
+  const long long items = s.first[nseg];
+  if (items == 0) return static_cast<int>(cudaSuccess);
   pair_or_kernel<<<msbfs::grid_for(items, msbfs::kThreads), msbfs::kThreads, 0,
                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(ids), static_cast<const uint32_t*>(words), items, W,
-      static_cast<uint32_t*>(plane), rows, lo, static_cast<const int*>(ctrl), max_levels);
+      s, nseg, W, static_cast<uint32_t*>(plane), static_cast<const int*>(ctrl), max_levels);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -7,7 +7,8 @@ the status words of the ordered compaction that H3 and M2
 Counterparts of three XLA chains of the JAX package, each an OR built
 from byte lanes and a scatter-max: parallel/sharded_bell.py
 ``rebuild_planes`` and push_sharded.py's landing of the boundary pairs at
-their owner (H1), sharded_bell.py ``_push_own_hits`` (H2), and
+their owner (H1, whose segmented form also decodes the 2D mesh's sparse
+wire: parallel/partition2d.py), sharded_bell.py ``_push_own_hits`` (H2), and
 push_sharded.py ``_push_level`` (H3).  Beside each kernel is its plain
 torch version, the same function in those byte lanes; a wrapper takes
 the plain version for CPU tensors and launches the kernel for CUDA ones
@@ -19,7 +20,8 @@ of word w), pair ids int32.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import ctypes
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -118,28 +120,93 @@ def halo_pair_or_plain(ids, words, plane, lo: int = 0, ctrl=None, max_levels=INT
     _or_rows(plane, r[ok], words[ok])
 
 
+# The most segments one H1 launch lands (csrc/halo_exchange.cu kMaxSegments).
+MAX_SEGMENTS = 16
+
+
+class Segment(NamedTuple):
+    """One pair list of H1's segmented form: pair i lands in plane row
+    ``base + ids[i] - lo`` when ``0 <= ids[i] - lo < rows``, else drops."""
+
+    ids: torch.Tensor
+    words: torch.Tensor
+    base: int
+    rows: int
+    lo: int = 0
+
+
+def halo_pair_or_segments_plain(segments, plane, ctrl=None, max_levels=INT32_MAX) -> None:
+    """The segmented form's function in torch: each segment's pairs
+    outside its rows dropped, the rest rebased to its base (JAX's
+    rebasing with its sentinels re-clamped), all landed by one OR."""
+    if ctrl is not None and not level_go(ctrl, max_levels):
+        return
+    rows, words = [], []
+    for s in segments:
+        r = s.ids.to(torch.int64) - int(s.lo)
+        ok = (r >= 0) & (r < int(s.rows))
+        rows.append(r[ok] + int(s.base))
+        words.append(s.words[ok])
+    if rows:
+        _or_rows(plane, torch.cat(rows), torch.cat(words))
+
+
+def _check_segments(segments, plane, ctrl) -> torch.device:
+    """Every segment's pair list and rows checked against ``plane``; their
+    common device."""
+    if not 1 <= len(segments) <= MAX_SEGMENTS:
+        raise ValueError(f"an H1 launch lands 1 to {MAX_SEGMENTS} segments, got {len(segments)}")
+    _check("plane", plane, dim=2)
+    rows, w = plane.shape
+    for s in segments:
+        _check("ids", s.ids, dim=1)
+        _check("words", s.words, dim=2)
+        if tuple(s.words.shape) != (s.ids.shape[0], w):
+            raise ValueError(f"words must be ({s.ids.shape[0]}, {w})")
+        if s.base < 0 or s.rows < 0 or s.base + s.rows > rows:
+            raise ValueError(f"segment rows [{s.base}, {s.base + s.rows}) outside the "
+                             f"plane's {rows}")
+    extra = () if ctrl is None else (ctrl,)
+    return _check_device(*(t for s in segments for t in (s.ids, s.words)), plane, *extra)
+
+
+def _launch_pair_or(dev, segments, plane, ctrl, max_levels, variant: str = "") -> None:
+    table = (ctypes.c_longlong * (6 * len(segments)))(*(
+        x for s in segments for x in (s.ids.data_ptr(), s.words.data_ptr(),
+                                      int(s.ids.shape[0]), int(s.lo), int(s.base),
+                                      int(s.rows))))
+    kernels.launch("halo_pair_or", dev, table, len(segments), plane.shape[1],
+                   plane.data_ptr(), None if ctrl is None else ctrl.data_ptr(),
+                   int(max_levels), variant=variant)
+
+
 def halo_pair_or(ids: torch.Tensor, words: torch.Tensor, plane: torch.Tensor,
                  lo: int = 0, ctrl=None, max_levels: int = INT32_MAX) -> None:
     """Kernel H1 (``csrc/halo_exchange.cu``): land gathered (row, words)
     pairs in ``plane`` (rows, W) by OR, rows offset by ``lo``; duplicate
     rows are allowed and rows outside the plane drop.  Gated on the device
     control ``ctrl`` when given (``level_go``)."""
-    rows, w = plane.shape
-    _check("ids", ids, dim=1)
-    _check("words", words, dim=2)
-    _check("plane", plane, dim=2)
-    if tuple(words.shape) != (ids.shape[0], w):
-        raise ValueError(f"words must be ({ids.shape[0]}, {w})")
-    extra = () if ctrl is None else (ctrl,)
-    dev = _check_device(ids, words, plane, *extra)
+    segment = Segment(ids, words, 0, plane.shape[0], int(lo))
+    dev = _check_segments([segment], plane, ctrl)
     if dev.type == "cpu":
         halo_pair_or_plain(ids, words, plane, lo, ctrl, max_levels)
         return
-    kernels.launch(
-        "halo_pair_or", dev, ids.data_ptr(), words.data_ptr(), int(ids.shape[0]), w,
-        plane.data_ptr(), rows, int(lo), None if ctrl is None else ctrl.data_ptr(),
-        int(max_levels),
-    )
+    _launch_pair_or(dev, [segment], plane, ctrl, max_levels)
+
+
+def halo_pair_or_segments(segments, plane: torch.Tensor, ctrl=None,
+                          max_levels: int = INT32_MAX) -> None:
+    """Kernel H1's segmented form: up to :data:`MAX_SEGMENTS` pair lists
+    (:class:`Segment`) landed in ``plane`` (rows, W) by OR in one launch
+    (variant ``seg``), each inside its own rows, so that no segment's
+    sentinel reaches the next segment's rows; duplicates OR together,
+    within a segment and across segments.  Gated like :func:`halo_pair_or`."""
+    segments = list(segments)
+    dev = _check_segments(segments, plane, ctrl)
+    if dev.type == "cpu":
+        halo_pair_or_segments_plain(segments, plane, ctrl, max_levels)
+        return
+    _launch_pair_or(dev, segments, plane, ctrl, max_levels, variant="seg")
 
 
 def halo_push_or_plain(ids, words, csr, hits) -> None:

@@ -1,17 +1,19 @@
 """The 2D mesh engine's kernels (parallel/partition2d.py) as hand-written
 CUDA: M1 ``chunk_merge`` and M2 ``wire_encode`` (``csrc/mesh_wire.cu``),
 M4 ``forest_max`` (``csrc/forest_max.cu``); the sparse wire's decode is H1
-``halo_pair_or`` (:func:`wire_decode`).
+``halo_pair_or`` (:func:`wire_decode`; a gather's segments in one launch
+of its segmented form, :func:`wire_decode_segments`).
 
 Counterparts of the JAX package's XLA chains: the col-axis
 reduce-scatter's combine under OR (bit planes) and MAX (the async drive's
 int32 neg-distance planes) with ``neg_commit`` fused behind it (M1),
 ``active_word_count`` with ``encode_words_sparse`` (M2), and the async
 drive's forest max-fold with ``_async_cand`` fused into its first level's
-reads, whole (the forest's levels, then K1s's ``forest_gather``) or one
-streamed segment at a time (M4).  Beside each kernel is its plain torch
-version; a wrapper takes the plain version for CPU tensors and launches
-the kernel for CUDA ones (a failed build or launch raises).
+reads, whole (the forest's levels, the last with the final take by
+``final_slot`` in its launch) or one streamed segment at a time (M4).
+Beside each kernel is its plain torch version; a wrapper takes the plain
+version for CPU tensors and launches the kernel for CUDA ones (a failed
+build or launch raises).
 
 Planes are int32 tensors (bit planes read as uint32, neg planes as
 int32); delta and changed masks are ``torch.bool`` (one byte each).
@@ -26,13 +28,16 @@ import torch
 
 from ..runtime import kernels
 from .bell import _max_rows, forest_hits, segment_fold
-from .bitbell import INT32_MAX, NEG_BASE, _check_device, _check_plane
-from .cuda_bell import (
-    SegmentTables,
-    forest_final_gather,
-    forest_scratch,
+from .bitbell import DIR_PULL, INT32_MAX, NEG_BASE, _check_device, _check_plane, direction_go
+from .cuda_bell import SegmentTables, forest_scratch
+from .cuda_halo import (
+    MAX_SEGMENTS,
+    ScanScratch,
+    Segment,
+    halo_pair_or,
+    halo_pair_or_segments,
+    scan_scratch,
 )
-from .cuda_halo import ScanScratch, halo_pair_or, scan_scratch
 
 # The most chunks one merge takes (csrc/mesh_wire.cu kMaxChunks): a col
 # axis of at most this many shards.
@@ -217,6 +222,22 @@ def wire_decode(idx: torch.Tensor, words: torch.Tensor, plane: torch.Tensor) -> 
     halo_pair_or(idx, words.view(-1, 1), plane.view(-1, 1))
 
 
+def wire_decode_segments(pairs, plane: torch.Tensor, total: int) -> None:
+    """Several sparse wire encodings of ``total``-word planes decoded into
+    the contiguous int32 ``plane`` by OR, each at its own flat word offset:
+    ``pairs`` = [(idx, words, base), ...].  H1's segmented form, one launch
+    a :data:`~.cuda_halo.MAX_SEGMENTS` segments; each encoding's sentinel
+    (``total``) drops inside its own segment, so none lands on the next
+    one's first word (the aliasing JAX's ``_sparse_row_gather`` re-clamps).
+    Onto zeros with unique indices this is one ``index_put_`` of the
+    rebased pairs; overlapping segments OR together."""
+    flat = plane.view(-1, 1)
+    segments = [Segment(idx, words.view(-1, 1), int(base), int(total))
+                for idx, words, base in pairs]
+    for at in range(0, len(segments), MAX_SEGMENTS):
+        halo_pair_or_segments(segments[at : at + MAX_SEGMENTS], flat)
+
+
 def cand_floor(max_levels: Optional[int]) -> int:
     """The candidate step's horizon as the kernel takes it: a candidate
     below it is zeroed (0 without a horizon)."""
@@ -237,6 +258,12 @@ def forest_max_plain(prev, prev_rows, cols, pieces, out, floor: Optional[int] = 
 def _cand(v: torch.Tensor, floor: int) -> torch.Tensor:
     c = torch.clamp(v - 1, min=0)
     return torch.where(c >= floor, c, torch.zeros_like(c))
+
+
+def _vec16(w: int, *tensors: Optional[torch.Tensor]) -> bool:
+    """M4 reads rows as 16-byte vectors: W a multiple of 4 and every plane
+    16-byte aligned (csrc/forest_max.cu)."""
+    return w % 4 == 0 and all(t is None or t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def forest_max(
@@ -275,8 +302,84 @@ def forest_max(
     table, buckets, _ = tables.entry(i, 2)
     kernels.launch("forest_max", dev, prev.data_ptr(), int(prev_rows), cols.data_ptr(), table,
                    buckets, rows, out.data_ptr(), w, int(floor is not None),
-                   0 if floor is None else int(floor),
+                   0 if floor is None else int(floor), int(_vec16(w, prev, out)),
+                   None, None, 0, 0, None, INT32_MAX,
                    variant="cand" if floor is not None else "max")
+
+
+def forest_max_take_plain(prev, prev_rows, cols, pieces, scratch, last_off: int, final_slot,
+                          hits, ctrl, floor: Optional[int] = None) -> None:
+    """The take form's function in torch: the last forest level folded as
+    :func:`forest_max_plain` folds it, then hits[v] = the row final_slot[v]
+    of (the scratch's first ``last_off`` rows, that level, a zero row);
+    gated like K1s's final take."""
+    if not direction_go(ctrl, INT32_MAX, DIR_PULL):
+        return
+    w = hits.shape[1]
+    rows = sum(r for r, _ in pieces)
+    last = hits.new_zeros((rows, w))
+    if rows:
+        forest_max_plain(prev, prev_rows, cols[: sum(r * c for r, c in pieces)], pieces, last,
+                         floor)
+    earlier = scratch[:last_off] if last_off else hits.new_zeros((0, w))
+    hits.copy_(torch.cat([earlier, last, hits.new_zeros((1, w))])[final_slot.long()])
+
+
+def forest_max_take(
+    prev: torch.Tensor,
+    prev_rows: int,
+    cols: torch.Tensor,
+    tables: SegmentTables,
+    i: int,
+    scratch: Optional[torch.Tensor],
+    last_off: int,
+    final_slot: torch.Tensor,
+    hits: torch.Tensor,
+    go: torch.Tensor,
+    floor: Optional[int] = None,
+) -> None:
+    """M4's take form (variant ``cand/take`` or ``max/take``): the forest's
+    last level ``i`` of ``tables`` folded in the final row order straight
+    into ``hits`` (n, W): hits[v] is the fold of level row final_slot[v] -
+    ``last_off``, a copy of ``scratch`` row final_slot[v] when that is
+    below ``last_off`` (an earlier level's row), or 0 at the sentinel (the
+    forest's row count).  One launch, gated on ``go`` as K1s's
+    ``forest_gather`` is."""
+    pieces = tables.pieces[i]
+    n, w = hits.shape
+    slots = sum(r * c for r, c in pieces)
+    rows = sum(r for r, _ in pieces)
+    _check_plane("prev", prev)
+    _check_plane("cols", cols)
+    _check_plane("hits", hits)
+    _check_plane("final_slot", final_slot, (n,))
+    _check_plane("go", go, (4,))
+    if prev.dim() != 2 or prev.shape[0] < prev_rows or prev.shape[1] != w:
+        raise ValueError(f"prev must be (>= {prev_rows}, {w})")
+    if cols.dim() != 1 or cols.shape[0] < slots:
+        raise ValueError(f"cols must be 1-D with at least {slots} slots")
+    if last_off:
+        _check_plane("scratch", scratch)
+        if scratch.dim() != 2 or scratch.shape[0] < last_off or scratch.shape[1] != w:
+            raise ValueError(f"scratch must be (>= {last_off}, {w})")
+    tensors = (prev, cols, hits, final_slot, go) + ((scratch,) if last_off else ())
+    dev = _check_device(*tensors)
+    if dev.type == "cpu":
+        forest_max_take_plain(prev, prev_rows, cols, pieces, scratch, last_off, final_slot, hits,
+                              go, floor)
+        return
+    if not n:
+        return
+    if tables.device != dev:
+        raise ValueError(f"segment tables on {tables.device}, planes on {dev}")
+    table, buckets, _ = tables.entry(i, 2)
+    kept = scratch if last_off else None
+    kernels.launch("forest_max", dev, prev.data_ptr(), int(prev_rows), cols.data_ptr(), table,
+                   buckets, n, hits.data_ptr(), w, int(floor is not None),
+                   0 if floor is None else int(floor), int(_vec16(w, prev, hits, kept)),
+                   final_slot.data_ptr(), None if kept is None else kept.data_ptr(),
+                   int(last_off), int(last_off) + rows, go.data_ptr(), INT32_MAX,
+                   variant=("cand" if floor is not None else "max") + "/take")
 
 
 def level_tables(graph, device) -> SegmentTables:
@@ -306,27 +409,34 @@ def forest_max_hits(
 ) -> None:
     """M4's whole-forest form: the candidate maxima of ``frontier`` (n, W)
     int32 lanes over a device BellGraph into ``hits`` (n, W): a launch a
-    forest level (the candidate step in the first), then the final take by
-    ``final_slot`` (K1s ``forest_gather``, gated on ``go``, a control that
-    lets it run); each launch's plain version on CPU tensors, which
-    together are :func:`forest_max_hits_plain`.  ``scratch``:
-    :func:`.cuda_bell.forest_scratch`'s."""
+    forest level but the last into ``scratch`` (the candidate step in the
+    first level's reads), then the last level and the final take by
+    ``final_slot`` in one launch (:func:`forest_max_take`, gated on ``go``,
+    a control that lets it run): a one-level forest is one launch.  Each
+    launch's plain version on CPU tensors, which together are
+    :func:`forest_max_hits_plain`.  ``scratch``:
+    :func:`.cuda_bell.forest_scratch`'s (needed only below the last level)."""
     n, w = frontier.shape
     _check_plane("frontier", frontier, (graph.n, w))
     _check_plane("hits", hits, (graph.n, w))
     dev = _check_device(frontier, hits, go)
     tables = level_tables(graph, dev)
-    if scratch is None:
+    last = len(graph.level_cols) - 1
+    if scratch is None and last > 0:
         scratch = forest_scratch(graph, w, dev)
-    _check_plane("scratch", scratch, (graph.total_rows + 1, w))
+    if scratch is not None:
+        _check_plane("scratch", scratch, (graph.total_rows + 1, w))
     offset, prev, prev_rows = 0, frontier, graph.n
-    for li, (flat, size) in enumerate(zip(graph.level_cols, graph.level_sizes)):
+    for li in range(last):
+        size = graph.level_sizes[li]
         out = scratch[offset : offset + size]
         if size:
-            forest_max(prev, prev_rows, flat, tables, li, out, floor if li == 0 else None)
+            forest_max(prev, prev_rows, graph.level_cols[li], tables, li, out,
+                       floor if li == 0 else None)
         prev, prev_rows = out, size
         offset += size
-    forest_final_gather(scratch, graph.final_slot, hits, go, INT32_MAX)
+    forest_max_take(prev, prev_rows, graph.level_cols[last], tables, last, scratch, offset,
+                    graph.final_slot, hits, go, floor if last == 0 else None)
 
 
 def go_control(device) -> torch.Tensor:

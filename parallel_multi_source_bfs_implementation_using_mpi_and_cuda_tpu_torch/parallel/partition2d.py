@@ -26,12 +26,15 @@ tile rows is segment (i, c).  A level of shard (i, j):
 The density-adaptive sparse wire (``MSBFS_WIRE_SPARSE``): each shard
 encodes its own frontier as budget-padded (index, word) pairs (M2
 ``wire_encode``), and when the largest count over the mesh fits the
-budget the row gather decodes pairs (H1 ``halo_pair_or``) instead of
-copying segments; then each tile's chunks are encoded and, when the
-col-axis sum of chunk counts fits (JAX's union bound), the col leg ships
-pairs too.  The route decisions are JAX's ``pmax`` predicates, taken on
-one stacked host read of the shards' counts a leg (only while the sparse
-wire is on); the bytes recorded with
+budget the row gather decodes pairs instead of copying segments (H1
+``halo_pair_or``'s segmented form: a col block's R segments in one
+launch); then each tile's chunks are encoded and, when the col-axis sum
+of chunk counts fits (JAX's union bound), the col leg ships pairs too
+(the C peers' pairs in one launch, ORed into the zeroed own plane with no
+M1, or decoded into C slices for M1's MAX commit).  The route decisions
+are JAX's ``pmax`` predicates, taken on one stacked host read of the
+shards' counts a leg (only while the sparse wire is on); the bytes
+recorded with
 :func:`..utils.timing.record_collective_bytes` are the JAX package's
 ledger of the branch taken, and :func:`..utils.timing.
 record_collective_rounds` ticks once a level.  ``pipelined`` runs its
@@ -40,7 +43,8 @@ word stripes one after another: the same planes and the same ledger.
 The bounded-staleness async drive (``MSBFS_ASYNC_LEVELS=k > 1``) runs on
 int32 neg-distance planes (``ops/bitbell.py`` ``NEG_BASE``): an exchange
 round ships the changed entries, M4 ``forest_max`` max-folds the col
-block through the tile with the candidate step fused into its reads, and
+block through the tile with the candidate step fused into its reads and
+the final take into its last level's launch, and
 M1 merges the col-axis chunks by MAX and commits them into the own neg
 plane (``neg_commit``) with the round's delta and a flag; up to k - 1
 collective-free local waves follow.  The drive stops after a quiet round,
@@ -84,6 +88,7 @@ from ..ops.cuda_mesh import (
     forest_max_hits,
     go_control,
     wire_decode,
+    wire_decode_segments,
     wire_encode,
 )
 from ..ops.cuda_halo import ScanScratch
@@ -699,9 +704,10 @@ class Mesh2DEngine(QueryEngineBase):
         return out
 
     def _gather_sparse(self, run: _Run, encoded, w: int, tag="") -> Dict[int, Dict]:
-        """The sparse row gather: each segment's (index, word) pairs
-        decoded (H1) into its slot of the zeroed col block."""
-        lsub = self.part.lsub
+        """The sparse row gather (JAX's ``_sparse_row_gather``): the zeroed
+        col block, and every segment's (index, word) pairs decoded into its
+        slot in one launch (H1's segmented form) per column and device."""
+        seg = self.part.lsub * w
         out = {}
         for j in range(self.cols):
             col = self._column(j)
@@ -710,10 +716,10 @@ class Mesh2DEngine(QueryEngineBase):
                 block = self._block(run, j, dev, w, tag)
                 with on_device(dev):
                     block[: self.part.lc].zero_()
-                    for sh in col:
-                        enc = encoded[sh.rank]
-                        wire_decode(to_device(enc.idx, dev), to_device(enc.words, dev),
-                                    block[sh.i * lsub : (sh.i + 1) * lsub])
+                    wire_decode_segments(
+                        [(to_device(encoded[sh.rank].idx, dev),
+                          to_device(encoded[sh.rank].words, dev), sh.i * seg) for sh in col],
+                        block, seg)
                 out[j][dev] = block
         return out
 
@@ -838,22 +844,31 @@ class Mesh2DEngine(QueryEngineBase):
         per = counts.reshape(self.rows, self.cols, self.cols)  # (i, j, chunk)
         return enc, int(per.sum(axis=1).max())
 
-    def _col_sparse(self, run: _Run, enc, w: int, op: str, commit=None) -> None:
-        """The sparse col leg: each peer's chunk c decoded (H1) into a zeroed
-        buffer on the destination, then M1 over the C buffers."""
-        lsub = self.part.lsub
+    def _col_sparse(self, run: _Run, enc, w: int, commit=None) -> None:
+        """The sparse col leg, the C peers' chunk pairs decoded in one launch
+        (H1's segmented form) on each destination: under OR straight into
+        its zeroed own plane (OR onto zeros is the merge); committed by MAX
+        (``commit(sh)``) into the C slices of one zeroed buffer, then M1's
+        max and commit over them."""
+        lsub, seg = self.part.lsub, self.part.lsub * w
         for sh in self.shards:
-            bufs = []
             with on_device(sh.dev):
-                for j in range(self.cols):
-                    e = enc[sh.i * self.cols + j, sh.j]
-                    buf = torch.zeros((lsub, w), dtype=torch.int32, device=sh.dev)
-                    wire_decode(to_device(e.idx, sh.dev), to_device(e.words, sh.dev), buf)
-                    bufs.append(buf)
-                if commit is not None:
-                    chunk_merge(bufs, op="max", commit=commit(sh))
-                else:
-                    chunk_merge(bufs, out=run.own[sh.rank], op=op)
+                peers = [enc[sh.i * self.cols + j, sh.j] for j in range(self.cols)]
+                pairs = [(to_device(e.idx, sh.dev), to_device(e.words, sh.dev)) for e in peers]
+                if commit is None:
+                    own = run.own[sh.rank]
+                    own.zero_()
+                    wire_decode_segments([(i, x, 0) for i, x in pairs], own, seg)
+                    continue
+                key = ("col", sh.rank, w)
+                if key not in run.blocks:
+                    run.blocks[key] = torch.empty((self.cols, lsub, w), dtype=torch.int32,
+                                                  device=sh.dev)
+                bufs = run.blocks[key]
+                bufs.zero_()
+                wire_decode_segments([(i, x, j * seg) for j, (i, x) in enumerate(pairs)],
+                                     bufs, seg)
+                chunk_merge(list(bufs), op="max", commit=commit(sh))
 
     def _status(self, run: _Run, extra=()):
         """One stacked host read: (updated, level) of the mesh, then the
@@ -914,7 +929,7 @@ class Mesh2DEngine(QueryEngineBase):
                 cenc, bound = self._chunk_counts(run.hits, budget)
                 col_ok = bound <= budget
                 if col_ok:
-                    self._col_sparse(run, cenc, w, "or")
+                    self._col_sparse(run, cenc, w)
                 else:
                     self._col_dense(run, run.hits, None, "or")
                 nbytes = row_sparse + (col_sparse if col_ok else col_dense)
@@ -1103,7 +1118,7 @@ class Mesh2DEngine(QueryEngineBase):
         cenc, bound = self._chunk_counts(run.hits, budget)
         col_ok = bound <= budget
         if col_ok:
-            self._col_sparse(run, cenc, kp, "max", commit=commit)
+            self._col_sparse(run, cenc, kp, commit=commit)
         else:
             self._col_dense(run, run.hits, None, "max", commit=commit)
         return row_sparse + (col_sparse if col_ok else col_dense)

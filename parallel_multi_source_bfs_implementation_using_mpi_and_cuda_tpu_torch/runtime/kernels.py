@@ -114,7 +114,7 @@ KERNELS = {
     ),
     "halo_pair_or": (
         "msbfs_halo_pair_or",
-        [_P, _P, _L, _I, _P, _L, _L, _P, _I],
+        [ctypes.POINTER(_L), _I, _I, _P, _P, _I],
         "halo_exchange",
     ),
     "halo_push_or": (
@@ -143,7 +143,7 @@ KERNELS = {
     ),
     "forest_max": (
         "msbfs_forest_max",
-        [_P, _L, _P, _P, _I, _L, _P, _I, _I, _I],
+        [_P, _L, _P, _P, _I, _L, _P, _I, _I, _I, _I, _P, _P, _L, _L, _P, _I],
     ),
 }
 

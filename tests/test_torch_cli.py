@@ -713,7 +713,8 @@ def test_verify_matches_jax(tmp_path, capsys, monkeypatch, case):
 
 
 @pytest.mark.parametrize("script", ["chip_smoke.py", "chip_compare.py", "chip_probe_csr.py",
-                                    "chip_probe_queue.py", "chip_probe_scan.py"])
+                                    "chip_probe_queue.py", "chip_probe_scan.py",
+                                    "chip_probe_forest_max.py"])
 def test_chip_scripts_import_no_jax(script):
     """The card's scripts name no jax module and nothing of the JAX
     package in any import, at any depth of the file."""

@@ -50,6 +50,9 @@ from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops i
     stencil,
     streamed,
 )
+from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.parallel import (
+    partition2d,
+)
 from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.runtime import (
     kernels,
     supervisor,
@@ -2126,6 +2129,59 @@ def test_halo_pair_or_matches_plain(cuda, w, unique):
     assert torch.equal(got.cpu(), want)
 
 
+@pytest.mark.parametrize("w,nseg", [(1, 2), (1, 16), (3, 4), (8, 16)])
+def test_halo_pair_or_segments_matches_plain(cuda, w, nseg):
+    """H1's segmented form: ``nseg`` pair lists in one launch (variant
+    ``seg``), duplicates within and across overlapping segments, ids below
+    ``lo`` and past a segment's rows dropped — a segment's sentinel never
+    reaches the next segment's first row — and gated off on the device."""
+    rng = np.random.default_rng(w * 100 + nseg)
+    rows = 4000
+    plane = _planes(rng, rows, w)
+    segments = []
+    for k in range(nseg):
+        srows = int(rng.integers(1, rows // 4))
+        base = int(rng.integers(0, rows - srows + 1))
+        lo = int(rng.integers(-5, 6))
+        pairs = int(rng.integers(0, 3000)) if k else 0  # the first is empty
+        ids = rng.integers(lo - 3, lo + srows + 3, pairs).astype(np.int32)
+        ids[: pairs // 4] = lo + srows  # each segment's sentinel
+        words = _planes(rng, pairs, w)
+        segments.append(cuda_halo.Segment(torch.from_numpy(ids), words, base, srows, lo))
+    want = plane.clone()
+    cuda_halo.halo_pair_or_segments_plain(segments, want)
+    on_card = [cuda_halo.Segment(s.ids.to(cuda), s.words.to(cuda), s.base, s.rows, s.lo)
+               for s in segments]
+    got = plane.to(cuda)
+    timing.reset_launch_counts()
+    cuda_halo.halo_pair_or_segments(on_card, got)
+    assert timing.launch_counts() == {"halo_pair_or": 1}
+    assert timing.variant_counts() == {"halo_pair_or:seg": 1}
+    assert torch.equal(got.cpu(), want)
+    ctrl = torch.tensor([0, 5, 0, 0], dtype=torch.int32, device=cuda)
+    cuda_halo.halo_pair_or_segments(on_card, got, ctrl)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("segs,total", [(2, 262144), (4, 8192), (17, 999)])
+def test_wire_decode_segments_matches_plain(cuda, segs, total):
+    """The 2D mesh's gather decode: each segment's encoding (M2) lands at
+    its offset of the zeroed plane, one H1 launch a 16 segments; the
+    decoded plane is the segments' planes side by side."""
+    rng = np.random.default_rng(segs)
+    planes = [_planes(rng, total, 1).view(-1) for _ in range(segs)]
+    for p in planes:
+        p[torch.from_numpy(rng.random(total) >= 0.05)] = 0
+    budget = max(max(int((p != 0).sum()) for p in planes), 1)
+    encs = [cuda_mesh.wire_encode(p.to(cuda), budget) for p in planes]
+    got = torch.zeros(segs * total, dtype=torch.int32, device=cuda)
+    timing.reset_launch_counts()
+    cuda_mesh.wire_decode_segments([(e.idx, e.words, k * total) for k, e in enumerate(encs)],
+                                   got, total)
+    assert timing.launch_counts() == {"halo_pair_or": -(-segs // cuda_halo.MAX_SEGMENTS)}
+    assert torch.equal(got.cpu(), torch.cat(planes))
+
+
 @pytest.mark.parametrize("w", [1, 2, 5])
 def test_halo_push_or_matches_plain(cuda, w):
     from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.parallel import (
@@ -2374,9 +2430,9 @@ def test_wire_encode_matches_plain(cuda, lanes, total, density, offset):
 
 @pytest.mark.parametrize("max_levels,kpad", [(None, 32), (3, 32), (None, 64)])
 def test_forest_max_matches_plain(cuda, max_levels, kpad):
-    """M4 whole (a launch a forest level, then forest_gather) and in
-    segments of at most 4096 slots, against the plain forest max-fold
-    followed by the candidate step."""
+    """M4 whole (a launch a forest level, the last with the final take in
+    its launch) and in segments of at most 4096 slots, against the plain
+    forest max-fold followed by the candidate step."""
     n, edges = generators.rmat_edges(12, 8, seed=4)
     g = CSRGraph.from_edges(n, edges)
     rng = np.random.default_rng(kpad)
@@ -2392,13 +2448,58 @@ def test_forest_max_matches_plain(cuda, max_levels, kpad):
     timing.reset_launch_counts()
     cuda_mesh.forest_max_hits(neg.to(cuda), bg, got, floor, cuda_mesh.go_control(cuda))
     levels = sum(1 for s in bg.level_sizes if s)
-    assert timing.launch_counts() == {"forest_max": levels, "forest_gather": 1}
+    assert levels > 1
+    assert timing.launch_counts() == {"forest_max": levels}
+    variants = {"forest_max:cand": 1, "forest_max:max": levels - 2, "forest_max:max/take": 1}
+    assert timing.variant_counts() == {k: v for k, v in variants.items() if v}
     assert torch.equal(got.cpu(), want)
     # The streamed segment form, through the streamed engine's ring.
     seng = streamed.StreamedBitBellEngine(BellGraph.from_host(g, False), cuda, slot_budget=4096)
     got2 = torch.zeros_like(got)
     seng.forest_pass(neg.to(cuda), got2, cuda_mesh.go_control(cuda), floor=floor)
     assert torch.equal(got2.cpu(), want)
+
+
+@pytest.mark.parametrize("graph,w,offset", [
+    ("road", 32, 0), ("road", 1, 0), ("road", 3, 0), ("road", 64, 0), ("road", 32, 1),
+    ("rmat", 32, 0), ("rmat", 33, 0), ("rmat", 160, 0), ("rmat", 36, 1)])
+def test_forest_max_take_matches_plain(cuda, graph, w, offset):
+    """M4's take form against its plain version: a one-level road forest
+    in one launch (``cand/take``: the fold in final row order with the
+    candidate step, the sentinel rows zero), a multi-level RMAT forest
+    (its last level's take copying rows of the earlier levels); rows of 1,
+    3 and 33 int32 lanes, of 16-byte vectors (32, 36, 64 and 160 lanes:
+    160 takes two passes of a warp), and planes one word off their
+    alignment (the int32 instance).  Gated off, the hits stay."""
+    n, edges = (generators.road_edges(96, 96, seed=2) if graph == "road"
+                else generators.rmat_edges(12, 8, seed=4))
+    g = CSRGraph.from_edges(n, edges)
+    rng = np.random.default_rng(w + offset)
+    neg = torch.from_numpy(np.where(rng.random((n, w)) < 0.3,
+                                    bitbell.NEG_BASE - rng.integers(0, 6, (n, w)),
+                                    0).astype(np.int32))
+    floor = cuda_mesh.cand_floor(4)
+    host = BellGraph.from_host(g, torch.device("cpu"), keep_sparse=False)
+    want = torch.zeros_like(neg)
+    cuda_mesh.forest_max_hits_plain(neg, host, want, floor)
+    bg = BellGraph.from_host(g, cuda, keep_sparse=False)
+    levels = len(bg.level_cols)
+    assert (levels == 1) == (graph == "road")
+    buf = torch.full((n * w + offset,), -7, dtype=torch.int32, device=cuda)
+    front = torch.empty(n * w + offset, dtype=torch.int32, device=cuda)
+    front[offset:] = neg.to(cuda).view(-1)
+    got = buf[offset:].view(n, w)
+    timing.reset_launch_counts()
+    cuda_mesh.forest_max_hits(front[offset:].view(n, w), bg, got, floor,
+                              cuda_mesh.go_control(cuda))
+    assert timing.launch_counts() == {"forest_max": levels}
+    if levels == 1:
+        assert timing.variant_counts() == {"forest_max:cand/take": 1}
+    assert torch.equal(got.cpu(), want)
+    stale = torch.full((n, w), -7, dtype=torch.int32, device=cuda)
+    ctrl = torch.tensor([1, 0, 0, 1], dtype=torch.int32, device=cuda)  # the push direction
+    cuda_mesh.forest_max_hits(front[offset:].view(n, w), bg, stale, floor, ctrl)
+    assert bool((stale == -7).all())
 
 
 @pytest.mark.parametrize("env", [{"MSBFS_MESH": "2x2"}, {"MSBFS_MESH": "2x2", "MSBFS_WIRE_SPARSE": "0",
@@ -2424,8 +2525,24 @@ def test_mesh2d_cli_on_card(cuda, tmp_path, capsys, monkeypatch, env):
         monkeypatch.setenv(key, value)
     assert cli.main(argv, device="cpu", mesh_devices=["cpu"] * 4) == 0
     want = capsys.readouterr().out.splitlines()[:5]
+    # Each sparse col leg on the card: one H1 segmented launch a destination
+    # shard (its C peers' pairs at once), counted around the leg itself.
+    legs = []
+    real_leg = partition2d.Mesh2DEngine._col_sparse
+
+    def col_sparse(self, run, enc, w, commit=None):
+        before = timing.variant_counts().get("halo_pair_or:seg", 0)
+        real_leg(self, run, enc, w, commit)
+        if torch.device(self.shards[0].dev).type == "cuda":
+            legs.append((len(self.shards),
+                         timing.variant_counts().get("halo_pair_or:seg", 0) - before))
+
+    monkeypatch.setattr(partition2d.Mesh2DEngine, "_col_sparse", col_sparse)
     timing.reset_launch_counts()
     assert cli.main(argv, mesh_devices=[cuda] * 4) == 0
     assert capsys.readouterr().out.splitlines()[:5] == want
     counts = timing.launch_counts()
-    assert counts.get("chunk_merge", 0) > 0 or env["MSBFS_MESH"] == "4x1", counts
+    assert all(launched == shards for shards, launched in legs), legs
+    # The col leg ran on the card: M1 (dense legs, MAX commits) or a sparse
+    # leg's segmented H1.
+    assert counts.get("chunk_merge", 0) > 0 or legs or env["MSBFS_MESH"] == "4x1", counts
