@@ -15,8 +15,8 @@ mxu RMAT-14 K = 64 and road-512 K = 16, bitbell, bell and streamed
 RMAT-20 K = 64, low-K RMAT-20 K = 4 and K = 1, low-K RMAT-16 K = 1, push
 and ppush road-4096 K = 16, vmap and packed RMAT-20 K = 64, weighted
 RMAT-20 K = 64 and road-512 K = 8 (three flavors), vshard4, mesh2d
-ring and mesh2d async road-1024 K = 16 at ``-gn 4``; ``--routes`` keeps
-the named ones only):
+ring and mesh2d async road-1024 K = 16 at ``-gn 4``, vshard2 RMAT-20
+K = 64 at ``-gn 4``; ``--routes`` keeps the named ones only):
 
 - the batch start (``engine._init_carry``): its host ms (median of 20,
   up to a synchronise), its device operations (torch.profiler) and its
@@ -63,6 +63,18 @@ the named ones only):
   busy share of a profiled run; on the async route also M4's whole-forest
   call (the parent's M4 and forest_gather, or the take form) on its widest
   and thinnest tiles, re-timed alone;
+  the async route's counts separate M4's commit form
+  (``forest_max_commit``, a local wave's launch) from its take, and every
+  route's profiled run counts the device kernels that are no hand-written
+  kernel (the torch operations: elementwise, fills, copies, reductions),
+  with their ms and their most frequent names;
+- on the vertex-sharded forest of RMAT-20 K = 64 at ``MSBFS_VSHARD=2``
+  with the JAX package's auto halo and push budgets (as ``chip_smoke.py``
+  phase 15 builds it), one ``f_values`` run with each launch of H2
+  (``halo_push_match``, where the tree has it, and ``halo_push_or``) timed
+  alone: launches, sums, the median and the longest, and a profiled run's
+  torch operations (the parent's route decision ran a chain of them a
+  shard a sparse level), busy share and wall ms;
 - on the weighted routes (``MSBFS_WEIGHTED=1``: RMAT-20 K = 64 and
   road-512 K = 8 groups of up to 8, costs ``edge_costs(m, "uniform", 16,
   3)`` as ``chip_smoke.py`` phase 11 makes them; road-512 also with the
@@ -197,6 +209,8 @@ ROUTES = {
     "vshard4 road-1024": ("road-1024", {"MSBFS_VSHARD": "4"}),
     "mesh2d ring road-1024": ("road-1024", {"MSBFS_MESH": "2x2", "MSBFS_MERGE_TREE": "ring"}),
     "mesh2d async road-1024": ("road-1024", {"MSBFS_MESH": "2x2", "MSBFS_ASYNC_LEVELS": "4"}),
+    # The halo and push budgets are set from the graph (_halo_knobs).
+    "vshard2 rmat-20": ("rmat-20 K=64", {"MSBFS_VSHARD": "2"}),
 }
 LEVEL_ROUTES = ("lowk rmat-16 K=1", "lowk rmat-20 K=4")
 BUSY_ROUTES = ("lowk rmat-16 K=1", "lowk rmat-20 K=4", "bitbell rmat-20", "mxu road-512")
@@ -210,14 +224,23 @@ WEIGHTED_ROUTES = ("weighted rmat-20", "weighted road-512", "weighted-stencil ro
                    "weighted-mesh2d road-512")
 # The mesh routes: -gn 4 over a logical mesh of four entries on cuda:0.
 MESH_SHARDS = 4
-MESH_ROUTES = ("vshard4 road-1024", "mesh2d ring road-1024", "mesh2d async road-1024")
+MESH_ROUTES = ("vshard4 road-1024", "mesh2d ring road-1024", "mesh2d async road-1024",
+               "vshard2 rmat-20")
 # The 2D mesh's kernels whose launches are each timed alone over one run
-# (M4, K1s's final take, H1, M1), and the profiler's names of their
-# kernels (and of the zero fills beside them).
+# (M4 and its commit form, K1s's final take, H1, M1), and the profiler's
+# names of their kernels (and of the zero fills beside them); M4's two forms
+# are one kernel template, so the profiler's forest_max sum holds both.
 MESH2D_KERNELS = {"forest_max": ("forest_max_kernel",),
+                  "forest_max_commit": (),
                   "forest_gather": ("forest_gather_kernel",),
                   "halo_pair_or": ("pair_or_kernel",),
                   "chunk_merge": ("chunk_merge_kernel", "chunk_commit_kernel")}
+# Every hand-written kernel is defined in a top-level anonymous namespace
+# of its csrc/*.cu, so the profiler names it "(anonymous namespace)::..."
+# ("void (anonymous namespace)::..." for a template); torch's kernels sit
+# in at::native (some in an anonymous namespace inside it).  A device
+# kernel of another name is a torch operation (host copies excluded).
+HANDWRITTEN = ("(anonymous namespace)::", "void (anonymous namespace)::")
 FILL_NAMES = ("FillFunctor", "Memset")
 # Device cycles slept before each launch of a run timed alone (about 0.5
 # ms): the wrapper's host time falls in the sleep, not between the events.
@@ -633,44 +656,62 @@ def _mesh_run(torch, dev, files, route):
                 winner=int(np.argmin(f)) + 1, min_f=int(f.min()))
 
 
-def _mesh2d_kwargs(route):
-    return dict(async_levels=4) if "async" in route else dict(merge_tree="ring")
+def _torch_ops(device):
+    """Of a profiled run's device events, the kernels that no hand-written
+    kernel launched (no host copies): their count, ms and most frequent
+    names."""
+    names, count, ms = {}, 0, 0.0
+    for e in device:
+        if e.name.startswith(HANDWRITTEN) or e.name.startswith("Memcpy"):
+            continue
+        count += 1
+        ms += e.time_range.elapsed_us() / 1e3
+        key = e.name[:80]
+        names[key] = names.get(key, 0) + 1
+    top = dict(sorted(names.items(), key=lambda kv: -kv[1])[:8])
+    return dict(torch_kernels=count, torch_kernel_ms=ms, torch_kernel_names=top)
 
 
-def _mesh2d_kernels(torch, dev, files, route):
-    """One ``f_values`` run of a fresh 2D mesh engine with each launch of
-    M4, forest_gather, H1 and M1 timed alone (CUDA events behind a queued
-    device sleep): launches and summed ms a kernel, and every kernel's
-    launches and variants over the run; one run under torch.profiler: the
-    device's busy share, those kernels' own time and the zero fills (fill
-    kernels and memsets) beside them; on the async route, M4's whole-forest
-    call (``forest_max_hits``: the parent's M4 and forest_gather, or the
-    take form) on its widest and thinnest tiles, recorded and timed again
-    alone (median of 10)."""
+def _halo_knobs(files, route):
+    """The route's knobs; on vshard2 RMAT-20 also the JAX package's auto
+    halo and push budgets for the graph (``chip_smoke.py`` phase 15's)."""
+    knobs = dict(ROUTES[route][1])
+    if route == "vshard2 rmat-20":
+        from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.parallel import (
+            sharded_bell,
+        )
+        from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.utils import (
+            io as tio,
+        )
+
+        g = tio.load_graph_bin(files[ROUTES[route][0]][0])
+        knobs.update(MSBFS_HALO_BUDGET=str(sharded_bell.default_halo_budget(2 * -(-g.n // 2), 2)),
+                     MSBFS_PUSH_HALO=str(sharded_bell.default_push_halo_budget(
+                         g.num_directed_edges, 2)))
+    return knobs
+
+
+def _timed_run(torch, make, q, names, patches=()):
+    """One ``f_values`` run of a fresh engine (``make()``) with each launch
+    of the kernels ``names`` timed alone (CUDA events behind a queued
+    device sleep) and ``patches`` ((module, attribute, value) triples) in
+    place; then one run of another fresh engine under torch.profiler,
+    whose F must equal the first's.  Returns F, the timed run's launch
+    counts, variants, ms a launch of each of ``names`` and wall ms, the
+    profiled run's device events (the trace's opening sleep left out),
+    its wall ms and the device's busy ms in it."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
-    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.parallel import (
-        mesh, partition2d,
-    )
     from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.runtime import (
         kernels,
     )
     from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.utils import (
-        io as tio,
         timing,
     )
 
-    gpath, qpath = files[ROUTES[route][0]]
-    g = tio.load_graph_bin(gpath)
-    q = tio.pad_queries(tio.load_query_bin(qpath))
-
-    def make():
-        return partition2d.Mesh2DEngine(mesh.make_mesh2d(2, 2, devices=[dev] * MESH_SHARDS), g,
-                                        **_mesh2d_kwargs(route))
-
-    real_launch, real_hits = kernels.launch, partition2d.forest_max_hits
-    events = {k: [] for k in MESH2D_KERNELS}
+    real_launch = kernels.launch
+    events = {k: [] for k in names}
 
     def timed(name, device, *args, **kwargs):
         if name not in events:
@@ -683,6 +724,119 @@ def _mesh2d_kernels(torch, dev, files, route):
         events[name].append(ev)
         return out
 
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in patches]
+    eng = make()
+    torch.cuda.synchronize()
+    timing.reset_launch_counts()
+    kernels.launch = timed
+    for mod, attr, value in patches:
+        setattr(mod, attr, value)
+    gc.collect()
+    gc.disable()  # a collection inside a timed launch would land between its events
+    t0 = time.perf_counter()
+    try:
+        f = eng.f_values(q).cpu().numpy()
+    finally:
+        wall = (time.perf_counter() - t0) * 1e3
+        gc.enable()
+        kernels.launch = real_launch
+        for mod, attr, value in saved:
+            setattr(mod, attr, value)
+    torch.cuda.synchronize()
+    launches, variants = timing.launch_counts(), timing.variant_counts()
+    ms = {k: [e0.elapsed_time(e1) for e0, e1 in evs] for k, evs in events.items()}
+    del eng
+    eng = make()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(100_000)  # a trace can miss its first events
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        f2 = eng.f_values(q).cpu().numpy()
+        torch.cuda.synchronize()
+        profiled_wall = (time.perf_counter() - t0) * 1e3
+    del eng
+    assert np.array_equal(f, f2)
+    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+              and "spin_kernel" not in e.name]
+    busy = sum(e.time_range.elapsed_us() for e in device) / 1e3
+    return dict(f=f, launches=launches, variants=variants, ms=ms, wall_ms=wall,
+                device=device, profiled_ms=profiled_wall, busy_ms=busy)
+
+
+def _halo_push_run(torch, dev, files, route):
+    """One ``f_values`` run of a fresh vertex-sharded forest at
+    ``MSBFS_VSHARD=2`` on a ('q', 'v') mesh of 2 x 2 entries on the card,
+    each H2 launch (the match, where the tree has it, and the push) timed
+    alone (:func:`_timed_run`): launches, sums, the median and the
+    longest; then one run under torch.profiler: the torch operations, the
+    device's busy share and the run's wall ms."""
+    import numpy as np
+
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.parallel import (
+        mesh, sharded_bell,
+    )
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.utils import (
+        io as tio,
+    )
+
+    gpath, qpath = files[ROUTES[route][0]]
+    g = tio.load_graph_bin(gpath)
+    q = tio.pad_queries(tio.load_query_bin(qpath))
+    knobs = _halo_knobs(files, route)
+
+    def make():
+        return sharded_bell.ShardedBellEngine(
+            mesh.make_mesh(2, 2, devices=[dev] * MESH_SHARDS), g,
+            halo_budget=int(knobs["MSBFS_HALO_BUDGET"]),
+            push_budget=int(knobs["MSBFS_PUSH_HALO"]))
+
+    run = _timed_run(torch, make, q, ("halo_push_match", "halo_push_or"))
+    ms = {k: sorted(v) for k, v in run["ms"].items()}
+    f = run["f"]
+    return dict(launches=run["launches"], knobs=knobs,
+                timed_launches={k: len(v) for k, v in ms.items()},
+                sum_ms={k: sum(v) for k, v in ms.items()},
+                p50_ms={k: v[len(v) // 2] if v else None for k, v in ms.items()},
+                max_ms={k: v[-1] if v else None for k, v in ms.items()},
+                device_busy_ms=run["busy_ms"], profiled_run_ms=run["profiled_ms"],
+                busy_share=run["busy_ms"] / run["profiled_ms"],
+                **_torch_ops(run["device"]), winner=int(np.argmin(f)) + 1,
+                min_f=int(f.min()))
+
+
+def _mesh2d_kwargs(route):
+    return dict(async_levels=4) if "async" in route else dict(merge_tree="ring")
+
+
+def _mesh2d_kernels(torch, dev, files, route):
+    """One ``f_values`` run of a fresh 2D mesh engine with each launch of
+    M4, forest_gather, H1 and M1 timed alone (:func:`_timed_run`):
+    launches and summed ms a kernel, and every kernel's launches and
+    variants over the run; one run under torch.profiler: the device's busy
+    share, those kernels' own time and the zero fills (fill kernels and
+    memsets) beside them; on the async route, M4's whole-forest call
+    (``forest_max_hits``: the parent's M4 and forest_gather, or the take
+    form) on its widest and thinnest tiles, recorded and timed again alone
+    (median of 10)."""
+    import numpy as np
+
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.parallel import (
+        mesh, partition2d,
+    )
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.utils import (
+        io as tio,
+    )
+
+    gpath, qpath = files[ROUTES[route][0]]
+    g = tio.load_graph_bin(gpath)
+    q = tio.pad_queries(tio.load_query_bin(qpath))
+
+    def make():
+        return partition2d.Mesh2DEngine(mesh.make_mesh2d(2, 2, devices=[dev] * MESH_SHARDS), g,
+                                        **_mesh2d_kwargs(route))
+
+    real_hits = partition2d.forest_max_hits
     calls = {}
 
     def keeping(frontier, graph, hits, floor, go, scratch=None):
@@ -693,25 +847,9 @@ def _mesh2d_kernels(torch, dev, files, route):
                                         scratch))
         return real_hits(frontier, graph, hits, floor, go, scratch)
 
-    eng = make()
-    torch.cuda.synchronize()
-    timing.reset_launch_counts()
-    kernels.launch = timed
-    if "async" in route:
-        partition2d.forest_max_hits = keeping
-    gc.collect()
-    gc.disable()  # a collection inside a timed launch would land between its events
-    t0 = time.perf_counter()
-    try:
-        f = eng.f_values(q).cpu().numpy()
-    finally:
-        wall = (time.perf_counter() - t0) * 1e3
-        gc.enable()
-        kernels.launch, partition2d.forest_max_hits = real_launch, real_hits
-    torch.cuda.synchronize()
-    launches, variants = timing.launch_counts(), timing.variant_counts()
-    ms = {k: [e0.elapsed_time(e1) for e0, e1 in evs] for k, evs in events.items()}
-    del eng
+    patches = ((partition2d, "forest_max_hits", keeping),) if "async" in route else ()
+    run = _timed_run(torch, make, q, tuple(MESH2D_KERNELS), patches)
+    ms, f = run["ms"], run["f"]
     alone = {}
     for which, (slots, snap) in calls.items():
         times = []
@@ -726,31 +864,22 @@ def _mesh2d_kernels(torch, dev, files, route):
             if i >= 2:
                 times.append(ev[0].elapsed_time(ev[1]))
         alone[which] = dict(slots=slots, levels=len(snap[1].level_cols), ms=_median(times))
-    eng = make()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        f2 = eng.f_values(q).cpu().numpy()
-        torch.cuda.synchronize()
-        profiled_wall = (time.perf_counter() - t0) * 1e3
-    del eng
-    assert np.array_equal(f, f2), route
-    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.time_range.elapsed_us() for e in device) / 1e3
+    device, busy = run["device"], run["busy_ms"]
     profiled = {k: sum(e.time_range.elapsed_us() for e in device
                        if any(n in e.name for n in names)) / 1e3
                 for k, names in MESH2D_KERNELS.items()}
     fills = [e for e in device if any(n in e.name for n in FILL_NAMES)]
-    return dict(launches=launches, variants=variants,
+    return dict(launches=run["launches"], variants=run["variants"],
+                **_torch_ops(run["device"]),
                 timed_launches={k: len(v) for k, v in ms.items()},
                 sum_ms={k: sum(v) for k, v in ms.items()},
                 total_ms=sum(sum(v) for v in ms.values()),
                 profiler_ms=profiled, profiler_total_ms=sum(profiled.values()),
                 zero_fills=len(fills), zero_fill_ms=sum(e.time_range.elapsed_us()
                                                         for e in fills) / 1e3,
-                device_busy_ms=busy, profiled_run_ms=profiled_wall,
-                busy_share=busy / profiled_wall, timed_run_ms=wall, forest_max_hits=alone,
-                winner=int(np.argmin(f)) + 1, min_f=int(f.min()))
+                device_busy_ms=busy, profiled_run_ms=run["profiled_ms"],
+                busy_share=busy / run["profiled_ms"], timed_run_ms=run["wall_ms"],
+                forest_max_hits=alone, winner=int(np.argmin(f)) + 1, min_f=int(f.min()))
 
 
 def _cli_span(cli, argv, knobs, reps, mesh_devices=None):
@@ -1019,13 +1148,18 @@ def child(tree: str, files: dict, reps: int, routes) -> dict:
         out["weighted"][route] = _weighted_run(torch, dev, files, route)
         torch.cuda.empty_cache()
     for route in (r for r in MESH_ROUTES if r in routes):
+        if route == "vshard2 rmat-20":
+            out["mesh"][route] = _halo_push_run(torch, dev, files, route)
+            torch.cuda.empty_cache()
+            continue
         out["mesh"][route] = _mesh_run(torch, dev, files, route)
         torch.cuda.empty_cache()
         if route.startswith("mesh2d"):
             out["mesh2d"][route] = _mesh2d_kernels(torch, dev, files, route)
             torch.cuda.empty_cache()
     for route in routes:
-        data, knobs = ROUTES[route]
+        data = ROUTES[route][0]
+        knobs = _halo_knobs(files, route)
         gpath, qpath = files[data]
         shards = MESH_SHARDS if route in MESH_ROUTES else 1
         out["cli"][route] = _cli_span(
@@ -1099,15 +1233,19 @@ def _summary(runs):
             min_f=[x["weighted"][route]["min_f"] for x in rs],
             split=[x["weighted"][route]["split"] for x in rs])
             for route in rs[0]["weighted"]}
-        t["mesh"] = {route: {k: [x["mesh"][route][k] for x in rs]
+        t["mesh"] = {route: {k: [x["mesh"][route].get(k) for x in rs]
                              for k in ("launches", "sum_ms", "p50_ms", "p90_ms", "max_ms",
                                        "profiler_sum_ms", "profiler_events", "busy_share",
-                                       "widest", "thin", "untimed_run_ms", "bounds", "min_f")}
+                                       "widest", "thin", "untimed_run_ms", "bounds",
+                                       "timed_launches", "torch_kernels", "torch_kernel_ms",
+                                       "profiled_run_ms", "min_f")
+                             if k in rs[0]["mesh"][route]}
                      for route in rs[0]["mesh"]}
         t["mesh2d"] = {route: {k: [x["mesh2d"][route][k] for x in rs]
                                for k in ("launches", "sum_ms", "total_ms", "profiler_ms",
                                          "profiler_total_ms", "zero_fills", "zero_fill_ms",
-                                         "busy_share", "forest_max_hits", "min_f")}
+                                         "torch_kernels", "torch_kernel_ms", "busy_share",
+                                         "forest_max_hits", "min_f")}
                        for route in rs[0]["mesh2d"]}
     return out
 

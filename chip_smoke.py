@@ -15,7 +15,7 @@ compiler, and scipy; imports nothing of JAX.  Phases (any failure exits
 non-zero; nothing is caught):
 
 1. print the card (nvidia-smi name, power limit); build the CUDA kernels
-   from csrc/ (fourteen sources, twenty-one entry points) in parallel and the
+   from csrc/ (fourteen sources, twenty-three entry points) in parallel and the
    native host runtime
    (runtime/loader.cpp), and time both builds; print the host's CPUs and
    the native runtime's thread count;
@@ -315,8 +315,10 @@ non-zero; nothing is caught):
    push road-1024" (DistributedPushEngine); each path's CLI span beside
    the single-device span on the card, its halo bytes a level and its
    peak memory; then H1 ``halo_pair_or`` (the widest rebuild of the
-   "vshard4 rmat-20" engine), H2 ``halo_push_or`` (the widest push of
-   the "vshard2 rmat-20" engine) and H3 ``owner_push_expand`` (the
+   "vshard4 rmat-20" engine), H2's match ``halo_push_match`` and its push
+   ``halo_push_or`` (the widest push of the "vshard2 rmat-20" engine,
+   the match of that call and the widest match) and H3
+   ``owner_push_expand`` (the
    widest level of the owner-partitioned push on road-1024, and its
    first level with fewer than 4,096 listed rows), each recorded call by
    call in an engine run of its own after the counted paths, held bit for
@@ -334,14 +336,20 @@ non-zero; nothing is caught):
    loss rebuilt on the 1x2 survivor row), "mesh2d ring road-1024" (its
    sparse levels in the wire trace of an engine run of its own),
    "mesh2d async road-1024" (``MSBFS_ASYNC_LEVELS=4``: M4 with the
-   final take in its launch, no forest_gather, and M1's commit, fewer
-   collective rounds than levels), "mesh2d byte rmat-16"
+   final take in its launch, no forest_gather; M1 only on the exchanges'
+   commits, one a shard a round, each writing the first wave's send; the
+   local waves M4's commit form ``forest_max_commit``, and in the
+   profiled first local waves of the engine run no device kernel but
+   those and the flags' one read; fewer collective rounds than levels),
+   "mesh2d byte rmat-16"
    (phase 5a's K = 1 on byte planes through flag_pull, one-shot tree)
    and "mesh2d mxu rmat-14" (phase 4's K = 64, tile_hits on the matmul
    levels); the road-1024 paths' H1, M1, M4 and forest_gather launches
    (every sparse gather one H1 launch of its segmented form); M1
    ``chunk_merge``, M2 ``wire_encode``, M4 ``forest_max`` (its take form;
-   the same level without the take, and followed by forest_gather) and
+   the same level without the take, and followed by forest_gather), M4's
+   commit form (beside the parent's wave on the same inputs: the take, M1's
+   commit and the send's torch ops) and
    H1's segmented form (beside one ``index_put_``) recorded call by call
    in the ring and async engine runs, held bit for bit against their
    plain versions and timed beside their bounds (M2's every launch of the
@@ -427,7 +435,8 @@ PATH_KERNELS = {
     "tooling rmat-20": ("batch_start", "forest_or", "push_or", "level_apply"),
     "mesh rmat-20": ("batch_start", "forest_or", "push_or", "level_apply"),
     "mesh csr rmat-20": ("csr_pull",),
-    "vshard2 rmat-20": ("batch_start", "forest_or", "queue_compact", "halo_push_or"),
+    "vshard2 rmat-20": ("batch_start", "forest_or", "queue_compact", "halo_push_match",
+                        "halo_push_or"),
     "vshard4 rmat-20": ("batch_start", "forest_or", "queue_compact", "halo_pair_or"),
     "reshard rmat-20": ("batch_start", "forest_or", "push_or", "level_apply"),
     "vshard4 road-1024": ("batch_start", "queue_compact", "owner_push_expand", "halo_pair_or"),
@@ -435,8 +444,8 @@ PATH_KERNELS = {
     "mesh2d rmat-20": ("batch_start", "forest_or", "wire_encode", "chunk_merge", "level_apply"),
     "mesh2d ring road-1024": ("batch_start", "forest_or", "wire_encode", "halo_pair_or",
                               "chunk_merge", "level_apply"),
-    "mesh2d async road-1024": ("batch_start", "forest_max", "wire_encode", "halo_pair_or",
-                               "chunk_merge"),
+    "mesh2d async road-1024": ("batch_start", "forest_max", "forest_max_commit", "wire_encode",
+                               "halo_pair_or", "chunk_merge"),
     "mesh2d byte rmat-16": ("batch_start", "flag_pull", "wire_encode", "chunk_merge",
                             "level_apply"),
     "mesh2d mxu rmat-14": ("batch_start", "tile_hits", "chunk_merge", "level_apply"),
@@ -5418,6 +5427,29 @@ def _hold(torch, kernel, plain, fresh, outputs, nbytes):
                 bound_by=bound_by, library_ms=None, bound_bytes=int(nbytes))
 
 
+def _commit_bytes(torch, commit, delta):
+    """The bytes a commit (``ops/cuda_mesh.py`` ``Commit``) of neg's lanes
+    must move, given the lanes it improved (``delta``, from the plain
+    version): neg read, delta and the send written whole, the changed
+    mask written whole when it is set; neg written, and the mask when it
+    is ORed (no read: an OR of 1s is a write of 1s), only in the 32-byte
+    sectors that hold an improved lane; the flag.  Returns (bytes,
+    improved lanes, neg's written sectors, the mask's written sectors)."""
+    lanes = delta.numel()
+    idx = delta.reshape(-1).nonzero().squeeze(1)
+
+    def sectors(lanes_a_sector):
+        return int(torch.unique(idx // lanes_a_sector).numel())
+
+    neg_sectors = sectors(8)
+    mask_sectors = 0
+    if commit.acc is not None:
+        mask_sectors = -(-lanes // 32) if commit.acc_set else sectors(32)
+    nbytes = (4 * lanes + lanes + 32 * neg_sectors + 32 * mask_sectors
+              + (0 if commit.send is None else 4 * lanes) + 4)
+    return nbytes, int(idx.numel()), neg_sectors, mask_sectors
+
+
 def _mesh_path(ctx, name, argv, env, single, checks, direct=None):
     """One -gn 4 CLI run over the logical mesh as a counted path, its F
     vector (the MSBFS_STATS table; ``direct()`` on an engine without one,
@@ -5453,6 +5485,55 @@ def _mesh_path(ctx, name, argv, env, single, checks, direct=None):
         routes, halo_levels, total = _halo_table(text)
         row.update(halo_routes=routes, halo_bytes_per_level=total / max(halo_levels, 1))
     return row, text
+
+
+def _h2_rows(torch, cuda_halo, push_snap, match_snap, n_pad):
+    """H2's match and push, each held bit for bit against its plain version
+    and timed beside its bound: the push on the widest recorded push (its
+    recorded match as input), the match on that call's pairs and on the
+    widest recorded match.  Bounds: the match reads every pair's id and a
+    matched pair's CSR entry, and writes every pair's (st, deg, pos) and
+    the total; the push reads a matched pair's st, pos and words, each
+    edge's slot, and reads and writes each landed hit row once.  No torch
+    call computes either, so neither has a library time."""
+    ids, words, csr, hits, match, edges_read = push_snap
+    src_ids, src_start, src_cnt, vals = csr
+    w = hits.shape[1]
+    deg = match.deg.long()
+    matched = int((deg > 0).sum())
+    edges = int(match.total[0])
+    assert edges == edges_read, (edges, edges_read)
+    owner = torch.repeat_interleave(torch.arange(ids.numel(), device=ids.device), deg)
+    within = torch.arange(owner.numel(), device=ids.device) - torch.repeat_interleave(
+        match.pos.long(), deg)
+    dst = vals[match.st.long()[owner] + within]
+    landed = int(torch.unique(dst).numel())
+    rows = {}
+    rows["halo_push_or"] = _hold(
+        torch, lambda i, x, c, h, m: cuda_halo.halo_push_or(i, x, c, h, m, edges),
+        cuda_halo.halo_push_or_plain, lambda: (ids, words, csr, hits.clone(), match),
+        lambda a: [a[3]], matched * (8 + 4 * w) + edges * 4 + landed * 8 * w)
+    rows["halo_push_or"].update(pairs=int(ids.numel()), valid=int((ids < n_pad).sum()),
+                                matched=matched, edges=edges, rows_written=landed, w=w)
+
+    def match_row(ids_, csr_):
+        def kernel(i, c, box):
+            box.append(cuda_halo.halo_push_match(i, c))
+
+        def plain(i, c, box):
+            box.append(cuda_halo.halo_push_match_plain(i, c))
+
+        want = cuda_halo.halo_push_match_plain(ids_, csr_)
+        hit = int((want.deg > 0).sum())
+        row = _hold(torch, kernel, plain, lambda: (ids_, csr_, []), lambda a: list(a[2][-1]),
+                    ids_.numel() * 16 + hit * 12 + 8)
+        row.update(pairs=int(ids_.numel()), valid=int((ids_ < n_pad).sum()), matched=hit,
+                   edges=int(want.total[0]), sources=int(csr_[0].numel()))
+        return row
+
+    rows["halo_push_match"] = match_row(ids, csr)
+    rows["halo_push_match"]["widest_recorded_match"] = match_row(*match_snap)
+    return rows
 
 
 def _mesh_phase(ctx, rmat, road, seed):
@@ -5559,9 +5640,14 @@ def _mesh_phase(ctx, rmat, road, seed):
     # builds them, run again outside the counted paths and recorded call
     # by call (a host read each); their F must still be the route's.
     def pick_push(args, kwargs):
-        ids, words, csr, hits = args
+        ids, words, csr, hits, match, edges = args
         valid = int((ids < n_pad2).sum())
-        return valid, (ids.clone(), words.clone(), csr, hits.clone())
+        return valid, (ids.clone(), words.clone(), csr, hits.clone(),
+                       type(match)(*(t.clone() for t in match)), edges)
+
+    def pick_match(args, kwargs):
+        ids, csr = args
+        return int((ids < n_pad2).sum()), (ids.clone(), csr)
 
     def pick_pair(args, kwargs):
         ids, words, plane = args[:3]
@@ -5576,12 +5662,13 @@ def _mesh_phase(ctx, rmat, road, seed):
             mesh.make_mesh(q, v, devices=[dev] * MESH_SHARDS), g20,
             halo_budget=int(halo["MSBFS_HALO_BUDGET"]),
             push_budget=int(halo["MSBFS_PUSH_HALO"]))
-        with _record(sharded_bell, fn, pick) as rec:
+        with _record(sharded_bell, fn, pick) as rec, \
+                _record(sharded_bell, "halo_push_match", pick_match) as rec_m:
             f = eng.f_values(queries20).cpu().numpy()
         assert np.array_equal(f, rmat["fv"]), (fn, f, rmat["fv"])
         assert "snap" in rec, fn
         if fn == "halo_push_or":
-            h2 = rec
+            h2, h2m = rec, rec_m
         else:
             h1 = rec
         del eng
@@ -5607,25 +5694,7 @@ def _mesh_phase(ctx, rmat, road, seed):
     # written row once however many pairs it gets.  No single torch call
     # ORs rows (duplicates included), so none of H1-H3 has a library time.
     shape = {}
-    ids, words, csr, hits = h2["snap"]
-    src_ids, src_start, src_cnt, vals = csr
-    pos = torch.clamp(torch.searchsorted(src_ids, ids), max=max(src_ids.shape[0] - 1, 0))
-    match = src_ids[pos] == ids
-    deg = torch.where(match, src_cnt[pos], 0).long()
-    first = torch.where(match, src_start[pos], 0).long()
-    owner = torch.repeat_interleave(torch.arange(ids.numel(), device=ids.device), deg)
-    within = torch.arange(owner.numel(), device=ids.device) - torch.repeat_interleave(
-        torch.cumsum(deg, 0) - deg, deg)
-    dst = vals[first[owner] + within]
-    edges, matched = int(dst.numel()), int(match.sum())
-    landed = int(torch.unique(dst).numel())
-    w = hits.shape[1]
-    shape["halo_push_or"] = _hold(
-        torch, cuda_halo.halo_push_or, cuda_halo.halo_push_or_plain,
-        lambda: (ids, words, csr, hits.clone()), lambda a: [a[3]],
-        ids.numel() * 4 + matched * (12 + 4 * w) + edges * 4 + landed * 8 * w)
-    shape["halo_push_or"].update(pairs=int(ids.numel()), valid=h2["weight"], matched=matched,
-                                 edges=edges, rows_written=landed, w=w)
+    shape.update(_h2_rows(torch, cuda_halo, h2["snap"], h2m["snap"], n_pad2))
     ids, words, plane, lo = h1["snap"]
     w = plane.shape[1]
     valid = (ids >= lo) & (ids < lo + plane.shape[0])
@@ -5764,7 +5833,14 @@ def _mesh2d_phase(ctx, rmat, road, rmat16, rmat14, seed):
         pctx, "mesh2d ring road-1024", road, dict(MSBFS_MERGE_TREE="ring"), single["road1024"])
     rows["mesh2d async road-1024"] = _mesh2d_path(
         pctx, "mesh2d async road-1024", road, dict(MSBFS_ASYNC_LEVELS="4"), single["road1024"])
-    assert "chunk_merge:max/commit" in VARIANTS["mesh2d async road-1024"]
+    # M1 only on the exchanges' commits (one a shard a round, each writing
+    # the first local wave's send); the local waves are M4's commit form.
+    async_v = VARIANTS["mesh2d async road-1024"]
+    assert async_v.get("chunk_merge:max/commit/send") == launches[
+        "mesh2d async road-1024"]["chunk_merge"], async_v
+    assert launches["mesh2d async road-1024"]["chunk_merge"] == MESH_SHARDS * rows[
+        "mesh2d async road-1024"]["collective_rounds"], rows["mesh2d async road-1024"]
+    assert async_v.get("forest_max_commit:cand/commit", 0) > 0, async_v
     # A one-level road forest is one M4 launch with the final take in it (no
     # forest_gather), and every sparse gather one H1 launch: fewer launches
     # than a launch a segment and an M1 merge a sparse OR col leg gave on
@@ -5780,7 +5856,8 @@ def _mesh2d_phase(ctx, rmat, road, rmat16, rmat14, seed):
         assert VARIANTS[path].get("halo_pair_or:seg") == launches[path]["halo_pair_or"], path
     print("mesh2d road-1024 gathers and folds: " + json.dumps({
         path: {k: launches[path].get(k, 0)
-               for k in ("halo_pair_or", "chunk_merge", "forest_max", "forest_gather")}
+               for k in ("halo_pair_or", "chunk_merge", "forest_max", "forest_max_commit",
+                         "forest_gather")}
         for path in ("mesh2d ring road-1024", "mesh2d async road-1024")}))
     rows["mesh2d byte rmat-16"] = _mesh2d_path(
         pctx, "mesh2d byte rmat-16", rmat16,
@@ -5865,21 +5942,75 @@ def _mesh2d_phase(ctx, rmat, road, rmat16, rmat14, seed):
             return 0, None
         parts = args[0]
         return parts[0].numel() * len(parts), lambda: (
-            [p.clone() for p in parts],
-            cuda_mesh.Commit(*(None if t is None else t.clone() for t in commit)))
+            [p.clone() for p in parts], commit.clone())
+
+    # No snapshot is taken inside the profiled waves (its copies would land
+    # in their profile); the next waves' calls have the same shapes.
+    profiling = {"on": False}
+
+    def pick_wave(args, kwargs):
+        if profiling["on"]:
+            return 0, None
+        prev, prev_rows, cols, tables, i, scratch, last_off, final_slot, row0, commit, go = args[:11]
+        floor = args[11] if len(args) > 11 else kwargs.get("floor")
+        slots = sum(r * c for r, c in tables.pieces[i])
+        return slots, lambda: (prev.clone(), prev_rows, cols, tables, i,
+                               None if scratch is None else scratch.clone(), last_off,
+                               final_slot, row0, commit.clone(), go.clone(), floor)
+
+    # The first local waves of the run profiled: every device kernel they
+    # launch, beside their launch counts.
+    real_waves = partition2d.Mesh2DEngine._local_waves
+    profiled_waves = {}
+
+    def local_waves(self, run, floor):
+        if profiled_waves:
+            return real_waves(self, run, floor)
+        from torch.profiler import ProfilerActivity, profile
+
+        tag, before = run.tag, dict(timing.launch_counts())
+        profiling["on"] = True
+        try:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                real_waves(self, run, floor)
+                torch.cuda.synchronize()
+        finally:
+            profiling["on"] = False
+        after = timing.launch_counts()
+        names = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                names[e.name] = names.get(e.name, 0) + 1
+        profiled_waves.update(waves=run.tag - tag, kernels=names, launches={
+            k: after.get(k, 0) - before.get(k, 0) for k in after if after.get(k, 0) != before.get(k, 0)})
 
     timing.reset_collective_rounds()
+    partition2d.Mesh2DEngine._local_waves = local_waves
     t0 = time.perf_counter()
-    with _record(cuda_mesh, "forest_max_take", pick_take) as m4, \
-            _record(cuda_mesh, "chunk_merge", pick_commit) as m1c, \
-            _record(cuda_mesh, "halo_pair_or_segments", picks_gather(False)) as h1c:
-        f_async = eng.f_values(padded1).cpu().numpy()
+    try:
+        with _record(cuda_mesh, "forest_max_take", pick_take) as m4, \
+                _record(cuda_mesh, "forest_max_commit", pick_wave) as m4c, \
+                _record(cuda_mesh, "chunk_merge", pick_commit) as m1c, \
+                _record(cuda_mesh, "halo_pair_or_segments", picks_gather(False)) as h1c:
+            f_async = eng.f_values(padded1).cpu().numpy()
+    finally:
+        partition2d.Mesh2DEngine._local_waves = real_waves
     async_s = time.perf_counter() - t0
     rounds = timing.collective_rounds()
     assert np.array_equal(f_async, road["fv"]), (f_async, road["fv"])
     depth = rows["mesh2d async road-1024"]["levels"]
     assert rounds < depth, (rounds, depth)
-    rows["mesh2d async road-1024"].update(rounds=rounds, levels=depth, engine_f_values_s=async_s)
+    # A local wave is M4's commit form, a launch a shard, and nothing else on
+    # the device but the flags' one read (one stack kernel and its copy to
+    # the host): no fill, and not the parent's where / zeros / copy / fill
+    # and M1 a shard.
+    waves = profiled_waves["waves"]
+    assert profiled_waves["launches"] == {"forest_max_commit": MESH_SHARDS * waves}, profiled_waves
+    others = {k: v for k, v in profiled_waves["kernels"].items()
+              if "forest_max_kernel" not in k and not k.startswith("Memcpy DtoH")}
+    assert sum(others.values()) <= waves and not any("Fill" in k for k in others), profiled_waves
+    rows["mesh2d async road-1024"].update(rounds=rounds, levels=depth, engine_f_values_s=async_s,
+                                          first_local_waves=profiled_waves)
     del eng, g1
     torch.cuda.empty_cache()
     for name, row in rows.items():
@@ -5926,13 +6057,18 @@ def _mesh2d_phase(ctx, rmat, road, rmat16, rmat14, seed):
     shape["chunk_merge"].update(chunks=len(parts), words=words, op=op)
     parts, c = m1c["snap"]
     words = parts[0].numel()
+    # The chunks read, then the commit's bytes for the lanes it improved.
+    plain_c = c.clone()
+    cuda_mesh.chunk_merge_plain(parts, None, "max", plain_c)
+    nbytes, improved, neg_sectors, mask_sectors = _commit_bytes(torch, c, plain_c.delta)
     commit_row = _hold(
         torch, lambda p, cm: cuda_mesh.chunk_merge(p, op="max", commit=cm),
         lambda p, cm: cuda_mesh.chunk_merge_plain(p, None, "max", cm),
-        lambda: (parts, cuda_mesh.Commit(*(None if t is None else t.clone() for t in c))),
-        lambda a: [t for t in a[1] if t is not None],
-        4 * words * len(parts) + 8 * words + words * (2 if c.acc is not None else 1))
-    commit_row.update(chunks=len(parts), words=words)
+        lambda: (parts, c.clone()), lambda a: [t for t in a[1].tensors() if t is not None],
+        4 * words * len(parts) + nbytes)
+    commit_row.update(chunks=len(parts), words=words, acc_set=bool(c.acc_set),
+                      send=c.send is not None, improved_lanes=improved,
+                      neg_sectors_written=neg_sectors, mask_sectors_written=mask_sectors)
     plane, budget, lanes = m2["snap"]
     total = plane.numel()
 
@@ -5948,6 +6084,7 @@ def _mesh2d_phase(ctx, rmat, road, rmat16, rmat14, seed):
     shape["wire_encode"].update(words=total, budget=budget, count=m2["weight"], lanes=lanes,
                                 run_sum_ms=m2["sum_ms"], run_launches=m2["calls"],
                                 run="mesh2d ring road-1024 wire_trace, a level a step")
+    shape["forest_max_commit"] = _mesh2d_m4_commit(torch, cuda_mesh, m4c["snap"])
     extra = {"forest_max:level": _mesh2d_m4(torch, cuda_mesh, shape, m4["snap"]),
              "halo_pair_or:seg": _mesh2d_gather(
                  torch, cuda_halo, max((h1s, h1c), key=lambda r: r.get("weight", -1))["snap"]),
@@ -6041,6 +6178,77 @@ def _mesh2d_m4(torch, cuda_mesh, shape, snap):
                  take_ms=shape["forest_max"]["ms"], slots=slots, live_slots=live,
                  source_rows=distinct, rows=rows, w=w)
     return level
+
+
+def _mesh2d_m4_commit(torch, cuda_mesh, snap):
+    """M4's commit form on its widest recorded call (a local wave of the
+    async path), held bit for bit against its plain version (the take into
+    a scratch hit plane, then the commit and the send's where) over neg,
+    delta, the changed mask, the flag and the send, and timed beside its
+    bound: the cols of the own rows' slots, each distinct live source row
+    they name, the own rows' final slots and copied scratch rows, and the
+    commit's bytes for the lanes it improved (:func:`_commit_bytes`).
+    Beside it, the parent's wave on the same inputs: the
+    take of every hit row, M1's commit of the own rows and the send's
+    where, zeros and copy and the flag's fill.  No torch call computes the
+    commit form, so it has no library time."""
+    prev, prev_rows, cols, tables, i, scratch, last_off, final_slot, row0, c, go, floor = snap
+    pieces = tables.pieces[i]
+    rows, w = c.neg.shape
+    dev = c.neg.device
+    # Each level row's first slot and width, then the own final rows' slots.
+    widths = torch.cat([torch.full((r,), cw, dtype=torch.int64, device=dev) for r, cw in pieces])
+    starts = torch.cumsum(widths, 0) - widths
+    slot = final_slot[row0 : row0 + rows].long()
+    level_row = slot - last_off
+    folded = (level_row >= 0) & (level_row < widths.numel())
+    lr = level_row[folded]
+    own_w = widths[lr]
+    flat = torch.repeat_interleave(starts[lr], own_w) + (
+        torch.arange(int(own_w.sum()), device=dev)
+        - torch.repeat_interleave(torch.cumsum(own_w, 0) - own_w, own_w))
+    own_cols = cols[flat]
+    live = own_cols[own_cols < prev_rows]
+    distinct = int(torch.unique(live).numel())
+    copied = int((slot < last_off).sum())
+    plain_c = c.clone()
+    cuda_mesh.forest_max_commit_plain(prev, prev_rows, cols, pieces, scratch, last_off, final_slot,
+                                      row0, plain_c, go, floor)
+    commit_bytes, improved, neg_sectors, mask_sectors = _commit_bytes(torch, c, plain_c.delta)
+    nbytes = (4 * int(own_cols.numel()) + 4 * w * distinct + 4 * rows + 4 * w * copied
+              + commit_bytes)
+    row = _hold(
+        torch, cuda_mesh.forest_max_commit,
+        lambda pv, pr, cl, tb, ii, sc, lo, fs, r0, cm, g, fl: cuda_mesh.forest_max_commit_plain(
+            pv, pr, cl, tb.pieces[ii], sc, lo, fs, r0, cm, g, fl),
+        lambda: (prev, prev_rows, cols, tables, i, scratch, last_off, final_slot, row0,
+                 c.clone(), go, floor),
+        lambda a: [t for t in a[9].tensors() if t is not None], nbytes)
+    hits = torch.zeros((final_slot.shape[0], w), dtype=torch.int32, device=dev)
+    work = {}
+
+    def parent_wave():
+        cm = work["c"]
+        cuda_mesh.forest_max_take(prev, prev_rows, cols, tables, i, scratch, last_off, final_slot,
+                                  hits, go, floor)
+        cuda_mesh.chunk_merge([hits[row0 : row0 + rows]], op="max",
+                              commit=cm._replace(send=None))
+        cm.send.copy_(torch.where(cm.delta, cm.neg, torch.zeros_like(cm.neg)))
+        cm.flag.zero_()
+
+    def restore():
+        work["c"] = c.clone()
+
+    restore()
+    parent_wave()
+    row.update(parent_wave_ms=_time_ms(torch, parent_wave, restore), own_rows=rows, w=w,
+               row0=row0, level_rows=int(widths.numel()), own_slots=int(own_cols.numel()),
+               live_slots=int(live.numel()), source_rows=distinct, improved_lanes=improved,
+               neg_sectors_written=neg_sectors, mask_sectors_written=mask_sectors,
+               copied_rows=copied,
+               tile_slots=sum(r * cw for r, cw in pieces), cand=floor is not None,
+               variant=("cand" if floor is not None else "max") + "/commit")
+    return row
 
 
 def _mesh2d_gather(torch, cuda_halo, snap, overlap=False):
@@ -6566,11 +6774,14 @@ def main() -> int:
                          "{JAX_PKG}/ops/push_packed.py:110",
         "weighted_relax": "weighted/deltastep.py:84",
         "halo_pair_or": "parallel/sharded_bell.py:444, {JAX_PKG}/parallel/push_sharded.py:176",
+        "halo_push_match": "parallel/sharded_bell.py:459",
         "halo_push_or": "parallel/sharded_bell.py:350",
         "owner_push_expand": "parallel/push_sharded.py:131",
         "chunk_merge": "parallel/partition2d.py:571, {JAX_PKG}/parallel/partition2d.py:558",
         "wire_encode": "parallel/partition2d.py:291, {JAX_PKG}/parallel/partition2d.py:305",
         "forest_max": "parallel/partition2d.py:1116, {JAX_PKG}/ops/streamed.py:117",
+        "forest_max_commit": "parallel/partition2d.py:1298, {JAX_PKG}/ops/bitbell.py:200, "
+                             "{JAX_PKG}/ops/bitbell.py:190",
     }
     # K5's push: the flag_pull launches with the push folded in, on the
     # byte paths.

@@ -31,6 +31,18 @@
 // makes the round trip through scratch (32.5 MB written and read back on
 // the widest road-1024 tile).
 //
+// The commit form (``msbfs_forest_max_commit``, the async drive's local
+// waves: partition2d.py ``_local_waves``, JAX's ``neg_relax_chunk`` over
+// ``neg_commit``) is the take form restricted to the shard's own output
+// rows [row0, row0 + rows): each folded row is committed into the own neg
+// plane as M1's commit epilogue does (neg_commit.cuh: neg, delta, changed
+// ORed, the next wave's send delta ? cand : 0, the flag set to the wave's
+// tag), and no hit row is written.  The wave reads only its own rows, so
+// the other C - 1 of the tile's C row chunks are neither folded nor
+// stored, and the own rows never make the round trip through the hit
+// plane into M1 (a local wave was M4, M1 and four torch launches: the
+// send's where / zeros / copy and the flag's fill).
+//
 // Design.  A group of G lanes owns an output row (G a power of two, at
 // most 32: a warp holds 32 / G rows).  A lane takes one 16-byte vector of
 // the row's lanes when W is a multiple of 4 and the planes are aligned
@@ -59,6 +71,7 @@
 #include <type_traits>
 
 #include "msbfs_common.cuh"
+#include "neg_commit.cuh"
 
 namespace {
 
@@ -90,6 +103,10 @@ struct Fold {
   long long total_rows;
   const int* ctrl;
   int max_levels;
+  // The commit form: the output rows are final rows row0 + [0, rows),
+  // committed into ``commit`` (its planes (rows, W)).
+  long long row0;
+  msbfs::NegCommit commit;
 };
 
 template <bool kCand>
@@ -129,8 +146,9 @@ __device__ __forceinline__ T zero_unit() {
   }
 }
 
-template <bool kVec, bool kCand, bool kTake>
+template <bool kVec, bool kCand, bool kTake, bool kCommit>
 __global__ void __launch_bounds__(msbfs::kThreads) forest_max_kernel(const Fold a) {
+  static_assert(kTake || !kCommit, "the commit form is a form of the take");
   using T = typename std::conditional<kVec, int4, int>::type;
   if constexpr (kTake) {
     if (!msbfs::direction_go(a.ctrl, a.max_levels, msbfs::kDirPull)) return;
@@ -147,13 +165,14 @@ __global__ void __launch_bounds__(msbfs::kThreads) forest_max_kernel(const Fold 
   const long long warps = static_cast<long long>(gridDim.x) * (blockDim.x >> 5);
   const long long warp =
       blockIdx.x * static_cast<long long>(blockDim.x >> 5) + (threadIdx.x >> 5);
+  bool improved = false;
   // A warp takes per_warp consecutive rows at a time, a row a group.
   for (long long first = warp * per_warp; first < a.rows; first += warps * per_warp) {
     const long long v = first + lane / G;
     long long r = -1, copy = -1;  // the level row to fold, the scratch row to copy
     if (v < a.rows) {
       if constexpr (kTake) {
-        const long long s = __ldg(a.final_slot + v);
+        const long long s = __ldg(a.final_slot + a.row0 + v);
         if (s < a.last_off) {
           copy = s;
         } else if (s < a.total_rows) {
@@ -203,24 +222,46 @@ __global__ void __launch_bounds__(msbfs::kThreads) forest_max_kernel(const Fold 
       if constexpr (kTake) {
         if (copy >= 0 && mine) acc = __ldg(static_cast<const T*>(a.scratch) + copy * U + u);
       }
-      if (v < a.rows && mine) out[v * U + u] = acc;
+      if (v < a.rows && mine) {
+        if constexpr (kCommit) {
+          if constexpr (kVec) {
+            improved |= msbfs::commit_quad(a.commit, acc, v * U + u);
+          } else {
+            improved |= msbfs::commit_lane(a.commit, acc, v * U + u);
+          }
+        } else {
+          out[v * U + u] = acc;
+        }
+      }
     }
   }
+  if constexpr (kCommit) msbfs::commit_flag(a.commit, improved);
 }
 
-template <bool kVec, bool kCand, bool kTake>
+// form: 0 the level, 1 the take, 2 the commit.
+template <bool kVec, bool kCand, bool kTake, bool kCommit>
 void launch_fold(const Fold& a, cudaStream_t s) {
   const int rows_a_block = (msbfs::kThreads / 32) * (32 / a.group);
-  forest_max_kernel<kVec, kCand, kTake>
+  forest_max_kernel<kVec, kCand, kTake, kCommit>
       <<<msbfs::grid_for(a.rows, rows_a_block), msbfs::kThreads, 0, s>>>(a);
 }
 
 template <bool kVec, bool kCand>
-void launch_fold(const Fold& a, bool take, cudaStream_t s) {
-  if (take) {
-    launch_fold<kVec, kCand, true>(a, s);
+void launch_fold(const Fold& a, int form, cudaStream_t s) {
+  if (form == 2) {
+    launch_fold<kVec, kCand, true, true>(a, s);
+  } else if (form == 1) {
+    launch_fold<kVec, kCand, true, false>(a, s);
   } else {
-    launch_fold<kVec, kCand, false>(a, s);
+    launch_fold<kVec, kCand, false, false>(a, s);
+  }
+}
+
+void launch_form(const Fold& a, bool vec, bool cand, int form, cudaStream_t s) {
+  if (vec) {
+    cand ? launch_fold<true, true>(a, form, s) : launch_fold<true, false>(a, form, s);
+  } else {
+    cand ? launch_fold<false, true>(a, form, s) : launch_fold<false, false>(a, form, s);
   }
 }
 
@@ -274,11 +315,61 @@ extern "C" int msbfs_forest_max(int device, const void* prev, long long prev_row
   a.total_rows = total_rows;
   a.ctrl = static_cast<const int*>(ctrl);
   a.max_levels = max_levels;
-  const auto s = static_cast<cudaStream_t>(stream);
-  if (vec) {
-    cand ? launch_fold<true, true>(a, take, s) : launch_fold<true, false>(a, take, s);
-  } else {
-    cand ? launch_fold<false, true>(a, take, s) : launch_fold<false, false>(a, take, s);
+  launch_form(a, vec, cand, take ? 1 : 0, static_cast<cudaStream_t>(stream));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The commit form: the take form's arguments (table the last level's,
+// ``scratch`` the earlier levels' rows, final_slot (total final rows,)
+// int32), but only final rows [row0, row0 + rows) are folded, each
+// committed into the (rows, W) planes neg (int32, in place), delta (uint8,
+// written), acc (uint8, ORed with delta, or set to it with acc_set; or
+// null) and send (int32, delta ? cand : 0; or null), and flag (int32, or
+// null) set to ``tag`` on any delta; no hit row is written.  vec: 1 also
+// needs neg and send 16-byte aligned and delta and acc 4-byte aligned.
+// Gated as the take.
+extern "C" int msbfs_forest_max_commit(int device, const void* prev, long long prev_rows,
+                                       const void* cols, const void* table, int buckets, int W,
+                                       int cand, int floor, int vec, const void* final_slot,
+                                       const void* scratch, long long last_off,
+                                       long long total_rows, const void* ctrl, int max_levels,
+                                       long long row0, long long rows, void* neg, void* delta,
+                                       void* acc, int acc_set, void* flag, int tag, void* send,
+                                       void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const msbfs::NegCommit c{static_cast<int*>(neg), static_cast<uint8_t*>(delta),
+                           static_cast<uint8_t*>(acc), static_cast<int*>(send),
+                           static_cast<int*>(flag), acc_set, tag};
+  if (W < 1 || prev_rows < 0 || prev_rows >= (1LL << 31) || buckets < 0 ||
+      buckets > kMaxBuckets || row0 < 0 || rows < 0 || (cand != 0 && cand != 1) ||
+      (vec != 0 && vec != 1) || (acc_set != 0 && acc_set != 1) || final_slot == nullptr ||
+      ctrl == nullptr || neg == nullptr || delta == nullptr || last_off < 0 ||
+      total_rows < last_off || (last_off > 0 && scratch == nullptr) ||
+      (vec && (W % 4 != 0 || !aligned16(prev) || !msbfs::quad_aligned(c) ||
+               (last_off > 0 && !aligned16(scratch))))) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (rows == 0) return static_cast<int>(cudaSuccess);
+  Fold a{};
+  a.prev = prev;
+  a.prev_rows = prev_rows;
+  a.cols = static_cast<const int*>(cols);
+  a.table = static_cast<const long long*>(table);
+  a.nb = buckets;
+  a.rows = rows;
+  a.units = vec ? W / 4 : W;
+  a.group = 1;
+  while (a.group < a.units && a.group < 32) a.group <<= 1;
+  a.floor = floor;
+  a.final_slot = static_cast<const int*>(final_slot);
+  a.scratch = scratch;
+  a.last_off = last_off;
+  a.total_rows = total_rows;
+  a.ctrl = static_cast<const int*>(ctrl);
+  a.max_levels = max_levels;
+  a.row0 = row0;
+  a.commit = c;
+  launch_form(a, vec, cand, 2, static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }

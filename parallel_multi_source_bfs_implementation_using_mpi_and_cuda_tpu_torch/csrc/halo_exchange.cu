@@ -21,11 +21,28 @@
 //   control when ``ctrl`` is given.  The segment table travels in the
 //   launch's parameters and each block copies it to shared memory.
 //
-// H2 halo_push_or — sharded_bell.py:350 ``_push_own_hits``: every gathered
-//   pair's in-block push-CSR row (sources sorted ascending, ``build_push_halo``)
-//   is walked and the pair's words ORed into the own block's hit rows.  A warp
-//   a pair: lane 0 finds the source by binary search, the lanes share its
-//   edges.
+// H2 halo_push_or — sharded_bell.py:350 ``_push_own_hits`` with its match
+//   (:455-466): every gathered pair's in-block push-CSR row (sources sorted
+//   ascending, ``build_push_halo``) walked and the pair's words ORed into the
+//   own block's hit rows; two launches.
+//   The match (``msbfs_halo_push_match``), a thread a pair: an id outside
+//   [first source, last source] (the sentinel n_pad) is dropped before any
+//   search; the others search the sources' first levels in shared memory
+//   (a table of kSplit evenly spaced sources a block, loaded once) and the
+//   rest, at most m / kSplit + 1 entries, in device memory, a thread's
+//   kMatchItems pairs in flight together.  It writes each pair's (st, deg)
+//   (deg 0 unmatched), the exclusive prefix ``pos`` of deg (the pair's first
+//   edge in the flat edge space) by the decoupled look-back of
+//   ordered_scan.cuh (tiles of kMatchTile pairs by ticket), and the total
+//   (int64), which the engine's one stacked read a level takes for the
+//   route decision (JAX's ``edges_needed <= push_budget``).
+//   The push (``msbfs_halo_push_or``), a thread an edge over the flat edge
+//   space (JAX's cumsum / cummax owner map): edge j's owner is the last
+//   pair with pos <= j, found in a table of kSplit sampled prefixes in
+//   shared memory and then a few device loads; unmatched pairs own no edge
+//   and are never visited.  The pair's words are ORed (atomicOr) into the
+//   edge's own hit row.  Its grid follows the edge count the host read; the
+//   loop bound is the device's total.
 //
 // H3 owner_push_expand — push_sharded.py:131-175 ``_push_level``: the own
 //   queue's rows of the (block + 1, width) own-row table (global ids,
@@ -47,9 +64,15 @@
 // Bound: bytes.  H1 reads each pair and writes its row's words (its body
 // sits at the launch floor: 0.0055-0.0060 ms against a 0.00005 ms bound on
 // the widest rebuild, NVIDIA H100 80GB HBM3, 700 W, chip_smoke.py, so the
-// 2D mesh's gathers save launches, not bytes); H2 reads
-// each pair, its source's CSR entry and edges, and writes a row's words an
-// edge; H3 reads the listed rows' table rows and words, writes the reached
+// 2D mesh's gathers save launches, not bytes); H2's match
+// reads each pair's id, a matched pair's search path, CSR entry and writes
+// its (st, deg, pos), its push a matched pair's entry, each edge's slot and
+// the owner's words, and writes a row's words an edge.  Its parent gave a
+// warp to each pair, sentinels included, and lane 0 searched while 31
+// waited (0.029 ms on the widest push of RMAT-20's vertex-sharded forest,
+// 16,384 pairs of which 1,233 matched, against a 0.0001 ms bound; NVIDIA
+// H100 80GB HBM3, 700 W, chip_smoke.py), and the route decision repeated
+// the search as about seven torch launches a shard; H3 reads the listed rows' table rows and words, writes the reached
 // hit words and the pairs.  H3's old single block of 1024 threads walked
 // the slots a tile at a time on one SM (0.286-0.499 ms on road-1024's
 // widest level against a 0.000634 ms bound, NVIDIA H100 80GB HBM3, 700 W,
@@ -103,39 +126,162 @@ pair_or_kernel(const Segments segs, int nseg, int W, uint32_t* __restrict__ plan
   }
 }
 
-__global__ void push_or_pairs_kernel(const int* __restrict__ ids,
-                                     const uint32_t* __restrict__ words,
-                                     long long pairs, int W,
-                                     const int* __restrict__ src_ids,
-                                     const int* __restrict__ src_start,
-                                     const int* __restrict__ src_cnt, long long m,
-                                     const int* __restrict__ vals,
-                                     uint32_t* __restrict__ hits, long long block) {
-  const int lane = threadIdx.x & 31;
-  const long long warps = static_cast<long long>(gridDim.x) * (blockDim.x >> 5);
-  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x >> 5) + (threadIdx.x >> 5);
-       i < pairs; i += warps) {
-    const int id = __ldg(ids + i);
-    long long pos = 0;
-    if (lane == 0) {
-      long long a = 0, b = m;  // first entry >= id
-      while (a < b) {
-        const long long mid = (a + b) >> 1;
-        if (__ldg(src_ids + mid) < id) a = mid + 1; else b = mid;
+constexpr unsigned kFullMask = 0xffffffffu;
+constexpr int kMatchThreads = 256;
+// Consecutive pairs a thread takes a tile (their searches in flight
+// together).
+constexpr int kMatchItems = 4;
+constexpr long long kMatchTile = kMatchThreads * kMatchItems;
+constexpr int kMatchBlocksPerSm = 2;
+// Sampled sources (the match) or prefixes (the push) a block keeps in
+// shared memory: the first log2(kSplit) levels of every search.
+constexpr int kSplit = 2048;
+
+// Index of sample k of an ascending array of ``m`` entries.
+__device__ __forceinline__ long long sample_at(int k, long long m) {
+  return m <= kSplit ? k : static_cast<long long>(k) * m / kSplit;
+}
+
+// The samples of ``a`` (m entries) into ``split``; their count.
+__device__ __forceinline__ int load_samples(const int* a, long long m, int* split) {
+  const int ns = static_cast<int>(m < kSplit ? m : kSplit);
+  for (int k = threadIdx.x; k < ns; k += blockDim.x) split[k] = __ldg(a + sample_at(k, m));
+  __syncthreads();
+  return ns;
+}
+
+// Samples with a value <= x (split ascending).
+__device__ __forceinline__ int count_le(const int* split, int ns, long long x) {
+  int lo = 0, hi = ns;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (split[mid] <= x) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+__global__ void __launch_bounds__(kMatchThreads)
+push_match_kernel(const int* __restrict__ ids, long long pairs,
+                  const int* __restrict__ src_ids, const int* __restrict__ src_start,
+                  const int* __restrict__ src_cnt, long long m, int* __restrict__ st,
+                  int* __restrict__ deg, int* __restrict__ pos, long long* __restrict__ total,
+                  unsigned long long* __restrict__ scratch, long long tiles, unsigned epoch) {
+  namespace scan = msbfs::scan;
+  __shared__ scan::TileShared sh;
+  __shared__ int split[kSplit];
+  const int ns = load_samples(src_ids, m, split);
+  const long long last = m > 0 ? __ldg(src_ids + m - 1) : -1;
+  unsigned long long* ticket = scratch;
+  unsigned long long* status = scratch + scan::kHeader;
+  long long t;
+  while ((t = scan::next_tile(ticket, sh)) < tiles) {
+    const long long i0 = t * kMatchTile + static_cast<long long>(threadIdx.x) * kMatchItems;
+    int id[kMatchItems];
+    long long lo[kMatchItems], hi[kMatchItems];
+    bool hit[kMatchItems];  // a probe (or the sample) read id at lo
+#pragma unroll
+    for (int k = 0; k < kMatchItems; ++k) {
+      id[k] = i0 + k < pairs ? __ldg(ids + i0 + k) : -1;
+      lo[k] = hi[k] = 0;
+      hit[k] = false;
+      if (ns > 0 && id[k] >= split[0] && id[k] <= last) {
+        // Sample c - 1 <= id < sample c: a match lies in [sample c - 1,
+        // sample c), and is that sample when it equals id.
+        const int c = count_le(split, ns, id[k]);
+        const long long a = sample_at(c - 1, m);
+        if (split[c - 1] == id[k]) {
+          lo[k] = hi[k] = a;
+          hit[k] = true;
+        } else {
+          lo[k] = a + 1;
+          hi[k] = c < ns ? sample_at(c, m) : m;
+        }
       }
-      pos = a;
     }
-    pos = __shfl_sync(0xffffffffu, pos, 0);
-    if (pos >= m || __ldg(src_ids + pos) != id) continue;
-    const int st = __ldg(src_start + pos), deg = __ldg(src_cnt + pos);
-    const uint32_t* row = words + i * W;
-    for (int e = lane; e < deg; e += 32) {
-      const long long v = __ldg(vals + st + e);
-      if (v < 0 || v >= block) continue;
-      for (int c = 0; c < W; ++c) {
-        const uint32_t x = __ldg(row + c);
-        if (x) atomicOr(hits + v * W + c, x);
+    // The first entry >= id in [lo, hi), every item's probes together; the
+    // entry an item ends on was probed last at hi, so its value is known.
+    // The warp loops until its last lane is done, so that it reaches the
+    // tile's scan converged (its shuffles read every lane).
+    bool more = true;
+    while (__any_sync(kFullMask, more)) {
+      more = false;
+#pragma unroll
+      for (int k = 0; k < kMatchItems; ++k) {
+        if (lo[k] < hi[k]) {
+          const long long mid = (lo[k] + hi[k]) >> 1;
+          const int x = __ldg(src_ids + mid);
+          if (x < id[k]) {
+            lo[k] = mid + 1;
+          } else {
+            hi[k] = mid;
+            hit[k] = x == id[k];
+          }
+          more |= lo[k] < hi[k];
+        }
       }
+    }
+    int d[kMatchItems], s[kMatchItems];
+    unsigned edges = 0;
+#pragma unroll
+    for (int k = 0; k < kMatchItems; ++k) {
+      d[k] = s[k] = 0;
+      if (hit[k]) {
+        s[k] = __ldg(src_start + lo[k]);
+        d[k] = __ldg(src_cnt + lo[k]);
+      }
+      edges += static_cast<unsigned>(d[k]);
+    }
+    __syncwarp();
+    const unsigned long long before =
+        scan::place_tile<kMatchThreads>(edges, t, epoch, status, sh);
+    unsigned at = sh.excl + static_cast<uint32_t>(before);
+#pragma unroll
+    for (int k = 0; k < kMatchItems; ++k) {
+      if (i0 + k < pairs) {
+        st[i0 + k] = s[k];
+        deg[i0 + k] = d[k];
+        pos[i0 + k] = static_cast<int>(at);
+      }
+      at += static_cast<unsigned>(d[k]);
+    }
+    if (t == tiles - 1 && threadIdx.x == 0) {
+      *total = static_cast<long long>(sh.excl) + static_cast<uint32_t>(sh.agg);
+    }
+  }
+  scan::release_ticket(ticket, t, tiles);
+}
+
+__global__ void __launch_bounds__(msbfs::kThreads)
+push_spread_kernel(const uint32_t* __restrict__ words, long long pairs, int W,
+                   const int* __restrict__ st, const int* __restrict__ pos,
+                   const long long* __restrict__ total, const int* __restrict__ vals,
+                   uint32_t* __restrict__ hits, long long block) {
+  __shared__ int split[kSplit];
+  const int ns = load_samples(pos, pairs, split);
+  const long long edges = __ldcg(total);
+  for (long long j = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; j < edges;
+       j += static_cast<long long>(gridDim.x) * blockDim.x) {
+    // The owner: the last pair with pos <= j (pos[0] = 0, and a pair with
+    // no edge shares its pos with the next, so the last such pair owns j).
+    const int c = count_le(split, ns, j);
+    long long lo = sample_at(c - 1, pairs);
+    long long hi = c < ns ? sample_at(c, pairs) : pairs;
+    int first = split[c - 1];
+    while (hi - lo > 1) {
+      const long long mid = (lo + hi) >> 1;
+      const int x = __ldg(pos + mid);
+      if (x <= j) {
+        lo = mid;
+        first = x;
+      } else {
+        hi = mid;
+      }
+    }
+    const long long v = __ldg(vals + __ldg(st + lo) + (j - first));
+    if (v < 0 || v >= block) continue;
+    for (int w = 0; w < W; ++w) {
+      const uint32_t x = __ldg(words + lo * W + w);
+      if (x) atomicOr(hits + v * W + w, x);
     }
   }
 }
@@ -297,26 +443,58 @@ extern "C" int msbfs_halo_pair_or(int device, const long long* segs, int nseg, i
   return static_cast<int>(cudaGetLastError());
 }
 
-// H2.  The in-block push CSR of one shard: src_ids (m,) ascending, src_start
-// and src_cnt (m,), vals (block-local rows); hits (block, W).
-extern "C" int msbfs_halo_push_or(int device, const void* ids, const void* words,
-                                  long long pairs, int W, const void* src_ids,
-                                  const void* src_start, const void* src_cnt,
-                                  long long m, const void* vals, void* hits,
+// H2's match.  ids (pairs,) int32; the in-block push CSR of one shard:
+// src_ids (m,) ascending, src_start and src_cnt (m,); writes st, deg, pos
+// (pairs,) int32 and total (1,) int64.  The pairs' edges must stay below
+// 2^31 (so they do when the ids are distinct: each shard's own rows).
+// scratch: 2 + 2 * max(1, ceil(pairs / kMatchTile)) int64 of
+// ordered_scan.cuh, ``epoch`` in [1, 2^30), new for every launch on it.
+extern "C" int msbfs_halo_push_match(int device, const void* ids, long long pairs,
+                                     const void* src_ids, const void* src_start,
+                                     const void* src_cnt, long long m, void* st, void* deg,
+                                     void* pos, void* total, void* scratch, unsigned epoch,
+                                     void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (pairs < 0 || pairs >= (1LL << 31) || m < 0 || m >= (1LL << 31) || total == nullptr ||
+      scratch == nullptr || epoch == 0 || epoch >= msbfs::scan::kEpochs) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int sms = 0;
+  err = msbfs::sm_count(device, &sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // At least one tile, so that the total is written when there is no pair.
+  const long long tiles = pairs > 0 ? (pairs + kMatchTile - 1) / kMatchTile : 1;
+  const long long most = static_cast<long long>(sms) * kMatchBlocksPerSm;
+  push_match_kernel<<<static_cast<int>(tiles < most ? tiles : most), kMatchThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(ids), pairs, static_cast<const int*>(src_ids),
+      static_cast<const int*>(src_start), static_cast<const int*>(src_cnt), m,
+      static_cast<int*>(st), static_cast<int*>(deg), static_cast<int*>(pos),
+      static_cast<long long*>(total), static_cast<unsigned long long*>(scratch), tiles, epoch);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// H2's push.  words (pairs, W) uint32; st and pos (pairs,) int32 and total
+// (1,) int64 from the match; vals the push CSR's block-local rows; hits
+// (block, W).  ``edges``: the host's count of the total, which sizes the
+// grid only (the loop runs to the device's total).
+extern "C" int msbfs_halo_push_or(int device, const void* words, long long pairs, int W,
+                                  const void* st, const void* pos, const void* total,
+                                  long long edges, const void* vals, void* hits,
                                   long long block, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (W < 1 || pairs < 0 || m < 0 || block < 0 || block * W >= (1LL << 31)) {
+  if (W < 1 || pairs < 0 || pairs >= (1LL << 31) || edges < 0 || block < 0 ||
+      block * W >= (1LL << 31) || total == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (pairs == 0 || m == 0) return static_cast<int>(cudaSuccess);
-  const int warps_per_block = msbfs::kThreads / 32;
-  push_or_pairs_kernel<<<msbfs::grid_for(pairs, warps_per_block), msbfs::kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(ids), static_cast<const uint32_t*>(words), pairs, W,
-      static_cast<const int*>(src_ids), static_cast<const int*>(src_start),
-      static_cast<const int*>(src_cnt), m, static_cast<const int*>(vals),
-      static_cast<uint32_t*>(hits), block);
+  if (pairs == 0) return static_cast<int>(cudaSuccess);
+  push_spread_kernel<<<msbfs::grid_for(edges, msbfs::kThreads), msbfs::kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(words), pairs, W, static_cast<const int*>(st),
+      static_cast<const int*>(pos), static_cast<const long long*>(total),
+      static_cast<const int*>(vals), static_cast<uint32_t*>(hits), block);
   return static_cast<int>(cudaGetLastError());
 }
 

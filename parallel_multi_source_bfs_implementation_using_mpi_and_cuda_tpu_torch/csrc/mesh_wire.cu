@@ -8,11 +8,14 @@
 //   planes, read as uint32) or by MAX (the async drive's int32
 //   neg-distance planes: OR and MAX agree only on 0/1 lanes).  The chunks'
 //   pointers travel in the launch's parameters (at most kMaxChunks).
-//   With the commit epilogue (MAX only; ops/bitbell.py:193 neg_commit):
+//   With the commit epilogue (MAX only; ops/bitbell.py:193 neg_commit,
+//   neg_commit.cuh):
 //       delta[e] = merged[e] > neg[e];  neg[e] = max(neg[e], merged[e])
-//   in place, ``acc[e] |= delta[e]`` when ``acc`` is given, and ``*flag``
-//   set to 1 when some delta is set (never cleared here), so the merged
-//   chunk itself is never stored.
+//   in place, ``acc`` ORed with delta (or set to it), the next local wave's
+//   send ``send[e] = delta[e] ? merged[e] : 0`` written when given (the
+//   exchange's commit writes the first wave's send in its own launch), and
+//   ``*flag`` set to the caller's tag when some delta is set (never cleared
+//   here), so the merged chunk itself is never stored.
 //
 // M2 wire_encode — partition2d.py:291 active_word_count and :305
 //   encode_words_sparse: of a plane of ``total`` int32 words, the count of
@@ -47,6 +50,7 @@
 // 700 W, chip_compare.py); in one launch it takes 0.0090 ms, the rest
 // above the launch floor the look-back across its 128 tiles.
 #include "msbfs_common.cuh"
+#include "neg_commit.cuh"
 #include "ordered_scan.cuh"
 
 namespace {
@@ -120,49 +124,29 @@ chunk_merge_kernel(Chunks chunks, int n, long long items, int* __restrict__ out)
   }
 }
 
-// The commit of one element: neg[e] = max(neg[e], cand), delta, acc.
-__device__ __forceinline__ bool commit_one(int cand, int* neg, uint8_t* delta, uint8_t* acc,
-                                           long long e) {
-  const int old = neg[e];
-  const bool d = cand > old;
-  if (d) neg[e] = cand;
-  delta[e] = d ? 1 : 0;
-  if (acc != nullptr && d) acc[e] = 1;
-  return d;
-}
-
 template <int K, bool kVec>
 __global__ void __launch_bounds__(msbfs::kThreads)
-chunk_commit_kernel(Chunks chunks, int n, long long items, int* __restrict__ neg,
-                    uint8_t* __restrict__ delta, uint8_t* __restrict__ acc,
-                    int* __restrict__ flag) {
+chunk_commit_kernel(Chunks chunks, int n, long long items, const msbfs::NegCommit c) {
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   bool any = false;
   for (long long e = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
        e < items; e += stride) {
     const auto cand = fold_at<kOpMax, K, kVec>(chunks, n, e);
     if constexpr (kVec) {
-      any |= commit_one(cand.x, neg, delta, acc, 4 * e);
-      any |= commit_one(cand.y, neg, delta, acc, 4 * e + 1);
-      any |= commit_one(cand.z, neg, delta, acc, 4 * e + 2);
-      any |= commit_one(cand.w, neg, delta, acc, 4 * e + 3);
+      any |= msbfs::commit_quad(c, cand, e);
     } else {
-      any |= commit_one(cand, neg, delta, acc, e);
+      any |= msbfs::commit_lane(c, cand, e);
     }
   }
-  if (flag != nullptr && __any_sync(kFull, any) && (threadIdx.x & 31) == 0) {
-    atomicExch(flag, 1);
-  }
+  msbfs::commit_flag(c, any);
 }
 
 template <int K, bool kVec>
-void launch_merge(const Chunks& c, int n, long long items, int op, void* out, void* neg,
-                  void* delta, void* acc, void* flag, cudaStream_t s) {
+void launch_merge(const Chunks& c, int n, long long items, int op, void* out,
+                  const msbfs::NegCommit* commit, cudaStream_t s) {
   const int grid = msbfs::grid_for(items, msbfs::kThreads);
-  if (neg != nullptr) {
-    chunk_commit_kernel<K, kVec><<<grid, msbfs::kThreads, 0, s>>>(
-        c, n, items, static_cast<int*>(neg), static_cast<uint8_t*>(delta),
-        static_cast<uint8_t*>(acc), static_cast<int*>(flag));
+  if (commit != nullptr) {
+    chunk_commit_kernel<K, kVec><<<grid, msbfs::kThreads, 0, s>>>(c, n, items, *commit);
   } else if (op == kOpOr) {
     chunk_merge_kernel<kOpOr, K, kVec><<<grid, msbfs::kThreads, 0, s>>>(
         c, n, items, static_cast<int*>(out));
@@ -173,14 +157,14 @@ void launch_merge(const Chunks& c, int n, long long items, int op, void* out, vo
 }
 
 template <bool kVec>
-void launch_merge_k(const Chunks& c, int n, long long items, int op, void* out, void* neg,
-                    void* delta, void* acc, void* flag, cudaStream_t s) {
+void launch_merge_k(const Chunks& c, int n, long long items, int op, void* out,
+                    const msbfs::NegCommit* commit, cudaStream_t s) {
   switch (n) {
-    case 1: launch_merge<1, kVec>(c, n, items, op, out, neg, delta, acc, flag, s); break;
-    case 2: launch_merge<2, kVec>(c, n, items, op, out, neg, delta, acc, flag, s); break;
-    case 3: launch_merge<3, kVec>(c, n, items, op, out, neg, delta, acc, flag, s); break;
-    case 4: launch_merge<4, kVec>(c, n, items, op, out, neg, delta, acc, flag, s); break;
-    default: launch_merge<0, kVec>(c, n, items, op, out, neg, delta, acc, flag, s); break;
+    case 1: launch_merge<1, kVec>(c, n, items, op, out, commit, s); break;
+    case 2: launch_merge<2, kVec>(c, n, items, op, out, commit, s); break;
+    case 3: launch_merge<3, kVec>(c, n, items, op, out, commit, s); break;
+    case 4: launch_merge<4, kVec>(c, n, items, op, out, commit, s); break;
+    default: launch_merge<0, kVec>(c, n, items, op, out, commit, s); break;
   }
 }
 
@@ -309,16 +293,20 @@ encode_kernel(const uint32_t* __restrict__ plane, long long total, int lanes, lo
 // M1.  chunk_ptrs: ``chunks`` device pointers (host memory, int64) to
 // int32 arrays of ``words`` elements.  op 0 OR, 1 MAX.  Without commit
 // (neg == null) the fold is written to ``out``; with it (op 1 only) neg is
-// updated in place, delta (words uint8) written, acc (uint8, or null)
-// ORed with delta and flag (int32, or null) set to 1 on any delta.
+// updated in place, delta (words uint8) written, acc (uint8, or null) ORed
+// with delta (acc_set 0) or set to it (acc_set 1), send (words int32, or
+// null) written delta ? merged : 0, and flag (int32, or null) set to
+// ``tag`` on any delta.
 extern "C" int msbfs_chunk_merge(int device, const long long* chunk_ptrs, int chunks,
                                  long long words, int op, void* out, void* neg,
-                                 void* delta, void* acc, void* flag, void* stream) {
+                                 void* delta, void* acc, void* flag, int acc_set, int tag,
+                                 void* send, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const bool commit = neg != nullptr;
   if (chunks < 1 || chunks > kMaxChunks || words < 0 || (op != kOpOr && op != kOpMax) ||
-      (commit && (op != kOpMax || delta == nullptr)) || (!commit && out == nullptr)) {
+      (commit && (op != kOpMax || delta == nullptr)) || (!commit && out == nullptr) ||
+      (acc_set != 0 && acc_set != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (words == 0) return static_cast<int>(cudaSuccess);
@@ -328,12 +316,16 @@ extern "C" int msbfs_chunk_merge(int device, const long long* chunk_ptrs, int ch
     c.p[i] = reinterpret_cast<const int*>(chunk_ptrs[i]);
     aligned &= chunk_ptrs[i] % 16 == 0;
   }
-  aligned &= reinterpret_cast<uintptr_t>(commit ? neg : out) % 16 == 0;
+  msbfs::NegCommit nc{static_cast<int*>(neg), static_cast<uint8_t*>(delta),
+                      static_cast<uint8_t*>(acc), static_cast<int*>(send),
+                      static_cast<int*>(flag), acc_set, tag};
+  aligned &= commit ? msbfs::quad_aligned(nc) : reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const msbfs::NegCommit* pc = commit ? &nc : nullptr;
   const auto s = static_cast<cudaStream_t>(stream);
   if (aligned) {
-    launch_merge_k<true>(c, chunks, words / 4, op, out, neg, delta, acc, flag, s);
+    launch_merge_k<true>(c, chunks, words / 4, op, out, pc, s);
   } else {
-    launch_merge_k<false>(c, chunks, words, op, out, neg, delta, acc, flag, s);
+    launch_merge_k<false>(c, chunks, words, op, out, pc, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,8 +1,8 @@
 """The halo exchange of the vertex-sharded engines as hand-written CUDA
 kernels (``csrc/halo_exchange.cu``): H1 ``halo_pair_or``, H2
-``halo_push_or`` and H3 ``owner_push_expand``; and :class:`ScanScratch`,
-the status words of the ordered compaction that H3 and M2
-``wire_encode`` share (``csrc/ordered_scan.cuh``).
+``halo_push_match`` and ``halo_push_or`` and H3 ``owner_push_expand``;
+and :class:`ScanScratch`, the status words of the ordered compaction that
+H2's match, H3 and M2 ``wire_encode`` share (``csrc/ordered_scan.cuh``).
 
 Counterparts of three XLA chains of the JAX package, each an OR built
 from byte lanes and a scatter-max: parallel/sharded_bell.py
@@ -35,8 +35,10 @@ from .bitbell import _check_device, level_go, pack_byte_planes, unpack_byte_plan
 # kEpochs).
 SCAN_HEADER = 2
 SCAN_EPOCHS = 1 << 30
-# Slots a tile of H3 takes (csrc/halo_exchange.cu kExpandTile).
+# Slots a tile of H3 takes, pairs a tile of H2's match
+# (csrc/halo_exchange.cu kExpandTile, kMatchTile).
 EXPAND_TILE = 512
+MATCH_TILE = 1024
 
 
 class ScanScratch:
@@ -209,50 +211,123 @@ def halo_pair_or_segments(segments, plane: torch.Tensor, ctrl=None,
     _launch_pair_or(dev, segments, plane, ctrl, max_levels, variant="seg")
 
 
-def halo_push_or_plain(ids, words, csr, hits) -> None:
+class PushMatch(NamedTuple):
+    """H2's match of gathered pairs against one shard's push CSR: each
+    pair's first edge slot ``st`` and in-block degree ``deg`` (0 where its
+    id is no source of the CSR, the sentinel included), ``pos`` the
+    exclusive prefix of deg (the pair's first edge in the flat edge space;
+    int32 (pairs,) each) and ``total`` the pairs' in-block edges (a (1,)
+    int64)."""
+
+    st: torch.Tensor
+    deg: torch.Tensor
+    pos: torch.Tensor
+    total: torch.Tensor
+
+
+def _check_csr(csr) -> None:
+    for name, t in zip(("src_ids", "src_start", "src_cnt", "vals"), csr):
+        _check(name, t, dim=1)
+
+
+def halo_push_match_plain(ids, csr) -> PushMatch:
+    """H2's match in torch, as the JAX package decides the route
+    (parallel/sharded_bell.py ``searchsorted`` of the ids in the sources,
+    ``deg``/``st`` where they match, their int64 sum)."""
+    src_ids, src_start, src_cnt, _ = csr
+    m, pairs = src_ids.shape[0], ids.shape[0]
+    if m == 0:
+        deg = st = torch.zeros(pairs, dtype=torch.int32, device=ids.device)
+    else:
+        at = torch.clamp(torch.searchsorted(src_ids, ids), max=m - 1)
+        match = src_ids[at] == ids
+        deg = torch.where(match, src_cnt[at], 0).to(torch.int32)
+        st = torch.where(match, src_start[at], 0).to(torch.int32)
+    ends = torch.cumsum(deg.to(torch.int64), 0)
+    total = ends[-1:] if pairs else torch.zeros(1, dtype=torch.int64, device=ids.device)
+    return PushMatch(st, deg, (ends - deg).to(torch.int32), total.clone())
+
+
+def halo_push_match(ids: torch.Tensor, csr, scratch: Optional[ScanScratch] = None
+                    ) -> PushMatch:
+    """H2's match (kernel ``halo_push_match``, ``csrc/halo_exchange.cu``):
+    each gathered pair's id found among the sources of one shard's push CSR
+    (``parallel/sharded_bell.py`` ``build_push_halo``) — see
+    :class:`PushMatch`.  One launch; the total is the route decision's
+    input.  The pairs' ids must be distinct but for the sentinel (each
+    shard's own rows), so that the edges stay below 2^31.  ``scratch``: a
+    :class:`ScanScratch` of at least ceil(pairs / :data:`MATCH_TILE`)
+    tiles on the ids' device (None: one kept per stream)."""
+    _check("ids", ids, dim=1)
+    _check_csr(csr)
+    src_ids, src_start, src_cnt, _ = csr
+    dev = _check_device(ids, src_ids, src_start, src_cnt)
+    if dev.type == "cpu":
+        return halo_push_match_plain(ids, csr)
+    pairs = ids.shape[0]
+    scratch = scan_scratch(dev, max(1, -(-pairs // MATCH_TILE)), scratch)
+    out = PushMatch(*(torch.empty(pairs, dtype=torch.int32, device=dev) for _ in range(3)),
+                    torch.empty(1, dtype=torch.int64, device=dev))
+    kernels.launch("halo_push_match", dev, ids.data_ptr(), pairs, src_ids.data_ptr(),
+                   src_start.data_ptr(), src_cnt.data_ptr(), int(src_ids.shape[0]),
+                   out.st.data_ptr(), out.deg.data_ptr(), out.pos.data_ptr(),
+                   out.total.data_ptr(), scratch.words.data_ptr(), scratch.next_epoch())
+    return out
+
+
+def halo_push_or_plain(ids, words, csr, hits, match: Optional[PushMatch] = None) -> None:
     """H2's function in torch: each pair whose id is a source of the
     in-block push CSR ``csr`` = (src_ids ascending, src_start, src_cnt,
-    vals) ORs its words into ``hits`` at every block-local neighbour."""
-    src_ids, src_start, src_cnt, vals = csr
-    m = src_ids.shape[0]
-    if m == 0 or ids.numel() == 0:
-        return
-    pos = torch.clamp(torch.searchsorted(src_ids, ids), max=m - 1)
-    match = src_ids[pos] == ids
-    deg = torch.where(match, src_cnt[pos], 0).to(torch.int64)
-    st = torch.where(match, src_start[pos], 0).to(torch.int64)
+    vals) ORs its words into ``hits`` at every block-local neighbour; the
+    edges spread flat by the match's prefix (``match``: the pairs'
+    :class:`PushMatch`, made here when None)."""
+    if match is None:
+        match = halo_push_match_plain(ids, csr)
+    vals = csr[3]
+    deg = match.deg.to(torch.int64)
     owner = torch.repeat_interleave(torch.arange(ids.shape[0], device=ids.device), deg)
     within = torch.arange(owner.shape[0], device=ids.device) - torch.repeat_interleave(
-        torch.cumsum(deg, 0) - deg, deg)
-    nbr = vals[st[owner] + within].to(torch.int64)
+        match.pos.to(torch.int64), deg)
+    nbr = vals[match.st.to(torch.int64)[owner] + within].to(torch.int64)
     ok = (nbr >= 0) & (nbr < hits.shape[0])
     _or_rows(hits, nbr[ok], words[owner[ok]])
 
 
-def halo_push_or(ids: torch.Tensor, words: torch.Tensor, csr, hits: torch.Tensor) -> None:
+def halo_push_or(ids: torch.Tensor, words: torch.Tensor, csr, hits: torch.Tensor,
+                 match: Optional[PushMatch] = None, edges: Optional[int] = None) -> None:
     """Kernel H2 (``csrc/halo_exchange.cu``): the in-block push of the
     gathered (global id, words) pairs through one shard's push CSR
     (``parallel/sharded_bell.py`` ``build_push_halo``) into its own
     (block, W) hit rows, by OR; a pair whose id has no in-block edge adds
-    nothing."""
+    nothing.  ``match``: the pairs' :class:`PushMatch` (None: one
+    :func:`halo_push_match` launch first); then one launch, a thread an
+    edge.  ``edges``: the match's total as the host read it, which sizes
+    the grid (None: read here)."""
     block, w = hits.shape
-    src_ids, src_start, src_cnt, vals = csr
     _check("ids", ids, dim=1)
     _check("words", words, dim=2)
     _check("hits", hits, dim=2)
-    for name, t in (("src_ids", src_ids), ("src_start", src_start),
-                    ("src_cnt", src_cnt), ("vals", vals)):
-        _check(name, t, dim=1)
+    _check_csr(csr)
     if tuple(words.shape) != (ids.shape[0], w):
         raise ValueError(f"words must be ({ids.shape[0]}, {w})")
-    dev = _check_device(ids, words, hits, src_ids, src_start, src_cnt, vals)
+    if match is not None:
+        for name, t in zip(("st", "deg", "pos"), match[:3]):
+            _check(name, t, dim=1)
+            if t.shape[0] != ids.shape[0]:
+                raise ValueError(f"the match's {name} has {t.shape[0]} pairs, not {ids.shape[0]}")
+        _check("total", match.total, dtype=torch.int64, dim=1)
+    dev = _check_device(ids, words, hits, *csr, *(() if match is None else match))
     if dev.type == "cpu":
-        halo_push_or_plain(ids, words, csr, hits)
+        halo_push_or_plain(ids, words, csr, hits, match)
         return
+    if match is None:
+        match = halo_push_match(ids, csr)
+    if edges is None:
+        edges = int(match.total[0])
     kernels.launch(
-        "halo_push_or", dev, ids.data_ptr(), words.data_ptr(), int(ids.shape[0]), w,
-        src_ids.data_ptr(), src_start.data_ptr(), src_cnt.data_ptr(),
-        int(src_ids.shape[0]), vals.data_ptr(), hits.data_ptr(), block,
+        "halo_push_or", dev, words.data_ptr(), int(ids.shape[0]), w, match.st.data_ptr(),
+        match.pos.data_ptr(), match.total.data_ptr(), int(edges), csr[3].data_ptr(),
+        hits.data_ptr(), block,
     )
 
 

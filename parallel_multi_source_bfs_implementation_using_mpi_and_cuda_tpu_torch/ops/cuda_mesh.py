@@ -1,16 +1,20 @@
 """The 2D mesh engine's kernels (parallel/partition2d.py) as hand-written
 CUDA: M1 ``chunk_merge`` and M2 ``wire_encode`` (``csrc/mesh_wire.cu``),
-M4 ``forest_max`` (``csrc/forest_max.cu``); the sparse wire's decode is H1
+M4 ``forest_max`` and its commit form ``forest_max_commit``
+(``csrc/forest_max.cu``); the sparse wire's decode is H1
 ``halo_pair_or`` (:func:`wire_decode`; a gather's segments in one launch
 of its segmented form, :func:`wire_decode_segments`).
 
 Counterparts of the JAX package's XLA chains: the col-axis
 reduce-scatter's combine under OR (bit planes) and MAX (the async drive's
-int32 neg-distance planes) with ``neg_commit`` fused behind it (M1),
-``active_word_count`` with ``encode_words_sparse`` (M2), and the async
-drive's forest max-fold with ``_async_cand`` fused into its first level's
-reads, whole (the forest's levels, the last with the final take by
-``final_slot`` in its launch) or one streamed segment at a time (M4).
+int32 neg-distance planes) with ``neg_commit`` fused behind it and the
+next local wave's send (``neg_relax_chunk``'s ``where(delta, merged, 0)``)
+written in the same launch (M1), ``active_word_count`` with
+``encode_words_sparse`` (M2), and the async drive's forest max-fold with
+``_async_cand`` fused into its first level's reads, whole (the forest's
+levels, the last with the final take by ``final_slot`` in its launch), one
+streamed segment at a time, or, for a local wave, with the shard's own
+rows committed in the last level's launch and no hit row written (M4).
 Beside each kernel is its plain torch version; a wrapper takes the plain
 version for CPU tensors and launches the kernel for CUDA ones (a failed
 build or launch raises).
@@ -50,15 +54,29 @@ _OPS = {"or": 0, "max": 1}
 
 
 class Commit(NamedTuple):
-    """M1's commit epilogue (MAX only): ``neg`` updated in place to
-    max(neg, merged), ``delta`` written merged > neg, ``acc`` (or None)
-    ORed with delta, ``flag`` (a (1,) int32, or None) set to 1 when some
-    delta is set."""
+    """The async drive's commit (``csrc/neg_commit.cuh``; M1's epilogue,
+    MAX only, and M4's commit form): ``neg`` updated in place to max(neg,
+    cand), ``delta`` written cand > neg, ``acc`` (or None) ORed with delta
+    (set to it with ``acc_set``), ``flag`` (a (1,) int32, or None) set to
+    ``tag`` when some delta is set, and ``send`` (an int32 plane of neg's
+    size, or None) written delta ? cand : 0, the next local wave's rows."""
 
     neg: torch.Tensor
     delta: torch.Tensor
     acc: Optional[torch.Tensor] = None
     flag: Optional[torch.Tensor] = None
+    send: Optional[torch.Tensor] = None
+    acc_set: bool = False
+    tag: int = 1
+
+    def tensors(self):
+        """Its tensors (None where absent), in field order."""
+        return (self.neg, self.delta, self.acc, self.flag, self.send)
+
+    def clone(self) -> "Commit":
+        """A copy whose tensors are fresh copies."""
+        return self._replace(**{k: None if t is None else t.clone()
+                                for k, t in zip(self._fields, self.tensors())})
 
 
 def _check_parts(parts: Sequence[torch.Tensor]) -> int:
@@ -77,9 +95,28 @@ def _check_mask(name: str, t: torch.Tensor, words: int) -> None:
         raise ValueError(f"{name} must be a contiguous bool tensor of {words} elements")
 
 
+def commit_plain(cand: torch.Tensor, commit: Commit) -> None:
+    """The commit's function in torch (JAX's ``neg_commit``, then
+    ``jnp.where(delta, merged, 0)`` for the send)."""
+    neg = commit.neg
+    v = cand.reshape(neg.shape)
+    d = v > neg
+    neg.copy_(torch.maximum(neg, v))
+    commit.delta.copy_(d.view(commit.delta.shape))
+    if commit.acc is not None:
+        if commit.acc_set:
+            commit.acc.copy_(d.view(commit.acc.shape))
+        else:
+            commit.acc.logical_or_(d.view(commit.acc.shape))
+    if commit.send is not None:
+        commit.send.copy_(torch.where(d, v, torch.zeros_like(v)).view(commit.send.shape))
+    if commit.flag is not None and bool(d.any()):
+        commit.flag.fill_(int(commit.tag))
+
+
 def chunk_merge_plain(parts, out=None, op: str = "or", commit: Optional[Commit] = None) -> None:
     """M1's function in torch: the chunks folded by ``op`` into ``out``,
-    or committed into ``commit.neg`` (JAX's ``neg_commit``)."""
+    or committed (:func:`commit_plain`)."""
     v = parts[0].clone()
     for p in parts[1:]:
         if op == "or":
@@ -89,15 +126,34 @@ def chunk_merge_plain(parts, out=None, op: str = "or", commit: Optional[Commit] 
     if commit is None:
         out.copy_(v.view(out.shape))
         return
-    neg = commit.neg
-    v = v.view(neg.shape)
-    d = v > neg
-    neg.copy_(torch.maximum(neg, v))
-    commit.delta.copy_(d.view(commit.delta.shape))
+    commit_plain(v, commit)
+
+
+def _check_commit(commit: Commit, words: int) -> list:
+    """The commit's planes checked against ``words`` lanes; its tensors."""
+    _check_plane("neg", commit.neg)
+    if commit.neg.numel() != words:
+        raise ValueError(f"neg has {commit.neg.numel()} elements, the rows {words}")
+    _check_mask("delta", commit.delta, words)
     if commit.acc is not None:
-        commit.acc.logical_or_(d.view(commit.acc.shape))
-    if commit.flag is not None and bool(d.any()):
-        commit.flag.fill_(1)
+        _check_mask("acc", commit.acc, words)
+    if commit.flag is not None:
+        _check_plane("flag", commit.flag, (1,))
+    if commit.send is not None:
+        _check_plane("send", commit.send)
+        if commit.send.numel() != words:
+            raise ValueError(f"send has {commit.send.numel()} elements, the rows {words}")
+    return [t for t in commit.tensors() if t is not None]
+
+
+def _commit_args(commit: Commit) -> tuple:
+    """The commit's pointers and modes in the C entries' order: neg, delta,
+    acc, acc_set, flag, tag, send."""
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    return (commit.neg.data_ptr(), commit.delta.data_ptr(), ptr(commit.acc),
+            int(bool(commit.acc_set)), ptr(commit.flag), int(commit.tag), ptr(commit.send))
 
 
 def chunk_merge(
@@ -109,7 +165,8 @@ def chunk_merge(
     """Kernel M1 (``csrc/mesh_wire.cu``): the elementwise OR or MAX of
     ``parts`` (contiguous int32 chunks of one size, at most
     :data:`MAX_CHUNKS`) into ``out``, or with ``commit`` (MAX only) into
-    the neg plane it names (:class:`Commit`)."""
+    the neg plane it names (:class:`Commit`; variant ``max/commit``, or
+    ``max/commit/send`` when it writes a send)."""
     if op not in _OPS:
         raise ValueError(f"unknown merge op {op!r}")
     words = _check_parts(parts)
@@ -124,30 +181,21 @@ def chunk_merge(
     else:
         if op != "max":
             raise ValueError("the commit epilogue merges by max")
-        _check_plane("neg", commit.neg)
-        if commit.neg.numel() != words:
-            raise ValueError(f"neg has {commit.neg.numel()} elements, the chunks {words}")
-        _check_mask("delta", commit.delta, words)
-        extra += [commit.neg, commit.delta]
-        if commit.acc is not None:
-            _check_mask("acc", commit.acc, words)
-            extra.append(commit.acc)
-        if commit.flag is not None:
-            _check_plane("flag", commit.flag, (1,))
-            extra.append(commit.flag)
+        extra += _check_commit(commit, words)
     dev = _check_device(*parts, *extra)
     if dev.type == "cpu":
         chunk_merge_plain(parts, out, op, commit)
         return
     ptrs = (ctypes.c_longlong * len(parts))(*(p.data_ptr() for p in parts))
     if commit is None:
-        tail = (out.data_ptr(), None, None, None, None)
+        tail = (out.data_ptr(), None, None, None, None, 0, 1, None)
+        variant = op
     else:
-        tail = (None, commit.neg.data_ptr(), commit.delta.data_ptr(),
-                None if commit.acc is None else commit.acc.data_ptr(),
-                None if commit.flag is None else commit.flag.data_ptr())
+        neg, delta, acc, acc_set, flag, tag, send = _commit_args(commit)
+        tail = (None, neg, delta, acc, flag, acc_set, tag, send)
+        variant = "max/commit" + ("/send" if commit.send is not None else "")
     kernels.launch("chunk_merge", dev, ptrs, len(parts), words, _OPS[op], *tail,
-                   variant=op + ("/commit" if commit is not None else ""))
+                   variant=variant)
 
 
 class Encoded(NamedTuple):
@@ -382,6 +430,88 @@ def forest_max_take(
                    variant=("cand" if floor is not None else "max") + "/take")
 
 
+def forest_max_commit_plain(prev, prev_rows, cols, pieces, scratch, last_off: int, final_slot,
+                            row0: int, commit: Commit, ctrl, floor: Optional[int] = None) -> None:
+    """The commit form's function in torch: :func:`forest_max_take_plain`
+    into a scratch hit plane, then its rows [row0, row0 + rows) committed
+    (:func:`commit_plain`: ``neg_commit`` and the send's ``where``); gated
+    like the take."""
+    if not direction_go(ctrl, INT32_MAX, DIR_PULL):
+        return
+    rows = commit.neg.shape[0]
+    w = commit.neg.shape[1]
+    hits = commit.neg.new_zeros((final_slot.shape[0], w))
+    forest_max_take_plain(prev, prev_rows, cols, pieces, scratch, last_off, final_slot, hits,
+                          ctrl, floor)
+    commit_plain(hits[row0 : row0 + rows], commit)
+
+
+def forest_max_commit(
+    prev: torch.Tensor,
+    prev_rows: int,
+    cols: torch.Tensor,
+    tables: SegmentTables,
+    i: int,
+    scratch: Optional[torch.Tensor],
+    last_off: int,
+    final_slot: torch.Tensor,
+    row0: int,
+    commit: Commit,
+    go: torch.Tensor,
+    floor: Optional[int] = None,
+) -> None:
+    """M4's commit form (kernel ``forest_max_commit``, variant
+    ``cand/commit`` or ``max/commit``): the take form of the forest's last
+    level ``i`` restricted to final rows [row0, row0 + rows), rows =
+    ``commit.neg``'s, each folded row committed into ``commit``'s (rows, W)
+    planes (:class:`Commit`: neg, delta, acc, the next wave's send, the
+    flag set to its tag) and no hit row written.  One launch, gated on
+    ``go`` as the take."""
+    pieces = tables.pieces[i]
+    if commit.neg.dim() != 2:
+        raise ValueError("the commit's neg plane must be (rows, W)")
+    rows, w = commit.neg.shape
+    slots = sum(r * c for r, c in pieces)
+    level_rows = sum(r for r, _ in pieces)
+    _check_plane("prev", prev)
+    _check_plane("cols", cols)
+    _check_plane("final_slot", final_slot)
+    _check_plane("go", go, (4,))
+    extra = _check_commit(commit, rows * w)
+    if final_slot.dim() != 1 or not 0 <= row0 <= final_slot.shape[0] - rows:
+        raise ValueError(f"rows [{row0}, {row0 + rows}) outside the {final_slot.shape[0]} "
+                         "final rows")
+    if prev.dim() != 2 or prev.shape[0] < prev_rows or prev.shape[1] != w:
+        raise ValueError(f"prev must be (>= {prev_rows}, {w})")
+    if cols.dim() != 1 or cols.shape[0] < slots:
+        raise ValueError(f"cols must be 1-D with at least {slots} slots")
+    if last_off:
+        _check_plane("scratch", scratch)
+        if scratch.dim() != 2 or scratch.shape[0] < last_off or scratch.shape[1] != w:
+            raise ValueError(f"scratch must be (>= {last_off}, {w})")
+    tensors = (prev, cols, final_slot, go, *extra) + ((scratch,) if last_off else ())
+    dev = _check_device(*tensors)
+    if dev.type == "cpu":
+        forest_max_commit_plain(prev, prev_rows, cols, pieces, scratch, last_off, final_slot,
+                                row0, commit, go, floor)
+        return
+    if not rows:
+        return
+    if tables.device != dev:
+        raise ValueError(f"segment tables on {tables.device}, planes on {dev}")
+    table, buckets, _ = tables.entry(i, 2)
+    kept = scratch if last_off else None
+    vec = _vec16(w, prev, kept, commit.neg, commit.send) and all(
+        t is None or t.data_ptr() % 4 == 0 for t in (commit.delta, commit.acc))
+    neg, delta, acc, acc_set, flag, tag, send = _commit_args(commit)
+    kernels.launch("forest_max_commit", dev, prev.data_ptr(), int(prev_rows), cols.data_ptr(),
+                   table, buckets, w, int(floor is not None), 0 if floor is None else int(floor),
+                   int(vec), final_slot.data_ptr(), None if kept is None else kept.data_ptr(),
+                   int(last_off), int(last_off) + level_rows, go.data_ptr(), INT32_MAX,
+                   int(row0), rows, neg, delta, acc, acc_set, flag, tag, send,
+                   variant=("cand" if floor is not None else "max") + "/commit")
+
+
 def level_tables(graph, device) -> SegmentTables:
     """A device BellGraph's forest levels as M4's tables (one segment a
     level, its non-empty buckets), built once per graph and device."""
@@ -437,6 +567,45 @@ def forest_max_hits(
         offset += size
     forest_max_take(prev, prev_rows, graph.level_cols[last], tables, last, scratch, offset,
                     graph.final_slot, hits, go, floor if last == 0 else None)
+
+
+def forest_max_hits_commit(
+    frontier: torch.Tensor,
+    graph,
+    row0: int,
+    commit: Commit,
+    floor: int,
+    go: torch.Tensor,
+    scratch: Optional[torch.Tensor] = None,
+) -> None:
+    """M4's whole-forest commit form, a local wave of the async drive: the
+    candidate maxima of ``frontier`` (n, W) over a device BellGraph, as
+    :func:`forest_max_hits` computes them, but only hit rows [row0, row0 +
+    rows) and those committed (:class:`Commit`, rows = its neg plane's):
+    a launch a forest level but the last into ``scratch``, then the last
+    level's own rows committed in one launch (:func:`forest_max_commit`),
+    so a one-level forest is one launch.  Each launch's plain version on
+    CPU tensors."""
+    n, w = frontier.shape
+    _check_plane("frontier", frontier, (graph.n, w))
+    dev = _check_device(frontier, go)
+    tables = level_tables(graph, dev)
+    last = len(graph.level_cols) - 1
+    if scratch is None and last > 0:
+        scratch = forest_scratch(graph, w, dev)
+    if scratch is not None:
+        _check_plane("scratch", scratch, (graph.total_rows + 1, w))
+    offset, prev, prev_rows = 0, frontier, graph.n
+    for li in range(last):
+        size = graph.level_sizes[li]
+        out = scratch[offset : offset + size]
+        if size:
+            forest_max(prev, prev_rows, graph.level_cols[li], tables, li, out,
+                       floor if li == 0 else None)
+        prev, prev_rows = out, size
+        offset += size
+    forest_max_commit(prev, prev_rows, graph.level_cols[last], tables, last, scratch, offset,
+                      graph.final_slot, row0, commit, go, floor if last == 0 else None)
 
 
 def go_control(device) -> torch.Tensor:

@@ -46,9 +46,14 @@ round ships the changed entries, M4 ``forest_max`` max-folds the col
 block through the tile with the candidate step fused into its reads and
 the final take into its last level's launch, and
 M1 merges the col-axis chunks by MAX and commits them into the own neg
-plane (``neg_commit``) with the round's delta and a flag; up to k - 1
-collective-free local waves follow.  The drive stops after a quiet round,
-and the planes then equal the synchronous drive's bit for bit.
+plane (``neg_commit``) with the round's delta, the changed mask, a flag
+and the first local wave's send; up to k - 1 collective-free local waves
+follow, each one launch of M4's commit form a shard (the own rows folded
+and committed, the next wave's send written; two send buffers a shard
+take turns, so a wave never writes the block it reads).  Every exchange
+and wave gives the flags a new tag, so "improved this wave" is a flag
+equal to the tag and no flag is cleared.  The drive stops after a quiet
+round, and the planes then equal the synchronous drive's bit for bit.
 
 JAX pads the tiles' forests to one shape for its SPMD program
 (``harmonize_forests``); no reported number depends on those shapes, so
@@ -86,6 +91,7 @@ from ..ops.cuda_mesh import (
     chunk_merge,
     encode_tiles,
     forest_max_hits,
+    forest_max_hits_commit,
     go_control,
     wire_decode,
     wire_decode_segments,
@@ -410,6 +416,7 @@ class _Run:
         self.delta = []
         self.flags = []
         self.local = []
+        self.tag = 0
 
 
 class Mesh2DEngine(QueryEngineBase):
@@ -1032,7 +1039,8 @@ class Mesh2DEngine(QueryEngineBase):
     # ---- the bounded-staleness async drive -------------------------------
     def _init_async(self, queries) -> _Run:
         """Every shard's (Lsub, Kpad) int32 neg plane (sources NEG_BASE),
-        its changed mask, delta, flag and local-wave block."""
+        its changed mask, delta, flag and two local-wave blocks (zero but
+        for the own segment's rows, which the commits write)."""
         run = _Run()
         lsub = self.part.lsub
         for sh in self.shards:
@@ -1047,9 +1055,22 @@ class Mesh2DEngine(QueryEngineBase):
                 run.flags.append(torch.zeros(1, dtype=torch.int32, device=sh.dev))
                 run.hits.append(torch.zeros((self._rows_in, kp), dtype=torch.int32,
                                             device=sh.dev))
+                run.local.append([torch.zeros((self._rows_in, kp), dtype=torch.int32,
+                                              device=sh.dev) for _ in range(2)])
         run.k_lanes = queries.shape[0]
         run.go = {dev: go_control(dev) for dev in self.mesh.distinct_devices()}
         return run
+
+    def _send(self, run: _Run, sh: _Shard, wave: int) -> torch.Tensor:
+        """The own segment's rows of the block local wave ``wave`` reads:
+        where the commit before it writes its send."""
+        lsub = self.part.lsub
+        return run.local[sh.rank][wave % 2][sh.i * lsub : (sh.i + 1) * lsub]
+
+    def _improved(self, run: _Run) -> bool:
+        """Some shard's commit of the latest tag improved something (one
+        stacked read)."""
+        return bool((stacked_read(run.flags) == run.tag).any())
 
     def _max_pass(self, run: _Run, sh: _Shard, block, out, floor: int) -> None:
         """Shard ``sh``'s candidate maxima of one block (M4)."""
@@ -1064,19 +1085,22 @@ class Mesh2DEngine(QueryEngineBase):
     def _exchange(self, run: _Run, floor: int):
         """One reconciling round: the changed entries shipped, max-folded
         through every tile, reduce-scattered by MAX and committed (M1)
-        with the round's delta and flag.  Returns the whole-mesh bytes of
-        the branch taken."""
+        with the round's delta, the changed mask set to it, the flag and
+        the first local wave's send.  Returns the whole-mesh bytes of the
+        branch taken."""
         kp = run.neg[0].shape[1]
         dense, row_sparse, col_sparse, col_dense = self._ledger(kp, lanes=kp)
         budget = self._budget(kp)
         sends = []
-        for sh, neg, ch, flag in zip(self.shards, run.neg, run.changed, run.flags):
+        for sh, neg, ch in zip(self.shards, run.neg, run.changed):
             with on_device(sh.dev):
                 sends.append(torch.where(ch, neg, torch.zeros_like(neg)))
-                flag.zero_()
+        run.tag += 1
 
         def commit(sh):
-            return Commit(run.neg[sh.rank], run.delta[sh.rank], None, run.flags[sh.rank])
+            return Commit(run.neg[sh.rank], run.delta[sh.rank], run.changed[sh.rank],
+                          run.flags[sh.rank], self._send(run, sh, 0), acc_set=True,
+                          tag=run.tag)
 
         sparse_ok = False
         if budget > 0 and self.w > 1 and self.residency == "hbm":
@@ -1125,31 +1149,31 @@ class Mesh2DEngine(QueryEngineBase):
 
     def _local_waves(self, run: _Run, floor: int) -> None:
         """Up to k - 1 collective-free waves: each shard's delta-masked own
-        segment at its col-block offset, one max pass over its tile, its
-        own destination rows committed (M1, one chunk) into the neg plane,
-        the changed mask accumulating the waves' deltas; stops when no
-        shard improved anything."""
-        lsub = self.part.lsub
-        if not run.local:
-            for sh, neg in zip(self.shards, run.neg):
-                run.local.append(torch.zeros((self._rows_in, neg.shape[1]), dtype=torch.int32,
-                                             device=sh.dev))
-        for sh, delta in zip(self.shards, run.delta):
-            with on_device(sh.dev):
-                run.changed[sh.rank].copy_(delta)
-        for _ in range(self.async_levels - 1):
-            for sh, neg, delta, block, flag in zip(self.shards, run.neg, run.delta, run.local,
-                                                   run.flags):
+        segment at its col-block offset (the send the commit before wrote),
+        one max pass over its tile whose own destination rows are committed
+        in the same launch (M4's commit form; on the streamed residency the
+        pass, then M1 over one chunk) into the neg plane, the changed mask
+        accumulating the waves' deltas and the next wave's send written;
+        stops when no shard improved anything."""
+        lsub, lt = self.part.lsub, self.part.lt
+        for wave in range(self.async_levels - 1):
+            run.tag += 1
+            for sh, neg, delta, flag in zip(self.shards, run.neg, run.delta, run.flags):
+                block = run.local[sh.rank][wave % 2]
+                commit = Commit(neg, delta, run.changed[sh.rank], flag,
+                                self._send(run, sh, wave + 1), tag=run.tag)
                 with on_device(sh.dev):
-                    block[sh.i * lsub : (sh.i + 1) * lsub].copy_(
-                        torch.where(delta, neg, torch.zeros_like(neg)))
-                    flag.zero_()
-                self._max_pass(run, sh, block, run.hits[sh.rank], floor)
-                with on_device(sh.dev):
-                    own = run.hits[sh.rank][sh.j * lsub : (sh.j + 1) * lsub]
-                    chunk_merge([own], op="max",
-                                commit=Commit(neg, delta, run.changed[sh.rank], flag))
-            if not stacked_read(run.flags).any():
+                    if sh.stream is not None:
+                        hits = run.hits[sh.rank]
+                        sh.stream.forest_pass(block[:lt], hits[:lt], run.go[sh.dev],
+                                              floor=floor)
+                        chunk_merge([hits[sh.j * lsub : (sh.j + 1) * lsub]], op="max",
+                                    commit=commit)
+                    else:
+                        forest_max_hits_commit(block[:lt], sh.tile, sh.j * lsub, commit, floor,
+                                               run.go[sh.dev],
+                                               self._scratch_of(sh, block.shape[1], "or"))
+            if not self._improved(run):
                 break
 
     def _run_async(self, queries) -> _Run:
@@ -1170,7 +1194,7 @@ class Mesh2DEngine(QueryEngineBase):
                     trip("dispatch")
                 nbytes += self._exchange(run, floor)
                 rounds += 1
-                go = bool(stacked_read(run.flags).any())
+                go = self._improved(run)
                 if not go:
                     break
                 self._local_waves(run, floor)

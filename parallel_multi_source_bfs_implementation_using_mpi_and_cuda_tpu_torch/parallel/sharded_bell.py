@@ -12,7 +12,9 @@ A level of one q-shard:
   compacted (global id, words) pairs instead (the sparse route), and the
   receivers rebuild the planes from them (H1 ``halo_pair_or``) or, when
   the pairs' in-block edges fit ``push_budget``, push them straight into
-  their own hit rows (H2 ``halo_push_or``);
+  their own hit rows (H2: ``halo_push_match`` finds each pair's in-block
+  edges once, its total feeds the route decision, and ``halo_push_or``
+  spreads the matched edges);
 * each shard's forest pass (K1 ``forest_or``) over the gathered planes,
   whose own rows are the shard's hits;
 * each shard's apply and row queue in one pass (K11 ``queue_compact``'s
@@ -50,7 +52,7 @@ from ..models.csr import CSRGraph
 from ..ops.bfs import INT32_MAX, validate_level_chunk
 from ..ops.bitbell import PushSwitch, _ConvergencePeek, batch_start
 from ..ops.cuda_bell import forest_or, forest_scratch
-from ..ops.cuda_halo import halo_pair_or, halo_push_or, pair_words
+from ..ops.cuda_halo import halo_pair_or, halo_push_match, halo_push_or, pair_words
 from ..ops.cuda_push import RowQueueCarry, row_compact, row_queue_scratch
 from ..ops.engine import QueryEngineBase
 from ..utils.timing import record_collective_bytes, record_dispatch
@@ -344,26 +346,22 @@ class ShardedBellEngine(QueryEngineBase):
         words = all_gather([s[1] for s in sends])
         return ids, words
 
-    def _edges_needed(self, row: _Row, ids) -> List[torch.Tensor]:
-        """Per shard, the in-block edges of the gathered pairs (int64)."""
+    def _matches(self, row: _Row, ids):
+        """Per shard, the gathered pairs matched against its push CSR (H2's
+        match, one launch): each pair's in-block edges and their total."""
         out = []
         for b, dev in enumerate(row.devices):
-            src_ids, _, src_cnt, _ = self.push[b, dev]
-            flat = ids[b]
-            if src_ids.shape[0] == 0:
-                out.append(torch.zeros(1, dtype=torch.int64, device=dev))
-                continue
-            pos = torch.clamp(torch.searchsorted(src_ids, flat), max=src_ids.shape[0] - 1)
-            match = (src_ids[pos] == flat) & (flat < self.n_pad)
-            out.append(torch.where(match, src_cnt[pos], 0).sum(dtype=torch.int64).view(1))
+            with on_device(dev):
+                out.append(halo_push_match(ids[b], self.push[b, dev]))
         return out
 
-    def _sparse_level(self, row: _Row, ids, words, push_ok) -> None:
+    def _sparse_level(self, row: _Row, ids, words, push_ok, matches, edges) -> None:
         rebuilt = {}
         for b, (dev, c) in enumerate(zip(row.devices, row.carries)):
             with on_device(dev):
                 if push_ok[b]:
-                    halo_push_or(ids[b], words[b], self.push[b, dev], c.hits)
+                    halo_push_or(ids[b], words[b], self.push[b, dev], c.hits, matches[b],
+                                 int(edges[b]))
                     continue
                 if dev not in rebuilt:
                     plane = torch.zeros((self.n_pad, c.frontier.shape[1]),
@@ -387,16 +385,18 @@ class ShardedBellEngine(QueryEngineBase):
                 self._finish_level(row)
             return True
         gathered = [self._pairs(row) for row in rows]
+        matches = [self._matches(row, ids) if self._can_push else None
+                   for row, (ids, _) in zip(rows, gathered)]
         parts = []
-        for row, (ids, _) in zip(rows, gathered):
+        for row, found in zip(rows, matches):
             parts += [c.count.to(torch.int64) for c in row.carries]
             parts += [c.ctrl[:2].to(torch.int64) for c in row.carries[:1]]
-            if self._can_push:
-                parts += self._edges_needed(row, ids)
+            if found is not None:
+                parts += [m.total for m in found]
         flat = np.concatenate(list(stacked_read_ragged(parts)))
         at = 0
         any_running = False
-        for row, (ids, words) in zip(rows, gathered):
+        for row, (ids, words), found in zip(rows, gathered, matches):
             p = len(row.carries)
             own = flat[at : at + p]
             updated, level = flat[at + p], flat[at + p + 1]
@@ -408,7 +408,8 @@ class ShardedBellEngine(QueryEngineBase):
             any_running = True
             if own.max() <= self.halo_budget:
                 self._sparse_level(row, ids, words,
-                                   [self._can_push and e <= self.push_budget for e in edges])
+                                   [self._can_push and e <= self.push_budget for e in edges],
+                                   found, edges)
             else:
                 self._dense_level(row)
             self._finish_level(row)

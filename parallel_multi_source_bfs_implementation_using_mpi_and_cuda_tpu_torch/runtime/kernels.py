@@ -117,9 +117,14 @@ KERNELS = {
         [ctypes.POINTER(_L), _I, _I, _P, _P, _I],
         "halo_exchange",
     ),
+    "halo_push_match": (
+        "msbfs_halo_push_match",
+        [_P, _L, _P, _P, _P, _L, _P, _P, _P, _P, _P, _U],
+        "halo_exchange",
+    ),
     "halo_push_or": (
         "msbfs_halo_push_or",
-        [_P, _P, _L, _I, _P, _P, _P, _L, _P, _P, _L],
+        [_P, _L, _I, _P, _P, _P, _L, _P, _P, _L],
         "halo_exchange",
     ),
     "owner_push_expand": (
@@ -133,7 +138,7 @@ KERNELS = {
     ),
     "chunk_merge": (
         "msbfs_chunk_merge",
-        [ctypes.POINTER(_L), _I, _L, _I, _P, _P, _P, _P, _P],
+        [ctypes.POINTER(_L), _I, _L, _I, _P, _P, _P, _P, _P, _I, _I, _P],
         "mesh_wire",
     ),
     "wire_encode": (
@@ -144,6 +149,12 @@ KERNELS = {
     "forest_max": (
         "msbfs_forest_max",
         [_P, _L, _P, _P, _I, _L, _P, _I, _I, _I, _I, _P, _P, _L, _L, _P, _I],
+    ),
+    "forest_max_commit": (
+        "msbfs_forest_max_commit",
+        [_P, _L, _P, _P, _I, _I, _I, _I, _I, _P, _P, _L, _L, _P, _I, _L, _L, _P, _P, _P, _I,
+         _P, _I, _P],
+        "forest_max",
     ),
 }
 

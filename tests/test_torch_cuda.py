@@ -2182,6 +2182,65 @@ def test_wire_decode_segments_matches_plain(cuda, segs, total):
     assert torch.equal(got.cpu(), torch.cat(planes))
 
 
+@pytest.mark.parametrize("case", ["mixed", "all-sentinel", "no-match", "hub", "wide"])
+@pytest.mark.parametrize("w", [1, 2])
+def test_halo_push_match_and_push_match_plain(cuda, case, w):
+    """H2's match (st, deg, pos, total) and its push given the match, bit for
+    bit against their plain versions, one launch each: pair lists of
+    sentinels only, of ids that are no source, of every source with the hub
+    (its edges spread over many blocks), mixed, and a wide list against a
+    CSR of more than 2048 sources (the search past the shared-memory
+    samples) with more pairs than one match tile holds."""
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.parallel import (
+        sharded_bell,
+    )
+    from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.ops import (
+        cuda_halo,
+    )
+
+    scale = 16 if case == "wide" else 12
+    n, edges = generators.rmat_edges(scale, edge_factor=16, seed=w)
+    g = CSRGraph.from_edges(n, edges)
+    p = 2
+    L = -(-n // p)
+    n_pad = p * L
+    rng = np.random.default_rng(w + len(case))
+    for csr in sharded_bell.build_push_halo(g, p, L):
+        src_ids, _, src_cnt, _ = csr
+        if case == "all-sentinel":
+            ids = np.full(3000, n_pad)
+        elif case == "no-match":
+            ids = np.concatenate([np.setdiff1d(np.arange(n), src_ids)[:2000],
+                                  np.full(1000, n_pad)])
+        elif case == "hub":
+            hub = np.argsort(src_cnt)[-3:]
+            ids = np.concatenate([src_ids[hub], rng.choice(src_ids, 200), np.full(500, n_pad)])
+            ids = np.concatenate([np.unique(ids[:-500]), ids[-500:]])
+        else:
+            count = 20000 if case == "wide" else 1500
+            ids = np.concatenate([np.unique(rng.integers(0, n, count)), np.full(count, n_pad)])
+        ids = torch.from_numpy(ids.astype(np.int32))
+        words = _planes(rng, ids.numel(), w)
+        csr_t = tuple(torch.from_numpy(a) for a in csr)
+        want_m = cuda_halo.halo_push_match_plain(ids, csr_t)
+        want = torch.zeros((L, w), dtype=torch.int32)
+        cuda_halo.halo_push_or_plain(ids, words, csr_t, want, want_m)
+        on = tuple(t.to(cuda) for t in csr_t)
+        timing.reset_launch_counts()
+        got_m = cuda_halo.halo_push_match(ids.to(cuda), on)
+        total = int(got_m.total[0])
+        got = torch.zeros((L, w), dtype=torch.int32, device=cuda)
+        cuda_halo.halo_push_or(ids.to(cuda), words.to(cuda), on, got, got_m, total)
+        assert timing.launch_counts() == {"halo_push_match": 1, "halo_push_or": 1}
+        for name, a, b in zip(want_m._fields, got_m, want_m):
+            assert torch.equal(a.cpu(), b), (case, name)
+        assert torch.equal(got.cpu(), want), case
+        if case in ("all-sentinel", "no-match"):
+            assert total == 0
+        if case == "wide":
+            assert src_ids.size > 2048 and ids.numel() > cuda_halo.MATCH_TILE
+
+
 @pytest.mark.parametrize("w", [1, 2, 5])
 def test_halo_push_or_matches_plain(cuda, w):
     from parallel_multi_source_bfs_implementation_using_mpi_and_cuda_tpu_torch.parallel import (
@@ -2373,11 +2432,112 @@ def test_chunk_merge_commit_matches_plain(cuda, acc, flag):
             cuda_mesh.chunk_merge_plain(ps, None, "max", c)
         else:
             cuda_mesh.chunk_merge(ps, op="max", commit=c)
-        outs[where] = [t.cpu() for t in c if t is not None]
+        outs[where] = [t.cpu() for t in c.tensors() if t is not None]
     for a, b in zip(outs["card"], outs["plain"]):
         assert torch.equal(a, b)
     if flag:
         assert int(outs["card"][-1]) == 1
+
+
+def _neg_planes(rng, shape, share=0.3, spread=50):
+    return torch.from_numpy(np.where(rng.random(shape) < share,
+                                     bitbell.NEG_BASE - rng.integers(0, spread, shape),
+                                     0).astype(np.int32))
+
+
+def _commit_on(dev, neg, before, send, acc_set=False, tag=9, offset=0):
+    """A Commit of fresh copies on ``dev``; neg and send ``offset`` lanes
+    into their buffers (misaligned for the 16-byte form when nonzero)."""
+    def at(t, fill):
+        buf = torch.full((t.numel() + offset,), fill, dtype=t.dtype, device=dev)
+        buf[offset:] = t.reshape(-1).to(dev)
+        return buf[offset:].view(t.shape)
+
+    return cuda_mesh.Commit(at(neg, 0), torch.zeros(neg.shape, dtype=torch.bool, device=dev),
+                            before.clone().to(dev), torch.zeros(1, dtype=torch.int32, device=dev),
+                            at(torch.full(neg.shape, -5, dtype=torch.int32), -5) if send else None,
+                            acc_set=acc_set, tag=tag)
+
+
+@pytest.mark.parametrize("w,offset", [(32, 0), (33, 0), (32, 1), (6, 0)])
+@pytest.mark.parametrize("acc_set,send", [(True, True), (False, True), (False, False)])
+def test_chunk_merge_send_matches_plain(cuda, w, offset, acc_set, send):
+    """M1's commit with its send epilogue (the exchange's form: changed set
+    to delta; a wave's: ORed), the flag set to the tag: the 16-byte form
+    (W = 32), the int32 form (W = 33 and 6, or planes one lane off their
+    alignment) bit for bit against the plain version; a second commit of
+    the same candidates improves nothing, leaves the flag and sends zeros."""
+    rng = np.random.default_rng(w + offset)
+    shape = (2500, w)
+    neg, parts = _neg_planes(rng, shape), [_neg_planes(rng, shape) for _ in range(2)]
+    before = torch.from_numpy(rng.random(shape) < 0.2)
+    outs = {}
+    for where, dev in (("plain", torch.device("cpu")), ("card", cuda)):
+        c = _commit_on(dev, neg, before, send, acc_set, offset=offset)
+        ps = [p.to(dev) for p in parts]
+        timing.reset_launch_counts()
+        for tag in (9, 11):
+            c = c._replace(tag=tag)
+            if where == "plain":
+                cuda_mesh.chunk_merge_plain(ps, None, "max", c)
+            else:
+                cuda_mesh.chunk_merge(ps, op="max", commit=c)
+            outs[where, tag] = [t.cpu().clone() for t in c.tensors() if t is not None]
+        if where == "card":
+            assert timing.launch_counts() == {"chunk_merge": 2}
+    for tag in (9, 11):
+        for a, b in zip(outs["card", tag], outs["plain", tag]):
+            assert torch.equal(a, b), tag
+    assert int(outs["card", 11][3]) == 9  # the second commit improved nothing
+    if send:
+        assert bool((outs["card", 11][4] == 0).all())
+
+
+@pytest.mark.parametrize("graph,w,offset", [("road", 32, 0), ("road", 33, 0), ("rmat", 32, 0),
+                                            ("rmat", 6, 0), ("rmat", 32, 1)])
+def test_forest_max_commit_matches_plain(cuda, graph, w, offset):
+    """M4's commit form (``forest_max_commit``: the own rows of a local
+    wave folded and committed in the last level's launch, the next send
+    written) bit for bit against its plain version (the take, then M1's
+    commit and the send's where) over neg, delta, changed, flag and send:
+    a one-level road forest and a multi-level RMAT forest, every own row
+    chunk in turn on one plane, 16-byte and int32 forms; gated off, nothing
+    moves."""
+    n, edges = (generators.road_edges(96, 96, seed=2) if graph == "road"
+                else generators.rmat_edges(12, 8, seed=4))
+    g = CSRGraph.from_edges(n, edges)
+    rng = np.random.default_rng(w + offset + 3)
+    block = _neg_planes(rng, (n, w), spread=6)
+    lsub = n // 4
+    neg = _neg_planes(rng, (lsub, w), share=0.5, spread=8)
+    before = torch.from_numpy(rng.random((lsub, w)) < 0.2)
+    floor = cuda_mesh.cand_floor(4)
+    host = BellGraph.from_host(g, torch.device("cpu"), keep_sparse=False)
+    bg = BellGraph.from_host(g, cuda, keep_sparse=False)
+    levels = len(bg.level_cols)
+    assert (levels == 1) == (graph == "road")
+    commits = {"plain": _commit_on(torch.device("cpu"), neg, before, True),
+               "card": _commit_on(cuda, neg, before, True, offset=offset)}
+    go = {"plain": cuda_mesh.go_control("cpu"), "card": cuda_mesh.go_control(cuda)}
+    front = {"plain": block, "card": block.to(cuda)}
+    for chunk in range(4):
+        timing.reset_launch_counts()
+        for where, graph_ in (("plain", host), ("card", bg)):
+            commits[where] = commits[where]._replace(tag=chunk + 3)
+            cuda_mesh.forest_max_hits_commit(front[where], graph_, chunk * lsub, commits[where],
+                                             floor, go[where])
+        launched = {"forest_max_commit": 1}
+        if levels > 1:
+            launched["forest_max"] = levels - 1
+        assert timing.launch_counts() == launched
+        for a, b in zip(commits["card"].tensors(), commits["plain"].tensors()):
+            assert torch.equal(a.cpu(), b), chunk
+    held = [t.clone() for t in commits["card"].tensors()]
+    stale = torch.tensor([1, 0, 0, 1], dtype=torch.int32, device=cuda)  # the push direction
+    cuda_mesh.forest_max_hits_commit(front["card"], bg, 0, commits["card"]._replace(tag=99),
+                                     floor, stale)
+    for a, b in zip(commits["card"].tensors(), held):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("lanes", [1, 4])
@@ -2546,3 +2706,51 @@ def test_mesh2d_cli_on_card(cuda, tmp_path, capsys, monkeypatch, env):
     # The col leg ran on the card: M1 (dense legs, MAX commits) or a sparse
     # leg's segmented H1.
     assert counts.get("chunk_merge", 0) > 0 or legs or env["MSBFS_MESH"] == "4x1", counts
+
+
+def test_mesh2d_async_local_waves_commit_in_m4(cuda, tmp_path, capsys, monkeypatch):
+    """The async drive (MSBFS_MESH=2x2, MSBFS_ASYNC_LEVELS=4) through the CLI
+    on the card reports what the CPU mesh reports; its local waves are M4's
+    commit form, one launch a shard a wave, and M1 runs only on the
+    exchanges' commits (one a shard a round, its send in the launch)."""
+    n, edges = generators.road_edges(60, 60, seed=5)
+    gpath, qpath = str(tmp_path / "g.bin"), str(tmp_path / "q.bin")
+    io.save_graph_bin(gpath, n, edges)
+    io.save_query_bin(qpath, generators.random_queries(n, 20, max_group=5, seed=6))
+    argv = ["prog", "-g", gpath, "-q", qpath, "-gn", "4"]
+    monkeypatch.setenv("MSBFS_MESH", "2x2")
+    monkeypatch.setenv("MSBFS_ASYNC_LEVELS", "4")
+    assert cli.main(argv, device="cpu", mesh_devices=["cpu"] * 4) == 0
+    want = capsys.readouterr().out.splitlines()[:5]
+    rounds, waves = [], []
+    real_ex, real_waves = partition2d.Mesh2DEngine._exchange, partition2d.Mesh2DEngine._local_waves
+
+    def exchange(self, run, floor):
+        if self.shards[0].dev.type == "cuda":
+            rounds.append(timing.launch_counts().get("chunk_merge", 0))
+        out = real_ex(self, run, floor)
+        if self.shards[0].dev.type == "cuda":
+            rounds[-1] = timing.launch_counts().get("chunk_merge", 0) - rounds[-1]
+        return out
+
+    def local_waves(self, run, floor):
+        before = dict(timing.launch_counts())
+        tag = run.tag
+        real_waves(self, run, floor)
+        if self.shards[0].dev.type == "cuda":
+            after = timing.launch_counts()
+            waves.append((run.tag - tag,
+                          {k: after.get(k, 0) - before.get(k, 0) for k in after}))
+
+    monkeypatch.setattr(partition2d.Mesh2DEngine, "_exchange", exchange)
+    monkeypatch.setattr(partition2d.Mesh2DEngine, "_local_waves", local_waves)
+    timing.reset_launch_counts()
+    assert cli.main(argv, mesh_devices=[cuda] * 4) == 0
+    assert capsys.readouterr().out.splitlines()[:5] == want
+    assert rounds and all(r == 4 for r in rounds), rounds
+    assert waves
+    for count, launched in waves:
+        assert launched.get("chunk_merge", 0) == 0, launched
+        assert launched.get("forest_max_commit", 0) == 4 * count, (count, launched)
+    variants = timing.variant_counts()
+    assert variants.get("chunk_merge:max/commit/send", 0) == timing.launch_counts()["chunk_merge"]

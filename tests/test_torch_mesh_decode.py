@@ -13,7 +13,10 @@ package, on the CPU (the port runs the kernels' plain versions here).
   JAX's F, per-query stats and wire trace, each gather one segmented call.
 * M4's take form (``forest_max_take``, and ``forest_max_hits`` over it)
   against JAX's ``_async_cand(forest_hits(..., max))`` on a one-level road
-  tile and on a multi-level RMAT tile, at both horizons.
+  tile and on a multi-level RMAT tile, at both horizons; its commit form
+  (``forest_max_hits_commit``, a local wave) on the same tiles against
+  that, sliced to each own row chunk, then ``neg_commit`` and the next
+  send ``where(delta, merged, 0)``.
 
 Every value compared is an integer: the tolerance is zero.
 """
@@ -301,3 +304,41 @@ def test_forest_max_take_matches_jax(name, max_levels):
                               off, tile.final_slot, held,
                               torch.tensor([0, 1, 0, 0], dtype=torch.int32))
     assert bool((held == -7).all())
+
+
+@pytest.mark.parametrize("max_levels", [None, 2])
+@pytest.mark.parametrize("name", sorted(TILES))
+def test_forest_max_commit_matches_jax(name, max_levels):
+    """M4's commit form over a whole forest (the multi-level tile's earlier
+    levels into scratch, the last level's own rows committed), every own
+    row chunk of the tile in turn on one neg plane as the local waves
+    commit: neg, delta, the changed mask (ORed), the send and the flag."""
+    make, widths, i, j = TILES[name]
+    n, edges = make()
+    part, tile, jtile = _tile(n, edges, widths, i, j)
+    lt, lsub = part.lt, part.lsub
+    rng = np.random.default_rng(len(tile.level_cols) + 20)
+    block = np.where(rng.random((lt, 32)) < 0.3,
+                     jbitbell.NEG_BASE - rng.integers(0, 5, (lt, 32)), 0).astype(np.int32)
+    cand = np.asarray(jp._async_cand(
+        jbell.forest_hits(jnp.asarray(block), jtile, lambda x: jnp.max(x, axis=1)), max_levels))
+    neg = np.where(rng.random((lsub, 32)) < 0.5,
+                   jbitbell.NEG_BASE - rng.integers(0, 6, (lsub, 32)), 0).astype(np.int32)
+    changed = np.zeros((lsub, 32), dtype=bool)
+    c = cuda_mesh.Commit(torch.from_numpy(neg.copy()), torch.zeros((lsub, 32), dtype=torch.bool),
+                         torch.from_numpy(changed.copy()), torch.zeros(1, dtype=torch.int32),
+                         torch.zeros((lsub, 32), dtype=torch.int32))
+    for chunk in range(lt // lsub):
+        merged, delta = jbitbell.neg_commit(jnp.asarray(neg),
+                                            jnp.asarray(cand[chunk * lsub : (chunk + 1) * lsub]))
+        c = c._replace(tag=chunk + 2)
+        cuda_mesh.forest_max_hits_commit(torch.from_numpy(block), tile, chunk * lsub, c,
+                                         cuda_mesh.cand_floor(max_levels),
+                                         cuda_mesh.go_control("cpu"))
+        neg, changed = np.asarray(merged), changed | np.asarray(delta)
+        np.testing.assert_array_equal(c.neg.numpy(), neg)
+        np.testing.assert_array_equal(c.delta.numpy(), np.asarray(delta))
+        np.testing.assert_array_equal(c.acc.numpy(), changed)
+        np.testing.assert_array_equal(c.send.numpy(), np.asarray(jnp.where(delta, merged, 0)))
+        if np.asarray(delta).any():
+            assert int(c.flag) == chunk + 2

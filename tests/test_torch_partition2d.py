@@ -235,26 +235,39 @@ def test_chunk_merge_matches_jax(op, chunks):
     np.testing.assert_array_equal(out.numpy().view(want.dtype), want)
 
 
-@pytest.mark.parametrize("with_acc", [False, True])
+@pytest.mark.parametrize("with_acc", [False, True, "set-send", "or-send"])
 def test_chunk_merge_commit_matches_neg_commit(with_acc):
+    """M1's commit epilogue against JAX's ``neg_commit``; with a send (the
+    exchange's and a wave's forms), also against ``neg_relax_chunk``'s next
+    send ``jnp.where(delta, merged, 0)``, the changed mask set to delta
+    (``set``) or ORed with it, and the flag set to the commit's tag."""
     rng = np.random.default_rng(5)
     neg = np.where(rng.random((11, 32)) < 0.4, jbitbell.NEG_BASE - rng.integers(0, 9, (11, 32)),
                    0).astype(np.int32)
     cands = [np.where(rng.random((11, 32)) < 0.3, jbitbell.NEG_BASE - rng.integers(0, 9, (11, 32)),
                       0).astype(np.int32) for _ in range(3)]
     merged, delta = jbitbell.neg_commit(jnp.asarray(neg), jnp.asarray(np.max(cands, axis=0)))
+    sending = isinstance(with_acc, str)
+    before = rng.random((11, 32)) < (0.3 if sending else 0.0)
     tneg = torch.from_numpy(neg.copy())
     tdelta = torch.zeros((11, 32), dtype=torch.bool)
-    acc = torch.zeros((11, 32), dtype=torch.bool) if with_acc else None
+    acc = torch.from_numpy(before.copy()) if with_acc else None
     flag = torch.zeros(1, dtype=torch.int32)
+    send = torch.full((11, 32), -3, dtype=torch.int32) if sending else None
+    tag = 7 if sending else 1
     collectives_parts = [torch.from_numpy(c) for c in cands]
     cuda_mesh.chunk_merge(collectives_parts, op="max",
-                          commit=cuda_mesh.Commit(tneg, tdelta, acc, flag))
+                          commit=cuda_mesh.Commit(tneg, tdelta, acc, flag, send,
+                                                  acc_set=with_acc == "set-send", tag=tag))
     np.testing.assert_array_equal(tneg.numpy(), np.asarray(merged))
     np.testing.assert_array_equal(tdelta.numpy(), np.asarray(delta))
-    assert int(flag) == int(np.asarray(delta).any())
+    assert int(flag) == (tag if np.asarray(delta).any() else 0)
     if with_acc:
-        np.testing.assert_array_equal(acc.numpy(), np.asarray(delta))
+        want = np.asarray(delta) if with_acc == "set-send" else before | np.asarray(delta)
+        np.testing.assert_array_equal(acc.numpy(), want)
+    if sending:
+        np.testing.assert_array_equal(send.numpy(),
+                                      np.asarray(jnp.where(delta, merged, 0)))
 
 
 @pytest.mark.parametrize("lanes,shape,density", [
@@ -334,6 +347,51 @@ def test_forest_max_matches_jax(workload, max_levels):
         jstreamed._extend(jnp.asarray(neg)), jnp.asarray(tile.level_cols[0].numpy()),
         pieces[0], "max"))
     np.testing.assert_array_equal(out.numpy(), want0)
+
+
+@pytest.mark.parametrize("chunk", [0, 1])
+@pytest.mark.parametrize("max_levels", [None, 2])
+def test_forest_max_commit_matches_jax(workload, max_levels, chunk):
+    """M4's commit form (a local wave: the tile's own row chunk folded and
+    committed in the last level's launch) against JAX's
+    ``_async_cand(forest_hits(..., max))`` sliced to the chunk, then
+    ``neg_commit`` and the next send ``where(delta, merged, 0)``; the
+    changed mask ORed, the flag set to the wave's tag; gated off, nothing
+    moves."""
+    part, tile, jtile = _tile_graphs(workload)
+    rng = np.random.default_rng(4 + chunk)
+    lt, lsub = part.lt, part.lsub
+    block = np.where(rng.random((lt, 32)) < 0.3,
+                     jbitbell.NEG_BASE - rng.integers(0, 5, (lt, 32)), 0).astype(np.int32)
+    cand = np.asarray(jp._async_cand(
+        jbell.forest_hits(jnp.asarray(block), jtile, lambda x: jnp.max(x, axis=1)), max_levels))
+    neg = np.where(rng.random((lsub, 32)) < 0.5,
+                   jbitbell.NEG_BASE - rng.integers(0, 6, (lsub, 32)), 0).astype(np.int32)
+    merged, delta = jbitbell.neg_commit(jnp.asarray(neg),
+                                        jnp.asarray(cand[chunk * lsub : (chunk + 1) * lsub]))
+    before = rng.random((lsub, 32)) < 0.2
+
+    def commit():
+        return cuda_mesh.Commit(torch.from_numpy(neg.copy()),
+                                torch.zeros((lsub, 32), dtype=torch.bool),
+                                torch.from_numpy(before.copy()),
+                                torch.zeros(1, dtype=torch.int32),
+                                torch.full((lsub, 32), -3, dtype=torch.int32), tag=5)
+
+    c = commit()
+    cuda_mesh.forest_max_hits_commit(torch.from_numpy(block), tile, chunk * lsub, c,
+                                     cuda_mesh.cand_floor(max_levels), cuda_mesh.go_control("cpu"))
+    np.testing.assert_array_equal(c.neg.numpy(), np.asarray(merged))
+    np.testing.assert_array_equal(c.delta.numpy(), np.asarray(delta))
+    np.testing.assert_array_equal(c.acc.numpy(), before | np.asarray(delta))
+    np.testing.assert_array_equal(c.send.numpy(), np.asarray(jnp.where(delta, merged, 0)))
+    assert int(c.flag) == (5 if np.asarray(delta).any() else 0)
+    held = commit()
+    cuda_mesh.forest_max_hits_commit(torch.from_numpy(block), tile, chunk * lsub, held,
+                                     cuda_mesh.cand_floor(max_levels),
+                                     torch.tensor([0, 1, 0, 0], dtype=torch.int32))
+    for got, want in zip(held.tensors(), commit().tensors()):
+        assert torch.equal(got, want)
 
 
 def test_neg_helpers_match_jax():

@@ -5,7 +5,8 @@ F vectors, ``best()``, the per-query and per-level stats, the halo trace
 (route, rows and bytes of every level) and the collective-bytes counter
 must be equal (integers: zero tolerance) under every halo routing.  Also
 the push-halo layout, the byte model and budgets, the halo table, and
-H1's and H2's plain versions against the JAX expressions they replace."""
+H1's and H2's plain versions (H2's match and its push) against the JAX
+expressions they replace."""
 
 import jax
 import jax.numpy as jnp
@@ -232,6 +233,87 @@ def test_halo_push_or_plain_matches_jax(problems, p, w):
                                torch.from_numpy(flat_words.view(np.int32)),
                                tuple(torch.from_numpy(a) for a in (src_ids, src_start,
                                                                    src_cnt, vals)), got)
+        np.testing.assert_array_equal(got.numpy().view(np.uint32), np.asarray(want))
+
+
+def _jax_match(csr, flat_ids, n_pad):
+    """The JAX package's match of the gathered pairs (parallel/sharded_bell.py
+    ``sparse_level``: searchsorted, deg and st where matched, their sum)."""
+    src_ids, src_start, src_cnt = (jnp.asarray(a) for a in csr[:3])
+    ids = jnp.asarray(flat_ids)
+    pos = jnp.searchsorted(src_ids, ids)
+    pos_c = jnp.minimum(pos, src_ids.shape[0] - 1).astype(jnp.int32)
+    match = (jnp.take(src_ids, pos_c) == ids) & (ids < n_pad)
+    deg = jnp.where(match, jnp.take(src_cnt, pos_c), 0)
+    st = jnp.where(match, jnp.take(src_start, pos_c), 0)
+    return np.asarray(st), np.asarray(deg), int(jnp.sum(deg))
+
+
+def _match_ids(rng, csr, n, n_pad, case):
+    """Gathered pair ids, ascending a shard's segment and sentinel-padded:
+    random ids (some sources, some not), all sentinels, no source at all,
+    or every source with the hub (the most in-block edges) among them."""
+    src_ids, _, src_cnt, _ = csr
+    if case == "all-sentinel":
+        return np.full(48, n_pad, dtype=np.int32)
+    if case == "no-match":
+        others = np.setdiff1d(np.arange(n), src_ids)[:40]
+        return np.concatenate([others, np.full(8, n_pad)]).astype(np.int32)
+    if case == "hub":
+        hub = src_ids[np.argmax(src_cnt)]
+        return np.concatenate([np.sort(np.unique(np.append(src_ids, hub))),
+                               np.full(5, n_pad)]).astype(np.int32)
+    ids = np.sort(np.unique(rng.integers(0, n, 40)))
+    return np.concatenate([ids, np.full(60 - ids.size, n_pad)]).astype(np.int32)
+
+
+MATCH_CASES = ["mixed", "all-sentinel", "no-match", "hub"]
+
+
+@pytest.mark.parametrize("case", MATCH_CASES)
+@pytest.mark.parametrize("kind,p", [("road", 4), ("rmat", 2)])
+def test_halo_push_match_plain_matches_jax(problems, kind, p, case):
+    """H2's match: each pair's (st, deg), sentinels and unmatched ids at 0,
+    and the in-block edge total against JAX's route-decision expressions;
+    ``pos`` against ``_push_own_hits``' exclusive ``cumsum(deg) - deg``."""
+    n, edges, _, jg, g = problems[kind]
+    L = -(-n // p)
+    rng = np.random.default_rng(p + len(case))
+    for csr in sb.build_push_halo(g, p, L):
+        if len(csr[0]) == 0:
+            continue
+        ids = _match_ids(rng, csr, n, p * L, case)
+        st, deg, total = _jax_match(csr, ids, p * L)
+        got = cuda_halo.halo_push_match(torch.from_numpy(ids),
+                                        tuple(torch.from_numpy(a) for a in csr))
+        np.testing.assert_array_equal(got.st.numpy(), st)
+        np.testing.assert_array_equal(got.deg.numpy(), deg)
+        np.testing.assert_array_equal(got.pos.numpy(), np.cumsum(deg) - deg)
+        assert got.total.dtype == torch.int64 and int(got.total) == total
+        if case in ("all-sentinel", "no-match"):
+            assert total == 0
+
+
+@pytest.mark.parametrize("case", MATCH_CASES)
+def test_halo_push_or_with_match_matches_jax(problems, case):
+    """H2's push given its match (the engine's two launches), against JAX's
+    ``_push_own_hits`` on the same pairs and (st, deg), at W = 2."""
+    n, edges, _, jg, g = problems["rmat"]
+    p, w = 2, 2
+    L = -(-n // p)
+    rng = np.random.default_rng(len(case))
+    for csr in sb.build_push_halo(g, p, L):
+        ids = _match_ids(rng, csr, n, p * L, case)
+        words = rng.integers(1, 2**32, (ids.size, w), dtype=np.uint64).astype(np.uint32)
+        st, deg, total = _jax_match(csr, ids, p * L)
+        want = jsb._push_own_hits(tuple(jnp.asarray(a) for a in csr), jnp.asarray(ids),
+                                  jnp.asarray(words), jnp.asarray(deg), jnp.asarray(st), L,
+                                  total + 1)
+        tcsr = tuple(torch.from_numpy(a) for a in csr)
+        match = cuda_halo.halo_push_match(torch.from_numpy(ids), tcsr)
+        got = torch.zeros((L, w), dtype=torch.int32)
+        cuda_halo.halo_push_or(torch.from_numpy(ids), torch.from_numpy(words.view(np.int32)),
+                               tcsr, got, match, total)
         np.testing.assert_array_equal(got.numpy().view(np.uint32), np.asarray(want))
 
 
